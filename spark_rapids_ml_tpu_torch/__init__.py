@@ -1,0 +1,25 @@
+"""spark_rapids_ml_tpu_torch — the PyTorch/CUDA port of spark_rapids_ml_tpu.
+
+A second package beside the JAX one, for one NVIDIA H100. It imports
+``torch``, numpy and the standard library, never JAX and nothing of the
+JAX package, which stays the reference it is tested against. This slice
+holds PCA: the in-memory and streaming fits and transform, whose Gram
+statistics run in hand-written Hopper kernels (``ops/csrc/gram.cu``).
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+
+Float32 products run in full float32 for the whole process: TF32 is
+turned off once, here, as the JAX package pins ``Precision.HIGHEST``. The
+setting is never toggled per call, so concurrent callers (transform served
+from threads) all see the same one.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+from spark_rapids_ml_tpu_torch import config  # noqa: E402
+from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel  # noqa: E402
+
+__all__ = ["PCA", "PCAModel", "config"]

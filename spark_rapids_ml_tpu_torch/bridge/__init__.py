@@ -1,0 +1,1 @@
+"""bridge of the PyTorch port (see the package docstring)."""

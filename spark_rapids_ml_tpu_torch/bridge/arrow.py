@@ -1,0 +1,107 @@
+"""Arrow list column <-> contiguous (n, d) matrix conversion.
+
+The port's copy of ``spark_rapids_ml_tpu/bridge/arrow.py``: the reference
+reads training rows as a LIST column and grabs its flat child buffer
+(rapidsml_jni.cu:114-115); here a ``fixed_size_list`` column reshapes its
+child values zero-copy, and a ragged ``list``/``large_list`` is validated
+and gathered. pyarrow is optional: without it only the numpy and torch
+containers are accepted. The native threaded gather waits for the
+data-plane slice; multi-chunk columns concatenate with numpy.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+try:
+    import pyarrow as pa
+except ImportError:  # pragma: no cover - the GPU image ships without pyarrow
+    pa = None
+
+
+def _require_pa():
+    if pa is None:
+        raise ImportError("pyarrow is required for the Arrow columnar bridge")
+
+
+def list_column_to_matrix(col, n_cols: Optional[int] = None) -> np.ndarray:
+    """Convert an Arrow (Chunked)Array of list type to an (n, d) ndarray."""
+    _require_pa()
+    if isinstance(col, pa.ChunkedArray):
+        if col.num_chunks == 1:
+            return _array_to_matrix(col.chunk(0), n_cols)
+        mats = [_array_to_matrix(c, n_cols) for c in col.chunks if len(c)]
+        if not mats:
+            return np.empty((0, n_cols or 0))
+        return np.concatenate(mats, axis=0)
+    return _array_to_matrix(col, n_cols)
+
+
+def _array_to_matrix(arr, n_cols: Optional[int]) -> np.ndarray:
+    if arr.null_count:
+        raise ValueError("list column contains nulls; expected dense vectors")
+    t = arr.type
+    if pa.types.is_fixed_size_list(t):
+        d = t.list_size
+        if n_cols is not None and d != n_cols:
+            raise ValueError(f"fixed_size_list width {d} != expected {n_cols}")
+        # flatten() accounts for slicing (arr.values is the unsliced child).
+        flat = arr.flatten()
+        if flat.null_count:
+            raise ValueError("list column contains null elements; expected dense vectors")
+        return flat.to_numpy(zero_copy_only=True).reshape(len(arr), d)
+    if pa.types.is_list(t) or pa.types.is_large_list(t):
+        offsets = np.asarray(arr.offsets)
+        child = arr.values  # unsliced child; offsets index into it
+        start, stop = int(offsets[0]), int(offsets[-1])
+        if child.null_count and child.slice(start, stop - start).null_count:
+            raise ValueError("list column contains null elements; expected dense vectors")
+        vals = child.to_numpy(zero_copy_only=child.null_count == 0)
+        widths = np.diff(offsets)
+        if len(widths) == 0:
+            return np.empty((0, n_cols or 0), dtype=vals.dtype)
+        d = int(widths[0]) if n_cols is None else n_cols
+        if not np.all(widths == d):
+            raise ValueError("ragged list column: rows have differing lengths")
+        return vals[start:stop].reshape(len(arr), d)
+    raise TypeError(f"unsupported Arrow type for vector column: {t}")
+
+
+def table_column_to_matrix(table, name: str, n_cols: Optional[int] = None) -> np.ndarray:
+    """Extract column ``name`` of an Arrow Table as an (n, d) matrix."""
+    _require_pa()
+    if name not in table.column_names:
+        raise KeyError(f"column {name!r} not in table (have {table.column_names})")
+    return list_column_to_matrix(table.column(name), n_cols)
+
+
+def matrix_to_list_column(mat: np.ndarray):
+    """Wrap an (n, d) ndarray as an Arrow fixed_size_list array."""
+    _require_pa()
+    mat = np.ascontiguousarray(mat)
+    return pa.FixedSizeListArray.from_arrays(pa.array(mat.reshape(-1)), mat.shape[1])
+
+
+def matrix_from_any(col) -> Tuple[object, int]:
+    """Best-effort conversion of a column of vectors in any host format.
+
+    A 2-D ``torch.Tensor`` passes through as it is (on whatever device it
+    lies), so device-resident data reaches the fit without a host copy.
+    """
+    import torch
+
+    if isinstance(col, torch.Tensor):
+        if col.dim() != 2:
+            raise ValueError(f"expected 2-D vector column, got shape {tuple(col.shape)}")
+        return col, col.shape[1]
+    if pa is not None and isinstance(col, (pa.Array, pa.ChunkedArray)):
+        m = list_column_to_matrix(col)
+        return m, m.shape[1]
+    arr = np.asarray(col)
+    if arr.dtype == object:
+        arr = np.stack([np.asarray(r) for r in arr])
+    if arr.ndim != 2:
+        raise ValueError(f"expected 2-D vector column, got shape {arr.shape}")
+    return arr, arr.shape[1]

@@ -1,0 +1,88 @@
+"""Runtime configuration of the PyTorch port.
+
+The counterpart of ``spark_rapids_ml_tpu/config.py``, cut to the keys the
+PCA slice reads. Values are settable programmatically or through
+environment variables prefixed ``SRML_TORCH_`` — a prefix of its own, so
+the port never inherits the JAX package's ``SRML_TPU_*`` settings.
+
+There is no ``use_pallas`` switch: the device of the tensor decides. A
+CUDA tensor goes through the hand-written kernel, a CPU tensor through
+its plain PyTorch version (``ops/kernels.py``).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Dict, Optional
+
+import torch
+
+_PREFIX = "SRML_TORCH_"
+
+
+def _env(name: str, default: str) -> str:
+    return os.environ.get(_PREFIX + name, default)
+
+
+_DEFAULTS: Dict[str, Any] = {
+    # Dtype of the big GEMM operands. "auto" = bfloat16 on CUDA (the
+    # tensor-core type of the fold), float32 on the CPU.
+    "compute_dtype": _env("COMPUTE_DTYPE", "auto"),
+    # Dtype of the (count, colsum, Gram) accumulators. The kernels
+    # accumulate in float32; float64 is the parity mode the tests run.
+    "accum_dtype": _env("ACCUM_DTYPE", "float32"),
+    # Eigensolver: "full" (exact eigh) or "randomized" (subspace
+    # iteration with a seeded torch.Generator).
+    "solver": _env("SOLVER", "full"),
+    # Where the eigensolve runs: "device" = torch.linalg.eigh in float64 on
+    # the fit's device, "host" = numpy/LAPACK float64; "auto" = "device".
+    "finalize": _env("FINALIZE", "auto"),
+}
+
+_lock = threading.Lock()
+_conf: Dict[str, Any] = dict(_DEFAULTS)
+
+
+def get(key: str) -> Any:
+    """The stored value of ``key`` ("auto" left unresolved)."""
+    with _lock:
+        if key not in _conf:
+            raise KeyError(f"unknown config key: {key!r} (known: {sorted(_conf)})")
+        return _conf[key]
+
+
+def set(key: str, value: Any) -> None:  # noqa: A003 - mirrors SparkConf.set
+    with _lock:
+        if key not in _conf:
+            raise KeyError(f"unknown config key: {key!r} (known: {sorted(_conf)})")
+        _conf[key] = value
+
+
+def compute_dtype(device) -> torch.dtype:
+    """``compute_dtype`` as a torch dtype, "auto" resolved for ``device``."""
+    name = get("compute_dtype")
+    if name == "auto":
+        return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+    return getattr(torch, name)
+
+
+def accum_dtype() -> torch.dtype:
+    return getattr(torch, get("accum_dtype"))
+
+
+class option:
+    """Context manager to temporarily override a config value."""
+
+    def __init__(self, key: str, value: Any):
+        self._key = key
+        self._value = value
+        self._saved: Optional[Any] = None
+
+    def __enter__(self) -> "option":
+        self._saved = get(self._key)
+        set(self._key, self._value)
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        set(self._key, self._saved)

@@ -1,0 +1,99 @@
+"""Dataset abstraction: column access over host data containers.
+
+The port's copy of ``spark_rapids_ml_tpu/core/dataset.py`` (the slice's
+part of it). Estimators address columns by name over a
+``pyarrow.Table``/``RecordBatch``, a ``pandas.DataFrame``, a ``dict`` of
+name → array or tensor, or a bare 2-D matrix (numpy array or
+``torch.Tensor``; column names ignored). ``with_column`` returns the same
+container kind with the output column appended, mirroring
+``df.withColumn(outputCol, ...)`` (RapidsPCA.scala:165).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+try:
+    import pyarrow as pa
+except ImportError:  # pragma: no cover
+    pa = None
+
+try:
+    import pandas as pd
+except ImportError:  # pragma: no cover
+    pd = None
+
+from spark_rapids_ml_tpu_torch.bridge import arrow as _arrow_bridge
+
+
+def _is_arrow(dataset: Any) -> bool:
+    return pa is not None and isinstance(dataset, (pa.Table, pa.RecordBatch))
+
+
+def _is_pandas(dataset: Any) -> bool:
+    return pd is not None and isinstance(dataset, pd.DataFrame)
+
+
+def num_rows(dataset: Any) -> int:
+    if _is_arrow(dataset):
+        return dataset.num_rows
+    if _is_pandas(dataset):
+        return len(dataset)
+    if isinstance(dataset, dict):
+        if not dataset:
+            return 0
+        return len(next(iter(dataset.values())))
+    return int(dataset.shape[0]) if hasattr(dataset, "shape") else len(dataset)
+
+
+def as_matrix(dataset: Any, col: Optional[str] = None, n_cols: Optional[int] = None):
+    """Extract a column of fixed-width vectors as an (n, d) matrix (numpy
+    array, or the tensor itself when the column is a ``torch.Tensor``)."""
+    if _is_arrow(dataset):
+        assert col is not None, "column name required for Arrow datasets"
+        if isinstance(dataset, pa.RecordBatch):
+            dataset = pa.Table.from_batches([dataset])
+        return _arrow_bridge.table_column_to_matrix(dataset, col, n_cols)
+    if _is_pandas(dataset):
+        assert col is not None, "column name required for pandas datasets"
+        mat, _ = _arrow_bridge.matrix_from_any(dataset[col].to_numpy())
+        return mat
+    if isinstance(dataset, dict):
+        assert col is not None, "column name required for dict datasets"
+        mat, _ = _arrow_bridge.matrix_from_any(dataset[col])
+        return mat
+    mat, _ = _arrow_bridge.matrix_from_any(dataset)
+    return mat
+
+
+def with_column(dataset: Any, name: str, values) -> Any:
+    """Return the dataset with ``values`` appended as column ``name``.
+
+    2-D values become a vector column in the container's native vector
+    representation (Arrow fixed_size_list / pandas object column of arrays).
+    """
+    if _is_arrow(dataset) or _is_pandas(dataset):
+        values = values.cpu().numpy() if isinstance(values, torch.Tensor) else np.asarray(values)
+    if _is_arrow(dataset):
+        if isinstance(dataset, pa.RecordBatch):
+            dataset = pa.Table.from_batches([dataset])
+        if values.ndim == 2:
+            col = _arrow_bridge.matrix_to_list_column(values)
+        else:
+            col = pa.array(values)
+        if name in dataset.column_names:
+            dataset = dataset.drop_columns([name])
+        return dataset.append_column(name, col)
+    if _is_pandas(dataset):
+        out = dataset.copy()
+        out[name] = list(values) if values.ndim == 2 else values
+        return out
+    if isinstance(dataset, dict):
+        out = dict(dataset)
+        out[name] = values
+        return out
+    # Bare matrix in, bare matrix out (the pure-matrix API).
+    return values

@@ -1,0 +1,427 @@
+"""Principal Component Analysis — the reference's one shipped algorithm,
+in PyTorch on one CUDA device.
+
+The port of ``spark_rapids_ml_tpu/models/pca.py``. Reference call stack
+(SURVEY.md §3.1): ``PCA.fit`` (PCA.scala:27-37) → ``RapidsPCA.fit``
+(RapidsPCA.scala:72-80) → ``computePrincipalComponentsAndExplainedVariance``
+(RapidsRowMatrix.scala:59-102): per-partition Gram → reduce → single-GPU
+eig → top-k slice.
+
+Fit: the fused (count, Σx, XᵀX) stats come from the hand-written Gram
+kernels (``ops/kernels.py``): the in-memory :func:`fit_pca` through the
+masked ``gram`` kernel, the streaming :func:`fit_pca_stream` through one
+seeded ``gram_colsum`` launch per batch. The eigensolve then runs in
+float64: ``torch.linalg.eigh`` on the fit's device (config ``finalize``
+"auto", which resolves to "device") or numpy on the host ("host").
+
+Transform matches ``RapidsPCAModel.transform`` (RapidsPCA.scala:122-166):
+y = x @ pc with NO re-centring; the principal components stay resident on
+the device across batches.
+
+Entry points run on the card unless the caller passes ``device="cpu"``;
+without a CUDA device they raise rather than run on the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Iterable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from spark_rapids_ml_tpu_torch import config
+from spark_rapids_ml_tpu_torch.core import checkpoint as ckpt
+from spark_rapids_ml_tpu_torch.core.dataset import as_matrix, with_column
+from spark_rapids_ml_tpu_torch.core.params import (
+    Estimator,
+    HasInputCol,
+    HasOutputCol,
+    Model,
+    ParamDecl,
+    ParamValidators,
+    TypeConverters,
+)
+from spark_rapids_ml_tpu_torch.core.persistence import MLReadable, MLWritable
+from spark_rapids_ml_tpu_torch.ops import gram as gram_ops
+from spark_rapids_ml_tpu_torch.ops.eigh import (
+    pca_from_gram,
+    pca_from_gram_host,
+    pca_from_gram_randomized,
+)
+from spark_rapids_ml_tpu_torch.parallel.sharding import (
+    as_tensor,
+    resolve_device,
+    to_device,
+)
+from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
+
+
+class PCASolution(NamedTuple):
+    """Fit result (host-side numpy)."""
+
+    pc: np.ndarray  # (d, k) principal components, columns descending
+    explained_variance: np.ndarray  # (k,) σᵢ/Σσ — reference semantics
+    sigma: np.ndarray  # (d,) singular values √λ of the (centred) Gram
+    mean: np.ndarray  # (d,) column means observed during fit
+    n_rows: int
+
+
+_SOLVERS = ("full", "randomized")
+_FINALIZE_MODES = ("device", "host")
+
+
+def _resolve_solver(solver: Optional[str]) -> str:
+    """None/"auto" → config ``solver``; otherwise validate explicitly —
+    a typo must not silently select the slow exact path."""
+    if solver is None or solver == "auto":
+        solver = config.get("solver")
+    if solver == "auto":
+        solver = "full"
+    if solver not in _SOLVERS:
+        raise ValueError(f"solver must be one of {_SOLVERS} or 'auto', got {solver!r}")
+    return solver
+
+
+def _check_k(k: int, n_cols: int) -> None:
+    if not 0 < k <= n_cols:
+        # require(k > 0 && k <= n) — RapidsRowMatrix.scala:60
+        raise ValueError(f"k = {k} out of range (0, n = {n_cols}]")
+
+
+def _finalize_on_host(count, colsum, gram, mean_center: bool, k: int):
+    """Centring + calSVD-equivalent in host float64."""
+    count = float(np.asarray(count))
+    colsum = np.asarray(colsum, dtype=np.float64)
+    g = np.asarray(gram, dtype=np.float64)
+    mean = colsum / max(count, 1.0)
+    if mean_center:
+        g = g - np.outer(mean, colsum)
+    pc, ev, s = pca_from_gram_host(g, k)
+    return pc, ev, s, mean
+
+
+def _finalize(count, colsum, gram, mean_center: bool, k: int, solver: str):
+    """(count, colsum, gram) → (pc, ev, σ, mean) as float64 numpy."""
+    mode = config.get("finalize")
+    if mode == "auto":  # cuSOLVER's float64 eigh needs no host round trip
+        mode = "device"
+    if mode not in _FINALIZE_MODES:
+        raise ValueError(f"finalize must be one of {_FINALIZE_MODES} or 'auto', got {mode!r}")
+    if mode == "host" and solver != "randomized":
+        as_np = lambda t: t.cpu().numpy() if isinstance(t, torch.Tensor) else t  # noqa: E731
+        return _finalize_on_host(as_np(count), as_np(colsum), as_np(gram), mean_center, k)
+    f64 = [as_tensor(t).to(torch.float64) for t in (count, colsum, gram)]
+    g, mean = gram_ops.finalize_gram(*f64, mean_center)
+    fn = pca_from_gram_randomized if solver == "randomized" else pca_from_gram
+    pc, ev, s = fn(g, k)
+    return tuple(t.cpu().numpy() for t in (pc, ev, s, mean))
+
+
+def _solution(out, n_rows: int) -> PCASolution:
+    pc, ev, s, mean = (np.asarray(a, dtype=np.float64) for a in out)
+    return PCASolution(pc=pc, explained_variance=ev, sigma=s, mean=mean, n_rows=n_rows)
+
+
+def fit_pca(
+    x,
+    k: int,
+    mean_center: bool = True,
+    solver: Optional[str] = None,
+    device=None,
+) -> PCASolution:
+    """Fit PCA on an in-memory (n, d) matrix (numpy array or tensor).
+
+    The Gram is the masked ``gram`` kernel on CUDA (bfloat16 or float32
+    compute). ``solver``: None → config ``solver``; "full" = exact eigh,
+    "randomized" = subspace iteration (:func:`pca_from_gram_randomized`).
+    ``device``: None → the card."""
+    dev = resolve_device(device)
+    solver = _resolve_solver(solver)
+    d = x.shape[1]
+    _check_k(k, d)
+    gram_ops.require_gram_capacity(d)
+    with trace_span("compute cov"):  # phase names kept from the reference
+        xs = to_device(x, dev)
+        count, colsum, g = gram_ops.local_stats(xs)
+    with trace_span("eig finalize"):
+        out = _finalize(count, colsum, g, mean_center, k, solver)
+    return _solution(out, int(xs.shape[0]))
+
+
+def fit_pca_stream(
+    batches: Iterable,
+    k: int,
+    n_cols: int,
+    mean_center: bool = True,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 16,
+    solver: Optional[str] = None,
+    device=None,
+) -> PCASolution:
+    """Fit PCA over a stream of row batches (dataset ≫ device memory).
+
+    Each batch (numpy array or tensor, (m, n_cols)) is cast once to the
+    compute dtype on the device and folded into the device-resident
+    (count, colsum, gram) state in place by ONE seeded ``gram_colsum``
+    launch (bfloat16/float32 compute, float32 state).
+
+    With ``checkpoint_path``, the O(d²) accumulator is atomically persisted
+    every ``checkpoint_every`` batches and the fit RESUMES from it if the
+    file exists: callers re-supply the same batch iterator and already-
+    consumed batches are skipped. The checkpoint is removed on success.
+    """
+    _check_k(k, n_cols)
+    if checkpoint_every < 1:
+        raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
+    solver = _resolve_solver(solver)  # fail fast, before consuming batches
+    dev = resolve_device(device)
+    gram_ops.require_gram_capacity(n_cols)
+    cd = config.compute_dtype(dev)
+    state = gram_ops.init_stats(n_cols, device=dev)
+    n_true = 0
+    skip_batches = 0
+    if checkpoint_path:
+        restored = ckpt.load_state(checkpoint_path)
+        if restored is not None:
+            arrays, meta = restored
+            if meta.get("n_cols") != n_cols:
+                raise ValueError(
+                    f"checkpoint at {checkpoint_path} is for n_cols="
+                    f"{meta.get('n_cols')}, not {n_cols}"
+                )
+            state = tuple(
+                as_tensor(arrays[name]).to(device=dev, dtype=config.accum_dtype())
+                for name in ("count", "colsum", "gram")
+            )
+            n_true = int(meta["n_rows"])
+            skip_batches = int(meta["n_batches"])
+    with trace_span("compute cov"):
+        for i, batch in enumerate(batches):
+            if i < skip_batches:
+                continue
+            xb = to_device(batch, dev, cd)
+            if xb.dim() != 2 or xb.shape[1] != n_cols:
+                raise ValueError(
+                    f"batch {i} has shape {tuple(xb.shape)}, expected (m, {n_cols})"
+                )
+            n_true += xb.shape[0]
+            gram_ops.streaming_update_rows(state, xb, xb.shape[0], compute_dtype=cd)
+            if checkpoint_path and (i + 1) % checkpoint_every == 0:
+                count, colsum, g = (t.cpu().numpy() for t in state)
+                ckpt.save_state(
+                    checkpoint_path,
+                    {"count": count, "colsum": colsum, "gram": g},
+                    {"n_rows": n_true, "n_batches": i + 1, "n_cols": n_cols},
+                )
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        # A finished fit must not seed a FUTURE fit against the same path.
+        ckpt.discard_state(checkpoint_path)
+    return finalize_pca_stats(state, k, mean_center, n_true, solver=solver)
+
+
+def finalize_pca_stats(
+    state,
+    k: int,
+    mean_center: bool,
+    n_true: int,
+    solver: Optional[str] = None,
+) -> PCASolution:
+    """(count, colsum, gram) accumulator (tensors or arrays) → PCASolution.
+
+    The shared tail of the streaming fit, and the finalize entry point for
+    a state gathered elsewhere (``convert.stats_from_jax``)."""
+    solver = _resolve_solver(solver)
+    count, colsum, g = state
+    _check_k(k, int(colsum.shape[0]))
+    with trace_span("eig finalize"):
+        out = _finalize(count, colsum, g, mean_center, k, solver)
+    return _solution(out, n_true)
+
+
+# ---------------------------------------------------------------------------
+# Estimator / Model (Spark ML contract — reference RapidsPCA.scala)
+# ---------------------------------------------------------------------------
+
+
+class _PCAParams(HasInputCol, HasOutputCol):
+    """Params shared by PCA and PCAModel (RapidsPCAParams, RapidsPCA.scala:34-46)."""
+
+    k = ParamDecl(
+        "k",
+        "number of principal components (> 0)",
+        TypeConverters.toInt,
+        validator=ParamValidators.gt(0),
+    )
+    meanCentering = ParamDecl(
+        "meanCentering",
+        "whether to center data before computing the covariance "
+        "(fused on-device here; the reference stubs this to ETL)",
+        TypeConverters.toBoolean,
+    )
+    solver = ParamDecl(
+        "solver",
+        'eigensolver for the finalize: "auto" (config), "full" (exact '
+        'eigh), or "randomized" (subspace iteration)',
+        TypeConverters.toString,
+    )
+
+    def __init__(self, uid=None):
+        super().__init__(uid=uid)
+        # default true — RapidsPCA.scala:45-46
+        self.setDefault(
+            meanCentering=True,
+            inputCol="features",
+            outputCol="pca_features",
+            solver="auto",
+        )
+
+    def getK(self) -> int:
+        return self.getOrDefault(self.k)
+
+    def getMeanCentering(self) -> bool:
+        return self.getOrDefault(self.meanCentering)
+
+    def getSolver(self) -> str:
+        return self.getOrDefault(self.solver)
+
+
+class PCA(Estimator, _PCAParams, MLWritable, MLReadable):
+    """PCA estimator: ``PCA().setInputCol("features").setK(3).fit(df)``.
+
+    ``device``: where the fit runs; None → the card."""
+
+    _uid_prefix = "PCA"
+
+    def __init__(self, uid=None, device=None):
+        super().__init__(uid=uid)
+        self._device = device
+
+    def setK(self, value: int) -> "PCA":
+        return self._set(k=value)
+
+    def setMeanCentering(self, value: bool) -> "PCA":
+        return self._set(meanCentering=value)
+
+    def setSolver(self, value: str) -> "PCA":
+        return self._set(solver=value)
+
+    def _copy_extra_state(self, source):
+        self._device = getattr(source, "_device", None)
+
+    def _fit(self, dataset) -> "PCAModel":
+        x = as_matrix(dataset, self.getInputCol())
+        sol = fit_pca(
+            x,
+            k=self.getK(),
+            mean_center=self.getMeanCentering(),
+            solver=self.getSolver(),
+            device=self._device,
+        )
+        model = PCAModel(
+            pc=sol.pc,
+            explained_variance=sol.explained_variance,
+            mean=sol.mean,
+            device=self._device,
+        )
+        model.uid = self.uid
+        # Parent params flow to the model — Model.copy semantics in Spark.
+        self._copy_params_to(model)
+        return model
+
+
+class PCAModel(Model, _PCAParams, MLWritable, MLReadable):
+    """Fitted PCA model: pc (d, k), explainedVariance (k,).
+
+    (RapidsPCAModel, RapidsPCA.scala:102-166.) ``device``: where transform
+    runs; None → the card."""
+
+    _uid_prefix = "PCAModel"
+    # The on-disk class name, shared with the JAX package so that either
+    # package loads the other's saved models (core/persistence.py).
+    _persist_class = "spark_rapids_ml_tpu.models.pca.PCAModel"
+
+    def __init__(
+        self,
+        pc: Optional[np.ndarray] = None,
+        explained_variance: Optional[np.ndarray] = None,
+        mean: Optional[np.ndarray] = None,
+        uid=None,
+        device=None,
+    ):
+        super().__init__(uid=uid)
+        self.pc = None if pc is None else np.asarray(pc)
+        self.explainedVariance = (
+            None if explained_variance is None else np.asarray(explained_variance)
+        )
+        self.mean = None if mean is None else np.asarray(mean)
+        self._device = device
+        self._project_cache: dict = {}
+
+    # -- persistence (PCAModelWriter/Reader, RapidsPCA.scala:193-228) ------
+    def _model_data(self):
+        data = {"pc": self.pc}
+        if self.explainedVariance is not None:
+            data["explainedVariance"] = self.explainedVariance
+        if self.mean is not None:
+            data["mean"] = self.mean
+        return data
+
+    @classmethod
+    def _from_model_data(cls, uid, data):
+        return cls(
+            pc=data["pc"],
+            # Tolerate saves without explainedVariance, as the reference's
+            # reader does (RapidsPCA.scala:209-213); transform needs only pc.
+            explained_variance=data.get("explainedVariance"),
+            mean=data.get("mean"),
+            uid=uid,
+        )
+
+    def _copy_extra_state(self, source):
+        self.pc = source.pc
+        self.explainedVariance = source.explainedVariance
+        self.mean = source.mean
+        self._device = getattr(source, "_device", None)
+        self._project_cache = {}
+
+    # -- transform ---------------------------------------------------------
+    def _projector(self):
+        """y = x @ pc with the PC matrix resident on the device.
+
+        Operands are rounded to the compute dtype and multiplied with
+        accumulation in the accumulator dtype, TF32 off (package-wide) —
+        the JAX package's ``preferred_element_type=accum``. (A bf16 × bf16
+        ``torch.matmul`` would round its OUTPUT to bf16.) Cached by device
+        and dtypes, so a config change rebuilds it."""
+        dev = resolve_device(self._device)
+        cd, ad = config.compute_dtype(dev), config.accum_dtype()
+        key = (str(dev), cd, ad)
+        if key not in self._project_cache:
+            pc_dev = as_tensor(self.pc).to(dev).to(cd).to(ad)
+
+            def project(x: torch.Tensor) -> torch.Tensor:
+                return x.to(dev).to(cd).to(ad) @ pc_dev
+
+            self._project_cache[key] = project
+        return self._project_cache[key]
+
+    def transform_matrix(self, x) -> dict:
+        """Role-keyed transform of a bare (n, d) matrix — the serving
+        surface. A tensor in gives a tensor on the model's device out; a
+        host array in gives a numpy array out."""
+        if self.pc is None:
+            raise RuntimeError("PCAModel has no principal components (unfitted?)")
+        with trace_span("pca transform"):
+            if isinstance(x, torch.Tensor):
+                return {"output": self._projector()(x)}
+            y = self._projector()(as_tensor(x))
+            return {"output": y.cpu().numpy()}
+
+    def _transform(self, dataset):
+        x = as_matrix(dataset, self.getInputCol())
+        y = self.transform_matrix(x)["output"]
+        return with_column(dataset, self.getOutputCol(), y)
+
+    def setOutputCol(self, value: str) -> "PCAModel":
+        return self._set(outputCol=value)

@@ -1,0 +1,133 @@
+"""Eigendecomposition finalize stage: the reference's ``calSVD`` in PyTorch.
+
+The port of ``spark_rapids_ml_tpu/ops/eigh.py``. The reference's native
+``calSVD`` (rapidsml_jni.cu:215-269) runs cuSOLVER ``eigDC`` on the n×n
+Gram → column reversal to descending order → ``seqRoot`` (σ = √λ) →
+``signFlip``. Here that is ``torch.linalg.eigh`` (cuSOLVER on the card,
+LAPACK on the CPU) plus the reorder, square root and sign flip. The
+model-sharded eigensolve waits for the multi-device slice.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+Eig = Tuple[torch.Tensor, torch.Tensor]
+
+
+def eigh_descending(a: torch.Tensor) -> Eig:
+    """Symmetric eigendecomposition, eigenvalues descending.
+
+    Equivalent of eigDC + colReverse/rowReverse (rapidsml_jni.cu:251-253);
+    ``torch.linalg.eigh`` returns ascending order, so flip."""
+    w, v = torch.linalg.eigh(a)
+    return w.flip(0), v.flip(1)
+
+
+def sign_flip(u: torch.Tensor) -> torch.Tensor:
+    """Deterministic eigenvector signs: flip any column whose largest-|x|
+    element is negative.
+
+    The reference's Thrust kernel (rapidsml_jni.cu:35-61) scans with strict
+    ``>``, so the FIRST of equal maxima wins. The index is taken as the
+    smallest row holding the column maximum, which pins that rule on every
+    device instead of relying on ``argmax`` tie behaviour. An all-zero
+    column is left alone."""
+    a = u.abs()
+    rows = torch.arange(u.shape[0], device=u.device)[:, None].expand_as(a)
+    at_max = a == a.max(dim=0, keepdim=True).values
+    idx = torch.where(at_max, rows, u.shape[0]).min(dim=0).values
+    vals = u.gather(0, idx[None, :])[0]
+    signs = torch.where(vals < 0, -1.0, 1.0).to(u.dtype)
+    return u * signs[None, :]
+
+
+def explained_variance_reference(eigvals: torch.Tensor) -> Eig:
+    """Reference semantics: σ = √λ (clipped at 0), ratio = σᵢ / Σσ
+    (seqRoot at rapidsml_jni.cu:254, RapidsRowMatrix.scala:91-93)."""
+    s = torch.sqrt(torch.clamp(eigvals, min=0.0))
+    return s, s / torch.sum(s)
+
+
+def pca_from_gram(gram: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gram → (pc (d, k), explained variance (k,), σ (d,)).
+
+    The contract of computePrincipalComponentsAndExplainedVariance
+    (RapidsRowMatrix.scala:59-102): top-k eigenvector columns, sign-flipped;
+    explained variance = σ/Σσ sliced to k."""
+    w, v = eigh_descending(gram)
+    v = sign_flip(v)
+    s, ev = explained_variance_reference(w)
+    return v[:, :k], ev[:k], s
+
+
+def topk_eig_subspace(
+    gram: torch.Tensor,
+    k: int,
+    oversample: int = 32,
+    iters: int = 12,
+    seed: int = 0,
+) -> Eig:
+    """Top-(k+p) eigenpairs of a PSD matrix by blocked subspace iteration
+    (randomized PCA, Halko et al. 2011, alg. 4.4 specialised to a Gram).
+
+    The start block is drawn from a ``torch.Generator`` on the Gram's
+    device seeded with ``seed``; it does not reproduce the JAX package's
+    random bits, only its algorithm.
+    Returns ``(ritz_vals (m,) descending, vectors (d, m))`` with
+    m = k+oversample clamped to d."""
+    d = gram.shape[0]
+    m = min(k + oversample, d)
+    generator = torch.Generator(device=gram.device).manual_seed(seed)
+    v0 = torch.randn((d, m), generator=generator, device=gram.device, dtype=gram.dtype)
+    v = torch.linalg.qr(v0).Q
+    for _ in range(iters):
+        v = torch.linalg.qr(gram @ v).Q
+    b = v.T @ (gram @ v)
+    b = 0.5 * (b + b.T)
+    wb, qb = eigh_descending(b)  # m×m — tiny
+    return wb, v @ qb
+
+
+def pca_from_gram_randomized(
+    gram: torch.Tensor,
+    k: int,
+    oversample: int = 32,
+    iters: int = 12,
+    seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`pca_from_gram` contract via :func:`topk_eig_subspace`.
+
+    The reference-semantics explained variance (σᵢ/Σσ over ALL d values)
+    needs the unseen tail of the spectrum; it is estimated from the trace —
+    the residual Σλ spread uniformly over the d−m tail (the JAX package's
+    estimate). Returned σ is (d,) with the tail filled by that estimate."""
+    d = gram.shape[0]
+    wb, u = topk_eig_subspace(gram, k, oversample, iters, seed)
+    m = wb.shape[0]
+    u = sign_flip(u)
+    w_top = torch.clamp(wb, min=0.0)
+    s_top = torch.sqrt(w_top)
+    resid = torch.clamp(torch.trace(gram) - torch.sum(w_top), min=0.0)
+    n_tail = max(d - m, 0)
+    tail_each = torch.sqrt(resid / max(n_tail, 1)) if n_tail else torch.zeros_like(resid)
+    sigma_sum = torch.sum(s_top) + n_tail * tail_each
+    ev = s_top / torch.clamp(sigma_sum, min=torch.finfo(gram.dtype).tiny)
+    s_full = torch.cat([s_top, tail_each.expand(n_tail)])
+    return u[:, :k], ev[:k], s_full
+
+
+def pca_from_gram_host(gram, k: int):
+    """Host (numpy/LAPACK, float64) version of :func:`pca_from_gram`."""
+    a = np.asarray(gram, dtype=np.float64)
+    w, v = np.linalg.eigh(a)
+    w, v = w[::-1], v[:, ::-1]
+    idx = np.argmax(np.abs(v), axis=0)  # numpy: first maximum wins
+    signs = np.where(v[idx, np.arange(v.shape[1])] < 0, -1.0, 1.0)
+    v = v * signs
+    s = np.sqrt(np.clip(w, 0, None))
+    ev = s / max(s.sum(), 1e-300)
+    return v[:, :k], ev[:k], s

@@ -1,0 +1,185 @@
+"""Package rules of the PyTorch port (spark_rapids_ml_tpu_torch).
+
+* It imports neither JAX nor anything of the JAX package, and neither does
+  ``chip_smoke.py``, the script that drives the port on the card.
+* Its entry points run on the card unless asked for the CPU, and raise
+  without one instead of carrying on there.
+* Its config reads its own ``SRML_TORCH_*`` environment, not the JAX
+  package's ``SRML_TPU_*``.
+* On a CUDA card (``cuda`` marker; skipped elsewhere) its kernels launch
+  and agree with their plain versions.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from spark_rapids_ml_tpu_torch import PCA, PCAModel, config
+from spark_rapids_ml_tpu_torch.core.dataset import as_matrix, num_rows, with_column
+from spark_rapids_ml_tpu_torch.models import pca as port_pca
+from spark_rapids_ml_tpu_torch.ops import kernels
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "spark_rapids_ml_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "spark_rapids_ml_tpu")
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    sources = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(sources) >= 15
+    offenders = [
+        f"{p.relative_to(ROOT)}:{line} imports {root}"
+        for p in sources
+        for root, line in _imported_roots(p)
+        if root in FORBIDDEN
+    ]
+    assert offenders == []
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys, spark_rapids_ml_tpu_torch, spark_rapids_ml_tpu_torch.convert, "
+        "spark_rapids_ml_tpu_torch.ops.kernels; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'spark_rapids_ml_tpu')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
+    x = np.random.default_rng(0).normal(size=(20, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PCA().setK(2).fit({"features": x})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_pca.fit_pca(x, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_pca.fit_pca_stream([x], 2, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PCAModel(pc=np.eye(4)[:, :2]).transform_matrix(x)
+    # Asked for explicitly, the CPU works.
+    model = PCA(device="cpu").setK(2).fit({"features": x})
+    assert model.transform_matrix(x)["output"].shape == (20, 2)
+
+
+def test_config_reads_its_own_env_prefix():
+    # The JAX conftest sets SRML_TPU_COMPUTE_DTYPE=float64; the port must
+    # not see it.
+    assert os.environ.get("SRML_TPU_COMPUTE_DTYPE") == "float64"
+    code = (
+        "from spark_rapids_ml_tpu_torch import config; "
+        "print(config.get('compute_dtype'), config.get('accum_dtype'), config.get('solver'))"
+    )
+    env = dict(os.environ, SRML_TORCH_SOLVER="randomized")
+    env.pop("SRML_TORCH_COMPUTE_DTYPE", None)
+    env.pop("SRML_TORCH_ACCUM_DTYPE", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["auto", "float32", "randomized"], out.stderr
+
+
+def test_compute_dtype_auto_resolves_per_device():
+    with config.option("compute_dtype", "auto"):
+        assert config.compute_dtype("cuda") == torch.bfloat16
+        assert config.compute_dtype("cpu") == torch.float32
+    with config.option("compute_dtype", "float64"):
+        assert config.compute_dtype("cuda") == torch.float64
+    with pytest.raises(KeyError):
+        config.get("use_pallas")  # the tensor's device decides, no switch
+    with pytest.raises(KeyError):
+        config.get("tracing")  # spans are always named
+
+
+def test_tracing_names_the_reference_phases():
+    """A fit's phases are named ranges in a ``torch.profiler`` trace (the
+    reference's NVTX phase names)."""
+    x = np.random.default_rng(2).normal(size=(30, 4))
+    with torch.profiler.profile() as prof:
+        PCA(device="cpu").setK(2).fit({"features": x}).transform_matrix(x)
+    names = {e.name for e in prof.events()}
+    assert {"compute cov", "eig finalize", "pca transform"} <= names
+
+
+def test_float32_products_are_pinned_to_full_precision():
+    """Importing the port turns TF32 off once for the process (the JAX
+    package's ``Precision.HIGHEST``); nothing toggles it per call."""
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.parametrize("kind", ["dict", "tensor", "arrow", "pandas"])
+def test_estimator_over_containers(kind):
+    x = np.random.default_rng(1).normal(size=(40, 5))
+    if kind == "dict":
+        ds = {"features": x}
+    elif kind == "tensor":
+        ds = torch.from_numpy(x)
+    elif kind == "arrow":
+        pa = pytest.importorskip("pyarrow")
+        ds = pa.table({"features": pa.FixedSizeListArray.from_arrays(pa.array(x.ravel()), 5)})
+    else:
+        pd = pytest.importorskip("pandas")
+        ds = pd.DataFrame({"features": list(x)})
+    assert num_rows(ds) == 40
+    np.testing.assert_allclose(np.asarray(as_matrix(ds, "features")), x)
+    model = PCA(device="cpu").setK(2).fit(ds)
+    out = model.transform(ds)
+    y = as_matrix(out, "pca_features") if kind != "tensor" else out
+    assert tuple(np.asarray(y).shape) == (40, 2)
+
+
+def test_estimator_params_copy_and_persistence(tmp_path):
+    est = PCA(device="cpu").setK(3).setMeanCentering(False).setSolver("full")
+    est.save(str(tmp_path / "est"))
+    back = PCA.load(str(tmp_path / "est"))
+    assert (back.getK(), back.getMeanCentering(), back.getSolver()) == (3, False, "full")
+    assert back.uid == est.uid
+    copied = est.copy({"k": 2})
+    assert copied.getK() == 2 and copied._device == "cpu"
+    assert with_column({"a": 1}, "b", np.zeros(2))["b"].shape == (2,)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_card():
+    """On a CUDA card: both kernels launch and agree with their plain
+    versions at ragged shapes (f32 sums in another order: 1e-5 of the
+    largest Σx²). Run on the card (no JAX there, so without the JAX conftest) with
+    ``python -m pytest tests/test_torch_package.py -m cuda --noconftest``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((1001, 300), generator=gen, device="cuda").to(dtype)
+        scale = float((x.float() ** 2).sum(0).max())
+        before = kernels.LAUNCHES["gram_colsum"]
+        g, cs, c = kernels.gram_colsum(x, 777)
+        assert kernels.LAUNCHES["gram_colsum"] == before + 1
+        gp, csp, cp = kernels.gram_colsum_plain(x, 777)
+        assert float((g - gp).abs().max()) <= 1e-5 * scale
+        assert float(c) == float(cp) == 777.0
+        mask = (torch.rand(1001, generator=gen, device="cuda") < 0.5).float()
+        assert float((kernels.gram(x, mask) - kernels.gram_plain(x, mask)).abs().max()) <= 1e-5 * scale
