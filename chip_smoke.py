@@ -8,20 +8,37 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each of which exits non-zero on a failed check:
 
 1. The card (``nvidia-smi`` name and power limit), torch/CUDA/nvcc
-   versions, and the build of every ``ops/csrc/*.cu`` with nvcc for sm_90a.
+   versions, and the build of every ``ops/csrc/*.cu`` with nvcc for sm_90a
+   (one nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at ragged
    shapes (tolerances stated beside each check).
-3. The streaming fit at full width (d=2048, k=32, bf16 batches of 262,144
-   rows) through ``fit_pca_stream``; the ``gram_colsum`` launches must
-   equal the batch count; components checked sign-invariantly against a
-   float64 Gram of the same batches computed on the card.
+3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
+   262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
+   must equal the batch count; components checked sign-invariantly against
+   a float64 Gram of the same batches computed on the card.
 4. The in-memory ``PCA().fit`` of 1,048,576 x 2048 float32 rows (four
    batches' worth, so one launch sums far more rows than a batch) through
    the ``gram`` kernel, with the same check.
-5. Transform of 65,536 rows against a float64 product; its p50 latency.
-6. Each kernel timed at the main path's shape beside its plain version,
-   its bound and the ``torch.matmul`` yardstick, and the Gram error of the
-   kernel and of the plain version against a float64 Gram.
+5. PCA transform of 65,536 rows against a float64 product; its p50 latency.
+6. The PCA kernels timed at the main path's shape beside their plain
+   versions, their bounds and the ``torch.matmul`` yardstick, and the Gram
+   error of the kernel and of the plain version against a float64 Gram.
+7. KMeans at full width (BASELINE.json config #3: d=256, k=100) on
+   16,764,871 bf16 rows of 100 unequal gaussian blobs: ``fit_kmeans``
+   (k-means++, maxIter 20, tol 1e-4); ``lloyd_step`` launches must equal
+   the iterations and ``assign_min_dist`` must launch once; the centres
+   must be a fixed point of Lloyd's map in float64 and the cost must match
+   a float64 recomputation.
+8. ``fit_kmeans_stream`` over 8 float32 batches of 262,144 rows of the same
+   blobs, against ``fit_kmeans`` on their concatenation from the same
+   initial centres.
+9. LinearRegression at width 1024: the streaming fold of 8 bf16 batches of
+   262,144 rows (``linreg_stats`` launches must equal the batches) and an
+   elastic-net finalize, then the in-memory ``LinearRegression().fit`` of
+   1,048,576 x 1024 float32 rows (one launch), each against float64 solves
+   of the same normal equations on the card.
+10. The KMeans and LinearRegression kernels timed at their main paths'
+    shapes, as in phase 6.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -48,10 +65,25 @@ DEV = "cuda"
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
+KM_D, KM_K = 256, 100  # BASELINE.json config #3 (KMeans k=100 on 50M x 256)
+KM_ROWS = (1 << 24) - 12345  # depth cut from 50M rows for the smoke's time
+KM_MAX_ITER, KM_TOL = 20, 1e-4  # Spark's KMeans defaults
+KM_STREAM_BATCHES = 8
+KM_SCALE = 0.03  # blob centres: KM_SCALE · N(0, 1) per coordinate
+KM_NOISE = KM_SCALE / 1000 ** 0.5  # blob noise: 1e3 times closer than the blobs
+LR_D = 1024  # linear_regression.py:85 (the 1M x 1024 shape)
+LR_BATCHES = 8
+LR_LAST_BATCH_ROWS = BATCH_ROWS - 12345
+LR_IN_MEMORY_ROWS = 1 << 20
+
 KERNEL_SOURCE = "spark_rapids_ml_tpu_torch/ops/csrc/gram.cu"
+KMEANS_SOURCE = "spark_rapids_ml_tpu_torch/ops/csrc/kmeans.cu"
 REPLACES = {
     "gram_colsum": "spark_rapids_ml_tpu/ops/pallas_kernels.py:173",
     "gram": "spark_rapids_ml_tpu/ops/pallas_kernels.py:78",
+    "lloyd_step": "spark_rapids_ml_tpu/ops/pallas_kernels.py:314",
+    "assign_min_dist": "spark_rapids_ml_tpu/ops/pallas_kernels.py:561",
+    "linreg_stats": "spark_rapids_ml_tpu/ops/pallas_kernels.py:1210",
 }
 
 
@@ -161,10 +193,320 @@ def phase_kernels(torch, kernels) -> None:
               f"gram {str(dtype)[6:]} n={n} d={d} no mask (tol 1e-5 of max Σx²)")
 
 
+def margin_data(torch, gen, n, d, k, dtype):
+    """Rows at small noise around k random centres: each row's nearest
+    centre wins by a wide margin, so f32 sums in any order agree on it."""
+    centers = torch.randn((k, d), generator=gen, device=DEV)
+    lab = torch.randint(0, k, (n,), generator=gen, device=DEV)
+    x = centers[lab] + 0.05 * torch.randn((n, d), generator=gen, device=DEV)
+    return x.to(dtype), centers.to(dtype)
+
+
+def check_assign(torch, kernels, x, c, tag) -> None:
+    """assign_min_dist vs its plain version. Per row the tolerance is 1e-5
+    of the terms' magnitude, s = ‖c‖² + 2Σ|x·c| at the plain winner (f32
+    sums in another order); indices may differ only where the plain top
+    two scores are within that tolerance, and there the kernel's pick must
+    score within it of the plain minimum."""
+    ik, dk = kernels.assign_min_dist(x, c)
+    ip, dp = kernels.assign_min_dist_plain(x, c)
+    torch.cuda.synchronize()
+    xf, cf = x.float(), c.float()
+    c2 = kernels.center_norms(c, half=False)
+    tol = 1e-5 * (c2[ip.long()] + 2 * (xf.abs() * cf[ip.long()].abs()).sum(1))
+    check(bool(((dk - dp).abs() <= tol).all()), tag + " part_d within 1e-5 of ‖c‖² + 2Σ|x·c|")
+    diff = (ik != ip).nonzero()[:, 0]
+    if diff.numel():
+        scores = c2[None, :] - 2.0 * (xf[diff] @ cf.T)
+        picked = scores.gather(1, ik[diff].long()[:, None])[:, 0]
+        near = (picked - dp[diff]).abs() <= tol[diff]
+        check(bool(near.all()), tag + f" {diff.numel()} differing indices are all near-ties")
+    print(f"ok    {tag} indices: {x.shape[0] - diff.numel()} equal, "
+          f"{diff.numel()} near-tie rows differ", flush=True)
+
+
+def center_abs_sums(torch, kernels, x, c):
+    """(k, d) sums of |x| over the rows nearest each centre (plain
+    assignment), in 1M-row chunks: the scale of the Lloyd sums' error."""
+    out = torch.zeros(c.shape, dtype=torch.float32, device=DEV)
+    for r0 in range(0, x.shape[0], 1 << 20):
+        xv = x[r0:r0 + (1 << 20)]
+        a, _ = kernels.assign_min_dist_plain(xv, c)
+        out.index_add_(0, a.long(), xv.float().abs())
+    return out
+
+
+def phase_new_kernels(torch, kernels) -> None:
+    """linreg_stats, lloyd_step and assign_min_dist against their plain
+    versions at ragged shapes (n = 20,001 over 3 row splits and 157 row
+    tiles, d = 300 over 10 staged column steps), bf16 and f32."""
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    n, d = 20001, 300
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        x = torch.randn((n, d), generator=gen, device=DEV).to(dtype)
+        y = torch.randn((n,), generator=gen, device=DEV)
+        for masked in (False, True):
+            mask = (torch.rand((n,), generator=gen, device=DEV) < 0.7).float() if masked else None
+            xm = x.float() * (1 if mask is None else mask[:, None])
+            ym = y * (1 if mask is None else mask)
+            gscale = float((xm ** 2).sum(0).max())
+            scales = (gscale, (gscale * float((ym ** 2).sum())) ** 0.5,
+                      float(xm.abs().sum(0).max()), float(ym.abs().sum()), float((ym ** 2).sum()))
+            for seeded in (False, True):
+                st = [torch.randn(s, generator=gen, device=DEV) for s in ((d, d), (d,), (d,), (), ())]
+                st.append(torch.tensor(37.0, device=DEV))
+                sk = [t.clone() for t in st] if seeded else None
+                sp = [t.clone() for t in st] if seeded else None
+                out_k = kernels.linreg_stats(x, y, mask, sk)
+                out_p = kernels.linreg_stats_plain(x, y, mask, sp)
+                torch.cuda.synchronize()
+                tag = f"linreg_stats {name} n={n} d={d} mask={masked} seeded={seeded}"
+                names = ("xtx", "xty", "sx", "sy", "syy")
+                # Tolerance: f32 sums in another order over <= 20,001 rows,
+                # 1e-5 of each output's largest absolute sum of terms.
+                errs = [rel_err(a, b, max(s, 1.0)) for a, b, s in zip(out_k, out_p, scales)]
+                check(all(e <= 1e-5 for e in errs),
+                      tag + " " + ", ".join(f"{m} {e:.1e}" for m, e in zip(names, errs)))
+                check(float(out_k[5]) == float(out_p[5]), tag + f" count {float(out_k[5])} exact")
+                if seeded:
+                    check(out_k[0].data_ptr() == sk[0].data_ptr(), tag + " folded in place")
+        for k in (1, 100, 1000):
+            xk, ck = margin_data(torch, gen, n, d, k, dtype)
+            for n_valid in (n, 17000, 0):
+                sk_, nk = kernels.lloyd_step(xk, ck, n_valid)
+                sp_, np_ = kernels.lloyd_step_plain(xk, ck, n_valid)
+                torch.cuda.synchronize()
+                tag = f"lloyd_step {name} n={n} d={d} k={k} n_valid={n_valid}"
+                check(tuple(sk_.shape) == (k, d) and tuple(nk.shape) == (k,), tag + " shapes")
+                check(bool((nk == np_).all()) and float(nk.sum()) == n_valid,
+                      tag + f" counts equal as integers (sum {int(nk.sum())})")
+                # Tolerance: 1e-5 of the largest per-centre absolute sum.
+                abs_sums = center_abs_sums(torch, kernels, xk[:n_valid], ck)
+                err = rel_err(sk_, sp_, max(float(abs_sums.max()), 1.0))
+                check(err <= 1e-5, tag + f" sums rel err {err:.1e} (tol 1e-5)")
+            check_assign(torch, kernels, xk, ck, f"assign_min_dist {name} margin data k={k}")
+        # Random data and centres: near-ties happen; the rule above applies.
+        c = torch.randn((1000, d), generator=gen, device=DEV).to(dtype)
+        check_assign(torch, kernels, x, c, f"assign_min_dist {name} random data k=1000")
+        # Duplicate centres: the lowest index wins every tie.
+        xk, ck = margin_data(torch, gen, n, d, 100, dtype)
+        ck[57] = ck[3]
+        ck[99] = ck[3]
+        ik, _ = kernels.assign_min_dist(xk, ck)
+        sums, counts = kernels.lloyd_step(xk, ck, n)
+        torch.cuda.synchronize()
+        check(int(counts[57]) == 0 and int(counts[99]) == 0 and int(counts[3]) > 0
+              and not bool(((ik == 57) | (ik == 99)).any()),
+              f"{name} duplicate centres 3 = 57 = 99: all ties to index 3 "
+              f"({int(counts[3])} rows)")
+
+
 def bound_ms(n_bytes: float, ops: float, dtype: str):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def span_seconds(prof, name: str) -> float:
+    """Host-clock seconds of the ``trace_span`` ranges called ``name`` in a
+    CPU-only ``torch.profiler`` trace (the spans end on a host read of a
+    device result, so they cover the device work)."""
+    return sum(e.time_range.elapsed_us() for e in prof.events() if e.name == name) / 1e6
+
+
+def blob_rows(torch, gen, centers, cdf, rows, dtype):
+    """Rows of the blob mixture: a centre drawn by the cumulative weights
+    ``cdf``, plus gaussian noise of scale KM_NOISE; made in 1M-row chunks."""
+    out = torch.empty((rows, centers.shape[1]), dtype=dtype, device=DEV)
+    for r0 in range(0, rows, 1 << 20):
+        m = min(rows, r0 + (1 << 20)) - r0
+        lab = torch.searchsorted(cdf, torch.rand((m,), generator=gen, device=DEV))
+        lab = torch.clamp(lab, max=centers.shape[0] - 1)
+        noise = torch.randn((m, centers.shape[1]), generator=gen, device=DEV)
+        out[r0:r0 + m] = (centers[lab] + KM_NOISE * noise).to(dtype)
+    return out
+
+
+def lloyd_reference(torch, x, centers, cd):
+    """float64 over all rows of x at ``centers`` (numpy (k, d)) rounded to
+    ``cd``, the compute dtype the fit scores with (bf16 on the card; the
+    JAX package casts the centres so too, kmeans.py:205-207): the means of
+    the rows nearest each centre, their counts, and the cost."""
+    c = torch.as_tensor(centers, device=DEV).to(cd).double()
+    k = c.shape[0]
+    sums = torch.zeros_like(c)
+    counts = torch.zeros((k,), dtype=torch.float64, device=DEV)
+    cost = torch.zeros((), dtype=torch.float64, device=DEV)
+    c2 = (c * c).sum(1)
+    for r0 in range(0, x.shape[0], 1 << 20):
+        xd = x[r0:r0 + (1 << 20)].double()
+        d2 = torch.clamp((xd * xd).sum(1)[:, None] + c2[None, :] - 2.0 * (xd @ c.T), min=0)
+        best, a = d2.min(dim=1)
+        sums.index_add_(0, a, xd)
+        counts += torch.bincount(a, minlength=k).double()
+        cost += best.sum()
+    means = sums / torch.clamp(counts, min=1)[:, None]
+    return means, counts, float(cost)
+
+
+def phase_kmeans(torch, kernels, km, config):
+    """Phases 7 and 8; returns (x, centres, launches) for the timing."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    # 100 blobs with sizes from 1 to 2 in proportion. Their squared
+    # distances are 1e3 times those within a blob: wider, and the f32 cost
+    # ‖c‖² − 2x·c + ‖x‖² (the JAX formula) loses more than 1e-4 to rounding
+    # errors shared by a tight blob's rows. So k-means++ may seed a blob
+    # twice; such a split converges geometrically in units of the noise,
+    # and the small scale (tol = 1e-4 is 0.1 of the noise, the bf16
+    # rounding of the centres about 0.05) lets it converge within maxIter.
+    true_c = KM_SCALE * torch.randn((KM_K, KM_D), generator=gen, device=DEV)
+    w = 1.0 + torch.arange(KM_K, dtype=torch.float32, device=DEV) / (KM_K - 1)
+    cdf = torch.cumsum(w, 0) / w.sum()
+    x = blob_rows(torch, gen, true_c, cdf, KM_ROWS, torch.bfloat16)
+    print(f"kmeans: {KM_ROWS} x {KM_D} bf16 rows of {KM_K} unequal blobs (noise {KM_NOISE}) "
+          f"(depth cut from BASELINE.json's 50M rows), k={KM_K}, k-means++, "
+          f"maxIter {KM_MAX_ITER}, tol {KM_TOL}", flush=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        sol = km.fit_kmeans(x, KM_K, max_iter=KM_MAX_ITER, tol=KM_TOL, seed=0)
+        fit_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(launches["lloyd_step"] == sol.n_iter,
+          f"lloyd_step launches {launches['lloyd_step']} == n_iter {sol.n_iter}")
+    check(launches["assign_min_dist"] == 1,
+          f"assign_min_dist launches {launches['assign_min_dist']} == 1 (the cost)")
+    init_s, lloyd_s = span_seconds(prof, "kmeans init"), span_seconds(prof, "lloyd")
+    print(f"kmeans fit: {fit_s:.3f} s = init (host k-means++) {init_s:.3f} s + Lloyd "
+          f"{lloyd_s:.3f} s for {sol.n_iter} iterations and the cost pass: "
+          f"{lloyd_s / sol.n_iter * 1e3:.2f} ms per iteration, "
+          f"{KM_ROWS * sol.n_iter / lloyd_s:.1f} rows/s through the loop", flush=True)
+    check(sol.centers.shape == (KM_K, KM_D) and bool(torch.isfinite(
+        torch.as_tensor(sol.centers)).all()) and sol.n_rows == KM_ROWS,
+        f"kmeans centres finite, shape {sol.centers.shape}, n_rows {sol.n_rows}")
+    check(sol.n_iter < KM_MAX_ITER, f"kmeans converged (moved² <= tol²) in {sol.n_iter} "
+          f"of {KM_MAX_ITER} iterations")
+    cd = config.compute_dtype(DEV)
+    means, counts, cost64 = lloyd_reference(torch, x, sol.centers, cd)
+    c = torch.as_tensor(sol.centers, device=DEV)
+    live = counts > 0
+    fp_err = float((means[live] - c[live]).abs().max())
+    # Tolerance: a converged fit moved each centre by at most tol = 1e-4 in
+    # its last step, and a split blob's next step is smaller; its float32
+    # means carry about 1e-8. Twice tol covers both.
+    check(fp_err <= 2e-4, f"kmeans fixed point: float64 means of the rows nearest each "
+          f"centre vs the centres, max err {fp_err:.3e} (tol 2e-4; "
+          f"{int(live.sum())} of {KM_K} centres hold rows)")
+    cost_err = abs(sol.cost - cost64) / cost64
+    # Tolerance: the f32 cost sums ‖c‖² − 2x·c + ‖x‖² per row, terms 1e3
+    # times the distance whose rounding errors a blob's rows share in part.
+    check(cost_err <= 1e-4, f"kmeans trainingCost {sol.cost:.6e} vs float64 {cost64:.6e} "
+          f"at the {str(cd)[6:]} centres: rel err {cost_err:.3e} (tol 1e-4)")
+    centers_c = c.to(x.dtype).contiguous()
+
+    # -- 8. streaming fit against the in-memory fit from the same init -------
+    rows = KM_STREAM_BATCHES * BATCH_ROWS
+    batches = [blob_rows(torch, gen, true_c, cdf, BATCH_ROWS, torch.float32)
+               for _ in range(KM_STREAM_BATCHES)]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    s_sol = km.fit_kmeans_stream(lambda: iter(batches), KM_K, KM_D, max_iter=KM_MAX_ITER,
+                                 tol=KM_TOL, seed=5, init_sample_rows=rows)
+    stream_s = time.perf_counter() - t0
+    check(sum(kernels.LAUNCHES.values()) == 0, "fit_kmeans_stream launches no kernel "
+          "(as in the JAX package)")
+    # The same seed over the same rows gives the same k-means++ sample.
+    m_sol = km.fit_kmeans(torch.cat(batches), KM_K, max_iter=KM_MAX_ITER, tol=KM_TOL, seed=5)
+    del batches
+    err = float(abs(s_sol.centers - m_sol.centers).max())
+    print(f"kmeans stream: {KM_STREAM_BATCHES} f32 batches, {rows} rows, {s_sol.n_iter} "
+          f"iterations in {stream_s:.3f} s (init included); in-memory {m_sol.n_iter}",
+          flush=True)
+    # Tolerance: the two paths sum the same bf16 rows in float32 in other
+    # orders (index_add_ atomics vs the kernel's blocks), about 1e-9 here,
+    # and may score a row on a split blob's boundary differently, each such
+    # row moving a centre by about 1e-6; 5e-5 is 0.05 of the noise.
+    check(s_sol.n_iter == m_sol.n_iter and err <= 5e-5,
+          f"stream vs in-memory from the same init: same iterations, centres max err "
+          f"{err:.3e} (tol 5e-5)")
+    return x, centers_c, launches
+
+
+def lr_batch(torch, gen, rows, w, dtype):
+    x = torch.randn((rows, LR_D), generator=gen, device=DEV).to(dtype)
+    y = x.float() @ w + 0.5 + 0.1 * torch.randn((rows,), generator=gen, device=DEV)
+    return x, y
+
+
+def lr_reference(torch, parts, lr, reg=0.0, alpha=0.0):
+    """Float64 statistics of (x, y) parts on the card and the port's
+    finalize of them in float64: the solve the fit is held to."""
+    stats = lr.init_normal_eq_stats(LR_D, torch.float64, DEV)
+    for x, y in parts:
+        xd, yd = x.double(), y.double()
+        for t, v in zip(stats, (xd.T @ xd, xd.T @ yd, xd.sum(0), yd.sum(), (yd * yd).sum(),
+                                float(x.shape[0]))):
+            t.add_(v)
+    n = int(stats[5])
+    return lr.finalize_normal_eq_stats(stats, reg, alpha, True, 500, 1e-6, n)
+
+
+def phase_linreg(torch, kernels, lr, LinearRegression, config):
+    """Phase 9; returns (bf16 batch, its y, f32 block, its y, launches)."""
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    w = torch.randn((LR_D,), generator=gen, device=DEV) / LR_D ** 0.5
+    parts = [lr_batch(torch, gen, LR_LAST_BATCH_ROWS if b == LR_BATCHES - 1 else BATCH_ROWS,
+                      w, torch.bfloat16) for b in range(LR_BATCHES)]
+    n_rows = sum(x.shape[0] for x, _ in parts)
+    print(f"linreg stream: {LR_BATCHES} bf16 batches, {n_rows} rows x {LR_D}", flush=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = lr.init_normal_eq_stats(LR_D, device=DEV)
+    for x, y in parts:
+        lr.streaming_normal_eq_update(state, x, y)
+    sol = lr.finalize_normal_eq_stats(state, 0.0, 0.0, True, 500, 1e-6, n_rows)
+    fold_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(launches["linreg_stats"] == LR_BATCHES,
+          f"linreg_stats launches {launches['linreg_stats']} == batches {LR_BATCHES}")
+    print(f"linreg stream fit: {fold_s:.3f} s, {n_rows / fold_s:.1f} rows/s "
+          f"(fold + Cholesky solve)", flush=True)
+    ref = lr_reference(torch, parts, lr)
+    err = float(abs(sol.coefficients - ref.coefficients).max())
+    b_err = abs(sol.intercept - ref.intercept)
+    # Tolerance: float32 statistics (relative error about 1e-6) of a
+    # well-conditioned system (XᵀX/n near the identity) move the solution
+    # by about 1e-6; 1e-4 leaves room.
+    check(err <= 1e-4 and b_err <= 1e-4,
+          f"linreg stream vs float64 solve: coefficients max err {err:.3e}, intercept "
+          f"{b_err:.3e} (tol 1e-4)")
+    en = lr.finalize_normal_eq_stats(state, 0.01, 0.5, True, 500, 1e-6, n_rows)
+    en_ref = lr_reference(torch, parts, lr, reg=0.01, alpha=0.5)
+    err = float(abs(en.coefficients - en_ref.coefficients).max())
+    # Tolerance: as above, plus FISTA's stop at an iterate movement of 1e-6.
+    check(err <= 1e-4, f"linreg elastic net (reg 0.01, α 0.5) vs float64 FISTA: "
+          f"coefficients max err {err:.3e} (tol 1e-4; {int((en.coefficients == 0).sum())} zeros)")
+    xb, yb = parts[0]
+    del parts, state
+
+    x32, y32 = lr_batch(torch, gen, LR_IN_MEMORY_ROWS, w, torch.float32)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with config.option("compute_dtype", "float32"):
+        model = LinearRegression().fit({"features": x32, "label": y32})
+    mem_s = time.perf_counter() - t0
+    check(kernels.LAUNCHES["linreg_stats"] == 1,
+          f"linreg_stats launches {kernels.LAUNCHES['linreg_stats']} == 1 in the in-memory fit")
+    print(f"linreg in-memory fit: {LR_IN_MEMORY_ROWS} x {LR_D} float32 in {mem_s:.3f} s, "
+          f"{LR_IN_MEMORY_ROWS / mem_s:.1f} rows/s", flush=True)
+    ref = lr_reference(torch, [(x32, y32)], lr)
+    err = float(abs(model.coefficients - ref.coefficients).max())
+    check(err <= 1e-4 and abs(model.intercept - ref.intercept) <= 1e-4,
+          f"linreg in-memory vs float64 solve: coefficients max err {err:.3e} (tol 1e-4)")
+    return xb, yb, x32, y32, launches
 
 
 def main() -> None:
@@ -173,7 +515,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from spark_rapids_ml_tpu_torch import PCA, PCAModel, config
+    from spark_rapids_ml_tpu_torch import PCA, LinearRegression, PCAModel, config
+    from spark_rapids_ml_tpu_torch.models import kmeans as km
+    from spark_rapids_ml_tpu_torch.models import linear_regression as lr
     from spark_rapids_ml_tpu_torch.models.pca import fit_pca_stream
     from spark_rapids_ml_tpu_torch.ops import _build, kernels
 
@@ -188,6 +532,7 @@ def main() -> None:
     t0 = time.perf_counter()
     built = _build.build_all()
     kernels._lib()
+    kernels._kmeans_lib()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s -> "
           + ", ".join(p.name for p in built))
     for name, log in _build.BUILD_LOGS.items():
@@ -197,6 +542,7 @@ def main() -> None:
 
     # -- 2. kernels against their plain versions -----------------------------
     phase_kernels(torch, kernels)
+    phase_new_kernels(torch, kernels)
 
     # -- 3. streaming fit at full width ---------------------------------------
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -346,6 +692,98 @@ def main() -> None:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms,
     })
+    del x32, g64_mem, gk, gp, model32, model
+    torch.cuda.empty_cache()
+
+    # -- 7.-8. KMeans at full width, and its stream ---------------------------
+    xk, ck, km_launches = phase_kmeans(torch, kernels, km, config)
+
+    # -- 9. LinearRegression at width 1024 ------------------------------------
+    xb, yb, x32, y32, lr_launches = phase_linreg(torch, kernels, lr, LinearRegression, config)
+
+    # -- 10. the KMeans and LinearRegression kernels at their paths' shapes ----
+    n, d = xk.shape
+    k = ck.shape[0]
+    ms = time_ms(lambda: kernels.lloyd_step(xk, ck, n), 3)
+    plain_ms = time_ms(lambda: kernels.lloyd_step_plain(xk, ck, n), 2)
+    # Yardstick: no PyTorch call computes a Lloyd step; the distance product
+    # alone (bf16 in and out, tensor cores) is timed.
+    lib_ms = time_ms(lambda: torch.matmul(xk, ck.T), 5)
+    sk, nk = kernels.lloyd_step(xk, ck, n)
+    sp, np_ = kernels.lloyd_step_plain(xk, ck, n)
+    means64, counts64, _ = lloyd_reference(torch, xk, ck.float().cpu().numpy(), ck.dtype)
+    sums64 = means64 * counts64[:, None]
+    scale = float(center_abs_sums(torch, kernels, xk, ck).max())
+    err_k, err_p = rel_err(sk, sums64, scale), rel_err(sp, sums64, scale)
+    # Tolerance: the kernel sums a centre's 1.7e5 rows per column in f32,
+    # about 1.3e3 per block in shared memory and then one atomic add per
+    # block; 1e-5 of the largest per-centre absolute sum. The plain
+    # version's index_add_ adds all of them into one f32 cell in turn, so
+    # its error is printed, not held to that.
+    check(bool((nk == np_).all()) and bool((nk == counts64.float()).all()) and err_k <= 1e-5,
+          f"lloyd_step at {n} x {d} bf16, k={k}: counts equal to the plain and float64 "
+          f"counts; sums vs float64 rel err {err_k:.2e} (tol 1e-5), plain's {err_p:.2e}")
+    del means64, counts64, sums64
+    # Bound: x and the centres read once, sums and counts written once;
+    # 2nkd operations for the distances and nd adds for the sums.
+    b_ms, b_by = bound_ms(n * d * 2 + k * d * 2 + k * d * 4 + k * 8, 2 * n * k * d + n * d,
+                          "bfloat16")
+    table.append({
+        "name": "lloyd_step", "route": "cuda", "source": KMEANS_SOURCE,
+        "replaces": REPLACES["lloyd_step"], "launches": km_launches["lloyd_step"],
+        "max_abs_err": float((sk - sp).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+    })
+    ms = time_ms(lambda: kernels.assign_min_dist(xk, ck), 3)
+    plain_ms = time_ms(lambda: kernels.assign_min_dist_plain(xk, ck), 2)
+    ik, dk = kernels.assign_min_dist(xk, ck)
+    ip, dp = kernels.assign_min_dist_plain(xk, ck)
+    same = int((ik == ip).sum())
+    check(same == n, f"assign_min_dist at {n} x {d} bf16, k={k}: {same} of {n} indices equal")
+    # Bound: x and the centres read once, two (m,) outputs written once.
+    b_ms, b_by = bound_ms(n * d * 2 + k * d * 2 + n * 8, 2 * n * k * d, "bfloat16")
+    table.append({
+        "name": "assign_min_dist", "route": "cuda", "source": KMEANS_SOURCE,
+        "replaces": REPLACES["assign_min_dist"], "launches": km_launches["assign_min_dist"],
+        "max_abs_err": float((dk - dp).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+    })
+    del xk, ik, dk, ip, dp, sk, sp
+    torch.cuda.empty_cache()
+
+    n, d = xb.shape
+    state = lr.init_normal_eq_stats(d, device=DEV)
+    ms = time_ms(lambda: kernels.linreg_stats(xb, yb, None, state), 5)
+    plain_ms = time_ms(lambda: kernels.linreg_stats_plain(xb, yb, None, state), 3)
+    lib_ms = time_ms(lambda: torch.matmul(xb.T, xb), 5)
+    out_k = kernels.linreg_stats(xb, yb)
+    out_p = kernels.linreg_stats_plain(xb, yb)
+    gscale = float(out_p[0].diagonal().max())
+    err = rel_err(out_k[0], out_p[0], gscale)
+    check(err <= 1e-4 and float(out_k[5]) == float(out_p[5]) == n,
+          f"linreg_stats at {n} x {d} bf16: XᵀX rel err {err:.2e} (tol 1e-4), count exact")
+    # Bound: x and y read once, the state read and written once; XᵀX is
+    # symmetric, so nd(d+1) operations, plus 3nd for Xᵀy and Σx.
+    b_ms, b_by = bound_ms(n * d * 2 + n * 4 + 2 * (d * d * 4 + 2 * d * 4 + 12),
+                          n * d * (d + 1) + 3 * n * d, "bfloat16")
+    table.append({
+        "name": "linreg_stats", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": REPLACES["linreg_stats"], "launches": lr_launches["linreg_stats"],
+        "max_abs_err": float((out_k[0] - out_p[0]).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+    })
+    # The in-memory fit's block (one launch per fit), printed beside the row.
+    n32 = x32.shape[0]
+    ms32 = time_ms(lambda: kernels.linreg_stats(x32, y32), 3)
+    plain32 = time_ms(lambda: kernels.linreg_stats_plain(x32, y32), 2)
+    lib32 = time_ms(lambda: torch.matmul(x32.T, x32), 3)
+    b32, by32 = bound_ms(n32 * d * 4 + n32 * 4 + d * d * 4 + 2 * d * 4 + 12,
+                         n32 * d * (d + 1) + 3 * n32 * d, "float32")
+    print(f"linreg_stats at {n32} x {d} f32 (the in-memory fit): {ms32:.3f} ms (plain "
+          f"{plain32:.3f}, torch.matmul {lib32:.3f}, bound {b32:.3f} by {by32})")
     for row in table:
         print(f"{row['name']}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
               f"torch.matmul {row['library_ms']:.3f}, bound {row['bound_ms']:.3f} by "

@@ -2,9 +2,12 @@
 
 A second package beside the JAX one, for one NVIDIA H100. It imports
 ``torch``, numpy and the standard library, never JAX and nothing of the
-JAX package, which stays the reference it is tested against. This slice
-holds PCA: the in-memory and streaming fits and transform, whose Gram
-statistics run in hand-written Hopper kernels (``ops/csrc/gram.cu``).
+JAX package, which stays the reference it is tested against. It holds
+PCA, LinearRegression and KMeans: their in-memory and streaming fits,
+transform/predict and persistence. Their data passes run in hand-written
+Hopper kernels: the Gram family (``ops/csrc/gram.cu``: PCA's fold and
+LinearRegression's normal equations) and KMeans' Lloyd step and nearest-
+centre assignment (``ops/csrc/kmeans.cu``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
@@ -20,6 +23,19 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 from spark_rapids_ml_tpu_torch import config  # noqa: E402
+from spark_rapids_ml_tpu_torch.models.kmeans import KMeans, KMeansModel  # noqa: E402
+from spark_rapids_ml_tpu_torch.models.linear_regression import (  # noqa: E402
+    LinearRegression,
+    LinearRegressionModel,
+)
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel  # noqa: E402
 
-__all__ = ["PCA", "PCAModel", "config"]
+__all__ = [
+    "KMeans",
+    "KMeansModel",
+    "LinearRegression",
+    "LinearRegressionModel",
+    "PCA",
+    "PCAModel",
+    "config",
+]

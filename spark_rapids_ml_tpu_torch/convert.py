@@ -12,6 +12,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.models.kmeans import KMeansModel
+from spark_rapids_ml_tpu_torch.models.linear_regression import LinearRegressionModel
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
 from spark_rapids_ml_tpu_torch.ops.gram import Stats
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor
@@ -29,6 +31,28 @@ def pca_model_from_jax(data: Dict[str, np.ndarray], device=None) -> PCAModel:
 
 
 def stats_from_jax(state: Tuple, device="cpu") -> Stats:
-    """A JAX streaming state ``(count, colsum, gram)`` as the port's
+    """A JAX streaming state — PCA's ``(count, colsum, gram)``, or the
+    normal equations' ``(XᵀX, Xᵀy, Σx, Σy, Σy², n)`` — as the port's
     tensors on ``device``, dtypes kept."""
     return tuple(as_tensor(np.asarray(a)).to(device) for a in state)
+
+
+#: The LinearRegression name of :func:`stats_from_jax`.
+normal_eq_stats_from_jax = stats_from_jax
+
+
+def kmeans_model_from_jax(data: Dict[str, np.ndarray], device=None) -> KMeansModel:
+    """A port ``KMeansModel`` from the JAX ``KMeansModel._model_data()``
+    dict (``clusterCenters``)."""
+    return KMeansModel(centers=data["clusterCenters"], device=device)
+
+
+def linreg_model_from_jax(data: Dict[str, np.ndarray], device=None) -> LinearRegressionModel:
+    """A port ``LinearRegressionModel`` from the JAX
+    ``LinearRegressionModel._model_data()`` dict (``coefficients``,
+    ``intercept``)."""
+    return LinearRegressionModel(
+        coefficients=data["coefficients"],
+        intercept=float(np.asarray(data["intercept"]).reshape(-1)[0]),
+        device=device,
+    )

@@ -69,6 +69,24 @@ def as_matrix(dataset: Any, col: Optional[str] = None, n_cols: Optional[int] = N
     return mat
 
 
+def as_column(dataset: Any, col: str):
+    """Extract a scalar column (labels, weights) as a 1-D numpy array, or
+    the tensor itself when the column is a ``torch.Tensor``."""
+    if _is_arrow(dataset):
+        if isinstance(dataset, pa.RecordBatch):
+            dataset = pa.Table.from_batches([dataset])
+        return np.asarray(dataset.column(col))
+    if _is_pandas(dataset):
+        return dataset[col].to_numpy()
+    if isinstance(dataset, dict):
+        value = dataset[col]
+        return value if isinstance(value, torch.Tensor) else np.asarray(value)
+    raise TypeError(
+        f"cannot extract named column {col!r} from a bare array dataset; "
+        "pass a dict/arrow/pandas container"
+    )
+
+
 def with_column(dataset: Any, name: str, values) -> Any:
     """Return the dataset with ``values`` appended as column ``name``.
 

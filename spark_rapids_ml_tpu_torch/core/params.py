@@ -385,8 +385,8 @@ class Params:
 
 # ---------------------------------------------------------------------------
 # Shared param mixins (pyspark.ml.param.shared equivalents) — the ones the
-# PCA slice uses. The reference inherits inputCol/outputCol/k from Spark's
-# PCAParams (RapidsPCA.scala:34).
+# PCA, KMeans and LinearRegression estimators use. The reference inherits
+# inputCol/outputCol/k from Spark's PCAParams (RapidsPCA.scala:34).
 # ---------------------------------------------------------------------------
 
 
@@ -408,6 +408,122 @@ class HasOutputCol(Params):
 
     def setOutputCol(self, value: str):
         return self._set(outputCol=value)
+
+
+class HasFeaturesCol(Params):
+    featuresCol = ParamDecl(
+        "featuresCol", "features column name", TypeConverters.toString
+    )
+
+    def getFeaturesCol(self) -> str:
+        return self.getOrDefault(self.featuresCol)
+
+    def setFeaturesCol(self, value: str):
+        return self._set(featuresCol=value)
+
+
+class HasLabelCol(Params):
+    labelCol = ParamDecl("labelCol", "label column name", TypeConverters.toString)
+
+    def getLabelCol(self) -> str:
+        return self.getOrDefault(self.labelCol)
+
+    def setLabelCol(self, value: str):
+        return self._set(labelCol=value)
+
+
+class HasPredictionCol(Params):
+    predictionCol = ParamDecl(
+        "predictionCol", "prediction column name", TypeConverters.toString
+    )
+
+    def getPredictionCol(self) -> str:
+        return self.getOrDefault(self.predictionCol)
+
+    def setPredictionCol(self, value: str):
+        return self._set(predictionCol=value)
+
+
+class HasSeed(Params):
+    seed = ParamDecl("seed", "random seed", TypeConverters.toInt)
+
+    def getSeed(self) -> int:
+        return self.getOrDefault(self.seed)
+
+    def setSeed(self, value: int):
+        return self._set(seed=value)
+
+
+class HasMaxIter(Params):
+    maxIter = ParamDecl(
+        "maxIter",
+        "maximum number of iterations (>= 0)",
+        TypeConverters.toInt,
+        validator=ParamValidators.gtEq(0),
+    )
+
+    def getMaxIter(self) -> int:
+        return self.getOrDefault(self.maxIter)
+
+    def setMaxIter(self, value: int):
+        return self._set(maxIter=value)
+
+
+class HasTol(Params):
+    tol = ParamDecl(
+        "tol",
+        "convergence tolerance (>= 0)",
+        TypeConverters.toFloat,
+        validator=ParamValidators.gtEq(0),
+    )
+
+    def getTol(self) -> float:
+        return self.getOrDefault(self.tol)
+
+    def setTol(self, value: float):
+        return self._set(tol=value)
+
+
+class HasRegParam(Params):
+    regParam = ParamDecl(
+        "regParam",
+        "regularization parameter (>= 0)",
+        TypeConverters.toFloat,
+        validator=ParamValidators.gtEq(0),
+    )
+
+    def getRegParam(self) -> float:
+        return self.getOrDefault(self.regParam)
+
+    def setRegParam(self, value: float):
+        return self._set(regParam=value)
+
+
+class HasElasticNetParam(Params):
+    elasticNetParam = ParamDecl(
+        "elasticNetParam",
+        "ElasticNet mixing: 0 = L2 penalty, 1 = L1 penalty",
+        TypeConverters.toFloat,
+        validator=ParamValidators.inRange(0.0, 1.0),
+    )
+
+    def getElasticNetParam(self) -> float:
+        return self.getOrDefault(self.elasticNetParam)
+
+    def setElasticNetParam(self, value: float):
+        return self._set(elasticNetParam=value)
+
+
+class HasFitIntercept(Params):
+    fitIntercept = ParamDecl(
+        "fitIntercept", "whether to fit an intercept term", TypeConverters.toBoolean
+    )
+
+    def getFitIntercept(self) -> bool:
+        return self.getOrDefault(self.fitIntercept)
+
+    def setFitIntercept(self, value: bool):
+        return self._set(fitIntercept=value)
 
 
 # ---------------------------------------------------------------------------

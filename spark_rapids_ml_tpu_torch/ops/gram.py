@@ -65,10 +65,6 @@ def _dtypes(x: torch.Tensor, compute_dtype, accum_dtype):
     return cd, ad
 
 
-def _kernel_applicable(cd: torch.dtype, ad: torch.dtype) -> bool:
-    return cd in kernels.KERNEL_DTYPES and ad == torch.float32
-
-
 def local_stats(
     x: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
@@ -89,7 +85,7 @@ def local_stats(
         xm = xc
         count = torch.tensor(x.shape[0], dtype=ad, device=x.device)
     colsum = xm.sum(dim=0, dtype=ad)
-    if _kernel_applicable(cd, ad):
+    if kernels.kernel_applicable(cd, ad):
         m = None if mask is None else mask.to(torch.float32).contiguous()
         gram = kernels.gram(xc.contiguous(), m)
     else:
@@ -131,7 +127,7 @@ def streaming_update_rows(state: Stats, x: torch.Tensor, n_valid: int,
     count, colsum, gram = state
     cd = compute_dtype or config.compute_dtype(x.device)
     xc = x.to(cd)
-    if _kernel_applicable(cd, gram.dtype):
+    if kernels.kernel_applicable(cd, gram.dtype):
         kernels.gram_colsum(xc.contiguous(), n_valid, state=(gram, colsum, count))
         return state
     rows = min(x.shape[0], max(int(n_valid), 0))

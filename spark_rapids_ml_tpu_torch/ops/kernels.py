@@ -1,21 +1,31 @@
 """Wrappers of the hand-written Hopper kernels, and their plain versions.
 
 The counterpart of ``spark_rapids_ml_tpu/ops/pallas_kernels.py`` for the
-PCA slice:
+PCA, LinearRegression and KMeans slices:
 
 * :func:`gram` — the masked Gram (X·m)ᵀ(X·m), f32 accumulate; replaces
   ``gram_pallas`` (pallas_kernels.py:78).
 * :func:`gram_colsum` — count, Σx and XᵀX of the first ``n_valid`` rows in
   one pass, optionally folded into a ``(gram, colsum, count)`` state in
   place; replaces ``gram_colsum_pallas`` (pallas_kernels.py:173).
+* :func:`linreg_stats` — XᵀX, Xᵀy, Σx, Σy, Σy² and the row count over
+  masked rows in one pass, optionally folded into a state in place;
+  replaces ``linreg_stats_pallas`` (pallas_kernels.py:1210).
+* :func:`lloyd_step` — one Lloyd step's per-centre sums and counts of the
+  first ``n_valid`` rows; replaces ``lloyd_step_pallas``
+  (pallas_kernels.py:314).
+* :func:`assign_min_dist` — per row, the nearest centre and ‖c‖² − 2x·c;
+  replaces ``assign_min_dist_pallas`` (pallas_kernels.py:561).
 
-Both kernels live in ``csrc/gram.cu`` (design notes there). A wrapper takes
-its plain PyTorch version only for a tensor on the CPU; for a CUDA tensor
-it launches the kernel or raises — there is no fallback. Each launch adds
-one to :data:`LAUNCHES`, so a run can show that it went through the
-kernels. The plain versions repeat the kernels' arithmetic (f32 products of
-the input values, f32 sums; TF32 is off for the whole package, see
-``__init__``) and are what the kernels are held against.
+The Gram family lives in ``csrc/gram.cu``, the KMeans pair in
+``csrc/kmeans.cu`` (design notes there). A wrapper takes its plain PyTorch
+version only for a tensor on the CPU; for a CUDA tensor it launches the
+kernel or raises — there is no fallback. Each launch adds one to
+:data:`LAUNCHES`, so a run can show that it went through the kernels. The
+plain versions repeat the kernels' arithmetic (f32 products of the input
+values, f32 sums; TF32 is off for the whole package, see ``__init__``;
+ties of the nearest centre to the lowest index) and are what the kernels
+are held against.
 """
 
 from __future__ import annotations
@@ -27,13 +37,29 @@ from typing import Optional, Tuple
 import torch
 
 from spark_rapids_ml_tpu_torch.ops import _build
+from spark_rapids_ml_tpu_torch.ops.distances import first_argmin
 
 #: Kernel launches by wrapper name (the plain versions do not count).
-LAUNCHES = {"gram": 0, "gram_colsum": 0}
+LAUNCHES = {"gram": 0, "gram_colsum": 0, "linreg_stats": 0, "lloyd_step": 0,
+            "assign_min_dist": 0}
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
+
+def kernel_applicable(compute_dtype: torch.dtype, accum_dtype: torch.dtype) -> bool:
+    """Whether a data pass goes through the kernels: bfloat16/float32
+    operands with float32 accumulators, at any shape. Other pairs (the
+    float64 parity mode) are plain products in the accumulator dtype."""
+    return compute_dtype in KERNEL_DTYPES and accum_dtype == torch.float32
+
 GramState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (gram, colsum, count)
+# (xtx, xty, sx, sy, syy, n), all float32
+LinregState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                    torch.Tensor]
+
+#: Rows per step of the plain KMeans versions: bounds their (rows, k)
+#: score matrices at the main path's 16.7M rows.
+PLAIN_ROW_CHUNK = 1 << 20
 
 
 def reset_launches() -> None:
@@ -49,6 +75,20 @@ def _lib() -> ctypes.CDLL:
     lib.srml_gram.restype = i32
     lib.srml_gram_colsum.argtypes = [ptr, i32, i64, i64, i64, ptr, ptr, ptr, ptr]
     lib.srml_gram_colsum.restype = i32
+    lib.srml_linreg_stats.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, ptr,
+                                      ptr, ptr]
+    lib.srml_linreg_stats.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _kmeans_lib() -> ctypes.CDLL:
+    lib = _build.load("kmeans")
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.srml_lloyd_step.argtypes = [ptr, ptr, i32, ptr, i64, i64, i64, i64, ptr, ptr, ptr]
+    lib.srml_lloyd_step.restype = i32
+    lib.srml_assign_min_dist.argtypes = [ptr, ptr, i32, ptr, i64, i64, i64, ptr, ptr, ptr]
+    lib.srml_assign_min_dist.restype = i32
     return lib
 
 
@@ -173,3 +213,194 @@ def gram_colsum(
     _raise_on(rc, "gram_colsum")
     LAUNCHES["gram_colsum"] += 1
     return g, cs, c
+
+
+# ---------------------------------------------------------------------------
+# Fused normal-equation statistics
+# ---------------------------------------------------------------------------
+
+
+def _zero_linreg_state(d: int, device: torch.device) -> LinregState:
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
+    return z(d, d), z(d), z(d), z(), z(), z()
+
+
+def linreg_stats_plain(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    state: Optional[LinregState] = None,
+) -> LinregState:
+    """Plain version of :func:`linreg_stats`, same in-place contract."""
+    xtx, xty, sx, sy, syy, n = _zero_linreg_state(x.shape[1], x.device) if state is None else state
+    xm, ym = x.float(), y.float()
+    if mask is not None:
+        xm = xm * mask[:, None]
+        ym = ym * mask
+    xtx.add_(xm.T @ xm)
+    xty.add_(xm.T @ ym)
+    sx.add_(xm.sum(dim=0))
+    sy.add_(ym.sum())
+    syy.add_((ym * ym).sum())
+    n.add_(x.shape[0] if mask is None else (mask != 0).sum())
+    return xtx, xty, sx, sy, syy, n
+
+
+def linreg_stats(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    state: Optional[LinregState] = None,
+) -> LinregState:
+    """(xtx (d, d), xty (d,), sx (d,), sy, syy, n) float32 over the rows of
+    an (n, d) float32/bfloat16 matrix, weighted by an (n,) float32 {0,1}
+    mask (None: every row): with xm = x·m and ym = y·m, XᵀX and Xᵀy of
+    xm and ym, Σxm, Σym, Σym², and n = the rows with m ≠ 0, counted as
+    an integer. y: (n,) float32.
+
+    ``state``: six float32 tensors to fold the batch into IN PLACE (the
+    JAX package's donated streaming state); the returned tensors are then
+    the state's own. Without it, fresh zeroed accumulators are filled."""
+    _check_x(x)
+    n, d = x.shape
+    _check_f32(y, (n,), x.device, "y")
+    if mask is not None:
+        _check_f32(mask, (n,), x.device, "mask")
+    if state is not None:
+        shapes = ((d, d), (d,), (d,), (), (), ())
+        for t, shape, name in zip(state, shapes, ("xtx", "xty", "sx", "sy", "syy", "n")):
+            _check_f32(t, shape, x.device, name)
+    if x.device.type == "cpu":
+        return linreg_stats_plain(x, y, mask, state)
+    xp, is_bf16 = _launch_args(x)
+    out = _zero_linreg_state(d, x.device) if state is None else state
+    xtx, xty, sx, sy, syy, cnt = out
+    rows = torch.zeros((), dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _lib().srml_linreg_stats(
+            xp, is_bf16, None if mask is None else mask.data_ptr(), y.data_ptr(), n, d,
+            xtx.data_ptr(), xty.data_ptr(), sx.data_ptr(), sy.data_ptr(), syy.data_ptr(),
+            rows.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _raise_on(rc, "linreg_stats")
+    LAUNCHES["linreg_stats"] += 1
+    cnt.add_(rows)  # one rounding of the exact integer count into the f32 state
+    return out
+
+
+# ---------------------------------------------------------------------------
+# KMeans: one Lloyd step, and the nearest centre per row
+# ---------------------------------------------------------------------------
+
+
+def center_norms(centers: torch.Tensor, half: bool) -> torch.Tensor:
+    """float32 ‖c‖² (or ½‖c‖²) of centres already in the compute dtype —
+    the scores' constant terms, as the Pallas wrappers compute them."""
+    c = centers.float()
+    norms = (c * c).sum(dim=1)
+    return 0.5 * norms if half else norms
+
+
+def _check_centers(x: torch.Tensor, centers: torch.Tensor) -> None:
+    if centers.dim() != 2 or centers.shape[0] == 0 or centers.shape[1] != x.shape[1]:
+        raise ValueError(
+            f"centers must be a (k, {x.shape[1]}) matrix with k >= 1, got {tuple(centers.shape)}"
+        )
+    if centers.dtype != x.dtype:
+        raise TypeError(f"centers must be {x.dtype} like x, got {centers.dtype}")
+    if centers.device != x.device:
+        raise ValueError(f"centers are on {centers.device}, x on {x.device}")
+    if not centers.is_contiguous():
+        raise ValueError("centers must be contiguous")
+
+
+def _nearest(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor, scale: float):
+    """(argmin, min) over centres of cn − scale·(x·c), ties to the lowest
+    index, for float32 rows x and centres c."""
+    scores = cn[None, :] - scale * (x @ c.T)
+    assign = first_argmin(scores)
+    return assign, scores.gather(1, assign[:, None])[:, 0]
+
+
+def lloyd_step_plain(x: torch.Tensor, centers: torch.Tensor, n_valid: int):
+    """Plain version of :func:`lloyd_step`."""
+    k, d = centers.shape
+    rows = min(x.shape[0], max(int(n_valid), 0))
+    c = centers.float()
+    c2h = center_norms(centers, half=True)
+    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    counts = torch.zeros((k,), dtype=torch.int64, device=x.device)
+    for r0 in range(0, rows, PLAIN_ROW_CHUNK):
+        xv = x[r0:min(rows, r0 + PLAIN_ROW_CHUNK)].float()
+        assign, _ = _nearest(xv, c, c2h, 1.0)
+        sums.index_add_(0, assign, xv)
+        counts += torch.bincount(assign, minlength=k)
+    return sums, counts.float()
+
+
+def lloyd_step(x: torch.Tensor, centers: torch.Tensor, n_valid: int):
+    """One Lloyd step over the first ``n_valid`` rows of an (n, d)
+    float32/bfloat16 matrix: each row goes to the centre of least
+    ½‖c‖² − x·c (ties to the lowest index); returns (sums (k, d), counts
+    (k,)) float32 per centre. centers: (k, d) in x's dtype. Counts are
+    summed as integers, so they are exact.
+
+    Any n, d and k ≥ 1: the Pallas kernel's k_pad lanes, pad sentinel and
+    dead lane were tiling artefacts the port does not carry over."""
+    _check_x(x)
+    _check_centers(x, centers)
+    if x.device.type == "cpu":
+        return lloyd_step_plain(x, centers, n_valid)
+    n, d = x.shape
+    k = centers.shape[0]
+    xp, is_bf16 = _launch_args(x)
+    c2h = center_norms(centers, half=True)
+    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    counts = torch.zeros((k,), dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _kmeans_lib().srml_lloyd_step(
+            xp, centers.data_ptr(), is_bf16, c2h.data_ptr(), n, d, k, int(n_valid),
+            sums.data_ptr(), counts.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _raise_on(rc, "lloyd_step")
+    LAUNCHES["lloyd_step"] += 1
+    return sums, counts.float()
+
+
+def assign_min_dist_plain(x: torch.Tensor, centers: torch.Tensor):
+    """Plain version of :func:`assign_min_dist`."""
+    c = centers.float()
+    c2 = center_norms(centers, half=False)
+    parts = [_nearest(x[r0:r0 + PLAIN_ROW_CHUNK].float(), c, c2, 2.0)
+             for r0 in range(0, x.shape[0], PLAIN_ROW_CHUNK)]
+    if not parts:
+        return (torch.zeros((0,), dtype=torch.int32, device=x.device),
+                torch.zeros((0,), dtype=torch.float32, device=x.device))
+    return (torch.cat([a for a, _ in parts]).to(torch.int32),
+            torch.cat([v for _, v in parts]))
+
+
+def assign_min_dist(x: torch.Tensor, centers: torch.Tensor):
+    """(assignments (m,) int32, partial distances (m,) float32) of an
+    (m, d) float32/bfloat16 matrix against (k, d) centres in its dtype:
+    per row the argmin of ‖c‖² − 2x·c (ties to the lowest index) and that
+    minimum. The distances omit the row constant ‖x‖², as in the JAX
+    package (``assign_min_dist_pallas``); callers add it back."""
+    _check_x(x)
+    _check_centers(x, centers)
+    if x.device.type == "cpu":
+        return assign_min_dist_plain(x, centers)
+    m, d = x.shape
+    k = centers.shape[0]
+    xp, is_bf16 = _launch_args(x)
+    c2 = center_norms(centers, half=False)
+    idx = torch.empty((m,), dtype=torch.int32, device=x.device)
+    dist = torch.empty((m,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _kmeans_lib().srml_assign_min_dist(
+            xp, centers.data_ptr(), is_bf16, c2.data_ptr(), m, d, k, idx.data_ptr(),
+            dist.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _raise_on(rc, "assign_min_dist")
+    LAUNCHES["assign_min_dist"] += 1
+    return idx, dist

@@ -1,11 +1,12 @@
-"""The PyTorch port's Gram kernels against the JAX package's Pallas kernels.
+"""The PyTorch port's kernels against the JAX package's Pallas kernels.
 
 On the CPU the port's wrappers take their kernels' plain versions; those
-are held here against ``gram_colsum_pallas`` / ``gram_pallas`` run in
-interpret mode, on the same numpy inputs (as tests/test_pallas.py runs
-them). The CUDA kernels themselves are held against the plain versions on
-the card, by ``chip_smoke.py`` and by the ``cuda``-marked test of
-tests/test_torch_package.py.
+are held here against ``gram_colsum_pallas``, ``gram_pallas``,
+``linreg_stats_pallas``, ``lloyd_step_pallas`` and
+``assign_min_dist_pallas`` run in interpret mode, on the same numpy inputs
+(as tests/test_pallas.py runs them). The CUDA kernels themselves are held
+against the plain versions on the card, by ``chip_smoke.py`` and by the
+``cuda``-marked test of tests/test_torch_package.py.
 """
 
 import re
@@ -15,7 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from spark_rapids_ml_tpu.ops.pallas_kernels import gram_colsum_pallas, gram_pallas
+from spark_rapids_ml_tpu.ops.pallas_kernels import (
+    assign_min_dist_pallas,
+    gram_colsum_pallas,
+    gram_pallas,
+    linreg_stats_pallas,
+    lloyd_step_pallas,
+)
 from spark_rapids_ml_tpu_torch.ops import _build, kernels
 from torch_port_helpers import jax_ledger_off
 
@@ -141,6 +148,23 @@ def test_kernel_source_exports_the_bound_symbols():
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
 
 
+@pytest.mark.parametrize("source, name, n_args", [
+    ("gram", "srml_linreg_stats", 13),
+    ("kmeans", "srml_lloyd_step", 11),
+    ("kmeans", "srml_assign_min_dist", 10),
+])
+def test_new_kernel_sources_export_the_bound_symbols(source, name, n_args):
+    """As above, for the LinearRegression and KMeans kernels; the count
+    also matches the ctypes binding's argument list."""
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    m = re.search(rf"int {name}\(([^)]*)\)", src)
+    assert m, name
+    assert len(m.group(1).split(",")) == n_args, name
+    binding = (_build.CSRC.parent / "kernels.py").read_text()
+    m = re.search(rf"lib\.{name}\.argtypes = \[([^\]]*)\]", binding)
+    assert m and len(m.group(1).split(",")) == n_args, name
+
+
 def test_build_paths_and_missing_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("SRML_TORCH_BUILD_DIR", str(tmp_path))
     path = _build.library_path("gram")
@@ -150,3 +174,165 @@ def test_build_paths_and_missing_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("gram")
     assert list(tmp_path.iterdir()) == []
+
+
+# ---------------------------------------------------------------------------
+# linreg_stats vs linreg_stats_pallas (tests/test_pallas.py:473-491)
+# ---------------------------------------------------------------------------
+
+
+def _linreg_inputs(dtype):
+    rng = np.random.default_rng(21)
+    xj, xt = _inputs(22, dtype)
+    y = rng.normal(size=(N,)).astype(np.float32)
+    mask = np.ones((N,), np.float32)
+    mask[-100:] = 0.0
+    return xj, xt, y, mask
+
+
+@pytest.mark.parametrize("impl", ["wrapper", "plain"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_linreg_stats_matches_pallas(impl, dtype):
+    xj, xt, y, mask = _linreg_inputs(dtype)
+    ref = linreg_stats_pallas(xj, y, mask, block_n=256, interpret=True)
+    fn = kernels.linreg_stats if impl == "wrapper" else kernels.linreg_stats_plain
+    before = dict(kernels.LAUNCHES)
+    out = fn(xt, torch.from_numpy(y), torch.from_numpy(mask))
+    assert kernels.LAUNCHES == before  # the CPU path launches nothing
+    assert all(t.dtype == torch.float32 for t in out)
+    for a, b in zip(out[:5], ref[:5]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-2)
+    assert float(out[5]) == float(ref[5]) == N - 100  # exact count
+
+
+@pytest.mark.parametrize("impl", ["wrapper", "plain"])
+def test_linreg_stats_seeded_folds_in_place(impl):
+    xj, xt, y, mask = _linreg_inputs("float32")
+    rng = np.random.default_rng(23)
+    seed = [rng.normal(size=s).astype(np.float32) for s in ((D, D), (D,), (D,), (), ())]
+    state = [torch.from_numpy(np.array(a)) for a in seed] + [torch.tensor(37.0)]
+    fn = kernels.linreg_stats if impl == "wrapper" else kernels.linreg_stats_plain
+    out = fn(xt, torch.from_numpy(y), torch.from_numpy(mask), state)
+    assert all(o.data_ptr() == s.data_ptr() for o, s in zip(out, state))
+    ref = linreg_stats_pallas(xj, y, mask, block_n=256, interpret=True)
+    for a, b, s0 in zip(out[:5], ref[:5], seed):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b) + s0, rtol=1e-5, atol=1e-2)
+    assert float(out[5]) == 37.0 + N - 100
+
+
+def test_linreg_stats_no_mask_counts_every_row():
+    x = torch.from_numpy(np.random.default_rng(24).normal(size=(37, 13)).astype(np.float32))
+    y = torch.arange(37, dtype=torch.float32)
+    xtx, xty, sx, sy, syy, n = kernels.linreg_stats(x, y)
+    np.testing.assert_allclose(xty.numpy(), (x.T @ y).numpy(), rtol=1e-5, atol=1e-3)
+    assert float(sy) == float(y.sum()) and float(syy) == float((y * y).sum())
+    assert float(n) == 37.0
+
+
+# ---------------------------------------------------------------------------
+# lloyd_step / assign_min_dist vs their Pallas kernels (test_pallas.py:261-307)
+# ---------------------------------------------------------------------------
+
+
+def _lloyd_inputs(dtype):
+    """Well-separated clusters (argmin margins >> f32 GEMM error)."""
+    rng = np.random.default_rng(31)
+    m, d, k = 1024, 128, 60
+    centers = (rng.normal(size=(k, d)) * 10).astype(np.float32)
+    lab = rng.integers(0, k, size=m)
+    x = (centers[lab] + 0.01 * rng.normal(size=(m, d))).astype(np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    ct = torch.from_numpy(centers).to(getattr(torch, dtype))
+    return xt, ct, lab
+
+
+@pytest.mark.parametrize("impl", ["wrapper", "plain"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_valid", [1024, 700])
+def test_lloyd_step_matches_pallas(impl, dtype, n_valid):
+    xt, ct, lab = _lloyd_inputs(dtype)
+    k, d = ct.shape
+    cpad = np.zeros((128, d), np.float32)
+    cpad[:k] = ct.float().numpy()
+    sums_j, counts_j = lloyd_step_pallas(
+        jnp.asarray(xt.float().numpy(), dtype), jnp.asarray(cpad, dtype), n_valid,
+        k=k, block_n=256, interpret=True,
+    )
+    fn = kernels.lloyd_step if impl == "wrapper" else kernels.lloyd_step_plain
+    sums, counts = fn(xt, ct, n_valid)
+    assert sums.shape == (k, d) and counts.shape == (k,)  # exactly k lanes
+    assert sums.dtype == counts.dtype == torch.float32
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(counts_j)[:k])
+    np.testing.assert_array_equal(counts.numpy(), np.bincount(lab[:n_valid], minlength=k))
+    np.testing.assert_allclose(sums.numpy(), np.asarray(sums_j)[:k], rtol=1e-4, atol=1e-2)
+
+
+def test_lloyd_step_n_valid_past_either_end():
+    xt, ct, lab = _lloyd_inputs("float32")
+    _, counts = kernels.lloyd_step(xt, ct, 10_000)
+    assert float(counts.sum()) == 1024.0
+    sums, counts = kernels.lloyd_step(xt, ct, -3)
+    assert not counts.any() and not sums.any()
+
+
+@pytest.mark.parametrize("impl", ["wrapper", "plain"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_assign_min_dist_matches_pallas(impl, dtype):
+    rng = np.random.default_rng(41)
+    m, d, k = 512, 32, 128
+    xt = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(getattr(torch, dtype))
+    ct = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(getattr(torch, dtype))
+    idx_j, part_j = assign_min_dist_pallas(
+        jnp.asarray(xt.float().numpy(), dtype), jnp.asarray(ct.float().numpy(), dtype),
+        block_m=128, block_k=64, interpret=True,
+    )
+    fn = kernels.assign_min_dist if impl == "wrapper" else kernels.assign_min_dist_plain
+    idx, part = fn(xt, ct)
+    assert idx.dtype == torch.int32 and part.dtype == torch.float32
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+    np.testing.assert_allclose(part.numpy(), np.asarray(part_j), rtol=1e-4, atol=1e-2)
+
+
+def test_duplicate_centres_tie_to_the_lowest_index():
+    """Equal scores go to the lowest centre index (``jnp.argmin``'s rule),
+    in the port and in the Pallas kernel, across centre blocks too."""
+    rng = np.random.default_rng(42)
+    m, d, k = 256, 16, 128
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    c[70] = c[5]  # another block of 64 in the Pallas kernel
+    c[6] = c[5]
+    x[:40] = c[5]  # rows sitting on the duplicated centre
+    idx_j, _ = assign_min_dist_pallas(x, c, block_m=128, block_k=64, interpret=True)
+    idx, _ = kernels.assign_min_dist(torch.from_numpy(x), torch.from_numpy(c))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+    assert (idx[:40] == 5).all()
+    _, counts = kernels.lloyd_step(torch.from_numpy(x), torch.from_numpy(c), m)
+    assert counts[6] == 0 and counts[70] == 0 and counts[5] >= 40
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda x, c: (x, c.double()), TypeError),              # centre dtype
+    (lambda x, c: (x, c[:, :3]), ValueError),               # centre width
+    (lambda x, c: (x, c[:0]), ValueError),                  # k = 0
+    (lambda x, c: (x, c.T.contiguous().T), ValueError),     # not contiguous
+    (lambda x, c: (x.double(), c.double()), TypeError),     # x dtype
+])
+def test_kmeans_wrappers_reject_bad_inputs(bad, err):
+    x, c = torch.ones((8, 4)), torch.ones((5, 4))
+    with pytest.raises(err):
+        kernels.assign_min_dist(*bad(x, c))
+    with pytest.raises(err):
+        kernels.lloyd_step(*bad(x, c), 8)
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda x: (x, torch.ones(7)), ValueError),                       # y length
+    (lambda x: (x, torch.ones(8, dtype=torch.float64)), TypeError),   # y dtype
+    (lambda x: (x, torch.ones(8), torch.ones(8, dtype=torch.int32)), TypeError),  # mask
+    (lambda x: (x, torch.ones(8), None, [torch.zeros(4, 4)] * 6), ValueError),     # state
+])
+def test_linreg_stats_wrapper_rejects_bad_inputs(bad, err):
+    x = torch.ones((8, 4))
+    with pytest.raises(err):
+        kernels.linreg_stats(*bad(x))

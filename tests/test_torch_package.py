@@ -20,8 +20,18 @@ import numpy as np
 import pytest
 import torch
 
-from spark_rapids_ml_tpu_torch import PCA, PCAModel, config
-from spark_rapids_ml_tpu_torch.core.dataset import as_matrix, num_rows, with_column
+from spark_rapids_ml_tpu_torch import (
+    PCA,
+    KMeans,
+    KMeansModel,
+    LinearRegression,
+    LinearRegressionModel,
+    PCAModel,
+    config,
+)
+from spark_rapids_ml_tpu_torch.core.dataset import as_column, as_matrix, num_rows, with_column
+from spark_rapids_ml_tpu_torch.models import kmeans as port_km
+from spark_rapids_ml_tpu_torch.models import linear_regression as port_lr
 from spark_rapids_ml_tpu_torch.models import pca as port_pca
 from spark_rapids_ml_tpu_torch.ops import kernels
 
@@ -84,6 +94,35 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
     # Asked for explicitly, the CPU works.
     model = PCA(device="cpu").setK(2).fit({"features": x})
     assert model.transform_matrix(x)["output"].shape == (20, 2)
+
+
+@pytest.mark.parametrize("call", [
+    lambda x, y: KMeans().setK(2).fit({"features": x}),
+    lambda x, y: port_km.fit_kmeans(x, 2),
+    lambda x, y: port_km.fit_kmeans_stream(lambda: iter([x]), 2, 4),
+    lambda x, y: KMeansModel(centers=x[:2]).predict(x),
+    lambda x, y: LinearRegression().fit({"features": x, "label": y}),
+    lambda x, y: port_lr.fit_linear_regression(x, y),
+    lambda x, y: LinearRegressionModel(coefficients=np.ones(4)).transform_matrix(x),
+])
+def test_kmeans_and_linreg_entry_points_raise_without_a_card(no_cuda, call):
+    rng = np.random.default_rng(0)
+    x, y = rng.normal(size=(20, 4)), rng.normal(size=20)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(x, y)
+
+
+def test_kmeans_and_linreg_run_on_the_cpu_when_asked(no_cuda):
+    rng = np.random.default_rng(1)
+    x, y = rng.normal(size=(20, 4)), rng.normal(size=20)
+    ds = {"features": x, "label": y}
+    km = KMeans(device="cpu").setK(2).fit(ds)
+    assert km.transform(ds)["prediction"].shape == (20,)
+    lr = LinearRegression(device="cpu").fit(ds)
+    assert lr.transform(ds)["prediction"].shape == (20,)
+    np.testing.assert_array_equal(as_column(ds, "label"), y)
+    with pytest.raises(TypeError, match="bare array"):
+        as_column(x, "label")
 
 
 def test_config_reads_its_own_env_prefix():
@@ -183,3 +222,36 @@ def test_kernels_match_plain_versions_on_card():
         assert float(c) == float(cp) == 777.0
         mask = (torch.rand(1001, generator=gen, device="cuda") < 0.5).float()
         assert float((kernels.gram(x, mask) - kernels.gram_plain(x, mask)).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_kmeans_and_linreg_kernels_match_plain_versions_on_card():
+    """On a CUDA card: linreg_stats, lloyd_step and assign_min_dist launch
+    and agree with their plain versions at ragged shapes (f32 sums in
+    another order: 1e-5 of the largest absolute sum; counts exact; rows
+    near well-separated centres, so the assignments agree)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((1001, 300), generator=gen, device="cuda").to(dtype)
+        y = torch.randn((1001,), generator=gen, device="cuda")
+        mask = (torch.rand(1001, generator=gen, device="cuda") < 0.5).float()
+        before = kernels.LAUNCHES["linreg_stats"]
+        out = kernels.linreg_stats(x, y, mask)
+        assert kernels.LAUNCHES["linreg_stats"] == before + 1
+        ref = kernels.linreg_stats_plain(x, y, mask)
+        scale = float((x.float() ** 2).sum(0).max())
+        assert float((out[0] - ref[0]).abs().max()) <= 1e-5 * scale
+        assert float(out[5]) == float(ref[5]) == float((mask != 0).sum())
+        centers = torch.randn((37, 300), generator=gen, device="cuda")
+        lab = torch.randint(0, 37, (1001,), generator=gen, device="cuda")
+        xk = (centers[lab] + 0.05 * torch.randn((1001, 300), generator=gen, device="cuda"))
+        xk, ck = xk.to(dtype), centers.to(dtype)
+        sums, counts = kernels.lloyd_step(xk, ck, 900)
+        sums_p, counts_p = kernels.lloyd_step_plain(xk, ck, 900)
+        assert bool((counts == counts_p).all()) and float(counts.sum()) == 900
+        assert float((sums - sums_p).abs().max()) <= 1e-5 * float(xk.float().abs().sum(0).max())
+        idx, part = kernels.assign_min_dist(xk, ck)
+        idx_p, part_p = kernels.assign_min_dist_plain(xk, ck)
+        assert bool((idx == idx_p).all())
