@@ -11,7 +11,8 @@ Phases, each of which exits non-zero on a failed check:
    versions, and the build of every ``ops/csrc/*.cu`` with nvcc for sm_90a
    (one nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at ragged
-   shapes (tolerances stated beside each check).
+   shapes (tolerances stated beside each check), the LogisticRegression
+   pair included.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count; components checked sign-invariantly against
@@ -39,6 +40,24 @@ Phases, each of which exits non-zero on a failed check:
    of the same normal equations on the card.
 10. The KMeans and LinearRegression kernels timed at their main paths'
     shapes, as in phase 6.
+11. Binomial LogisticRegression at full width (bench_logreg.py: d=1024,
+    511,943 = 2^19 − 12,345 bf16 rows, regParam 1e-4, Spark's maxIter 100
+    and tol 1e-6) through ``LogisticRegression().fit``: ``newton_stats``
+    launches must equal ``summary.numIter``; coefficients against a
+    float64 Newton fit of the same bf16 rows on the card, and the float64
+    objective at the port's solution against the float64 optimum.
+12. Multinomial LogisticRegression at full width (d=1024, C=32, 129,838
+    float32 rows; regParam 1e-4, five MM-Newton passes at tol 0):
+    ``softmax_curvature`` launches must equal 5; the objective must not
+    increase from pass to pass; (W, b) against the same five passes in
+    float64 on the card (gradient on the float32 rows, curvature on the
+    bf16-rounded rows, as the fit); one pass's statistics at the final
+    iterate against float64.
+13. LogisticRegressionModel.transform_matrix on 65,536 x 1024 rows, binary
+    and multinomial: rawPrediction and probability against float64,
+    predictions equal off near-ties; p50 latency of 21 runs.
+14. The LogisticRegression kernels timed at the phase 11 and 12 shapes, as
+    in phase 6, and the Newton solve of the (d + 1) system.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -75,6 +94,13 @@ LR_D = 1024  # linear_regression.py:85 (the 1M x 1024 shape)
 LR_BATCHES = 8
 LR_LAST_BATCH_ROWS = BATCH_ROWS - 12345
 LR_IN_MEMORY_ROWS = 1 << 20
+LG_D = 1024  # bench_logreg.py:21 (d); the binomial rows, 2^19, :22
+LG_ROWS = (1 << 19) - 12345  # made ragged
+LG_REG = 1e-4  # bench_logreg.py's regParam
+MN_CLASSES = 32  # bench_logreg.py:83 (C); its rows, 2^17, :84
+MN_ROWS = (1 << 17) - 1234  # made ragged
+MN_PASSES = 5
+LG_TRANSFORM_ROWS = 65536
 
 KERNEL_SOURCE = "spark_rapids_ml_tpu_torch/ops/csrc/gram.cu"
 KMEANS_SOURCE = "spark_rapids_ml_tpu_torch/ops/csrc/kmeans.cu"
@@ -84,6 +110,8 @@ REPLACES = {
     "lloyd_step": "spark_rapids_ml_tpu/ops/pallas_kernels.py:314",
     "assign_min_dist": "spark_rapids_ml_tpu/ops/pallas_kernels.py:561",
     "linreg_stats": "spark_rapids_ml_tpu/ops/pallas_kernels.py:1210",
+    "newton_stats": "spark_rapids_ml_tpu/ops/pallas_kernels.py:451",
+    "softmax_curvature": "spark_rapids_ml_tpu/ops/pallas_kernels.py:1135",
 }
 
 
@@ -509,15 +537,365 @@ def phase_linreg(torch, kernels, lr, LinearRegression, config):
     return xb, yb, x32, y32, launches
 
 
+def phase_logreg_kernels(torch, kernels) -> None:
+    """newton_stats and softmax_curvature against their plain versions at
+    ragged shapes (n = 20,001 over 3 row splits, d = 300 over 3 tiles; and
+    37 x 13), bf16 and f32, with and without a mask, C in {1, 3, 32}."""
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for n, d in ((20001, 300), (37, 13)):
+            x = torch.randn((n, d), generator=gen, device=DEV).to(dtype)
+            xf = x.float()
+            y = (torch.rand((n,), generator=gen, device=DEV) < 0.5).float()
+            w = torch.randn((d,), generator=gen, device=DEV) / d ** 0.5
+            b = torch.tensor(0.3, device=DEV)
+            for masked in (False, True):
+                mask = (torch.rand((n,), generator=gen, device=DEV) < 0.7).float() if masked else None
+                m = torch.ones((n,), device=DEV) if mask is None else mask
+                out_k = kernels.newton_stats(x, y, mask, w, b)
+                out_p = kernels.newton_stats_plain(x, y, mask, w, b)
+                torch.cuda.synchronize()
+                # Tolerance: f32 sums in another order over <= 20,001 rows,
+                # 1e-5 of each output's largest absolute sum of terms
+                # (|r| <= 1 and wgt <= 1/4 per masked row).
+                xa = xf.abs() * m[:, None]
+                scales = (float(xa.sum(0).max()), float(m.sum()),
+                          0.25 * float((xa * xf.abs()).sum(0).max()),
+                          0.25 * float(xa.sum(0).max()), 0.25 * float(m.sum()))
+                errs = [rel_err(a, c, max(sc, 1.0)) for a, c, sc in zip(out_k, out_p, scales)]
+                names = ("Xᵀr", "Σr", "Xᵀdiag(wgt)X", "Xᵀwgt", "Σwgt")
+                check(all(e <= 1e-5 for e in errs),
+                      f"newton_stats {name} n={n} d={d} mask={masked} "
+                      + ", ".join(f"{k} {e:.1e}" for k, e in zip(names, errs)))
+            for c in (1, 3, 32):
+                p = torch.softmax(torch.randn((n, c), generator=gen, device=DEV), dim=1)
+                hk, bk = kernels.softmax_curvature(x, p)
+                hp, bp = kernels.softmax_curvature_plain(x, p)
+                torch.cuda.synchronize()
+                # Tolerance: as above; p_c <= 1, so Σx² and Σ|x| bound the terms.
+                e_h = rel_err(hk, hp, max(float((xf * xf).sum(0).max()), 1.0))
+                e_b = rel_err(bk, bp, max(float(xf.abs().sum(0).max()), 1.0))
+                check(tuple(hk.shape) == (c, d, d) and tuple(bk.shape) == (c, d)
+                      and e_h <= 1e-5 and e_b <= 1e-5,
+                      f"softmax_curvature {name} n={n} d={d} C={c}: Xᵀdiag(p_c)X {e_h:.1e}, "
+                      f"Xᵀp_c {e_b:.1e} (tol 1e-5)")
+
+
+def binary_objective64(torch, x64, y64, w, b, reg) -> float:
+    z = x64 @ w + b
+    loss = (torch.logaddexp(z, torch.zeros_like(z)) - y64 * z).mean()
+    return float(loss) + 0.5 * reg * float(w @ w)
+
+
+def binary_reference(torch, x64, y64, reg):
+    """Float64 Newton on the card, the bordered (d + 1) system solved
+    directly, to a step of 1e-12: the optimum the fit is held to."""
+    n, d = x64.shape
+    w = torch.zeros((d,), dtype=torch.float64, device=DEV)
+    b = torch.zeros((), dtype=torch.float64, device=DEV)
+    eye = torch.eye(d, dtype=torch.float64, device=DEV)
+    for it in range(1, 51):
+        p = torch.sigmoid(x64 @ w + b)
+        wgt = p * (1.0 - p)
+        h = torch.empty((d + 1, d + 1), dtype=torch.float64, device=DEV)
+        h[:d, :d] = (x64 * wgt[:, None]).T @ x64 / n + reg * eye
+        h[:d, d] = h[d, :d] = x64.T @ wgt / n
+        h[d, d] = wgt.sum() / n
+        g = torch.cat([x64.T @ (p - y64) / n + reg * w, ((p - y64).sum() / n)[None]])
+        step = torch.linalg.solve(h, g)
+        w, b = w - step[:d], b - step[d]
+        if float(torch.linalg.norm(step)) <= 1e-12:
+            break
+    return w, b, it
+
+
+def phase_logreg_binary(torch, kernels, lg, LogisticRegression):
+    """Phase 11; returns (x, y, model, launches)."""
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    x = torch.randn((LG_ROWS, LG_D), generator=gen, device=DEV).to(torch.bfloat16)
+    w_true = torch.randn((LG_D,), generator=gen, device=DEV) / LG_D ** 0.5
+    # Noisy labels (Bernoulli of the true probabilities): a well-posed
+    # optimum, where bench_logreg.py's thresholded labels are separable.
+    p_true = torch.sigmoid(x.float() @ w_true + 0.3)
+    y = (torch.rand((LG_ROWS,), generator=gen, device=DEV) < p_true).float()
+    del p_true
+    print(f"logreg binary: {LG_ROWS} x {LG_D} bf16 rows, regParam {LG_REG}, maxIter 100, "
+          f"tol 1e-6", flush=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model = LogisticRegression().setRegParam(LG_REG).fit({"features": x, "label": y})
+    fit_s = time.perf_counter() - t0  # the coefficients are on the host: synced
+    launches = dict(kernels.LAUNCHES)
+    it = model.summary.numIter
+    check(launches["newton_stats"] == it,
+          f"newton_stats launches {launches['newton_stats']} == numIter {it}")
+    print(f"logreg binary fit: {fit_s:.3f} s, {it} Newton iterations, "
+          f"{LG_ROWS * it / fit_s:.1f} row-iterations/s (host clock, ends on a host read)",
+          flush=True)
+    x64, y64 = x.double(), y.double()
+    w_ref, b_ref, ref_it = binary_reference(torch, x64, y64, LG_REG)
+    w = torch.as_tensor(model.coefficients, device=DEV)
+    b = float(model.intercept)
+    wn = float(torch.linalg.norm(w_ref))
+    err_w = float(torch.linalg.norm(w - w_ref)) / wn
+    err_b = abs(b - float(b_ref)) / wn
+    # Tolerance (relative to ‖w‖): the fit stops at a step of 2⁻⁸·‖w‖ on
+    # bf16 rows; its gradient is exact to f32 on those rows, so the
+    # remaining error is Newton's quadratic contraction of that step and
+    # the f32 statistics. 1e-4 was expected and 2⁻⁸ is the hard limit; the
+    # first chip run measured 1.1e-7 and 2.4e-9, so 1e-5.
+    check(err_w <= 1e-5 and err_b <= 1e-5,
+          f"logreg binary vs float64 Newton ({ref_it} steps to 1e-12) on the same bf16 rows: "
+          f"‖Δw‖/‖w‖ {err_w:.3e}, |Δb|/‖w‖ {err_b:.3e} (tol 1e-5; ‖w‖ {wn:.4f})")
+    f_port = binary_objective64(torch, x64, y64, w, b, LG_REG)
+    f_ref = binary_objective64(torch, x64, y64, w_ref, b_ref, LG_REG)
+    gap = (f_port - f_ref) / abs(f_ref)
+    check(abs(gap) <= 1e-6, f"logreg binary float64 objective {f_port:.10f} vs optimum "
+          f"{f_ref:.10f}: rel gap {gap:.3e} (tol 1e-6)")
+    del x64, y64
+    return x, y, model, launches
+
+
+def softmax_reference(torch, x64, xh64, yi, reg, passes):
+    """The fit's MM-Newton passes in float64 on the card: logits and
+    gradient on x64, per-class curvature on xh64, bordered per-class
+    systems solved directly."""
+    n, d = x64.shape
+    c = int(yi.max()) + 1
+    W = torch.zeros((d, c), dtype=torch.float64, device=DEV)
+    b = torch.zeros((c,), dtype=torch.float64, device=DEV)
+    onehot = torch.nn.functional.one_hot(yi, c).double()
+    for _ in range(passes):
+        p = torch.softmax(x64 @ W + b, dim=1)
+        gw = (x64.T @ (p - onehot) / n + reg * W).T  # (C, d)
+        gb = (p - onehot).sum(0) / n
+        h = torch.zeros((c, d + 1, d + 1), dtype=torch.float64, device=DEV)
+        for k in range(c):
+            xw = xh64 * p[:, k:k + 1]
+            h[k, :d, :d] = xw.T @ xh64 / n
+            h[k, :d, d] = h[k, d, :d] = xw.sum(0) / n
+        h[:, :d, :d] += reg * torch.eye(d, dtype=torch.float64, device=DEV)
+        h[:, d, d] = p.sum(0) / n
+        step = torch.linalg.solve(h, torch.cat([gw, gb[:, None]], dim=1))
+        W, b = W - step[:, :d].T, b - step[:, d]
+    return W, b
+
+
+def phase_logreg_multinomial(torch, kernels, lg, LogisticRegression, config):
+    """Phase 12; returns (x, bf16 x, y, model, probabilities, launches)."""
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    x = torch.randn((MN_ROWS, LG_D), generator=gen, device=DEV)
+    w_true = torch.randn((LG_D, MN_CLASSES), generator=gen, device=DEV) / LG_D ** 0.5
+    b_true = 0.5 * torch.randn((MN_CLASSES,), generator=gen, device=DEV)
+    p_true = torch.softmax(x @ w_true + b_true, dim=1)
+    y = torch.multinomial(p_true, 1, generator=gen)[:, 0].float()
+    del p_true
+    print(f"logreg multinomial: {MN_ROWS} x {LG_D} float32 rows, C={MN_CLASSES}, regParam "
+          f"{LG_REG}, maxIter {MN_PASSES}, tol 0", flush=True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model = (LogisticRegression().setRegParam(LG_REG).setMaxIter(MN_PASSES).setTol(0.0)
+             .fit({"features": x, "label": y}))
+    fit_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    check(launches["softmax_curvature"] == MN_PASSES,
+          f"softmax_curvature launches {launches['softmax_curvature']} == passes {MN_PASSES}")
+    hist = model.summary.objectiveHistory
+    print(f"logreg multinomial fit: {fit_s:.3f} s, {model.summary.numIter} passes, "
+          f"{MN_ROWS * model.summary.numIter / fit_s:.1f} row-iterations/s; objective per "
+          f"pass {', '.join(f'{v:.8f}' for v in hist)}", flush=True)
+    check(len(hist) == MN_PASSES and all(b <= a * (1 + 1e-6) for a, b in zip(hist, hist[1:])),
+          "multinomial objective does not increase from pass to pass (MM descent, 1e-6 rel)")
+    xh = x.to(config.compute_dtype(DEV))
+    x64, xh64 = x.double(), xh.double()
+    yi = y.long()
+    W_ref, b_ref = softmax_reference(torch, x64, xh64, yi, LG_REG, MN_PASSES)
+    W = torch.as_tensor(model.coefficients.T, device=DEV)
+    b = torch.as_tensor(model.intercept, device=DEV)
+    scale = float(W_ref.abs().max())
+    err_w = float((W - W_ref).abs().max()) / scale
+    err_b = float((b - b_ref).abs().max()) / scale
+    # Tolerance: float32 statistics (relative error about 1e-6) through
+    # five MM steps; the intercepts' gradient Σr cancels more. The first
+    # chip run measured 2.7e-6 and 7.3e-5 of max|W|: 3e-5 and 1e-3.
+    check(err_w <= 3e-5 and err_b <= 1e-3,
+          f"multinomial (W, b) vs the same {MN_PASSES} passes in float64: max err W "
+          f"{err_w:.3e} (tol 3e-5), b {err_b:.3e} (tol 1e-3) of max|W| {scale:.4f}")
+    # One pass's statistics at the final iterate against float64.
+    Wf, bf = W.float(), b.float()
+    state = lg.stream_softmax_zero_state(LG_D, MN_CLASSES, torch.float32, DEV)
+    lg.softmax_stats_update(state, Wf, bf, x, y, xh=xh)
+    p64 = torch.softmax(x64 @ Wf.double() + bf.double(), dim=1)
+    r64 = p64 - torch.nn.functional.one_hot(yi, MN_CLASSES).double()
+    gw64 = x64.T @ r64
+    e_g_max = rel_err(state[0], gw64, float(gw64.abs().max()))
+    e_g = rel_err(state[0], gw64, float((x64.abs().T @ r64.abs()).max()))
+    del r64
+    hw_err, hw_max = 0.0, 0.0
+    for k in range(MN_CLASSES):
+        hk = (xh64 * p64[:, k:k + 1]).T @ xh64
+        hw_err = max(hw_err, float((state[2][k].double() - hk).abs().max()))
+        hw_max = max(hw_max, float(hk.abs().max()))
+    e_h = hw_err / hw_max
+    # Tolerances: the gradient within 1e-5 of its largest absolute sum of
+    # terms Σ|x||r| (the f32 logits carry about 1e-7·Σ|x||W| into every r,
+    # and that sums over the rows, so the largest entry, a sum with
+    # cancellation, is no scale for it; the error over it is printed); the
+    # curvature within 1e-4 of its largest entry.
+    check(e_g <= 1e-5 and e_h <= 1e-4,
+          f"multinomial pass statistics at the final iterate vs float64: gradient {e_g:.3e} "
+          f"of max Σ|x||r| (tol 1e-5; {e_g_max:.3e} of its largest entry), curvature "
+          f"{e_h:.3e} of its largest entry (tol 1e-4)")
+    p = torch.softmax(x @ Wf + bf, dim=1)
+    del x64, xh64, state
+    return x, xh, y, model, p, launches
+
+
+def check_transform(torch, model, xq, cd, tag) -> float:
+    """rawPrediction and probability of ``transform_matrix`` against
+    float64 at the compute-dtype-rounded x and coefficients; returns the
+    p50 latency in ms of 21 runs."""
+    out = model.transform_matrix(xq)
+    coef = torch.as_tensor(model.coefficients, device=DEV).to(cd).double()
+    inter = torch.as_tensor(model.intercept, device=DEV).double()
+    xd = xq.to(cd).double()
+    z = xd @ coef.reshape(-1, LG_D).T + inter.reshape(1, -1)
+    raw64 = torch.cat([-z, z], dim=1) if model.coefficients.ndim == 1 else z
+    scale = float((xd.abs() @ coef.reshape(-1, LG_D).abs().T).max()) + float(inter.abs().max())
+    raw_err = float((out["rawPrediction"] - raw64).abs().max())
+    if model.coefficients.ndim == 1:
+        proba64 = torch.sigmoid(raw64[:, 1])
+        proba64 = torch.stack([1 - proba64, proba64], dim=1)
+    else:
+        proba64 = torch.softmax(raw64, dim=1)
+    p_err = float((out["probability"] - proba64).abs().max())
+    # Tolerance: the same rounded operands summed in f32 over 1024 terms,
+    # 1e-5 of the largest Σ|x||w|; a probability moves at most as much.
+    check(raw_err <= 1e-5 * scale and p_err <= 1e-5 * scale,
+          f"{tag} transform vs float64: rawPrediction err {raw_err:.3e}, probability "
+          f"{p_err:.3e} (tol 1e-5 x {scale:.2f})")
+    top2 = raw64.topk(2, dim=1).values
+    tie_band = max(1e-6, 2 * raw_err)  # a smaller gap can flip under that error
+    differ = out["prediction"] != raw64.argmax(dim=1).double()
+    near = (top2[:, 0] - top2[:, 1]) <= tie_band
+    check(bool((~differ | near).all()),
+          f"{tag} predictions equal float64's except at {int(differ.sum())} rows within "
+          f"{tie_band:.1e} of a tie ({int(near.sum())} such rows)")
+    lat = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.transform_matrix(xq)["prediction"].sum().item()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat.sort()
+    return lat[len(lat) // 2]
+
+
+def phase_logreg_timings(torch, kernels, solve_newton_system, xl, yl, model_b, lg_launches,
+                         xmh, pm, mn_launches):
+    """Phase 14: the two kernel rows at the phase 11 and 12 shapes, and the
+    time of the Newton solve."""
+    rows = []
+    n, d = xl.shape
+    w = torch.as_tensor(model_b.coefficients, device=DEV).float()
+    b = torch.tensor(float(model_b.intercept), device=DEV)
+    ms = time_ms(lambda: kernels.newton_stats(xl, yl, None, w, b), 3)
+    plain_ms = time_ms(lambda: kernels.newton_stats_plain(xl, yl, None, w, b), 3)
+    out_k = kernels.newton_stats(xl, yl, None, w, b)
+    out_p = kernels.newton_stats_plain(xl, yl, None, w, b)
+    # Yardstick: no PyTorch call computes the pass; the Hessian product
+    # alone, (x·wgt)ᵀx in bf16 (tensor cores), is timed.
+    p1 = torch.sigmoid(xl.float() @ w + b)
+    xw = (xl.float() * torch.clamp(p1 * (1 - p1), min=1e-10)[:, None]).to(torch.bfloat16)
+    lib_ms = time_ms(lambda: torch.matmul(xw.T, xl), 5)
+    del xw, p1
+    hscale = float(out_p[2].diagonal().max())
+    err = rel_err(out_k[2], out_p[2], hscale)
+    gerr = rel_err(out_k[0], out_p[0], float(xl.float().abs().sum(0).max()))
+    # Tolerance: f32 sums over 511,943 rows in another order, 1e-4 relative.
+    check(err <= 1e-4 and gerr <= 1e-4,
+          f"newton_stats at {n} x {d} bf16: Hessian rel err {err:.2e}, gradient {gerr:.2e} "
+          f"(tol 1e-4)")
+    # Bound: x, y, w and b read once, the five outputs written once; the
+    # Hessian is symmetric, so nd(d+1) operations, plus 6nd for x·w, Xᵀr and
+    # Xᵀwgt.
+    b_ms, b_by = bound_ms(n * d * 2 + n * 4 + d * 4 + 4 + 4 * (d * d + 2 * d + 2),
+                          n * d * (d + 1) + 6 * n * d, "bfloat16")
+    rows.append({
+        "name": "newton_stats", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": REPLACES["newton_stats"], "launches": lg_launches["newton_stats"],
+        "max_abs_err": float((out_k[2] - out_p[2]).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+    })
+    # The Newton solve of the phase-11 system: the port's bordered solve
+    # (reg > 0: a d-square Cholesky with two right-hand sides) and a bare
+    # Cholesky factor and solve of the whole (d + 1)-square system.
+    nf = float(n)
+    eye = torch.eye(d, device=DEV)
+    hww, hwb, hbb = out_k[2] / nf + LG_REG * eye, out_k[3] / nf, out_k[4] / nf
+    gw, gb = out_k[0] / nf + LG_REG * w, out_k[1] / nf
+    solve_ms = time_ms(lambda: solve_newton_system(hww, hwb, hbb, gw, gb, LG_REG, True), 5)
+    hfull = torch.empty((d + 1, d + 1), device=DEV)
+    hfull[:d, :d], hfull[:d, d], hfull[d, :d], hfull[d, d] = hww, hwb, hwb, hbb
+    gfull = torch.cat([gw, gb[None]])[:, None]
+    chol_ms = time_ms(lambda: torch.cholesky_solve(gfull, torch.linalg.cholesky_ex(hfull)[0]), 5)
+    print(f"Newton solve at d={d} f32: solve_newton_system {solve_ms:.3f} ms, "
+          f"(d+1)-square cholesky_ex + cholesky_solve {chol_ms:.3f} ms", flush=True)
+    del out_k, out_p
+
+    n, d = xmh.shape
+    c = pm.shape[1]
+    ms = time_ms(lambda: kernels.softmax_curvature(xmh, pm), 2)
+    plain_ms = time_ms(lambda: kernels.softmax_curvature_plain(xmh, pm), 2)
+    hk, bk = kernels.softmax_curvature(xmh, pm)
+    hp, bp = kernels.softmax_curvature_plain(xmh, pm)
+    err = rel_err(hk, hp, float(hp.diagonal(dim1=1, dim2=2).max()))
+    berr = rel_err(bk, bp, float(xmh.float().abs().sum(0).max()))
+    # Tolerance: f32 sums over 129,838 rows in another order, 1e-4 relative.
+    check(err <= 1e-4 and berr <= 1e-4,
+          f"softmax_curvature at {n} x {d} bf16, C={c}: curvature rel err {err:.2e}, border "
+          f"{berr:.2e} (tol 1e-4)")
+    # Yardstick: C Hessian products alone, (x·p_c)ᵀx in bf16, timed as C
+    # products of one weighted copy (the same work per product).
+    xw = (xmh.float() * pm[:, :1]).to(torch.bfloat16)
+    lib_ms = time_ms(lambda: [torch.matmul(xw.T, xmh) for _ in range(c)], 2)
+    del xw
+    # Bound: x and p read once, the (C, d, d) and (C, d) outputs written
+    # once; C·nd(d+1) operations for the symmetric blocks and 2Cnd for Xᵀp_c.
+    b_ms, b_by = bound_ms(n * d * 2 + n * c * 4 + 4 * c * (d * d + d),
+                          c * n * d * (d + 1) + 2 * c * n * d, "bfloat16")
+    rows.append({
+        "name": "softmax_curvature", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": REPLACES["softmax_curvature"],
+        "launches": mn_launches["softmax_curvature"],
+        "max_abs_err": float((hk - hp).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+    })
+    return rows
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from spark_rapids_ml_tpu_torch import PCA, LinearRegression, PCAModel, config
+    from spark_rapids_ml_tpu_torch import (
+        PCA,
+        LinearRegression,
+        LogisticRegression,
+        PCAModel,
+        config,
+    )
     from spark_rapids_ml_tpu_torch.models import kmeans as km
     from spark_rapids_ml_tpu_torch.models import linear_regression as lr
+    from spark_rapids_ml_tpu_torch.models import logistic_regression as lg
+    from spark_rapids_ml_tpu_torch.ops.linalg import solve_newton_system
     from spark_rapids_ml_tpu_torch.models.pca import fit_pca_stream
     from spark_rapids_ml_tpu_torch.ops import _build, kernels
 
@@ -543,6 +921,7 @@ def main() -> None:
     # -- 2. kernels against their plain versions -----------------------------
     phase_kernels(torch, kernels)
     phase_new_kernels(torch, kernels)
+    phase_logreg_kernels(torch, kernels)
 
     # -- 3. streaming fit at full width ---------------------------------------
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -784,9 +1163,29 @@ def main() -> None:
                          n32 * d * (d + 1) + 3 * n32 * d, "float32")
     print(f"linreg_stats at {n32} x {d} f32 (the in-memory fit): {ms32:.3f} ms (plain "
           f"{plain32:.3f}, torch.matmul {lib32:.3f}, bound {b32:.3f} by {by32})")
+    del xb, yb, x32, y32, out_k, out_p, state
+    torch.cuda.empty_cache()
+
+    # -- 11.-12. LogisticRegression at full width --------------------------------
+    xl, yl, model_b, lg_launches = phase_logreg_binary(torch, kernels, lg, LogisticRegression)
+    xm, xmh, ym, model_m, pm, mn_launches = phase_logreg_multinomial(
+        torch, kernels, lg, LogisticRegression, config)
+
+    # -- 13. transform -------------------------------------------------------------
+    cd = config.compute_dtype(DEV)
+    p50_b = check_transform(torch, model_b, xl[:LG_TRANSFORM_ROWS], cd, "logreg binary")
+    p50_m = check_transform(torch, model_m, xm[:LG_TRANSFORM_ROWS], cd,
+                            f"logreg multinomial C={MN_CLASSES}")
+    print(f"logreg transform {LG_TRANSFORM_ROWS} x {LG_D} (device-resident input, host clock, "
+          f"synced): p50 binary {p50_b:.3f} ms, multinomial {p50_m:.3f} ms", flush=True)
+
+    # -- 14. the LogisticRegression kernels at their paths' shapes ----------------
+    table += phase_logreg_timings(torch, kernels, solve_newton_system, xl, yl, model_b,
+                                  lg_launches, xmh, pm, mn_launches)
+    del xl, yl, xm, xmh, ym, pm
     for row in table:
         print(f"{row['name']}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
-              f"torch.matmul {row['library_ms']:.3f}, bound {row['bound_ms']:.3f} by "
+              f"library {row['library_ms']:.3f}, bound {row['bound_ms']:.3f} by "
               f"{row['bound_by']}), {row['launches']} launches on the main path")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -3,11 +3,13 @@
 A second package beside the JAX one, for one NVIDIA H100. It imports
 ``torch``, numpy and the standard library, never JAX and nothing of the
 JAX package, which stays the reference it is tested against. It holds
-PCA, LinearRegression and KMeans: their in-memory and streaming fits,
-transform/predict and persistence. Their data passes run in hand-written
-Hopper kernels: the Gram family (``ops/csrc/gram.cu``: PCA's fold and
-LinearRegression's normal equations) and KMeans' Lloyd step and nearest-
-centre assignment (``ops/csrc/kmeans.cu``).
+PCA, LinearRegression, KMeans and LogisticRegression: their in-memory and
+streaming fits, transform/predict and persistence. Their data passes run
+in hand-written Hopper kernels: the Gram family (``ops/csrc/gram.cu``:
+PCA's fold, LinearRegression's normal equations and LogisticRegression's
+weighted Grams, one binomial Newton pass and the multinomial per-class
+curvature) and KMeans' Lloyd step and nearest-centre assignment
+(``ops/csrc/kmeans.cu``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
@@ -28,6 +30,10 @@ from spark_rapids_ml_tpu_torch.models.linear_regression import (  # noqa: E402
     LinearRegression,
     LinearRegressionModel,
 )
+from spark_rapids_ml_tpu_torch.models.logistic_regression import (  # noqa: E402
+    LogisticRegression,
+    LogisticRegressionModel,
+)
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel  # noqa: E402
 
 __all__ = [
@@ -35,6 +41,8 @@ __all__ = [
     "KMeansModel",
     "LinearRegression",
     "LinearRegressionModel",
+    "LogisticRegression",
+    "LogisticRegressionModel",
     "PCA",
     "PCAModel",
     "config",

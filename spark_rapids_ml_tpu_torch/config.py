@@ -1,7 +1,7 @@
 """Runtime configuration of the PyTorch port.
 
 The counterpart of ``spark_rapids_ml_tpu/config.py``, cut to the keys the
-port reads (PCA, KMeans and LinearRegression). Values are settable programmatically or through
+port reads (PCA, KMeans, LinearRegression and LogisticRegression). Values are settable programmatically or through
 environment variables prefixed ``SRML_TORCH_`` — a prefix of its own, so
 the port never inherits the JAX package's ``SRML_TPU_*`` settings.
 

@@ -14,6 +14,7 @@ import numpy as np
 
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeansModel
 from spark_rapids_ml_tpu_torch.models.linear_regression import LinearRegressionModel
+from spark_rapids_ml_tpu_torch.models.logistic_regression import LogisticRegressionModel
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
 from spark_rapids_ml_tpu_torch.ops.gram import Stats
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor
@@ -56,3 +57,14 @@ def linreg_model_from_jax(data: Dict[str, np.ndarray], device=None) -> LinearReg
         intercept=float(np.asarray(data["intercept"]).reshape(-1)[0]),
         device=device,
     )
+
+
+def logreg_model_from_jax(data: Dict[str, np.ndarray], device=None) -> LogisticRegressionModel:
+    """A port ``LogisticRegressionModel`` from the JAX
+    ``LogisticRegressionModel._model_data()`` dict (``coefficients`` (d,)
+    or (C, d), ``intercept`` (1,) or (C,)). The fit checkpoints need no
+    conversion: both packages write (w, b) or (W (d, C), b) with ``it``,
+    ``n_cols`` (and ``n_classes``) in the same ``.npz`` layout."""
+    model = LogisticRegressionModel._from_model_data(None, data)
+    model._device = device
+    return model

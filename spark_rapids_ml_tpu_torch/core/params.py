@@ -385,8 +385,9 @@ class Params:
 
 # ---------------------------------------------------------------------------
 # Shared param mixins (pyspark.ml.param.shared equivalents) — the ones the
-# PCA, KMeans and LinearRegression estimators use. The reference inherits
-# inputCol/outputCol/k from Spark's PCAParams (RapidsPCA.scala:34).
+# PCA, KMeans, LinearRegression and LogisticRegression estimators use. The
+# reference inherits inputCol/outputCol/k from Spark's PCAParams
+# (RapidsPCA.scala:34).
 # ---------------------------------------------------------------------------
 
 
@@ -442,6 +443,34 @@ class HasPredictionCol(Params):
 
     def setPredictionCol(self, value: str):
         return self._set(predictionCol=value)
+
+
+class HasProbabilityCol(Params):
+    probabilityCol = ParamDecl(
+        "probabilityCol",
+        "column of predicted class conditional probabilities",
+        TypeConverters.toString,
+    )
+
+    def getProbabilityCol(self) -> str:
+        return self.getOrDefault(self.probabilityCol)
+
+    def setProbabilityCol(self, value: str):
+        return self._set(probabilityCol=value)
+
+
+class HasRawPredictionCol(Params):
+    rawPredictionCol = ParamDecl(
+        "rawPredictionCol",
+        "raw prediction (confidence / margin) column name",
+        TypeConverters.toString,
+    )
+
+    def getRawPredictionCol(self) -> str:
+        return self.getOrDefault(self.rawPredictionCol)
+
+    def setRawPredictionCol(self, value: str):
+        return self._set(rawPredictionCol=value)
 
 
 class HasSeed(Params):

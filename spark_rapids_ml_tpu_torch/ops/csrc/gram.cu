@@ -1,12 +1,15 @@
 // Hopper (sm_90a) kernels of the Gram family: the masked Gram (X·m)ᵀ(X·m),
-// the fused count / column sum / XᵀX of the first n_valid rows (PCA), and
-// the fused normal-equation statistics XᵀX, Xᵀy, Σx, Σy, Σy², n
-// (LinearRegression).
+// the fused count / column sum / XᵀX of the first n_valid rows (PCA), the
+// fused normal-equation statistics XᵀX, Xᵀy, Σx, Σy, Σy², n
+// (LinearRegression), and the weighted Grams of LogisticRegression: one
+// binomial Newton-IRLS pass and the multinomial per-class curvature.
 //
 // Replaces spark_rapids_ml_tpu/ops/pallas_kernels.py:
-//   gram_pallas         (:78)   -> srml_gram
-//   gram_colsum_pallas  (:173)  -> srml_gram_colsum
-//   linreg_stats_pallas (:1210) -> srml_linreg_stats
+//   gram_pallas              (:78)   -> srml_gram
+//   gram_colsum_pallas       (:173)  -> srml_gram_colsum
+//   newton_stats_pallas      (:451)  -> srml_newton_stats
+//   softmax_curvature_pallas (:1135) -> srml_softmax_curvature
+//   linreg_stats_pallas      (:1210) -> srml_linreg_stats
 //
 // What the Pallas kernels compute: a (d, d) f32 accumulator kept in VMEM for
 // the whole sequential row grid, with x read once. An H100 SM has 227 KB of
@@ -33,6 +36,32 @@
 // The linreg row count is an integer (rows with m != 0), summed in a 64-bit
 // counter, so it is exact at any n.
 //
+// The LogisticRegression statistics are the same body in a fourth mode,
+// kWeighted: the i-panel is scaled by a per-row weight on staging and the
+// j-panel is raw, so a tile is Xᵀdiag(wt)X; the diagonal blocks' column sums
+// of the scaled panel are Xᵀwt and, given a residual r, they add Xᵀr from
+// the raw panel. A launch covers C weight columns (wt is (n, C), read at
+// stride C): blockIdx.z = split·C + class, each class with its own (d, d)
+// and (d,) outputs.
+//
+// * srml_newton_stats is two launches. A row pass (one warp per row, the
+//   dot product reduced with __shfl_xor_sync) computes z = x·w + b,
+//   p = σ(z), r = (p − y)·m and wgt = max(p(1 − p), 1e-10)·m into (n,) f32
+//   scratch and adds Σr and Σwgt; then the kWeighted Gram pass with
+//   wt = wgt and the residual r gives Xᵀdiag(wgt)X, Xᵀwgt and Xᵀr. The
+//   Pallas kernel reads x once per iteration; this reads it twice. At the
+//   path's shape (511,943 x 1024 bf16) the second read is about 1 GB, or
+//   0.3 ms of HBM time, against about 45 ms of FFMA: it is the first thing
+//   the tensor-core redesign removes (z must then come from the same
+//   staged tiles as the Hessian).
+// * srml_softmax_curvature is one kWeighted launch over all C classes with
+//   wt = p (already masked): Xᵀdiag(p_c)X and Xᵀp_c per class. x is read
+//   again for every class, about 8.5 GB at 129,838 x 1024 bf16, C = 32, or
+//   2.5 ms of HBM time against about 350 ms of FFMA; sharing one staged x
+//   tile across a class group, as the Pallas kernel does, is later work.
+// w, b, z, p, r, wgt and p_c stay f32: the TPU kernels' bf16 roundings of
+// w, r, wgt and p_c were MXU and Mosaic constraints and are not carried over.
+//
 // Arithmetic: f32 input multiplies in plain f32 FFMA (never TF32), as the
 // JAX package's Precision.HIGHEST; bf16 input converts with
 // __bfloat162float (exact) and accumulates in f32.
@@ -58,13 +87,18 @@ constexpr int kThreads = 256;                     // 16 x 16 threads, 8 x 8 each
 constexpr int kRowsPerPass = kThreads / kTile;    // staging rows per thread pass
 constexpr int kLoads = kChunk / kRowsPerPass;     // panel elements per thread
 constexpr long long kRowsPerSplit = 8192;         // longest f32 sum per register
-constexpr long long kMaxSplits = 65535;           // gridDim.z limit
+constexpr long long kMaxGridZ = 65535;            // gridDim.z limit: splits x classes
+constexpr int kRowThreads = 256;                  // Newton row pass: 8 warps, one row each
+constexpr long long kRowBlocks = 4096;            // Newton row pass: grid-stride cap
 
 // What a launch computes besides G.
 enum Mode : int {
   kMasked = 0,  // G += (X·m)ᵀ(X·m)                           (gram_pallas)
   kColsum = 1,  // G += XᵀX, colsum += Σx, count += rows       (gram_colsum_pallas)
   kLinreg = 2,  // G, Xᵀy, Σx, Σy, Σy², rows with m != 0       (linreg_stats_pallas)
+  kWeighted = 3,  // per class c: G_c += Xᵀdiag(wt_c)X, colsum_c += Xᵀwt_c,
+                  // and xty += Xᵀr when r is given (newton_stats_pallas,
+                  // softmax_curvature_pallas)
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -78,23 +112,27 @@ __device__ __forceinline__ int slot(int t, int s) {
 }
 
 struct Outputs {
-  float* gram;                // (d, d)
-  float* colsum;              // (d,)    kColsum, kLinreg
+  float* gram;                // (d, d); (C, d, d) kWeighted
+  float* colsum;              // (d,)    kColsum, kLinreg; (C, d) kWeighted
   float* count;               // ()      kColsum
-  float* xty;                 // (d,)    kLinreg
+  float* xty;                 // (d,)    kLinreg; kWeighted with a residual
   float* sy;                  // ()      kLinreg
   float* syy;                 // ()      kLinreg
   unsigned long long* rows;   // ()      kLinreg
 };
 
-// Rows [blockIdx.z * split_rows, min(n_rows, (blockIdx.z + 1) * split_rows)).
-// mask == nullptr means all ones (kMasked, kLinreg); y is read by kLinreg.
+// blockIdx.z = split * n_classes + class; the split covers rows
+// [split * split_rows, min(n_rows, (split + 1) * split_rows)). n_classes is 1
+// outside kWeighted. mask == nullptr means all ones (kMasked, kLinreg); y is
+// read by kLinreg. kWeighted: mask is the (n, n_classes) weight matrix and y
+// the (n,) residual, or nullptr for none.
 template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 gram_tile_kernel(const T* __restrict__ x, const float* __restrict__ mask,
                  const float* __restrict__ y, long long n_rows,
-                 long long split_rows, long long d, Outputs out) {
-  constexpr bool kUseMask = kMode != kColsum;
+                 long long split_rows, long long d, int n_classes, Outputs out) {
+  constexpr bool kWgt = kMode == kWeighted;
+  constexpr bool kUseMask = kMode == kMasked || kMode == kLinreg;
   constexpr bool kLin = kMode == kLinreg;
   __shared__ __align__(16) float a_s[kChunk][kTile];
   __shared__ __align__(16) float b_s[kChunk][kTile];
@@ -114,6 +152,11 @@ gram_tile_kernel(const T* __restrict__ x, const float* __restrict__ mask,
   const bool diag = blockIdx.x == blockIdx.y;              // block-uniform
   const bool y_block = kLin && blockIdx.x == 0 && blockIdx.y == 0;
   const bool y_thread = y_block && lc == 0;                // one per staged row
+  const bool resid_block = kWgt && diag && y != nullptr;   // adds Xᵀr
+  const int cls = static_cast<int>(blockIdx.z % n_classes);
+  const long long split = blockIdx.z / n_classes;
+  float* gram = out.gram + static_cast<long long>(cls) * d * d;
+  float* colsum = kMode == kMasked ? nullptr : out.colsum + static_cast<long long>(cls) * d;
 
   float acc[8][8];
 #pragma unroll
@@ -121,11 +164,11 @@ gram_tile_kernel(const T* __restrict__ x, const float* __restrict__ mask,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   float csum = 0.f;   // Σ a over this thread's rows (column i0 + lc)
-  float xysum = 0.f;  // Σ a·(y·m) (kLinreg)
+  float xysum = 0.f;  // Σ a·(y·m) (kLinreg); Σ a·r before the weight (kWeighted)
   float ys = 0.f, yys = 0.f;
   unsigned long long nrows = 0;
 
-  const long long r_begin = static_cast<long long>(blockIdx.z) * split_rows;
+  const long long r_begin = split * split_rows;
   const long long r_end = min(n_rows, r_begin + split_rows);
   for (long long r0 = r_begin; r0 < r_end; r0 += kChunk) {
 #pragma unroll
@@ -151,6 +194,10 @@ gram_tile_kernel(const T* __restrict__ x, const float* __restrict__ mask,
             yys += ym * ym;
             nrows += (m != 0.f);
           }
+        }
+        if (kWgt) {
+          if (resid_block) xysum += a * y[r];  // a is still the raw column
+          a *= mask[r * n_classes + cls];
         }
       }
       a_s[rr][lc] = a;
@@ -184,7 +231,7 @@ gram_tile_kernel(const T* __restrict__ x, const float* __restrict__ mask,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const long long gj = j0 + slot(tx, j);
-      if (gj < d) atomicAdd(&out.gram[gi * d + gj], acc[i][j]);
+      if (gj < d) atomicAdd(&gram[gi * d + gj], acc[i][j]);
     }
   }
 
@@ -196,12 +243,12 @@ gram_tile_kernel(const T* __restrict__ x, const float* __restrict__ mask,
       float s = 0.f;
 #pragma unroll
       for (int q = 0; q < kRowsPerPass; ++q) s += red[q][tid];
-      atomicAdd(&out.colsum[i0 + tid], s);
+      atomicAdd(&colsum[i0 + tid], s);
     }
-    if (kLin) {
+    if (kLin || resid_block) {
       __syncthreads();
       red[lr][lc] = xysum;
-      if (lc == 0) {
+      if (kLin && lc == 0) {
         red_y[lr][0] = ys;
         red_y[lr][1] = yys;
         red_n[lr] = nrows;
@@ -213,7 +260,7 @@ gram_tile_kernel(const T* __restrict__ x, const float* __restrict__ mask,
         for (int q = 0; q < kRowsPerPass; ++q) s += red[q][tid];
         atomicAdd(&out.xty[i0 + tid], s);
       }
-      if (y_block && tid == 0) {
+      if (kLin && y_block && tid == 0) {
         float s = 0.f, ss = 0.f;
         unsigned long long nn = 0;
 #pragma unroll
@@ -236,22 +283,84 @@ gram_tile_kernel(const T* __restrict__ x, const float* __restrict__ mask,
 
 template <int kMode>
 int launch(const void* x, int is_bf16, const float* mask, const float* y,
-           long long n_rows, long long d, const Outputs& out, void* stream) {
+           long long n_rows, long long d, int n_classes, const Outputs& out,
+           void* stream) {
+  if (n_classes < 1 || n_classes > kMaxGridZ) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long max_splits = kMaxGridZ / n_classes;
   const unsigned tiles = static_cast<unsigned>((d + kTile - 1) / kTile);
   long long splits = (n_rows + kRowsPerSplit - 1) / kRowsPerSplit;
-  splits = splits < 1 ? 1 : (splits > kMaxSplits ? kMaxSplits : splits);
+  splits = splits < 1 ? 1 : (splits > max_splits ? max_splits : splits);
   long long split_rows = (n_rows + splits - 1) / splits;
   split_rows = (split_rows + kChunk - 1) / kChunk * kChunk;
-  const dim3 grid(tiles, tiles, static_cast<unsigned>(splits));
+  const dim3 grid(tiles, tiles, static_cast<unsigned>(splits * n_classes));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     gram_tile_kernel<__nv_bfloat16, kMode><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), mask, y, n_rows, split_rows, d, out);
+        static_cast<const __nv_bfloat16*>(x), mask, y, n_rows, split_rows, d,
+        n_classes, out);
   } else {
     gram_tile_kernel<float, kMode><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), mask, y, n_rows, split_rows, d, out);
+        static_cast<const float*>(x), mask, y, n_rows, split_rows, d,
+        n_classes, out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The Newton row pass: per row z = x·w + b, p = σ(z), r = (p − y)·m and
+// wgt = max(p(1 − p), 1e-10)·m (mask == nullptr: m = 1), written to
+// resid and wgt; Σr and Σwgt added into *gb and *hbb. One warp per row,
+// grid-stride over rows; lanes stride over the columns.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+newton_row_kernel(const T* __restrict__ x, const float* __restrict__ y,
+                  const float* __restrict__ mask, const float* __restrict__ w,
+                  const float* __restrict__ b, long long n, long long d,
+                  float* __restrict__ resid, float* __restrict__ wgt,
+                  float* gb, float* hbb) {
+  constexpr int kWarps = kRowThreads / 32;
+  __shared__ float red_r[kWarps];
+  __shared__ float red_w[kWarps];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const float bias = *b;
+  float sr = 0.f, sw = 0.f;  // lane 0's sums over this warp's rows
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long r = static_cast<long long>(blockIdx.x) * kWarps + warp; r < n;
+       r += stride) {
+    const T* row = x + r * d;
+    float z = 0.f;
+    for (long long j = lane; j < d; j += 32) z = fmaf(to_f32(row[j]), w[j], z);
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) z += __shfl_xor_sync(0xffffffffu, z, o);
+    if (lane == 0) {
+      z += bias;
+      const float p = 1.f / (1.f + expf(-z));
+      const float m = mask == nullptr ? 1.f : mask[r];
+      const float rr = (p - y[r]) * m;
+      const float ww = fmaxf(p * (1.f - p), 1e-10f) * m;
+      resid[r] = rr;
+      wgt[r] = ww;
+      sr += rr;
+      sw += ww;
+    }
+  }
+  if (lane == 0) {
+    red_r[warp] = sr;
+    red_w[warp] = sw;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s_r = 0.f, s_w = 0.f;
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) {
+      s_r += red_r[q];
+      s_w += red_w[q];
+    }
+    atomicAdd(gb, s_r);
+    atomicAdd(hbb, s_w);
+  }
 }
 
 }  // namespace
@@ -264,7 +373,7 @@ extern "C" {
 int srml_gram(const void* x, int is_bf16, const float* mask, long long n,
               long long d, float* gram, void* stream) {
   const Outputs out{gram, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
-  return launch<kMasked>(x, is_bf16, mask, nullptr, n, d, out, stream);
+  return launch<kMasked>(x, is_bf16, mask, nullptr, n, d, 1, out, stream);
 }
 
 // Over the first min(n, max(n_valid, 0)) rows of x: gram += xᵀx,
@@ -274,7 +383,7 @@ int srml_gram_colsum(const void* x, int is_bf16, long long n, long long d,
                      float* count, void* stream) {
   const long long rows = n_valid < 0 ? 0 : (n_valid < n ? n_valid : n);
   const Outputs out{gram, colsum, count, nullptr, nullptr, nullptr, nullptr};
-  return launch<kColsum>(x, is_bf16, nullptr, nullptr, rows, d, out, stream);
+  return launch<kColsum>(x, is_bf16, nullptr, nullptr, rows, d, 1, out, stream);
 }
 
 // With xm = x·m and ym = y·m over all n rows (mask null: m = 1):
@@ -286,7 +395,46 @@ int srml_linreg_stats(const void* x, int is_bf16, const float* mask,
                       float* xty, float* sx, float* sy, float* syy,
                       unsigned long long* rows, void* stream) {
   const Outputs out{xtx, sx, nullptr, xty, sy, syy, rows};
-  return launch<kLinreg>(x, is_bf16, mask, y, n, d, out, stream);
+  return launch<kLinreg>(x, is_bf16, mask, y, n, d, 1, out, stream);
+}
+
+// One binomial Newton-IRLS pass at (w, b) over the n rows of x (f32 or bf16,
+// (n, d) row-major): with z = x·w + b, p = σ(z), r = (p − y)·m and
+// wgt = max(p(1 − p), 1e-10)·m (mask null: m = 1),
+// gw += Xᵀr, gb += Σr, hww += Xᵀdiag(wgt)X, hwb += Xᵀwgt, hbb += Σwgt.
+// y, mask: (n,) f32; w: (d,) f32; b: () f32 on the device; resid, wgt: (n,)
+// f32 scratch the row pass writes; gw, hwb (d,), hww (d, d), gb, hbb () f32.
+int srml_newton_stats(const void* x, int is_bf16, const float* y,
+                      const float* mask, const float* w, const float* b,
+                      long long n, long long d, float* resid, float* wgt,
+                      float* gw, float* gb, float* hww, float* hwb, float* hbb,
+                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > 0) {
+    long long blocks = (n + kRowThreads / 32 - 1) / (kRowThreads / 32);
+    blocks = blocks > kRowBlocks ? kRowBlocks : blocks;
+    if (is_bf16) {
+      newton_row_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), kRowThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x), y, mask, w, b, n, d, resid, wgt, gb, hbb);
+    } else {
+      newton_row_kernel<float><<<static_cast<unsigned>(blocks), kRowThreads, 0, s>>>(
+          static_cast<const float*>(x), y, mask, w, b, n, d, resid, wgt, gb, hbb);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const Outputs out{hww, hwb, nullptr, gw, nullptr, nullptr, nullptr};
+  return launch<kWeighted>(x, is_bf16, wgt, resid, n, d, 1, out, stream);
+}
+
+// Per class c of the (n, C) f32 weights p (softmax probabilities, already
+// masked): hw[c] += Xᵀdiag(p_c)X, hwb[c] += Xᵀp_c. x: (n, d) f32 or bf16;
+// hw (C, d, d), hwb (C, d) f32. 1 <= C <= 65535.
+int srml_softmax_curvature(const void* x, int is_bf16, const float* p,
+                           long long n, long long d, int n_classes, float* hw,
+                           float* hwb, void* stream) {
+  const Outputs out{hw, hwb, nullptr, nullptr, nullptr, nullptr, nullptr};
+  return launch<kWeighted>(x, is_bf16, p, nullptr, n, d, n_classes, out, stream);
 }
 
 }  // extern "C"

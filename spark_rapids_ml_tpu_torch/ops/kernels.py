@@ -1,7 +1,7 @@
 """Wrappers of the hand-written Hopper kernels, and their plain versions.
 
 The counterpart of ``spark_rapids_ml_tpu/ops/pallas_kernels.py`` for the
-PCA, LinearRegression and KMeans slices:
+PCA, LinearRegression, KMeans and LogisticRegression slices:
 
 * :func:`gram` — the masked Gram (X·m)ᵀ(X·m), f32 accumulate; replaces
   ``gram_pallas`` (pallas_kernels.py:78).
@@ -16,8 +16,14 @@ PCA, LinearRegression and KMeans slices:
   (pallas_kernels.py:314).
 * :func:`assign_min_dist` — per row, the nearest centre and ‖c‖² − 2x·c;
   replaces ``assign_min_dist_pallas`` (pallas_kernels.py:561).
+* :func:`newton_stats` — one binomial Newton-IRLS pass: Xᵀr, Σr,
+  Xᵀdiag(wgt)X, Xᵀwgt and Σwgt at (w, b); replaces ``newton_stats_pallas``
+  (pallas_kernels.py:451).
+* :func:`softmax_curvature` — per class, Xᵀdiag(p_c)X and Xᵀp_c; replaces
+  ``softmax_curvature_pallas`` (pallas_kernels.py:1135).
 
-The Gram family lives in ``csrc/gram.cu``, the KMeans pair in
+The Gram family, LogisticRegression's weighted Grams included, lives in
+``csrc/gram.cu``, the KMeans pair in
 ``csrc/kmeans.cu`` (design notes there). A wrapper takes its plain PyTorch
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises — there is no fallback. Each launch adds one to
@@ -41,7 +47,7 @@ from spark_rapids_ml_tpu_torch.ops.distances import first_argmin
 
 #: Kernel launches by wrapper name (the plain versions do not count).
 LAUNCHES = {"gram": 0, "gram_colsum": 0, "linreg_stats": 0, "lloyd_step": 0,
-            "assign_min_dist": 0}
+            "assign_min_dist": 0, "newton_stats": 0, "softmax_curvature": 0}
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -56,6 +62,8 @@ GramState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (gram, colsum, co
 # (xtx, xty, sx, sy, syy, n), all float32
 LinregState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                     torch.Tensor]
+# (gw, gb, hww, hwb, hbb), all float32
+NewtonStats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 #: Rows per step of the plain KMeans versions: bounds their (rows, k)
 #: score matrices at the main path's 16.7M rows.
@@ -78,6 +86,11 @@ def _lib() -> ctypes.CDLL:
     lib.srml_linreg_stats.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, ptr,
                                       ptr, ptr]
     lib.srml_linreg_stats.restype = i32
+    lib.srml_newton_stats.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i64, i64, ptr, ptr, ptr,
+                                      ptr, ptr, ptr, ptr, ptr]
+    lib.srml_newton_stats.restype = i32
+    lib.srml_softmax_curvature.argtypes = [ptr, i32, ptr, i64, i64, i32, ptr, ptr, ptr]
+    lib.srml_softmax_curvature.restype = i32
     return lib
 
 
@@ -404,3 +417,104 @@ def assign_min_dist(x: torch.Tensor, centers: torch.Tensor):
     _raise_on(rc, "assign_min_dist")
     LAUNCHES["assign_min_dist"] += 1
     return idx, dist
+
+
+# ---------------------------------------------------------------------------
+# LogisticRegression: one binomial Newton pass, the multinomial curvature
+# ---------------------------------------------------------------------------
+
+
+def newton_stats_plain(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    w: torch.Tensor,
+    b: torch.Tensor,
+) -> NewtonStats:
+    """Plain version of :func:`newton_stats`."""
+    xf = x.float()
+    p = torch.sigmoid(xf @ w + b)
+    r = p - y
+    wgt = torch.clamp(p * (1.0 - p), min=1e-10)
+    if mask is not None:
+        r = r * mask
+        wgt = wgt * mask
+    return xf.T @ r, r.sum(), (xf * wgt[:, None]).T @ xf, xf.T @ wgt, wgt.sum()
+
+
+def newton_stats(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    w: torch.Tensor,
+    b: torch.Tensor,
+) -> NewtonStats:
+    """One binomial Newton-IRLS pass over the rows of an (n, d)
+    float32/bfloat16 matrix at (w (d,), b ()) float32: with z = x·w + b,
+    p = σ(z), r = (p − y)·m and wgt = max(p(1 − p), 1e-10)·m, the fresh
+    float32 sums (Xᵀr (d,), Σr (), Xᵀdiag(wgt)X (d, d), Xᵀwgt (d,),
+    Σwgt ()). y: (n,) float32; mask: (n,) float32 or None for every row.
+
+    w, b, z, p, r and wgt stay float32 and x converts exactly: the Pallas
+    kernel's bf16 roundings of w, r and wgt are not carried over. Any n
+    and d (no block_n divisibility)."""
+    _check_x(x)
+    n, d = x.shape
+    _check_f32(y, (n,), x.device, "y")
+    if mask is not None:
+        _check_f32(mask, (n,), x.device, "mask")
+    _check_f32(w, (d,), x.device, "w")
+    _check_f32(b, (), x.device, "b")
+    if x.device.type == "cpu":
+        return newton_stats_plain(x, y, mask, w, b)
+    xp, is_bf16 = _launch_args(x)
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=x.device)  # noqa: E731
+    gw, gb, hww, hwb, hbb = z(d), z(), z(d, d), z(d), z()
+    resid = torch.empty((n,), dtype=torch.float32, device=x.device)
+    wgt = torch.empty((n,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _lib().srml_newton_stats(
+            xp, is_bf16, y.data_ptr(), None if mask is None else mask.data_ptr(),
+            w.data_ptr(), b.data_ptr(), n, d, resid.data_ptr(), wgt.data_ptr(),
+            gw.data_ptr(), gb.data_ptr(), hww.data_ptr(), hwb.data_ptr(), hbb.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _raise_on(rc, "newton_stats")
+    LAUNCHES["newton_stats"] += 1
+    return gw, gb, hww, hwb, hbb
+
+
+def softmax_curvature_plain(x: torch.Tensor, p: torch.Tensor):
+    """Plain version of :func:`softmax_curvature`: one product per class."""
+    xf = x.float()
+    hw = torch.stack([(xf * p[:, c:c + 1]).T @ xf for c in range(p.shape[1])])
+    return hw, p.T @ xf
+
+
+def softmax_curvature(x: torch.Tensor, p: torch.Tensor):
+    """Per class c of the (n, C) float32 weights p (softmax probabilities,
+    already masked), the curvature block Xᵀdiag(p_c)X and the border
+    Xᵀp_c of an (n, d) float32/bfloat16 matrix: (hw (C, d, d), hwb (C, d))
+    float32, fresh sums.
+
+    p_c stays float32 (the Pallas kernel rounds it to x's dtype). Any n, d
+    and 1 <= C <= 65535 (no block_n or block_c demands)."""
+    _check_x(x)
+    n, d = x.shape
+    if p.dim() != 2 or p.shape[0] != n or not 1 <= p.shape[1] <= 65535:
+        raise ValueError(f"p must be an ({n}, C) matrix with 1 <= C <= 65535, got {tuple(p.shape)}")
+    _check_f32(p, tuple(p.shape), x.device, "p")
+    if x.device.type == "cpu":
+        return softmax_curvature_plain(x, p)
+    n_classes = p.shape[1]
+    xp, is_bf16 = _launch_args(x)
+    hw = torch.zeros((n_classes, d, d), dtype=torch.float32, device=x.device)
+    hwb = torch.zeros((n_classes, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _lib().srml_softmax_curvature(
+            xp, is_bf16, p.data_ptr(), n, d, n_classes, hw.data_ptr(), hwb.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _raise_on(rc, "softmax_curvature")
+    LAUNCHES["softmax_curvature"] += 1
+    return hw, hwb

@@ -2,9 +2,10 @@
 
 On the CPU the port's wrappers take their kernels' plain versions; those
 are held here against ``gram_colsum_pallas``, ``gram_pallas``,
-``linreg_stats_pallas``, ``lloyd_step_pallas`` and
-``assign_min_dist_pallas`` run in interpret mode, on the same numpy inputs
-(as tests/test_pallas.py runs them). The CUDA kernels themselves are held
+``linreg_stats_pallas``, ``lloyd_step_pallas``, ``assign_min_dist_pallas``,
+``newton_stats_pallas`` and ``softmax_curvature_pallas`` run in interpret
+mode, on the same numpy inputs (as tests/test_pallas.py runs them), and
+against float64 numpy oracles. The CUDA kernels themselves are held
 against the plain versions on the card, by ``chip_smoke.py`` and by the
 ``cuda``-marked test of tests/test_torch_package.py.
 """
@@ -22,6 +23,8 @@ from spark_rapids_ml_tpu.ops.pallas_kernels import (
     gram_pallas,
     linreg_stats_pallas,
     lloyd_step_pallas,
+    newton_stats_pallas,
+    softmax_curvature_pallas,
 )
 from spark_rapids_ml_tpu_torch.ops import _build, kernels
 from torch_port_helpers import jax_ledger_off
@@ -152,6 +155,8 @@ def test_kernel_source_exports_the_bound_symbols():
     ("gram", "srml_linreg_stats", 13),
     ("kmeans", "srml_lloyd_step", 11),
     ("kmeans", "srml_assign_min_dist", 10),
+    ("gram", "srml_newton_stats", 16),
+    ("gram", "srml_softmax_curvature", 9),
 ])
 def test_new_kernel_sources_export_the_bound_symbols(source, name, n_args):
     """As above, for the LinearRegression and KMeans kernels; the count
@@ -336,3 +341,182 @@ def test_linreg_stats_wrapper_rejects_bad_inputs(bad, err):
     x = torch.ones((8, 4))
     with pytest.raises(err):
         kernels.linreg_stats(*bad(x))
+
+
+# ---------------------------------------------------------------------------
+# newton_stats / softmax_curvature vs their Pallas kernels
+# (tests/test_pallas.py:319-378, :513-537) and float64 oracles
+# ---------------------------------------------------------------------------
+
+
+def _newton_inputs(dtype, n=1024, d=256, seed=51):
+    """x (as the rounded values in ``dtype``), labels, a mask whose 100
+    masked rows end off a 256-row block boundary, w and b."""
+    rng = np.random.default_rng(seed)
+    xt = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(getattr(torch, dtype))
+    y = (rng.random(n) > 0.5).astype(np.float32)
+    mask = np.ones((n,), np.float32)
+    mask[-100:] = 0.0
+    w = (rng.normal(size=(d,)) / np.sqrt(d)).astype(np.float32)
+    return xt, y, mask, w, np.float32(0.3)
+
+
+def _newton_oracle(x, y, mask, w, b):
+    """float64 (Xᵀr, Σr, Xᵀdiag(wgt)X, Xᵀwgt, Σwgt) and the largest
+    absolute sum of terms of each (the scale of an f32 sum's error)."""
+    x, y, mask, w = (np.asarray(a, np.float64) for a in (x, y, mask, w))
+    p = 1.0 / (1.0 + np.exp(-(x @ w + float(b))))
+    r = (p - y) * mask
+    wgt = np.maximum(p * (1.0 - p), 1e-10) * mask
+    ax = np.abs(x)
+    out = (x.T @ r, r.sum(), (x * wgt[:, None]).T @ x, x.T @ wgt, wgt.sum())
+    scales = ((ax.T @ np.abs(r)).max(), np.abs(r).sum(), (ax * wgt[:, None]).T @ ax,
+              ax.T @ wgt, wgt.sum())
+    return out, [float(np.max(s)) for s in scales]
+
+
+def _newton_call(impl, xt, y, mask, w, b):
+    fn = kernels.newton_stats if impl == "wrapper" else kernels.newton_stats_plain
+    m = None if mask is None else torch.from_numpy(mask)
+    return fn(xt, torch.from_numpy(y), m, torch.from_numpy(w), torch.tensor(b))
+
+
+# Tolerances of tests/test_pallas.py:319-378. In bf16 the Pallas kernel
+# rounds w, r and wgt to bf16 before its GEMMs; the port keeps them f32.
+NEWTON_TOL = {
+    "float32": [dict(rtol=1e-4, atol=1e-2)] * 5,
+    "bfloat16": [dict(rtol=2e-2, atol=2e-1), dict(rtol=1e-3, atol=1e-2),
+                 dict(rtol=2e-2, atol=5e-1), dict(rtol=2e-2, atol=2e-1),
+                 dict(rtol=1e-3, atol=1e-2)],
+}
+
+
+@pytest.mark.parametrize("impl", ["wrapper", "plain"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_newton_stats_matches_pallas(impl, dtype):
+    xt, y, mask, w, b = _newton_inputs(dtype)
+    xj = jnp.asarray(xt.float().numpy(), dtype)
+    ref = newton_stats_pallas(xj, y, mask, w, b, block_n=256, interpret=True)
+    before = dict(kernels.LAUNCHES)
+    out = _newton_call(impl, xt, y, mask, w, b)
+    assert kernels.LAUNCHES == before  # the CPU path launches nothing
+    assert [tuple(t.shape) for t in out] == [(256,), (), (256, 256), (256,), ()]
+    assert all(t.dtype == torch.float32 for t in out)
+    for a, r, tol in zip(out, ref, NEWTON_TOL[dtype]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), **tol)
+
+
+@pytest.mark.parametrize("impl", ["wrapper", "plain"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_newton_stats_matches_float64(impl, dtype):
+    """Against float64 on the same (rounded) x: f32 sums within 1e-5 of
+    each output's largest absolute sum of terms."""
+    xt, y, mask, w, b = _newton_inputs(dtype, seed=52)
+    out = _newton_call(impl, xt, y, mask, w, b)
+    ref, scales = _newton_oracle(xt.float().numpy(), y, mask, w, b)
+    for a, r, sc in zip(out, ref, scales):
+        assert np.abs(a.numpy() - r).max() <= 1e-5 * sc
+
+
+def _softmax_inputs(n, d, c, seed, masked=True):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    logits = rng.normal(size=(n, c))
+    p = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    mask = np.ones((n,), np.float32)
+    if masked:
+        mask[-200:] = 0.0
+    return x, (p * mask[:, None]).astype(np.float32)
+
+
+@pytest.mark.parametrize("impl", ["wrapper", "plain"])
+def test_softmax_curvature_matches_pallas(impl):
+    """C = 5 over class groups of 2 in the Pallas kernel; masked rows."""
+    x, pm = _softmax_inputs(1024, 128, 5, seed=53)
+    hw_j, hwb_j = softmax_curvature_pallas(x, pm, block_n=256, block_c=2, interpret=True)
+    fn = kernels.softmax_curvature if impl == "wrapper" else kernels.softmax_curvature_plain
+    before = dict(kernels.LAUNCHES)
+    hw, hwb = fn(torch.from_numpy(x), torch.from_numpy(pm))
+    assert kernels.LAUNCHES == before
+    assert hw.shape == (5, 128, 128) and hwb.shape == (5, 128)
+    assert hw.dtype == hwb.dtype == torch.float32
+    np.testing.assert_allclose(hw.numpy(), np.asarray(hw_j), rtol=1e-5, atol=1e-2)
+    np.testing.assert_allclose(hwb.numpy(), np.asarray(hwb_j), rtol=1e-5, atol=1e-2)
+
+
+def _softmax_oracle_check(hw, hwb, x, pm):
+    """float64 per-class Xᵀdiag(p_c)X and Xᵀp_c; f32 sums within 1e-5 of
+    the largest Σ p_c x² and Σ p_c |x| (p_c stays f32 in the port, where the
+    Pallas kernel rounds it to x's dtype)."""
+    x, pm = np.asarray(x, np.float64), np.asarray(pm, np.float64)
+    for c in range(pm.shape[1]):
+        xw = x * pm[:, c:c + 1]
+        scale = float((np.abs(xw) * np.abs(x)).sum(0).max())
+        assert np.abs(hw[c].numpy() - xw.T @ x).max() <= 1e-5 * max(scale, 1e-30)
+        assert np.abs(hwb[c].numpy() - xw.sum(0)).max() <= 1e-5 * float(np.abs(xw).sum(0).max())
+
+
+@pytest.mark.parametrize("impl", ["wrapper", "plain"])
+def test_softmax_curvature_bf16_matches_float64(impl):
+    x, pm = _softmax_inputs(1024, 128, 5, seed=54)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    fn = kernels.softmax_curvature if impl == "wrapper" else kernels.softmax_curvature_plain
+    hw, hwb = fn(xt, torch.from_numpy(pm))
+    _softmax_oracle_check(hw, hwb, xt.float().numpy(), pm)
+
+
+@pytest.mark.parametrize("n, d, c", [(37, 13, 1), (37, 13, 3), (301, 129, 3)])
+def test_logreg_kernels_ragged_shapes(n, d, c):
+    """Any n, d and C: the Pallas block_n / block_c / lane demands were
+    tiling artefacts the port does not carry over."""
+    x, pm = _softmax_inputs(n, d, c, seed=55 + n + c, masked=False)
+    hw, hwb = kernels.softmax_curvature(torch.from_numpy(x), torch.from_numpy(pm))
+    assert hw.shape == (c, d, d) and hwb.shape == (c, d)
+    _softmax_oracle_check(hw, hwb, x, pm)
+    rng = np.random.default_rng(56)
+    y = (rng.random(n) > 0.5).astype(np.float32)
+    w = (rng.normal(size=(d,)) / np.sqrt(d)).astype(np.float32)
+    out = _newton_call("wrapper", torch.from_numpy(x), y, None, w, np.float32(-0.2))
+    ref, scales = _newton_oracle(x, y, np.ones(n), w, -0.2)
+    for a, r, sc in zip(out, ref, scales):
+        assert np.abs(a.numpy() - r).max() <= 1e-5 * sc
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda x, y, m, w, b: (x.double(), y, m, w, b), TypeError),        # x dtype
+    (lambda x, y, m, w, b: (x, y[:7], m, w, b), ValueError),            # y length
+    (lambda x, y, m, w, b: (x, y.double(), m, w, b), TypeError),        # y dtype
+    (lambda x, y, m, w, b: (x, y, m.int(), w, b), TypeError),           # mask dtype
+    (lambda x, y, m, w, b: (x, y, m, w[:3], b), ValueError),            # w length
+    (lambda x, y, m, w, b: (x, y, m, w, b.reshape(1)), ValueError),     # b not a scalar
+])
+def test_newton_stats_wrapper_rejects_bad_inputs(bad, err):
+    args = (torch.ones((8, 4)), torch.ones(8), torch.ones(8), torch.ones(4), torch.tensor(0.0))
+    with pytest.raises(err):
+        kernels.newton_stats(*bad(*args))
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda x, p: (x, p[:7]), ValueError),                      # rows
+    (lambda x, p: (x, p[:, 0]), ValueError),                    # not a matrix
+    (lambda x, p: (x, p[:, :0]), ValueError),                   # C = 0
+    (lambda x, p: (x, p.double()), TypeError),                  # p dtype
+    (lambda x, p: (x, p.T.contiguous().T), ValueError),         # not contiguous
+    (lambda x, p: (x.half(), p), TypeError),                    # x dtype
+])
+def test_softmax_curvature_wrapper_rejects_bad_inputs(bad, err):
+    x, p = torch.ones((8, 4)), torch.full((8, 3), 1.0 / 3)
+    with pytest.raises(err):
+        kernels.softmax_curvature(*bad(x, p))
+
+
+@pytest.mark.parametrize("binding", ["_lib", "_kmeans_lib"])
+def test_kernel_bindings_raise_without_nvcc(monkeypatch, tmp_path, binding):
+    """A CUDA tensor's wrapper binds its library first; without nvcc that
+    raises (there is no fallback to the plain version) and builds nothing."""
+    monkeypatch.setenv("SRML_TORCH_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        getattr(kernels, binding).__wrapped__()
+    assert list(tmp_path.iterdir()) == []

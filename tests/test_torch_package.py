@@ -26,12 +26,15 @@ from spark_rapids_ml_tpu_torch import (
     KMeansModel,
     LinearRegression,
     LinearRegressionModel,
+    LogisticRegression,
+    LogisticRegressionModel,
     PCAModel,
     config,
 )
 from spark_rapids_ml_tpu_torch.core.dataset import as_column, as_matrix, num_rows, with_column
 from spark_rapids_ml_tpu_torch.models import kmeans as port_km
 from spark_rapids_ml_tpu_torch.models import linear_regression as port_lr
+from spark_rapids_ml_tpu_torch.models import logistic_regression as port_lg
 from spark_rapids_ml_tpu_torch.models import pca as port_pca
 from spark_rapids_ml_tpu_torch.ops import kernels
 
@@ -123,6 +126,34 @@ def test_kmeans_and_linreg_run_on_the_cpu_when_asked(no_cuda):
     np.testing.assert_array_equal(as_column(ds, "label"), y)
     with pytest.raises(TypeError, match="bare array"):
         as_column(x, "label")
+
+
+def test_logreg_exports_and_launch_counters():
+    import spark_rapids_ml_tpu_torch as port
+
+    assert {"LogisticRegression", "LogisticRegressionModel"} <= set(port.__all__)
+    assert port.LogisticRegressionModel._persist_class == (
+        "spark_rapids_ml_tpu.models.logistic_regression.LogisticRegressionModel")
+    assert set(kernels.LAUNCHES) == {"gram", "gram_colsum", "linreg_stats", "lloyd_step",
+                                     "assign_min_dist", "newton_stats", "softmax_curvature"}
+    kernels.LAUNCHES["newton_stats"] += 3
+    kernels.reset_launches()
+    assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("call", [
+    lambda x, y: LogisticRegression().fit({"features": x, "label": y}),
+    lambda x, y: port_lg.fit_logistic_regression(x, y),
+    lambda x, y: port_lg.fit_logistic_stream(lambda: iter([(x, y)]), 4),
+    lambda x, y: port_lg.fit_multinomial_stream(lambda: iter([(x, y)]), 4, 2),
+    lambda x, y: LogisticRegressionModel(coefficients=np.ones(4), intercept=0.0)
+    .transform_matrix(x),
+])
+def test_logreg_entry_points_raise_without_a_card(no_cuda, call):
+    rng = np.random.default_rng(0)
+    x, y = rng.normal(size=(20, 4)), (rng.random(20) < 0.5).astype(np.float64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(x, y)
 
 
 def test_config_reads_its_own_env_prefix():
@@ -255,3 +286,34 @@ def test_kmeans_and_linreg_kernels_match_plain_versions_on_card():
         idx, part = kernels.assign_min_dist(xk, ck)
         idx_p, part_p = kernels.assign_min_dist_plain(xk, ck)
         assert bool((idx == idx_p).all())
+
+
+@pytest.mark.cuda
+def test_logreg_kernels_match_plain_versions_on_card():
+    """On a CUDA card: newton_stats and softmax_curvature launch and agree
+    with their plain versions at ragged shapes (f32 sums in another order:
+    1e-5 of the largest absolute sum of terms)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((1001, 300), generator=gen, device="cuda").to(dtype)
+        y = (torch.rand((1001,), generator=gen, device="cuda") < 0.5).float()
+        mask = (torch.rand((1001,), generator=gen, device="cuda") < 0.7).float()
+        w = torch.randn((300,), generator=gen, device="cuda") / 300 ** 0.5
+        b = torch.tensor(0.3, device="cuda")
+        before = kernels.LAUNCHES["newton_stats"]
+        out = kernels.newton_stats(x, y, mask, w, b)
+        assert kernels.LAUNCHES["newton_stats"] == before + 1
+        ref = kernels.newton_stats_plain(x, y, mask, w, b)
+        xf = x.float()
+        scale = float((xf * xf).sum(0).max())
+        assert float((out[2] - ref[2]).abs().max()) <= 1e-5 * scale
+        assert float((out[0] - ref[0]).abs().max()) <= 1e-5 * float(xf.abs().sum(0).max())
+        p = torch.softmax(torch.randn((1001, 3), generator=gen, device="cuda"), dim=1)
+        before = kernels.LAUNCHES["softmax_curvature"]
+        hw, hwb = kernels.softmax_curvature(x, p)
+        assert kernels.LAUNCHES["softmax_curvature"] == before + 1
+        hp, bp = kernels.softmax_curvature_plain(x, p)
+        assert float((hw - hp).abs().max()) <= 1e-5 * scale
+        assert float((hwb - bp).abs().max()) <= 1e-5 * float(xf.abs().sum(0).max())
