@@ -58,6 +58,24 @@ Phases, each of which exits non-zero on a failed check:
     predictions equal off near-ties; p50 latency of 21 runs.
 14. The LogisticRegression kernels timed at the phase 11 and 12 shapes, as
     in phase 6, and the Newton solve of the (d + 1) system.
+15. The nearest-neighbour kernels against their plain versions at the
+    path's shapes: ``dist_topk`` at the exact query's shape and at the IVF
+    build's spill-candidate shape; ``probe_select`` and ``ivf_scan_select``
+    on the inputs captured from the phase-17 query. Ids must agree wherever
+    the plain version's gap to the next value exceeds the stated tolerance.
+16. Exact ``NearestNeighbors`` on bench_knn.py's data (BASELINE.json config
+    #5 cut to one chip: 1,048,576 x 768 rows of a 4,096-component gaussian
+    mixture, spread 0.35), bf16 compute, 4,096 queries, k = 10: one
+    ``dist_topk`` launch per kneighbors, q/s, and the answer against float64
+    distances of the same bf16-rounded rows.
+17. ``ApproximateNearestNeighbors`` (nlist 1,024, nprobe 20, k 10, slack
+    1.5): the build's seconds, maxlen and kernel launches; kneighbors q/s
+    and recall@10 against float64 ground truth with ``ann_rerank`` on and
+    off (one ``probe_select`` and one ``ivf_scan_select`` launch per
+    call); then every list probed, where recall@10 must reach 0.98.
+18. The three nearest-neighbour kernels timed at those shapes beside their
+    plain versions, bounds and the library route (``torch.matmul`` or
+    ``torch.bmm`` plus a stable top-k).
 
 The last lines are the card line, the ``{"kernels": [...]}`` table and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -102,8 +120,15 @@ MN_ROWS = (1 << 17) - 1234  # made ragged
 MN_PASSES = 5
 LG_TRANSFORM_ROWS = 65536
 
+KNN_D = 768  # bench_knn.py:29-42 (BASELINE.json config #5's width)
+KNN_ROWS = 1 << 20  # depth cut from config #5's 10M rows
+KNN_CLUSTERS, KNN_SPREAD = 4096, 0.35
+KNN_QUERIES, KNN_K = 4096, 10
+KNN_NLIST, KNN_NPROBE = 1024, 20
+
 KERNEL_SOURCE = "spark_rapids_ml_tpu_torch/ops/csrc/gram.cu"
 KMEANS_SOURCE = "spark_rapids_ml_tpu_torch/ops/csrc/kmeans.cu"
+KNN_SOURCE = "spark_rapids_ml_tpu_torch/ops/csrc/knn.cu"
 REPLACES = {
     "gram_colsum": "spark_rapids_ml_tpu/ops/pallas_kernels.py:173",
     "gram": "spark_rapids_ml_tpu/ops/pallas_kernels.py:78",
@@ -112,6 +137,9 @@ REPLACES = {
     "linreg_stats": "spark_rapids_ml_tpu/ops/pallas_kernels.py:1210",
     "newton_stats": "spark_rapids_ml_tpu/ops/pallas_kernels.py:451",
     "softmax_curvature": "spark_rapids_ml_tpu/ops/pallas_kernels.py:1135",
+    "dist_topk": "spark_rapids_ml_tpu/ops/pallas_kernels.py:678",
+    "ivf_scan_select": "spark_rapids_ml_tpu/ops/pallas_kernels.py:860",
+    "probe_select": "spark_rapids_ml_tpu/ops/pallas_kernels.py:984",
 }
 
 
@@ -879,6 +907,325 @@ def phase_logreg_timings(torch, kernels, solve_newton_system, xl, yl, model_b, l
     return rows
 
 
+def knn_data(torch, gen, rows, centers):
+    """bench_knn.py's mixture: a centre drawn uniformly, plus KNN_SPREAD ·
+    N(0, 1) per coordinate; f32, made in 1M-row chunks."""
+    out = torch.empty((rows, KNN_D), dtype=torch.float32, device=DEV)
+    for r0 in range(0, rows, 1 << 20):
+        m = min(rows, r0 + (1 << 20)) - r0
+        lab = torch.randint(0, KNN_CLUSTERS, (m,), generator=gen, device=DEV)
+        out[r0:r0 + m] = centers[lab] + KNN_SPREAD * torch.randn(
+            (m, KNN_D), generator=gen, device=DEV)
+    return out
+
+
+def brute_force64(torch, db, qs, k):
+    """Exact float64 ground truth over 65,536-row chunks: (d2 (q, k)
+    ascending, ids (q, k)); torch.matmul in float64 is fine for a reference."""
+    q64 = qs.double()
+    q2 = (q64 * q64).sum(1)
+    best_d = torch.empty((qs.shape[0], 0), dtype=torch.float64, device=DEV)
+    best_i = torch.empty((qs.shape[0], 0), dtype=torch.int64, device=DEV)
+    for r0 in range(0, db.shape[0], 1 << 16):
+        c = db[r0:r0 + (1 << 16)].double()
+        d2 = q2[:, None] + (c * c).sum(1)[None, :] - 2.0 * (q64 @ c.T)
+        d, i = torch.topk(d2, k, dim=1, largest=False)
+        cat_d, cat_i = torch.cat([best_d, d], 1), torch.cat([best_i, i + r0], 1)
+        best_d, pos = torch.topk(cat_d, k, dim=1, largest=False)
+        best_i = cat_i.gather(1, pos)
+        order = torch.argsort(best_d, dim=1)
+        best_d, best_i = best_d.gather(1, order), best_i.gather(1, order)
+    return best_d, best_i
+
+
+def recall_at(ids, gt) -> float:
+    """Mean fraction of each query's true k neighbours found."""
+    import numpy as np
+
+    gt = gt.cpu().numpy()
+    return float(np.mean([len(set(a) & set(b)) / gt.shape[1] for a, b in zip(ids, gt)]))
+
+
+def check_selection(torch, tag, kd, ki, pd, pi, tol) -> int:
+    """Kernel (kd, ki) against plain (pd, pi) selections, ascending per row:
+    values within ``tol`` (a tensor broadcastable to them); where ids
+    differ, the plain row must hold another value within tol of that slot's
+    (a near-tie) or the slot must be the last. Returns the differing ids."""
+    err = (kd.double() - pd.double()).abs()
+    check(bool((err <= tol).all()), f"{tag}: values within tol (max err {float(err.max()):.3e})")
+    diff = ki != pi
+    if bool(diff.any()):
+        prev = torch.cat([torch.full_like(pd[:, :1], float("inf")), pd[:, :-1]], 1)
+        nxt = torch.cat([pd[:, 1:], torch.full_like(pd[:, :1], float("inf"))], 1)
+        gap = torch.minimum((pd - prev).abs(), (nxt - pd).abs()).double()
+        last = torch.zeros_like(diff)
+        last[:, -1] = True
+        ok = ~diff | last | (gap <= 2 * tol)
+        check(bool(ok.all()), f"{tag}: {int(diff.sum())} differing ids, all at near-ties "
+              f"or the last slot")
+    print(f"ok    {tag}: {int((~diff).sum())} ids equal, {int(diff.sum())} differ at near-ties",
+          flush=True)
+    return int(diff.sum())
+
+
+def device_breakdown(torch, tag, fn, top=5) -> None:
+    """Prints one call's wall time, the device's busy and idle shares and
+    its largest kernels, from a torch.profiler trace of CPU and CUDA
+    activity: busy is the union of the device events' intervals, without
+    the trace spans' annotation ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)),
+                key=lambda e: e.time_range.start)
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for e in ev:
+        start, stop = e.time_range.start, e.time_range.end
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        by_name[e.name] = by_name.get(e.name, 0.0) + (stop - start) / 1e3
+    busy /= 1e3
+    if busy == 0:
+        print(f"{tag}: wall {wall:.3f} ms; device time not measured (no device activity traced)")
+        return
+    parts = ", ".join(f"{name[:48]} {t:.3f}"
+                      for name, t in sorted(by_name.items(), key=lambda r: -r[1])[:top])
+    print(f"{tag}: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f} %, idle "
+          f"{100 * (1 - busy / wall):.1f} %) over {len(ev)} device events; largest (ms): {parts}",
+          flush=True)
+
+
+def phase_knn(torch, kernels, config):
+    """Phases 15-18; returns the three kernel rows."""
+    from spark_rapids_ml_tpu_torch import ApproximateNearestNeighbors, NearestNeighbors
+    from spark_rapids_ml_tpu_torch.ops import selection as sel
+
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    centers = torch.randn((KNN_CLUSTERS, KNN_D), generator=gen, device=DEV)
+    x = knn_data(torch, gen, KNN_ROWS, centers)
+    qs = knn_data(torch, gen, KNN_QUERIES, centers)
+    del centers
+    cd = config.compute_dtype(DEV)
+    print(f"knn: {KNN_ROWS} x {KNN_D} rows of a {KNN_CLUSTERS}-component mixture (spread "
+          f"{KNN_SPREAD}; depth cut from config #5's 10M), {KNN_QUERIES} queries, k={KNN_K}, "
+          f"compute {str(cd)[6:]}", flush=True)
+
+    # -- 16. exact NearestNeighbors -------------------------------------------------
+    nn = NearestNeighbors().setK(KNN_K).fit({"features": x})
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    d_nn, i_nn = nn.kneighbors(qs)
+    first_s = time.perf_counter() - t0
+    nn_launches = dict(kernels.LAUNCHES)
+    check(nn_launches["dist_topk"] == 1 and sum(nn_launches.values()) == 1,
+          f"exact kneighbors: dist_topk launches {nn_launches['dist_topk']} == 1, no other kernel")
+    t0 = time.perf_counter()
+    nn.kneighbors(qs)
+    nn_s = time.perf_counter() - t0
+    device_breakdown(torch, "exact kneighbors trace", lambda: nn.kneighbors(qs))
+    print(f"exact kneighbors: {KNN_QUERIES / nn_s:.1f} q/s ({nn_s:.3f} s for {KNN_QUERIES} "
+          f"queries, index resident; first call with the index upload {first_s:.3f} s)",
+          flush=True)
+    xr, qr = x.to(cd), qs.to(cd)
+    gt_d, gt_i = brute_force64(torch, xr, qr, KNN_K)
+    q64 = qr.double()
+    ids = torch.as_tensor(i_nn, device=DEV)
+    got = torch.as_tensor(d_nn, device=DEV).double() ** 2
+    rows64 = xr[ids.reshape(-1)].double().reshape(KNN_QUERIES, KNN_K, KNN_D)
+    own64 = ((rows64 - q64[:, None, :]) ** 2).sum(2)
+    del rows64
+    # Tolerance: f32 sums of (q2 + r2) − 2q·r over 768 bf16 products whose
+    # terms reach ‖q‖² + ‖r‖² (about 1.7e3 here): 4e-6 of the largest such
+    # sum, about 1e-2 against within-cluster squared distances near 190.
+    scale = float((q64 * q64).sum(1).max()) + float(kernels.row_sq_norms(xr).max())
+    tol = 4e-6 * scale
+    e_own = float((got - own64).abs().max())
+    e_gt = float((got - gt_d).abs().max())
+    same = float((ids == gt_i).float().mean())
+    check(e_own <= tol and e_gt <= tol,
+          f"exact vs float64 of the same bf16 rows: returned distances err {e_own:.3e}, "
+          f"k smallest distances err {e_gt:.3e} (tol {tol:.2e}); ids equal to float64's "
+          f"{same:.5f}, recall@{KNN_K} {recall_at(i_nn, gt_i):.5f}")
+    del gt_d, gt_i, own64, got
+
+    # -- 17. ApproximateNearestNeighbors ------------------------------------------------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        ann = (ApproximateNearestNeighbors().setK(KNN_K).setNlist(KNN_NLIST)
+               .setNprobe(KNN_NPROBE).fit({"features": x}))
+        build_s = time.perf_counter() - t0
+    b_launches = dict(kernels.LAUNCHES)
+    maxlen = ann.index.lists.shape[1]
+    print(f"ivf build: {build_s:.3f} s, maxlen {maxlen} (cap {2 * KNN_ROWS // KNN_NLIST}), "
+          f"launches lloyd_step {b_launches['lloyd_step']}, assign_min_dist "
+          f"{b_launches['assign_min_dist']}, dist_topk {b_launches['dist_topk']}; of it "
+          f"k-means init {span_seconds(prof, 'kmeans init'):.3f} s and Lloyd "
+          f"{span_seconds(prof, 'lloyd'):.3f} s (host clock)", flush=True)
+    check(b_launches["lloyd_step"] >= 1 and b_launches["assign_min_dist"] >= 1 + -(-KNN_ROWS // (1 << 18)),
+          "ivf build: the quantizer's Lloyd steps and the chunked assignment ran on the kernels")
+    gt_d, gt_i = brute_force64(torch, x, qs, KNN_K)
+    captured = {}
+    orig_probe, orig_scan = kernels.probe_select, kernels.ivf_scan_select
+
+    def rec_probe(*a):
+        captured["probe"] = a
+        return orig_probe(*a)
+
+    def rec_scan(*a):
+        captured["scan"] = a
+        return orig_scan(*a)
+
+    ann.kneighbors(qs)  # warm-up: the index upload and its residual copy
+    results = {}
+    for rerank in (True, False):
+        with config.option("ann_rerank", rerank):
+            kernels.probe_select, kernels.ivf_scan_select = rec_probe, rec_scan
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            d_a, i_a = ann.kneighbors(qs)
+            q_s = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            kernels.probe_select, kernels.ivf_scan_select = orig_probe, orig_scan
+            check(launches["probe_select"] == 1 and launches["ivf_scan_select"] == 1,
+                  f"ivf kneighbors rerank={rerank}: probe_select {launches['probe_select']} == 1, "
+                  f"ivf_scan_select {launches['ivf_scan_select']} == 1")
+            rec = recall_at(i_a, gt_i)
+            results[rerank] = (launches, captured.copy(), q_s, rec)
+            check(d_a.shape == (KNN_QUERIES, KNN_K) and bool(torch.isfinite(torch.as_tensor(d_a)).all()),
+                  f"ivf rerank={rerank}: distances finite, shape {d_a.shape}")
+            print(f"ivf kneighbors nprobe {KNN_NPROBE} rerank={rerank}: {KNN_QUERIES / q_s:.1f} q/s "
+                  f"({q_s:.3f} s), recall@{KNN_K} {rec:.4f} vs float64 ground truth", flush=True)
+    device_breakdown(torch, f"ivf kneighbors nprobe {KNN_NPROBE} rerank=True trace",
+                     lambda: ann.kneighbors(qs))
+    ann._set(nprobe=KNN_NLIST)
+    t0 = time.perf_counter()
+    _, i_all = ann.kneighbors(qs)
+    all_s = time.perf_counter() - t0
+    rec_all = recall_at(i_all, gt_i)
+    check(rec_all >= 0.98, f"ivf every list probed (nprobe {KNN_NLIST}): recall@{KNN_K} "
+          f"{rec_all:.4f} >= 0.98 ({all_s:.3f} s)")
+    del gt_d, gt_i, i_all
+
+    # -- 15. kernels against their plain versions at the path's shapes -------------------
+    db_c, row_ids, mask = nn._ensure_index(torch.device(DEV), cd)  # phase 16's index
+    q_c = qs.to(cd)
+    kd, ki = kernels.dist_topk(q_c, db_c, row_ids, mask, KNN_K)
+    pd, pi = kernels.dist_topk_plain(q_c, db_c, row_ids, mask, KNN_K)
+    check_selection(torch, f"dist_topk {KNN_QUERIES} x {KNN_ROWS} x {KNN_D} {str(cd)[6:]} "
+                    f"k={KNN_K} (tol {tol:.2e})", kd, ki, pd, pi, tol)
+    dk_err = float((kd - pd).abs().max())
+    cent = torch.as_tensor(ann.index.centroids, device=DEV).float().contiguous()
+    chunk = x[:1 << 18].contiguous()
+    lists = torch.arange(KNN_NLIST, dtype=torch.int32, device=DEV)
+    ones = torch.ones((KNN_NLIST,), device=DEV)
+    bd, bi = kernels.dist_topk(chunk, cent, lists, ones, 4)
+    bpd, bpi = kernels.dist_topk_plain(chunk, cent, lists, ones, 4)
+    # Tolerance: f32 products of f32 values, 4e-6 of the norms' sum.
+    btol = 4e-6 * (float(kernels.row_sq_norms(chunk).max()) + float(kernels.row_sq_norms(cent).max()))
+    check_selection(torch, f"dist_topk {1 << 18} x {KNN_NLIST} x {KNN_D} f32 k=4 (the build's "
+                    f"spill candidates; tol {btol:.2e})", bd, bi, bpd, bpi, btol)
+    cent_p, q_p, nprobe = results[True][1]["probe"]
+    kp, kdd = kernels.probe_select(cent_p, q_p, nprobe)
+    pp, pdd = kernels.probe_select_plain(cent_p, q_p, nprobe)
+    pbits = sel.pos_bits_for(KNN_NLIST)
+    # Tolerance: the packed-key floor (2^(pos_bits − 23) of the value: the
+    # two sides may floor on either side of a step) plus f32 sums, 4e-6 of
+    # ‖q‖² + ‖c‖².
+    ptol = 2.0 ** (pbits - 23) * pdd.abs() + 4e-6 * (
+        float(kernels.row_sq_norms(q_p).max()) + float(kernels.row_sq_norms(cent_p).max()))
+    check_selection(torch, f"probe_select {q_p.shape[0]} x {KNN_NLIST} x {KNN_D} nprobe "
+                    f"{nprobe} (tol floor + {float(ptol.min()):.2e})", kdd, kp, pdd, pp, ptol)
+    qv, rows, r2, blk_k = results[True][1]["scan"]
+    sd, sp = kernels.ivf_scan_select(qv, rows, r2, blk_k)
+    spd, spp = kernels.ivf_scan_select_plain(qv, rows, r2, blk_k)
+    sbits = sel.pos_bits_for(rows.shape[1])
+    q2 = kernels.row_sq_norms(qv.reshape(-1, KNN_D)).max()
+    r2max = float(torch.where(r2 < 1e29, r2, 0).max())
+    # Tolerance: the floor, plus f32 sums of r2 − 2·qv·row: 4e-6 of
+    # r2 + ‖qv‖² + ‖row‖² bounds.
+    stol = 2.0 ** (sbits - 23) * spd.abs() + 4e-6 * (2 * r2max + float(q2))
+    flat = lambda t: t.permute(0, 2, 1).reshape(-1, t.shape[1])[:, :blk_k]  # noqa: E731
+    check_selection(torch, f"ivf_scan_select {tuple(qv.shape)} x maxlen {rows.shape[1]} "
+                    f"blk_k {blk_k}", flat(sd), flat(sp), flat(spd), flat(spp), flat(stol))
+
+    # -- 18. kernel times ----------------------------------------------------------------
+    rows_t = []
+    n, m, d = q_c.shape[0], db_c.shape[0], KNN_D
+    ms = time_ms(lambda: kernels.dist_topk(q_c, db_c, row_ids, mask, KNN_K), 2)
+    plain_ms = time_ms(lambda: kernels.dist_topk_plain(q_c, db_c, row_ids, mask, KNN_K), 1)
+
+    def lib_topk():
+        # Library route: bf16 torch.matmul per 131,072-row chunk and a
+        # stable top-k merge (torch.sort, stable), as the plain version merges.
+        best_d = torch.empty((n, 0), dtype=q_c.dtype, device=DEV)
+        best_i = torch.empty((n, 0), dtype=torch.int64, device=DEV)
+        for r0 in range(0, m, 1 << 17):
+            s_ = torch.matmul(q_c, db_c[r0:r0 + (1 << 17)].T)
+            cat_d = torch.cat([best_d, -s_], 1)
+            o = torch.sort(cat_d, dim=1, stable=True).indices[:, :KNN_K]
+            best_i = torch.cat([best_i, torch.arange(r0, r0 + s_.shape[1], device=DEV)
+                                .expand(n, -1)], 1).gather(1, o)
+            best_d = cat_d.gather(1, o)
+        return best_d, best_i
+    lib_ms = time_ms(lib_topk, 1)
+    b_ms, b_by = bound_ms(n * d * 2 + m * d * 2 + m * 8 + n * KNN_K * 8, 2 * n * m * d, "bfloat16")
+    rows_t.append({
+        "name": "dist_topk", "route": "cuda", "source": KNN_SOURCE,
+        "replaces": REPLACES["dist_topk"], "launches": nn_launches["dist_topk"],
+        "max_abs_err": dk_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms,
+    })
+    del db_c, pd, pi, kd, ki, nn
+    torch.cuda.empty_cache()
+    nq = q_p.shape[0]
+    ms = time_ms(lambda: kernels.probe_select(cent_p, q_p, nprobe), 5)
+    plain_ms = time_ms(lambda: kernels.probe_select_plain(cent_p, q_p, nprobe), 3)
+
+    def lib_probe():
+        s_ = torch.matmul(q_p, cent_p.T)
+        return torch.sort(-2.0 * s_, dim=1, stable=True).indices[:, :nprobe]
+    lib_ms = time_ms(lib_probe, 5)
+    b_ms, b_by = bound_ms(KNN_NLIST * d * 4 + nq * d * 4 + nq * nprobe * 8,
+                          2 * nq * KNN_NLIST * d, "float32")
+    rows_t.append({
+        "name": "probe_select", "route": "cuda", "source": KNN_SOURCE,
+        "replaces": REPLACES["probe_select"], "launches": results[True][0]["probe_select"],
+        "max_abs_err": float((kdd - pdd).abs().max()), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+    })
+    nl, c_, ml = qv.shape[0], qv.shape[1], rows.shape[1]
+    ms = time_ms(lambda: kernels.ivf_scan_select(qv, rows, r2, blk_k), 3)
+    plain_ms = time_ms(lambda: kernels.ivf_scan_select_plain(qv, rows, r2, blk_k), 1)
+
+    def lib_scan():
+        s_ = torch.bmm(qv, rows.transpose(1, 2))
+        return torch.sort(r2[:, None, :] - 2.0 * s_, dim=2, stable=True).indices[..., :blk_k]
+    lib_ms = time_ms(lib_scan, 1)
+    bk_pad = sel.ceil_to(blk_k, 8)
+    b_ms, b_by = bound_ms(qv.numel() * 2 + rows.numel() * 2 + r2.numel() * 4
+                          + nl * bk_pad * c_ * 8, 2 * nl * c_ * ml * d, "bfloat16")
+    rows_t.append({
+        "name": "ivf_scan_select", "route": "cuda", "source": KNN_SOURCE,
+        "replaces": REPLACES["ivf_scan_select"],
+        "launches": results[True][0]["ivf_scan_select"],
+        "max_abs_err": float((flat(sd) - flat(spd)).abs().max()), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+    })
+    print(f"ivf scan shape: nlist {nl}, C {c_}, maxlen {ml}, blk_k {blk_k}", flush=True)
+    return rows_t
+
+
 def main() -> None:
     import torch
 
@@ -911,6 +1258,7 @@ def main() -> None:
     built = _build.build_all()
     kernels._lib()
     kernels._kmeans_lib()
+    kernels._knn_lib()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s -> "
           + ", ".join(p.name for p in built))
     for name, log in _build.BUILD_LOGS.items():
@@ -1182,7 +1530,11 @@ def main() -> None:
     # -- 14. the LogisticRegression kernels at their paths' shapes ----------------
     table += phase_logreg_timings(torch, kernels, solve_newton_system, xl, yl, model_b,
                                   lg_launches, xmh, pm, mn_launches)
-    del xl, yl, xm, xmh, ym, pm
+    del xl, yl, xm, xmh, ym, pm, model_b, model_m
+    torch.cuda.empty_cache()
+
+    # -- 15.-18. nearest neighbours ------------------------------------------------
+    table += phase_knn(torch, kernels, config)
     for row in table:
         print(f"{row['name']}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
               f"library {row['library_ms']:.3f}, bound {row['bound_ms']:.3f} by "

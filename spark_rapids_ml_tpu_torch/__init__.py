@@ -3,13 +3,15 @@
 A second package beside the JAX one, for one NVIDIA H100. It imports
 ``torch``, numpy and the standard library, never JAX and nothing of the
 JAX package, which stays the reference it is tested against. It holds
-PCA, LinearRegression, KMeans and LogisticRegression: their in-memory and
-streaming fits, transform/predict and persistence. Their data passes run
-in hand-written Hopper kernels: the Gram family (``ops/csrc/gram.cu``:
-PCA's fold, LinearRegression's normal equations and LogisticRegression's
-weighted Grams, one binomial Newton pass and the multinomial per-class
-curvature) and KMeans' Lloyd step and nearest-centre assignment
-(``ops/csrc/kmeans.cu``).
+PCA, LinearRegression, KMeans and LogisticRegression (their in-memory and
+streaming fits, transform/predict and persistence) and NearestNeighbors
+and ApproximateNearestNeighbors (IVF-Flat: build, kneighbors, transform,
+persistence). Their data passes run in hand-written Hopper kernels: the
+Gram family (``ops/csrc/gram.cu``: PCA's fold, LinearRegression's normal
+equations and LogisticRegression's weighted Grams, one binomial Newton
+pass and the multinomial per-class curvature), KMeans' Lloyd step and
+nearest-centre assignment (``ops/csrc/kmeans.cu``), and the exact
+distance top-k, the IVF probe and the IVF list scan (``ops/csrc/knn.cu``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
@@ -26,6 +28,12 @@ torch.set_float32_matmul_precision("highest")
 
 from spark_rapids_ml_tpu_torch import config  # noqa: E402
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeans, KMeansModel  # noqa: E402
+from spark_rapids_ml_tpu_torch.models.knn import (  # noqa: E402
+    ApproximateNearestNeighbors,
+    ApproximateNearestNeighborsModel,
+    NearestNeighbors,
+    NearestNeighborsModel,
+)
 from spark_rapids_ml_tpu_torch.models.linear_regression import (  # noqa: E402
     LinearRegression,
     LinearRegressionModel,
@@ -37,12 +45,16 @@ from spark_rapids_ml_tpu_torch.models.logistic_regression import (  # noqa: E402
 from spark_rapids_ml_tpu_torch.models.pca import PCA, PCAModel  # noqa: E402
 
 __all__ = [
+    "ApproximateNearestNeighbors",
+    "ApproximateNearestNeighborsModel",
     "KMeans",
     "KMeansModel",
     "LinearRegression",
     "LinearRegressionModel",
     "LogisticRegression",
     "LogisticRegressionModel",
+    "NearestNeighbors",
+    "NearestNeighborsModel",
     "PCA",
     "PCAModel",
     "config",

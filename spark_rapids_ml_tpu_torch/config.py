@@ -1,13 +1,17 @@
 """Runtime configuration of the PyTorch port.
 
 The counterpart of ``spark_rapids_ml_tpu/config.py``, cut to the keys the
-port reads (PCA, KMeans, LinearRegression and LogisticRegression). Values are settable programmatically or through
+port reads (PCA, KMeans, LinearRegression, LogisticRegression,
+NearestNeighbors and ApproximateNearestNeighbors). Values are settable programmatically or through
 environment variables prefixed ``SRML_TORCH_`` — a prefix of its own, so
 the port never inherits the JAX package's ``SRML_TPU_*`` settings.
 
-There is no ``use_pallas`` switch: the device of the tensor decides. A
-CUDA tensor goes through the hand-written kernel, a CPU tensor through
-its plain PyTorch version (``ops/kernels.py``).
+There is no ``use_pallas`` switch, and no ``ann_fused_scan``: the device
+of the tensor decides. A CUDA tensor goes through the hand-written kernel,
+a CPU tensor through its plain PyTorch version (``ops/kernels.py``). The
+IVF query always takes the JAX package's fused flow (the scan kernel, an
+exact per-slot selection); only float64 accumulators take its XLA flow,
+in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -38,6 +42,21 @@ _DEFAULTS: Dict[str, Any] = {
     # Where the eigensolve runs: "device" = torch.linalg.eigh in float64 on
     # the fit's device, "host" = numpy/LAPACK float64; "auto" = "device".
     "finalize": _env("FINALIZE", "auto"),
+    # IVF query: per-(list, slot) shortlist multiplier. The rerank
+    # rescores ann_shortlist_mult·k candidates (2·mult·k in the float64
+    # flow, whose per-slot selection keeps mult·k rows).
+    "ann_shortlist_mult": int(_env("ANN_SHORTLIST_MULT", "2")),
+    # IVF query: rescore the shortlist exactly from the stored f32 rows.
+    # Off answers from the residual-identity scan scores, whose values
+    # carry the packed-key mantissa floor.
+    "ann_rerank": _env("ANN_RERANK", "true").lower() not in ("0", "false", "off"),
+    # IVF query: rerank width in units of k; 0 = auto (ann_shortlist_mult,
+    # 2·ann_shortlist_mult in the float64 flow).
+    "ann_rerank_width": int(_env("ANN_RERANK_WIDTH", "0")),
+    # IVF query: rows each (list, slot) keeps under rerank: "auto" =
+    # ceil(1.2·k), "wide" = ann_shortlist_mult·k, "narrow" = k, or an
+    # integer. Without rerank the scan keeps k.
+    "ann_extract": _env("ANN_EXTRACT", "auto"),
 }
 
 _lock = threading.Lock()

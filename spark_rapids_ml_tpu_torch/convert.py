@@ -13,6 +13,10 @@ from typing import Dict, Tuple
 import numpy as np
 
 from spark_rapids_ml_tpu_torch.models.kmeans import KMeansModel
+from spark_rapids_ml_tpu_torch.models.knn import (
+    ApproximateNearestNeighborsModel,
+    NearestNeighborsModel,
+)
 from spark_rapids_ml_tpu_torch.models.linear_regression import LinearRegressionModel
 from spark_rapids_ml_tpu_torch.models.logistic_regression import LogisticRegressionModel
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
@@ -66,5 +70,22 @@ def logreg_model_from_jax(data: Dict[str, np.ndarray], device=None) -> LogisticR
     conversion: both packages write (w, b) or (W (d, C), b) with ``it``,
     ``n_cols`` (and ``n_classes``) in the same ``.npz`` layout."""
     model = LogisticRegressionModel._from_model_data(None, data)
+    model._device = device
+    return model
+
+
+def knn_model_from_jax(data: Dict[str, np.ndarray], device=None) -> NearestNeighborsModel:
+    """A port ``NearestNeighborsModel`` from the JAX
+    ``NearestNeighborsModel._model_data()`` dict (``database``). Params (k,
+    metric) are the caller's to set, as after a fit."""
+    return NearestNeighborsModel(database=data["database"], device=device)
+
+
+def ann_model_from_jax(data: Dict[str, np.ndarray], device=None) -> ApproximateNearestNeighborsModel:
+    """A port ``ApproximateNearestNeighborsModel`` from the JAX
+    ``ApproximateNearestNeighborsModel._model_data()`` dict (``centroids``,
+    ``lists``, ``list_ids``, ``list_mask`` and, when present, the
+    ``fit_metric`` ordinal that the metric guard reads)."""
+    model = ApproximateNearestNeighborsModel._from_model_data(None, data)
     model._device = device
     return model

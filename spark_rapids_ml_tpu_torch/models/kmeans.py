@@ -138,20 +138,12 @@ def _init_centers(x, k: int, rng: np.random.Generator, init: str) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _row_sq_norms(x: torch.Tensor, ad) -> torch.Tensor:
-    """‖x‖² per row in ``ad``, in row chunks: the widened copy of x that a
-    single expression would make is 4× the bf16 x (102 GB at 50M × 256)."""
-    step = kernels.PLAIN_ROW_CHUNK
-    return torch.cat([torch.sum(torch.square(x[r0:r0 + step].to(ad)), dim=1)
-                      for r0 in range(0, x.shape[0], step)])
-
-
 def _assign_min(xc: torch.Tensor, centers: torch.Tensor, cd, ad, kernel: bool):
     """(assignment, min squared distance) per row at ``centers``."""
     cc = centers.to(cd)
     if kernel:
         assign, part_d = kernels.assign_min_dist(xc, cc.contiguous())
-        return assign, torch.clamp(part_d + _row_sq_norms(xc, ad), min=0.0)
+        return assign, torch.clamp(part_d + kernels.row_sq_norms(xc, ad), min=0.0)
     d2 = sq_euclidean(xc, cc, accum_dtype=ad)
     assign = first_argmin(d2)
     return assign, d2.gather(1, assign[:, None])[:, 0]

@@ -22,6 +22,19 @@ def sq_euclidean(x: torch.Tensor, y: torch.Tensor, accum_dtype=torch.float32) ->
     return torch.clamp(d, min=0.0)
 
 
+#: The largest k of the fused distance top-k (``DIST_TOPK_MAX_K``,
+#: pallas_kernels.py:618).
+DIST_TOPK_MAX_K = 64
+
+
+def dist_topk_applicable(k: int, m: int, accum_dtype) -> bool:
+    """Whether an exact kneighbors scan goes through ``dist_topk``: float32
+    accumulators (the kernel emits f32 distances) and 0 < k ≤ min(64, m).
+    The shape half of the JAX package's ``fused_topk_fits``; its VMEM term
+    does not apply to the card."""
+    return accum_dtype == torch.float32 and 0 < k <= min(DIST_TOPK_MAX_K, m)
+
+
 def first_argmin(scores: torch.Tensor) -> torch.Tensor:
     """Row-wise argmin with ties to the LOWEST index (``jnp.argmin``'s
     rule). ``torch.argmin`` on CUDA does not promise which of equal

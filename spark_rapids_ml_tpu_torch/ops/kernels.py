@@ -21,17 +21,27 @@ PCA, LinearRegression, KMeans and LogisticRegression slices:
   (pallas_kernels.py:451).
 * :func:`softmax_curvature` — per class, Xᵀdiag(p_c)X and Xᵀp_c; replaces
   ``softmax_curvature_pallas`` (pallas_kernels.py:1135).
+* :func:`dist_topk` — per query the exact k nearest rows by squared
+  distance in (distance, id) order; replaces ``dist_topk_pallas``
+  (pallas_kernels.py:678).
+* :func:`probe_select` — per query the nprobe nearest IVF centroids at
+  full f32 on packed keys; replaces ``probe_select_pallas``
+  (pallas_kernels.py:984).
+* :func:`ivf_scan_select` — per IVF list and query slot the best blk_k
+  residual scores on packed keys; replaces ``ivf_scan_select_pallas``
+  (pallas_kernels.py:860).
 
 The Gram family, LogisticRegression's weighted Grams included, lives in
-``csrc/gram.cu``, the KMeans pair in
-``csrc/kmeans.cu`` (design notes there). A wrapper takes its plain PyTorch
+``csrc/gram.cu``, the KMeans pair in ``csrc/kmeans.cu``, the
+nearest-neighbour kernels in ``csrc/knn.cu`` (design notes there). A
+wrapper takes its plain PyTorch
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises — there is no fallback. Each launch adds one to
 :data:`LAUNCHES`, so a run can show that it went through the kernels. The
 plain versions repeat the kernels' arithmetic (f32 products of the input
 values, f32 sums; TF32 is off for the whole package, see ``__init__``;
-ties of the nearest centre to the lowest index) and are what the kernels
-are held against.
+ties of the nearest centre to the lowest index; the selections of
+``ops/selection.py``) and are what the kernels are held against.
 """
 
 from __future__ import annotations
@@ -43,11 +53,13 @@ from typing import Optional, Tuple
 import torch
 
 from spark_rapids_ml_tpu_torch.ops import _build
-from spark_rapids_ml_tpu_torch.ops.distances import first_argmin
+from spark_rapids_ml_tpu_torch.ops import selection as sel
+from spark_rapids_ml_tpu_torch.ops.distances import DIST_TOPK_MAX_K, first_argmin
 
 #: Kernel launches by wrapper name (the plain versions do not count).
 LAUNCHES = {"gram": 0, "gram_colsum": 0, "linreg_stats": 0, "lloyd_step": 0,
-            "assign_min_dist": 0, "newton_stats": 0, "softmax_curvature": 0}
+            "assign_min_dist": 0, "newton_stats": 0, "softmax_curvature": 0,
+            "dist_topk": 0, "probe_select": 0, "ivf_scan_select": 0}
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -68,6 +80,10 @@ NewtonStats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torc
 #: Rows per step of the plain KMeans versions: bounds their (rows, k)
 #: score matrices at the main path's 16.7M rows.
 PLAIN_ROW_CHUNK = 1 << 20
+#: Entries of one score matrix of the plain nearest-neighbour versions.
+PLAIN_SCORE_ELEMS = 1 << 26
+#: Rows per step of a row-norm pass (bounds its f32 copy of the rows).
+NORM_ROW_CHUNK = 1 << 16
 
 
 def reset_launches() -> None:
@@ -102,6 +118,24 @@ def _kmeans_lib() -> ctypes.CDLL:
     lib.srml_lloyd_step.restype = i32
     lib.srml_assign_min_dist.argtypes = [ptr, ptr, i32, ptr, i64, i64, i64, ptr, ptr, ptr]
     lib.srml_assign_min_dist.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _knn_lib() -> ctypes.CDLL:
+    lib = _build.load("knn")
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.srml_dist_topk.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, i64, i64, i64, i32, i32, ptr,
+                                   ptr, ptr]
+    lib.srml_dist_topk.restype = i32
+    lib.srml_probe_select.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, i32, ptr,
+                                      ptr, ptr, ptr]
+    lib.srml_probe_select.restype = i32
+    lib.srml_ivf_scan_select.argtypes = [ptr, ptr, i32, ptr, i64, i64, i64, i64, i32, i32, i32,
+                                         ptr, ptr, ptr, ptr]
+    lib.srml_ivf_scan_select.restype = i32
+    lib.srml_scan_needs_scratch.argtypes = [i32]
+    lib.srml_scan_needs_scratch.restype = i32
     return lib
 
 
@@ -518,3 +552,241 @@ def softmax_curvature(x: torch.Tensor, p: torch.Tensor):
     _raise_on(rc, "softmax_curvature")
     LAUNCHES["softmax_curvature"] += 1
     return hw, hwb
+
+
+# ---------------------------------------------------------------------------
+# Nearest neighbours: exact distance top-k, IVF probe, IVF list scan
+# ---------------------------------------------------------------------------
+
+
+def row_sq_norms(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """‖x‖² per row of x as it is (the values a product reads), summed in
+    ``dtype``, in row chunks: a widened copy of all of x would be 2–4× x."""
+    out = torch.empty((x.shape[0],), dtype=dtype, device=x.device)
+    for r0 in range(0, x.shape[0], NORM_ROW_CHUNK):
+        out[r0:r0 + NORM_ROW_CHUNK] = torch.sum(
+            torch.square(x[r0:r0 + NORM_ROW_CHUNK].to(dtype)), dim=1)
+    return out
+
+
+def _chunk_rows(rows: int, cols: int) -> int:
+    """Rows per step that keep a (rows, cols) score matrix within
+    PLAIN_SCORE_ELEMS entries."""
+    return max(1, min(rows, PLAIN_SCORE_ELEMS // max(cols, 1)))
+
+
+def _dist_topk_inputs(queries, db, mask):
+    """The Pallas wrapper's preamble: q2 of the queries and r2 of the rows
+    as the product reads them (compute dtype), +inf on masked rows."""
+    q2 = row_sq_norms(queries)
+    r2 = row_sq_norms(db)
+    r2 = torch.where(mask > 0, r2, torch.full_like(r2, float("inf")))
+    return q2, r2
+
+
+def dist_topk_plain(queries: torch.Tensor, db: torch.Tensor, row_ids: torch.Tensor,
+                    mask: torch.Tensor, k: int):
+    """Plain version of :func:`dist_topk`: f32 products of the input values
+    over db chunks, each merged into the running best in (distance, id)
+    order."""
+    q2, r2 = _dist_topk_inputs(queries, db, mask)
+    nq, m = queries.shape[0], db.shape[0]
+    qf = queries.float()
+    best_d = torch.full((nq, k), float("inf"), dtype=torch.float32, device=db.device)
+    best_i = torch.full((nq, k), -1, dtype=torch.int32, device=db.device)
+    step = _chunk_rows(m, nq)
+    for r0 in range(0, m, step):
+        qr = qf @ db[r0:r0 + step].float().T
+        d2 = torch.clamp((q2[:, None] + r2[None, r0:r0 + step]) - 2.0 * qr, min=0.0)
+        ids = row_ids[r0:r0 + step].expand(nq, -1)
+        best_d, best_i = sel.lex_topk(torch.cat([best_d, d2], 1), torch.cat([best_i, ids], 1), k)
+    return best_d, torch.where(torch.isinf(best_d), -1, best_i)
+
+
+def dist_topk_splits(nq: int, m: int, sms: int) -> int:
+    """db splits of a :func:`dist_topk` launch: enough (query tile, split)
+    blocks for about four waves of two blocks per SM, at most one split
+    per 128-row tile."""
+    q_tiles = -(-nq // 128)
+    m_tiles = -(-m // 128)
+    return max(1, min(m_tiles, -(-8 * sms // q_tiles), 65535))
+
+
+def dist_topk(queries: torch.Tensor, db: torch.Tensor, row_ids: torch.Tensor,
+              mask: torch.Tensor, k: int):
+    """Exact kneighbors core: per query of ``queries`` (q, d) the ``k`` ≤ 64
+    smallest max(q2 + r2 − 2q·r, 0) over the rows of ``db`` (m, d), both
+    float32 or both bfloat16 (the compute dtype), in ascending (distance,
+    id) order, ties to the lowest id: (dists (q, k) f32, ids (q, k) int32).
+
+    ``row_ids``: (m,) int32 ids of the rows; ``mask``: (m,) f32, rows with
+    mask 0 score +inf; slots without a finite candidate are (+inf, −1).
+    q2 and r2 are the f32 squared norms of the values the product reads.
+    Any q, m ≥ k and d (no tiling demands)."""
+    _check_x(db)
+    m, d = db.shape
+    if queries.dim() != 2 or queries.shape[1] != d or queries.dtype != db.dtype:
+        raise ValueError(f"queries must be a (q, {d}) {db.dtype} matrix, got "
+                         f"{tuple(queries.shape)} {queries.dtype}")
+    if queries.device != db.device:
+        raise ValueError(f"queries are on {queries.device}, db on {db.device}")
+    if not 0 < k <= min(DIST_TOPK_MAX_K, m):
+        raise ValueError(f"k={k} must be in [1, min({DIST_TOPK_MAX_K}, m={m})]")
+    if row_ids.dtype != torch.int32 or tuple(row_ids.shape) != (m,) or row_ids.device != db.device:
+        raise ValueError(f"row_ids must be ({m},) int32 on {db.device}")
+    _check_f32(mask, (m,), db.device, "mask")
+    if db.device.type == "cpu":
+        return dist_topk_plain(queries, db, row_ids, mask, k)
+    nq = queries.shape[0]
+    q2, r2 = _dist_topk_inputs(queries, db, mask)
+    sms = torch.cuda.get_device_properties(db.device).multi_processor_count
+    splits = dist_topk_splits(nq, m, sms)
+    qc = queries.contiguous()  # held until the launch is queued
+    qp, is_bf16 = _launch_args(qc)
+    dbp, _ = _launch_args(db)
+    ids = row_ids.contiguous()
+    out = torch.empty((nq, k, 2), dtype=torch.float32, device=db.device)
+    part = (torch.empty((splits, nq, k, 2), dtype=torch.float32, device=db.device)
+            if splits > 1 else None)
+    with torch.cuda.device(db.device):
+        rc = _knn_lib().srml_dist_topk(
+            qp, dbp, is_bf16, q2.data_ptr(), r2.data_ptr(), ids.data_ptr(), nq, m, d, k, splits,
+            None if part is None else part.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(db.device).cuda_stream,
+        )
+    _raise_on(rc, "dist_topk")
+    LAUNCHES["dist_topk"] += 1
+    return out[..., 0].contiguous(), out[..., 1].view(torch.int32).contiguous()
+
+
+def _check_probe(centroids: torch.Tensor, queries: torch.Tensor, nprobe: int) -> None:
+    if centroids.dim() != 2 or centroids.shape[0] == 0:
+        raise ValueError(f"centroids must be an (nlist, d) matrix, got {tuple(centroids.shape)}")
+    nlist, d = centroids.shape
+    if queries.dim() != 2 or queries.shape[1] != d:
+        raise ValueError(f"queries must be a (q, {d}) matrix, got {tuple(queries.shape)}")
+    if centroids.dtype != torch.float32 or queries.dtype != torch.float32:
+        raise TypeError("probe_select runs at full f32: centroids and queries must be float32")
+    if queries.device != centroids.device:
+        raise ValueError(f"queries are on {queries.device}, centroids on {centroids.device}")
+    if not 0 < nprobe <= nlist:
+        raise ValueError(f"nprobe={nprobe} must be in [1, nlist={nlist}]")
+
+
+def probe_select_plain(centroids: torch.Tensor, queries: torch.Tensor, nprobe: int):
+    """Plain version of :func:`probe_select`."""
+    nlist = centroids.shape[0]
+    pos_bits = sel.pos_bits_for(nlist)
+    c2 = row_sq_norms(centroids)
+    q2 = row_sq_norms(queries)
+    probe = torch.empty((queries.shape[0], nprobe), dtype=torch.int32, device=queries.device)
+    probe_d = torch.empty((queries.shape[0], nprobe), dtype=torch.float32, device=queries.device)
+    step = _chunk_rows(queries.shape[0], nlist)
+    for r0 in range(0, queries.shape[0], step):
+        cq = queries[r0:r0 + step] @ centroids.T
+        scores = (c2[None, :] - 2.0 * cq) + q2[r0:r0 + step, None]
+        probe_d[r0:r0 + step], probe[r0:r0 + step] = sel.packed_extract(
+            sel.packed_keys(scores, pos_bits), nprobe, pos_bits)
+    return probe, probe_d
+
+
+def probe_select(centroids: torch.Tensor, queries: torch.Tensor, nprobe: int):
+    """Exact IVF probe at full f32: per query of ``queries`` (q, d) the
+    scores (c2 − 2c·q) + q2 against every row of ``centroids`` (nlist, d)
+    (true ‖q − c‖², no clamp), packed with pos_bits = bit_length(ceil8(nlist)
+    − 1), and the ``nprobe`` smallest keys: (probe ids (q, nprobe) int32
+    ascending, floored values (q, nprobe) f32). nlist ≤ 65,536."""
+    _check_probe(centroids, queries, nprobe)
+    if queries.device.type == "cpu":
+        return probe_select_plain(centroids, queries, nprobe)
+    nlist, d = centroids.shape
+    nq = queries.shape[0]
+    pos_bits = sel.pos_bits_for(nlist)
+    cent, qs = centroids.contiguous(), queries.contiguous()
+    c2, q2 = row_sq_norms(cent), row_sq_norms(qs)
+    p = 1 << max(0, (nlist - 1).bit_length())
+    keys = torch.empty((nq, p), dtype=torch.int32, device=qs.device)
+    out_p = torch.empty((nq, nprobe), dtype=torch.int32, device=qs.device)
+    out_d = torch.empty((nq, nprobe), dtype=torch.float32, device=qs.device)
+    with torch.cuda.device(qs.device):
+        rc = _knn_lib().srml_probe_select(
+            cent.data_ptr(), c2.data_ptr(), qs.data_ptr(), q2.data_ptr(), nq, nlist, d,
+            nprobe, pos_bits, p, keys.data_ptr(), out_p.data_ptr(), out_d.data_ptr(),
+            torch.cuda.current_stream(qs.device).cuda_stream,
+        )
+    _raise_on(rc, "probe_select")
+    LAUNCHES["probe_select"] += 1
+    return out_p, out_d
+
+
+def _check_scan(qv: torch.Tensor, rows: torch.Tensor, r2: torch.Tensor, blk_k: int) -> None:
+    if qv.dim() != 3 or rows.dim() != 3 or qv.shape[0] != rows.shape[0] or \
+            qv.shape[2] != rows.shape[2]:
+        raise ValueError(f"qv (nlist, C, d) and rows (nlist, maxlen, d) disagree: "
+                         f"{tuple(qv.shape)}, {tuple(rows.shape)}")
+    if qv.dtype != rows.dtype or rows.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"qv and rows must both be float32 or bfloat16, got {qv.dtype}, "
+                        f"{rows.dtype}")
+    if qv.device != rows.device:
+        raise ValueError(f"qv is on {qv.device}, rows on {rows.device}")
+    _check_f32(r2, rows.shape[:2], rows.device, "r2")
+    if not 0 < blk_k <= rows.shape[1]:
+        raise ValueError(f"blk_k={blk_k} must be in [1, maxlen={rows.shape[1]}]")
+
+
+def ivf_scan_select_plain(qv: torch.Tensor, rows: torch.Tensor, r2: torch.Tensor, blk_k: int):
+    """Plain version of :func:`ivf_scan_select`."""
+    nlist, n_slots, _ = qv.shape
+    maxlen = rows.shape[1]
+    pos_bits = sel.pos_bits_for(maxlen)
+    bk_pad = sel.ceil_to(blk_k, 8)
+    out_d = torch.full((nlist, bk_pad, n_slots), sel.IVF_MASKED_D2, dtype=torch.float32,
+                       device=qv.device)
+    out_p = torch.zeros((nlist, bk_pad, n_slots), dtype=torch.int32, device=qv.device)
+    step = _chunk_rows(nlist, n_slots * maxlen)
+    for l0 in range(0, nlist, step):
+        qr = torch.bmm(qv[l0:l0 + step].float(), rows[l0:l0 + step].float().transpose(1, 2))
+        scores = r2[l0:l0 + step, None, :] - 2.0 * qr  # (L, C, maxlen)
+        vals, pos = sel.packed_extract(sel.packed_keys(scores, pos_bits), blk_k, pos_bits)
+        out_d[l0:l0 + step, :blk_k] = vals.transpose(1, 2)
+        out_p[l0:l0 + step, :blk_k] = pos.transpose(1, 2)
+    return out_d, out_p
+
+
+def ivf_scan_select(qv: torch.Tensor, rows: torch.Tensor, r2: torch.Tensor, blk_k: int):
+    """Fused IVF list scan: per list l and query slot c, the scores
+    r2[l] − 2·(rows[l]·qv[l, c]) over the list's maxlen rows, packed with
+    pos_bits = bit_length(ceil8(maxlen) − 1), and the ``blk_k`` smallest
+    keys decoded: (best_d (nlist, bk_pad, C) f32 ascending, best_p (nlist,
+    bk_pad, C) int32 row positions), bk_pad = ceil8(blk_k), the pad rows
+    (3e38, 0) as in JAX. Ties go to the lowest position.
+
+    qv: (nlist, C, d), the query residuals per slot; rows: (nlist, maxlen,
+    d), the residual list rows, both float32 or both bfloat16; r2: (nlist,
+    maxlen) f32 with ≥ 1e30 on rows that must not win. blk_k ≤ maxlen ≤
+    65,536."""
+    _check_scan(qv, rows, r2, blk_k)
+    if qv.device.type == "cpu":
+        return ivf_scan_select_plain(qv, rows, r2, blk_k)
+    nlist, n_slots, d = qv.shape
+    maxlen = rows.shape[1]
+    pos_bits = sel.pos_bits_for(maxlen)
+    bk_pad = sel.ceil_to(blk_k, 8)
+    qvc = qv.contiguous()  # held until the launch is queued
+    qvp, is_bf16 = _launch_args(qvc)
+    rp, _ = _launch_args(rows)
+    r2c = r2.contiguous()
+    lib = _knn_lib()
+    scratch = (torch.empty((nlist, n_slots, blk_k), dtype=torch.int32, device=qv.device)
+               if lib.srml_scan_needs_scratch(blk_k) else None)
+    out_d = torch.empty((nlist, bk_pad, n_slots), dtype=torch.float32, device=qv.device)
+    out_p = torch.empty((nlist, bk_pad, n_slots), dtype=torch.int32, device=qv.device)
+    with torch.cuda.device(qv.device):
+        rc = lib.srml_ivf_scan_select(
+            qvp, rp, is_bf16, r2c.data_ptr(), nlist, n_slots, maxlen, d, blk_k, bk_pad,
+            pos_bits, None if scratch is None else scratch.data_ptr(), out_d.data_ptr(),
+            out_p.data_ptr(), torch.cuda.current_stream(qv.device).cuda_stream,
+        )
+    _raise_on(rc, "ivf_scan_select")
+    LAUNCHES["ivf_scan_select"] += 1
+    return out_d, out_p

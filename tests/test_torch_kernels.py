@@ -3,7 +3,8 @@
 On the CPU the port's wrappers take their kernels' plain versions; those
 are held here against ``gram_colsum_pallas``, ``gram_pallas``,
 ``linreg_stats_pallas``, ``lloyd_step_pallas``, ``assign_min_dist_pallas``,
-``newton_stats_pallas`` and ``softmax_curvature_pallas`` run in interpret
+``newton_stats_pallas``, ``softmax_curvature_pallas``, ``dist_topk_pallas``,
+``probe_select_pallas`` and ``ivf_scan_select_pallas`` run in interpret
 mode, on the same numpy inputs (as tests/test_pallas.py runs them), and
 against float64 numpy oracles. The CUDA kernels themselves are held
 against the plain versions on the card, by ``chip_smoke.py`` and by the
@@ -17,16 +18,21 @@ import numpy as np
 import pytest
 import torch
 
+from spark_rapids_ml_tpu.ops import pallas_kernels as pk
 from spark_rapids_ml_tpu.ops.pallas_kernels import (
     assign_min_dist_pallas,
+    dist_topk_pallas,
     gram_colsum_pallas,
     gram_pallas,
     linreg_stats_pallas,
     lloyd_step_pallas,
+    ivf_scan_select_pallas,
     newton_stats_pallas,
+    probe_select_pallas,
     softmax_curvature_pallas,
 )
 from spark_rapids_ml_tpu_torch.ops import _build, kernels
+from spark_rapids_ml_tpu_torch.ops import selection as sel
 from torch_port_helpers import jax_ledger_off
 
 torch.set_num_threads(2)
@@ -510,7 +516,7 @@ def test_softmax_curvature_wrapper_rejects_bad_inputs(bad, err):
         kernels.softmax_curvature(*bad(x, p))
 
 
-@pytest.mark.parametrize("binding", ["_lib", "_kmeans_lib"])
+@pytest.mark.parametrize("binding", ["_lib", "_kmeans_lib", "_knn_lib"])
 def test_kernel_bindings_raise_without_nvcc(monkeypatch, tmp_path, binding):
     """A CUDA tensor's wrapper binds its library first; without nvcc that
     raises (there is no fallback to the plain version) and builds nothing."""
@@ -520,3 +526,194 @@ def test_kernel_bindings_raise_without_nvcc(monkeypatch, tmp_path, binding):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         getattr(kernels, binding).__wrapped__()
     assert list(tmp_path.iterdir()) == []
+
+
+# ---------------------------------------------------------------------------
+# Nearest neighbours: dist_topk, probe_select, ivf_scan_select
+# ---------------------------------------------------------------------------
+# Inputs are small integers: every product and sum is exact in f32 in any
+# order, so ids, positions and (floored) values must agree bitwise, ties
+# included (integer distances tie often).
+
+
+def _ints(rng, *shape):
+    return rng.integers(-3, 4, size=shape).astype(np.float32)
+
+
+def _both(a, dtype):
+    t = torch.from_numpy(a).to(getattr(torch, dtype))
+    return jnp.asarray(t.float().numpy(), dtype=dtype), t
+
+
+@pytest.mark.parametrize("impl", ["wrapper", "plain"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["basic", "masked", "k_past_valid", "duplicates"])
+def test_dist_topk_matches_pallas(impl, dtype, case):
+    rng = np.random.default_rng(21)
+    q, m, d, k = 37, 300, 24, 6
+    qs, db = _ints(rng, q, d), _ints(rng, m, d)
+    ids = (rng.permutation(m) + 100).astype(np.int32)
+    mask = np.ones(m, np.float32)
+    if case == "masked":
+        mask = (rng.random(m) < 0.6).astype(np.float32)
+    elif case == "k_past_valid":
+        mask[:] = 0
+        mask[[3, 150, 299]] = 1  # 3 valid rows < k: (+inf, −1) tail
+    elif case == "duplicates":
+        db[5] = db[200]
+        db[30] = db[31]
+        qs[:4] = db[[5, 30, 200, 31]]
+    qj, qt = _both(qs, dtype)
+    dj, dt = _both(db, dtype)
+    ref_d, ref_i = dist_topk_pallas(qj, dj, jnp.asarray(ids), jnp.asarray(mask), k,
+                                    interpret=True)
+    fn = kernels.dist_topk if impl == "wrapper" else kernels.dist_topk_plain
+    out_d, out_i = fn(qt, dt, torch.from_numpy(ids), torch.from_numpy(mask), k)
+    np.testing.assert_array_equal(out_i.numpy(), np.asarray(ref_i))
+    np.testing.assert_array_equal(out_d.numpy(), np.asarray(ref_d))
+    if case == "k_past_valid":
+        assert (out_i.numpy()[:, 3:] == -1).all() and np.isinf(out_d.numpy()[:, 3:]).all()
+
+
+def test_dist_topk_ties_go_to_the_lowest_id():
+    """Equal rows under different ids: ascending (distance, id), whatever
+    the rows' positions."""
+    db = np.zeros((6, 3), np.float32)
+    db[:, 0] = [1, 1, 1, 2, 2, 0]
+    ids = np.array([9, 4, 7, 1, 0, 5], np.int32)
+    d, i = kernels.dist_topk(torch.zeros((1, 3)), torch.from_numpy(db), torch.from_numpy(ids),
+                             torch.ones(6), 6)
+    np.testing.assert_array_equal(i.numpy()[0], [5, 4, 7, 9, 0, 1])
+    np.testing.assert_array_equal(d.numpy()[0], [0, 1, 1, 1, 4, 4])
+
+
+@pytest.mark.parametrize("impl", ["wrapper", "plain"])
+@pytest.mark.parametrize("nlist, q, nprobe", [(37, 64, 5), (300, 128, 300), (8, 5, 1)])
+def test_probe_select_matches_pallas(impl, nlist, q, nprobe):
+    rng = np.random.default_rng(22)
+    cent, qs = _ints(rng, nlist, 20), _ints(rng, q, 20)
+    cent[7 % nlist] = cent[0]  # duplicate centroids: ties to the lower index
+    ref_p, ref_d = probe_select_pallas(jnp.asarray(cent), jnp.asarray(qs), nprobe,
+                                       interpret=True)
+    fn = kernels.probe_select if impl == "wrapper" else kernels.probe_select_plain
+    out_p, out_d = fn(torch.from_numpy(cent), torch.from_numpy(qs), nprobe)
+    np.testing.assert_array_equal(out_p.numpy(), np.asarray(ref_p))
+    np.testing.assert_array_equal(out_d.numpy(), np.asarray(ref_d))
+
+
+@pytest.mark.parametrize("impl", ["wrapper", "plain"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("maxlen, blk_k", [(37, 11), (64, 8), (300, 40), (9, 9)])
+def test_ivf_scan_select_matches_pallas(impl, dtype, maxlen, blk_k):
+    """Scores r2 − 2·qr, negative ones included; list 1 holds 5 valid rows
+    (fewer than blk_k): its sentinel rows come out in position order."""
+    rng = np.random.default_rng(23)
+    nlist, c, d = 4, 24, 16
+    qv, rows = _ints(rng, nlist, c, d), _ints(rng, nlist, maxlen, d)
+    r2 = np.sum(rows * rows, axis=2).astype(np.float32) * 0.5
+    r2[1, 5:] = 1e30
+    qj, qt = _both(qv, dtype)
+    rj, rt = _both(rows, dtype)
+    ref_d, ref_p = ivf_scan_select_pallas(qj, rj, jnp.asarray(r2), blk_k, keep_pad=True,
+                                          interpret=True)
+    fn = kernels.ivf_scan_select if impl == "wrapper" else kernels.ivf_scan_select_plain
+    out_d, out_p = fn(qt, rt, torch.from_numpy(r2), blk_k)
+    assert tuple(out_d.shape) == (nlist, sel.ceil_to(blk_k, 8), c)
+    np.testing.assert_array_equal(out_p.numpy(), np.asarray(ref_p))
+    np.testing.assert_array_equal(out_d.numpy(), np.asarray(ref_d))
+    assert (out_d.numpy() < 0).any()
+
+
+def test_sortable_int_matches_jax_and_orders_floats():
+    vals = np.array([-3e38, -2.5, -1.0 - 2**-23, -1.0, -1e-30, -0.0, 0.0, 1e-30, 1.0,
+                     1.0 + 2**-23, 7.5, 1e30, 3e38], np.float32)
+    bits = vals.view(np.int32)
+    out = sel.sortable_int(torch.from_numpy(bits.copy())).numpy()
+    np.testing.assert_array_equal(out, np.asarray(pk._sortable_int(jnp.asarray(bits))))
+    assert (np.diff(out.astype(np.int64)) >= 0).all()
+    assert (out[[0, 1, 2, 3, 4]] < 0).all()  # negatives map below zero
+    np.testing.assert_array_equal(sel.sortable_int(torch.from_numpy(out)).numpy(), bits)
+
+
+@pytest.mark.parametrize("pos_bits", [3, 4, 11, 16])  # 8 positions need 3
+def test_packed_keys_match_jax_floor_and_decode(pos_bits):
+    """Hand-built scores, negative ones included: the keys equal the JAX
+    helper's (positions on its sublane axis), each decoded value is the
+    score floored within 2^(pos_bits − 23) of its magnitude, and ties of
+    the floored value go to the lower position."""
+    scores = np.array([[-1.0 - 2**-23, -1.0, 3.0, 3.0, 1.0 + 2**-22, -0.5, 2.0**-10, 1e30]],
+                      np.float32)
+    keys = sel.packed_keys(torch.from_numpy(scores), pos_bits)
+    ref = np.asarray(pk._packed_keys(jnp.asarray(scores.T), pos_bits)).T
+    np.testing.assert_array_equal(keys.numpy(), ref)
+    vals, pos = sel.decode_keys(keys, pos_bits)
+    np.testing.assert_array_equal(pos.numpy()[0], np.arange(8))
+    v, s = vals.numpy()[0].astype(np.float64), scores[0].astype(np.float64)
+    assert (v <= s).all()
+    assert (s - v <= np.abs(s) * 2.0 ** (pos_bits - 23)).all()
+    top_v, top_p = sel.packed_extract(keys, 4, pos_bits)
+    # −1 − 2⁻²³ and −1 floor together from 11 bits on: the lower position first.
+    assert top_p.numpy()[0].tolist() == [0, 1, 5, 6]
+    assert (np.diff(top_v.numpy()[0]) >= 0).all()
+
+
+@pytest.mark.parametrize("n, bits", [(1, 3), (8, 3), (9, 4), (1000, 10), (65536, 16)])
+def test_pos_bits_follow_the_8_padded_length(n, bits):
+    assert sel.pos_bits_for(n) == bits
+
+
+def test_pos_bits_raise_past_16():
+    with pytest.raises(ValueError, match="too many"):
+        sel.pos_bits_for(65537)
+
+
+def test_lex_and_stable_topk_orders():
+    d = torch.tensor([[2.0, 1.0, 1.0, float("inf"), 1.0]])
+    ids = torch.tensor([[0, 9, 3, -1, 5]])
+    ld, li = sel.lex_topk(d, ids, 4)
+    assert li.tolist() == [[3, 5, 9, 0]] and ld.tolist() == [[1.0, 1.0, 1.0, 2.0]]
+    sv, sp = sel.stable_topk(d, 3)
+    assert sp.tolist() == [[1, 2, 4]]
+
+
+def test_dist_topk_splits_fill_the_card():
+    assert kernels.dist_topk_splits(4096, 1 << 20, 132) == 33
+    assert kernels.dist_topk_splits(262144, 1024, 132) == 1
+    assert kernels.dist_topk_splits(37, 300, 132) == 3  # at most one split per 128 rows
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda q, db, i, m: (q, db, i, m, 65), ValueError),              # k > 64
+    (lambda q, db, i, m: (q, db, i, m, 0), ValueError),               # k < 1
+    (lambda q, db, i, m: (q.double(), db, i, m, 3), ValueError),      # dtype mismatch
+    (lambda q, db, i, m: (q[:, :3], db, i, m, 3), ValueError),        # width
+    (lambda q, db, i, m: (q, db, i.long(), m, 3), ValueError),        # id dtype
+    (lambda q, db, i, m: (q, db, i, m[:5], 3), ValueError),           # mask shape
+])
+def test_dist_topk_rejects_bad_inputs(bad, err):
+    args = (torch.ones((4, 6)), torch.ones((70, 6)), torch.arange(70, dtype=torch.int32),
+            torch.ones(70))
+    with pytest.raises(err):
+        kernels.dist_topk(*bad(*args))
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda qv, rows, r2: (qv, rows, r2, 11), ValueError),           # blk_k > maxlen
+    (lambda qv, rows, r2: (qv.bfloat16(), rows, r2, 3), TypeError),  # dtype mismatch
+    (lambda qv, rows, r2: (qv[:2], rows, r2, 3), ValueError),        # nlist mismatch
+    (lambda qv, rows, r2: (qv, rows, r2[:, :4], 3), ValueError),     # r2 shape
+])
+def test_ivf_scan_select_rejects_bad_inputs(bad, err):
+    args = (torch.ones((3, 5, 4)), torch.ones((3, 10, 4)), torch.ones((3, 10)))
+    with pytest.raises(err):
+        kernels.ivf_scan_select(*bad(*args))
+
+
+@pytest.mark.parametrize("bad, err", [
+    (lambda c, q: (c, q, 9), ValueError),                 # nprobe > nlist
+    (lambda c, q: (c.double(), q, 2), TypeError),         # full f32 only
+    (lambda c, q: (c, q[:, :2], 2), ValueError),          # width
+])
+def test_probe_select_rejects_bad_inputs(bad, err):
+    with pytest.raises(err):
+        kernels.probe_select(*bad(torch.ones((8, 3)), torch.ones((5, 3))))

@@ -22,17 +22,22 @@ import torch
 
 from spark_rapids_ml_tpu_torch import (
     PCA,
+    ApproximateNearestNeighbors,
+    ApproximateNearestNeighborsModel,
     KMeans,
     KMeansModel,
     LinearRegression,
     LinearRegressionModel,
     LogisticRegression,
     LogisticRegressionModel,
+    NearestNeighbors,
+    NearestNeighborsModel,
     PCAModel,
     config,
 )
 from spark_rapids_ml_tpu_torch.core.dataset import as_column, as_matrix, num_rows, with_column
 from spark_rapids_ml_tpu_torch.models import kmeans as port_km
+from spark_rapids_ml_tpu_torch.models import knn as port_knn
 from spark_rapids_ml_tpu_torch.models import linear_regression as port_lr
 from spark_rapids_ml_tpu_torch.models import logistic_regression as port_lg
 from spark_rapids_ml_tpu_torch.models import pca as port_pca
@@ -69,7 +74,8 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, spark_rapids_ml_tpu_torch, spark_rapids_ml_tpu_torch.convert, "
-        "spark_rapids_ml_tpu_torch.ops.kernels; "
+        "spark_rapids_ml_tpu_torch.ops.kernels, spark_rapids_ml_tpu_torch.ops.selection, "
+        "spark_rapids_ml_tpu_torch.models.knn; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'spark_rapids_ml_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -135,7 +141,8 @@ def test_logreg_exports_and_launch_counters():
     assert port.LogisticRegressionModel._persist_class == (
         "spark_rapids_ml_tpu.models.logistic_regression.LogisticRegressionModel")
     assert set(kernels.LAUNCHES) == {"gram", "gram_colsum", "linreg_stats", "lloyd_step",
-                                     "assign_min_dist", "newton_stats", "softmax_curvature"}
+                                     "assign_min_dist", "newton_stats", "softmax_curvature",
+                                     "dist_topk", "probe_select", "ivf_scan_select"}
     kernels.LAUNCHES["newton_stats"] += 3
     kernels.reset_launches()
     assert not any(kernels.LAUNCHES.values())
@@ -154,6 +161,48 @@ def test_logreg_entry_points_raise_without_a_card(no_cuda, call):
     x, y = rng.normal(size=(20, 4)), (rng.random(20) < 0.5).astype(np.float64)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call(x, y)
+
+
+def test_knn_exports_and_persisted_class_names():
+    import spark_rapids_ml_tpu_torch as port
+
+    assert {"NearestNeighbors", "NearestNeighborsModel", "ApproximateNearestNeighbors",
+            "ApproximateNearestNeighborsModel"} <= set(port.__all__)
+    assert NearestNeighborsModel._persist_class == (
+        "spark_rapids_ml_tpu.models.knn.NearestNeighborsModel")
+    assert ApproximateNearestNeighborsModel._persist_class == (
+        "spark_rapids_ml_tpu.models.knn.ApproximateNearestNeighborsModel")
+    assert {k: config.get(k) for k in ("ann_shortlist_mult", "ann_rerank", "ann_rerank_width",
+                                       "ann_extract")} == {
+        "ann_shortlist_mult": 2, "ann_rerank": True, "ann_rerank_width": 0, "ann_extract": "auto"}
+    with pytest.raises(KeyError):
+        config.get("ann_fused_scan")  # the tensor's device decides, no switch
+
+
+def _knn_db():
+    return np.random.default_rng(3).normal(size=(64, 4)).astype(np.float32)
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: NearestNeighbors().setK(2).fit({"features": x}).kneighbors(x[:3]),
+    lambda x: NearestNeighborsModel(database=x).kneighbors(x[:3], k=2),
+    lambda x: ApproximateNearestNeighbors().setNlist(4).fit({"features": x}),
+    lambda x: port_knn.build_ivf_flat(x, 4),
+    lambda x: ApproximateNearestNeighborsModel(
+        index=port_knn.build_ivf_flat(x, 4, device="cpu"))._set(k=2).kneighbors(x[:3]),
+])
+def test_knn_entry_points_raise_without_a_card(no_cuda, call):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(_knn_db())
+
+
+def test_knn_runs_on_the_cpu_when_asked(no_cuda):
+    x = _knn_db()
+    d, i = NearestNeighbors(device="cpu").setK(3).fit({"features": x}).kneighbors(x[:5])
+    assert i[:, 0].tolist() == [0, 1, 2, 3, 4] and np.allclose(d[:, 0], 0, atol=1e-3)
+    ann = ApproximateNearestNeighbors(device="cpu").setNlist(4).setNprobe(4).setK(3)
+    d, i = ann.fit({"features": x}).kneighbors(x[:5])
+    assert i[:, 0].tolist() == [0, 1, 2, 3, 4] and d.shape == (5, 3)
 
 
 def test_config_reads_its_own_env_prefix():
@@ -317,3 +366,36 @@ def test_logreg_kernels_match_plain_versions_on_card():
         hp, bp = kernels.softmax_curvature_plain(x, p)
         assert float((hw - hp).abs().max()) <= 1e-5 * scale
         assert float((hwb - bp).abs().max()) <= 1e-5 * float(xf.abs().sum(0).max())
+
+
+@pytest.mark.cuda
+def test_knn_kernels_match_plain_versions_on_card():
+    """On a CUDA card: dist_topk, probe_select and ivf_scan_select launch
+    and agree bitwise with their plain versions on small-integer inputs
+    (every product and sum exact in f32), at ragged shapes, ties included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def ints(*shape):
+        return torch.randint(-3, 4, shape, generator=gen, device="cuda").float()
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, db = ints(300, 70).to(dtype), ints(5001, 70).to(dtype)
+        ids = torch.randperm(5001, generator=gen, device="cuda").int()
+        mask = (torch.rand(5001, generator=gen, device="cuda") < 0.9).float()
+        before = kernels.LAUNCHES["dist_topk"]
+        out = kernels.dist_topk(q, db, ids, mask, 10)
+        assert kernels.LAUNCHES["dist_topk"] == before + 1
+        ref = kernels.dist_topk_plain(q, db, ids, mask, 10)
+        assert all(bool((a == b).all()) for a, b in zip(out, ref))
+        qv, rows = ints(7, 130, 33).to(dtype), ints(7, 301, 33).to(dtype)
+        r2 = (rows.float() ** 2).sum(2)
+        r2[2, 4:] = 1e30
+        out = kernels.ivf_scan_select(qv, rows, r2, 12)
+        ref = kernels.ivf_scan_select_plain(qv, rows, r2, 12)
+        assert all(bool((a == b).all()) for a, b in zip(out, ref))
+    cent, qs = ints(1000, 40), ints(513, 40)
+    out = kernels.probe_select(cent, qs, 20)
+    ref = kernels.probe_select_plain(cent, qs, 20)
+    assert all(bool((a == b).all()) for a, b in zip(out, ref))
