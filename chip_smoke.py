@@ -12,18 +12,27 @@ Phases, each of which exits non-zero on a failed check:
    (one nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at ragged
    shapes (tolerances stated beside each check), the LogisticRegression
-   pair included.
+   pair included. First the tensor-core route of ``gram_colsum`` and
+   ``linreg_stats`` (bf16, d % 8 == 0): bitwise on small-integer inputs at
+   d in {8, 1000, 2048}, n ragged across stages and splits, n_valid in
+   {0, 1, 1234, n, n + 5}, seeded non-symmetric states, a {0, 1} mask and
+   every promotion interval; then at tolerance on gaussian rows. d = 300
+   and float32 must take the FFMA route. ``python3 chip_smoke.py
+   --phase2`` stops after this phase.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
-   must equal the batch count; components checked sign-invariantly against
-   a float64 Gram of the same batches computed on the card.
+   must equal the batch count, all on the tensor-core route; components
+   checked sign-invariantly against a float64 Gram of the same batches
+   computed on the card.
 4. The in-memory ``PCA().fit`` of 1,048,576 x 2048 float32 rows (four
    batches' worth, so one launch sums far more rows than a batch) through
    the ``gram`` kernel, with the same check.
 5. PCA transform of 65,536 rows against a float64 product; its p50 latency.
 6. The PCA kernels timed at the main path's shape beside their plain
    versions, their bounds and the ``torch.matmul`` yardstick, and the Gram
-   error of the kernel and of the plain version against a float64 Gram.
+   error of the kernel and of the plain version against a float64 Gram;
+   the tensor-core ``gram_colsum`` at each promotion interval (time and
+   error against float64).
 7. KMeans at full width (BASELINE.json config #3: d=256, k=100) on
    16,764,871 bf16 rows of 100 unequal gaussian blobs: ``fit_kmeans``
    (k-means++, maxIter 20, tol 1e-4); ``lloyd_step`` launches must equal
@@ -34,12 +43,14 @@ Phases, each of which exits non-zero on a failed check:
    blobs, against ``fit_kmeans`` on their concatenation from the same
    initial centres.
 9. LinearRegression at width 1024: the streaming fold of 8 bf16 batches of
-   262,144 rows (``linreg_stats`` launches must equal the batches) and an
-   elastic-net finalize, then the in-memory ``LinearRegression().fit`` of
-   1,048,576 x 1024 float32 rows (one launch), each against float64 solves
-   of the same normal equations on the card.
+   262,144 rows (``linreg_stats`` launches must equal the batches, all on
+   the tensor-core route) and an elastic-net finalize, then the in-memory
+   ``LinearRegression().fit`` of 1,048,576 x 1024 float32 rows (one launch,
+   FFMA route), each against float64 solves of the same normal equations
+   on the card.
 10. The KMeans and LinearRegression kernels timed at their main paths'
-    shapes, as in phase 6.
+    shapes, as in phase 6, with the ``linreg_stats`` Gram error of the
+    kernel and the plain version against float64.
 11. Binomial LogisticRegression at full width (bench_logreg.py: d=1024,
     511,943 = 2^19 − 12,345 bf16 rows, regParam 1e-4, Spark's maxIter 100
     and tol 1e-6) through ``LogisticRegression().fit``: ``newton_stats``
@@ -77,7 +88,8 @@ Phases, each of which exits non-zero on a failed check:
     plain versions, bounds and the library route (``torch.matmul`` or
     ``torch.bmm`` plus a stable top-k).
 
-The last lines are the card line, the ``{"kernels": [...]}`` table and
+The last lines are the card line, the ``{"kernels": [...]}`` table (each
+row with its ``design``: "wgmma+tma syrk" or "ffma tiles") and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, the script fails before printing any result.
 """
@@ -125,6 +137,9 @@ KNN_ROWS = 1 << 20  # depth cut from config #5's 10M rows
 KNN_CLUSTERS, KNN_SPREAD = 4096, 0.35
 KNN_QUERIES, KNN_K = 4096, 10
 KNN_NLIST, KNN_NPROBE = 1024, 20
+
+#: Promotion intervals (stages) of the tensor-core Gram timed in phase 6.
+PROMOTE_SWEEP = (0, 1, 2, 4, 8)
 
 KERNEL_SOURCE = "spark_rapids_ml_tpu_torch/ops/csrc/gram.cu"
 KMEANS_SOURCE = "spark_rapids_ml_tpu_torch/ops/csrc/kmeans.cu"
@@ -249,6 +264,95 @@ def phase_kernels(torch, kernels) -> None:
               f"gram {str(dtype)[6:]} n={n} d={d} no mask (tol 1e-5 of max Σx²)")
 
 
+def check_equal(torch, got, want, tag) -> None:
+    """Bitwise equality, with the first differing entry on failure."""
+    got, want = got.reshape(want.shape), want
+    diff = (got != want).nonzero()
+    if diff.numel():
+        at = tuple(int(v) for v in diff[0])
+        fail(f"{tag}: {diff.shape[0]} of {want.numel()} entries differ, first at {at}: "
+             f"{float(got[at])} vs {float(want[at])} (max err "
+             f"{float((got.double() - want.double()).abs().max()):.3e})")
+
+
+def phase_gram_tc(torch, kernels) -> None:
+    """The tensor-core route against the plain versions. Small-integer bf16
+    rows and integer seeds make every product and partial sum an integer
+    below 2^24, so the f32 results are bitwise whatever the order: a wrong
+    wgmma transpose bit, swizzle or descriptor, a tile added to the wrong
+    half of G or a row summed twice shows as a differing entry."""
+    gen = torch.Generator(device=DEV).manual_seed(10)
+
+    def ints(*shape, lo=-3, hi=4):
+        return torch.randint(lo, hi, shape, generator=gen, device=DEV).float()
+
+    def routed(kernel, route, call):
+        before = dict(kernels.ROUTES)
+        out = call()
+        torch.cuda.synchronize()
+        key = f"{kernel}/{route}"
+        check(kernels.ROUTES[key] == before[key] + 1
+              and sum(kernels.ROUTES.values()) == sum(before.values()) + 1,
+              f"{kernel} took the {route} route")
+        return out
+
+    default = kernels.TC_PROMOTE_STAGES
+    # n ragged across the 64-row stage and (at d = 8, 1000) several splits.
+    for d, n in ((8, 20001), (1000, 20001), (2048, 9001), (1000, 37)):
+        x = ints(n, d).to(torch.bfloat16)
+        for n_valid in sorted({0, 1, min(1234, n), n, n + 5}):
+            for seeded in (False, True):
+                g0, cs0 = ints(d, d, lo=-50, hi=51), ints(d, lo=-50, hi=51)
+                st_k = (g0.clone(), cs0.clone(), torch.tensor(37.0, device=DEV)) if seeded else None
+                st_p = (g0.clone(), cs0.clone(), torch.tensor(37.0, device=DEV)) if seeded else None
+                gk, csk, ck = routed("gram_colsum", "wgmma",
+                                     lambda: kernels.gram_colsum(x, n_valid, st_k))
+                gp, csp, cp = kernels.gram_colsum_plain(x, n_valid, st_p)
+                tag = f"gram_colsum wgmma bf16 ints n={n} d={d} n_valid={n_valid} seeded={seeded}"
+                check_equal(torch, gk, gp, tag + " gram")
+                check_equal(torch, csk, csp, tag + " colsum")
+                check(float(ck) == float(cp), tag + f": G, colsum bitwise; count {float(ck)}")
+                if seeded:
+                    check(gk.data_ptr() == st_k[0].data_ptr(), tag + " folded in place")
+        y = ints(n)
+        for masked in (False, True):
+            mask = (torch.rand((n,), generator=gen, device=DEV) < 0.7).float() if masked else None
+            for seeded in (False, True):
+                st = [ints(*s_, lo=-50, hi=51) for s_ in ((d, d), (d,), (d,), (), ())]
+                st.append(torch.tensor(37.0, device=DEV))
+                sk = [t.clone() for t in st] if seeded else None
+                sp = [t.clone() for t in st] if seeded else None
+                out_k = routed("linreg_stats", "wgmma", lambda: kernels.linreg_stats(x, y, mask, sk))
+                out_p = kernels.linreg_stats_plain(x, y, mask, sp)
+                tag = f"linreg_stats wgmma bf16 ints n={n} d={d} mask={masked} seeded={seeded}"
+                for name, a, b in zip(("xtx", "xty", "sx", "sy", "syy", "n"), out_k, out_p):
+                    check_equal(torch, a, b, f"{tag} {name}")
+                print(f"ok    {tag}: all six outputs bitwise", flush=True)
+        for promote in PROMOTE_SWEEP:
+            kernels.TC_PROMOTE_STAGES = promote
+            try:
+                gk = kernels.gram_colsum(x, n)[0]
+                ok = torch.equal(gk, kernels.gram_colsum_plain(x, n)[0])
+            finally:
+                kernels.TC_PROMOTE_STAGES = default
+            check(ok, f"gram_colsum wgmma n={n} d={d} promotion every {promote} stages: bitwise")
+    # Gaussian rows: f32 sums in another order, as in the FFMA checks.
+    for d in (1000, 2048):
+        x = torch.randn((20001, d), generator=gen, device=DEV).to(torch.bfloat16)
+        gscale = float((x.float() ** 2).sum(0).max())
+        gk = routed("gram_colsum", "wgmma", lambda: kernels.gram_colsum(x, 20001)[0])
+        err = rel_err(gk, kernels.gram_colsum_plain(x, 20001)[0], gscale)
+        # Tolerance: 1e-5 of the largest Σx², the FFMA checks' tolerance.
+        check(err <= 1e-5, f"gram_colsum wgmma bf16 gaussian n=20001 d={d}: rel err {err:.1e} "
+                           f"(tol 1e-5)")
+    # The FFMA route: bf16 at d = 300 (a 600-byte row), and float32.
+    x = torch.randn((999, 300), generator=gen, device=DEV)
+    routed("gram_colsum", "ffma", lambda: kernels.gram_colsum(x.to(torch.bfloat16), 999))
+    routed("linreg_stats", "ffma",
+           lambda: kernels.linreg_stats(x.to(torch.bfloat16), x[:, 0].contiguous()))
+    routed("gram_colsum", "ffma", lambda: kernels.gram_colsum(x[:, :256].contiguous(), 999))
+
+
 def margin_data(torch, gen, n, d, k, dtype):
     """Rows at small noise around k random centres: each row's nearest
     centre wins by a wide margin, so f32 sums in any order agree on it."""
@@ -362,6 +466,22 @@ def bound_ms(n_bytes: float, ops: float, dtype: str):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def promote_sweep(torch, kernels, timed, fresh, g64, scale, tag) -> None:
+    """The tensor-core body at each promotion interval: its time (seeded
+    launches, as the path runs them) and its Gram error against float64."""
+    default = kernels.TC_PROMOTE_STAGES
+    try:
+        for promote in PROMOTE_SWEEP:
+            kernels.TC_PROMOTE_STAGES = promote
+            ms = time_ms(timed, 5)
+            err = rel_err(fresh(), g64, scale)
+            print(f"{tag} promotion every {promote} stages"
+                  f"{' (the default)' if promote == default else ''}: {ms:.3f} ms, "
+                  f"Gram vs float64 {err:.3e}", flush=True)
+    finally:
+        kernels.TC_PROMOTE_STAGES = default
 
 
 def span_seconds(prof, name: str) -> float:
@@ -519,17 +639,27 @@ def phase_linreg(torch, kernels, lr, LinearRegression, config):
     print(f"linreg stream: {LR_BATCHES} bf16 batches, {n_rows} rows x {LR_D}", flush=True)
     torch.cuda.synchronize()
     kernels.reset_launches()
+
+    def stream_fit():
+        st = lr.init_normal_eq_stats(LR_D, device=DEV)
+        for x, y in parts:
+            lr.streaming_normal_eq_update(st, x, y)
+        return st, lr.finalize_normal_eq_stats(st, 0.0, 0.0, True, 500, 1e-6, n_rows)
+
     t0 = time.perf_counter()
-    state = lr.init_normal_eq_stats(LR_D, device=DEV)
-    for x, y in parts:
-        lr.streaming_normal_eq_update(state, x, y)
-    sol = lr.finalize_normal_eq_stats(state, 0.0, 0.0, True, 500, 1e-6, n_rows)
+    state, sol = stream_fit()
     fold_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    routes = dict(kernels.ROUTES)
     check(launches["linreg_stats"] == LR_BATCHES,
           f"linreg_stats launches {launches['linreg_stats']} == batches {LR_BATCHES}")
+    check(routes["linreg_stats/wgmma"] == LR_BATCHES and routes["linreg_stats/ffma"] == 0,
+          f"every linreg_stats launch of the stream took the tensor-core route: "
+          f"{routes['linreg_stats/wgmma']} wgmma, {routes['linreg_stats/ffma']} ffma")
     print(f"linreg stream fit: {fold_s:.3f} s, {n_rows / fold_s:.1f} rows/s "
           f"(fold + Cholesky solve)", flush=True)
+    device_breakdown(torch, "linreg stream fit trace (a second fit of the same batches)",
+                     stream_fit, top=6)
     ref = lr_reference(torch, parts, lr)
     err = float(abs(sol.coefficients - ref.coefficients).max())
     b_err = abs(sol.intercept - ref.intercept)
@@ -554,8 +684,9 @@ def phase_linreg(torch, kernels, lr, LinearRegression, config):
     with config.option("compute_dtype", "float32"):
         model = LinearRegression().fit({"features": x32, "label": y32})
     mem_s = time.perf_counter() - t0
-    check(kernels.LAUNCHES["linreg_stats"] == 1,
-          f"linreg_stats launches {kernels.LAUNCHES['linreg_stats']} == 1 in the in-memory fit")
+    check(kernels.LAUNCHES["linreg_stats"] == 1 and kernels.ROUTES["linreg_stats/ffma"] == 1,
+          f"linreg_stats launches {kernels.LAUNCHES['linreg_stats']} == 1 in the in-memory fit, "
+          f"float32 on the FFMA route")
     print(f"linreg in-memory fit: {LR_IN_MEMORY_ROWS} x {LR_D} float32 in {mem_s:.3f} s, "
           f"{LR_IN_MEMORY_ROWS / mem_s:.1f} rows/s", flush=True)
     ref = lr_reference(torch, [(x32, y32)], lr)
@@ -1263,13 +1394,19 @@ def main() -> None:
           + ", ".join(p.name for p in built))
     for name, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "warning",
+                                       "wgmma", "setmaxnreg")):
                 print(f"  ptxas {name}: {line.strip()}")
 
     # -- 2. kernels against their plain versions -----------------------------
+    phase_gram_tc(torch, kernels)
     phase_kernels(torch, kernels)
     phase_new_kernels(torch, kernels)
     phase_logreg_kernels(torch, kernels)
+    if "--phase2" in sys.argv[1:]:
+        print(f"phase 2 passed ({time.perf_counter() - t_start:.1f} s); --phase2: stopping here",
+              flush=True)
+        return
 
     # -- 3. streaming fit at full width ---------------------------------------
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1292,9 +1429,14 @@ def main() -> None:
     sol = fit_pca_stream(batches, k=K, n_cols=D)
     fit_s = time.perf_counter() - t0  # the solution is on the host: synced
     launches_gc = kernels.LAUNCHES["gram_colsum"]
+    routes_gc = {k: v for k, v in kernels.ROUTES.items() if k.startswith("gram_colsum/")}
     check(launches_gc == N_BATCHES,
           f"gram_colsum launches {launches_gc} == batches {N_BATCHES}")
+    check(routes_gc["gram_colsum/wgmma"] == N_BATCHES and routes_gc["gram_colsum/ffma"] == 0,
+          f"every gram_colsum launch of the stream took the tensor-core route: {routes_gc}")
     print(f"streaming fit: {fit_s:.3f} s, {n_rows / fit_s:.1f} rows/s (fold + finalize)")
+    device_breakdown(torch, "streaming fit trace (a second fit of the same batches)",
+                     lambda: fit_pca_stream(batches, k=K, n_cols=D), top=6)
     count = torch.tensor(float(n_rows), dtype=torch.float64, device=DEV)
     colsum = torch.zeros(D, dtype=torch.float64, device=DEV)
     gram = torch.zeros((D, D), dtype=torch.float64, device=DEV)
@@ -1385,6 +1527,8 @@ def main() -> None:
     print(f"gram_colsum at {n} x {d} bf16, Gram vs float64 (over the largest diagonal "
           f"entry): kernel {rel_err(gk[0], g64_batch, gscale):.3e}, "
           f"plain {rel_err(gp[0], g64_batch, gscale):.3e}")
+    promote_sweep(torch, kernels, lambda: kernels.gram_colsum(xb, n, state)[0],
+                  lambda: kernels.gram_colsum(xb, n)[0], g64_batch, gscale, f"gram_colsum {n} x {d}")
     # Bound: x read once, the state read and written once; G is symmetric,
     # so nd(d+1) operations, plus nd for the column sums.
     b_ms, b_by = bound_ms(n * d * 2 + 2 * (d * d * 4 + d * 4 + 4), n * d * (d + 1) + n * d,
@@ -1491,6 +1635,14 @@ def main() -> None:
     err = rel_err(out_k[0], out_p[0], gscale)
     check(err <= 1e-4 and float(out_k[5]) == float(out_p[5]) == n,
           f"linreg_stats at {n} x {d} bf16: XᵀX rel err {err:.2e} (tol 1e-4), count exact")
+    xbd = xb.double()
+    g64 = xbd.T @ xbd
+    del xbd
+    print(f"linreg_stats at {n} x {d} bf16, XᵀX vs float64 (over the largest diagonal entry): "
+          f"kernel {rel_err(out_k[0], g64, gscale):.3e}, plain {rel_err(out_p[0], g64, gscale):.3e}")
+    promote_sweep(torch, kernels, lambda: kernels.linreg_stats(xb, yb, None, state)[0],
+                  lambda: kernels.linreg_stats(xb, yb)[0], g64, gscale, f"linreg_stats {n} x {d}")
+    del g64
     # Bound: x and y read once, the state read and written once; XᵀX is
     # symmetric, so nd(d+1) operations, plus 3nd for Xᵀy and Σx.
     b_ms, b_by = bound_ms(n * d * 2 + n * 4 + 2 * (d * d * 4 + 2 * d * 4 + 12),
@@ -1536,7 +1688,9 @@ def main() -> None:
     # -- 15.-18. nearest neighbours ------------------------------------------------
     table += phase_knn(torch, kernels, config)
     for row in table:
-        print(f"{row['name']}: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
+        row["design"] = ("wgmma+tma syrk" if row["name"] in ("gram_colsum", "linreg_stats")
+                         else "ffma tiles")
+        print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
               f"library {row['library_ms']:.3f}, bound {row['bound_ms']:.3f} by "
               f"{row['bound_by']}), {row['launches']} launches on the main path")
     print(f"total {time.perf_counter() - t_start:.1f} s")

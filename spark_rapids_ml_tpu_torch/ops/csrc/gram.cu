@@ -6,10 +6,10 @@
 //
 // Replaces spark_rapids_ml_tpu/ops/pallas_kernels.py:
 //   gram_pallas              (:78)   -> srml_gram
-//   gram_colsum_pallas       (:173)  -> srml_gram_colsum
+//   gram_colsum_pallas       (:173)  -> srml_gram_colsum, srml_gram_colsum_tc
 //   newton_stats_pallas      (:451)  -> srml_newton_stats
 //   softmax_curvature_pallas (:1135) -> srml_softmax_curvature
-//   linreg_stats_pallas      (:1210) -> srml_linreg_stats
+//   linreg_stats_pallas      (:1210) -> srml_linreg_stats, srml_linreg_stats_tc
 //
 // What the Pallas kernels compute: a (d, d) f32 accumulator kept in VMEM for
 // the whole sequential row grid, with x read once. An H100 SM has 227 KB of
@@ -66,18 +66,79 @@
 // JAX package's Precision.HIGHEST; bf16 input converts with
 // __bfloat162float (exact) and accumulates in f32.
 //
+// Two bodies. The one above, gram_tile_kernel ("ffma tiles"), runs every
+// f32 launch, every launch of srml_gram, srml_newton_stats and
+// srml_softmax_curvature, and bf16 launches of srml_gram_colsum and
+// srml_linreg_stats whose d is not a multiple of 8. Its products run on
+// the CUDA cores: 24-29 TFLOP/s of f32 FFMA on the H100, over the full
+// square of G.
+//
+// gram_tc_kernel ("wgmma+tma syrk") runs bf16 launches of
+// srml_gram_colsum_tc and srml_linreg_stats_tc (the wrapper routes bf16
+// with d % 8 == 0 and 16-byte aligned x and G there). It computes what
+// kColsum and kLinreg compute above, laid out for Hopper:
+//
+// * SYRK: blockIdx.x indexes a tile pair (i <= j) of 128 x 128 tiles from
+//   a (n_pairs, 2) list the wrapper computes (136 pairs at d = 2048, not
+//   256 tiles); blockIdx.y a row split of split_rows rows, a multiple of
+//   the 64-row stage. A diagonal pair loads its panel once and hands the
+//   same shared-memory tile to both wgmma operands. An off-diagonal tile S
+//   is added to G[i, j] and Sᵀ to G[j, i], so a seeded, non-symmetric G
+//   stays exact (no mirror pass).
+// * wgmma, bf16 x bf16 -> f32: two consumer warpgroups, each
+//   m64n128k16 over its 64 rows of the tile, four K steps per stage. x is
+//   row-major, so a stage of 64 rows x 128 columns has the G index
+//   contiguous: both operands are MN-major (transpose bits 1, 1), in the
+//   128-byte swizzle TMA writes: 64-column boxes of 64 rows, 128-byte
+//   rows, 8-row swizzle atoms of 1 KB (SBO), the two boxes of a panel 8 KB
+//   apart (LBO).
+// * TMA into a ring of 5 stages (32 KB each: i-panel and j-panel) with
+//   full/empty mbarriers; one producer thread. The tensor map's row extent
+//   is the valid rows (min(n, max(n_valid, 0)) for gram_colsum, n for
+//   linreg), so TMA zero-fills every row past them and the ragged column
+//   edge: no per-element bound checks. Boxes wholly past d are not loaded
+//   (their columns only reach outputs that are dropped).
+// * Split-K over rows, as in the FFMA body: no f32 sum runs over all n
+//   rows. Hopper's tensor cores may truncate inside their f32
+//   accumulation, so every `promote` stages a consumer adds the wgmma
+//   accumulator into a CUDA-core f32 accumulator and restarts it
+//   ("promotion"; the wrapper chooses the interval). The epilogue stages
+//   the tile (and its transpose) in the ring's memory and adds each row
+//   into G with cp.reduce.async.bulk .add.f32: splits meet in G in no
+//   fixed order (results may differ in the last bits between runs).
+// * Vector statistics with x read once: on a diagonal pair each consumer
+//   sums its half of the staged panel (Σx and, for linreg, Xᵀy with y in
+//   f32) on the CUDA cores while its wgmma runs; the tile-(0, 0) blocks'
+//   spare warps add Σy, Σy² and the 64-bit row count of their split from
+//   y and the mask; block (0, 0) adds the gram_colsum count once. The
+//   linreg mask is {0, 1} by contract: with a mask, a helper warp zeroes
+//   the staged rows where m = 0 before the consumers may read the stage
+//   (a third mbarrier, "ready"), and x·m is then exact in bf16.
+// * Registers: the producer warpgroup gives registers back (setmaxnreg 40)
+//   and the consumers take 232 (two 64-float accumulators a thread). The
+//   launcher refuses to launch unless ptxas gave the kernel the 168 a
+//   thread that balance assumes, and a barrier wait that outlives 10 s
+//   traps: a fault in the pipeline is an error, never a hung card.
+//
 // Bound on the H100: at the PCA path's shape (262,144 x 2048) the fold does
 // nd(d+1) = 1.1 TFLOP (G is symmetric, so half of 2nd²) against 1.07 GB
 // (bf16) of reads, far above the card's ops-per-byte balance, so it is
 // bound by operations (bf16 tensor cores: 1.1 ms; f32 FFMA for the f32
 // Gram: 16 ms). linreg_stats at 262,144 x 1024 bf16 is bound the same way
-// (0.28 ms on the tensor cores against 0.16 ms of bytes). This simple
-// CUDA-core kernel cannot reach the tensor-core bound; wgmma, TMA and the
-// SYRK symmetry (half the tiles) are the later steps. Index arithmetic is
-// 64-bit: 262,144 x 2048 f32 is exactly 2^31 bytes.
+// (0.28 ms on the tensor cores against 0.16 ms of bytes). The tensor-core
+// body does exactly the SYRK's operations (plus the diagonal tiles' lower
+// halves); what it still lacks is persistence (one block per (pair, split)
+// leaves a partial last wave and an unoverlapped epilogue per block) and
+// larger tiles or TMA multicast (each 128-column panel is read from L2
+// once per pair it belongs to). Index arithmetic is 64-bit: 262,144 x 2048
+// f32 is exactly 2^31 bytes.
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes through the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
 
 namespace {
 
@@ -363,6 +424,511 @@ newton_row_kernel(const T* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body (bf16, d % 8 == 0): wgmma fed by TMA over SYRK pairs.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 64;                          // rows per stage: 4 wgmma K steps
+constexpr int kTcBox = 64;                           // columns per TMA box: 128 B, the swizzle span
+constexpr int kTcBoxBytes = kTcRows * kTcBox * 2;    // 8 KB
+constexpr int kTcPanelBytes = 2 * kTcBoxBytes;       // 128 columns
+constexpr int kTcStageBytes = 2 * kTcPanelBytes;     // i-panel, j-panel
+constexpr int kTcStages = 5;
+constexpr int kTcRingBytes = kTcStages * kTcStageBytes;
+constexpr int kTcEpiStride = kTile + 8;              // floats per staged tile row (544 B)
+constexpr int kTcEpiBytes = 2 * kTile * kTcEpiStride * 4;  // the tile and its transpose
+constexpr int kTcDataBytes = kTcRingBytes > kTcEpiBytes ? kTcRingBytes : kTcEpiBytes;
+constexpr int kTcSmemBytes = 1024 + kTcDataBytes + 3 * kTcStages * 8;  // + alignment, barriers
+constexpr int kTcThreads = 384;     // warpgroup 0: producer and helpers; 1-2: consumers
+constexpr int kTcConsumers = 256;
+constexpr int kTcEntryRegs = 168;   // 65536 / 384, what setmaxnreg 40 / 232 balances
+constexpr long long kTcWaitNs = 10000000000LL;  // a barrier wait past this traps
+constexpr int kErrTensorMap = 1000;  // + CUresult: cuTensorMapEncodeTiled failed
+constexpr int kErrNoEncoder = 1999;  // the driver has no cuTensorMapEncodeTiled
+constexpr int kErrRegisters = 1998;  // ptxas did not give the kernel kTcEntryRegs
+
+static_assert(kTcDataBytes >= kTcEpiBytes && kTcSmemBytes <= 232448, "shared memory");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t start = 0;
+  while (true) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    const uint64_t now = global_ns();
+    if (start == 0) {
+      start = now;
+    } else if (now - start > static_cast<uint64_t>(kTcWaitNs)) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void consumer_sync() {  // the 256 consumer threads
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// wgmma descriptor of an MN-major operand in the 128-byte swizzle: 8-row
+// atoms of 128-byte rows `sbo` bytes apart along K, 64-element column
+// blocks `lbo` bytes apart along M (or N).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns them.
+__device__ __forceinline__ void fence_acc(float (&acc)[64]) {
+#pragma unroll
+  for (int v = 0; v < 64; ++v) asm volatile("" : "+f"(acc[v])::"memory");
+}
+
+#define SRML_ACC8(i)                                                              \
+  "+f"(acc[i]), "+f"(acc[i + 1]), "+f"(acc[i + 2]), "+f"(acc[i + 3]), "+f"(acc[i + 4]), \
+      "+f"(acc[i + 5]), "+f"(acc[i + 6]), "+f"(acc[i + 7])
+
+// acc (64 x 128 f32 fragment) = [acc if scale_d] + Aᵀ-tile · B-tile, both
+// bf16 MN-major (transpose bits 1, 1).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&acc)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34,"
+      " %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51,"
+      " %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : SRML_ACC8(0), SRML_ACC8(8), SRML_ACC8(16), SRML_ACC8(24), SRML_ACC8(32), SRML_ACC8(40),
+        SRML_ACC8(48), SRML_ACC8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef SRML_ACC8
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Adds `bytes` of f32 from shared memory into global memory (TMA reduce).
+__device__ __forceinline__ void bulk_add_f32(float* dst, const float* src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+}
+
+struct TcPlan {
+  const int* pairs;      // (n_pairs, 2) tile pairs i <= j; blockIdx.x indexes them
+  long long rows;        // rows to sum; the tensor map zero-fills past them
+  long long split_rows;  // rows of blockIdx.y's split, a multiple of kTcRows
+  long long d;
+  int promote;           // stages between promotions; 0: at the end only
+};
+
+// kColsum: G += XᵀX, colsum += Σx, count += rows over the first plan.rows
+// rows. kLinreg: with m = mask (null: 1) in {0, 1} and ym = y·m over all
+// plan.rows rows: G += XᵀX of the rows with m = 1, xty += Xᵀym, colsum +=
+// Σx·m, sy += Σym, syy += Σym², rows += #(m != 0).
+template <int kMode>
+__global__ void __launch_bounds__(kTcThreads, 1)
+gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
+               const float* __restrict__ mask, const float* __restrict__ y, Outputs out) {
+  constexpr bool kLin = kMode == kLinreg;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle atoms need 1 KB alignment
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t bars = base + kTcDataBytes;
+  // full: TMA landed; ready: masked rows zeroed (with a mask); empty: consumed.
+  auto full = [bars](int s) { return bars + 8u * s; };
+  auto ready = [bars](int s) { return bars + 8u * (kTcStages + s); };
+  auto empty = [bars](int s) { return bars + 8u * (2 * kTcStages + s); };
+
+  const int ti = plan.pairs[2 * blockIdx.x];
+  const int tj = plan.pairs[2 * blockIdx.x + 1];
+  const bool diag = ti == tj;
+  const long long d = plan.d;
+  const int i0 = ti * kTile;
+  const int j0 = tj * kTile;
+  const long long r_begin = static_cast<long long>(blockIdx.y) * plan.split_rows;
+  const long long r_end = min(plan.rows, r_begin + plan.split_rows);
+  const int n_stages =
+      r_end > r_begin ? static_cast<int>((r_end - r_begin + kTcRows - 1) / kTcRows) : 0;
+  const bool masked = kLin && mask != nullptr;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(ready(s), 1);
+      mbar_init(empty(s), kTcConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // Warpgroup 0: warp 0 feeds the ring, warp 1 zeroes masked rows, warps
+    // 2-3 of the tile-(0, 0) blocks sum the linreg y statistics.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    if (warp == 0 && lane == 0) {
+      const int boxes = (i0 + kTcBox < d ? 2 : 1) + (diag ? 0 : (j0 + kTcBox < d ? 2 : 1));
+      for (int s = 0; s < n_stages; ++s) {
+        const int slot = s % kTcStages;
+        const uint32_t round = static_cast<uint32_t>(s / kTcStages);
+        mbar_wait(empty(slot), (round & 1u) ^ 1u);
+        const uint32_t st = base + slot * kTcStageBytes;
+        const int row = static_cast<int>(r_begin + static_cast<long long>(s) * kTcRows);
+        mbar_expect_tx(full(slot), boxes * kTcBoxBytes);
+        tma_load_2d(st, &xmap, full(slot), i0, row);
+        if (i0 + kTcBox < d) tma_load_2d(st + kTcBoxBytes, &xmap, full(slot), i0 + kTcBox, row);
+        if (!diag) {
+          tma_load_2d(st + kTcPanelBytes, &xmap, full(slot), j0, row);
+          if (j0 + kTcBox < d) {
+            tma_load_2d(st + kTcPanelBytes + kTcBoxBytes, &xmap, full(slot), j0 + kTcBox, row);
+          }
+        }
+      }
+    } else if (warp == 1 && masked) {
+      for (int s = 0; s < n_stages; ++s) {
+        const int slot = s % kTcStages;
+        mbar_wait(full(slot), static_cast<uint32_t>(s / kTcStages) & 1u);
+        const long long row0 = r_begin + static_cast<long long>(s) * kTcRows;
+        unsigned char* st = sm + slot * kTcStageBytes;
+        for (int r = lane; r < kTcRows; r += 32) {
+          const long long row = row0 + r;
+          if (row < plan.rows && mask[row] == 0.f) {
+            for (int b = 0; b < (diag ? 2 : 4); ++b) {
+              uint4* p = reinterpret_cast<uint4*>(st + b * kTcBoxBytes + r * 128);
+#pragma unroll
+              for (int c = 0; c < 8; ++c) p[c] = make_uint4(0u, 0u, 0u, 0u);
+            }
+          }
+        }
+        fence_proxy_async();  // the async proxy (wgmma) reads these rows next
+        __syncwarp();
+        if (lane == 0) mbar_arrive(ready(slot));
+      }
+    } else if (warp >= 2 && kLin && ti == 0 && tj == 0) {
+      constexpr int kUnroll = 4;  // loads in flight per thread, within setmaxnreg's 40
+      float s = 0.f, ss = 0.f;
+      unsigned long long nn = 0;
+      for (long long r0 = r_begin + (tid - 64); r0 < r_end; r0 += 64 * kUnroll) {
+        float yv[kUnroll], mv[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const long long r = r0 + 64 * u;
+          yv[u] = r < r_end ? y[r] : 0.f;
+          mv[u] = r < r_end ? (mask == nullptr ? 1.f : mask[r]) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const float ym = yv[u] * mv[u];
+          s += ym;
+          ss += ym * ym;
+          nn += (mv[u] != 0.f);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o /= 2) {
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+        ss += __shfl_xor_sync(0xffffffffu, ss, o);
+        nn += __shfl_xor_sync(0xffffffffu, nn, o);
+      }
+      if (lane == 0) {
+        atomicAdd(out.sy, s);
+        atomicAdd(out.syy, ss);
+        atomicAdd(out.rows, nn);
+      }
+    }
+    if (kMode == kColsum && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) {
+      *out.count += static_cast<float>(plan.rows);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int ct = tid - 128;  // consumer thread, 0..255
+    const int wg = ct / 128;   // rows 64·wg .. 64·wg + 63 of the tile
+    const int t = ct % 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int c8 = t % 8;      // statistics: 16-byte column chunk of this half
+    const int q = t / 8;       // statistics: rows q, q + 16, q + 32, q + 48
+    const uint32_t a_off = wg * kTcBoxBytes;
+    const uint32_t b_off = diag ? 0u : static_cast<uint32_t>(kTcPanelBytes);
+    float acc[64], tot[64];
+#pragma unroll
+    for (int v = 0; v < 64; ++v) {
+      acc[v] = 0.f;
+      tot[v] = 0.f;
+    }
+    float cs[8], xy[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      cs[k] = 0.f;
+      xy[k] = 0.f;
+    }
+    int fresh = 1;    // the next stage starts the wgmma accumulator afresh
+    int since = 0;    // stages in the accumulator since the last promotion
+    int pending = -1; // slot read by wgmmas that may still be in flight
+    // linreg diagonal pairs: y and m of this thread's four rows, loaded one
+    // stage ahead so that their latency hides behind a stage of wgmma.
+    float y_next[4], m_next[4];
+    auto load_ym = [&](int stage) {
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const long long row = r_begin + static_cast<long long>(stage) * kTcRows + q + 16 * rr;
+        const bool in = stage < n_stages && row < plan.rows;
+        y_next[rr] = in ? y[row] : 0.f;
+        m_next[rr] = in ? (mask == nullptr ? 1.f : mask[row]) : 0.f;
+      }
+    };
+    if (kLin && diag) load_ym(0);
+    for (int s = 0; s < n_stages; ++s) {
+      const int slot = s % kTcStages;
+      const uint32_t parity = static_cast<uint32_t>(s / kTcStages) & 1u;
+      mbar_wait(masked ? ready(slot) : full(slot), parity);
+      const uint32_t st = base + slot * kTcStageBytes;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kTcRows / 16; ++k) {
+        const uint64_t da = sw128_desc(st + a_off + k * 2048, kTcBoxBytes, 1024);
+        const uint64_t db = sw128_desc(st + b_off + k * 2048, kTcBoxBytes, 1024);
+        wgmma_m64n128k16(acc, da, db, (fresh && k == 0) ? 0 : 1);
+      }
+      wgmma_commit();
+      fence_acc(acc);
+      fresh = 0;
+      if (diag) {  // block-uniform; overlaps the wgmma just issued
+        const unsigned char* p = sm + slot * kTcStageBytes + a_off;
+        float ym[4];
+        if (kLin) {
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) ym[rr] = y_next[rr] * m_next[rr];
+          load_ym(s + 1);
+        }
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const int r = q + 16 * rr;
+          const uint4 v = *reinterpret_cast<const uint4*>(p + r * 128 + ((c8 ^ (r & 7)) << 4));
+          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const float lo = __uint_as_float(w[h] << 16);  // exact bf16 -> f32
+            const float hi = __uint_as_float(w[h] & 0xffff0000u);
+            cs[2 * h] += lo;
+            cs[2 * h + 1] += hi;
+            if (kLin) {
+              xy[2 * h] = fmaf(lo, ym[rr], xy[2 * h]);
+              xy[2 * h + 1] = fmaf(hi, ym[rr], xy[2 * h + 1]);
+            }
+          }
+        }
+        fence_proxy_async();  // these generic reads precede the slot's next TMA write
+      }
+      if (plan.promote > 0 && ++since == plan.promote) {
+        wgmma_wait<0>();
+        fence_acc(acc);
+        if (pending >= 0) mbar_arrive(empty(pending));
+        mbar_arrive(empty(slot));
+        pending = -1;
+#pragma unroll
+        for (int v = 0; v < 64; ++v) tot[v] += acc[v];
+        fresh = 1;
+        since = 0;
+      } else {
+        wgmma_wait<1>();  // the previous stage's wgmmas are done: release it
+        fence_acc(acc);
+        if (pending >= 0) mbar_arrive(empty(pending));
+        pending = slot;
+        if (plan.promote == 0) since = 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (pending >= 0) mbar_arrive(empty(pending));
+    if (since > 0) {
+#pragma unroll
+      for (int v = 0; v < 64; ++v) tot[v] += acc[v];
+    }
+
+    if (diag) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        cs[k] += __shfl_xor_sync(0xffffffffu, cs[k], 8);
+        cs[k] += __shfl_xor_sync(0xffffffffu, cs[k], 16);
+        if (kLin) {
+          xy[k] += __shfl_xor_sync(0xffffffffu, xy[k], 8);
+          xy[k] += __shfl_xor_sync(0xffffffffu, xy[k], 16);
+        }
+      }
+      if (lane < 8) {
+        const long long col0 = i0 + kTcBox * wg + 8 * lane;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if (col0 + k < d) {
+            atomicAdd(&out.colsum[col0 + k], cs[k]);
+            if (kLin) atomicAdd(&out.xty[col0 + k], xy[k]);
+          }
+        }
+      }
+    }
+
+    // Epilogue: every consumer is past the ring, whose memory now stages
+    // the tile (rows of G[i, j]) and its transpose (rows of G[j, i]).
+    consumer_sync();
+    float* epi = reinterpret_cast<float*>(sm);
+    float* epi_t = epi + kTile * kTcEpiStride;
+#pragma unroll
+    for (int v = 0; v < 64; v += 2) {
+      // wgmma's f32 fragment: row 16·warp + lane/4 (+8), column 8·(v/4) + 2·(lane%4).
+      const int m = kTcBox * wg + 16 * warp + lane / 4 + 8 * ((v >> 1) & 1);
+      const int n = 8 * (v >> 2) + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(epi + m * kTcEpiStride + n) = make_float2(tot[v], tot[v + 1]);
+      if (!diag) {
+        epi_t[n * kTcEpiStride + m] = tot[v];
+        epi_t[(n + 1) * kTcEpiStride + m] = tot[v + 1];
+      }
+    }
+    fence_proxy_async();  // the bulk reduce (async proxy) reads these rows
+    consumer_sync();
+    if (ct < kTile) {
+      const long long gi = i0 + ct;
+      if (gi < d) {
+        const uint32_t bytes = static_cast<uint32_t>(min(static_cast<long long>(kTile), d - j0)) * 4;
+        bulk_add_f32(out.gram + gi * d + j0, epi + ct * kTcEpiStride, bytes);
+      }
+    } else if (!diag) {
+      const int n = ct - kTile;
+      const long long gj = j0 + n;
+      if (gj < d) {
+        const uint32_t bytes = static_cast<uint32_t>(min(static_cast<long long>(kTile), d - i0)) * 4;
+        bulk_add_f32(out.gram + gj * d + i0, epi_t + n * kTcEpiStride, bytes);
+      }
+    }
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver call; the runtime hands out its entry
+// point, so the library links no libcuda of its own.
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
+                                                                   : nullptr;
+  }();
+  return fn;
+}
+
+// One tensor-core launch over a plan the wrapper made: the (n_pairs, 2)
+// int32 tile pairs on the device, `splits` row splits of `split_rows`
+// rows covering `rows`, a promotion every `promote` stages (0: once).
+template <int kMode>
+int launch_tc(const void* x, long long rows, long long d, const int* pairs, int n_pairs,
+              long long splits, long long split_rows, int promote, const float* mask,
+              const float* y, const Outputs& out, void* stream) {
+  if (d < 8 || d % 8 != 0 || d > (1LL << 30) || rows < 0 || rows > INT_MAX ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(out.gram) % 16 != 0 ||
+      pairs == nullptr || n_pairs < 1 || splits < 1 || splits > kMaxGridZ ||
+      split_rows < kTcRows || split_rows % kTcRows != 0 || splits * split_rows < rows ||
+      promote < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const int regs = [] {
+    cudaFuncAttributes attr{};
+    const void* fn = reinterpret_cast<const void*>(&gram_tc_kernel<kMode>);
+    return cudaFuncGetAttributes(&attr, fn) == cudaSuccess ? attr.numRegs : -1;
+  }();
+  if (regs != kTcEntryRegs) return kErrRegisters;  // setmaxnreg would starve or not apply
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return kErrNoEncoder;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(rows > 0 ? rows : 1)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
+  const cuuint32_t box[2] = {kTcBox, kTcRows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return kErrTensorMap + static_cast<int>(r);
+  const cudaError_t e =
+      cudaFuncSetAttribute(reinterpret_cast<const void*>(&gram_tc_kernel<kMode>),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const TcPlan plan{pairs, rows, split_rows, d, promote};
+  const dim3 grid(static_cast<unsigned>(n_pairs), static_cast<unsigned>(splits));
+  gram_tc_kernel<kMode><<<grid, kTcThreads, kTcSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      map, plan, mask, y, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -396,6 +962,33 @@ int srml_linreg_stats(const void* x, int is_bf16, const float* mask,
                       unsigned long long* rows, void* stream) {
   const Outputs out{xtx, sx, nullptr, xty, sy, syy, rows};
   return launch<kLinreg>(x, is_bf16, mask, y, n, d, 1, out, stream);
+}
+
+// srml_gram_colsum on the tensor-core body: bf16 x with d % 8 == 0, x and
+// gram 16-byte aligned, over the wrapper's plan: `pairs` (n_pairs, 2)
+// int32 tile pairs i <= j on the device, `splits` row splits of
+// `split_rows` rows (a multiple of 64) covering the rows, the wgmma
+// accumulator promoted every `promote` stages (0: once, at the end).
+// Returns a cudaError_t, or 1000 + a CUresult of the tensor-map encode,
+// 1998 (kernel registers) or 1999 (no encoder in the driver).
+int srml_gram_colsum_tc(const void* x, long long n, long long d, long long n_valid,
+                        const int* pairs, int n_pairs, long long splits, long long split_rows,
+                        int promote, float* gram, float* colsum, float* count, void* stream) {
+  const long long rows = n_valid < 0 ? 0 : (n_valid < n ? n_valid : n);
+  const Outputs out{gram, colsum, count, nullptr, nullptr, nullptr, nullptr};
+  return launch_tc<kColsum>(x, rows, d, pairs, n_pairs, splits, split_rows, promote, nullptr,
+                            nullptr, out, stream);
+}
+
+// srml_linreg_stats on the tensor-core body, with the plan arguments of
+// srml_gram_colsum_tc; the mask (null: all ones) must be {0, 1}.
+int srml_linreg_stats_tc(const void* x, const float* mask, const float* y, long long n,
+                         long long d, const int* pairs, int n_pairs, long long splits,
+                         long long split_rows, int promote, float* xtx, float* xty, float* sx,
+                         float* sy, float* syy, unsigned long long* rows, void* stream) {
+  const Outputs out{xtx, sx, nullptr, xty, sy, syy, rows};
+  return launch_tc<kLinreg>(x, n, d, pairs, n_pairs, splits, split_rows, promote, mask, y, out,
+                            stream);
 }
 
 // One binomial Newton-IRLS pass at (w, b) over the n rows of x (f32 or bf16,

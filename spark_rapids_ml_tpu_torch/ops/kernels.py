@@ -33,11 +33,16 @@ PCA, LinearRegression, KMeans and LogisticRegression slices:
 
 The Gram family, LogisticRegression's weighted Grams included, lives in
 ``csrc/gram.cu``, the KMeans pair in ``csrc/kmeans.cu``, the
-nearest-neighbour kernels in ``csrc/knn.cu`` (design notes there). A
-wrapper takes its plain PyTorch
+nearest-neighbour kernels in ``csrc/knn.cu`` (design notes there).
+``gram.cu`` has two bodies: CUDA-core FFMA tiles, and for bfloat16
+``gram_colsum`` and ``linreg_stats`` with d % 8 == 0 a tensor-core body
+(wgmma fed by TMA over the upper-triangle tile pairs); :func:`gram_route`
+says which a launch takes and :func:`gram_plan` lays out the tensor-core
+launch. A wrapper takes its plain PyTorch
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises — there is no fallback. Each launch adds one to
-:data:`LAUNCHES`, so a run can show that it went through the kernels. The
+:data:`LAUNCHES` (and, for the two routed kernels, to :data:`ROUTES`), so
+a run can show that it went through the kernels. The
 plain versions repeat the kernels' arithmetic (f32 products of the input
 values, f32 sums; TF32 is off for the whole package, see ``__init__``;
 ties of the nearest centre to the lowest index; the selections of
@@ -48,7 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,7 +66,21 @@ LAUNCHES = {"gram": 0, "gram_colsum": 0, "linreg_stats": 0, "lloyd_step": 0,
             "assign_min_dist": 0, "newton_stats": 0, "softmax_curvature": 0,
             "dist_topk": 0, "probe_select": 0, "ivf_scan_select": 0}
 
+#: Launches of the two routed kernels by "<kernel>/<route>": "wgmma" is the
+#: tensor-core body of ``gram.cu``, "ffma" its CUDA-core tile body.
+ROUTES = {"gram_colsum/wgmma": 0, "gram_colsum/ffma": 0, "linreg_stats/wgmma": 0,
+          "linreg_stats/ffma": 0}
+
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+#: The tensor-core body's geometry (``csrc/gram.cu``): 128 x 128 tiles of G,
+#: 64-row stages, at most 65535 row splits (gridDim.y).
+TC_TILE, TC_STAGE_ROWS, TC_MAX_SPLITS = 128, 64, 65535
+#: Stages between promotions of the wgmma accumulator into the CUDA-core
+#: f32 accumulator (0: once, at the end of the split).
+TC_PROMOTE_STAGES = 4
+#: A block's fixed cost (prologue, epilogue), in stages, for choosing splits.
+TC_BLOCK_OVERHEAD_STAGES = 16
 
 
 def kernel_applicable(compute_dtype: torch.dtype, accum_dtype: torch.dtype) -> bool:
@@ -87,8 +106,9 @@ NORM_ROW_CHUNK = 1 << 16
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,6 +122,12 @@ def _lib() -> ctypes.CDLL:
     lib.srml_linreg_stats.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, ptr,
                                       ptr, ptr]
     lib.srml_linreg_stats.restype = i32
+    lib.srml_gram_colsum_tc.argtypes = [ptr, i64, i64, i64, ptr, i32, i64, i64, i32, ptr, ptr,
+                                        ptr, ptr]
+    lib.srml_gram_colsum_tc.restype = i32
+    lib.srml_linreg_stats_tc.argtypes = [ptr, ptr, ptr, i64, i64, ptr, i32, i64, i64, i32, ptr,
+                                         ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.srml_linreg_stats_tc.restype = i32
     lib.srml_newton_stats.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i64, i64, ptr, ptr, ptr,
                                       ptr, ptr, ptr, ptr, ptr]
     lib.srml_newton_stats.restype = i32
@@ -166,8 +192,101 @@ def _launch_args(x: torch.Tensor):
 
 
 def _raise_on(rc: int, kernel: str) -> None:
+    if rc == 1998:
+        raise RuntimeError(f"{kernel} kernel not launched: ptxas did not give the tensor-core "
+                           "body the registers its setmaxnreg balance assumes")
+    if rc == 1999:
+        raise RuntimeError(f"{kernel} kernel not launched: the driver has no "
+                           "cuTensorMapEncodeTiled")
+    if rc >= 1000:
+        raise RuntimeError(f"{kernel} kernel not launched: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {rc - 1000}")
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {rc}")
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core Gram body: route and launch plan
+# ---------------------------------------------------------------------------
+
+
+class GramPlan(NamedTuple):
+    """A tensor-core launch: ``pairs`` are the (i, j) tiles of G with
+    i <= j that blockIdx.x walks; blockIdx.y walks ``splits`` row splits of
+    ``split_rows`` rows each (a multiple of TC_STAGE_ROWS), which cover the
+    rows; the wgmma accumulator is promoted every ``promote`` stages."""
+
+    pairs: Tuple[Tuple[int, int], ...]
+    splits: int
+    split_rows: int
+    promote: int
+
+
+def tc_tile_pairs(d: int) -> Tuple[Tuple[int, int], ...]:
+    """The upper-triangle tile pairs (i <= j) of a (d, d) Gram in 128 x 128
+    tiles, row by row: t(t + 1)/2 of them for t = ceil(d / 128)."""
+    t = -(-d // TC_TILE)
+    return tuple((i, j) for i in range(t) for j in range(i, t))
+
+
+@functools.lru_cache(maxsize=256)
+def tc_row_splits(rows: int, n_pairs: int, sms: int) -> Tuple[int, int]:
+    """(splits, split_rows) for ``rows`` rows over ``n_pairs`` tile pairs
+    on ``sms`` SMs, one block per SM: the split count whose blocks finish
+    soonest, counting whole waves of (per-block stages + a block's fixed
+    cost). Zero rows take one empty split."""
+    stages = -(-rows // TC_STAGE_ROWS)
+    if stages == 0:
+        return 1, TC_STAGE_ROWS
+    best = None
+    for want in range(1, min(stages, TC_MAX_SPLITS) + 1):
+        per = -(-stages // want)
+        splits = -(-stages // per)  # the splits that hold rows
+        waves = -(-n_pairs * splits // sms)
+        cost = (waves * (per + TC_BLOCK_OVERHEAD_STAGES), splits)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    _, splits, per = best
+    return splits, per * TC_STAGE_ROWS
+
+
+def gram_plan(d: int, rows: int, sms: int) -> GramPlan:
+    """The tensor-core launch plan for ``rows`` rows of an (n, d) matrix
+    on a card of ``sms`` SMs."""
+    pairs = tc_tile_pairs(d)
+    splits, split_rows = tc_row_splits(max(int(rows), 0), len(pairs), sms)
+    return GramPlan(pairs, splits, split_rows, TC_PROMOTE_STAGES)
+
+
+def gram_route(x: torch.Tensor, *outs: torch.Tensor) -> str:
+    """Which body of ``gram.cu`` a ``gram_colsum``/``linreg_stats`` launch
+    on x takes: "wgmma" for bfloat16 with d % 8 == 0 (TMA needs a 16-byte
+    row stride), at least one row, and x and the outputs 16-byte aligned;
+    "ffma" otherwise (float32 stays in full f32 FFMA: TF32 is off)."""
+    n, d = x.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *outs))
+    return "wgmma" if x.dtype == torch.bfloat16 and d % 8 == 0 and n > 0 and aligned else "ffma"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _pairs_on(d: int, device: torch.device) -> torch.Tensor:
+    """The (n_pairs, 2) int32 tile pairs of :func:`tc_tile_pairs` on the
+    device, made once per (d, device)."""
+    return torch.tensor(tc_tile_pairs(d), dtype=torch.int32, device=device).contiguous()
+
+
+def _tc_plan_args(x: torch.Tensor, rows: int):
+    """The plan arguments of a tensor-core launch: pairs pointer, pair
+    count, splits, split rows, promotion interval."""
+    n, d = x.shape
+    plan = gram_plan(d, rows, _sm_count(x.device))
+    pairs = _pairs_on(d, x.device)
+    return pairs.data_ptr(), len(plan.pairs), plan.splits, plan.split_rows, plan.promote
 
 
 # ---------------------------------------------------------------------------
@@ -252,13 +371,23 @@ def gram_colsum(
         return gram_colsum_plain(x, n_valid, state)
     xp, is_bf16 = _launch_args(x)
     g, cs, c = _zero_state(d, x.device) if state is None else state
+    route = gram_route(x, g)
     with torch.cuda.device(x.device):
-        rc = _lib().srml_gram_colsum(
-            xp, is_bf16, n, d, int(n_valid), g.data_ptr(), cs.data_ptr(), c.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "wgmma":
+            rows = min(n, max(int(n_valid), 0))
+            rc = _lib().srml_gram_colsum_tc(
+                xp, n, d, int(n_valid), *_tc_plan_args(x, rows), g.data_ptr(), cs.data_ptr(),
+                c.data_ptr(), stream,
+            )
+        else:
+            rc = _lib().srml_gram_colsum(
+                xp, is_bf16, n, d, int(n_valid), g.data_ptr(), cs.data_ptr(), c.data_ptr(),
+                stream,
+            )
     _raise_on(rc, "gram_colsum")
     LAUNCHES["gram_colsum"] += 1
+    ROUTES[f"gram_colsum/{route}"] += 1
     return g, cs, c
 
 
@@ -323,14 +452,24 @@ def linreg_stats(
     out = _zero_linreg_state(d, x.device) if state is None else state
     xtx, xty, sx, sy, syy, cnt = out
     rows = torch.zeros((), dtype=torch.int64, device=x.device)
+    route = gram_route(x, xtx)
+    mp = None if mask is None else mask.data_ptr()
     with torch.cuda.device(x.device):
-        rc = _lib().srml_linreg_stats(
-            xp, is_bf16, None if mask is None else mask.data_ptr(), y.data_ptr(), n, d,
-            xtx.data_ptr(), xty.data_ptr(), sx.data_ptr(), sy.data_ptr(), syy.data_ptr(),
-            rows.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "wgmma":
+            rc = _lib().srml_linreg_stats_tc(
+                xp, mp, y.data_ptr(), n, d, *_tc_plan_args(x, n), xtx.data_ptr(),
+                xty.data_ptr(), sx.data_ptr(), sy.data_ptr(), syy.data_ptr(), rows.data_ptr(),
+                stream,
+            )
+        else:
+            rc = _lib().srml_linreg_stats(
+                xp, is_bf16, mp, y.data_ptr(), n, d, xtx.data_ptr(), xty.data_ptr(),
+                sx.data_ptr(), sy.data_ptr(), syy.data_ptr(), rows.data_ptr(), stream,
+            )
     _raise_on(rc, "linreg_stats")
     LAUNCHES["linreg_stats"] += 1
+    ROUTES[f"linreg_stats/{route}"] += 1
     cnt.add_(rows)  # one rounding of the exact integer count into the f32 state
     return out
 

@@ -163,6 +163,8 @@ def test_kernel_source_exports_the_bound_symbols():
     ("kmeans", "srml_assign_min_dist", 10),
     ("gram", "srml_newton_stats", 16),
     ("gram", "srml_softmax_curvature", 9),
+    ("gram", "srml_gram_colsum_tc", 13),
+    ("gram", "srml_linreg_stats_tc", 17),
 ])
 def test_new_kernel_sources_export_the_bound_symbols(source, name, n_args):
     """As above, for the LinearRegression and KMeans kernels; the count

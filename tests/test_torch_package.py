@@ -338,6 +338,41 @@ def test_kmeans_and_linreg_kernels_match_plain_versions_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d, n", [(8, 20001), (1000, 20001), (2048, 9001), (1000, 37)])
+def test_tensor_core_gram_matches_plain_versions_on_card(d, n):
+    """On a CUDA card: bf16 gram_colsum and linreg_stats with d % 8 == 0
+    take the tensor-core route and agree BITWISE with their plain versions
+    on small-integer inputs (every product and partial sum an integer
+    below 2^24), seeded non-symmetric integer states and a {0, 1} mask
+    included; d = 300 stays on the FFMA route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(d)
+
+    def ints(*shape, lo=-3, hi=4):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda").float()
+
+    x = ints(n, d).to(torch.bfloat16)
+    for n_valid in (0, min(1234, n), n + 5):
+        g0, cs0 = ints(d, d, lo=-50, hi=51), ints(d, lo=-50, hi=51)
+        before = kernels.ROUTES["gram_colsum/wgmma"]
+        got = kernels.gram_colsum(x, n_valid, (g0.clone(), cs0.clone(), torch.tensor(3.0, device="cuda")))
+        assert kernels.ROUTES["gram_colsum/wgmma"] == before + 1
+        want = kernels.gram_colsum_plain(x, n_valid, (g0, cs0, torch.tensor(3.0, device="cuda")))
+        assert all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    y = ints(n)
+    mask = (torch.rand((n,), generator=gen, device="cuda") < 0.7).float()
+    before = kernels.ROUTES["linreg_stats/wgmma"]
+    got = kernels.linreg_stats(x, y, mask)
+    assert kernels.ROUTES["linreg_stats/wgmma"] == before + 1
+    want = kernels.linreg_stats_plain(x, y, mask)
+    assert all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    before = kernels.ROUTES["gram_colsum/ffma"]
+    kernels.gram_colsum(ints(n, 300).to(torch.bfloat16), n)
+    assert kernels.ROUTES["gram_colsum/ffma"] == before + 1
+
+
+@pytest.mark.cuda
 def test_logreg_kernels_match_plain_versions_on_card():
     """On a CUDA card: newton_stats and softmax_curvature launch and agree
     with their plain versions at ragged shapes (f32 sums in another order:
