@@ -16,9 +16,14 @@ Phases, each of which exits non-zero on a failed check:
    ``linreg_stats`` (bf16, d % 8 == 0): bitwise on small-integer inputs at
    d in {8, 1000, 2048}, n ragged across stages and splits, n_valid in
    {0, 1, 1234, n, n + 5}, seeded non-symmetric states, a {0, 1} mask and
-   every promotion interval; then at tolerance on gaussian rows. d = 300
-   and float32 must take the FFMA route. ``python3 chip_smoke.py
-   --phase2`` stops after this phase.
+   every promotion interval; then at tolerance on gaussian rows. Then the
+   weighted tensor-core route: ``softmax_curvature`` bitwise on
+   small-integer rows with dyadic weights (p in {0, 1/4, 1/2, 1}) at d in
+   {8, 1000, 1024}, C in {1, 3, 32}, masked and not, every promotion
+   interval; ``newton_stats`` against an emulation of its own rounding
+   (1e-5) and its plain version (2⁻⁸ of Σ|terms| for the Hessian, 1e-5
+   for the rest). d = 300 and 13, and float32, must take the FFMA route.
+   ``python3 chip_smoke.py --phase2`` stops after this phase.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -54,21 +59,28 @@ Phases, each of which exits non-zero on a failed check:
 11. Binomial LogisticRegression at full width (bench_logreg.py: d=1024,
     511,943 = 2^19 − 12,345 bf16 rows, regParam 1e-4, Spark's maxIter 100
     and tol 1e-6) through ``LogisticRegression().fit``: ``newton_stats``
-    launches must equal ``summary.numIter``; coefficients against a
-    float64 Newton fit of the same bf16 rows on the card, and the float64
-    objective at the port's solution against the float64 optimum.
+    launches must equal ``summary.numIter``, all on the tensor-core route;
+    coefficients against a float64 Newton fit of the same bf16 rows on the
+    card, and the float64 objective at the port's solution against the
+    float64 optimum; a trace of a second fit.
 12. Multinomial LogisticRegression at full width (d=1024, C=32, 129,838
     float32 rows; regParam 1e-4, five MM-Newton passes at tol 0):
-    ``softmax_curvature`` launches must equal 5; the objective must not
-    increase from pass to pass; (W, b) against the same five passes in
-    float64 on the card (gradient on the float32 rows, curvature on the
-    bf16-rounded rows, as the fit); one pass's statistics at the final
-    iterate against float64.
+    ``softmax_curvature`` launches must equal 5, all on the tensor-core
+    route; the objective must not increase from pass to pass; (W, b)
+    against the same five passes in float64 on the card (gradient on the
+    float32 rows, curvature on the bf16-rounded rows with the operand
+    rounded as the fit's route rounds it; the distance to the passes with
+    the unrounded operand is printed); one pass's statistics at the final
+    iterate against float64; a trace of a second fit.
 13. LogisticRegressionModel.transform_matrix on 65,536 x 1024 rows, binary
     and multinomial: rawPrediction and probability against float64,
     predictions equal off near-ties; p50 latency of 21 runs.
 14. The LogisticRegression kernels timed at the phase 11 and 12 shapes, as
-    in phase 6, and the Newton solve of the (d + 1) system.
+    in phase 6: the Newton row pass and Gram pass apart (a trace), the
+    FFMA body on the same rows and the unweighted tensor-core
+    ``gram_colsum`` at the same shapes beside them, and each kernel's
+    promotion sweep against float64 of its own rounding; the Newton solve
+    of the (d + 1) system.
 15. The nearest-neighbour kernels against their plain versions at the
     path's shapes: ``dist_topk`` at the exact query's shape and at the IVF
     build's spill-candidate shape; ``probe_select`` and ``ivf_scan_select``
@@ -275,6 +287,18 @@ def check_equal(torch, got, want, tag) -> None:
              f"{float((got.double() - want.double()).abs().max()):.3e})")
 
 
+def routed(torch, kernels, kernel, route, call):
+    """call(), which must launch ``kernel`` once, on ``route``."""
+    before = dict(kernels.ROUTES)
+    out = call()
+    torch.cuda.synchronize()
+    key = f"{kernel}/{route}"
+    check(kernels.ROUTES[key] == before[key] + 1
+          and sum(kernels.ROUTES.values()) == sum(before.values()) + 1,
+          f"{kernel} took the {route} route")
+    return out
+
+
 def phase_gram_tc(torch, kernels) -> None:
     """The tensor-core route against the plain versions. Small-integer bf16
     rows and integer seeds make every product and partial sum an integer
@@ -286,16 +310,6 @@ def phase_gram_tc(torch, kernels) -> None:
     def ints(*shape, lo=-3, hi=4):
         return torch.randint(lo, hi, shape, generator=gen, device=DEV).float()
 
-    def routed(kernel, route, call):
-        before = dict(kernels.ROUTES)
-        out = call()
-        torch.cuda.synchronize()
-        key = f"{kernel}/{route}"
-        check(kernels.ROUTES[key] == before[key] + 1
-              and sum(kernels.ROUTES.values()) == sum(before.values()) + 1,
-              f"{kernel} took the {route} route")
-        return out
-
     default = kernels.TC_PROMOTE_STAGES
     # n ragged across the 64-row stage and (at d = 8, 1000) several splits.
     for d, n in ((8, 20001), (1000, 20001), (2048, 9001), (1000, 37)):
@@ -305,7 +319,7 @@ def phase_gram_tc(torch, kernels) -> None:
                 g0, cs0 = ints(d, d, lo=-50, hi=51), ints(d, lo=-50, hi=51)
                 st_k = (g0.clone(), cs0.clone(), torch.tensor(37.0, device=DEV)) if seeded else None
                 st_p = (g0.clone(), cs0.clone(), torch.tensor(37.0, device=DEV)) if seeded else None
-                gk, csk, ck = routed("gram_colsum", "wgmma",
+                gk, csk, ck = routed(torch, kernels, "gram_colsum", "wgmma",
                                      lambda: kernels.gram_colsum(x, n_valid, st_k))
                 gp, csp, cp = kernels.gram_colsum_plain(x, n_valid, st_p)
                 tag = f"gram_colsum wgmma bf16 ints n={n} d={d} n_valid={n_valid} seeded={seeded}"
@@ -322,7 +336,8 @@ def phase_gram_tc(torch, kernels) -> None:
                 st.append(torch.tensor(37.0, device=DEV))
                 sk = [t.clone() for t in st] if seeded else None
                 sp = [t.clone() for t in st] if seeded else None
-                out_k = routed("linreg_stats", "wgmma", lambda: kernels.linreg_stats(x, y, mask, sk))
+                out_k = routed(torch, kernels, "linreg_stats", "wgmma",
+                               lambda: kernels.linreg_stats(x, y, mask, sk))
                 out_p = kernels.linreg_stats_plain(x, y, mask, sp)
                 tag = f"linreg_stats wgmma bf16 ints n={n} d={d} mask={masked} seeded={seeded}"
                 for name, a, b in zip(("xtx", "xty", "sx", "sy", "syy", "n"), out_k, out_p):
@@ -340,17 +355,118 @@ def phase_gram_tc(torch, kernels) -> None:
     for d in (1000, 2048):
         x = torch.randn((20001, d), generator=gen, device=DEV).to(torch.bfloat16)
         gscale = float((x.float() ** 2).sum(0).max())
-        gk = routed("gram_colsum", "wgmma", lambda: kernels.gram_colsum(x, 20001)[0])
+        gk = routed(torch, kernels, "gram_colsum", "wgmma",
+                    lambda: kernels.gram_colsum(x, 20001)[0])
         err = rel_err(gk, kernels.gram_colsum_plain(x, 20001)[0], gscale)
         # Tolerance: 1e-5 of the largest Σx², the FFMA checks' tolerance.
         check(err <= 1e-5, f"gram_colsum wgmma bf16 gaussian n=20001 d={d}: rel err {err:.1e} "
                            f"(tol 1e-5)")
     # The FFMA route: bf16 at d = 300 (a 600-byte row), and float32.
     x = torch.randn((999, 300), generator=gen, device=DEV)
-    routed("gram_colsum", "ffma", lambda: kernels.gram_colsum(x.to(torch.bfloat16), 999))
-    routed("linreg_stats", "ffma",
+    routed(torch, kernels, "gram_colsum", "ffma",
+           lambda: kernels.gram_colsum(x.to(torch.bfloat16), 999))
+    routed(torch, kernels, "linreg_stats", "ffma",
            lambda: kernels.linreg_stats(x.to(torch.bfloat16), x[:, 0].contiguous()))
-    routed("gram_colsum", "ffma", lambda: kernels.gram_colsum(x[:, :256].contiguous(), 999))
+    routed(torch, kernels, "gram_colsum", "ffma",
+           lambda: kernels.gram_colsum(x[:, :256].contiguous(), 999))
+
+
+#: Bound of the tensor-core route's Hessian/curvature against the plain
+#: (f32-weighted) version, over each output's largest Σ|terms|: each term
+#: is rounded twice (bf16(wt), then bf16(x·bf16(wt))), at most 2⁻⁸ of it
+#: each, and the roundings of many rows are independent, so their sum stays
+#: far below 2⁻⁸ of Σ|terms| (stated before the first chip run).
+ROUNDING_BOUND = 2.0 ** -8
+
+
+def syrk_emulation(torch, kernels, x, wt, xd=None):
+    """The tensor-core route's weighted Gram of bf16 rows x, bf16(x·bf16(wt))ᵀx,
+    summed in xd's dtype (xd: x in that dtype; f32 when None) over the
+    upper 128-tile pairs, each lower tile the transpose of its upper one:
+    G[j, i] = Σ bf16(x_j·wt)·x_i, as the SYRK epilogue writes it (the full
+    product would round x_i·wt there instead)."""
+    xd = x.float() if xd is None else xd
+    h = (x * wt.to(torch.bfloat16)[:, None]).to(xd.dtype).T @ xd
+    t = torch.arange(x.shape[1], device=h.device) // kernels.TC_TILE
+    return torch.where(t[:, None] > t[None, :], h.T, h)
+
+
+def newton_checks(torch, kernels, x, y, mask, w, b, tag, tol):
+    """newton_stats on the tensor-core route against (a) an emulation of
+    its own rounding, bf16(x·bf16(wgt)) from the row pass's own weights
+    summed in f32, at ``tol`` of the largest Σ|terms|, and (b) its plain
+    version: the Hessian within ROUNDING_BOUND of its Σ|terms|, the
+    gradient and borders (f32 on both) at ``tol``. Returns the Hessian's
+    error against the emulation over the largest Σ|terms|."""
+    n, d = x.shape
+    out = routed(torch, kernels, "newton_stats", "wgmma",
+                 lambda: kernels.newton_stats_launch(x, y, mask, w, b))
+    ref = kernels.newton_stats_plain(x, y, mask, w, b)
+    xf = x.float()
+    wgt = out[6]
+    # The largest Σ|terms| is a diagonal entry's (Cauchy–Schwarz): Σ wgt·x².
+    s_terms = float((xf * xf * wgt[:, None]).sum(0).max())
+    e_emul = rel_err(out[2], syrk_emulation(torch, kernels, x, wgt), s_terms)
+    e_plain = rel_err(out[2], ref[2], s_terms)
+    m = torch.ones((n,), device=DEV) if mask is None else mask
+    xa = (xf.abs() * m[:, None]).sum(0).max()
+    scales = (float(xa), float(m.sum()), 0.25 * float(xa), 0.25 * float(m.sum()))
+    errs = [rel_err(a, c, max(s, 1.0)) for a, c, s in zip(out[:2] + out[3:5], ref[:2] + ref[3:],
+                                                          scales)]
+    check(e_emul <= tol and e_plain <= ROUNDING_BOUND and all(e <= tol for e in errs),
+          f"{tag}: Hessian vs its rounding emulated {e_emul:.1e} (tol {tol:.0e}), vs plain "
+          f"{e_plain:.1e} (tol 2^-8); Xᵀr, Σr, Xᵀwgt, Σwgt vs plain "
+          + ", ".join(f"{e:.1e}" for e in errs) + f" (tol {tol:.0e})")
+    return e_emul
+
+
+def phase_weighted_tc(torch, kernels) -> None:
+    """The tensor-core route of softmax_curvature and newton_stats (bf16,
+    d % 8 == 0) against their plain versions. softmax_curvature bitwise:
+    small-integer rows and dyadic weights p in {0, 1/4, 1/2, 1} make
+    bf16(x·bf16(p)) exact and every product and partial sum a multiple of
+    1/4 below 2^22, so a wrong descriptor, swizzle, weighted panel, class
+    offset or border shows as a differing entry. newton_stats (sigmoid
+    weights) at tolerance, through ``newton_checks``."""
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    quarters = torch.tensor([0.0, 0.25, 0.5, 1.0], device=DEV)
+    default = kernels.TC_PROMOTE_STAGES
+    # n ragged across the 64-row stage and (at d = 8) several splits.
+    for d, n in ((8, 20001), (1000, 20001), (1024, 9001), (1024, 37)):
+        x = torch.randint(-3, 4, (n, d), generator=gen, device=DEV).to(torch.bfloat16)
+        for c in (1, 3, 32):
+            for masked in (False, True):
+                p = quarters[torch.randint(0, 4, (n, c), generator=gen, device=DEV)]
+                if masked:  # masked rows: p = 0 in every class
+                    p = p * (torch.rand((n, 1), generator=gen, device=DEV) < 0.7).float()
+                hk, bk = routed(torch, kernels, "softmax_curvature", "wgmma",
+                                lambda: kernels.softmax_curvature(x, p))
+                hp, bp = kernels.softmax_curvature_plain(x, p)
+                tag = f"softmax_curvature wgmma bf16 ints n={n} d={d} C={c} mask={masked}"
+                check_equal(torch, hk, hp, tag + " Xᵀdiag(p_c)X")
+                check_equal(torch, bk, bp, tag + " Xᵀp_c")
+                print(f"ok    {tag}: both outputs bitwise", flush=True)
+        p = quarters[torch.randint(0, 4, (n, 3), generator=gen, device=DEV)]
+        want = kernels.softmax_curvature_plain(x, p)[0]
+        for promote in PROMOTE_SWEEP:
+            kernels.TC_PROMOTE_STAGES = promote
+            try:
+                ok = torch.equal(kernels.softmax_curvature(x, p)[0], want)
+            finally:
+                kernels.TC_PROMOTE_STAGES = default
+            check(ok, f"softmax_curvature wgmma n={n} d={d} C=3 promotion every {promote} "
+                      f"stages: bitwise")
+    # Tolerance: f32 sums in another order over <= 20,001 rows, 1e-5 of
+    # each output's largest Σ|terms| (the FFMA checks' tolerance).
+    for d, n in ((8, 20001), (1000, 20001), (1024, 20001), (1024, 37)):
+        x = torch.randn((n, d), generator=gen, device=DEV).to(torch.bfloat16)
+        y = (torch.rand((n,), generator=gen, device=DEV) < 0.5).float()
+        w = torch.randn((d,), generator=gen, device=DEV) / d ** 0.5
+        b = torch.tensor(0.3, device=DEV)
+        for masked in (False, True):
+            mask = (torch.rand((n,), generator=gen, device=DEV) < 0.7).float() if masked else None
+            newton_checks(torch, kernels, x, y, mask, w, b,
+                          f"newton_stats wgmma bf16 n={n} d={d} mask={masked}", 1e-5)
 
 
 def margin_data(torch, gen, n, d, k, dtype):
@@ -712,7 +828,9 @@ def phase_logreg_kernels(torch, kernels) -> None:
             for masked in (False, True):
                 mask = (torch.rand((n,), generator=gen, device=DEV) < 0.7).float() if masked else None
                 m = torch.ones((n,), device=DEV) if mask is None else mask
-                out_k = kernels.newton_stats(x, y, mask, w, b)
+                # d = 300 and 13 are not multiples of 8: the FFMA route.
+                out_k = routed(torch, kernels, "newton_stats", "ffma",
+                               lambda: kernels.newton_stats(x, y, mask, w, b))
                 out_p = kernels.newton_stats_plain(x, y, mask, w, b)
                 torch.cuda.synchronize()
                 # Tolerance: f32 sums in another order over <= 20,001 rows,
@@ -729,7 +847,8 @@ def phase_logreg_kernels(torch, kernels) -> None:
                       + ", ".join(f"{k} {e:.1e}" for k, e in zip(names, errs)))
             for c in (1, 3, 32):
                 p = torch.softmax(torch.randn((n, c), generator=gen, device=DEV), dim=1)
-                hk, bk = kernels.softmax_curvature(x, p)
+                hk, bk = routed(torch, kernels, "softmax_curvature", "ffma",
+                                lambda: kernels.softmax_curvature(x, p))
                 hp, bp = kernels.softmax_curvature_plain(x, p)
                 torch.cuda.synchronize()
                 # Tolerance: as above; p_c <= 1, so Σx² and Σ|x| bound the terms.
@@ -787,12 +906,19 @@ def phase_logreg_binary(torch, kernels, lg, LogisticRegression):
     model = LogisticRegression().setRegParam(LG_REG).fit({"features": x, "label": y})
     fit_s = time.perf_counter() - t0  # the coefficients are on the host: synced
     launches = dict(kernels.LAUNCHES)
+    routes = dict(kernels.ROUTES)
     it = model.summary.numIter
     check(launches["newton_stats"] == it,
           f"newton_stats launches {launches['newton_stats']} == numIter {it}")
+    check(routes["newton_stats/wgmma"] == it and routes["newton_stats/ffma"] == 0,
+          f"every newton_stats launch of the fit took the tensor-core route: "
+          f"{routes['newton_stats/wgmma']} wgmma, {routes['newton_stats/ffma']} ffma")
     print(f"logreg binary fit: {fit_s:.3f} s, {it} Newton iterations, "
           f"{LG_ROWS * it / fit_s:.1f} row-iterations/s (host clock, ends on a host read)",
           flush=True)
+    device_breakdown(torch, "logreg binary fit trace (a second fit of the same rows)",
+                     lambda: LogisticRegression().setRegParam(LG_REG).fit(
+                         {"features": x, "label": y}), top=6)
     x64, y64 = x.double(), y.double()
     w_ref, b_ref, ref_it = binary_reference(torch, x64, y64, LG_REG)
     w = torch.as_tensor(model.coefficients, device=DEV)
@@ -817,10 +943,13 @@ def phase_logreg_binary(torch, kernels, lg, LogisticRegression):
     return x, y, model, launches
 
 
-def softmax_reference(torch, x64, xh64, yi, reg, passes):
+def softmax_reference(torch, kernels, x64, xh, xh64, yi, reg, passes, rounded):
     """The fit's MM-Newton passes in float64 on the card: logits and
-    gradient on x64, per-class curvature on xh64, bordered per-class
-    systems solved directly."""
+    gradient on x64, per-class curvature on the bf16 rows xh (xh64 in
+    float64) — with ``rounded``, of the operand the tensor-core route
+    rounds, bf16(xh·bf16(p_c)), its lower tiles mirrored as the SYRK
+    writes them; else of xh·p_c — its border xhᵀp_c, and bordered
+    per-class systems solved directly."""
     n, d = x64.shape
     c = int(yi.max()) + 1
     W = torch.zeros((d, c), dtype=torch.float64, device=DEV)
@@ -832,9 +961,11 @@ def softmax_reference(torch, x64, xh64, yi, reg, passes):
         gb = (p - onehot).sum(0) / n
         h = torch.zeros((c, d + 1, d + 1), dtype=torch.float64, device=DEV)
         for k in range(c):
-            xw = xh64 * p[:, k:k + 1]
-            h[k, :d, :d] = xw.T @ xh64 / n
-            h[k, :d, d] = h[k, d, :d] = xw.sum(0) / n
+            if rounded:
+                h[k, :d, :d] = syrk_emulation(torch, kernels, xh, p[:, k], xh64) / n
+            else:
+                h[k, :d, :d] = (xh64 * p[:, k:k + 1]).T @ xh64 / n
+            h[k, :d, d] = h[k, d, :d] = xh64.T @ p[:, k] / n
         h[:, :d, :d] += reg * torch.eye(d, dtype=torch.float64, device=DEV)
         h[:, d, d] = p.sum(0) / n
         step = torch.linalg.solve(h, torch.cat([gw, gb[:, None]], dim=1))
@@ -860,18 +991,29 @@ def phase_logreg_multinomial(torch, kernels, lg, LogisticRegression, config):
              .fit({"features": x, "label": y}))
     fit_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    routes = dict(kernels.ROUTES)
     check(launches["softmax_curvature"] == MN_PASSES,
           f"softmax_curvature launches {launches['softmax_curvature']} == passes {MN_PASSES}")
+    check(routes["softmax_curvature/wgmma"] == MN_PASSES and routes["softmax_curvature/ffma"] == 0,
+          f"every softmax_curvature launch of the fit took the tensor-core route: "
+          f"{routes['softmax_curvature/wgmma']} wgmma, {routes['softmax_curvature/ffma']} ffma")
     hist = model.summary.objectiveHistory
     print(f"logreg multinomial fit: {fit_s:.3f} s, {model.summary.numIter} passes, "
           f"{MN_ROWS * model.summary.numIter / fit_s:.1f} row-iterations/s; objective per "
           f"pass {', '.join(f'{v:.8f}' for v in hist)}", flush=True)
     check(len(hist) == MN_PASSES and all(b <= a * (1 + 1e-6) for a, b in zip(hist, hist[1:])),
           "multinomial objective does not increase from pass to pass (MM descent, 1e-6 rel)")
+    device_breakdown(torch, "logreg multinomial fit trace (a second fit of the same rows)",
+                     lambda: LogisticRegression().setRegParam(LG_REG).setMaxIter(MN_PASSES)
+                     .setTol(0.0).fit({"features": x, "label": y}), top=8)
     xh = x.to(config.compute_dtype(DEV))
     x64, xh64 = x.double(), xh.double()
     yi = y.long()
-    W_ref, b_ref = softmax_reference(torch, x64, xh64, yi, LG_REG, MN_PASSES)
+    # The reference rounds the curvature operand as the fit's tensor-core
+    # route does (bf16(xh·bf16(p_c)), lower tiles mirrored); the same
+    # passes with the unrounded operand show what that rounding moves.
+    W_ref, b_ref = softmax_reference(torch, kernels, x64, xh, xh64, yi, LG_REG, MN_PASSES, True)
+    W_u, b_u = softmax_reference(torch, kernels, x64, xh, xh64, yi, LG_REG, MN_PASSES, False)
     W = torch.as_tensor(model.coefficients.T, device=DEV)
     b = torch.as_tensor(model.intercept, device=DEV)
     scale = float(W_ref.abs().max())
@@ -883,6 +1025,11 @@ def phase_logreg_multinomial(torch, kernels, lg, LogisticRegression, config):
     check(err_w <= 3e-5 and err_b <= 1e-3,
           f"multinomial (W, b) vs the same {MN_PASSES} passes in float64: max err W "
           f"{err_w:.3e} (tol 3e-5), b {err_b:.3e} (tol 1e-3) of max|W| {scale:.4f}")
+    print(f"multinomial (W, b) vs the same passes with the unrounded curvature operand: max "
+          f"err W {float((W - W_u).abs().max()) / scale:.3e}, b "
+          f"{float((b - b_u).abs().max()) / scale:.3e} of max|W|; the two float64 references "
+          f"differ by {float((W_ref - W_u).abs().max()) / scale:.3e} in W", flush=True)
+    del W_u, b_u
     # One pass's statistics at the final iterate against float64.
     Wf, bf = W.float(), b.float()
     state = lg.stream_softmax_zero_state(LG_D, MN_CLASSES, torch.float32, DEV)
@@ -893,23 +1040,28 @@ def phase_logreg_multinomial(torch, kernels, lg, LogisticRegression, config):
     e_g_max = rel_err(state[0], gw64, float(gw64.abs().max()))
     e_g = rel_err(state[0], gw64, float((x64.abs().T @ r64.abs()).max()))
     del r64
-    hw_err, hw_max = 0.0, 0.0
+    hw_err, hw_err_u, hw_max = 0.0, 0.0, 0.0
     for k in range(MN_CLASSES):
-        hk = (xh64 * p64[:, k:k + 1]).T @ xh64
+        hk = syrk_emulation(torch, kernels, xh, p64[:, k], xh64)
         hw_err = max(hw_err, float((state[2][k].double() - hk).abs().max()))
+        hk = (xh64 * p64[:, k:k + 1]).T @ xh64
+        hw_err_u = max(hw_err_u, float((state[2][k].double() - hk).abs().max()))
         hw_max = max(hw_max, float(hk.abs().max()))
     e_h = hw_err / hw_max
     # Tolerances: the gradient within 1e-5 of its largest absolute sum of
     # terms Σ|x||r| (the f32 logits carry about 1e-7·Σ|x||W| into every r,
     # and that sums over the rows, so the largest entry, a sum with
     # cancellation, is no scale for it; the error over it is printed); the
-    # curvature within 1e-4 of its largest entry.
+    # curvature within 1e-4 of its largest entry, against float64 of the
+    # rounded operand (against the unrounded one, printed, the rounding's
+    # own 2⁻⁸/√n-sized difference adds).
     check(e_g <= 1e-5 and e_h <= 1e-4,
           f"multinomial pass statistics at the final iterate vs float64: gradient {e_g:.3e} "
           f"of max Σ|x||r| (tol 1e-5; {e_g_max:.3e} of its largest entry), curvature "
-          f"{e_h:.3e} of its largest entry (tol 1e-4)")
+          f"{e_h:.3e} of its largest entry (tol 1e-4; {hw_err_u / hw_max:.3e} against the "
+          f"unrounded operand)")
     p = torch.softmax(x @ Wf + bf, dim=1)
-    del x64, xh64, state
+    del x64, xh64, state, hk
     return x, xh, y, model, p, launches
 
 
@@ -953,31 +1105,107 @@ def check_transform(torch, model, xq, cd, tag) -> float:
     return lat[len(lat) // 2]
 
 
+def kernel_times(torch, fn, reps) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by kernel name,
+    from a torch.profiler trace of ``reps`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
+def ms_of(times: dict, name: str) -> str:
+    """The summed ms of the kernels whose names hold ``name``, or "not
+    measured" when the trace has none."""
+    hits = [t for k, t in times.items() if name in k]
+    return f"{sum(hits):.3f} ms" if hits else "not measured"
+
+
+def ffma_newton(torch, kernels, x, y, w, b):
+    """newton_stats through the FFMA body's entry point on bf16 rows (the
+    wrapper routes them to the tensor cores): the earlier design, timed."""
+    n, d = x.shape
+    z = lambda *shape: torch.zeros(shape, device=DEV)  # noqa: E731
+    outs = (z(n), z(n), z(d), z(), z(d, d), z(d), z())
+    rc = kernels._lib().srml_newton_stats(
+        x.data_ptr(), 1, y.data_ptr(), None, w.data_ptr(), b.data_ptr(), n, d,
+        *(t.data_ptr() for t in outs), torch.cuda.current_stream().cuda_stream)
+    if rc:
+        fail(f"FFMA newton_stats launch rc {rc}")
+
+
+def ffma_softmax(torch, kernels, x, p):
+    """softmax_curvature through the FFMA body's entry point on bf16 rows."""
+    n, d = x.shape
+    c = p.shape[1]
+    hw = torch.zeros((c, d, d), device=DEV)
+    hwb = torch.zeros((c, d), device=DEV)
+    rc = kernels._lib().srml_softmax_curvature(x.data_ptr(), 1, p.data_ptr(), n, d, c,
+                                                hw.data_ptr(), hwb.data_ptr(),
+                                                torch.cuda.current_stream().cuda_stream)
+    if rc:
+        fail(f"FFMA softmax_curvature launch rc {rc}")
+
+
 def phase_logreg_timings(torch, kernels, solve_newton_system, xl, yl, model_b, lg_launches,
                          xmh, pm, mn_launches):
-    """Phase 14: the two kernel rows at the phase 11 and 12 shapes, and the
-    time of the Newton solve."""
+    """Phase 14: the two kernel rows at the phase 11 and 12 shapes (the
+    Newton row pass and Gram pass apart, each kernel's promotion sweep
+    against float64 of its own rounding), and the time of the Newton
+    solve."""
     rows = []
     n, d = xl.shape
     w = torch.as_tensor(model_b.coefficients, device=DEV).float()
     b = torch.tensor(float(model_b.intercept), device=DEV)
-    ms = time_ms(lambda: kernels.newton_stats(xl, yl, None, w, b), 3)
+    ms = time_ms(lambda: kernels.newton_stats(xl, yl, None, w, b), 10)
     plain_ms = time_ms(lambda: kernels.newton_stats_plain(xl, yl, None, w, b), 3)
-    out_k = kernels.newton_stats(xl, yl, None, w, b)
+    split = kernel_times(torch, lambda: kernels.newton_stats(xl, yl, None, w, b), 10)
+    out_k = kernels.newton_stats_launch(xl, yl, None, w, b)
     out_p = kernels.newton_stats_plain(xl, yl, None, w, b)
     # Yardstick: no PyTorch call computes the pass; the Hessian product
     # alone, (x·wgt)ᵀx in bf16 (tensor cores), is timed.
-    p1 = torch.sigmoid(xl.float() @ w + b)
-    xw = (xl.float() * torch.clamp(p1 * (1 - p1), min=1e-10)[:, None]).to(torch.bfloat16)
+    xw = (xl * out_k[6].to(torch.bfloat16)[:, None])
     lib_ms = time_ms(lambda: torch.matmul(xw.T, xl), 5)
-    del xw, p1
-    hscale = float(out_p[2].diagonal().max())
-    err = rel_err(out_k[2], out_p[2], hscale)
+    del xw
+    hscale = float(out_p[2].diagonal().max())  # the largest Σ|terms| (Cauchy–Schwarz)
+    err = rel_err(out_k[2], syrk_emulation(torch, kernels, xl, out_k[6]), hscale)
+    err_p = rel_err(out_k[2], out_p[2], hscale)
     gerr = rel_err(out_k[0], out_p[0], float(xl.float().abs().sum(0).max()))
-    # Tolerance: f32 sums over 511,943 rows in another order, 1e-4 relative.
-    check(err <= 1e-4 and gerr <= 1e-4,
-          f"newton_stats at {n} x {d} bf16: Hessian rel err {err:.2e}, gradient {gerr:.2e} "
-          f"(tol 1e-4)")
+    # Tolerance: f32 sums over 511,943 rows in another order, 1e-4
+    # relative, against the emulation of the route's rounding; the plain
+    # (f32-weighted) version within the rounding bound.
+    check(err <= 1e-4 and err_p <= ROUNDING_BOUND and gerr <= 1e-4,
+          f"newton_stats at {n} x {d} bf16: Hessian vs its rounding emulated {err:.2e} (tol "
+          f"1e-4), vs plain {err_p:.2e} (tol 2^-8), gradient {gerr:.2e} (tol 1e-4)")
+    # The row pass reads x, y and w and writes r and wgt: its byte bound.
+    row_bound = (n * d * 2 + n * 12 + d * 4) / PEAK_BYTES_PER_S * 1e3
+    # Beside it, in this call: the FFMA body on the same bf16 rows (the
+    # route before the tensor-core redesign) and the unweighted tensor-core
+    # body at the same shape (what the weighting costs).
+    ffma_ms = time_ms(lambda: ffma_newton(torch, kernels, xl, yl, w, b), 3)
+    colsum_ms = time_ms(lambda: kernels.gram_colsum(xl, n), 10)
+    print(f"newton_stats at {n} x {d}: {ms:.3f} ms a call; trace: row pass "
+          f"{ms_of(split, 'newton_row_kernel')} (byte bound {row_bound:.3f} ms), Gram pass "
+          f"{ms_of(split, 'gram_tc_kernel')} (0.604 TFLOP of wgmma); the FFMA body on the same "
+          f"rows {ffma_ms:.3f} ms; the unweighted gram_colsum at this shape {colsum_ms:.3f} ms; "
+          f"the plain version {plain_ms:.3f} ms", flush=True)
+    x64 = xl.double()
+    h64 = syrk_emulation(torch, kernels, xl, out_k[6], x64)
+    del x64
+    promote_sweep(torch, kernels, lambda: kernels.newton_stats(xl, yl, None, w, b),
+                  lambda: kernels.newton_stats(xl, yl, None, w, b)[2], h64, hscale,
+                  f"newton_stats {n} x {d} (Hessian vs float64 of its rounding)")
+    del h64
     # Bound: x, y, w and b read once, the five outputs written once; the
     # Hessian is symmetric, so nd(d+1) operations, plus 6nd for x·w, Xᵀr and
     # Xᵀwgt.
@@ -1008,20 +1236,39 @@ def phase_logreg_timings(torch, kernels, solve_newton_system, xl, yl, model_b, l
 
     n, d = xmh.shape
     c = pm.shape[1]
-    ms = time_ms(lambda: kernels.softmax_curvature(xmh, pm), 2)
+    ms = time_ms(lambda: kernels.softmax_curvature(xmh, pm), 10)
     plain_ms = time_ms(lambda: kernels.softmax_curvature_plain(xmh, pm), 2)
     hk, bk = kernels.softmax_curvature(xmh, pm)
     hp, bp = kernels.softmax_curvature_plain(xmh, pm)
-    err = rel_err(hk, hp, float(hp.diagonal(dim1=1, dim2=2).max()))
+    hscale = float(hp.diagonal(dim1=1, dim2=2).max())
+    err = max(rel_err(hk[k], syrk_emulation(torch, kernels, xmh, pm[:, k]), hscale)
+              for k in range(c))
+    err_p = rel_err(hk, hp, hscale)
     berr = rel_err(bk, bp, float(xmh.float().abs().sum(0).max()))
-    # Tolerance: f32 sums over 129,838 rows in another order, 1e-4 relative.
-    check(err <= 1e-4 and berr <= 1e-4,
-          f"softmax_curvature at {n} x {d} bf16, C={c}: curvature rel err {err:.2e}, border "
-          f"{berr:.2e} (tol 1e-4)")
+    # Tolerance: f32 sums over 129,838 rows in another order, 1e-4
+    # relative, against the emulation of the route's rounding; the plain
+    # version within the rounding bound.
+    check(err <= 1e-4 and err_p <= ROUNDING_BOUND and berr <= 1e-4,
+          f"softmax_curvature at {n} x {d} bf16, C={c}: curvature vs its rounding emulated "
+          f"{err:.2e} (tol 1e-4), vs plain {err_p:.2e} (tol 2^-8), border {berr:.2e} (tol 1e-4)")
+    max_err = float((hk - hp).abs().max())
+    del hp, bp
+    xm64 = xmh.double()
+    h64 = torch.stack([syrk_emulation(torch, kernels, xmh, pm[:, k], xm64) for k in range(c)])
+    del xm64
+    promote_sweep(torch, kernels, lambda: kernels.softmax_curvature(xmh, pm),
+                  lambda: kernels.softmax_curvature(xmh, pm)[0], h64, hscale,
+                  f"softmax_curvature {n} x {d} C={c} (curvature vs float64 of its rounding)")
+    del h64
+    ffma_ms = time_ms(lambda: ffma_softmax(torch, kernels, xmh, pm), 2)
+    colsum_ms = time_ms(lambda: kernels.gram_colsum(xmh, n), 10)
+    print(f"softmax_curvature at {n} x {d}, C={c}: {ms:.3f} ms a call; the FFMA body on the "
+          f"same rows {ffma_ms:.3f} ms; {c} x the unweighted gram_colsum at this shape "
+          f"{c * colsum_ms:.3f} ms", flush=True)
     # Yardstick: C Hessian products alone, (x·p_c)ᵀx in bf16, timed as C
     # products of one weighted copy (the same work per product).
     xw = (xmh.float() * pm[:, :1]).to(torch.bfloat16)
-    lib_ms = time_ms(lambda: [torch.matmul(xw.T, xmh) for _ in range(c)], 2)
+    lib_ms = time_ms(lambda: [torch.matmul(xw.T, xmh) for _ in range(c)], 3)
     del xw
     # Bound: x and p read once, the (C, d, d) and (C, d) outputs written
     # once; C·nd(d+1) operations for the symmetric blocks and 2Cnd for Xᵀp_c.
@@ -1031,7 +1278,7 @@ def phase_logreg_timings(torch, kernels, solve_newton_system, xl, yl, model_b, l
         "name": "softmax_curvature", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES["softmax_curvature"],
         "launches": mn_launches["softmax_curvature"],
-        "max_abs_err": float((hk - hp).abs().max()),
+        "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms,
     })
@@ -1400,6 +1647,7 @@ def main() -> None:
 
     # -- 2. kernels against their plain versions -----------------------------
     phase_gram_tc(torch, kernels)
+    phase_weighted_tc(torch, kernels)
     phase_kernels(torch, kernels)
     phase_new_kernels(torch, kernels)
     phase_logreg_kernels(torch, kernels)
@@ -1688,8 +1936,8 @@ def main() -> None:
     # -- 15.-18. nearest neighbours ------------------------------------------------
     table += phase_knn(torch, kernels, config)
     for row in table:
-        row["design"] = ("wgmma+tma syrk" if row["name"] in ("gram_colsum", "linreg_stats")
-                         else "ffma tiles")
+        row["design"] = ("wgmma+tma syrk" if row["name"] in (
+            "gram_colsum", "linreg_stats", "newton_stats", "softmax_curvature") else "ffma tiles")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
               f"library {row['library_ms']:.3f}, bound {row['bound_ms']:.3f} by "
               f"{row['bound_by']}), {row['launches']} launches on the main path")

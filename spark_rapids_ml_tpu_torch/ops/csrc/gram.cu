@@ -7,8 +7,8 @@
 // Replaces spark_rapids_ml_tpu/ops/pallas_kernels.py:
 //   gram_pallas              (:78)   -> srml_gram
 //   gram_colsum_pallas       (:173)  -> srml_gram_colsum, srml_gram_colsum_tc
-//   newton_stats_pallas      (:451)  -> srml_newton_stats
-//   softmax_curvature_pallas (:1135) -> srml_softmax_curvature
+//   newton_stats_pallas      (:451)  -> srml_newton_stats, srml_newton_stats_tc
+//   softmax_curvature_pallas (:1135) -> srml_softmax_curvature, srml_softmax_curvature_tc
 //   linreg_stats_pallas      (:1210) -> srml_linreg_stats, srml_linreg_stats_tc
 //
 // What the Pallas kernels compute: a (d, d) f32 accumulator kept in VMEM for
@@ -44,47 +44,57 @@
 // stride C): blockIdx.z = split·C + class, each class with its own (d, d)
 // and (d,) outputs.
 //
-// * srml_newton_stats is two launches. A row pass (one warp per row, the
-//   dot product reduced with __shfl_xor_sync) computes z = x·w + b,
+// * srml_newton_stats(_tc) is two launches. A row pass (one warp per row,
+//   the dot product reduced with __shfl_xor_sync) computes z = x·w + b,
 //   p = σ(z), r = (p − y)·m and wgt = max(p(1 − p), 1e-10)·m into (n,) f32
 //   scratch and adds Σr and Σwgt; then the kWeighted Gram pass with
 //   wt = wgt and the residual r gives Xᵀdiag(wgt)X, Xᵀwgt and Xᵀr. The
-//   Pallas kernel reads x once per iteration; this reads it twice. At the
-//   path's shape (511,943 x 1024 bf16) the second read is about 1 GB, or
-//   0.3 ms of HBM time, against about 45 ms of FFMA: it is the first thing
-//   the tensor-core redesign removes (z must then come from the same
-//   staged tiles as the Hessian).
-// * srml_softmax_curvature is one kWeighted launch over all C classes with
-//   wt = p (already masked): Xᵀdiag(p_c)X and Xᵀp_c per class. x is read
-//   again for every class, about 8.5 GB at 129,838 x 1024 bf16, C = 32, or
-//   2.5 ms of HBM time against about 350 ms of FFMA; sharing one staged x
-//   tile across a class group, as the Pallas kernel does, is later work.
-// w, b, z, p, r, wgt and p_c stay f32: the TPU kernels' bf16 roundings of
-// w, r, wgt and p_c were MXU and Mosaic constraints and are not carried over.
+//   Pallas kernel reads x once per iteration; this reads it twice: z needs
+//   all d columns of a row before any weight exists, and a Gram block
+//   stages only 128 or 256 of them. At the path's shape (511,943 x 1024
+//   bf16) the second read is about 1 GB, 0.3 ms of HBM time; fusing the
+//   row pass into the Gram pass is later work.
+// * srml_softmax_curvature(_tc) is one kWeighted launch over all C classes
+//   with wt = p (already masked): Xᵀdiag(p_c)X and Xᵀp_c per class. x is
+//   read again for every class, about 8.5 GB at 129,838 x 1024 bf16,
+//   C = 32, 2.5 ms of HBM time, under the 4.4 ms operation bound; the
+//   tensor-core launch runs the classes of one (pair, split) side by side
+//   so that they meet x in L2. Sharing one staged x tile across a class
+//   group, as the Pallas kernel does, needs more than one 128 x 128
+//   accumulator a consumer: later work.
+// w, b, z, p, r, wgt and p_c stay f32 (the TPU kernels' bf16 roundings of
+// w, r and the borders' weights were MXU and Mosaic constraints), with one
+// exception: the tensor-core route's Hessian operand, which a tensor-core
+// product must round. It is bf16(x·bf16(wt)), as the Pallas kernels round
+// it (pallas_kernels.py:437, :1117).
 //
 // Arithmetic: f32 input multiplies in plain f32 FFMA (never TF32), as the
 // JAX package's Precision.HIGHEST; bf16 input converts with
 // __bfloat162float (exact) and accumulates in f32.
 //
 // Two bodies. The one above, gram_tile_kernel ("ffma tiles"), runs every
-// f32 launch, every launch of srml_gram, srml_newton_stats and
-// srml_softmax_curvature, and bf16 launches of srml_gram_colsum and
-// srml_linreg_stats whose d is not a multiple of 8. Its products run on
-// the CUDA cores: 24-29 TFLOP/s of f32 FFMA on the H100, over the full
+// f32 launch, every launch of srml_gram, and the bf16 launches of
+// srml_gram_colsum, srml_linreg_stats, srml_newton_stats and
+// srml_softmax_curvature whose d is not a multiple of 8. Its products run
+// on the CUDA cores: 24-29 TFLOP/s of f32 FFMA on the H100, over the full
 // square of G.
 //
-// gram_tc_kernel ("wgmma+tma syrk") runs bf16 launches of
-// srml_gram_colsum_tc and srml_linreg_stats_tc (the wrapper routes bf16
-// with d % 8 == 0 and 16-byte aligned x and G there). It computes what
-// kColsum and kLinreg compute above, laid out for Hopper:
+// gram_tc_kernel ("wgmma+tma syrk") runs the bf16 launches of
+// srml_gram_colsum_tc, srml_linreg_stats_tc, srml_newton_stats_tc (its
+// Gram pass) and srml_softmax_curvature_tc (the wrapper routes bf16 with
+// d % 8 == 0 and 16-byte aligned x and G there). It computes what kColsum,
+// kLinreg and kWeighted compute above, laid out for Hopper:
 //
 // * SYRK: blockIdx.x indexes a tile pair (i <= j) of 128 x 128 tiles from
 //   a (n_pairs, 2) list the wrapper computes (136 pairs at d = 2048, not
-//   256 tiles); blockIdx.y a row split of split_rows rows, a multiple of
-//   the 64-row stage. A diagonal pair loads its panel once and hands the
-//   same shared-memory tile to both wgmma operands. An off-diagonal tile S
-//   is added to G[i, j] and Sᵀ to G[j, i], so a seeded, non-symmetric G
-//   stays exact (no mirror pass).
+//   256 tiles), times the class (kWeighted: pair · C + class, so the
+//   classes of a pair are neighbours); blockIdx.y a row split of
+//   split_rows rows, a multiple of the 64-row stage. A diagonal pair loads
+//   its panel once and hands the same shared-memory tile to both wgmma
+//   operands. An off-diagonal tile S is added to G[i, j] and Sᵀ to
+//   G[j, i], so a seeded, non-symmetric G stays exact (no mirror pass);
+//   the Hessian and curvature blocks are symmetric, so the pairs cover
+//   them too.
 // * wgmma, bf16 x bf16 -> f32: two consumer warpgroups, each
 //   m64n128k16 over its 64 rows of the tile, four K steps per stage. x is
 //   row-major, so a stage of 64 rows x 128 columns has the G index
@@ -114,6 +124,20 @@
 //   linreg mask is {0, 1} by contract: with a mask, a helper warp zeroes
 //   the staged rows where m = 0 before the consumers may read the stage
 //   (a third mbarrier, "ready"), and x·m is then exact in bf16.
+// * kWeighted: A is fed from registers. Each consumer loads its
+//   warpgroup's 64-column share of the raw staged i-panel with
+//   ldmatrix.trans (which also undoes the swizzle, one 16-byte row a
+//   lane) into wgmma's register fragment, and multiplies it by bf16(wt)
+//   with packed bf16 multiplies, one rounding of the exact product; B is
+//   the raw panel in shared memory. Helper warp 1 stages each stage's 64
+//   weights as bf16 pairs (640 bytes beside the ring) and arrives on
+//   `ready`. (Scaling the A panel in shared memory instead, with three
+//   helper warps, added 32 KB of shared-memory traffic a stage beside
+//   wgmma's and made softmax_curvature 1.5 times as slow: PERF.md §6.)
+//   The A registers are read by wgmmas in flight, so a weighted stage
+//   waits for its own wgmmas before the next stage loads them. The
+//   diagonal pairs' consumers sum Xᵀwt and Xᵀr from the raw panel
+//   against f32 weights loaded a stage ahead.
 // * Registers: the producer warpgroup gives registers back (setmaxnreg 40)
 //   and the consumers take 232 (two 64-float accumulators a thread). The
 //   launcher refuses to launch unless ptxas gave the kernel the 168 a
@@ -438,7 +462,9 @@ constexpr int kTcRingBytes = kTcStages * kTcStageBytes;
 constexpr int kTcEpiStride = kTile + 8;              // floats per staged tile row (544 B)
 constexpr int kTcEpiBytes = 2 * kTile * kTcEpiStride * 4;  // the tile and its transpose
 constexpr int kTcDataBytes = kTcRingBytes > kTcEpiBytes ? kTcRingBytes : kTcEpiBytes;
-constexpr int kTcSmemBytes = 1024 + kTcDataBytes + 3 * kTcStages * 8;  // + alignment, barriers
+constexpr int kTcWeightBytes = kTcStages * (kTcRows / 2) * 4;  // kWeighted: bf16 weight pairs a stage
+constexpr int kTcSmemBytes =
+    1024 + kTcDataBytes + kTcWeightBytes + 3 * kTcStages * 8;  // + alignment, barriers
 constexpr int kTcThreads = 384;     // warpgroup 0: producer and helpers; 1-2: consumers
 constexpr int kTcConsumers = 256;
 constexpr int kTcEntryRegs = 168;   // 65536 / 384, what setmaxnreg 40 / 232 balances
@@ -545,7 +571,47 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&acc)[64], uint64_t da, 
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// The same with A in registers: a 64 x 16 bf16 tile in wgmma's register
+// fragment layout (warp w of the warpgroup rows 16w..16w+15; a thread's
+// four b32 hold (row g, k 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..) for g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&acc)[64], const uint32_t (&a)[4],
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
+      " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34,"
+      " %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51,"
+      " %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : SRML_ACC8(0), SRML_ACC8(8), SRML_ACC8(16), SRML_ACC8(24), SRML_ACC8(32), SRML_ACC8(40),
+        SRML_ACC8(48), SRML_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 #undef SRML_ACC8
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8j..8j+7
+// give the 16-byte rows of matrix j, and each thread gets, in register j,
+// two consecutive ROWS of matrix j at column lane / 4 (rows 2(lane % 4)
+// and 2(lane % 4) + 1, the first in the low half).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// Keeps A fragments in their registers while a wgmma that reads them may
+// still be in flight (the compiler sees the asm consume them at issue).
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) asm volatile("" : "+r"(a[k][v])::"memory");
+  }
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
@@ -567,34 +633,50 @@ __device__ __forceinline__ void bulk_add_f32(float* dst, const float* src, uint3
 }
 
 struct TcPlan {
-  const int* pairs;      // (n_pairs, 2) tile pairs i <= j; blockIdx.x indexes them
+  const int* pairs;      // (n_pairs, 2) tile pairs i <= j
   long long rows;        // rows to sum; the tensor map zero-fills past them
   long long split_rows;  // rows of blockIdx.y's split, a multiple of kTcRows
   long long d;
   int promote;           // stages between promotions; 0: at the end only
+  int classes;           // blockIdx.x = pair · classes + class (1 outside kWeighted)
 };
+
+// x · w, rounded once to bf16, for two packed bf16 values of x and the
+// bf16 weight in both halves of w2 (the product of two bf16 is exact).
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t x2, uint32_t w2) {
+  uint32_t out;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(out) : "r"(x2), "r"(w2));
+  return out;
+}
 
 // kColsum: G += XᵀX, colsum += Σx, count += rows over the first plan.rows
 // rows. kLinreg: with m = mask (null: 1) in {0, 1} and ym = y·m over all
 // plan.rows rows: G += XᵀX of the rows with m = 1, xty += Xᵀym, colsum +=
-// Σx·m, sy += Σym, syy += Σym², rows += #(m != 0).
+// Σx·m, sy += Σym, syy += Σym², rows += #(m != 0). kWeighted: with the
+// weights wt_c = mask[c · rows ..] of class c (a (classes, rows) array)
+// over all plan.rows rows: G_c += bf16(X·bf16(wt_c))ᵀX, colsum_c += Xᵀwt_c
+// and, when y (a residual r) is given, xty += Xᵀr, the last two in f32.
 template <int kMode>
 __global__ void __launch_bounds__(kTcThreads, 1)
 gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
                const float* __restrict__ mask, const float* __restrict__ y, Outputs out) {
   constexpr bool kLin = kMode == kLinreg;
+  constexpr bool kWgt = kMode == kWeighted;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle atoms need 1 KB alignment
   unsigned char* sm = smem_raw + (base - raw);
-  const uint32_t bars = base + kTcDataBytes;
-  // full: TMA landed; ready: masked rows zeroed (with a mask); empty: consumed.
+  const uint32_t bars = base + kTcDataBytes + kTcWeightBytes;
+  // full: TMA landed; ready: a helper warp's work on the stage is done
+  // (masked rows zeroed, or the weight pairs staged); empty: consumed.
   auto full = [bars](int s) { return bars + 8u * s; };
   auto ready = [bars](int s) { return bars + 8u * (kTcStages + s); };
   auto empty = [bars](int s) { return bars + 8u * (2 * kTcStages + s); };
 
-  const int ti = plan.pairs[2 * blockIdx.x];
-  const int tj = plan.pairs[2 * blockIdx.x + 1];
+  const int pair = static_cast<int>(blockIdx.x) / plan.classes;
+  const int cls = static_cast<int>(blockIdx.x) % plan.classes;
+  const int ti = plan.pairs[2 * pair];
+  const int tj = plan.pairs[2 * pair + 1];
   const bool diag = ti == tj;
   const long long d = plan.d;
   const int i0 = ti * kTile;
@@ -604,6 +686,11 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
   const int n_stages =
       r_end > r_begin ? static_cast<int>((r_end - r_begin + kTcRows - 1) / kTcRows) : 0;
   const bool masked = kLin && mask != nullptr;
+  const bool edited = masked || kWgt;  // the consumers wait for `ready`
+  const bool resid = kWgt && y != nullptr;
+  const float* wt = kWgt ? mask + static_cast<long long>(cls) * plan.rows : nullptr;
+  float* gram = out.gram + (kWgt ? static_cast<long long>(cls) * d * d : 0);
+  float* colsum = kWgt ? out.colsum + static_cast<long long>(cls) * d : out.colsum;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -617,8 +704,9 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
   __syncthreads();
 
   if (tid < 128) {
-    // Warpgroup 0: warp 0 feeds the ring, warp 1 zeroes masked rows, warps
-    // 2-3 of the tile-(0, 0) blocks sum the linreg y statistics.
+    // Warpgroup 0: warp 0 feeds the ring; warp 1 zeroes masked linreg rows
+    // or stages the kWeighted weights; warps 2-3 of the tile-(0, 0) blocks
+    // sum the linreg y statistics.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     const int warp = tid / 32;
     const int lane = tid % 32;
@@ -657,6 +745,29 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
           }
         }
         fence_proxy_async();  // the async proxy (wgmma) reads these rows next
+        __syncwarp();
+        if (lane == 0) mbar_arrive(ready(slot));
+      }
+    } else if (kWgt && warp == 1) {
+      // The stage's 64 weights as 32 bf16 pairs in shared memory, row 2j
+      // in the low half of pair j: the consumers scale their A fragments
+      // by them. Slot s's pairs are rewritten only after full(s), so after
+      // the consumers of its previous round have released it.
+      float w_lo = 0.f, w_hi = 0.f;  // the next stage's weights of rows 2·lane, 2·lane + 1
+      auto load_w = [&](int stage) {
+        const long long row = r_begin + static_cast<long long>(stage) * kTcRows + 2 * lane;
+        w_lo = stage < n_stages && row < plan.rows ? wt[row] : 0.f;
+        w_hi = stage < n_stages && row + 1 < plan.rows ? wt[row + 1] : 0.f;
+      };
+      load_w(0);
+      uint32_t* wpairs = reinterpret_cast<uint32_t*>(sm + kTcDataBytes);
+      for (int s = 0; s < n_stages; ++s) {
+        const int slot = s % kTcStages;
+        uint32_t w2;
+        asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(w2) : "f"(w_hi), "f"(w_lo));
+        load_w(s + 1);
+        mbar_wait(full(slot), static_cast<uint32_t>(s / kTcStages) & 1u);
+        wpairs[slot * (kTcRows / 2) + lane] = w2;
         __syncwarp();
         if (lane == 0) mbar_arrive(ready(slot));
       }
@@ -704,8 +815,14 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
     const int lane = t % 32;
     const int c8 = t % 8;      // statistics: 16-byte column chunk of this half
     const int q = t / 8;       // statistics: rows q, q + 16, q + 32, q + 48
-    const uint32_t a_off = wg * kTcBoxBytes;
+    const uint32_t a_off = wg * kTcBoxBytes;  // this half of the (raw) i-panel
     const uint32_t b_off = diag ? 0u : static_cast<uint32_t>(kTcPanelBytes);
+    // kWeighted: this thread's ldmatrix row (lanes 8j..8j+7 give matrix
+    // j's rows: x rows 8(j / 2) + lane % 8 of a k-step, 16-byte column
+    // chunk 2·warp + j % 2 of the half), unswizzled per k-step below.
+    const int frag_row = 8 * (lane >> 4) + (lane & 7);
+    const int frag_chunk = 2 * warp + ((lane >> 3) & 1);
+    uint32_t af[4][4];  // kWeighted: the stage's A fragments, one per k-step
     float acc[64], tot[64];
 #pragma unroll
     for (int v = 0; v < 64; ++v) {
@@ -721,41 +838,75 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
     int fresh = 1;    // the next stage starts the wgmma accumulator afresh
     int since = 0;    // stages in the accumulator since the last promotion
     int pending = -1; // slot read by wgmmas that may still be in flight
-    // linreg diagonal pairs: y and m of this thread's four rows, loaded one
-    // stage ahead so that their latency hides behind a stage of wgmma.
+    // Diagonal pairs: this thread's four rows' y and m (linreg), or
+    // residual and weight (kWeighted), loaded one stage ahead so that
+    // their latency hides behind a stage of wgmma.
     float y_next[4], m_next[4];
     auto load_ym = [&](int stage) {
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr) {
         const long long row = r_begin + static_cast<long long>(stage) * kTcRows + q + 16 * rr;
         const bool in = stage < n_stages && row < plan.rows;
-        y_next[rr] = in ? y[row] : 0.f;
-        m_next[rr] = in ? (mask == nullptr ? 1.f : mask[row]) : 0.f;
+        if (kWgt) {
+          y_next[rr] = in && resid ? y[row] : 0.f;
+          m_next[rr] = in ? wt[row] : 0.f;
+        } else {
+          y_next[rr] = in ? y[row] : 0.f;
+          m_next[rr] = in ? (mask == nullptr ? 1.f : mask[row]) : 0.f;
+        }
       }
     };
-    if (kLin && diag) load_ym(0);
+    if ((kLin || kWgt) && diag) load_ym(0);
     for (int s = 0; s < n_stages; ++s) {
       const int slot = s % kTcStages;
       const uint32_t parity = static_cast<uint32_t>(s / kTcStages) & 1u;
-      mbar_wait(masked ? ready(slot) : full(slot), parity);
+      mbar_wait(full(slot), parity);
+      if (edited) mbar_wait(ready(slot), parity);
       const uint32_t st = base + slot * kTcStageBytes;
+      if (kWgt) {
+        // A = bf16(x·bf16(wt)) in registers: each k-step's 16 rows of this
+        // warpgroup's 64 columns, transposed out of the swizzled panel by
+        // ldmatrix, times the rows' weight pairs (k 2t, 2t + 1 and 2t + 8,
+        // 2t + 9 of the k-step for t = lane % 4).
+        const uint32_t* wp =
+            reinterpret_cast<const uint32_t*>(sm + kTcDataBytes) + slot * (kTcRows / 2);
+#pragma unroll
+        for (int k = 0; k < kTcRows / 16; ++k) {
+          const int r = 16 * k + frag_row;
+          ldmatrix_x4_trans(af[k], st + a_off + r * 128 + ((frag_chunk ^ (r & 7)) << 4));
+          const uint32_t w_lo = wp[8 * k + (lane & 3)];
+          const uint32_t w_hi = wp[8 * k + 4 + (lane & 3)];
+          af[k][0] = mul_bf16x2(af[k][0], w_lo);
+          af[k][1] = mul_bf16x2(af[k][1], w_lo);
+          af[k][2] = mul_bf16x2(af[k][2], w_hi);
+          af[k][3] = mul_bf16x2(af[k][3], w_hi);
+        }
+        fence_proxy_async();  // these generic reads precede the slot's next TMA write
+      }
       fence_acc(acc);
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kTcRows / 16; ++k) {
-        const uint64_t da = sw128_desc(st + a_off + k * 2048, kTcBoxBytes, 1024);
         const uint64_t db = sw128_desc(st + b_off + k * 2048, kTcBoxBytes, 1024);
-        wgmma_m64n128k16(acc, da, db, (fresh && k == 0) ? 0 : 1);
+        if (kWgt) {
+          wgmma_m64n128k16_rs(acc, af[k], db, (fresh && k == 0) ? 0 : 1);
+        } else {
+          const uint64_t da = sw128_desc(st + a_off + k * 2048, kTcBoxBytes, 1024);
+          wgmma_m64n128k16(acc, da, db, (fresh && k == 0) ? 0 : 1);
+        }
       }
       wgmma_commit();
       fence_acc(acc);
       fresh = 0;
       if (diag) {  // block-uniform; overlaps the wgmma just issued
         const unsigned char* p = sm + slot * kTcStageBytes + a_off;
-        float ym[4];
-        if (kLin) {
+        float ym[4], wm[4];  // linreg: y·m; kWeighted: the residual and the weight
+        if (kLin || kWgt) {
 #pragma unroll
-          for (int rr = 0; rr < 4; ++rr) ym[rr] = y_next[rr] * m_next[rr];
+          for (int rr = 0; rr < 4; ++rr) {
+            ym[rr] = kLin ? y_next[rr] * m_next[rr] : y_next[rr];
+            wm[rr] = m_next[rr];
+          }
           load_ym(s + 1);
         }
 #pragma unroll
@@ -767,9 +918,14 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
           for (int h = 0; h < 4; ++h) {
             const float lo = __uint_as_float(w[h] << 16);  // exact bf16 -> f32
             const float hi = __uint_as_float(w[h] & 0xffff0000u);
-            cs[2 * h] += lo;
-            cs[2 * h + 1] += hi;
-            if (kLin) {
+            if (kWgt) {
+              cs[2 * h] = fmaf(lo, wm[rr], cs[2 * h]);
+              cs[2 * h + 1] = fmaf(hi, wm[rr], cs[2 * h + 1]);
+            } else {
+              cs[2 * h] += lo;
+              cs[2 * h + 1] += hi;
+            }
+            if (kLin || resid) {
               xy[2 * h] = fmaf(lo, ym[rr], xy[2 * h]);
               xy[2 * h + 1] = fmaf(hi, ym[rr], xy[2 * h + 1]);
             }
@@ -780,6 +936,7 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
       if (plan.promote > 0 && ++since == plan.promote) {
         wgmma_wait<0>();
         fence_acc(acc);
+        if (kWgt) fence_frag(af);
         if (pending >= 0) mbar_arrive(empty(pending));
         mbar_arrive(empty(slot));
         pending = -1;
@@ -787,6 +944,13 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
         for (int v = 0; v < 64; ++v) tot[v] += acc[v];
         fresh = 1;
         since = 0;
+      } else if (kWgt) {
+        // The next stage rewrites af: this stage's wgmmas must be done.
+        wgmma_wait<0>();
+        fence_acc(acc);
+        fence_frag(af);
+        mbar_arrive(empty(slot));
+        if (plan.promote == 0) since = 1;
       } else {
         wgmma_wait<1>();  // the previous stage's wgmmas are done: release it
         fence_acc(acc);
@@ -808,7 +972,7 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
       for (int k = 0; k < 8; ++k) {
         cs[k] += __shfl_xor_sync(0xffffffffu, cs[k], 8);
         cs[k] += __shfl_xor_sync(0xffffffffu, cs[k], 16);
-        if (kLin) {
+        if (kLin || resid) {
           xy[k] += __shfl_xor_sync(0xffffffffu, xy[k], 8);
           xy[k] += __shfl_xor_sync(0xffffffffu, xy[k], 16);
         }
@@ -818,8 +982,8 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
           if (col0 + k < d) {
-            atomicAdd(&out.colsum[col0 + k], cs[k]);
-            if (kLin) atomicAdd(&out.xty[col0 + k], xy[k]);
+            atomicAdd(&colsum[col0 + k], cs[k]);
+            if (kLin || resid) atomicAdd(&out.xty[col0 + k], xy[k]);
           }
         }
       }
@@ -847,14 +1011,14 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
       const long long gi = i0 + ct;
       if (gi < d) {
         const uint32_t bytes = static_cast<uint32_t>(min(static_cast<long long>(kTile), d - j0)) * 4;
-        bulk_add_f32(out.gram + gi * d + j0, epi + ct * kTcEpiStride, bytes);
+        bulk_add_f32(gram + gi * d + j0, epi + ct * kTcEpiStride, bytes);
       }
     } else if (!diag) {
       const int n = ct - kTile;
       const long long gj = j0 + n;
       if (gj < d) {
         const uint32_t bytes = static_cast<uint32_t>(min(static_cast<long long>(kTile), d - i0)) * 4;
-        bulk_add_f32(out.gram + gj * d + i0, epi_t + n * kTcEpiStride, bytes);
+        bulk_add_f32(gram + gj * d + i0, epi_t + n * kTcEpiStride, bytes);
       }
     }
     asm volatile("cp.async.bulk.commit_group;" ::: "memory");
@@ -886,15 +1050,18 @@ EncodeTiled tensor_map_encoder() {
 }
 
 // One tensor-core launch over a plan the wrapper made: the (n_pairs, 2)
-// int32 tile pairs on the device, `splits` row splits of `split_rows`
-// rows covering `rows`, a promotion every `promote` stages (0: once).
+// int32 tile pairs on the device, each for `classes` classes (kWeighted;
+// else 1), `splits` row splits of `split_rows` rows covering `rows`, a
+// promotion every `promote` stages (0: once).
 template <int kMode>
 int launch_tc(const void* x, long long rows, long long d, const int* pairs, int n_pairs,
-              long long splits, long long split_rows, int promote, const float* mask,
-              const float* y, const Outputs& out, void* stream) {
+              int classes, long long splits, long long split_rows, int promote,
+              const float* mask, const float* y, const Outputs& out, void* stream) {
   if (d < 8 || d % 8 != 0 || d > (1LL << 30) || rows < 0 || rows > INT_MAX ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(out.gram) % 16 != 0 ||
-      pairs == nullptr || n_pairs < 1 || splits < 1 || splits > kMaxGridZ ||
+      pairs == nullptr || n_pairs < 1 || classes < 1 ||
+      static_cast<long long>(n_pairs) * classes > INT_MAX || (kMode != kWeighted && classes != 1) ||
+      (kMode == kWeighted && mask == nullptr) || splits < 1 || splits > kMaxGridZ ||
       split_rows < kTcRows || split_rows % kTcRows != 0 || splits * split_rows < rows ||
       promote < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -922,10 +1089,29 @@ int launch_tc(const void* x, long long rows, long long d, const int* pairs, int 
       cudaFuncSetAttribute(reinterpret_cast<const void*>(&gram_tc_kernel<kMode>),
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const TcPlan plan{pairs, rows, split_rows, d, promote};
-  const dim3 grid(static_cast<unsigned>(n_pairs), static_cast<unsigned>(splits));
+  const TcPlan plan{pairs, rows, split_rows, d, promote, classes};
+  // The classes of one (pair, split) are neighbours in launch order, so
+  // they run side by side and share the split's x panels in L2.
+  const dim3 grid(static_cast<unsigned>(n_pairs * classes), static_cast<unsigned>(splits));
   gram_tc_kernel<kMode><<<grid, kTcThreads, kTcSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       map, plan, mask, y, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Newton row pass over n rows (see newton_row_kernel).
+int launch_rows(const void* x, int is_bf16, const float* y, const float* mask, const float* w,
+                const float* b, long long n, long long d, float* resid, float* wgt, float* gb,
+                float* hbb, cudaStream_t s) {
+  if (n <= 0) return 0;
+  long long blocks = (n + kRowThreads / 32 - 1) / (kRowThreads / 32);
+  blocks = blocks > kRowBlocks ? kRowBlocks : blocks;
+  if (is_bf16) {
+    newton_row_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), kRowThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), y, mask, w, b, n, d, resid, wgt, gb, hbb);
+  } else {
+    newton_row_kernel<float><<<static_cast<unsigned>(blocks), kRowThreads, 0, s>>>(
+        static_cast<const float*>(x), y, mask, w, b, n, d, resid, wgt, gb, hbb);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -976,7 +1162,7 @@ int srml_gram_colsum_tc(const void* x, long long n, long long d, long long n_val
                         int promote, float* gram, float* colsum, float* count, void* stream) {
   const long long rows = n_valid < 0 ? 0 : (n_valid < n ? n_valid : n);
   const Outputs out{gram, colsum, count, nullptr, nullptr, nullptr, nullptr};
-  return launch_tc<kColsum>(x, rows, d, pairs, n_pairs, splits, split_rows, promote, nullptr,
+  return launch_tc<kColsum>(x, rows, d, pairs, n_pairs, 1, splits, split_rows, promote, nullptr,
                             nullptr, out, stream);
 }
 
@@ -987,8 +1173,8 @@ int srml_linreg_stats_tc(const void* x, const float* mask, const float* y, long 
                          long long split_rows, int promote, float* xtx, float* xty, float* sx,
                          float* sy, float* syy, unsigned long long* rows, void* stream) {
   const Outputs out{xtx, sx, nullptr, xty, sy, syy, rows};
-  return launch_tc<kLinreg>(x, n, d, pairs, n_pairs, splits, split_rows, promote, mask, y, out,
-                            stream);
+  return launch_tc<kLinreg>(x, n, d, pairs, n_pairs, 1, splits, split_rows, promote, mask, y,
+                            out, stream);
 }
 
 // One binomial Newton-IRLS pass at (w, b) over the n rows of x (f32 or bf16,
@@ -1002,22 +1188,28 @@ int srml_newton_stats(const void* x, int is_bf16, const float* y,
                       long long n, long long d, float* resid, float* wgt,
                       float* gw, float* gb, float* hww, float* hwb, float* hbb,
                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    long long blocks = (n + kRowThreads / 32 - 1) / (kRowThreads / 32);
-    blocks = blocks > kRowBlocks ? kRowBlocks : blocks;
-    if (is_bf16) {
-      newton_row_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), kRowThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), y, mask, w, b, n, d, resid, wgt, gb, hbb);
-    } else {
-      newton_row_kernel<float><<<static_cast<unsigned>(blocks), kRowThreads, 0, s>>>(
-          static_cast<const float*>(x), y, mask, w, b, n, d, resid, wgt, gb, hbb);
-    }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int rc = launch_rows(x, is_bf16, y, mask, w, b, n, d, resid, wgt, gb, hbb,
+                             static_cast<cudaStream_t>(stream));
+  if (rc != 0) return rc;
   const Outputs out{hww, hwb, nullptr, gw, nullptr, nullptr, nullptr};
   return launch<kWeighted>(x, is_bf16, wgt, resid, n, d, 1, out, stream);
+}
+
+// srml_newton_stats on the tensor-core body for bf16 x (d % 8 == 0, x and
+// hww 16-byte aligned), with the plan arguments of srml_gram_colsum_tc:
+// the row pass, then the weighted Gram pass, whose Hessian operand is
+// bf16(x·bf16(wgt)) (the Pallas kernel's rounding); Xᵀr and Xᵀwgt stay f32.
+int srml_newton_stats_tc(const void* x, const float* y, const float* mask, const float* w,
+                         const float* b, long long n, long long d, const int* pairs, int n_pairs,
+                         long long splits, long long split_rows, int promote, float* resid,
+                         float* wgt, float* gw, float* gb, float* hww, float* hwb, float* hbb,
+                         void* stream) {
+  const int rc = launch_rows(x, 1, y, mask, w, b, n, d, resid, wgt, gb, hbb,
+                             static_cast<cudaStream_t>(stream));
+  if (rc != 0) return rc;
+  const Outputs out{hww, hwb, nullptr, gw, nullptr, nullptr, nullptr};
+  return launch_tc<kWeighted>(x, n, d, pairs, n_pairs, 1, splits, split_rows, promote, wgt,
+                              resid, out, stream);
 }
 
 // Per class c of the (n, C) f32 weights p (softmax probabilities, already
@@ -1028,6 +1220,19 @@ int srml_softmax_curvature(const void* x, int is_bf16, const float* p,
                            float* hwb, void* stream) {
   const Outputs out{hw, hwb, nullptr, nullptr, nullptr, nullptr, nullptr};
   return launch<kWeighted>(x, is_bf16, p, nullptr, n, d, n_classes, out, stream);
+}
+
+// srml_softmax_curvature on the tensor-core body for bf16 x (as
+// srml_newton_stats_tc), the weights given TRANSPOSED: pt (C, n), so that
+// a stage's 64 weights of one class are one coalesced load. hw[c] is
+// bf16(x·bf16(p_c))ᵀx; hwb[c] = Xᵀp_c stays f32.
+int srml_softmax_curvature_tc(const void* x, const float* pt, long long n, long long d,
+                              int n_classes, const int* pairs, int n_pairs, long long splits,
+                              long long split_rows, int promote, float* hw, float* hwb,
+                              void* stream) {
+  const Outputs out{hw, hwb, nullptr, nullptr, nullptr, nullptr, nullptr};
+  return launch_tc<kWeighted>(x, n, d, pairs, n_pairs, n_classes, splits, split_rows, promote,
+                              pt, nullptr, out, stream);
 }
 
 }  // extern "C"

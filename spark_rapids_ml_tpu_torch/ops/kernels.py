@@ -35,14 +35,16 @@ The Gram family, LogisticRegression's weighted Grams included, lives in
 ``csrc/gram.cu``, the KMeans pair in ``csrc/kmeans.cu``, the
 nearest-neighbour kernels in ``csrc/knn.cu`` (design notes there).
 ``gram.cu`` has two bodies: CUDA-core FFMA tiles, and for bfloat16
-``gram_colsum`` and ``linreg_stats`` with d % 8 == 0 a tensor-core body
-(wgmma fed by TMA over the upper-triangle tile pairs); :func:`gram_route`
-says which a launch takes and :func:`gram_plan` lays out the tensor-core
-launch. A wrapper takes its plain PyTorch
+``gram_colsum``, ``linreg_stats``, ``newton_stats`` and
+``softmax_curvature`` with d % 8 == 0 a tensor-core body (wgmma fed by TMA
+over the upper-triangle tile pairs; the weighted pair rounds its Hessian
+operand to bf16 as the Pallas kernels do); :func:`gram_route` says which
+a launch takes and :func:`gram_plan` lays out the tensor-core launch. A
+wrapper takes its plain PyTorch
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises — there is no fallback. Each launch adds one to
-:data:`LAUNCHES` (and, for the two routed kernels, to :data:`ROUTES`), so
-a run can show that it went through the kernels. The
+:data:`LAUNCHES` (and, for the four routed kernels, to :data:`ROUTES`),
+so a run can show that it went through the kernels. The
 plain versions repeat the kernels' arithmetic (f32 products of the input
 values, f32 sums; TF32 is off for the whole package, see ``__init__``;
 ties of the nearest centre to the lowest index; the selections of
@@ -66,10 +68,10 @@ LAUNCHES = {"gram": 0, "gram_colsum": 0, "linreg_stats": 0, "lloyd_step": 0,
             "assign_min_dist": 0, "newton_stats": 0, "softmax_curvature": 0,
             "dist_topk": 0, "probe_select": 0, "ivf_scan_select": 0}
 
-#: Launches of the two routed kernels by "<kernel>/<route>": "wgmma" is the
+#: Launches of the routed kernels by "<kernel>/<route>": "wgmma" is the
 #: tensor-core body of ``gram.cu``, "ffma" its CUDA-core tile body.
-ROUTES = {"gram_colsum/wgmma": 0, "gram_colsum/ffma": 0, "linreg_stats/wgmma": 0,
-          "linreg_stats/ffma": 0}
+ROUTES = {f"{k}/{r}": 0 for k in ("gram_colsum", "linreg_stats", "newton_stats",
+                                  "softmax_curvature") for r in ("wgmma", "ffma")}
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -131,8 +133,14 @@ def _lib() -> ctypes.CDLL:
     lib.srml_newton_stats.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i64, i64, ptr, ptr, ptr,
                                       ptr, ptr, ptr, ptr, ptr]
     lib.srml_newton_stats.restype = i32
+    lib.srml_newton_stats_tc.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, ptr, i32, i64, i64,
+                                         i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.srml_newton_stats_tc.restype = i32
     lib.srml_softmax_curvature.argtypes = [ptr, i32, ptr, i64, i64, i32, ptr, ptr, ptr]
     lib.srml_softmax_curvature.restype = i32
+    lib.srml_softmax_curvature_tc.argtypes = [ptr, ptr, i64, i64, i32, ptr, i32, i64, i64, i32,
+                                              ptr, ptr, ptr]
+    lib.srml_softmax_curvature_tc.restype = i32
     return lib
 
 
@@ -212,7 +220,8 @@ def _raise_on(rc: int, kernel: str) -> None:
 
 class GramPlan(NamedTuple):
     """A tensor-core launch: ``pairs`` are the (i, j) tiles of G with
-    i <= j that blockIdx.x walks; blockIdx.y walks ``splits`` row splits of
+    i <= j that blockIdx.x walks, each once per class (blockIdx.x =
+    pair · classes + class); blockIdx.y walks ``splits`` row splits of
     ``split_rows`` rows each (a multiple of TC_STAGE_ROWS), which cover the
     rows; the wgmma accumulator is promoted every ``promote`` stages."""
 
@@ -220,6 +229,7 @@ class GramPlan(NamedTuple):
     splits: int
     split_rows: int
     promote: int
+    classes: int = 1
 
 
 def tc_tile_pairs(d: int) -> Tuple[Tuple[int, int], ...]:
@@ -250,19 +260,21 @@ def tc_row_splits(rows: int, n_pairs: int, sms: int) -> Tuple[int, int]:
     return splits, per * TC_STAGE_ROWS
 
 
-def gram_plan(d: int, rows: int, sms: int) -> GramPlan:
+def gram_plan(d: int, rows: int, sms: int, classes: int = 1) -> GramPlan:
     """The tensor-core launch plan for ``rows`` rows of an (n, d) matrix
-    on a card of ``sms`` SMs."""
+    and ``classes`` weight columns (``softmax_curvature``; else 1) on a card
+    of ``sms`` SMs."""
     pairs = tc_tile_pairs(d)
-    splits, split_rows = tc_row_splits(max(int(rows), 0), len(pairs), sms)
-    return GramPlan(pairs, splits, split_rows, TC_PROMOTE_STAGES)
+    splits, split_rows = tc_row_splits(max(int(rows), 0), len(pairs) * classes, sms)
+    return GramPlan(pairs, splits, split_rows, TC_PROMOTE_STAGES, classes)
 
 
 def gram_route(x: torch.Tensor, *outs: torch.Tensor) -> str:
-    """Which body of ``gram.cu`` a ``gram_colsum``/``linreg_stats`` launch
-    on x takes: "wgmma" for bfloat16 with d % 8 == 0 (TMA needs a 16-byte
-    row stride), at least one row, and x and the outputs 16-byte aligned;
-    "ffma" otherwise (float32 stays in full f32 FFMA: TF32 is off)."""
+    """Which body of ``gram.cu`` a ``gram_colsum``/``linreg_stats``/
+    ``newton_stats``/``softmax_curvature`` launch on x takes: "wgmma" for
+    bfloat16 with d % 8 == 0 (TMA needs a 16-byte row stride), at least
+    one row, and x and the outputs 16-byte aligned; "ffma" otherwise
+    (float32 stays in full f32 FFMA: TF32 is off)."""
     n, d = x.shape
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, *outs))
     return "wgmma" if x.dtype == torch.bfloat16 and d % 8 == 0 and n > 0 and aligned else "ffma"
@@ -280,11 +292,11 @@ def _pairs_on(d: int, device: torch.device) -> torch.Tensor:
     return torch.tensor(tc_tile_pairs(d), dtype=torch.int32, device=device).contiguous()
 
 
-def _tc_plan_args(x: torch.Tensor, rows: int):
+def _tc_plan_args(x: torch.Tensor, rows: int, classes: int = 1):
     """The plan arguments of a tensor-core launch: pairs pointer, pair
     count, splits, split rows, promotion interval."""
     n, d = x.shape
-    plan = gram_plan(d, rows, _sm_count(x.device))
+    plan = gram_plan(d, rows, _sm_count(x.device), classes)
     pairs = _pairs_on(d, x.device)
     return pairs.data_ptr(), len(plan.pairs), plan.splits, plan.split_rows, plan.promote
 
@@ -629,8 +641,13 @@ def newton_stats(
     Σwgt ()). y: (n,) float32; mask: (n,) float32 or None for every row.
 
     w, b, z, p, r and wgt stay float32 and x converts exactly: the Pallas
-    kernel's bf16 roundings of w, r and wgt are not carried over. Any n
-    and d (no block_n divisibility)."""
+    kernel's bf16 roundings of w and r are not carried over. The Hessian
+    alone differs by route (:func:`gram_route`): on the tensor-core route
+    (bfloat16, d % 8 == 0) its operand is bf16(x·bf16(wgt)), rounded as
+    the Pallas kernel rounds it (pallas_kernels.py:437), within 2⁻⁸ of the
+    f32-weighted sum's Σ|terms|; on the FFMA route wgt stays float32. The
+    gradient and borders are float32 on both. Any n and d (no block_n
+    divisibility)."""
     _check_x(x)
     n, d = x.shape
     _check_f32(y, (n,), x.device, "y")
@@ -640,21 +657,38 @@ def newton_stats(
     _check_f32(b, (), x.device, "b")
     if x.device.type == "cpu":
         return newton_stats_plain(x, y, mask, w, b)
+    return newton_stats_launch(x, y, mask, w, b)[:5]
+
+
+def newton_stats_launch(x, y, mask, w, b):
+    """The launch of :func:`newton_stats` on checked CUDA tensors: its five
+    sums, then the row pass's (n,) float32 residual and weight, the
+    weights the Gram pass read."""
+    n, d = x.shape
     xp, is_bf16 = _launch_args(x)
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=x.device)  # noqa: E731
     gw, gb, hww, hwb, hbb = z(d), z(), z(d, d), z(d), z()
     resid = torch.empty((n,), dtype=torch.float32, device=x.device)
     wgt = torch.empty((n,), dtype=torch.float32, device=x.device)
+    route = gram_route(x, hww)
+    mp = None if mask is None else mask.data_ptr()
+    outs = (resid.data_ptr(), wgt.data_ptr(), gw.data_ptr(), gb.data_ptr(), hww.data_ptr(),
+            hwb.data_ptr(), hbb.data_ptr())
     with torch.cuda.device(x.device):
-        rc = _lib().srml_newton_stats(
-            xp, is_bf16, y.data_ptr(), None if mask is None else mask.data_ptr(),
-            w.data_ptr(), b.data_ptr(), n, d, resid.data_ptr(), wgt.data_ptr(),
-            gw.data_ptr(), gb.data_ptr(), hww.data_ptr(), hwb.data_ptr(), hbb.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "wgmma":
+            rc = _lib().srml_newton_stats_tc(
+                xp, y.data_ptr(), mp, w.data_ptr(), b.data_ptr(), n, d, *_tc_plan_args(x, n),
+                *outs, stream,
+            )
+        else:
+            rc = _lib().srml_newton_stats(
+                xp, is_bf16, y.data_ptr(), mp, w.data_ptr(), b.data_ptr(), n, d, *outs, stream,
+            )
     _raise_on(rc, "newton_stats")
     LAUNCHES["newton_stats"] += 1
-    return gw, gb, hww, hwb, hbb
+    ROUTES[f"newton_stats/{route}"] += 1
+    return gw, gb, hww, hwb, hbb, resid, wgt
 
 
 def softmax_curvature_plain(x: torch.Tensor, p: torch.Tensor):
@@ -670,8 +704,12 @@ def softmax_curvature(x: torch.Tensor, p: torch.Tensor):
     Xᵀp_c of an (n, d) float32/bfloat16 matrix: (hw (C, d, d), hwb (C, d))
     float32, fresh sums.
 
-    p_c stays float32 (the Pallas kernel rounds it to x's dtype). Any n, d
-    and 1 <= C <= 65535 (no block_n or block_c demands)."""
+    The border's p_c stays float32. The curvature differs by route
+    (:func:`gram_route`): on the tensor-core route (bfloat16, d % 8 == 0)
+    its operand is bf16(x·bf16(p_c)), rounded as the Pallas kernel rounds
+    it (pallas_kernels.py:1117), within 2⁻⁸ of the f32-weighted sum's
+    Σ|terms|; on the FFMA route p_c stays float32. Any n, d and
+    1 <= C <= 65535 (no block_n or block_c demands)."""
     _check_x(x)
     n, d = x.shape
     if p.dim() != 2 or p.shape[0] != n or not 1 <= p.shape[1] <= 65535:
@@ -683,13 +721,22 @@ def softmax_curvature(x: torch.Tensor, p: torch.Tensor):
     xp, is_bf16 = _launch_args(x)
     hw = torch.zeros((n_classes, d, d), dtype=torch.float32, device=x.device)
     hwb = torch.zeros((n_classes, d), dtype=torch.float32, device=x.device)
+    route = gram_route(x, hw)
     with torch.cuda.device(x.device):
-        rc = _lib().srml_softmax_curvature(
-            xp, is_bf16, p.data_ptr(), n, d, n_classes, hw.data_ptr(), hwb.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "wgmma":
+            pt = p.T.contiguous()  # (C, n): a stage's weights of one class are contiguous
+            rc = _lib().srml_softmax_curvature_tc(
+                xp, pt.data_ptr(), n, d, n_classes, *_tc_plan_args(x, n, n_classes),
+                hw.data_ptr(), hwb.data_ptr(), stream,
+            )
+        else:
+            rc = _lib().srml_softmax_curvature(
+                xp, is_bf16, p.data_ptr(), n, d, n_classes, hw.data_ptr(), hwb.data_ptr(), stream,
+            )
     _raise_on(rc, "softmax_curvature")
     LAUNCHES["softmax_curvature"] += 1
+    ROUTES[f"softmax_curvature/{route}"] += 1
     return hw, hwb
 
 

@@ -1,13 +1,14 @@
 """The tensor-core Gram body of the PyTorch port on the CPU.
 
 ``gram_tc_kernel`` (``spark_rapids_ml_tpu_torch/ops/csrc/gram.cu``) runs
-bfloat16 ``gram_colsum`` and ``linreg_stats`` launches with d % 8 == 0 on a
-card only; ``chip_smoke.py`` phase 2 and the ``cuda``-marked tests of
+bfloat16 ``gram_colsum``, ``linreg_stats``, ``newton_stats`` and
+``softmax_curvature`` launches with d % 8 == 0 on a card only;
+``chip_smoke.py`` phase 2 and the ``cuda``-marked tests of
 tests/test_torch_package.py hold it against the plain versions there.
 Here, without a card:
 
 * the launch plan the wrapper hands the kernel: the upper-triangle tile
-  pairs and the row splits;
+  pairs, the classes of a weighted launch and the row splits;
 * the route a launch takes;
 * a numpy emulation of the kernel's decomposition — per (pair, split)
   float32 partials with the wgmma accumulator promoted every few stages,
@@ -15,15 +16,27 @@ Here, without a card:
   G, Σx and Xᵀy from the diagonal pairs, Σy, Σy² and the row count from
   the tile-(0, 0) blocks, masked rows zeroed — against
   ``gram_colsum_pallas`` and ``linreg_stats_pallas`` in interpret mode on
-  the same seeded inputs.
+  the same seeded inputs;
+* the same for the weighted mode, per (pair, split, class): the A panel
+  rounded to bf16(x·bf16(wt)), borders summed in f32 from the raw
+  diagonal panels — against ``newton_stats_pallas`` and
+  ``softmax_curvature_pallas`` (which round the Hessian operand the same
+  way) and, within the rounding bound, the port's plain versions.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from spark_rapids_ml_tpu.ops.pallas_kernels import gram_colsum_pallas, linreg_stats_pallas
+from spark_rapids_ml_tpu.ops import pallas_kernels as pk
+from spark_rapids_ml_tpu.ops.pallas_kernels import (
+    gram_colsum_pallas,
+    linreg_stats_pallas,
+    newton_stats_pallas,
+    softmax_curvature_pallas,
+)
 from spark_rapids_ml_tpu_torch.ops import kernels
 from torch_port_helpers import jax_ledger_off
 
@@ -101,6 +114,35 @@ def test_plan_fills_the_card(d, rows):
     assert modelled <= 1.15 * floor
 
 
+@pytest.mark.parametrize("classes", [1, 3, 32])
+@pytest.mark.parametrize("d, rows", [(1024, 129838), (1024, 511943), (1000, 20001),
+                                     (8, 20001), (1024, 1), (8, 63)])
+def test_class_plan_covers_rows_and_classes(classes, d, rows):
+    """A weighted launch's plan: the splits cover the rows without gaps,
+    chosen for its pairs × classes blocks a split (tc_row_splits with
+    pairs × classes)."""
+    plan = kernels.gram_plan(d, rows, sms=132, classes=classes)
+    assert plan.classes == classes and plan.pairs == kernels.tc_tile_pairs(d)
+    assert (plan.splits, plan.split_rows) == kernels.tc_row_splits(
+        rows, len(plan.pairs) * classes, 132)
+    assert plan.split_rows % kernels.TC_STAGE_ROWS == 0
+    spans = [(s * plan.split_rows, min(rows, (s + 1) * plan.split_rows))
+             for s in range(plan.splits)]
+    assert spans[0][0] == 0 and spans[-1][1] == rows
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(spans, spans[1:]))
+    assert all(r1 > r0 for r0, r1 in spans)
+
+
+def test_class_plan_at_the_paths_shapes():
+    """Phase 12's launch (C = 32, 129,838 rows) is 4 splits of 1,152
+    (pair, class) blocks, 35 waves on 132 SMs; phase 11's Gram pass
+    (511,943 rows) 11 splits of 36 pairs, three full waves."""
+    soft = kernels.gram_plan(1024, 129838, sms=132, classes=32)
+    assert (len(soft.pairs), soft.classes, soft.splits) == (36, 32, 4)  # 4,608 blocks
+    newton = kernels.gram_plan(1024, 511943, sms=132)
+    assert (len(newton.pairs), newton.classes, newton.splits) == (36, 1, 11)  # 396 blocks
+
+
 # ---------------------------------------------------------------------------
 # The route
 # ---------------------------------------------------------------------------
@@ -117,6 +159,37 @@ def test_route_by_dtype_and_width(dtype, d, route):
     assert kernels.gram_route(torch.zeros((70, d), dtype=dtype)) == route
 
 
+@pytest.mark.parametrize("dtype, n, d, classes, route", [
+    (torch.bfloat16, 70, 1024, 1, "wgmma"),   # newton_stats at the path's width
+    (torch.bfloat16, 70, 1024, 32, "wgmma"),  # softmax_curvature at the path's C
+    (torch.bfloat16, 70, 1000, 3, "wgmma"),
+    (torch.bfloat16, 1, 8, 1, "wgmma"),
+    (torch.bfloat16, 70, 300, 3, "ffma"),
+    (torch.bfloat16, 70, 13, 1, "ffma"),
+    (torch.bfloat16, 0, 1024, 1, "ffma"),     # no rows: nothing for TMA to load
+    (torch.float32, 70, 1024, 32, "ffma"),
+])
+def test_weighted_route(dtype, n, d, classes, route):
+    """newton_stats and softmax_curvature route as the other two: their
+    (C, d, d) outputs are fresh, aligned allocations."""
+    hw = torch.zeros((classes, d, d))
+    assert kernels.gram_route(torch.zeros((n, d), dtype=dtype), hw) == route
+
+
+def test_weighted_route_needs_16_byte_alignment():
+    flat = torch.zeros(70 * 16 + 4, dtype=torch.bfloat16)
+    hw = torch.zeros(3 * 16 * 16 + 1)
+    assert kernels.gram_route(flat[:70 * 16].view(70, 16), hw[:-1].view(3, 16, 16)) == "wgmma"
+    assert kernels.gram_route(flat[:70 * 16].view(70, 16), hw[1:].view(3, 16, 16)) == "ffma"
+    assert kernels.gram_route(flat[4:].view(70, 16), hw[:-1].view(3, 16, 16)) == "ffma"
+
+
+def test_routes_count_the_four_routed_kernels():
+    assert set(kernels.ROUTES) == {f"{k}/{r}" for k in (
+        "gram_colsum", "linreg_stats", "newton_stats", "softmax_curvature")
+        for r in ("wgmma", "ffma")}
+
+
 def test_route_needs_rows_and_16_byte_alignment():
     flat = torch.zeros(70 * 16 + 4, dtype=torch.bfloat16)
     assert kernels.gram_route(flat[:70 * 16].view(70, 16)) == "wgmma"
@@ -131,6 +204,8 @@ def test_cpu_tensors_take_no_route():
     kernels.reset_launches()
     kernels.gram_colsum(x, 70)
     kernels.linreg_stats(x, torch.zeros(70))
+    kernels.newton_stats(x, torch.zeros(70), None, torch.zeros(16), torch.tensor(0.0))
+    kernels.softmax_curvature(x, torch.full((70, 3), 1 / 3))
     assert not any(kernels.ROUTES.values()) and not any(kernels.LAUNCHES.values())
 
 
@@ -228,3 +303,157 @@ def test_emulated_linreg_stats_matches_pallas(kind, seeded, masked):
     for got, want, s0 in zip(out, ref[:5], seed):
         np.testing.assert_allclose(got, np.asarray(want) + (s0 if seeded else 0), **TOL)
     assert n_rows == float(ref[5]) == (N if not masked else int(m.sum()))
+
+
+# ---------------------------------------------------------------------------
+# The weighted mode (newton_stats, softmax_curvature), emulated
+# ---------------------------------------------------------------------------
+
+C = 3
+# The rounding bound against the f32-weighted plain versions, over the
+# largest Σ|terms|: two bf16 roundings a term, independent over the rows.
+ROUNDING_BOUND = 2.0 ** -8
+
+
+def _bf16(a):
+    """The bf16 value (round to nearest even) of each float32 entry."""
+    t = torch.from_numpy(np.array(a, dtype=np.float32))
+    return t.to(torch.bfloat16).float().numpy()
+
+
+def _emulate_weighted(x, wt, plan, r=None):
+    """(G (C, d, d), colsum (C, d), xty (d,)) of the weighted mode: x (n, d)
+    float32 holding bf16 values, wt (C, n) float32 weights, r (n,) a
+    residual or None. Per (pair, split, class) block the A panel is
+    bf16(x·bf16(wt_c)) (the product of two bf16 is exact in f32, then
+    rounded once), B the raw panel; the diagonal pairs sum Xᵀwt_c and
+    Xᵀr from the raw panel in f32."""
+    n, d = x.shape
+    g = np.zeros((wt.shape[0], d, d), np.float32)
+    cs = np.zeros((wt.shape[0], d), np.float32)
+    xty = np.zeros((d,), np.float32)
+    for c in range(wt.shape[0]):
+        a = _bf16(x * _bf16(wt[c])[:, None])
+        for i, j in plan.pairs:
+            ci, cj = slice(128 * i, 128 * (i + 1)), slice(128 * j, 128 * (j + 1))
+            for s in range(plan.splits):
+                rs = slice(s * plan.split_rows, min(n, (s + 1) * plan.split_rows))
+                part = _split_partial(a[rs, ci], x[rs, cj], plan.promote)
+                g[c, ci, cj] += part
+                if i != j:
+                    g[c, cj, ci] += part.T
+                else:
+                    cs[c, ci] += (x[rs, ci] * wt[c, rs, None]).sum(0, dtype=np.float32)
+                    if r is not None:
+                        xty[ci] += (x[rs, ci].T @ r[rs]).astype(np.float32)
+    return g, cs, xty
+
+
+def _upper(d):
+    """Entries of the diagonal and upper 128-tile blocks: those the kernel
+    computes as the full product does (the lower blocks are the upper
+    ones mirrored, so there x_j·wt is rounded where the product rounds
+    x_i·wt)."""
+    t = np.arange(d) // 128
+    return t[:, None] <= t[None, :]
+
+
+def _weighted_plan(kind, classes):
+    if kind == "planned":  # the wrapper's own plan on an H100's 132 SMs
+        return kernels.gram_plan(D, N, sms=132, classes=classes)
+    # Three splits of six stages and a promotion every two stages.
+    return kernels.GramPlan(kernels.tc_tile_pairs(D), 3, 384, 2, classes)
+
+
+def _operand_gram(xj, wt):
+    """float64 product of the Pallas kernels' Hessian operand,
+    (x·wt.astype(bf16)) in jax as pallas_kernels.py:437 and :1117 round
+    it, with x: what the interpret-mode kernels compute, whose own bf16
+    dot on the CPU sums inexactly (about 5e-4 of Σ|terms|)."""
+    a = xj * jnp.asarray(wt, jnp.float32).astype(xj.dtype)[:, None]
+    a = np.asarray(a.astype(jnp.float32), np.float64)
+    return a.T @ np.asarray(xj.astype(jnp.float32), np.float64)
+
+
+def _newton_rows(xj, y, m, w, b, block_n=256):
+    """z, then r and wgt, by the same jax operations on the same (block_n,
+    d) blocks as the interpret-mode Pallas kernel, so that both round the
+    same weights to bf16."""
+    n, d = xj.shape
+    wpad = jnp.zeros((128, d), xj.dtype).at[0].set(jnp.asarray(w, xj.dtype))
+    z = jnp.concatenate([jax.lax.dot_general(
+        xj[r0:r0 + block_n], wpad, (((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.float32, precision=pk._dot_prec(xj.dtype))[:, :1]
+        for r0 in range(0, n, block_n)])[:, 0] + jnp.float32(b)
+    p = jax.nn.sigmoid(z)
+    r = (p - y) * m
+    wgt = jnp.maximum(p * (1.0 - p), 1e-10) * m
+    return np.asarray(r, np.float32), np.asarray(wgt, np.float32)
+
+
+@pytest.mark.parametrize("kind", ["planned", "split"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_emulated_newton_stats_matches_pallas(kind, masked):
+    """The weighted mode with C = 1, the row pass's residual and weight:
+    the Hessian's diagonal and upper tiles against the product of
+    ``newton_stats_pallas``'s own rounded operand (f32 sums in another
+    order), the whole Hessian within the rounding bound of the Pallas
+    kernel's and of the f32-weighted plain version's, the borders and
+    gradient against the plain version (both f32). w is rounded to bf16
+    first, as the Pallas wrapper rounds it, so both packages compute the
+    same z (Σwgt, f32 in both, checks it)."""
+    x, xj = _bf16_inputs(45)
+    rng = np.random.default_rng(46)
+    y = (rng.random(N) > 0.5).astype(np.float32)
+    m = np.ones((N,), np.float32)
+    if masked:
+        m[-100:] = 0.0
+    w = _bf16((rng.normal(size=(D,)) / np.sqrt(D)).astype(np.float32))
+    b = np.float32(0.3)
+    ref = newton_stats_pallas(xj, y, m, w, b, block_n=256, interpret=True)
+    r, wgt = _newton_rows(xj, y, m, w, b)
+    g, cs, xty = _emulate_weighted(x, wgt[None, :], _weighted_plan(kind, 1), r)
+    np.testing.assert_allclose(wgt.sum(dtype=np.float32), float(ref[4]), rtol=1e-5)
+    h_ref = np.asarray(ref[2])
+    up = _upper(D)
+    np.testing.assert_allclose(g[0][up], _operand_gram(xj, wgt)[up], rtol=1e-5, atol=2e-3)
+    scale = float((x * x * wgt[:, None]).sum(0).max())  # the largest Σ|terms|
+    assert np.abs(g[0] - h_ref).max() <= ROUNDING_BOUND * scale
+    plain = kernels.newton_stats_plain(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(y),
+                                       torch.from_numpy(m), torch.from_numpy(w), torch.tensor(b))
+    assert np.abs(g[0] - plain[2].numpy()).max() <= ROUNDING_BOUND * scale
+    assert np.abs(g[0] - plain[2].numpy()).max() > 0  # the operand is rounded
+    np.testing.assert_allclose(xty, plain[0].numpy(), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(cs[0], plain[3].numpy(), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["planned", "split"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_emulated_softmax_curvature_matches_pallas(kind, masked):
+    """The weighted mode over C = 3 classes (two Pallas class groups):
+    each curvature block's diagonal and upper tiles against the product of
+    ``softmax_curvature_pallas``'s own rounded operand, the whole block
+    within the rounding bound of the Pallas kernel's and of the plain
+    version's; the border Xᵀp_c, f32 in the port and summed from the
+    rounded operand in the Pallas kernel, equal to the plain version's and
+    within the rounding bound of Pallas'."""
+    x, xj = _bf16_inputs(47)
+    rng = np.random.default_rng(48)
+    logits = rng.normal(size=(N, C))
+    p = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    if masked:
+        p[-200:] = 0.0
+    p = p.astype(np.float32)
+    hw_j, hwb_j = softmax_curvature_pallas(xj, p, block_n=256, block_c=2, interpret=True)
+    g, cs, _ = _emulate_weighted(x, np.ascontiguousarray(p.T), _weighted_plan(kind, C))
+    hw_p, hwb_p = kernels.softmax_curvature_plain(torch.from_numpy(x).to(torch.bfloat16),
+                                                  torch.from_numpy(p))
+    up = _upper(D)
+    for c in range(C):
+        scale = float((x * x * p[:, c:c + 1]).sum(0).max())
+        np.testing.assert_allclose(g[c][up], _operand_gram(xj, p[:, c])[up], rtol=1e-5, atol=2e-3)
+        assert np.abs(g[c] - np.asarray(hw_j[c])).max() <= ROUNDING_BOUND * scale
+        assert np.abs(g[c] - hw_p[c].numpy()).max() <= ROUNDING_BOUND * scale
+        bscale = float((np.abs(x) * p[:, c:c + 1]).sum(0).max())
+        assert np.abs(cs[c] - np.asarray(hwb_j[c])).max() <= ROUNDING_BOUND * bscale
+    np.testing.assert_allclose(cs, hwb_p.numpy(), rtol=1e-5, atol=1e-3)

@@ -165,6 +165,8 @@ def test_kernel_source_exports_the_bound_symbols():
     ("gram", "srml_softmax_curvature", 9),
     ("gram", "srml_gram_colsum_tc", 13),
     ("gram", "srml_linreg_stats_tc", 17),
+    ("gram", "srml_newton_stats_tc", 20),
+    ("gram", "srml_softmax_curvature_tc", 13),
 ])
 def test_new_kernel_sources_export_the_bound_symbols(source, name, n_args):
     """As above, for the LinearRegression and KMeans kernels; the count

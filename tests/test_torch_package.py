@@ -434,3 +434,47 @@ def test_knn_kernels_match_plain_versions_on_card():
     out = kernels.probe_select(cent, qs, 20)
     ref = kernels.probe_select_plain(cent, qs, 20)
     assert all(bool((a == b).all()) for a, b in zip(out, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, n", [(8, 20001), (1000, 20001), (1024, 9001), (1024, 37)])
+def test_weighted_tensor_core_matches_plain_versions_on_card(d, n):
+    """On a CUDA card: bf16 newton_stats and softmax_curvature with
+    d % 8 == 0 take the tensor-core route. softmax_curvature agrees
+    BITWISE with its plain version on small-integer rows with dyadic
+    weights p in {0, 1/4, 1/2, 1} (bf16(x·bf16(p)) exact, every sum an
+    exact multiple of 1/4), for C in {1, 3, 32}; newton_stats' Hessian,
+    whose operand is bf16(x·bf16(wgt)), within 2⁻⁸ of the plain version's
+    largest Σ|terms|, its gradient and borders within 1e-5 (f32 on both);
+    float32 rows stay on the FFMA route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(d + n)
+    x = torch.randint(-3, 4, (n, d), generator=gen, device="cuda").to(torch.bfloat16)
+    quarters = torch.tensor([0.0, 0.25, 0.5, 1.0], device="cuda")
+    for c in (1, 3, 32):
+        p = quarters[torch.randint(0, 4, (n, c), generator=gen, device="cuda")]
+        before = kernels.ROUTES["softmax_curvature/wgmma"]
+        got = kernels.softmax_curvature(x, p)
+        assert kernels.ROUTES["softmax_curvature/wgmma"] == before + 1
+        want = kernels.softmax_curvature_plain(x, p)
+        assert all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    xg = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
+    y = (torch.rand((n,), generator=gen, device="cuda") < 0.5).float()
+    mask = (torch.rand((n,), generator=gen, device="cuda") < 0.7).float()
+    w = torch.randn((d,), generator=gen, device="cuda") / d ** 0.5
+    b = torch.tensor(0.3, device="cuda")
+    before = kernels.ROUTES["newton_stats/wgmma"]
+    out = kernels.newton_stats(xg, y, mask, w, b)
+    assert kernels.ROUTES["newton_stats/wgmma"] == before + 1
+    ref = kernels.newton_stats_plain(xg, y, mask, w, b)
+    xf = xg.float()
+    p1 = torch.sigmoid(xf @ w + b)
+    wgt = torch.clamp(p1 * (1 - p1), min=1e-10) * mask
+    assert float((out[2] - ref[2]).abs().max()) <= 2.0 ** -8 * float((xf * xf * wgt[:, None]).sum(0).max())
+    scale = float((xf.abs() * mask[:, None]).sum(0).max())
+    assert float((out[0] - ref[0]).abs().max()) <= 1e-5 * scale
+    assert float((out[3] - ref[3]).abs().max()) <= 1e-5 * scale
+    before = kernels.ROUTES["newton_stats/ffma"]
+    kernels.newton_stats(xg.float(), y, mask, w, b)
+    assert kernels.ROUTES["newton_stats/ffma"] == before + 1
