@@ -371,6 +371,100 @@ def phase_gram_tc(torch, kernels) -> None:
            lambda: kernels.gram_colsum(x[:, :256].contiguous(), 999))
 
 
+def phase_kmeans_tc(torch, kernels) -> None:
+    """The tensor-core route of lloyd_step and assign_min_dist (bf16,
+    d % 8 == 0) against their plain versions, bitwise: small-integer rows
+    and centres (|v| <= 8) make every product, score and sum an integer
+    below 2^24, exact in f32 in any order, so a wrong descriptor, swizzle,
+    chunk offset, tie rule or row count shows as a differing entry. The
+    shapes cover the fused pass (one and several resident chunks) and the
+    two-pass step (resident and streamed centres), n ragged across the
+    64-row tiles, n_valid past either end, and duplicated centres (exact
+    ties for every row, which must go to the lowest index), and k = 50,000
+    (streamed score constants: shared memory that does not grow with k).
+    First, the wrapper's copy of the shared-memory layout
+    (kernels.kmeans_smem_bytes) must equal kmeans.cu's own (tc_layout)."""
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = kernels._kmeans_lib()
+    layouts = 0
+    for fused, resident in ((True, True), (False, True), (False, False)):
+        for width in kernels.KMEANS_WIDTHS:
+            for k in (1, 7, 100, 129, 1024, 50_000):
+                for d in (8, 256, 768, 1000):
+                    for stages in range(1, kernels.KMEANS_MAX_STAGES + 1):
+                        want = lib.srml_kmeans_tc_smem(int(fused), width, k, d, int(resident),
+                                                       stages)
+                        got = kernels.kmeans_smem_bytes(fused, width, k, d, resident, stages)
+                        if got != want:
+                            fail(f"kmeans_smem_bytes{(fused, width, k, d, resident, stages)} = "
+                                 f"{got}, kmeans.cu's tc_layout = {want}")
+                        layouts += 1
+    print(f"ok    kmeans_smem_bytes equals kmeans.cu's tc_layout at {layouts} launches", flush=True)
+
+    def ints(*shape):
+        return torch.randint(-8, 9, shape, generator=gen, device=DEV).float()
+
+    n = 20001
+    seen = set()
+    shapes = [(d, k) for d in (8, 256, 768, 1000) for k in (1, 7, 100, 129, 1024)]
+    x = None
+    for d, k in shapes + [(256, 50_000)]:
+        if x is None or x.shape[1] != d:
+            x = ints(n, d).to(torch.bfloat16)
+        c = ints(k, d)
+        if k > 2:  # exact ties: the duplicates must never win
+            c[k - 1] = c[1]
+            c[k // 2] = c[1]
+        c = c.to(torch.bfloat16)
+        lp = kernels.kmeans_plan(k, d, "wgmma", n, sms)
+        ap = kernels.kmeans_plan(k, d, "wgmma", n, sms, lloyd=False)
+        kind = ("fused" if lp.fused else "two-pass", "resident" if ap.resident else "streamed")
+        seen.add(kind)
+        tag = f"bf16 ints n={n} d={d} k={k} ({kind[0]} Lloyd, {kind[1]} centres, width " \
+              f"{lp.width})"
+        ik, dk = routed(torch, kernels, "assign_min_dist", "wgmma",
+                        lambda: kernels.assign_min_dist(x, c))
+        ip, dp = kernels.assign_min_dist_plain(x, c)
+        check_equal(torch, ik, ip, f"assign_min_dist wgmma {tag} idx")
+        check_equal(torch, dk, dp, f"assign_min_dist wgmma {tag} dist")
+        if k > 2:
+            check(not bool(((ik == k - 1) | (ik == k // 2)).any()),
+                  f"assign_min_dist wgmma {tag}: duplicated centres never win")
+        for n_valid in (0, 1, 1234, n, n + 5):
+            sk, ck = routed(torch, kernels, "lloyd_step", "wgmma",
+                            lambda: kernels.lloyd_step(x, c, n_valid))
+            sp, cp = kernels.lloyd_step_plain(x, c, n_valid)
+            check_equal(torch, sk, sp, f"lloyd_step wgmma {tag} n_valid={n_valid} sums")
+            check_equal(torch, ck, cp, f"lloyd_step wgmma {tag} n_valid={n_valid} counts")
+        print(f"ok    {tag}: idx, dist, sums and counts bitwise at n_valid in "
+              f"{{0, 1, 1234, n, n + 5}}", flush=True)
+    check(len({s for s, _ in seen}) == 2 and len({r for _, r in seen}) == 2,
+          f"phase 2 covered both Lloyd passes and both centre layouts: {sorted(seen)}")
+    # The FFMA route: bf16 at d = 300 and d = 13 (row strides TMA cannot
+    # take), and float32.
+    for d, dtype in ((300, torch.bfloat16), (13, torch.bfloat16), (256, torch.float32)):
+        x = ints(999, d).to(dtype)
+        c = ints(37, d).to(dtype)
+        ik, _ = routed(torch, kernels, "assign_min_dist", "ffma",
+                       lambda: kernels.assign_min_dist(x, c))
+        check_equal(torch, ik, kernels.assign_min_dist_plain(x, c)[0],
+                    f"assign_min_dist ffma d={d} {str(dtype)[6:]} idx")
+        sk, ck = routed(torch, kernels, "lloyd_step", "ffma",
+                        lambda: kernels.lloyd_step(x, c, 999))
+        sp, cp = kernels.lloyd_step_plain(x, c, 999)
+        check_equal(torch, sk, sp, f"lloyd_step ffma d={d} {str(dtype)[6:]} sums")
+        check_equal(torch, ck, cp, f"lloyd_step ffma d={d} {str(dtype)[6:]} counts")
+    # The FFMA two-pass step (k x d sums past shared memory), f32.
+    x = ints(5001, 768)
+    c = ints(1024, 768)
+    sk, ck = routed(torch, kernels, "lloyd_step", "ffma", lambda: kernels.lloyd_step(x, c, 5001))
+    sp, cp = kernels.lloyd_step_plain(x, c, 5001)
+    check_equal(torch, sk, sp, "lloyd_step ffma two-pass f32 d=768 k=1024 sums")
+    check_equal(torch, ck, cp, "lloyd_step ffma two-pass f32 d=768 k=1024 counts")
+    print("ok    FFMA route: d=300, d=13 and f32 report ffma; its two-pass step bitwise", flush=True)
+
+
 #: Bound of the tensor-core route's Hessian/curvature against the plain
 #: (f32-weighted) version, over each output's largest Σ|terms|: each term
 #: is rounded twice (bf16(wt), then bf16(x·bf16(wt))), at most 2⁻⁸ of it
@@ -607,6 +701,30 @@ def span_seconds(prof, name: str) -> float:
     return sum(e.time_range.elapsed_us() for e in prof.events() if e.name == name) / 1e6
 
 
+def torch_route(torch, kernels, x, c, lloyd):
+    """The KMeans kernels' function through PyTorch calls alone, the
+    second yardstick: per 4M-row chunk a bf16 torch.matmul for the
+    products, the scores in f32, first_argmin, then index_add_ and
+    bincount for a Lloyd step (or a gather of the minimum)."""
+    from spark_rapids_ml_tpu_torch.ops.distances import first_argmin
+
+    k = c.shape[0]
+    cn = kernels.center_norms(c, half=lloyd)
+    sums = torch.zeros((k, x.shape[1]), device=DEV)
+    counts = torch.zeros((k,), dtype=torch.int64, device=DEV)
+    out = []
+    for r0 in range(0, x.shape[0], 1 << 22):
+        xv = x[r0:r0 + (1 << 22)]
+        scores = cn[None, :] - (1.0 if lloyd else 2.0) * torch.matmul(xv, c.T).float()
+        a = first_argmin(scores)
+        if lloyd:
+            sums.index_add_(0, a, xv.float())
+            counts += torch.bincount(a, minlength=k)
+        else:
+            out.append(scores.gather(1, a[:, None]))
+    return (sums, counts) if lloyd else out
+
+
 def blob_rows(torch, gen, centers, cdf, rows, dtype):
     """Rows of the blob mixture: a centre drawn by the cumulative weights
     ``cdf``, plus gaussian noise of scale KM_NOISE; made in 1M-row chunks."""
@@ -666,10 +784,16 @@ def phase_kmeans(torch, kernels, km, config):
         sol = km.fit_kmeans(x, KM_K, max_iter=KM_MAX_ITER, tol=KM_TOL, seed=0)
         fit_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    routes = dict(kernels.ROUTES)
     check(launches["lloyd_step"] == sol.n_iter,
           f"lloyd_step launches {launches['lloyd_step']} == n_iter {sol.n_iter}")
     check(launches["assign_min_dist"] == 1,
           f"assign_min_dist launches {launches['assign_min_dist']} == 1 (the cost)")
+    check(routes["lloyd_step/wgmma"] == sol.n_iter and routes["assign_min_dist/wgmma"] == 1
+          and routes["lloyd_step/ffma"] == routes["assign_min_dist/ffma"] == 0,
+          f"every KMeans launch on the bf16 rows took the tensor-core route (fused "
+          f"{kernels.kmeans_plan(KM_K, KM_D, 'wgmma', KM_ROWS, 132).fused}): "
+          + str({k_: v for k_, v in routes.items() if k_.split('/')[0] in ('lloyd_step', 'assign_min_dist')}))
     init_s, lloyd_s = span_seconds(prof, "kmeans init"), span_seconds(prof, "lloyd")
     print(f"kmeans fit: {fit_s:.3f} s = init (host k-means++) {init_s:.3f} s + Lloyd "
           f"{lloyd_s:.3f} s for {sol.n_iter} iterations and the cost pass: "
@@ -1443,6 +1567,7 @@ def phase_knn(torch, kernels, config):
                .setNprobe(KNN_NPROBE).fit({"features": x}))
         build_s = time.perf_counter() - t0
     b_launches = dict(kernels.LAUNCHES)
+    b_routes = dict(kernels.ROUTES)
     maxlen = ann.index.lists.shape[1]
     print(f"ivf build: {build_s:.3f} s, maxlen {maxlen} (cap {2 * KNN_ROWS // KNN_NLIST}), "
           f"launches lloyd_step {b_launches['lloyd_step']}, assign_min_dist "
@@ -1451,6 +1576,14 @@ def phase_knn(torch, kernels, config):
           f"{span_seconds(prof, 'lloyd'):.3f} s (host clock)", flush=True)
     check(b_launches["lloyd_step"] >= 1 and b_launches["assign_min_dist"] >= 1 + -(-KNN_ROWS // (1 << 18)),
           "ivf build: the quantizer's Lloyd steps and the chunked assignment ran on the kernels")
+    # The quantizer's fit scores bf16 rows (its Lloyd steps, two-pass at
+    # k = 1,024 and d = 768, and its cost pass); the assignment chunks are f32.
+    check(b_routes["lloyd_step/wgmma"] == b_launches["lloyd_step"]
+          and b_routes["assign_min_dist/wgmma"] == 1
+          and b_routes["assign_min_dist/ffma"] == b_launches["assign_min_dist"] - 1,
+          "ivf build: every bf16 lloyd_step and assign_min_dist launch took the tensor-core "
+          "route, the f32 chunks the FFMA route: "
+          + str({k_: v for k_, v in b_routes.items() if k_.split('/')[0] in ('lloyd_step', 'assign_min_dist')}))
     gt_d, gt_i = brute_force64(torch, x, qs, KNN_K)
     captured = {}
     orig_probe, orig_scan = kernels.probe_select, kernels.ivf_scan_select
@@ -1601,6 +1734,41 @@ def phase_knn(torch, kernels, config):
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
     })
     print(f"ivf scan shape: nlist {nl}, C {c_}, maxlen {ml}, blk_k {blk_k}", flush=True)
+    # The IVF quantizer's Lloyd step (the phase-17 fit's k = 1,024, d = 768
+    # on the bf16 rows): two passes on the tensor-core route.
+    xq, cq = x.to(torch.bfloat16), cent.to(torch.bfloat16).contiguous()
+    plan = kernels.kmeans_plan(KNN_NLIST, KNN_D, kernels.kmeans_route(xq, cq), KNN_ROWS,
+                               torch.cuda.get_device_properties(0).multi_processor_count)
+    check_assign(torch, kernels, xq, cq, f"assign_min_dist wgmma {KNN_ROWS} x {KNN_D} "
+                 f"k={KNN_NLIST} (the IVF quantizer)")
+    ms_l = time_ms(lambda: kernels.lloyd_step(xq, cq, KNN_ROWS), 3)
+    ms_a = time_ms(lambda: kernels.assign_min_dist(xq, cq), 3)
+    lib_q = time_ms(lambda: torch.matmul(xq, cq.T), 3)
+    sum_k, cnt_k = kernels.lloyd_step(xq, cq, KNN_ROWS)
+    sum_p, cnt_p = kernels.lloyd_step_plain(xq, cq, KNN_ROWS)
+    # The step against the plain version: counts equal as integers (every
+    # index above was equal, no near ties), sums against float64 sums of
+    # the plain assignment within 1e-5 of each centre's largest column
+    # Σ|x| (phase 10's tolerance, per centre: f32 sums of ~1,000 rows in
+    # another order).
+    check_equal(torch, cnt_k, cnt_p, f"lloyd_step wgmma two-pass {KNN_ROWS} x {KNN_D} "
+                                     f"k={KNN_NLIST} counts")
+    sums64 = torch.zeros(cq.shape, dtype=torch.float64, device=DEV)
+    for r0 in range(0, KNN_ROWS, 1 << 18):
+        xv = xq[r0:r0 + (1 << 18)]
+        sums64.index_add_(0, kernels.assign_min_dist_plain(xv, cq)[0].long(), xv.double())
+    scale_q = center_abs_sums(torch, kernels, xq, cq).amax(dim=1).double().clamp_min(1e-30)
+    err_q = float(((sum_k.double() - sums64).abs().amax(dim=1) / scale_q).max())
+    err_qp = float(((sum_p.double() - sums64).abs().amax(dim=1) / scale_q).max())
+    check(err_q <= 1e-5, f"lloyd_step wgmma two-pass {KNN_ROWS} x {KNN_D} k={KNN_NLIST} sums vs "
+                         f"float64: {err_q:.2e} of each centre's largest Σ|x| (tol 1e-5), "
+                         f"plain's {err_qp:.2e}")
+    del sums64, sum_k, sum_p
+    b_q, by_q = bound_ms(KNN_ROWS * KNN_D * 2 + KNN_NLIST * KNN_D * 6 + KNN_NLIST * 8,
+                         2 * KNN_ROWS * KNN_NLIST * KNN_D + KNN_ROWS * KNN_D, "bfloat16")
+    print(f"ivf quantizer lloyd_step at {KNN_ROWS} x {KNN_D} bf16, k={KNN_NLIST} ({plan}): "
+          f"{ms_l:.3f} ms per iteration, assign_min_dist {ms_a:.3f} ms, the product alone "
+          f"{lib_q:.3f} ms, bound {b_q:.3f} by {by_q}", flush=True)
     return rows_t
 
 
@@ -1646,6 +1814,7 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # -- 2. kernels against their plain versions -----------------------------
+    phase_kmeans_tc(torch, kernels)
     phase_gram_tc(torch, kernels)
     phase_weighted_tc(torch, kernels)
     phase_kernels(torch, kernels)
@@ -1826,8 +1995,11 @@ def main() -> None:
     ms = time_ms(lambda: kernels.lloyd_step(xk, ck, n), 3)
     plain_ms = time_ms(lambda: kernels.lloyd_step_plain(xk, ck, n), 2)
     # Yardstick: no PyTorch call computes a Lloyd step; the distance product
-    # alone (bf16 in and out, tensor cores) is timed.
+    # alone (bf16 in and out, tensor cores) is timed, and beside it the
+    # whole PyTorch route of each kernel (torch_route below).
     lib_ms = time_ms(lambda: torch.matmul(xk, ck.T), 5)
+    route_l = time_ms(lambda: torch_route(torch, kernels, xk, ck, lloyd=True), 2)
+    route_a = time_ms(lambda: torch_route(torch, kernels, xk, ck, lloyd=False), 2)
     sk, nk = kernels.lloyd_step(xk, ck, n)
     sp, np_ = kernels.lloyd_step_plain(xk, ck, n)
     means64, counts64, _ = lloyd_reference(torch, xk, ck.float().cpu().numpy(), ck.dtype)
@@ -1852,7 +2024,7 @@ def main() -> None:
         "replaces": REPLACES["lloyd_step"], "launches": km_launches["lloyd_step"],
         "max_abs_err": float((sk - sp).abs().max()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms,
+        "library_ms": lib_ms, "torch_route_ms": route_l,
     })
     ms = time_ms(lambda: kernels.assign_min_dist(xk, ck), 3)
     plain_ms = time_ms(lambda: kernels.assign_min_dist_plain(xk, ck), 2)
@@ -1867,8 +2039,12 @@ def main() -> None:
         "replaces": REPLACES["assign_min_dist"], "launches": km_launches["assign_min_dist"],
         "max_abs_err": float((dk - dp).abs().max()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms,
+        "library_ms": lib_ms, "torch_route_ms": route_a,
     })
+    print(f"kmeans kernels at {n} x {d} bf16, k={k}: lloyd_step {table[-2]['ms']:.3f} ms, "
+          f"assign_min_dist {ms:.3f} ms; the product alone {lib_ms:.3f} ms; the whole PyTorch "
+          f"route (bf16 matmul + first_argmin + index_add_ + bincount) {route_l:.3f} ms, "
+          f"(matmul + first_argmin + gather) {route_a:.3f} ms", flush=True)
     del xk, ik, dk, ip, dp, sk, sp
     torch.cuda.empty_cache()
 
@@ -1937,7 +2113,9 @@ def main() -> None:
     table += phase_knn(torch, kernels, config)
     for row in table:
         row["design"] = ("wgmma+tma syrk" if row["name"] in (
-            "gram_colsum", "linreg_stats", "newton_stats", "softmax_curvature") else "ffma tiles")
+            "gram_colsum", "linreg_stats", "newton_stats", "softmax_curvature") else
+            "wgmma+tma scoring, argmin epilogue" if row["name"] in (
+                "lloyd_step", "assign_min_dist") else "ffma tiles")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
               f"library {row['library_ms']:.3f}, bound {row['bound_ms']:.3f} by "
               f"{row['bound_by']}), {row['launches']} launches on the main path")

@@ -3,7 +3,8 @@
 Each ``ops/csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` beside the
 package (``SRML_TORCH_BUILD_DIR`` overrides the directory), named by a hash
-of the source and the flags, and loaded with ``ctypes``. A second process,
+of the source, the shared headers (``csrc/*.cuh``) and the flags, and
+loaded with ``ctypes``. A second process,
 or a later run, finds the library already built. Nothing here runs on
 import: the CPU-only machines that run the tests have no ``nvcc``.
 """
@@ -52,8 +53,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library of ``csrc/<name>.cu``: a change to the source, to any
+    shared header it may include or to the flags names another file."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return build_dir() / f"{name}-{digest}.so"
 
 

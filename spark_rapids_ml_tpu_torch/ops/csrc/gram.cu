@@ -157,14 +157,17 @@
 // once per pair it belongs to). Index arithmetic is 64-bit: 262,144 x 2048
 // f32 is exactly 2^31 bytes.
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder comes through the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace srml_hopper;  // NOLINT: mbarriers, TMA, wgmma, tensor maps
 
 constexpr int kTile = 128;                        // G tile edge
 constexpr int kChunk = 16;                        // rows staged per step
@@ -468,168 +471,11 @@ constexpr int kTcSmemBytes =
 constexpr int kTcThreads = 384;     // warpgroup 0: producer and helpers; 1-2: consumers
 constexpr int kTcConsumers = 256;
 constexpr int kTcEntryRegs = 168;   // 65536 / 384, what setmaxnreg 40 / 232 balances
-constexpr long long kTcWaitNs = 10000000000LL;  // a barrier wait past this traps
-constexpr int kErrTensorMap = 1000;  // + CUresult: cuTensorMapEncodeTiled failed
-constexpr int kErrNoEncoder = 1999;  // the driver has no cuTensorMapEncodeTiled
-constexpr int kErrRegisters = 1998;  // ptxas did not give the kernel kTcEntryRegs
 
 static_assert(kTcDataBytes >= kTcEpiBytes && kTcSmemBytes <= 232448, "shared memory");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t start = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    const uint64_t now = global_ns();
-    if (start == 0) {
-      start = now;
-    } else if (now - start > static_cast<uint64_t>(kTcWaitNs)) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
-      : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
 __device__ __forceinline__ void consumer_sync() {  // the 256 consumer threads
   asm volatile("bar.sync 1, 256;" ::: "memory");
-}
-
-// wgmma descriptor of an MN-major operand in the 128-byte swizzle: 8-row
-// atoms of 128-byte rows `sbo` bytes apart along K, 64-element column
-// blocks `lbo` bytes apart along M (or N).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma that owns them.
-__device__ __forceinline__ void fence_acc(float (&acc)[64]) {
-#pragma unroll
-  for (int v = 0; v < 64; ++v) asm volatile("" : "+f"(acc[v])::"memory");
-}
-
-#define SRML_ACC8(i)                                                              \
-  "+f"(acc[i]), "+f"(acc[i + 1]), "+f"(acc[i + 2]), "+f"(acc[i + 3]), "+f"(acc[i + 4]), \
-      "+f"(acc[i + 5]), "+f"(acc[i + 6]), "+f"(acc[i + 7])
-
-// acc (64 x 128 f32 fragment) = [acc if scale_d] + Aᵀ-tile · B-tile, both
-// bf16 MN-major (transpose bits 1, 1).
-__device__ __forceinline__ void wgmma_m64n128k16(float (&acc)[64], uint64_t da, uint64_t db,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16"
-      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
-      " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34,"
-      " %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51,"
-      " %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 1, 1;\n}\n"
-      : SRML_ACC8(0), SRML_ACC8(8), SRML_ACC8(16), SRML_ACC8(24), SRML_ACC8(32), SRML_ACC8(40),
-        SRML_ACC8(48), SRML_ACC8(56)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// The same with A in registers: a 64 x 16 bf16 tile in wgmma's register
-// fragment layout (warp w of the warpgroup rows 16w..16w+15; a thread's
-// four b32 hold (row g, k 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..),
-// (g + 8, 2t + 8..) for g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&acc)[64], const uint32_t (&a)[4],
-                                                    uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16"
-      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
-      " %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34,"
-      " %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51,"
-      " %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : SRML_ACC8(0), SRML_ACC8(8), SRML_ACC8(16), SRML_ACC8(24), SRML_ACC8(32), SRML_ACC8(40),
-        SRML_ACC8(48), SRML_ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-#undef SRML_ACC8
-
-// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8j..8j+7
-// give the 16-byte rows of matrix j, and each thread gets, in register j,
-// two consecutive ROWS of matrix j at column lane / 4 (rows 2(lane % 4)
-// and 2(lane % 4) + 1, the first in the low half).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// Keeps A fragments in their registers while a wgmma that reads them may
-// still be in flight (the compiler sees the asm consume them at issue).
-__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-#pragma unroll
-    for (int v = 0; v < 4; ++v) asm volatile("" : "+r"(a[k][v])::"memory");
-  }
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Adds `bytes` of f32 from shared memory into global memory (TMA reduce).
-__device__ __forceinline__ void bulk_add_f32(float* dst, const float* src, uint32_t bytes) {
-  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;"
-               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
 }
 
 struct TcPlan {
@@ -1026,29 +872,6 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver call; the runtime hands out its entry
-// point, so the library links no libcuda of its own.
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(p)
-                                                                   : nullptr;
-  }();
-  return fn;
-}
-
 // One tensor-core launch over a plan the wrapper made: the (n_pairs, 2)
 // int32 tile pairs on the device, each for `classes` classes (kWeighted;
 // else 1), `splits` row splits of `split_rows` rows covering `rows`, a
@@ -1066,25 +889,11 @@ int launch_tc(const void* x, long long rows, long long d, const int* pairs, int 
       promote < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static const int regs = [] {
-    cudaFuncAttributes attr{};
-    const void* fn = reinterpret_cast<const void*>(&gram_tc_kernel<kMode>);
-    return cudaFuncGetAttributes(&attr, fn) == cudaSuccess ? attr.numRegs : -1;
-  }();
+  static const int regs = kernel_registers(reinterpret_cast<const void*>(&gram_tc_kernel<kMode>));
   if (regs != kTcEntryRegs) return kErrRegisters;  // setmaxnreg would starve or not apply
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return kErrNoEncoder;
   CUtensorMap map;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(rows > 0 ? rows : 1)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {kTcBox, kTcRows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return kErrTensorMap + static_cast<int>(r);
+  const int rc = bf16_tensor_map(&map, x, rows, d, kTcRows);
+  if (rc != 0) return rc;
   const cudaError_t e =
       cudaFuncSetAttribute(reinterpret_cast<const void*>(&gram_tc_kernel<kMode>),
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemBytes);

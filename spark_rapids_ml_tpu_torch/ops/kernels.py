@@ -39,11 +39,15 @@ nearest-neighbour kernels in ``csrc/knn.cu`` (design notes there).
 ``softmax_curvature`` with d % 8 == 0 a tensor-core body (wgmma fed by TMA
 over the upper-triangle tile pairs; the weighted pair rounds its Hessian
 operand to bf16 as the Pallas kernels do); :func:`gram_route` says which
-a launch takes and :func:`gram_plan` lays out the tensor-core launch. A
-wrapper takes its plain PyTorch
+a launch takes and :func:`gram_plan` lays out the tensor-core launch.
+``kmeans.cu`` has two bodies too: FFMA tiles, and for bfloat16 with
+d % 8 == 0 a tensor-core scoring body (wgmma fed by TMA, an argmin
+epilogue with ties to the lowest index); :func:`kmeans_route` and
+:func:`kmeans_plan` choose the body and the launch (a fused Lloyd pass,
+or the assignment then a sums pass). A wrapper takes its plain PyTorch
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises — there is no fallback. Each launch adds one to
-:data:`LAUNCHES` (and, for the four routed kernels, to :data:`ROUTES`),
+:data:`LAUNCHES` (and, for the six routed kernels, to :data:`ROUTES`),
 so a run can show that it went through the kernels. The
 plain versions repeat the kernels' arithmetic (f32 products of the input
 values, f32 sums; TF32 is off for the whole package, see ``__init__``;
@@ -69,9 +73,11 @@ LAUNCHES = {"gram": 0, "gram_colsum": 0, "linreg_stats": 0, "lloyd_step": 0,
             "dist_topk": 0, "probe_select": 0, "ivf_scan_select": 0}
 
 #: Launches of the routed kernels by "<kernel>/<route>": "wgmma" is the
-#: tensor-core body of ``gram.cu``, "ffma" its CUDA-core tile body.
+#: tensor-core body of ``gram.cu`` or ``kmeans.cu``, "ffma" its CUDA-core
+#: tile body.
 ROUTES = {f"{k}/{r}": 0 for k in ("gram_colsum", "linreg_stats", "newton_stats",
-                                  "softmax_curvature") for r in ("wgmma", "ffma")}
+                                  "softmax_curvature", "lloyd_step", "assign_min_dist")
+          for r in ("wgmma", "ffma")}
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -152,6 +158,15 @@ def _kmeans_lib() -> ctypes.CDLL:
     lib.srml_lloyd_step.restype = i32
     lib.srml_assign_min_dist.argtypes = [ptr, ptr, i32, ptr, i64, i64, i64, ptr, ptr, ptr]
     lib.srml_assign_min_dist.restype = i32
+    lib.srml_lloyd_sums.argtypes = [ptr, i32, ptr, i64, i64, i64, i32, i32, i64, ptr, ptr, ptr]
+    lib.srml_lloyd_sums.restype = i32
+    lib.srml_lloyd_step_tc.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, i32, i32, ptr, ptr, ptr]
+    lib.srml_lloyd_step_tc.restype = i32
+    lib.srml_assign_min_dist_tc.argtypes = [ptr, ptr, ptr, i64, i64, i64, i32, i32, i32, ptr, ptr,
+                                            ptr]
+    lib.srml_assign_min_dist_tc.restype = i32
+    lib.srml_kmeans_tc_smem.argtypes = [i32, i32, i64, i64, i32, i32]
+    lib.srml_kmeans_tc_smem.restype = i32
     return lib
 
 
@@ -491,6 +506,131 @@ def linreg_stats(
 # ---------------------------------------------------------------------------
 
 
+class KMeansPlan(NamedTuple):
+    """A KMeans launch (``csrc/kmeans.cu``). ``fused``: a Lloyd step in one
+    pass (sums beside the scoring); else the scoring pass writes an (n,)
+    index scratch and a sums pass follows. Tensor-core route: centre
+    chunks of ``width`` (a :data:`KMEANS_WIDTHS` entry), ``resident`` in
+    shared memory or streamed beside x, a ring of ``stages``. Sums pass:
+    blocks of ``slab`` columns x ``kchunk`` centres x one of ``splits`` row
+    splits (0 when there is none)."""
+
+    fused: bool
+    width: int
+    resident: bool
+    stages: int
+    slab: int = 0
+    kchunk: int = 0
+    splits: int = 0
+
+
+#: Centre chunk widths of the tensor-core scoring body, the wgmma n values
+#: ``kmeans.cu`` instantiates: 104, the narrowest multiple of 8 that holds
+#: the KMeans path's k = 100 in one chunk with room for its fused pass, for
+#: every k <= 104 (a smaller k pads: the same tensor-core issue as k = 100,
+#: under the card's balance, and 104·d·2 bytes of resident centres), and
+#: 256, the widest wgmma, in chunks for every larger k.
+KMEANS_WIDTHS = (104, 256)
+#: The shared memory a block may use, and the ring depth the body allows.
+KMEANS_SMEM_LIMIT, KMEANS_MAX_STAGES = 232448, 8
+#: The FFMA body's scoring buffers (two 32 x 132 f32 panels, 128 rows' best).
+KMEANS_FFMA_SCORE_SMEM = (2 * 32 * 132 + 2 * 128) * 4
+#: The sums pass: threads a block (one column each, at most this many
+#: columns a slab), the shared memory it aims at (two blocks an SM) and
+#: the blocks it aims at per SM.
+SUMS_THREADS, SUMS_SMEM_TARGET, SUMS_BLOCKS_PER_SM = 512, 100 * 1024, 4
+
+
+def kmeans_width(k: int) -> int:
+    """The centre chunk width for k centres: the smallest width that holds
+    them all, or chunks of 256."""
+    return next((w for w in KMEANS_WIDTHS if w >= k), KMEANS_WIDTHS[-1])
+
+
+def kmeans_smem_bytes(fused: bool, width: int, k: int, d: int, resident: bool,
+                      stages: int) -> int:
+    """Shared memory of a tensor-core launch, a copy of ``tc_layout``'s
+    total in kmeans.cu (``srml_kmeans_tc_smem``; chip_smoke.py's phase 2
+    holds the two equal): the ring, the resident centres, the fused pass's
+    f32 sums, the score constants (resident: every chunk's; streamed: two
+    chunk buffers for each consumer warpgroup), the fused pass's per-stage
+    assignments and counts, the mbarriers and 1 KB of alignment slack."""
+    kboxes, chunks = -(-d // 64), -(-k // width)
+    stage = kboxes * 8192 if resident else 2 * 8192 + 128 * width
+    off = stages * stage + (chunks * kboxes * 128 * width if resident else 0)
+    if fused:
+        off += 4 * k * d
+    off += 4 * (chunks if resident else 4) * width
+    if fused:
+        off += 4 * stages * 64 + 4 * k
+    off = -(-off // 8) * 8 + 8 * (3 * stages + 1)
+    return off + 1024
+
+
+def _tc_stages(fused: bool, width: int, k: int, d: int, resident: bool) -> int:
+    """The deepest ring (at most KMEANS_MAX_STAGES) that fits, or 0."""
+    for stages in range(KMEANS_MAX_STAGES, 0, -1):
+        if kmeans_smem_bytes(fused, width, k, d, resident, stages) <= KMEANS_SMEM_LIMIT:
+            return stages
+    return 0
+
+
+def sums_plan(k: int, d: int, rows: int, sms: int) -> Tuple[int, int, int]:
+    """(slab, kchunk, splits) of the two-pass Lloyd step's sums pass: all k
+    centres a block when at least 8 columns (or all d) of them fit the
+    shared-memory target, else 8-column slabs over centre chunks; then
+    row splits for about SUMS_BLOCKS_PER_SM blocks an SM."""
+    per = SUMS_SMEM_TARGET // 4  # floats (a count takes one per centre)
+    slab = min(d, SUMS_THREADS, per // k - 1) if per // k - 1 >= 1 else 0
+    if slab >= min(d, 8):
+        slab = slab if slab >= d or slab < 8 else slab // 8 * 8
+        kchunk = k
+    else:
+        slab = min(d, 8)
+        kchunk = per // (slab + 1)
+    blocks = -(-d // slab) * -(-k // kchunk)
+    splits = max(1, min(-(-SUMS_BLOCKS_PER_SM * sms // blocks), -(-max(rows, 1) // 64), 65535))
+    return slab, kchunk, splits
+
+
+def kmeans_plan(k: int, d: int, route: str, rows: int, sms: int,
+                lloyd: bool = True) -> KMeansPlan:
+    """The launch plan of a ``lloyd_step`` (``lloyd``) or ``assign_min_dist``
+    over ``rows`` rows of an (n, d) matrix against k centres on a card of
+    ``sms`` SMs. A Lloyd step is fused when its (k, d) f32 sums fit in
+    shared memory beside the scoring (tensor cores: the resident centres
+    and a two-stage ring; FFMA: the tile buffers); otherwise it is two
+    passes, the assignment and then the sums pass of :func:`sums_plan`,
+    and no row is scored twice. Centres that do not fit in shared memory
+    beside a two-stage ring are streamed, whose shared memory does not
+    grow with k or d: every k and d has a tensor-core plan."""
+    width = kmeans_width(k)
+    if route == "wgmma":
+        if lloyd:
+            stages = _tc_stages(True, width, k, d, True)
+            if stages >= 2:
+                return KMeansPlan(True, width, True, stages)
+        resident = _tc_stages(False, width, k, d, True) >= 2
+        plan = KMeansPlan(False, width, resident, _tc_stages(False, width, k, d, resident))
+    else:
+        fused = lloyd and KMEANS_FFMA_SCORE_SMEM + 4 * k * (d + 1) <= KMEANS_SMEM_LIMIT
+        plan = KMeansPlan(fused, 0, False, 0)
+    if lloyd and not plan.fused:
+        plan = plan._replace(**dict(zip(("slab", "kchunk", "splits"), sums_plan(k, d, rows, sms))))
+    return plan
+
+
+def kmeans_route(x: torch.Tensor, centers: torch.Tensor, *outs: torch.Tensor) -> str:
+    """Which body of ``kmeans.cu`` a ``lloyd_step``/``assign_min_dist``
+    launch on x takes: "wgmma" for bfloat16 with d % 8 == 0 (TMA needs a
+    16-byte row stride), at least one row, and x, the centres and the
+    outputs 16-byte aligned; "ffma" otherwise (float32 stays in full f32
+    FFMA: TF32 is off)."""
+    n, d = x.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, centers, *outs))
+    return "wgmma" if x.dtype == torch.bfloat16 and d % 8 == 0 and n > 0 and aligned else "ffma"
+
+
 def center_norms(centers: torch.Tensor, half: bool) -> torch.Tensor:
     """float32 ‖c‖² (or ½‖c‖²) of centres already in the compute dtype —
     the scores' constant terms, as the Pallas wrappers compute them."""
@@ -536,6 +676,20 @@ def lloyd_step_plain(x: torch.Tensor, centers: torch.Tensor, n_valid: int):
     return sums, counts.float()
 
 
+def lloyd_sums_plain(x: torch.Tensor, idx: torch.Tensor, k: int):
+    """Plain version of the two-pass Lloyd step's sums pass: (sums (k, d),
+    counts (k,)) float32 of the first len(idx) rows of x, row r added to
+    centre idx[r]."""
+    rows = idx.shape[0]
+    sums = torch.zeros((k, x.shape[1]), dtype=torch.float32, device=x.device)
+    counts = torch.zeros((k,), dtype=torch.int64, device=x.device)
+    for r0 in range(0, rows, PLAIN_ROW_CHUNK):
+        a = idx[r0:r0 + PLAIN_ROW_CHUNK].long()
+        sums.index_add_(0, a, x[r0:r0 + a.shape[0]].float())
+        counts += torch.bincount(a, minlength=k)
+    return sums, counts.float()
+
+
 def lloyd_step(x: torch.Tensor, centers: torch.Tensor, n_valid: int):
     """One Lloyd step over the first ``n_valid`` rows of an (n, d)
     float32/bfloat16 matrix: each row goes to the centre of least
@@ -543,26 +697,68 @@ def lloyd_step(x: torch.Tensor, centers: torch.Tensor, n_valid: int):
     (k,)) float32 per centre. centers: (k, d) in x's dtype. Counts are
     summed as integers, so they are exact.
 
-    Any n, d and k ≥ 1: the Pallas kernel's k_pad lanes, pad sentinel and
-    dead lane were tiling artefacts the port does not carry over."""
+    The route (:func:`kmeans_route`) picks the body and :func:`kmeans_plan`
+    the launch: one fused pass, or the assignment into an (n,) index
+    scratch and a sums pass (no row is scored twice). Any n, d and k ≥ 1:
+    the Pallas kernel's k_pad lanes, pad sentinel and dead lane were tiling
+    artefacts the port does not carry over."""
     _check_x(x)
     _check_centers(x, centers)
     if x.device.type == "cpu":
         return lloyd_step_plain(x, centers, n_valid)
     n, d = x.shape
     k = centers.shape[0]
+    rows = min(n, max(int(n_valid), 0))
     xp, is_bf16 = _launch_args(x)
-    c2h = center_norms(centers, half=True)
     sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
     counts = torch.zeros((k,), dtype=torch.int64, device=x.device)
+    route = kmeans_route(x, centers, sums)
+    plan = kmeans_plan(k, d, route, rows, _sm_count(x.device))
+    lib = _kmeans_lib()
     with torch.cuda.device(x.device):
-        rc = _kmeans_lib().srml_lloyd_step(
-            xp, centers.data_ptr(), is_bf16, c2h.data_ptr(), n, d, k, int(n_valid),
-            sums.data_ptr(), counts.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if plan.fused:
+            c2h = center_norms(centers, half=True)
+            if route == "wgmma":
+                rc = lib.srml_lloyd_step_tc(
+                    xp, centers.data_ptr(), c2h.data_ptr(), n, d, k, int(n_valid), plan.width,
+                    plan.stages, sums.data_ptr(), counts.data_ptr(), stream,
+                )
+            else:
+                rc = lib.srml_lloyd_step(
+                    xp, centers.data_ptr(), is_bf16, c2h.data_ptr(), n, d, k, int(n_valid),
+                    sums.data_ptr(), counts.data_ptr(), stream,
+                )
+        else:
+            # The assignment pass scores ‖c‖² − 2x·c, twice ½‖c‖² − x·c
+            # exactly: the same argmin, bit for bit.
+            idx = torch.empty((max(rows, 1),), dtype=torch.int32, device=x.device)
+            rc = _assign_launch(lib, route, plan, x, centers, rows, idx, None, stream)
+            if rc == 0:
+                rc = lib.srml_lloyd_sums(
+                    xp, is_bf16, idx.data_ptr(), rows, d, k, plan.slab, plan.kchunk, plan.splits,
+                    sums.data_ptr(), counts.data_ptr(), stream,
+                )
     _raise_on(rc, "lloyd_step")
     LAUNCHES["lloyd_step"] += 1
+    ROUTES[f"lloyd_step/{route}"] += 1
     return sums, counts.float()
+
+
+def _assign_launch(lib, route, plan, x, centers, m, idx, dist, stream) -> int:
+    """The assignment launch over the first m rows of x on ``route``."""
+    c2 = center_norms(centers, half=False)
+    k, d = centers.shape
+    dp = None if dist is None else dist.data_ptr()
+    if route == "wgmma":
+        return lib.srml_assign_min_dist_tc(
+            x.data_ptr(), centers.data_ptr(), c2.data_ptr(), m, d, k, plan.width,
+            int(plan.resident), plan.stages, idx.data_ptr(), dp, stream,
+        )
+    return lib.srml_assign_min_dist(
+        x.data_ptr(), centers.data_ptr(), int(x.dtype == torch.bfloat16), c2.data_ptr(), m, d, k,
+        idx.data_ptr(), dp, stream,
+    )
 
 
 def assign_min_dist_plain(x: torch.Tensor, centers: torch.Tensor):
@@ -583,24 +779,25 @@ def assign_min_dist(x: torch.Tensor, centers: torch.Tensor):
     (m, d) float32/bfloat16 matrix against (k, d) centres in its dtype:
     per row the argmin of ‖c‖² − 2x·c (ties to the lowest index) and that
     minimum. The distances omit the row constant ‖x‖², as in the JAX
-    package (``assign_min_dist_pallas``); callers add it back."""
+    package (``assign_min_dist_pallas``); callers add it back. The route
+    (:func:`kmeans_route`) picks the body."""
     _check_x(x)
     _check_centers(x, centers)
     if x.device.type == "cpu":
         return assign_min_dist_plain(x, centers)
     m, d = x.shape
     k = centers.shape[0]
-    xp, is_bf16 = _launch_args(x)
-    c2 = center_norms(centers, half=False)
+    _launch_args(x)
     idx = torch.empty((m,), dtype=torch.int32, device=x.device)
     dist = torch.empty((m,), dtype=torch.float32, device=x.device)
+    route = kmeans_route(x, centers, idx, dist)
+    plan = kmeans_plan(k, d, route, m, _sm_count(x.device), lloyd=False)
     with torch.cuda.device(x.device):
-        rc = _kmeans_lib().srml_assign_min_dist(
-            xp, centers.data_ptr(), is_bf16, c2.data_ptr(), m, d, k, idx.data_ptr(),
-            dist.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        rc = _assign_launch(_kmeans_lib(), route, plan, x, centers, m, idx, dist,
+                            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, "assign_min_dist")
     LAUNCHES["assign_min_dist"] += 1
+    ROUTES[f"assign_min_dist/{route}"] += 1
     return idx, dist
 
 

@@ -185,9 +185,11 @@ def test_weighted_route_needs_16_byte_alignment():
 
 
 def test_routes_count_the_four_routed_kernels():
+    """The four Gram-family kernels and, since the KMeans pair gained its
+    tensor-core body, lloyd_step and assign_min_dist: six routed kernels."""
     assert set(kernels.ROUTES) == {f"{k}/{r}" for k in (
-        "gram_colsum", "linreg_stats", "newton_stats", "softmax_curvature")
-        for r in ("wgmma", "ffma")}
+        "gram_colsum", "linreg_stats", "newton_stats", "softmax_curvature", "lloyd_step",
+        "assign_min_dist") for r in ("wgmma", "ffma")}
 
 
 def test_route_needs_rows_and_16_byte_alignment():

@@ -167,6 +167,10 @@ def test_kernel_source_exports_the_bound_symbols():
     ("gram", "srml_linreg_stats_tc", 17),
     ("gram", "srml_newton_stats_tc", 20),
     ("gram", "srml_softmax_curvature_tc", 13),
+    ("kmeans", "srml_lloyd_step_tc", 12),
+    ("kmeans", "srml_assign_min_dist_tc", 12),
+    ("kmeans", "srml_lloyd_sums", 12),
+    ("kmeans", "srml_kmeans_tc_smem", 6),
 ])
 def test_new_kernel_sources_export_the_bound_symbols(source, name, n_args):
     """As above, for the LinearRegression and KMeans kernels; the count

@@ -338,6 +338,42 @@ def test_kmeans_and_linreg_kernels_match_plain_versions_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d, k", [(8, 1024), (256, 100), (256, 129), (768, 7), (1000, 1024),
+                                  (256, 50_000)])
+def test_tensor_core_kmeans_matches_plain_versions_on_card(d, k):
+    """On a CUDA card: bf16 lloyd_step and assign_min_dist with d % 8 == 0
+    take the tensor-core route and agree BITWISE with their plain versions
+    on small-integer rows and centres (every score and sum an exact
+    integer in f32) at ragged n and n_valid, a duplicated centre (exact
+    ties, to the lowest index) included; the fused pass (d = 8, and d = 256
+    with k = 100) and the two-pass step (the rest; k = 50,000 streams its
+    score constants) both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(d + k)
+
+    def ints(*shape):
+        return torch.randint(-8, 9, shape, generator=gen, device="cuda").float()
+
+    n = 9001
+    x = ints(n, d).to(torch.bfloat16)
+    c = ints(k, d)
+    c[k - 1] = c[0]
+    c = c.to(torch.bfloat16)
+    before = dict(kernels.ROUTES)
+    idx, dist = kernels.assign_min_dist(x, c)
+    want_i, want_d = kernels.assign_min_dist_plain(x, c)
+    assert torch.equal(idx, want_i) and torch.equal(dist, want_d)
+    assert k == 1 or not bool((idx == k - 1).any())
+    for n_valid in (0, 1234, n + 5):
+        got = kernels.lloyd_step(x, c, n_valid)
+        want = kernels.lloyd_step_plain(x, c, n_valid)
+        assert all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    assert kernels.ROUTES["assign_min_dist/wgmma"] == before["assign_min_dist/wgmma"] + 1
+    assert kernels.ROUTES["lloyd_step/wgmma"] == before["lloyd_step/wgmma"] + 3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d, n", [(8, 20001), (1000, 20001), (2048, 9001), (1000, 37)])
 def test_tensor_core_gram_matches_plain_versions_on_card(d, n):
     """On a CUDA card: bf16 gram_colsum and linreg_stats with d % 8 == 0
