@@ -5,7 +5,7 @@
 // binomial Newton-IRLS pass and the multinomial per-class curvature.
 //
 // Replaces spark_rapids_ml_tpu/ops/pallas_kernels.py:
-//   gram_pallas              (:78)   -> srml_gram
+//   gram_pallas              (:78)   -> srml_gram, srml_gram_tc
 //   gram_colsum_pallas       (:173)  -> srml_gram_colsum, srml_gram_colsum_tc
 //   newton_stats_pallas      (:451)  -> srml_newton_stats, srml_newton_stats_tc
 //   softmax_curvature_pallas (:1135) -> srml_softmax_curvature, srml_softmax_curvature_tc
@@ -14,35 +14,39 @@
 // What the Pallas kernels compute: a (d, d) f32 accumulator kept in VMEM for
 // the whole sequential row grid, with x read once. An H100 SM has 227 KB of
 // shared memory and its blocks run in parallel in no order, so the design is
-// turned around: a 3-D grid of 128 x 128 output tiles of G times row splits
-// of at most kRowsPerSplit rows. Each block loops over its split's rows in
-// chunks of kChunk, stages the i-panel and the j-panel (kChunk x 128 each,
-// converted to f32) in shared memory and accumulates in f32 registers, 8 x 8
-// per thread. The in-block row loop takes the place of the TPU's
-// "arbitrary" grid axis; the split keeps each f32 register's sum short
-// (kRowsPerSplit terms, not all n) and gives a small-d Gram enough blocks to
-// fill the SMs. At the end the block adds its tile into G with atomicAdd, so
-// the splits of one tile are summed in no fixed order (results may differ
-// in the last bits between runs). The caller's G is the seed: the wrapper
-// passes zeros for a fresh result or the streaming state to fold into in
-// place (the seeded gram_colsum_pallas, the donated linreg state).
+// turned around, the same way in both bodies below:
 //
-// The three kernels are one templated body. The vector statistics ride on
-// blocks that already stage the columns they need: the diagonal blocks
-// (i-panel == j-panel) add Σx and, for linreg, Xᵀy of their 128 columns
-// from the staged i-panel and the rows' y; the blocks of tile (0, 0), one
-// per split, add Σy, Σy² and the row count of their split. Rows are weighted
-// by the mask as in the Pallas kernel: m² on XᵀX and Xᵀy, m on Σx and Σy.
-// The linreg row count is an integer (rows with m != 0), summed in a 64-bit
-// counter, so it is exact at any n.
+// * SYRK: blockIdx.x indexes a tile pair (i <= j) of 128 x 128 tiles from
+//   a (n_pairs, 2) list the wrapper computes (kernels.tc_tile_pairs: 136
+//   pairs at d = 2048, not 256 tiles), times the class (kWeighted: pair · C
+//   + class, so the classes of a pair are neighbours); blockIdx.y a row
+//   split. An off-diagonal tile S is added to G[i, j] and Sᵀ to G[j, i], so
+//   a seeded, non-symmetric G stays exact (no mirror pass); the Hessian and
+//   curvature blocks are symmetric, so the pairs cover them too. A diagonal
+//   pair stages its panel once for both operands.
+// * Split-K over rows: the in-block row loop takes the place of the TPU's
+//   "arbitrary" grid axis; the splits keep each f32 sum short and give a
+//   small-d Gram enough blocks to fill the SMs. Each block adds its tile
+//   into G with atomics (the FFMA body) or bulk reduces (the tensor cores),
+//   so the splits of one tile meet in no fixed order (results may differ in
+//   the last bits between runs). The caller's G is the seed: the wrapper
+//   passes zeros for a fresh result or the streaming state to fold into in
+//   place (the seeded gram_colsum_pallas, the donated linreg state).
 //
-// The LogisticRegression statistics are the same body in a fourth mode,
-// kWeighted: the i-panel is scaled by a per-row weight on staging and the
-// j-panel is raw, so a tile is Xᵀdiag(wt)X; the diagonal blocks' column sums
-// of the scaled panel are Xᵀwt and, given a residual r, they add Xᵀr from
-// the raw panel. A launch covers C weight columns (wt is (n, C), read at
-// stride C): blockIdx.z = split·C + class, each class with its own (d, d)
-// and (d,) outputs.
+// The five kernels are modes of each body. The vector statistics ride on
+// blocks that already stage the columns they need: the diagonal blocks add
+// Σx and, for linreg, Xᵀy of their 128 columns from the staged i-panel and
+// the rows' y; the blocks of tile (0, 0), one per split, add Σy, Σy² and the
+// row count of their split. Rows are weighted by the mask as in the Pallas
+// kernel: m² on XᵀX and Xᵀy, m on Σx and Σy. The linreg row count is an
+// integer (rows with m != 0), summed in a 64-bit counter, so it is exact at
+// any n.
+//
+// The LogisticRegression statistics are a fourth mode, kWeighted: the
+// i-panel is scaled by a per-row weight and the j-panel is raw, so a tile is
+// Xᵀdiag(wt)X; the diagonal blocks' column sums of the scaled panel are
+// Xᵀwt and, given a residual r, they add Xᵀr from the raw panel. A launch
+// covers C weight columns.
 //
 // * srml_newton_stats(_tc) is two launches. A row pass (one warp per row,
 //   the dot product reduced with __shfl_xor_sync) computes z = x·w + b,
@@ -58,43 +62,48 @@
 //   with wt = p (already masked): Xᵀdiag(p_c)X and Xᵀp_c per class. x is
 //   read again for every class, about 8.5 GB at 129,838 x 1024 bf16,
 //   C = 32, 2.5 ms of HBM time, under the 4.4 ms operation bound; the
-//   tensor-core launch runs the classes of one (pair, split) side by side
-//   so that they meet x in L2. Sharing one staged x tile across a class
-//   group, as the Pallas kernel does, needs more than one 128 x 128
-//   accumulator a consumer: later work.
+//   classes of one (pair, split) run side by side so that they meet x in
+//   L2. Sharing one staged x tile across a class group, as the Pallas
+//   kernel does, needs more than one 128 x 128 accumulator a consumer:
+//   later work.
 // w, b, z, p, r, wgt and p_c stay f32 (the TPU kernels' bf16 roundings of
 // w, r and the borders' weights were MXU and Mosaic constraints), with one
 // exception: the tensor-core route's Hessian operand, which a tensor-core
 // product must round. It is bf16(x·bf16(wt)), as the Pallas kernels round
 // it (pallas_kernels.py:437, :1117).
 //
-// Arithmetic: f32 input multiplies in plain f32 FFMA (never TF32), as the
-// JAX package's Precision.HIGHEST; bf16 input converts with
-// __bfloat162float (exact) and accumulates in f32.
+// Two bodies.
 //
-// Two bodies. The one above, gram_tile_kernel ("ffma tiles"), runs every
-// f32 launch, every launch of srml_gram, and the bf16 launches of
-// srml_gram_colsum, srml_linreg_stats, srml_newton_stats and
-// srml_softmax_curvature whose d is not a multiple of 8. Its products run
-// on the CUDA cores: 24-29 TFLOP/s of f32 FFMA on the H100, over the full
-// square of G.
+// gram_ffma_kernel ("ffma syrk") runs every f32 launch and the bf16
+// launches the tensor-core body cannot take: d not a multiple of 8, and a
+// masked srml_gram (the tensor cores would round x·m to bf16 for a mask
+// outside {0, 1}; the Pallas kernel multiplies in f32). f32 operands take
+// full-f32 products, as the JAX package's Precision.HIGHEST (never TF32;
+// a split-precision tensor-core route is not taken: f32 wgmma reads only
+// K-major operands, and XᵀX along rows is MN-major).
+// * 256 threads, an 8 x 8 register tile each of the 128 x 128 tile, f32
+//   FFMA; two blocks an SM.
+// * A ring of 4 stages of 16 rows x 128 columns of both panels (raw f32 or
+//   bf16, 16 KB or 8 KB a stage), filled with cp.async.cg 16-byte copies
+//   (zero-filled past the split's rows and past d) three stages ahead of
+//   the one being multiplied; rows whose byte width is not a multiple of 16
+//   stage with plain loads instead. bf16 converts exactly on the read.
+// * The mask (or weight) and y (or residual) of a stage's rows stage beside
+//   it (cp.async, 4 bytes); the mask scales both operands' values in
+//   registers, the weight the A operand's. Without a mask the template
+//   pays nothing.
+// * Splits of at most 8,192 rows (kernels.ffma_gram_plan): no f32 register
+//   sums more rows.
 //
 // gram_tc_kernel ("wgmma+tma syrk") runs the bf16 launches of
-// srml_gram_colsum_tc, srml_linreg_stats_tc, srml_newton_stats_tc (its
-// Gram pass) and srml_softmax_curvature_tc (the wrapper routes bf16 with
-// d % 8 == 0 and 16-byte aligned x and G there). It computes what kColsum,
-// kLinreg and kWeighted compute above, laid out for Hopper:
+// srml_gram_tc (kGram: an unmasked gram, the default in-memory PCA fit on
+// the card), srml_gram_colsum_tc, srml_linreg_stats_tc,
+// srml_newton_stats_tc (its Gram pass) and srml_softmax_curvature_tc (the
+// wrapper routes bf16 with d % 8 == 0 and 16-byte aligned x and G there,
+// kernels.gram_route). Its SYRK pairs and splits are the ones above, split
+// rows a multiple of the 64-row stage (kernels.gram_plan); laid out for
+// Hopper:
 //
-// * SYRK: blockIdx.x indexes a tile pair (i <= j) of 128 x 128 tiles from
-//   a (n_pairs, 2) list the wrapper computes (136 pairs at d = 2048, not
-//   256 tiles), times the class (kWeighted: pair · C + class, so the
-//   classes of a pair are neighbours); blockIdx.y a row split of
-//   split_rows rows, a multiple of the 64-row stage. A diagonal pair loads
-//   its panel once and hands the same shared-memory tile to both wgmma
-//   operands. An off-diagonal tile S is added to G[i, j] and Sᵀ to
-//   G[j, i], so a seeded, non-symmetric G stays exact (no mirror pass);
-//   the Hessian and curvature blocks are symmetric, so the pairs cover
-//   them too.
 // * wgmma, bf16 x bf16 -> f32: two consumer warpgroups, each
 //   m64n128k16 over its 64 rows of the tile, four K steps per stage. x is
 //   row-major, so a stage of 64 rows x 128 columns has the G index
@@ -148,8 +157,12 @@
 // nd(d+1) = 1.1 TFLOP (G is symmetric, so half of 2nd²) against 1.07 GB
 // (bf16) of reads, far above the card's ops-per-byte balance, so it is
 // bound by operations (bf16 tensor cores: 1.1 ms; f32 FFMA for the f32
-// Gram: 16 ms). linreg_stats at 262,144 x 1024 bf16 is bound the same way
-// (0.28 ms on the tensor cores against 0.16 ms of bytes). The tensor-core
+// Gram: 16 ms). The in-memory gram at 1,048,576 x 2048 is 4.4 TFLOP: 4.45
+// ms on the bf16 tensor cores, 65.7 ms in f32 FFMA, where the FFMA body's
+// per-k-step load of 16 values for 64 FMAs a thread and its atomics
+// epilogue keep it under that rate. linreg_stats at 262,144 x 1024 bf16
+// is bound the same way (0.28 ms on the tensor cores against 0.16 ms of
+// bytes). The tensor-core
 // body does exactly the SYRK's operations (plus the diagonal tiles' lower
 // halves); what it still lacks is persistence (one block per (pair, split)
 // leaves a partial last wave and an unoverlapped epilogue per block) and
@@ -170,12 +183,10 @@ namespace {
 using namespace srml_hopper;  // NOLINT: mbarriers, TMA, wgmma, tensor maps
 
 constexpr int kTile = 128;                        // G tile edge
-constexpr int kChunk = 16;                        // rows staged per step
-constexpr int kThreads = 256;                     // 16 x 16 threads, 8 x 8 each
-constexpr int kRowsPerPass = kThreads / kTile;    // staging rows per thread pass
-constexpr int kLoads = kChunk / kRowsPerPass;     // panel elements per thread
-constexpr long long kRowsPerSplit = 8192;         // longest f32 sum per register
-constexpr long long kMaxGridZ = 65535;            // gridDim.z limit: splits x classes
+constexpr int kFRows = 16;                        // FFMA body: rows a ring stage holds
+constexpr int kFStages = 4;                       // FFMA body: ring depth
+constexpr int kFThreads = 256;                    // FFMA body: 16 x 16 threads, 8 x 8 each
+constexpr long long kMaxGridY = 65535;            // gridDim.y limit: row splits
 constexpr int kRowThreads = 256;                  // Newton row pass: 8 warps, one row each
 constexpr long long kRowBlocks = 4096;            // Newton row pass: grid-stride cap
 
@@ -187,16 +198,61 @@ enum Mode : int {
   kWeighted = 3,  // per class c: G_c += Xᵀdiag(wt_c)X, colsum_c += Xᵀwt_c,
                   // and xty += Xᵀr when r is given (newton_stats_pallas,
                   // softmax_curvature_pallas)
+  kGram = 4,    // G += XᵀX alone: the tensor-core route of gram_pallas
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(0);
+}
+
 // Row (or column) of the tile that accumulator slot s of thread t covers:
-// slots 0-3 at 4t..4t+3, slots 4-7 at 64+4t..64+4t+3, so that the float4
-// reads of a warp from shared memory are contiguous.
+// slots 0-3 at 4t..4t+3, slots 4-7 at 64+4t..64+4t+3, so that the reads of
+// a warp from shared memory are contiguous.
 __device__ __forceinline__ int slot(int t, int s) {
   return (s < 4) ? t * 4 + s : 64 + t * 4 + (s - 4);
+}
+
+// Four consecutive staged elements as f32 into v[o .. o + 3] (bf16 converts
+// exactly: its bits are the high half of the f32's).
+__device__ __forceinline__ void load4(const float* p, float (&v)[8], int o) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[o] = f.x;
+  v[o + 1] = f.y;
+  v[o + 2] = f.z;
+  v[o + 3] = f.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[8], int o) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  v[o] = __uint_as_float(w.x << 16);
+  v[o + 1] = __uint_as_float(w.x & 0xffff0000u);
+  v[o + 2] = __uint_as_float(w.y << 16);
+  v[o + 3] = __uint_as_float(w.y & 0xffff0000u);
+}
+
+// cp.async of `bytes` (16 or 4; 0 zero-fills the destination) from global
+// to shared memory, grouped by commit and waited for by wait_group.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 struct Outputs {
@@ -209,109 +265,180 @@ struct Outputs {
   unsigned long long* rows;   // ()      kLinreg
 };
 
-// blockIdx.z = split * n_classes + class; the split covers rows
-// [split * split_rows, min(n_rows, (split + 1) * split_rows)). n_classes is 1
-// outside kWeighted. mask == nullptr means all ones (kMasked, kLinreg); y is
-// read by kLinreg. kWeighted: mask is the (n, n_classes) weight matrix and y
-// the (n,) residual, or nullptr for none.
-template <typename T, int kMode>
-__global__ void __launch_bounds__(kThreads)
-gram_tile_kernel(const T* __restrict__ x, const float* __restrict__ mask,
-                 const float* __restrict__ y, long long n_rows,
-                 long long split_rows, long long d, int n_classes, Outputs out) {
+// A launch of either body over a plan the wrapper made (kernels.gram_plan
+// or kernels.ffma_gram_plan): blockIdx.x = pair · classes + class over the
+// (n_pairs, 2) device list of tile pairs i <= j, blockIdx.y the row split.
+struct TcPlan {
+  const int* pairs;      // (n_pairs, 2) tile pairs i <= j
+  long long rows;        // rows to sum (past them: zeros)
+  long long split_rows;  // rows of blockIdx.y's split
+  long long d;
+  int promote;           // tensor cores: stages between promotions; 0: at the end only
+  int classes;           // blockIdx.x = pair · classes + class (1 outside kWeighted)
+};
+
+// ---------------------------------------------------------------------------
+// The FFMA SYRK body (f32, and the bf16 launches the tensor-core body
+// cannot take): see the header note.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__host__ __device__ constexpr int ffma_stage_bytes() {
+  return 2 * kFRows * kTile * static_cast<int>(sizeof(T)) + 2 * kFRows * 4;
+}
+
+// kMasked: G += (X·m)ᵀ(X·m) (kMask: m = mask; else 1). kColsum: G += XᵀX,
+// colsum += Σx, count += rows. kLinreg: with m = mask (kMask; else 1) and
+// ym = y·m: G += (X·m)ᵀ(X·m), xty += (X·m)ᵀym, colsum += Σx·m, sy += Σym,
+// syy += Σym², rows += #(m != 0). kWeighted: with wt = mask[r · classes + c]
+// of class c: G_c += (X·wt)ᵀX, colsum_c += Σx·wt and, when y (a residual r)
+// is given, xty += Xᵀr. kVec: 16-byte rows (cp.async); else scalar staging.
+template <typename T, int kMode, bool kVec, bool kMask>
+__global__ void __launch_bounds__(kFThreads, 2)
+gram_ffma_kernel(const T* __restrict__ x, const float* __restrict__ mask,
+                 const float* __restrict__ y, TcPlan plan, Outputs out) {
   constexpr bool kWgt = kMode == kWeighted;
-  constexpr bool kUseMask = kMode == kMasked || kMode == kLinreg;
   constexpr bool kLin = kMode == kLinreg;
-  __shared__ __align__(16) float a_s[kChunk][kTile];
-  __shared__ __align__(16) float b_s[kChunk][kTile];
-  __shared__ float red[kRowsPerPass][kTile];
-  __shared__ float red_y[kRowsPerPass][2];
-  __shared__ unsigned long long red_n[kRowsPerPass];
+  constexpr bool kStats = kMode == kColsum || kLin || kWgt;  // the diagonal blocks' sums
+  constexpr bool kScaleB = kMask && !kWgt;                   // x·m on both sides: weight m²
+  constexpr int kPanel = kFRows * kTile;                     // elements of a panel
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));     // elements of a 16-byte chunk
+  constexpr int kCpr = kTile / kPer;                         // 16-byte chunks of a panel row
+  constexpr int kStage = ffma_stage_bytes<T>();
+  extern __shared__ __align__(16) unsigned char fsm[];
+  __shared__ float red[2][kTile];
+  __shared__ float red_xy[2][kTile];
+  __shared__ float red_y[kFThreads / 32][2];
+  __shared__ unsigned long long red_n[kFThreads / 32];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const long long i0 = static_cast<long long>(blockIdx.y) * kTile;  // G rows
-  const long long j0 = static_cast<long long>(blockIdx.x) * kTile;  // G cols
-  const int lc = tid % kTile;  // staged column
-  const int lr = tid / kTile;  // first staged row
-  const bool a_ok = i0 + lc < d;
-  const bool b_ok = j0 + lc < d;
-  const bool diag = blockIdx.x == blockIdx.y;              // block-uniform
-  const bool y_block = kLin && blockIdx.x == 0 && blockIdx.y == 0;
-  const bool y_thread = y_block && lc == 0;                // one per staged row
-  const bool resid_block = kWgt && diag && y != nullptr;   // adds Xᵀr
-  const int cls = static_cast<int>(blockIdx.z % n_classes);
-  const long long split = blockIdx.z / n_classes;
-  float* gram = out.gram + static_cast<long long>(cls) * d * d;
-  float* colsum = kMode == kMasked ? nullptr : out.colsum + static_cast<long long>(cls) * d;
+  const int pair = static_cast<int>(blockIdx.x) / plan.classes;
+  const int cls = static_cast<int>(blockIdx.x) % plan.classes;
+  const int ti = plan.pairs[2 * pair];
+  const int tj = plan.pairs[2 * pair + 1];
+  const bool diag = ti == tj;  // block-uniform
+  const long long d = plan.d;
+  const long long i0 = static_cast<long long>(ti) * kTile;
+  const long long j0 = static_cast<long long>(tj) * kTile;
+  const long long r_begin = static_cast<long long>(blockIdx.y) * plan.split_rows;
+  const long long r_end = min(plan.rows, r_begin + plan.split_rows);
+  const int n_st = r_end > r_begin ? static_cast<int>((r_end - r_begin + kFRows - 1) / kFRows) : 0;
+  const bool resid = kWgt && y != nullptr;
+  const bool need_y = kLin || resid;
+  const long long mstride = kWgt ? plan.classes : 1;
+  const float* mcol = kWgt ? mask + cls : mask;
+  float* gram = out.gram + (kWgt ? static_cast<long long>(cls) * d * d : 0);
+
+  // Slot s: the i-panel, the j-panel (not loaded on a diagonal pair: the
+  // i-panel serves both), then the rows' mask or weight and y or residual.
+  auto panel = [&](int s, int h) { return reinterpret_cast<T*>(fsm + s * kStage) + h * kPanel; };
+  auto scal = [&](int s, int h) {
+    return reinterpret_cast<float*>(fsm + s * kStage + 2 * kPanel * sizeof(T)) + h * kFRows;
+  };
+  // Stage s (rows r_begin + 16s ..) into slot s % kFStages; one commit
+  // group per call, empty past the last stage.
+  auto fill = [&](int s) {
+    if (s < n_st) {
+      const int sl = s % kFStages;
+      const long long r0 = r_begin + static_cast<long long>(s) * kFRows;
+      for (int h = 0; h < (diag ? 1 : 2); ++h) {
+        const long long c0 = h ? j0 : i0;
+        T* dst = panel(sl, h);
+        if (kVec) {  // rows are 16-byte aligned: a chunk lies wholly inside or past d
+          for (int e = tid; e < kFRows * kCpr; e += kFThreads) {
+            const int rr = e / kCpr;
+            const int cc = e % kCpr;
+            const long long r = r0 + rr;
+            const long long col = c0 + cc * kPer;
+            const bool ok = r < r_end && col < d;
+            cp_async16(smem_u32(dst + rr * kTile + cc * kPer), ok ? x + r * d + col : x,
+                       ok ? 16 : 0);
+          }
+        } else {
+          for (int e = tid; e < kPanel; e += kFThreads) {
+            const int rr = e / kTile;
+            const int cc = e % kTile;
+            const long long r = r0 + rr;
+            const long long col = c0 + cc;
+            dst[e] = r < r_end && col < d ? x[r * d + col] : zero_of<T>();
+          }
+        }
+      }
+      if (kMask && tid < kFRows) {
+        const long long r = r0 + tid;
+        const bool ok = r < r_end;
+        cp_async4(smem_u32(scal(sl, 0) + tid), ok ? mcol + r * mstride : mask, ok ? 4 : 0);
+      }
+      if (need_y && tid >= 32 && tid < 32 + kFRows) {
+        const long long r = r0 + (tid - 32);
+        const bool ok = r < r_end;
+        cp_async4(smem_u32(scal(sl, 1) + (tid - 32)), ok ? y + r : y, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
 
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float csum = 0.f;   // Σ a over this thread's rows (column i0 + lc)
-  float xysum = 0.f;  // Σ a·(y·m) (kLinreg); Σ a·r before the weight (kWeighted)
-  float ys = 0.f, yys = 0.f;
-  unsigned long long nrows = 0;
+  float cs = 0.f;  // diagonal pairs: Σ over rows tid/128, +2, ... of column tid % 128
+  float xy = 0.f;
 
-  const long long r_begin = split * split_rows;
-  const long long r_end = min(n_rows, r_begin + split_rows);
-  for (long long r0 = r_begin; r0 < r_end; r0 += kChunk) {
+  for (int s = 0; s < kFStages - 1; ++s) fill(s);
+  for (int s = 0; s < n_st; ++s) {
+    cp_async_wait<kFStages - 2>();  // stage s has landed (this thread's copies) ...
+    __syncthreads();                // ... everyone's, and stage s − 1 is consumed
+    fill(s + kFStages - 1);         // into stage s − 1's slot, while this one multiplies
+    const int sl = s % kFStages;
+    const T* a = panel(sl, 0);
+    const T* b = diag ? a : panel(sl, 1);
+    const float* m = scal(sl, 0);
+#pragma unroll 4
+    for (int k = 0; k < kFRows; ++k) {
+      float av[8], bv[8];
+      load4(a + k * kTile + 4 * ty, av, 0);
+      load4(a + k * kTile + 64 + 4 * ty, av, 4);
+      load4(b + k * kTile + 4 * tx, bv, 0);
+      load4(b + k * kTile + 64 + 4 * tx, bv, 4);
+      if (kMask) {
+        const float mk = m[k];
 #pragma unroll
-    for (int l = 0; l < kLoads; ++l) {
-      const int rr = lr + l * kRowsPerPass;
-      const long long r = r0 + rr;
-      float a = 0.f, b = 0.f;
-      if (r < r_end) {
-        const T* row = x + r * d;
-        if (a_ok) a = to_f32(row[i0 + lc]);
-        if (b_ok) b = to_f32(row[j0 + lc]);
-        float m = 1.f;
-        if (kUseMask && mask != nullptr) {
-          m = mask[r];
-          a *= m;
-          b *= m;
-        }
-        if (kLin && diag) {
-          const float ym = y[r] * m;
-          xysum += a * ym;
-          if (y_thread) {
-            ys += ym;
-            yys += ym * ym;
-            nrows += (m != 0.f);
-          }
-        }
-        if (kWgt) {
-          if (resid_block) xysum += a * y[r];  // a is still the raw column
-          a *= mask[r * n_classes + cls];
+        for (int i = 0; i < 8; ++i) {
+          av[i] *= mk;
+          if (kScaleB) bv[i] *= mk;
         }
       }
-      a_s[rr][lc] = a;
-      b_s[rr][lc] = b;
-      csum += a;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      float av[8], bv[8];
-      const float4 a_lo = *reinterpret_cast<const float4*>(&a_s[k][ty * 4]);
-      const float4 a_hi = *reinterpret_cast<const float4*>(&a_s[k][64 + ty * 4]);
-      const float4 b_lo = *reinterpret_cast<const float4*>(&b_s[k][tx * 4]);
-      const float4 b_hi = *reinterpret_cast<const float4*>(&b_s[k][64 + tx * 4]);
-      av[0] = a_lo.x; av[1] = a_lo.y; av[2] = a_lo.z; av[3] = a_lo.w;
-      av[4] = a_hi.x; av[5] = a_hi.y; av[6] = a_hi.z; av[7] = a_hi.w;
-      bv[0] = b_lo.x; bv[1] = b_lo.y; bv[2] = b_lo.z; bv[3] = b_lo.w;
-      bv[4] = b_hi.x; bv[5] = b_hi.y; bv[6] = b_hi.z; bv[7] = b_hi.w;
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    __syncthreads();
+    if (kStats && diag) {
+      const int c = tid % kTile;
+      const float* yv = scal(sl, 1);
+      for (int rr = tid / kTile; rr < kFRows; rr += 2) {
+        const float v = to_f32(a[rr * kTile + c]);
+        if (kLin) {
+          const float mv = kMask ? m[rr] : 1.f;
+          const float am = kMask ? v * mv : v;
+          cs += am;
+          xy += am * (kMask ? yv[rr] * mv : yv[rr]);
+        } else if (kWgt) {
+          cs += v * m[rr];
+          if (resid) xy += v * yv[rr];
+        } else {
+          cs += v;
+        }
+      }
+    }
   }
 
+  // SYRK epilogue: the tile into G[i, j] and, off the diagonal, its
+  // transpose into G[j, i], so a seeded G that is not symmetric stays exact.
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const long long gi = i0 + slot(ty, i);
@@ -319,81 +446,114 @@ gram_tile_kernel(const T* __restrict__ x, const float* __restrict__ mask,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const long long gj = j0 + slot(tx, j);
-      if (gj < d) atomicAdd(&gram[gi * d + gj], acc[i][j]);
+      if (gj >= d) continue;
+      atomicAdd(&gram[gi * d + gj], acc[i][j]);
+      if (!diag) atomicAdd(&gram[gj * d + gi], acc[i][j]);
     }
   }
 
-  if (kMode == kMasked) return;
-  if (diag) {  // block-uniform: the barriers are safe
-    red[lr][lc] = csum;
+  if (kStats && diag) {  // block-uniform: the barrier is safe
+    red[tid / kTile][tid % kTile] = cs;
+    red_xy[tid / kTile][tid % kTile] = xy;
     __syncthreads();
     if (tid < kTile && i0 + tid < d) {
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < kRowsPerPass; ++q) s += red[q][tid];
-      atomicAdd(&colsum[i0 + tid], s);
-    }
-    if (kLin || resid_block) {
-      __syncthreads();
-      red[lr][lc] = xysum;
-      if (kLin && lc == 0) {
-        red_y[lr][0] = ys;
-        red_y[lr][1] = yys;
-        red_n[lr] = nrows;
-      }
-      __syncthreads();
-      if (tid < kTile && i0 + tid < d) {
-        float s = 0.f;
-#pragma unroll
-        for (int q = 0; q < kRowsPerPass; ++q) s += red[q][tid];
-        atomicAdd(&out.xty[i0 + tid], s);
-      }
-      if (kLin && y_block && tid == 0) {
-        float s = 0.f, ss = 0.f;
-        unsigned long long nn = 0;
-#pragma unroll
-        for (int q = 0; q < kRowsPerPass; ++q) {
-          s += red_y[q][0];
-          ss += red_y[q][1];
-          nn += red_n[q];
-        }
-        atomicAdd(out.sy, s);
-        atomicAdd(out.syy, ss);
-        atomicAdd(out.rows, nn);
-      }
+      float* colsum = out.colsum + (kWgt ? static_cast<long long>(cls) * d : 0);
+      atomicAdd(&colsum[i0 + tid], red[0][tid] + red[1][tid]);
+      if (need_y) atomicAdd(&out.xty[i0 + tid], red_xy[0][tid] + red_xy[1][tid]);
     }
   }
-  if (kMode == kColsum && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
-      tid == 0) {
-    *out.count += static_cast<float>(n_rows);
+  if (kLin && ti == 0 && tj == 0) {  // block-uniform: the split's y statistics
+    float sy = 0.f, syy = 0.f;
+    unsigned long long nn = 0;
+    for (long long r = r_begin + tid; r < r_end; r += kFThreads) {
+      const float mv = kMask ? mask[r] : 1.f;
+      const float ym = y[r] * mv;
+      sy += ym;
+      syy += ym * ym;
+      nn += (mv != 0.f);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) {
+      sy += __shfl_xor_sync(0xffffffffu, sy, o);
+      syy += __shfl_xor_sync(0xffffffffu, syy, o);
+      nn += __shfl_xor_sync(0xffffffffu, nn, o);
+    }
+    if (tid % 32 == 0) {
+      red_y[tid / 32][0] = sy;
+      red_y[tid / 32][1] = syy;
+      red_n[tid / 32] = nn;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float a0 = 0.f, a1 = 0.f;
+      unsigned long long an = 0;
+#pragma unroll
+      for (int w = 0; w < kFThreads / 32; ++w) {
+        a0 += red_y[w][0];
+        a1 += red_y[w][1];
+        an += red_n[w];
+      }
+      atomicAdd(out.sy, a0);
+      atomicAdd(out.syy, a1);
+      atomicAdd(out.rows, an);
+    }
+  }
+  if (kMode == kColsum && pair == 0 && blockIdx.y == 0 && tid == 0) {
+    *out.count += static_cast<float>(plan.rows);
   }
 }
 
+template <typename T, int kMode, bool kVec, bool kMask>
+int launch_ffma_kernel(const void* x, const TcPlan& plan, int n_pairs, long long splits,
+                       const float* mask, const float* y, const Outputs& out, cudaStream_t s) {
+  const void* fn = reinterpret_cast<const void*>(&gram_ffma_kernel<T, kMode, kVec, kMask>);
+  const cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             kFStages * ffma_stage_bytes<T>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(n_pairs * plan.classes), static_cast<unsigned>(splits));
+  gram_ffma_kernel<T, kMode, kVec, kMask><<<grid, kFThreads, kFStages * ffma_stage_bytes<T>(), s>>>(
+      static_cast<const T*>(x), mask, y, plan, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int kMode>
+int launch_ffma_typed(const void* x, bool vec, const TcPlan& plan, int n_pairs, long long splits,
+                      const float* mask, const float* y, const Outputs& out, cudaStream_t s) {
+  // kColsum takes no mask; kWeighted always has its weights.
+  constexpr bool kMaybeMask = kMode == kMasked || kMode == kLinreg;
+  const bool masked = kMode == kWeighted || (kMaybeMask && mask != nullptr);
+  if (vec) {
+    return masked ? launch_ffma_kernel<T, kMode, true, kMode != kColsum>(x, plan, n_pairs, splits,
+                                                                        mask, y, out, s)
+                  : launch_ffma_kernel<T, kMode, true, kMode == kWeighted>(x, plan, n_pairs,
+                                                                          splits, mask, y, out, s);
+  }
+  return masked ? launch_ffma_kernel<T, kMode, false, kMode != kColsum>(x, plan, n_pairs, splits,
+                                                                       mask, y, out, s)
+                : launch_ffma_kernel<T, kMode, false, kMode == kWeighted>(x, plan, n_pairs, splits,
+                                                                         mask, y, out, s);
+}
+
+// One FFMA launch over a plan the wrapper made: the (n_pairs, 2) int32 tile
+// pairs on the device, each for `classes` classes (kWeighted; else 1),
+// `splits` row splits of `split_rows` rows covering `rows`.
 template <int kMode>
-int launch(const void* x, int is_bf16, const float* mask, const float* y,
-           long long n_rows, long long d, int n_classes, const Outputs& out,
-           void* stream) {
-  if (n_classes < 1 || n_classes > kMaxGridZ) {
+int launch_ffma(const void* x, int is_bf16, long long rows, long long d, const int* pairs,
+                int n_pairs, int classes, long long splits, long long split_rows,
+                const float* mask, const float* y, const Outputs& out, void* stream) {
+  if (d < 1 || rows < 0 || pairs == nullptr || n_pairs < 1 || classes < 1 ||
+      static_cast<long long>(n_pairs) * classes > INT_MAX ||
+      (kMode != kWeighted && classes != 1) || (kMode == kWeighted && mask == nullptr) ||
+      splits < 1 || splits > kMaxGridY || split_rows < 1 || splits * split_rows < rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long max_splits = kMaxGridZ / n_classes;
-  const unsigned tiles = static_cast<unsigned>((d + kTile - 1) / kTile);
-  long long splits = (n_rows + kRowsPerSplit - 1) / kRowsPerSplit;
-  splits = splits < 1 ? 1 : (splits > max_splits ? max_splits : splits);
-  long long split_rows = (n_rows + splits - 1) / splits;
-  split_rows = (split_rows + kChunk - 1) / kChunk * kChunk;
-  const dim3 grid(tiles, tiles, static_cast<unsigned>(splits * n_classes));
+  const TcPlan plan{pairs, rows, split_rows, d, 0, classes};
+  const int elem = is_bf16 ? 2 : 4;
+  const bool vec = (d * elem) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    gram_tile_kernel<__nv_bfloat16, kMode><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), mask, y, n_rows, split_rows, d,
-        n_classes, out);
-  } else {
-    gram_tile_kernel<float, kMode><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), mask, y, n_rows, split_rows, d,
-        n_classes, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return is_bf16 ? launch_ffma_typed<__nv_bfloat16, kMode>(x, vec, plan, n_pairs, splits, mask, y,
+                                                           out, s)
+                 : launch_ffma_typed<float, kMode>(x, vec, plan, n_pairs, splits, mask, y, out, s);
 }
 
 // The Newton row pass: per row z = x·w + b, p = σ(z), r = (p − y)·m and
@@ -478,15 +638,6 @@ __device__ __forceinline__ void consumer_sync() {  // the 256 consumer threads
   asm volatile("bar.sync 1, 256;" ::: "memory");
 }
 
-struct TcPlan {
-  const int* pairs;      // (n_pairs, 2) tile pairs i <= j
-  long long rows;        // rows to sum; the tensor map zero-fills past them
-  long long split_rows;  // rows of blockIdx.y's split, a multiple of kTcRows
-  long long d;
-  int promote;           // stages between promotions; 0: at the end only
-  int classes;           // blockIdx.x = pair · classes + class (1 outside kWeighted)
-};
-
 // x · w, rounded once to bf16, for two packed bf16 values of x and the
 // bf16 weight in both halves of w2 (the product of two bf16 is exact).
 __device__ __forceinline__ uint32_t mul_bf16x2(uint32_t x2, uint32_t w2) {
@@ -495,8 +646,8 @@ __device__ __forceinline__ uint32_t mul_bf16x2(uint32_t x2, uint32_t w2) {
   return out;
 }
 
-// kColsum: G += XᵀX, colsum += Σx, count += rows over the first plan.rows
-// rows. kLinreg: with m = mask (null: 1) in {0, 1} and ym = y·m over all
+// kGram: G += XᵀX over the first plan.rows rows. kColsum: the same, and
+// colsum += Σx, count += rows. kLinreg: with m = mask (null: 1) in {0, 1} and ym = y·m over all
 // plan.rows rows: G += XᵀX of the rows with m = 1, xty += Xᵀym, colsum +=
 // Σx·m, sy += Σym, syy += Σym², rows += #(m != 0). kWeighted: with the
 // weights wt_c = mask[c · rows ..] of class c (a (classes, rows) array)
@@ -744,7 +895,7 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
       wgmma_commit();
       fence_acc(acc);
       fresh = 0;
-      if (diag) {  // block-uniform; overlaps the wgmma just issued
+      if (kMode != kGram && diag) {  // block-uniform; overlaps the wgmma just issued
         const unsigned char* p = sm + slot * kTcStageBytes + a_off;
         float ym[4], wm[4];  // linreg: y·m; kWeighted: the residual and the weight
         if (kLin || kWgt) {
@@ -813,7 +964,7 @@ gram_tc_kernel(const __grid_constant__ CUtensorMap xmap, TcPlan plan,
       for (int v = 0; v < 64; ++v) tot[v] += acc[v];
     }
 
-    if (diag) {
+    if (kMode != kGram && diag) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         cs[k] += __shfl_xor_sync(0xffffffffu, cs[k], 8);
@@ -884,7 +1035,7 @@ int launch_tc(const void* x, long long rows, long long d, const int* pairs, int 
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(out.gram) % 16 != 0 ||
       pairs == nullptr || n_pairs < 1 || classes < 1 ||
       static_cast<long long>(n_pairs) * classes > INT_MAX || (kMode != kWeighted && classes != 1) ||
-      (kMode == kWeighted && mask == nullptr) || splits < 1 || splits > kMaxGridZ ||
+      (kMode == kWeighted && mask == nullptr) || splits < 1 || splits > kMaxGridY ||
       split_rows < kTcRows || split_rows % kTcRows != 0 || splits * split_rows < rows ||
       promote < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -928,35 +1079,53 @@ int launch_rows(const void* x, int is_bf16, const float* y, const float* mask, c
 
 extern "C" {
 
+// The FFMA entry points take the wrapper's plan (kernels.ffma_gram_plan):
+// `pairs` (n_pairs, 2) int32 tile pairs i <= j on the device, `splits` row
+// splits of `split_rows` rows covering the rows. Each returns the
+// cudaError_t of its launches.
+
 // gram += (x · mask)ᵀ (x · mask). x: (n, d) row-major f32 or bf16; mask: (n,)
-// f32, or null for all ones; gram: (d, d) f32. Returns the cudaError_t of
-// the launch.
-int srml_gram(const void* x, int is_bf16, const float* mask, long long n,
-              long long d, float* gram, void* stream) {
+// f32, or null for all ones; gram: (d, d) f32.
+int srml_gram(const void* x, int is_bf16, const float* mask, long long n, long long d,
+              const int* pairs, int n_pairs, long long splits, long long split_rows, float* gram,
+              void* stream) {
   const Outputs out{gram, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
-  return launch<kMasked>(x, is_bf16, mask, nullptr, n, d, 1, out, stream);
+  return launch_ffma<kMasked>(x, is_bf16, n, d, pairs, n_pairs, 1, splits, split_rows, mask,
+                              nullptr, out, stream);
 }
 
 // Over the first min(n, max(n_valid, 0)) rows of x: gram += xᵀx,
 // colsum += Σx, count += rows. gram (d, d), colsum (d,), count () are f32.
-int srml_gram_colsum(const void* x, int is_bf16, long long n, long long d,
-                     long long n_valid, float* gram, float* colsum,
-                     float* count, void* stream) {
+int srml_gram_colsum(const void* x, int is_bf16, long long n, long long d, long long n_valid,
+                     const int* pairs, int n_pairs, long long splits, long long split_rows,
+                     float* gram, float* colsum, float* count, void* stream) {
   const long long rows = n_valid < 0 ? 0 : (n_valid < n ? n_valid : n);
   const Outputs out{gram, colsum, count, nullptr, nullptr, nullptr, nullptr};
-  return launch<kColsum>(x, is_bf16, nullptr, nullptr, rows, d, 1, out, stream);
+  return launch_ffma<kColsum>(x, is_bf16, rows, d, pairs, n_pairs, 1, splits, split_rows, nullptr,
+                              nullptr, out, stream);
 }
 
 // With xm = x·m and ym = y·m over all n rows (mask null: m = 1):
 // xtx += xmᵀxm, xty += xmᵀym, sx += Σxm, sy += Σym, syy += Σym²,
 // rows += #(m != 0). x: (n, d) f32 or bf16; y, mask: (n,) f32; xtx (d, d),
 // xty and sx (d,), sy and syy () f32; rows () uint64.
-int srml_linreg_stats(const void* x, int is_bf16, const float* mask,
-                      const float* y, long long n, long long d, float* xtx,
-                      float* xty, float* sx, float* sy, float* syy,
-                      unsigned long long* rows, void* stream) {
+int srml_linreg_stats(const void* x, int is_bf16, const float* mask, const float* y, long long n,
+                      long long d, const int* pairs, int n_pairs, long long splits,
+                      long long split_rows, float* xtx, float* xty, float* sx, float* sy,
+                      float* syy, unsigned long long* rows, void* stream) {
   const Outputs out{xtx, sx, nullptr, xty, sy, syy, rows};
-  return launch<kLinreg>(x, is_bf16, mask, y, n, d, 1, out, stream);
+  return launch_ffma<kLinreg>(x, is_bf16, n, d, pairs, n_pairs, 1, splits, split_rows, mask, y,
+                              out, stream);
+}
+
+// gram += xᵀx on the tensor-core body: bf16 x with d % 8 == 0, x and gram
+// 16-byte aligned, no mask, over the plan of srml_gram_colsum_tc below.
+int srml_gram_tc(const void* x, long long n, long long d, const int* pairs, int n_pairs,
+                 long long splits, long long split_rows, int promote, float* gram,
+                 void* stream) {
+  const Outputs out{gram, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  return launch_tc<kGram>(x, n, d, pairs, n_pairs, 1, splits, split_rows, promote, nullptr,
+                          nullptr, out, stream);
 }
 
 // srml_gram_colsum on the tensor-core body: bf16 x with d % 8 == 0, x and
@@ -992,16 +1161,17 @@ int srml_linreg_stats_tc(const void* x, const float* mask, const float* y, long 
 // gw += Xᵀr, gb += Σr, hww += Xᵀdiag(wgt)X, hwb += Xᵀwgt, hbb += Σwgt.
 // y, mask: (n,) f32; w: (d,) f32; b: () f32 on the device; resid, wgt: (n,)
 // f32 scratch the row pass writes; gw, hwb (d,), hww (d, d), gb, hbb () f32.
-int srml_newton_stats(const void* x, int is_bf16, const float* y,
-                      const float* mask, const float* w, const float* b,
-                      long long n, long long d, float* resid, float* wgt,
-                      float* gw, float* gb, float* hww, float* hwb, float* hbb,
+int srml_newton_stats(const void* x, int is_bf16, const float* y, const float* mask,
+                      const float* w, const float* b, long long n, long long d, const int* pairs,
+                      int n_pairs, long long splits, long long split_rows, float* resid,
+                      float* wgt, float* gw, float* gb, float* hww, float* hwb, float* hbb,
                       void* stream) {
   const int rc = launch_rows(x, is_bf16, y, mask, w, b, n, d, resid, wgt, gb, hbb,
                              static_cast<cudaStream_t>(stream));
   if (rc != 0) return rc;
   const Outputs out{hww, hwb, nullptr, gw, nullptr, nullptr, nullptr};
-  return launch<kWeighted>(x, is_bf16, wgt, resid, n, d, 1, out, stream);
+  return launch_ffma<kWeighted>(x, is_bf16, n, d, pairs, n_pairs, 1, splits, split_rows, wgt,
+                                resid, out, stream);
 }
 
 // srml_newton_stats on the tensor-core body for bf16 x (d % 8 == 0, x and
@@ -1023,12 +1193,13 @@ int srml_newton_stats_tc(const void* x, const float* y, const float* mask, const
 
 // Per class c of the (n, C) f32 weights p (softmax probabilities, already
 // masked): hw[c] += Xᵀdiag(p_c)X, hwb[c] += Xᵀp_c. x: (n, d) f32 or bf16;
-// hw (C, d, d), hwb (C, d) f32. 1 <= C <= 65535.
-int srml_softmax_curvature(const void* x, int is_bf16, const float* p,
-                           long long n, long long d, int n_classes, float* hw,
-                           float* hwb, void* stream) {
+// hw (C, d, d), hwb (C, d) f32; blockIdx.x = pair · C + class.
+int srml_softmax_curvature(const void* x, int is_bf16, const float* p, long long n, long long d,
+                           int n_classes, const int* pairs, int n_pairs, long long splits,
+                           long long split_rows, float* hw, float* hwb, void* stream) {
   const Outputs out{hw, hwb, nullptr, nullptr, nullptr, nullptr, nullptr};
-  return launch<kWeighted>(x, is_bf16, p, nullptr, n, d, n_classes, out, stream);
+  return launch_ffma<kWeighted>(x, is_bf16, n, d, pairs, n_pairs, n_classes, splits, split_rows,
+                                p, nullptr, out, stream);
 }
 
 // srml_softmax_curvature on the tensor-core body for bf16 x (as

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) device helpers shared by the port's tensor-core bodies
-// (gram.cu, kmeans.cu): mbarriers, TMA loads, wgmma descriptors and
+// (gram.cu, kmeans.cu, knn.cu): mbarriers, TMA loads, wgmma descriptors and
 // instructions, the bulk reduce, the tensor-map encoder and the register
 // check behind the launchers' rc 1998. Each .cu is its own library, so the
 // helpers are inline and live in a namespace of their own.
@@ -71,6 +71,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The same for a 3-D tensor map: {col, row, plane} (a plane is one IVF list).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int col, int row, int plane) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(plane)
+      : "memory");
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
@@ -136,7 +146,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&acc)[64], const uint
 // acc (64 x N f32 fragment) = [acc if scale_d] + A · Bᵀ with A (64 x 16)
 // and B (N x 16) both bf16 K-major (transpose bits 0, 0): rows of x and of
 // the centres as they lie in memory. Specialised for the chunk widths the
-// KMeans body uses (kernels.KMEANS_WIDTHS).
+// KMeans body uses (kernels.KMEANS_WIDTHS); the IVF scan takes 256.
 template <int N>
 __device__ void wgmma_kk(float (&acc)[N / 2], uint64_t da, uint64_t db, int scale_d);
 
@@ -264,6 +274,27 @@ inline int bf16_tensor_map(CUtensorMap* map, const void* ptr, long long rows, lo
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + static_cast<int>(r);
+}
+
+// A bf16 (planes, rows, cols) row-major tensor map with boxes of 64
+// columns x `box_rows` rows x one plane in the 128-byte swizzle: a box never
+// crosses into the next plane, and TMA zero-fills rows past `rows` and the
+// ragged column edge. Returns as bf16_tensor_map.
+inline int bf16_tensor_map_3d(CUtensorMap* map, const void* ptr, long long planes, long long rows,
+                              long long cols, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(rows * cols) * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

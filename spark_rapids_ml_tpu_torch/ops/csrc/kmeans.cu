@@ -65,6 +65,8 @@
 //     warpgroup loads a chunk's score constants from global memory while
 //     its wgmmas run and stages them in one of two N-float buffers, so the
 //     shared memory of a streamed launch does not grow with k: any k runs.
+//     The streamed producer stage, consumer chunk and constant staging
+//     live in scoring.cuh, which knn.cu's IVF list scan shares.
 //   - From the accumulator fragment each thread reduces its two rows'
 //     (min, argmin) over its columns in ascending order (strict <), then
 //     across the quad that shares the rows (shfl_xor 1, 2, ties to the
@@ -123,10 +125,12 @@
 #include <cstdint>
 
 #include "hopper.cuh"
+#include "scoring.cuh"
 
 namespace {
 
 using namespace srml_hopper;  // NOLINT: mbarriers, TMA, wgmma, tensor maps
+namespace sc = srml_scoring;  // the streamed layout knn.cu's list scan shares
 
 constexpr int kBM = 128;                     // rows per tile
 constexpr int kKC = 128;                     // centres per scoring chunk
@@ -459,8 +463,8 @@ int launch_sums(const T* x, const int* idx, long long rows, long long d, long lo
 // The tensor-core scoring body (bf16, d % 8 == 0).
 // ---------------------------------------------------------------------------
 
-constexpr int kTcRows = 64;               // rows per tile: one m64 wgmma
-constexpr int kTcBoxBytes = 64 * 128;     // 64 rows x 64 bf16 columns
+constexpr int kTcRows = sc::kRows;         // rows per tile: one m64 wgmma
+constexpr int kTcBoxBytes = sc::kBoxBytes; // 64 rows x 64 bf16 columns
 constexpr int kTcThreads = 384;           // warpgroup 0: producer; 1-2: consumers
 constexpr int kTcEntryRegs = 168;         // 65536 / 384, what setmaxnreg 40 / 232 balances
 constexpr int kTcMaxStages = 8;
@@ -490,7 +494,7 @@ inline TcLayout tc_layout(int mode, int width, long long k, long long d, int res
                           int stages) {
   const long long kboxes = (d + 63) / 64;
   const long long chunks = (k + width - 1) / width;
-  const long long stage = resident ? kboxes * kTcBoxBytes : 2 * kTcBoxBytes + 128LL * width;
+  const long long stage = resident ? kboxes * kTcBoxBytes : sc::stage_bytes(width);
   long long off = stages * stage;
   TcLayout l{};
   l.stage_bytes = static_cast<uint32_t>(stage);
@@ -551,6 +555,7 @@ kmeans_tc_kernel(const __grid_constant__ CUtensorMap xmap,
   auto empty = [bars, stages](int s) { return bars + 8u * (stages + s); };
   auto scored = [bars, stages](int s) { return bars + 8u * (2 * stages + s); };
   const uint32_t cent = bars + 8u * (3 * stages);
+  const sc::Ring ring{base, g.l.stage_bytes, full(0), empty(0), stages};
 
   const int tid = threadIdx.x;
   // Resident centres: 64-row tiles, each scored by one warpgroup (kAssign:
@@ -601,11 +606,10 @@ kmeans_tc_kernel(const __grid_constant__ CUtensorMap xmap,
       for (long long i = 0; i < my_tiles; ++i) {
         const int row = static_cast<int>((blockIdx.x + i * gridDim.x) * tile_rows);
         for (int j = 0; j < per_tile; ++j, ++stage) {
-          const int slot = static_cast<int>(stage % stages);
-          const uint32_t round = static_cast<uint32_t>(stage / stages);
-          mbar_wait(empty(slot), (round & 1u) ^ 1u);
-          const uint32_t st = base + slot * g.l.stage_bytes;
           if (g.resident) {
+            const int slot = static_cast<int>(stage % stages);
+            mbar_wait(empty(slot), (static_cast<uint32_t>(stage / stages) & 1u) ^ 1u);
+            const uint32_t st = base + slot * g.l.stage_bytes;
             mbar_expect_tx(full(slot), g.kboxes * kTcBoxBytes);
             for (int b = 0; b < g.kboxes; ++b) {
               tma_load_2d(st + b * kTcBoxBytes, &xmap, full(slot), 64 * b, row);
@@ -613,11 +617,12 @@ kmeans_tc_kernel(const __grid_constant__ CUtensorMap xmap,
           } else {
             const int c = j / g.kboxes;
             const int b = j % g.kboxes;
-            const bool two = row + kTcRows < g.rows;  // the second 64 rows hold valid rows
-            mbar_expect_tx(full(slot), (two ? 2 : 1) * kTcBoxBytes + 128 * N);
-            tma_load_2d(st, &xmap, full(slot), 64 * b, row);
-            if (two) tma_load_2d(st + kTcBoxBytes, &xmap, full(slot), 64 * b, row + kTcRows);
-            tma_load_2d(st + 2 * kTcBoxBytes, &cmap, full(slot), 64 * b, c * N);
+            sc::produce_stage<N>(
+                ring, stage, row + kTcRows < g.rows,  // the second 64 rows hold valid rows
+                [&](uint32_t dst, uint32_t bar, int half) {
+                  tma_load_2d(dst, &xmap, bar, 64 * b, row + kTcRows * half);
+                },
+                [&](uint32_t dst, uint32_t bar) { tma_load_2d(dst, &cmap, bar, 64 * b, c * N); });
           }
         }
       }
@@ -704,7 +709,6 @@ kmeans_tc_kernel(const __grid_constant__ CUtensorMap xmap,
   if (first < my_tiles && g.resident) mbar_wait(cent, 0);
   // Streamed: each warpgroup stages a chunk's constants in one of its two
   // buffers, alternating over its chunks (seq), one named barrier a chunk.
-  float* const cn_w = cn_s + 2 * N * cw;
   long long seq = 0;
   for (long long i = first; i < my_tiles; i += step) {
     const long long row0 = (blockIdx.x + i * gridDim.x) * tile_rows + (shared ? kTcRows * cw : 0);
@@ -712,16 +716,11 @@ kmeans_tc_kernel(const __grid_constant__ CUtensorMap xmap,
     int best_i[2] = {0, 0};
     long long stage = i * per_tile;
     int held = -1;     // kAssign resident / kFused: the tile's slot, released after scoring
-    int pending = -1;  // streaming: slot read by wgmmas that may still be in flight
     for (int c = 0; c < g.chunks; ++c, ++seq) {
-      constexpr int kPer = (N + 127) / 128;
-      float pre[kPer];  // streamed: this chunk's constants, loaded while its wgmmas run
+      float pre[sc::per_thread(N)];  // streamed: the chunk's constants, loaded while wgmmas run
       if (!g.resident) {
-#pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          const long long col = static_cast<long long>(c) * N + t + 128 * u;
-          pre[u] = col < g.k ? __ldg(cn + col) : __int_as_float(0x7f800000);
-        }
+        sc::fetch_constants<N>(pre, cn, static_cast<long long>(c) * N, g.k, t,
+                               __int_as_float(0x7f800000));
       }
       if (g.resident) {
         if (c == 0) {
@@ -746,39 +745,10 @@ kmeans_tc_kernel(const __grid_constant__ CUtensorMap xmap,
         wgmma_wait<0>();
         fence_acc(acc);
       } else {
-        for (int b = 0; b < g.kboxes; ++b, ++stage) {
-          const int slot = static_cast<int>(stage % stages);
-          mbar_wait(full(slot), static_cast<uint32_t>(stage / stages) & 1u);
-          const uint32_t st = base + slot * g.l.stage_bytes;
-          fence_acc(acc);
-          wgmma_fence();
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint64_t da = sw128_desc(st + cw * kTcBoxBytes + 32 * j, 16, 1024);
-            const uint64_t db = sw128_desc(st + 2 * kTcBoxBytes + 32 * j, 16, 1024);
-            wgmma_kk<N>(acc, da, db, (b == 0 && j == 0) ? 0 : 1);
-          }
-          wgmma_commit();
-          wgmma_wait<1>();  // the previous stage's wgmmas are done: release it
-          fence_acc(acc);
-          if (pending >= 0) mbar_arrive(empty(pending));
-          pending = slot;
-        }
-        wgmma_wait<0>();
-        fence_acc(acc);
-        mbar_arrive(empty(pending));
-        pending = -1;
+        sc::consume_chunk<N>(ring, stage, g.kboxes, cw, acc);
       }
-      const float* cc = cn_s + c * N;  // the chunk's constants
-      if (!g.resident) {
-        float* buf = cn_w + (seq & 1) * N;  // its readers two chunks back passed the barrier
-#pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          if (t + 128 * u < N) buf[t + 128 * u] = pre[u];
-        }
-        asm volatile("bar.sync %0, 128;" ::"r"(3 + cw) : "memory");
-        cc = buf;
-      }
+      const float* cc = g.resident ? cn_s + c * N  // the chunk's constants
+                                   : sc::publish_constants<N>(pre, cn_s, seq, t, cw);
       // acc[v]: row 16·warp + lane/4 + 8·((v >> 1) & 1), column
       // 8·(v >> 2) + 2·(lane % 4) + (v & 1) of the chunk.
       float bd[2] = {__int_as_float(0x7f800000), __int_as_float(0x7f800000)};

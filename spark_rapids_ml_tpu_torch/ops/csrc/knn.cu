@@ -5,7 +5,7 @@
 //
 // Replaces spark_rapids_ml_tpu/ops/pallas_kernels.py:
 //   dist_topk_pallas       (:678) -> srml_dist_topk
-//   ivf_scan_select_pallas (:860) -> srml_ivf_scan_select
+//   ivf_scan_select_pallas (:860) -> srml_ivf_scan_select, srml_ivf_scan_select_tc
 //   probe_select_pallas    (:984) -> srml_probe_select
 //
 // What the Pallas kernels compute.
@@ -58,16 +58,78 @@
 // same. The products are summed in another order than torch.matmul, so a
 // score may differ from the plain version's in its last bits.
 //
+// ivf_scan_select on the tensor cores (srml_ivf_scan_select_tc; bf16 with
+// d % 8 == 0, qv and rows 16-byte aligned, blk_k up to the plan's limit:
+// kernels.scan_route). It is the streamed TN scoring layout of kmeans.cu
+// (scoring.cuh) in another mode: A a tile of 128 query slots of one list
+// (two consumer warpgroups of 64), B the list's rows in chunks of N = 256
+// (wgmma m64n256k16, both operands K-major, transpose bits 0, 0), K = d in
+// 64-column slabs, a stage one (query slab, list slab) pair of 48 KB.
+//   - 3-D tensor maps (nlist, C, d) and (nlist, maxlen, d): a box never
+//     crosses into the next list, and TMA zero-fills the slot tail and the
+//     maxlen tail. Columns at or past maxlen are keyed as the masked key and
+//     never emitted; rows inside maxlen with the r2 >= 1e30 sentinel are
+//     real candidates, emitted when a list holds fewer than blk_k valid rows.
+//   - Persistent blocks walk (list, slot tile) tasks, the tiles of a list at
+//     adjacent task indices, so neighbouring blocks read a list from L2 once.
+//     A chunk's 256 r2 values are staged in one of two buffers a warpgroup
+//     while its wgmmas run (scoring.cuh).
+//   - The epilogue, per chunk: the accumulator gives each lane of a quad two
+//     slots and two columns of every 8-column group; the lanes of a pair
+//     swap halves with one shuffle a value, so each lane keeps one slot and
+//     four columns of each group (128 a chunk). It keys them (score r2 −
+//     2·acc, the FFMA tiles' arithmetic) and offers only those below its
+//     threshold, held in a register, to its own sorted list of blk_k keys in
+//     shared memory (entry j of list t at j · 256 + t: conflict-free, no
+//     atomics). At the end of a task the two lists of a slot merge, and the
+//     first blk_k are decoded; their partner lanes write the pad rows.
+//   - Shared memory: a ring of 2..4 stages beside 4 KB of r2 buffers, 8 KB
+//     of a round's candidates and the lists (1 KB per key of blk_k). The plan
+//     takes the deepest ring that fits (kernels.scan_stages); blk_k <= 117
+//     leaves two stages (so the next stage loads while one multiplies),
+//     which covers every width ApproximateNearestNeighbors extracts at k <= 64 by
+//     default (ceil(1.2 · 64) = 77). Wider blk_k keeps the FFMA tiles.
+//     srml_ivf_scan_tc_smem exports the plan's bytes; chip_smoke.py's phase
+//     2 holds them equal to kernels.scan_smem_bytes.
+//   - Arithmetic: bf16 x bf16 products are exact and the wgmma accumulates
+//     in f32 with truncation, with no promotion (R = 0): a score is one dot
+//     product of d <= a few thousand exact terms, and its truncation error
+//     (a few ulps of the partial sums) is far below the packed keys' floor
+//     of 2^(pos_bits − 23) and phase 17's selection tolerance.
+//   - Registers: the producer warpgroup gives registers back (setmaxnreg 40)
+//     and the consumers take 232 (an m64n256 accumulator is 128 a thread);
+//     the launcher refuses (rc 1998) unless ptxas gave the kernel 168. Each
+//     stage waits for its own wgmmas before it is released (scoring.cuh,
+//     kOverlap false): with a group in flight across the k-loop's back
+//     edge, ptxas moved accumulator registers there before the wgmmas had
+//     written them, and whole accumulator registers of every thread came out
+//     stale (found by dumping the raw scores on the card). The other
+//     warpgroup's wgmmas keep the tensor cores busy across the wait. The
+//     epilogue keys 8 columns a round straight-line, sets aside those below
+//     the threshold and inserts them in a loop, which keeps ptxas from
+//     spilling (ptxas -v: 0 bytes).
+//
 // Bound on the H100 at the slice's shapes (PERF.md): dist_topk over 4,096
 // queries x 1,048,576 bf16 rows x 768 is 6.6e12 operations, bound by them
-// (6.7 ms on the bf16 tensor cores); these tiles run on CUDA cores in FFMA,
-// so their rate, not the bytes, bounds them. The scan reads the residual
-// lists once per slot tile. Index arithmetic is 64-bit.
+// (6.7 ms on the bf16 tensor cores); its tiles run on CUDA cores in FFMA,
+// so their rate, not the bytes, bounds them. The scan at nlist 1,024 x C
+// 208 x maxlen 2,048 x 768 reads 3.2 GB of residual lists (0.96 ms) against
+// 0.67 TFLOP of products (0.82 with the padded slots), so it is bound by
+// bytes (1.07 ms with its other operands). Index arithmetic is 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
+#include <cstdint>
+
+#include "hopper.cuh"
+#include "scoring.cuh"
+
 namespace {
+
+using namespace srml_hopper;  // NOLINT: mbarriers, TMA, wgmma, tensor maps
+namespace sc = srml_scoring;  // the streamed scoring layout kmeans.cu shares
 
 constexpr int kT = 128;                      // rows of a product tile on each side
 constexpr int kDC = 32;                      // feature columns staged per step
@@ -507,6 +569,283 @@ int launch_scan(const T* qv, const T* rows, const float* r2, long long nlist, lo
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// ivf_scan_select on the tensor cores (bf16, d % 8 == 0)
+// ---------------------------------------------------------------------------
+
+constexpr int kScanN = 256;          // list rows per chunk: the widest wgmma
+constexpr int kScanTile = 128;       // query slots per task: two 64-slot halves
+constexpr int kScanThreads = 384;    // warpgroup 0: producer; 1-2: consumers
+constexpr int kScanEntryRegs = 168;  // 65536 / 384, what setmaxnreg 40 / 232 balances
+constexpr int kScanMaxStages = 4;
+constexpr int kScanLists = 256;      // one sorted key list per consumer thread
+constexpr int kScanStride = 4 * kScanLists;  // bytes between entries of a list
+constexpr int kScanBatch = 2;        // 8-column groups a lane keys before it inserts
+constexpr int kScanRound = 4 * kScanBatch;   // candidates a round may set aside
+
+// Shared-memory layout (byte offsets from the 1 KB-aligned base) of a
+// launch. kernels.scan_smem_bytes copies .total;
+// srml_ivf_scan_tc_smem exports it so that chip_smoke.py's phase 2 holds the
+// two equal.
+struct ScanLayout {
+  uint32_t stage_bytes;  // one ring stage: two 64-slot query slabs, one 256-row list slab
+  uint32_t r2_off;       // r2 of a chunk: two 256-float buffers for each consumer warpgroup
+  uint32_t cand_off;     // kScanRound x kScanLists int32 candidates, entry i at i · 256 + t
+  uint32_t list_off;     // blk_k x kScanLists int32 keys: entry j of list t at j · 256 + t
+  uint32_t bar_off;      // full, empty (stages each)
+  long long total;       // bytes to request, alignment slack included
+};
+
+inline ScanLayout scan_layout(int blk_k, int stages) {
+  ScanLayout l{};
+  l.stage_bytes = static_cast<uint32_t>(sc::stage_bytes(kScanN));
+  long long off = static_cast<long long>(stages) * l.stage_bytes;
+  l.r2_off = static_cast<uint32_t>(off);
+  off += 4LL * 4 * kScanN;
+  l.cand_off = static_cast<uint32_t>(off);
+  off += 4LL * kScanRound * kScanLists;
+  l.list_off = static_cast<uint32_t>(off);
+  off += 4LL * kScanLists * blk_k;
+  off = (off + 7) / 8 * 8;
+  l.bar_off = static_cast<uint32_t>(off);
+  off += 8LL * 2 * stages;
+  l.total = off + 1024;
+  return l;
+}
+
+struct ScanGeom {
+  long long n_slots, maxlen;
+  int kboxes;      // 64-column boxes of a row
+  int chunks;      // 256-row chunks of a list
+  int slot_tiles;  // 128-slot tiles of a list; task = list · slot_tiles + tile
+  int tasks;
+  int stages, blk_k, bk_pad, low;
+  ScanLayout l;
+};
+
+__device__ __forceinline__ int ld_s32(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_s32(uint32_t addr, int v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Inserts key (< the list's last entry, th) into a thread's ascending list
+// of len keys (entry j at shared address lst + j · kScanStride), dropping
+// the last; th becomes the new last entry. Keys are unique, so no entry
+// equals key.
+__device__ __forceinline__ void list_insert(uint32_t lst, int len, int key, int& th) {
+  int j = len - 1;
+  while (j > 0) {
+    const int prev = ld_s32(lst + (j - 1) * kScanStride);
+    if (prev < key) break;
+    st_s32(lst + j * kScanStride, prev);
+    --j;
+  }
+  st_s32(lst + j * kScanStride, key);
+  th = ld_s32(lst + (len - 1) * kScanStride);
+}
+
+// Per task (list l, 128-slot tile): the packed keys of r2[l] − 2·(qv · row)
+// for the tile's slots against every row of list l, the blk_k smallest of
+// each slot decoded into out_d/out_p (nlist, bk_pad, C), the pad rows
+// (3e38, 0). qmap: (nlist, C, d) in 64-slot boxes; rmap: (nlist, maxlen,
+// d) in 256-row boxes (TMA zero-fills the slot tail and the maxlen tail).
+__global__ void __launch_bounds__(kScanThreads, 1)
+ivf_scan_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap rmap, const float* __restrict__ r2,
+                   ScanGeom g, float* __restrict__ out_d, int* __restrict__ out_p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle atoms need 1 KB alignment
+  unsigned char* sm = smem_raw + (base - raw);
+  float* r2_s = reinterpret_cast<float*>(sm + g.l.r2_off);
+  const uint32_t bars = base + g.l.bar_off;
+  const sc::Ring ring{base, g.l.stage_bytes, bars, bars + 8u * g.stages, g.stages};
+  // The tiles of a list are adjacent tasks, so neighbouring blocks score
+  // them side by side and read the list from L2 once.
+  const int my_tasks =
+      static_cast<int>(blockIdx.x) < g.tasks ? (g.tasks - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty(s), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 0) {
+      long long stage = 0;
+      for (int i = 0; i < my_tasks; ++i) {
+        const int task = blockIdx.x + i * gridDim.x;
+        const int l = task / g.slot_tiles;
+        const int s0 = task % g.slot_tiles * kScanTile;
+        const bool two = s0 + sc::kRows < g.n_slots;  // the second 64 slots hold valid slots
+        for (int c = 0; c < g.chunks; ++c) {
+          for (int b = 0; b < g.kboxes; ++b, ++stage) {
+            sc::produce_stage<kScanN>(
+                ring, stage, two,
+                [&](uint32_t dst, uint32_t bar, int half) {
+                  tma_load_3d(dst, &qmap, bar, 64 * b, s0 + sc::kRows * half, l);
+                },
+                [&](uint32_t dst, uint32_t bar) {
+                  tma_load_3d(dst, &rmap, bar, 64 * b, c * kScanN, l);
+                });
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int ct = tid - 128;  // consumer thread, 0..255: owns list ct
+  const int cw = ct / 128;   // consumer warpgroup: slots 64·cw .. of the tile
+  const int t = ct % 128;
+  const int lane = t % 32;
+  const int q4 = lane & 3;
+  // The accumulator gives a quad two slots (rows lane/4 and lane/4 + 8 of
+  // the warp's 16) and two columns of each 8-column group to each lane. The
+  // lanes of a pair (q4, q4 ^ 1) swap halves: lane q4 keeps slot row hb =
+  // q4 & 1 and the four columns 4p .. 4p + 3 (p = q4 >> 1) of every group,
+  // so each slot has two lists (p = 0, 1), merged at the end of a task.
+  const int hb = q4 & 1;
+  const int p = q4 >> 1;
+  const uint32_t lst = base + g.l.list_off + 4u * ct;   // shared addresses
+  const uint32_t cand = base + g.l.cand_off + 4u * ct;
+  float acc[kScanN / 2];
+#pragma unroll
+  for (int v = 0; v < kScanN / 2; ++v) acc[v] = 0.f;
+  long long stage = 0, seq = 0;
+  for (int i = 0; i < my_tasks; ++i) {
+    const int task = blockIdx.x + i * gridDim.x;
+    for (int j = 0; j < g.blk_k; ++j) st_s32(lst + j * kScanStride, kMaskedKey);
+    int th = kMaskedKey;
+    for (int c = 0; c < g.chunks; ++c, ++seq) {
+      float pre[sc::per_thread(kScanN)];  // the chunk's r2, loaded while its wgmmas run
+      sc::fetch_constants<kScanN>(pre, r2 + static_cast<long long>(task / g.slot_tiles) * g.maxlen,
+                                  static_cast<long long>(c) * kScanN, g.maxlen, t, 0.f);
+      sc::consume_chunk<kScanN, false>(ring, stage, g.kboxes, cw, acc);
+      const float* rc = sc::publish_constants<kScanN>(pre, r2_s, seq, t, cw);
+      // acc[4q + 2h + e]: slot row lane/4 + 8h, column 8q + 2·q4 + e. In
+      // rounds of kScanBatch groups: key the lane's columns straight-line and
+      // set aside those below the threshold (predicated stores to its
+      // candidate column), then insert them in a loop; the warp reconverges
+      // before the next round's shuffles.
+#pragma unroll
+      for (int r = 0; r < kScanN / 8; r += kScanBatch) {
+        int n = 0;
+#pragma unroll
+        for (int q = r; q < r + kScanBatch; ++q) {
+          const float k0 = hb ? acc[4 * q + 2] : acc[4 * q];
+          const float k1 = hb ? acc[4 * q + 3] : acc[4 * q + 1];
+          const float o0 = __shfl_xor_sync(kFull, hb ? acc[4 * q] : acc[4 * q + 2], 1);
+          const float o1 = __shfl_xor_sync(kFull, hb ? acc[4 * q + 1] : acc[4 * q + 3], 1);
+          const int col = 8 * q + 4 * p;
+          const float4 rv = *reinterpret_cast<const float4*>(rc + col);
+          const float v[4] = {hb ? o0 : k0, hb ? o1 : k1, hb ? k0 : o0, hb ? k1 : o1};
+          const float r2v[4] = {rv.x, rv.y, rv.z, rv.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int pos = c * kScanN + col + e;
+            // r2 − 2·(row·qv): the within-list residual score.
+            const int key = pos < g.maxlen ? pack_key(r2v[e] - 2.f * v[e], pos, g.low) : kMaskedKey;
+            if (key < th) {
+              st_s32(cand + n * kScanStride, key);
+              ++n;
+            }
+          }
+        }
+        for (int u = 0; u < n; ++u) {
+          const int key = ld_s32(cand + u * kScanStride);
+          if (key < th) list_insert(lst, g.blk_k, key, th);
+        }
+        __syncwarp();
+      }
+    }
+    // The slot's two lists (lanes q4 and q4 ^ 2) merge: the blk_k smallest.
+    const long long slot = task % g.slot_tiles * kScanTile + sc::kRows * cw + 16 * (t / 32) +
+                           lane / 4 + 8 * hb;
+    if (slot < g.n_slots) {
+      const long long o = task / g.slot_tiles * g.bk_pad * g.n_slots + slot;  // row j at + j · C
+      if (p == 0) {
+        const uint32_t other = base + g.l.list_off + 4u * (ct ^ 2);
+        int a = 0, b = 0;
+        for (int j = 0; j < g.blk_k; ++j) {
+          const int ka = ld_s32(lst + a * kScanStride);
+          const int kb = ld_s32(other + b * kScanStride);
+          const int key = ka < kb ? ka : kb;
+          a += ka < kb;
+          b += ka < kb ? 0 : 1;
+          out_d[o + j * g.n_slots] = key_value(key, g.low);
+          out_p[o + j * g.n_slots] = key & g.low;
+        }
+      } else {
+        for (int j = g.blk_k; j < g.bk_pad; ++j) {
+          out_d[o + j * g.n_slots] = kMaskedD2;
+          out_p[o + j * g.n_slots] = 0;
+        }
+      }
+    }
+    __syncwarp();  // the partner has read this list before the next task resets it
+  }
+}
+
+int launch_scan_tc(const void* qv, const void* rows, const float* r2, long long nlist,
+                   long long n_slots, long long maxlen, long long d, int blk_k, int bk_pad,
+                   int pos_bits, int stages, float* out_d, int* out_p, cudaStream_t s) {
+  const ScanLayout l = scan_layout(blk_k, stages);
+  const long long slot_tiles = (n_slots + kScanTile - 1) / kScanTile;
+  // Two stages at least, so that a stage loads while the last multiplies.
+  if (d < 8 || d % 8 != 0 || d > (1LL << 20) || nlist < 1 || n_slots < 1 ||
+      nlist * slot_tiles > INT_MAX / 2 || maxlen < 1 || maxlen > 65536 || pos_bits < 1 ||
+      pos_bits > 16 || blk_k < 1 || blk_k > maxlen || bk_pad < blk_k || stages < 2 ||
+      stages > kScanMaxStages || l.total > kSmemLimit ||
+      reinterpret_cast<uintptr_t>(qv) % 16 != 0 || reinterpret_cast<uintptr_t>(rows) % 16 != 0 ||
+      r2 == nullptr || out_d == nullptr || out_p == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* fn = reinterpret_cast<const void*>(&ivf_scan_tc_kernel);
+  static const int regs = kernel_registers(fn);
+  if (regs != kScanEntryRegs) return kErrRegisters;  // setmaxnreg would starve or not apply
+  CUtensorMap qmap, rmap;
+  int rc = bf16_tensor_map_3d(&qmap, qv, nlist, n_slots, d, sc::kRows);
+  if (rc != 0) return rc;
+  rc = bf16_tensor_map_3d(&rmap, rows, nlist, maxlen, d, kScanN);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(l.total));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int device = 0, sms = 0;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(e);
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
+    return static_cast<int>(e);
+  }
+  ScanGeom g{};
+  g.n_slots = n_slots;
+  g.maxlen = maxlen;
+  g.kboxes = static_cast<int>((d + 63) / 64);
+  g.chunks = static_cast<int>((maxlen + kScanN - 1) / kScanN);
+  g.slot_tiles = static_cast<int>(slot_tiles);
+  g.tasks = static_cast<int>(nlist * slot_tiles);
+  g.stages = stages;
+  g.blk_k = blk_k;
+  g.bk_pad = bk_pad;
+  g.low = (1 << pos_bits) - 1;
+  g.l = l;
+  const int blocks = g.tasks < sms ? g.tasks : sms;
+  ivf_scan_tc_kernel<<<static_cast<unsigned>(blocks), kScanThreads, l.total, s>>>(
+      qmap, rmap, r2, g, out_d, out_p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 static_assert(kWorkFloats * 4 + 2 * kT * 64 * 4 <= kSmemLimit, "dist_topk at k = 64 fits");
 static_assert(kWorkFloats * 4 + kListSmem <= kSmemLimit, "scan lists fit beside the tile");
 static_assert(sizeof(DI) == 8, "pairs are two 32-bit words");
@@ -568,5 +907,24 @@ int srml_ivf_scan_select(const void* qv, const void* rows, int is_bf16, const fl
 
 // Whether srml_ivf_scan_select needs its (nlist, C, blk_k) scratch.
 int srml_scan_needs_scratch(int blk_k) { return scan_lists_in_smem(blk_k) ? 0 : 1; }
+
+// srml_ivf_scan_select on the tensor cores, for bf16 qv and rows with
+// d % 8 == 0, both 16-byte aligned, over the wrapper's plan: a ring of
+// `stages` (kernels.scan_plan; the lists of blk_k keys take 1 KB per key
+// beside it). Same outputs. Returns a cudaError_t, or 1000 + a CUresult of
+// the tensor-map encode, 1998 (kernel registers) or 1999 (no encoder).
+int srml_ivf_scan_select_tc(const void* qv, const void* rows, const float* r2, long long nlist,
+                            long long n_slots, long long maxlen, long long d, int blk_k,
+                            int bk_pad, int pos_bits, int stages, float* out_d, int* out_p,
+                            void* stream) {
+  return launch_scan_tc(qv, rows, r2, nlist, n_slots, maxlen, d, blk_k, bk_pad, pos_bits, stages,
+                        out_d, out_p, static_cast<cudaStream_t>(stream));
+}
+
+// The shared memory (bytes, alignment slack included) of a tensor-core
+// scan launch: scan_layout's total, as kernels.scan_smem_bytes plans it.
+int srml_ivf_scan_tc_smem(int blk_k, int stages) {
+  return static_cast<int>(scan_layout(blk_k, stages).total);
+}
 
 }  // extern "C"

@@ -34,20 +34,24 @@ PCA, LinearRegression, KMeans and LogisticRegression slices:
 The Gram family, LogisticRegression's weighted Grams included, lives in
 ``csrc/gram.cu``, the KMeans pair in ``csrc/kmeans.cu``, the
 nearest-neighbour kernels in ``csrc/knn.cu`` (design notes there).
-``gram.cu`` has two bodies: CUDA-core FFMA tiles, and for bfloat16
-``gram_colsum``, ``linreg_stats``, ``newton_stats`` and
-``softmax_curvature`` with d % 8 == 0 a tensor-core body (wgmma fed by TMA
-over the upper-triangle tile pairs; the weighted pair rounds its Hessian
-operand to bf16 as the Pallas kernels do); :func:`gram_route` says which
-a launch takes and :func:`gram_plan` lays out the tensor-core launch.
+``gram.cu`` has two SYRK bodies over the upper-triangle tile pairs: a
+CUDA-core FFMA body (f32, and bf16 it cannot route) and, for bfloat16
+``gram`` without a mask, ``gram_colsum``, ``linreg_stats``,
+``newton_stats`` and ``softmax_curvature`` with d % 8 == 0, a tensor-core
+body (wgmma fed by TMA; the weighted pair rounds its Hessian operand to
+bf16 as the Pallas kernels do); :func:`gram_route` says which a launch
+takes, :func:`gram_plan` and :func:`ffma_gram_plan` lay out the launch.
 ``kmeans.cu`` has two bodies too: FFMA tiles, and for bfloat16 with
 d % 8 == 0 a tensor-core scoring body (wgmma fed by TMA, an argmin
 epilogue with ties to the lowest index); :func:`kmeans_route` and
 :func:`kmeans_plan` choose the body and the launch (a fused Lloyd pass,
-or the assignment then a sums pass). A wrapper takes its plain PyTorch
+or the assignment then a sums pass). ``knn.cu``'s bfloat16
+``ivf_scan_select`` takes the same streamed scoring layout with a
+packed-key top-k epilogue (:func:`scan_route`, :func:`scan_stages`). A
+wrapper takes its plain PyTorch
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises — there is no fallback. Each launch adds one to
-:data:`LAUNCHES` (and, for the six routed kernels, to :data:`ROUTES`),
+:data:`LAUNCHES` (and, for the eight routed kernels, to :data:`ROUTES`),
 so a run can show that it went through the kernels. The
 plain versions repeat the kernels' arithmetic (f32 products of the input
 values, f32 sums; TF32 is off for the whole package, see ``__init__``;
@@ -73,10 +77,11 @@ LAUNCHES = {"gram": 0, "gram_colsum": 0, "linreg_stats": 0, "lloyd_step": 0,
             "dist_topk": 0, "probe_select": 0, "ivf_scan_select": 0}
 
 #: Launches of the routed kernels by "<kernel>/<route>": "wgmma" is the
-#: tensor-core body of ``gram.cu`` or ``kmeans.cu``, "ffma" its CUDA-core
-#: tile body.
-ROUTES = {f"{k}/{r}": 0 for k in ("gram_colsum", "linreg_stats", "newton_stats",
-                                  "softmax_curvature", "lloyd_step", "assign_min_dist")
+#: tensor-core body of ``gram.cu``, ``kmeans.cu`` or ``knn.cu``, "ffma" its
+#: CUDA-core body.
+ROUTES = {f"{k}/{r}": 0 for k in ("gram", "gram_colsum", "linreg_stats", "newton_stats",
+                                  "softmax_curvature", "lloyd_step", "assign_min_dist",
+                                  "ivf_scan_select")
           for r in ("wgmma", "ffma")}
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -89,6 +94,8 @@ TC_TILE, TC_STAGE_ROWS, TC_MAX_SPLITS = 128, 64, 65535
 TC_PROMOTE_STAGES = 4
 #: A block's fixed cost (prologue, epilogue), in stages, for choosing splits.
 TC_BLOCK_OVERHEAD_STAGES = 16
+#: The FFMA SYRK body's longest f32 sum per register, in rows: its splits.
+FFMA_SPLIT_ROWS = 8192
 
 
 def kernel_applicable(compute_dtype: torch.dtype, accum_dtype: torch.dtype) -> bool:
@@ -123,12 +130,15 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gram")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.srml_gram.argtypes = [ptr, i32, ptr, i64, i64, ptr, ptr]
+    lib.srml_gram.argtypes = [ptr, i32, ptr, i64, i64, ptr, i32, i64, i64, ptr, ptr]
     lib.srml_gram.restype = i32
-    lib.srml_gram_colsum.argtypes = [ptr, i32, i64, i64, i64, ptr, ptr, ptr, ptr]
+    lib.srml_gram_tc.argtypes = [ptr, i64, i64, ptr, i32, i64, i64, i32, ptr, ptr]
+    lib.srml_gram_tc.restype = i32
+    lib.srml_gram_colsum.argtypes = [ptr, i32, i64, i64, i64, ptr, i32, i64, i64, ptr, ptr, ptr,
+                                     ptr]
     lib.srml_gram_colsum.restype = i32
-    lib.srml_linreg_stats.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr, ptr, ptr, ptr, ptr,
-                                      ptr, ptr]
+    lib.srml_linreg_stats.argtypes = [ptr, i32, ptr, ptr, i64, i64, ptr, i32, i64, i64, ptr, ptr,
+                                      ptr, ptr, ptr, ptr, ptr]
     lib.srml_linreg_stats.restype = i32
     lib.srml_gram_colsum_tc.argtypes = [ptr, i64, i64, i64, ptr, i32, i64, i64, i32, ptr, ptr,
                                         ptr, ptr]
@@ -136,13 +146,14 @@ def _lib() -> ctypes.CDLL:
     lib.srml_linreg_stats_tc.argtypes = [ptr, ptr, ptr, i64, i64, ptr, i32, i64, i64, i32, ptr,
                                          ptr, ptr, ptr, ptr, ptr, ptr]
     lib.srml_linreg_stats_tc.restype = i32
-    lib.srml_newton_stats.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i64, i64, ptr, ptr, ptr,
-                                      ptr, ptr, ptr, ptr, ptr]
+    lib.srml_newton_stats.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i64, i64, ptr, i32, i64, i64,
+                                      ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.srml_newton_stats.restype = i32
     lib.srml_newton_stats_tc.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, ptr, i32, i64, i64,
                                          i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.srml_newton_stats_tc.restype = i32
-    lib.srml_softmax_curvature.argtypes = [ptr, i32, ptr, i64, i64, i32, ptr, ptr, ptr]
+    lib.srml_softmax_curvature.argtypes = [ptr, i32, ptr, i64, i64, i32, ptr, i32, i64, i64,
+                                           ptr, ptr, ptr]
     lib.srml_softmax_curvature.restype = i32
     lib.srml_softmax_curvature_tc.argtypes = [ptr, ptr, i64, i64, i32, ptr, i32, i64, i64, i32,
                                               ptr, ptr, ptr]
@@ -185,6 +196,11 @@ def _knn_lib() -> ctypes.CDLL:
     lib.srml_ivf_scan_select.restype = i32
     lib.srml_scan_needs_scratch.argtypes = [i32]
     lib.srml_scan_needs_scratch.restype = i32
+    lib.srml_ivf_scan_select_tc.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, i32, i32, i32, i32,
+                                            ptr, ptr, ptr]
+    lib.srml_ivf_scan_select_tc.restype = i32
+    lib.srml_ivf_scan_tc_smem.argtypes = [i32, i32]
+    lib.srml_ivf_scan_tc_smem.restype = i32
     return lib
 
 
@@ -284,15 +300,32 @@ def gram_plan(d: int, rows: int, sms: int, classes: int = 1) -> GramPlan:
     return GramPlan(pairs, splits, split_rows, TC_PROMOTE_STAGES, classes)
 
 
-def gram_route(x: torch.Tensor, *outs: torch.Tensor) -> str:
-    """Which body of ``gram.cu`` a ``gram_colsum``/``linreg_stats``/
+def gram_route(x: torch.Tensor, *outs: torch.Tensor, masked: bool = False) -> str:
+    """Which body of ``gram.cu`` a ``gram``/``gram_colsum``/``linreg_stats``/
     ``newton_stats``/``softmax_curvature`` launch on x takes: "wgmma" for
     bfloat16 with d % 8 == 0 (TMA needs a 16-byte row stride), at least
     one row, and x and the outputs 16-byte aligned; "ffma" otherwise
-    (float32 stays in full f32 FFMA: TF32 is off)."""
+    (float32 stays in full f32 FFMA: TF32 is off). ``masked``: a ``gram``
+    with a mask, which stays on the FFMA body (the tensor cores would round
+    x·m to bf16 for a mask outside {0, 1}; the Pallas kernel multiplies in
+    f32)."""
     n, d = x.shape
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, *outs))
-    return "wgmma" if x.dtype == torch.bfloat16 and d % 8 == 0 and n > 0 and aligned else "ffma"
+    tc = x.dtype == torch.bfloat16 and d % 8 == 0 and n > 0 and aligned and not masked
+    return "wgmma" if tc else "ffma"
+
+
+def ffma_gram_plan(d: int, rows: int, classes: int = 1) -> GramPlan:
+    """The FFMA SYRK body's launch plan: the same upper-triangle tile pairs
+    as the tensor-core body, each once per class, over row splits of at
+    most FFMA_SPLIT_ROWS rows (a multiple of TC_STAGE_ROWS; at most
+    TC_MAX_SPLITS of them), so that no f32 register sums more rows than the
+    splits hold; no promotion (its sums are f32 FFMA throughout)."""
+    rows = max(int(rows), 0)
+    splits = max(1, min(-(-rows // FFMA_SPLIT_ROWS), TC_MAX_SPLITS))
+    per = -(-rows // splits)
+    split_rows = max(1, -(-per // TC_STAGE_ROWS)) * TC_STAGE_ROWS
+    return GramPlan(tc_tile_pairs(d), splits, split_rows, 0, classes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -316,6 +349,14 @@ def _tc_plan_args(x: torch.Tensor, rows: int, classes: int = 1):
     return pairs.data_ptr(), len(plan.pairs), plan.splits, plan.split_rows, plan.promote
 
 
+def _ffma_plan_args(x: torch.Tensor, rows: int, classes: int = 1):
+    """The plan arguments of an FFMA launch: pairs pointer, pair count,
+    splits, split rows."""
+    d = x.shape[1]
+    plan = ffma_gram_plan(d, rows, classes)
+    return _pairs_on(d, x.device).data_ptr(), len(plan.pairs), plan.splits, plan.split_rows
+
+
 # ---------------------------------------------------------------------------
 # Masked Gram
 # ---------------------------------------------------------------------------
@@ -332,7 +373,9 @@ def gram(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     or None for all rows.
 
     Any n and d: the kernel masks the ragged edges itself (the Pallas
-    kernel's divisibility demands were tiling artefacts)."""
+    kernel's divisibility demands were tiling artefacts). The route
+    (:func:`gram_route`): bfloat16 with no mask on the tensor-core SYRK,
+    everything else on the FFMA SYRK (f32 products of the input values)."""
     _check_x(x)
     n, d = x.shape
     if mask is not None:
@@ -341,13 +384,17 @@ def gram(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         return gram_plain(x, mask)
     xp, is_bf16 = _launch_args(x)
     out = torch.zeros((d, d), dtype=torch.float32, device=x.device)
+    route = gram_route(x, out, masked=mask is not None)
     with torch.cuda.device(x.device):
-        rc = _lib().srml_gram(
-            xp, is_bf16, None if mask is None else mask.data_ptr(), n, d, out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route == "wgmma":
+            rc = _lib().srml_gram_tc(xp, n, d, *_tc_plan_args(x, n), out.data_ptr(), stream)
+        else:
+            rc = _lib().srml_gram(xp, is_bf16, None if mask is None else mask.data_ptr(), n, d,
+                                  *_ffma_plan_args(x, n), out.data_ptr(), stream)
     _raise_on(rc, "gram")
     LAUNCHES["gram"] += 1
+    ROUTES[f"gram/{route}"] += 1
     return out
 
 
@@ -409,8 +456,9 @@ def gram_colsum(
             )
         else:
             rc = _lib().srml_gram_colsum(
-                xp, is_bf16, n, d, int(n_valid), g.data_ptr(), cs.data_ptr(), c.data_ptr(),
-                stream,
+                xp, is_bf16, n, d, int(n_valid),
+                *_ffma_plan_args(x, min(n, max(int(n_valid), 0))), g.data_ptr(), cs.data_ptr(),
+                c.data_ptr(), stream,
             )
     _raise_on(rc, "gram_colsum")
     LAUNCHES["gram_colsum"] += 1
@@ -491,8 +539,9 @@ def linreg_stats(
             )
         else:
             rc = _lib().srml_linreg_stats(
-                xp, is_bf16, mp, y.data_ptr(), n, d, xtx.data_ptr(), xty.data_ptr(),
-                sx.data_ptr(), sy.data_ptr(), syy.data_ptr(), rows.data_ptr(), stream,
+                xp, is_bf16, mp, y.data_ptr(), n, d, *_ffma_plan_args(x, n), xtx.data_ptr(),
+                xty.data_ptr(), sx.data_ptr(), sy.data_ptr(), syy.data_ptr(), rows.data_ptr(),
+                stream,
             )
     _raise_on(rc, "linreg_stats")
     LAUNCHES["linreg_stats"] += 1
@@ -880,7 +929,8 @@ def newton_stats_launch(x, y, mask, w, b):
             )
         else:
             rc = _lib().srml_newton_stats(
-                xp, is_bf16, y.data_ptr(), mp, w.data_ptr(), b.data_ptr(), n, d, *outs, stream,
+                xp, is_bf16, y.data_ptr(), mp, w.data_ptr(), b.data_ptr(), n, d,
+                *_ffma_plan_args(x, n), *outs, stream,
             )
     _raise_on(rc, "newton_stats")
     LAUNCHES["newton_stats"] += 1
@@ -929,7 +979,8 @@ def softmax_curvature(x: torch.Tensor, p: torch.Tensor):
             )
         else:
             rc = _lib().srml_softmax_curvature(
-                xp, is_bf16, p.data_ptr(), n, d, n_classes, hw.data_ptr(), hwb.data_ptr(), stream,
+                xp, is_bf16, p.data_ptr(), n, d, n_classes, *_ffma_plan_args(x, n, n_classes),
+                hw.data_ptr(), hwb.data_ptr(), stream,
             )
     _raise_on(rc, "softmax_curvature")
     LAUNCHES["softmax_curvature"] += 1
@@ -1117,6 +1168,54 @@ def _check_scan(qv: torch.Tensor, rows: torch.Tensor, r2: torch.Tensor, blk_k: i
         raise ValueError(f"blk_k={blk_k} must be in [1, maxlen={rows.shape[1]}]")
 
 
+#: The tensor-core scan (``knn.cu``'s ``ivf_scan_tc_kernel``): list rows per
+#: chunk (the wgmma's N), query slots per task, the deepest ring, the sorted
+#: key lists (one per consumer thread, two per slot) and the candidates a
+#: list takes in one round of inserts.
+SCAN_CHUNK, SCAN_TILE, SCAN_MAX_STAGES, SCAN_LISTS, SCAN_ROUND = 256, 128, 4, 256, 8
+#: The shared memory a block may use.
+SCAN_SMEM_LIMIT = 232448
+
+
+def scan_smem_bytes(blk_k: int, stages: int) -> int:
+    """Shared memory of a tensor-core scan launch, a copy of ``scan_layout``'s
+    total in knn.cu (``srml_ivf_scan_tc_smem``; chip_smoke.py's phase 2
+    holds the two equal): the ring (two 64-slot query slabs and one
+    256-row list slab a stage), two chunk buffers of r2 for each consumer
+    warpgroup, a round's candidates and the lists of blk_k int32 keys, the
+    mbarriers and 1 KB of alignment slack."""
+    off = (stages * (2 * 8192 + 128 * SCAN_CHUNK) + 4 * 4 * SCAN_CHUNK
+           + 4 * SCAN_LISTS * (SCAN_ROUND + blk_k))
+    return -(-off // 8) * 8 + 8 * 2 * stages + 1024
+
+
+def scan_stages(blk_k: int) -> int:
+    """The deepest ring (at most SCAN_MAX_STAGES) that fits beside the lists
+    of blk_k keys, or 0."""
+    for stages in range(SCAN_MAX_STAGES, 0, -1):
+        if scan_smem_bytes(blk_k, stages) <= SCAN_SMEM_LIMIT:
+            return stages
+    return 0
+
+
+#: The largest blk_k the tensor-core scan takes: its lists leave room for a
+#: two-stage ring (117: every width ApproximateNearestNeighbors extracts at
+#: k <= 64 under its default ann_extract, ceil(1.2·k) <= 77).
+SCAN_TC_MAX_BLK_K = max(b for b in range(1, 4096) if scan_stages(b) >= 2)
+
+
+def scan_route(qv: torch.Tensor, rows: torch.Tensor, blk_k: int) -> str:
+    """Which body of ``knn.cu`` an ``ivf_scan_select`` launch takes: "wgmma"
+    for bfloat16 with d % 8 == 0 (TMA needs a 16-byte row stride), qv and
+    rows 16-byte aligned, at least one list, slot and row, and blk_k <=
+    SCAN_TC_MAX_BLK_K; "ffma" otherwise (float32 stays in full f32 FFMA)."""
+    nlist, n_slots, d = qv.shape
+    aligned = qv.data_ptr() % 16 == 0 and rows.data_ptr() % 16 == 0
+    tc = (qv.dtype == torch.bfloat16 and d % 8 == 0 and aligned and blk_k <= SCAN_TC_MAX_BLK_K
+          and nlist * n_slots * rows.shape[1] > 0)
+    return "wgmma" if tc else "ffma"
+
+
 def ivf_scan_select_plain(qv: torch.Tensor, rows: torch.Tensor, r2: torch.Tensor, blk_k: int):
     """Plain version of :func:`ivf_scan_select`."""
     nlist, n_slots, _ = qv.shape
@@ -1147,7 +1246,9 @@ def ivf_scan_select(qv: torch.Tensor, rows: torch.Tensor, r2: torch.Tensor, blk_
     qv: (nlist, C, d), the query residuals per slot; rows: (nlist, maxlen,
     d), the residual list rows, both float32 or both bfloat16; r2: (nlist,
     maxlen) f32 with ≥ 1e30 on rows that must not win. blk_k ≤ maxlen ≤
-    65,536."""
+    65,536. The route (:func:`scan_route`): bfloat16 with d % 8 == 0 on
+    the tensor-core scoring body with a packed-key top-k epilogue, else
+    the FFMA tiles; both give the same bits (the keys are unique)."""
     _check_scan(qv, rows, r2, blk_k)
     if qv.device.type == "cpu":
         return ivf_scan_select_plain(qv, rows, r2, blk_k)
@@ -1160,16 +1261,25 @@ def ivf_scan_select(qv: torch.Tensor, rows: torch.Tensor, r2: torch.Tensor, blk_
     rp, _ = _launch_args(rows)
     r2c = r2.contiguous()
     lib = _knn_lib()
-    scratch = (torch.empty((nlist, n_slots, blk_k), dtype=torch.int32, device=qv.device)
-               if lib.srml_scan_needs_scratch(blk_k) else None)
+    route = scan_route(qvc, rows, blk_k)
     out_d = torch.empty((nlist, bk_pad, n_slots), dtype=torch.float32, device=qv.device)
     out_p = torch.empty((nlist, bk_pad, n_slots), dtype=torch.int32, device=qv.device)
     with torch.cuda.device(qv.device):
-        rc = lib.srml_ivf_scan_select(
-            qvp, rp, is_bf16, r2c.data_ptr(), nlist, n_slots, maxlen, d, blk_k, bk_pad,
-            pos_bits, None if scratch is None else scratch.data_ptr(), out_d.data_ptr(),
-            out_p.data_ptr(), torch.cuda.current_stream(qv.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(qv.device).cuda_stream
+        if route == "wgmma":
+            rc = lib.srml_ivf_scan_select_tc(
+                qvp, rp, r2c.data_ptr(), nlist, n_slots, maxlen, d, blk_k, bk_pad, pos_bits,
+                scan_stages(blk_k), out_d.data_ptr(), out_p.data_ptr(), stream,
+            )
+        else:
+            scratch = (torch.empty((nlist, n_slots, blk_k), dtype=torch.int32, device=qv.device)
+                       if lib.srml_scan_needs_scratch(blk_k) else None)
+            rc = lib.srml_ivf_scan_select(
+                qvp, rp, is_bf16, r2c.data_ptr(), nlist, n_slots, maxlen, d, blk_k, bk_pad,
+                pos_bits, None if scratch is None else scratch.data_ptr(), out_d.data_ptr(),
+                out_p.data_ptr(), stream,
+            )
     _raise_on(rc, "ivf_scan_select")
     LAUNCHES["ivf_scan_select"] += 1
+    ROUTES[f"ivf_scan_select/{route}"] += 1
     return out_d, out_p

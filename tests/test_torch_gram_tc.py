@@ -33,6 +33,7 @@ import torch
 from spark_rapids_ml_tpu.ops import pallas_kernels as pk
 from spark_rapids_ml_tpu.ops.pallas_kernels import (
     gram_colsum_pallas,
+    gram_pallas,
     linreg_stats_pallas,
     newton_stats_pallas,
     softmax_curvature_pallas,
@@ -185,11 +186,13 @@ def test_weighted_route_needs_16_byte_alignment():
 
 
 def test_routes_count_the_four_routed_kernels():
-    """The four Gram-family kernels and, since the KMeans pair gained its
-    tensor-core body, lloyd_step and assign_min_dist: six routed kernels."""
+    """The four Gram-family kernels; since the KMeans pair gained its
+    tensor-core body, lloyd_step and assign_min_dist; since the masked Gram
+    and the IVF list scan gained theirs, gram and ivf_scan_select: eight
+    routed kernels."""
     assert set(kernels.ROUTES) == {f"{k}/{r}" for k in (
-        "gram_colsum", "linreg_stats", "newton_stats", "softmax_curvature", "lloyd_step",
-        "assign_min_dist") for r in ("wgmma", "ffma")}
+        "gram", "gram_colsum", "linreg_stats", "newton_stats", "softmax_curvature", "lloyd_step",
+        "assign_min_dist", "ivf_scan_select") for r in ("wgmma", "ffma")}
 
 
 def test_route_needs_rows_and_16_byte_alignment():
@@ -201,9 +204,26 @@ def test_route_needs_rows_and_16_byte_alignment():
     assert kernels.gram_route(torch.zeros((0, 16), dtype=torch.bfloat16)) == "ffma"
 
 
+@pytest.mark.parametrize("dtype, d, masked, route", [
+    (torch.bfloat16, 2048, False, "wgmma"),  # the default in-memory PCA fit on the card
+    (torch.bfloat16, 8, False, "wgmma"),
+    (torch.bfloat16, 136, False, "wgmma"),
+    (torch.bfloat16, 2048, True, "ffma"),    # x·m would round to bf16 for m outside {0, 1}
+    (torch.float32, 2048, False, "ffma"),    # f32 stays in full f32 FFMA (TF32 is off)
+    (torch.float32, 1000, True, "ffma"),
+    (torch.bfloat16, 300, False, "ffma"),    # a 600-byte row: TMA needs 16-byte strides
+    (torch.bfloat16, 13, True, "ffma"),
+])
+def test_gram_route(dtype, d, masked, route):
+    g = torch.zeros((d, d))
+    assert kernels.gram_route(torch.zeros((70, d), dtype=dtype), g, masked=masked) == route
+
+
 def test_cpu_tensors_take_no_route():
     x = torch.zeros((70, 16), dtype=torch.bfloat16)
     kernels.reset_launches()
+    kernels.gram(x)
+    kernels.gram(x, torch.ones(70))
     kernels.gram_colsum(x, 70)
     kernels.linreg_stats(x, torch.zeros(70))
     kernels.newton_stats(x, torch.zeros(70), None, torch.zeros(16), torch.tensor(0.0))
@@ -305,6 +325,73 @@ def test_emulated_linreg_stats_matches_pallas(kind, seeded, masked):
     for got, want, s0 in zip(out, ref[:5], seed):
         np.testing.assert_allclose(got, np.asarray(want) + (s0 if seeded else 0), **TOL)
     assert n_rows == float(ref[5]) == (N if not masked else int(m.sum()))
+
+
+# ---------------------------------------------------------------------------
+# The masked Gram on both SYRK bodies, emulated, against gram_pallas
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows", [0, 1, 8192, 8193, 20001, 1 << 20, (1 << 20) + 63])
+def test_ffma_plan_bounds_each_register_sum(rows):
+    """The FFMA body's splits cover the rows without gaps, in stage
+    multiples, and no split sums more than FFMA_SPLIT_ROWS rows."""
+    plan = kernels.ffma_gram_plan(2048, rows)
+    assert plan.pairs == kernels.tc_tile_pairs(2048) and plan.promote == 0
+    assert plan.split_rows % kernels.TC_STAGE_ROWS == 0
+    assert plan.split_rows <= max(kernels.FFMA_SPLIT_ROWS, kernels.TC_STAGE_ROWS)
+    assert 1 <= plan.splits <= kernels.TC_MAX_SPLITS
+    assert plan.splits * plan.split_rows >= rows
+    assert (plan.splits - 1) * plan.split_rows < max(rows, 1)  # every split holds rows
+
+
+GN = 512  # rows of the masked-Gram cases: two Pallas row blocks, three splits below
+
+
+def _gram_inputs(seed, d, dtype):
+    x = np.random.default_rng(seed).normal(size=(GN, d)).astype(np.float32)
+    x = torch.from_numpy(x).to(dtype).float().numpy()  # the values dtype holds
+    return x, jnp.asarray(x, "bfloat16" if dtype == torch.bfloat16 else "float32")
+
+
+GRAM_CASES = [(route, d, masked) for d in (8, 136, 1000)
+              for route, masked in (("ffma-f32", False), ("ffma-f32", True), ("ffma-bf16", True),
+                                    ("wgmma-bf16", False))]
+
+
+@pytest.mark.parametrize("route, d, masked", GRAM_CASES)
+@pytest.mark.parametrize("seeded", [False, True])
+def test_emulated_gram_syrk_matches_pallas(route, d, masked, seeded):
+    """gram's SYRK on either body: per (pair, split) f32 partials of the
+    (x·m) tiles over the upper tile pairs (promoted every few stages on
+    the tensor cores), each tile S into G[i, j] and, off the diagonal, Sᵀ
+    into G[j, i] — folded into a non-symmetric seed, which must stay
+    exact — against gram_pallas in interpret mode (its whole square)."""
+    dtype = torch.float32 if route == "ffma-f32" else torch.bfloat16
+    x, xj = _gram_inputs(49 + d, d, dtype)
+    rng = np.random.default_rng(50 + d)
+    m = rng.random(GN).astype(np.float32) if masked else np.ones((GN,), np.float32)
+    if masked and route == "ffma-bf16":
+        m = (m < 0.7).astype(np.float32)  # the bf16 masked gram of a padded shard
+    ref = np.asarray(gram_pallas(xj, jnp.asarray(m, xj.dtype), block_n=256, block_d=d,
+                                 interpret=True))
+    g0 = rng.normal(size=(d, d)).astype(np.float32) if seeded else np.zeros((d, d), np.float32)
+    g = g0.copy()
+    if route.startswith("wgmma"):
+        plan = kernels.gram_plan(d, GN, sms=132)
+    else:
+        plan = kernels.ffma_gram_plan(d, GN)
+    # The planned launch, then three splits of three stages (a promotion
+    # every two on the tensor cores).
+    for p in (plan, kernels.GramPlan(plan.pairs, 3, 192, plan.promote and 2)):
+        g = g0.copy()
+        _emulate((x * m[:, None]).astype(np.float32), GN, p, g, np.zeros((d,), np.float32))
+        np.testing.assert_allclose(g - g0, ref, **TOL)
+        if seeded:  # the seed is only added to: the result is no longer symmetric
+            assert not np.allclose(g, g.T)
+    plain = kernels.gram_plain(torch.from_numpy(x).to(dtype),
+                               torch.from_numpy(m) if masked else None).numpy()
+    np.testing.assert_allclose(g - g0, plain, **TOL)
 
 
 # ---------------------------------------------------------------------------

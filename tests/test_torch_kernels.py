@@ -150,7 +150,7 @@ def test_kernel_source_exports_the_bound_symbols():
     """The C symbols and argument counts the ctypes binding declares exist
     in the CUDA source (the source compiles only on the card)."""
     src = (_build.CSRC / "gram.cu").read_text()
-    for name, n_args in (("srml_gram", 7), ("srml_gram_colsum", 9)):
+    for name, n_args in (("srml_gram", 11), ("srml_gram_colsum", 13)):
         m = re.search(rf"int {name}\(([^)]*)\)", src)
         assert m, name
         assert len(m.group(1).split(",")) == n_args, name
@@ -158,11 +158,11 @@ def test_kernel_source_exports_the_bound_symbols():
 
 
 @pytest.mark.parametrize("source, name, n_args", [
-    ("gram", "srml_linreg_stats", 13),
+    ("gram", "srml_linreg_stats", 17),
     ("kmeans", "srml_lloyd_step", 11),
     ("kmeans", "srml_assign_min_dist", 10),
-    ("gram", "srml_newton_stats", 16),
-    ("gram", "srml_softmax_curvature", 9),
+    ("gram", "srml_newton_stats", 20),
+    ("gram", "srml_softmax_curvature", 13),
     ("gram", "srml_gram_colsum_tc", 13),
     ("gram", "srml_linreg_stats_tc", 17),
     ("gram", "srml_newton_stats_tc", 20),
@@ -171,6 +171,12 @@ def test_kernel_source_exports_the_bound_symbols():
     ("kmeans", "srml_assign_min_dist_tc", 12),
     ("kmeans", "srml_lloyd_sums", 12),
     ("kmeans", "srml_kmeans_tc_smem", 6),
+    ("gram", "srml_gram", 11),
+    ("gram", "srml_gram_colsum", 13),
+    ("gram", "srml_gram_tc", 10),
+    ("knn", "srml_ivf_scan_select", 15),
+    ("knn", "srml_ivf_scan_select_tc", 14),
+    ("knn", "srml_ivf_scan_tc_smem", 2),
 ])
 def test_new_kernel_sources_export_the_bound_symbols(source, name, n_args):
     """As above, for the LinearRegression and KMeans kernels; the count
