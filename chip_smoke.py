@@ -12,7 +12,15 @@ Phases, each of which exits non-zero on a failed check:
    (one nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at ragged
    shapes (tolerances stated beside each check), the LogisticRegression
-   pair included. First the newest routes: the tensor-core
+   pair included. First the newest routes: ``dist_topk`` on both routes
+   (its shared-memory plan against knn.cu's, then bitwise on small-integer
+   rows at nq in {1, 63, 128, 129, 4,101}, m in {k, 255, 256, 257,
+   70,001}, d in {8, 64, 768, 1,000}, k in {1, 10, the route's limit, 64},
+   masked rows, three valid rows, duplicated rows under permuted ids;
+   f32 and d = 12 on the FFMA tiles) and ``probe_select`` on both routes
+   (the fused body's shared memory against knn.cu's, then bitwise at nlist
+   in {1, 37, 1,024, 4,099}, nprobe in {1, 20, nlist}, q in {1, 129,
+   4,096}); then the tensor-core
    ``ivf_scan_select`` (its shared-memory plan against knn.cu's, then
    bitwise on small-integer residuals at maxlen in {1, 7, 64, 255, 256,
    2049}, C in {1, 63, 208}, blk_k in {1, 12, the route's limit}, d in {8,
@@ -102,22 +110,27 @@ Phases, each of which exits non-zero on a failed check:
 16. Exact ``NearestNeighbors`` on bench_knn.py's data (BASELINE.json config
     #5 cut to one chip: 1,048,576 x 768 rows of a 4,096-component gaussian
     mixture, spread 0.35), bf16 compute, 4,096 queries, k = 10: one
-    ``dist_topk`` launch per kneighbors, q/s, and the answer against float64
-    distances of the same bf16-rounded rows.
+    ``dist_topk`` launch per kneighbors, on the tensor-core route, q/s, and
+    the answer against float64 distances of the same bf16-rounded rows.
 17. ``ApproximateNearestNeighbors`` (nlist 1,024, nprobe 20, k 10, slack
-    1.5): the build's seconds, maxlen and kernel launches; kneighbors q/s
-    and recall@10 against float64 ground truth with ``ann_rerank`` on and
-    off (one ``probe_select`` and one ``ivf_scan_select`` launch per
-    call, the scan on the tensor-core route) and the call's device
-    breakdown; then every list probed, where recall@10 must reach 0.98.
+    1.5): the build's seconds, maxlen and kernel launches (its f32
+    ``dist_topk`` spill candidates on the FFMA route); kneighbors q/s and
+    recall@10 against float64 ground truth with ``ann_rerank`` on and off
+    (one ``probe_select`` launch per call on the fused route and one
+    ``ivf_scan_select`` on the tensor-core route) and the call's device
+    breakdown; then every list probed (its probe on the sort route), where
+    recall@10 must reach 0.98.
 18. The three nearest-neighbour kernels timed at those shapes beside their
     plain versions, bounds and the library route (``torch.matmul`` or
-    ``torch.bmm`` plus a stable top-k).
+    ``torch.bmm`` plus a stable top-k; for ``dist_topk`` also matmul plus
+    ``torch.topk``, a time yardstick with no tie order), ``dist_topk`` and
+    ``probe_select`` each on both routes.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
-row with its ``design``: "wgmma+tma syrk", "wgmma+tma scoring, ..." or
-"ffma tiles"; the ``gram`` row times the bf16 main path and carries the
-float32 route's numbers under ``f32_*``) and
+row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
+path and carries the float32 route's numbers under ``f32_*``, the
+``dist_topk`` row the FFMA tiles' time under ``ffma_ms`` and the
+``probe_select`` row the sort route's under ``sort_ms``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, the script fails before printing any result.
 """
@@ -165,6 +178,15 @@ KNN_ROWS = 1 << 20  # depth cut from config #5's 10M rows
 KNN_CLUSTERS, KNN_SPREAD = 4096, 0.35
 KNN_QUERIES, KNN_K = 4096, 10
 KNN_NLIST, KNN_NPROBE = 1024, 20
+
+#: The body each kernel row of the table times (the Gram family: "wgmma+tma syrk").
+DESIGNS = {
+    "lloyd_step": "wgmma+tma scoring, argmin epilogue",
+    "assign_min_dist": "wgmma+tma scoring, argmin epilogue",
+    "ivf_scan_select": "wgmma+tma scoring, packed-key top-k epilogue",
+    "dist_topk": "wgmma+tma scoring, (distance, id) top-k epilogue, f32 recompute",
+    "probe_select": "ffma tiles, fused warp-sort selection, last-block merge",
+}
 
 #: Promotion intervals (stages) of the tensor-core Gram timed in phase 6.
 PROMOTE_SWEEP = (0, 1, 2, 4, 8)
@@ -458,6 +480,142 @@ def phase_scan_tc(torch, kernels) -> None:
         check_equal(torch, pk, pp, f"ivf_scan_select ffma {tag} positions")
         check_equal(torch, dk, dp, f"ivf_scan_select ffma {tag} values")
     print("ok    ivf_scan_select FFMA route: f32, d=12 and blk_k past the limit, bitwise", flush=True)
+
+
+def phase_topk_tc(torch, kernels) -> None:
+    """dist_topk on both routes against its plain version, bitwise:
+    small-integer rows and queries (|v| <= 3) make every product, norm and
+    distance an integer below 2^24, exact in f32 in any order, so a wrong
+    descriptor, swizzle, chunk offset, db tail, key, list insert, split
+    merge or recompute shows as a differing entry. nq in {1, 63, 128, 129,
+    4,101} (ragged against the 128-query tile and its 64-query halves), m in
+    {k, 255, 256, 257, 70,001} (ragged against the 256-row chunk and the
+    splits), d in {8, 64, 768, 1,000}, k in {1, 10, the route's limit, 64}
+    (64 takes the FFMA tiles); about a tenth of the rows masked, a case with
+    three valid rows (the (+inf, −1) tail), duplicated rows and queries on
+    them under permuted ids that include negatives (ties go to the lowest
+    id, not the lowest position). First, the wrapper's copy of the
+    shared-memory plan (kernels.topk_smem_bytes) must equal knn.cu's own
+    (topk_layout)."""
+    lib = kernels._knn_lib()
+    limit = kernels.TOPK_TC_MAX_K
+    plans = 0
+    for k in range(1, 66):
+        for stages in range(1, kernels.TOPK_MAX_STAGES + 1):
+            want = lib.srml_dist_topk_tc_smem(k, stages)
+            got = kernels.topk_smem_bytes(k, stages)
+            if got != want:
+                fail(f"topk_smem_bytes({k}, {stages}) = {got}, knn.cu's topk_layout = {want}")
+            plans += 1
+    check(kernels.topk_stages(limit) >= 2 > kernels.topk_stages(limit + 1) and limit >= 10,
+          f"topk_smem_bytes equals knn.cu's topk_layout at {plans} plans; k limit {limit} "
+          f"(stages at k 10: {kernels.topk_stages(10)}, at the limit: "
+          f"{kernels.topk_stages(limit)})")
+    gen = torch.Generator(device=DEV).manual_seed(14)
+
+    def ints(*shape):
+        return torch.randint(-3, 4, shape, generator=gen, device=DEV).float()
+
+    seen = set()
+    for d in (8, 64, 768, 1000):
+        db_all = ints(70001, d)
+        db_all[5] = db_all[200]  # duplicated rows: equal distances, ties to the lower id
+        db_all[30] = db_all[31]
+        q_all = ints(4101, d)
+        q_all[:4] = db_all[[5, 30, 200, 31]]
+        db_all, q_all = db_all.to(torch.bfloat16), q_all.to(torch.bfloat16)
+        for nq, m in ((1, 70001), (63, 257), (128, 256), (129, 255), (4101, 70001), (129, 10)):
+            ids = (torch.randperm(m, generator=gen, device=DEV) - m // 2).int()
+            mask = (torch.rand((m,), generator=gen, device=DEV) < 0.9).float()
+            q, db = q_all[:nq], db_all[:m]
+            for k in sorted({1, 10, limit, 64}):
+                if k > m:
+                    continue
+                route = "wgmma" if k <= limit else "ffma"
+                seen.add(route)
+                dk, ik = routed(torch, kernels, "dist_topk", route,
+                                lambda: kernels.dist_topk(q, db, ids, mask, k))
+                dp, ip = kernels.dist_topk_plain(q, db, ids, mask, k)
+                tag = f"dist_topk {route} bf16 ints nq={nq} m={m} d={d} k={k}"
+                check_equal(torch, ik, ip, tag + " ids")
+                check_equal(torch, dk, dp, tag + " distances")
+        print(f"ok    dist_topk d={d}: ids and distances bitwise at (nq, m) in {{(1, 70001), "
+              f"(63, 257), (128, 256), (129, 255), (4101, 70001), (129, 10)}}, k in {{1, 10, "
+              f"{limit}, 64}}", flush=True)
+    check(seen == {"wgmma", "ffma"}, f"phase 2 covered both dist_topk routes: {sorted(seen)}")
+    # Three valid rows, k past them: the (+inf, −1) tail; r2 passed in, as
+    # an index passes it.
+    db, q = db_all[:4000], q_all[:300]
+    ids = torch.randperm(4000, generator=gen, device=DEV).int()
+    mask = torch.zeros((4000,), device=DEV)
+    mask[[3, 1500, 3999]] = 1
+    r2 = kernels.dist_topk_norms(db, mask)
+    dk, ik = routed(torch, kernels, "dist_topk", "wgmma",
+                    lambda: kernels.dist_topk(q, db, ids, mask, 10, r2))
+    dp, ip = kernels.dist_topk_plain(q, db, ids, mask, 10)
+    check_equal(torch, ik, ip, "dist_topk wgmma three valid rows ids")
+    check_equal(torch, dk, dp, "dist_topk wgmma three valid rows distances")
+    check(bool((ik[:, 3:] == -1).all()) and bool(torch.isinf(dk[:, 3:]).all()),
+          "dist_topk wgmma three valid rows, k = 10: slots 3.. are (+inf, -1)")
+    # The FFMA route: float32 and a width TMA cannot take.
+    for tag, q, db in (("f32", ints(300, 64), ints(5001, 64)),
+                       ("bf16 d=12", ints(300, 12).to(torch.bfloat16),
+                        ints(5001, 12).to(torch.bfloat16))):
+        ids = torch.randperm(5001, generator=gen, device=DEV).int()
+        mask = (torch.rand((5001,), generator=gen, device=DEV) < 0.9).float()
+        dk, ik = routed(torch, kernels, "dist_topk", "ffma",
+                        lambda: kernels.dist_topk(q, db, ids, mask, 10))
+        dp, ip = kernels.dist_topk_plain(q, db, ids, mask, 10)
+        check_equal(torch, ik, ip, f"dist_topk ffma {tag} ids")
+        check_equal(torch, dk, dp, f"dist_topk ffma {tag} distances")
+    print("ok    dist_topk: three valid rows bitwise; FFMA route at f32 and d=12 bitwise", flush=True)
+
+
+def phase_probe(torch, kernels) -> None:
+    """probe_select on both routes against its plain version, bitwise:
+    small-integer centroids and queries make every score exact, and the
+    packed keys are unique, so any exact selection gives the same bits.
+    nlist in {1, 37, 1,024, 4,099} (ragged against the 128-centroid tile
+    and its eight list groups), nprobe in {1, 20, nlist} (nprobe = nlist
+    > 96 takes the sort route; 96, the fused route's largest, fills shared
+    memory), q in {1, 129, 4,096}, d = 100 (ragged
+    against the 32-column staging), a duplicated centroid (ties to the lower
+    index). First, the wrapper's copy of the fused body's shared memory
+    (kernels.probe_smem_bytes) must equal knn.cu's (probe_fused_smem)."""
+    lib = kernels._knn_lib()
+    for nprobe in range(1, kernels.PROBE_TILE + 1):
+        want = lib.srml_probe_fused_smem(nprobe)
+        if kernels.probe_smem_bytes(nprobe) != want:
+            fail(f"probe_smem_bytes({nprobe}) = {kernels.probe_smem_bytes(nprobe)}, knn.cu's "
+                 f"probe_fused_smem = {want}")
+    check(kernels.probe_route(1024, 20) == "fused" and kernels.probe_route(1024, 1024) == "sort",
+          f"probe_smem_bytes equals knn.cu's probe_fused_smem at nprobe 1..{kernels.PROBE_TILE}; "
+          "nprobe 20 of 1,024 fused, every list sorted")
+
+    gen = torch.Generator(device=DEV).manual_seed(15)
+
+    def ints(*shape):
+        return torch.randint(-3, 4, shape, generator=gen, device=DEV).float()
+
+    seen = set()
+    qs_all = ints(4096, 100)
+    for nlist in (1, 37, 1024, 4099):
+        cent = ints(nlist, 100)
+        cent[7 % nlist] = cent[0]
+        for nprobe in sorted({1, min(20, nlist), min(kernels.PROBE_FUSED_MAX, nlist), nlist}):
+            route = kernels.probe_route(nlist, nprobe)
+            seen.add(route)
+            for nq in (1, 129, 4096):
+                qs = qs_all[:nq]
+                pk, dk = routed(torch, kernels, "probe_select", route,
+                                lambda: kernels.probe_select(cent, qs, nprobe))
+                pp, dp = kernels.probe_select_plain(cent, qs, nprobe)
+                tag = f"probe_select {route} ints nlist={nlist} nprobe={nprobe} q={nq}"
+                check_equal(torch, pk, pp, tag + " ids")
+                check_equal(torch, dk, dp, tag + " values")
+        print(f"ok    probe_select nlist={nlist}: ids and values bitwise at nprobe in "
+              f"{{1, 20, {kernels.PROBE_FUSED_MAX}, nlist}}, q in {{1, 129, 4096}}", flush=True)
+    check(seen == {"fused", "sort"}, f"phase 2 covered both probe_select routes: {sorted(seen)}")
 
 
 def phase_gram_syrk(torch, kernels) -> None:
@@ -1681,8 +1839,10 @@ def phase_knn(torch, kernels, config):
     d_nn, i_nn = nn.kneighbors(qs)
     first_s = time.perf_counter() - t0
     nn_launches = dict(kernels.LAUNCHES)
-    check(nn_launches["dist_topk"] == 1 and sum(nn_launches.values()) == 1,
-          f"exact kneighbors: dist_topk launches {nn_launches['dist_topk']} == 1, no other kernel")
+    check(nn_launches["dist_topk"] == 1 and sum(nn_launches.values()) == 1
+          and kernels.ROUTES["dist_topk/wgmma"] == 1,
+          f"exact kneighbors: dist_topk launches {nn_launches['dist_topk']} == 1 on the "
+          f"tensor-core route ({kernels.ROUTES['dist_topk/wgmma']}), no other kernel")
     t0 = time.perf_counter()
     nn.kneighbors(qs)
     nn_s = time.perf_counter() - t0
@@ -1730,6 +1890,9 @@ def phase_knn(torch, kernels, config):
           f"{span_seconds(prof, 'lloyd'):.3f} s (host clock)", flush=True)
     check(b_launches["lloyd_step"] >= 1 and b_launches["assign_min_dist"] >= 1 + -(-KNN_ROWS // (1 << 18)),
           "ivf build: the quantizer's Lloyd steps and the chunked assignment ran on the kernels")
+    check(b_routes["dist_topk/ffma"] == b_launches["dist_topk"] and b_routes["dist_topk/wgmma"] == 0,
+          f"ivf build: its {b_launches['dist_topk']} f32 dist_topk launches (spill candidates) "
+          "took the FFMA route")
     # The quantizer's fit scores bf16 rows (its Lloyd steps, two-pass at
     # k = 1,024 and d = 768, and its cost pass); the assignment chunks are f32.
     check(b_routes["lloyd_step/wgmma"] == b_launches["lloyd_step"]
@@ -1762,12 +1925,13 @@ def phase_knn(torch, kernels, config):
             q_s = time.perf_counter() - t0
             launches = dict(kernels.LAUNCHES)
             scan_tc = kernels.ROUTES["ivf_scan_select/wgmma"]
+            probe_fused = kernels.ROUTES["probe_select/fused"]
             kernels.probe_select, kernels.ivf_scan_select = orig_probe, orig_scan
             check(launches["probe_select"] == 1 and launches["ivf_scan_select"] == 1
-                  and scan_tc == 1,
+                  and scan_tc == 1 and probe_fused == 1,
                   f"ivf kneighbors rerank={rerank}: probe_select {launches['probe_select']} == 1, "
-                  f"ivf_scan_select {launches['ivf_scan_select']} == 1, on the tensor-core route "
-                  f"({scan_tc})")
+                  f"fused ({probe_fused}); ivf_scan_select {launches['ivf_scan_select']} == 1, on "
+                  f"the tensor-core route ({scan_tc})")
             rec = recall_at(i_a, gt_i)
             results[rerank] = (launches, captured.copy(), q_s, rec)
             check(d_a.shape == (KNN_QUERIES, KNN_K) and bool(torch.isfinite(torch.as_tensor(d_a)).all()),
@@ -1777,19 +1941,23 @@ def phase_knn(torch, kernels, config):
     device_breakdown(torch, f"ivf kneighbors nprobe {KNN_NPROBE} rerank=True trace",
                      lambda: ann.kneighbors(qs), top=10)
     ann._set(nprobe=KNN_NLIST)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     _, i_all = ann.kneighbors(qs)
     all_s = time.perf_counter() - t0
     rec_all = recall_at(i_all, gt_i)
-    check(rec_all >= 0.98, f"ivf every list probed (nprobe {KNN_NLIST}): recall@{KNN_K} "
-          f"{rec_all:.4f} >= 0.98 ({all_s:.3f} s)")
+    check(rec_all >= 0.98 and kernels.ROUTES["probe_select/sort"] == 1,
+          f"ivf every list probed (nprobe {KNN_NLIST}): recall@{KNN_K} {rec_all:.4f} >= 0.98 "
+          f"({all_s:.3f} s), its probe on the sort route "
+          f"({kernels.ROUTES['probe_select/sort']})")
     del gt_d, gt_i, i_all
 
     # -- 15. kernels against their plain versions at the path's shapes -------------------
-    db_c, row_ids, mask = nn._ensure_index(torch.device(DEV), cd)  # phase 16's index
+    db_c, row_ids, mask, r2_c = nn._ensure_index(torch.device(DEV), cd)  # phase 16's index
     q_c = qs.to(cd)
-    kd, ki = kernels.dist_topk(q_c, db_c, row_ids, mask, KNN_K)
-    pd, pi = kernels.dist_topk_plain(q_c, db_c, row_ids, mask, KNN_K)
+    kd, ki = kernels.dist_topk(q_c, db_c, row_ids, mask, KNN_K, r2_c)
+    pd, pi = kernels.dist_topk_plain(q_c, db_c, row_ids, mask, KNN_K, r2_c)
     check_selection(torch, f"dist_topk {KNN_QUERIES} x {KNN_ROWS} x {KNN_D} {str(cd)[6:]} "
                     f"k={KNN_K} (tol {tol:.2e})", kd, ki, pd, pi, tol)
     dk_err = float((kd - pd).abs().max())
@@ -1830,34 +1998,73 @@ def phase_knn(torch, kernels, config):
     # -- 18. kernel times ----------------------------------------------------------------
     rows_t = []
     n, m, d = q_c.shape[0], db_c.shape[0], KNN_D
-    ms = time_ms(lambda: kernels.dist_topk(q_c, db_c, row_ids, mask, KNN_K), 2)
-    plain_ms = time_ms(lambda: kernels.dist_topk_plain(q_c, db_c, row_ids, mask, KNN_K), 1)
+    # The main path's call (r2 from the index) on its tensor-core route;
+    # beside it the FFMA tiles on the same inputs, the route before this
+    # body (topk_route forced to "ffma" for the call).
+    ms = time_ms(lambda: kernels.dist_topk(q_c, db_c, row_ids, mask, KNN_K, r2_c), 3)
+    route_fn = kernels.topk_route
+    kernels.topk_route = lambda *a: "ffma"
+    try:
+        ffma_ms = time_ms(lambda: kernels.dist_topk(q_c, db_c, row_ids, mask, KNN_K, r2_c), 1)
+    finally:
+        kernels.topk_route = route_fn
+    plain_ms = time_ms(lambda: kernels.dist_topk_plain(q_c, db_c, row_ids, mask, KNN_K, r2_c), 1)
 
-    def lib_topk():
-        # Library route: bf16 torch.matmul per 131,072-row chunk and a
-        # stable top-k merge (torch.sort, stable), as the plain version merges.
+    def lib_topk(sort):
+        # Library routes: bf16 torch.matmul per 131,072-row chunk, merged
+        # into the running best by a stable torch.sort (as the plain version
+        # merges) or by torch.topk (no tie order: a time yardstick only).
         best_d = torch.empty((n, 0), dtype=q_c.dtype, device=DEV)
         best_i = torch.empty((n, 0), dtype=torch.int64, device=DEV)
         for r0 in range(0, m, 1 << 17):
             s_ = torch.matmul(q_c, db_c[r0:r0 + (1 << 17)].T)
-            cat_d = torch.cat([best_d, -s_], 1)
-            o = torch.sort(cat_d, dim=1, stable=True).indices[:, :KNN_K]
-            best_i = torch.cat([best_i, torch.arange(r0, r0 + s_.shape[1], device=DEV)
-                                .expand(n, -1)], 1).gather(1, o)
+            if sort:
+                cat_d = torch.cat([best_d, -s_], 1)
+                o = torch.sort(cat_d, dim=1, stable=True).indices[:, :KNN_K]
+                best_i = torch.cat([best_i, torch.arange(r0, r0 + s_.shape[1], device=DEV)
+                                    .expand(n, -1)], 1).gather(1, o)
+            else:
+                v, i = torch.topk(-s_, KNN_K, dim=1, largest=False)
+                cat_d = torch.cat([best_d, v], 1)
+                o = torch.topk(cat_d, KNN_K, dim=1, largest=False).indices
+                best_i = torch.cat([best_i, i + r0], 1).gather(1, o)
             best_d = cat_d.gather(1, o)
         return best_d, best_i
-    lib_ms = time_ms(lib_topk, 1)
+    lib_ms = time_ms(lambda: lib_topk(True), 1)
+    lib_topk_ms = time_ms(lambda: lib_topk(False), 1)
+    # The epilogue's share: the same body at k = 1 and at the route's limit.
+    for k_ in (1, kernels.TOPK_TC_MAX_K):
+        ms_k = time_ms(lambda: kernels.dist_topk(q_c, db_c, row_ids, mask, k_, r2_c), 2)
+        print(f"dist_topk wgmma at k={k_}: {ms_k:.3f} ms", flush=True)
     b_ms, b_by = bound_ms(n * d * 2 + m * d * 2 + m * 8 + n * KNN_K * 8, 2 * n * m * d, "bfloat16")
     rows_t.append({
         "name": "dist_topk", "route": "cuda", "source": KNN_SOURCE,
         "replaces": REPLACES["dist_topk"], "launches": nn_launches["dist_topk"],
         "max_abs_err": dk_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": lib_ms,
+        "bound_by": b_by, "library_ms": lib_ms, "library_topk_ms": lib_topk_ms,
+        "ffma_ms": ffma_ms,
     })
-    del db_c, pd, pi, kd, ki, nn
+    print(f"dist_topk at {n} x {m} x {d} bf16, k={KNN_K}: wgmma {ms:.3f} ms, the FFMA tiles "
+          f"{ffma_ms:.3f} ms; library: matmul + stable sort {lib_ms:.3f} ms, matmul + topk "
+          f"{lib_topk_ms:.3f} ms; bound {b_ms:.3f} by {b_by}", flush=True)
+    del db_c, pd, pi, kd, ki, nn, r2_c
     torch.cuda.empty_cache()
+    # The build's spill candidates (f32, k = 4, its FFMA route), timed at
+    # one chunk of the build.
+    ms_b = time_ms(lambda: kernels.dist_topk(chunk, cent, lists, ones, 4), 3)
+    b_b, by_b = bound_ms(chunk.numel() * 4 + cent.numel() * 4 + KNN_NLIST * 8 + chunk.shape[0] * 32,
+                         2 * chunk.shape[0] * KNN_NLIST * d, "float32")
+    print(f"dist_topk ffma at {chunk.shape[0]} x {KNN_NLIST} x {d} f32, k=4 (a build chunk, "
+          f"{b_launches['dist_topk']} a build): {ms_b:.3f} ms, bound {b_b:.3f} by {by_b}",
+          flush=True)
     nq = q_p.shape[0]
     ms = time_ms(lambda: kernels.probe_select(cent_p, q_p, nprobe), 5)
+    route_fn = kernels.probe_route
+    kernels.probe_route = lambda *a: "sort"
+    try:
+        sort_ms = time_ms(lambda: kernels.probe_select(cent_p, q_p, nprobe), 5)
+    finally:
+        kernels.probe_route = route_fn
     plain_ms = time_ms(lambda: kernels.probe_select_plain(cent_p, q_p, nprobe), 3)
 
     def lib_probe():
@@ -1870,8 +2077,11 @@ def phase_knn(torch, kernels, config):
         "name": "probe_select", "route": "cuda", "source": KNN_SOURCE,
         "replaces": REPLACES["probe_select"], "launches": results[True][0]["probe_select"],
         "max_abs_err": float((kdd - pdd).abs().max()), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "sort_ms": sort_ms,
     })
+    print(f"probe_select at {nq} x {KNN_NLIST} x {d} f32, nprobe {nprobe}: fused {ms:.3f} ms, "
+          f"keys + sort {sort_ms:.3f} ms; library {lib_ms:.3f} ms; bound {b_ms:.3f} by {b_by}",
+          flush=True)
     nl, c_, ml = qv.shape[0], qv.shape[1], rows.shape[1]
     ms = time_ms(lambda: kernels.ivf_scan_select(qv, rows, r2, blk_k), 3)
     plain_ms = time_ms(lambda: kernels.ivf_scan_select_plain(qv, rows, r2, blk_k), 1)
@@ -1971,6 +2181,8 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # -- 2. kernels against their plain versions -----------------------------
+    phase_topk_tc(torch, kernels)
+    phase_probe(torch, kernels)
     phase_scan_tc(torch, kernels)
     phase_gram_syrk(torch, kernels)
     phase_kmeans_tc(torch, kernels)
@@ -2327,12 +2539,7 @@ def main() -> None:
     # -- 15.-18. nearest neighbours ------------------------------------------------
     table += phase_knn(torch, kernels, config)
     for row in table:
-        row["design"] = ("wgmma+tma syrk" if row["name"] in (
-            "gram", "gram_colsum", "linreg_stats", "newton_stats", "softmax_curvature") else
-            "wgmma+tma scoring, argmin epilogue" if row["name"] in (
-                "lloyd_step", "assign_min_dist") else
-            "wgmma+tma scoring, packed-key top-k epilogue" if row["name"] == "ivf_scan_select"
-            else "ffma tiles")
+        row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
               f"library {row['library_ms']:.3f}, bound {row['bound_ms']:.3f} by "
               f"{row['bound_by']}), {row['launches']} launches on the main path")

@@ -144,15 +144,16 @@ def _finish(metric: str, d2: np.ndarray, ids: np.ndarray):
 
 
 def exact_knn(db: torch.Tensor, row_ids: torch.Tensor, mask: torch.Tensor,
-              queries: torch.Tensor, k: int, metric: str, ad):
+              queries: torch.Tensor, k: int, metric: str, ad, r2=None):
     """The one-device body of the JAX ``_exact_knn_fn``: (d2 (q, k) in
     ``ad`` ascending, ids (q, k) int32). ``db`` and ``queries`` are in the
     compute dtype on one device. metric "l2" (squared distances) or "ip"
-    (negated inner products)."""
+    (negated inner products). ``r2``: the index's masked row norms
+    (``kernels.dist_topk_norms``), or None to compute them here."""
     m = db.shape[0]
     kl = min(k, m)
     if metric == "l2" and dist_topk_applicable(kl, m, ad):
-        d2, ids = kernels.dist_topk(queries, db, row_ids, mask, kl)
+        d2, ids = kernels.dist_topk(queries, db, row_ids, mask, kl, r2)
         return d2.to(ad), ids
     q = queries.shape[0]
     best_d = torch.full((q, 0), float("inf"), dtype=ad, device=db.device)
@@ -255,10 +256,12 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
         self._index_cache = {}
 
     def _ensure_index(self, dev, cd):
-        """(db, row ids, mask) on ``dev``, the db in the compute dtype. Only
-        the cosine metric changes the indexed data (the normalized,
-        augmented copy), so the other three share one copy; the cache is
-        keyed by that representation, the device and the dtype."""
+        """(db, row ids, mask, r2) on ``dev``, the db in the compute dtype
+        and r2 its masked f32 row norms (``kernels.dist_topk_norms``), so an
+        exact query does not recompute them. Only the cosine metric changes
+        the indexed data (the normalized, augmented copy), so the other three
+        share one copy; the cache is keyed by that representation, the
+        device and the dtype."""
         rep = "cosine" if self.getMetric() == "cosine" else "raw"
         key = (rep, str(dev), cd)
         if key not in self._index_cache:
@@ -267,11 +270,10 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
             if rep == "cosine":
                 db = _normalized_rows(db, zero_slot=0)
             n = db.shape[0]
-            self._index_cache[key] = (
-                to_device(db, dev, cd).contiguous(),
-                torch.arange(n, dtype=torch.int32, device=dev),
-                torch.ones((n,), dtype=torch.float32, device=dev),
-            )
+            rows = to_device(db, dev, cd).contiguous()
+            mask = torch.ones((n,), dtype=torch.float32, device=dev)
+            self._index_cache[key] = (rows, torch.arange(n, dtype=torch.int32, device=dev), mask,
+                                      kernels.dist_topk_norms(rows, mask))
         return self._index_cache[key]
 
     def kneighbors(self, queries, k: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -287,7 +289,7 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
             raise ValueError(f"k = {k} out of range (0, numRows = {n}]")
         metric = self.getMetric()
         cd, ad = config.compute_dtype(dev), config.accum_dtype()
-        db, row_ids, mask = self._ensure_index(dev, cd)
+        db, row_ids, mask, r2 = self._ensure_index(dev, cd)
         if metric == "cosine":
             queries = _normalized_rows(queries, zero_slot=1)
         qt = to_device(queries, dev, cd)
@@ -295,7 +297,7 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
         with trace_span("knn query"):
             d2, idx = exact_knn(
                 db, row_ids, mask, _pad_queries(qt).contiguous(), k,
-                "ip" if metric == "inner_product" else "l2", ad,
+                "ip" if metric == "inner_product" else "l2", ad, r2,
             )
             d2, idx = d2[:q].cpu().numpy(), idx[:q].cpu().numpy().astype(np.int64)
         return _finish(metric, d2, idx)

@@ -114,12 +114,11 @@ __device__ __forceinline__ void consume_chunk(const Ring& r, long long& stage, i
 __host__ __device__ constexpr int per_thread(int n) { return (n + 127) / 128; }
 
 // A chunk's N constants, thread t's share (columns t, t + 128, ...): src[col]
-// for col < valid, else `fill`. Issued before the chunk's wgmmas, so the
-// loads run while they do.
-template <int N>
-__device__ __forceinline__ void fetch_constants(float (&pre)[per_thread(N)], const float* src,
-                                                long long col0, long long valid, int t,
-                                                float fill) {
+// for col < valid, else `fill` (f32 norms, or int32 ids). Issued before the
+// chunk's wgmmas, so the loads run while they do.
+template <int N, typename T>
+__device__ __forceinline__ void fetch_constants(T (&pre)[per_thread(N)], const T* src,
+                                                long long col0, long long valid, int t, T fill) {
 #pragma unroll
   for (int u = 0; u < per_thread(N); ++u) {
     const long long col = col0 + t + 128 * u;
@@ -128,18 +127,27 @@ __device__ __forceinline__ void fetch_constants(float (&pre)[per_thread(N)], con
 }
 
 // Writes the fetched constants into buffer seq & 1 of warpgroup cw's pair
-// (bufs: 2 · N floats a warpgroup) and waits for its 128 threads (named
-// barrier 3 + cw); returns the buffer. Its readers two chunks back have
-// passed the previous chunk's barrier, so the rewrite is safe.
-template <int N>
-__device__ __forceinline__ const float* publish_constants(const float (&pre)[per_thread(N)],
-                                                          float* bufs, long long seq, int t,
-                                                          int cw) {
-  float* buf = bufs + 2 * N * cw + (seq & 1) * N;
+// (bufs: 2 · N values a warpgroup) without waiting; returns the buffer.
+template <int N, typename T>
+__device__ __forceinline__ const T* stage_constants(const T (&pre)[per_thread(N)], T* bufs,
+                                                    long long seq, int t, int cw) {
+  T* buf = bufs + 2 * N * cw + (seq & 1) * N;
 #pragma unroll
   for (int u = 0; u < per_thread(N); ++u) {
     if (t + 128 * u < N) buf[t + 128 * u] = pre[u];
   }
+  return buf;
+}
+
+// stage_constants, then a wait for the warpgroup's 128 threads (named
+// barrier 3 + cw), which also publishes any buffer staged before it. Its
+// readers two chunks back have passed the previous chunk's barrier, so the
+// rewrite is safe.
+template <int N>
+__device__ __forceinline__ const float* publish_constants(const float (&pre)[per_thread(N)],
+                                                          float* bufs, long long seq, int t,
+                                                          int cw) {
+  const float* buf = stage_constants<N>(pre, bufs, seq, t, cw);
   asm volatile("bar.sync %0, 128;" ::"r"(3 + cw) : "memory");
   return buf;
 }

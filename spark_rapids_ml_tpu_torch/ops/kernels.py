@@ -46,8 +46,11 @@ d % 8 == 0 a tensor-core scoring body (wgmma fed by TMA, an argmin
 epilogue with ties to the lowest index); :func:`kmeans_route` and
 :func:`kmeans_plan` choose the body and the launch (a fused Lloyd pass,
 or the assignment then a sums pass). ``knn.cu``'s bfloat16
-``ivf_scan_select`` takes the same streamed scoring layout with a
-packed-key top-k epilogue (:func:`scan_route`, :func:`scan_stages`). A
+``ivf_scan_select`` and ``dist_topk`` take the same streamed scoring
+layout with a top-k epilogue (:func:`scan_route`, :func:`scan_stages`,
+:func:`topk_route`, :func:`topk_stages`); ``probe_select`` runs as one
+fused launch whose last block of each query tile merges its blocks' lists, or as keys then a
+sort (:func:`probe_route`). A
 wrapper takes its plain PyTorch
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises — there is no fallback. Each launch adds one to
@@ -78,11 +81,13 @@ LAUNCHES = {"gram": 0, "gram_colsum": 0, "linreg_stats": 0, "lloyd_step": 0,
 
 #: Launches of the routed kernels by "<kernel>/<route>": "wgmma" is the
 #: tensor-core body of ``gram.cu``, ``kmeans.cu`` or ``knn.cu``, "ffma" its
-#: CUDA-core body.
+#: CUDA-core body; ``probe_select`` is "fused" (one launch) or "sort" (keys,
+#: then a sort launch).
 ROUTES = {f"{k}/{r}": 0 for k in ("gram", "gram_colsum", "linreg_stats", "newton_stats",
                                   "softmax_curvature", "lloyd_step", "assign_min_dist",
-                                  "ivf_scan_select")
+                                  "ivf_scan_select", "dist_topk")
           for r in ("wgmma", "ffma")}
+ROUTES.update({f"probe_select/{r}": 0 for r in ("fused", "sort")})
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -201,6 +206,16 @@ def _knn_lib() -> ctypes.CDLL:
     lib.srml_ivf_scan_select_tc.restype = i32
     lib.srml_ivf_scan_tc_smem.argtypes = [i32, i32]
     lib.srml_ivf_scan_tc_smem.restype = i32
+    lib.srml_dist_topk_tc.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i32, i32, i32, ptr,
+                                      ptr, ptr, ptr]
+    lib.srml_dist_topk_tc.restype = i32
+    lib.srml_dist_topk_tc_smem.argtypes = [i32, i32]
+    lib.srml_dist_topk_tc_smem.restype = i32
+    lib.srml_probe_select_fused.argtypes = [ptr, ptr, i64, i64, i64, i32, i32, ptr, ptr, ptr, ptr,
+                                            ptr]
+    lib.srml_probe_select_fused.restype = i32
+    lib.srml_probe_fused_smem.argtypes = [i32]
+    lib.srml_probe_fused_smem.restype = i32
     return lib
 
 
@@ -1009,21 +1024,21 @@ def _chunk_rows(rows: int, cols: int) -> int:
     return max(1, min(rows, PLAIN_SCORE_ELEMS // max(cols, 1)))
 
 
-def _dist_topk_inputs(queries, db, mask):
-    """The Pallas wrapper's preamble: q2 of the queries and r2 of the rows
-    as the product reads them (compute dtype), +inf on masked rows."""
-    q2 = row_sq_norms(queries)
+def dist_topk_norms(db: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """r2 of :func:`dist_topk`: the f32 squared norms of the rows as the
+    product reads them (compute dtype), +inf on rows with mask 0. An index
+    computes it once and passes it to every call."""
     r2 = row_sq_norms(db)
-    r2 = torch.where(mask > 0, r2, torch.full_like(r2, float("inf")))
-    return q2, r2
+    return torch.where(mask > 0, r2, torch.full_like(r2, float("inf")))
 
 
 def dist_topk_plain(queries: torch.Tensor, db: torch.Tensor, row_ids: torch.Tensor,
-                    mask: torch.Tensor, k: int):
+                    mask: torch.Tensor, k: int, r2: Optional[torch.Tensor] = None):
     """Plain version of :func:`dist_topk`: f32 products of the input values
     over db chunks, each merged into the running best in (distance, id)
     order."""
-    q2, r2 = _dist_topk_inputs(queries, db, mask)
+    q2 = row_sq_norms(queries)
+    r2 = dist_topk_norms(db, mask) if r2 is None else r2
     nq, m = queries.shape[0], db.shape[0]
     qf = queries.float()
     best_d = torch.full((nq, k), float("inf"), dtype=torch.float32, device=db.device)
@@ -1038,16 +1053,74 @@ def dist_topk_plain(queries: torch.Tensor, db: torch.Tensor, row_ids: torch.Tens
 
 
 def dist_topk_splits(nq: int, m: int, sms: int) -> int:
-    """db splits of a :func:`dist_topk` launch: enough (query tile, split)
-    blocks for about four waves of two blocks per SM, at most one split
-    per 128-row tile."""
+    """db splits of an FFMA :func:`dist_topk` launch: enough (query tile,
+    split) blocks for about four waves of two blocks per SM, at most one
+    split per 128-row tile."""
     q_tiles = -(-nq // 128)
     m_tiles = -(-m // 128)
     return max(1, min(m_tiles, -(-8 * sms // q_tiles), 65535))
 
 
+#: The tensor-core top-k (``knn.cu``'s ``dist_topk_tc_kernel``): db rows per
+#: chunk (the wgmma's N), queries per task, the deepest ring, the sorted
+#: lists (one per consumer thread, two per query) and the candidates a list
+#: takes in one round of inserts.
+TOPK_CHUNK, TOPK_TILE, TOPK_MAX_STAGES, TOPK_LISTS, TOPK_ROUND = 256, 128, 4, 256, 8
+#: The shared memory a block may use.
+TOPK_SMEM_LIMIT = 232448
+
+
+def topk_smem_bytes(k: int, stages: int) -> int:
+    """Shared memory of a tensor-core dist_topk launch whose lists hold k
+    keys, a copy of ``topk_layout``'s total in knn.cu
+    (``srml_dist_topk_tc_smem``; chip_smoke.py's phase 2 holds the two
+    equal): the ring (two 64-query slabs and one 256-row db slab a stage),
+    two chunk buffers of r2 and of ids for each consumer warpgroup, a round's
+    u64 candidates, the lists of k u64 keys and their int32 rows, the
+    mbarriers and 1 KB of alignment slack."""
+    off = (stages * (2 * 8192 + 128 * TOPK_CHUNK) + 2 * (4 * 4 * TOPK_CHUNK)
+           + 8 * TOPK_LISTS * TOPK_ROUND + 12 * TOPK_LISTS * k)
+    return -(-off // 8) * 8 + 8 * 2 * stages + 1024
+
+
+def topk_stages(k: int) -> int:
+    """The deepest ring (at most TOPK_MAX_STAGES) that fits beside lists of
+    k keys, or 0."""
+    for stages in range(TOPK_MAX_STAGES, 0, -1):
+        if topk_smem_bytes(k, stages) <= TOPK_SMEM_LIMIT:
+            return stages
+    return 0
+
+
+#: The largest k the tensor-core top-k takes: its lists of k keys leave room
+#: for a two-stage ring. Larger k (up to DIST_TOPK_MAX_K) keep the FFMA tiles.
+TOPK_TC_MAX_K = max(k for k in range(1, DIST_TOPK_MAX_K + 1) if topk_stages(k) >= 2)
+
+
+def topk_splits(nq: int, m: int, sms: int) -> int:
+    """db splits of a tensor-core :func:`dist_topk` launch, in 256-row
+    chunks: about eight (split, query tile) tasks per SM for its persistent
+    blocks, at most one split per chunk."""
+    q_tiles = -(-nq // TOPK_TILE)
+    chunks = -(-m // TOPK_CHUNK)
+    return max(1, min(chunks, -(-8 * sms // q_tiles)))
+
+
+def topk_route(queries: torch.Tensor, db: torch.Tensor, k: int) -> str:
+    """Which body of ``knn.cu`` a ``dist_topk`` launch takes: "wgmma" for
+    bfloat16 with d % 8 == 0 (TMA needs a 16-byte row stride), queries and
+    db 16-byte aligned, at least one query and row, and k <= TOPK_TC_MAX_K;
+    "ffma" otherwise (float32, the IVF build's spill candidates included,
+    stays in full f32 FFMA, never TF32)."""
+    d = db.shape[1]
+    aligned = queries.data_ptr() % 16 == 0 and db.data_ptr() % 16 == 0
+    tc = (db.dtype == torch.bfloat16 and d % 8 == 0 and aligned and k <= TOPK_TC_MAX_K
+          and queries.shape[0] * db.shape[0] > 0)
+    return "wgmma" if tc else "ffma"
+
+
 def dist_topk(queries: torch.Tensor, db: torch.Tensor, row_ids: torch.Tensor,
-              mask: torch.Tensor, k: int):
+              mask: torch.Tensor, k: int, r2: Optional[torch.Tensor] = None):
     """Exact kneighbors core: per query of ``queries`` (q, d) the ``k`` ≤ 64
     smallest max(q2 + r2 − 2q·r, 0) over the rows of ``db`` (m, d), both
     float32 or both bfloat16 (the compute dtype), in ascending (distance,
@@ -1055,8 +1128,12 @@ def dist_topk(queries: torch.Tensor, db: torch.Tensor, row_ids: torch.Tensor,
 
     ``row_ids``: (m,) int32 ids of the rows; ``mask``: (m,) f32, rows with
     mask 0 score +inf; slots without a finite candidate are (+inf, −1).
-    q2 and r2 are the f32 squared norms of the values the product reads.
-    Any q, m ≥ k and d (no tiling demands)."""
+    q2 and r2 are the f32 squared norms of the values the product reads;
+    ``r2`` may be passed precomputed (:func:`dist_topk_norms` of the same db
+    and mask: an index keeps it beside its rows). Any q, m ≥ k and d (no
+    tiling demands). The route (:func:`topk_route`): bfloat16 with d % 8 ==
+    0 and k ≤ TOPK_TC_MAX_K on the tensor-core scoring body, its distances
+    recomputed in f32 FFMA; else the FFMA tiles."""
     _check_x(db)
     m, d = db.shape
     if queries.dim() != 2 or queries.shape[1] != d or queries.dtype != db.dtype:
@@ -1069,27 +1146,41 @@ def dist_topk(queries: torch.Tensor, db: torch.Tensor, row_ids: torch.Tensor,
     if row_ids.dtype != torch.int32 or tuple(row_ids.shape) != (m,) or row_ids.device != db.device:
         raise ValueError(f"row_ids must be ({m},) int32 on {db.device}")
     _check_f32(mask, (m,), db.device, "mask")
+    if r2 is not None:
+        _check_f32(r2, (m,), db.device, "r2")
     if db.device.type == "cpu":
-        return dist_topk_plain(queries, db, row_ids, mask, k)
+        return dist_topk_plain(queries, db, row_ids, mask, k, r2)
     nq = queries.shape[0]
-    q2, r2 = _dist_topk_inputs(queries, db, mask)
-    sms = torch.cuda.get_device_properties(db.device).multi_processor_count
-    splits = dist_topk_splits(nq, m, sms)
+    q2 = row_sq_norms(queries)
+    r2 = dist_topk_norms(db, mask) if r2 is None else r2
+    sms = _sm_count(db.device)
     qc = queries.contiguous()  # held until the launch is queued
     qp, is_bf16 = _launch_args(qc)
     dbp, _ = _launch_args(db)
     ids = row_ids.contiguous()
+    route = topk_route(qc, db, k)
     out = torch.empty((nq, k, 2), dtype=torch.float32, device=db.device)
-    part = (torch.empty((splits, nq, k, 2), dtype=torch.float32, device=db.device)
-            if splits > 1 else None)
     with torch.cuda.device(db.device):
-        rc = _knn_lib().srml_dist_topk(
-            qp, dbp, is_bf16, q2.data_ptr(), r2.data_ptr(), ids.data_ptr(), nq, m, d, k, splits,
-            None if part is None else part.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(db.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(db.device).cuda_stream
+        if route == "wgmma":
+            splits = topk_splits(nq, m, sms)
+            part_key = torch.empty((splits, nq, k), dtype=torch.int64, device=db.device)
+            part_pos = torch.empty((splits, nq, k), dtype=torch.int32, device=db.device)
+            rc = _knn_lib().srml_dist_topk_tc(
+                qp, dbp, q2.data_ptr(), r2.data_ptr(), ids.data_ptr(), nq, m, d, k, splits,
+                topk_stages(k), part_key.data_ptr(), part_pos.data_ptr(), out.data_ptr(), stream,
+            )
+        else:
+            splits = dist_topk_splits(nq, m, sms)
+            part = (torch.empty((splits, nq, k, 2), dtype=torch.float32, device=db.device)
+                    if splits > 1 else None)
+            rc = _knn_lib().srml_dist_topk(
+                qp, dbp, is_bf16, q2.data_ptr(), r2.data_ptr(), ids.data_ptr(), nq, m, d, k,
+                splits, None if part is None else part.data_ptr(), out.data_ptr(), stream,
+            )
     _raise_on(rc, "dist_topk")
     LAUNCHES["dist_topk"] += 1
+    ROUTES[f"dist_topk/{route}"] += 1
     return out[..., 0].contiguous(), out[..., 1].view(torch.int32).contiguous()
 
 
@@ -1124,12 +1215,45 @@ def probe_select_plain(centroids: torch.Tensor, queries: torch.Tensor, nprobe: i
     return probe, probe_d
 
 
+#: The fused probe (``knn.cu``'s ``probe_fused_kernel``): queries and
+#: centroids per tile (its warp sort takes one tile's 128 keys, so nprobe
+#: <= 128), blocks per query tile (of two 256-thread halves each: half h of
+#: block r takes every 2·PROBE_SPLIT-th centroid tile from 2r + h), and the
+#: FFMA work tile (128 x 129 f32) of a half.
+PROBE_TILE, PROBE_SPLIT, PROBE_WORK_BYTES = 128, 4, 128 * 129 * 4
+
+
+def probe_smem_bytes(nprobe: int) -> int:
+    """Shared memory of a fused probe launch, a copy of knn.cu's
+    ``probe_fused_smem`` (``srml_probe_fused_smem``; chip_smoke.py's phase 2
+    holds the two equal): a work tile, the tile's q2 and c2 and 128 lists of
+    nprobe int32 keys for each half."""
+    return 2 * (PROBE_WORK_BYTES + 4 * 2 * PROBE_TILE + 4 * PROBE_TILE * nprobe)
+
+
+#: The largest nprobe the fused probe takes: both halves' lists fit (96).
+PROBE_FUSED_MAX = max(n for n in range(1, PROBE_TILE + 1)
+                      if probe_smem_bytes(n) <= TOPK_SMEM_LIMIT)
+
+
+def probe_route(nlist: int, nprobe: int) -> str:
+    """Which body of ``knn.cu`` a ``probe_select`` launch takes: "fused"
+    (one launch, the lists in shared memory, merged by the last block of
+    each query tile) when nprobe fits one tile's sorted keys and both halves' lists fit
+    shared memory (nprobe <= 96); "sort" (every key into a (q, P) scratch,
+    then a sort launch) otherwise, such as a query of every list at nlist
+    > 96. Both take any nlist ≤ 65,536 and give the same bits (the keys
+    are unique)."""
+    return "fused" if nprobe <= min(nlist, PROBE_FUSED_MAX) else "sort"
+
+
 def probe_select(centroids: torch.Tensor, queries: torch.Tensor, nprobe: int):
     """Exact IVF probe at full f32: per query of ``queries`` (q, d) the
     scores (c2 − 2c·q) + q2 against every row of ``centroids`` (nlist, d)
     (true ‖q − c‖², no clamp), packed with pos_bits = bit_length(ceil8(nlist)
     − 1), and the ``nprobe`` smallest keys: (probe ids (q, nprobe) int32
-    ascending, floored values (q, nprobe) f32). nlist ≤ 65,536."""
+    ascending, floored values (q, nprobe) f32). nlist ≤ 65,536. The route:
+    :func:`probe_route`."""
     _check_probe(centroids, queries, nprobe)
     if queries.device.type == "cpu":
         return probe_select_plain(centroids, queries, nprobe)
@@ -1137,19 +1261,31 @@ def probe_select(centroids: torch.Tensor, queries: torch.Tensor, nprobe: int):
     nq = queries.shape[0]
     pos_bits = sel.pos_bits_for(nlist)
     cent, qs = centroids.contiguous(), queries.contiguous()
-    c2, q2 = row_sq_norms(cent), row_sq_norms(qs)
-    p = 1 << max(0, (nlist - 1).bit_length())
-    keys = torch.empty((nq, p), dtype=torch.int32, device=qs.device)
+    route = probe_route(nlist, nprobe)
     out_p = torch.empty((nq, nprobe), dtype=torch.int32, device=qs.device)
     out_d = torch.empty((nq, nprobe), dtype=torch.float32, device=qs.device)
     with torch.cuda.device(qs.device):
-        rc = _knn_lib().srml_probe_select(
-            cent.data_ptr(), c2.data_ptr(), qs.data_ptr(), q2.data_ptr(), nq, nlist, d,
-            nprobe, pos_bits, p, keys.data_ptr(), out_p.data_ptr(), out_d.data_ptr(),
-            torch.cuda.current_stream(qs.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(qs.device).cuda_stream
+        if route == "fused":
+            q_tiles = -(-nq // PROBE_TILE)
+            part = torch.empty((q_tiles, 2 * PROBE_SPLIT, PROBE_TILE, nprobe), dtype=torch.int32,
+                               device=qs.device)
+            done = torch.empty((q_tiles,), dtype=torch.int32, device=qs.device)
+            rc = _knn_lib().srml_probe_select_fused(
+                cent.data_ptr(), qs.data_ptr(), nq, nlist, d, nprobe, pos_bits, part.data_ptr(),
+                done.data_ptr(), out_p.data_ptr(), out_d.data_ptr(), stream,
+            )
+        else:
+            c2, q2 = row_sq_norms(cent), row_sq_norms(qs)
+            p = 1 << max(0, (nlist - 1).bit_length())
+            keys = torch.empty((nq, p), dtype=torch.int32, device=qs.device)
+            rc = _knn_lib().srml_probe_select(
+                cent.data_ptr(), c2.data_ptr(), qs.data_ptr(), q2.data_ptr(), nq, nlist, d,
+                nprobe, pos_bits, p, keys.data_ptr(), out_p.data_ptr(), out_d.data_ptr(), stream,
+            )
     _raise_on(rc, "probe_select")
     LAUNCHES["probe_select"] += 1
+    ROUTES[f"probe_select/{route}"] += 1
     return out_p, out_d
 
 

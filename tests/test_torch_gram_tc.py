@@ -188,11 +188,13 @@ def test_weighted_route_needs_16_byte_alignment():
 def test_routes_count_the_four_routed_kernels():
     """The four Gram-family kernels; since the KMeans pair gained its
     tensor-core body, lloyd_step and assign_min_dist; since the masked Gram
-    and the IVF list scan gained theirs, gram and ivf_scan_select: eight
-    routed kernels."""
+    and the IVF list scan gained theirs, gram and ivf_scan_select; since
+    the exact top-k gained its own, dist_topk; and the probe's fused and
+    sort bodies: ten routed kernels."""
     assert set(kernels.ROUTES) == {f"{k}/{r}" for k in (
         "gram", "gram_colsum", "linreg_stats", "newton_stats", "softmax_curvature", "lloyd_step",
-        "assign_min_dist", "ivf_scan_select") for r in ("wgmma", "ffma")}
+        "assign_min_dist", "ivf_scan_select", "dist_topk") for r in ("wgmma", "ffma")} | {
+        "probe_select/fused", "probe_select/sort"}
 
 
 def test_route_needs_rows_and_16_byte_alignment():
