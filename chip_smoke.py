@@ -125,10 +125,28 @@ Phases, each of which exits non-zero on a failed check:
     ``torch.bmm`` plus a stable top-k; for ``dist_topk`` also matmul plus
     ``torch.topk``, a time yardstick with no tie order), ``dist_topk`` and
     ``probe_select`` each on both routes.
+19. The PCA data plane: the port's ``DataPlaneDaemon`` in this process on
+    the card and 8 partition tasks, each with its own ``DataPlaneClient``,
+    sending 2 ``feed_raw`` batches of 65,536 x 2048 float32 rows (Spark's
+    maxRecordsPerBatch; 512 MiB a frame; bf16-exact rows) and committing:
+    1,048,576 rows. Partition 0's attempt 0 feeds one batch and is
+    abandoned, one feed is re-sent with its feed_id, one commit is sent
+    twice; ``status`` must read 1,048,576 rows and ``gram_colsum`` must
+    launch once per folded feed (17), all on the tensor-core route. The
+    k = 32 finalize over the wire against float64 PCA of the same rows
+    (phase 3's tolerances) and against the in-process ``fit_pca_stream``
+    of the same batches; ``ensure_model`` over the wire, then the served
+    transform of 65,536 rows through the daemon's registry, bitwise equal
+    to ``PCAModel.transform_matrix``. It prints the data-plane rows/s
+    beside the in-process stream's, the daemon's spans (frame receive and
+    decode, host to device, fold, commit, eigh finalize), the run's device
+    time from a torch.profiler trace, the fold kernel alone at the feed's
+    shape (CUDA events), and the registry transform's p50.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
 path and carries the float32 route's numbers under ``f32_*``, the
+``gram_colsum`` row phase 19's launches under ``daemon_launches``, the
 ``dist_topk`` row the FFMA tiles' time under ``ffma_ms`` and the
 ``probe_select`` row the sort route's under ``sort_ms``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -178,6 +196,10 @@ KNN_ROWS = 1 << 20  # depth cut from config #5's 10M rows
 KNN_CLUSTERS, KNN_SPREAD = 4096, 0.35
 KNN_QUERIES, KNN_K = 4096, 10
 KNN_NLIST, KNN_NPROBE = 1024, 20
+
+DP_ROWS = 65536  # spark/conf.py:22,40: arrow.maxRecordsPerBatch, one feed
+DP_PARTITIONS, DP_FEEDS = 8, 2  # 1,048,576 rows (BASELINE.json #1's 100M cut in depth)
+DP_JOB = "phase19"
 
 #: The body each kernel row of the table times (the Gram family: "wgmma+tma syrk").
 DESIGNS = {
@@ -1782,6 +1804,24 @@ def check_selection(torch, tag, kd, ki, pd, pi, tol) -> int:
     return int(diff.sum())
 
 
+def device_time(torch, prof):
+    """(busy ms, {name: (ms, count)}, device events) of a torch.profiler
+    trace: busy is the union of the device events' intervals, without the
+    trace spans' annotation ranges."""
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)),
+                key=lambda e: e.time_range.start)
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for e in ev:
+        start, stop = e.time_range.start, e.time_range.end
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (stop - start) / 1e3, n + 1)
+    return busy / 1e3, by_name, ev
+
+
 def device_breakdown(torch, tag, fn, top=5) -> None:
     """Prints one call's wall time, the device's busy and idle shares and
     its largest kernels, from a torch.profiler trace of CPU and CUDA
@@ -1795,22 +1835,12 @@ def device_breakdown(torch, tag, fn, top=5) -> None:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not getattr(e, "is_user_annotation", False)),
-                key=lambda e: e.time_range.start)
-    busy, end, by_name = 0.0, float("-inf"), {}
-    for e in ev:
-        start, stop = e.time_range.start, e.time_range.end
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        by_name[e.name] = by_name.get(e.name, 0.0) + (stop - start) / 1e3
-    busy /= 1e3
+    busy, by_name, ev = device_time(torch, prof)
     if busy == 0:
         print(f"{tag}: wall {wall:.3f} ms; device time not measured (no device activity traced)")
         return
     parts = ", ".join(f"{name[:48]} {t:.3f}"
-                      for name, t in sorted(by_name.items(), key=lambda r: -r[1])[:top])
+                      for name, (t, _) in sorted(by_name.items(), key=lambda r: -r[1][0])[:top])
     print(f"{tag}: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f} %, idle "
           f"{100 * (1 - busy / wall):.1f} %) over {len(ev)} device events; largest (ms): {parts}",
           flush=True)
@@ -2137,6 +2167,194 @@ def phase_knn(torch, kernels, config):
           f"{ms_l:.3f} ms per iteration, assign_min_dist {ms_a:.3f} ms, the product alone "
           f"{lib_q:.3f} ms, bound {b_q:.3f} by {by_q}", flush=True)
     return rows_t
+
+
+def _dp_feed_task(DataPlaneClient, address, p, rows, abandoned):
+    """One Spark partition task of phase 19: its own client, feed_raw
+    batches tagged partition/attempt/feed_id, then commit. Partition 0
+    first feeds one batch as attempt 0 and abandons it (a retried task);
+    partition 1 re-sends its last feed with the same feed_id (a lost ack);
+    partition 2 commits twice."""
+    with DataPlaneClient(*address, timeout=900.0) as c:
+        attempt = 0
+        if p == 0:
+            c.feed_raw(DP_JOB, abandoned, n_cols=D, partition=0, attempt=0)
+            attempt = 1
+        for f, x in enumerate(rows):
+            if p == 1 and f == len(rows) - 1:
+                req = {"op": "feed_raw", "job": DP_JOB, "algo": "pca", "n_cols": D,
+                       "partition": p, "attempt": attempt, "feed_id": "phase19-replayed"}
+                c._send_arrays_op(dict(req), {"x": x})
+                c._send_arrays_op(dict(req), {"x": x})  # the replay: acked, not folded
+            else:
+                c.feed_raw(DP_JOB, x, n_cols=D, partition=p, attempt=attempt)
+        rows_acked = c.commit(DP_JOB, partition=p, attempt=attempt)
+        if p == 2:
+            rows_acked = c.commit(DP_JOB, partition=p, attempt=attempt)  # duplicate commit
+        return rows_acked
+
+
+def phase_data_plane(torch, kernels, config, scales, mu, fit_pca_stream, PCAModel):
+    """Phase 19: the PCA data plane on the card. Returns the gram_colsum
+    launches of the wire path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient, DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    n_rows = DP_PARTITIONS * DP_FEEDS * DP_ROWS
+    # bf16 rows (the fold's compute dtype) sent as float32, which holds them
+    # exactly: the daemon's cast back is exact, so the float64 reference and
+    # the in-process fit read the very rows the daemon folds.
+    dev_rows = [[make_rows(gen, DP_ROWS, scales, mu, torch.bfloat16) for _ in range(DP_FEEDS)]
+                for _ in range(DP_PARTITIONS)]
+    host_rows = [[x.float().cpu().numpy() for x in part] for part in dev_rows]
+    abandoned = (3.0 * make_rows(gen, DP_ROWS, scales, mu, torch.bfloat16)).float().cpu().numpy()
+    wire_gib = (DP_PARTITIONS * DP_FEEDS + 2) * DP_ROWS * D * 4 / 2 ** 30
+    print(f"data plane: {DP_PARTITIONS} partition tasks x {DP_FEEDS} feed_raw batches of "
+          f"{DP_ROWS} x {D} float32 ({DP_ROWS * D * 4 / 2 ** 20:.0f} MiB a frame): {n_rows} rows; "
+          f"with the abandoned attempt and the replayed feed {wire_gib:.2f} GiB on the wire",
+          flush=True)
+
+    with DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as daemon:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        profiling.reset_span_totals()
+        # The run is traced (CPU + CUDA activity) for its device time: the
+        # device events of every thread, where the trace's CPU ranges are
+        # only this thread's (the spans come from span_totals instead).
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=DP_PARTITIONS) as pool:
+                futures = [pool.submit(_dp_feed_task, DataPlaneClient, daemon.address, p,
+                                       host_rows[p], abandoned)
+                           for p in range(DP_PARTITIONS)]
+                acked = [f.result() for f in futures]
+            t_fed = time.perf_counter() - t0
+            with DataPlaneClient(*daemon.address, timeout=900.0) as c:
+                status = c.status(DP_JOB)
+                out, rows_final = c.finalize(DP_JOB, {"k": K, "mean_center": True}, drop=False)
+                dp_s = time.perf_counter() - t0  # first feed to the finalize ack
+                c.drop(DP_JOB)
+            torch.cuda.synchronize()
+        launches = kernels.LAUNCHES["gram_colsum"]
+        routes = {k: v for k, v in kernels.ROUTES.items() if k.startswith("gram_colsum/")}
+        spans = profiling.span_totals()
+        busy_ms, by_name, _ = device_time(torch, prof)
+        del prof
+        check(status["rows"] == n_rows and rows_final == n_rows and max(acked) == n_rows,
+              f"data plane status reads {status['rows']} rows == {n_rows} (retried attempt, "
+              f"replayed feed_id and duplicate commit each counted once; finalize {rows_final})")
+        folded = DP_PARTITIONS * DP_FEEDS + 1  # every feed, the abandoned one; not the replay
+        check(launches == folded,
+              f"data plane gram_colsum launches {launches} == folded feeds {folded}")
+        check(routes["gram_colsum/wgmma"] == folded and routes["gram_colsum/ffma"] == 0,
+              f"every data-plane fold took the tensor-core route: {routes}")
+
+        # The float64 reference of the same (bf16-exact) rows.
+        count = torch.tensor(float(n_rows), dtype=torch.float64, device=DEV)
+        colsum = torch.zeros(D, dtype=torch.float64, device=DEV)
+        gram = torch.zeros((D, D), dtype=torch.float64, device=DEV)
+        for part in dev_rows:
+            for x in part:
+                xd = x.double()
+                gram += xd.T @ xd
+                colsum += xd.sum(0)
+        pc_ref, ev_ref, gap = reference_pca(count, colsum, gram, K)
+        del gram, colsum, xd
+        err = sign_aligned_err(out["pc"], pc_ref)
+        ev_err = float((torch.as_tensor(out["explained_variance"], device=DEV) - ev_ref).abs().max())
+        check(out["pc"].shape == (D, K) and bool(np.isfinite(out["pc"]).all()),
+              f"data plane pc finite, shape {out['pc'].shape}")
+        # Tolerances of phase 3 (the same f32 accumulation over the same
+        # bf16 rows; smallest top-32 eigengap printed).
+        check(err <= 1e-3, f"data plane pc vs float64 of the same rows: max sign-aligned err "
+                           f"{err:.3e} (tol 1e-3; eigengap {gap:.3e})")
+        check(ev_err <= 1e-4, f"data plane σ/Σσ vs float64: err {ev_err:.3e} (tol 1e-4)")
+
+        # The in-process stream over the same 16 batches: from the float32
+        # host arrays the daemon received (host to device, bf16 on the card),
+        # and from the device-resident bf16 rows.
+        batches = [x for part in host_rows for x in part]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = fit_pca_stream(batches, k=K, n_cols=D, device=DEV)
+        host_s = time.perf_counter() - t0
+        dev_batches = [x for part in dev_rows for x in part]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit_pca_stream(dev_batches, k=K, n_cols=D, device=DEV)
+        dev_s = time.perf_counter() - t0
+        err_s = sign_aligned_err(out["pc"], torch.as_tensor(sol.pc, device=DEV))
+        ev_s = float(np.abs(out["explained_variance"] - sol.explained_variance).max())
+        # Tolerance: the same f32 sums of the same rows in another order
+        # (per-partition stages added at commit): ~1e-6 of the largest Gram
+        # entry, over the 1.6 % eigengap.
+        check(err_s <= 1e-3, f"data plane pc vs in-process fit_pca_stream of the same batches: "
+                             f"max sign-aligned err {err_s:.3e} (tol 1e-3)")
+        check(ev_s <= 1e-5, f"data plane σ/Σσ vs in-process fit_pca_stream: err {ev_s:.3e} "
+                            f"(tol 1e-5)")
+
+        # Serving: register the finalized arrays over the wire (raw frames);
+        # transform through the daemon's registry in-process.
+        model_arrays = {"pc": out["pc"], "explainedVariance": out["explained_variance"],
+                        "mean": out["mean"]}
+        with DataPlaneClient(*daemon.address) as c:
+            created = c.ensure_model("phase19", "pca", model_arrays)
+            exists = c.model_exists("phase19")
+        check(created and exists, "ensure_model over the wire registered the model; "
+                                  "model_status sees it")
+        served = daemon._lookup_model("phase19")
+        xq = host_rows[0][0]
+        y_served = served.transform(xq)["output"]
+        y_model = PCAModel(pc=out["pc"], explained_variance=out["explained_variance"],
+                           mean=out["mean"], device=DEV).transform_matrix(xq)["output"]
+        check(y_served.shape == (DP_ROWS, K) and np.array_equal(y_served, y_model),
+              f"registry transform of {DP_ROWS} x {D} bitwise equal to "
+              f"PCAModel.transform_matrix of the same arrays")
+        print("the Arrow `transform` (and `feed`) ops run only in the CPU tests: this machine "
+              "has no pyarrow, and the smoke never imports it", flush=True)
+        lat = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            served.transform(xq)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        lat.sort()
+
+    # The fold kernel alone at the feed's shape (CUDA events, warm, seeded
+    # state as the daemon launches it), outside the run's contention.
+    x16 = dev_rows[0][0]
+    state = (torch.zeros((D, D), device=DEV), torch.zeros(D, device=DEV),
+             torch.zeros((), device=DEV))
+    fold_ms = time_ms(lambda: kernels.gram_colsum(x16, DP_ROWS, state), 5)
+    fold_dev = [(ms, n) for name, (ms, n) in by_name.items() if "gram_tc_kernel" in name]
+    fold_dev_ms = sum(ms for ms, _ in fold_dev)
+    fold_dev_n = sum(n for _, n in fold_dev)
+    print(f"data plane fit: {n_rows} rows in {dp_s:.3f} s = {n_rows / dp_s:.1f} rows/s "
+          f"(first feed to the finalize ack, host clock; feeds and commits done at "
+          f"{t_fed:.3f} s), {wire_gib / dp_s:.2f} GiB/s of frames; in-process fit_pca_stream "
+          f"of the same rows: {n_rows / host_s:.1f} rows/s from the float32 host arrays, "
+          f"{n_rows / dev_s:.1f} rows/s from device-resident bf16", flush=True)
+    names = ("daemon frame receive", "daemon frame decode", "daemon host to device",
+             "daemon fold", "daemon commit", "eig finalize")
+    print("data plane spans (host-clock seconds summed over the connection threads, count): "
+          + ", ".join(f"{n} {spans.get(n, (0.0, 0))[0]:.3f} ({spans.get(n, (0.0, 0))[1]})"
+                      for n in names)
+          + f"; the fold kernel at {DP_ROWS} x {D} bf16 alone (CUDA events) {fold_ms:.3f} ms",
+          flush=True)
+    parts = ", ".join(f"{name[:48]} {ms:.3f} ({n})"
+                      for name, (ms, n) in sorted(by_name.items(), key=lambda r: -r[1][0])[:6])
+    print(f"data plane device time (torch.profiler, CUDA activity of every thread): busy "
+          f"{busy_ms:.3f} ms of {dp_s * 1e3:.3f} ms ({100 * busy_ms / (dp_s * 1e3):.2f} %, idle "
+          f"{100 * (1 - busy_ms / (dp_s * 1e3)):.2f} %); fold kernels {fold_dev_ms:.3f} ms over "
+          f"{fold_dev_n} launches; largest (ms, count): {parts}", flush=True)
+    print(f"registry transform {DP_ROWS} x {D} float32 host rows -> k={K}: p50 "
+          f"{lat[len(lat) // 2]:.3f} ms (host clock, ends on the host array)", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -2538,6 +2756,11 @@ def main() -> None:
 
     # -- 15.-18. nearest neighbours ------------------------------------------------
     table += phase_knn(torch, kernels, config)
+    torch.cuda.empty_cache()
+
+    # -- 19. the PCA data plane ------------------------------------------------------
+    dp_launches = phase_data_plane(torch, kernels, config, scales, mu, fit_pca_stream, PCAModel)
+    next(row for row in table if row["name"] == "gram_colsum")["daemon_launches"] = dp_launches
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "

@@ -11,24 +11,25 @@ data-plane slice; multi-chunk columns concatenate with numpy.
 
 from __future__ import annotations
 
+import sys
 from typing import Optional, Tuple
 
 import numpy as np
 
-try:
-    import pyarrow as pa
-except ImportError:  # pragma: no cover - the GPU image ships without pyarrow
-    pa = None
-
 
 def _require_pa():
-    if pa is None:
-        raise ImportError("pyarrow is required for the Arrow columnar bridge")
+    """pyarrow, imported at use: importing the package never loads it (the
+    GPU image ships without it)."""
+    try:
+        import pyarrow
+    except ImportError as e:  # pragma: no cover - the GPU image
+        raise ImportError("pyarrow is required for the Arrow columnar bridge") from e
+    return pyarrow
 
 
 def list_column_to_matrix(col, n_cols: Optional[int] = None) -> np.ndarray:
     """Convert an Arrow (Chunked)Array of list type to an (n, d) ndarray."""
-    _require_pa()
+    pa = _require_pa()
     if isinstance(col, pa.ChunkedArray):
         if col.num_chunks == 1:
             return _array_to_matrix(col.chunk(0), n_cols)
@@ -40,6 +41,7 @@ def list_column_to_matrix(col, n_cols: Optional[int] = None) -> np.ndarray:
 
 
 def _array_to_matrix(arr, n_cols: Optional[int]) -> np.ndarray:
+    pa = _require_pa()
     if arr.null_count:
         raise ValueError("list column contains nulls; expected dense vectors")
     t = arr.type
@@ -71,7 +73,6 @@ def _array_to_matrix(arr, n_cols: Optional[int]) -> np.ndarray:
 
 def table_column_to_matrix(table, name: str, n_cols: Optional[int] = None) -> np.ndarray:
     """Extract column ``name`` of an Arrow Table as an (n, d) matrix."""
-    _require_pa()
     if name not in table.column_names:
         raise KeyError(f"column {name!r} not in table (have {table.column_names})")
     return list_column_to_matrix(table.column(name), n_cols)
@@ -79,7 +80,7 @@ def table_column_to_matrix(table, name: str, n_cols: Optional[int] = None) -> np
 
 def matrix_to_list_column(mat: np.ndarray):
     """Wrap an (n, d) ndarray as an Arrow fixed_size_list array."""
-    _require_pa()
+    pa = _require_pa()
     mat = np.ascontiguousarray(mat)
     return pa.FixedSizeListArray.from_arrays(pa.array(mat.reshape(-1)), mat.shape[1])
 
@@ -96,6 +97,7 @@ def matrix_from_any(col) -> Tuple[object, int]:
         if col.dim() != 2:
             raise ValueError(f"expected 2-D vector column, got shape {tuple(col.shape)}")
         return col, col.shape[1]
+    pa = sys.modules.get("pyarrow")  # an Arrow column exists only once it is loaded
     if pa is not None and isinstance(col, (pa.Array, pa.ChunkedArray)):
         m = list_column_to_matrix(col)
         return m, m.shape[1]

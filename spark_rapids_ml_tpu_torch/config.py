@@ -2,7 +2,8 @@
 
 The counterpart of ``spark_rapids_ml_tpu/config.py``, cut to the keys the
 port reads (PCA, KMeans, LinearRegression, LogisticRegression,
-NearestNeighbors and ApproximateNearestNeighbors). Values are settable programmatically or through
+NearestNeighbors and ApproximateNearestNeighbors, and the data-plane
+daemon's watermarks). Values are settable programmatically or through
 environment variables prefixed ``SRML_TORCH_`` — a prefix of its own, so
 the port never inherits the JAX package's ``SRML_TPU_*`` settings.
 
@@ -57,6 +58,15 @@ _DEFAULTS: Dict[str, Any] = {
     # ceil(1.2·k), "wide" = ann_shortlist_mult·k, "narrow" = k, or an
     # integer. Without rerank the scan keeps k.
     "ann_extract": _env("ANN_EXTRACT", "auto"),
+    # Data-plane daemon backpressure (serve/daemon.py; 0 = unlimited):
+    # past either watermark, feed/feed_raw/ensure_model/transform are shed
+    # with `busy` and a retry_after_s hint.
+    "daemon_max_connections": int(_env("DAEMON_MAX_CONNECTIONS", "0")),
+    "daemon_max_staged_bytes": int(_env("DAEMON_MAX_STAGED_BYTES", "0")),
+    "daemon_retry_after_s": float(_env("DAEMON_RETRY_AFTER_S", "1.0")),
+    # Served-model registry cap (0 = unbounded): past it, the least
+    # recently used registration is evicted.
+    "daemon_max_models": int(_env("DAEMON_MAX_MODELS", "0")),
 }
 
 _lock = threading.Lock()

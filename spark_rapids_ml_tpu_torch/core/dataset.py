@@ -11,30 +11,32 @@ container kind with the output column appended, mirroring
 
 from __future__ import annotations
 
+import sys
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-try:
-    import pyarrow as pa
-except ImportError:  # pragma: no cover
-    pa = None
-
-try:
-    import pandas as pd
-except ImportError:  # pragma: no cover
-    pd = None
-
 from spark_rapids_ml_tpu_torch.bridge import arrow as _arrow_bridge
 
 
 def _is_arrow(dataset: Any) -> bool:
+    # An Arrow container exists only once its caller imported pyarrow, so
+    # the check reads sys.modules and never imports it (importing the
+    # package must not load pyarrow: the data-plane daemon runs without).
+    pa = sys.modules.get("pyarrow")
     return pa is not None and isinstance(dataset, (pa.Table, pa.RecordBatch))
 
 
 def _is_pandas(dataset: Any) -> bool:
+    pd = sys.modules.get("pandas")
     return pd is not None and isinstance(dataset, pd.DataFrame)
+
+
+def _arrow_table(dataset: Any):
+    """An Arrow RecordBatch as a Table; a Table as it is."""
+    pa = sys.modules["pyarrow"]
+    return pa.Table.from_batches([dataset]) if isinstance(dataset, pa.RecordBatch) else dataset
 
 
 def num_rows(dataset: Any) -> int:
@@ -54,9 +56,7 @@ def as_matrix(dataset: Any, col: Optional[str] = None, n_cols: Optional[int] = N
     array, or the tensor itself when the column is a ``torch.Tensor``)."""
     if _is_arrow(dataset):
         assert col is not None, "column name required for Arrow datasets"
-        if isinstance(dataset, pa.RecordBatch):
-            dataset = pa.Table.from_batches([dataset])
-        return _arrow_bridge.table_column_to_matrix(dataset, col, n_cols)
+        return _arrow_bridge.table_column_to_matrix(_arrow_table(dataset), col, n_cols)
     if _is_pandas(dataset):
         assert col is not None, "column name required for pandas datasets"
         mat, _ = _arrow_bridge.matrix_from_any(dataset[col].to_numpy())
@@ -73,9 +73,7 @@ def as_column(dataset: Any, col: str):
     """Extract a scalar column (labels, weights) as a 1-D numpy array, or
     the tensor itself when the column is a ``torch.Tensor``."""
     if _is_arrow(dataset):
-        if isinstance(dataset, pa.RecordBatch):
-            dataset = pa.Table.from_batches([dataset])
-        return np.asarray(dataset.column(col))
+        return np.asarray(_arrow_table(dataset).column(col))
     if _is_pandas(dataset):
         return dataset[col].to_numpy()
     if isinstance(dataset, dict):
@@ -96,12 +94,11 @@ def with_column(dataset: Any, name: str, values) -> Any:
     if _is_arrow(dataset) or _is_pandas(dataset):
         values = values.cpu().numpy() if isinstance(values, torch.Tensor) else np.asarray(values)
     if _is_arrow(dataset):
-        if isinstance(dataset, pa.RecordBatch):
-            dataset = pa.Table.from_batches([dataset])
+        dataset = _arrow_table(dataset)
         if values.ndim == 2:
             col = _arrow_bridge.matrix_to_list_column(values)
         else:
-            col = pa.array(values)
+            col = sys.modules["pyarrow"].array(values)
         if name in dataset.column_names:
             dataset = dataset.drop_columns([name])
         return dataset.append_column(name, col)

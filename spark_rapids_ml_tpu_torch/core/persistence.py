@@ -27,12 +27,18 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-try:
-    import pyarrow as pa
-    import pyarrow.parquet as pq
-except ImportError:  # pragma: no cover - the GPU image ships without pyarrow
-    pa = None
-    pq = None
+
+
+def _parquet():
+    """(pyarrow, pyarrow.parquet), or (None, None) where pyarrow is absent
+    (the GPU image ships without it): imported at use, so importing the
+    package never loads pyarrow."""
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+    except ImportError:  # pragma: no cover - the GPU image
+        return None, None
+    return pa, pq
 
 
 def _json_default(value: Any):
@@ -83,6 +89,7 @@ class MLReader:
 def _write_data(path: str, data: Dict[str, np.ndarray]) -> None:
     data_dir = os.path.join(path, "data")
     os.makedirs(data_dir, exist_ok=True)
+    pa, pq = _parquet()
     if pa is not None:
         # One single-row table: each fitted tensor is one flat list cell,
         # its shape kept in the __shapes__ JSON column.
@@ -104,6 +111,7 @@ def _read_data(path: str) -> Optional[Dict[str, np.ndarray]]:
         return None
     pq_path = os.path.join(data_dir, "part-00000.parquet")
     if os.path.exists(pq_path):
+        pa, pq = _parquet()
         if pa is None:
             raise ImportError(f"{pq_path} needs pyarrow to read")
         table = pq.read_table(pq_path)

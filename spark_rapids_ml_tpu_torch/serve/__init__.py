@@ -1,0 +1,18 @@
+"""The data plane: executors feed row batches to a daemon next to the card.
+
+The port of ``spark_rapids_ml_tpu/serve`` for its PCA path. The reference
+reaches the accelerator from Spark executors through a device-resident
+columnar RDD; here a TCP daemon next to the card (:class:`DataPlaneDaemon`)
+takes Arrow IPC or raw record batches from Spark tasks
+(:class:`DataPlaneClient`), folds each into the job's device-resident
+(count, Σx, XᵀX) state through the hand-written ``gram_colsum`` kernel,
+and at ``finalize`` runs the eigensolve: the role the reference's JVM
+``RDD.reduce`` played (RapidsRowMatrix.scala:139). The wire protocol
+(``protocol``) is the reference's frozen v1. Importing this package loads
+neither JAX nor pyarrow: only the Arrow ops import pyarrow, at use.
+"""
+
+from spark_rapids_ml_tpu_torch.serve.client import DaemonBusy, DataPlaneClient
+from spark_rapids_ml_tpu_torch.serve.daemon import DataPlaneDaemon
+
+__all__ = ["DaemonBusy", "DataPlaneClient", "DataPlaneDaemon"]

@@ -1,0 +1,393 @@
+"""Client side of the data-plane protocol — what a Spark task runs.
+
+The port of ``spark_rapids_ml_tpu/serve/client.py``, cut to the ops the
+port's daemon serves. A task opens one connection, feeds its partition as
+one or more frames (Arrow IPC ``feed``, or raw ``feed_raw`` without an
+Arrow library), commits, and closes; the Spark driver (or any one caller)
+finalizes. Socket work only: no device work happens here.
+
+Self-healing: every op runs inside a reconnect loop. A connection-level
+failure (``ConnectionError``, ``ProtocolError``, a socket timeout, any
+``OSError``) drops the cached socket, backs off with decorrelated jitter
+(utils/retry.py), reconnects and replays the op. Replay is exactly-once:
+``feed``/``feed_raw`` carry a ``feed_id`` minted once per op that the
+daemon dedupes, ``commit`` is idempotent by design, and reads are pure. A
+per-op deadline (``op_deadline_s``) bounds the TOTAL time spent healing
+one op and clamps each attempt's socket timeout. A ``busy`` response is
+honoured by waiting the daemon's ``retry_after_s`` hint (jittered) without
+using up a reconnect attempt. ``FrameTooLarge`` is deterministic and is
+never replayed. ``finalize`` sends ``drop: false`` and drops with a
+separate op once the arrays are in hand, so a replay after a lost
+response re-reads the same model.
+"""
+
+from __future__ import annotations
+
+import random
+import socket
+import time
+import uuid
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from spark_rapids_ml_tpu_torch.serve import protocol
+from spark_rapids_ml_tpu_torch.utils.logging import get_logger
+from spark_rapids_ml_tpu_torch.utils.retry import decorrelated_jitter
+
+logger = get_logger("serve.client")
+
+
+class DaemonBusy(RuntimeError):
+    """The daemon shed the op under load; retry after ``retry_after_s``."""
+
+    def __init__(self, message: str, retry_after_s: float):
+        super().__init__(message)
+        self.retry_after_s = float(retry_after_s)
+
+
+class DataPlaneClient:
+    """One connection to a daemon; one client per thread."""
+
+    def __init__(
+        self,
+        host: str,
+        port: int,
+        timeout: float = 120.0,
+        token: Optional[str] = None,
+        op_deadline_s: Optional[float] = None,
+        max_op_attempts: int = 5,
+        backoff_base_s: float = 0.05,
+        backoff_max_s: float = 2.0,
+        max_busy_wait_s: Optional[float] = None,
+    ):
+        """``timeout`` bounds one socket syscall; ``op_deadline_s`` bounds
+        one whole op including every reconnect, replay and busy wait (None:
+        the attempts alone bound it); ``max_op_attempts`` counts connection
+        failures per op; ``max_busy_wait_s`` caps the busy waiting of one
+        op: by default 60 s when no deadline is set and the deadline alone
+        otherwise, and an explicit value always applies."""
+        self._addr = (host, int(port))
+        self._timeout = timeout
+        self._token = token
+        self._sock: Optional[socket.socket] = None
+        self._op_deadline = op_deadline_s
+        self._max_attempts = max(1, int(max_op_attempts))
+        self._backoff_base = backoff_base_s
+        self._backoff_max = backoff_max_s
+        self._busy_wait_explicit = max_busy_wait_s is not None
+        self._max_busy_wait = 60.0 if max_busy_wait_s is None else float(max_busy_wait_s)
+        self._rng = random.Random()
+        # Feed idempotency nonce: a replayed op carries the same id.
+        self._nonce = uuid.uuid4().hex[:12]
+        self._seq = 0
+        #: Healing counters.
+        self.stats: Dict[str, int] = {"reconnects": 0, "replays": 0, "busy_waits": 0}
+
+    # -- connection --------------------------------------------------------
+
+    def _conn(self, deadline: Optional[float] = None) -> socket.socket:
+        if self._sock is None:
+            # The connect honours the op deadline too: a blackholed host
+            # costs the remaining budget, not a full timeout per attempt.
+            timeout = self._timeout
+            if deadline is not None:
+                timeout = min(timeout, max(deadline - time.monotonic(), 0.01))
+            s = socket.create_connection(self._addr, timeout=timeout)
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            self._sock = s
+        return self._sock
+
+    def _reset(self) -> None:
+        """Drop the cached socket: after a connection-level error it may be
+        desynced mid-frame."""
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+
+    def close(self) -> None:
+        self._reset()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _op_id(self) -> str:
+        self._seq += 1
+        return f"{self._nonce}-{self._seq}"
+
+    def _attempt(
+        self,
+        req: Dict[str, Any],
+        payload: Optional[bytes],
+        arrays: Optional[Dict[str, np.ndarray]],
+        want_arrays: bool,
+        deadline: Optional[float],
+        sent: Dict[str, bool],
+    ):
+        """One request/response exchange on the cached connection. Response
+        array frames are read INSIDE the attempt, so a drop mid-response
+        replays the whole op. ``sent`` flips once request bytes may have
+        reached the wire: the line between a reconnect and a REPLAY."""
+        sock = self._conn(deadline=deadline)
+        if deadline is not None:
+            # The deadline bounds blocked syscalls too (floor 10 ms, so an
+            # expired deadline fails fast).
+            sock.settimeout(min(self._timeout, max(deadline - time.monotonic(), 0.01)))
+        req = {"v": protocol.PROTOCOL_VERSION, **req}
+        if self._token is not None:
+            req["token"] = self._token
+        sent["flag"] = True
+        if arrays is not None:
+            protocol.send_arrays(sock, {k: np.asarray(v) for k, v in arrays.items()}, req)
+        else:
+            protocol.send_json(sock, req)
+            if payload is not None:
+                protocol.send_frame(sock, payload)
+        resp = protocol.recv_json(sock)
+        if resp is None:
+            raise ConnectionError("daemon closed the connection")
+        if not resp.get("ok", False):
+            if resp.get("busy"):
+                raise DaemonBusy(f"daemon busy: {resp.get('error')}",
+                                 float(resp.get("retry_after_s", 1.0)))
+            raise RuntimeError(f"daemon error: {resp.get('error')}")
+        outs = protocol.recv_arrays(sock, resp) if want_arrays else None
+        return resp, outs
+
+    def _op(
+        self,
+        req: Dict[str, Any],
+        payload: Optional[bytes] = None,
+        arrays: Optional[Dict[str, np.ndarray]] = None,
+        want_arrays: bool = False,
+    ):
+        """Run one op through the self-healing loop (module docstring)."""
+        start = time.monotonic()
+        deadline = None if self._op_deadline is None else start + self._op_deadline
+        attempt = 0
+        busy_waited = 0.0
+        delay = self._backoff_base
+        while True:
+            sent = {"flag": False}
+            try:
+                return self._attempt(req, payload, arrays, want_arrays, deadline, sent)
+            except protocol.FrameTooLarge:
+                # Deterministic: replaying cannot help. The JSON header
+                # already went out, so the connection is mid-request: drop
+                # it, or the next op's header is read as this op's payload.
+                self._reset()
+                raise
+            except DaemonBusy as e:
+                # Release the connection slot through the wait (a parked
+                # connection would pin a connection watermark), then retry.
+                self._reset()
+                wait = e.retry_after_s * (0.5 + self._rng.random())
+                if deadline is not None and time.monotonic() + wait > deadline:
+                    raise
+                if (deadline is None or self._busy_wait_explicit) and \
+                        busy_waited + wait > self._max_busy_wait:
+                    raise
+                self.stats["busy_waits"] += 1
+                busy_waited += wait
+                logger.info("daemon busy (%s); retrying op %r in %.2fs",
+                            self._addr, req.get("op"), wait)
+                time.sleep(wait)
+            except (protocol.ProtocolError, OSError) as e:
+                # Includes ConnectionError and socket timeouts; the socket
+                # may be mid-frame, so it always goes.
+                self._reset()
+                attempt += 1
+                if attempt >= self._max_attempts:
+                    raise
+                delay = decorrelated_jitter(delay, self._backoff_base, self._backoff_max,
+                                            self._rng)
+                if deadline is not None and time.monotonic() + delay > deadline:
+                    raise
+                self.stats["reconnects"] += 1
+                if sent["flag"]:
+                    self.stats["replays"] += 1
+                logger.warning("connection failure on op %r to %s (attempt %d/%d, "
+                               "reconnect in %.2fs): %s", req.get("op"), self._addr,
+                               attempt, self._max_attempts, delay, e)
+                time.sleep(delay)
+
+    def _roundtrip(self, req: Dict[str, Any], payload: Optional[bytes] = None):
+        resp, _ = self._op(req, payload=payload)
+        return resp, self._sock
+
+    def _send_arrays_op(self, req: Dict[str, Any], arrays: Dict[str, np.ndarray]):
+        """A request carrying raw array frames (ensure_model framing)."""
+        resp, _ = self._op(req, arrays=arrays)
+        return resp
+
+    # -- ops ---------------------------------------------------------------
+
+    def ping(self) -> bool:
+        """Hello: liveness and the version handshake. The server echoes the
+        protocol version it speaks; a mismatch raises here."""
+        resp, _ = self._roundtrip({"op": "ping"})
+        server_v = resp.get("v")
+        if server_v is not None and server_v != protocol.PROTOCOL_VERSION:
+            raise protocol.ProtocolError(
+                f"daemon speaks protocol v{server_v}; this client speaks "
+                f"v{protocol.PROTOCOL_VERSION}"
+            )
+        return bool(resp["ok"])
+
+    @staticmethod
+    def _to_ipc(data, input_col: str) -> bytes:
+        """An (n, d) ndarray or an Arrow Table/RecordBatch as one Arrow IPC
+        stream (pyarrow imported here: only the Arrow ops need it)."""
+        import pyarrow as pa
+
+        from spark_rapids_ml_tpu_torch.bridge.arrow import matrix_to_list_column
+
+        if isinstance(data, np.ndarray):
+            table = pa.table({input_col: matrix_to_list_column(data)})
+        elif isinstance(data, pa.RecordBatch):
+            table = pa.Table.from_batches([data])
+        else:
+            table = data
+        sink = pa.BufferOutputStream()
+        with pa.ipc.new_stream(sink, table.schema) as writer:
+            writer.write_table(table)
+        return sink.getvalue().to_pybytes()
+
+    def feed(
+        self,
+        job: str,
+        data,
+        algo: str = "pca",
+        input_col: str = "features",
+        n_cols: Optional[int] = None,
+        params: Optional[Dict[str, Any]] = None,
+        partition: Optional[int] = None,
+        attempt: int = 0,
+        pass_id: Optional[int] = None,
+    ) -> int:
+        """Feed one batch (an Arrow Table/RecordBatch or an (n, d) ndarray).
+        With ``partition`` set the batch goes to that partition's stage and
+        counts only after :meth:`commit`. Returns the job's committed rows."""
+        resp, _ = self._roundtrip(
+            {
+                "op": "feed",
+                "job": job,
+                "algo": algo,
+                "input_col": input_col,
+                "n_cols": n_cols,
+                "params": params or {},
+                "partition": partition,
+                "attempt": attempt,
+                "pass_id": pass_id,
+                # a reconnect replays this exact feed; folded at most once
+                "feed_id": self._op_id(),
+            },
+            payload=self._to_ipc(data, input_col),
+        )
+        return int(resp["rows"])
+
+    def feed_raw(
+        self,
+        job: str,
+        x: np.ndarray,
+        algo: str = "pca",
+        n_cols: Optional[int] = None,
+        params: Optional[Dict[str, Any]] = None,
+        partition: Optional[int] = None,
+        attempt: int = 0,
+        pass_id: Optional[int] = None,
+    ) -> int:
+        """:meth:`feed` with raw little-endian buffers instead of Arrow IPC:
+        the op a client without an Arrow library uses."""
+        resp = self._send_arrays_op(
+            {
+                "op": "feed_raw",
+                "job": job,
+                "algo": algo,
+                "n_cols": n_cols,
+                "params": params or {},
+                "partition": partition,
+                "attempt": attempt,
+                "pass_id": pass_id,
+                "feed_id": self._op_id(),
+            },
+            {"x": np.asarray(x)},
+        )
+        return int(resp["rows"])
+
+    def commit(self, job: str, partition: int, attempt: int = 0,
+               pass_id: Optional[int] = None) -> int:
+        """Commit a partition's stage into the job (idempotent). Returns the
+        job's committed rows."""
+        resp, _ = self._roundtrip({"op": "commit", "job": job, "partition": partition,
+                                   "attempt": attempt, "pass_id": pass_id})
+        return int(resp["rows"])
+
+    def status(self, job: str) -> Dict[str, Any]:
+        resp, _ = self._roundtrip({"op": "status", "job": job})
+        return resp
+
+    def drop(self, job: str) -> bool:
+        resp, _ = self._roundtrip({"op": "drop", "job": job})
+        return bool(resp["dropped"])
+
+    def finalize(self, job: str, params: Dict[str, Any], drop: bool = True):
+        """Finalize a job: (result arrays, total rows). The request always
+        carries ``drop: false``; ``drop=True`` then sends the idempotent
+        ``drop`` once the arrays are in hand."""
+        req = {"op": "finalize", "job": job, "params": params, "drop": False}
+        resp, outs = self._op(req, want_arrays=True)
+        if drop:
+            self.drop(job)
+        return outs, int(resp["rows"])
+
+    def finalize_pca(self, job: str, k: int, mean_center: bool = True,
+                     solver: Optional[str] = None) -> Dict[str, np.ndarray]:
+        """{"pc", "explained_variance", "sigma", "mean"} of a PCA job."""
+        arrays, _ = self.finalize(job, {"k": k, "mean_center": mean_center, "solver": solver})
+        return arrays
+
+    def export_state(self, job: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+        """A job's committed statistics (s0, s1, s2 = count, Σx, XᵀX) and
+        meta (rows, pass_rows, iteration, algo, n_cols, committed)."""
+        resp, arrays = self._op({"op": "export_state", "job": job}, want_arrays=True)
+        meta = {k: v for k, v in resp.items() if k not in ("ok", "arrays")}
+        return arrays, meta
+
+    # -- model serving -----------------------------------------------------
+
+    def ensure_model(self, name: str, algo: str, arrays: Dict[str, np.ndarray],
+                     params: Optional[Dict[str, Any]] = None) -> bool:
+        """Register a fitted model for serving (idempotent; the first caller
+        wins). ``arrays`` is the model's ``_model_data()``; raw frames
+        follow the JSON header. True when this call created it."""
+        resp = self._send_arrays_op(
+            {"op": "ensure_model", "model": name, "algo": algo, "params": params or {}},
+            arrays,
+        )
+        return bool(resp["created"])
+
+    def model_exists(self, name: str) -> bool:
+        resp, _ = self._roundtrip({"op": "model_status", "model": name})
+        return bool(resp["exists"])
+
+    def transform(self, name: str, data, input_col: str = "features",
+                  n_cols: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Run a registered model over one batch on the daemon's device:
+        the role-keyed outputs ({"output": ...} for PCA)."""
+        _, arrays = self._op(
+            {"op": "transform", "model": name, "input_col": input_col, "n_cols": n_cols},
+            payload=self._to_ipc(data, input_col),
+            want_arrays=True,
+        )
+        return arrays
+
+    def drop_model(self, name: str) -> bool:
+        resp, _ = self._roundtrip({"op": "drop_model", "model": name})
+        return bool(resp["dropped"])

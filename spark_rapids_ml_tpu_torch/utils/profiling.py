@@ -8,22 +8,53 @@ which a ``torch.profiler`` trace records with its duration and which costs
 next to nothing outside one, and, on a CUDA machine, an NVTX range. Spans
 do not synchronise the device: a span around queued kernels covers their
 enqueue unless its body waits for a result.
+
+A ``torch.profiler`` trace records only the ranges of the thread that
+started it, and the data-plane daemon runs its ops on one thread per
+connection. So every span also adds its host-clock seconds to a
+process-wide total per name (:func:`span_totals`, two clock reads and a
+lock per span), which sums the spans of every thread.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator
+import threading
+import time
+from typing import Dict, Iterator, Tuple
 
 import torch
+
+_totals: Dict[str, list] = {}  # name -> [seconds, count]
+_totals_lock = threading.Lock()
 
 
 @contextlib.contextmanager
 def trace_span(name: str) -> Iterator[None]:
     """``with trace_span("compute cov"): ...`` — a named phase."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
+    t0 = time.perf_counter()
+    try:
+        with torch.profiler.record_function(name):
+            if torch.cuda.is_available():
+                with torch.cuda.nvtx.range(name):
+                    yield
+            else:
                 yield
-        else:
-            yield
+    finally:
+        dt = time.perf_counter() - t0
+        with _totals_lock:
+            acc = _totals.setdefault(name, [0.0, 0])
+            acc[0] += dt
+            acc[1] += 1
+
+
+def span_totals() -> Dict[str, Tuple[float, int]]:
+    """{name: (host-clock seconds, count)} of every span ended since the
+    last :func:`reset_span_totals`, over all threads."""
+    with _totals_lock:
+        return {name: (acc[0], acc[1]) for name, acc in _totals.items()}
+
+
+def reset_span_totals() -> None:
+    with _totals_lock:
+        _totals.clear()

@@ -42,6 +42,7 @@ from spark_rapids_ml_tpu_torch.models import linear_regression as port_lr
 from spark_rapids_ml_tpu_torch.models import logistic_regression as port_lg
 from spark_rapids_ml_tpu_torch.models import pca as port_pca
 from spark_rapids_ml_tpu_torch.ops import kernels
+from spark_rapids_ml_tpu_torch.serve import DataPlaneDaemon
 
 torch.set_num_threads(2)
 
@@ -85,6 +86,19 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_importing_the_data_plane_loads_neither_jax_nor_pyarrow():
+    code = (
+        "import sys, spark_rapids_ml_tpu_torch.serve; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'spark_rapids_ml_tpu', 'pyarrow', 'pandas')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -100,6 +114,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
         port_pca.fit_pca_stream([x], 2, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PCAModel(pc=np.eye(4)[:, :2]).transform_matrix(x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DataPlaneDaemon().start()
     # Asked for explicitly, the CPU works.
     model = PCA(device="cpu").setK(2).fit({"features": x})
     assert model.transform_matrix(x)["output"].shape == (20, 2)
@@ -514,3 +530,29 @@ def test_weighted_tensor_core_matches_plain_versions_on_card(d, n):
     before = kernels.ROUTES["newton_stats/ffma"]
     kernels.newton_stats(xg.float(), y, mask, w, b)
     assert kernels.ROUTES["newton_stats/ffma"] == before + 1
+
+
+@pytest.mark.cuda
+def test_daemon_fits_on_the_card():
+    """A short fit through the port's daemon on the card (bf16 compute, the
+    tensor-core gram_colsum), against float64 on the same bf16-rounded
+    rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient
+
+    rng = np.random.default_rng(3)
+    d = 64
+    x = (rng.normal(size=(4096, d)) * np.linspace(3, 0.1, d)).astype(np.float32)
+    x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()  # exact in bf16
+    with config.option("compute_dtype", "auto"), config.option("accum_dtype", "float32"):
+        kernels.reset_launches()
+        with DataPlaneDaemon() as d_, DataPlaneClient(*d_.address) as c:
+            for pid, part in enumerate(np.array_split(x, 4)):
+                c.feed_raw("card", part, partition=pid)
+                c.commit("card", partition=pid)
+            out = c.finalize_pca("card", k=4)
+    assert kernels.LAUNCHES["gram_colsum"] == 4
+    x64 = x.astype(np.float64)
+    ref = port_pca._finalize_on_host(x.shape[0], x64.sum(0), x64.T @ x64, True, 4)
+    np.testing.assert_allclose(np.abs(out["pc"]), np.abs(ref[0]), atol=1e-3)
