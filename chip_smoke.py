@@ -39,7 +39,8 @@ Phases, each of which exits non-zero on a failed check:
    interval; ``newton_stats`` against an emulation of its own rounding
    (1e-5) and its plain version (2⁻⁸ of Σ|terms| for the Hessian, 1e-5
    for the rest). d = 300 and 13, and float32, must take the FFMA route.
-   ``python3 chip_smoke.py --phase2`` stops after this phase.
+   ``python3 chip_smoke.py --phase2`` stops after this phase;
+   ``--data-plane`` runs phases 19 and 20 alone after the build.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -142,6 +143,24 @@ Phases, each of which exits non-zero on a failed check:
     decode, host to device, fold, commit, eigh finalize), the run's device
     time from a torch.profiler trace, the fold kernel alone at the feed's
     shape (CUDA events), and the registry transform's p50.
+20. The Spark PCA fit's feed protocol from separate processes: the port's
+    daemon in this process on the card and 8 spawned task processes, each
+    building its own bf16-exact numpy rows from its seed (phase 19's
+    shape: 2 feeds of 65,536 x 2048 float32) and, once all are ready and
+    the clock runs, the Spark feed task's body
+    (``spark/estimator._feed_partition``) with a ``feed_raw`` sender;
+    partition 3's attempt 0 dies after one feed and its attempt 1 wins.
+    This process plays the driver with the estimator's own code: the
+    acks' row accounting, the finalize with the split-brain row guard and
+    ``pass_rows_expected``, the ``PCAModel`` build. Acked, ``status`` and
+    finalize rows must be 1,048,576 and ``gram_colsum`` must launch once
+    per folded feed (17), all on the tensor-core route; the components
+    are held to float64 of the same rows (phase 3's tolerances) and to the
+    in-process ``fit_pca_stream`` of them (1e-5), both rebuilt here from
+    the tasks' seeds. It prints rows/s beside phase 19's, the daemon's
+    span split and the device busy share. (Arrow ``feed`` and
+    ``mapInArrow`` need pyarrow, which this machine lacks; they run in the
+    CPU tests.)
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
@@ -200,6 +219,8 @@ KNN_NLIST, KNN_NPROBE = 1024, 20
 DP_ROWS = 65536  # spark/conf.py:22,40: arrow.maxRecordsPerBatch, one feed
 DP_PARTITIONS, DP_FEEDS = 8, 2  # 1,048,576 rows (BASELINE.json #1's 100M cut in depth)
 DP_JOB = "phase19"
+SPARK_SEED, SPARK_JOB = 20, "phase20"
+SPARK_DYING = 3  # the partition whose attempt 0 dies after one feed
 
 #: The body each kernel row of the table times (the Gram family: "wgmma+tma syrk").
 DESIGNS = {
@@ -2196,7 +2217,7 @@ def _dp_feed_task(DataPlaneClient, address, p, rows, abandoned):
 
 def phase_data_plane(torch, kernels, config, scales, mu, fit_pca_stream, PCAModel):
     """Phase 19: the PCA data plane on the card. Returns the gram_colsum
-    launches of the wire path."""
+    launches of the wire path and its rows/s."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -2354,6 +2375,195 @@ def phase_data_plane(torch, kernels, config, scales, mu, fit_pca_stream, PCAMode
           f"{fold_dev_n} launches; largest (ms, count): {parts}", flush=True)
     print(f"registry transform {DP_ROWS} x {D} float32 host rows -> k={K}: p50 "
           f"{lat[len(lat) // 2]:.3f} ms (host clock, ends on the host array)", flush=True)
+    return launches, n_rows / dp_s
+
+
+def spark_rows(np, p, f, rows, d, k):
+    """Partition ``p``'s feed ``f``: numpy rows from the seed (SPARK_SEED, p,
+    f), phase 3's spectrum (variances 2 − j/(k−1) for the top k, a 0.1·0.999^j
+    tail) and mean, with the low 16 bits of every float32 word cleared, so
+    the rows are bf16-exact and the fold's cast loses nothing."""
+    j = np.arange(d, dtype=np.float32)
+    scales = np.where(j < k, np.sqrt(np.maximum(2.0 - j / (k - 1), 0.0)),
+                      0.1 * 0.999 ** j).astype(np.float32)
+    mu = (0.05 * np.random.default_rng(SPARK_SEED).standard_normal(d)).astype(np.float32)
+    x = np.random.default_rng([SPARK_SEED, p, f]).standard_normal((rows, d), dtype=np.float32)
+    x *= scales
+    x += mu
+    x.view(np.uint32)[...] &= np.uint32(0xFFFF0000)
+    return x
+
+
+def _dying(batches, after):
+    """Yield ``after`` batches, then die as a lost executor does: the
+    attempt has staged rows and never commits."""
+    yield from batches[:after]
+    raise RuntimeError("injected executor death mid-partition")
+
+
+def _spark_task(address, p, rows, d, k, feeds, go, out):
+    """Phase 20's partition task, in its own process (spawned): builds its
+    rows from its seed, signals ready, waits for the start, then runs the
+    Spark feed task's body (``estimator._feed_partition``) with a
+    ``feed_raw`` sender. Partition SPARK_DYING's attempt 0 dies after one
+    feed and its attempt 1 wins; only the winner's ack goes back, as Spark
+    returns only a successful task's rows."""
+    try:
+        import numpy as np
+
+        from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+        from spark_rapids_ml_tpu_torch.spark.estimator import _feed_partition
+
+        batches = [spark_rows(np, p, f, rows, d, k) for f in range(feeds)]
+        out.put(("ready", p, None))
+        go.wait()
+        attempts = [(0, 1), (1, None)] if p == SPARK_DYING else [(0, None)]
+        for attempt, dies_after in attempts:
+            with DataPlaneClient(*address, timeout=900.0) as c:
+                def send(x, c=c, attempt=attempt):
+                    c.feed_raw(SPARK_JOB, x, n_cols=d, partition=p, attempt=attempt)
+
+                it = batches if dies_after is None else _dying(batches, dies_after)
+                try:
+                    ack = _feed_partition(c, it, send, SPARK_JOB, p, attempt, None, address)
+                except RuntimeError as e:
+                    if "injected" not in str(e):
+                        raise
+                    continue
+        out.put(("ok", p, ack))
+    except Exception as e:  # noqa: BLE001 - reported to the parent
+        out.put(("err", p, repr(e)))
+
+
+def phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate):
+    """Phase 20: the Spark PCA fit's feed protocol from separate processes.
+    The port's daemon runs in this process on the card; 8 spawned task
+    processes run the feed task's body; this process plays the driver with
+    the estimator's own functions. Returns the gram_colsum launches."""
+    import multiprocessing as mp
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.spark import estimator as est
+    from spark_rapids_ml_tpu_torch.utils import profiling
+
+    n_rows = DP_PARTITIONS * DP_FEEDS * DP_ROWS
+    print(f"spark feed protocol: {DP_PARTITIONS} task processes (spawn) x {DP_FEEDS} feed_raw "
+          f"batches of {DP_ROWS} x {D} float32 (bf16-exact numpy rows from each task's seed): "
+          f"{n_rows} rows; partition {SPARK_DYING}'s attempt 0 dies after one feed", flush=True)
+    ctx = mp.get_context("spawn")  # never fork a process that holds a CUDA context
+    out, go = ctx.Queue(), ctx.Event()
+    procs = []
+    with DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as daemon:
+        try:
+            t_spawn = time.perf_counter()
+            procs = [ctx.Process(target=_spark_task,
+                                 args=(daemon.address, p, DP_ROWS, D, K, DP_FEEDS, go, out),
+                                 daemon=True)
+                     for p in range(DP_PARTITIONS)]
+            for proc in procs:
+                proc.start()
+            for _ in procs:
+                msg = out.get(timeout=300)
+                if msg[0] != "ready":
+                    fail(f"spark task {msg[1]} failed before it was ready: {msg[2]}")
+            print(f"spark tasks ready (spawned, imported the port, built their rows) in "
+                  f"{time.perf_counter() - t_spawn:.1f} s", flush=True)
+            host, port = daemon.address
+            fit = est._SingleDaemonFit(host, port, SPARK_JOB)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            profiling.reset_span_totals()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                go.set()
+                results = [out.get(timeout=600) for _ in procs]
+                t_fed = time.perf_counter() - t0
+                bad = [r for r in results if r[0] != "ok"]
+                check(not bad, f"spark tasks all succeeded: {bad}")
+                acks = [r[2] for r in results]
+                n, per, _, owner, boots = est._ack_rows(acks)
+                check(fit.account(acks) == n, "the driver's row accounting took the acks")
+                status = fit.client.status(SPARK_JOB)["rows"]
+                arrays, fin_rows = fit.finalize_guarded({"k": K, "mean_center": True},
+                                                        pass_rows_expected=n)
+                sp_s = time.perf_counter() - t0  # the go signal to the finalize ack
+                fit.close()
+                torch.cuda.synchronize()
+        finally:
+            for proc in procs:  # a task still waiting for the start is stopped at once
+                proc.join(timeout=30 if go.is_set() else 0)
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(timeout=10)
+    model = est._pca_model(arrays, device=DEV)
+    launches = kernels.LAUNCHES["gram_colsum"]
+    routes = {k: v for k, v in kernels.ROUTES.items() if k.startswith("gram_colsum/")}
+    spans = profiling.span_totals()
+    busy_ms, by_name, _ = device_time(torch, prof)
+    del prof
+    check(n == status == fin_rows == n_rows and sorted(owner) == list(range(DP_PARTITIONS))
+          and all(len(b) == 1 for b in boots.values()) and len(per) == 1,
+          f"spark feed: acked {n}, status {status}, finalize {fin_rows} rows == {n_rows}, one "
+          f"daemon and one incarnation, every partition owned")
+    folded = DP_PARTITIONS * DP_FEEDS + 1  # every feed and the dead attempt's one
+    check(launches == folded, f"spark feed gram_colsum launches {launches} == folded feeds {folded}")
+    check(routes["gram_colsum/wgmma"] == folded and routes["gram_colsum/ffma"] == 0,
+          f"every spark-feed fold took the tensor-core route: {routes}")
+    check(model.pc.shape == (D, K) and bool(np.isfinite(model.pc).all()),
+          f"spark PCAModel pc finite, shape {model.pc.shape}")
+
+    # References from the same rows, rebuilt here from the tasks' seeds: a
+    # float64 Gram on the card, and the in-process stream of the batches.
+    count = torch.tensor(float(n_rows), dtype=torch.float64, device=DEV)
+    colsum = torch.zeros(D, dtype=torch.float64, device=DEV)
+    gram = torch.zeros((D, D), dtype=torch.float64, device=DEV)
+    from concurrent.futures import ThreadPoolExecutor
+
+    def batches():
+        keys = [(p, f) for p in range(DP_PARTITIONS) for f in range(DP_FEEDS)]
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            for x in pool.map(lambda pf: spark_rows(np, pf[0], pf[1], DP_ROWS, D, K), keys):
+                xd = torch.from_numpy(x).to(DEV).double()
+                gram.addmm_(xd.T, xd)
+                colsum.add_(xd.sum(0))
+                del xd
+                yield x
+
+    sol = fit_pca_stream(batches(), k=K, n_cols=D, device=DEV)
+    pc_ref, ev_ref, gap = reference_pca(count, colsum, gram, K)
+    del gram, colsum
+    err = sign_aligned_err(model.pc, pc_ref)
+    ev_err = float((torch.as_tensor(model.explainedVariance, device=DEV) - ev_ref).abs().max())
+    check(err <= 1e-3, f"spark pc vs float64 of the same rows: max sign-aligned err {err:.3e} "
+                       f"(tol 1e-3; eigengap {gap:.3e})")
+    check(ev_err <= 1e-4, f"spark σ/Σσ vs float64: err {ev_err:.3e} (tol 1e-4)")
+    err_s = sign_aligned_err(model.pc, torch.as_tensor(sol.pc, device=DEV))
+    ev_s = float(np.abs(model.explainedVariance - sol.explained_variance).max())
+    # Tolerance: the same f32 sums of the same rows in another order (the
+    # stages added at commit); phase 19 measured 3.6e-6 on its components.
+    check(err_s <= 1e-5 and ev_s <= 1e-5,
+          f"spark pc vs in-process fit_pca_stream of the same rows: max sign-aligned err "
+          f"{err_s:.3e}, σ/Σσ {ev_s:.3e} (tol 1e-5 each)")
+
+    wire_gib = (n_rows + DP_ROWS) * D * 4 / 2 ** 30
+    names = ("daemon frame receive", "daemon frame decode", "daemon host to device",
+             "daemon fold", "daemon commit", "finalize", "eig finalize")
+    fold_dev = [(ms, c) for name, (ms, c) in by_name.items() if "gram_tc_kernel" in name]
+    print(f"spark feed fit: {n_rows} rows in {sp_s:.3f} s = {n_rows / sp_s:.1f} rows/s (the go "
+          f"signal to the finalize ack, host clock; acks in at {t_fed:.3f} s), "
+          f"{wire_gib / sp_s:.2f} GiB/s of frames; phase 19 (threads in the daemon's process) "
+          f"{dp_rate:.1f} rows/s in this run", flush=True)
+    print("spark feed spans (host-clock seconds summed over the daemon's connection threads, "
+          "count): " + ", ".join(f"{nm} {spans.get(nm, (0.0, 0))[0]:.3f} "
+                                 f"({spans.get(nm, (0.0, 0))[1]})" for nm in names), flush=True)
+    print(f"spark feed device time (torch.profiler, CUDA activity): busy {busy_ms:.3f} ms of "
+          f"{sp_s * 1e3:.3f} ms ({100 * busy_ms / (sp_s * 1e3):.2f} %, idle "
+          f"{100 * (1 - busy_ms / (sp_s * 1e3)):.2f} %); fold kernels "
+          f"{sum(ms for ms, _ in fold_dev):.3f} ms over {sum(c for _, c in fold_dev)} launches",
+          flush=True)
     return launches
 
 
@@ -2397,6 +2607,20 @@ def main() -> None:
             if any(w in line for w in ("registers", "spill", "Compiling entry", "warning",
                                        "wgmma", "setmaxnreg")):
                 print(f"  ptxas {name}: {line.strip()}")
+
+    if "--data-plane" in sys.argv[1:]:
+        # Phases 19 and 20 alone, on phase 3's spectrum.
+        j = torch.arange(D, device=DEV, dtype=torch.float32)
+        scales = torch.where(j < K, torch.sqrt(2.0 - j / (K - 1)), 0.1 * 0.999 ** j)
+        mu = 0.05 * torch.randn((D,), generator=torch.Generator(device=DEV).manual_seed(0),
+                                device=DEV)
+        _, dp_rate = phase_data_plane(torch, kernels, config, scales, mu, fit_pca_stream,
+                                      PCAModel)
+        torch.cuda.empty_cache()
+        phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate)
+        print(f"phases 19-20 passed ({time.perf_counter() - t_start:.1f} s); --data-plane: "
+              "stopping here", flush=True)
+        return
 
     # -- 2. kernels against their plain versions -----------------------------
     phase_topk_tc(torch, kernels)
@@ -2759,8 +2983,14 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 19. the PCA data plane ------------------------------------------------------
-    dp_launches = phase_data_plane(torch, kernels, config, scales, mu, fit_pca_stream, PCAModel)
-    next(row for row in table if row["name"] == "gram_colsum")["daemon_launches"] = dp_launches
+    dp_launches, dp_rate = phase_data_plane(torch, kernels, config, scales, mu, fit_pca_stream,
+                                            PCAModel)
+    torch.cuda.empty_cache()
+
+    # -- 20. the Spark feed protocol from separate processes ----------------------------
+    sp_launches = phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate)
+    row_gc = next(row for row in table if row["name"] == "gram_colsum")
+    row_gc["daemon_launches"], row_gc["spark_launches"] = dp_launches, sp_launches
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "

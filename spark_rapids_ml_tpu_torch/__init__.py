@@ -12,6 +12,8 @@ equations and LogisticRegression's weighted Grams, one binomial Newton
 pass and the multinomial per-class curvature), KMeans' Lloyd step and
 nearest-centre assignment (``ops/csrc/kmeans.cu``), and the exact
 distance top-k, the IVF probe and the IVF list scan (``ops/csrc/knn.cu``).
+A Spark fit reaches the card through the data plane (``serve/``): the
+executors of a ``spark.SparkPCA`` fit feed a daemon next to the card.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 

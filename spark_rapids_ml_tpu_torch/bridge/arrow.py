@@ -3,10 +3,15 @@
 The port's copy of ``spark_rapids_ml_tpu/bridge/arrow.py``: the reference
 reads training rows as a LIST column and grabs its flat child buffer
 (rapidsml_jni.cu:114-115); here a ``fixed_size_list`` column reshapes its
-child values zero-copy, and a ragged ``list``/``large_list`` is validated
+child values zero-copy, and a ``list``/``large_list`` is validated
 and gathered. pyarrow is optional: without it only the numpy and torch
-containers are accepted. The native threaded gather waits for the
-data-plane slice; multi-chunk columns concatenate with numpy.
+containers are accepted.
+
+With the host library loaded (``bridge/native.py``), a ``list`` column is
+gathered by its threaded width check and copy, and the float64 chunks of a
+multi-chunk column are concatenated by its threaded copy, as in the
+reference; without it numpy does both (the ``list`` case as a read-only
+view, which ``parallel.sharding.as_tensor`` copies later anyway).
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import sys
 from typing import Optional, Tuple
 
 import numpy as np
+
+from spark_rapids_ml_tpu_torch.bridge import native as _native
 
 
 def _require_pa():
@@ -36,6 +43,10 @@ def list_column_to_matrix(col, n_cols: Optional[int] = None) -> np.ndarray:
         mats = [_array_to_matrix(c, n_cols) for c in col.chunks if len(c)]
         if not mats:
             return np.empty((0, n_cols or 0))
+        if len(mats) > 1 and mats[0].dtype == np.float64:
+            out = _native.concat_chunks_f64(mats)
+            if out is not None:
+                return out
         return np.concatenate(mats, axis=0)
     return _array_to_matrix(col, n_cols)
 
@@ -61,10 +72,13 @@ def _array_to_matrix(arr, n_cols: Optional[int]) -> np.ndarray:
         if child.null_count and child.slice(start, stop - start).null_count:
             raise ValueError("list column contains null elements; expected dense vectors")
         vals = child.to_numpy(zero_copy_only=child.null_count == 0)
-        widths = np.diff(offsets)
-        if len(widths) == 0:
+        if len(offsets) <= 1:
             return np.empty((0, n_cols or 0), dtype=vals.dtype)
-        d = int(widths[0]) if n_cols is None else n_cols
+        d = int(offsets[1] - offsets[0]) if n_cols is None else n_cols
+        out = _native.flatten_ragged(vals, offsets, d)  # checks every row's width
+        if out is not None:
+            return out
+        widths = np.diff(offsets)
         if not np.all(widths == d):
             raise ValueError("ragged list column: rows have differing lengths")
         return vals[start:stop].reshape(len(arr), d)

@@ -2,10 +2,12 @@
 
 The counterpart of ``spark_rapids_ml_tpu/config.py``, cut to the keys the
 port reads (PCA, KMeans, LinearRegression, LogisticRegression,
-NearestNeighbors and ApproximateNearestNeighbors, and the data-plane
-daemon's watermarks). Values are settable programmatically or through
-environment variables prefixed ``SRML_TORCH_`` — a prefix of its own, so
-the port never inherits the JAX package's ``SRML_TPU_*`` settings.
+NearestNeighbors and ApproximateNearestNeighbors, the data-plane
+daemon's watermarks, the Spark fit policies and the native bridge).
+Values are settable programmatically or through environment variables
+prefixed ``SRML_TORCH_`` — a prefix of its own, so the port never inherits
+the JAX package's ``SRML_TPU_*`` settings; the deployment-facing
+``SRML_FIT_DAEMON_JOIN_*`` keep their full names, as there.
 
 There is no ``use_pallas`` switch, and no ``ann_fused_scan``: the device
 of the tensor decides. A CUDA tensor goes through the hand-written kernel,
@@ -67,6 +69,21 @@ _DEFAULTS: Dict[str, Any] = {
     # Served-model registry cap (0 = unbounded): past it, the least
     # recently used registration is evicted.
     "daemon_max_models": int(_env("DAEMON_MAX_MODELS", "0")),
+    # The host library libsrml_tpu.so (bridge/native.py) for the Arrow
+    # gathers; off, or when the library is absent, numpy does them.
+    "use_native_bridge": _env("USE_NATIVE_BRIDGE", "true").lower() not in ("0", "false", "off"),
+    # Spark fit policies (spark/daemon_session.py reads each after its
+    # $SRML_FIT_* env and its spark.srml.fit.* conf). Pass replays after a
+    # daemon incarnation change; 0 = off, a restart mid-fit fails loudly.
+    "fit_recovery_attempts": int(_env("FIT_RECOVERY_ATTEMPTS", "0")),
+    # Peer daemons one fit may declare dead (0 = off). The port's Spark fit
+    # refuses a tolerance above 0: the elastic fit comes with the
+    # multi-daemon plane.
+    "fit_daemon_loss_tolerance": int(_env("FIT_DAEMON_LOSS_TOLERANCE", "0")),
+    # Admission of a daemon that appears mid-fit: "off" or "boundary" (which
+    # the port's Spark fit refuses for now). Deployment-facing env name, as
+    # in the JAX package.
+    "fit_daemon_join_policy": os.environ.get("SRML_FIT_DAEMON_JOIN_POLICY", "off"),
 }
 
 _lock = threading.Lock()

@@ -340,6 +340,10 @@ class PCAModel(Model, _PCAParams, MLWritable, MLReadable):
     # The on-disk class name, shared with the JAX package so that either
     # package loads the other's saved models (core/persistence.py).
     _persist_class = "spark_rapids_ml_tpu.models.pca.PCAModel"
+    # The daemon's serving contract (spark/estimator.py): the wire algo and
+    # role → (param naming the output column, the column's kind).
+    _serve_algo = "pca"
+    _serve_outputs = (("output", "outputCol", "vec"),)
 
     def __init__(
         self,

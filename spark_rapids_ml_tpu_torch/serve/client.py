@@ -37,6 +37,10 @@ from spark_rapids_ml_tpu_torch.utils.retry import decorrelated_jitter
 
 logger = get_logger("serve.client")
 
+#: Ops whose acks vouch for job state: their ``boot_id`` joins
+#: ``seen_boot_ids`` (a ping's does not).
+_STATE_ACK_OPS = frozenset(("feed", "feed_raw", "commit", "finalize"))
+
 
 class DaemonBusy(RuntimeError):
     """The daemon shed the op under load; retry after ``retry_after_s``."""
@@ -83,6 +87,13 @@ class DataPlaneClient:
         self._seq = 0
         #: Healing counters.
         self.stats: Dict[str, int] = {"reconnects": 0, "replays": 0, "busy_waits": 0}
+        #: Every daemon incarnation (``boot_id``) whose state acks this
+        #: client has seen. Two mean the daemon restarted under the client's
+        #: rows: the fence the Spark fit keys on.
+        self.seen_boot_ids: set = set()
+        #: The instance id of the last ack: it outranks a cached ping, since
+        #: a restarted daemon answers with a new identity.
+        self.last_server_id: Optional[str] = None
 
     # -- connection --------------------------------------------------------
 
@@ -157,6 +168,11 @@ class DataPlaneClient:
                 raise DaemonBusy(f"daemon busy: {resp.get('error')}",
                                  float(resp.get("retry_after_s", 1.0)))
             raise RuntimeError(f"daemon error: {resp.get('error')}")
+        boot = resp.get("boot_id")
+        if boot is not None and req.get("op") in _STATE_ACK_OPS:
+            self.seen_boot_ids.add(str(boot))
+        if resp.get("id") is not None:
+            self.last_server_id = str(resp["id"])
         outs = protocol.recv_arrays(sock, resp) if want_arrays else None
         return resp, outs
 
@@ -239,6 +255,13 @@ class DataPlaneClient:
                 f"v{protocol.PROTOCOL_VERSION}"
             )
         return bool(resp["ok"])
+
+    def server_id(self) -> Optional[str]:
+        """The daemon's self-reported instance id (from a ping): how callers
+        tell whether two addresses name one daemon. None from a daemon that
+        reports none."""
+        resp, _ = self._roundtrip({"op": "ping"})
+        return None if resp.get("id") is None else str(resp["id"])
 
     @staticmethod
     def _to_ipc(data, input_col: str) -> bytes:
@@ -337,14 +360,20 @@ class DataPlaneClient:
         resp, _ = self._roundtrip({"op": "drop", "job": job})
         return bool(resp["dropped"])
 
-    def finalize(self, job: str, params: Dict[str, Any], drop: bool = True):
-        """Finalize a job: (result arrays, total rows). The request always
-        carries ``drop: false``; ``drop=True`` then sends the idempotent
-        ``drop`` once the arrays are in hand."""
+    def finalize(self, job: str, params: Dict[str, Any], drop: bool = True,
+                 with_meta: bool = False):
+        """Finalize a job: (result arrays, total rows), or with
+        ``with_meta=True`` (arrays, rows, meta), where meta holds the ack's
+        other fields (``pass_rows``, ``id``, ``boot_id``). The request
+        always carries ``drop: false``; ``drop=True`` then sends the
+        idempotent ``drop`` once the arrays are in hand."""
         req = {"op": "finalize", "job": job, "params": params, "drop": False}
         resp, outs = self._op(req, want_arrays=True)
         if drop:
             self.drop(job)
+        if with_meta:
+            meta = {k: v for k, v in resp.items() if k not in ("ok", "arrays")}
+            return outs, int(resp["rows"]), meta
         return outs, int(resp["rows"])
 
     def finalize_pca(self, job: str, k: int, mean_center: bool = True,

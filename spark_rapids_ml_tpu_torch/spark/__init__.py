@@ -1,0 +1,31 @@
+"""Apache Spark integration of the port: ``SparkPCA`` and its session.
+
+The port of ``spark_rapids_ml_tpu/spark``, cut to its PCA path. The
+reference reaches Spark three ways (SURVEY.md §1), and so does this:
+
+1. the estimator namespace: ``SparkPCA`` wraps the core ``PCA`` to take a
+   PySpark DataFrame with an ArrayType features column; fit feeds the
+   daemon next to the card from the executors, transform is served by it;
+2. the data plane: partitions go to that daemon as Arrow batches
+   (``serve/``);
+3. GPU resource scheduling: ``write_discovery_script`` writes the script
+   for ``spark.worker.resource.gpu.discoveryScript``, and
+   ``gpu_session_conf`` builds the spark-submit conf.
+
+pyspark is optional: everything imports without it, and a DataFrame entry
+point raises a clear error where it is missing.
+"""
+
+from spark_rapids_ml_tpu_torch.spark import daemon_session
+from spark_rapids_ml_tpu_torch.spark.conf import gpu_session_conf
+from spark_rapids_ml_tpu_torch.spark.discovery import discovery_payload, write_discovery_script
+from spark_rapids_ml_tpu_torch.spark.estimator import SparkPCA, register_dataframe_type
+
+__all__ = [
+    "SparkPCA",
+    "daemon_session",
+    "discovery_payload",
+    "gpu_session_conf",
+    "register_dataframe_type",
+    "write_discovery_script",
+]

@@ -1,0 +1,657 @@
+"""The PySpark DataFrame adapter of the port's PCA: ``SparkPCA``.
+
+The port of the PCA part of ``spark_rapids_ml_tpu/spark/estimator.py``.
+The reference's user contract is to change one import and keep the Spark
+ML code (reference PCA.scala:27-37, README.md:27-37, with the features
+column an ArrayType): ``SparkPCA().setInputCol("features").setK(3).fit(df)``.
+
+**fit is distributed.** Each partition task streams its Arrow batches to
+the data-plane daemon next to the card (``serve/``) and commits; the
+daemon folds every batch into its (count, Σx, XᵀX) state with one
+``gram_colsum`` launch; the driver finalizes and receives only the model
+(RapidsRowMatrix.scala:118-139). The dataset never reaches the driver.
+Task retries and speculative duplicates are safe: feeds stage per
+(partition, attempt) and only ``commit`` adds a stage, once. The driver
+holds the daemon to the tasks' acks (a row-count mismatch fails the fit)
+and fences a daemon restart under the scan (an incarnation change); with
+``spark.srml.fit.recovery_attempts`` > 0 the scan is replayed.
+
+**transform** runs ``mapInArrow`` tasks that register the model with the
+daemon once (``ensure_model``) and send each batch's features to its
+``transform`` op, or, with ``SRML_TRANSFORM_LOCAL=1``, score on the
+executor's CPU.
+
+The port folds into ONE daemon. Refused loudly, each until the ROADMAP
+item that brings it: acks that name a second daemon (the cross-daemon
+merge, Queue 1 items 5–6), a daemon loss tolerance above 0 or the
+``boundary`` join policy (items 5–6). The other Spark wrappers come with
+their daemon jobs (items 2–4).
+
+pyspark is optional: importing this module never needs it (nor pyarrow,
+which the tasks import at use); ``fit``/``transform`` of a Spark DataFrame
+do.
+"""
+
+from __future__ import annotations
+
+import os
+import uuid
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+
+from spark_rapids_ml_tpu_torch.models.pca import PCA as _PCA
+from spark_rapids_ml_tpu_torch.models.pca import PCAModel
+from spark_rapids_ml_tpu_torch.spark import daemon_session
+from spark_rapids_ml_tpu_torch.utils.logging import get_logger
+from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
+
+logger = get_logger("spark.estimator")
+
+#: The schema of a feed task's one ack row.
+_ACK_SCHEMA = "partition int, rows long, daemon string, daemon_id string, boots string"
+
+
+def _drop_quietly(client, job: str, stage: str) -> None:
+    """A cleanup drop that cannot mask the fit's outcome; a failure is
+    logged (the daemon holds the job until its TTL)."""
+    try:
+        client.drop(job)
+    except Exception as e:
+        logger.debug("cleanup drop of job %r failed (%s); the daemon holds it until "
+                     "its TTL: %s", job, stage, e)
+
+
+def _pyspark():
+    try:
+        from pyspark.sql import DataFrame
+
+        return DataFrame
+    except ImportError:
+        return None
+
+
+# Extra DataFrame types treated as Spark DataFrames: stand-ins with the
+# same surface (the test harness's SimDataFrame registers here, so the
+# wrappers' real code paths run without pyspark).
+_EXTRA_DF_TYPES: tuple = ()
+
+
+def register_dataframe_type(cls) -> None:
+    global _EXTRA_DF_TYPES
+    _EXTRA_DF_TYPES = tuple(set(_EXTRA_DF_TYPES) | {cls})
+
+
+def _is_spark_df(dataset: Any) -> bool:
+    if _EXTRA_DF_TYPES and isinstance(dataset, _EXTRA_DF_TYPES):
+        return True
+    df_cls = _pyspark()
+    return df_cls is not None and isinstance(dataset, df_cls)
+
+
+def _check_not_orphan_spark_df(dataset: Any) -> None:
+    """A clear error for a Spark-shaped dataset when pyspark is missing."""
+    if _pyspark() is None and (
+        hasattr(dataset, "sparkSession") or type(dataset).__module__.split(".")[0] == "pyspark"
+    ):
+        raise ImportError(
+            "pyspark is not installed; Spark* estimators need it for DataFrame inputs. "
+            "Use the core estimators (spark_rapids_ml_tpu_torch.PCA etc.) with "
+            "arrow/pandas/numpy data."
+        )
+
+
+# Executor-side cache: daemon instance id per (fit job, host, port). Scoped
+# by job, so a daemon restarted between fits is pinged afresh by the next
+# fit, while the tasks of one fit share one ping per worker process.
+_DAEMON_ID_CACHE: Dict[Tuple[str, str, int], str] = {}
+
+
+def _evict_daemon_id_cache(job: str) -> None:
+    """Drop this fit's id-cache entries from this process (at fit exit: a
+    recycled job name must not inherit a stale daemon id)."""
+    for key in [k for k in _DAEMON_ID_CACHE if k[0] == job]:
+        _DAEMON_ID_CACHE.pop(key, None)
+
+
+def _num_rows(batch) -> int:
+    return int(batch.num_rows) if hasattr(batch, "num_rows") else int(batch.shape[0])
+
+
+def _feed_partition(client, batches, send: Callable[[Any], Any], job: str, partition: int,
+                    attempt: int, pass_id: Optional[int], address: Tuple[str, int]) -> dict:
+    """One partition task's body: ``send`` every non-empty batch, then
+    commit, over ``client`` (connected to ``address``). Returns the ack
+    row: ``partition``, ``rows``, ``daemon`` (the address fed), ``daemon_id``
+    (its self-reported instance id) and ``boots`` (every incarnation that
+    acked this task's state, comma-joined: two mean the daemon restarted
+    under the task's rows).
+
+    ``send(batch)`` sends one batch as ``partition``/``attempt``: an Arrow
+    ``feed`` in :class:`_FeedTask`, a raw ``feed_raw`` of a numpy batch
+    where no Arrow library is at hand. Batches are Arrow record batches or
+    (n, d) arrays."""
+    h, p = address
+    daemon_id = _DAEMON_ID_CACHE.get((job, h, p))
+    if daemon_id is None:
+        # The daemon's own identity: the driver keys on it, never on the
+        # address spelling (an alias of the primary must not look like a peer).
+        daemon_id = client.server_id() or f"{h}:{p}"
+        if len(_DAEMON_ID_CACHE) > 256:  # bound worker-reuse growth
+            _DAEMON_ID_CACHE.clear()
+        _DAEMON_ID_CACHE[(job, h, p)] = daemon_id
+    rows = 0
+    for batch in batches:
+        n = _num_rows(batch)
+        if n == 0:
+            continue
+        send(batch)
+        rows += n
+    if rows > 0:
+        client.commit(job, partition=partition, attempt=attempt, pass_id=pass_id)
+    if client.last_server_id and client.last_server_id != daemon_id:
+        # The daemon answered with another identity than the cached ping:
+        # it restarted under this worker. The ack names who holds the rows.
+        daemon_id = client.last_server_id
+        _DAEMON_ID_CACHE[(job, h, p)] = daemon_id
+    return {
+        "partition": partition,
+        "rows": rows,
+        "daemon": f"{h}:{p}",
+        "daemon_id": daemon_id,
+        "boots": ",".join(sorted(client.seen_boot_ids)),
+    }
+
+
+class _FeedTask:
+    """The executor-side partition feeder: a plain picklable callable for
+    ``mapInArrow`` (its imports happen on the executor). One task is one
+    partition on one connection: an Arrow ``feed`` per non-empty batch,
+    keyed (partition, attempt, pass_id), then ``commit``; it yields one
+    ack row. (The reference's task also stamps the driver's journal
+    ``trace_ctx`` on every op; that waits for ``utils/journal``, ROADMAP
+    Queue 1 item 7.)"""
+
+    def __init__(self, host, port, token, job, algo, input_col, pass_id):
+        self.host, self.port, self.token = host, port, token
+        self.job, self.algo = job, algo
+        self.input_col, self.pass_id = input_col, pass_id
+
+    def __call__(self, batches):
+        import pyarrow as pa
+
+        from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+
+        ds = daemon_session
+        pid, attempt = ds.task_context()
+        h, p = ds.executor_daemon_address(self.host, self.port)
+        # client_kwargs(): the executor env's resilience tuning, so a daemon
+        # hiccup is healed by the client before it costs a Spark task retry.
+        with DataPlaneClient(h, p, token=self.token, **ds.client_kwargs()) as c:
+
+            def send(batch):
+                c.feed(self.job, batch, algo=self.algo, input_col=self.input_col,
+                       partition=pid, attempt=attempt, pass_id=self.pass_id)
+
+            ack = _feed_partition(c, batches, send, self.job, pid, attempt, self.pass_id,
+                                  (h, p))
+        yield pa.RecordBatch.from_pydict({
+            "partition": pa.array([ack["partition"]], pa.int32()),
+            "rows": pa.array([ack["rows"]], pa.int64()),
+            "daemon": pa.array([ack["daemon"]], pa.string()),
+            "daemon_id": pa.array([ack["daemon_id"]], pa.string()),
+            "boots": pa.array([ack["boots"]], pa.string()),
+        })
+
+
+def _ack_rows(acks):
+    """(total rows, rows by daemon id, id → address, partition → winning
+    daemon id, daemon id → incarnations seen) of one feed pass's acks.
+    Daemons are keyed by their self-reported instance id."""
+    per: dict = {}
+    addr_of: dict = {}
+    owner: dict = {}
+    boots: dict = {}
+    for r in acks:
+        did = r["daemon_id"]
+        per[did] = per.get(did, 0) + int(r["rows"])
+        addr_of.setdefault(did, r["daemon"])
+        if int(r["rows"]) > 0:
+            owner[int(r["partition"])] = did
+        bs = boots.setdefault(did, set())
+        for b in str(r["boots"] or "").split(","):
+            if b:
+                bs.add(b)
+    return sum(per.values()), per, addr_of, owner, boots
+
+
+def _incarnation_change(addr: str, boots) -> RuntimeError:
+    """The fence: a pass whose acks span two incarnations of one daemon fed
+    some rows to a state that died with the old one."""
+    return RuntimeError(
+        f"daemon {addr} restarted mid-pass (incarnations {sorted(boots)}): rows acked to "
+        "the dead incarnation are gone from the accumulator while the tasks still count "
+        "them. Enable fit recovery (SRML_FIT_RECOVERY_ATTEMPTS / "
+        "spark.srml.fit.recovery_attempts) to replay the pass, or refit."
+    )
+
+
+def _split_brain(context: str, expected: int, got: int, detail: str) -> RuntimeError:
+    """Committed rows and task-acked rows must reconcile; a mismatch means
+    the model would silently miss (or double-count) data."""
+    if got > expected:
+        hint = (
+            "the daemon holds MORE rows than this fit's winning task acks: a task "
+            "likely committed here, lost its ack, and was re-run against a different "
+            "daemon, or rows were fed outside this fit. Keep executor→daemon routing "
+            "sticky across retries."
+        )
+    else:
+        hint = (
+            "the daemon holds FEWER rows than tasks acked: its job was TTL-evicted or "
+            "recreated mid-fit. Raise the daemon ttl relative to fit duration."
+        )
+    return RuntimeError(
+        f"daemon row-count mismatch at {context}: tasks acked {expected} rows ({detail}) "
+        f"but the daemon plane accounts {got}; {hint} Refit after fixing the cause."
+    )
+
+
+def _second_daemon(addr: str, did: str, primary_addr: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"task acks name a second daemon ({addr}, id {did}) beside the primary "
+        f"{primary_addr}: the port's Spark fit folds into one daemon, and the "
+        "cross-daemon merge (merge_state, the mesh ops) comes with the multi-daemon "
+        "plane (ROADMAP Queue 1 items 5-6). Route every executor to one daemon."
+    )
+
+
+def _refuse_multi_daemon_policies(spark) -> None:
+    """The elastic fit and mid-fit joins need the multi-daemon plane:
+    refused before any row is fed."""
+    if daemon_session.daemon_loss_tolerance(spark) > 0:
+        raise NotImplementedError(
+            "fit_daemon_loss_tolerance > 0 (the elastic fit) is not in the port yet: it "
+            "comes with the multi-daemon plane (ROADMAP Queue 1 items 5-6)"
+        )
+    if daemon_session.daemon_join_policy(spark) == "boundary":
+        raise NotImplementedError(
+            "fit_daemon_join_policy 'boundary' (mid-fit daemon joins) is not in the port "
+            "yet: it comes with the multi-daemon plane (ROADMAP Queue 1 items 5-6)"
+        )
+
+
+class _SingleDaemonFit:
+    """The driver's side of a single-daemon fit: its client, the row
+    accounting of the acks, the guarded finalize and the scan replay.
+
+    The port of ``_fit_distributed_inner``'s single-daemon body, as methods
+    rather than closures, so a driver other than ``SparkPCA.fit`` (the
+    card smoke, whose tasks send raw frames) runs the same checks."""
+
+    def __init__(self, host: str, port: int, job: str, token: Optional[str] = None,
+                 **client_kw):
+        from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+
+        self._token, self._client_kw = token, client_kw
+        self.client = DataPlaneClient(host, port, token=token, **client_kw)
+        self.job = job
+        self.address = f"{host}:{port}"
+        self.primary_id = self.client.server_id() or self.address
+        self.addr_by_id = {self.primary_id: self.address}
+        self.total_fed = 0
+        self.fed_by_daemon: Dict[str, int] = {}
+
+    def account(self, acks) -> int:
+        """Take one feed pass's acks into the row accounting; returns the
+        pass's rows. Raises at a second daemon or a restart under the scan."""
+        n, per, addr_of, _, boots = _ack_rows(acks)
+        for did, cnt in per.items():
+            self.fed_by_daemon[did] = self.fed_by_daemon.get(did, 0) + cnt
+            self.addr_by_id.setdefault(did, addr_of[did])
+            if cnt == 0 or did == self.primary_id:
+                continue  # an all-empty partition created no job anywhere
+            # An unknown id AT the primary's address, or the one the live
+            # primary now answers with, is the primary restarted: fence it.
+            if addr_of[did] == self.address or did == (
+                self.client.server_id() or self.primary_id
+            ):
+                raise _incarnation_change(addr_of[did], {self.primary_id, did})
+            try:
+                from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+
+                h2, p2 = daemon_session._parse_addr(addr_of[did])
+                with DataPlaneClient(h2, p2, token=self._token, **self._client_kw) as peer:
+                    _drop_quietly(peer, self.job, "second daemon")
+            except (OSError, ValueError) as e:
+                logger.debug("cleanup on second daemon %s failed: %s", addr_of[did], e)
+            raise _second_daemon(addr_of[did], did, self.address)
+        for did, bs in boots.items():
+            if len(bs) > 1:
+                raise _incarnation_change(addr_of.get(did, did), bs)
+        self.total_fed += n
+        return n
+
+    def _fed_detail(self) -> str:
+        return ", ".join(f"{self.addr_by_id.get(d, d)}={c}"
+                         for d, c in sorted(self.fed_by_daemon.items())) or "no acks"
+
+    def finalize_guarded(self, params: dict, pass_rows_expected: Optional[int] = None):
+        """Finalize with the split-brain row guard: the daemon's total must
+        equal what the tasks acked (and ``pass_rows_expected`` the pass's
+        rows). Finalize with drop=False, check, THEN drop, so a failed
+        guard leaves the job for a replay. Returns (arrays, rows)."""
+        with trace_span("finalize"):
+            arrays, fin_rows, meta = self.client.finalize(self.job, params, drop=False,
+                                                          with_meta=True)
+        if fin_rows != self.total_fed:
+            raise _split_brain("finalize", self.total_fed, fin_rows, self._fed_detail())
+        if (
+            pass_rows_expected is not None
+            and meta.get("pass_rows") is not None
+            and int(meta["pass_rows"]) != int(pass_rows_expected)
+        ):
+            raise _split_brain("finalize (current pass)", int(pass_rows_expected),
+                               int(meta["pass_rows"]), self._fed_detail())
+        _drop_quietly(self.client, self.job, "finalize")
+        return arrays, fin_rows
+
+    def recover(self, err: Exception) -> None:
+        """Rewind to the start of the scan: a single-pass fit has no ledger,
+        so drop the job and let the replay feed it anew. The restarted
+        primary's new identity becomes the primary's."""
+        logger.warning("fit recovery: replaying the scan after: %s", err)
+        with trace_span("recovery"):
+            new_id = self.client.server_id() or self.primary_id
+            if new_id != self.primary_id:
+                self.addr_by_id[new_id] = self.address
+                self.primary_id = new_id
+            _drop_quietly(self.client, self.job, "recovery")
+            self.total_fed = 0
+            self.fed_by_daemon.clear()
+
+    def with_recovery(self, body: Callable[[], Any], attempts: int):
+        """Run ``body`` (scan + finalize) under the bounded replay loop.
+        Deterministic driver-side errors (validation, config, refusals) are
+        never replayed; daemon and task failures are, ``attempts`` times."""
+        attempt = 0
+        while True:
+            try:
+                return body()
+            except (ValueError, TypeError, KeyError, AttributeError, AssertionError,
+                    NotImplementedError):
+                raise
+            except Exception as e:
+                if attempt >= attempts:
+                    raise
+                attempt += 1
+                self.recover(e)
+
+    def close(self) -> None:
+        # A no-op when finalize already dropped the job.
+        _drop_quietly(self.client, self.job, "primary")
+        self.client.close()
+
+
+def _run_pass(fit: _SingleDaemonFit, sel, task: _FeedTask) -> int:
+    """One executor scan through ``mapInArrow``; returns its rows."""
+    with trace_span("feed pass"):
+        acks = sel.mapInArrow(task, _ACK_SCHEMA).collect()
+    return fit.account(acks)
+
+
+def _pca_model(arrays: dict, device=None) -> PCAModel:
+    """The fitted ``PCAModel`` of a PCA finalize's arrays."""
+    return PCAModel(pc=arrays["pc"], explained_variance=arrays["explained_variance"],
+                    mean=arrays["mean"], device=device)
+
+
+class _SparkAdapter:
+    """Wraps a core estimator class with Spark DataFrame in/out. Other
+    datasets pass straight to the core estimator, so the wrapper is a
+    superset of the core API."""
+
+    _core_cls = None  # override
+    _daemon_algo: Optional[str] = None
+
+    def __init__(self, **kwargs):
+        self._core = type(self)._core_cls(**kwargs)
+
+    def __getattr__(self, name):
+        # Fluent setters return the wrapper; everything else passes through.
+        attr = getattr(self._core, name)
+        if callable(attr) and name.startswith("set"):
+            def fluent(*a, **kw):
+                attr(*a, **kw)
+                return self
+
+            return fluent
+        return attr
+
+    def fit(self, dataset):
+        if _is_spark_df(dataset):
+            core_model = self._fit_distributed(dataset)
+        else:
+            _check_not_orphan_spark_df(dataset)
+            core_model = self._core.fit(dataset)
+        return _SparkModelAdapter(core_model)
+
+    def _fit_distributed(self, df):
+        """Executor-fed fit: partition batches flow task → daemon, and the
+        driver sees only the finalize's O(d·k) arrays."""
+        core = self._core
+        spark = getattr(df, "sparkSession", None)
+        _refuse_multi_daemon_policies(spark)
+        # Without a configured daemon this starts the driver's own on the
+        # estimator's device (the card unless device="cpu"; raises without one).
+        host, port, token = daemon_session.resolve(spark, device=core._device)
+        ckw = daemon_session.client_kwargs(spark)
+        attempts = daemon_session.recovery_attempts(spark)
+        job = f"{core.uid}-{uuid.uuid4().hex[:8]}"
+        input_col = core.getInputCol()
+        sel = df.select(input_col)
+        fit = _SingleDaemonFit(host, port, job, token=token, **ckw)
+        task = _FeedTask(host, port, token, job, self._daemon_algo, input_col, None)
+        params = {"k": core.getK(), "mean_center": core.getMeanCentering(),
+                  "solver": core.getSolver()}
+
+        def pca_shot():
+            n = _run_pass(fit, sel, task)
+            if n == 0:
+                raise ValueError("cannot fit on an empty DataFrame")
+            return fit.finalize_guarded(params, pass_rows_expected=n)
+
+        try:
+            arrays, _ = fit.with_recovery(pca_shot, attempts)
+        finally:
+            _evict_daemon_id_cache(job)
+            fit.close()
+        model = _pca_model(arrays, device=core._device)
+        model.uid = core.uid
+        core._copy_params_to(model)
+        return model
+
+
+def _serve_spec(core_model):
+    """(wire algo, [(role, output column)]) of a model that declares the
+    daemon serving contract (``_serve_algo``/``_serve_outputs``). The
+    port serves only ``vec`` outputs (PCA's); another kind has no spec."""
+    algo = getattr(core_model, "_serve_algo", None)
+    outs = getattr(core_model, "_serve_outputs", None)
+    if not algo or not outs or any(kind != "vec" for _, _, kind in outs):
+        return None
+    return algo, [(role, core_model.getOrDefault(param)) for role, param, _ in outs]
+
+
+def _model_fingerprint(core_model) -> str:
+    """Content hash of the fitted arrays: the registry key. Identical fits
+    share a served copy; a refit gets a fresh one."""
+    import hashlib
+
+    h = hashlib.md5()
+    for k, v in sorted(core_model._model_data().items()):
+        h.update(k.encode())
+        if v is not None:
+            h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()[:12]
+
+
+def _output_column(vals, n_rows):
+    """One ``vec`` output column as list<float64>, whatever dtype the
+    transform computed in."""
+    import pyarrow as pa
+
+    if n_rows == 0:
+        return pa.array([], pa.list_(pa.float64()))
+    if vals is None:
+        raise RuntimeError(
+            "daemon transform returned no array for a declared output role (client/daemon "
+            "version skew?); upgrade the daemon or set SRML_TRANSFORM_LOCAL=1 to score "
+            "executor-side"
+        )
+    from spark_rapids_ml_tpu_torch.bridge.arrow import matrix_to_list_column
+
+    vals = np.asarray(vals, dtype=np.float64)
+    return matrix_to_list_column(vals).cast(pa.list_(pa.float64()))
+
+
+def _derive_output_schema(dataset, outputs):
+    """Input schema + the declared output fields, without a Spark job.
+    Stand-ins without a StructType schema get None (they ignore it)."""
+    try:
+        from pyspark.sql import types as T
+
+        base = dataset.schema
+    except (ImportError, AttributeError):
+        return None
+    out_names = {name for _, name in outputs}
+    fields = [f for f in base.fields if f.name not in out_names]
+    for _, name in outputs:
+        fields.append(T.StructField(name, T.ArrayType(T.DoubleType()), True))
+    return T.StructType(fields)
+
+
+def _append_outputs(table, role_arrays, outputs):
+    """Append (or replace) the model's output columns on one batch table."""
+    for role, colname in outputs:
+        if colname in table.column_names:
+            table = table.drop_columns([colname])
+        table = table.append_column(colname, _output_column(role_arrays.get(role), table.num_rows))
+    return table
+
+
+class _TransformTask:
+    """Executor-side CPU transform: the explicit path when no daemon should
+    serve (``SRML_TRANSFORM_LOCAL=1``). The closure carries the model's
+    class, uid and fitted arrays, never the model itself (whose projector
+    cache may hold device tensors); the task rebuilds it with
+    ``device="cpu"``."""
+
+    def __init__(self, core_model, input_col, outputs):
+        self._cls = type(core_model)
+        self._uid = core_model.uid
+        self._arrays = core_model._model_data()
+        self._input_col = input_col
+        self._outputs = outputs
+
+    def __call__(self, batches):
+        import pyarrow as pa
+
+        from spark_rapids_ml_tpu_torch.core.dataset import as_matrix
+
+        model = self._cls._from_model_data(self._uid, self._arrays)
+        model._device = "cpu"
+        for batch in batches:
+            table = pa.Table.from_batches([batch])
+            if table.num_rows == 0:
+                yield from _append_outputs(table, {}, self._outputs).to_batches()
+                continue
+            outs = model.transform_matrix(as_matrix(table, self._input_col))
+            yield from _append_outputs(table, outs, self._outputs).to_batches()
+
+
+class _DaemonTransformTask:
+    """Executor-side feeder of the served transform: each batch's features
+    go to the daemon's ``transform`` op and the outputs come back
+    (RapidsPCA.scala:128-161 → rapidsml_jni.cu:75-107), the model
+    registered once (``ensure_model``) and resident on the card across
+    batches. Only the features column crosses the wire. The closure
+    carries the model's ``_model_data()`` arrays, never the model."""
+
+    def __init__(self, core_model, host, port, token, input_col, algo, outputs):
+        self.host, self.port, self.token = host, port, token
+        self._arrays = core_model._model_data()
+        self._input_col = input_col
+        self._algo = algo
+        self._outputs = outputs
+        self._name = f"{core_model.uid}-{_model_fingerprint(core_model)}"
+
+    def __call__(self, batches):
+        import pyarrow as pa
+
+        from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+
+        ds = daemon_session
+        h, p = ds.executor_daemon_address(self.host, self.port)
+        with DataPlaneClient(h, p, token=self.token, **ds.client_kwargs()) as c:
+            registered = c.model_exists(self._name)
+            for batch in batches:
+                table = pa.Table.from_batches([batch])
+                if table.num_rows == 0:
+                    yield from _append_outputs(table, {}, self._outputs).to_batches()
+                    continue
+                if not registered:
+                    c.ensure_model(self._name, self._algo, self._arrays)
+                    registered = True
+                features = table.select([self._input_col])
+                try:
+                    outs = c.transform(self._name, features, input_col=self._input_col)
+                except RuntimeError as e:
+                    if "no such model" not in str(e):
+                        raise
+                    # Registrations are TTL-evictable: register again, retry.
+                    c.ensure_model(self._name, self._algo, self._arrays)
+                    outs = c.transform(self._name, features, input_col=self._input_col)
+                yield from _append_outputs(table, outs, self._outputs).to_batches()
+
+
+class _SparkModelAdapter:
+    """Wraps a fitted core model with Spark DataFrame transform."""
+
+    def __init__(self, core_model):
+        self._core = core_model
+
+    def __getattr__(self, name):
+        return getattr(self._core, name)
+
+    def transform(self, dataset):
+        if not _is_spark_df(dataset):
+            _check_not_orphan_spark_df(dataset)
+            return self._core.transform(dataset)
+        core = self._core
+        spec = _serve_spec(core)
+        if not hasattr(dataset, "mapInArrow") or spec is None:
+            # No collect-based path: every Spark code path keeps the
+            # dataset off the driver (RapidsRowMatrix.scala:118-139).
+            raise NotImplementedError(
+                "distributed transform needs DataFrame.mapInArrow (pyspark >= 3.3) and a "
+                "model with a serving contract; for in-memory data use the core "
+                "estimators (spark_rapids_ml_tpu_torch.*) directly"
+            )
+        algo, outputs = spec
+        input_col = core.getInputCol()
+        if os.environ.get("SRML_TRANSFORM_LOCAL", "").lower() in ("1", "true"):
+            fn = _TransformTask(core, input_col, outputs)
+        else:
+            spark = getattr(dataset, "sparkSession", None)
+            host, port, token = daemon_session.resolve(spark, device=core._device)
+            fn = _DaemonTransformTask(core, host, port, token, input_col, algo, outputs)
+        return dataset.mapInArrow(fn, _derive_output_schema(dataset, outputs))
+
+
+class SparkPCA(_SparkAdapter):
+    """PCA over PySpark DataFrames (ArrayType features column).
+    ``SparkPCA(device='cpu')`` fits on the CPU (the driver's own daemon too)."""
+
+    _core_cls = _PCA
+    _daemon_algo = "pca"
