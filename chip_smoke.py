@@ -40,7 +40,7 @@ Phases, each of which exits non-zero on a failed check:
    (1e-5) and its plain version (2⁻⁸ of Σ|terms| for the Hessian, 1e-5
    for the rest). d = 300 and 13, and float32, must take the FFMA route.
    ``python3 chip_smoke.py --phase2`` stops after this phase;
-   ``--data-plane`` runs phases 19 and 20 alone after the build.
+   ``--data-plane`` runs phases 19 to 21 alone after the build.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -161,11 +161,35 @@ Phases, each of which exits non-zero on a failed check:
     span split and the device busy share. (Arrow ``feed`` and
     ``mapInArrow`` need pyarrow, which this machine lacks; they run in the
     CPU tests.)
+21. The iterative daemon jobs through the Spark feed protocol: the port's
+    daemon in this process on the card, 8 task processes spawned once and
+    reused by every pass, each building its bf16-exact (x, y) float32
+    frames from its seed and running ``_feed_partition`` with a
+    ``feed_raw`` sender; partition 3's attempt 0 dies after one feed in
+    each fit's first scan. This process runs the estimators' own driver
+    functions (``spark/estimator._drive_linreg``, ``_drive_logreg``,
+    ``_drive_kmeans``) over those passes. LinearRegression d = 1024 on
+    1,048,576 rows (8 x 2 frames of 65,536): ``linreg_stats`` launches once
+    per folded feed (17), all on the tensor-core route. Multinomial
+    LogisticRegression C = 32, d = 1024, 131,072 rows (8 x 16,384), five
+    MM passes at tol 0: ``softmax_curvature`` launches once per folded feed
+    (41), all wgmma. Binomial LogisticRegression d = 1024 on 524,288 rows,
+    five Newton passes, and KMeans d = 256, k = 100 on 1,048,576 blob rows
+    (seeded by ``seed`` from a 3,200-row prefix, maxIter 20, tol 1e-4, then
+    the cost scan): no kernel, as in the reference's daemon. Acked,
+    ``status`` and finalize rows must agree; each model is held to the
+    port's in-process stream fit of the same frames (linreg, both logregs)
+    or to a float64 Lloyd from the same seeded centres (kmeans, with every
+    assignment and count equal to float64's), with the tolerance beside
+    each check; each served predict through ``ensure_model`` is bitwise
+    equal to ``transform_matrix``. It prints rows/s and ms per pass of each
+    fit, the daemon's span split and the device busy share.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
 path and carries the float32 route's numbers under ``f32_*``, the
 ``gram_colsum`` row phase 19's launches under ``daemon_launches``, the
+``linreg_stats`` and ``softmax_curvature`` rows phase 21's there, the
 ``dist_topk`` row the FFMA tiles' time under ``ffma_ms`` and the
 ``probe_select`` row the sort route's under ``sort_ms``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -2567,6 +2591,458 @@ def phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate):
     return launches
 
 
+#: Phase 21: run → (wire algo, width, rows a frame, frames a partition per
+#: pass, classes or k). The task processes get it as an argument.
+P21_RUNS = {
+    "linreg": ("linreg", LR_D, DP_ROWS, 2, 0),
+    "logreg-multinomial": ("logreg", LG_D, 16384, 1, MN_CLASSES),
+    "logreg-binomial": ("logreg", LG_D, DP_ROWS, 1, 2),
+    "kmeans": ("kmeans", KM_D, DP_ROWS, 2, KM_K),
+}
+P21_SEED = 21
+P21_PASSES = MN_PASSES  # both logreg runs: five passes at tol 0, as phase 12
+KM21_NOISE = KM_SCALE / 100  # blob noise: squared separations 1e4 times the spread
+
+
+def p21_frame(np, runs, run, p, f):
+    """Partition ``p``'s frame ``f`` of phase 21's ``run`` (shaped by
+    ``runs[run]``), from the seed
+    (P21_SEED, run, p, f): bf16-exact float32 rows (the low 16 bits of
+    every word cleared, so the daemon's bf16 cast loses nothing) and their
+    labels (None for kmeans). The model the labels come from is shared by
+    every partition, from the seed (P21_SEED, run): linear targets with
+    noise 0.1; Bernoulli labels of sigmoid(x·w + 0.3); multinomial labels
+    drawn from softmax(xW + b) over the classes; kmeans rows are k blobs of
+    centres KM_SCALE·N(0, 1) with noise KM21_NOISE."""
+    _, d, rows, _, k = runs[run]
+    r = list(runs).index(run)
+    g = np.random.default_rng([P21_SEED, r, p, f])
+    shared = np.random.default_rng([P21_SEED, r])
+    if run == "kmeans":
+        centres = (KM_SCALE * shared.standard_normal((k, d))).astype(np.float32)
+        x = centres[g.integers(0, k, rows)]
+        x += np.float32(KM21_NOISE) * g.standard_normal((rows, d), dtype=np.float32)
+    else:
+        x = g.standard_normal((rows, d), dtype=np.float32)
+    x.view(np.uint32)[...] &= np.uint32(0xFFFF0000)
+    if run == "kmeans":
+        return x, None
+    if run == "logreg-multinomial":
+        z = x @ (shared.standard_normal((d, k)) / d ** 0.5)
+        z += 0.5 * shared.standard_normal(k)
+        z = np.exp(z - z.max(axis=1, keepdims=True))
+        cdf = np.cumsum(z / z.sum(axis=1, keepdims=True), axis=1)
+        y = np.minimum((cdf < g.random(rows)[:, None]).sum(axis=1), k - 1)
+        return x, y.astype(np.float32)
+    z = x @ (shared.standard_normal(d) / d ** 0.5)
+    if run == "linreg":
+        return x, (z + 0.5 + 0.1 * g.standard_normal(rows)).astype(np.float32)
+    return x, (g.random(rows) < 1.0 / (1.0 + np.exp(-(z + 0.3)))).astype(np.float32)
+
+
+def _p21_task(address, p, runs, cmd_q, out_q):
+    """Phase 21's partition task ``p``: one spawned process serving every
+    pass of every run. ("prepare", run) builds the partition's frames from
+    its seed; (run, job, params, pass_id, dies) runs the Spark feed task's
+    body (``estimator._feed_partition``) with a ``feed_raw`` sender of
+    (x, y) frames. With ``dies``, attempt 0 dies after one feed and
+    attempt 1 wins; only the winner's ack goes back, as Spark returns only
+    a successful task's rows."""
+    try:
+        import numpy as np
+
+        from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+        from spark_rapids_ml_tpu_torch.spark.estimator import _feed_partition
+    except Exception as e:  # noqa: BLE001 - reported to the parent
+        out_q.put(("err", p, repr(e)))
+        return
+    out_q.put(("ready", p, None))
+    frames = {}
+    while True:
+        cmd = cmd_q.get()
+        if cmd is None:
+            return
+        try:
+            if cmd[0] == "prepare":
+                frames = {cmd[1]: [p21_frame(np, runs, cmd[1], p, f)
+                                   for f in range(runs[cmd[1]][3])]}
+                out_q.put(("ready", p, None))
+                continue
+            run, job, params, pass_id, dies = cmd
+            algo, d = runs[run][:2]
+            for attempt, dies_after in ([(0, 1), (1, None)] if dies else [(0, None)]):
+                with DataPlaneClient(*address, timeout=900.0) as c:
+                    def send(b, c=c, attempt=attempt):
+                        c.feed_raw(job, b[0], b[1], algo=algo, n_cols=d, params=params,
+                                   partition=p, attempt=attempt, pass_id=pass_id)
+
+                    batches = frames[run]
+                    it = batches if dies_after is None else _dying(batches, dies_after)
+                    try:
+                        ack = _feed_partition(c, it, send, job, p, attempt, pass_id, address)
+                    except RuntimeError as e:
+                        if "injected" not in str(e):
+                            raise
+            out_q.put(("ok", p, ack))
+        except Exception as e:  # noqa: BLE001 - reported to the parent
+            out_q.put(("err", p, repr(e)))
+
+
+class _P21Pool:
+    """The 8 task processes of phase 21, spawned once (never fork a process
+    that holds a CUDA context) and reused by every pass of every run, so
+    their spawn and imports stay out of the timed passes."""
+
+    def __init__(self, address):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.out = ctx.Queue()
+        self.cmds = [ctx.Queue() for _ in range(DP_PARTITIONS)]
+        self.procs = [ctx.Process(target=_p21_task,
+                                  args=(address, p, P21_RUNS, self.cmds[p], self.out),
+                                  daemon=True) for p in range(DP_PARTITIONS)]
+        for proc in self.procs:
+            proc.start()
+        self._collect("ready", 300)
+
+    def _collect(self, want, timeout):
+        msgs = [self.out.get(timeout=timeout) for _ in self.procs]
+        bad = [m for m in msgs if m[0] != want]
+        if bad:
+            fail(f"phase 21 tasks failed: {bad}")
+        return [m[2] for m in sorted(msgs, key=lambda m: m[1])]
+
+    def prepare(self, run):
+        for q in self.cmds:
+            q.put(("prepare", run))
+        self._collect("ready", 300)
+
+    def scan(self, run, job, params, pass_id, dies):
+        """One pass: every partition task feeds and commits; their acks.
+        With ``dies``, partition SPARK_DYING's first attempt dies."""
+        for p, q in enumerate(self.cmds):
+            q.put((run, job, params, pass_id, dies and p == SPARK_DYING))
+        return self._collect("ok", 600)
+
+    def close(self):
+        for q in self.cmds:
+            q.put(None)
+        for proc in self.procs:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=10)
+
+
+def p21_fit(torch, kernels, est, profiling, pool, address, run, drive):
+    """One phase-21 fit: the estimator's driver function ``drive(fit,
+    run_pass)`` over the pool's passes, with the counters reset just before
+    it and read just after, traced for its device time. Returns (model, a
+    record of the run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pool.prepare(run)
+    job = f"phase21-{run}"
+    fit = est._SingleDaemonFit(*address, job)
+    rec = {"scans": 0}
+    real = fit.finalize_guarded
+
+    def guarded(params, pass_rows_expected=None):
+        rec["status"] = fit.client.status(job)["rows"]
+        arrays, rows = real(params, pass_rows_expected)
+        rec["finalize"] = rows
+        return arrays, rows
+
+    fit.finalize_guarded = guarded
+
+    def run_pass(pass_id):
+        rec["scans"] += 1
+        return pool.scan(run, job, fit.params, pass_id, dies=rec["scans"] == 1)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    profiling.reset_span_totals()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model = drive(fit, run_pass)
+        rec["s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    fit.close()
+    rec["launches"], rec["routes"] = dict(kernels.LAUNCHES), dict(kernels.ROUTES)
+    rec["acked"] = fit.total_fed
+    rec["spans"] = profiling.span_totals()
+    rec["busy_ms"], by_name, _ = device_time(torch, prof)
+    del prof
+    _, d, rows, frames, _ = P21_RUNS[run]
+    n = DP_PARTITIONS * frames * rows
+    rec["rows"] = n
+    check(rec["acked"] == rec["status"] == rec["finalize"] == n * rec["scans"],
+          f"phase 21 {run}: acked {rec['acked']}, status {rec['status']}, finalize "
+          f"{rec['finalize']} rows == {rec['scans']} scans x {n} (the dying attempt's rows "
+          f"counted nowhere)")
+    frame_gib = rec["scans"] * n * (d + 1) * 4 / 2 ** 30
+    names = ("daemon frame receive", "daemon frame decode", "daemon host to device",
+             "daemon fold", "daemon commit", "daemon seed", "daemon step", "feed pass", "seed",
+             "step", "finalize")
+    spans = rec["spans"]
+    print(f"phase 21 {run}: {n} rows x {d}, {rec['scans']} scans in {rec['s']:.3f} s: "
+          f"{n * rec['scans'] / rec['s']:.1f} rows/s through the daemon "
+          f"({n / rec['s']:.1f} rows/s of the dataset), {1e3 * rec['s'] / rec['scans']:.1f} ms "
+          f"per pass (scan and step), {frame_gib / rec['s']:.2f} GiB/s of frames (host clock)",
+          flush=True)
+    print(f"phase 21 {run} spans (host-clock seconds summed over threads, count): "
+          + ", ".join(f"{nm} {spans.get(nm, (0.0, 0))[0]:.3f} ({spans.get(nm, (0.0, 0))[1]})"
+                      for nm in names if nm in spans), flush=True)
+    top = ", ".join(f"{nm[:40]} {ms:.3f} ({c})"
+                    for nm, (ms, c) in sorted(by_name.items(), key=lambda r: -r[1][0])[:4])
+    print(f"phase 21 {run} device time (torch.profiler, CUDA activity): busy "
+          f"{rec['busy_ms']:.3f} ms of {rec['s'] * 1e3:.3f} ms "
+          f"({100 * rec['busy_ms'] / (rec['s'] * 1e3):.2f} %); largest (ms, count): {top}",
+          flush=True)
+    return model, rec
+
+
+def p21_served(daemon, model, algo, xq, run) -> None:
+    """Register the fitted model over the wire and hold the registry's
+    transform bitwise to ``transform_matrix`` on the same host rows."""
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient
+
+    name = f"phase21-{run}"
+    with DataPlaneClient(*daemon.address) as c:
+        created = c.ensure_model(name, algo, model._model_data())
+    got = daemon._lookup_model(name).transform(xq)
+    want = model.transform_matrix(xq)
+    same = sorted(got) == sorted(want) and all(
+        got[r].dtype == want[r].dtype and np.array_equal(got[r], want[r]) for r in want)
+    check(created and same, f"phase 21 {run}: served predict of {xq.shape[0]} x {xq.shape[1]} "
+                            f"through ensure_model bitwise equal to transform_matrix "
+                            f"({', '.join(sorted(want))})")
+
+
+def p21_device_frames(torch, np, run):
+    """Every frame of ``run`` rebuilt from the tasks' seeds, on the card,
+    partition-major: [(x, y or None)]."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    frames = P21_RUNS[run][3]
+    keys = [(p, f) for p in range(DP_PARTITIONS) for f in range(frames)]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        host = list(pool.map(lambda pf: p21_frame(np, P21_RUNS, run, pf[0], pf[1]), keys))
+    return [(torch.from_numpy(x).to(DEV), None if y is None else torch.from_numpy(y).to(DEV))
+            for x, y in host]
+
+
+def phase_iterative_jobs(torch, kernels, config):
+    """Phase 21: the Spark feed protocol of LinearRegression,
+    LogisticRegression (multinomial and binomial) and KMeans through the
+    port's daemon on the card. Returns {kernel: launches} of the path."""
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch import KMeans, LinearRegression, LogisticRegression
+    from spark_rapids_ml_tpu_torch.models import kmeans as km
+    from spark_rapids_ml_tpu_torch.models import linear_regression as lr
+    from spark_rapids_ml_tpu_torch.models import logistic_regression as lg
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.spark import estimator as est
+    from spark_rapids_ml_tpu_torch.utils import profiling
+
+    print(f"phase 21: the iterative daemon jobs, {DP_PARTITIONS} task processes (spawn, reused "
+          f"across passes) x feed_raw frames of (x, y) float32 (bf16-exact rows from each "
+          f"task's seed); partition {SPARK_DYING}'s attempt 0 dies after one feed in each "
+          f"fit's first scan", flush=True)
+    out = {}
+    with DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as daemon:
+        t_spawn = time.perf_counter()
+        pool = _P21Pool(daemon.address)
+        print(f"phase 21 tasks ready (spawned, imported the port) in "
+              f"{time.perf_counter() - t_spawn:.1f} s", flush=True)
+        try:
+            # -- LinearRegression: one scan, linreg_stats per folded feed -----
+            core = LinearRegression(device=DEV)
+            model, rec = p21_fit(torch, kernels, est, profiling, pool, daemon.address, "linreg",
+                                 lambda fit, rp: est._drive_linreg(fit, rp, core))
+            folded = 2 * DP_PARTITIONS + 1  # every frame and the dying attempt's one
+            launches = rec["launches"]["linreg_stats"]
+            check(launches == folded and rec["routes"]["linreg_stats/wgmma"] == folded
+                  and sum(rec["launches"].values()) == folded,
+                  f"phase 21 linreg: linreg_stats launches {launches} == folded feeds {folded}, "
+                  f"all wgmma, no other kernel")
+            out["linreg_stats"] = launches
+            parts = p21_device_frames(torch, np, "linreg")
+            st = lr.init_normal_eq_stats(LR_D, device=DEV)
+            for x, y in parts:
+                lr.streaming_normal_eq_update(st, x, y)
+            sol = lr.finalize_normal_eq_stats(st, 0.0, 0.0, True, 500, 1e-6, rec["rows"])
+            ref = lr_reference(torch, parts, lr)
+            err = float(abs(model.coefficients - sol.coefficients).max())
+            err64 = float(abs(model.coefficients - ref.coefficients).max())
+            # Tolerance: the same float32 statistics of the same bf16 rows in
+            # another order (stages added at commit) move a well-conditioned
+            # solution by about 1e-6; phase 9's 1e-4 against float64.
+            check(err <= 1e-4 and abs(model.intercept - sol.intercept) <= 1e-4 and err64 <= 1e-4,
+                  f"phase 21 linreg vs the in-process streaming_normal_eq_update fit of the same "
+                  f"frames: coefficients max err {err:.3e} (tol 1e-4); vs float64 {err64:.3e} "
+                  f"(tol 1e-4); rmse {model.summary.rmse:.6f}")
+            xq = parts[0][0].cpu().numpy()
+            del parts, st
+            p21_served(daemon, model, "linreg", xq, "linreg")
+
+            # -- LogisticRegression, multinomial: softmax_curvature per feed ----
+            core = (LogisticRegression(device=DEV).setRegParam(LG_REG).setMaxIter(P21_PASSES)
+                    .setTol(0.0))
+            model, rec = p21_fit(torch, kernels, est, profiling, pool, daemon.address,
+                                 "logreg-multinomial",
+                                 lambda fit, rp: est._drive_logreg(fit, rp, core, MN_CLASSES))
+            folded = DP_PARTITIONS * rec["scans"] + 1
+            launches = rec["launches"]["softmax_curvature"]
+            check(rec["scans"] == P21_PASSES and launches == folded
+                  and rec["routes"]["softmax_curvature/wgmma"] == folded
+                  and sum(rec["launches"].values()) == folded,
+                  f"phase 21 multinomial: {rec['scans']} passes; softmax_curvature launches "
+                  f"{launches} == folded feeds {folded}, all wgmma, no other kernel")
+            out["softmax_curvature"] = launches
+            hist = model.summary.objectiveHistory
+            check(all(b <= a * (1 + 1e-6) for a, b in zip(hist, hist[1:])),
+                  "phase 21 multinomial objective does not increase from pass to pass (MM "
+                  "descent, 1e-6 rel): " + ", ".join(f"{v:.8f}" for v in hist))
+            parts = p21_device_frames(torch, np, "logreg-multinomial")
+            sol = lg.fit_multinomial_stream(lambda: iter(parts), LG_D, MN_CLASSES, reg=LG_REG,
+                                            max_iter=P21_PASSES, tol=0.0, device=DEV)
+            scale = float(np.abs(sol.coefficients).max())
+            err_w = float(np.abs(model.coefficients - sol.coefficients).max()) / scale
+            err_b = float(np.abs(model.intercept - sol.intercept).max()) / scale
+            # Tolerance: phase 12's against float64 (3e-5 and 1e-3 of max|W|):
+            # the same f32 statistics summed in another order through five
+            # MM steps.
+            check(err_w <= 3e-5 and err_b <= 1e-3,
+                  f"phase 21 multinomial vs the in-process fit_multinomial_stream of the same "
+                  f"frames: max err W {err_w:.3e} (tol 3e-5), b {err_b:.3e} (tol 1e-3) of "
+                  f"max|W| {scale:.4f}")
+            xq = parts[0][0].cpu().numpy()
+            del parts
+            p21_served(daemon, model, "logreg", xq, "logreg-multinomial")
+
+            # -- LogisticRegression, binomial: no kernel (plain products) -------
+            core = (LogisticRegression(device=DEV).setRegParam(LG_REG).setMaxIter(P21_PASSES)
+                    .setTol(0.0))
+            model, rec = p21_fit(torch, kernels, est, profiling, pool, daemon.address,
+                                 "logreg-binomial",
+                                 lambda fit, rp: est._drive_logreg(fit, rp, core, 2))
+            check(rec["scans"] == P21_PASSES and sum(rec["launches"].values()) == 0,
+                  f"phase 21 binomial: {rec['scans']} passes, no kernel launched (the reference's "
+                  f"stream update uses none): {rec['launches']}")
+            parts = p21_device_frames(torch, np, "logreg-binomial")
+            sol = lg.fit_logistic_stream(lambda: iter(parts), LG_D, reg=LG_REG,
+                                         max_iter=P21_PASSES, tol=0.0, device=DEV)
+            wn = float(np.linalg.norm(sol.coefficients))
+            err_w = float(np.linalg.norm(model.coefficients - sol.coefficients)) / wn
+            err_b = abs(float(model.intercept) - float(sol.intercept)) / wn
+            # Tolerance: phase 11's against float64 (1e-5 of ‖w‖): the same f32
+            # products summed in another order through five Newton steps.
+            check(err_w <= 1e-5 and err_b <= 1e-5,
+                  f"phase 21 binomial vs the in-process fit_logistic_stream of the same frames: "
+                  f"‖Δw‖/‖w‖ {err_w:.3e}, |Δb|/‖w‖ {err_b:.3e} (tol 1e-5; ‖w‖ {wn:.4f})")
+            xq = parts[0][0].cpu().numpy()
+            del parts
+            p21_served(daemon, model, "logreg", xq, "logreg-binomial")
+
+            # -- KMeans: seed, Lloyd passes, the cost scan; no kernel ------------
+            seed_rows = est._kmeans_seed_rows(KM_K)
+            sample = p21_frame(np, P21_RUNS, "kmeans", 0, 0)[0][:seed_rows]  # sel.limit's prefix
+            core = (KMeans(device=DEV).setK(KM_K).setMaxIter(KM_MAX_ITER).setTol(KM_TOL)
+                    .setSeed(P21_SEED))
+            model, rec = p21_fit(torch, kernels, est, profiling, pool, daemon.address, "kmeans",
+                                 lambda fit, rp: est._drive_kmeans(fit, rp, core, sample))
+            print(f"phase 21 kmeans kernel counters (held at 0: the reference's daemon folds "
+                  f"kmeans without its kernel): {rec['launches']}", flush=True)
+            check(sum(rec["launches"].values()) == 0 and rec["scans"] == model.summary.numIter + 1,
+                  f"phase 21 kmeans: {model.summary.numIter} Lloyd passes and the cost scan, no "
+                  f"kernel launched")
+            parts = p21_device_frames(torch, np, "kmeans")
+            xk = torch.cat([x for x, _ in parts])
+            del parts
+            cd = config.compute_dtype(DEV)
+            # The float64 Lloyd from the same seeded centres (the daemon's host
+            # k-means++ of the same sample and generator), each pass scored at
+            # the centres rounded to the compute dtype, as the fold scores.
+            c = km._kmeans_plus_plus(sample, KM_K, np.random.default_rng(P21_SEED))
+            c = torch.as_tensor(c, device=DEV).float().double()  # the job holds them in f32
+            ref_iter = 0
+            for ref_iter in range(1, KM_MAX_ITER + 1):
+                means, counts, _ = lloyd_reference(torch, xk, c.cpu().numpy(), cd)
+                new = torch.where((counts > 0)[:, None], means, c)
+                moved2 = float(((new - c) ** 2).sum(1).max())
+                c = new
+                if moved2 <= KM_TOL ** 2:
+                    break
+            err_c = float((torch.as_tensor(model.centers, device=DEV).double() - c).abs().max())
+            # Tolerance: float32 sums of the same bf16 rows in another order
+            # move a blob's mean by about 1e-9; 1e-6 is 0.3 % of the noise.
+            check(ref_iter == model.summary.numIter and err_c <= 1e-6,
+                  f"phase 21 kmeans vs the float64 Lloyd from the same seeded centres: "
+                  f"{model.summary.numIter} vs {ref_iter} passes, centres max err {err_c:.3e} "
+                  f"(tol 1e-6)")
+            # Assignments at the fitted centres: the model's predict on the card
+            # (the fold's scoring) against float64 at the same rounded centres.
+            cm = torch.as_tensor(model.centers, device=DEV).to(cd).double()
+            a64, margin = [], float("inf")
+            for r0 in range(0, xk.shape[0], 1 << 18):
+                xd = xk[r0:r0 + (1 << 18)].double()
+                d2 = (xd * xd).sum(1)[:, None] + (cm * cm).sum(1)[None, :] - 2.0 * (xd @ cm.T)
+                two = d2.topk(2, dim=1, largest=False).values
+                margin = min(margin, float((two[:, 1] - two[:, 0]).min()))
+                a64.append(d2.argmin(dim=1))
+            a64 = torch.cat(a64)
+            a_dev = model.predict(xk).long()
+            same = int((a_dev == a64).sum())
+            counts_dev = torch.bincount(a_dev, minlength=KM_K)
+            counts64 = torch.bincount(a64, minlength=KM_K)
+            check(same == xk.shape[0] and bool((counts_dev == counts64).all()),
+                  f"phase 21 kmeans assignments at the fitted centres: {same} of {xk.shape[0]} "
+                  f"equal to float64's, counts equal (integer-exact); smallest float64 margin "
+                  f"{margin:.3e}, {int((counts64 > 0).sum())} centres hold rows")
+            # The in-process fit_kmeans_stream of the same frames, its init scan
+            # reading the same seed rows: the same f32 cost formula.
+            head = {"first": True}
+            frames = [xk[r0:r0 + DP_ROWS] for r0 in range(0, xk.shape[0], DP_ROWS)]
+
+            def source():
+                return iter([torch.from_numpy(sample)] if head.pop("first", False) else frames)
+
+            sol = km.fit_kmeans_stream(source, KM_K, KM_D, max_iter=KM_MAX_ITER, tol=KM_TOL,
+                                       seed=P21_SEED, init_sample_rows=seed_rows, device=DEV)
+            err_s = float(np.abs(model.centers - sol.centers).max())
+            cost_s = abs(model.summary.trainingCost - sol.cost) / sol.cost
+            # Tolerance: the same per-frame f32 sums added in another order
+            # (stages at commit): 1e-6 of the centres' noise-scale moves and
+            # of the cost.
+            check(sol.n_iter == model.summary.numIter and err_s <= 1e-6 and cost_s <= 1e-6,
+                  f"phase 21 kmeans vs the in-process fit_kmeans_stream of the same frames from "
+                  f"the same seed rows: {sol.n_iter} passes, centres max err {err_s:.3e}, cost rel "
+                  f"err {cost_s:.3e} (tol 1e-6 each)")
+            _, _, cost64 = lloyd_reference(torch, xk, model.centers, cd)
+            cost_rel = abs(model.summary.trainingCost - cost64) / cost64
+            # Tolerance: the f32 cost sums ‖x‖² + ‖c‖² − 2x·c per row (the JAX
+            # formula); at blobs whose spread is 1e-4 of their separation those
+            # terms are about 1e4 times the distance, and their f32 rounding,
+            # shared by a blob's rows, does not cancel: it reads 2.4e-4 of the
+            # cost here. 1e-3 relative still fails a cost off by a percent (a
+            # missed slice of rows, a stale pass).
+            check(cost_rel <= 1e-3,
+                  f"phase 21 kmeans trainingCost {model.summary.trainingCost:.6e} vs float64 "
+                  f"{cost64:.6e}: rel err {cost_rel:.3e} (tol 1e-3)")
+            xq = xk[:DP_ROWS].cpu().numpy()
+            del xk, a64, a_dev, frames
+            p21_served(daemon, model, "kmeans", xq, "kmeans")
+        finally:
+            pool.close()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2609,7 +3085,7 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
 
     if "--data-plane" in sys.argv[1:]:
-        # Phases 19 and 20 alone, on phase 3's spectrum.
+        # Phases 19 to 21 alone, on phase 3's spectrum.
         j = torch.arange(D, device=DEV, dtype=torch.float32)
         scales = torch.where(j < K, torch.sqrt(2.0 - j / (K - 1)), 0.1 * 0.999 ** j)
         mu = 0.05 * torch.randn((D,), generator=torch.Generator(device=DEV).manual_seed(0),
@@ -2618,7 +3094,9 @@ def main() -> None:
                                       PCAModel)
         torch.cuda.empty_cache()
         phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate)
-        print(f"phases 19-20 passed ({time.perf_counter() - t_start:.1f} s); --data-plane: "
+        torch.cuda.empty_cache()
+        phase_iterative_jobs(torch, kernels, config)
+        print(f"phases 19-21 passed ({time.perf_counter() - t_start:.1f} s); --data-plane: "
               "stopping here", flush=True)
         return
 
@@ -2989,8 +3467,13 @@ def main() -> None:
 
     # -- 20. the Spark feed protocol from separate processes ----------------------------
     sp_launches = phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate)
+    torch.cuda.empty_cache()
     row_gc = next(row for row in table if row["name"] == "gram_colsum")
     row_gc["daemon_launches"], row_gc["spark_launches"] = dp_launches, sp_launches
+
+    # -- 21. the iterative daemon jobs through the Spark feed protocol -------------------
+    for name, n in phase_iterative_jobs(torch, kernels, config).items():
+        next(row for row in table if row["name"] == name)["daemon_launches"] = n
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "

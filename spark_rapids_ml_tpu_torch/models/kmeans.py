@@ -507,6 +507,10 @@ class KMeansModel(Model, _KMeansParams, MLWritable, MLReadable):
             return self._predictor()(x)
         return self._predictor()(as_tensor(x)).cpu().numpy()
 
+    # Daemon serving contract (serve/daemon.py): wire algo and output roles.
+    _serve_algo = "kmeans"
+    _serve_outputs = (("prediction", "predictionCol", "int"),)
+
     def transform_matrix(self, x) -> dict:
         """Role-keyed device transform (the serving surface)."""
         with trace_span("kmeans transform"):

@@ -364,6 +364,10 @@ class LinearRegressionModel(Model, _LinearRegressionParams, MLWritable, MLReadab
         x = np.asarray(x)
         return x @ self.coefficients + self.intercept
 
+    # Daemon serving contract (serve/daemon.py): wire algo and output roles.
+    _serve_algo = "linreg"
+    _serve_outputs = (("prediction", "predictionCol", "double"),)
+
     def _predictor(self):
         """y = x @ w + b with the coefficients resident on the device, both
         operands rounded to the compute dtype and multiplied in the

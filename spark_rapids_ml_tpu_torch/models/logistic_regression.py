@@ -717,6 +717,14 @@ class LogisticRegressionModel(Model, _LogisticRegressionParams, MLWritable, MLRe
     def predict(self, x: np.ndarray) -> np.ndarray:
         return np.argmax(self.predict_proba(x), axis=1)
 
+    # Daemon serving contract (serve/daemon.py): wire algo and output roles.
+    _serve_algo = "logreg"
+    _serve_outputs = (
+        ("rawPrediction", "rawPredictionCol", "vec"),
+        ("probability", "probabilityCol", "vec"),
+        ("prediction", "predictionCol", "double"),
+    )
+
     def _raw_scorer(self):
         """Per-class margins with W and b resident on the device: x and W
         rounded to the compute dtype, multiplied in the accumulator dtype

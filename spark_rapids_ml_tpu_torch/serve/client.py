@@ -4,14 +4,19 @@ The port of ``spark_rapids_ml_tpu/serve/client.py``, cut to the ops the
 port's daemon serves. A task opens one connection, feeds its partition as
 one or more frames (Arrow IPC ``feed``, or raw ``feed_raw`` without an
 Arrow library), commits, and closes; the Spark driver (or any one caller)
-finalizes. Socket work only: no device work happens here.
+finalizes, and for an iterative job (kmeans, logreg) runs the passes:
+``seed_kmeans``, then per pass the scan and ``step``, with
+``get_iterate``/``set_iterate`` for its recovery ledger. Socket work only:
+no device work happens here.
 
 Self-healing: every op runs inside a reconnect loop. A connection-level
 failure (``ConnectionError``, ``ProtocolError``, a socket timeout, any
 ``OSError``) drops the cached socket, backs off with decorrelated jitter
 (utils/retry.py), reconnects and replays the op. Replay is exactly-once:
 ``feed``/``feed_raw`` carry a ``feed_id`` minted once per op that the
-daemon dedupes, ``commit`` is idempotent by design, and reads are pure. A
+daemon dedupes, ``step`` a ``step_id`` whose replay returns the applied
+step's info, ``commit``, ``seed`` and ``set_iterate`` are idempotent by
+design, and reads are pure. A
 per-op deadline (``op_deadline_s``) bounds the TOTAL time spent healing
 one op and clamps each attempt's socket timeout. A ``busy`` response is
 honoured by waiting the daemon's ``retry_after_s`` hint (jittered) without
@@ -39,7 +44,8 @@ logger = get_logger("serve.client")
 
 #: Ops whose acks vouch for job state: their ``boot_id`` joins
 #: ``seen_boot_ids`` (a ping's does not).
-_STATE_ACK_OPS = frozenset(("feed", "feed_raw", "commit", "finalize"))
+_STATE_ACK_OPS = frozenset(("feed", "feed_raw", "seed", "commit", "step", "set_iterate",
+                            "finalize"))
 
 
 class DaemonBusy(RuntimeError):
@@ -264,14 +270,19 @@ class DataPlaneClient:
         return None if resp.get("id") is None else str(resp["id"])
 
     @staticmethod
-    def _to_ipc(data, input_col: str) -> bytes:
-        """An (n, d) ndarray or an Arrow Table/RecordBatch as one Arrow IPC
-        stream (pyarrow imported here: only the Arrow ops need it)."""
+    def _to_ipc(data, input_col: str, label_col: str = "label") -> bytes:
+        """An (n, d) ndarray, an (x, y) pair of arrays or an Arrow
+        Table/RecordBatch as one Arrow IPC stream (pyarrow imported here:
+        only the Arrow ops need it)."""
         import pyarrow as pa
 
         from spark_rapids_ml_tpu_torch.bridge.arrow import matrix_to_list_column
 
-        if isinstance(data, np.ndarray):
+        if isinstance(data, tuple):
+            x, y = data
+            table = pa.table({input_col: matrix_to_list_column(np.asarray(x)),
+                              label_col: pa.array(np.asarray(y).reshape(-1))})
+        elif isinstance(data, np.ndarray):
             table = pa.table({input_col: matrix_to_list_column(data)})
         elif isinstance(data, pa.RecordBatch):
             table = pa.Table.from_batches([data])
@@ -288,21 +299,27 @@ class DataPlaneClient:
         data,
         algo: str = "pca",
         input_col: str = "features",
+        label_col: str = "label",
         n_cols: Optional[int] = None,
         params: Optional[Dict[str, Any]] = None,
         partition: Optional[int] = None,
         attempt: int = 0,
         pass_id: Optional[int] = None,
     ) -> int:
-        """Feed one batch (an Arrow Table/RecordBatch or an (n, d) ndarray).
-        With ``partition`` set the batch goes to that partition's stage and
-        counts only after :meth:`commit`. Returns the job's committed rows."""
+        """Feed one batch: an Arrow Table/RecordBatch, an (n, d) ndarray or
+        an (x, y) pair for linreg/logreg (the labels in ``label_col``).
+        ``params`` configure the job at its first feed (kmeans {"k", "seed",
+        "init"}, logreg {"n_classes"}). With ``partition`` set the batch goes
+        to that partition's stage and counts only after :meth:`commit`;
+        ``pass_id`` fences an iterative job's feeds to its current pass.
+        Returns the job's committed rows."""
         resp, _ = self._roundtrip(
             {
                 "op": "feed",
                 "job": job,
                 "algo": algo,
                 "input_col": input_col,
+                "label_col": label_col,
                 "n_cols": n_cols,
                 "params": params or {},
                 "partition": partition,
@@ -311,7 +328,7 @@ class DataPlaneClient:
                 # a reconnect replays this exact feed; folded at most once
                 "feed_id": self._op_id(),
             },
-            payload=self._to_ipc(data, input_col),
+            payload=self._to_ipc(data, input_col, label_col),
         )
         return int(resp["rows"])
 
@@ -319,6 +336,7 @@ class DataPlaneClient:
         self,
         job: str,
         x: np.ndarray,
+        y: Optional[np.ndarray] = None,
         algo: str = "pca",
         n_cols: Optional[int] = None,
         params: Optional[Dict[str, Any]] = None,
@@ -327,7 +345,11 @@ class DataPlaneClient:
         pass_id: Optional[int] = None,
     ) -> int:
         """:meth:`feed` with raw little-endian buffers instead of Arrow IPC:
-        the op a client without an Arrow library uses."""
+        the op a client without an Arrow library uses. ``y``: the (n,)
+        labels of a linreg/logreg feed."""
+        arrays: Dict[str, np.ndarray] = {"x": np.asarray(x)}
+        if y is not None:
+            arrays["y"] = np.asarray(y).reshape(-1)
         resp = self._send_arrays_op(
             {
                 "op": "feed_raw",
@@ -340,7 +362,7 @@ class DataPlaneClient:
                 "pass_id": pass_id,
                 "feed_id": self._op_id(),
             },
-            {"x": np.asarray(x)},
+            arrays,
         )
         return int(resp["rows"])
 
@@ -351,6 +373,66 @@ class DataPlaneClient:
         resp, _ = self._roundtrip({"op": "commit", "job": job, "partition": partition,
                                    "attempt": attempt, "pass_id": pass_id})
         return int(resp["rows"])
+
+    def seed_kmeans(self, job: str, data, k: int, input_col: str = "features",
+                    n_cols: Optional[int] = None,
+                    params: Optional[Dict[str, Any]] = None) -> None:
+        """Seed a kmeans job's centres from a driver-chosen batch of >= k
+        rows (an Arrow Table or an (n, d) ndarray, sent as Arrow IPC). The
+        rows are NOT folded: they arrive through the partition scan.
+        Idempotent: a retried seed keeps the first centres."""
+        self._roundtrip(
+            {"op": "seed", "job": job, "input_col": input_col, "n_cols": n_cols,
+             "params": {**(params or {}), "k": k}},
+            payload=self._to_ipc(data, input_col),
+        )
+
+    def seed_kmeans_raw(self, job: str, x: np.ndarray, k: int,
+                        params: Optional[Dict[str, Any]] = None) -> None:
+        """:meth:`seed_kmeans` with the rows as a raw ``x`` frame, for a
+        driver without an Arrow library (the port's daemon reads both
+        forms; the JAX daemon reads only Arrow)."""
+        x = np.asarray(x)
+        self._send_arrays_op(
+            {"op": "seed", "job": job, "n_cols": int(x.shape[1]),
+             "params": {**(params or {}), "k": k}},
+            {"x": x},
+        )
+
+    def step(self, job: str, params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """Pass boundary of an iterative job: the Lloyd or Newton update over
+        the pass's statistics. Returns {"iteration", "pass_rows", and
+        "moved2", "cost" (kmeans) or "delta", "loss" (logreg)}. The
+        ``step_id`` minted here rides every replay of this call, so a
+        healed resend gets the applied step's info and never steps twice."""
+        resp, _ = self._roundtrip({"op": "step", "job": job, "params": params or {},
+                                   "step_id": self._op_id()})
+        return {k: v for k, v in resp.items() if k != "ok"}
+
+    def get_iterate(self, job: str) -> Tuple[Dict[str, np.ndarray], int]:
+        """(iterate arrays, iteration): kmeans {"centers"}, logreg {"w", "b"}."""
+        resp, arrays = self._op({"op": "get_iterate", "job": job}, want_arrays=True)
+        return arrays, int(resp["iteration"])
+
+    def set_iterate(self, job: str, arrays: Dict[str, np.ndarray], iteration: int,
+                    algo: Optional[str] = None, n_cols: Optional[int] = None,
+                    params: Optional[Dict[str, Any]] = None) -> None:
+        """Install an iterate and open pass ``iteration`` (the pass's
+        statistics and stages reset). With ``n_cols`` (plus ``algo`` and
+        ``params``, as a first feed) a job the daemon does not know is
+        created at this iterate: the recovery path of a driver's ledger.
+        Given ``algo`` or ``params`` without ``n_cols``, the width is read
+        from the iterate (centres (k, d), w (d,) or (d, C))."""
+        req: Dict[str, Any] = {"op": "set_iterate", "job": job, "iteration": int(iteration)}
+        if n_cols is None and (algo is not None or params is not None):
+            a = arrays.get("centers")
+            a = arrays.get("w") if a is None else a
+            if a is not None:
+                a = np.asarray(a)
+                n_cols = int(a.shape[1] if "centers" in arrays else a.shape[0])
+        if n_cols is not None:
+            req.update(algo=algo or "pca", n_cols=int(n_cols), params=params or {})
+        self._send_arrays_op(req, arrays)
 
     def status(self, job: str) -> Dict[str, Any]:
         resp, _ = self._roundtrip({"op": "status", "job": job})
@@ -382,9 +464,28 @@ class DataPlaneClient:
         arrays, _ = self.finalize(job, {"k": k, "mean_center": mean_center, "solver": solver})
         return arrays
 
+    def finalize_linreg(self, job: str, **params) -> Dict[str, np.ndarray]:
+        """{"coefficients", "intercept", "rmse", "r2"}; ``params``: reg,
+        elastic_net, fit_intercept, max_iter, tol."""
+        arrays, _ = self.finalize(job, params)
+        return arrays
+
+    def finalize_kmeans(self, job: str) -> Dict[str, np.ndarray]:
+        """{"centers", "cost", "n_iter"} after the last ``step``: ``cost`` is
+        the current (unstepped) pass's, so feed one pass at the final
+        centres without stepping to read the final cost."""
+        arrays, _ = self.finalize(job, {})
+        return arrays
+
+    def finalize_logreg(self, job: str) -> Dict[str, np.ndarray]:
+        """{"coefficients", "intercept", "n_iter"} after the last ``step``
+        (Spark's layout: (C, d) and (C,) for the multinomial protocol)."""
+        arrays, _ = self.finalize(job, {})
+        return arrays
+
     def export_state(self, job: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
-        """A job's committed statistics (s0, s1, s2 = count, Σx, XᵀX) and
-        meta (rows, pass_rows, iteration, algo, n_cols, committed)."""
+        """A job's committed statistics (s0, s1, ... in the reference's order;
+        count, Σx, XᵀX for pca) and meta (rows, pass_rows, iteration, algo, n_cols, committed)."""
         resp, arrays = self._op({"op": "export_state", "job": job}, want_arrays=True)
         meta = {k: v for k, v in resp.items() if k not in ("ok", "arrays")}
         return arrays, meta
@@ -409,7 +510,10 @@ class DataPlaneClient:
     def transform(self, name: str, data, input_col: str = "features",
                   n_cols: Optional[int] = None) -> Dict[str, np.ndarray]:
         """Run a registered model over one batch on the daemon's device:
-        the role-keyed outputs ({"output": ...} for PCA)."""
+        the role-keyed outputs of the model's ``_serve_outputs`` ({"output"}
+        for PCA, {"prediction"} for KMeans and LinearRegression,
+        {"rawPrediction", "probability", "prediction"} for
+        LogisticRegression)."""
         _, arrays = self._op(
             {"op": "transform", "model": name, "input_col": input_col, "n_cols": n_cols},
             payload=self._to_ipc(data, input_col),

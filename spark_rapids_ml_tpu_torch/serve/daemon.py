@@ -1,12 +1,23 @@
-"""The data-plane daemon: the executor-to-card feeding path, PCA job.
+"""The data-plane daemon: the executor-to-card feeding path.
 
-The port of ``spark_rapids_ml_tpu/serve/daemon.py``, cut to its PCA job and
-PCA serving. A TCP server next to the card accepts row batches from Spark
-tasks (Arrow IPC ``feed``, or raw little-endian ``feed_raw`` frames where
-no Arrow library is at hand), folds each batch into the device-resident
-(count, Σx, XᵀX) state of its job, and at ``finalize`` runs the PCA
-eigensolve and sends the model back — the reference's executors-fold,
-Spark-driver-finalizes design, with the fold next to the accelerator.
+The port of ``spark_rapids_ml_tpu/serve/daemon.py``, cut to the jobs of
+the pca, linreg, kmeans and logreg estimators and their serving. A TCP
+server next to the card accepts row batches from Spark tasks (Arrow IPC
+``feed``, or raw little-endian ``feed_raw`` frames where no Arrow library
+is at hand), folds each batch into the device-resident additive state of
+its job, and at ``finalize`` solves and sends the model back — the
+reference's executors-fold, Spark-driver-finalizes design, with the fold
+next to the accelerator.
+
+pca and linreg are single-pass (``feed``, ``commit``, ``finalize``).
+kmeans and logreg are iterative: the driver scans the data once per pass
+(feeds carry ``pass_id``), then ``step`` applies the Lloyd or Newton update
+and opens the next pass; ``get_iterate``/``set_iterate`` read and install
+the iterate (the driver's recovery ledger; a ``set_iterate`` carrying
+``n_cols``, ``algo`` and ``params`` creates a job the daemon lost). A
+kmeans job is seeded by the driver's ``seed`` op (its rows are not folded)
+or by its first unpartitioned feed. Labels ride the feed: the Arrow
+table's ``label_col``, or ``feed_raw``'s ``y`` array.
 
 Threading: one acceptor thread and one thread per connection (Spark task).
 Concurrent feeds to one job serialize on the job's lock around the fold;
@@ -29,12 +40,17 @@ Operations: jobs idle longer than ``ttl`` are evicted by a reaper thread
 constant time on every op; past a connection or staged-bytes watermark,
 ops that add load are shed with ``busy`` and a ``retry_after_s`` hint.
 
-Left for later slices of the port: the other estimators' jobs (linreg,
-kmeans, logreg, rf, knn) and their ``seed``/``step``/iterate ops, durable
-job state, the serving scheduler and AOT warmup, cross-daemon merges,
-gossip, and the health/metrics/telemetry ops. Any such op is answered
-"unknown op" with its payload drained, and a feed naming another ``algo``
-is refused before a job is registered.
+Beyond the reference, ``seed`` also takes its rows as raw ``arrays``
+frames (the ``feed_raw`` framing) in place of the Arrow payload, for a
+driver without an Arrow library; the JAX daemon reads only the Arrow form.
+
+Left for later slices of the port, each answered "unknown op" with its
+payload drained: ``merge_state``, ``reduce_mesh``, ``mesh_info`` and
+``sample_rows`` (the multi-daemon plane, ROADMAP Queue 1 items 5–6);
+durable ``state_dir`` snapshots, faults, the health/metrics/telemetry ops,
+the serving scheduler and AOT warmup (item 7); ``kneighbors`` with the
+``knn`` job (item 2's next slice) and the ``rf`` job (item 4). A feed
+naming such an ``algo`` is refused before a job is registered.
 """
 
 from __future__ import annotations
@@ -52,6 +68,9 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch import config
+from spark_rapids_ml_tpu_torch.models import kmeans as km_mod
+from spark_rapids_ml_tpu_torch.models import linear_regression as lr_mod
+from spark_rapids_ml_tpu_torch.models import logistic_regression as lg_mod
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel, finalize_pca_stats
 from spark_rapids_ml_tpu_torch.ops import gram as gram_ops
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device
@@ -61,19 +80,26 @@ from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
 logger = get_logger("serve.daemon")
 
+#: The job algos this daemon runs, and what a feed naming another gets.
+_ALGOS = ("pca", "linreg", "kmeans", "logreg")
+_LATER_ALGOS = ("the port's daemon does not run 'knn' (ROADMAP Queue 1 item 2, its next "
+                "slice) or 'rf' (item 4) yet")
+_LATER_MODELS = ("the port's daemon does not serve 'scaler' (ROADMAP Queue 1 item 3) or the "
+                 "forests (item 4) yet")
+
 #: Ops whose request JSON is followed by one Arrow IPC payload frame
-#: (docs/protocol.md). A rejection drains that frame so the framing stays
-#: aligned; ``seed`` and ``kneighbors`` are reference ops the port answers
-#: "unknown op".
+#: (docs/protocol.md; ``seed`` unless it carries ``arrays``). A rejection
+#: drains that frame so the framing stays aligned; ``kneighbors`` is a
+#: reference op the port answers "unknown op".
 _PAYLOAD_OPS = ("feed", "seed", "transform", "kneighbors")
 
 #: Ops whose raw array frames follow the request per its ``arrays`` spec.
-_ARRAY_OPS = ("ensure_model", "merge_state", "set_iterate", "feed_raw", "finalize")
+_ARRAY_OPS = ("ensure_model", "merge_state", "set_iterate", "feed_raw", "finalize", "seed")
 
 #: Ops shed with `busy` + retry_after_s over a watermark: the ones that
 #: ADD load. Pressure-relieving ops (commit, finalize, drop) and O(1)
 #: control ops always pass.
-_SHEDDABLE_OPS = ("feed", "feed_raw", "transform", "ensure_model")
+_SHEDDABLE_OPS = ("feed", "feed_raw", "seed", "transform", "ensure_model")
 
 #: Process-wide device lock (see the module docstring): taken innermost.
 _DEVICE_LOCK = threading.Lock()
@@ -153,10 +179,11 @@ def _recv_arrays_aligned(conn, req: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _recv_arrow_matrix(conn, op: str, input_col: str, n_cols) -> np.ndarray:
-    """One Arrow IPC payload frame -> the (n, d) matrix of ``input_col``.
-    The frame is read BEFORE pyarrow is imported, so a daemon without
-    pyarrow (the GPU image) answers the error with the framing aligned."""
+def _recv_arrow_matrix(conn, op: str, input_col: str, n_cols, label_col=None):
+    """One Arrow IPC payload frame -> (the (n, d) matrix of ``input_col``,
+    the labels of ``label_col`` or None when it is None). The frame is read
+    BEFORE pyarrow is imported, so a daemon without pyarrow (the GPU image)
+    answers the error with the framing aligned."""
     with trace_span("daemon frame receive"):
         payload = protocol.recv_frame(conn)
     if payload is None:
@@ -168,7 +195,12 @@ def _recv_arrow_matrix(conn, op: str, input_col: str, n_cols) -> np.ndarray:
     with trace_span("daemon frame decode"):
         with pa.ipc.open_stream(payload) as reader:
             table = reader.read_all()
-        return table_column_to_matrix(table, input_col, n_cols)
+        x = table_column_to_matrix(table, input_col, n_cols)
+        if label_col is None:
+            return x, None
+        if label_col not in table.column_names:
+            raise KeyError(f"label column {label_col!r} not in batch")
+        return x, np.asarray(table.column(label_col).to_numpy(zero_copy_only=False))
 
 
 def _opt(req: Dict[str, Any], key: str, default):
@@ -214,43 +246,36 @@ class _Stage:
         self.seen: set = set()
 
 
-def _fold(state, x: np.ndarray, device: torch.device) -> None:
-    """Fold one batch into ``state`` in place (call under _DEVICE_LOCK).
-
-    One seeded ``kernels.gram_colsum`` launch per batch through
-    ``streaming_update_rows``: the tensor-core route for bf16 compute with
-    d % 8 == 0 on the card, the plain version on a CPU tensor. The
-    reference pads each batch to a power-of-two bucket under a row mask,
-    which only bounds XLA's compiles; the mask is a prefix of ones, so
-    ``n_valid = n`` over the unpadded batch gives the same statistics.
-    (On a TPU the reference's masked update reaches ``gram_pallas``; the
-    port folds through ``gram_colsum``, as its ``fit_pca_stream`` does.)"""
-    with trace_span("daemon host to device"):
-        xd = as_tensor(x).to(device)
-    with trace_span("daemon fold"):
-        gram_ops.streaming_update_rows(state, xd, n_valid=x.shape[0])
-
-
 def _state_nbytes(state) -> int:
     return sum(t.numel() * t.element_size() for t in state)
 
 
 class _Job:
-    """One PCA accumulation job: the device state, its stages, a lock."""
+    """One accumulation job: its algo, device state, stages, iterate, lock.
 
-    algo = "pca"
+    ``algo`` is ``pca``, ``linreg`` (single-pass), ``kmeans`` or ``logreg``
+    (iterative: one pass per ``step``, the iterate read and installed with
+    ``get_iterate``/``set_iterate``). ``params`` are the first feed's
+    creation params: ``k``, ``seed`` and ``init`` for kmeans, ``n_classes``
+    for logreg (above 2 the job runs the multinomial MM-Newton protocol)."""
 
-    def __init__(self, n_cols: int, device: torch.device, clock=time.monotonic):
+    def __init__(self, algo: str, n_cols: int, device: torch.device,
+                 params: Optional[Dict[str, Any]] = None, clock=time.monotonic):
+        if algo not in _ALGOS:
+            raise ValueError(f"unknown algo {algo!r} ({'|'.join(_ALGOS)}); {_LATER_ALGOS}")
+        params = params or {}
         # Capacity gate at creation: a (d, d) accumulator over the device
         # budget is a clean first-feed error, never a device OOM mid-pass.
-        gram_ops.require_gram_capacity(n_cols)
+        if algo in ("pca", "linreg", "logreg"):
+            gram_ops.require_gram_capacity(n_cols)
         self._clock = clock
+        self.algo = algo
         self.n_cols = n_cols
         self.device = device
+        self.params = dict(params)
         self.lock = threading.Lock()
         self.rows = 0
-        # Single-pass: the job is always on pass 0, and every row is the
-        # pass's (the wire's "pass_rows" is `rows`).
+        self.pass_rows = 0
         self.iteration = 0
         self.dropped = False
         self.touched = clock()
@@ -258,17 +283,113 @@ class _Job:
         self.committed: Dict[int, int] = {}
         self.staged_bytes = 0
         self._seen_feed_ids = _FifoSet()
+        # Step idempotency: a replayed step carrying the id of the step
+        # already applied gets the cached info back.
+        self._last_step_id: Optional[str] = None
+        self._last_step_info: Optional[Dict[str, Any]] = None
+        self._accum = config.accum_dtype()
+        if algo == "kmeans":
+            self.k = int(params.get("k", 0))
+            if self.k <= 0:
+                raise ValueError("kmeans job needs params={'k': > 0} on first feed")
+            self.seed = int(params.get("seed", 0))
+            self.init = str(params.get("init", "k-means++"))
+            if self.init not in ("k-means++", "random"):
+                raise ValueError(f"unknown init {self.init!r} (k-means++|random)")
+            self.centers: Optional[torch.Tensor] = None  # seeded before the first fold
+        elif algo == "logreg":
+            self.n_classes = int(params.get("n_classes") or 2)
+            w_shape = (n_cols, self.n_classes) if self.n_classes > 2 else (n_cols,)
+            b_shape = (self.n_classes,) if self.n_classes > 2 else ()
+            with _DEVICE_LOCK:
+                self.w = torch.zeros(w_shape, dtype=self._accum, device=device)
+                self.b = torch.zeros(b_shape, dtype=self._accum, device=device)
         with _DEVICE_LOCK:
-            self.state = gram_ops.init_stats(n_cols, device=device)
+            self.state = self._zero_state()
+
+    @property
+    def multinomial(self) -> bool:
+        return self.algo == "logreg" and self.n_classes > 2
+
+    def _zero_state(self):
+        """A zero accumulator of one pass (call under _DEVICE_LOCK)."""
+        ad, dev, d = self._accum, self.device, self.n_cols
+        if self.algo == "pca":
+            return gram_ops.init_stats(d, ad, dev)
+        if self.algo == "linreg":
+            return lr_mod.init_normal_eq_stats(d, ad, dev)
+        if self.algo == "kmeans":
+            return km_mod.stream_zero_state(self.k, d, ad, dev)
+        if self.multinomial:
+            return lg_mod.stream_softmax_zero_state(d, self.n_classes, ad, dev)
+        return lg_mod.stream_zero_state(d, ad, dev)
+
+    def _fold_locked(self, state, x: np.ndarray, y: Optional[np.ndarray]) -> None:
+        """Fold one batch into ``state`` in place (call under _DEVICE_LOCK).
+
+        The reference pads each batch to a power-of-two bucket under a row
+        mask, which only bounds XLA's compiles; the mask is a prefix of
+        ones, so the unpadded batch gives the same statistics. On the card:
+        pca is one seeded ``gram_colsum`` launch (``streaming_update_rows``),
+        linreg one seeded ``linreg_stats`` launch
+        (``streaming_normal_eq_update``), multinomial logreg one
+        ``softmax_curvature`` launch with float32 accumulators
+        (``softmax_stats_update``); kmeans (``kmeans._stream_update``, the
+        reference's ``_stream_step_fn``) and binomial logreg
+        (``stream_grad_hess_update``) are plain products, as there. (On a
+        TPU the reference's masked PCA update reaches ``gram_pallas``; the
+        port folds through ``gram_colsum``, as its ``fit_pca_stream`` does.)"""
+        with trace_span("daemon host to device"):
+            xd = as_tensor(x).to(self.device)
+            yd = None if y is None else as_tensor(y).to(self.device).reshape(-1)
+        with trace_span("daemon fold"):
+            if self.algo == "pca":
+                gram_ops.streaming_update_rows(state, xd, n_valid=x.shape[0])
+            elif self.algo == "linreg":
+                lr_mod.streaming_normal_eq_update(state, xd, yd)
+            elif self.algo == "kmeans":
+                cd = config.compute_dtype(self.device)
+                km_mod._stream_update(state, self.centers, xd.to(cd), cd, self._accum)
+            elif self.multinomial:
+                lg_mod.softmax_stats_update(state, self.w, self.b, xd, yd)
+            else:
+                lg_mod.stream_grad_hess_update(state, self.w, self.b, xd, yd)
 
     def _check_pass(self, pass_id: Optional[int]) -> None:
-        """Reject traffic of another pass (a zombie task of an iterative
-        fit, or a daemon that never saw the earlier passes)."""
+        """Reject traffic of another pass: a zombie task of a stepped pass
+        (its batch saw a stale iterate), or a daemon behind the fit."""
         if pass_id is not None and int(pass_id) != self.iteration:
+            if int(pass_id) > self.iteration:
+                hint = (" — this daemon is behind the fit (it never saw the earlier passes); "
+                        "keep executor→daemon routing sticky across retries")
+            else:
+                hint = " (zombie task of an already-stepped pass)"
             raise ValueError(
                 f"stale pass_id {pass_id} (job is on pass {self.iteration}); "
-                "feed rejected"
+                f"feed rejected{hint}"
             )
+
+    def _seed_locked(self, x: np.ndarray) -> None:
+        """Centres from ``x`` by the job's init and seed (under the job
+        lock): host k-means++ or random rows, ``np.random.default_rng(seed)``."""
+        init_fn = km_mod._kmeans_plus_plus if self.init == "k-means++" else km_mod._random_init
+        with _DEVICE_LOCK, trace_span("daemon seed"):
+            c0 = init_fn(np.asarray(x), self.k, np.random.default_rng(self.seed))
+            self.centers = torch.as_tensor(c0).to(self.device, self._accum)
+
+    def seed_centers(self, x: np.ndarray) -> None:
+        """Deterministic kmeans init from a driver-chosen batch: centres
+        only, NO fold (the rows arrive again through the scan)."""
+        if self.algo != "kmeans":
+            raise ValueError(f"seed only applies to kmeans jobs, not {self.algo!r}")
+        if x.shape[0] < self.k:
+            raise ValueError(f"seed batch has {x.shape[0]} rows < k={self.k}")
+        with self.lock:
+            if self.dropped:
+                raise KeyError("job was finalized/dropped")
+            if self.centers is None:  # a retried seed keeps the first init
+                self._seed_locked(x)
+            self.touched = self._clock()
 
     def _is_replay(self, feed_id: Optional[str], stage: Optional[_Stage]) -> bool:
         """True when this feed_id already folded (call under the lock).
@@ -292,9 +413,18 @@ class _Job:
             self.staged_bytes -= stage.nbytes
         return stage
 
+    def _clear_pass(self) -> None:
+        """Open a new pass: stages, committed set and pass rows cleared
+        (zombie traffic of the finished pass is fenced by pass_id)."""
+        self.staged.clear()
+        self.staged_bytes = 0
+        self.committed.clear()
+        self.pass_rows = 0
+
     def fold(
         self,
         x: np.ndarray,
+        y: Optional[np.ndarray] = None,
         partition: Optional[int] = None,
         attempt: int = 0,
         pass_id: Optional[int] = None,
@@ -302,6 +432,8 @@ class _Job:
     ) -> None:
         if x.shape[1] != self.n_cols:
             raise ValueError(f"batch width {x.shape[1]} != job n_cols {self.n_cols}")
+        if self.algo in ("linreg", "logreg") and y is None:
+            raise ValueError(f"{self.algo} feed needs a label column")
         n = x.shape[0]
         with self.lock:
             if self.dropped:
@@ -310,6 +442,18 @@ class _Job:
             self.touched = self._clock()
             if partition is not None and partition in self.committed:
                 return  # duplicate of a committed task (retry/speculation)
+            if self.algo == "kmeans" and self.centers is None:
+                if partition is not None:
+                    raise ValueError(
+                        "partitioned kmeans feed before centers are seeded; send a 'seed' "
+                        "op from the driver first (deterministic init)"
+                    )
+                if n < self.k:
+                    raise ValueError(
+                        f"first kmeans batch has {n} rows < k={self.k}; feed a larger "
+                        "first batch (it seeds the centers)"
+                    )
+                self._seed_locked(x)
             stage = None
             fresh_stage = False
             if partition is None:
@@ -320,7 +464,7 @@ class _Job:
                 stage = self.staged.get((partition, attempt))
                 if stage is None:
                     with _DEVICE_LOCK:
-                        zero = gram_ops.init_stats(self.n_cols, device=self.device)
+                        zero = self._zero_state()
                     # Registered only after the fold succeeds: a phantom
                     # empty stage would inflate staged_bytes and let a
                     # commit of this attempt succeed with 0 rows.
@@ -330,9 +474,10 @@ class _Job:
                     return
                 state = stage.state
             with _DEVICE_LOCK:
-                _fold(state, x, self.device)
+                self._fold_locked(state, x, y)
             if partition is None:
                 self.rows += n
+                self.pass_rows += n
             else:
                 stage.rows += n
                 if fresh_stage:
@@ -360,13 +505,15 @@ class _Job:
                     f"commit for partition {partition} attempt {attempt} "
                     "with no staged feed"
                 )
-            # Every state is additive (count, Σx, XᵀX): the merge of the
-            # reference (an elementwise add) done in place.
+            # Every state is additive (counts, sums, Grams, gradient and
+            # curvature blocks, cost): the reference's elementwise merge,
+            # done in place.
             with _DEVICE_LOCK, trace_span("daemon commit"):
                 for acc, part in zip(self.state, staged.state):
                     acc.add_(part)
             self.committed[partition] = staged.rows
             self.rows += staged.rows
+            self.pass_rows += staged.rows
             # the losing attempts' stages of this partition free their buffers
             for key in [k for k in self.staged if k[0] == partition]:
                 self._drop_stage(key)
@@ -374,8 +521,8 @@ class _Job:
             return self.rows
 
     def export_state(self):
-        """The COMMITTED state as raw arrays (s0, s1, s2 = count, Σx, XᵀX,
-        the reference's tree order) and its accounting meta. Read-only."""
+        """The COMMITTED state as raw arrays (s0, s1, ... in the reference's
+        tree order; for pca: count, Σx, XᵀX) and its accounting meta."""
         with self.lock:
             if self.dropped:
                 raise KeyError("job was finalized/dropped")
@@ -384,7 +531,7 @@ class _Job:
                 arrays = {f"s{i}": t.cpu().numpy() for i, t in enumerate(self.state)}
             meta = {
                 "rows": self.rows,
-                "pass_rows": self.rows,
+                "pass_rows": self.pass_rows,
                 "iteration": self.iteration,
                 "algo": self.algo,
                 "n_cols": self.n_cols,
@@ -392,6 +539,119 @@ class _Job:
             }
             self.touched = self._clock()
             return arrays, meta
+
+    # -- iterative jobs ----------------------------------------------------
+
+    def _iterate_arrays(self) -> Dict[str, np.ndarray]:
+        """The iterate as host arrays (call under the job lock): kmeans
+        {"centers"}, logreg {"w", "b"} (b flattened)."""
+        with _DEVICE_LOCK:
+            if self.algo == "kmeans":
+                return {"centers": self.centers.cpu().numpy()}
+            if self.algo == "logreg":
+                return {"w": self.w.cpu().numpy(), "b": self.b.cpu().numpy().reshape(-1)}
+        raise ValueError(f"algo {self.algo!r} is single-pass; it has no iterate")
+
+    def _install_iterate(self, arrays: Dict[str, np.ndarray]) -> None:
+        """Validate the iterate's shapes, then install it on the device
+        (call under the job lock)."""
+        if self.algo == "kmeans":
+            c = np.asarray(arrays["centers"])
+            if c.shape != (self.k, self.n_cols):
+                raise ValueError(f"centers shape {c.shape} != ({self.k}, {self.n_cols})")
+            with _DEVICE_LOCK:
+                self.centers = torch.as_tensor(c).to(self.device, self._accum)
+        elif self.algo == "logreg":
+            w = np.asarray(arrays["w"])
+            b = np.asarray(arrays["b"]).reshape(-1)
+            c = self.n_classes
+            want_w = (self.n_cols, c) if c > 2 else (self.n_cols,)
+            want_b = c if c > 2 else 1
+            if tuple(w.shape) != want_w:
+                raise ValueError(f"coefficients shape {tuple(w.shape)} != {want_w} "
+                                 f"(n_cols={self.n_cols}, n_classes={c})")
+            if b.shape[0] != want_b:
+                raise ValueError(f"intercept length {b.shape[0]} != {want_b} (n_classes={c})")
+            with _DEVICE_LOCK:
+                self.w = torch.as_tensor(w).to(self.device, self._accum)
+                self.b = torch.as_tensor(b if c > 2 else b.reshape(())).to(self.device,
+                                                                          self._accum)
+        else:
+            raise ValueError(f"algo {self.algo!r} is single-pass; set_iterate not applicable")
+
+    def get_iterate(self):
+        """(iterate arrays, {"iteration"}) of an iterative job."""
+        with self.lock:
+            if self.dropped:
+                raise KeyError("job was finalized/dropped")
+            self.touched = self._clock()
+            if self.algo == "kmeans" and self.centers is None:
+                raise ValueError("kmeans job has no centers yet (seed first)")
+            return self._iterate_arrays(), {"iteration": self.iteration}
+
+    def set_iterate(self, arrays: Dict[str, np.ndarray], iteration: int) -> None:
+        """Install a driver-pushed iterate and open pass ``iteration``: the
+        pass statistics and staging reset."""
+        with self.lock:
+            if self.dropped:
+                raise KeyError("job was finalized/dropped")
+            self.touched = self._clock()
+            self._install_iterate(arrays)
+            with _DEVICE_LOCK:
+                self.state = self._zero_state()
+            self._clear_pass()
+            self.iteration = int(iteration)
+            self.touched = self._clock()
+
+    def step(self, params: Dict[str, Any], step_id: Optional[str] = None) -> Dict[str, Any]:
+        """Pass boundary of an iterative job: apply the update over the
+        pass's statistics, open the next pass, and report convergence info
+        (``moved2`` and ``cost`` for kmeans, ``delta`` and ``loss`` for
+        logreg; ``iteration`` and ``pass_rows`` for both). A replayed
+        ``step_id`` returns the cached info of the step already applied."""
+        with self.lock:
+            if self.dropped:
+                raise KeyError("job was finalized/dropped")
+            self.touched = self._clock()
+            if self.algo not in ("kmeans", "logreg"):
+                raise ValueError(f"algo {self.algo!r} is single-pass; step not applicable")
+            if (step_id is not None and self._last_step_info is not None
+                    and str(step_id) == self._last_step_id):
+                return dict(self._last_step_info)
+            pass_rows = self.pass_rows
+            self._clear_pass()
+            if pass_rows == 0:
+                # A retried or premature step over an empty pass would
+                # corrupt the iterate (a zero Hessian solve, moved2 = 0).
+                raise ValueError("step with no rows fed this pass (duplicate step retry, "
+                                 "or executors have not fed yet)")
+            info: Dict[str, Any] = {"iteration": self.iteration + 1}
+            with _DEVICE_LOCK, trace_span("daemon step"):
+                if self.algo == "kmeans":
+                    sums, counts, cost = self.state
+                    self.centers, moved2 = km_mod.apply_lloyd_update(sums, counts, self.centers)
+                    info.update(moved2=float(moved2), cost=float(cost))
+                else:
+                    reg = float(params.get("reg", 0.0))
+                    fit_intercept = bool(params.get("fit_intercept", True))
+                    lsum, n = self.state[5], self.state[6]
+                    info["loss"] = lg_mod.stream_objective(lsum, n, reg, self.w)
+                    if self.multinomial:
+                        self.w, self.b, delta = lg_mod._softmax_step(
+                            self.state, self.w, self.b, reg, fit_intercept)
+                    else:
+                        self.w, self.b, delta = lg_mod._newton_step(
+                            *self.state[:5], n, self.w, self.b, reg, fit_intercept)
+                    info["delta"] = float(delta)
+                self.state = self._zero_state()
+            self.iteration += 1
+            info["pass_rows"] = pass_rows
+            self._last_step_id = None if step_id is None else str(step_id)
+            self._last_step_info = dict(info)
+            self.touched = self._clock()  # exit stamp
+            return info
+
+    # -- finalize ----------------------------------------------------------
 
     def finalize(self, params: Dict[str, Any], drop: bool = False) -> Dict[str, np.ndarray]:
         with self.lock:
@@ -405,6 +665,40 @@ class _Job:
             return result
 
     def _finalize_locked(self, params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        if self.algo == "kmeans":
+            # The cost is the current (unstepped) pass's: a driver feeds one
+            # pass at the final centres without stepping to read it.
+            if self.centers is None:
+                raise ValueError("finalize before any feed: no centers")
+            return {
+                "centers": self.centers.cpu().numpy(),
+                "cost": np.asarray([float(self.state[2])]),
+                "n_iter": np.asarray([self.iteration]),
+            }
+        if self.algo == "logreg":
+            w = self.w.cpu().numpy()
+            b = self.b.cpu().numpy()
+            if self.multinomial:
+                w, b = w.T, b.reshape(-1)  # Spark's layout: (C, d) and (C,)
+            else:
+                b = b.reshape(1)
+            return {"coefficients": w, "intercept": b, "n_iter": np.asarray([self.iteration])}
+        if self.algo == "linreg":
+            sol = lr_mod.finalize_normal_eq_stats(
+                self.state,
+                reg=float(params.get("reg", 0.0)),
+                elastic_net=float(params.get("elastic_net", 0.0)),
+                fit_intercept=bool(params.get("fit_intercept", True)),
+                max_iter=int(params.get("max_iter", 500)),
+                tol=float(params.get("tol", 1e-6)),
+                n_true=self.rows,
+            )
+            return {
+                "coefficients": sol.coefficients,
+                "intercept": np.asarray([sol.intercept]),
+                "rmse": np.asarray([sol.summary.rmse]),
+                "r2": np.asarray([sol.summary.r2]),
+            }
         if params.get("raw_moments"):
             # A StandardScaler fit is a subset of the PCA statistics
             # (count, Σx, diag XᵀX): no eigensolve.
@@ -429,16 +723,34 @@ class _Job:
         }
 
 
+#: Wire algo → the model class a served registration rebuilds from its
+#: ``_model_data()`` arrays (the reference's ``_model_class``).
+_MODEL_CLASSES = {
+    "pca": PCAModel,
+    "kmeans": km_mod.KMeansModel,
+    "linreg": lr_mod.LinearRegressionModel,
+    "logreg": lg_mod.LogisticRegressionModel,
+}
+
+
+def _model_class(algo: str):
+    cls = _MODEL_CLASSES.get(algo)
+    if cls is None:
+        raise ValueError(
+            f"unknown model algo {algo!r} ({'|'.join(_MODEL_CLASSES)}); {_LATER_MODELS}"
+        )
+    return cls
+
+
 class _ServedModel:
-    """A registered PCA model serving ``transform``: its components stay
-    resident on the daemon's device across batches and connections."""
+    """A registered model serving ``transform``: its arrays stay resident
+    on the daemon's device across batches and connections."""
 
-    algo = "pca"
-
-    def __init__(self, arrays: Dict[str, np.ndarray], params: Dict[str, Any],
+    def __init__(self, algo: str, arrays: Dict[str, np.ndarray], params: Dict[str, Any],
                  device: torch.device, clock=time.monotonic):
         self._clock = clock
-        self.model = PCAModel._from_model_data("served", arrays)
+        self.algo = algo
+        self.model = _model_class(algo)._from_model_data("served", arrays)
         self.model._device = device
         # Params configure serving; unknown names are ignored so client and
         # daemon can skew.
@@ -716,7 +1028,7 @@ class DataPlaneDaemon:
         def _drain_payload():
             # Payload-carrying ops already have their frames in flight when
             # the JSON header is rejected: read them to keep the framing.
-            if op in _PAYLOAD_OPS:
+            if op in _PAYLOAD_OPS and not (op == "seed" and req.get("arrays")):
                 protocol.recv_frame(conn)
             elif op in _ARRAY_OPS:
                 for _ in req.get("arrays") or []:
@@ -750,6 +1062,8 @@ class DataPlaneDaemon:
             self._op_feed(conn, req)
         elif op == "feed_raw":
             self._op_feed_raw(conn, req)
+        elif op == "seed":
+            self._op_seed(conn, req)
         elif op == "commit":
             job = self._get_job(req)
             rows = job.commit(int(req["partition"]), int(_opt(req, "attempt", 0)),
@@ -757,15 +1071,24 @@ class DataPlaneDaemon:
             protocol.send_json(conn, {"ok": True, "rows": rows, **self._identity()})
         elif op == "finalize":
             self._op_finalize(conn, req)
+        elif op == "step":
+            info = self._get_job(req).step(_opt(req, "params", {}), step_id=req.get("step_id"))
+            protocol.send_json(conn, {"ok": True, **self._identity(), **info})
         elif op == "status":
             job = self._get_job(req)
             protocol.send_json(conn, {"ok": True, "rows": job.rows, "algo": job.algo,
-                                      "n_cols": job.n_cols})
+                                      "n_cols": job.n_cols, "pass_rows": job.pass_rows,
+                                      "iteration": job.iteration})
         elif op == "drop":
             protocol.send_json(conn, {"ok": True, "dropped": self._drop_job(str(req.get("job")))})
         elif op == "export_state":
             arrays, meta = self._get_job(req).export_state()
             protocol.send_arrays(conn, arrays, {"ok": True, **meta})
+        elif op == "get_iterate":
+            arrays, meta = self._get_job(req).get_iterate()
+            protocol.send_arrays(conn, arrays, {"ok": True, **meta})
+        elif op == "set_iterate":
+            self._op_set_iterate(conn, req)
         elif op == "ensure_model":
             self._op_ensure_model(conn, req)
         elif op == "transform":
@@ -826,15 +1149,21 @@ class DataPlaneDaemon:
                 job.dropped = True
         return job is not None
 
+    def _lookup_job(self, name: str) -> Optional[_Job]:
+        with self._jobs_lock:
+            return self._jobs.get(name)
+
     def _op_feed(self, conn, req: Dict[str, Any]) -> None:
-        x = _recv_arrow_matrix(conn, "feed", _opt(req, "input_col", "features"),
-                               req.get("n_cols"))
-        self._feed_validated(conn, req, x)
+        labelled = str(_opt(req, "algo", "pca")) in ("linreg", "logreg")
+        x, y = _recv_arrow_matrix(conn, "feed", _opt(req, "input_col", "features"),
+                                  req.get("n_cols"),
+                                  _opt(req, "label_col", "label") if labelled else None)
+        self._feed_validated(conn, req, x, y)
 
     def _op_feed_raw(self, conn, req: Dict[str, Any]) -> None:
         """`feed` with raw little-endian C-contiguous buffers instead of
-        Arrow IPC: array `x` (n, d) float32/float64 (`y` only for the
-        labelled algos, which this port's daemon does not serve yet)."""
+        Arrow IPC: array `x` (n, d) float32/float64 and, for linreg and
+        logreg, `y` (n,)."""
         arrays = _recv_arrays_aligned(conn, req)
         if "x" not in arrays:
             raise ValueError("feed_raw needs an 'x' array in the request spec")
@@ -846,20 +1175,38 @@ class DataPlaneDaemon:
         n_cols = req.get("n_cols")
         if n_cols is not None and int(n_cols) != x.shape[1]:
             raise ValueError(f"feed_raw 'x' width {x.shape[1]} != declared n_cols {n_cols}")
-        self._feed_validated(conn, req, x)
+        y = arrays.get("y")
+        if y is not None:
+            y = y.reshape(-1)
+            if y.shape[0] != x.shape[0]:
+                raise ValueError(f"feed_raw 'y' length {y.shape[0]} != rows {x.shape[0]}")
+        self._feed_validated(conn, req, x, y)
 
-    def _feed_validated(self, conn, req: Dict[str, Any], x: np.ndarray) -> None:
+    def _feed_validated(self, conn, req: Dict[str, Any], x: np.ndarray,
+                        y: Optional[np.ndarray]) -> None:
         """Shared feed tail: validate BEFORE registering a job, so a
         rejected first feed leaves no orphan job (with its d × d buffers)
         under the name."""
         name = str(req["job"])
         algo = str(_opt(req, "algo", "pca"))
-        if algo != "pca":
-            raise ValueError(
-                f"algo {algo!r} is not in the port's daemon yet (it serves 'pca' only)"
-            )
-        with self._jobs_lock:
-            job = self._jobs.get(name)
+        if algo not in _ALGOS:
+            raise ValueError(f"unknown algo {algo!r} ({'|'.join(_ALGOS)}); {_LATER_ALGOS}")
+        params = _opt(req, "params", {})
+        # One parse of n_classes for the label check and the job guard.
+        n_classes = int(params.get("n_classes") or 2)
+        if algo in ("linreg", "logreg"):
+            if y is None:
+                raise ValueError(f"{algo} feed needs a label array")
+            if algo == "logreg" and n_classes > 2:
+                lg_mod.validate_multiclass_labels(y, n_classes)
+            elif algo == "logreg":
+                lg_mod.validate_binary_labels(y)
+        job = self._lookup_job(name)
+        if job is None and algo == "kmeans" and x.shape[0] < int(params.get("k", 0)):
+            # Before registering: a first batch smaller than k must not
+            # leave a centreless job parked under the name.
+            raise ValueError(f"first kmeans batch has {x.shape[0]} rows < k={params.get('k')}; "
+                             "feed a larger first batch (it seeds the centers)")
         part = req.get("partition")
         for retry in (False, True):
             created = False
@@ -868,11 +1215,17 @@ class DataPlaneDaemon:
                     job = self._jobs.get(name)
                     created = job is None
                     if created:
-                        job = _Job(x.shape[1], self._device, clock=self._clock)
+                        job = _Job(algo, x.shape[1], self._device, params, clock=self._clock)
                         self._jobs[name] = job
+            if job.algo != algo:
+                raise ValueError(f"job {name!r} is algo {job.algo!r}; feed requested {algo!r}")
+            if algo == "logreg" and n_classes != job.n_classes:
+                raise ValueError(f"job {name!r} has n_classes={job.n_classes}; feed carried "
+                                 f"n_classes={n_classes}")
             try:
                 job.fold(
                     x,
+                    y,
                     partition=None if part is None else int(part),
                     attempt=int(_opt(req, "attempt", 0)),
                     pass_id=req.get("pass_id"),
@@ -925,7 +1278,64 @@ class DataPlaneDaemon:
                 if self._jobs.get(str(req.get("job"))) is job:
                     del self._jobs[str(req.get("job"))]
         protocol.send_arrays(conn, arrays, {"ok": True, "rows": job.rows,
-                                            "pass_rows": job.rows, **self._identity()})
+                                            "pass_rows": job.pass_rows, **self._identity()})
+
+    def _op_seed(self, conn, req: Dict[str, Any]) -> None:
+        """Driver-sent deterministic kmeans init: the batch seeds the
+        centres, its rows are NOT folded (they arrive through the scan).
+        The rows come as one Arrow payload, or as raw ``arrays`` frames
+        (``x``) from a driver without an Arrow library."""
+        if req.get("arrays"):
+            x = _recv_arrays_aligned(conn, req).get("x")
+            if x is None or x.ndim != 2:
+                raise ValueError("a raw seed needs a 2-D 'x' array in the request spec")
+        else:
+            x, _ = _recv_arrow_matrix(conn, "seed", _opt(req, "input_col", "features"),
+                                      req.get("n_cols"))
+        name = str(req["job"])
+        params = _opt(req, "params", {})
+        k = int(params.get("k", 0))
+        if x.shape[0] < k:
+            raise ValueError(f"seed batch has {x.shape[0]} rows < k={k}")
+        job = self._lookup_job(name)
+        if job is None:
+            with self._jobs_lock:
+                job = self._jobs.get(name)
+                if job is None:
+                    job = _Job("kmeans", x.shape[1], self._device, params, clock=self._clock)
+                    self._jobs[name] = job
+        job.seed_centers(x)
+        protocol.send_json(conn, {"ok": True, "rows": job.rows, **self._identity()})
+
+    def _op_set_iterate(self, conn, req: Dict[str, Any]) -> None:
+        """Install a driver-pushed iterate. When the job is unknown and the
+        request carries ``n_cols`` (with ``algo``/``params``, as a first
+        feed), the job is CREATED at that iterate: the driver's recovery
+        ledger re-seeds a daemon that lost the job. Without ``n_cols`` an
+        unknown job stays an error."""
+        arrays = _recv_arrays_aligned(conn, req)
+        name = str(req["job"])
+        job = self._lookup_job(name)
+        if job is None:
+            n_cols = req.get("n_cols")
+            if n_cols is None:
+                raise KeyError(f"no such job {name!r} (a recovery set_iterate that should "
+                               "recreate it must carry n_cols/algo/params)")
+            job = _Job(str(_opt(req, "algo", "pca")), int(n_cols), self._device,
+                       _opt(req, "params", {}), clock=self._clock)
+            # Installed BEFORE the job is published: a rejected iterate (a
+            # bad shape) leaves no orphan job under the name.
+            job.set_iterate(arrays, int(req["iteration"]))
+            with self._jobs_lock:
+                current = self._jobs.get(name)
+                if current is None:
+                    self._jobs[name] = job
+            if current is None:
+                protocol.send_json(conn, {"ok": True, **self._identity()})
+                return
+            job = current  # raced a concurrent creation: converge on it
+        job.set_iterate(arrays, int(req["iteration"]))
+        protocol.send_json(conn, {"ok": True, **self._identity()})
 
     # -- serving -----------------------------------------------------------
 
@@ -935,15 +1345,12 @@ class DataPlaneDaemon:
         arrays = _recv_arrays_aligned(conn, req)
         name = str(req["model"])
         algo = str(req["algo"])
-        if algo != "pca":
-            raise ValueError(
-                f"model algo {algo!r} is not in the port's daemon yet (it serves 'pca' only)"
-            )
+        _model_class(algo)  # an unknown algo is refused before the registry is touched
         evicted = []
         with self._models_lock:
             existing = self._models.get(name)
             if existing is None:
-                self._models[name] = _ServedModel(arrays, _opt(req, "params", {}),
+                self._models[name] = _ServedModel(algo, arrays, _opt(req, "params", {}),
                                                   self._device, clock=self._clock)
                 created = True
                 evicted = self._enforce_model_cap_locked(keep=name)
@@ -983,7 +1390,7 @@ class DataPlaneDaemon:
     def _op_transform(self, conn, req: Dict[str, Any]) -> None:
         """Run a registered model over one Arrow batch; the role-keyed
         output arrays stream back as raw frames."""
-        x = _recv_arrow_matrix(conn, "transform", _opt(req, "input_col", "features"),
-                               req.get("n_cols"))
+        x, _ = _recv_arrow_matrix(conn, "transform", _opt(req, "input_col", "features"),
+                                  req.get("n_cols"))
         outs = self._lookup_model(str(req["model"])).transform(x)
         protocol.send_arrays(conn, outs, {"ok": True, "rows": int(x.shape[0])})

@@ -1,11 +1,13 @@
-"""Apache Spark integration of the port: ``SparkPCA`` and its session.
+"""Apache Spark integration of the port: the Spark wrappers and their session.
 
-The port of ``spark_rapids_ml_tpu/spark``, cut to its PCA path. The
-reference reaches Spark three ways (SURVEY.md §1), and so does this:
+The port of ``spark_rapids_ml_tpu/spark`` for ``SparkPCA``,
+``SparkLinearRegression``, ``SparkKMeans`` and ``SparkLogisticRegression``.
+The reference reaches Spark three ways (SURVEY.md §1), and so does this:
 
-1. the estimator namespace: ``SparkPCA`` wraps the core ``PCA`` to take a
-   PySpark DataFrame with an ArrayType features column; fit feeds the
-   daemon next to the card from the executors, transform is served by it;
+1. the estimator namespace: each wrapper takes a PySpark DataFrame with
+   an ArrayType features column (and a label column for the regressions)
+   in place of the core estimator's data; fit feeds the daemon next to the
+   card from the executors, transform is served by it;
 2. the data plane: partitions go to that daemon as Arrow batches
    (``serve/``);
 3. GPU resource scheduling: ``write_discovery_script`` writes the script
@@ -19,9 +21,18 @@ point raises a clear error where it is missing.
 from spark_rapids_ml_tpu_torch.spark import daemon_session
 from spark_rapids_ml_tpu_torch.spark.conf import gpu_session_conf
 from spark_rapids_ml_tpu_torch.spark.discovery import discovery_payload, write_discovery_script
-from spark_rapids_ml_tpu_torch.spark.estimator import SparkPCA, register_dataframe_type
+from spark_rapids_ml_tpu_torch.spark.estimator import (
+    SparkKMeans,
+    SparkLinearRegression,
+    SparkLogisticRegression,
+    SparkPCA,
+    register_dataframe_type,
+)
 
 __all__ = [
+    "SparkKMeans",
+    "SparkLinearRegression",
+    "SparkLogisticRegression",
     "SparkPCA",
     "daemon_session",
     "discovery_payload",

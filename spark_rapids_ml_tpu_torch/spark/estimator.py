@@ -1,20 +1,36 @@
-"""The PySpark DataFrame adapter of the port's PCA: ``SparkPCA``.
+"""The PySpark DataFrame adapters of the port: ``SparkPCA``,
+``SparkLinearRegression``, ``SparkKMeans`` and ``SparkLogisticRegression``.
 
-The port of the PCA part of ``spark_rapids_ml_tpu/spark/estimator.py``.
-The reference's user contract is to change one import and keep the Spark
-ML code (reference PCA.scala:27-37, README.md:27-37, with the features
-column an ArrayType): ``SparkPCA().setInputCol("features").setK(3).fit(df)``.
+The port of ``spark_rapids_ml_tpu/spark/estimator.py`` for those four
+estimators. The reference's user contract is to change one import and
+keep the Spark ML code (reference PCA.scala:27-37, README.md:27-37, with
+the features column an ArrayType):
+``SparkPCA().setInputCol("features").setK(3).fit(df)``.
 
-**fit is distributed.** Each partition task streams its Arrow batches to
-the data-plane daemon next to the card (``serve/``) and commits; the
-daemon folds every batch into its (count, Σx, XᵀX) state with one
-``gram_colsum`` launch; the driver finalizes and receives only the model
-(RapidsRowMatrix.scala:118-139). The dataset never reaches the driver.
-Task retries and speculative duplicates are safe: feeds stage per
-(partition, attempt) and only ``commit`` adds a stage, once. The driver
-holds the daemon to the tasks' acks (a row-count mismatch fails the fit)
-and fences a daemon restart under the scan (an incarnation change); with
-``spark.srml.fit.recovery_attempts`` > 0 the scan is replayed.
+**fit is distributed.** Each partition task streams its Arrow batches
+(features, and labels for the regressions) to the data-plane daemon next
+to the card (``serve/``) and commits; the daemon folds every batch into
+its job's state on the card; the driver finalizes and receives only the
+model (RapidsRowMatrix.scala:118-139). The dataset never reaches the
+driver. PCA and LinearRegression are one scan. KMeans and
+LogisticRegression are one scan per pass: the driver seeds KMeans' centres
+from a small prefix sample (``seed``), learns LogisticRegression's class
+count from a one-row-per-task label probe, and after each scan steps
+the daemon's iterate until it converges; KMeans then scans once more at the
+final centres for its training cost. Task retries and speculative
+duplicates are safe: feeds stage per (partition, attempt, pass) and only
+``commit`` adds a stage, once. The driver holds the daemon to the tasks'
+acks (a row-count mismatch, at finalize or at a step, fails the fit) and
+fences a daemon restart under a scan (an incarnation change). With
+``spark.srml.fit.recovery_attempts`` > 0 it keeps a ledger of the last
+iterate (``get_iterate`` at each pass boundary) and replays the failed
+pass from it, recreating a lost job with ``set_iterate``; a single-pass
+fit replays its scan.
+
+Each driver loop is a function of a ``run_pass(pass_id) -> acks``
+callable (``_drive_pca``, ``_drive_linreg``, ``_drive_kmeans``,
+``_drive_logreg``): the Spark fit passes one that runs ``mapInArrow``
+tasks, and a driver without Spark (the card smoke) one of its own.
 
 **transform** runs ``mapInArrow`` tasks that register the model with the
 daemon once (``ensure_model``) and send each batch's features to its
@@ -24,8 +40,9 @@ executor's CPU.
 The port folds into ONE daemon. Refused loudly, each until the ROADMAP
 item that brings it: acks that name a second daemon (the cross-daemon
 merge, Queue 1 items 5–6), a daemon loss tolerance above 0 or the
-``boundary`` join policy (items 5–6). The other Spark wrappers come with
-their daemon jobs (items 2–4).
+``boundary`` join policy (items 5–6). The nearest-neighbour wrappers come
+with the ``knn`` job (item 2's next slice), the scaler and the forests
+with items 3–4.
 
 pyspark is optional: importing this module never needs it (nor pyarrow,
 which the tasks import at use); ``fit``/``transform`` of a Spark DataFrame
@@ -40,6 +57,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch.models import kmeans as _km
+from spark_rapids_ml_tpu_torch.models import linear_regression as _lr
+from spark_rapids_ml_tpu_torch.models import logistic_regression as _lg
 from spark_rapids_ml_tpu_torch.models.pca import PCA as _PCA
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
 from spark_rapids_ml_tpu_torch.spark import daemon_session
@@ -115,6 +135,8 @@ def _evict_daemon_id_cache(job: str) -> None:
 
 
 def _num_rows(batch) -> int:
+    if isinstance(batch, tuple):  # an (x, y) pair of arrays
+        batch = batch[0]
     return int(batch.num_rows) if hasattr(batch, "num_rows") else int(batch.shape[0])
 
 
@@ -129,8 +151,8 @@ def _feed_partition(client, batches, send: Callable[[Any], Any], job: str, parti
 
     ``send(batch)`` sends one batch as ``partition``/``attempt``: an Arrow
     ``feed`` in :class:`_FeedTask`, a raw ``feed_raw`` of a numpy batch
-    where no Arrow library is at hand. Batches are Arrow record batches or
-    (n, d) arrays."""
+    where no Arrow library is at hand. Batches are Arrow record batches,
+    (n, d) arrays or (x, y) pairs of arrays."""
     h, p = address
     daemon_id = _DAEMON_ID_CACHE.get((job, h, p))
     if daemon_id is None:
@@ -163,19 +185,45 @@ def _feed_partition(client, batches, send: Callable[[Any], Any], job: str, parti
     }
 
 
+def _features_col(core) -> str:
+    """The features column a core estimator or model reads: ``inputCol``
+    (PCA) or ``featuresCol``."""
+    return core.getOrDefault("inputCol" if core.hasParam("inputCol") else "featuresCol")
+
+
+def _kmeans_seed_sample(df, input_col: str, k: int) -> np.ndarray:
+    """The (n, d) prefix of ``input_col`` that seeds the kmeans centres: at
+    most max(k, 4,096) rows (:func:`_kmeans_seed_rows`) reach the driver."""
+    import pyarrow as pa
+
+    from spark_rapids_ml_tpu_torch.bridge.arrow import table_column_to_matrix
+
+    selected = df.select(input_col).limit(_kmeans_seed_rows(k))
+    if hasattr(selected, "toArrow"):
+        table = selected.toArrow()
+    else:
+        table = pa.Table.from_pandas(selected.toPandas(), preserve_index=False)
+    if table.num_rows == 0:
+        return np.empty((0, 0), np.float32)
+    return table_column_to_matrix(table, input_col)
+
+
 class _FeedTask:
     """The executor-side partition feeder: a plain picklable callable for
     ``mapInArrow`` (its imports happen on the executor). One task is one
-    partition on one connection: an Arrow ``feed`` per non-empty batch,
-    keyed (partition, attempt, pass_id), then ``commit``; it yields one
-    ack row. (The reference's task also stamps the driver's journal
-    ``trace_ctx`` on every op; that waits for ``utils/journal``, ROADMAP
-    Queue 1 item 7.)"""
+    partition on one connection: an Arrow ``feed`` per non-empty batch
+    (features, and ``label_col`` for linreg/logreg; ``params`` create the
+    job at its first feed), keyed (partition, attempt, pass_id), then
+    ``commit``; it yields one ack row. (The reference's task also stamps
+    the driver's journal ``trace_ctx`` on every op; that waits for
+    ``utils/journal``, ROADMAP Queue 1 item 7.)"""
 
-    def __init__(self, host, port, token, job, algo, input_col, pass_id):
+    def __init__(self, host, port, token, job, algo, input_col, pass_id, label_col=None,
+                 params=None):
         self.host, self.port, self.token = host, port, token
         self.job, self.algo = job, algo
         self.input_col, self.pass_id = input_col, pass_id
+        self.label_col, self.params = label_col, dict(params or {})
 
     def __call__(self, batches):
         import pyarrow as pa
@@ -191,6 +239,7 @@ class _FeedTask:
 
             def send(batch):
                 c.feed(self.job, batch, algo=self.algo, input_col=self.input_col,
+                       label_col=self.label_col or "label", params=self.params,
                        partition=pid, attempt=attempt, pass_id=self.pass_id)
 
             ack = _feed_partition(c, batches, send, self.job, pid, attempt, self.pass_id,
@@ -202,6 +251,35 @@ class _FeedTask:
             "daemon_id": pa.array([ack["daemon_id"]], pa.string()),
             "boots": pa.array([ack["boots"]], pa.string()),
         })
+
+
+class _LabelMaxTask:
+    """A one-row-per-task label scan: each task reports its partition's
+    largest label. One small Spark job (as the reference's numCols probe,
+    RapidsPCA.scala:73-74) tells the driver the class count without
+    collecting labels."""
+
+    def __init__(self, label_col):
+        self._label = label_col
+
+    def __call__(self, batches):
+        import pyarrow as pa
+
+        mx = -1.0
+        for batch in batches:
+            if batch.num_rows:
+                col = pa.Table.from_batches([batch]).column(self._label)
+                arr = np.asarray(col.to_numpy(zero_copy_only=False))
+                if arr.size:
+                    mx = max(mx, float(np.max(arr)))
+        yield pa.RecordBatch.from_pydict({"maxlabel": pa.array([mx], pa.float64())})
+
+
+def _probe_num_classes(df, label_col) -> int:
+    """max(largest label + 1, 2), from one ``_LabelMaxTask`` job."""
+    acks = df.select(label_col).mapInArrow(_LabelMaxTask(label_col), "maxlabel double").collect()
+    mx = max((float(r["maxlabel"]) for r in acks), default=-1.0)
+    return max(int(mx) + 1, 2)
 
 
 def _ack_rows(acks):
@@ -283,14 +361,19 @@ def _refuse_multi_daemon_policies(spark) -> None:
 
 class _SingleDaemonFit:
     """The driver's side of a single-daemon fit: its client, the row
-    accounting of the acks, the guarded finalize and the scan replay.
+    accounting of the acks, the guarded finalize, the recovery ledger and
+    the pass replay.
 
     The port of ``_fit_distributed_inner``'s single-daemon body, as methods
-    rather than closures, so a driver other than ``SparkPCA.fit`` (the
-    card smoke, whose tasks send raw frames) runs the same checks."""
+    rather than closures, so a driver other than the Spark wrappers' fit
+    (the card smoke, whose tasks send raw frames) runs the same checks.
+    ``recovery_attempts`` > 0 arms the ledger: the last good iterate,
+    pulled at each pass boundary (:meth:`record`), which :meth:`recover`
+    reinstalls. The driver loop sets ``algo`` and ``params`` (the feeds'),
+    with which a creating ``set_iterate`` rebuilds a job the daemon lost."""
 
     def __init__(self, host: str, port: int, job: str, token: Optional[str] = None,
-                 **client_kw):
+                 recovery_attempts: int = 0, **client_kw):
         from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
 
         self._token, self._client_kw = token, client_kw
@@ -301,6 +384,11 @@ class _SingleDaemonFit:
         self.addr_by_id = {self.primary_id: self.address}
         self.total_fed = 0
         self.fed_by_daemon: Dict[str, int] = {}
+        self.recovery_attempts = int(recovery_attempts)
+        self.algo: str = "pca"
+        self.params: Dict[str, Any] = {}
+        #: (iterate arrays, the pass they open), or None: no boundary yet.
+        self.ledger: Optional[Tuple[Dict[str, np.ndarray], int]] = None
 
     def account(self, acks) -> int:
         """Take one feed pass's acks into the row accounting; returns the
@@ -336,11 +424,39 @@ class _SingleDaemonFit:
         return ", ".join(f"{self.addr_by_id.get(d, d)}={c}"
                          for d, c in sorted(self.fed_by_daemon.items())) or "no acks"
 
+    def scan(self, run_pass: Callable[[Optional[int]], Any], pass_id: Optional[int]) -> int:
+        """One executor scan (``run_pass(pass_id)`` returns its acks) taken
+        into the accounting; returns its rows. An empty scan is refused."""
+        with trace_span("feed pass"):
+            acks = run_pass(pass_id)
+        n = self.account(acks)
+        if n == 0:
+            raise ValueError("cannot fit on an empty DataFrame")
+        return n
+
+    def step(self, pass_id: int, n: int, params: Optional[dict] = None) -> Dict[str, Any]:
+        """The pass boundary of an iterative fit: ``step`` over the scan of
+        ``n`` rows, held to it (a job resurrected mid-pass answers short
+        instead of stepping on partial sums), then the ledger record."""
+        with trace_span("step"):
+            info = self.client.step(self.job, params=params)
+        if int(info["pass_rows"]) != n:
+            raise _split_brain(f"step (pass {pass_id})", n, int(info["pass_rows"]),
+                               self._fed_detail())
+        self.record()
+        return info
+
+    def record(self) -> None:
+        """Snapshot the iterate into the ledger (recovery on only)."""
+        if self.recovery_attempts > 0:
+            self.ledger = self.client.get_iterate(self.job)
+
     def finalize_guarded(self, params: dict, pass_rows_expected: Optional[int] = None):
         """Finalize with the split-brain row guard: the daemon's total must
-        equal what the tasks acked (and ``pass_rows_expected`` the pass's
-        rows). Finalize with drop=False, check, THEN drop, so a failed
-        guard leaves the job for a replay. Returns (arrays, rows)."""
+        equal what the tasks acked (and ``pass_rows_expected`` the current
+        pass's rows: the kmeans cost reads that pass). Finalize with
+        drop=False, check, THEN drop, so a failed guard leaves the job for a
+        replay. Returns (arrays, rows)."""
         with trace_span("finalize"):
             arrays, fin_rows, meta = self.client.finalize(self.job, params, drop=False,
                                                           with_meta=True)
@@ -357,23 +473,38 @@ class _SingleDaemonFit:
         return arrays, fin_rows
 
     def recover(self, err: Exception) -> None:
-        """Rewind to the start of the scan: a single-pass fit has no ledger,
-        so drop the job and let the replay feed it anew. The restarted
-        primary's new identity becomes the primary's."""
-        logger.warning("fit recovery: replaying the scan after: %s", err)
+        """Rewind to the last pass boundary. With a ledger, reinstall its
+        iterate with a creating ``set_iterate`` (which discards the failed
+        pass's state, or rebuilds a job the daemon lost) and resync the row
+        accounting from the daemon's ``status``; without one (a single-pass
+        fit, or pass 0 of a logreg fit), drop the job and let the replay
+        feed it anew. The restarted primary's new identity becomes the
+        primary's."""
+        logger.warning("fit recovery (%s): replaying from the last pass boundary after: %s",
+                       self.algo, err)
         with trace_span("recovery"):
             new_id = self.client.server_id() or self.primary_id
             if new_id != self.primary_id:
                 self.addr_by_id[new_id] = self.address
                 self.primary_id = new_id
-            _drop_quietly(self.client, self.job, "recovery")
-            self.total_fed = 0
+            if self.ledger is not None:
+                arrays, iteration = self.ledger
+                n_cols = int(arrays["centers"].shape[1] if "centers" in arrays
+                             else arrays["w"].shape[0])
+                self.client.set_iterate(self.job, arrays, iteration, algo=self.algo,
+                                        n_cols=n_cols, params=self.params)
+                self.total_fed = int(self.client.status(self.job)["rows"])
+            else:
+                _drop_quietly(self.client, self.job, "recovery")
+                self.total_fed = 0
             self.fed_by_daemon.clear()
 
-    def with_recovery(self, body: Callable[[], Any], attempts: int):
-        """Run ``body`` (scan + finalize) under the bounded replay loop.
-        Deterministic driver-side errors (validation, config, refusals) are
-        never replayed; daemon and task failures are, ``attempts`` times."""
+    def with_recovery(self, body: Callable[[], Any]):
+        """Run ``body`` (one pass-boundary unit: scan + step, or scan +
+        finalize) under the bounded replay loop, ``recovery_attempts``
+        times. Deterministic driver-side errors (validation, config,
+        refusals) are never replayed; daemon and task failures are."""
+        attempts = self.recovery_attempts
         attempt = 0
         while True:
             try:
@@ -393,17 +524,126 @@ class _SingleDaemonFit:
         self.client.close()
 
 
-def _run_pass(fit: _SingleDaemonFit, sel, task: _FeedTask) -> int:
-    """One executor scan through ``mapInArrow``; returns its rows."""
-    with trace_span("feed pass"):
-        acks = sel.mapInArrow(task, _ACK_SCHEMA).collect()
-    return fit.account(acks)
-
-
 def _pca_model(arrays: dict, device=None) -> PCAModel:
     """The fitted ``PCAModel`` of a PCA finalize's arrays."""
     return PCAModel(pc=arrays["pc"], explained_variance=arrays["explained_variance"],
                     mean=arrays["mean"], device=device)
+
+
+# The driver loops. Each takes the fit, ``run_pass(pass_id) -> acks`` and
+# the core estimator whose params it reads, and returns the fitted core
+# model with its summary.
+
+
+def _drive_pca(fit: _SingleDaemonFit, run_pass, core) -> PCAModel:
+    fit.algo = "pca"
+    params = {"k": core.getK(), "mean_center": core.getMeanCentering(),
+              "solver": core.getSolver()}
+
+    def shot():
+        n = fit.scan(run_pass, None)
+        return fit.finalize_guarded(params, pass_rows_expected=n)
+
+    arrays, _ = fit.with_recovery(shot)
+    return _pca_model(arrays, device=core._device)
+
+
+def _drive_linreg(fit: _SingleDaemonFit, run_pass, core) -> "_lr.LinearRegressionModel":
+    fit.algo = "linreg"
+    params = {"reg": core.getRegParam(), "elastic_net": core.getElasticNetParam(),
+              "fit_intercept": core.getFitIntercept(), "max_iter": core.getMaxIter(),
+              "tol": core.getTol()}
+
+    def shot():
+        n = fit.scan(run_pass, None)
+        return fit.finalize_guarded(params, pass_rows_expected=n)
+
+    arrays, rows = fit.with_recovery(shot)
+    model = _lr.LinearRegressionModel(coefficients=arrays["coefficients"],
+                                      intercept=float(arrays["intercept"][0]),
+                                      device=core._device)
+    # rss and tss are not on the wire: the finalize sends rmse and r2.
+    model._summary = _lr.LinearRegressionTrainingSummary(
+        rmse=float(arrays["rmse"][0]), r2=float(arrays["r2"][0]), rss=float("nan"),
+        tss=float("nan"), n_rows=rows)
+    return model
+
+
+def _kmeans_seed_rows(k: int) -> int:
+    """Rows of the driver's seed sample: at least k, at most 4,096 unless k
+    is larger, 32 per centre between."""
+    return max(k, min(4096, 32 * k))
+
+
+def _drive_kmeans(fit: _SingleDaemonFit, run_pass, core,
+                  seed_sample: np.ndarray) -> "_km.KMeansModel":
+    """Seed the centres from ``seed_sample`` (an (n, d) array sent as raw
+    frames), then passes of scan + step until moved² <= tol² or maxIter,
+    then one cost-only scan at the final centres and the guarded finalize."""
+    k = core.getK()
+    fit.algo, fit.params = "kmeans", {"k": k, "seed": core.getSeed(), "init": core.getInitMode()}
+    if seed_sample.shape[0] == 0:
+        raise ValueError("cannot fit on an empty DataFrame")
+    with trace_span("seed"):
+        fit.client.seed_kmeans_raw(fit.job, seed_sample, k=k, params=fit.params)
+    fit.record()  # pass 0 opens with the seeded centres: a pass-0 replay reinstalls them
+    tol2 = core.getTol() ** 2
+    info = {"iteration": 0}
+
+    def kmeans_pass(pass_id):
+        return fit.step(pass_id, fit.scan(run_pass, pass_id))
+
+    for it in range(core.getMaxIter()):
+        info = fit.with_recovery(lambda pid=it: kmeans_pass(pid))
+        if info["moved2"] <= tol2:
+            break
+
+    # The step's cost is at the centres it moved from: the final cost is one
+    # unstepped scan at the final centres, read by finalize.
+    def final():
+        n = fit.scan(run_pass, info["iteration"])
+        return n, fit.finalize_guarded({}, pass_rows_expected=n)[0]
+
+    n_rows, arrays = fit.with_recovery(final)
+    cost = float(arrays["cost"][0])
+    model = _km.KMeansModel(centers=arrays["centers"], device=core._device)
+    model._training_cost = cost
+    model._n_iter = int(info["iteration"])
+    model._summary = _km.KMeansSummary(trainingCost=cost, numIter=int(info["iteration"]),
+                                       k=k, n_rows=n_rows)
+    return model
+
+
+def _drive_logreg(fit: _SingleDaemonFit, run_pass, core,
+                  n_classes: int) -> "_lg.LogisticRegressionModel":
+    """Newton (binary) or MM-Newton (``n_classes`` > 2) passes of scan +
+    step until delta <= tol or maxIter, then the guarded finalize."""
+    fit.algo, fit.params = "logreg", {"n_classes": int(n_classes)}
+    step_params = {"reg": core.getRegParam(), "fit_intercept": core.getFitIntercept()}
+    info = {"loss": float("nan"), "iteration": 0}
+    rows, history = 0, []
+
+    def logreg_pass(pass_id):
+        n = fit.scan(run_pass, pass_id)
+        return n, fit.step(pass_id, n, step_params)
+
+    for it in range(core.getMaxIter()):
+        rows, info = fit.with_recovery(lambda pid=it: logreg_pass(pid))
+        history.append(float(info["loss"]))
+        if info["delta"] <= core.getTol():
+            break
+    arrays, _ = fit.with_recovery(lambda: fit.finalize_guarded({}))
+    coef = arrays["coefficients"]
+    model = _lg.LogisticRegressionModel(
+        coefficients=coef,
+        # Binary: a scalar; multinomial ((C, d) coefficients): (C,).
+        intercept=float(arrays["intercept"][0]) if coef.ndim == 1 else arrays["intercept"],
+        device=core._device,
+    )
+    model._summary = _lg.LogisticTrainingSummary(
+        loss=float(info["loss"]), numIter=int(info["iteration"]), n_rows=rows,
+        objectiveHistory=tuple(history))
+    return model
 
 
 class _SparkAdapter:
@@ -438,49 +678,60 @@ class _SparkAdapter:
 
     def _fit_distributed(self, df):
         """Executor-fed fit: partition batches flow task → daemon, and the
-        driver sees only the finalize's O(d·k) arrays."""
+        driver sees only the finalize's arrays (and, for KMeans, a prefix
+        sample of at most max(k, 4,096) rows to seed the centres)."""
         core = self._core
+        algo = self._daemon_algo
         spark = getattr(df, "sparkSession", None)
         _refuse_multi_daemon_policies(spark)
         # Without a configured daemon this starts the driver's own on the
         # estimator's device (the card unless device="cpu"; raises without one).
         host, port, token = daemon_session.resolve(spark, device=core._device)
         ckw = daemon_session.client_kwargs(spark)
-        attempts = daemon_session.recovery_attempts(spark)
         job = f"{core.uid}-{uuid.uuid4().hex[:8]}"
-        input_col = core.getInputCol()
-        sel = df.select(input_col)
-        fit = _SingleDaemonFit(host, port, job, token=token, **ckw)
-        task = _FeedTask(host, port, token, job, self._daemon_algo, input_col, None)
-        params = {"k": core.getK(), "mean_center": core.getMeanCentering(),
-                  "solver": core.getSolver()}
-
-        def pca_shot():
-            n = _run_pass(fit, sel, task)
-            if n == 0:
-                raise ValueError("cannot fit on an empty DataFrame")
-            return fit.finalize_guarded(params, pass_rows_expected=n)
-
+        input_col = _features_col(core)
+        label_col = core.getLabelCol() if algo in ("linreg", "logreg") else None
+        sel = df.select(*([input_col] + ([label_col] if label_col else [])))
+        multi_pass = algo in ("kmeans", "logreg")
+        if multi_pass:
+            sel = sel.persist()
+        fit = _SingleDaemonFit(host, port, job, token=token,
+                               recovery_attempts=daemon_session.recovery_attempts(spark), **ckw)
         try:
-            arrays, _ = fit.with_recovery(pca_shot, attempts)
+
+            def run_pass(pass_id):
+                task = _FeedTask(host, port, token, job, algo, input_col, pass_id,
+                                 label_col=label_col, params=fit.params)
+                return sel.mapInArrow(task, _ACK_SCHEMA).collect()
+
+            if algo == "pca":
+                model = _drive_pca(fit, run_pass, core)
+            elif algo == "linreg":
+                model = _drive_linreg(fit, run_pass, core)
+            elif algo == "kmeans":
+                model = _drive_kmeans(fit, run_pass, core,
+                                      _kmeans_seed_sample(sel, input_col, core.getK()))
+            else:
+                model = _drive_logreg(fit, run_pass, core, _probe_num_classes(sel, label_col))
         finally:
             _evict_daemon_id_cache(job)
             fit.close()
-        model = _pca_model(arrays, device=core._device)
+            if multi_pass:
+                sel.unpersist()
         model.uid = core.uid
         core._copy_params_to(model)
         return model
 
 
 def _serve_spec(core_model):
-    """(wire algo, [(role, output column)]) of a model that declares the
-    daemon serving contract (``_serve_algo``/``_serve_outputs``). The
-    port serves only ``vec`` outputs (PCA's); another kind has no spec."""
+    """(wire algo, [(role, output column, kind)]) of a model that declares
+    the daemon serving contract (``_serve_algo``/``_serve_outputs``); None
+    for a model without one."""
     algo = getattr(core_model, "_serve_algo", None)
     outs = getattr(core_model, "_serve_outputs", None)
-    if not algo or not outs or any(kind != "vec" for _, _, kind in outs):
+    if not algo or not outs:
         return None
-    return algo, [(role, core_model.getOrDefault(param)) for role, param, _ in outs]
+    return algo, [(role, core_model.getOrDefault(param), kind) for role, param, kind in outs]
 
 
 def _model_fingerprint(core_model) -> str:
@@ -496,19 +747,29 @@ def _model_fingerprint(core_model) -> str:
     return h.hexdigest()[:12]
 
 
-def _output_column(vals, n_rows):
-    """One ``vec`` output column as list<float64>, whatever dtype the
-    transform computed in."""
+def _arrow_kind_type(kind):
+    import pyarrow as pa
+
+    return {"vec": pa.list_(pa.float64()), "int": pa.int32(), "double": pa.float64()}[kind]
+
+
+def _output_column(vals, kind, n_rows):
+    """One output column of its declared kind, whatever dtype the transform
+    computed in: ``vec`` list<float64>, ``int`` int32, ``double`` float64."""
     import pyarrow as pa
 
     if n_rows == 0:
-        return pa.array([], pa.list_(pa.float64()))
+        return pa.array([], _arrow_kind_type(kind))
     if vals is None:
         raise RuntimeError(
             "daemon transform returned no array for a declared output role (client/daemon "
             "version skew?); upgrade the daemon or set SRML_TRANSFORM_LOCAL=1 to score "
             "executor-side"
         )
+    if kind == "int":
+        return pa.array(np.asarray(vals).astype(np.int32))
+    if kind == "double":
+        return pa.array(np.asarray(vals, dtype=np.float64))
     from spark_rapids_ml_tpu_torch.bridge.arrow import matrix_to_list_column
 
     vals = np.asarray(vals, dtype=np.float64)
@@ -524,19 +785,22 @@ def _derive_output_schema(dataset, outputs):
         base = dataset.schema
     except (ImportError, AttributeError):
         return None
-    out_names = {name for _, name in outputs}
+    out_names = {name for _, name, _ in outputs}
     fields = [f for f in base.fields if f.name not in out_names]
-    for _, name in outputs:
-        fields.append(T.StructField(name, T.ArrayType(T.DoubleType()), True))
+    spark_types = {"vec": lambda: T.ArrayType(T.DoubleType()), "int": T.IntegerType,
+                   "double": T.DoubleType}
+    for _, name, kind in outputs:
+        fields.append(T.StructField(name, spark_types[kind](), True))
     return T.StructType(fields)
 
 
 def _append_outputs(table, role_arrays, outputs):
     """Append (or replace) the model's output columns on one batch table."""
-    for role, colname in outputs:
+    for role, colname, kind in outputs:
         if colname in table.column_names:
             table = table.drop_columns([colname])
-        table = table.append_column(colname, _output_column(role_arrays.get(role), table.num_rows))
+        table = table.append_column(colname,
+                                    _output_column(role_arrays.get(role), kind, table.num_rows))
     return table
 
 
@@ -639,7 +903,7 @@ class _SparkModelAdapter:
                 "estimators (spark_rapids_ml_tpu_torch.*) directly"
             )
         algo, outputs = spec
-        input_col = core.getInputCol()
+        input_col = _features_col(core)
         if os.environ.get("SRML_TRANSFORM_LOCAL", "").lower() in ("1", "true"):
             fn = _TransformTask(core, input_col, outputs)
         else:
@@ -655,3 +919,28 @@ class SparkPCA(_SparkAdapter):
 
     _core_cls = _PCA
     _daemon_algo = "pca"
+
+
+class SparkLinearRegression(_SparkAdapter):
+    """LinearRegression over PySpark DataFrames: one scan of (features,
+    label) folded into the daemon's normal equations, served predictions."""
+
+    _core_cls = _lr.LinearRegression
+    _daemon_algo = "linreg"
+
+
+class SparkKMeans(_SparkAdapter):
+    """KMeans over PySpark DataFrames: centres seeded by the driver from a
+    prefix sample, one scan per Lloyd pass, served int32 predictions."""
+
+    _core_cls = _km.KMeans
+    _daemon_algo = "kmeans"
+
+
+class SparkLogisticRegression(_SparkAdapter):
+    """LogisticRegression over PySpark DataFrames: the class count from a
+    label probe, one scan per Newton (binary) or MM-Newton (multinomial)
+    pass, served rawPrediction, probability and prediction."""
+
+    _core_cls = _lg.LogisticRegression
+    _daemon_algo = "logreg"

@@ -415,9 +415,9 @@ def _version_mismatch_with_payload(sock):
 
 
 def _unported_op_with_payload(sock):
-    protocol.send_json(sock, {"v": 1, "op": "seed", "job": "km", "params": {"k": 2}})
+    protocol.send_json(sock, {"v": 1, "op": "kneighbors", "model": "knn", "k": 2})
     protocol.send_frame(sock, DataPlaneClient._to_ipc(np.ones((4, 3)), "features"))
-    return "unknown op 'seed'"
+    return "unknown op 'kneighbors'"
 
 
 @pytest.mark.parametrize("bad_request", [
@@ -440,14 +440,16 @@ def test_rejected_request_keeps_the_framing(daemon, bad_request):
 
 
 def test_non_pca_algo_refused_without_a_job(daemon, data):
+    """The algos of later slices ('knn', 'rf' jobs, the 'scaler' model) are
+    refused before a job or model is registered."""
     with _client(daemon) as c:
         for feed in (c.feed, c.feed_raw):
-            with pytest.raises(RuntimeError, match="'linreg' is not in the port's daemon"):
-                feed("lr", data, algo="linreg")
+            with pytest.raises(RuntimeError, match="'knn'.*does not run 'knn'"):
+                feed("nn", data, algo="knn")
         with pytest.raises(RuntimeError, match="no such job"):
-            c.status("lr")
-        with pytest.raises(RuntimeError, match="'kmeans' is not in the port's daemon"):
-            c.ensure_model("km", "kmeans", {"clusterCenters": data[:2]})
+            c.status("nn")
+        with pytest.raises(RuntimeError, match="'scaler'.*does not serve 'scaler'"):
+            c.ensure_model("sc", "scaler", {"mean": data[0], "std": data[1]})
         assert c.ping()
     assert not daemon._jobs and not daemon._models
 
