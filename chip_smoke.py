@@ -40,7 +40,7 @@ Phases, each of which exits non-zero on a failed check:
    (1e-5) and its plain version (2⁻⁸ of Σ|terms| for the Hessian, 1e-5
    for the rest). d = 300 and 13, and float32, must take the FFMA route.
    ``python3 chip_smoke.py --phase2`` stops after this phase;
-   ``--data-plane`` runs phases 19 to 21 alone after the build.
+   ``--data-plane`` runs phases 19 to 22 alone after the build.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -184,12 +184,40 @@ Phases, each of which exits non-zero on a failed check:
     each check; each served predict through ``ensure_model`` is bitwise
     equal to ``transform_matrix``. It prints rows/s and ms per pass of each
     fit, the daemon's span split and the device busy share.
+22. The knn job through the Spark feed protocol: the port's daemon in this
+    process on the card, 8 task processes spawned once and reused by both
+    fits, each building its float32 frames of bench_knn.py's mixture from
+    its seed (2 ``feed_raw`` frames of 65,536 x 768: 1,048,576 rows at
+    config #5's width) and running ``_feed_partition``; partition 3's
+    attempt 0 dies after one feed in each fit. This process runs
+    ``spark/estimator._drive_knn`` twice: exact ``NearestNeighbors`` (k =
+    10) and ``ApproximateNearestNeighbors`` (k = 10, nlist 1,024, nprobe
+    20), each finalize building the index on the daemon and registering
+    it. Acked, ``status`` and finalize rows must be 1,048,576. Exact: no
+    kernel at the build; 4,096 queries through ``_DaemonKNNModel.kneighbors``
+    (raw frames), one ``dist_topk`` launch a call on the tensor-core route;
+    the ids equal the in-process ``NearestNeighborsModel``'s over the same
+    rows in partition-major order, the distances within 1e-6 relative, and
+    both are held to float64 brute force as in phase 16. IVF: the build's
+    launches as the in-process build's (10 ``lloyd_step`` on the
+    tensor-core route, ``assign_min_dist``'s f32 chunks on FFMA, the f32
+    ``dist_topk`` spill candidates on FFMA); one fused ``probe_select`` and
+    one tensor-core ``ivf_scan_select`` a served call; recall@10 within
+    0.005 of an in-process build of the same rows, seed and nlist;
+    every returned id's distance against float64 of ‖q − rows[id]‖²; every
+    list probed, recall@10 >= 0.98; whether the daemon's lists equal the
+    in-process build's is printed. It prints each fit's feed rows/s and
+    GiB/s of frames, the build seconds, the served q/s after a warm-up
+    beside the in-process q/s (this phase's and phases 16-17's), the
+    daemon's span split and the device busy share.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
 path and carries the float32 route's numbers under ``f32_*``, the
 ``gram_colsum`` row phase 19's launches under ``daemon_launches``, the
 ``linreg_stats`` and ``softmax_curvature`` rows phase 21's there, the
+``lloyd_step``, ``assign_min_dist``, ``dist_topk``, ``probe_select`` and
+``ivf_scan_select`` rows phase 22's (summed over its parts), the
 ``dist_topk`` row the FFMA tiles' time under ``ffma_ms`` and the
 ``probe_select`` row the sort route's under ``sort_ms``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -239,6 +267,7 @@ KNN_ROWS = 1 << 20  # depth cut from config #5's 10M rows
 KNN_CLUSTERS, KNN_SPREAD = 4096, 0.35
 KNN_QUERIES, KNN_K = 4096, 10
 KNN_NLIST, KNN_NPROBE = 1024, 20
+INPROC_QPS: dict = {}  # phases 16-17's q/s, printed beside phase 22's served q/s
 
 DP_ROWS = 65536  # spark/conf.py:22,40: arrow.maxRecordsPerBatch, one feed
 DP_PARTITIONS, DP_FEEDS = 8, 2  # 1,048,576 rows (BASELINE.json #1's 100M cut in depth)
@@ -1921,6 +1950,7 @@ def phase_knn(torch, kernels, config):
     t0 = time.perf_counter()
     nn.kneighbors(qs)
     nn_s = time.perf_counter() - t0
+    INPROC_QPS["exact"] = KNN_QUERIES / nn_s
     device_breakdown(torch, "exact kneighbors trace", lambda: nn.kneighbors(qs))
     print(f"exact kneighbors: {KNN_QUERIES / nn_s:.1f} q/s ({nn_s:.3f} s for {KNN_QUERIES} "
           f"queries, index resident; first call with the index upload {first_s:.3f} s)",
@@ -2013,6 +2043,7 @@ def phase_knn(torch, kernels, config):
                   f"ivf rerank={rerank}: distances finite, shape {d_a.shape}")
             print(f"ivf kneighbors nprobe {KNN_NPROBE} rerank={rerank}: {KNN_QUERIES / q_s:.1f} q/s "
                   f"({q_s:.3f} s), recall@{KNN_K} {rec:.4f} vs float64 ground truth", flush=True)
+    INPROC_QPS["ivf"] = KNN_QUERIES / results[True][2]
     device_breakdown(torch, f"ivf kneighbors nprobe {KNN_NPROBE} rerank=True trace",
                      lambda: ann.kneighbors(qs), top=10)
     ann._set(nprobe=KNN_NLIST)
@@ -2602,6 +2633,23 @@ P21_RUNS = {
 P21_SEED = 21
 P21_PASSES = MN_PASSES  # both logreg runs: five passes at tol 0, as phase 12
 KM21_NOISE = KM_SCALE / 100  # blob noise: squared separations 1e4 times the spread
+#: Phase 22: the knn job's frames (run → the P21_RUNS fields; the last is
+#: the mixture's component count), from the seed (P22_SEED, partition, frame).
+P22_RUNS = {"knn": ("knn", KNN_D, DP_ROWS, DP_FEEDS, KNN_CLUSTERS)}
+P22_SEED = 22
+
+
+def knn_frame(np, p, f, rows, d, clusters):
+    """Phase 22's partition ``p`` frame ``f`` (``p`` = DP_PARTITIONS: the
+    queries): bench_knn.py's mixture as ``knn_data`` draws it, a centre
+    drawn uniformly plus KNN_SPREAD · N(0, 1) per coordinate, in numpy
+    float32 from the seed (P22_SEED, p, f); the ``clusters`` N(0, 1)
+    centres from (P22_SEED,)."""
+    centres = np.random.default_rng(P22_SEED).standard_normal((clusters, d), dtype=np.float32)
+    g = np.random.default_rng([P22_SEED, p, f])
+    x = centres[g.integers(0, clusters, rows)]
+    x += np.float32(KNN_SPREAD) * g.standard_normal((rows, d), dtype=np.float32)
+    return x
 
 
 def p21_frame(np, runs, run, p, f):
@@ -2615,6 +2663,8 @@ def p21_frame(np, runs, run, p, f):
     drawn from softmax(xW + b) over the classes; kmeans rows are k blobs of
     centres KM_SCALE·N(0, 1) with noise KM21_NOISE."""
     _, d, rows, _, k = runs[run]
+    if run == "knn":
+        return knn_frame(np, p, f, rows, d, k), None
     r = list(runs).index(run)
     g = np.random.default_rng([P21_SEED, r, p, f])
     shared = np.random.default_rng([P21_SEED, r])
@@ -2689,18 +2739,20 @@ def _p21_task(address, p, runs, cmd_q, out_q):
 
 
 class _P21Pool:
-    """The 8 task processes of phase 21, spawned once (never fork a process
-    that holds a CUDA context) and reused by every pass of every run, so
-    their spawn and imports stay out of the timed passes."""
+    """The 8 task processes of phase 21 (or 22, with ``runs`` P22_RUNS),
+    spawned once (never fork a process that holds a CUDA context) and
+    reused by every pass of every run, so their spawn and imports stay out
+    of the timed passes."""
 
-    def __init__(self, address):
+    def __init__(self, address, runs=None):
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")
         self.out = ctx.Queue()
         self.cmds = [ctx.Queue() for _ in range(DP_PARTITIONS)]
         self.procs = [ctx.Process(target=_p21_task,
-                                  args=(address, p, P21_RUNS, self.cmds[p], self.out),
+                                  args=(address, p, P21_RUNS if runs is None else runs,
+                                        self.cmds[p], self.out),
                                   daemon=True) for p in range(DP_PARTITIONS)]
         for proc in self.procs:
             proc.start()
@@ -2710,7 +2762,7 @@ class _P21Pool:
         msgs = [self.out.get(timeout=timeout) for _ in self.procs]
         bad = [m for m in msgs if m[0] != want]
         if bad:
-            fail(f"phase 21 tasks failed: {bad}")
+            fail(f"task processes failed: {bad}")
         return [m[2] for m in sorted(msgs, key=lambda m: m[1])]
 
     def prepare(self, run):
@@ -3043,6 +3095,268 @@ def phase_iterative_jobs(torch, kernels, config):
     return out
 
 
+def p22_fit(torch, kernels, est, profiling, pool, address, core, tag):
+    """One phase-22 fit: the estimator's ``_drive_knn`` over the pool's one
+    scan (partition SPARK_DYING's attempt 0 dies after a feed), counters
+    reset just before it and read just after, traced for its device time.
+    Returns (the ``_DaemonKNNModel``, a record of the run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    job = f"phase22-{tag}"
+    fit = est._SingleDaemonFit(*address, job)
+    rec = {}
+    finalize_knn = fit.client.finalize_knn
+
+    def timed_finalize(*a, **kw):
+        rec["status"] = fit.client.status(job)["rows"]
+        t0 = time.perf_counter()
+        rec["info"] = finalize_knn(*a, **kw)
+        rec["build_s"] = time.perf_counter() - t0
+        return rec["info"]
+
+    fit.client.finalize_knn = timed_finalize
+
+    def run_pass(pass_id):
+        t0 = time.perf_counter()
+        acks = pool.scan("knn", job, {}, pass_id, dies=True)
+        rec["feed_s"] = time.perf_counter() - t0
+        return acks
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    profiling.reset_span_totals()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model = est._drive_knn(fit, run_pass, core)
+        rec["s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    fit.close()
+    rec["launches"], rec["routes"] = dict(kernels.LAUNCHES), dict(kernels.ROUTES)
+    spans = profiling.span_totals()
+    busy_ms, by_name, _ = device_time(torch, prof)
+    del prof
+    n = DP_PARTITIONS * DP_FEEDS * DP_ROWS
+    built = int(rec["info"]["n_rows"][0])
+    check(fit.total_fed == rec["status"] == built == model.numRows == n,
+          f"phase 22 {tag}: acked {fit.total_fed}, status {rec['status']}, finalize n_rows "
+          f"{built}, handle numRows {model.numRows} == {n} (the dying attempt's rows counted "
+          f"nowhere)")
+    frame_gib = (n + DP_ROWS) * KNN_D * 4 / 2 ** 30  # every frame and the dying attempt's one
+    print(f"phase 22 {tag}: feed {n} rows x {KNN_D} in {rec['feed_s']:.3f} s = "
+          f"{n / rec['feed_s']:.1f} rows/s, {frame_gib / rec['feed_s']:.2f} GiB/s of frames; "
+          f"finalize (the index build) {rec['build_s']:.3f} s; fit {rec['s']:.3f} s (host clock)",
+          flush=True)
+    names = ("daemon frame receive", "daemon frame decode", "daemon stage rows",
+             "daemon knn build", "kmeans init", "lloyd", "feed pass", "knn build")
+    print(f"phase 22 {tag} spans (host-clock seconds summed over threads, count): "
+          + ", ".join(f"{nm} {spans[nm][0]:.3f} ({spans[nm][1]})" for nm in names if nm in spans),
+          flush=True)
+    top = ", ".join(f"{nm[:40]} {ms:.3f} ({c})"
+                    for nm, (ms, c) in sorted(by_name.items(), key=lambda r: -r[1][0])[:4])
+    print(f"phase 22 {tag} device time (torch.profiler, CUDA activity): busy {busy_ms:.3f} ms of "
+          f"{rec['s'] * 1e3:.3f} ms ({100 * busy_ms / (rec['s'] * 1e3):.2f} %); largest (ms, "
+          f"count): {top or 'none'}", flush=True)
+    return model, rec
+
+
+def p22_served(torch, kernels, model, qs, tag):
+    """Two served kneighbors calls through the handle (the first uploads
+    the index): (distances, ids of the second, seconds of each, the
+    launches of both)."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    model.kneighbors(qs)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d, i = model.kneighbors(qs)
+    s = time.perf_counter() - t0
+    print(f"phase 22 served {tag} kneighbors: {qs.shape[0] / s:.1f} q/s ({s:.3f} s for "
+          f"{qs.shape[0]} queries after a warm-up; the first call, with the index upload, "
+          f"{first_s:.3f} s)", flush=True)
+    return d, i, s, dict(kernels.LAUNCHES), dict(kernels.ROUTES)
+
+
+def phase_knn_daemon(torch, kernels, config):
+    """Phase 22: the knn job through the Spark feed protocol, the index
+    built and served by the port's daemon on the card. Returns {kernel:
+    launches} over its parts."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_rapids_ml_tpu_torch import (
+        ApproximateNearestNeighbors,
+        NearestNeighbors,
+        NearestNeighborsModel,
+    )
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.spark import estimator as est
+    from spark_rapids_ml_tpu_torch.utils import profiling
+
+    n_rows = DP_PARTITIONS * DP_FEEDS * DP_ROWS
+    print(f"phase 22: the knn job, {DP_PARTITIONS} task processes (spawn, reused by both fits) "
+          f"x {DP_FEEDS} feed_raw frames of {DP_ROWS} x {KNN_D} float32 rows of bench_knn.py's "
+          f"{KNN_CLUSTERS}-component mixture from each task's seed: {n_rows} rows; partition "
+          f"{SPARK_DYING}'s attempt 0 dies after one feed in each fit", flush=True)
+    keys = [(p, f) for p in range(DP_PARTITIONS) for f in range(DP_FEEDS)]
+    rows = np.empty((n_rows, KNN_D), np.float32)  # partition-major, as the daemon orders them
+
+    def fill(i):
+        rows[i * DP_ROWS:(i + 1) * DP_ROWS] = knn_frame(np, *keys[i], DP_ROWS, KNN_D,
+                                                        KNN_CLUSTERS)
+
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        list(ex.map(fill, range(len(keys))))
+    qs = knn_frame(np, DP_PARTITIONS, 0, KNN_QUERIES, KNN_D, KNN_CLUSTERS)
+    x_dev, q_dev = torch.from_numpy(rows).to(DEV), torch.from_numpy(qs).to(DEV)
+    cd = config.compute_dtype(DEV)
+    out = {}
+    with DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as daemon:
+        t_spawn = time.perf_counter()
+        pool = _P21Pool(daemon.address, P22_RUNS)
+        try:
+            pool.prepare("knn")
+            print(f"phase 22 tasks ready (spawned, imported the port, built their frames) in "
+                  f"{time.perf_counter() - t_spawn:.1f} s", flush=True)
+
+            # -- exact: the build stores the rows; dist_topk per served call ------
+            core = NearestNeighbors(device=DEV).setK(KNN_K)
+            model, rec = p22_fit(torch, kernels, est, profiling, pool, daemon.address, core,
+                                 "exact")
+            check(sum(rec["launches"].values()) == 0,
+                  f"phase 22 exact fit: no kernel (the build stores the rows): {rec['launches']}")
+            d_e, i_e, ex_s, launches, routes = p22_served(torch, kernels, model, qs, "exact")
+            check(launches["dist_topk"] == 2 and routes["dist_topk/wgmma"] == 2
+                  and sum(launches.values()) == 2,
+                  f"phase 22 served exact kneighbors: dist_topk launches {launches['dist_topk']} "
+                  f"== 2 calls, on the tensor-core route ({routes['dist_topk/wgmma']}), no other "
+                  f"kernel")
+            out["dist_topk"] = launches["dist_topk"]
+            ref = NearestNeighborsModel(database=rows, device=DEV)._set(k=KNN_K)
+            ref.kneighbors(qs)  # the index upload
+            t0 = time.perf_counter()
+            rd, ri = ref.kneighbors(qs)
+            ref_s = time.perf_counter() - t0
+            check_equal(torch, torch.as_tensor(i_e), torch.as_tensor(ri),
+                        "phase 22 served exact ids vs the in-process NearestNeighborsModel")
+            rel = float(np.max(np.abs(d_e - rd) / np.maximum(np.abs(rd), 1e-30)))
+            check(rel <= 1e-6, f"phase 22 served exact distances vs in-process: max rel err "
+                               f"{rel:.3e} (tol 1e-6)")
+            xr, qr = x_dev.to(cd), q_dev.to(cd)
+            gt_d, gt_i = brute_force64(torch, xr, qr, KNN_K)
+            # Tolerance: phase 16's, 4e-6 of the largest ‖q‖² + ‖r‖² of the
+            # rounded rows (f32 sums over 768 products).
+            scale = (float(kernels.row_sq_norms(qr).max())
+                     + float(kernels.row_sq_norms(xr).max()))
+            tol = 4e-6 * scale
+            del xr, qr
+            for tag, (dd, ii) in (("served", (d_e, i_e)), ("in-process", (rd, ri))):
+                check_selection(torch, f"phase 22 {tag} exact vs float64 of the same "
+                                f"{str(cd)[6:]} rows (tol {tol:.2e})",
+                                torch.as_tensor(dd, device=DEV) ** 2,
+                                torch.as_tensor(ii, device=DEV), gt_d, gt_i, tol)
+            inproc = INPROC_QPS.get("exact")
+            print(f"phase 22 exact q/s: served {KNN_QUERIES / ex_s:.1f}, in-process "
+                  f"NearestNeighborsModel {KNN_QUERIES / ref_s:.1f} (this phase), phase 16 "
+                  f"{'not run' if inproc is None else f'{inproc:.1f}'}", flush=True)
+            device_breakdown(torch, "phase 22 served exact kneighbors trace",
+                             lambda: model.kneighbors(qs))
+            check(model.release(), "phase 22: the exact index released")
+            del ref, gt_d, gt_i, d_e, i_e, rd, ri
+            torch.cuda.empty_cache()
+
+            # -- IVF: the build at finalize, probe + scan per served call ---------
+            core = (ApproximateNearestNeighbors(device=DEV).setK(KNN_K).setNlist(KNN_NLIST)
+                    .setNprobe(KNN_NPROBE))
+            amodel, rec = p22_fit(torch, kernels, est, profiling, pool, daemon.address, core,
+                                  "ivf")
+            b, r = rec["launches"], rec["routes"]
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            ann = (ApproximateNearestNeighbors(device=DEV).setK(KNN_K).setNlist(KNN_NLIST)
+                   .setNprobe(KNN_NPROBE).fit({"features": rows}))
+            ref_build_s = time.perf_counter() - t0
+            rb = dict(kernels.LAUNCHES)
+            print(f"phase 22 ivf build launches: lloyd_step {b['lloyd_step']}, assign_min_dist "
+                  f"{b['assign_min_dist']}, dist_topk {b['dist_topk']}; the in-process build of "
+                  f"the same rows {ref_build_s:.3f} s, launches {rb['lloyd_step']}, "
+                  f"{rb['assign_min_dist']}, {rb['dist_topk']}", flush=True)
+            check(b["lloyd_step"] == rb["lloyd_step"] == r["lloyd_step/wgmma"] == 10,
+                  f"phase 22 ivf build: lloyd_step {b['lloyd_step']} == 10 (the quantizer's "
+                  f"iterations, as in process), all wgmma")
+            check(b["assign_min_dist"] == rb["assign_min_dist"]
+                  and r["assign_min_dist/wgmma"] == 1
+                  and r["assign_min_dist/ffma"] == b["assign_min_dist"] - 1
+                  and b["assign_min_dist"] >= 1 + -(-n_rows // (1 << 18)),
+                  f"phase 22 ivf build: assign_min_dist {b['assign_min_dist']} as in process, the "
+                  f"quantizer's cost pass on the tensor-core route and the f32 chunks on FFMA")
+            check(r["dist_topk/ffma"] == b["dist_topk"] and r["dist_topk/wgmma"] == 0
+                  and sum(b.values()) == b["lloyd_step"] + b["assign_min_dist"] + b["dist_topk"],
+                  f"phase 22 ivf build: its {b['dist_topk']} f32 dist_topk launches (spill "
+                  f"candidates) on the FFMA route, no other kernel")
+            for name in ("lloyd_step", "assign_min_dist"):
+                out[name] = b[name]
+            out["dist_topk"] += b["dist_topk"]
+            served = daemon._lookup_model(amodel.daemon_model_name).model
+            same_lists = np.array_equal(served.index.list_ids, ann.index.list_ids)
+            print(f"phase 22 ivf: the daemon's list_ids equal the in-process build's: "
+                  f"{same_lists} (information: the Lloyd sums' order may differ); maxlen "
+                  f"{int(rec['info']['maxlen'][0])} vs {ann.index.lists.shape[1]}", flush=True)
+            d_a, i_a, ivf_s, launches, routes = p22_served(torch, kernels, amodel, qs, "ivf")
+            check(launches["probe_select"] == 2 and routes["probe_select/fused"] == 2
+                  and launches["ivf_scan_select"] == 2 and routes["ivf_scan_select/wgmma"] == 2,
+                  f"phase 22 served ivf kneighbors: probe_select {launches['probe_select']} == 2 "
+                  f"calls, fused ({routes['probe_select/fused']}); ivf_scan_select "
+                  f"{launches['ivf_scan_select']} == 2, tensor-core "
+                  f"({routes['ivf_scan_select/wgmma']})")
+            out["probe_select"] = launches["probe_select"]
+            out["ivf_scan_select"] = launches["ivf_scan_select"]
+            gt_d, gt_i = brute_force64(torch, x_dev, q_dev, KNN_K)
+            ann.kneighbors(qs)  # the index upload
+            t0 = time.perf_counter()
+            _, i_r = ann.kneighbors(qs)
+            ann_s = time.perf_counter() - t0
+            rec_d, rec_r = recall_at(i_a, gt_i), recall_at(i_r, gt_i)
+            check(abs(rec_d - rec_r) <= 0.005,
+                  f"phase 22 ivf recall@{KNN_K} vs float64 ground truth: served {rec_d:.4f}, the "
+                  f"in-process build of the same rows, seed and nlist {rec_r:.4f} (within 0.005)")
+            ids = torch.as_tensor(i_a, device=DEV)
+            got = torch.as_tensor(d_a, device=DEV) ** 2
+            r64 = x_dev[ids.clamp_min(0).reshape(-1)].double().reshape(KNN_QUERIES, KNN_K, KNN_D)
+            own = ((r64 - q_dev.double()[:, None, :]) ** 2).sum(2)
+            del r64
+            # Tolerance: phase 15's for f32 distances of f32 rows, 4e-6 of the
+            # largest ‖q‖² + ‖r‖²: the rerank recomputes each from the stored
+            # f32 row, so a wrong id (a row id off its partition-major place)
+            # would miss by the whole distance.
+            atol = 4e-6 * (float(kernels.row_sq_norms(q_dev).max())
+                           + float(kernels.row_sq_norms(x_dev).max()))
+            err = float((got - own).abs().max())
+            check(bool((ids >= 0).all()) and err <= atol,
+                  f"phase 22 ivf: every returned id's distance vs float64 of ‖q − rows[id]‖² "
+                  f"(partition-major ids): max err {err:.3e} (tol {atol:.2e})")
+            inproc = INPROC_QPS.get("ivf")
+            print(f"phase 22 ivf q/s (nprobe {KNN_NPROBE}): served {KNN_QUERIES / ivf_s:.1f}, "
+                  f"in-process {KNN_QUERIES / ann_s:.1f} (this phase), phase 17 "
+                  f"{'not run' if inproc is None else f'{inproc:.1f}'}", flush=True)
+            device_breakdown(torch, "phase 22 served ivf kneighbors trace",
+                             lambda: amodel.kneighbors(qs), top=6)
+            served._set(nprobe=KNN_NLIST)
+            kernels.reset_launches()
+            _, i_all = amodel.kneighbors(qs)
+            rec_all = recall_at(i_all, gt_i)
+            check(rec_all >= 0.98 and kernels.ROUTES["probe_select/sort"] == 1,
+                  f"phase 22 ivf every list probed (nprobe {KNN_NLIST}): recall@{KNN_K} "
+                  f"{rec_all:.4f} >= 0.98, its probe on the sort route")
+            check(amodel.release(), "phase 22: the ivf index released")
+            del ann, gt_d, gt_i, served
+        finally:
+            pool.close()
+    del x_dev, q_dev
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3085,7 +3399,7 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
 
     if "--data-plane" in sys.argv[1:]:
-        # Phases 19 to 21 alone, on phase 3's spectrum.
+        # Phases 19 to 22 alone, on phase 3's spectrum.
         j = torch.arange(D, device=DEV, dtype=torch.float32)
         scales = torch.where(j < K, torch.sqrt(2.0 - j / (K - 1)), 0.1 * 0.999 ** j)
         mu = 0.05 * torch.randn((D,), generator=torch.Generator(device=DEV).manual_seed(0),
@@ -3096,7 +3410,9 @@ def main() -> None:
         phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate)
         torch.cuda.empty_cache()
         phase_iterative_jobs(torch, kernels, config)
-        print(f"phases 19-21 passed ({time.perf_counter() - t_start:.1f} s); --data-plane: "
+        phase_knn_daemon(torch, kernels, config)
+        print(card)
+        print(f"phases 19-22 passed ({time.perf_counter() - t_start:.1f} s); --data-plane: "
               "stopping here", flush=True)
         return
 
@@ -3473,6 +3789,10 @@ def main() -> None:
 
     # -- 21. the iterative daemon jobs through the Spark feed protocol -------------------
     for name, n in phase_iterative_jobs(torch, kernels, config).items():
+        next(row for row in table if row["name"] == name)["daemon_launches"] = n
+
+    # -- 22. the knn job: the index built and served by the daemon ------------------------
+    for name, n in phase_knn_daemon(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["daemon_launches"] = n
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")

@@ -6,8 +6,10 @@ one or more frames (Arrow IPC ``feed``, or raw ``feed_raw`` without an
 Arrow library), commits, and closes; the Spark driver (or any one caller)
 finalizes, and for an iterative job (kmeans, logreg) runs the passes:
 ``seed_kmeans``, then per pass the scan and ``step``, with
-``get_iterate``/``set_iterate`` for its recovery ledger. Socket work only:
-no device work happens here.
+``get_iterate``/``set_iterate`` for its recovery ledger. A knn job's
+``finalize_knn`` builds and registers its index on the daemon, which then
+answers ``kneighbors`` (Arrow, or ``kneighbors_raw`` without an Arrow
+library). Socket work only: no device work happens here.
 
 Self-healing: every op runs inside a reconnect loop. A connection-level
 failure (``ConnectionError``, ``ProtocolError``, a socket timeout, any
@@ -443,14 +445,17 @@ class DataPlaneClient:
         return bool(resp["dropped"])
 
     def finalize(self, job: str, params: Dict[str, Any], drop: bool = True,
-                 with_meta: bool = False):
+                 arrays: Optional[Dict[str, np.ndarray]] = None, with_meta: bool = False):
         """Finalize a job: (result arrays, total rows), or with
         ``with_meta=True`` (arrays, rows, meta), where meta holds the ack's
-        other fields (``pass_rows``, ``id``, ``boot_id``). The request
-        always carries ``drop: false``; ``drop=True`` then sends the
-        idempotent ``drop`` once the arrays are in hand."""
+        other fields (``pass_rows``, ``model``, ``id``, ``boot_id``).
+        ``arrays``: raw frames sent with the request (a knn build's
+        ``centroids`` or ``train_rows``). The request always carries
+        ``drop: false``; ``drop=True`` then sends the idempotent ``drop``
+        once the arrays are in hand (a knn finalize consumes its job
+        either way)."""
         req = {"op": "finalize", "job": job, "params": params, "drop": False}
-        resp, outs = self._op(req, want_arrays=True)
+        resp, outs = self._op(req, arrays=arrays or None, want_arrays=True)
         if drop:
             self.drop(job)
         if with_meta:
@@ -482,6 +487,53 @@ class DataPlaneClient:
         (Spark's layout: (C, d) and (C,) for the multinomial protocol)."""
         arrays, _ = self.finalize(job, {})
         return arrays
+
+    def finalize_knn(
+        self,
+        job: str,
+        register_as: str,
+        mode: str = "exact",
+        nlist: Optional[int] = None,
+        nprobe: Optional[int] = None,
+        seed: int = 0,
+        metric: str = "euclidean",
+        row_id_base: Optional[Dict[Any, int]] = None,
+        centroids: Optional[np.ndarray] = None,
+        return_centroids: bool = False,
+        train_rows_sample: Optional[np.ndarray] = None,
+    ) -> Dict[str, np.ndarray]:
+        """Build the index of a knn job's rows ON the daemon and register it
+        as ``register_as`` for :meth:`kneighbors`. Returns only the O(1)
+        info ({"n_rows", "n_cols"} and, for ivf, "nlist", "maxlen",
+        "sharded"); the index never crosses the wire. ``row_id_base`` maps
+        each partition to its global row base; ``centroids`` is a
+        pretrained (nlist, d) quantizer, kept frozen; ``return_centroids``
+        ships the trained quantizer back; ``train_rows_sample`` is the
+        quantizer's training set."""
+        params: Dict[str, Any] = {"mode": mode, "register_as": register_as, "seed": seed,
+                                  "metric": metric}
+        if nlist is not None:
+            params["nlist"] = nlist
+        if nprobe is not None:
+            params["nprobe"] = nprobe
+        if row_id_base is not None:
+            params["row_id_base"] = {str(p): int(b) for p, b in row_id_base.items()}
+        if return_centroids:
+            params["return_centroids"] = True
+        extra: Dict[str, np.ndarray] = {}
+        if centroids is not None:
+            extra["centroids"] = np.asarray(centroids, np.float32)
+        if train_rows_sample is not None:
+            extra["train_rows"] = np.asarray(train_rows_sample)
+        arrays, _ = self.finalize(job, params, arrays=extra or None)
+        return arrays
+
+    def sample_rows(self, job: str, n: int, seed: int = 0) -> np.ndarray:
+        """A seeded uniform sample of at most ``n`` of a knn job's committed
+        rows (read-only)."""
+        _, arrays = self._op({"op": "sample_rows", "job": job, "n": int(n), "seed": int(seed)},
+                             want_arrays=True)
+        return arrays["rows"]
 
     def export_state(self, job: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
         """A job's committed statistics (s0, s1, ... in the reference's order;
@@ -524,3 +576,29 @@ class DataPlaneClient:
     def drop_model(self, name: str) -> bool:
         resp, _ = self._roundtrip({"op": "drop_model", "model": name})
         return bool(resp["dropped"])
+
+    def kneighbors(self, model: str, queries, k: Optional[int] = None,
+                   input_col: str = "features",
+                   n_cols: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Query a daemon-built index with one batch (an (q, d) ndarray or an
+        Arrow table, sent as Arrow IPC): (distances (q, k) float64, indices
+        (q, k) int64 global row ids). ``k`` None: the index's fitted k."""
+        _, arrays = self._op(
+            {"op": "kneighbors", "model": model, "k": k, "input_col": input_col,
+             "n_cols": n_cols},
+            payload=self._to_ipc(queries, input_col),
+            want_arrays=True,
+        )
+        return arrays["distances"], arrays["indices"]
+
+    def kneighbors_raw(self, model: str, x: np.ndarray,
+                       k: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """:meth:`kneighbors` with the queries as a raw ``x`` frame, for a
+        caller without an Arrow library (the port's daemon reads both
+        forms; the JAX daemon reads only Arrow)."""
+        x = np.asarray(x)
+        _, arrays = self._op(
+            {"op": "kneighbors", "model": model, "k": k, "n_cols": int(x.shape[1])},
+            arrays={"x": x}, want_arrays=True,
+        )
+        return arrays["distances"], arrays["indices"]

@@ -1,13 +1,13 @@
 """The data-plane daemon: the executor-to-card feeding path.
 
 The port of ``spark_rapids_ml_tpu/serve/daemon.py``, cut to the jobs of
-the pca, linreg, kmeans and logreg estimators and their serving. A TCP
-server next to the card accepts row batches from Spark tasks (Arrow IPC
-``feed``, or raw little-endian ``feed_raw`` frames where no Arrow library
-is at hand), folds each batch into the device-resident additive state of
-its job, and at ``finalize`` solves and sends the model back — the
-reference's executors-fold, Spark-driver-finalizes design, with the fold
-next to the accelerator.
+the pca, linreg, kmeans, logreg and knn estimators and their serving. A
+TCP server next to the card accepts row batches from Spark tasks (Arrow
+IPC ``feed``, or raw little-endian ``feed_raw`` frames where no Arrow
+library is at hand), folds each batch into the device-resident additive
+state of its job, and at ``finalize`` solves and sends the model back —
+the reference's executors-fold, Spark-driver-finalizes design, with the
+fold next to the accelerator.
 
 pca and linreg are single-pass (``feed``, ``commit``, ``finalize``).
 kmeans and logreg are iterative: the driver scans the data once per pass
@@ -19,12 +19,21 @@ kmeans job is seeded by the driver's ``seed`` op (its rows are not folded)
 or by its first unpartitioned feed. Labels ride the feed: the Arrow
 table's ``label_col``, or ``feed_raw``'s ``y`` array.
 
+A knn job's state is the dataset: its feeds stage host float32 row blocks
+(no device work) and ``commit`` files them under their partition, so the
+rows concatenate partition-major however the commits interleaved.
+``finalize`` BUILDS the index from them (exact: the rows themselves;
+ivf: ``models/knn.build_ivf_flat``) and registers it for ``kneighbors``
+serving under ``register_as``: the dataset-sized index never crosses the
+wire. ``sample_rows`` reads a seeded sample of the committed rows.
+
 Threading: one acceptor thread and one thread per connection (Spark task).
 Concurrent feeds to one job serialize on the job's lock around the fold;
 the fold is an associative add, so arrival order does not matter. Every
-device section (fold, stage creation, commit add, finalize, transform)
-also takes the process-wide ``_DEVICE_LOCK``, always innermost — after any
-job or model lock, never before one — so the lock order stays acyclic.
+device section (fold, stage creation, commit add, finalize, index build,
+transform, kneighbors) also takes the process-wide ``_DEVICE_LOCK``,
+always innermost — after any job or model lock, never before one — so the
+lock order stays acyclic.
 
 Exactly-once under Spark task retry: a feed may carry ``partition`` and
 ``attempt``. Partitioned feeds fold into a stage of their own per
@@ -36,21 +45,25 @@ without folding. A client that lost an ack resends the op with the same
 feeds).
 
 Operations: jobs idle longer than ``ttl`` are evicted by a reaper thread
-(``clock`` is injectable); an optional shared ``token`` is checked in
-constant time on every op; past a connection or staged-bytes watermark,
-ops that add load are shed with ``busy`` and a ``retry_after_s`` hint.
+(``clock`` is injectable); a daemon-built index, which no client can
+re-register, is held 8 times longer and is the last to go under the model
+cap; an optional shared ``token`` is checked in constant time on every
+op; past a connection or staged-bytes watermark, ops that add load are
+shed with ``busy`` and a ``retry_after_s`` hint.
 
-Beyond the reference, ``seed`` also takes its rows as raw ``arrays``
-frames (the ``feed_raw`` framing) in place of the Arrow payload, for a
-driver without an Arrow library; the JAX daemon reads only the Arrow form.
+Beyond the reference, ``seed`` and ``kneighbors`` also take their rows as
+raw ``arrays`` frames (the ``feed_raw`` framing, array ``x``) in place of
+the Arrow payload, for a caller without an Arrow library; the JAX daemon
+reads only the Arrow form. An ivf finalize always runs the host-bucketed
+``build_ivf_flat`` (``build`` "auto" or "host"); the reference's device
+build (``build="device"``, and "auto" under its HBM cap) is refused.
 
 Left for later slices of the port, each answered "unknown op" with its
-payload drained: ``merge_state``, ``reduce_mesh``, ``mesh_info`` and
-``sample_rows`` (the multi-daemon plane, ROADMAP Queue 1 items 5–6);
-durable ``state_dir`` snapshots, faults, the health/metrics/telemetry ops,
-the serving scheduler and AOT warmup (item 7); ``kneighbors`` with the
-``knn`` job (item 2's next slice) and the ``rf`` job (item 4). A feed
-naming such an ``algo`` is refused before a job is registered.
+payload drained: ``merge_state``, ``reduce_mesh`` and ``mesh_info`` (the
+multi-daemon plane, ROADMAP Queue 1 items 5–6); durable ``state_dir``
+snapshots, faults, the health/metrics/telemetry ops, the serving
+scheduler and AOT warmup (item 7); the ``rf`` job (item 4). A feed naming
+such an ``algo`` is refused before a job is registered.
 """
 
 from __future__ import annotations
@@ -69,6 +82,7 @@ import torch
 
 from spark_rapids_ml_tpu_torch import config
 from spark_rapids_ml_tpu_torch.models import kmeans as km_mod
+from spark_rapids_ml_tpu_torch.models import knn as knn_mod
 from spark_rapids_ml_tpu_torch.models import linear_regression as lr_mod
 from spark_rapids_ml_tpu_torch.models import logistic_regression as lg_mod
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel, finalize_pca_stats
@@ -81,25 +95,27 @@ from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 logger = get_logger("serve.daemon")
 
 #: The job algos this daemon runs, and what a feed naming another gets.
-_ALGOS = ("pca", "linreg", "kmeans", "logreg")
-_LATER_ALGOS = ("the port's daemon does not run 'knn' (ROADMAP Queue 1 item 2, its next "
-                "slice) or 'rf' (item 4) yet")
+_ALGOS = ("pca", "linreg", "kmeans", "logreg", "knn")
+_LATER_ALGOS = "the port's daemon does not run 'rf' (ROADMAP Queue 1 item 4) yet"
 _LATER_MODELS = ("the port's daemon does not serve 'scaler' (ROADMAP Queue 1 item 3) or the "
                  "forests (item 4) yet")
 
 #: Ops whose request JSON is followed by one Arrow IPC payload frame
-#: (docs/protocol.md; ``seed`` unless it carries ``arrays``). A rejection
-#: drains that frame so the framing stays aligned; ``kneighbors`` is a
-#: reference op the port answers "unknown op".
+#: (docs/protocol.md; ``seed`` and ``kneighbors`` unless they carry
+#: ``arrays``). A rejection drains that frame so the framing stays aligned.
 _PAYLOAD_OPS = ("feed", "seed", "transform", "kneighbors")
 
 #: Ops whose raw array frames follow the request per its ``arrays`` spec.
-_ARRAY_OPS = ("ensure_model", "merge_state", "set_iterate", "feed_raw", "finalize", "seed")
+_ARRAY_OPS = ("ensure_model", "merge_state", "set_iterate", "feed_raw", "finalize", "seed",
+              "kneighbors")
+
+#: Payload ops that take raw ``arrays`` frames in place of the Arrow frame.
+_RAW_OR_ARROW_OPS = ("seed", "kneighbors")
 
 #: Ops shed with `busy` + retry_after_s over a watermark: the ones that
 #: ADD load. Pressure-relieving ops (commit, finalize, drop) and O(1)
 #: control ops always pass.
-_SHEDDABLE_OPS = ("feed", "feed_raw", "seed", "transform", "ensure_model")
+_SHEDDABLE_OPS = ("feed", "feed_raw", "seed", "transform", "kneighbors", "ensure_model")
 
 #: Process-wide device lock (see the module docstring): taken innermost.
 _DEVICE_LOCK = threading.Lock()
@@ -255,9 +271,12 @@ class _Job:
 
     ``algo`` is ``pca``, ``linreg`` (single-pass), ``kmeans`` or ``logreg``
     (iterative: one pass per ``step``, the iterate read and installed with
-    ``get_iterate``/``set_iterate``). ``params`` are the first feed's
-    creation params: ``k``, ``seed`` and ``init`` for kmeans, ``n_classes``
-    for logreg (above 2 the job runs the multinomial MM-Newton protocol)."""
+    ``get_iterate``/``set_iterate``), or ``knn`` (no device state: ``state``
+    holds the direct feeds' host float32 row blocks in arrival order and
+    ``part_rows`` each committed partition's blocks; finalize builds the
+    index from them). ``params`` are the first feed's creation params:
+    ``k``, ``seed`` and ``init`` for kmeans, ``n_classes`` for logreg
+    (above 2 the job runs the multinomial MM-Newton protocol)."""
 
     def __init__(self, algo: str, n_cols: int, device: torch.device,
                  params: Optional[Dict[str, Any]] = None, clock=time.monotonic):
@@ -297,6 +316,10 @@ class _Job:
             if self.init not in ("k-means++", "random"):
                 raise ValueError(f"unknown init {self.init!r} (k-means++|random)")
             self.centers: Optional[torch.Tensor] = None  # seeded before the first fold
+        elif algo == "knn":
+            self.state: list = []
+            self.part_rows: Dict[int, list] = {}
+            return
         elif algo == "logreg":
             self.n_classes = int(params.get("n_classes") or 2)
             w_shape = (n_cols, self.n_classes) if self.n_classes > 2 else (n_cols,)
@@ -434,6 +457,9 @@ class _Job:
             raise ValueError(f"batch width {x.shape[1]} != job n_cols {self.n_cols}")
         if self.algo in ("linreg", "logreg") and y is None:
             raise ValueError(f"{self.algo} feed needs a label column")
+        if self.algo == "knn":
+            self._stage_rows(x, partition, attempt, feed_id)
+            return
         n = x.shape[0]
         with self.lock:
             if self.dropped:
@@ -488,6 +514,37 @@ class _Job:
             self._mark_folded(feed_id, stage)
             self.touched = self._clock()  # exit stamp: the fold may be slow
 
+    def _stage_rows(self, x: np.ndarray, partition: Optional[int], attempt: int,
+                    feed_id: Optional[str]) -> None:
+        """A knn feed: the rows join the job as a host float32 block, with
+        the exactly-once staging of the device folds (a partitioned block
+        counts only at commit). No device work, so no _DEVICE_LOCK."""
+        block = np.ascontiguousarray(x, dtype=np.float32)
+        n = block.shape[0]
+        with self.lock, trace_span("daemon stage rows"):
+            if self.dropped:
+                raise KeyError("job was finalized/dropped; rows not accepted")
+            self.touched = self._clock()
+            if partition is not None and partition in self.committed:
+                return
+            if partition is None:
+                if self._is_replay(feed_id, None):
+                    return
+                self.state.append(block)
+                self.rows += n
+                self.pass_rows += n
+            else:
+                stage = self.staged.get((partition, attempt))
+                if stage is None:
+                    stage = self.staged[(partition, attempt)] = _Stage([], 0)
+                if self._is_replay(feed_id, stage):
+                    return
+                stage.state.append(block)
+                stage.rows += n
+                stage.nbytes += block.nbytes
+                self.staged_bytes += block.nbytes
+            self._mark_folded(feed_id, None if partition is None else stage)
+
     def commit(self, partition: int, attempt: int = 0, pass_id: Optional[int] = None) -> int:
         """Add a partition's stage into the job state. Idempotent: commits
         for an already-committed partition are acknowledged without adding.
@@ -505,12 +562,17 @@ class _Job:
                     f"commit for partition {partition} attempt {attempt} "
                     "with no staged feed"
                 )
-            # Every state is additive (counts, sums, Grams, gradient and
-            # curvature blocks, cost): the reference's elementwise merge,
-            # done in place.
-            with _DEVICE_LOCK, trace_span("daemon commit"):
-                for acc, part in zip(self.state, staged.state):
-                    acc.add_(part)
+            if self.algo == "knn":
+                # Keyed by partition, not arrival: the finalize concatenates
+                # partition-major, which fixes the global row ids.
+                self.part_rows[partition] = staged.state
+            else:
+                # Every state is additive (counts, sums, Grams, gradient and
+                # curvature blocks, cost): the reference's elementwise
+                # merge, done in place.
+                with _DEVICE_LOCK, trace_span("daemon commit"):
+                    for acc, part in zip(self.state, staged.state):
+                        acc.add_(part)
             self.committed[partition] = staged.rows
             self.rows += staged.rows
             self.pass_rows += staged.rows
@@ -526,6 +588,12 @@ class _Job:
         with self.lock:
             if self.dropped:
                 raise KeyError("job was finalized/dropped")
+            if self.algo == "knn":
+                raise ValueError(
+                    "knn job state is the dataset itself and does not merge across daemons "
+                    "— multi-daemon knn fits instead BUILD A SHARD per daemon (finalize with "
+                    "row_id_base; docs/protocol.md 'Sharded index across daemons')"
+                )
             self.touched = self._clock()
             with _DEVICE_LOCK:
                 arrays = {f"s{i}": t.cpu().numpy() for i, t in enumerate(self.state)}
@@ -539,6 +607,145 @@ class _Job:
             }
             self.touched = self._clock()
             return arrays, meta
+
+    # -- knn jobs ----------------------------------------------------------
+
+    def _row_blocks(self) -> list:
+        """The committed rows as blocks (call under the job lock): direct
+        feeds in arrival order, then each partition's in partition order."""
+        blocks = list(self.state)
+        for pid in sorted(self.part_rows):
+            blocks.extend(self.part_rows[pid])
+        return blocks
+
+    def sample_rows(self, n: int, seed: int = 0) -> np.ndarray:
+        """A seeded uniform sample of this knn job's COMMITTED rows
+        (read-only): ``min(n, committed)`` distinct rows in row order,
+        Floyd's sampling of ``default_rng(seed)``."""
+        with self.lock:
+            if self.dropped:
+                raise KeyError("job was finalized/dropped")
+            if self.algo != "knn":
+                raise ValueError("sample_rows is a knn-job op (other algos hold O(d²) "
+                                 "statistics, not rows)")
+            self.touched = self._clock()
+            blocks = self._row_blocks()
+            total = sum(b.shape[0] for b in blocks)
+            if total == 0:
+                raise ValueError("sample_rows before any committed feed")
+            if int(n) <= 0:
+                raise ValueError(f"sample_rows n must be positive, got {n}")
+            n = min(int(n), total)
+            # shuffle=False: Floyd's O(n) sampling, as build_ivf_flat's pick.
+            pick = np.sort(np.random.default_rng(int(seed)).choice(
+                total, n, replace=False, shuffle=False))
+            out = np.empty((n, blocks[0].shape[1]), blocks[0].dtype)
+            base = taken = 0
+            for b in blocks:
+                hi = base + b.shape[0]
+                j = int(np.searchsorted(pick, hi, side="left"))
+                if j > taken:
+                    out[taken:j] = b[pick[taken:j] - base]
+                    taken = j
+                base = hi
+            return out
+
+    def _id_map(self, id_base: Dict[Any, int]) -> np.ndarray:
+        """Local (partition-major) row position → global row id, from the
+        driver's {partition: global base} (call under the job lock)."""
+        if self.state:
+            raise ValueError("row_id_base needs fully partitioned feeds (direct unpartitioned "
+                             "rows have no global position)")
+        pieces = []
+        for pid in sorted(self.part_rows):
+            n_p = sum(b.shape[0] for b in self.part_rows[pid])
+            base = id_base.get(str(pid), id_base.get(pid))
+            if base is None:
+                raise ValueError(f"row_id_base missing partition {pid} (this daemon committed it)")
+            pieces.append(np.arange(base, base + n_p, dtype=np.int64))
+        return np.concatenate(pieces) if pieces else np.zeros(0, np.int64)
+
+    def build_knn_model(self, params: Dict[str, Any],
+                        extra_arrays: Optional[Dict[str, np.ndarray]] = None):
+        """Build the exact or IVF index from the committed rows and consume
+        the job: (core model, info arrays, id map or None). The daemon
+        registers the model for ``kneighbors``; only the O(1) info goes
+        back to the caller.
+
+        ``params``: ``mode`` (exact|ivf), ``metric``, and for ivf ``nlist``,
+        ``seed``, ``nprobe`` and ``build`` (auto|host; "device" is refused:
+        the port has one IVF build, host-bucketed); ``row_id_base`` maps
+        each partition to its global row base (the served ids become those
+        global partition-major positions); ``return_centroids`` ships the
+        quantizer back. ``extra_arrays``: ``centroids``, a pretrained
+        quantizer kept frozen, or ``train_rows``, the quantizer's training
+        set (ignored when ``centroids`` is given)."""
+        extra_arrays = extra_arrays or {}
+        with self.lock:
+            if self.dropped:
+                raise KeyError("job was finalized/dropped")
+            self.touched = self._clock()
+            blocks = self._row_blocks()
+            if not blocks:
+                raise ValueError("finalize before any feed: no rows")
+            id_base = params.get("row_id_base") or None
+            id_map = None if id_base is None else self._id_map(id_base)
+            mode = str(params.get("mode", "exact"))
+            metric = str(params.get("metric") or "euclidean")
+            build = str(params.get("build") or "auto")
+            if mode not in ("exact", "ivf"):
+                raise ValueError(f"unknown knn mode {mode!r} (exact|ivf)")
+            if mode == "ivf":
+                if metric == "inner_product":
+                    raise ValueError("metric='inner_product' needs mode='exact' (IVF partitions "
+                                     "by L2 proximity)")
+                if build == "device":
+                    raise ValueError(
+                        "build='device' is not in the port: its IVF index is built by "
+                        "models/knn.build_ivf_flat (assignment on the card, host bucketing); "
+                        "use build='auto' or 'host' (ROADMAP Queue 3)")
+                if build not in ("auto", "host"):
+                    raise ValueError(f"unknown build {build!r} (auto|device|host)")
+            with trace_span("daemon knn build"):
+                rows = np.concatenate(blocks)
+                info = {"n_rows": np.asarray([rows.shape[0]], np.int64),
+                        "n_cols": np.asarray([rows.shape[1]], np.int64)}
+                if mode == "exact":
+                    model = knn_mod.NearestNeighborsModel(database=rows, device=self.device)
+                    model._set(metric=metric)
+                else:
+                    if metric == "cosine":
+                        # The index stores unit-normalized (augmented) rows;
+                        # kneighbors normalizes the queries the same way.
+                        rows = knn_mod._normalized_rows(rows, zero_slot=0)
+                    nlist = int(params["nlist"])
+                    cent_in = extra_arrays.get("centroids")
+                    if cent_in is not None:
+                        cent_in = np.asarray(cent_in, np.float32)
+                    train_in = extra_arrays.get("train_rows")
+                    if train_in is not None:
+                        train_in = np.asarray(train_in)
+                        if metric == "cosine":
+                            train_in = knn_mod._normalized_rows(train_in, zero_slot=0)
+                    with _DEVICE_LOCK:
+                        index = knn_mod.build_ivf_flat(
+                            rows, nlist=nlist, seed=int(params.get("seed") or 0),
+                            centroids=cent_in, train_data=train_in, device=self.device)
+                    model = knn_mod.ApproximateNearestNeighborsModel(index=index,
+                                                                     device=self.device)
+                    model._set(metric=metric)
+                    model._index_metric = metric
+                    if params.get("nprobe"):
+                        model._set(nprobe=int(params["nprobe"]))
+                    info["nlist"] = np.asarray([nlist], np.int64)
+                    info["maxlen"] = np.asarray([index.lists.shape[1]], np.int64)
+                    info["sharded"] = np.asarray([0], np.int64)
+                    if params.get("return_centroids"):
+                        info["centroids"] = np.asarray(index.centroids, np.float32)
+            # The rows are consumed by the built index.
+            self.dropped = True
+            self.state, self.part_rows = [], {}
+            return model, info, id_map
 
     # -- iterative jobs ----------------------------------------------------
 
@@ -743,8 +950,12 @@ def _model_class(algo: str):
 
 
 class _ServedModel:
-    """A registered model serving ``transform``: its arrays stay resident
-    on the daemon's device across batches and connections."""
+    """A registered model serving ``transform`` (or ``kneighbors``): its
+    arrays stay resident on the daemon's device across batches and
+    connections. ``ttl_scale`` multiplies the reaper's TTL: 1 for an
+    ``ensure_model`` registration (its client re-registers on a miss), 8
+    for a daemon-built index (:meth:`from_model`), which nothing can
+    re-create."""
 
     def __init__(self, algo: str, arrays: Dict[str, np.ndarray], params: Dict[str, Any],
                  device: torch.device, clock=time.monotonic):
@@ -759,12 +970,52 @@ class _ServedModel:
             self.model._set(**known)
         self.lock = threading.Lock()
         self.touched = clock()
+        self.id_map: Optional[np.ndarray] = None
+        self.ttl_scale = 1.0
+
+    @classmethod
+    def from_model(cls, algo: str, model, clock=time.monotonic, id_map=None) -> "_ServedModel":
+        """Wrap a core model the daemon built (a knn index). Its source rows
+        were consumed by the build, so the reaper holds it 8× longer than a
+        re-creatable registration. ``id_map``: local row position → global
+        partition-major row id, for an index that holds only some
+        partitions."""
+        obj = cls.__new__(cls)
+        obj._clock = clock
+        obj.algo = algo
+        obj.model = model
+        obj.lock = threading.Lock()
+        obj.touched = clock()
+        obj.id_map = None if id_map is None else np.asarray(id_map, np.int64)
+        obj.ttl_scale = 8.0
+        return obj
 
     def transform(self, x) -> Dict[str, Any]:
         with self.lock:
             self.touched = self._clock()
             with _DEVICE_LOCK:
                 return self.model.transform_matrix(x)
+
+    def kneighbors(self, queries: np.ndarray, k):
+        """(distances, indices) of a served index; ids through ``id_map``,
+        the −1 of "fewer than k found" kept as −1."""
+        with self.lock:
+            self.touched = self._clock()
+            if not hasattr(self.model, "kneighbors"):
+                raise ValueError(f"model algo {self.algo!r} does not serve kneighbors")
+            with _DEVICE_LOCK, trace_span("daemon kneighbors"):
+                dists, idx = self.model.kneighbors(queries, k)
+            if self.id_map is not None:
+                idx = np.where(idx >= 0, self.id_map[np.maximum(idx, 0)], -1)
+            return dists, idx
+
+
+def _resolve_k(served: _ServedModel, k):
+    """A kneighbors request's ``k``: None means the model's fitted k."""
+    if k is not None:
+        return int(k)
+    getk = getattr(served.model, "getK", None)
+    return int(getk()) if getk is not None else None
 
 
 class DataPlaneDaemon:
@@ -948,8 +1199,11 @@ class DataPlaneDaemon:
         for name, job in evicted:
             logger.warning("evicted idle job %r (%.1fs > ttl %.1fs, %d rows fed)",
                            name, now - job.touched, self._ttl, job.rows)
+        # A daemon-built index (ttl_scale 8) outlives a re-creatable
+        # registration before its dataset-sized memory is reclaimed.
         with self._models_lock:
-            stale = [n for n, m in self._models.items() if now - m.touched > self._ttl]
+            stale = [n for n, m in self._models.items()
+                     if now - m.touched > self._ttl * m.ttl_scale]
             for n in stale:
                 del self._models[n]
         for n in stale:
@@ -1028,7 +1282,7 @@ class DataPlaneDaemon:
         def _drain_payload():
             # Payload-carrying ops already have their frames in flight when
             # the JSON header is rejected: read them to keep the framing.
-            if op in _PAYLOAD_OPS and not (op == "seed" and req.get("arrays")):
+            if op in _PAYLOAD_OPS and not (op in _RAW_OR_ARROW_OPS and req.get("arrays")):
                 protocol.recv_frame(conn)
             elif op in _ARRAY_OPS:
                 for _ in req.get("arrays") or []:
@@ -1084,6 +1338,10 @@ class DataPlaneDaemon:
         elif op == "export_state":
             arrays, meta = self._get_job(req).export_state()
             protocol.send_arrays(conn, arrays, {"ok": True, **meta})
+        elif op == "sample_rows":
+            rows = self._get_job(req).sample_rows(int(_opt(req, "n", 1024)),
+                                                  int(_opt(req, "seed", 0)))
+            protocol.send_arrays(conn, {"rows": rows}, {"ok": True})
         elif op == "get_iterate":
             arrays, meta = self._get_job(req).get_iterate()
             protocol.send_arrays(conn, arrays, {"ok": True, **meta})
@@ -1093,6 +1351,8 @@ class DataPlaneDaemon:
             self._op_ensure_model(conn, req)
         elif op == "transform":
             self._op_transform(conn, req)
+        elif op == "kneighbors":
+            self._op_kneighbors(conn, req)
         elif op == "model_status":
             with self._models_lock:
                 m = self._models.get(str(req.get("model")))
@@ -1264,13 +1524,17 @@ class DataPlaneDaemon:
         protocol.send_json(conn, {"ok": True, "rows": job.rows, **self._identity()})
 
     def _op_finalize(self, conn, req: Dict[str, Any]) -> None:
-        # Optional raw array frames (the reference's sharded KNN build):
-        # drained FIRST so any rejection leaves the framing aligned.
-        if req.get("arrays"):
-            _recv_arrays_aligned(conn, req)
+        # Optional raw array frames (a knn build's ``centroids`` or
+        # ``train_rows``): read FIRST so any rejection leaves the framing
+        # aligned.
+        extra = _recv_arrays_aligned(conn, req) if req.get("arrays") else {}
         job = self._get_job(req)
+        params = _opt(req, "params", {})
+        if job.algo == "knn":
+            self._finalize_knn(conn, req, job, params, extra)
+            return
         drop = bool(_opt(req, "drop", True))
-        arrays = job.finalize(_opt(req, "params", {}), drop=drop)
+        arrays = job.finalize(params, drop=drop)
         # Unregister BEFORE sending: a client that disconnects mid-response
         # must not leave the name poisoned (dropped) in the registry.
         if drop:
@@ -1279,6 +1543,34 @@ class DataPlaneDaemon:
                     del self._jobs[str(req.get("job"))]
         protocol.send_arrays(conn, arrays, {"ok": True, "rows": job.rows,
                                             "pass_rows": job.pass_rows, **self._identity()})
+
+    def _finalize_knn(self, conn, req: Dict[str, Any], job: _Job, params: Dict[str, Any],
+                      extra: Dict[str, np.ndarray]) -> None:
+        """Build-and-serve: the index is registered here under
+        ``register_as`` (first wins: a name already registered is refused
+        before and after the build) and only the O(1) info goes back. The
+        job is consumed whatever ``drop`` says."""
+        name = str(params.get("register_as") or f"knn-{req.get('job')}")
+        taken = (f"model name {name!r} is already registered; pick a fresh register_as")
+        with self._models_lock:
+            if name in self._models:
+                raise ValueError(taken)
+        model, info, id_map = job.build_knn_model(params, extra)
+        served = _ServedModel.from_model("ann" if params.get("mode") == "ivf" else "knn", model,
+                                         clock=self._clock, id_map=id_map)
+        with self._models_lock:
+            if name in self._models:  # a raced registration: the first wins
+                raise ValueError(taken)
+            self._models[name] = served
+            evicted = self._enforce_model_cap_locked(keep=name)
+        for victim in evicted:
+            logger.warning("evicted served model %r (LRU, registry over the %d-model cap)",
+                           victim, self._max_models)
+        with self._jobs_lock:
+            if self._jobs.get(str(req.get("job"))) is job:
+                del self._jobs[str(req.get("job"))]
+        protocol.send_arrays(conn, info, {"ok": True, "rows": job.rows, "model": name,
+                                          **self._identity()})
 
     def _op_seed(self, conn, req: Dict[str, Any]) -> None:
         """Driver-sent deterministic kmeans init: the batch seeds the
@@ -1367,24 +1659,27 @@ class DataPlaneDaemon:
 
     def _enforce_model_cap_locked(self, keep: str) -> list:
         """LRU eviction past ``max_models`` (under ``_models_lock``, right
-        after registering ``keep``). Returns the evicted names."""
+        after registering ``keep``). Re-creatable registrations (ttl_scale
+        1) go first; a daemon-built index only when none is left. Returns
+        the evicted names."""
         if self._max_models is None:
             return []
         evicted = []
         while len(self._models) > self._max_models:
-            candidates = sorted((m.touched, n) for n, m in self._models.items() if n != keep)
+            candidates = sorted((m.ttl_scale, m.touched, n)
+                                for n, m in self._models.items() if n != keep)
             if not candidates:
                 break
-            victim = candidates[0][1]
+            victim = candidates[0][2]
             del self._models[victim]
             evicted.append(victim)
         return evicted
 
-    def _lookup_model(self, name: str) -> _ServedModel:
+    def _lookup_model(self, name: str, hint: str = "ensure_model first") -> _ServedModel:
         with self._models_lock:
             served = self._models.get(name)
         if served is None:
-            raise KeyError(f"no such model {name!r}; ensure_model first")
+            raise KeyError(f"no such model {name!r}; {hint}")
         return served
 
     def _op_transform(self, conn, req: Dict[str, Any]) -> None:
@@ -1394,3 +1689,24 @@ class DataPlaneDaemon:
                                   req.get("n_cols"))
         outs = self._lookup_model(str(req["model"])).transform(x)
         protocol.send_arrays(conn, outs, {"ok": True, "rows": int(x.shape[0])})
+
+    def _op_kneighbors(self, conn, req: Dict[str, Any]) -> None:
+        """Query a daemon-built index: the query batch in (one Arrow payload,
+        or raw ``arrays`` frames with ``x``), the (q, k) float64 distances
+        and int64 global row ids back."""
+        if req.get("arrays"):
+            q = _recv_arrays_aligned(conn, req).get("x")
+            if q is None or q.ndim != 2:
+                raise ValueError("a raw kneighbors needs a 2-D 'x' array in the request spec")
+            n_cols = req.get("n_cols")
+            if n_cols is not None and int(n_cols) != q.shape[1]:
+                raise ValueError(f"kneighbors 'x' width {q.shape[1]} != declared n_cols {n_cols}")
+        else:
+            q, _ = _recv_arrow_matrix(conn, "kneighbors", _opt(req, "input_col", "features"),
+                                      req.get("n_cols"))
+        served = self._lookup_model(
+            str(req["model"]), "a daemon-built index this old was evicted; refit the estimator")
+        dists, idx = served.kneighbors(q, _resolve_k(served, req.get("k")))
+        protocol.send_arrays(conn, {"distances": np.asarray(dists, np.float64),
+                                    "indices": np.asarray(idx, np.int64)},
+                             {"ok": True, "rows": int(q.shape[0])})

@@ -1,7 +1,8 @@
 """Apache Spark integration of the port: the Spark wrappers and their session.
 
 The port of ``spark_rapids_ml_tpu/spark`` for ``SparkPCA``,
-``SparkLinearRegression``, ``SparkKMeans`` and ``SparkLogisticRegression``.
+``SparkLinearRegression``, ``SparkKMeans``, ``SparkLogisticRegression``,
+``SparkNearestNeighbors`` and ``SparkApproximateNearestNeighbors``.
 The reference reaches Spark three ways (SURVEY.md §1), and so does this:
 
 1. the estimator namespace: each wrapper takes a PySpark DataFrame with
@@ -22,17 +23,21 @@ from spark_rapids_ml_tpu_torch.spark import daemon_session
 from spark_rapids_ml_tpu_torch.spark.conf import gpu_session_conf
 from spark_rapids_ml_tpu_torch.spark.discovery import discovery_payload, write_discovery_script
 from spark_rapids_ml_tpu_torch.spark.estimator import (
+    SparkApproximateNearestNeighbors,
     SparkKMeans,
     SparkLinearRegression,
     SparkLogisticRegression,
+    SparkNearestNeighbors,
     SparkPCA,
     register_dataframe_type,
 )
 
 __all__ = [
+    "SparkApproximateNearestNeighbors",
     "SparkKMeans",
     "SparkLinearRegression",
     "SparkLogisticRegression",
+    "SparkNearestNeighbors",
     "SparkPCA",
     "daemon_session",
     "discovery_payload",

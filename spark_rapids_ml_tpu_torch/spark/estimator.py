@@ -1,7 +1,8 @@
 """The PySpark DataFrame adapters of the port: ``SparkPCA``,
-``SparkLinearRegression``, ``SparkKMeans`` and ``SparkLogisticRegression``.
+``SparkLinearRegression``, ``SparkKMeans``, ``SparkLogisticRegression``,
+``SparkNearestNeighbors`` and ``SparkApproximateNearestNeighbors``.
 
-The port of ``spark_rapids_ml_tpu/spark/estimator.py`` for those four
+The port of ``spark_rapids_ml_tpu/spark/estimator.py`` for those six
 estimators. The reference's user contract is to change one import and
 keep the Spark ML code (reference PCA.scala:27-37, README.md:27-37, with
 the features column an ArrayType):
@@ -21,7 +22,12 @@ final centres for its training cost. Task retries and speculative
 duplicates are safe: feeds stage per (partition, attempt, pass) and only
 ``commit`` adds a stage, once. The driver holds the daemon to the tasks'
 acks (a row-count mismatch, at finalize or at a step, fails the fit) and
-fences a daemon restart under a scan (an incarnation change). With
+fences a daemon restart under a scan (an incarnation change). The
+nearest-neighbour fits are one scan into a ``knn`` job whose finalize
+BUILDS the index on the daemon and registers it there: the fit returns a
+handle (:class:`_DaemonKNNModel`) whose ``kneighbors`` and ``transform``
+query that index, which is dataset-sized and never reaches the driver.
+With
 ``spark.srml.fit.recovery_attempts`` > 0 it keeps a ledger of the last
 iterate (``get_iterate`` at each pass boundary) and replays the failed
 pass from it, recreating a lost job with ``set_iterate``; a single-pass
@@ -29,7 +35,7 @@ fit replays its scan.
 
 Each driver loop is a function of a ``run_pass(pass_id) -> acks``
 callable (``_drive_pca``, ``_drive_linreg``, ``_drive_kmeans``,
-``_drive_logreg``): the Spark fit passes one that runs ``mapInArrow``
+``_drive_logreg``, ``_drive_knn``): the Spark fit passes one that runs ``mapInArrow``
 tasks, and a driver without Spark (the card smoke) one of its own.
 
 **transform** runs ``mapInArrow`` tasks that register the model with the
@@ -40,9 +46,9 @@ executor's CPU.
 The port folds into ONE daemon. Refused loudly, each until the ROADMAP
 item that brings it: acks that name a second daemon (the cross-daemon
 merge, Queue 1 items 5–6), a daemon loss tolerance above 0 or the
-``boundary`` join policy (items 5–6). The nearest-neighbour wrappers come
-with the ``knn`` job (item 2's next slice), the scaler and the forests
-with items 3–4.
+``boundary`` join policy (items 5–6), and with them the sharded index of
+a knn fit over several daemons; the scaler and the forests come with
+items 3–4.
 
 pyspark is optional: importing this module never needs it (nor pyarrow,
 which the tasks import at use); ``fit``/``transform`` of a Spark DataFrame
@@ -58,6 +64,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 
 from spark_rapids_ml_tpu_torch.models import kmeans as _km
+from spark_rapids_ml_tpu_torch.models import knn as _knn
 from spark_rapids_ml_tpu_torch.models import linear_regression as _lr
 from spark_rapids_ml_tpu_torch.models import logistic_regression as _lg
 from spark_rapids_ml_tpu_torch.models.pca import PCA as _PCA
@@ -646,6 +653,44 @@ def _drive_logreg(fit: _SingleDaemonFit, run_pass, core,
     return model
 
 
+def _drive_knn(fit: _SingleDaemonFit, run_pass, core) -> "_DaemonKNNModel":
+    """One scan into a knn job, then the finalize that builds the index on
+    the daemon and registers it as ``knnidx-<job>``: exact for a
+    ``NearestNeighbors`` core, IVF (the core's nlist, nprobe, seed) for an
+    ``ApproximateNearestNeighbors``. The index's rows must equal the acked
+    rows. On any failure the job and the index are dropped at once: both
+    are dataset-sized."""
+    fit.algo = "knn"
+    ivf = core.hasParam("nlist")
+    metric = core.getMetric()
+    if ivf and metric == "inner_product":
+        raise ValueError("metric='inner_product' is supported by the exact NearestNeighbors only")
+    name = f"knnidx-{fit.job}"
+    try:
+        n = fit.scan(run_pass, None)
+        with trace_span("knn build"):
+            if ivf:
+                info = fit.client.finalize_knn(
+                    fit.job, register_as=name, mode="ivf", nlist=core.getNlist(),
+                    nprobe=core.getNprobe(), seed=core.getSeed(), metric=metric)
+            else:
+                info = fit.client.finalize_knn(fit.job, register_as=name, mode="exact",
+                                               metric=metric)
+        built = int(info["n_rows"][0])
+        if built != fit.total_fed:
+            raise _split_brain("knn index build", fit.total_fed, built, fit._fed_detail())
+    except BaseException:
+        _drop_quietly(fit.client, fit.job, "knn cleanup")
+        try:
+            fit.client.drop_model(name)
+        except Exception as e:
+            logger.debug("knn cleanup of model %r failed: %s", name, e)
+        raise
+    host, port = fit.client._addr
+    return _DaemonKNNModel(core, host, port, fit._token, name, n_rows=n,
+                           input_col=_features_col(core), client_kw=fit._client_kw)
+
+
 class _SparkAdapter:
     """Wraps a core estimator class with Spark DataFrame in/out. Other
     datasets pass straight to the core estimator, so the wrapper is a
@@ -671,6 +716,8 @@ class _SparkAdapter:
     def fit(self, dataset):
         if _is_spark_df(dataset):
             core_model = self._fit_distributed(dataset)
+            if self._daemon_algo == "knn":
+                return core_model  # a handle of the daemon-resident index
         else:
             _check_not_orphan_spark_df(dataset)
             core_model = self._core.fit(dataset)
@@ -679,7 +726,8 @@ class _SparkAdapter:
     def _fit_distributed(self, df):
         """Executor-fed fit: partition batches flow task → daemon, and the
         driver sees only the finalize's arrays (and, for KMeans, a prefix
-        sample of at most max(k, 4,096) rows to seed the centres)."""
+        sample of at most max(k, 4,096) rows to seed the centres; for the
+        nearest-neighbour estimators only the built index's row count)."""
         core = self._core
         algo = self._daemon_algo
         spark = getattr(df, "sparkSession", None)
@@ -704,6 +752,8 @@ class _SparkAdapter:
                                  label_col=label_col, params=fit.params)
                 return sel.mapInArrow(task, _ACK_SCHEMA).collect()
 
+            if algo == "knn":
+                return _drive_knn(fit, run_pass, core)
             if algo == "pca":
                 model = _drive_pca(fit, run_pass, core)
             elif algo == "linreg":
@@ -750,12 +800,14 @@ def _model_fingerprint(core_model) -> str:
 def _arrow_kind_type(kind):
     import pyarrow as pa
 
-    return {"vec": pa.list_(pa.float64()), "int": pa.int32(), "double": pa.float64()}[kind]
+    return {"vec": pa.list_(pa.float64()), "ivec": pa.list_(pa.int64()), "int": pa.int32(),
+            "double": pa.float64()}[kind]
 
 
 def _output_column(vals, kind, n_rows):
     """One output column of its declared kind, whatever dtype the transform
-    computed in: ``vec`` list<float64>, ``int`` int32, ``double`` float64."""
+    computed in: ``vec`` list<float64>, ``ivec`` list<int64>, ``int``
+    int32, ``double`` float64."""
     import pyarrow as pa
 
     if n_rows == 0:
@@ -772,8 +824,8 @@ def _output_column(vals, kind, n_rows):
         return pa.array(np.asarray(vals, dtype=np.float64))
     from spark_rapids_ml_tpu_torch.bridge.arrow import matrix_to_list_column
 
-    vals = np.asarray(vals, dtype=np.float64)
-    return matrix_to_list_column(vals).cast(pa.list_(pa.float64()))
+    vals = np.asarray(vals, dtype=np.int64 if kind == "ivec" else np.float64)
+    return matrix_to_list_column(vals).cast(_arrow_kind_type(kind))
 
 
 def _derive_output_schema(dataset, outputs):
@@ -787,7 +839,8 @@ def _derive_output_schema(dataset, outputs):
         return None
     out_names = {name for _, name, _ in outputs}
     fields = [f for f in base.fields if f.name not in out_names]
-    spark_types = {"vec": lambda: T.ArrayType(T.DoubleType()), "int": T.IntegerType,
+    spark_types = {"vec": lambda: T.ArrayType(T.DoubleType()),
+                   "ivec": lambda: T.ArrayType(T.LongType()), "int": T.IntegerType,
                    "double": T.DoubleType}
     for _, name, kind in outputs:
         fields.append(T.StructField(name, spark_types[kind](), True))
@@ -913,6 +966,126 @@ class _SparkModelAdapter:
         return dataset.mapInArrow(fn, _derive_output_schema(dataset, outputs))
 
 
+#: The nearest-neighbour outputs: (role, column, kind).
+_KNN_OUTPUTS = (
+    ("distances", "knn_distances", "vec"),
+    ("indices", "knn_indices", "ivec"),
+)
+
+
+class _DaemonKNNTask:
+    """Executor-side query feeder: each batch's query rows go to the
+    daemon's ``kneighbors`` op (Arrow) and the neighbour distance and index
+    columns come back. The index stays on the daemon."""
+
+    def __init__(self, host, port, token, name, input_col, k):
+        self.host, self.port, self.token = host, port, token
+        self._name = name
+        self._input_col = input_col
+        self._k = k
+
+    def __call__(self, batches):
+        import pyarrow as pa
+
+        from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+
+        ds = daemon_session
+        h, p = ds.executor_daemon_address(self.host, self.port)
+        with DataPlaneClient(h, p, token=self.token, **ds.client_kwargs()) as c:
+            for batch in batches:
+                table = pa.Table.from_batches([batch])
+                if table.num_rows == 0:
+                    yield from _append_outputs(table, {}, _KNN_OUTPUTS).to_batches()
+                    continue
+                dists, idx = c.kneighbors(self._name, table.select([self._input_col]),
+                                          k=self._k, input_col=self._input_col)
+                out = {"distances": dists, "indices": idx}
+                yield from _append_outputs(table, out, _KNN_OUTPUTS).to_batches()
+
+
+class _DaemonKNNModel:
+    """A fitted nearest-neighbour handle whose index lives ON the daemon.
+
+    For KNN the fitted model IS the dataset (BASELINE.json config #5:
+    10M x 768 f32 is 31 GB), so it is served where it was built and never
+    persisted from the driver; use the core estimators for an in-memory,
+    persistable index. Indices are global partition-major row positions of
+    the fitted DataFrame."""
+
+    def __init__(self, core, host, port, token, name, n_rows, input_col, client_kw=None):
+        self._core = core  # the estimator: the param surface (k, metric, featuresCol)
+        self._host, self._port, self._token = host, port, token
+        self._name = name
+        self._n_rows = n_rows
+        self._input_col = input_col
+        # The fit's resilience tuning: the handle has no Spark session at
+        # query time.
+        self._client_kw = dict(client_kw or {})
+
+    def __getattr__(self, name):
+        return getattr(self._core, name)
+
+    @property
+    def daemon_model_name(self) -> str:
+        return self._name
+
+    @property
+    def numRows(self) -> int:
+        return self._n_rows
+
+    @property
+    def shards(self):
+        """None: one daemon serves the whole index (the sharded index over
+        several daemons comes with the multi-daemon plane)."""
+        return None
+
+    def _client(self):
+        from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+
+        return DataPlaneClient(self._host, self._port, token=self._token, **self._client_kw)
+
+    def kneighbors(self, queries, k=None):
+        """(distances (q, k), indices (q, k)) of an (q, d) ndarray of
+        queries, sent as a raw frame (``kneighbors_raw``: the port's daemon
+        reads it without an Arrow library on either side)."""
+        if _is_spark_df(queries):
+            raise TypeError("pass a DataFrame to transform() for distributed queries; "
+                            "kneighbors takes an (q, d) ndarray")
+        k = self._core.getOrDefault("k") if k is None else k
+        with self._client() as c:
+            return c.kneighbors_raw(self._name, np.asarray(queries), k=k)
+
+    def transform(self, dataset):
+        """Distributed query: appends knn_distances (list<double>) and
+        knn_indices (list<long>) through ``mapInArrow`` tasks that query the
+        daemon: no index download, no driver collect."""
+        if not _is_spark_df(dataset):
+            from spark_rapids_ml_tpu_torch.core.dataset import as_matrix, with_column
+
+            dists, idx = self.kneighbors(as_matrix(dataset, self._input_col))
+            return with_column(with_column(dataset, "knn_distances", dists), "knn_indices", idx)
+        fn = _DaemonKNNTask(self._host, self._port, self._token, self._name, self._input_col,
+                            self._core.getOrDefault("k"))
+        return dataset.mapInArrow(fn, _derive_output_schema(dataset, _KNN_OUTPUTS))
+
+    def release(self) -> bool:
+        """Free the daemon-resident index now (it is dataset-sized, and
+        otherwise held until 8 times the daemon's TTL). The handle is
+        unusable afterwards."""
+        try:
+            with self._client() as c:
+                return c.drop_model(self._name)
+        except OSError:
+            return False  # the daemon is already gone: nothing to free
+
+    def write(self):
+        raise NotImplementedError(
+            "a daemon-resident KNN index is dataset-sized and cannot be persisted from the "
+            "driver; fit the core (spark_rapids_ml_tpu_torch.NearestNeighbors / "
+            "ApproximateNearestNeighbors) estimator on in-memory data for a persistable model"
+        )
+
+
 class SparkPCA(_SparkAdapter):
     """PCA over PySpark DataFrames (ArrayType features column).
     ``SparkPCA(device='cpu')`` fits on the CPU (the driver's own daemon too)."""
@@ -944,3 +1117,21 @@ class SparkLogisticRegression(_SparkAdapter):
 
     _core_cls = _lg.LogisticRegression
     _daemon_algo = "logreg"
+
+
+class SparkNearestNeighbors(_SparkAdapter):
+    """Exact NearestNeighbors over PySpark DataFrames: the rows stream to the
+    daemon's knn job, which indexes them and serves kneighbors; ``fit``
+    returns a handle of that index (``_DaemonKNNModel``)."""
+
+    _core_cls = _knn.NearestNeighbors
+    _daemon_algo = "knn"
+
+
+class SparkApproximateNearestNeighbors(_SparkAdapter):
+    """IVF-Flat ApproximateNearestNeighbors over PySpark DataFrames: the
+    daemon builds the index from the fed rows at finalize and serves
+    kneighbors; ``fit`` returns a handle of that index."""
+
+    _core_cls = _knn.ApproximateNearestNeighbors
+    _daemon_algo = "knn"

@@ -415,9 +415,9 @@ def _version_mismatch_with_payload(sock):
 
 
 def _unported_op_with_payload(sock):
-    protocol.send_json(sock, {"v": 1, "op": "kneighbors", "model": "knn", "k": 2})
-    protocol.send_frame(sock, DataPlaneClient._to_ipc(np.ones((4, 3)), "features"))
-    return "unknown op 'kneighbors'"
+    protocol.send_arrays(sock, {"s0": np.ones((4, 3))},
+                         {"v": 1, "op": "merge_state", "job": "x", "rows": 4})
+    return "unknown op 'merge_state'"
 
 
 @pytest.mark.parametrize("bad_request", [
@@ -440,12 +440,12 @@ def test_rejected_request_keeps_the_framing(daemon, bad_request):
 
 
 def test_non_pca_algo_refused_without_a_job(daemon, data):
-    """The algos of later slices ('knn', 'rf' jobs, the 'scaler' model) are
+    """The algos of later slices (the 'rf' job, the 'scaler' model) are
     refused before a job or model is registered."""
     with _client(daemon) as c:
         for feed in (c.feed, c.feed_raw):
-            with pytest.raises(RuntimeError, match="'knn'.*does not run 'knn'"):
-                feed("nn", data, algo="knn")
+            with pytest.raises(RuntimeError, match="'rf'.*does not run 'rf'"):
+                feed("nn", data, algo="rf")
         with pytest.raises(RuntimeError, match="no such job"):
             c.status("nn")
         with pytest.raises(RuntimeError, match="'scaler'.*does not serve 'scaler'"):

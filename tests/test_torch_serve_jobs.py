@@ -574,9 +574,9 @@ def test_served_predictions_equal_transform_matrix(kind, daemon):
 
 def test_unported_algos_refused_without_a_job(daemon):
     with _client(daemon) as c:
-        for algo in ("knn", "rf"):
-            with pytest.raises(RuntimeError, match=f"unknown algo '{algo}'"):
-                c.feed_raw("u", DATA["x"], algo=algo)
+        for feed in (c.feed_raw, c.feed):
+            with pytest.raises(RuntimeError, match="unknown algo 'rf'"):
+                feed("u", DATA["x"], algo="rf")
         with pytest.raises(RuntimeError, match="unknown model algo 'scaler'"):
             c.ensure_model("sc", "scaler", {"mean": np.zeros(D), "std": np.ones(D)})
         assert c.ping()
