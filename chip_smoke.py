@@ -40,7 +40,8 @@ Phases, each of which exits non-zero on a failed check:
    (1e-5) and its plain version (2⁻⁸ of Σ|terms| for the Hessian, 1e-5
    for the rest). d = 300 and 13, and float32, must take the FFMA route.
    ``python3 chip_smoke.py --phase2`` stops after this phase;
-   ``--data-plane`` runs phases 19 to 22 alone after the build.
+   ``--data-plane`` runs phases 19 to 22 and phase 23's Spark part alone
+   after the build; ``--estimators`` runs phases 23 and 24 alone.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -210,6 +211,59 @@ Phases, each of which exits non-zero on a failed check:
     GiB/s of frames, the build seconds, the served q/s after a warm-up
     beside the in-process q/s (this phase's and phases 16-17's), the
     daemon's span split and the device busy share.
+23. The estimators around the kernels, on the card. StandardScaler().fit
+    of 1,048,576 x 2048 float32 rows of unit scale (a rank-32 factor model
+    plus noise) against float64 column moments (1e-6 relative on std), its
+    transform of 65,536 rows bitwise equal to a numpy float64 recompute
+    from the fitted mean and std (withMean off and on).
+    ``Pipeline([StandardScaler(withMean=True), PCA(k=32)])`` on the same
+    rows: one ``gram`` launch on the tensor-core route; the scaler stage
+    bitwise equal to a stage-by-stage fit and the PCA stage within phase
+    3's tolerance of one (the tensor-core Gram's row splits meet in no
+    fixed order; whether they came out bitwise is printed); the components
+    against float64 PCA of the standardized bf16 rows (phase 3's
+    tolerance); save and load of the PipelineModel bitwise.
+    ``CrossValidator(LinearRegression, regParam {0, 0.1, 1}, 3 folds,
+    rmse)`` on 1,048,576 x 1024 bf16 rows: 10 ``linreg_stats`` launches on
+    the tensor-core route, ``avgMetrics`` against a float64 ridge recompute
+    over the same folds (1e-3 relative: the served product rounds the
+    coefficients to bf16) and the chosen map equal to its argmin.
+    ``TrainValidationSplit(binomial LogisticRegression, regParam {0, 0.01},
+    areaUnderROC)`` on 524,288 x 1024 bf16 rows: the ``newton_stats``
+    launches (all tensor-core) and each AUC equal to a float64 numpy AUC
+    of the same scores (1e-12). Then SparkStandardScaler's feed protocol:
+    phase 20's 8 spawned tasks and frames (one attempt dying after a feed)
+    with ``spark/estimator._drive_scaler`` as the driver; acked, ``status``
+    and finalize rows 1,048,576; ``gram_colsum`` once per folded feed (17),
+    all tensor-core; mean and variance against float64 of the same rows
+    (1e-6 of E|x|, 2e-6 of E[x²]); ``ensure_model`` with the serving params
+    and the served transform of 65,536 rows bitwise equal to
+    ``transform_matrix``, the withMean=True copy under a second registry
+    name. It prints each fit's seconds, the Spark scaler's rows/s and GiB/s
+    of frames beside phase 20's, and the served scaler's p50.
+24. The histogram RandomForest at the sizes users run, Spark's defaults
+    (numTrees 20, maxDepth 5, maxBins 32, featureSubsetStrategy auto,
+    bootstrap), data synthesized from a seed in public datasets' shapes:
+    RandomForestClassifier on UCI HIGGS's (11,000,000 x 28, 2 classes) and
+    RandomForestRegressor on UCI YearPredictionMSD's (515,345 x 90,
+    integer years 1922-2011). It prints each fit's seconds, rows/s per
+    level pass, the histogram-update and split-scoring ms per level (spans)
+    and the device kernels (torch.profiler), the predict rows/s at 65,536
+    held-out rows and the held-out accuracy and R². Checks: every tree's
+    root class totals (and the regressor's root counts) equal to numpy
+    float64 sums of the host bootstrap weights; ``transform_matrix`` of
+    65,536 held-out rows against a numpy descent of the fitted tables (the
+    predicted class equal off 1e-6 near-ties, regression means within
+    1e-6); and at a 262,144-row prefix the card's fits against the card
+    machine's CPU (both float32, the CPU fits in a thread beside the card's
+    work): the classifier's tables bitwise, the regressor's features and
+    thresholds equal and values within 1e-5 relative, except under a node
+    where the two decisions differ by a near-tie (printed, its subtree
+    skipped): the card's candidate scores within 1e-5 of the CPU's best,
+    or, where one side stopped at a leaf, the best split scores within 1e-5
+    of the node's own term (scores rebuilt in float64 from the node's rows;
+    the float32 variance gains of year labels are differences of ~1e12
+    terms).
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
@@ -217,7 +271,10 @@ path and carries the float32 route's numbers under ``f32_*``, the
 ``gram_colsum`` row phase 19's launches under ``daemon_launches``, the
 ``linreg_stats`` and ``softmax_curvature`` rows phase 21's there, the
 ``lloyd_step``, ``assign_min_dist``, ``dist_topk``, ``probe_select`` and
-``ivf_scan_select`` rows phase 22's (summed over its parts), the
+``ivf_scan_select`` rows phase 22's (summed over its parts), the ``gram``,
+``linreg_stats`` and ``newton_stats`` rows phase 23's under
+``estimator_launches`` and the ``gram_colsum`` row phase 23's Spark
+scaler's under ``spark_scaler_launches``, the
 ``dist_topk`` row the FFMA tiles' time under ``ffma_ms`` and the
 ``probe_select`` row the sort route's under ``sort_ms``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -274,6 +331,22 @@ DP_PARTITIONS, DP_FEEDS = 8, 2  # 1,048,576 rows (BASELINE.json #1's 100M cut in
 DP_JOB = "phase19"
 SPARK_SEED, SPARK_JOB = 20, "phase20"
 SPARK_DYING = 3  # the partition whose attempt 0 dies after one feed
+
+P23_SEED = 23
+SC_ROWS = IN_MEMORY_ROWS  # phase 4's 1,048,576 x 2048
+CV_ROWS, CV_D = 1 << 20, LR_D  # phase 9's width
+CV_REGS, CV_FOLDS = (0.0, 0.1, 1.0), 3
+TVS_ROWS, TVS_D = 1 << 19, LG_D  # phase 11's width
+TVS_REGS, TVS_RATIO = (0.0, 0.01), 0.75
+#: Phase 23's Spark scaler: phase 20's frames (the P21_RUNS fields).
+P23_RUNS = {"scaler": ("pca", D, DP_ROWS, DP_FEEDS, K)}
+
+RF_SEED = 24
+HIGGS_ROWS, HIGGS_D = 11_000_000, 28  # UCI HIGGS: 11M rows x 28 features, 2 classes
+MSD_ROWS, MSD_D = 515_345, 90  # UCI YearPredictionMSD: 515,345 rows x 90, years 1922-2011
+RF_PREFIX = 1 << 18  # the card-against-CPU checks
+RF_HELDOUT = 65536
+RF_TIE = 1e-5  # a regressor node within this of its best candidate may split otherwise
 
 #: The body each kernel row of the table times (the Gram family: "wgmma+tma syrk").
 DESIGNS = {
@@ -2494,7 +2567,8 @@ def phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate):
     """Phase 20: the Spark PCA fit's feed protocol from separate processes.
     The port's daemon runs in this process on the card; 8 spawned task
     processes run the feed task's body; this process plays the driver with
-    the estimator's own functions. Returns the gram_colsum launches."""
+    the estimator's own functions. Returns (the gram_colsum launches, the
+    fit's rows/s)."""
     import multiprocessing as mp
 
     import numpy as np
@@ -2619,7 +2693,7 @@ def phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate):
           f"{100 * (1 - busy_ms / (sp_s * 1e3)):.2f} %); fold kernels "
           f"{sum(ms for ms, _ in fold_dev):.3f} ms over {sum(c for _, c in fold_dev)} launches",
           flush=True)
-    return launches
+    return launches, n_rows / sp_s
 
 
 #: Phase 21: run → (wire algo, width, rows a frame, frames a partition per
@@ -2665,6 +2739,8 @@ def p21_frame(np, runs, run, p, f):
     _, d, rows, _, k = runs[run]
     if run == "knn":
         return knn_frame(np, p, f, rows, d, k), None
+    if run == "scaler":  # phase 23: phase 20's rows
+        return spark_rows(np, p, f, rows, d, k), None
     r = list(runs).index(run)
     g = np.random.default_rng([P21_SEED, r, p, f])
     shared = np.random.default_rng([P21_SEED, r])
@@ -2787,15 +2863,17 @@ class _P21Pool:
                 proc.join(timeout=10)
 
 
-def p21_fit(torch, kernels, est, profiling, pool, address, run, drive):
-    """One phase-21 fit: the estimator's driver function ``drive(fit,
-    run_pass)`` over the pool's passes, with the counters reset just before
-    it and read just after, traced for its device time. Returns (model, a
-    record of the run)."""
+def p21_fit(torch, kernels, est, profiling, pool, address, run, drive, runs=None,
+            tag="phase 21"):
+    """One phase-21 fit (or phase 23's, with its ``runs`` and ``tag``): the
+    estimator's driver function ``drive(fit, run_pass)`` over the pool's
+    passes, with the counters reset just before it and read just after,
+    traced for its device time. Returns (model, a record of the run)."""
     from torch.profiler import ProfilerActivity, profile
 
+    runs = P21_RUNS if runs is None else runs
     pool.prepare(run)
-    job = f"phase21-{run}"
+    job = f"{tag.replace(' ', '')}-{run}"
     fit = est._SingleDaemonFit(*address, job)
     rec = {"scans": 0}
     real = fit.finalize_guarded
@@ -2826,11 +2904,11 @@ def p21_fit(torch, kernels, est, profiling, pool, address, run, drive):
     rec["spans"] = profiling.span_totals()
     rec["busy_ms"], by_name, _ = device_time(torch, prof)
     del prof
-    _, d, rows, frames, _ = P21_RUNS[run]
+    _, d, rows, frames, _ = runs[run]
     n = DP_PARTITIONS * frames * rows
     rec["rows"] = n
     check(rec["acked"] == rec["status"] == rec["finalize"] == n * rec["scans"],
-          f"phase 21 {run}: acked {rec['acked']}, status {rec['status']}, finalize "
+          f"{tag} {run}: acked {rec['acked']}, status {rec['status']}, finalize "
           f"{rec['finalize']} rows == {rec['scans']} scans x {n} (the dying attempt's rows "
           f"counted nowhere)")
     frame_gib = rec["scans"] * n * (d + 1) * 4 / 2 ** 30
@@ -2838,17 +2916,17 @@ def p21_fit(torch, kernels, est, profiling, pool, address, run, drive):
              "daemon fold", "daemon commit", "daemon seed", "daemon step", "feed pass", "seed",
              "step", "finalize")
     spans = rec["spans"]
-    print(f"phase 21 {run}: {n} rows x {d}, {rec['scans']} scans in {rec['s']:.3f} s: "
+    print(f"{tag} {run}: {n} rows x {d}, {rec['scans']} scans in {rec['s']:.3f} s: "
           f"{n * rec['scans'] / rec['s']:.1f} rows/s through the daemon "
           f"({n / rec['s']:.1f} rows/s of the dataset), {1e3 * rec['s'] / rec['scans']:.1f} ms "
           f"per pass (scan and step), {frame_gib / rec['s']:.2f} GiB/s of frames (host clock)",
           flush=True)
-    print(f"phase 21 {run} spans (host-clock seconds summed over threads, count): "
+    print(f"{tag} {run} spans (host-clock seconds summed over threads, count): "
           + ", ".join(f"{nm} {spans.get(nm, (0.0, 0))[0]:.3f} ({spans.get(nm, (0.0, 0))[1]})"
                       for nm in names if nm in spans), flush=True)
     top = ", ".join(f"{nm[:40]} {ms:.3f} ({c})"
                     for nm, (ms, c) in sorted(by_name.items(), key=lambda r: -r[1][0])[:4])
-    print(f"phase 21 {run} device time (torch.profiler, CUDA activity): busy "
+    print(f"{tag} {run} device time (torch.profiler, CUDA activity): busy "
           f"{rec['busy_ms']:.3f} ms of {rec['s'] * 1e3:.3f} ms "
           f"({100 * rec['busy_ms'] / (rec['s'] * 1e3):.2f} %); largest (ms, count): {top}",
           flush=True)
@@ -3357,6 +3435,648 @@ def phase_knn_daemon(torch, kernels, config):
     return out
 
 
+def scaler_rows(torch, gen, n, d):
+    """Phase 23's rows, float32 on the card: a rank-K factor model (factor
+    scales √(2 − j/(K−1)), loadings N(0, 1/K)) plus noise 0.5·N(0, 1) and
+    column means 0.05·N(0, 1), so every column has unit scale and the
+    standardized rows keep K eigenvalues 1.6 % apart above the noise."""
+    lam = torch.sqrt(2.0 - torch.arange(K, device=DEV, dtype=torch.float32) / (K - 1))
+    w = torch.randn((K, d), generator=gen, device=DEV) / K ** 0.5
+    mu = 0.05 * torch.randn((d,), generator=gen, device=DEV)
+    x = torch.randn((n, d), generator=gen, device=DEV)
+    x *= 0.5
+    x.addmm_(torch.randn((n, K), generator=gen, device=DEV) * lam, w)
+    x += mu
+    return x
+
+
+def column_moments64(torch, x, block=256):
+    """(mean, unbiased std) of x's columns in float64 on the card, a block
+    of columns at a time."""
+    mean, std = [], []
+    for j in range(0, x.shape[1], block):
+        xd = x[:, j:j + block].double()
+        mean.append(xd.mean(0))
+        std.append(xd.std(0, unbiased=True))
+    return torch.cat(mean), torch.cat(std)
+
+
+def scaler_recompute(np, x, mean, std, with_mean):
+    """The MLlib transform from fitted statistics, in numpy float64."""
+    out = np.asarray(x, np.float64)
+    if with_mean:
+        out = out - mean
+    inv = np.where(std > 0, 1.0 / np.where(std > 0, std, 1.0), 0.0)
+    return (out * inv).astype(np.float32)
+
+
+def auc64(np, y, score):
+    """Area under the ROC curve from pair counts in float64 numpy: for each
+    positive, the negatives below it plus half those tied with it."""
+    pos = score[y > 0.5]
+    neg = np.sort(score[y <= 0.5])
+    below = np.searchsorted(neg, pos, side="left").astype(np.float64)
+    tied = np.searchsorted(neg, pos, side="right") - below
+    return float((below + 0.5 * tied).sum() / (pos.size * neg.size))
+
+
+def ridge_rmse64(torch, x, y, folds, reg):
+    """CrossValidator's average validation rmse of a ridge fit (the port's
+    normal equations: centred XᵀX/n + reg·I) recomputed in float64 on the
+    card over the same folds."""
+    parts = []
+    for val in folds:
+        xv, yv = x[val].double(), y[val].double()
+        parts.append((xv.T @ xv, xv.T @ yv, xv.sum(0), yv.sum(), float(len(val)), xv, yv))
+    tot = [sum(p[i] for p in parts) for i in range(5)]
+    out = []
+    for xtx, xty, sx, sy, n, xv, yv in parts:
+        a_, b_, sx_, sy_, n_ = tot[0] - xtx, tot[1] - xty, tot[2] - sx, tot[3] - sy, tot[4] - n
+        mx, my = sx_ / n_, sy_ / n_
+        a = (a_ - torch.outer(mx, sx_)) / n_
+        b = (b_ - sx_ * my) / n_
+        w = torch.linalg.solve(a + reg * torch.eye(a.shape[0], dtype=a.dtype, device=a.device), b)
+        pred = xv @ w + (my - mx @ w)
+        out.append(float(torch.sqrt(((yv - pred) ** 2).mean())))
+    return sum(out) / len(out)
+
+
+def phase_estimators(torch, kernels, config):
+    """Phase 23, in process: StandardScaler, Pipeline(StandardScaler → PCA),
+    CrossValidator(LinearRegression) and TrainValidationSplit(binomial
+    LogisticRegression) through the port's estimators on the card. Returns
+    {kernel: launches} of these paths."""
+    import tempfile
+
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch import (
+        PCA, BinaryClassificationEvaluator, CrossValidator, LinearRegression,
+        LogisticRegression, ParamGridBuilder, Pipeline, PipelineModel, RegressionEvaluator,
+        StandardScaler, TrainValidationSplit,
+    )
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(P23_SEED)
+    launches = {}
+    # -- the in-memory scaler ------------------------------------------------
+    x = scaler_rows(torch, gen, SC_ROWS, D)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc = StandardScaler().fit({"features": x})
+    sc_s = time.perf_counter() - t0  # the statistics are on the host: synced
+    mean64, std64 = (t.cpu().numpy() for t in column_moments64(torch, x))
+    err_std = float(np.abs(sc.std / std64 - 1.0).max())
+    err_mean = float((np.abs(sc.mean - mean64) / std64).max())
+    # Tolerance: unit-scale columns summed in float32 (pairwise on the card)
+    # over 1,048,576 rows; the Σx² − nμ² form loses nothing at |μ| ≪ σ.
+    check(err_std <= 1e-6 and err_mean <= 1e-6,
+          f"StandardScaler fit of {SC_ROWS} x {D} f32 rows: std rel err vs float64 "
+          f"{err_std:.2e}, mean err over std {err_mean:.2e} (tol 1e-6 each)")
+    xq = x[:TRANSFORM_ROWS].cpu().numpy()
+    for with_mean in (False, True):
+        m = sc.copy({"withMean": with_mean})
+        got = m.transform_matrix(x[:TRANSFORM_ROWS])["output"]
+        want = scaler_recompute(np, xq, m.mean, m.std, with_mean)
+        check(got.dtype == np.float32 and np.array_equal(got, want),
+              f"scaler transform (withMean={with_mean}) of {TRANSFORM_ROWS} rows bitwise equal to "
+              f"a numpy float64 recompute from the fitted mean and std")
+    print(f"StandardScaler fit: {SC_ROWS} x {D} f32 in {sc_s:.3f} s "
+          f"({SC_ROWS / sc_s:.1f} rows/s, host clock, first call)", flush=True)
+
+    # -- Pipeline(StandardScaler -> PCA) ---------------------------------------
+    pipe = Pipeline(stages=[StandardScaler().setWithMean(True).setOutputCol("scaled"),
+                            PCA().setInputCol("scaled").setK(K)])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pm = pipe.fit({"features": x})
+    pipe_s = time.perf_counter() - t0
+    launches["gram"] = kernels.LAUNCHES["gram"]
+    check(launches["gram"] == 1 and kernels.ROUTES["gram/wgmma"] == 1,
+          f"Pipeline fit: gram launches {launches['gram']} == 1 (the PCA stage), on the "
+          f"tensor-core route ({kernels.ROUTES['gram/wgmma']} wgmma)")
+    scaled = pm.stages[0].transform_matrix(x)["output"]  # the stage's output, on the host
+    alone_sc = StandardScaler().setWithMean(True).fit({"features": x})
+    check(np.array_equal(alone_sc.mean, pm.stages[0].mean)
+          and np.array_equal(alone_sc.std, pm.stages[0].std),
+          "the pipeline's scaler stage equals a stage-by-stage fit, bitwise")
+    alone = PCA().setK(K).fit({"features": scaled})
+    # The tensor-core Gram's row splits meet in no fixed order (gram.cu), so
+    # two fits of the same rows agree to the last bits of their f32 sums:
+    # held at phase 3's tolerance, with the bitwise outcome printed.
+    d_alone = sign_aligned_err(pm.stages[1].pc, torch.as_tensor(alone.pc, device=DEV))
+    check(d_alone <= 1e-3, f"the pipeline's PCA stage vs a stage-by-stage fit of the same rows: "
+                           f"max sign-aligned diff {d_alone:.3e} (tol 1e-3; bitwise: "
+                           f"{bool(np.array_equal(pm.stages[1].pc, alone.pc))})")
+    xd = torch.from_numpy(scaled).to(DEV).to(torch.bfloat16).double()  # what the fit reads
+    pc_ref, _, gap = reference_pca(torch.tensor(float(SC_ROWS), dtype=torch.float64, device=DEV),
+                                   xd.sum(0), xd.T @ xd, K)
+    del xd
+    err = sign_aligned_err(pm.stages[1].pc, pc_ref)
+    check(err <= 1e-3, f"pipeline pc vs float64 PCA of the standardized bf16 rows: max "
+                       f"sign-aligned err {err:.3e} (tol 1e-3; eigengap {gap:.3e})")
+    t0 = time.perf_counter()
+    out = pm.transform({"features": x[:TRANSFORM_ROWS]})
+    pipe_tf_ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(out["pca_features"].shape) == (TRANSFORM_ROWS, K)
+          and np.array_equal(out["scaled"], scaled[:TRANSFORM_ROWS]),
+          f"pipeline transform of {TRANSFORM_ROWS} rows: the scaled column equals the stage's "
+          f"output, pca_features {tuple(out['pca_features'].shape)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        pm.save(os.path.join(tmp, "pm"))
+        back = PipelineModel.load(os.path.join(tmp, "pm"))
+    check(back.uid == pm.uid and [s.uid for s in back.stages] == [s.uid for s in pm.stages]
+          and np.array_equal(back.stages[0].mean, pm.stages[0].mean)
+          and np.array_equal(back.stages[0].std, pm.stages[0].std)
+          and np.array_equal(back.stages[1].pc, pm.stages[1].pc)
+          and back.stages[0].getWithMean() and back.stages[1].getK() == K,
+          "PipelineModel save and load round-trips bitwise (uids, params, arrays)")
+    print(f"Pipeline(StandardScaler -> PCA k={K}) fit: {SC_ROWS} x {D} in {pipe_s:.3f} s (the "
+          f"scaler's host float64 transform of the rows included); transform of "
+          f"{TRANSFORM_ROWS} rows {pipe_tf_ms:.1f} ms", flush=True)
+    del x, scaled, pm, alone, out, back
+    torch.cuda.empty_cache()
+
+    # -- CrossValidator(LinearRegression) ---------------------------------------
+    xc = torch.randn((CV_ROWS, CV_D), generator=gen, device=DEV).to(torch.bfloat16)
+    w_true = torch.randn((CV_D,), generator=gen, device=DEV) / CV_D ** 0.5
+    yc = xc.float() @ w_true + 0.5 + 0.1 * torch.randn((CV_ROWS,), generator=gen, device=DEV)
+    lr = LinearRegression()
+    grid = ParamGridBuilder().addGrid(lr.regParam, list(CV_REGS)).build()
+    cv = CrossValidator(lr, grid, RegressionEvaluator(), numFolds=CV_FOLDS, seed=P23_SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    cvm = cv.fit({"features": xc, "label": yc})
+    cv_s = time.perf_counter() - t0
+    launches["linreg_stats"] = kernels.LAUNCHES["linreg_stats"]
+    fits = CV_FOLDS * len(CV_REGS) + 1
+    print(f"CrossValidator linreg_stats launches {launches['linreg_stats']}, routes "
+          f"{ {k: v for k, v in kernels.ROUTES.items() if k.startswith('linreg_stats/')} }")
+    check(launches["linreg_stats"] == fits and kernels.ROUTES["linreg_stats/wgmma"] == fits,
+          f"CrossValidator: linreg_stats launches {launches['linreg_stats']} == {fits} fits, "
+          f"all on the tensor-core route")
+    perm = np.random.default_rng(P23_SEED).permutation(CV_ROWS)
+    folds = [torch.as_tensor(np.sort(perm[f::CV_FOLDS]), device=DEV) for f in range(CV_FOLDS)]
+    ref = [ridge_rmse64(torch, xc, yc, folds, reg) for reg in CV_REGS]
+    err = max(abs(a / b - 1.0) for a, b in zip(cvm.avgMetrics, ref))
+    # Tolerance: the fit's f32 normal equations (5e-7 of the Gram) and the
+    # served product with its coefficients rounded to bf16 (2⁻⁹ each, about
+    # 6e-5 of an rmse of 0.1 here).
+    check(err <= 1e-3, f"CrossValidator avgMetrics {['%.6f' % v for v in cvm.avgMetrics]} vs a "
+                       f"float64 ridge recompute over the same folds "
+                       f"{['%.6f' % v for v in ref]}: max rel err {err:.2e} (tol 1e-3)")
+    best = int(np.argmin(ref))
+    check(cvm.bestModel.getRegParam() == CV_REGS[best],
+          f"CrossValidator's best regParam {cvm.bestModel.getRegParam()} == the float64 argmin "
+          f"{CV_REGS[best]}")
+    print(f"CrossValidator(LinearRegression, {len(CV_REGS)} maps x {CV_FOLDS} folds + refit): "
+          f"{CV_ROWS} x {CV_D} bf16 in {cv_s:.3f} s ({fits} fits)", flush=True)
+    del xc, yc, folds, cvm
+    torch.cuda.empty_cache()
+
+    # -- TrainValidationSplit(binomial LogisticRegression) -------------------------
+    xl = torch.randn((TVS_ROWS, TVS_D), generator=gen, device=DEV).to(torch.bfloat16)
+    w_true = torch.randn((TVS_D,), generator=gen, device=DEV) / TVS_D ** 0.5
+    yl = (torch.rand((TVS_ROWS,), generator=gen, device=DEV)
+          < torch.sigmoid(xl.float() @ w_true + 0.3)).float()
+    seen = []
+
+    class Recording(BinaryClassificationEvaluator):
+        def evaluate(self, dataset):
+            seen.append((np.asarray(dataset["label"].cpu().numpy(), np.float64),
+                         self._score(dataset)))
+            return super().evaluate(dataset)
+
+    lg = LogisticRegression()
+    grid = ParamGridBuilder().addGrid(lg.regParam, list(TVS_REGS)).build()
+    tvs = TrainValidationSplit(lg, grid, Recording(), trainRatio=TVS_RATIO, seed=P23_SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tvm = tvs.fit({"features": xl, "label": yl})
+    tvs_s = time.perf_counter() - t0
+    launches["newton_stats"] = kernels.LAUNCHES["newton_stats"]
+    routes = {k: v for k, v in kernels.ROUTES.items() if k.startswith("newton_stats/")}
+    print(f"TrainValidationSplit newton_stats launches {launches['newton_stats']}, routes {routes}")
+    check(launches["newton_stats"] > 0 and routes["newton_stats/wgmma"] == launches["newton_stats"],
+          f"TrainValidationSplit: {launches['newton_stats']} newton_stats launches over "
+          f"{len(TVS_REGS) + 1} fits, all on the tensor-core route")
+    aucs = [auc64(np, y, s) for y, s in seen]
+    err = max(abs(a - b) for a, b in zip(tvm.validationMetrics, aucs))
+    check(len(seen) == len(TVS_REGS) and err <= 1e-12,
+          f"TrainValidationSplit areaUnderROC {['%.6f' % v for v in tvm.validationMetrics]} vs a "
+          f"float64 numpy AUC of the same scores: max abs err {err:.2e} (tol 1e-12)")
+    print(f"TrainValidationSplit(LogisticRegression, {len(TVS_REGS)} maps + refit): "
+          f"{TVS_ROWS} x {TVS_D} bf16 in {tvs_s:.3f} s", flush=True)
+    del xl, yl, tvm
+    torch.cuda.empty_cache()
+    print(f"phase 23, in process: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def phase_spark_scaler(torch, kernels, config, spark_rate):
+    """Phase 23, the Spark part: SparkStandardScaler's feed protocol through
+    the port's daemon on the card, with ``_drive_scaler`` as the driver and
+    phase 20's 8 spawned tasks and frames. Returns the gram_colsum
+    launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch.models.scaler import StandardScaler
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient, DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.spark import estimator as est
+    from spark_rapids_ml_tpu_torch.utils import profiling
+
+    print(f"phase 23 SparkStandardScaler: {DP_PARTITIONS} task processes (spawn) x {DP_FEEDS} "
+          f"feed_raw frames of {DP_ROWS} x {D} float32 (phase 20's bf16-exact rows); partition "
+          f"{SPARK_DYING}'s attempt 0 dies after one feed", flush=True)
+    core = StandardScaler()
+    t_phase = time.perf_counter()
+    with DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as daemon:
+        t_spawn = time.perf_counter()
+        pool = _P21Pool(daemon.address, P23_RUNS)
+        print(f"phase 23 tasks ready in {time.perf_counter() - t_spawn:.1f} s", flush=True)
+        try:
+            model, rec = p21_fit(torch, kernels, est, profiling, pool, daemon.address, "scaler",
+                                 lambda fit, run_pass: est._drive_scaler(fit, run_pass, core),
+                                 runs=P23_RUNS, tag="phase 23")
+        finally:
+            pool.close()
+        launches = rec["launches"]["gram_colsum"]
+        folded = DP_PARTITIONS * DP_FEEDS + 1
+        check(launches == folded and rec["routes"]["gram_colsum/wgmma"] == folded,
+              f"phase 23 SparkStandardScaler: gram_colsum launches {launches} == folded feeds "
+              f"{folded}, all on the tensor-core route")
+        # References from the same rows, rebuilt from the tasks' seeds.
+        s1 = torch.zeros(D, dtype=torch.float64, device=DEV)
+        s2 = torch.zeros(D, dtype=torch.float64, device=DEV)
+        sa = torch.zeros(D, dtype=torch.float64, device=DEV)
+        keys = [(p, f) for p in range(DP_PARTITIONS) for f in range(DP_FEEDS)]
+        with ThreadPoolExecutor(max_workers=8) as rows_pool:
+            for x in rows_pool.map(lambda pf: spark_rows(np, pf[0], pf[1], DP_ROWS, D, K), keys):
+                xd = torch.from_numpy(x).to(DEV).double()
+                s1 += xd.sum(0)
+                s2 += (xd * xd).sum(0)
+                sa += xd.abs().sum(0)
+        n = float(rec["rows"])
+        mean64 = (s1 / n).cpu().numpy()
+        var64 = ((s2 - n * (s1 / n) ** 2) / (n - 1)).cpu().numpy()
+        ex2, eabs = (s2 / n).cpu().numpy(), (sa / n).cpu().numpy()
+        err_m = float((np.abs(model.mean - mean64) / eabs).max())
+        err_v = float((np.abs(model.std ** 2 - var64) / ex2).max())
+        # Tolerance: the fold's f32 sums (the tensor-core Gram's diagonal at
+        # 5e-7 of Σx²), so the variance is held to E[x²], not to itself
+        # (phase 20's tail columns have |μ| up to 10 σ).
+        check(err_m <= 1e-6 and err_v <= 2e-6,
+              f"SparkStandardScaler mean vs float64 of the same rows: {err_m:.2e} of E|x| (tol "
+              f"1e-6); variance {err_v:.2e} of E[x²] (tol 2e-6)")
+        xq = spark_rows(np, 0, 0, DP_ROWS, D, K)
+        names = []
+        for with_mean in (False, True):
+            m = model.copy({"withMean": with_mean})
+            name = f"{m.uid}-{est._model_fingerprint(m)}"
+            with DataPlaneClient(*daemon.address) as c:
+                created = c.ensure_model(name, "scaler", m._model_data(),
+                                         params=est._scalar_params(m))
+            got = daemon._lookup_model(name).transform(xq)["output"]
+            check(created and np.array_equal(got, m.transform_matrix(xq)["output"]),
+                  f"served scaler (withMean={with_mean}) of {DP_ROWS} rows through ensure_model "
+                  f"bitwise equal to transform_matrix")
+            names.append(name)
+        check(len(set(names)) == 2 and len(daemon._models) == 2,
+              f"the withMean=True copy registered under a second name: {names}")
+        served = daemon._lookup_model(names[0])
+        lat = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            served.transform(xq)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        lat.sort()
+    gib = (rec["rows"] + DP_ROWS) * D * 4 / 2 ** 30
+    beside = ("not run" if spark_rate is None else f"{spark_rate:.1f} rows/s in this run")
+    print(f"phase 23 SparkStandardScaler: {rec['rows'] / rec['s']:.1f} rows/s, "
+          f"{gib / rec['s']:.2f} GiB/s of frames (phase 20's PCA fit of the same frames: "
+          f"{beside}); served scaler p50 {lat[len(lat) // 2]:.3f} ms for {DP_ROWS} x {D} host "
+          f"rows (host clock, 21 runs); phase 23's Spark part {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def rf_rows(torch, gen, rows, kind):
+    """Phase 24's synthetic rows on the card, in the public datasets' shapes.
+
+    ``higgs``: 28 float32 features, 21 "low-level" N(0, 1) ones and 7
+    "high-level" ones built from them (√(a² + b²) + 0.3·N(0, 1), as HIGGS's
+    invariant masses are functions of its kinematics), and a 0/1 label drawn
+    from a logistic model of both kinds. ``msd``: 90 float32 features (12
+    timbre means at scales 5-40, 78 covariances N(0, 1)) and integer year
+    labels 1922-2011 from a saturating function of them plus noise."""
+    if kind == "higgs":
+        x = torch.randn((rows, HIGGS_D), generator=gen, device=DEV)
+        hi = torch.sqrt(x[:, 0:7] ** 2 + x[:, 7:14] ** 2)
+        x[:, 21:28] = hi + 0.3 * x[:, 21:28]
+        logit = (1.2 * (x[:, 21] - 1.25) - 0.8 * (x[:, 22] - 1.25) + 0.6 * x[:, 3] * x[:, 4]
+                 + 0.4 * x[:, 5] - 0.3 * x[:, 24])
+        y = (torch.rand((rows,), generator=gen, device=DEV) < torch.sigmoid(logit)).float()
+        return x, y
+    scales = torch.ones(MSD_D, device=DEV)
+    scales[:12] = torch.linspace(5.0, 40.0, 12, device=DEV)
+    x = torch.randn((rows, MSD_D), generator=gen, device=DEV) * scales
+    s = x[:, :12] / scales[:12]
+    z = torch.tanh(0.5 * s[:, 0] - 0.4 * s[:, 1] + 0.3 * s[:, 2] * s[:, 3]) + 0.2 * x[:, 12]
+    year = 1998.0 + 9.0 * z + 3.0 * torch.randn((rows,), generator=gen, device=DEV)
+    return x, torch.clamp(torch.round(year), 1922.0, 2011.0)
+
+
+def np_bootstrap(np, n, tree, seed):
+    """One tree's Poisson(1) bag weights of rows 0..n−1 of partition 0, in
+    numpy uint32 (wrapping) arithmetic: the reference's hash, written
+    independently of the port's int64 form."""
+    def mix(h):
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x7FEB352D)
+        h = h ^ (h >> np.uint32(15))
+        h = h * np.uint32(0x846CA68B)
+        return h ^ (h >> np.uint32(16))
+
+    tweak = np.uint32((tree * 0x9E3779B1 + (seed & 0xFFFFFFFF)) & 0xFFFFFFFF)
+    u = mix(np.arange(n, dtype=np.uint32) ^ mix(np.array([tweak], np.uint32)))
+    u = u.astype(np.float32) * np.float32(1.0 / 4294967296.0)
+    w = np.zeros(n, np.float64)
+    for c in np.asarray([0.36787944117144233, 0.7357588823428847, 0.9196986029286058,
+                         0.9810118431238462, 0.9963401531726563, 0.9994058151824183],
+                        np.float32):
+        w += u > c
+    return w
+
+
+def np_forest(np, arrays, xq):
+    """A numpy descent of the fitted tables (binned in float32, as the card
+    bins): per-tree leaf stats (T, n, S), float64."""
+    feature = np.asarray(arrays["feature"], np.int64)
+    threshold = np.asarray(arrays["threshold"], np.int64)
+    value = np.asarray(arrays["value"], np.float64)
+    edges = np.asarray(arrays["bin_edges"], np.float64).astype(np.float32)
+    bins = (xq[:, :, None] > edges[None, :, :]).sum(-1)
+    T, N = feature.shape
+    n, d = bins.shape
+    idx = np.zeros((T, n), np.int64)
+    rows = np.arange(n)[None, :]
+    for _ in range(int(np.log2(N + 1)) - 1):
+        f = np.take_along_axis(feature, idx, 1)
+        bin_at = bins[rows, np.clip(f, 0, d - 1)]
+        go = (bin_at > np.take_along_axis(threshold, idx, 1)).astype(np.int64)
+        idx = np.where(f >= 0, 2 * idx + 1 + go, idx)
+    return value[np.arange(T)[:, None], idx]
+
+
+def rf_node_tie(torch, hist_ops, bins, y, weights, cpu, spec, t, node, pick):
+    """Whether the card's decision at heap node ``node`` of tree ``t`` is a
+    near-tie with the CPU's, on the CPU fit's tables: the node's histogram
+    rebuilt in float64 on the card from its rows (``bins``, ``y``, the bag
+    ``weights`` (T, n)) and scored in the Σg²/n form the scorer maximizes.
+    With both sides split, the card's (feature, bin) ``pick`` must score
+    within RF_TIE of the best candidate; with one side a leaf (``pick``
+    None, or the CPU's node a leaf), the best candidate must score within
+    RF_TIE of the node's own term (a gain float32 cannot resolve). Returns
+    (tie, best, picked or the node's term)."""
+    depth = (node + 1).bit_length() - 1
+    W = 1 << depth
+    feat = torch.from_numpy(cpu["feature"][t:t + 1]).to(DEV)
+    thr = torch.from_numpy(cpu["threshold"][t:t + 1]).to(DEV)
+    idx, alive = hist_ops.descend_to_frontier(bins, feat, thr, depth)
+    sel = (idx[0] == node) & alive[0]
+    w, yy, b = weights[t][sel], y[sel], bins[sel].long()
+    d, B = b.shape[1], spec.max_bins
+    hist = torch.zeros((d * B, 3), dtype=torch.float64, device=DEV)
+    key = (torch.arange(d, device=DEV)[None, :] * B + b).reshape(-1)
+    src = torch.stack([w, w * yy, w * yy * yy], 1)[:, None, :].expand(-1, d, 3).reshape(-1, 3)
+    hist.index_add_(0, key, src)
+    cum = hist.view(d, B, 3).cumsum(1)
+    left, right = cum[:, : B - 1], cum[:, B - 1:B] - cum[:, : B - 1]
+    n_l, n_r = left[..., 0], right[..., 0]
+    raw = left[..., 1] ** 2 / n_l.clamp(min=1) + right[..., 1] ** 2 / n_r.clamp(min=1)
+    subset = hist_ops.feature_subset_mask(spec.num_trees, W, depth, d, spec.subset_m,
+                                          spec.seed, device=DEV)[t, node - (W - 1)]
+    valid = (n_l >= spec.min_instances) & (n_r >= spec.min_instances) & subset[:, None]
+    raw = torch.where(valid, raw, torch.full_like(raw, -float("inf")))
+    best = float(raw.max())
+    if pick is None or int(cpu["feature"][t, node]) < 0:
+        tot = cum[0, B - 1]
+        own = float(tot[1] ** 2 / tot[0].clamp(min=1))
+        return best <= own * (1.0 + RF_TIE), best, own
+    picked = float(raw[pick[0], pick[1]])
+    return picked >= best * (1.0 - RF_TIE), best, picked
+
+
+def rf_compare(torch, np, hist_ops, tag, card, cpu, bins, y, weights, spec):
+    """The card's prefix fit against the CPU's: classifier tables bitwise;
+    regressor features and thresholds equal and values within 1e-5
+    relative, except under a node whose decisions differ by a near-tie
+    (``rf_node_tie``; printed, then its subtree skipped)."""
+    if spec.n_classes > 0:
+        same = all(np.array_equal(card[k], cpu[k]) for k in ("feature", "threshold", "value"))
+        check(same, f"{tag}: card and CPU (float32) fits of the {RF_PREFIX}-row prefix: "
+                    f"feature, threshold and value bitwise equal")
+        return
+    T, N = cpu["feature"].shape
+    skip = np.zeros((T, N), bool)
+    ties, bad = [], []
+    for node in range(N):
+        kids = [c for c in (2 * node + 1, 2 * node + 2) if c < N]
+        for t in range(T):
+            if skip[t, node]:
+                for c in kids:
+                    skip[t, c] = True
+                continue
+            vc, vg = cpu["value"][t, node], card["value"][t, node]
+            if not np.all(np.abs(vg - vc) <= 1e-5 * np.abs(vc)):
+                bad.append((t, node, "value"))
+            fc, fg = int(cpu["feature"][t, node]), int(card["feature"][t, node])
+            tc, tg = int(cpu["threshold"][t, node]), int(card["threshold"][t, node])
+            if (fc, tc) == (fg, tg):
+                continue
+            tie = None
+            if fc >= 0 or fg >= 0:
+                tie, best, picked = rf_node_tie(torch, hist_ops, bins, y, weights, cpu, spec,
+                                                t, node, (fg, tg) if fg >= 0 else None)
+            if tie:
+                ties.append((t, node, (fc, tc), (fg, tg), best, picked))
+                for c in kids:
+                    skip[t, c] = True
+            else:
+                bad.append((t, node, (fc, tc), (fg, tg)))
+    for t, node, c, g, best, picked in ties:
+        if c[0] >= 0 and g[0] >= 0:
+            print(f"  {tag} near-tie: tree {t} node {node}: CPU split {c}, card {g}; the card's "
+                  f"candidate scores {picked:.10e} against the best {best:.10e} "
+                  f"({1 - picked / best:.2e} below; tie tol {RF_TIE})")
+        else:
+            print(f"  {tag} near-tie: tree {t} node {node}: CPU {c}, card {g} (-1: a leaf); the "
+                  f"best candidate scores {best:.10e} against the node's own {picked:.10e} "
+                  f"({best / picked - 1:.2e} above; tie tol {RF_TIE})")
+    check(not bad, f"{tag}: card and CPU (float32) fits of the {RF_PREFIX}-row prefix: features "
+                   f"and thresholds equal, values within 1e-5 relative, outside {len(ties)} "
+                   f"near-tie subtrees; mismatches {bad[:8]}")
+
+
+def rf_fit_timed(torch, kernels, profiling, fit, tag, n):
+    """One full-size forest fit with the spans reset before it and a
+    torch.profiler trace of its device activity around it: prints fit
+    seconds, rows/s per level pass, the histogram and split ms per level and
+    the device busy share. (Device events only: a fit makes some 10⁵ host
+    ops, whose trace would take longer to read than the fit.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    profiling.reset_span_totals()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model = fit()
+        fit_s = time.perf_counter() - t0  # the tables are on the host: synced
+    busy_ms, by_name, _ = device_time(torch, prof)
+    del prof
+    spans = profiling.span_totals()
+    hs, passes = spans.get("forest histogram", (0.0, 0))
+    ss, _ = spans.get("forest split", (0.0, 0))
+    bs, _ = spans.get("forest binning", (0.0, 0))
+    top = ", ".join(f"{nm[:44]} {ms:.1f} ({c})"
+                    for nm, (ms, c) in sorted(by_name.items(), key=lambda r: -r[1][0])[:5])
+    print(f"{tag} fit: {n} rows in {fit_s:.3f} s, {passes} level passes, "
+          f"{n * passes / max(hs, 1e-9):.1f} rows/s per level pass of the histogram; per level: "
+          f"histogram {1e3 * hs / max(passes, 1):.1f} ms, split {1e3 * ss / max(passes, 1):.1f} "
+          f"ms (spans, host clock); binning {bs:.3f} s; device busy {busy_ms:.1f} ms of "
+          f"{fit_s * 1e3:.1f} ({100 * busy_ms / (fit_s * 1e3):.1f} %); largest device kernels "
+          f"(ms, count): {top}", flush=True)
+    assert not any(kernels.LAUNCHES.values()), "a forest fit launches no hand-written kernel"
+    return model
+
+
+def phase_forests(torch, kernels, config):
+    """Phase 24: RandomForestClassifier on HIGGS's shape and
+    RandomForestRegressor on YearPredictionMSD's, Spark's defaults, on the
+    card; the checks at a 262,144-row prefix against the card machine's CPU
+    and at full size against numpy."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch import RandomForestClassifier, RandomForestRegressor
+    from spark_rapids_ml_tpu_torch.models import random_forest as rf
+    from spark_rapids_ml_tpu_torch.ops import histogram as hist_ops
+    from spark_rapids_ml_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    marks = []  # (what, seconds into the phase)
+
+    def mark(what):
+        marks.append((what, time.perf_counter() - t_phase))
+
+    gen = torch.Generator(device=DEV).manual_seed(RF_SEED)
+    xh, yh = rf_rows(torch, gen, HIGGS_ROWS, "higgs")
+    xhq, yhq = rf_rows(torch, gen, RF_HELDOUT, "higgs")
+    xm, ym = rf_rows(torch, gen, MSD_ROWS, "msd")
+    xmq, ymq = rf_rows(torch, gen, RF_HELDOUT, "msd")
+    mark("data")
+    print(f"phase 24: RandomForestClassifier on {HIGGS_ROWS} x {HIGGS_D} (UCI HIGGS's shape, "
+          f"{float(yh.mean()):.3f} positive) and RandomForestRegressor on {MSD_ROWS} x {MSD_D} "
+          f"(UCI YearPredictionMSD's shape, years {int(ym.min())}-{int(ym.max())}), synthesized "
+          f"from seed {RF_SEED}; Spark's defaults: numTrees 20, maxDepth 5, maxBins 32, "
+          f"featureSubsetStrategy auto, bootstrap", flush=True)
+    kw = dict(seed=RF_SEED)
+    xh_cpu, yh_cpu = xh[:RF_PREFIX].cpu(), yh[:RF_PREFIX].cpu()
+    xm_cpu, ym_cpu = xm[:RF_PREFIX].cpu(), ym[:RF_PREFIX].cpu()
+
+    def cpu_fits():  # the card machine's CPU, float32 as on the card
+        return (rf.fit_random_forest_classifier(xh_cpu, yh_cpu, device="cpu", **kw),
+                rf.fit_random_forest_regressor(xm_cpu, ym_cpu, device="cpu", **kw))
+
+    clf = rf_fit_timed(torch, kernels, profiling, lambda: RandomForestClassifier().setSeed(
+        RF_SEED).fit({"features": xh, "label": yh}), "RandomForestClassifier (HIGGS shape)",
+        HIGGS_ROWS)
+    reg = rf_fit_timed(torch, kernels, profiling, lambda: RandomForestRegressor().setSeed(
+        RF_SEED).fit({"features": xm, "label": ym}), "RandomForestRegressor (MSD shape)",
+        MSD_ROWS)
+    mark("timed fits")
+    # The CPU prefix fits run in a thread (their torch ops leave the
+    # interpreter lock) beside everything the card does below; after the
+    # timed fits, whose spans they would add to.
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        t_cpu = time.perf_counter()
+        cpu_job = pool.submit(cpu_fits)
+        card_c = rf.fit_random_forest_classifier(xh[:RF_PREFIX], yh[:RF_PREFIX], **kw)
+        card_r = rf.fit_random_forest_regressor(xm[:RF_PREFIX], ym[:RF_PREFIX], **kw)
+        # Every tree's root class totals: numpy float64 sums of the host
+        # bootstrap weights per class (integer-exact), a tree per thread.
+        yh_np = yh.cpu().numpy().astype(np.int64)
+        spec_c = rf.forest_spec_from_params({"n_classes": 2, "seed": RF_SEED}, HIGGS_D)
+        with ThreadPoolExecutor(max_workers=4) as trees:
+            want = list(trees.map(lambda t: np.bincount(
+                yh_np, weights=np_bootstrap(np, HIGGS_ROWS, t, RF_SEED), minlength=2),
+                range(spec_c.num_trees)))
+        roots_ok = all(np.array_equal(clf.arrays["value"][t, 0], want[t])
+                       for t in range(spec_c.num_trees))
+        check(roots_ok, f"classifier: every tree's root class totals equal numpy float64 sums of "
+                        f"the host bootstrap weights per class ({HIGGS_ROWS} rows, "
+                        f"{spec_c.num_trees} trees; tree 0: {clf.arrays['value'][0, 0].tolist()})")
+        msd_w = [np_bootstrap(np, MSD_ROWS, t, RF_SEED).sum() for t in range(spec_c.num_trees)]
+        check(all(reg.arrays["value"][t, 0, 0] == msd_w[t] for t in range(spec_c.num_trees)),
+              "regressor: every tree's root count equals the numpy sum of its bootstrap weights")
+        # Held-out transform against a numpy descent of the fitted tables.
+        xq = xhq.cpu().numpy()
+        leaves = np_forest(np, clf.arrays, xq)
+        proba = (leaves / np.maximum(leaves.sum(-1, keepdims=True), 1.0)).mean(0)
+        got = clf.transform_matrix(xhq)["prediction"].cpu().numpy()
+        top2 = np.sort(proba, 1)
+        near = top2[:, -1] - top2[:, -2] <= 1e-6
+        same = got == proba.argmax(1)
+        check(bool(same[~near].all()),
+              f"classifier transform_matrix of {RF_HELDOUT} held-out rows: predicted class equal "
+              f"to a numpy descent of the tables on every row off a 1e-6 near-tie "
+              f"({int(near.sum())} near-ties, {int((~same & near).sum())} of them differing)")
+        lm = np_forest(np, reg.arrays, xmq.cpu().numpy())
+        means = (lm[..., 1] / np.maximum(lm[..., 0], 1.0)).mean(0)
+        got_r = reg.transform_matrix(xmq)["prediction"].cpu().numpy()
+        err_r = float(np.abs(got_r / means - 1.0).max())
+        check(err_r <= 1e-6, f"regressor transform_matrix of {RF_HELDOUT} held-out rows vs a "
+                             f"numpy descent: max rel err {err_r:.2e} (tol 1e-6)")
+        acc = float((got == yhq.cpu().numpy()).mean())
+        ymq_np = ymq.cpu().numpy().astype(np.float64)
+        r2 = 1.0 - float(((got_r - ymq_np) ** 2).sum() / ((ymq_np - ymq_np.mean()) ** 2).sum())
+        lat = {}
+        for tag, model, q in (("classifier", clf, xhq), ("regressor", reg, xmq)):
+            runs = []
+            for _ in range(21):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.transform_matrix(q)["prediction"].sum().item()
+                runs.append(time.perf_counter() - t0)
+            lat[tag] = sorted(runs)[10]
+        print(f"forest predict of {RF_HELDOUT} held-out rows (device-resident, synced, p50 of 21): "
+              f"classifier {RF_HELDOUT / lat['classifier']:.1f} rows/s, accuracy {acc:.4f}; "
+              f"regressor {RF_HELDOUT / lat['regressor']:.1f} rows/s, R² {r2:.4f}", flush=True)
+        mark("the card's checks")
+        cpu_c, cpu_r = cpu_job.result()
+        cpu_s = time.perf_counter() - t_cpu
+        mark("the CPU prefix fits")
+    spec_r = rf.forest_spec_from_params({"seed": RF_SEED}, MSD_D)
+    rf_compare(torch, np, hist_ops, "classifier", card_c.arrays, cpu_c.arrays, None, None, None,
+               spec_c)
+    edges = torch.as_tensor(cpu_r.arrays["bin_edges"], device=DEV).float()
+    bins = hist_ops.bin_matrix(xm[:RF_PREFIX], edges)
+    keys = torch.arange(RF_PREFIX, dtype=torch.int64, device=DEV)
+    weights = hist_ops.bootstrap_weights(keys, spec_r.num_trees, spec_r.seed).double()
+    rf_compare(torch, np, hist_ops, "regressor", card_r.arrays, cpu_r.arrays, bins,
+               ym[:RF_PREFIX].double(), weights, spec_r)
+    mark("the prefix comparisons")
+    print(f"phase 24: {time.perf_counter() - t_phase:.1f} s (the CPU prefix fits "
+          f"{cpu_s:.1f} s beside the card's work; done at: "
+          + ", ".join(f"{what} {sec:.1f} s" for what, sec in marks) + ")", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -3399,7 +4119,7 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
 
     if "--data-plane" in sys.argv[1:]:
-        # Phases 19 to 22 alone, on phase 3's spectrum.
+        # Phases 19 to 22 and phase 23's Spark part alone, on phase 3's spectrum.
         j = torch.arange(D, device=DEV, dtype=torch.float32)
         scales = torch.where(j < K, torch.sqrt(2.0 - j / (K - 1)), 0.1 * 0.999 ** j)
         mu = 0.05 * torch.randn((D,), generator=torch.Generator(device=DEV).manual_seed(0),
@@ -3407,12 +4127,24 @@ def main() -> None:
         _, dp_rate = phase_data_plane(torch, kernels, config, scales, mu, fit_pca_stream,
                                       PCAModel)
         torch.cuda.empty_cache()
-        phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate)
+        _, sp_rate = phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate)
         torch.cuda.empty_cache()
         phase_iterative_jobs(torch, kernels, config)
         phase_knn_daemon(torch, kernels, config)
+        phase_spark_scaler(torch, kernels, config, sp_rate)
         print(card)
-        print(f"phases 19-22 passed ({time.perf_counter() - t_start:.1f} s); --data-plane: "
+        print(f"phases 19-22 and 23's Spark part passed ({time.perf_counter() - t_start:.1f} s); "
+              "--data-plane: stopping here", flush=True)
+        return
+
+    if "--estimators" in sys.argv[1:]:
+        # Phases 23 and 24 alone.
+        phase_estimators(torch, kernels, config)
+        phase_spark_scaler(torch, kernels, config, None)
+        torch.cuda.empty_cache()
+        phase_forests(torch, kernels, config)
+        print(card)
+        print(f"phases 23-24 passed ({time.perf_counter() - t_start:.1f} s); --estimators: "
               "stopping here", flush=True)
         return
 
@@ -3782,7 +4514,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 20. the Spark feed protocol from separate processes ----------------------------
-    sp_launches = phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate)
+    sp_launches, sp_rate = phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate)
     torch.cuda.empty_cache()
     row_gc = next(row for row in table if row["name"] == "gram_colsum")
     row_gc["daemon_launches"], row_gc["spark_launches"] = dp_launches, sp_launches
@@ -3794,6 +4526,16 @@ def main() -> None:
     # -- 22. the knn job: the index built and served by the daemon ------------------------
     for name, n in phase_knn_daemon(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["daemon_launches"] = n
+    torch.cuda.empty_cache()
+
+    # -- 23. scaler, pipeline, tuning, evaluation; SparkStandardScaler -------------------
+    for name, n in phase_estimators(torch, kernels, config).items():
+        next(row for row in table if row["name"] == name)["estimator_launches"] = n
+    row_gc["spark_scaler_launches"] = phase_spark_scaler(torch, kernels, config, sp_rate)
+    torch.cuda.empty_cache()
+
+    # -- 24. the histogram RandomForest at the sizes users run ----------------------------
+    phase_forests(torch, kernels, config)
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "

@@ -2,12 +2,14 @@
 
 The counterpart of ``spark_rapids_ml_tpu/config.py``, cut to the keys the
 port reads (PCA, KMeans, LinearRegression, LogisticRegression,
-NearestNeighbors and ApproximateNearestNeighbors, the data-plane
-daemon's watermarks, the Spark fit policies and the native bridge).
+NearestNeighbors and ApproximateNearestNeighbors, the random forests, the
+data-plane daemon's watermarks, the Spark fit policies and the native
+bridge).
 Values are settable programmatically or through environment variables
 prefixed ``SRML_TORCH_`` — a prefix of its own, so the port never inherits
 the JAX package's ``SRML_TPU_*`` settings; the deployment-facing
-``SRML_FIT_DAEMON_JOIN_*`` keep their full names, as there.
+``SRML_FIT_DAEMON_JOIN_*`` and ``SRML_FOREST_*`` keep their full names, as
+there.
 
 There is no ``use_pallas`` switch, and no ``ann_fused_scan``: the device
 of the tensor decides. A CUDA tensor goes through the hand-written kernel,
@@ -84,6 +86,14 @@ _DEFAULTS: Dict[str, Any] = {
     # the port's Spark fit refuses for now). Deployment-facing env name, as
     # in the JAX package.
     "fit_daemon_join_policy": os.environ.get("SRML_FIT_DAEMON_JOIN_POLICY", "off"),
+    # Histogram tree ensembles (models/random_forest.py); deployment-facing
+    # env names, as in the JAX package. Row cap of the prefix sample that
+    # trains the quantile bin edges.
+    "forest_seed_sample_rows": int(os.environ.get("SRML_FOREST_SEED_SAMPLE_ROWS", "65536")),
+    # Budget (MiB) of one frontier's (tree, node, feature, bin, stat)
+    # histogram: over it, the fit refuses at the pass that would allocate
+    # it (ForestCapacityError), never a mid-pass out-of-memory. 0 = none.
+    "forest_hist_budget_mb": int(os.environ.get("SRML_FOREST_HIST_BUDGET_MB", "256")),
 }
 
 _lock = threading.Lock()

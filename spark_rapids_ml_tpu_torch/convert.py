@@ -4,6 +4,8 @@ The two packages hold the same numbers in different array types. These
 helpers build the port's objects from what the JAX package hands out as
 numpy, so a model or a streaming state can move from one package to the
 other (and the tests can compute in both from the same numbers).
+:func:`model_from_jax` carries a whole fitted model, a pipeline stage by
+stage, with its uid and params.
 """
 
 from __future__ import annotations
@@ -20,6 +22,11 @@ from spark_rapids_ml_tpu_torch.models.knn import (
 from spark_rapids_ml_tpu_torch.models.linear_regression import LinearRegressionModel
 from spark_rapids_ml_tpu_torch.models.logistic_regression import LogisticRegressionModel
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
+from spark_rapids_ml_tpu_torch.models.random_forest import (
+    RandomForestClassificationModel,
+    RandomForestRegressionModel,
+)
+from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel
 from spark_rapids_ml_tpu_torch.ops.gram import Stats
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor
 
@@ -89,3 +96,61 @@ def ann_model_from_jax(data: Dict[str, np.ndarray], device=None) -> ApproximateN
     model = ApproximateNearestNeighborsModel._from_model_data(None, data)
     model._device = device
     return model
+
+
+def scaler_model_from_jax(data: Dict[str, np.ndarray], device=None) -> StandardScalerModel:
+    """A port ``StandardScalerModel`` from the JAX
+    ``StandardScalerModel._model_data()`` dict (``mean``, ``std``). Params
+    (withMean, withStd) are the caller's to set, as after a fit."""
+    return StandardScalerModel(mean=data["mean"], std=data["std"], device=device)
+
+
+def forest_model_from_jax(data: Dict[str, np.ndarray], device=None):
+    """A port forest model from the JAX forest model's ``_model_data()``
+    dict (``bin_edges``, ``feature``, ``threshold``, ``value``,
+    ``n_classes``): a ``RandomForestClassificationModel`` when
+    ``n_classes`` > 0, else a ``RandomForestRegressionModel``."""
+    n_classes = int(np.asarray(data.get("n_classes", [0])).reshape(-1)[0])
+    cls = RandomForestClassificationModel if n_classes > 0 else RandomForestRegressionModel
+    return cls(arrays=dict(data), device=device)
+
+
+#: JAX model class name → the converter of its ``_model_data()`` dict.
+_STAGE_CONVERTERS = {
+    "PCAModel": pca_model_from_jax,
+    "KMeansModel": kmeans_model_from_jax,
+    "LinearRegressionModel": linreg_model_from_jax,
+    "LogisticRegressionModel": logreg_model_from_jax,
+    "NearestNeighborsModel": knn_model_from_jax,
+    "ApproximateNearestNeighborsModel": ann_model_from_jax,
+    "StandardScalerModel": scaler_model_from_jax,
+    "RandomForestClassificationModel": forest_model_from_jax,
+    "RandomForestRegressionModel": forest_model_from_jax,
+}
+
+
+def model_from_jax(jax_model, device=None):
+    """The port's counterpart of a fitted JAX model, its uid and params
+    carried across (by name; a param the port lacks is skipped). A JAX
+    ``PipelineModel`` converts stage by stage into the port's."""
+    from spark_rapids_ml_tpu_torch.pipeline import PipelineModel
+
+    name = type(jax_model).__name__
+    if name == "PipelineModel":
+        out = PipelineModel(stages=[model_from_jax(s, device) for s in jax_model.stages])
+    else:
+        if name not in _STAGE_CONVERTERS:
+            raise TypeError(f"no port counterpart for the JAX model class {name}")
+        out = _STAGE_CONVERTERS[name](
+            {k: np.asarray(v) for k, v in jax_model._model_data().items() if v is not None},
+            device=device,
+        )
+        for p in jax_model.params:
+            if not out.hasParam(p.name):
+                continue
+            if p in jax_model._defaultParamMap:
+                out.setDefault(**{p.name: jax_model._defaultParamMap[p]})
+            if p in jax_model._paramMap:
+                out._set(**{p.name: jax_model._paramMap[p]})
+    out.uid = jax_model.uid
+    return out

@@ -69,6 +69,18 @@ def as_matrix(dataset: Any, col: Optional[str] = None, n_cols: Optional[int] = N
     return mat
 
 
+def has_column(dataset: Any, col: str) -> bool:
+    """Whether the dataset carries a column named ``col`` (a bare matrix
+    has none)."""
+    if _is_arrow(dataset):
+        return col in dataset.schema.names
+    if _is_pandas(dataset):
+        return col in dataset.columns
+    if isinstance(dataset, dict):
+        return col in dataset
+    return False
+
+
 def as_column(dataset: Any, col: str):
     """Extract a scalar column (labels, weights) as a 1-D numpy array, or
     the tensor itself when the column is a ``torch.Tensor``."""
@@ -83,6 +95,27 @@ def as_column(dataset: Any, col: str):
         f"cannot extract named column {col!r} from a bare array dataset; "
         "pass a dict/arrow/pandas container"
     )
+
+
+def take_rows(dataset: Any, indices: np.ndarray) -> Any:
+    """Row-subset the dataset by integer indices, keeping its container
+    kind: the fold split of CrossValidator and TrainValidationSplit
+    (``tuning.py``). A tensor column is indexed on its own device."""
+    indices = np.asarray(indices)
+    if _is_arrow(dataset):
+        pa = sys.modules["pyarrow"]
+        return _arrow_table(dataset).take(pa.array(indices))
+    if _is_pandas(dataset):
+        return dataset.iloc[indices].reset_index(drop=True)
+
+    def take(v):
+        if isinstance(v, torch.Tensor):
+            return v[torch.as_tensor(indices, device=v.device)]
+        return np.asarray(v)[indices]
+
+    if isinstance(dataset, dict):
+        return {k: take(v) for k, v in dataset.items()}
+    return take(dataset)
 
 
 def with_column(dataset: Any, name: str, values) -> Any:

@@ -10,10 +10,13 @@ the Spark ML on-disk contract the reference uses (RapidsPCA.scala:193-228 —
                                  (part-00000.npz when pyarrow is missing)
 
 The metadata's ``class`` is the layout's name for the model, shared with
-the JAX package: a class may set ``_persist_class`` to that name, and a
-reader whose expected class carries the same class name takes the saved
-directory without importing the named module. So a model saved by one
-package loads in the other.
+the JAX package: every persisted class of the port sets ``_persist_class``
+to the JAX package's name for it, and defining the class enters that name
+in a table (:func:`persisted_class`). A load resolves the saved name there
+first, so a directory saved by either package loads here into the port's
+classes, the untyped loads of Pipeline stages and tuned best models
+included; a name of the JAX package that the table lacks raises, and is
+never imported. So a model saved by one package loads in the other.
 """
 
 from __future__ import annotations
@@ -27,6 +30,28 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+#: The JAX package's module prefix: a saved name under it resolves through
+#: the table below, never by importing it.
+_REFERENCE_PREFIX = "spark_rapids_ml_tpu."
+
+#: Persisted class name → the port's class that loads it, filled as each
+#: persisted class is defined (``MLReadable.__init_subclass__``).
+_PERSISTED: Dict[str, type] = {}
+
+
+def persisted_class(name: str):
+    """The port's class for a saved ``class`` name: the table's entry; else,
+    for a name outside the JAX package, the named class imported."""
+    cls = _PERSISTED.get(name)
+    if cls is not None:
+        return cls
+    if name.startswith(_REFERENCE_PREFIX):
+        raise ValueError(
+            f"saved class {name} belongs to the JAX package and the port has no "
+            f"counterpart for it (known: {sorted(_PERSISTED)})"
+        )
+    module_name, _, cls_name = name.rpartition(".")
+    return getattr(importlib.import_module(module_name), cls_name)
 
 
 def _parquet():
@@ -165,8 +190,7 @@ class DefaultParamsReader:
         if expected_cls is not None and saved.rpartition(".")[2] == expected_cls.__name__:
             cls = expected_cls
         else:
-            module_name, _, cls_name = saved.rpartition(".")
-            cls = getattr(importlib.import_module(module_name), cls_name)
+            cls = persisted_class(saved)
             if expected_cls is not None and not issubclass(cls, expected_cls):
                 raise TypeError(f"saved class {saved} is not a {expected_cls.__name__}")
         data = _read_data(path)
@@ -195,7 +219,16 @@ class MLWritable:
 
 
 class MLReadable:
-    """Mixin: DefaultParamsReadable equivalent (RapidsPCA.scala:90,205)."""
+    """Mixin: DefaultParamsReadable equivalent (RapidsPCA.scala:90,205).
+
+    A subclass that declares ``_persist_class`` in its own body is entered
+    in the table of persisted names under it."""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        name = cls.__dict__.get("_persist_class")
+        if name:
+            _PERSISTED[name] = cls
 
     @classmethod
     def read(cls) -> MLReader:

@@ -397,6 +397,7 @@ class KMeans(Estimator, _KMeansParams, MLWritable, MLReadable):
     ``device``: where the fit runs; None → the card."""
 
     _uid_prefix = "KMeans"
+    _persist_class = "spark_rapids_ml_tpu.models.kmeans.KMeans"
 
     def __init__(self, uid=None, device=None):
         super().__init__(uid=uid)

@@ -205,6 +205,7 @@ class NearestNeighbors(Estimator, _NNParams, MLWritable, MLReadable):
     ``device``: where queries run; None → the card."""
 
     _uid_prefix = "NearestNeighbors"
+    _persist_class = "spark_rapids_ml_tpu.models.knn.NearestNeighbors"
 
     def __init__(self, uid=None, device=None):
         super().__init__(uid=uid)
@@ -779,6 +780,7 @@ class ApproximateNearestNeighbors(Estimator, _ANNParams, MLWritable, MLReadable)
     and the queries run; None → the card."""
 
     _uid_prefix = "ApproximateNearestNeighbors"
+    _persist_class = "spark_rapids_ml_tpu.models.knn.ApproximateNearestNeighbors"
 
     def __init__(self, uid=None, device=None):
         super().__init__(uid=uid)

@@ -287,6 +287,7 @@ class LinearRegression(Estimator, _LinearRegressionParams, MLWritable, MLReadabl
     ``device``: where the fit runs; None → the card."""
 
     _uid_prefix = "LinearRegression"
+    _persist_class = "spark_rapids_ml_tpu.models.linear_regression.LinearRegression"
 
     def __init__(self, uid=None, device=None):
         super().__init__(uid=uid)

@@ -602,6 +602,7 @@ class LogisticRegression(Estimator, _LogisticRegressionParams, MLWritable, MLRea
     ``device``: where the fit runs; None → the card."""
 
     _uid_prefix = "LogisticRegression"
+    _persist_class = "spark_rapids_ml_tpu.models.logistic_regression.LogisticRegression"
 
     def __init__(self, uid=None, device=None):
         super().__init__(uid=uid)

@@ -292,6 +292,7 @@ class PCA(Estimator, _PCAParams, MLWritable, MLReadable):
     ``device``: where the fit runs; None → the card."""
 
     _uid_prefix = "PCA"
+    _persist_class = "spark_rapids_ml_tpu.models.pca.PCA"
 
     def __init__(self, uid=None, device=None):
         super().__init__(uid=uid)

@@ -1,7 +1,9 @@
 """The data-plane daemon: the executor-to-card feeding path.
 
 The port of ``spark_rapids_ml_tpu/serve/daemon.py``, cut to the jobs of
-the pca, linreg, kmeans, logreg and knn estimators and their serving. A
+the pca, linreg, kmeans, logreg and knn estimators and their serving, and
+the StandardScaler's (a pca job finalized to its raw moments, and the
+served ``scaler`` model). A
 TCP server next to the card accepts row batches from Spark tasks (Arrow
 IPC ``feed``, or raw little-endian ``feed_raw`` frames where no Arrow
 library is at hand), folds each batch into the device-resident additive
@@ -62,8 +64,9 @@ Left for later slices of the port, each answered "unknown op" with its
 payload drained: ``merge_state``, ``reduce_mesh`` and ``mesh_info`` (the
 multi-daemon plane, ROADMAP Queue 1 items 5–6); durable ``state_dir``
 snapshots, faults, the health/metrics/telemetry ops, the serving
-scheduler and AOT warmup (item 7); the ``rf`` job (item 4). A feed naming
-such an ``algo`` is refused before a job is registered.
+scheduler and AOT warmup (item 7); the ``rf`` job and the served forests
+(item 4, slice 15). A feed naming such an ``algo``, or an ``ensure_model``
+naming such a model, is refused before a job or model is registered.
 """
 
 from __future__ import annotations
@@ -86,6 +89,7 @@ from spark_rapids_ml_tpu_torch.models import knn as knn_mod
 from spark_rapids_ml_tpu_torch.models import linear_regression as lr_mod
 from spark_rapids_ml_tpu_torch.models import logistic_regression as lg_mod
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel, finalize_pca_stats
+from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel
 from spark_rapids_ml_tpu_torch.ops import gram as gram_ops
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device
 from spark_rapids_ml_tpu_torch.serve import protocol
@@ -97,8 +101,8 @@ logger = get_logger("serve.daemon")
 #: The job algos this daemon runs, and what a feed naming another gets.
 _ALGOS = ("pca", "linreg", "kmeans", "logreg", "knn")
 _LATER_ALGOS = "the port's daemon does not run 'rf' (ROADMAP Queue 1 item 4) yet"
-_LATER_MODELS = ("the port's daemon does not serve 'scaler' (ROADMAP Queue 1 item 3) or the "
-                 "forests (item 4) yet")
+_LATER_MODELS = ("the port's daemon does not serve the forests ('rf_classifier', "
+                 "'rf_regressor'; ROADMAP Queue 1 item 4, slice 15) yet")
 
 #: Ops whose request JSON is followed by one Arrow IPC payload frame
 #: (docs/protocol.md; ``seed`` and ``kneighbors`` unless they carry
@@ -937,6 +941,7 @@ _MODEL_CLASSES = {
     "kmeans": km_mod.KMeansModel,
     "linreg": lr_mod.LinearRegressionModel,
     "logreg": lg_mod.LogisticRegressionModel,
+    "scaler": StandardScalerModel,
 }
 
 

@@ -2,7 +2,9 @@
 
 The port of ``spark_rapids_ml_tpu/spark`` for ``SparkPCA``,
 ``SparkLinearRegression``, ``SparkKMeans``, ``SparkLogisticRegression``,
-``SparkNearestNeighbors`` and ``SparkApproximateNearestNeighbors``.
+``SparkNearestNeighbors``, ``SparkApproximateNearestNeighbors`` and
+``SparkStandardScaler`` (the Spark forest wrappers come with the daemon's
+``rf`` job).
 The reference reaches Spark three ways (SURVEY.md §1), and so does this:
 
 1. the estimator namespace: each wrapper takes a PySpark DataFrame with
@@ -29,6 +31,7 @@ from spark_rapids_ml_tpu_torch.spark.estimator import (
     SparkLogisticRegression,
     SparkNearestNeighbors,
     SparkPCA,
+    SparkStandardScaler,
     register_dataframe_type,
 )
 
@@ -39,6 +42,7 @@ __all__ = [
     "SparkLogisticRegression",
     "SparkNearestNeighbors",
     "SparkPCA",
+    "SparkStandardScaler",
     "daemon_session",
     "discovery_payload",
     "gpu_session_conf",

@@ -1,8 +1,9 @@
 """The PySpark DataFrame adapters of the port: ``SparkPCA``,
 ``SparkLinearRegression``, ``SparkKMeans``, ``SparkLogisticRegression``,
-``SparkNearestNeighbors`` and ``SparkApproximateNearestNeighbors``.
+``SparkNearestNeighbors``, ``SparkApproximateNearestNeighbors`` and
+``SparkStandardScaler``.
 
-The port of ``spark_rapids_ml_tpu/spark/estimator.py`` for those six
+The port of ``spark_rapids_ml_tpu/spark/estimator.py`` for those seven
 estimators. The reference's user contract is to change one import and
 keep the Spark ML code (reference PCA.scala:27-37, README.md:27-37, with
 the features column an ArrayType):
@@ -13,7 +14,8 @@ the features column an ArrayType):
 to the card (``serve/``) and commits; the daemon folds every batch into
 its job's state on the card; the driver finalizes and receives only the
 model (RapidsRowMatrix.scala:118-139). The dataset never reaches the
-driver. PCA and LinearRegression are one scan. KMeans and
+driver. PCA, StandardScaler (a pca job finalized to its raw moments,
+no eigensolve) and LinearRegression are one scan. KMeans and
 LogisticRegression are one scan per pass: the driver seeds KMeans' centres
 from a small prefix sample (``seed``), learns LogisticRegression's class
 count from a one-row-per-task label probe, and after each scan steps
@@ -34,21 +36,24 @@ pass from it, recreating a lost job with ``set_iterate``; a single-pass
 fit replays its scan.
 
 Each driver loop is a function of a ``run_pass(pass_id) -> acks``
-callable (``_drive_pca``, ``_drive_linreg``, ``_drive_kmeans``,
-``_drive_logreg``, ``_drive_knn``): the Spark fit passes one that runs ``mapInArrow``
+callable (``_drive_pca``, ``_drive_scaler``, ``_drive_linreg``,
+``_drive_kmeans``, ``_drive_logreg``, ``_drive_knn``): the Spark fit passes
+one that runs ``mapInArrow``
 tasks, and a driver without Spark (the card smoke) one of its own.
 
 **transform** runs ``mapInArrow`` tasks that register the model with the
 daemon once (``ensure_model``) and send each batch's features to its
 ``transform`` op, or, with ``SRML_TRANSFORM_LOCAL=1``, score on the
-executor's CPU.
+executor's CPU. The model's serving params (``_serve_params``: the
+scaler's withMean and withStd) ride the registration and its name, so two
+copies of one fit that differ in them are served apart.
 
 The port folds into ONE daemon. Refused loudly, each until the ROADMAP
 item that brings it: acks that name a second daemon (the cross-daemon
 merge, Queue 1 items 5–6), a daemon loss tolerance above 0 or the
 ``boundary`` join policy (items 5–6), and with them the sharded index of
-a knn fit over several daemons; the scaler and the forests come with
-items 3–4.
+a knn fit over several daemons; the forests come with item 4's second
+half (slice 15).
 
 pyspark is optional: importing this module never needs it (nor pyarrow,
 which the tasks import at use); ``fit``/``transform`` of a Spark DataFrame
@@ -69,6 +74,8 @@ from spark_rapids_ml_tpu_torch.models import linear_regression as _lr
 from spark_rapids_ml_tpu_torch.models import logistic_regression as _lg
 from spark_rapids_ml_tpu_torch.models.pca import PCA as _PCA
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
+from spark_rapids_ml_tpu_torch.models.scaler import StandardScaler as _StandardScaler
+from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel, finalize_moments
 from spark_rapids_ml_tpu_torch.spark import daemon_session
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
@@ -555,6 +562,22 @@ def _drive_pca(fit: _SingleDaemonFit, run_pass, core) -> PCAModel:
     return _pca_model(arrays, device=core._device)
 
 
+def _drive_scaler(fit: _SingleDaemonFit, run_pass, core) -> StandardScalerModel:
+    """One scan into a pca job, finalized to its raw moments (count, Σx,
+    diag XᵀX; no eigensolve), then the host float64 mean and unbiased std,
+    as the reference's scaler fit."""
+    fit.algo = "pca"
+
+    def shot():
+        n = fit.scan(run_pass, None)
+        return fit.finalize_guarded({"raw_moments": True}, pass_rows_expected=n)
+
+    arrays, _ = fit.with_recovery(shot)
+    mean, std = finalize_moments(float(arrays["count"][0]), arrays["colsum"],
+                                 arrays["gram_diag"])
+    return StandardScalerModel(mean=mean, std=std, device=core._device)
+
+
 def _drive_linreg(fit: _SingleDaemonFit, run_pass, core) -> "_lr.LinearRegressionModel":
     fit.algo = "linreg"
     params = {"reg": core.getRegParam(), "elastic_net": core.getElasticNetParam(),
@@ -730,6 +753,9 @@ class _SparkAdapter:
         nearest-neighbour estimators only the built index's row count)."""
         core = self._core
         algo = self._daemon_algo
+        # A scaler fit feeds the pca job protocol: its statistics are a
+        # subset of PCA's.
+        wire_algo = "pca" if algo == "scaler" else algo
         spark = getattr(df, "sparkSession", None)
         _refuse_multi_daemon_policies(spark)
         # Without a configured daemon this starts the driver's own on the
@@ -748,7 +774,7 @@ class _SparkAdapter:
         try:
 
             def run_pass(pass_id):
-                task = _FeedTask(host, port, token, job, algo, input_col, pass_id,
+                task = _FeedTask(host, port, token, job, wire_algo, input_col, pass_id,
                                  label_col=label_col, params=fit.params)
                 return sel.mapInArrow(task, _ACK_SCHEMA).collect()
 
@@ -756,6 +782,8 @@ class _SparkAdapter:
                 return _drive_knn(fit, run_pass, core)
             if algo == "pca":
                 model = _drive_pca(fit, run_pass, core)
+            elif algo == "scaler":
+                model = _drive_scaler(fit, run_pass, core)
             elif algo == "linreg":
                 model = _drive_linreg(fit, run_pass, core)
             elif algo == "kmeans":
@@ -784,9 +812,18 @@ def _serve_spec(core_model):
     return algo, [(role, core_model.getOrDefault(param), kind) for role, param, kind in outs]
 
 
+def _scalar_params(core_model) -> Dict[str, Any]:
+    """The model's serving params (``_serve_params``, e.g. the scaler's
+    withMean/withStd): what a served copy needs to transform as the model
+    does. Cosmetic params (column names) do not change the output and stay
+    out, so they do not split the registry."""
+    return {n: core_model.getOrDefault(n) for n in getattr(core_model, "_serve_params", ())}
+
+
 def _model_fingerprint(core_model) -> str:
-    """Content hash of the fitted arrays: the registry key. Identical fits
-    share a served copy; a refit gets a fresh one."""
+    """Content hash of the fitted arrays and the serving params: the
+    registry key. Identical fits share a served copy; a refit, or a copy
+    with other serving params, gets a fresh one."""
     import hashlib
 
     h = hashlib.md5()
@@ -794,6 +831,8 @@ def _model_fingerprint(core_model) -> str:
         h.update(k.encode())
         if v is not None:
             h.update(np.ascontiguousarray(v).tobytes())
+    for k, v in sorted(_scalar_params(core_model).items()):
+        h.update(f"{k}={v!r}".encode())
     return h.hexdigest()[:12]
 
 
@@ -868,6 +907,7 @@ class _TransformTask:
         self._cls = type(core_model)
         self._uid = core_model.uid
         self._arrays = core_model._model_data()
+        self._params = _scalar_params(core_model)
         self._input_col = input_col
         self._outputs = outputs
 
@@ -878,6 +918,8 @@ class _TransformTask:
 
         model = self._cls._from_model_data(self._uid, self._arrays)
         model._device = "cpu"
+        if self._params:
+            model._set(**self._params)
         for batch in batches:
             table = pa.Table.from_batches([batch])
             if table.num_rows == 0:
@@ -891,13 +933,15 @@ class _DaemonTransformTask:
     """Executor-side feeder of the served transform: each batch's features
     go to the daemon's ``transform`` op and the outputs come back
     (RapidsPCA.scala:128-161 → rapidsml_jni.cu:75-107), the model
-    registered once (``ensure_model``) and resident on the card across
-    batches. Only the features column crosses the wire. The closure
-    carries the model's ``_model_data()`` arrays, never the model."""
+    registered once (``ensure_model``, with the serving params) and
+    resident on the card across batches. Only the features column crosses
+    the wire. The closure carries the model's ``_model_data()`` arrays,
+    never the model."""
 
     def __init__(self, core_model, host, port, token, input_col, algo, outputs):
         self.host, self.port, self.token = host, port, token
         self._arrays = core_model._model_data()
+        self._params = _scalar_params(core_model)
         self._input_col = input_col
         self._algo = algo
         self._outputs = outputs
@@ -918,7 +962,7 @@ class _DaemonTransformTask:
                     yield from _append_outputs(table, {}, self._outputs).to_batches()
                     continue
                 if not registered:
-                    c.ensure_model(self._name, self._algo, self._arrays)
+                    c.ensure_model(self._name, self._algo, self._arrays, params=self._params)
                     registered = True
                 features = table.select([self._input_col])
                 try:
@@ -927,7 +971,7 @@ class _DaemonTransformTask:
                     if "no such model" not in str(e):
                         raise
                     # Registrations are TTL-evictable: register again, retry.
-                    c.ensure_model(self._name, self._algo, self._arrays)
+                    c.ensure_model(self._name, self._algo, self._arrays, params=self._params)
                     outs = c.transform(self._name, features, input_col=self._input_col)
                 yield from _append_outputs(table, outs, self._outputs).to_batches()
 
@@ -1117,6 +1161,15 @@ class SparkLogisticRegression(_SparkAdapter):
 
     _core_cls = _lg.LogisticRegression
     _daemon_algo = "logreg"
+
+
+class SparkStandardScaler(_SparkAdapter):
+    """StandardScaler over PySpark DataFrames: one scan folded into the
+    daemon's pca job and finalized to raw moments; the served transform
+    carries withMean/withStd."""
+
+    _core_cls = _StandardScaler
+    _daemon_algo = "scaler"
 
 
 class SparkNearestNeighbors(_SparkAdapter):

@@ -577,8 +577,9 @@ def test_unported_algos_refused_without_a_job(daemon):
         for feed in (c.feed_raw, c.feed):
             with pytest.raises(RuntimeError, match="unknown algo 'rf'"):
                 feed("u", DATA["x"], algo="rf")
-        with pytest.raises(RuntimeError, match="unknown model algo 'scaler'"):
-            c.ensure_model("sc", "scaler", {"mean": np.zeros(D), "std": np.ones(D)})
+        with pytest.raises(RuntimeError, match="unknown model algo 'rf_classifier'"):
+            c.ensure_model("rf", "rf_classifier", {"bin_edges": np.zeros((D, 3)),
+                                                   "value": np.ones((2, 3, 2))})
         assert c.ping()
     assert not daemon._jobs and not daemon._models
 

@@ -254,19 +254,19 @@ def test_wrapper_spark_df_requires_pyspark():
 
 def test_only_sparkpca_is_exported():
     """The wrappers whose daemon jobs the port runs are exported (SparkPCA,
-    the three of the iterative jobs and the two of the knn job); the later
-    ones are not defined. The name dates from when SparkPCA was the only
-    one."""
+    the three of the iterative jobs, the two of the knn job and
+    SparkStandardScaler); the forests' are not defined. The name dates from
+    when SparkPCA was the only one."""
     import spark_rapids_ml_tpu_torch.spark as spark_pkg
 
     assert sorted(spark_pkg.__all__) == [
         "SparkApproximateNearestNeighbors", "SparkKMeans", "SparkLinearRegression",
-        "SparkLogisticRegression", "SparkNearestNeighbors", "SparkPCA", "daemon_session",
+        "SparkLogisticRegression", "SparkNearestNeighbors", "SparkPCA", "SparkStandardScaler",
+        "daemon_session",
         "discovery_payload", "gpu_session_conf", "register_dataframe_type",
         "write_discovery_script",
     ]
-    for name in ("SparkStandardScaler", "SparkRandomForestClassifier",
-                 "SparkRandomForestRegressor"):
+    for name in ("SparkRandomForestClassifier", "SparkRandomForestRegressor"):
         assert not hasattr(spark_pkg, name) and not hasattr(port_est, name)
 
 
