@@ -40,8 +40,8 @@ Phases, each of which exits non-zero on a failed check:
    (1e-5) and its plain version (2⁻⁸ of Σ|terms| for the Hessian, 1e-5
    for the rest). d = 300 and 13, and float32, must take the FFMA route.
    ``python3 chip_smoke.py --phase2`` stops after this phase;
-   ``--data-plane`` runs phases 19 to 22 and phase 23's Spark part alone
-   after the build; ``--estimators`` runs phases 23 and 24 alone.
+   ``--data-plane`` runs phases 19 to 22, phase 23's Spark part and phase
+   25 alone after the build; ``--estimators`` runs phases 23 and 24 alone.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -264,6 +264,35 @@ Phases, each of which exits non-zero on a failed check:
     of the node's own term (scores rebuilt in float64 from the node's rows;
     the float32 variance gains of year labels are differences of ~1e12
     terms).
+25. The forests through the data plane: SparkRandomForestClassifier on
+    HIGGS's shape and SparkRandomForestRegressor on YearPredictionMSD's
+    (phase 24's sizes and Spark's defaults), the port's daemon in this
+    process on the card, 8 task processes spawned once and reused by every
+    pass, each rebuilding its float32 frames (float64 labels) of phase
+    24's model in numpy from the seed (RF_SEED, kind, partition, frame) and
+    running ``_feed_partition`` with a ``feed_raw`` sender: 65,536-row
+    frames, 21 a HIGGS partition; partition 3's attempt 0 dies after one
+    feed in each fit's first scan. This process runs
+    ``spark/estimator._drive_forest`` (the bin edges from the first 65,536
+    rows partition-major, a creating ``set_iterate``, a scan and a ``step``
+    a depth). Checks: acked, ``status``, every step's ``pass_rows`` and
+    finalize rows equal the dataset's; the steps answer depths 1, 2, ...
+    until no node is open, within maxDepth passes; no hand-written kernel
+    launched; every tree's root statistics equal the task processes'
+    float64 sums of their rows' bag weights at ``row_identity_keys
+    (partition, offset)`` (the port's ``bootstrap_weights`` on the CPU);
+    at a 262,144-row prefix (32,768 rows a partition) the card's daemon
+    fit against a ``DataPlaneDaemon(device="cpu")`` fit in a thread beside
+    it (float32 both: the classifier's tables bitwise, the regressor's
+    under phase 24's near-tie rule); 1,048,576 HIGGS-shape rows fed as
+    partition-less frames, bitwise equal to the in-process
+    ``RandomForestClassifier.fit`` of the same rows on the card; the
+    served ``rf_classifier`` and ``rf_regressor`` of 65,536 held-out rows
+    through ``ensure_model`` bitwise equal to ``transform_matrix``. It
+    prints each fit's rows/s and GiB/s of frames beside phase 20's, ms per
+    pass and per step, the daemon's span split, the device busy share of
+    one traced scan, the fit's seconds, the held-out accuracy and R², the
+    served p50 and the phase's seconds.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
@@ -2713,6 +2742,71 @@ P22_RUNS = {"knn": ("knn", KNN_D, DP_ROWS, DP_FEEDS, KNN_CLUSTERS)}
 P22_SEED = 22
 
 
+def rf_part_rows(total, p):
+    """Rows of partition ``p`` of a ``total``-row dataset split over
+    DP_PARTITIONS as evenly as rows allow (the first ones one longer)."""
+    return total // DP_PARTITIONS + int(p < total % DP_PARTITIONS)
+
+
+#: Phase 25: the forests' frames (run → the P21_RUNS fields: algo, width,
+#: rows a frame, frames a partition (the last one short), classes; then
+#: the dataset's rows). The task processes get it as an argument.
+P25_RUNS = {kind: ("rf", d, DP_ROWS, -(-rf_part_rows(n, 0) // DP_ROWS), c, n)
+            for kind, d, c, n in (("higgs", HIGGS_D, 2, HIGGS_ROWS), ("msd", MSD_D, 0, MSD_ROWS))}
+P25_TRACED_PASS = 3  # the scan traced for the device busy share (depth 2 → 3)
+P25_DIRECT_FRAMES = 16  # partition 0's first 1,048,576 rows, fed partition-less
+
+
+def rf_frame(np, runs, kind, p, f, rows=None):
+    """Phase 25's partition ``p`` frame ``f`` of ``runs[kind]`` (``rows``
+    rows, else the frame's share of the partition): ``rf_rows``'s model in
+    numpy, drawn from the seed (RF_SEED, kind, p, f), float32 features and
+    float64 labels (HIGGS's 0/1 classes, MSD's integer years)."""
+    _, d, frame_rows, _, _, total = runs[kind]
+    n = rows if rows is not None else min(frame_rows, rf_part_rows(total, p) - f * frame_rows)
+    g = np.random.default_rng([RF_SEED, 0 if kind == "higgs" else 1, p, f])
+    if kind == "higgs":
+        x = g.standard_normal((n, d), dtype=np.float32)
+        x[:, 21:28] = np.sqrt(x[:, 0:7] ** 2 + x[:, 7:14] ** 2) + np.float32(0.3) * x[:, 21:28]
+        logit = (1.2 * (x[:, 21] - 1.25) - 0.8 * (x[:, 22] - 1.25) + 0.6 * x[:, 3] * x[:, 4]
+                 + 0.4 * x[:, 5] - 0.3 * x[:, 24])
+        y = g.random(n) < 1.0 / (1.0 + np.exp(-logit.astype(np.float64)))
+        return x, y.astype(np.float64)
+    scales = np.ones(d, np.float32)
+    scales[:12] = np.linspace(5.0, 40.0, 12, dtype=np.float32)
+    x = g.standard_normal((n, d), dtype=np.float32) * scales
+    s = x[:, :12] / scales[:12]
+    z = np.tanh(0.5 * s[:, 0] - 0.4 * s[:, 1] + 0.3 * s[:, 2] * s[:, 3]) + 0.2 * x[:, 12]
+    year = 1998.0 + 9.0 * z.astype(np.float64) + 3.0 * g.standard_normal(n)
+    return x, np.clip(np.round(year), 1922.0, 2011.0)
+
+
+def rf_bag_sums(np, frames, p, n_trees, seed, n_classes):
+    """The root statistics partition ``p``'s rows give every tree: float64
+    sums of the Poisson(1) bag weights of ``row_identity_keys(p, offset)``,
+    per class (``n_classes`` > 0) or in all (a regressor's count), from the
+    port's ``bootstrap_weights`` on this machine's CPU. (T, max(C, 1))."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.models.random_forest import row_identity_keys
+    from spark_rapids_ml_tpu_torch.ops.histogram import bootstrap_weights
+
+    torch.set_num_threads(1)
+    out = np.zeros((n_trees, max(n_classes, 1)))
+    offset = 0
+    for _, y in frames:
+        n = y.shape[0]
+        keys = torch.from_numpy(row_identity_keys(p, offset, n).astype(np.int64))
+        w = bootstrap_weights(keys, n_trees, seed).double().numpy()
+        if n_classes:
+            for c in range(n_classes):
+                out[:, c] += w[:, y == c].sum(1)
+        else:
+            out[:, 0] += w.sum(1)
+        offset += n
+    return out
+
+
 def knn_frame(np, p, f, rows, d, clusters):
     """Phase 22's partition ``p`` frame ``f`` (``p`` = DP_PARTITIONS: the
     queries): bench_knn.py's mixture as ``knn_data`` draws it, a centre
@@ -2736,6 +2830,8 @@ def p21_frame(np, runs, run, p, f):
     noise 0.1; Bernoulli labels of sigmoid(x·w + 0.3); multinomial labels
     drawn from softmax(xW + b) over the classes; kmeans rows are k blobs of
     centres KM_SCALE·N(0, 1) with noise KM21_NOISE."""
+    if run in ("higgs", "msd"):  # phase 25
+        return rf_frame(np, runs, run, p, f)
     _, d, rows, _, k = runs[run]
     if run == "knn":
         return knn_frame(np, p, f, rows, d, k), None
@@ -2769,7 +2865,8 @@ def p21_frame(np, runs, run, p, f):
 def _p21_task(address, p, runs, cmd_q, out_q):
     """Phase 21's partition task ``p``: one spawned process serving every
     pass of every run. ("prepare", run) builds the partition's frames from
-    its seed; (run, job, params, pass_id, dies) runs the Spark feed task's
+    its seed; ("bags", run, trees, seed, classes) answers ``rf_bag_sums``
+    of them; (run, job, params, pass_id, dies) runs the Spark feed task's
     body (``estimator._feed_partition``) with a ``feed_raw`` sender of
     (x, y) frames. With ``dies``, attempt 0 dies after one feed and
     attempt 1 wins; only the winner's ack goes back, as Spark returns only
@@ -2794,6 +2891,9 @@ def _p21_task(address, p, runs, cmd_q, out_q):
                                    for f in range(runs[cmd[1]][3])]}
                 out_q.put(("ready", p, None))
                 continue
+            if cmd[0] == "bags":
+                out_q.put(("ok", p, rf_bag_sums(np, frames[cmd[1]], p, *cmd[2:])))
+                continue
             run, job, params, pass_id, dies = cmd
             algo, d = runs[run][:2]
             for attempt, dies_after in ([(0, 1), (1, None)] if dies else [(0, None)]):
@@ -2815,7 +2915,8 @@ def _p21_task(address, p, runs, cmd_q, out_q):
 
 
 class _P21Pool:
-    """The 8 task processes of phase 21 (or 22, with ``runs`` P22_RUNS),
+    """The 8 task processes of phase 21 (or 22, 23 and 25, with their
+    ``runs``),
     spawned once (never fork a process that holds a CUDA context) and
     reused by every pass of every run, so their spawn and imports stay out
     of the timed passes."""
@@ -2845,6 +2946,12 @@ class _P21Pool:
         for q in self.cmds:
             q.put(("prepare", run))
         self._collect("ready", 300)
+
+    def bags(self, run, n_trees, seed, n_classes):
+        """Every partition's ``rf_bag_sums`` of the prepared ``run``."""
+        for q in self.cmds:
+            q.put(("bags", run, n_trees, seed, n_classes))
+        return self._collect("ok", 600)
 
     def scan(self, run, job, params, pass_id, dies):
         """One pass: every partition task feeds and commits; their acks.
@@ -4077,6 +4184,310 @@ def phase_forests(torch, kernels, config):
           + ", ".join(f"{what} {sec:.1f} s" for what, sec in marks) + ")", flush=True)
 
 
+def p25_fit(torch, kernels, est, profiling, pool, address, run, core, sample, sp_rate):
+    """One phase-25 Spark forest fit: ``spark/estimator._drive_forest`` over
+    the pool's passes (partition SPARK_DYING's attempt 0 dies after a feed
+    in the first), the counters and spans reset just before it and read
+    just after, scan P25_TRACED_PASS traced (CUDA activity) for the device
+    busy share. Checks the rows of every pass, the depths and that no
+    hand-written kernel launched. Returns (model, a record of the run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, d, _, _, n_classes, n = P25_RUNS[run]
+    pool.prepare(run)
+    job = f"phase25-{run}"
+    fit = est._SingleDaemonFit(*address, job)
+    rec = {"scans": 0, "scan_s": [], "step_s": [], "infos": [], "busy": None}
+    real_finalize, real_step = fit.finalize_guarded, fit.step
+
+    def guarded(params, pass_rows_expected=None):
+        rec["status"] = fit.client.status(job)["rows"]
+        arrays, rows = real_finalize(params, pass_rows_expected)
+        rec["finalize"] = rows
+        return arrays, rows
+
+    def step(pass_id, rows, params=None):
+        t0 = time.perf_counter()
+        info = real_step(pass_id, rows, params)  # held to the scan's acked rows
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["infos"].append(info)
+        return info
+
+    def run_pass(pass_id):
+        rec["scans"] += 1
+        t0 = time.perf_counter()
+        if rec["scans"] != P25_TRACED_PASS:
+            acks = pool.scan(run, job, fit.params, pass_id, dies=rec["scans"] == 1)
+        else:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                acks = pool.scan(run, job, fit.params, pass_id, dies=False)
+                torch.cuda.synchronize()
+            rec["traced_s"] = time.perf_counter() - t0
+            rec["busy"] = device_time(torch, prof)[:2]
+            del prof
+        rec["scan_s"].append(time.perf_counter() - t0)
+        return acks
+
+    fit.finalize_guarded, fit.step = guarded, step
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    profiling.reset_span_totals()
+    t0 = time.perf_counter()
+    model = est._drive_forest(fit, run_pass, core, sample, n_classes)
+    rec["s"] = time.perf_counter() - t0
+    fit.close()
+    rec["launches"] = dict(kernels.LAUNCHES)
+    spans = profiling.span_totals()
+    tag = f"phase 25 {run}"
+    scans, infos = rec["scans"], rec["infos"]
+    check(fit.total_fed == rec["status"] == rec["finalize"] == n * scans
+          and all(i["pass_rows"] == n for i in infos),
+          f"{tag}: acked {fit.total_fed}, status {rec['status']}, finalize {rec['finalize']} rows "
+          f"== {scans} scans x {n}, every step's pass_rows {n} (the dying attempt's rows "
+          f"counted nowhere)")
+    depths = [int(i["depth"]) for i in infos]
+    check(depths == list(range(1, scans + 1)) and scans <= core.getMaxDepth()
+          and int(infos[-1]["open_nodes"]) == 0,
+          f"{tag}: step depths {depths} (open nodes "
+          f"{[int(i['open_nodes']) for i in infos]}, splits {[int(i['splits']) for i in infos]}) "
+          f"until none is open, within maxDepth {core.getMaxDepth()} passes")
+    print(f"{tag} kernel counters (reset before the fit): {rec['launches']}", flush=True)
+    check(not any(rec["launches"].values()),
+          f"{tag}: no hand-written kernel launched (the reference's forest path reaches no "
+          f"Pallas kernel)")
+    row_bytes = d * 4 + 8  # float32 features, a float64 label
+    gib = (n * scans + min(DP_ROWS, rf_part_rows(n, SPARK_DYING))) * row_bytes / 2 ** 30
+    beside = ("not run" if sp_rate is None else
+              f"{sp_rate:.1f} rows/s, {sp_rate * D * 4 / 2 ** 30:.2f} GiB/s")
+    feed_s = sum(rec["scan_s"])
+    print(f"{tag}: {n} rows x {d}, {scans} passes, fit {rec['s']:.3f} s: "
+          f"{n * scans / feed_s:.1f} rows/s fed over the scans ({feed_s:.3f} s), "
+          f"{gib / feed_s:.2f} GiB/s of frames (phase 20's PCA frames in this run: {beside}); "
+          f"{1e3 * feed_s / scans:.1f} ms per pass (scan), "
+          f"{1e3 * sum(rec['step_s']) / scans:.1f} ms per step (host clock)", flush=True)
+    names = ("daemon frame receive", "daemon frame decode", "daemon host to device",
+             "daemon fold", "forest histogram", "daemon commit", "daemon step", "forest split",
+             "feed pass", "seed", "step", "finalize")
+    print(f"{tag} spans (host-clock seconds summed over threads, count): "
+          + ", ".join(f"{nm} {spans[nm][0]:.3f} ({spans[nm][1]})" for nm in names if nm in spans),
+          flush=True)
+    if rec["busy"] is not None:
+        busy_ms, by_name = rec["busy"]
+        top = ", ".join(f"{nm[:40]} {ms:.3f} ({c})"
+                        for nm, (ms, c) in sorted(by_name.items(), key=lambda r: -r[1][0])[:4])
+        wall = rec["traced_s"] * 1e3
+        print(f"{tag} device time of scan {P25_TRACED_PASS} (torch.profiler, CUDA activity): "
+              f"busy {busy_ms:.3f} ms of {wall:.3f} ms ({100 * busy_ms / wall:.2f} %); largest "
+              f"(ms, count): {top or 'none'}", flush=True)
+    return model, rec
+
+
+def p25_check_bags(np, pool, run, model):
+    """Every tree's root statistics (the classifier's per-class counts, the
+    regressor's count) against the tasks' float64 sums of their rows' bag
+    weights at the partition-relative keys."""
+    spec = model.getNumTrees(), RF_SEED, P25_RUNS[run][4]
+    want = np.sum(pool.bags(run, *spec), axis=0)
+    root = np.asarray(model.arrays["value"])[:, 0, :want.shape[1]]
+    check(np.array_equal(root, want),
+          f"phase 25 {run}: every tree's root {'class counts' if spec[2] else 'count'} equal "
+          f"the float64 sums of the bag weights of row_identity_keys(partition, offset) over "
+          f"all {P25_RUNS[run][5]} rows ({spec[0]} trees; tree 0: {root[0].tolist()})")
+
+
+def p25_local_fit(np, est, address, core, n_classes, frames, tag):
+    """A forest fit of one frame a partition through the daemon at
+    ``address``: ``_drive_forest`` with each pass's partitions fed by
+    threads of this process through the Spark feed task's body, the edges
+    from the first DP_ROWS rows partition-major. Returns the model."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient
+
+    job = f"phase25-{tag}"
+    fit = est._SingleDaemonFit(*address, job)
+
+    def feed(p, pass_id):
+        with DataPlaneClient(*address, timeout=900.0) as c:
+            def send(b):
+                c.feed_raw(job, b[0], b[1], algo="rf", params=fit.params, partition=p,
+                           pass_id=pass_id)
+
+            return est._feed_partition(c, [frames[p]], send, job, p, 0, pass_id, address)
+
+    def run_pass(pass_id):
+        with ThreadPoolExecutor(max_workers=len(frames)) as tp:
+            return list(tp.map(lambda p: feed(p, pass_id), range(len(frames))))
+
+    sample = np.concatenate([x for x, _ in frames])[:DP_ROWS]
+    try:
+        return est._drive_forest(fit, run_pass, core, sample, n_classes)
+    finally:
+        fit.close()
+
+
+def phase_forest_daemon(torch, kernels, config, sp_rate):
+    """Phase 25: SparkRandomForestClassifier on HIGGS's shape and
+    SparkRandomForestRegressor on YearPredictionMSD's through the port's
+    daemon on the card, Spark's defaults: the estimators' driver function
+    over 8 spawned task processes, then the card against a CPU daemon on a
+    prefix, a direct-feed daemon fit against the in-process fit, and the
+    served forests."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch import RandomForestClassifier, RandomForestRegressor
+    from spark_rapids_ml_tpu_torch.models import random_forest as rf
+    from spark_rapids_ml_tpu_torch.ops import histogram as hist_ops
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient, DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.spark import estimator as est
+    from spark_rapids_ml_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    marks = []  # (what, seconds into the phase)
+
+    def mark(what):
+        marks.append((what, time.perf_counter() - t_phase))
+
+    print(f"phase 25: the forests through the daemon, {DP_PARTITIONS} task processes (spawn, "
+          f"reused across passes) x feed_raw frames of {DP_ROWS} (x float32, y float64) rows, "
+          f"HIGGS's shape ({P25_RUNS['higgs'][5]} x {HIGGS_D}, 2 classes) and "
+          f"YearPredictionMSD's ({P25_RUNS['msd'][5]} x {MSD_D}, integer years) from seed "
+          f"{RF_SEED}; Spark's defaults (numTrees 20, maxDepth 5, maxBins 32, auto subsets, "
+          f"bootstrap); partition {SPARK_DYING}'s attempt 0 dies after one feed in each fit's "
+          f"first scan", flush=True)
+    cores = {"higgs": (RandomForestClassifier(device=DEV).setSeed(RF_SEED), 2),
+             "msd": (RandomForestRegressor(device=DEV).setSeed(RF_SEED), 0)}
+    models = {}
+    with DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as daemon:
+        t_spawn = time.perf_counter()
+        pool = _P21Pool(daemon.address, P25_RUNS)
+        print(f"phase 25 tasks ready in {time.perf_counter() - t_spawn:.1f} s", flush=True)
+        mark("spawn")
+        try:
+            for run in ("higgs", "msd"):
+                # The driver's prefix sample: the first DP_ROWS rows, partition-major.
+                head = []
+                for p in range(DP_PARTITIONS):
+                    head.append(rf_frame(np, P25_RUNS, run, p, 0)[0])
+                    if sum(h.shape[0] for h in head) >= DP_ROWS:
+                        break
+                sample = np.concatenate(head)[:DP_ROWS]
+                models[run], _ = p25_fit(torch, kernels, est, profiling, pool, daemon.address,
+                                         run, cores[run][0], sample, sp_rate)
+                mark(f"the {run} fit")
+                p25_check_bags(np, pool, run, models[run])
+                mark(f"the {run} bags")
+        finally:
+            pool.close()
+
+        # -- the card against the CPU on a prefix in the same layout --------------
+        half = RF_PREFIX // DP_PARTITIONS
+        prefix = {run: [tuple(a[:half] for a in rf_frame(np, P25_RUNS, run, p, 0))
+                        for p in range(DP_PARTITIONS)] for run in ("higgs", "msd")}
+
+        def cpu_fits():  # the card machine's CPU, float32 as on the card
+            with DataPlaneDaemon(host="127.0.0.1", port=0, device="cpu") as cpu_daemon:
+                return {run: p25_local_fit(
+                    np, est, cpu_daemon.address,
+                    (RandomForestClassifier if run == "higgs" else RandomForestRegressor)(
+                        device="cpu").setSeed(RF_SEED), cores[run][1], prefix[run],
+                    f"cpu-{run}") for run in ("higgs", "msd")}
+
+        with ThreadPoolExecutor(max_workers=1) as bg:
+            t_cpu = time.perf_counter()
+            cpu_job = bg.submit(cpu_fits)
+            card = {run: p25_local_fit(np, est, daemon.address, cores[run][0], cores[run][1],
+                                       prefix[run], f"prefix-{run}")
+                    for run in ("higgs", "msd")}
+            mark("the card's prefix fits")
+
+            # -- direct feeds against the in-process fit -------------------------
+            frames = [rf_frame(np, P25_RUNS, "higgs", 0, f) for f in range(P25_DIRECT_FRAMES)]
+            x = np.concatenate([a for a, _ in frames])
+            y = np.concatenate([b for _, b in frames])
+            params = est._forest_params(cores["higgs"][0], 2)
+            spec = rf.forest_spec_from_params(params, HIGGS_D)
+            edges = hist_ops.quantile_bin_edges(
+                x[:int(config.get("forest_seed_sample_rows"))].astype(np.float64), spec.max_bins)
+            job = "phase25-direct"
+            t0 = time.perf_counter()
+            with DataPlaneClient(*daemon.address) as c:
+                c.set_iterate(job, rf.init_forest_arrays(spec, edges), 0, algo="rf",
+                              n_cols=HIGGS_D, params=params)
+                for it in range(spec.max_depth + 1):
+                    for xf, yf in frames:  # in order: the offsets are the row indices
+                        c.feed_raw(job, xf, yf, algo="rf", params=params, pass_id=it)
+                    if int(c.step(job)["open_nodes"]) == 0:
+                        break
+                direct, rows = c.finalize(job, {})
+            direct_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            inproc = RandomForestClassifier(device=DEV).setSeed(RF_SEED).fit(
+                {"features": torch.from_numpy(x).to(DEV), "label": torch.from_numpy(y).to(DEV)})
+            inproc_s = time.perf_counter() - t0
+            n_iter = int(direct.pop("n_iter")[0])
+            same = sorted(direct) == sorted(inproc.arrays) and all(
+                np.array_equal(direct[k], inproc.arrays[k]) for k in inproc.arrays)
+            check(same and rows == x.shape[0] * n_iter,
+                  f"phase 25 direct feeds: {x.shape[0]} HIGGS-shape rows as {len(frames)} "
+                  f"partition-less feed_raw frames a pass, {n_iter} passes ({direct_s:.3f} s), "
+                  f"bitwise equal to the in-process RandomForestClassifier.fit of the same rows "
+                  f"on the card ({inproc_s:.3f} s): {sorted(inproc.arrays)}")
+            mark("the direct-feed fit")
+
+            # -- the served forests -------------------------------------------------
+            served, held = {}, {}
+            for run, algo in (("higgs", "rf_classifier"), ("msd", "rf_regressor")):
+                xq, yq = rf_frame(np, P25_RUNS, run, DP_PARTITIONS, 0, rows=RF_HELDOUT)
+                name = f"phase25-{algo}"
+                with DataPlaneClient(*daemon.address) as c:
+                    created = c.ensure_model(name, algo, models[run]._model_data())
+                served[run] = daemon._lookup_model(name)
+                got = served[run].transform(xq)["prediction"]
+                want = models[run].transform_matrix(xq)["prediction"]
+                check(created and got.dtype == want.dtype == np.float64
+                      and np.array_equal(got, want),
+                      f"phase 25 served {algo} of {RF_HELDOUT} held-out rows through "
+                      f"ensure_model bitwise equal to transform_matrix")
+                held[run] = (xq, yq, got)
+            mark("the served forests")
+            cpu = cpu_job.result()
+            cpu_s = time.perf_counter() - t_cpu
+            mark("the CPU prefix fits")
+        lat = {}
+        for run in ("higgs", "msd"):
+            runs = []
+            for _ in range(21):
+                t0 = time.perf_counter()
+                served[run].transform(held[run][0])
+                runs.append(time.perf_counter() - t0)
+            lat[run] = sorted(runs)[10] * 1e3
+    _, yq, got = held["higgs"]
+    acc = float((got == yq).mean())
+    _, yq, got = held["msd"]
+    r2 = 1.0 - float(((got - yq) ** 2).sum() / ((yq - yq.mean()) ** 2).sum())
+    print(f"phase 25 served forests, {RF_HELDOUT} held-out host rows (host clock, p50 of 21): "
+          f"classifier {lat['higgs']:.3f} ms, accuracy {acc:.4f}; regressor {lat['msd']:.3f} ms, "
+          f"R² {r2:.4f}", flush=True)
+    for run, tag in (("higgs", "classifier"), ("msd", "regressor")):
+        xp = torch.from_numpy(np.concatenate([a for a, _ in prefix[run]])).to(DEV)
+        yp = torch.from_numpy(np.concatenate([b for _, b in prefix[run]])).to(DEV)
+        spec = rf.forest_spec_from_params(est._forest_params(cores[run][0], cores[run][1]),
+                                          xp.shape[1])
+        keys = np.concatenate([rf.row_identity_keys(p, 0, half) for p in range(DP_PARTITIONS)])
+        keys = torch.from_numpy(keys.astype(np.int64)).to(DEV)
+        bins = hist_ops.bin_matrix(xp, torch.as_tensor(cpu[run].arrays["bin_edges"],
+                                                       device=DEV).float())
+        weights = hist_ops.bootstrap_weights(keys, spec.num_trees, spec.seed).double()
+        rf_compare(torch, np, hist_ops, f"phase 25 {tag} (daemon, {DP_PARTITIONS} partitions)",
+                   card[run].arrays, cpu[run].arrays, bins, yp.double(), weights, spec)
+    print(f"phase 25: {time.perf_counter() - t_phase:.1f} s (the CPU daemon's prefix fits "
+          f"{cpu_s:.1f} s beside the card's work; done at: "
+          + ", ".join(f"{what} {sec:.1f} s" for what, sec in marks) + ")", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -4119,7 +4530,8 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
 
     if "--data-plane" in sys.argv[1:]:
-        # Phases 19 to 22 and phase 23's Spark part alone, on phase 3's spectrum.
+        # Phases 19 to 22, phase 23's Spark part and phase 25 alone, on phase
+        # 3's spectrum.
         j = torch.arange(D, device=DEV, dtype=torch.float32)
         scales = torch.where(j < K, torch.sqrt(2.0 - j / (K - 1)), 0.1 * 0.999 ** j)
         mu = 0.05 * torch.randn((D,), generator=torch.Generator(device=DEV).manual_seed(0),
@@ -4132,9 +4544,11 @@ def main() -> None:
         phase_iterative_jobs(torch, kernels, config)
         phase_knn_daemon(torch, kernels, config)
         phase_spark_scaler(torch, kernels, config, sp_rate)
+        torch.cuda.empty_cache()
+        phase_forest_daemon(torch, kernels, config, sp_rate)
         print(card)
-        print(f"phases 19-22 and 23's Spark part passed ({time.perf_counter() - t_start:.1f} s); "
-              "--data-plane: stopping here", flush=True)
+        print(f"phases 19-22, 23's Spark part and 25 passed ({time.perf_counter() - t_start:.1f} "
+              "s); --data-plane: stopping here", flush=True)
         return
 
     if "--estimators" in sys.argv[1:]:
@@ -4536,6 +4950,10 @@ def main() -> None:
 
     # -- 24. the histogram RandomForest at the sizes users run ----------------------------
     phase_forests(torch, kernels, config)
+    torch.cuda.empty_cache()
+
+    # -- 25. the forests through the daemon: SparkRandomForest{Classifier,Regressor} --------
+    phase_forest_daemon(torch, kernels, config, sp_rate)
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "

@@ -634,8 +634,7 @@ class _ForestEstimatorBase(Estimator, _RandomForestParams, MLWritable, MLReadabl
 class RandomForestClassificationModel(_ForestModelBase, _RandomForestParams):
     _uid_prefix = "RandomForestClassificationModel"
     _persist_class = "spark_rapids_ml_tpu.models.random_forest.RandomForestClassificationModel"
-    # The reference's serving contract; the port's daemon serves the
-    # forests from ROADMAP Queue 1 item 4's second half on.
+    # The daemon serving contract (serve/daemon.py's rf_classifier).
     _serve_algo = "rf_classifier"
     _serve_outputs = (("prediction", "predictionCol", "double"),)
 

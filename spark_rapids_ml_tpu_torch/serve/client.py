@@ -4,8 +4,9 @@ The port of ``spark_rapids_ml_tpu/serve/client.py``, cut to the ops the
 port's daemon serves. A task opens one connection, feeds its partition as
 one or more frames (Arrow IPC ``feed``, or raw ``feed_raw`` without an
 Arrow library), commits, and closes; the Spark driver (or any one caller)
-finalizes, and for an iterative job (kmeans, logreg) runs the passes:
-``seed_kmeans``, then per pass the scan and ``step``, with
+finalizes, and for an iterative job (kmeans, logreg, rf) runs the passes:
+``seed_kmeans`` (a forest's creating ``set_iterate``), then per pass the
+scan and ``step``, with
 ``get_iterate``/``set_iterate`` for its recovery ledger. A knn job's
 ``finalize_knn`` builds and registers its index on the daemon, which then
 answers ``kneighbors`` (Arrow, or ``kneighbors_raw`` without an Arrow
@@ -309,7 +310,7 @@ class DataPlaneClient:
         pass_id: Optional[int] = None,
     ) -> int:
         """Feed one batch: an Arrow Table/RecordBatch, an (n, d) ndarray or
-        an (x, y) pair for linreg/logreg (the labels in ``label_col``).
+        an (x, y) pair for linreg/logreg/rf (the labels in ``label_col``).
         ``params`` configure the job at its first feed (kmeans {"k", "seed",
         "init"}, logreg {"n_classes"}). With ``partition`` set the batch goes
         to that partition's stage and counts only after :meth:`commit`;
@@ -348,7 +349,7 @@ class DataPlaneClient:
     ) -> int:
         """:meth:`feed` with raw little-endian buffers instead of Arrow IPC:
         the op a client without an Arrow library uses. ``y``: the (n,)
-        labels of a linreg/logreg feed."""
+        labels of a linreg/logreg/rf feed."""
         arrays: Dict[str, np.ndarray] = {"x": np.asarray(x)}
         if y is not None:
             arrays["y"] = np.asarray(y).reshape(-1)
@@ -402,9 +403,10 @@ class DataPlaneClient:
         )
 
     def step(self, job: str, params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-        """Pass boundary of an iterative job: the Lloyd or Newton update over
-        the pass's statistics. Returns {"iteration", "pass_rows", and
-        "moved2", "cost" (kmeans) or "delta", "loss" (logreg)}. The
+        """Pass boundary of an iterative job: the Lloyd or Newton update, or
+        a forest's next level, over the pass's statistics. Returns
+        {"iteration", "pass_rows", and "moved2", "cost" (kmeans), "delta",
+        "loss" (logreg) or "depth", "open_nodes", "splits" (rf)}. The
         ``step_id`` minted here rides every replay of this call, so a
         healed resend gets the applied step's info and never steps twice."""
         resp, _ = self._roundtrip({"op": "step", "job": job, "params": params or {},
@@ -412,7 +414,9 @@ class DataPlaneClient:
         return {k: v for k, v in resp.items() if k != "ok"}
 
     def get_iterate(self, job: str) -> Tuple[Dict[str, np.ndarray], int]:
-        """(iterate arrays, iteration): kmeans {"centers"}, logreg {"w", "b"}."""
+        """(iterate arrays, iteration): kmeans {"centers"}, logreg {"w", "b"},
+        rf the forest's tables {"bin_edges", "feature", "threshold", "value",
+        "depth"}."""
         resp, arrays = self._op({"op": "get_iterate", "job": job}, want_arrays=True)
         return arrays, int(resp["iteration"])
 
@@ -424,14 +428,14 @@ class DataPlaneClient:
         ``params``, as a first feed) a job the daemon does not know is
         created at this iterate: the recovery path of a driver's ledger.
         Given ``algo`` or ``params`` without ``n_cols``, the width is read
-        from the iterate (centres (k, d), w (d,) or (d, C))."""
+        from the iterate (centres (k, d), a forest's bin edges (d, B − 1),
+        w (d,) or (d, C))."""
         req: Dict[str, Any] = {"op": "set_iterate", "job": job, "iteration": int(iteration)}
         if n_cols is None and (algo is not None or params is not None):
-            a = arrays.get("centers")
-            a = arrays.get("w") if a is None else a
-            if a is not None:
-                a = np.asarray(a)
-                n_cols = int(a.shape[1] if "centers" in arrays else a.shape[0])
+            if "centers" in arrays:
+                n_cols = int(np.asarray(arrays["centers"]).shape[1])
+            elif "bin_edges" in arrays or "w" in arrays:
+                n_cols = int(np.asarray(arrays.get("bin_edges", arrays.get("w"))).shape[0])
         if n_cols is not None:
             req.update(algo=algo or "pca", n_cols=int(n_cols), params=params or {})
         self._send_arrays_op(req, arrays)

@@ -1,9 +1,9 @@
 """The data-plane daemon: the executor-to-card feeding path.
 
 The port of ``spark_rapids_ml_tpu/serve/daemon.py``, cut to the jobs of
-the pca, linreg, kmeans, logreg and knn estimators and their serving, and
-the StandardScaler's (a pca job finalized to its raw moments, and the
-served ``scaler`` model). A
+the pca, linreg, kmeans, logreg, rf and knn estimators and their
+serving, and the StandardScaler's (a pca job finalized to its raw
+moments, and the served ``scaler`` model). A
 TCP server next to the card accepts row batches from Spark tasks (Arrow
 IPC ``feed``, or raw little-endian ``feed_raw`` frames where no Arrow
 library is at hand), folds each batch into the device-resident additive
@@ -12,14 +12,25 @@ the reference's executors-fold, Spark-driver-finalizes design, with the
 fold next to the accelerator.
 
 pca and linreg are single-pass (``feed``, ``commit``, ``finalize``).
-kmeans and logreg are iterative: the driver scans the data once per pass
-(feeds carry ``pass_id``), then ``step`` applies the Lloyd or Newton update
-and opens the next pass; ``get_iterate``/``set_iterate`` read and install
-the iterate (the driver's recovery ledger; a ``set_iterate`` carrying
-``n_cols``, ``algo`` and ``params`` creates a job the daemon lost). A
-kmeans job is seeded by the driver's ``seed`` op (its rows are not folded)
-or by its first unpartitioned feed. Labels ride the feed: the Arrow
-table's ``label_col``, or ``feed_raw``'s ``y`` array.
+kmeans, logreg and rf are iterative: the driver scans the data once per
+pass (feeds carry ``pass_id``), then ``step`` applies the Lloyd or Newton
+update, or grows every tree one level, and opens the next pass;
+``get_iterate``/``set_iterate`` read and install the iterate (the driver's
+recovery ledger; a ``set_iterate`` carrying ``n_cols``, ``algo`` and
+``params`` creates a job the daemon lost). A kmeans job is seeded by the
+driver's ``seed`` op (its rows are not folded) or by its first
+unpartitioned feed. Labels ride the feed: the Arrow table's ``label_col``,
+or ``feed_raw``'s ``y`` array.
+
+An rf job's iterate is the forest: the driver's quantile bin edges and
+the dense node tables, installed by a creating ``set_iterate`` before the
+first scan (a feed before it is refused). Each pass accumulates one
+(tree, node, feature, bin, stat) histogram of the open frontier; a feed's
+rows bin in the accumulation dtype against the edges, and its bootstrap
+bags are keyed on the rows' (partition, offset) identity, the offset
+being the stage's row count (the pass's, for a direct feed) before the
+feed, so a replayed attempt draws the same bags. ``step`` grows every tree
+one level (``models/random_forest.grow_level``) and opens the next depth.
 
 A knn job's state is the dataset: its feeds stage host float32 row blocks
 (no device work) and ``commit`` files them under their partition, so the
@@ -63,10 +74,10 @@ build (``build="device"``, and "auto" under its HBM cap) is refused.
 Left for later slices of the port, each answered "unknown op" with its
 payload drained: ``merge_state``, ``reduce_mesh`` and ``mesh_info`` (the
 multi-daemon plane, ROADMAP Queue 1 items 5–6); durable ``state_dir``
-snapshots, faults, the health/metrics/telemetry ops, the serving
-scheduler and AOT warmup (item 7); the ``rf`` job and the served forests
-(item 4, slice 15). A feed naming such an ``algo``, or an ``ensure_model``
-naming such a model, is refused before a job or model is registered.
+snapshots (a forest's restore at its boundary too), faults, the
+health/metrics/telemetry ops, the serving scheduler and AOT warmup (item
+7). A feed naming an unknown ``algo``, or an ``ensure_model`` naming an
+unknown model, is refused before a job or model is registered.
 """
 
 from __future__ import annotations
@@ -88,9 +99,11 @@ from spark_rapids_ml_tpu_torch.models import kmeans as km_mod
 from spark_rapids_ml_tpu_torch.models import knn as knn_mod
 from spark_rapids_ml_tpu_torch.models import linear_regression as lr_mod
 from spark_rapids_ml_tpu_torch.models import logistic_regression as lg_mod
+from spark_rapids_ml_tpu_torch.models import random_forest as rf_mod
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel, finalize_pca_stats
 from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel
 from spark_rapids_ml_tpu_torch.ops import gram as gram_ops
+from spark_rapids_ml_tpu_torch.ops import histogram as hist_ops
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device
 from spark_rapids_ml_tpu_torch.serve import protocol
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
@@ -98,11 +111,11 @@ from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
 logger = get_logger("serve.daemon")
 
-#: The job algos this daemon runs, and what a feed naming another gets.
-_ALGOS = ("pca", "linreg", "kmeans", "logreg", "knn")
-_LATER_ALGOS = "the port's daemon does not run 'rf' (ROADMAP Queue 1 item 4) yet"
-_LATER_MODELS = ("the port's daemon does not serve the forests ('rf_classifier', "
-                 "'rf_regressor'; ROADMAP Queue 1 item 4, slice 15) yet")
+#: The job algos this daemon runs.
+_ALGOS = ("pca", "linreg", "kmeans", "logreg", "rf", "knn")
+
+#: The algos whose feeds carry labels.
+_LABELLED = ("linreg", "logreg", "rf")
 
 #: Ops whose request JSON is followed by one Arrow IPC payload frame
 #: (docs/protocol.md; ``seed`` and ``kneighbors`` unless they carry
@@ -275,17 +288,22 @@ class _Job:
 
     ``algo`` is ``pca``, ``linreg`` (single-pass), ``kmeans`` or ``logreg``
     (iterative: one pass per ``step``, the iterate read and installed with
-    ``get_iterate``/``set_iterate``), or ``knn`` (no device state: ``state``
+    ``get_iterate``/``set_iterate``), ``rf`` (iterative, one pass per tree
+    depth: the iterate is the forest's host tables ``rf_tables``, the pass
+    state the 1-tuple (frontier histogram,), or () while there is no
+    iterate or no open node), or ``knn`` (no device state: ``state``
     holds the direct feeds' host float32 row blocks in arrival order and
     ``part_rows`` each committed partition's blocks; finalize builds the
     index from them). ``params`` are the first feed's creation params:
     ``k``, ``seed`` and ``init`` for kmeans, ``n_classes`` for logreg
-    (above 2 the job runs the multinomial MM-Newton protocol)."""
+    (above 2 the job runs the multinomial MM-Newton protocol), the forest
+    spec for rf (``models/random_forest.forest_spec_from_params``; its
+    ``n_classes`` 0 is a regressor)."""
 
     def __init__(self, algo: str, n_cols: int, device: torch.device,
                  params: Optional[Dict[str, Any]] = None, clock=time.monotonic):
         if algo not in _ALGOS:
-            raise ValueError(f"unknown algo {algo!r} ({'|'.join(_ALGOS)}); {_LATER_ALGOS}")
+            raise ValueError(f"unknown algo {algo!r} ({'|'.join(_ALGOS)})")
         params = params or {}
         # Capacity gate at creation: a (d, d) accumulator over the device
         # budget is a clean first-feed error, never a device OOM mid-pass.
@@ -320,6 +338,13 @@ class _Job:
             if self.init not in ("k-means++", "random"):
                 raise ValueError(f"unknown init {self.init!r} (k-means++|random)")
             self.centers: Optional[torch.Tensor] = None  # seeded before the first fold
+        elif algo == "rf":
+            self.rf_spec = rf_mod.forest_spec_from_params(params, n_cols)
+            # The depth-0 gate at creation; each later depth is gated when
+            # its pass opens (_zero_state), never mid-pass.
+            rf_mod.require_hist_capacity(self.rf_spec, 0, n_cols)
+            self.rf_tables: Optional[Dict[str, np.ndarray]] = None  # set_iterate installs
+            self._rf_edges: Optional[torch.Tensor] = None
         elif algo == "knn":
             self.state: list = []
             self.part_rows: Dict[int, list] = {}
@@ -341,6 +366,16 @@ class _Job:
     def _zero_state(self):
         """A zero accumulator of one pass (call under _DEVICE_LOCK)."""
         ad, dev, d = self._accum, self.device, self.n_cols
+        if self.algo == "rf":
+            # () without an iterate (feeds are refused), or once no node is
+            # open at the depth: a grown-out forest allocates nothing and
+            # passes no capacity gate.
+            if self.rf_tables is None or self._rf_open_nodes() == 0:
+                return ()
+            spec, depth = self.rf_spec, int(self.rf_tables["depth"][0])
+            rf_mod.require_hist_capacity(spec, depth, d)
+            return (hist_ops.zero_hist(spec.num_trees, depth, d, spec.max_bins, spec.n_stats,
+                                       ad, dev),)
         if self.algo == "pca":
             return gram_ops.init_stats(d, ad, dev)
         if self.algo == "linreg":
@@ -351,7 +386,12 @@ class _Job:
             return lg_mod.stream_softmax_zero_state(d, self.n_classes, ad, dev)
         return lg_mod.stream_zero_state(d, ad, dev)
 
-    def _fold_locked(self, state, x: np.ndarray, y: Optional[np.ndarray]) -> None:
+    def _rf_open_nodes(self) -> int:
+        return rf_mod.open_frontier_nodes(self.rf_tables["feature"],
+                                          int(self.rf_tables["depth"][0]))
+
+    def _fold_locked(self, state, x: np.ndarray, y: Optional[np.ndarray],
+                     bag: tuple = (None, 0)) -> None:
         """Fold one batch into ``state`` in place (call under _DEVICE_LOCK).
 
         The reference pads each batch to a power-of-two bucket under a row
@@ -363,14 +403,26 @@ class _Job:
         ``softmax_curvature`` launch with float32 accumulators
         (``softmax_stats_update``); kmeans (``kmeans._stream_update``, the
         reference's ``_stream_step_fn``) and binomial logreg
-        (``stream_grad_hess_update``) are plain products, as there. (On a
-        TPU the reference's masked PCA update reaches ``gram_pallas``; the
-        port folds through ``gram_colsum``, as its ``fit_pca_stream`` does.)"""
+        (``stream_grad_hess_update``) are plain products, as there; so is
+        rf's histogram (``random_forest.accumulate_histogram``: the rows
+        binned in the accumulation dtype, as the in-process fit and the
+        reference bin them, the bags keyed by ``bag`` = (partition, offset
+        of the batch's first row)). (On a TPU the reference's masked PCA
+        update reaches ``gram_pallas``; the port folds through
+        ``gram_colsum``, as its ``fit_pca_stream`` does.)"""
+        if self.algo == "rf":
+            y = np.asarray(y, np.float64)  # the reference's label dtype
         with trace_span("daemon host to device"):
             xd = as_tensor(x).to(self.device)
             yd = None if y is None else as_tensor(y).to(self.device).reshape(-1)
         with trace_span("daemon fold"):
-            if self.algo == "pca":
+            if self.algo == "rf":
+                bins = hist_ops.bin_matrix(xd.to(self._accum), self._rf_edges).to(torch.uint8)
+                keys = rf_mod.row_identity_keys(bag[0], bag[1], x.shape[0]).astype(np.int64)
+                rf_mod.accumulate_histogram(state[0], self.rf_tables, bins, yd, None,
+                                            torch.from_numpy(keys).to(self.device),
+                                            self.rf_spec)
+            elif self.algo == "pca":
                 gram_ops.streaming_update_rows(state, xd, n_valid=x.shape[0])
             elif self.algo == "linreg":
                 lr_mod.streaming_normal_eq_update(state, xd, yd)
@@ -459,7 +511,7 @@ class _Job:
     ) -> None:
         if x.shape[1] != self.n_cols:
             raise ValueError(f"batch width {x.shape[1]} != job n_cols {self.n_cols}")
-        if self.algo in ("linreg", "logreg") and y is None:
+        if self.algo in _LABELLED and y is None:
             raise ValueError(f"{self.algo} feed needs a label column")
         if self.algo == "knn":
             self._stage_rows(x, partition, attempt, feed_id)
@@ -484,6 +536,15 @@ class _Job:
                         "first batch (it seeds the centers)"
                     )
                 self._seed_locked(x)
+            if self.algo == "rf":
+                if self.rf_tables is None:
+                    raise ValueError(
+                        "rf feed before the forest iterate is installed; the driver sends "
+                        "set_iterate (bin edges + node tables) to the daemon before the first "
+                        "scan (spark.srml.daemon.addresses)")
+                if self._rf_open_nodes() == 0:
+                    raise ValueError(f"rf feed after the forest grew out (no open node at "
+                                     f"depth {int(self.rf_tables['depth'][0])}); finalize")
             stage = None
             fresh_stage = False
             if partition is None:
@@ -503,8 +564,13 @@ class _Job:
                 if self._is_replay(feed_id, stage):
                     return
                 state = stage.state
+            # The bag identity of an rf batch: its rows are (partition,
+            # offset..offset+n), the offset read BEFORE this fold and
+            # advanced only after it succeeds, so a replayed attempt, or a
+            # feed whose fold failed, keys its rows as the first try did.
+            offset = stage.rows if stage is not None else self.pass_rows
             with _DEVICE_LOCK:
-                self._fold_locked(state, x, y)
+                self._fold_locked(state, x, y, (partition, offset))
             if partition is None:
                 self.rows += n
                 self.pass_rows += n
@@ -755,7 +821,10 @@ class _Job:
 
     def _iterate_arrays(self) -> Dict[str, np.ndarray]:
         """The iterate as host arrays (call under the job lock): kmeans
-        {"centers"}, logreg {"w", "b"} (b flattened)."""
+        {"centers"}, logreg {"w", "b"} (b flattened), rf copies of the
+        forest's tables (a later grow must not reach an answered iterate)."""
+        if self.algo == "rf":
+            return {k: np.array(v) for k, v in self.rf_tables.items()}
         with _DEVICE_LOCK:
             if self.algo == "kmeans":
                 return {"centers": self.centers.cpu().numpy()}
@@ -787,6 +856,14 @@ class _Job:
                 self.w = torch.as_tensor(w).to(self.device, self._accum)
                 self.b = torch.as_tensor(b if c > 2 else b.reshape(())).to(self.device,
                                                                           self._accum)
+        elif self.algo == "rf":
+            tables = rf_mod.validate_forest_arrays(arrays, self.rf_spec, self.n_cols)
+            self.rf_tables = {k: np.array(v) for k, v in tables.items()}
+            # The edges stay resident in the accumulation dtype: every feed
+            # bins against them (grow_level never moves them).
+            with _DEVICE_LOCK:
+                self._rf_edges = torch.as_tensor(self.rf_tables["bin_edges"]).to(
+                    self.device, self._accum)
         else:
             raise ValueError(f"algo {self.algo!r} is single-pass; set_iterate not applicable")
 
@@ -798,6 +875,8 @@ class _Job:
             self.touched = self._clock()
             if self.algo == "kmeans" and self.centers is None:
                 raise ValueError("kmeans job has no centers yet (seed first)")
+            if self.algo == "rf" and self.rf_tables is None:
+                raise ValueError("forest job has no iterate yet (set_iterate first)")
             return self._iterate_arrays(), {"iteration": self.iteration}
 
     def set_iterate(self, arrays: Dict[str, np.ndarray], iteration: int) -> None:
@@ -818,17 +897,20 @@ class _Job:
         """Pass boundary of an iterative job: apply the update over the
         pass's statistics, open the next pass, and report convergence info
         (``moved2`` and ``cost`` for kmeans, ``delta`` and ``loss`` for
-        logreg; ``iteration`` and ``pass_rows`` for both). A replayed
-        ``step_id`` returns the cached info of the step already applied."""
+        logreg, ``depth``, ``open_nodes`` and ``splits`` for rf;
+        ``iteration`` and ``pass_rows`` for all). A replayed ``step_id``
+        returns the cached info of the step already applied."""
         with self.lock:
             if self.dropped:
                 raise KeyError("job was finalized/dropped")
             self.touched = self._clock()
-            if self.algo not in ("kmeans", "logreg"):
+            if self.algo not in ("kmeans", "logreg", "rf"):
                 raise ValueError(f"algo {self.algo!r} is single-pass; step not applicable")
             if (step_id is not None and self._last_step_info is not None
                     and str(step_id) == self._last_step_id):
                 return dict(self._last_step_info)
+            if self.algo == "rf" and self.rf_tables is None:
+                raise ValueError("step before the forest iterate is installed")
             pass_rows = self.pass_rows
             self._clear_pass()
             if pass_rows == 0:
@@ -842,6 +924,8 @@ class _Job:
                     sums, counts, cost = self.state
                     self.centers, moved2 = km_mod.apply_lloyd_update(sums, counts, self.centers)
                     info.update(moved2=float(moved2), cost=float(cost))
+                elif self.algo == "rf":
+                    info.update(rf_mod.grow_level(self.rf_tables, self.state[0], self.rf_spec))
                 else:
                     reg = float(params.get("reg", 0.0))
                     fit_intercept = bool(params.get("fit_intercept", True))
@@ -876,6 +960,13 @@ class _Job:
             return result
 
     def _finalize_locked(self, params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        if self.algo == "rf":
+            if self.rf_tables is None:
+                raise ValueError("finalize before any feed: no forest iterate")
+            out = {k: np.array(v) for k, v in self.rf_tables.items() if k != "depth"}
+            out["n_classes"] = np.asarray([self.rf_spec.n_classes], np.int64)
+            out["n_iter"] = np.asarray([self.iteration], np.int64)
+            return out
         if self.algo == "kmeans":
             # The cost is the current (unstepped) pass's: a driver feeds one
             # pass at the final centres without stepping to read it.
@@ -942,15 +1033,15 @@ _MODEL_CLASSES = {
     "linreg": lr_mod.LinearRegressionModel,
     "logreg": lg_mod.LogisticRegressionModel,
     "scaler": StandardScalerModel,
+    "rf_classifier": rf_mod.RandomForestClassificationModel,
+    "rf_regressor": rf_mod.RandomForestRegressionModel,
 }
 
 
 def _model_class(algo: str):
     cls = _MODEL_CLASSES.get(algo)
     if cls is None:
-        raise ValueError(
-            f"unknown model algo {algo!r} ({'|'.join(_MODEL_CLASSES)}); {_LATER_MODELS}"
-        )
+        raise ValueError(f"unknown model algo {algo!r} ({'|'.join(_MODEL_CLASSES)})")
     return cls
 
 
@@ -996,6 +1087,11 @@ class _ServedModel:
         return obj
 
     def transform(self, x) -> Dict[str, Any]:
+        if self.algo in ("rf_classifier", "rf_regressor"):
+            width = int(np.asarray(self.model.arrays["bin_edges"]).shape[0])
+            if x.shape[1] != width:
+                raise ValueError(f"transform batch width {x.shape[1]} != the forest's "
+                                 f"{width} features")
         with self.lock:
             self.touched = self._clock()
             with _DEVICE_LOCK:
@@ -1419,7 +1515,7 @@ class DataPlaneDaemon:
             return self._jobs.get(name)
 
     def _op_feed(self, conn, req: Dict[str, Any]) -> None:
-        labelled = str(_opt(req, "algo", "pca")) in ("linreg", "logreg")
+        labelled = str(_opt(req, "algo", "pca")) in _LABELLED
         x, y = _recv_arrow_matrix(conn, "feed", _opt(req, "input_col", "features"),
                                   req.get("n_cols"),
                                   _opt(req, "label_col", "label") if labelled else None)
@@ -1427,8 +1523,8 @@ class DataPlaneDaemon:
 
     def _op_feed_raw(self, conn, req: Dict[str, Any]) -> None:
         """`feed` with raw little-endian C-contiguous buffers instead of
-        Arrow IPC: array `x` (n, d) float32/float64 and, for linreg and
-        logreg, `y` (n,)."""
+        Arrow IPC: array `x` (n, d) float32/float64 and, for linreg, logreg
+        and rf, `y` (n,)."""
         arrays = _recv_arrays_aligned(conn, req)
         if "x" not in arrays:
             raise ValueError("feed_raw needs an 'x' array in the request spec")
@@ -1455,14 +1551,15 @@ class DataPlaneDaemon:
         name = str(req["job"])
         algo = str(_opt(req, "algo", "pca"))
         if algo not in _ALGOS:
-            raise ValueError(f"unknown algo {algo!r} ({'|'.join(_ALGOS)}); {_LATER_ALGOS}")
+            raise ValueError(f"unknown algo {algo!r} ({'|'.join(_ALGOS)})")
         params = _opt(req, "params", {})
-        # One parse of n_classes for the label check and the job guard.
-        n_classes = int(params.get("n_classes") or 2)
-        if algo in ("linreg", "logreg"):
+        # One parse of n_classes for the label check and the job guard: a
+        # logreg job defaults to 2, a forest's 0 (read raw) is a regressor.
+        n_classes = int(params.get("n_classes") or (0 if algo == "rf" else 2))
+        if algo in _LABELLED:
             if y is None:
                 raise ValueError(f"{algo} feed needs a label array")
-            if algo == "logreg" and n_classes > 2:
+            if (algo == "rf" and n_classes > 0) or (algo == "logreg" and n_classes > 2):
                 lg_mod.validate_multiclass_labels(y, n_classes)
             elif algo == "logreg":
                 lg_mod.validate_binary_labels(y)
@@ -1484,8 +1581,10 @@ class DataPlaneDaemon:
                         self._jobs[name] = job
             if job.algo != algo:
                 raise ValueError(f"job {name!r} is algo {job.algo!r}; feed requested {algo!r}")
-            if algo == "logreg" and n_classes != job.n_classes:
-                raise ValueError(f"job {name!r} has n_classes={job.n_classes}; feed carried "
+            job_classes = (job.n_classes if algo == "logreg"
+                           else job.rf_spec.n_classes if algo == "rf" else n_classes)
+            if n_classes != job_classes:
+                raise ValueError(f"job {name!r} has n_classes={job_classes}; feed carried "
                                  f"n_classes={n_classes}")
             try:
                 job.fold(

@@ -3,8 +3,9 @@
 The port of ``spark_rapids_ml_tpu/spark`` for ``SparkPCA``,
 ``SparkLinearRegression``, ``SparkKMeans``, ``SparkLogisticRegression``,
 ``SparkNearestNeighbors``, ``SparkApproximateNearestNeighbors`` and
-``SparkStandardScaler`` (the Spark forest wrappers come with the daemon's
-``rf`` job).
+``SparkStandardScaler``. ``SparkRandomForestClassifier`` and
+``SparkRandomForestRegressor`` are defined in ``spark.estimator`` and not
+exported here, as in the reference.
 The reference reaches Spark three ways (SURVEY.md §1), and so does this:
 
 1. the estimator namespace: each wrapper takes a PySpark DataFrame with

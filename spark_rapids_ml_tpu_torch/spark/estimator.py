@@ -1,9 +1,10 @@
 """The PySpark DataFrame adapters of the port: ``SparkPCA``,
 ``SparkLinearRegression``, ``SparkKMeans``, ``SparkLogisticRegression``,
-``SparkNearestNeighbors``, ``SparkApproximateNearestNeighbors`` and
-``SparkStandardScaler``.
+``SparkNearestNeighbors``, ``SparkApproximateNearestNeighbors``,
+``SparkStandardScaler``, ``SparkRandomForestClassifier`` and
+``SparkRandomForestRegressor``.
 
-The port of ``spark_rapids_ml_tpu/spark/estimator.py`` for those seven
+The port of ``spark_rapids_ml_tpu/spark/estimator.py`` for those nine
 estimators. The reference's user contract is to change one import and
 keep the Spark ML code (reference PCA.scala:27-37, README.md:27-37, with
 the features column an ArrayType):
@@ -15,14 +16,17 @@ to the card (``serve/``) and commits; the daemon folds every batch into
 its job's state on the card; the driver finalizes and receives only the
 model (RapidsRowMatrix.scala:118-139). The dataset never reaches the
 driver. PCA, StandardScaler (a pca job finalized to its raw moments,
-no eigensolve) and LinearRegression are one scan. KMeans and
-LogisticRegression are one scan per pass: the driver seeds KMeans' centres
-from a small prefix sample (``seed``), learns LogisticRegression's class
-count from a one-row-per-task label probe, and after each scan steps
-the daemon's iterate until it converges; KMeans then scans once more at the
-final centres for its training cost. Task retries and speculative
-duplicates are safe: feeds stage per (partition, attempt, pass) and only
-``commit`` adds a stage, once. The driver holds the daemon to the tasks'
+no eigensolve) and LinearRegression are one scan. KMeans,
+LogisticRegression and the forests are one scan per pass: the driver seeds
+KMeans' centres from a small prefix sample (``seed``), learns
+LogisticRegression's and the forest classifier's class count from a
+one-row-per-task label probe, installs a forest's quantile bin edges
+(from a prefix sample) and empty trees with a creating ``set_iterate``,
+and after each scan steps the daemon's iterate until it converges (a
+forest: one level per pass, until no node is open); KMeans then scans
+once more at the final centres for its training cost. Task retries and
+speculative duplicates are safe: feeds stage per (partition, attempt,
+pass) and only ``commit`` adds a stage, once. The driver holds the daemon to the tasks'
 acks (a row-count mismatch, at finalize or at a step, fails the fit) and
 fences a daemon restart under a scan (an incarnation change). The
 nearest-neighbour fits are one scan into a ``knn`` job whose finalize
@@ -37,7 +41,8 @@ fit replays its scan.
 
 Each driver loop is a function of a ``run_pass(pass_id) -> acks``
 callable (``_drive_pca``, ``_drive_scaler``, ``_drive_linreg``,
-``_drive_kmeans``, ``_drive_logreg``, ``_drive_knn``): the Spark fit passes
+``_drive_kmeans``, ``_drive_logreg``, ``_drive_forest``, ``_drive_knn``):
+the Spark fit passes
 one that runs ``mapInArrow``
 tasks, and a driver without Spark (the card smoke) one of its own.
 
@@ -52,8 +57,7 @@ The port folds into ONE daemon. Refused loudly, each until the ROADMAP
 item that brings it: acks that name a second daemon (the cross-daemon
 merge, Queue 1 items 5–6), a daemon loss tolerance above 0 or the
 ``boundary`` join policy (items 5–6), and with them the sharded index of
-a knn fit over several daemons; the forests come with item 4's second
-half (slice 15).
+a knn fit over several daemons.
 
 pyspark is optional: importing this module never needs it (nor pyarrow,
 which the tasks import at use); ``fit``/``transform`` of a Spark DataFrame
@@ -68,14 +72,17 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
+from spark_rapids_ml_tpu_torch import config
 from spark_rapids_ml_tpu_torch.models import kmeans as _km
 from spark_rapids_ml_tpu_torch.models import knn as _knn
 from spark_rapids_ml_tpu_torch.models import linear_regression as _lr
 from spark_rapids_ml_tpu_torch.models import logistic_regression as _lg
+from spark_rapids_ml_tpu_torch.models import random_forest as _rf
 from spark_rapids_ml_tpu_torch.models.pca import PCA as _PCA
 from spark_rapids_ml_tpu_torch.models.pca import PCAModel
 from spark_rapids_ml_tpu_torch.models.scaler import StandardScaler as _StandardScaler
 from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel, finalize_moments
+from spark_rapids_ml_tpu_torch.ops.histogram import quantile_bin_edges
 from spark_rapids_ml_tpu_torch.spark import daemon_session
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
@@ -205,14 +212,14 @@ def _features_col(core) -> str:
     return core.getOrDefault("inputCol" if core.hasParam("inputCol") else "featuresCol")
 
 
-def _kmeans_seed_sample(df, input_col: str, k: int) -> np.ndarray:
-    """The (n, d) prefix of ``input_col`` that seeds the kmeans centres: at
-    most max(k, 4,096) rows (:func:`_kmeans_seed_rows`) reach the driver."""
+def _prefix_sample(df, input_col: str, rows: int) -> np.ndarray:
+    """The (n, d) prefix of ``input_col``, at most ``rows`` rows: the only
+    rows that reach the driver (the kmeans seed, a forest's bin edges)."""
     import pyarrow as pa
 
     from spark_rapids_ml_tpu_torch.bridge.arrow import table_column_to_matrix
 
-    selected = df.select(input_col).limit(_kmeans_seed_rows(k))
+    selected = df.select(input_col).limit(rows)
     if hasattr(selected, "toArrow"):
         table = selected.toArrow()
     else:
@@ -226,7 +233,7 @@ class _FeedTask:
     """The executor-side partition feeder: a plain picklable callable for
     ``mapInArrow`` (its imports happen on the executor). One task is one
     partition on one connection: an Arrow ``feed`` per non-empty batch
-    (features, and ``label_col`` for linreg/logreg; ``params`` create the
+    (features, and ``label_col`` for linreg/logreg/rf; ``params`` create the
     job at its first feed), keyed (partition, attempt, pass_id), then
     ``commit``; it yields one ack row. (The reference's task also stamps
     the driver's journal ``trace_ctx`` on every op; that waits for
@@ -503,7 +510,10 @@ class _SingleDaemonFit:
                 self.primary_id = new_id
             if self.ledger is not None:
                 arrays, iteration = self.ledger
+                # The iterate's layout carries the width: kmeans centres
+                # (k, d), a forest's bin edges (d, B − 1), logreg w (d[, C]).
                 n_cols = int(arrays["centers"].shape[1] if "centers" in arrays
+                             else arrays["bin_edges"].shape[0] if "bin_edges" in arrays
                              else arrays["w"].shape[0])
                 self.client.set_iterate(self.job, arrays, iteration, algo=self.algo,
                                         n_cols=n_cols, params=self.params)
@@ -676,6 +686,48 @@ def _drive_logreg(fit: _SingleDaemonFit, run_pass, core,
     return model
 
 
+def _forest_params(core, n_classes: int) -> Dict[str, Any]:
+    """The rf job's creation params from a forest estimator's (the
+    reference's eight feed params); ``n_classes`` 0 is a regressor."""
+    return {"num_trees": core.getNumTrees(), "max_depth": core.getMaxDepth(),
+            "max_bins": core.getMaxBins(), "n_classes": int(n_classes),
+            "subset": core.getFeatureSubsetStrategy(), "seed": core.getSeed(),
+            "bootstrap": core.getBootstrap(), "min_instances": core.getMinInstancesPerNode()}
+
+
+def _drive_forest(fit: _SingleDaemonFit, run_pass, core, sample: np.ndarray,
+                  n_classes: int) -> "_rf._ForestModelBase":
+    """Install the forest's depth-0 iterate (quantile bin edges of the
+    driver's prefix ``sample``, every root open) with a creating
+    ``set_iterate``, then one pass of scan + step per depth until no node
+    is open (at most maxDepth + 1), then the guarded finalize. The daemon
+    bins every row against those edges and keys its bags by the row's
+    (partition, offset), so the forest depends neither on the order the
+    tasks' feeds and commits arrive in nor on a task's retries."""
+    fit.algo, fit.params = "rf", _forest_params(core, n_classes)
+    sample = np.asarray(sample)
+    if sample.shape[0] == 0:
+        raise ValueError("cannot fit on an empty DataFrame")
+    d = int(sample.shape[1])
+    spec = _rf.forest_spec_from_params(fit.params, d)
+    arrays = _rf.init_forest_arrays(spec, quantile_bin_edges(sample, spec.max_bins))
+    with trace_span("seed"):
+        fit.client.set_iterate(fit.job, arrays, 0, algo="rf", n_cols=d, params=fit.params)
+    fit.record()  # pass 0 opens with the empty trees: a pass-0 replay reinstalls them
+
+    def forest_pass(pass_id):
+        return fit.step(pass_id, fit.scan(run_pass, pass_id))
+
+    for it in range(spec.max_depth + 1):
+        info = fit.with_recovery(lambda pid=it: forest_pass(pid))
+        if int(info["open_nodes"]) == 0:
+            break
+    arrays, _ = fit.with_recovery(lambda: fit.finalize_guarded({}))
+    arrays = dict(arrays)
+    arrays.pop("n_iter", None)
+    return core._model_cls(arrays=arrays, device=core._device)
+
+
 def _drive_knn(fit: _SingleDaemonFit, run_pass, core) -> "_DaemonKNNModel":
     """One scan into a knn job, then the finalize that builds the index on
     the daemon and registers it as ``knnidx-<job>``: exact for a
@@ -750,12 +802,16 @@ class _SparkAdapter:
         """Executor-fed fit: partition batches flow task → daemon, and the
         driver sees only the finalize's arrays (and, for KMeans, a prefix
         sample of at most max(k, 4,096) rows to seed the centres; for the
-        nearest-neighbour estimators only the built index's row count)."""
+        forests a prefix sample of at most ``forest_seed_sample_rows`` for
+        the bin edges; for the nearest-neighbour estimators only the built
+        index's row count)."""
         core = self._core
         algo = self._daemon_algo
+        forest = algo in ("rf_classifier", "rf_regressor")
         # A scaler fit feeds the pca job protocol: its statistics are a
-        # subset of PCA's.
-        wire_algo = "pca" if algo == "scaler" else algo
+        # subset of PCA's. Both forests speak the one rf job protocol (the
+        # params' n_classes picks Gini or variance splits).
+        wire_algo = "pca" if algo == "scaler" else "rf" if forest else algo
         spark = getattr(df, "sparkSession", None)
         _refuse_multi_daemon_policies(spark)
         # Without a configured daemon this starts the driver's own on the
@@ -764,9 +820,9 @@ class _SparkAdapter:
         ckw = daemon_session.client_kwargs(spark)
         job = f"{core.uid}-{uuid.uuid4().hex[:8]}"
         input_col = _features_col(core)
-        label_col = core.getLabelCol() if algo in ("linreg", "logreg") else None
+        label_col = core.getLabelCol() if algo in ("linreg", "logreg") or forest else None
         sel = df.select(*([input_col] + ([label_col] if label_col else [])))
-        multi_pass = algo in ("kmeans", "logreg")
+        multi_pass = algo in ("kmeans", "logreg") or forest
         if multi_pass:
             sel = sel.persist()
         fit = _SingleDaemonFit(host, port, job, token=token,
@@ -787,8 +843,12 @@ class _SparkAdapter:
             elif algo == "linreg":
                 model = _drive_linreg(fit, run_pass, core)
             elif algo == "kmeans":
-                model = _drive_kmeans(fit, run_pass, core,
-                                      _kmeans_seed_sample(sel, input_col, core.getK()))
+                sample = _prefix_sample(sel, input_col, _kmeans_seed_rows(core.getK()))
+                model = _drive_kmeans(fit, run_pass, core, sample)
+            elif forest:
+                n_classes = _probe_num_classes(sel, label_col) if algo == "rf_classifier" else 0
+                sample = _prefix_sample(sel, input_col, int(config.get("forest_seed_sample_rows")))
+                model = _drive_forest(fit, run_pass, core, sample, n_classes)
             else:
                 model = _drive_logreg(fit, run_pass, core, _probe_num_classes(sel, label_col))
         finally:
@@ -1170,6 +1230,25 @@ class SparkStandardScaler(_SparkAdapter):
 
     _core_cls = _StandardScaler
     _daemon_algo = "scaler"
+
+
+class SparkRandomForestClassifier(_SparkAdapter):
+    """RandomForestClassifier over PySpark DataFrames: the class count from
+    a label probe, the bin edges from a prefix sample, one scan per tree
+    depth into the daemon's rf job (Gini splits), served predictions. Not
+    exported from ``spark``, as in the reference."""
+
+    _core_cls = _rf.RandomForestClassifier
+    _daemon_algo = "rf_classifier"
+
+
+class SparkRandomForestRegressor(_SparkAdapter):
+    """RandomForestRegressor over PySpark DataFrames: the rf job with
+    variance splits, served predictions. Not exported from ``spark``, as
+    in the reference."""
+
+    _core_cls = _rf.RandomForestRegressor
+    _daemon_algo = "rf_regressor"
 
 
 class SparkNearestNeighbors(_SparkAdapter):

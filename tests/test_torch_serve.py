@@ -440,16 +440,16 @@ def test_rejected_request_keeps_the_framing(daemon, bad_request):
 
 
 def test_non_pca_algo_refused_without_a_job(daemon, data):
-    """The algos of later slices (the 'rf' job, the served forests) are
-    refused before a job or model is registered."""
+    """An algo neither daemon knows is refused, as a job and as a served
+    model, before a job or model is registered."""
     with _client(daemon) as c:
         for feed in (c.feed, c.feed_raw):
-            with pytest.raises(RuntimeError, match="'rf'.*does not run 'rf'"):
-                feed("nn", data, algo="rf")
+            with pytest.raises(RuntimeError, match="unknown algo 'svm' .*rf\\|knn"):
+                feed("nn", data, algo="svm")
         with pytest.raises(RuntimeError, match="no such job"):
             c.status("nn")
-        with pytest.raises(RuntimeError, match="'rf_classifier'.*does not serve the forests"):
-            c.ensure_model("rf", "rf_classifier", {"bin_edges": data[:2], "value": data[2:4]})
+        with pytest.raises(RuntimeError, match="unknown model algo 'svm' .*rf_regressor"):
+            c.ensure_model("svm", "svm", {"bin_edges": data[:2], "value": data[2:4]})
         assert c.ping()
     assert not daemon._jobs and not daemon._models
 

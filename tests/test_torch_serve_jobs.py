@@ -573,13 +573,15 @@ def test_served_predictions_equal_transform_matrix(kind, daemon):
 
 
 def test_unported_algos_refused_without_a_job(daemon):
+    """An algo neither daemon knows: refused as a job and as a served model,
+    with nothing registered."""
     with _client(daemon) as c:
         for feed in (c.feed_raw, c.feed):
-            with pytest.raises(RuntimeError, match="unknown algo 'rf'"):
-                feed("u", DATA["x"], algo="rf")
-        with pytest.raises(RuntimeError, match="unknown model algo 'rf_classifier'"):
-            c.ensure_model("rf", "rf_classifier", {"bin_edges": np.zeros((D, 3)),
-                                                   "value": np.ones((2, 3, 2))})
+            with pytest.raises(RuntimeError, match="unknown algo 'svm'"):
+                feed("u", DATA["x"], algo="svm")
+        with pytest.raises(RuntimeError, match="unknown model algo 'svm'"):
+            c.ensure_model("svm", "svm", {"bin_edges": np.zeros((D, 3)),
+                                          "value": np.ones((2, 3, 2))})
         assert c.ping()
     assert not daemon._jobs and not daemon._models
 

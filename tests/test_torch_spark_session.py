@@ -253,10 +253,14 @@ def test_wrapper_spark_df_requires_pyspark():
 
 
 def test_only_sparkpca_is_exported():
-    """The wrappers whose daemon jobs the port runs are exported (SparkPCA,
-    the three of the iterative jobs, the two of the knn job and
-    SparkStandardScaler); the forests' are not defined. The name dates from
-    when SparkPCA was the only one."""
+    """The wrappers the JAX package's ``spark`` exports are exported
+    (SparkPCA, the three of the iterative jobs, the two of the knn job and
+    SparkStandardScaler); the forests' are defined in ``spark.estimator``
+    and, as in the JAX package, not exported. The name dates from when
+    SparkPCA was the only one."""
+    import spark_rapids_ml_tpu.spark as jax_spark
+    from spark_rapids_ml_tpu.spark import estimator as jax_est
+
     import spark_rapids_ml_tpu_torch.spark as spark_pkg
 
     assert sorted(spark_pkg.__all__) == [
@@ -267,7 +271,9 @@ def test_only_sparkpca_is_exported():
         "write_discovery_script",
     ]
     for name in ("SparkRandomForestClassifier", "SparkRandomForestRegressor"):
-        assert not hasattr(spark_pkg, name) and not hasattr(port_est, name)
+        assert name not in spark_pkg.__all__ and name not in jax_spark.__all__
+        assert issubclass(getattr(port_est, name), port_est._SparkAdapter)
+        assert getattr(port_est, name)._daemon_algo == getattr(jax_est, name)._daemon_algo
 
 
 # ---------------------------------------------------------------------------
