@@ -41,7 +41,8 @@ Phases, each of which exits non-zero on a failed check:
    for the rest). d = 300 and 13, and float32, must take the FFMA route.
    ``python3 chip_smoke.py --phase2`` stops after this phase;
    ``--data-plane`` runs phases 19 to 22, phase 23's Spark part and phase
-   25 alone after the build; ``--estimators`` runs phases 23 and 24 alone.
+   25 alone after the build; ``--estimators`` runs phases 23 and 24 alone;
+   ``--multi-process`` runs phase 26 alone.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -293,6 +294,46 @@ Phases, each of which exits non-zero on a failed check:
     pass and per step, the daemon's span split, the device busy share of
     one traced scan, the fit's seconds, the held-out accuracy and R², the
     served p50 and the phase's seconds.
+26. The fits across processes (``parallel/``: one rank a process and a
+    device, the data axis the world of ``torch.distributed`` ranks). The
+    ranks are spawned processes; each checks itself, reports its numbers
+    to this process over a queue and exits non-zero on a failed check;
+    this process fails when a rank fails or passes its time limit, and
+    kills it. a. An NCCL world of one on cuda:0: ``reduce_sum``,
+    ``all_concat`` and ``reduce_topk`` of CUDA tensors against their
+    inputs, nothing staged; phase 3's shapes on small-integer rows, the
+    stream's state through NCCL's all_reduce bitwise equal to the fold
+    without a world; ``fit_pca_stream`` of phase 3's eight batches through
+    ``mesh=global_mesh()`` against phase 3's float64 reference (phase 3's
+    tolerances). Then the record of what gloo does with a CUDA tensor's
+    send/recv, in a pair of its own. b. Two gloo ranks, both on cuda:0
+    (NCCL refuses two ranks on one device), each making only its own rows
+    on the card from the phases' seeds: ``ring_shift`` of a CUDA tensor
+    (staged through the host); the PCA stream at full width (d = 2048, k
+    = 32, phase 3's eight bf16 batches split 5 / 3, so rank 1 yields two
+    empty lockstep batches): ``gram_colsum`` launches equal each rank's
+    batches, all wgmma; on small-integer rows the reduced state bitwise
+    equal to one process's fold of all eight; on phase 3's rows the
+    components against phase 3's float64 reference; the in-memory
+    ``fit_pca`` of phase 4's 1,048,576 rows (524,288 a rank: one ``gram``
+    wgmma launch a rank, phase 4's check); LinearRegression at d = 1024
+    (phase 9's stream split 5 / 3 through ``streaming_normal_eq_update``
+    with the mesh, and its in-memory float32 rows split in two through
+    ``fit_linear_regression``; ``linreg_stats`` launches per rank, against
+    float64 normal equations at phase 9's tolerance); the multinomial
+    stream on phase 12's rows (80,000 / 49,838, in 3 / 2 batches, five
+    passes at tol 0: ``softmax_curvature`` launches = passes x non-empty
+    batches, all wgmma; (W, b) against one process's stream of the same
+    batches at phase 12's tolerance); exact ``NearestNeighbors`` on phase
+    16's rows (524,288 a rank, 4,096 queries, k = 10: one ``dist_topk``
+    wgmma launch a rank a call; the global ids equal phase 16's
+    one-process answer wherever the gap to the next distance exceeds phase
+    15's tolerance); the binomial and KMeans streams (no kernel) at 65,536
+    rows against one process's streams; every result bitwise identical on
+    both ranks; the staged collectives. It prints per rank the fold
+    kernel's ms a batch, the d = 2048 reduce's ms and bytes a batch, the
+    'collective reduce' and 'lockstep gather' spans of the stream, the
+    two-rank stream's rows/s beside phase 3's, and the phase's seconds.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
@@ -304,8 +345,11 @@ path and carries the float32 route's numbers under ``f32_*``, the
 ``linreg_stats`` and ``newton_stats`` rows phase 23's under
 ``estimator_launches`` and the ``gram_colsum`` row phase 23's Spark
 scaler's under ``spark_scaler_launches``, the
-``dist_topk`` row the FFMA tiles' time under ``ffma_ms`` and the
-``probe_select`` row the sort route's under ``sort_ms``) and
+``dist_topk`` row the FFMA tiles' time under ``ffma_ms``, the
+``probe_select`` row the sort route's under ``sort_ms``, and the five rows
+of phase 26's path (``gram``, ``gram_colsum``, ``linreg_stats``,
+``softmax_curvature``, ``dist_topk``) its launches summed over the two
+ranks under ``multiprocess_launches``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, the script fails before printing any result.
 """
@@ -4488,6 +4532,596 @@ def phase_forest_daemon(torch, kernels, config, sp_rate):
           + ", ".join(f"{what} {sec:.1f} s" for what, sec in marks) + ")", flush=True)
 
 
+# -- 26. the fits across processes -------------------------------------------------
+
+P3_ROWS = (N_BATCHES - 1) * BATCH_ROWS + LAST_BATCH_ROWS  # phase 3's stream
+P26_RANK_TIMEOUT_S = 420  # each spawned rank's time limit; past it the smoke kills it
+P26_SPLIT = (5, 3)  # phase 3's (and phase 9's) eight batches: rank 0's, rank 1's
+P26_MN_SPLIT = 80_000  # phase 12's rows: rank 0 takes the first 80,000, rank 1 the rest
+P26_SMALL_ROWS = 1 << 15  # the binomial and KMeans streams' rows a rank
+P26_KM_K = 16
+#: The kernels of the slice's path, as the kernels JSON names them.
+P26_KERNELS = ("gram", "gram_colsum", "linreg_stats", "softmax_curvature", "dist_topk")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _digest(*arrays) -> str:
+    """A hash of the arrays' bytes: equal on two ranks iff bitwise equal."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _state_digest(state) -> str:
+    return _digest(*(t.detach().cpu().numpy() for t in state))
+
+
+def phase3_rows(torch):
+    """Phase 3's generator, spectrum and eight bf16 batches, replayed from
+    its seed: (generator, scales, mu, batches)."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    j = torch.arange(D, device=DEV, dtype=torch.float32)
+    scales = torch.where(j < K, torch.sqrt(2.0 - j / (K - 1)), 0.1 * 0.999 ** j)
+    mu = 0.05 * torch.randn((D,), generator=gen, device=DEV)
+    batches = [make_rows(gen, LAST_BATCH_ROWS if b == N_BATCHES - 1 else BATCH_ROWS,
+                         scales, mu, torch.bfloat16) for b in range(N_BATCHES)]
+    return gen, scales, mu, batches
+
+
+def int_batches(torch, which):
+    """Small-integer bf16 rows {-1, 0, 1} at phase 3's batch shapes, batch b
+    from seed 2600 + b: every Gram and column sum of all eight batches is an
+    integer below 2^24, so any order of f32 adds gives the same bits."""
+    for b in which:
+        g = torch.Generator(device=DEV).manual_seed(2600 + b)
+        rows = LAST_BATCH_ROWS if b == N_BATCHES - 1 else BATCH_ROWS
+        yield torch.randint(-1, 2, (rows, D), generator=g, device=DEV).to(torch.bfloat16)
+
+
+def gram64(torch, batches, cd=None):
+    """float64 (count, colsum, gram) of row batches on the card (each cast
+    to ``cd`` first when given), in 131,072-row chunks."""
+    count, colsum = 0.0, None
+    gram = None
+    for b in batches:
+        for r0 in range(0, b.shape[0], 1 << 17):
+            xd = (b[r0:r0 + (1 << 17)] if cd is None else b[r0:r0 + (1 << 17)].to(cd)).double()
+            gram = xd.T @ xd if gram is None else gram.add_(xd.T @ xd)
+            colsum = xd.sum(0) if colsum is None else colsum.add_(xd.sum(0))
+            count += xd.shape[0]
+    return torch.tensor(count, dtype=torch.float64, device=DEV), colsum, gram
+
+
+def _p26_nccl(port, q) -> None:
+    """Phase 26a, in a spawned process: an NCCL world of one on cuda:0."""
+    try:
+        import torch
+
+        from spark_rapids_ml_tpu_torch.models.pca import fit_pca_stream
+        from spark_rapids_ml_tpu_torch.ops import gram as gram_ops
+        from spark_rapids_ml_tpu_torch.ops import kernels
+        from spark_rapids_ml_tpu_torch.ops import selection as sel
+        from spark_rapids_ml_tpu_torch.parallel import distributed
+        from spark_rapids_ml_tpu_torch.parallel import mapreduce as mr
+
+        distributed.initialize_cluster(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+        mesh = distributed.global_mesh()
+        check(mesh.backend == "nccl" and mesh.collective and mesh.device.type == "cuda",
+              f"26a: an NCCL world of one on {mesh.device}")
+        g = torch.Generator(device=DEV).manual_seed(260)
+        x = torch.randn((4096, 33), generator=g, device=DEV)
+        ok_sum = torch.equal(mr.reduce_sum(x.clone(), mesh=mesh), x)
+        ok_cat = torch.equal(mr.all_concat(x, axis=1, mesh=mesh), x)
+        pool_d = torch.randint(0, 4, (64, 12), generator=g, device=DEV).float()
+        pool_i = torch.randperm(64 * 12, generator=g, device=DEV).reshape(64, 12).int()
+        got = mr.reduce_topk(pool_d, pool_i, 10, mesh=mesh)
+        want = sel.lex_topk(pool_d, pool_i, 10)
+        ok_topk = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        check(ok_sum and ok_cat and ok_topk and all(v == 0 for v in mr.STAGED.values()),
+              "26a: NCCL reduce_sum, all_concat and reduce_topk of CUDA tensors equal their "
+              "inputs (world of one), nothing staged")
+        # The stream's fold through the world's all_reduce, against the fold
+        # of no world (seeded), on small-integer rows: bitwise.
+        solo = gram_ops.init_stats(D, device=DEV)
+        world = gram_ops.init_stats(D, device=DEV)
+        kernels.reset_launches()
+        for xb in int_batches(torch, range(N_BATCHES)):
+            gram_ops.streaming_update_rows(solo, xb, xb.shape[0])
+            gram_ops.streaming_update_rows(world, xb, xb.shape[0], mesh=mesh)
+        check(all(torch.equal(a, b) for a, b in zip(solo, world))
+              and kernels.ROUTES["gram_colsum/wgmma"] == 2 * N_BATCHES,
+              f"26a: phase 3's shapes on small-integer rows: the state through NCCL's "
+              f"all_reduce bitwise equal to the fold without a world "
+              f"({kernels.ROUTES['gram_colsum/wgmma']} wgmma launches)")
+        _, _, _, batches = phase3_rows(torch)
+        kernels.reset_launches()
+        sol = fit_pca_stream(batches, k=K, n_cols=D, mesh=mesh)
+        launches = kernels.LAUNCHES["gram_colsum"]
+        pc_ref, ev_ref, _ = reference_pca(*gram64(torch, batches), K)
+        err = sign_aligned_err(sol.pc, pc_ref)
+        ev_err = float((torch.as_tensor(sol.explained_variance, device=DEV) - ev_ref).abs().max())
+        check(launches == N_BATCHES and err <= 1e-3 and ev_err <= 1e-4,
+              f"26a: fit_pca_stream of phase 3's batches through mesh=global_mesh() (NCCL): "
+              f"{launches} gram_colsum launches, pc err {err:.3e} (tol 1e-3), explained "
+              f"variance err {ev_err:.3e} (tol 1e-4) against phase 3's float64 reference")
+        distributed.shutdown_cluster()
+        q.put(("ok", "nccl", None))
+    except BaseException as e:  # noqa: BLE001 - reported to the parent
+        q.put(("err", "nccl", repr(e)))
+        raise
+
+
+def _p26_probe(rank, port, q) -> None:
+    """Phase 26's record of gloo's send/recv of CUDA tensors, in a world of
+    its own (a refusal can break the pair's connection)."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    x = torch.full((4,), float(rank), device=DEV)
+    r = torch.empty_like(x)
+    try:
+        ops = [dist.P2POp(dist.isend, x, 1 - rank), dist.P2POp(dist.irecv, r, 1 - rank)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        torch.cuda.synchronize()
+        q.put((rank, "took", r.tolist()))
+    except RuntimeError as e:  # the record: what gloo refused
+        q.put((rank, "refused", str(e).splitlines()[0][:200]))
+
+
+def _p26_rank(rank, port, q) -> None:
+    """Phase 26b's rank, in a spawned process: reports its numbers to the
+    parent over ``q`` and exits non-zero on a failed check."""
+    try:
+        out = _p26_body(rank, port)
+        q.put(("ok", rank, out))
+    except BaseException as e:  # noqa: BLE001 - a failed check exits; reported to the parent
+        q.put(("err", rank, repr(e)))
+        raise
+
+
+def _p26_body(rank, port) -> dict:
+    import torch
+
+    from spark_rapids_ml_tpu_torch import config
+    from spark_rapids_ml_tpu_torch.models import kmeans as km
+    from spark_rapids_ml_tpu_torch.models import linear_regression as lr
+    from spark_rapids_ml_tpu_torch.models import logistic_regression as lg
+    from spark_rapids_ml_tpu_torch.models import pca
+    from spark_rapids_ml_tpu_torch.models.knn import NearestNeighbors
+    from spark_rapids_ml_tpu_torch.ops import gram as gram_ops
+    from spark_rapids_ml_tpu_torch.ops import kernels
+    from spark_rapids_ml_tpu_torch.parallel import distributed
+    from spark_rapids_ml_tpu_torch.parallel import mapreduce as mr
+    from spark_rapids_ml_tpu_torch.parallel.sharding import lockstep_batches, lockstep_labeled_batches
+    from spark_rapids_ml_tpu_torch.utils import profiling
+
+    torch.set_num_threads(2)
+    distributed.initialize_cluster(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    mesh = distributed.global_mesh()
+    tag = f"26b rank {rank}:"
+    out = {"launches": {}, "digests": {}}
+    # One process's fits, the references of the streams and of kneighbors:
+    # rank 0 runs them after it leaves the world (a fit inside the world
+    # would wait for the other rank in the lockstep's gathers).
+    after = []
+
+    def barrier():
+        mr.reduce_sum(torch.zeros(1, device=DEV), mesh=mesh)
+        torch.cuda.synchronize()
+
+    def in_turn(fn):
+        """fn() on rank 0, then on rank 1: timings on the shared card."""
+        res = None
+        for r in range(2):
+            barrier()
+            if r == rank:
+                res = fn()
+        barrier()
+        return res
+
+    def launched(names, expect, route="wgmma"):
+        got = {n: kernels.LAUNCHES[n] for n in names}
+        routes = {n: kernels.ROUTES[f"{n}/{route}"] for n in names}
+        check(got == expect and routes == expect,
+              f"{tag} launches {got} == {expect}, all on the {route} route")
+        for n, v in got.items():
+            out["launches"][n] = out["launches"].get(n, 0) + v
+
+    check(mesh.backend == "gloo" and mesh.size == 2 and mesh.device.type == torch.device(DEV).type,
+          f"{tag} a gloo world of two ranks, this one on {mesh.device}")
+
+    # -- ring_shift of a CUDA tensor: gloo's send/recv refuses it, so it stages
+    t = torch.arange(4, device=DEV, dtype=torch.float32) + 10 * rank
+    got = mr.ring_shift(t, "data", [(0, 1), (1, 0)], mesh=mesh)
+    check(torch.equal(got, torch.arange(4, device=DEV, dtype=torch.float32) + 10 * (1 - rank))
+          and got.device.type == torch.device(DEV).type,
+          f"{tag} ring_shift of a CUDA tensor (staged through the host) swaps the ranks' blocks")
+
+    # -- PCA stream at full width: phase 3's eight batches, split 5 / 3 -----------
+    mine = range(P26_SPLIT[0]) if rank == 0 else range(P26_SPLIT[0], N_BATCHES)
+    if rank == 0:  # one process's fold of all eight integer batches
+        ref_state = gram_ops.init_stats(D, device=DEV)
+        for xb in int_batches(torch, range(N_BATCHES)):
+            gram_ops.streaming_update_rows(ref_state, xb, xb.shape[0])
+    state = gram_ops.init_stats(D, device=DEV)
+    ints = list(int_batches(torch, mine))
+    for xb in lockstep_batches(iter(ints), D):
+        gram_ops.streaming_update_rows(state, xb, xb.shape[0], mesh=mesh)
+    del ints
+    out["digests"]["int_state"] = _state_digest(state)
+    if rank == 0:
+        check(all(torch.equal(a, b) for a, b in zip(state, ref_state)),
+              f"{tag} small-integer rows at phase 3's shapes: the two-rank state bitwise equal "
+              f"to one process's fold of all {N_BATCHES} batches")
+        del ref_state
+    del state
+    gen, scales, mu, batches = phase3_rows(torch)
+    ref64 = gram64(torch, batches) if rank == 0 else None
+    mine_b = [batches[b] for b in mine]
+    n_mine = sum(b.shape[0] for b in mine_b)
+    del batches
+    torch.cuda.synchronize()
+    barrier()
+    kernels.reset_launches()
+    profiling.reset_span_totals()
+    t0 = time.perf_counter()
+    sol = pca.fit_pca_stream(iter(mine_b), k=K, n_cols=D, mesh=mesh)
+    stream_s = time.perf_counter() - t0
+    spans = profiling.span_totals()
+    launched(["gram_colsum"], {"gram_colsum": len(mine_b)})
+    out["pca_stream"] = {
+        "s": stream_s,
+        "collective": spans.get("collective reduce", (0.0, 0)),
+        "lockstep": spans.get("lockstep gather", (0.0, 0)),
+    }
+    check(sol.n_rows == P3_ROWS, f"{tag} the stream's global rows {sol.n_rows} == {P3_ROWS}")
+    out["digests"]["pca_stream"] = _digest(sol.pc, sol.explained_variance)
+    if rank == 0:
+        pc_ref, ev_ref, _ = reference_pca(*ref64, K)
+        err = sign_aligned_err(sol.pc, pc_ref)
+        ev_err = float((torch.as_tensor(sol.explained_variance, device=DEV) - ev_ref).abs().max())
+        check(err <= 1e-3 and ev_err <= 1e-4,
+              f"{tag} two-rank PCA stream (d={D}, k={K}) vs phase 3's float64 reference: pc err "
+              f"{err:.3e} (tol 1e-3), explained variance err {ev_err:.3e} (tol 1e-4)")
+        del ref64
+    barrier()
+    t0 = time.perf_counter()
+    pca.fit_pca_stream(iter(mine_b), k=K, n_cols=D, mesh=mesh)
+    out["pca_stream"]["s_second"] = time.perf_counter() - t0
+    # The parts alone, each rank in turn: the fold kernel at a batch, and
+    # the sum of one batch's (count, colsum, gram) partial over the ranks.
+    xb0 = mine_b[0]
+    count, colsum, g = gram_ops.init_stats(D, device=DEV)
+    out["fold_ms"] = in_turn(lambda: time_ms(
+        lambda: kernels.gram_colsum(xb0, xb0.shape[0], (g, colsum, count)), 5))
+    part = gram_ops.init_stats(D, device=DEV)
+    barrier()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        gram_ops.reduce_stats(part, mesh)
+    torch.cuda.synchronize()
+    out["reduce_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    out["reduce_bytes"] = (D * D + D + 1) * 4
+    del mine_b, g, part, xb0
+
+    # -- in-memory fit_pca: phase 4's 1,048,576 rows, 524,288 a rank ----------------
+    x32 = make_rows(gen, IN_MEMORY_ROWS, scales, mu, torch.float32)
+    half = IN_MEMORY_ROWS // 2
+    mine_x = x32[rank * half:(rank + 1) * half].clone()
+    ref64 = gram64(torch, [x32], torch.bfloat16) if rank == 0 else None
+    del x32
+    torch.cuda.synchronize()
+    barrier()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sol = pca.fit_pca(mine_x, k=K, mesh=mesh)
+    out["pca_mem_s"] = time.perf_counter() - t0
+    launched(["gram"], {"gram": 1})
+    out["digests"]["pca_mem"] = _digest(sol.pc)
+    if rank == 0:
+        pc_ref, _, gap = reference_pca(*ref64, K)
+        err = sign_aligned_err(sol.pc, pc_ref)
+        check(err <= 1e-3 and sol.n_rows == IN_MEMORY_ROWS,
+              f"{tag} two-rank fit_pca of {IN_MEMORY_ROWS} x {D} vs float64 of the bf16-rounded "
+              f"rows: pc err {err:.3e} (tol 1e-3; eigengap {gap:.3e}), {sol.n_rows} rows")
+    del mine_x, ref64
+    torch.cuda.empty_cache()
+
+    # -- LinearRegression at d = 1024: phase 9's stream (5 / 3) and in-memory rows ------
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    w = torch.randn((LR_D,), generator=gen, device=DEV) / LR_D ** 0.5
+    parts = [lr_batch(torch, gen, LR_LAST_BATCH_ROWS if b == LR_BATCHES - 1 else BATCH_ROWS,
+                      w, torch.bfloat16) for b in range(LR_BATCHES)]
+    x32, y32 = lr_batch(torch, gen, LR_IN_MEMORY_ROWS, w, torch.float32)
+    ref_s = lr_reference(torch, parts, lr) if rank == 0 else None
+    ref_m = lr_reference(torch, [(x32, y32)], lr) if rank == 0 else None
+    mine_p = parts[:P26_SPLIT[0]] if rank == 0 else parts[P26_SPLIT[0]:]
+    half = LR_IN_MEMORY_ROWS // 2
+    mx, my = x32[rank * half:(rank + 1) * half].clone(), y32[rank * half:(rank + 1) * half].clone()
+    del parts, x32, y32
+    torch.cuda.synchronize()
+    barrier()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    st = lr.init_normal_eq_stats(LR_D, device=DEV)
+    n_local = 0
+    for xb, yb in lockstep_labeled_batches(iter(mine_p), LR_D):
+        n_local += xb.shape[0]
+        lr.streaming_normal_eq_update(st, xb, yb, mesh=mesh)
+    n_rows = int(distributed.row_counts(n_local).sum())
+    sol = lr.finalize_normal_eq_stats(st, 0.0, 0.0, True, 500, 1e-6, n_rows)
+    out["linreg_stream_s"] = time.perf_counter() - t0
+    launched(["linreg_stats"], {"linreg_stats": len(mine_p)})
+    kernels.reset_launches()
+    with config.option("compute_dtype", "float32"):
+        solm = lr.fit_linear_regression(mx, my, mesh=mesh)
+    launched(["linreg_stats"], {"linreg_stats": 1}, route="ffma")
+    out["digests"]["linreg"] = _digest(sol.coefficients, solm.coefficients)
+    if rank == 0:
+        es = float(abs(sol.coefficients - ref_s.coefficients).max())
+        em = float(abs(solm.coefficients - ref_m.coefficients).max())
+        check(es <= 1e-4 and abs(sol.intercept - ref_s.intercept) <= 1e-4 and em <= 1e-4
+              and abs(solm.intercept - ref_m.intercept) <= 1e-4,
+              f"{tag} two-rank LinearRegression vs float64 normal equations: stream "
+              f"coefficients err {es:.3e}, in-memory (f32) {em:.3e} (tol 1e-4, phase 9's)")
+    del mine_p, mx, my, st
+
+    # -- multinomial LogisticRegression stream: phase 12's rows, five passes -------------
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    x = torch.randn((MN_ROWS, LG_D), generator=gen, device=DEV)
+    w_true = torch.randn((LG_D, MN_CLASSES), generator=gen, device=DEV) / LG_D ** 0.5
+    b_true = 0.5 * torch.randn((MN_CLASSES,), generator=gen, device=DEV)
+    y = torch.multinomial(torch.softmax(x @ w_true + b_true, dim=1), 1, generator=gen)[:, 0].float()
+    splits = [(x[:P26_MN_SPLIT].tensor_split(3), y[:P26_MN_SPLIT].tensor_split(3)),
+              (x[P26_MN_SPLIT:].tensor_split(2), y[P26_MN_SPLIT:].tensor_split(2))]
+    mine_mn = list(zip(*splits[rank]))
+    barrier()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sol = lg.fit_multinomial_stream(lambda: iter(mine_mn), n_cols=LG_D, n_classes=MN_CLASSES,
+                                    reg=LG_REG, max_iter=MN_PASSES, tol=0.0, mesh=mesh)
+    out["multinomial_s"] = time.perf_counter() - t0
+    launched(["softmax_curvature"], {"softmax_curvature": MN_PASSES * len(mine_mn)})
+    out["digests"]["multinomial"] = _digest(sol.coefficients, sol.intercept)
+    if rank == 0:
+        every = list(zip(*splits[0])) + list(zip(*splits[1]))
+
+        def multinomial_ref(sol=sol, every=every):
+            ref = lg.fit_multinomial_stream(lambda: iter(every), n_cols=LG_D,
+                                            n_classes=MN_CLASSES, reg=LG_REG, max_iter=MN_PASSES,
+                                            tol=0.0, device=DEV)
+            scale = float(abs(ref.coefficients).max())
+            err_w = float(abs(sol.coefficients - ref.coefficients).max()) / scale
+            err_b = float(abs(sol.intercept - ref.intercept).max()) / scale
+            check(sol.n_rows == MN_ROWS and err_w <= 3e-5 and err_b <= 1e-3,
+                  f"{tag} two-rank multinomial stream (C={MN_CLASSES}, d={LG_D}, {MN_PASSES} "
+                  f"passes) vs one process's stream of the same batches: W err {err_w:.3e} "
+                  f"(tol 3e-5), b {err_b:.3e} (tol 1e-3) of max|W|")
+
+        after.append(multinomial_ref)
+    del x, y, splits, mine_mn
+    torch.cuda.empty_cache()
+
+    # -- exact NearestNeighbors: phase 16's rows, 524,288 a rank ---------------------------
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    centers = torch.randn((KNN_CLUSTERS, KNN_D), generator=gen, device=DEV)
+    x = knn_data(torch, gen, KNN_ROWS, centers)
+    qs = knn_data(torch, gen, KNN_QUERIES, centers)
+    del centers
+    half = KNN_ROWS // 2
+    nn = NearestNeighbors(mesh=mesh).setK(KNN_K).fit({"features": x[rank * half:(rank + 1) * half]})
+    barrier()
+    kernels.reset_launches()
+    d_nn, i_nn = nn.kneighbors(qs)
+    launched(["dist_topk"], {"dist_topk": 1})
+    barrier()
+    t0 = time.perf_counter()
+    nn.kneighbors(qs)
+    out["knn_qps"] = KNN_QUERIES / (time.perf_counter() - t0)
+    out["digests"]["knn"] = _digest(d_nn, i_nn)
+    if rank == 0:
+
+        def knn_ref(x=x, qs=qs, d_nn=d_nn, i_nn=i_nn):
+            cd = config.compute_dtype(DEV)
+            pd, pi = (NearestNeighbors(device=DEV).setK(KNN_K).fit({"features": x})
+                      .kneighbors(qs))
+            scale = float(kernels.row_sq_norms(qs.to(cd)).max()) + float(
+                kernels.row_sq_norms(x.to(cd)).max())
+            tol = 4e-6 * scale  # phase 15's
+            sq = lambda a: torch.as_tensor(a, device=DEV).double() ** 2  # noqa: E731
+            check_selection(torch, f"{tag} two-rank exact kneighbors ({KNN_QUERIES} queries, "
+                            f"k={KNN_K}) vs phase 16's one-process answer (tol {tol:.2e})",
+                            sq(d_nn), torch.as_tensor(i_nn, device=DEV), sq(pd),
+                            torch.as_tensor(pi, device=DEV), tol)
+
+        after.append(knn_ref)
+    del x, qs, nn
+    torch.cuda.empty_cache()
+
+    # -- the binomial and KMeans streams at a small depth (no kernel) ------------------
+    gen = torch.Generator(device=DEV).manual_seed(26)
+    n = 2 * P26_SMALL_ROWS
+    xb = torch.randn((n, LG_D), generator=gen, device=DEV)
+    wb = torch.randn((LG_D,), generator=gen, device=DEV) / LG_D ** 0.5
+    yb = (xb @ wb + 0.3 * torch.randn((n,), generator=gen, device=DEV) > 0).float()
+    parts = [list(zip(xb[r * P26_SMALL_ROWS:(r + 1) * P26_SMALL_ROWS].tensor_split(3 - r),
+                      yb[r * P26_SMALL_ROWS:(r + 1) * P26_SMALL_ROWS].tensor_split(3 - r)))
+             for r in range(2)]
+    bsol = lg.fit_logistic_stream(lambda: iter(parts[rank]), n_cols=LG_D, reg=LG_REG, max_iter=3,
+                                  tol=0.0, mesh=mesh)
+    cent = KM_SCALE * torch.randn((P26_KM_K, KM_D), generator=gen, device=DEV)
+    lab = torch.randint(0, P26_KM_K, (n,), generator=gen, device=DEV)
+    xk = cent[lab] + KM_NOISE * torch.randn((n, KM_D), generator=gen, device=DEV)
+    kparts = [xk[r * P26_SMALL_ROWS:(r + 1) * P26_SMALL_ROWS].tensor_split(3 - r) for r in range(2)]
+    ksol = km.fit_kmeans_stream(lambda: iter(kparts[rank]), k=P26_KM_K, n_cols=KM_D, max_iter=5,
+                                seed=0, mesh=mesh)
+    out["digests"]["small"] = _digest(bsol.coefficients, ksol.centers)
+    if rank == 0:
+
+        def small_ref():
+            bref = lg.fit_logistic_stream(lambda: iter(parts[0] + parts[1]), n_cols=LG_D,
+                                          reg=LG_REG, max_iter=3, tol=0.0, device=DEV)
+            kref = km.fit_kmeans_stream(lambda: iter(list(kparts[0]) + list(kparts[1])),
+                                        k=P26_KM_K, n_cols=KM_D, max_iter=5, seed=0, device=DEV)
+            eb = float(abs(bsol.coefficients - bref.coefficients).max()) / float(
+                abs(bref.coefficients).max())
+            ek = float(abs(ksol.centers - kref.centers).max()) / float(abs(kref.centers).max())
+            # Tolerances: float32 sums of the same rows in another order
+            # (about 1e-6 relative) through three Newton / five Lloyd steps.
+            check(eb <= 1e-4 and ek <= 1e-5 and ksol.n_iter == kref.n_iter
+                  and bsol.n_rows == kref.n_rows == n,
+                  f"{tag} binomial stream (d={LG_D}, {n} rows, 3 Newton steps) vs one process: "
+                  f"coefficients err {eb:.3e} of max|w| (tol 1e-4); KMeans stream (d={KM_D}, "
+                  f"k={P26_KM_K}, {ksol.n_iter} Lloyd steps) vs one process: centres err "
+                  f"{ek:.3e} of max|c| (tol 1e-5)")
+
+        after.append(small_ref)
+    out["staged"] = dict(mr.STAGED)
+    on_card = int(torch.device(DEV).type == "cuda")  # a CPU rehearsal stages nothing
+    check(out["staged"] == {"all_reduce": 0, "all_gather": 0, "send_recv": on_card},
+          f"{tag} staged through the host: {out['staged']} (gloo runs the all_reduce and "
+          f"all_gather of CUDA tensors itself; the ring_shift's send/recv is staged)")
+    barrier()
+    distributed.shutdown_cluster()
+    for ref in after:  # rank 0, now a process of its own
+        ref()
+    return out
+
+
+def _await(procs, q, n, timeout_s, what):
+    """Collect n reports from spawned ranks; kill every rank and fail on an
+    error, a non-zero exit or the time limit."""
+    import queue
+
+    deadline = time.perf_counter() + timeout_s
+    got = {}
+    while len(got) < n:
+        try:
+            kind, who, payload = q.get(timeout=1.0)
+        except queue.Empty:
+            dead = [p for p in procs if p.exitcode not in (None, 0)]
+            if dead or time.perf_counter() > deadline:
+                for p in procs:
+                    p.kill()
+                fail(f"{what}: a rank exited with {[p.exitcode for p in procs]} or passed "
+                     f"its {timeout_s} s limit")
+            continue
+        if kind != "ok":
+            for p in procs:
+                p.kill()
+            fail(f"{what}: rank {who} failed: {payload}")
+        got[who] = payload
+    for p in procs:
+        p.join(timeout=60)
+        if p.exitcode != 0:
+            for r in procs:
+                r.kill()
+            fail(f"{what}: a rank exited with {p.exitcode}")
+    return got
+
+
+def _p26_report(res, card, stream_rate) -> dict:
+    """Phase 26b's cross-rank checks and numbers from the ranks' reports;
+    returns the path kernels' launches summed over the ranks."""
+    for key in res[0]["digests"]:
+        check(res[0]["digests"][key] == res[1]["digests"][key],
+              f"26b: both ranks' {key} results bitwise identical ({res[0]['digests'][key]})")
+    launches = {name: res[0]["launches"].get(name, 0) + res[1]["launches"].get(name, 0)
+                for name in P26_KERNELS}
+    print(f"26b: kernel launches summed over the two ranks: {launches}", flush=True)
+    steps = max(P26_SPLIT)
+    s = res[0]["pca_stream"]
+    print(f"26b: two-rank PCA stream (d={D}, k={K}, {N_BATCHES} bf16 batches split "
+          f"{P26_SPLIT[0]} / {P26_SPLIT[1]}, gloo on one card): first fit {s['s']:.3f} s = "
+          f"{P3_ROWS / s['s']:.1f} rows/s, second {s['s_second']:.3f} s = "
+          f"{P3_ROWS / s['s_second']:.1f} rows/s; phase 3 (one process): "
+          + (f"{stream_rate:.1f} rows/s" if stream_rate else "not run") + f"  [{card}]",
+          flush=True)
+    for r in range(2):
+        o = res[r]
+        c_s, c_n = o["pca_stream"]["collective"]
+        l_s, l_n = o["pca_stream"]["lockstep"]
+        print(f"26b rank {r}: {P26_SPLIT[r]} own batches in {steps} lockstep steps; fold kernel "
+              f"{o['fold_ms']:.3f} ms a batch (CUDA events, alone); the (count, colsum, gram) "
+              f"reduce {o['reduce_ms']:.3f} ms a step for {o['reduce_bytes']} bytes (host clock, "
+              f"synced, alone); in the fit the 'collective reduce' spans {c_s * 1e3:.1f} ms over "
+              f"{c_n} calls ({c_s * 1e3 / steps:.2f} ms a step, the fold's device time included: "
+              f"gloo waits for the stream), 'lockstep gather' {l_s * 1e3:.1f} ms over {l_n}; "
+              f"in-memory fit_pca {o['pca_mem_s']:.3f} s, linreg stream "
+              f"{o['linreg_stream_s']:.3f} s, multinomial stream {o['multinomial_s']:.3f} s, "
+              f"exact kneighbors {o['knn_qps']:.1f} q/s; staged collectives {o['staged']}",
+              flush=True)
+    return launches
+
+
+def phase_multiprocess(torch, card, stream_rate) -> dict:
+    """Phase 26: the fits across processes on the card. Returns the path
+    kernels' launches summed over the two ranks of 26b."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")  # never fork a process that holds a CUDA context
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    q = ctx.Queue()
+    p = ctx.Process(target=_p26_nccl, args=(_free_port(), q))
+    p.start()
+    _await([p], q, 1, P26_RANK_TIMEOUT_S, "26a")
+    t_a = time.perf_counter() - t_phase
+
+    # What gloo does with a CUDA tensor's send/recv, in a pair of its own:
+    # a refusal may raise, or kill the pair from gloo's own thread.
+    port = _free_port()
+    probe = [ctx.Process(target=_p26_probe, args=(r, port, q)) for r in range(2)]
+    for p in probe:
+        p.start()
+    seen = {}
+    deadline = time.perf_counter() + 60
+    while (len(seen) < 2 and any(p.is_alive() for p in probe)
+           and time.perf_counter() < deadline):
+        try:
+            r, verdict, detail = q.get(timeout=0.5)
+            seen[r] = (verdict, detail)
+        except Exception:  # noqa: BLE001 - queue.Empty: poll the pair again
+            pass
+    for p in probe:
+        p.join(timeout=10)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    print(f"26: gloo send/recv (batch_isend_irecv) of CUDA tensors, two probe processes: "
+          f"reports {seen or 'none'}, exit codes {[p.exitcode for p in probe]} (negative: "
+          f"killed by that signal; gloo's message, if any, is on stderr above). gloo runs "
+          f"all_reduce, broadcast and all_gather of CUDA tensors itself; the port stages "
+          f"send/recv through the host", flush=True)
+
+    t_b0 = time.perf_counter()
+    port = _free_port()
+    procs = [ctx.Process(target=_p26_rank, args=(r, port, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    res = _await(procs, q, 2, P26_RANK_TIMEOUT_S, "26b")
+    t_b = time.perf_counter() - t_b0
+    launches = _p26_report(res, card, stream_rate)
+    print(f"26: phase seconds {time.perf_counter() - t_phase:.1f} (26a {t_a:.1f}, 26b {t_b:.1f})",
+          flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -4528,6 +5162,14 @@ def main() -> None:
             if any(w in line for w in ("registers", "spill", "Compiling entry", "warning",
                                        "wgmma", "setmaxnreg")):
                 print(f"  ptxas {name}: {line.strip()}")
+
+    if "--multi-process" in sys.argv[1:]:
+        # Phase 26 alone.
+        phase_multiprocess(torch, card, None)
+        print(card)
+        print(f"phase 26 passed ({time.perf_counter() - t_start:.1f} s); --multi-process: "
+              "stopping here", flush=True)
+        return
 
     if "--data-plane" in sys.argv[1:]:
         # Phases 19 to 22, phase 23's Spark part and phase 25 alone, on phase
@@ -4605,6 +5247,7 @@ def main() -> None:
     check(routes_gc["gram_colsum/wgmma"] == N_BATCHES and routes_gc["gram_colsum/ffma"] == 0,
           f"every gram_colsum launch of the stream took the tensor-core route: {routes_gc}")
     print(f"streaming fit: {fit_s:.3f} s, {n_rows / fit_s:.1f} rows/s (fold + finalize)")
+    stream_rate = n_rows / fit_s  # printed beside phase 26's two-rank stream
     device_breakdown(torch, "streaming fit trace (a second fit of the same batches)",
                      lambda: fit_pca_stream(batches, k=K, n_cols=D), top=6)
     count = torch.tensor(float(n_rows), dtype=torch.float64, device=DEV)
@@ -4954,6 +5597,11 @@ def main() -> None:
 
     # -- 25. the forests through the daemon: SparkRandomForest{Classifier,Regressor} --------
     phase_forest_daemon(torch, kernels, config, sp_rate)
+    torch.cuda.empty_cache()
+
+    # -- 26. the fits across processes: an NCCL world of one, two gloo ranks --------------
+    for name, n in phase_multiprocess(torch, card, stream_rate).items():
+        next(row for row in table if row["name"] == name)["multiprocess_launches"] = n
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "

@@ -18,7 +18,9 @@ distance top-k, the IVF probe and the IVF list scan (``ops/csrc/knn.cu``).
 The forests' histograms and the scaler's moments are plain PyTorch, as
 the reference's are plain XLA. A Spark fit reaches the card through the
 data plane (``serve/``): the executors of a ``spark.SparkPCA`` fit feed a
-daemon next to the card.
+daemon next to the card. The fits that the JAX package runs across
+processes run across ``torch.distributed`` ranks, one process and one
+device a rank (``parallel/``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 

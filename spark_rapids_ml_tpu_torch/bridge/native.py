@@ -2,8 +2,9 @@
 
 The port's copy of ``spark_rapids_ml_tpu/bridge/native.py``. The library
 is built from ``native/src/columnar.cpp`` (``make -C native``) and holds
-threaded host copies; the port's Arrow bridge uses two of them, the
-ragged list gather and the concatenation of float64 chunks. It is
+threaded host copies: the port's Arrow bridge uses the ragged list
+gather and the concatenation of float64 chunks, and
+``parallel/sharding.shard_rows`` the float64 → float32 cast. It is
 looked up at ``$SRML_TORCH_NATIVE_LIB``, next to this module and in the
 repository's ``native/build``. When it is absent, or config
 ``use_native_bridge`` is off, every wrapper returns None and the caller
@@ -96,6 +97,9 @@ def _configure(lib: ctypes.CDLL) -> None:
     #                            int n_threads)
     lib.srml_concat_chunks_f64.restype = ctypes.c_int
     lib.srml_concat_chunks_f64.argtypes = [c_p, c_p, c_i64, c_i64, c_p, ctypes.c_int]
+    # int srml_cast_f64_to_f32(const double* src, int64_t n, float* dst, int n_threads)
+    lib.srml_cast_f64_to_f32.restype = ctypes.c_int
+    lib.srml_cast_f64_to_f32.argtypes = [c_p, c_i64, c_p, ctypes.c_int]
     lib.srml_abi_version.restype = ctypes.c_int
     lib.srml_abi_version.argtypes = []
     if lib.srml_abi_version() != 1:
@@ -140,6 +144,27 @@ def flatten_ragged(values: np.ndarray, offsets: np.ndarray, n_cols: int) -> Opti
         _nthreads(),
     )
     return out if rc == 0 else None
+
+
+def cast_f64_to_f32(src: np.ndarray) -> Optional[np.ndarray]:
+    """A float32 copy of a float64 array by the library's threaded cast
+    (round to nearest, as numpy's ``astype``), or None when the library is
+    unavailable or ``src`` is not float64: the caller then casts with
+    numpy."""
+    lib = get_lib()
+    if lib is None or src.dtype != np.float64:
+        return None
+    src = np.ascontiguousarray(src)
+    dst = np.empty(src.shape, dtype=np.float32)
+    rc = lib.srml_cast_f64_to_f32(
+        src.ctypes.data_as(ctypes.c_void_p),
+        src.size,
+        dst.ctypes.data_as(ctypes.c_void_p),
+        _nthreads(),
+    )
+    if rc != 0:
+        return None
+    return dst
 
 
 def concat_chunks_f64(chunks) -> Optional[np.ndarray]:

@@ -3,8 +3,8 @@
 The counterpart of ``spark_rapids_ml_tpu/config.py``, cut to the keys the
 port reads (PCA, KMeans, LinearRegression, LogisticRegression,
 NearestNeighbors and ApproximateNearestNeighbors, the random forests, the
-data-plane daemon's watermarks, the Spark fit policies and the native
-bridge).
+data-plane daemon's watermarks, the Spark fit policies, the native
+bridge, the default mesh's axes and the metrics switch).
 Values are settable programmatically or through environment variables
 prefixed ``SRML_TORCH_`` — a prefix of its own, so the port never inherits
 the JAX package's ``SRML_TPU_*`` settings; the deployment-facing
@@ -94,6 +94,14 @@ _DEFAULTS: Dict[str, Any] = {
     # histogram: over it, the fit refuses at the pass that would allocate
     # it (ForestCapacityError), never a mid-pass out-of-memory. 0 = none.
     "forest_hist_budget_mb": int(os.environ.get("SRML_FOREST_HIST_BUDGET_MB", "256")),
+    # Default mesh axis sizes (parallel/mesh.py). The data axis is the
+    # world of torch.distributed ranks: None = every rank; a model axis
+    # above 1 (the feature-sharded Gram) is refused until its slice lands.
+    "mesh_data_axis": int(_env("MESH_DATA_AXIS", "0")) or None,
+    "mesh_model_axis": int(_env("MESH_MODEL_AXIS", "1")),
+    # Metrics registry master switch (utils/metrics.py): False turns every
+    # counter/gauge/histogram record into an early return.
+    "metrics": _env("METRICS", "true").lower() not in ("0", "false", "off"),
 }
 
 _lock = threading.Lock()
@@ -108,11 +116,44 @@ def get(key: str) -> Any:
         return _conf[key]
 
 
+#: The JAX package's name for the unresolved read; the port's :func:`get`
+#: resolves no "auto" (the dtype helpers below do), so the two are one.
+get_raw = get
+
+
+def peek(key: str) -> Any:
+    """LOCK-FREE read for per-record hot paths (the metrics gate): a single
+    dict lookup, atomic under the GIL, no unknown-key check (None for a
+    key that does not exist)."""
+    return _conf.get(key)
+
+
 def set(key: str, value: Any) -> None:  # noqa: A003 - mirrors SparkConf.set
     with _lock:
         if key not in _conf:
             raise KeyError(f"unknown config key: {key!r} (known: {sorted(_conf)})")
         _conf[key] = value
+
+
+def reset() -> None:
+    """Restore the defaults (mainly for tests)."""
+    with _lock:
+        _conf.clear()
+        _conf.update(_DEFAULTS)
+
+
+def fingerprint() -> str:
+    """Stable short hash of the current config (raw values, as stored).
+    Two processes with different fingerprints run different effective
+    configs — the first thing to check when one rank or replica
+    misbehaves."""
+    import hashlib
+    import json
+
+    with _lock:
+        items = sorted(_conf.items())
+    blob = json.dumps(items, sort_keys=True, default=str)
+    return hashlib.sha256(blob.encode("utf-8")).hexdigest()[:16]
 
 
 def compute_dtype(device) -> torch.dtype:

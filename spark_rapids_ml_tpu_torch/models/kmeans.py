@@ -1,4 +1,4 @@
-"""KMeans — Lloyd's algorithm in PyTorch on one CUDA device.
+"""KMeans — Lloyd's algorithm in PyTorch on a CUDA device.
 
 The port of ``spark_rapids_ml_tpu/models/kmeans.py`` (BASELINE.json
 config #3, "KMeans k=100 on 50M×256").
@@ -18,8 +18,12 @@ config #3, "KMeans k=100 on 50M×256").
 * :func:`fit_kmeans_stream` re-scans a batch source once per iteration
   for datasets larger than the device. As in the JAX package it uses no
   kernel: per batch, ``sq_euclidean``, argmin and ``index_add_`` sums,
-  which also give the running cost. Multi-host streaming is not part of
-  this slice.
+  which also give the running cost. Across ranks (``mesh=``, a started
+  ``torch.distributed`` world) each rank scans its own stream in lockstep,
+  the pass statistics are summed over the ranks once a pass, and the init
+  sample is gathered from every rank's stream head, so every rank
+  computes the same centres. The in-memory fit stays single-process, as
+  in the JAX package (its init samples local data).
 
 Init is host numpy: "k-means++" (D² seeding on a ≤ 65,536-row sample) or
 "random", copied from the JAX package so that the same seed gives the same
@@ -56,7 +60,16 @@ from spark_rapids_ml_tpu_torch.core.params import (
 from spark_rapids_ml_tpu_torch.core.persistence import MLReadable, MLWritable
 from spark_rapids_ml_tpu_torch.ops import kernels
 from spark_rapids_ml_tpu_torch.ops.distances import first_argmin, sq_euclidean
-from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device, to_device
+from spark_rapids_ml_tpu_torch.ops.gram import reduce_stats
+from spark_rapids_ml_tpu_torch.parallel.distributed import process_allgather, row_counts
+from spark_rapids_ml_tpu_torch.parallel.mesh import default_mesh
+from spark_rapids_ml_tpu_torch.parallel.sharding import (
+    as_tensor,
+    lockstep_batches,
+    require_single_process,
+    resolve_device,
+    to_device,
+)
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
 INIT_SAMPLE_ROWS = 65536  # kmeans.py:86
@@ -188,6 +201,7 @@ def fit_kmeans(
     float32 compute and float32 accumulators every iteration is one
     ``lloyd_step`` launch and the final cost one ``assign_min_dist``
     launch."""
+    require_single_process("fit_kmeans (k-means++/random init samples local data)")
     dev = resolve_device(device)
     n, d = x.shape
     if not 0 < k <= n:
@@ -244,6 +258,17 @@ def _stream_update(state: tuple, centers: torch.Tensor, xc: torch.Tensor, cd, ad
     cost.add_(torch.sum(min_d2))
 
 
+def _gather_sample(local: torch.Tensor, per: int, n_cols: int) -> torch.Tensor:
+    """Every rank's init-sample rows (at most ``per``), concatenated in rank
+    order over the control plane: the row counts, then each rank's rows
+    padded to ``per``. A host float32 tensor."""
+    counts = row_counts(local.shape[0])
+    buf = np.zeros((per, n_cols), np.float32)
+    buf[: local.shape[0]] = local.cpu().numpy()
+    gathered = process_allgather(buf)
+    return torch.from_numpy(np.concatenate([gathered[p, :c] for p, c in enumerate(counts)]))
+
+
 def fit_kmeans_stream(
     batch_source,
     k: int,
@@ -255,6 +280,7 @@ def fit_kmeans_stream(
     checkpoint_path: Optional[str] = None,
     init_sample_rows: int = INIT_SAMPLE_ROWS,
     device=None,
+    mesh=None,
 ) -> KMeansSolution:
     """Lloyd's algorithm over a re-scannable stream of row batches — the
     capacity path for datasets larger than the device.
@@ -269,17 +295,28 @@ def fit_kmeans_stream(
     The initial centres come from a sample of the stream's first
     ``init_sample_rows`` rows. With ``checkpoint_path``, the centres are
     persisted after every iteration and an interrupted fit resumes at the
-    saved iteration; the file is removed on success."""
+    saved iteration; the file is removed on success.
+
+    **Across ranks** (``mesh`` of a started world): ``batch_source``
+    yields THIS rank's stream; scans run in lockstep (uneven stream
+    lengths are fine), each pass's statistics are summed over the ranks,
+    and the init sample is ``ceil(init_sample_rows / ranks)`` rows of
+    every rank's stream head, gathered in rank order, so every rank
+    computes the same centres. Rank 0 alone writes the checkpoints, which
+    every rank must see (a shared filesystem)."""
     if k <= 0:
         raise ValueError(f"k = {k} must be > 0")
     if init not in ("k-means++", "random"):
         raise ValueError(f"unknown init mode {init!r} (k-means++|random)")
-    dev = resolve_device(device)
+    mesh = mesh or default_mesh()
+    dev = resolve_device(device, mesh)
     cd, ad = config.compute_dtype(dev), config.accum_dtype()
 
     start_iter = 0
     centers = None
     restored = ckpt.load_state(checkpoint_path) if checkpoint_path else None
+    if checkpoint_path:
+        ckpt.require_consistent_visibility(restored)
     if restored is not None:
         arrays, meta = restored
         if meta.get("n_cols") != n_cols or meta.get("k") != k:
@@ -291,17 +328,21 @@ def fit_kmeans_stream(
         start_iter = int(meta["it"])
     if centers is None:
         rng = np.random.default_rng(seed)
+        per = -(-init_sample_rows // mesh.size) if mesh.collective else init_sample_rows
         head = []
         got = 0
         for batch in batch_source():
             head.append(to_device(batch, dev, torch.float32))
             got += head[-1].shape[0]
-            if got >= init_sample_rows:
+            if got >= per:
                 break
-        if not head:
-            raise ValueError("batch_source yielded no batches")
-        sample = torch.cat(head)[:init_sample_rows]
+        sample = (torch.cat(head)[:per] if head
+                  else torch.zeros((0, n_cols), dtype=torch.float32, device=dev))
         del head
+        if mesh.collective:
+            sample = _gather_sample(sample, per, n_cols).to(dev)
+        if sample.shape[0] == 0:
+            raise ValueError("batch_source yielded no batches")
         if k > sample.shape[0]:
             raise ValueError(
                 f"k = {k} exceeds the {sample.shape[0]}-row init sample; "
@@ -311,17 +352,21 @@ def fit_kmeans_stream(
             centers = _init_centers(sample, k, rng, init)
         del sample
 
+    def check(x) -> Optional[str]:
+        if x.ndim != 2 or x.shape[1] != n_cols:
+            return f"batch has shape {tuple(x.shape)}, expected (m, {n_cols})"
+        return None
+
     def scan(centers_dev):
         state = stream_zero_state(k, n_cols, ad, dev)
         n_rows = 0
-        for i, batch in enumerate(batch_source()):
+        for batch in lockstep_batches(batch_source(), n_cols, check):
             xb = to_device(batch, dev, torch.float32)
-            if xb.dim() != 2 or xb.shape[1] != n_cols:
-                raise ValueError(
-                    f"batch {i} has shape {tuple(xb.shape)}, expected (m, {n_cols})"
-                )
             n_rows += xb.shape[0]
-            _stream_update(state, centers_dev, xb.to(cd), cd, ad)
+            if xb.shape[0]:
+                _stream_update(state, centers_dev, xb.to(cd), cd, ad)
+        if mesh.collective:
+            return reduce_stats(state, mesh), int(row_counts(n_rows).sum())
         return state, n_rows
 
     n_true = 0
@@ -333,7 +378,7 @@ def fit_kmeans_stream(
             centers_dev, moved2 = apply_lloyd_update(sums, counts, centers_dev)
             moved2 = float(moved2)
             n_iter = it + 1
-            if checkpoint_path:
+            if checkpoint_path and ckpt.is_writer():
                 ckpt.save_state(
                     checkpoint_path,
                     {"centers": centers_dev.cpu().numpy()},
@@ -343,7 +388,7 @@ def fit_kmeans_stream(
                 break
         # Exact cost at the final centres (one cost-only scan).
         (_, _, cost), n_true = scan(centers_dev)
-    if checkpoint_path and os.path.exists(checkpoint_path):
+    if checkpoint_path and ckpt.is_writer() and os.path.exists(checkpoint_path):
         ckpt.discard_state(checkpoint_path)
     return KMeansSolution(
         centers=centers_dev.cpu().numpy().astype(np.float64),

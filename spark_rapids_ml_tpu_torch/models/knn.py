@@ -1,4 +1,4 @@
-"""Nearest neighbours in PyTorch on one CUDA device: exact brute force and
+"""Nearest neighbours in PyTorch on a CUDA device: exact brute force and
 IVF-Flat (approximate).
 
 The port of ``spark_rapids_ml_tpu/models/knn.py`` (BASELINE.json config #5,
@@ -28,10 +28,16 @@ what the tests hold the port to). Ties go to the lowest position.
 Output convention follows spark-rapids-ml's NearestNeighbors:
 ``kneighbors(queries) -> (distances, indices)`` as numpy arrays.
 
+Exact kneighbors runs across ranks (``mesh=``, a started
+``torch.distributed`` world): each rank indexes its own rows, whose global
+ids start after the lower ranks' rows; every rank passes the same queries,
+runs its ``dist_topk`` and the pools meet in
+``parallel/mapreduce.reduce_topk``.
+
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a CUDA device they raise rather than run on the CPU. Not in this
-slice: the sharded index and query (``shard_index``), multi-process id
-ranges, the device-side index build and the serving plans (ROADMAP.md).
+slice: the sharded IVF index and query (``shard_index``), the device-side
+index build and the serving plans (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -57,6 +63,9 @@ from spark_rapids_ml_tpu_torch.models.kmeans import _host_rows, fit_kmeans
 from spark_rapids_ml_tpu_torch.ops import kernels
 from spark_rapids_ml_tpu_torch.ops import selection as sel
 from spark_rapids_ml_tpu_torch.ops.distances import dist_topk_applicable, sq_euclidean
+from spark_rapids_ml_tpu_torch.parallel import mapreduce as mr
+from spark_rapids_ml_tpu_torch.parallel.distributed import row_counts
+from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, default_mesh
 from spark_rapids_ml_tpu_torch.parallel.sharding import (
     as_tensor,
     bucket_rows,
@@ -202,14 +211,17 @@ class _NNParams(HasFeaturesCol, HasSeed):
 class NearestNeighbors(Estimator, _NNParams, MLWritable, MLReadable):
     """Exact brute-force KNN; ``fit`` indexes the database.
 
-    ``device``: where queries run; None → the card."""
+    ``device``: where queries run; None → the card. ``mesh``: the ranks
+    the index spans (None → ``default_mesh()``; see
+    :meth:`NearestNeighborsModel.kneighbors`)."""
 
     _uid_prefix = "NearestNeighbors"
     _persist_class = "spark_rapids_ml_tpu.models.knn.NearestNeighbors"
 
-    def __init__(self, uid=None, device=None):
+    def __init__(self, uid=None, device=None, mesh=None):
         super().__init__(uid=uid)
         self._device = device
+        self._mesh = mesh
 
     def setK(self, value: int) -> "NearestNeighbors":
         return self._set(k=value)
@@ -219,10 +231,11 @@ class NearestNeighbors(Estimator, _NNParams, MLWritable, MLReadable):
 
     def _copy_extra_state(self, source):
         self._device = getattr(source, "_device", None)
+        self._mesh = getattr(source, "_mesh", None)
 
     def _fit(self, dataset) -> "NearestNeighborsModel":
         x = as_matrix(dataset, self.getFeaturesCol())
-        model = NearestNeighborsModel(database=x, device=self._device)
+        model = NearestNeighborsModel(database=x, device=self._device, mesh=self._mesh)
         model.uid = self.uid
         self._copy_params_to(model)
         return model
@@ -230,19 +243,23 @@ class NearestNeighbors(Estimator, _NNParams, MLWritable, MLReadable):
 
 class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
     """The indexed database: a host array, or a tensor (kept where it lies).
+    Across ranks, THIS rank's rows.
 
-    ``device``: where queries run; None → the card."""
+    ``device``: where queries run; None → the mesh's rank device, else the
+    card."""
 
     _uid_prefix = "NearestNeighborsModel"
     _persist_class = "spark_rapids_ml_tpu.models.knn.NearestNeighborsModel"
 
-    def __init__(self, database=None, uid=None, device=None):
+    def __init__(self, database=None, uid=None, device=None, mesh=None):
         super().__init__(uid=uid)
         if database is not None and not isinstance(database, torch.Tensor):
             database = np.asarray(database)
         self.database = database
         self._device = device
+        self._mesh = mesh
         self._index_cache: dict = {}
+        self._n_global: Optional[int] = None
 
     def _model_data(self):
         return {"database": _host_rows(self.database)}
@@ -254,52 +271,72 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
     def _copy_extra_state(self, source):
         self.database = source.database
         self._device = getattr(source, "_device", None)
+        self._mesh = getattr(source, "_mesh", None)
         self._index_cache = {}
 
-    def _ensure_index(self, dev, cd):
+    def _ensure_index(self, dev, cd, mesh=None):
         """(db, row ids, mask, r2) on ``dev``, the db in the compute dtype
         and r2 its masked f32 row norms (``kernels.dist_topk_norms``), so an
-        exact query does not recompute them. Only the cosine metric changes
-        the indexed data (the normalized, augmented copy), so the other three
-        share one copy; the cache is keyed by that representation, the
-        device and the dtype."""
+        exact query does not recompute them; ``_n_global`` is then the
+        index's global row count. Across ranks (a ``mesh`` of a started
+        world) the ids of this rank's rows start after the lower ranks'
+        rows, their counts gathered once. Only the cosine metric changes
+        the indexed data (the normalized, augmented copy), so the other
+        three share one copy; the cache is keyed by that representation,
+        the device, the dtype and the world."""
         rep = "cosine" if self.getMetric() == "cosine" else "raw"
-        key = (rep, str(dev), cd)
+        world = None if mesh is None else mesh.world
+        key = (rep, str(dev), cd, world)
         if key not in self._index_cache:
             self._index_cache.clear()  # one resident copy at a time
             db = self.database
             if rep == "cosine":
                 db = _normalized_rows(db, zero_slot=0)
             n = db.shape[0]
+            lo, n_global = 0, n
+            if mesh is not None and mesh.collective:
+                counts = row_counts(n)
+                lo, n_global = int(counts[: mesh.world.rank].sum()), int(counts.sum())
             rows = to_device(db, dev, cd).contiguous()
             mask = torch.ones((n,), dtype=torch.float32, device=dev)
-            self._index_cache[key] = (rows, torch.arange(n, dtype=torch.int32, device=dev), mask,
-                                      kernels.dist_topk_norms(rows, mask))
+            ids = torch.arange(lo, lo + n, dtype=torch.int32, device=dev)
+            self._index_cache[key] = (rows, ids, mask, kernels.dist_topk_norms(rows, mask))
+            self._n_global = n_global
         return self._index_cache[key]
 
     def kneighbors(self, queries, k: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
         """(distances (q, k), indices (q, k) int64) under ``metric``:
         euclidean (default) / sqeuclidean / cosine ascending, or
-        inner_product DESCENDING (the "distances" are the similarities)."""
+        inner_product DESCENDING (the "distances" are the similarities).
+
+        Across ranks every rank passes the SAME queries and gets the same
+        answer; the indices are global row positions (the ranks' rows in
+        rank order), and k may reach the global row count."""
         if self.database is None:
             raise RuntimeError("model has no database (unfitted?)")
         k = self.getK() if k is None else k
-        dev = resolve_device(self._device)
-        n = self.database.shape[0]
-        if not 0 < k <= n:
-            raise ValueError(f"k = {k} out of range (0, numRows = {n}]")
+        mesh = self._mesh or default_mesh()
+        dev = resolve_device(self._device, mesh)
         metric = self.getMetric()
         cd, ad = config.compute_dtype(dev), config.accum_dtype()
-        db, row_ids, mask, r2 = self._ensure_index(dev, cd)
+        db, row_ids, mask, r2 = self._ensure_index(dev, cd, mesh)
+        n = self._n_global
+        if not 0 < k <= n:
+            raise ValueError(f"k = {k} out of range (0, numRows = {n}]")
         if metric == "cosine":
             queries = _normalized_rows(queries, zero_slot=1)
         qt = to_device(queries, dev, cd)
         q = qt.shape[0]
         with trace_span("knn query"):
-            d2, idx = exact_knn(
-                db, row_ids, mask, _pad_queries(qt).contiguous(), k,
-                "ip" if metric == "inner_product" else "l2", ad, r2,
-            )
+            qp = _pad_queries(qt).contiguous()
+            if db.shape[0]:
+                d2, idx = exact_knn(db, row_ids, mask, qp, k,
+                                    "ip" if metric == "inner_product" else "l2", ad, r2)
+            else:  # a rank without rows brings an empty pool
+                d2 = torch.empty((qp.shape[0], 0), dtype=ad, device=dev)
+                idx = torch.empty((qp.shape[0], 0), dtype=torch.int32, device=dev)
+            if mesh.collective:
+                d2, idx = mr.reduce_topk(d2, idx, k, DATA_AXIS, mesh=mesh)
             d2, idx = d2[:q].cpu().numpy(), idx[:q].cpu().numpy().astype(np.int64)
         return _finish(metric, d2, idx)
 

@@ -1,4 +1,5 @@
-"""LinearRegression via the normal equations, in PyTorch on one CUDA device.
+"""LinearRegression via the normal equations, in PyTorch on a CUDA device,
+or on one per rank.
 
 The port of ``spark_rapids_ml_tpu/models/linear_regression.py``
 (BASELINE.json config #4). One pass over the rows computes the fused
@@ -18,6 +19,11 @@ Solver semantics (objective matches Spark ML's LinearRegression with
 * α > 0 (lasso / elastic net): FISTA on the normal-equation statistics,
   step size 1/L from 50 power-iteration steps, soft-threshold prox.
 * fitIntercept: solved on centred statistics; intercept = ȳ − x̄·w.
+
+Across ranks (``mesh=``, a started ``torch.distributed`` world) each rank
+computes its own rows' statistics with the same kernel and the six meet
+in an ``all_reduce`` before the solve, which every rank then runs on the
+same replicated statistics.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a CUDA device they raise rather than run on the CPU.
@@ -47,6 +53,9 @@ from spark_rapids_ml_tpu_torch.core.params import (
 from spark_rapids_ml_tpu_torch.core.persistence import MLReadable, MLWritable
 from spark_rapids_ml_tpu_torch.ops import kernels
 from spark_rapids_ml_tpu_torch.ops.linalg import solve_spd
+from spark_rapids_ml_tpu_torch.ops.gram import reduce_stats
+from spark_rapids_ml_tpu_torch.parallel.distributed import row_counts
+from spark_rapids_ml_tpu_torch.parallel.mesh import default_mesh
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device, to_device
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
@@ -100,14 +109,27 @@ def init_normal_eq_stats(n_cols: int, accum_dtype=None, device=None) -> NormalEq
     return z(n_cols, n_cols), z(n_cols), z(n_cols), z(), z(), z()
 
 
-def streaming_normal_eq_update(state: NormalEqStats, x, y, mask=None) -> NormalEqStats:
+def streaming_normal_eq_update(state: NormalEqStats, x, y, mask=None,
+                               mesh=None) -> NormalEqStats:
     """Fold one batch (x (m, d), y (m,), mask (m,) of {0,1} or None) into
     ``state`` IN PLACE — the analogue of the JAX package's donated update.
 
     With bfloat16/float32 compute and a float32 state this is ONE launch
     of the seeded ``linreg_stats`` kernel per batch. Host arrays are
     placed on the state's device; x should arrive in the compute dtype
-    already (the ingest casts once)."""
+    already (the ingest casts once).
+
+    With a ``mesh`` of a started world, x is this rank's batch of the
+    lockstep and ``state`` the replicated state: the batch folds into a
+    zero partial, which is summed over the ranks and then added (a rank
+    without rows in this step adds a zero partial, with no launch)."""
+    if mesh is not None and mesh.collective:
+        part = init_normal_eq_stats(state[0].shape[0], state[0].dtype, state[0].device)
+        if x.shape[0]:
+            streaming_normal_eq_update(part, x, y, mask)
+        for t, p in zip(state, reduce_stats(part, mesh)):
+            t.add_(p)
+        return state
     dev = state[0].device
     cd = config.compute_dtype(dev)
     xc = to_device(x, dev, cd)
@@ -197,19 +219,28 @@ def fit_linear_regression(
     max_iter: int = 500,
     tol: float = 1e-6,
     device=None,
+    mesh=None,
 ) -> LinearSolution:
     """Fit on an in-memory (n, d) matrix and (n,) labels (numpy arrays or
     tensors): one statistics pass (one ``linreg_stats`` launch), then the
-    solve. ``device``: None → the card."""
-    dev = resolve_device(device)
+    solve. ``device``: None → the mesh's rank device, else the card.
+    ``mesh``: None → ``default_mesh()``; across ranks (x, y) are THIS
+    rank's rows, the statistics are summed over the ranks and ``n_rows``
+    is the global count."""
+    mesh = mesh or default_mesh()
+    dev = resolve_device(device, mesh)
     if x.shape[0] != y.reshape(-1).shape[0]:
         raise ValueError(f"X rows {x.shape[0]} != y rows {y.reshape(-1).shape[0]}")
     with trace_span("normal equations"):
         xs = to_device(x, dev, config.compute_dtype(dev))
-        stats = normal_eq_stats(xs, as_tensor(y).reshape(-1))
-    return finalize_normal_eq_stats(
-        stats, reg, elastic_net, fit_intercept, max_iter, tol, int(x.shape[0])
-    )
+        if mesh.collective:
+            stats = init_normal_eq_stats(xs.shape[1], device=dev)
+            streaming_normal_eq_update(stats, xs, as_tensor(y).reshape(-1), mesh=mesh)
+            n_rows = int(row_counts(xs.shape[0]).sum())
+        else:
+            stats = normal_eq_stats(xs, as_tensor(y).reshape(-1))
+            n_rows = int(x.shape[0])
+    return finalize_normal_eq_stats(stats, reg, elastic_net, fit_intercept, max_iter, tol, n_rows)
 
 
 def finalize_normal_eq_stats(
@@ -284,17 +315,20 @@ class _LinearRegressionParams(
 class LinearRegression(Estimator, _LinearRegressionParams, MLWritable, MLReadable):
     """Spark-ML-shaped linear regression on the normal-equations path.
 
-    ``device``: where the fit runs; None → the card."""
+    ``device``: where the fit runs; None → the card. ``mesh``: the ranks the
+    fit spans (None → ``default_mesh()``; see :func:`fit_linear_regression`)."""
 
     _uid_prefix = "LinearRegression"
     _persist_class = "spark_rapids_ml_tpu.models.linear_regression.LinearRegression"
 
-    def __init__(self, uid=None, device=None):
+    def __init__(self, uid=None, device=None, mesh=None):
         super().__init__(uid=uid)
         self._device = device
+        self._mesh = mesh
 
     def _copy_extra_state(self, source):
         self._device = getattr(source, "_device", None)
+        self._mesh = getattr(source, "_mesh", None)
 
     def _fit(self, dataset) -> "LinearRegressionModel":
         x = as_matrix(dataset, self.getFeaturesCol())
@@ -308,6 +342,7 @@ class LinearRegression(Estimator, _LinearRegressionParams, MLWritable, MLReadabl
             max_iter=self.getMaxIter(),
             tol=self.getTol(),
             device=self._device,
+            mesh=self._mesh,
         )
         model = LinearRegressionModel(
             coefficients=sol.coefficients, intercept=sol.intercept, device=self._device

@@ -1,5 +1,5 @@
 """LogisticRegression — full-batch Newton (IRLS) and multinomial MM-Newton,
-in PyTorch on one CUDA device.
+in PyTorch on a CUDA device.
 
 The port of ``spark_rapids_ml_tpu/models/logistic_regression.py``
 (BASELINE.json config #4, the normal-equations family on Criteo-1TB).
@@ -36,7 +36,13 @@ unpenalized, as in Spark.
 * The binary stream (:func:`fit_logistic_stream`) uses no kernel, as the
   JAX package's streaming update uses none: plain products in the
   accumulator dtype per batch. Batches are placed as float32, as there.
-  Multi-host lockstep streams are not part of this slice.
+* Both streams run across ranks (``mesh=``, a started
+  ``torch.distributed`` world): each rank scans its own stream in lockstep
+  (``parallel/sharding.lockstep_labeled_batches``: the label and shape
+  checks raise on every rank together), the pass statistics are summed
+  over the ranks once a pass, and every rank takes the same step from the
+  same replicated sums. The in-memory fit stays single-process, as in the
+  JAX package (it infers the classes from local labels).
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a CUDA device they raise rather than run on the CPU.
@@ -68,7 +74,16 @@ from spark_rapids_ml_tpu_torch.core.params import (
 from spark_rapids_ml_tpu_torch.core.persistence import MLReadable, MLWritable
 from spark_rapids_ml_tpu_torch.ops import kernels
 from spark_rapids_ml_tpu_torch.ops.linalg import solve_newton_system
-from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device, to_device
+from spark_rapids_ml_tpu_torch.ops.gram import reduce_stats
+from spark_rapids_ml_tpu_torch.parallel.distributed import row_counts
+from spark_rapids_ml_tpu_torch.parallel.mesh import default_mesh
+from spark_rapids_ml_tpu_torch.parallel.sharding import (
+    as_tensor,
+    lockstep_labeled_batches,
+    require_single_process,
+    resolve_device,
+    to_device,
+)
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
 #: (gw, gb, hww, hwb, hbb, loss, n) raw sums of one pass, in the accumulator dtype.
@@ -320,6 +335,7 @@ def fit_logistic_regression(
     """Fit on an in-memory (n, d) matrix and (n,) labels 0..C−1 (numpy
     arrays or tensors, possibly already on the card). Two classes: binary
     Newton-IRLS; more: multinomial MM-Newton. ``device``: None → the card."""
+    require_single_process("fit_logistic_regression (n_classes inferred from local labels)")
     dev = resolve_device(device)
     y = as_tensor(y).reshape(-1)
     if x.shape[0] != y.shape[0]:
@@ -387,30 +403,41 @@ def validate_multiclass_labels(y, n_classes: int) -> None:
 
 
 def _scan(batch_source, n_cols: int, dev, fold, check) -> int:
-    """One pass over the source: ``check(y)`` of each batch's labels as
-    given (unless it is None), then the (x, y) batch placed on ``dev`` as
-    float32 (the JAX package's placement) and folded by ``fold(x, y)``.
-    Returns the row count."""
-    n_rows = 0
-    for i, (xb, yb) in enumerate(batch_source()):
+    """One pass over the source in lockstep across ranks
+    (:func:`~spark_rapids_ml_tpu_torch.parallel.sharding.lockstep_labeled_batches`):
+    each batch's shapes, and ``check(y)`` of its labels as given (unless it
+    is None), are validated on every rank together; then the (x, y) batch
+    is placed on ``dev`` as float32 (the JAX package's placement) and
+    folded by ``fold(x, y)`` unless it is empty. Returns this rank's row
+    count."""
+
+    def validate(x, y) -> Optional[str]:
+        if x.ndim != 2 or x.shape[1] != n_cols or x.shape[0] != y.shape[0]:
+            return (f"batch has x {tuple(x.shape)} and y {tuple(y.shape)}, "
+                    f"expected (m, {n_cols}) and (m,)")
         if check is not None:
-            check(yb)
+            try:
+                check(y)
+            except ValueError as e:
+                return str(e)
+        return None
+
+    n_rows = 0
+    for xb, yb in lockstep_labeled_batches(batch_source(), n_cols, validate):
         xt = to_device(xb, dev, torch.float32)
         yt = to_device(yb, dev, torch.float32).reshape(-1)
-        if xt.dim() != 2 or xt.shape[1] != n_cols or xt.shape[0] != yt.shape[0]:
-            raise ValueError(
-                f"batch {i} has x {tuple(xt.shape)} and y {tuple(yt.shape)}, "
-                f"expected (m, {n_cols}) and (m,)"
-            )
         n_rows += xt.shape[0]
-        fold(xt, yt)
+        if xt.shape[0]:
+            fold(xt, yt)
     return n_rows
 
 
 def _restore(checkpoint_path, expect: dict):
     """(arrays, iteration) of a checkpoint whose metadata match ``expect``,
-    or None when there is none."""
+    or None when there is none; every rank must see the same."""
     restored = ckpt.load_state(checkpoint_path) if checkpoint_path else None
+    if checkpoint_path:
+        ckpt.require_consistent_visibility(restored)
     if restored is None:
         return None
     arrays, meta = restored
@@ -422,18 +449,21 @@ def _restore(checkpoint_path, expect: dict):
 
 
 def _run_stream(batch_source, n_cols: int, dev, zero_state, fold, check, step, w, b,
-                reg: float, start_iter: int, max_iter: int, tol: float, save):
+                reg: float, start_iter: int, max_iter: int, tol: float, save, mesh):
     """The Newton loop both streams share: one scan per iteration into
     ``zero_state()`` through ``fold(state, w, b, x, y)``, labels checked by
     ``check(y)`` on the first scan only (the data are fixed across scans),
-    then ``step(state, w, b) → (w, b, delta)`` and ``save(w, b, it)``
-    (None: no checkpoint). Returns (w, b, n_iter, n_rows, loss, history),
-    the loss at the last iterate a scan evaluated."""
+    the pass sums summed over the ranks of a started world, then
+    ``step(state, w, b) → (w, b, delta)`` and ``save(w, b, it)`` (None: no
+    checkpoint; rank 0 alone writes). Returns (w, b, n_iter, n_rows, loss,
+    history), the loss at the last iterate a scan evaluated."""
 
     def scan(w, b, check):
         state = zero_state()
-        return state, _scan(batch_source, n_cols, dev,
-                            lambda xt, yt: fold(state, w, b, xt, yt), check)
+        n = _scan(batch_source, n_cols, dev, lambda xt, yt: fold(state, w, b, xt, yt), check)
+        if mesh.collective:
+            return reduce_stats(state, mesh), int(row_counts(n).sum())
+        return state, n
 
     n_rows, n_iter, loss, history = 0, start_iter, float("nan"), []
     for it in range(start_iter, max_iter):
@@ -442,7 +472,7 @@ def _run_stream(batch_source, n_cols: int, dev, zero_state, fold, check, step, w
         history.append(loss)
         w, b, delta = step(state, w, b)
         n_iter = it + 1
-        if save is not None:
+        if save is not None and ckpt.is_writer():
             save(w, b, n_iter)
         if float(delta) <= tol:
             break
@@ -463,6 +493,7 @@ def fit_logistic_stream(
     tol: float = 1e-6,
     checkpoint_path: Optional[str] = None,
     device=None,
+    mesh=None,
 ) -> LogisticSolution:
     """Binary Newton-IRLS over a re-scannable stream of (x, y) batches —
     the capacity path for labelled data larger than the device.
@@ -474,8 +505,15 @@ def fit_logistic_stream(
     scan evaluated (one iteration stale). With ``checkpoint_path``, (w, b)
     persist after every iteration in the JAX package's layout, so either
     package resumes the other's checkpoint; the file is removed on
-    success."""
-    dev = resolve_device(device)
+    success.
+
+    **Across ranks** (``mesh`` of a started world): ``batch_source``
+    yields THIS rank's (x, y) stream; scans run in lockstep (uneven
+    lengths are fine; a bad label raises on every rank), each pass's sums
+    are summed over the ranks, and rank 0 alone writes the checkpoints,
+    which every rank must see."""
+    mesh = mesh or default_mesh()
+    dev = resolve_device(device, mesh)
     ad = config.accum_dtype()
     reg, fit_intercept = float(reg), bool(fit_intercept)
     w = torch.zeros((n_cols,), dtype=ad, device=dev)
@@ -498,8 +536,8 @@ def fit_logistic_stream(
         w, b, n_iter, n_rows, loss, history = _run_stream(
             batch_source, n_cols, dev, lambda: stream_zero_state(n_cols, ad, dev),
             stream_grad_hess_update, validate_binary_labels, step, w, b, reg, start_iter,
-            int(max_iter), float(tol), save if checkpoint_path else None)
-    if checkpoint_path:
+            int(max_iter), float(tol), save if checkpoint_path else None, mesh)
+    if checkpoint_path and ckpt.is_writer():
         ckpt.discard_state(checkpoint_path)
     return LogisticSolution(
         coefficients=w.cpu().numpy().astype(np.float64),
@@ -521,16 +559,19 @@ def fit_multinomial_stream(
     tol: float = 1e-6,
     checkpoint_path: Optional[str] = None,
     device=None,
+    mesh=None,
 ) -> LogisticSolution:
     """Multinomial softmax over a re-scannable stream of (x, y) batches —
     the multiclass peer of :func:`fit_logistic_stream`, one scan per
     MM-Newton iteration (:func:`softmax_stats_update`: one
     ``softmax_curvature`` launch per batch with float32 accumulators).
     Labels are integers in [0, n_classes). Checkpoints hold (W (d, C), b)
-    in the JAX package's layout."""
+    in the JAX package's layout. Across ranks it runs as
+    :func:`fit_logistic_stream` does."""
     if n_classes < 2:
         raise ValueError("n_classes must be >= 2")
-    dev = resolve_device(device)
+    mesh = mesh or default_mesh()
+    dev = resolve_device(device, mesh)
     ad = config.accum_dtype()
     reg, fit_intercept = float(reg), bool(fit_intercept)
     W = torch.zeros((n_cols, n_classes), dtype=ad, device=dev)
@@ -552,8 +593,8 @@ def fit_multinomial_stream(
             lambda: stream_softmax_zero_state(n_cols, n_classes, ad, dev),
             softmax_stats_update, lambda yt: validate_multiclass_labels(yt, n_classes),
             lambda state, W, b: _softmax_step(state, W, b, reg, fit_intercept), W, b, reg,
-            start_iter, int(max_iter), float(tol), save if checkpoint_path else None)
-    if checkpoint_path:
+            start_iter, int(max_iter), float(tol), save if checkpoint_path else None, mesh)
+    if checkpoint_path and ckpt.is_writer():
         ckpt.discard_state(checkpoint_path)
     return LogisticSolution(
         coefficients=W.T.cpu().numpy().astype(np.float64),  # (C, d)

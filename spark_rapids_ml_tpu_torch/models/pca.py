@@ -1,5 +1,5 @@
 """Principal Component Analysis — the reference's one shipped algorithm,
-in PyTorch on one CUDA device.
+in PyTorch on a CUDA device, or on one per rank.
 
 The port of ``spark_rapids_ml_tpu/models/pca.py``. Reference call stack
 (SURVEY.md §3.1): ``PCA.fit`` (PCA.scala:27-37) → ``RapidsPCA.fit``
@@ -13,6 +13,13 @@ masked ``gram`` kernel, the streaming :func:`fit_pca_stream` through one
 seeded ``gram_colsum`` launch per batch. The eigensolve then runs in
 float64: ``torch.linalg.eigh`` on the fit's device (config ``finalize``
 "auto", which resolves to "device") or numpy on the host ("host").
+
+Across ranks (``mesh=``, a started ``torch.distributed`` world: one
+process, one device a rank) each rank passes its own rows or stream: each
+rank's statistics come from the same kernel and meet in an ``all_reduce``
+(``ops/gram.py``), the stream runs in lockstep
+(``parallel/sharding.lockstep_batches``), every rank finalizes the same
+replicated state, and rank 0 alone writes the checkpoints.
 
 Transform matches ``RapidsPCAModel.transform`` (RapidsPCA.scala:122-166):
 y = x @ pc with NO re-centring; the principal components stay resident on
@@ -49,8 +56,11 @@ from spark_rapids_ml_tpu_torch.ops.eigh import (
     pca_from_gram_host,
     pca_from_gram_randomized,
 )
+from spark_rapids_ml_tpu_torch.parallel.distributed import row_counts
+from spark_rapids_ml_tpu_torch.parallel.mesh import default_mesh
 from spark_rapids_ml_tpu_torch.parallel.sharding import (
     as_tensor,
+    lockstep_batches,
     resolve_device,
     to_device,
 )
@@ -129,24 +139,34 @@ def fit_pca(
     mean_center: bool = True,
     solver: Optional[str] = None,
     device=None,
+    mesh=None,
 ) -> PCASolution:
     """Fit PCA on an in-memory (n, d) matrix (numpy array or tensor).
 
     The Gram is the masked ``gram`` kernel on CUDA (bfloat16 or float32
     compute). ``solver``: None → config ``solver``; "full" = exact eigh,
     "randomized" = subspace iteration (:func:`pca_from_gram_randomized`).
-    ``device``: None → the card."""
-    dev = resolve_device(device)
+    ``device``: None → the mesh's rank device, else the card. ``mesh``:
+    None → ``default_mesh()``; across ranks ``x`` is THIS rank's rows
+    (``parallel.distributed.process_local_rows``), the statistics are
+    summed over the ranks and ``n_rows`` is the global count."""
+    mesh = mesh or default_mesh()
+    dev = resolve_device(device, mesh)
     solver = _resolve_solver(solver)
     d = x.shape[1]
     _check_k(k, d)
     gram_ops.require_gram_capacity(d)
     with trace_span("compute cov"):  # phase names kept from the reference
         xs = to_device(x, dev)
-        count, colsum, g = gram_ops.local_stats(xs)
+        if mesh.collective:
+            count, colsum, g = gram_ops.sharded_stats(mesh)(xs)
+            n_rows = int(row_counts(xs.shape[0]).sum())
+        else:
+            count, colsum, g = gram_ops.local_stats(xs)
+            n_rows = int(xs.shape[0])
     with trace_span("eig finalize"):
         out = _finalize(count, colsum, g, mean_center, k, solver)
-    return _solution(out, int(xs.shape[0]))
+    return _solution(out, n_rows)
 
 
 def fit_pca_stream(
@@ -158,6 +178,7 @@ def fit_pca_stream(
     checkpoint_every: int = 16,
     solver: Optional[str] = None,
     device=None,
+    mesh=None,
 ) -> PCASolution:
     """Fit PCA over a stream of row batches (dataset ≫ device memory).
 
@@ -170,19 +191,29 @@ def fit_pca_stream(
     every ``checkpoint_every`` batches and the fit RESUMES from it if the
     file exists: callers re-supply the same batch iterator and already-
     consumed batches are skipped. The checkpoint is removed on success.
+
+    **Across ranks** (``mesh`` of a started world): ``batches`` is THIS
+    rank's stream, iterated in lockstep (uneven stream lengths are fine:
+    an exhausted rank adds zero partials), each batch's partial summed
+    over the ranks before it joins the replicated state. Rank 0 alone
+    writes and removes the checkpoint, which every rank must see (a
+    shared filesystem); one file restores all.
     """
     _check_k(k, n_cols)
     if checkpoint_every < 1:
         raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
     solver = _resolve_solver(solver)  # fail fast, before consuming batches
-    dev = resolve_device(device)
+    mesh = mesh or default_mesh()
+    dev = resolve_device(device, mesh)
     gram_ops.require_gram_capacity(n_cols)
     cd = config.compute_dtype(dev)
     state = gram_ops.init_stats(n_cols, device=dev)
-    n_true = 0
+    n_prev = 0  # rows of the restored checkpoint (global)
+    n_local = 0  # this rank's rows since
     skip_batches = 0
     if checkpoint_path:
         restored = ckpt.load_state(checkpoint_path)
+        ckpt.require_consistent_visibility(restored)
         if restored is not None:
             arrays, meta = restored
             if meta.get("n_cols") != n_cols:
@@ -194,27 +225,37 @@ def fit_pca_stream(
                 as_tensor(arrays[name]).to(device=dev, dtype=config.accum_dtype())
                 for name in ("count", "colsum", "gram")
             )
-            n_true = int(meta["n_rows"])
+            n_prev = int(meta["n_rows"])
             skip_batches = int(meta["n_batches"])
+
+    def rows_so_far() -> int:
+        if mesh.collective:
+            return n_prev + int(row_counts(n_local).sum())
+        return n_prev + n_local
+
+    def check(x) -> Optional[str]:
+        if x.ndim != 2 or x.shape[1] != n_cols:
+            return f"batch has shape {tuple(x.shape)}, expected (m, {n_cols})"
+        return None
+
     with trace_span("compute cov"):
-        for i, batch in enumerate(batches):
+        for i, batch in enumerate(lockstep_batches(batches, n_cols, check)):
             if i < skip_batches:
                 continue
             xb = to_device(batch, dev, cd)
-            if xb.dim() != 2 or xb.shape[1] != n_cols:
-                raise ValueError(
-                    f"batch {i} has shape {tuple(xb.shape)}, expected (m, {n_cols})"
-                )
-            n_true += xb.shape[0]
-            gram_ops.streaming_update_rows(state, xb, xb.shape[0], compute_dtype=cd)
+            n_local += xb.shape[0]
+            gram_ops.streaming_update_rows(state, xb, xb.shape[0], compute_dtype=cd, mesh=mesh)
             if checkpoint_path and (i + 1) % checkpoint_every == 0:
-                count, colsum, g = (t.cpu().numpy() for t in state)
-                ckpt.save_state(
-                    checkpoint_path,
-                    {"count": count, "colsum": colsum, "gram": g},
-                    {"n_rows": n_true, "n_batches": i + 1, "n_cols": n_cols},
-                )
-    if checkpoint_path and os.path.exists(checkpoint_path):
+                n_rows = rows_so_far()
+                if ckpt.is_writer():
+                    count, colsum, g = (t.cpu().numpy() for t in state)
+                    ckpt.save_state(
+                        checkpoint_path,
+                        {"count": count, "colsum": colsum, "gram": g},
+                        {"n_rows": n_rows, "n_batches": i + 1, "n_cols": n_cols},
+                    )
+    n_true = rows_so_far()
+    if checkpoint_path and ckpt.is_writer() and os.path.exists(checkpoint_path):
         # A finished fit must not seed a FUTURE fit against the same path.
         ckpt.discard_state(checkpoint_path)
     return finalize_pca_stats(state, k, mean_center, n_true, solver=solver)
@@ -289,14 +330,16 @@ class _PCAParams(HasInputCol, HasOutputCol):
 class PCA(Estimator, _PCAParams, MLWritable, MLReadable):
     """PCA estimator: ``PCA().setInputCol("features").setK(3).fit(df)``.
 
-    ``device``: where the fit runs; None → the card."""
+    ``device``: where the fit runs; None → the card. ``mesh``: the ranks the
+    fit spans (None → ``default_mesh()``; see :func:`fit_pca`)."""
 
     _uid_prefix = "PCA"
     _persist_class = "spark_rapids_ml_tpu.models.pca.PCA"
 
-    def __init__(self, uid=None, device=None):
+    def __init__(self, uid=None, device=None, mesh=None):
         super().__init__(uid=uid)
         self._device = device
+        self._mesh = mesh
 
     def setK(self, value: int) -> "PCA":
         return self._set(k=value)
@@ -309,6 +352,7 @@ class PCA(Estimator, _PCAParams, MLWritable, MLReadable):
 
     def _copy_extra_state(self, source):
         self._device = getattr(source, "_device", None)
+        self._mesh = getattr(source, "_mesh", None)
 
     def _fit(self, dataset) -> "PCAModel":
         x = as_matrix(dataset, self.getInputCol())
@@ -318,6 +362,7 @@ class PCA(Estimator, _PCAParams, MLWritable, MLReadable):
             mean_center=self.getMeanCentering(),
             solver=self.getSolver(),
             device=self._device,
+            mesh=self._mesh,
         )
         model = PCAModel(
             pc=sol.pc,

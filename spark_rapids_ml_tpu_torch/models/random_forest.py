@@ -48,7 +48,12 @@ from spark_rapids_ml_tpu_torch.core.params import (
 from spark_rapids_ml_tpu_torch.core.persistence import MLReadable, MLWritable
 from spark_rapids_ml_tpu_torch.ops import histogram as hist_ops
 from spark_rapids_ml_tpu_torch.ops.histogram import LEAF, OPEN
-from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device, to_device
+from spark_rapids_ml_tpu_torch.parallel.sharding import (
+    as_tensor,
+    require_single_process,
+    resolve_device,
+    to_device,
+)
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
 #: Dense-heap bound: max_nodes = 2^(maxDepth+1) − 1 per tree.
@@ -344,6 +349,7 @@ def _host_f64(a) -> np.ndarray:
 def _fit_forest(x, y, n_classes: int, num_trees: int, max_depth: int, max_bins: int,
                 feature_subset: str, seed: int, bootstrap: bool, min_instances: int,
                 device=None) -> ForestSolution:
+    require_single_process("fit_random_forest (quantile binning samples local data)")
     dev = resolve_device(device)
     y = _host_f64(y).reshape(-1)
     if x.ndim != 2 or x.shape[0] == 0:

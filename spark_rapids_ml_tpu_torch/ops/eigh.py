@@ -5,7 +5,7 @@ The port of ``spark_rapids_ml_tpu/ops/eigh.py``. The reference's native
 Gram → column reversal to descending order → ``seqRoot`` (σ = √λ) →
 ``signFlip``. Here that is ``torch.linalg.eigh`` (cuSOLVER on the card,
 LAPACK on the CPU) plus the reorder, square root and sign flip. The
-model-sharded eigensolve waits for the multi-device slice.
+model-sharded eigensolve waits for the model axis (ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -50,6 +50,12 @@ def explained_variance_reference(eigvals: torch.Tensor) -> Eig:
     (seqRoot at rapidsml_jni.cu:254, RapidsRowMatrix.scala:91-93)."""
     s = torch.sqrt(torch.clamp(eigvals, min=0.0))
     return s, s / torch.sum(s)
+
+
+def explained_variance_ratio(eigvals: torch.Tensor) -> torch.Tensor:
+    """Spark MLlib / sklearn semantics: λᵢ / Σλ (for cross-checking)."""
+    w = torch.clamp(eigvals, min=0.0)
+    return w / torch.sum(w)
 
 
 def pca_from_gram(gram: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -1,6 +1,6 @@
 """Fused second-moment statistics: count / column-sum / Gram matrix.
 
-The port of ``spark_rapids_ml_tpu/ops/gram.py`` for one device. Every pass
+The port of ``spark_rapids_ml_tpu/ops/gram.py``. Every pass
 computes the row count, the column sums and the Gram matrix, so a centred
 Gram comes for free as G_c = G − n·μμᵀ (the reference stubs centring to
 ETL, RapidsRowMatrix.scala:111-117).
@@ -9,21 +9,25 @@ The Gram of bfloat16/float32 operands with float32 accumulators goes
 through the hand-written kernels of ``ops/kernels.py`` (on a CPU tensor,
 their plain versions). Other dtype pairs — the float64 parity mode — are a
 plain product in the accumulator dtype, as the JAX package leaves them to
-XLA. The 2-D/ring feature-sharded Gram and multi-device reductions are
-not part of this slice.
+XLA. Across ranks (``parallel/mesh.py``) each rank computes its own
+rows' statistics with the same kernel and the partials meet in
+``parallel/mapreduce.reduce_sum`` (:func:`sharded_stats`, and the
+streaming update given a mesh). The 2-D/ring feature-sharded Gram waits
+for the model axis.
 
 State tuples are ``(count, colsum, gram)`` as in the JAX package; the
 streaming updates fold a batch into the state IN PLACE, the analogue of the
 JAX package's donated buffers.
 
-On one device nothing is padded, so the fits pass no mask. The masked
-forms (``local_stats`` with a mask, :func:`streaming_update`) keep the JAX
-package's contract for the multi-device slice, which pads shards; until
-then only the parity tests call them.
+A rank's rows are its shard and nothing is padded, so the fits pass no
+mask. The masked forms (``local_stats`` with a mask,
+:func:`streaming_update`) keep the JAX package's contract for padded
+shards (``parallel/sharding.shard_rows``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional, Tuple
 
@@ -31,6 +35,8 @@ import torch
 
 from spark_rapids_ml_tpu_torch import config
 from spark_rapids_ml_tpu_torch.ops import kernels
+from spark_rapids_ml_tpu_torch.parallel import mapreduce as mr
+from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (count, colsum, gram)
 
@@ -57,6 +63,16 @@ def require_gram_capacity(n_cols: int, accum_dtype=None) -> None:
             f"over the {GRAM_DEVICE_BUDGET_BYTES >> 20} MiB per-device budget; "
             "raise SRML_TORCH_GRAM_DEVICE_BUDGET_MB"
         )
+
+
+def mm_precision(*dtypes):
+    """Context of full-precision products for float32/float64 operands —
+    the JAX package's guard against TPU dots that round f32 operands to
+    bf16 mantissas. The port pins full-precision float32 products for the
+    whole process at import (TF32 off, ``spark_rapids_ml_tpu_torch``
+    ``__init__``) and never toggles it per call, so for any dtypes there is
+    nothing to switch: a null context."""
+    return contextlib.nullcontext()
 
 
 def _dtypes(x: torch.Tensor, compute_dtype, accum_dtype):
@@ -94,6 +110,28 @@ def local_stats(
     return count, colsum, gram
 
 
+def reduce_stats(stats, mesh) -> tuple:
+    """Each statistic of a rank-local partial summed over the mesh's data
+    axis, in place (:func:`~spark_rapids_ml_tpu_torch.parallel.mapreduce.reduce_sum`):
+    the same replicated values on every rank."""
+    return tuple(mr.reduce_sum(t, DATA_AXIS, mesh=mesh) for t in stats)
+
+
+def sharded_stats(mesh, compute_dtype=None, accum_dtype=None):
+    """fn(x, mask=None) → replicated (count, colsum, gram): this rank's
+    rows through :func:`local_stats` (the ``gram`` kernel), then the sum
+    over the ranks. A rank without rows adds a zero partial (no launch)."""
+
+    def fn(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> Stats:
+        if x.shape[0] == 0:
+            stats = init_stats(x.shape[1], accum_dtype, x.device)
+        else:
+            stats = local_stats(x, mask, compute_dtype=compute_dtype, accum_dtype=accum_dtype)
+        return reduce_stats(stats, mesh)
+
+    return fn
+
+
 def init_stats(n_cols: int, accum_dtype=None, device=None) -> Stats:
     ad = accum_dtype or config.accum_dtype()
     return (
@@ -115,7 +153,7 @@ def streaming_update(state: Stats, x: torch.Tensor, mask: torch.Tensor,
 
 
 def streaming_update_rows(state: Stats, x: torch.Tensor, n_valid: int,
-                          compute_dtype=None) -> Stats:
+                          compute_dtype=None, mesh=None) -> Stats:
     """Fold the first ``n_valid`` rows of x into ``state`` in place — the
     fast streaming path.
 
@@ -123,19 +161,40 @@ def streaming_update_rows(state: Stats, x: torch.Tensor, n_valid: int,
     of the seeded :func:`kernels.gram_colsum` per batch: count, Σx and
     XᵀX of the batch are added to the state inside the kernel. x should
     arrive in the compute dtype already (the ingest casts once); other
-    dtypes are cast here."""
+    dtypes are cast here.
+
+    With a ``mesh`` of a started world, x is this rank's batch of the
+    lockstep and ``state`` the replicated state: the batch folds into a
+    fresh zero partial (what the JAX package's unseeded kernel call
+    computes), which is summed over the ranks and then added to the state
+    (a seeded fold of each rank's replicated state would count the state
+    once per rank). A rank
+    without rows in this step adds a zero partial (no launch) and still
+    joins the sum."""
     count, colsum, gram = state
     cd = compute_dtype or config.compute_dtype(x.device)
     xc = x.to(cd)
-    if kernels.kernel_applicable(cd, gram.dtype):
-        kernels.gram_colsum(xc.contiguous(), n_valid, state=(gram, colsum, count))
-        return state
     rows = min(x.shape[0], max(int(n_valid), 0))
+    if mesh is not None and mesh.collective:
+        part = init_stats(gram.shape[0], gram.dtype, gram.device)
+        if rows:
+            _fold_rows(part, xc, rows, cd)
+        for t, p in zip(state, reduce_stats(part, mesh)):
+            t.add_(p)
+        return state
+    _fold_rows(state, xc, rows, cd)
+    return state
+
+
+def _fold_rows(state: Stats, xc: torch.Tensor, rows: int, cd) -> None:
+    count, colsum, gram = state
+    if kernels.kernel_applicable(cd, gram.dtype):
+        kernels.gram_colsum(xc.contiguous(), rows, state=(gram, colsum, count))
+        return
     xv = xc[:rows].to(gram.dtype)
     gram.add_(xv.T @ xv)
     colsum.add_(xv.sum(dim=0))
     count.add_(rows)
-    return state
 
 
 def finalize_gram(

@@ -1,25 +1,40 @@
-"""Host array -> device tensor placement helpers.
+"""Host array -> device tensor placement, and the lockstep of the ranks.
 
-The port of ``spark_rapids_ml_tpu/parallel/sharding.py`` for one device:
-placement is a copy to the fit's device (:func:`to_device`). The padding
-helpers :func:`pad_rows` and :func:`bucket_rows` keep their contracts for
-the multi-device slice, which pads shards; until then only the parity tests
-call them. Multi-process assembly and lockstep streams wait for that slice.
+The port of ``spark_rapids_ml_tpu/parallel/sharding.py``. One rank is one
+process with one device (``parallel/mesh.py``), so a rank's rows are its
+shard: placement is a copy to the rank's device (:func:`to_device`), and
+:func:`shard_rows` pads a rank's rows at the tail to the rows every rank
+agrees on, as the JAX package pads each process's slice. The fits need no
+padding (each rank's statistics cover its own rows); they take the global
+row count from :func:`~spark_rapids_ml_tpu_torch.parallel.distributed.row_counts`.
+
+Streams run in LOCKSTEP across ranks (:func:`lockstep_batches`): every
+rank makes the same sequence of collectives, a rank whose stream ended
+early yields empty batches, and a bad batch raises on every rank at once,
+its flag carried through the control plane's gather (one per step, in a
+``trace_span("lockstep gather")``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from spark_rapids_ml_tpu_torch.parallel import mesh as mesh_mod
+from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``None`` means the card.
+
+def resolve_device(device=None, mesh: Optional[Mesh] = None) -> torch.device:
+    """The device an entry point runs on: ``device``, else the mesh's
+    rank device (a started world), else the card.
 
     There is no silent CPU fallback: without a usable CUDA device a
     request for "cuda" raises. Pass ``device="cpu"`` to run on the CPU."""
+    if device is None and mesh is not None:
+        device = mesh.device
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -49,6 +64,19 @@ def bucket_rows(n: int, min_bucket: int = 256) -> int:
     return max(min_bucket, 1 << (n - 1).bit_length()) if n else min_bucket
 
 
+def run_bucketed(fn, x, min_bucket: int = 256) -> np.ndarray:
+    """Apply a row-wise ``fn`` to ``x`` padded to its power-of-two row
+    bucket (:func:`bucket_rows`) and return the first n rows of the result
+    as a host array: the JAX package's shared bucketing of batch
+    predict/transform, for callers that batch to bounded shapes."""
+    x = np.asarray(x)
+    n = x.shape[0]
+    xp, _ = pad_rows(x, bucket_rows(n, min_bucket))
+    out = fn(xp)
+    out = out.cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+    return out[:n]
+
+
 def as_tensor(x) -> torch.Tensor:
     """A tensor as it is; a host array as a CPU tensor sharing its memory
     (copied when read-only, as zero-copy Arrow buffers are)."""
@@ -65,3 +93,195 @@ def to_device(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> t
     t = as_tensor(x)
     return t.to(device=device, dtype=dtype or t.dtype)
 
+
+class Placement(NamedTuple):
+    """Where a tensor lies on a mesh: ``spec`` names the mesh axis of each
+    tensor dim (None: whole on every rank) — the JAX package's
+    ``NamedSharding(mesh, PartitionSpec(*spec))``."""
+
+    mesh: Mesh
+    spec: Tuple[Optional[str], ...]
+
+
+def row_sharding(mesh: Mesh, ndim: int = 2) -> Placement:
+    """Rows over the data axis, everything else whole: each rank holds its
+    own rows."""
+    return Placement(mesh, (DATA_AXIS,) + (None,) * (ndim - 1))
+
+
+def replicated(mesh: Mesh) -> Placement:
+    """The same values on every rank."""
+    return Placement(mesh, ())
+
+
+def _cast_host(x: np.ndarray, dtype) -> np.ndarray:
+    if x.dtype == np.float64 and np.dtype(dtype) == np.float32:
+        from spark_rapids_ml_tpu_torch.bridge import native as _native
+
+        cast = _native.cast_f64_to_f32(x)  # threaded native cast
+        return cast if cast is not None else x.astype(np.float32)
+    return x.astype(dtype)
+
+
+def shard_rows(x, mesh: Mesh, dtype: Optional[Any] = None, with_mask: bool = True,
+               device=None):
+    """Place this rank's rows on its device: (x, mask, n_true rows).
+
+    ``x`` is a host array (cast to the numpy ``dtype`` when given: float64
+    → float32 by the native bridge's threaded cast) or a tensor. In the
+    world of one the rows are placed as they are and ``n_true`` is theirs.
+    Across ranks ``x`` is THIS rank's rows: the row counts are gathered,
+    every rank pads its rows at the tail to the largest count (the valid
+    prefix the masked statistics rely on), and ``n_true`` is the GLOBAL
+    row count. ``mask`` is the (rows,) float32 {0, 1} row mask, or None
+    without ``with_mask``."""
+    dev = resolve_device(device, mesh)
+    if isinstance(x, torch.Tensor):
+        t = x if dtype is None else x.to(getattr(torch, np.dtype(dtype).name))
+    else:
+        a = np.asarray(x)
+        t = as_tensor(a if dtype is None or a.dtype == np.dtype(dtype) else _cast_host(a, dtype))
+    n_local = t.shape[0]
+    if mesh_mod.process_count() == 1:
+        n_true, rows = n_local, n_local
+    else:
+        from spark_rapids_ml_tpu_torch.parallel.distributed import row_counts
+
+        counts = row_counts(n_local)
+        n_true, rows = int(counts.sum()), max(1, int(counts.max()))
+    t = t.to(dev)
+    if rows > n_local:
+        t = torch.cat([t, t.new_zeros((rows - n_local,) + tuple(t.shape[1:]))])
+    mask = None
+    if with_mask:
+        mask = torch.zeros((rows,), dtype=torch.float32, device=dev)
+        mask[:n_local] = 1.0
+    return t, mask, n_true
+
+
+def replicated_array(x, mesh: Mesh, device=None) -> torch.Tensor:
+    """A host array placed whole on this rank's device. Across ranks every
+    rank must pass the SAME values (a query batch given to all ranks)."""
+    return to_device(x, resolve_device(device, mesh))
+
+
+#: The lockstep's dtype codes: the JAX package's three, and bfloat16 (a
+#: tensor stream on the card).
+_CODES = {"float32": 0, "float64": 1, "float16": 2, "bfloat16": 3}
+_CODE_NAMES = {v: k for k, v in _CODES.items()}
+
+
+def _dtype_name(x) -> str:
+    return str(x.dtype).replace("torch.", "")
+
+
+def _batch(a):
+    return a if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _empty(code: int, n_cols: int):
+    """An empty (0, n_cols) batch in the consensus dtype (a CPU tensor for
+    bfloat16, which numpy lacks)."""
+    name = _CODE_NAMES[code]
+    if name == "bfloat16":
+        return torch.zeros((0, n_cols), dtype=torch.bfloat16)
+    return np.zeros((0, n_cols), name)
+
+
+def lockstep_batches(batches, n_cols: int, check=None):
+    """Iterate a rank-local batch stream in LOCKSTEP across ranks.
+
+    Every rank must make the same sequence of collectives, but ranks'
+    local streams can have different lengths (uneven shards, a straggling
+    reader). This yields until EVERY rank's stream is exhausted; a rank
+    whose stream ended early yields empty (0, n_cols) batches, which the
+    fits fold as zero partials. In the world of one: plain iteration.
+    ``check(x)``: an optional validator returning an error string or None,
+    carried through the gather as :func:`lockstep_labeled_batches` does.
+    Batches are host arrays or tensors (kept where they lie)."""
+    _dummy_y = np.zeros((0,), np.float32)
+    xcheck = None if check is None else (lambda x, _y: check(x))
+    for x, _ in lockstep_labeled_batches(((b, _dummy_y) for b in batches), n_cols, xcheck):
+        yield x
+
+
+def lockstep_labeled_batches(batches, n_cols: int, check=None):
+    """``lockstep_batches`` for (x, y) pair streams (linreg/logreg scans).
+
+    ``check(x, y)`` — optional per-batch validator returning an error
+    string or None; a failure is carried THROUGH the gather so every rank
+    raises the same error together instead of one rank dying locally
+    while the rest wait in the next collective. A batch of a dtype other
+    than float32/float64/float16/bfloat16 is cast to float32, and one
+    that cannot be cast raises on every rank the same way; ranks that
+    feed different dtypes raise TypeError together."""
+    if mesh_mod.process_count() == 1:
+        for x, y in batches:
+            x, y = _batch(x), _batch(y).reshape(-1)
+            if check is not None:
+                err = check(x, y)
+                if err:
+                    raise ValueError(err)
+            yield x, y
+        return
+    from spark_rapids_ml_tpu_torch.parallel.distributed import process_allgather
+
+    it = iter(batches)
+    while True:
+        pair = next(it, None)
+        code, ok = -1, 1
+        cast_err = None
+        if pair is not None:
+            x, y = _batch(pair[0]), _batch(pair[1]).reshape(-1)
+            if _dtype_name(x) not in _CODES:
+                # Cast non-float sources (e.g. int features) to f32, so a
+                # pipeline that works in the world of one behaves the same
+                # across ranks; an uncastable dtype is carried through the
+                # gather like a check failure.
+                try:
+                    x = x.to(torch.float32) if isinstance(x, torch.Tensor) else x.astype(np.float32)
+                except (ValueError, TypeError, RuntimeError) as e:
+                    cast_err = (
+                        f"lockstep: batch dtype {_batch(pair[0]).dtype} "
+                        f"is not castable to float32: {e}"
+                    )
+                    ok = 0
+            if cast_err is None:
+                code = _CODES[_dtype_name(x)]
+                if check is not None and check(x, y):
+                    ok = 0
+        with trace_span("lockstep gather"):
+            flags = process_allgather(np.asarray([0 if pair is None else 1, code, ok]))
+        flags = flags.reshape(-1, 3)
+        if (flags[:, 2] == 0).any():
+            bad = int(np.argmax(flags[:, 2] == 0))
+            # Re-derive the local message when this rank is the bad one.
+            msg = None
+            if pair is not None and ok == 0:
+                msg = cast_err or check(x, y)
+            raise ValueError(msg or f"batch validation failed on process {bad}")
+        live = flags[flags[:, 0] == 1, 1]
+        if live.size and live.min() != live.max():
+            raise TypeError(
+                "lockstep: feeding hosts disagree on batch dtype; make "
+                "every host's loader produce the same dtype"
+            )
+        if not flags[:, 0].any():
+            return
+        if pair is None:
+            yield _empty(int(live.max()), n_cols), np.zeros((0,), np.float32)
+        else:
+            yield x, y
+
+
+def require_single_process(feature: str) -> None:
+    """Fail fast (identically on every rank) for code whose host-side
+    preparation depends on local data — running it across ranks would
+    diverge replicated inputs or desync collectives instead of erroring."""
+    if mesh_mod.process_count() > 1:
+        raise NotImplementedError(
+            f"{feature} is single-controller only: its host-side setup "
+            f"(init/validation) is data-dependent and would diverge across "
+            f"processes. Multi-process paths: fit_pca / fit_linear_regression "
+            f"with per-process local rows, or the data-plane daemon on one host."
+        )

@@ -21,12 +21,25 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
 _totals: Dict[str, list] = {}  # name -> [seconds, count]
 _totals_lock = threading.Lock()
+
+
+class Timer:
+    """Wall-clock timer on the monotonic ``perf_counter``; ``stop()``
+    returns and keeps the seconds since construction."""
+
+    def __init__(self) -> None:
+        self.start = time.perf_counter()
+        self.elapsed: Optional[float] = None
+
+    def stop(self) -> float:
+        self.elapsed = time.perf_counter() - self.start
+        return self.elapsed
 
 
 @contextlib.contextmanager

@@ -99,6 +99,25 @@ def test_importing_the_data_plane_loads_neither_jax_nor_pyarrow():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_the_parallel_layer_and_its_utilities_load_no_jax():
+    code = (
+        "import sys, spark_rapids_ml_tpu_torch.parallel, "
+        "spark_rapids_ml_tpu_torch.parallel.distributed, spark_rapids_ml_tpu_torch.core, "
+        "spark_rapids_ml_tpu_torch.bridge, spark_rapids_ml_tpu_torch.ops, "
+        "spark_rapids_ml_tpu_torch.utils, spark_rapids_ml_tpu_torch.utils.retry, "
+        "spark_rapids_ml_tpu_torch.core.checkpoint; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'spark_rapids_ml_tpu')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    # The two-rank test's worker process imports only the port, too.
+    worker = ROOT / "tests" / "torch_multiproc_worker.py"
+    assert [r for r, _ in _imported_roots(worker) if r in FORBIDDEN] == []
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -556,3 +575,49 @@ def test_daemon_fits_on_the_card():
     x64 = x.astype(np.float64)
     ref = port_pca._finalize_on_host(x.shape[0], x64.sum(0), x64.T @ x64, True, 4)
     np.testing.assert_allclose(np.abs(out["pc"]), np.abs(ref[0]), atol=1e-3)
+
+
+_CARD_RANK = """
+import sys, numpy as np, torch
+from spark_rapids_ml_tpu_torch.models.pca import fit_pca_stream
+from spark_rapids_ml_tpu_torch.ops import kernels
+from spark_rapids_ml_tpu_torch.parallel import distributed
+rank, port = int(sys.argv[1]), sys.argv[2]
+distributed.initialize_cluster(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+x = (np.random.default_rng(7).integers(-3, 4, size=(4096, 64)) * np.arange(64, 0, -1)
+     ).astype(np.float32)  # exact in bf16, a spread spectrum
+lo, hi = distributed.process_local_rows(4096)
+parts = np.array_split(x[lo:hi], 3 if rank == 0 else 2)
+sol = fit_pca_stream([torch.from_numpy(p).cuda() for p in parts], k=4, n_cols=64,
+                     mesh=distributed.global_mesh())
+print(kernels.LAUNCHES["gram_colsum"], sol.n_rows, repr(sol.pc.tobytes().hex()))
+distributed.shutdown_cluster()
+"""
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_fit_on_the_card():
+    """Two ranks on the one card (gloo: NCCL refuses two ranks on one
+    device) stream integer rows through the tensor-core gram_colsum: one
+    launch per non-empty batch on each rank, the same components on both,
+    and those of float64 PCA of all rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, "-c", _CARD_RANK, str(r), str(port)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [o[1][-2000:] for o in outs]
+    got = [o[0].split() for o in outs]
+    assert [g[0] for g in got] == ["3", "2"] and {g[1] for g in got} == {"4096"}
+    assert got[0][2] == got[1][2]
+    pc = np.frombuffer(bytes.fromhex(got[0][2].strip("'")), dtype=np.float64).reshape(64, 4)
+    x = (np.random.default_rng(7).integers(-3, 4, size=(4096, 64)) * np.arange(64, 0, -1)
+         ).astype(np.float64)
+    ref = port_pca._finalize_on_host(4096, x.sum(0), x.T @ x, True, 4)
+    np.testing.assert_allclose(np.abs(pc), np.abs(ref[0]), atol=1e-3)
