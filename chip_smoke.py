@@ -42,7 +42,8 @@ Phases, each of which exits non-zero on a failed check:
    ``python3 chip_smoke.py --phase2`` stops after this phase;
    ``--data-plane`` runs phases 19 to 22, phase 23's Spark part and phase
    25 alone after the build; ``--estimators`` runs phases 23 and 24 alone;
-   ``--multi-process`` runs phase 26 alone.
+   ``--multi-process`` runs phase 26 alone; ``--multi-daemon`` runs
+   phase 27 alone.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -334,6 +335,36 @@ Phases, each of which exits non-zero on a failed check:
     kernel's ms a batch, the d = 2048 reduce's ms and bytes a batch, the
     'collective reduce' and 'lockstep gather' spans of the stream, the
     two-rank stream's rows/s beside phase 3's, and the phase's seconds.
+27. The fits across daemons: phases 20-22's 8 spawned task processes and
+    65,536-row ``feed_raw`` frames, partitions 4-7 routed to a second
+    daemon (an executor on another host feeds its own), this process the
+    driver with the estimators' own functions over ``spark/estimator.
+    _DaemonFit`` (the peer plane: a peer found in the acks, or seeded from
+    the configured addresses through ``daemon_session.resolve_all``, its
+    pass partials folded into the primary by ``reduce_mesh`` or by the
+    hub's ``export_state`` + ``merge_state``, the primary's iterate pushed
+    to it at each boundary). a. Two port daemons in this process on the
+    card: PCA d = 2048, k = 32 on rows from {-1, 0, 1} (every statistic an
+    exact float32 sum) through one daemon, the collective path and the hub
+    (``mesh_collectives`` off), all three bitwise equal, then on phase
+    20's gaussian rows against float64 (phase 20's tolerances);
+    LinearRegression d = 1024 on {-1, 0, 1} rows, bitwise one daemon's;
+    multinomial LogisticRegression C = 32 (131,072 rows, five passes) and
+    KMeans d = 256, k = 100 (both daemons seeded) against the one-daemon
+    fits at phase 21's tolerances in the same passes; the forest classifier
+    on 1,048,576 HIGGS-shape rows (Spark's defaults) with tables bitwise
+    one daemon's; exact and IVF knn (d = 768, nlist 1,024, nprobe 20) as
+    two shards served through the fan-out: exact ids equal one daemon's
+    wherever the gap exceeds phase 16's tolerance, IVF sharing one
+    quantizer with recall@10 within 0.02 of one daemon's and at least 0.98
+    with every list probed (the one-daemon answers are phase 22's, of the
+    same rows and queries, when it ran in the same call). Every fit's
+    rows, peers and reduce path are checked, and each kernel of the path
+    must launch. b. Two daemon processes on the one card (two executor
+    hosts): the PCA fit of a on {-1, 0, 1} rows through the hub across
+    processes, bitwise one daemon's. It prints the rows/s of each fit beside phases 20 and 21's,
+    the ms and bytes of a pass's reduce on each path, the knn builds'
+    seconds and served q/s beside phase 22's, and its launches.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
@@ -349,7 +380,9 @@ scaler's under ``spark_scaler_launches``, the
 ``probe_select`` row the sort route's under ``sort_ms``, and the five rows
 of phase 26's path (``gram``, ``gram_colsum``, ``linreg_stats``,
 ``softmax_curvature``, ``dist_topk``) its launches summed over the two
-ranks under ``multiprocess_launches``) and
+ranks under ``multiprocess_launches``, and the eight rows of phase 27's
+path its two-daemon fits' and served calls' launches under
+``multidaemon_launches``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, the script fails before printing any result.
 """
@@ -398,6 +431,10 @@ KNN_CLUSTERS, KNN_SPREAD = 4096, 0.35
 KNN_QUERIES, KNN_K = 4096, 10
 KNN_NLIST, KNN_NPROBE = 1024, 20
 INPROC_QPS: dict = {}  # phases 16-17's q/s, printed beside phase 22's served q/s
+#: One-daemon numbers of phases 20-22, printed beside phase 27's two-daemon
+#: ones: "<phase> <run>" → rows/s, and phase 22's builds and served q/s.
+ONE_DAEMON_RATES: dict = {}
+P22_SERVED: dict = {}
 
 DP_ROWS = 65536  # spark/conf.py:22,40: arrow.maxRecordsPerBatch, one feed
 DP_PARTITIONS, DP_FEEDS = 8, 2  # 1,048,576 rows (BASELINE.json #1's 100M cut in depth)
@@ -2674,7 +2711,7 @@ def phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate):
             print(f"spark tasks ready (spawned, imported the port, built their rows) in "
                   f"{time.perf_counter() - t_spawn:.1f} s", flush=True)
             host, port = daemon.address
-            fit = est._SingleDaemonFit(host, port, SPARK_JOB)
+            fit = est._DaemonFit(host, port, SPARK_JOB)
             torch.cuda.synchronize()
             kernels.reset_launches()
             profiling.reset_span_totals()
@@ -2766,6 +2803,7 @@ def phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate):
           f"{100 * (1 - busy_ms / (sp_s * 1e3)):.2f} %); fold kernels "
           f"{sum(ms for ms, _ in fold_dev):.3f} ms over {sum(c for _, c in fold_dev)} launches",
           flush=True)
+    ONE_DAEMON_RATES["phase 20 pca"] = n_rows / sp_s
     return launches, n_rows / sp_s
 
 
@@ -2879,8 +2917,12 @@ def p21_frame(np, runs, run, p, f):
     _, d, rows, _, k = runs[run]
     if run == "knn":
         return knn_frame(np, p, f, rows, d, k), None
-    if run == "scaler":  # phase 23: phase 20's rows
+    if run in ("scaler", "pca"):  # phases 23 and 27: phase 20's rows
         return spark_rows(np, p, f, rows, d, k), None
+    if run.endswith("-int"):  # phase 27: rows in {-1, 0, 1}, every statistic an exact f32 sum
+        g = np.random.default_rng([P27_SEED, d, p, f])
+        x = g.integers(-1, 2, (rows, d), dtype=np.int8).astype(np.float32)
+        return x, (None if runs[run][0] == "pca" else np.sign(x[:, :8].sum(1)))
     r = list(runs).index(run)
     g = np.random.default_rng([P21_SEED, r, p, f])
     shared = np.random.default_rng([P21_SEED, r])
@@ -2938,10 +2980,11 @@ def _p21_task(address, p, runs, cmd_q, out_q):
             if cmd[0] == "bags":
                 out_q.put(("ok", p, rf_bag_sums(np, frames[cmd[1]], p, *cmd[2:])))
                 continue
-            run, job, params, pass_id, dies = cmd
+            run, job, params, pass_id, dies, to = cmd
+            addr = address if to is None else tuple(to)  # phase 27: the partition's daemon
             algo, d = runs[run][:2]
             for attempt, dies_after in ([(0, 1), (1, None)] if dies else [(0, None)]):
-                with DataPlaneClient(*address, timeout=900.0) as c:
+                with DataPlaneClient(*addr, timeout=900.0) as c:
                     def send(b, c=c, attempt=attempt):
                         c.feed_raw(job, b[0], b[1], algo=algo, n_cols=d, params=params,
                                    partition=p, attempt=attempt, pass_id=pass_id)
@@ -2949,7 +2992,7 @@ def _p21_task(address, p, runs, cmd_q, out_q):
                     batches = frames[run]
                     it = batches if dies_after is None else _dying(batches, dies_after)
                     try:
-                        ack = _feed_partition(c, it, send, job, p, attempt, pass_id, address)
+                        ack = _feed_partition(c, it, send, job, p, attempt, pass_id, addr)
                     except RuntimeError as e:
                         if "injected" not in str(e):
                             raise
@@ -2997,11 +3040,14 @@ class _P21Pool:
             q.put(("bags", run, n_trees, seed, n_classes))
         return self._collect("ok", 600)
 
-    def scan(self, run, job, params, pass_id, dies):
+    def scan(self, run, job, params, pass_id, dies, route=None):
         """One pass: every partition task feeds and commits; their acks.
-        With ``dies``, partition SPARK_DYING's first attempt dies."""
+        With ``dies``, partition SPARK_DYING's first attempt dies. ``route``
+        ({partition: address}) sends a partition to another daemon than
+        the pool's (an executor on another host)."""
         for p, q in enumerate(self.cmds):
-            q.put((run, job, params, pass_id, dies and p == SPARK_DYING))
+            q.put((run, job, params, pass_id, dies and p == SPARK_DYING,
+                   (route or {}).get(p)))
         return self._collect("ok", 600)
 
     def close(self):
@@ -3025,7 +3071,7 @@ def p21_fit(torch, kernels, est, profiling, pool, address, run, drive, runs=None
     runs = P21_RUNS if runs is None else runs
     pool.prepare(run)
     job = f"{tag.replace(' ', '')}-{run}"
-    fit = est._SingleDaemonFit(*address, job)
+    fit = est._DaemonFit(*address, job)
     rec = {"scans": 0}
     real = fit.finalize_guarded
 
@@ -3058,6 +3104,7 @@ def p21_fit(torch, kernels, est, profiling, pool, address, run, drive, runs=None
     _, d, rows, frames, _ = runs[run]
     n = DP_PARTITIONS * frames * rows
     rec["rows"] = n
+    ONE_DAEMON_RATES[f"{tag} {run}"] = n * rec["scans"] / rec["s"]
     check(rec["acked"] == rec["status"] == rec["finalize"] == n * rec["scans"],
           f"{tag} {run}: acked {rec['acked']}, status {rec['status']}, finalize "
           f"{rec['finalize']} rows == {rec['scans']} scans x {n} (the dying attempt's rows "
@@ -3332,7 +3379,7 @@ def p22_fit(torch, kernels, est, profiling, pool, address, core, tag):
     from torch.profiler import ProfilerActivity, profile
 
     job = f"phase22-{tag}"
-    fit = est._SingleDaemonFit(*address, job)
+    fit = est._DaemonFit(*address, job)
     rec = {}
     finalize_knn = fit.client.finalize_knn
 
@@ -3455,6 +3502,8 @@ def phase_knn_daemon(torch, kernels, config):
             check(sum(rec["launches"].values()) == 0,
                   f"phase 22 exact fit: no kernel (the build stores the rows): {rec['launches']}")
             d_e, i_e, ex_s, launches, routes = p22_served(torch, kernels, model, qs, "exact")
+            P22_SERVED["exact"] = (rec["build_s"], KNN_QUERIES / ex_s)
+            P22_SERVED["exact_answer"] = (d_e, i_e)  # phase 27's one-daemon answer
             check(launches["dist_topk"] == 2 and routes["dist_topk/wgmma"] == 2
                   and sum(launches.values()) == 2,
                   f"phase 22 served exact kneighbors: dist_topk launches {launches['dist_topk']} "
@@ -3532,6 +3581,7 @@ def phase_knn_daemon(torch, kernels, config):
                   f"{same_lists} (information: the Lloyd sums' order may differ); maxlen "
                   f"{int(rec['info']['maxlen'][0])} vs {ann.index.lists.shape[1]}", flush=True)
             d_a, i_a, ivf_s, launches, routes = p22_served(torch, kernels, amodel, qs, "ivf")
+            P22_SERVED["ivf"] = (rec["build_s"], KNN_QUERIES / ivf_s)
             check(launches["probe_select"] == 2 and routes["probe_select/fused"] == 2
                   and launches["ivf_scan_select"] == 2 and routes["ivf_scan_select/wgmma"] == 2,
                   f"phase 22 served ivf kneighbors: probe_select {launches['probe_select']} == 2 "
@@ -3546,6 +3596,7 @@ def phase_knn_daemon(torch, kernels, config):
             _, i_r = ann.kneighbors(qs)
             ann_s = time.perf_counter() - t0
             rec_d, rec_r = recall_at(i_a, gt_i), recall_at(i_r, gt_i)
+            P22_SERVED["ivf_recall"] = rec_d  # phase 27's one-daemon recall
             check(abs(rec_d - rec_r) <= 0.005,
                   f"phase 22 ivf recall@{KNN_K} vs float64 ground truth: served {rec_d:.4f}, the "
                   f"in-process build of the same rows, seed and nlist {rec_r:.4f} (within 0.005)")
@@ -4240,7 +4291,7 @@ def p25_fit(torch, kernels, est, profiling, pool, address, run, core, sample, sp
     _, d, _, _, n_classes, n = P25_RUNS[run]
     pool.prepare(run)
     job = f"phase25-{run}"
-    fit = est._SingleDaemonFit(*address, job)
+    fit = est._DaemonFit(*address, job)
     rec = {"scans": 0, "scan_s": [], "step_s": [], "infos": [], "busy": None}
     real_finalize, real_step = fit.finalize_guarded, fit.step
 
@@ -4349,7 +4400,7 @@ def p25_local_fit(np, est, address, core, n_classes, frames, tag):
     from spark_rapids_ml_tpu_torch.serve import DataPlaneClient
 
     job = f"phase25-{tag}"
-    fit = est._SingleDaemonFit(*address, job)
+    fit = est._DaemonFit(*address, job)
 
     def feed(p, pass_id):
         with DataPlaneClient(*address, timeout=900.0) as c:
@@ -5122,6 +5173,549 @@ def phase_multiprocess(torch, card, stream_rate) -> dict:
     return launches
 
 
+# -- 27. the fits across daemons ------------------------------------------------
+
+P27_SEED = 27
+#: Phase 27: run → the P21_RUNS fields (a forest run adds its dataset's
+#: rows: phase 25's HIGGS cut from 11,000,000 to 1,048,576). The "-int" runs
+#: draw their rows from {-1, 0, 1}. The task processes get it as an argument.
+P27_RUNS = {
+    "pca-int": ("pca", D, DP_ROWS, DP_FEEDS, K),
+    "pca": ("pca", D, DP_ROWS, DP_FEEDS, K),
+    "linreg-int": ("linreg", LR_D, DP_ROWS, 2, 0),
+    "logreg-multinomial": ("logreg", LG_D, 16384, 1, MN_CLASSES),
+    "kmeans": ("kmeans", KM_D, DP_ROWS, 2, KM_K),
+    "higgs": ("rf", HIGGS_D, DP_ROWS, 2, 2, 1 << 20),
+    "knn": ("knn", KNN_D, DP_ROWS, DP_FEEDS, KNN_CLUSTERS),
+}
+#: The partitions whose executors feed the second daemon.
+P27_PEER_PARTS = tuple(range(DP_PARTITIONS // 2, DP_PARTITIONS))
+#: The kernels on phase 27's path: each must launch in its two-daemon fits
+#: and served calls.
+P27_KERNELS = ("gram_colsum", "linreg_stats", "softmax_curvature", "lloyd_step",
+               "assign_min_dist", "dist_topk", "probe_select", "ivf_scan_select")
+P27_DAEMON_TIMEOUT_S = 300  # a spawned daemon process's time to come up
+
+
+def p27_rows(run) -> int:
+    if run == "higgs":
+        return P27_RUNS[run][5]
+    _, _, rows, frames, _ = P27_RUNS[run]
+    return DP_PARTITIONS * frames * rows
+
+
+def p27_fit(torch, kernels, est, profiling, pool, primary, run, drive, tag, route=None,
+            addresses=None, hub=False, other_process=False):
+    """One phase-27 fit: the estimator's driver function ``drive(fit,
+    run_pass)`` with the daemon at ``primary`` as the fit's primary, the
+    pool's partitions in ``route`` fed to their own daemon (partition
+    SPARK_DYING's attempt 0 dies after a feed in the first scan),
+    ``addresses`` the configured daemons (``SRML_DAEMON_ADDRESSES``, which
+    ``daemon_session.resolve_all`` reads: the kmeans and forest seeds) and
+    ``hub`` forcing the driver's hub (``mesh_collectives`` off). The kernel
+    counters and spans are reset just before the fit and read just after.
+    Checks the rows and which reduce path ran (the hub for a peer in
+    ``other_process``). Returns (model, a record of the run)."""
+    from spark_rapids_ml_tpu_torch import config
+
+    job = f"phase27-{run}-{tag}"
+    fit = est._DaemonFit(*primary, job)
+    rec = {"scans": 0}
+    if run != "knn":
+        real = fit.finalize_guarded
+
+        def guarded(params, pass_rows_expected=None):
+            rec["status"] = fit.client.status(job)["rows"]
+            arrays, rows = real(params, pass_rows_expected)
+            rec["finalize"] = rows
+            return arrays, rows
+
+        fit.finalize_guarded = guarded
+
+    def run_pass(pass_id):
+        rec["scans"] += 1
+        return pool.scan(run, job, fit.params, pass_id, dies=rec["scans"] == 1, route=route)
+
+    paths = est._M_MESH_PATHS
+    before = {p: paths.value(path=p) for p in ("collective", "hub")}
+    if addresses:
+        os.environ["SRML_DAEMON_ADDRESSES"] = ",".join("%s:%d" % tuple(a) for a in addresses)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        profiling.reset_span_totals()
+        with config.option("mesh_collectives", not hub):
+            t0 = time.perf_counter()
+            model = drive(fit, run_pass)
+            torch.cuda.synchronize()
+            rec["s"] = time.perf_counter() - t0
+        rec["launches"], rec["routes"] = dict(kernels.LAUNCHES), dict(kernels.ROUTES)
+        rec["spans"] = profiling.span_totals()
+    finally:
+        os.environ.pop("SRML_DAEMON_ADDRESSES", None)
+        fit.close()
+    rec["paths"] = {p: paths.value(path=p) - before[p] for p in before}
+    n = p27_rows(run)
+    rec["rows"], rec["acked"], rec["peers"] = n, fit.total_fed, len(fit.peers)
+    if run != "knn":
+        check(rec["acked"] == rec["status"] == rec["finalize"] == n * rec["scans"],
+              f"phase 27 {run} {tag}: acked {rec['acked']}, primary status {rec['status']}, "
+              f"finalize {rec['finalize']} rows == {rec['scans']} scans x {n} (the peer's "
+              f"rows folded into the primary, the dying attempt's counted nowhere)")
+    reduces = 0 if route is None or run == "knn" else rec["scans"]
+    path = "hub" if hub or other_process else "collective"
+    want = {"collective": 0, "hub": 0, path: reduces}
+    check(rec["peers"] == (0 if route is None else 1) and rec["paths"] == want,
+          f"phase 27 {run} {tag}: {rec['peers']} peer daemon(s), reduce paths {rec['paths']} "
+          f"== {want} (one reduce a scan)")
+    frame_gib = rec["scans"] * n * (P27_RUNS[run][1] + 1) * 4 / 2 ** 30
+    print(f"phase 27 {run} {tag}: {n} rows x {P27_RUNS[run][1]}, {rec['scans']} scans in "
+          f"{rec['s']:.3f} s: {n * rec['scans'] / rec['s']:.1f} rows/s through the daemons, "
+          f"{frame_gib / rec['s']:.2f} GiB/s of frames (host clock)", flush=True)
+    return model, rec
+
+
+def p27_reduce_cost(rec, tag, state_bytes) -> str:
+    """One pass's reduce on the path ``rec`` ran: the driver's and the
+    primary daemon's host-clock ms a scan and the bytes moved."""
+    spans, scans = rec["spans"], rec["scans"]
+
+    def ms(name):
+        return 1e3 * spans.get(name, (0.0, 0))[0] / scans
+
+    merge = ms("daemon merge")
+    if rec["paths"]["collective"]:
+        return (f"{tag}: reduce_mesh {ms('reduce mesh'):.3f} ms a pass (the daemon's device add "
+                f"{merge:.3f} ms), 0 wire bytes, {3 * state_bytes} device bytes (two states "
+                f"read, one written)")
+    return (f"{tag}: export_state {ms('export state'):.3f} ms + merge_state "
+            f"{ms('merge state'):.3f} ms a pass (the primary's add "
+            f"{'not in this process' if not merge else f'{merge:.3f} ms'}), "
+            f"{2 * state_bytes} wire bytes (the state out of the peer, then into the primary)")
+
+
+def p27_same(np, pairs, tag) -> None:
+    """Each (name, got, want) array pair bitwise equal."""
+    for name, g, w in pairs:
+        g, w = np.asarray(g), np.asarray(w)
+        same = g.shape == w.shape and g.dtype == w.dtype and np.array_equal(g, w)
+        diff = float(np.abs(g.astype(np.float64) - w.astype(np.float64)).max()) \
+            if g.shape == w.shape else float("nan")
+        check(same, f"{tag}: {name} bitwise equal (max diff {diff:.3e})")
+
+
+def p27_attrs(model, ref, attrs):
+    return [(a, getattr(model, a), getattr(ref, a)) for a in attrs]
+
+
+def _p27_daemon(out, stop, device):
+    """Phase 27b's daemon process: one port daemon on ``device`` (the card),
+    as on an executor host of its own. Reports its port, serves until
+    ``stop``, then reports its kernel launches."""
+    try:
+        from spark_rapids_ml_tpu_torch.ops import kernels
+        from spark_rapids_ml_tpu_torch.serve import DataPlaneDaemon
+
+        daemon = DataPlaneDaemon(host="127.0.0.1", port=0, device=device).start()
+    except Exception as e:  # noqa: BLE001 - reported to the parent
+        out.put(("err", repr(e)))
+        return
+    out.put(("ready", daemon.address[1]))
+    stop.wait()
+    daemon.stop()
+    out.put(("launches", dict(kernels.LAUNCHES)))
+
+
+def phase_multidaemon(torch, kernels, config):
+    """Phase 27: the fits across daemons. Returns {kernel: launches} of the
+    two-daemon fits and served calls of part a."""
+    import multiprocessing as mp
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch import (
+        PCA,
+        ApproximateNearestNeighbors,
+        KMeans,
+        LinearRegression,
+        LogisticRegression,
+        NearestNeighbors,
+        RandomForestClassifier,
+    )
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.spark import estimator as est
+    from spark_rapids_ml_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    print(f"phase 27: the fits across daemons, {DP_PARTITIONS} task processes (spawn, reused) x "
+          f"feed_raw frames of {DP_ROWS} rows; partitions {P27_PEER_PARTS[0]}-"
+          f"{P27_PEER_PARTS[-1]} feed the second daemon, partition {SPARK_DYING}'s attempt 0 "
+          f"dies after one feed in each fit's first scan", flush=True)
+    out = {k: 0 for k in P27_KERNELS}
+
+    def count(launches):
+        for k in P27_KERNELS:
+            out[k] += launches.get(k, 0)
+
+    def rate(rec):
+        return rec["rows"] * rec["scans"] / rec["s"]
+
+    def beside(key):
+        r = ONE_DAEMON_RATES.get(key)
+        return f"{key} {'not run' if r is None else f'{r:.1f}'}"
+
+    pca_bytes = 4 * (1 + D + D * D)
+    with DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as a, \
+            DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as b:
+        t_spawn = time.perf_counter()
+        pool = _P21Pool(a.address, P27_RUNS)
+        print(f"phase 27 tasks ready (spawned, imported the port) in "
+              f"{time.perf_counter() - t_spawn:.1f} s", flush=True)
+        route = {p: b.address for p in P27_PEER_PARTS}
+        both = [a.address, b.address]
+        try:
+            def fit(run, drive, tag, **kw):
+                return p27_fit(torch, kernels, est, profiling, pool, a.address, run, drive, tag,
+                               **kw)
+
+            # -- a. PCA on {-1, 0, 1} rows: one daemon, the collective, the hub --
+            pool.prepare("pca-int")
+            pca_core = PCA(device=DEV).setK(K)
+
+            def drive_pca(f, rp):
+                return est._drive_pca(f, rp, pca_core)
+
+            pca_one, r_one = fit("pca-int", drive_pca, "one daemon")
+            pca_coll, r_coll = fit("pca-int", drive_pca, "collective", route=route)
+            pca_hub, r_hub = fit("pca-int", drive_pca, "hub", route=route, hub=True)
+            folded = DP_PARTITIONS * DP_FEEDS + 1  # every frame and the dying attempt's one
+            for tag, r in (("one daemon", r_one), ("collective", r_coll), ("hub", r_hub)):
+                check(r["launches"]["gram_colsum"] == folded
+                      and r["routes"]["gram_colsum/wgmma"] == folded
+                      and sum(r["launches"].values()) == folded,
+                      f"phase 27 pca-int {tag}: gram_colsum launches "
+                      f"{r['launches']['gram_colsum']} == folded feeds {folded} over both "
+                      f"daemons, all wgmma, no other kernel")
+            count(r_coll["launches"])
+            count(r_hub["launches"])
+            attrs = ("pc", "explainedVariance", "mean")
+            p27_same(np, p27_attrs(pca_coll, pca_one, attrs),
+                     "phase 27 pca-int: two daemons (collective) vs one daemon")
+            p27_same(np, p27_attrs(pca_hub, pca_coll, attrs),
+                     "phase 27 pca-int: the hub vs the collective")
+            print(f"phase 27 pca-int reduce per pass (d = {D}, a state of "
+                  f"{pca_bytes} bytes): " + p27_reduce_cost(r_coll, "collective", pca_bytes)
+                  + "; " + p27_reduce_cost(r_hub, "hub", pca_bytes), flush=True)
+
+            # -- PCA on phase 20's gaussian rows, two daemons: held to float64 ---
+            pool.prepare("pca")
+            pca_g, r_g = fit("pca", drive_pca, "collective", route=route)
+            count(r_g["launches"])
+            check(r_g["launches"]["gram_colsum"] == folded,
+                  f"phase 27 pca: gram_colsum launches {r_g['launches']['gram_colsum']} == "
+                  f"{folded}")
+            n_rows = p27_rows("pca")
+            count64 = torch.tensor(float(n_rows), dtype=torch.float64, device=DEV)
+            colsum = torch.zeros(D, dtype=torch.float64, device=DEV)
+            gram = torch.zeros((D, D), dtype=torch.float64, device=DEV)
+            keys = [(p, f) for p in range(DP_PARTITIONS) for f in range(DP_FEEDS)]
+            with ThreadPoolExecutor(max_workers=8) as ex:
+                for x in ex.map(lambda pf: spark_rows(np, pf[0], pf[1], DP_ROWS, D, K), keys):
+                    xd = torch.from_numpy(x).to(DEV).double()
+                    gram.addmm_(xd.T, xd)
+                    colsum.add_(xd.sum(0))
+                    del xd
+            pc_ref, ev_ref, gap = reference_pca(count64, colsum, gram, K)
+            del gram, colsum
+            err = sign_aligned_err(pca_g.pc, pc_ref)
+            ev_err = float((torch.as_tensor(pca_g.explainedVariance, device=DEV)
+                            - ev_ref).abs().max())
+            check(err <= 1e-3 and ev_err <= 1e-4,
+                  f"phase 27 pca (gaussian, two daemons) vs float64 of the same rows: max "
+                  f"sign-aligned err {err:.3e} (tol 1e-3; eigengap {gap:.3e}), σ/Σσ {ev_err:.3e} "
+                  f"(tol 1e-4) (phase 20's tolerances)")
+            print(f"phase 27 rows/s: pca-int one daemon {rate(r_one):.1f}, collective "
+                  f"{rate(r_coll):.1f}, hub {rate(r_hub):.1f}, pca (gaussian) collective "
+                  f"{rate(r_g):.1f}; {beside('phase 20 pca')}", flush=True)
+
+            # -- LinearRegression on {-1, 0, 1} rows: one daemon, two -------------
+            pool.prepare("linreg-int")
+            lr_core = LinearRegression(device=DEV)
+
+            def drive_lr(f, rp):
+                return est._drive_linreg(f, rp, lr_core)
+
+            lr_one, r1 = fit("linreg-int", drive_lr, "one daemon")
+            lr_two, r2 = fit("linreg-int", drive_lr, "collective", route=route)
+            folded = 2 * DP_PARTITIONS + 1
+            check(r2["launches"]["linreg_stats"] == folded
+                  and r2["routes"]["linreg_stats/wgmma"] == folded,
+                  f"phase 27 linreg-int: linreg_stats launches {r2['launches']['linreg_stats']} "
+                  f"== folded feeds {folded}, all wgmma")
+            count(r2["launches"])
+            p27_same(np, p27_attrs(lr_two, lr_one, ("coefficients", "intercept")),
+                     "phase 27 linreg-int: two daemons vs one daemon")
+            check(lr_two.summary.rmse == lr_one.summary.rmse
+                  and lr_two.summary.r2 == lr_one.summary.r2,
+                  f"phase 27 linreg-int: rmse {lr_two.summary.rmse!r} and r2 "
+                  f"{lr_two.summary.r2!r} equal to one daemon's")
+            print(f"phase 27 rows/s: linreg-int one daemon {rate(r1):.1f}, two daemons "
+                  f"{rate(r2):.1f}; {beside('phase 21 linreg')}", flush=True)
+
+            # -- multinomial LogisticRegression: one daemon, two ------------------
+            pool.prepare("logreg-multinomial")
+            mn_core = (LogisticRegression(device=DEV).setRegParam(LG_REG).setMaxIter(P21_PASSES)
+                       .setTol(0.0))
+
+            def drive_mn(f, rp):
+                return est._drive_logreg(f, rp, mn_core, MN_CLASSES)
+
+            mn_one, r1 = fit("logreg-multinomial", drive_mn, "one daemon")
+            mn_two, r2 = fit("logreg-multinomial", drive_mn, "collective", route=route)
+            folded = DP_PARTITIONS * r2["scans"] + 1
+            check(r1["scans"] == r2["scans"] == P21_PASSES
+                  and r2["launches"]["softmax_curvature"] == folded
+                  and r2["routes"]["softmax_curvature/wgmma"] == folded,
+                  f"phase 27 multinomial: {r1['scans']} and {r2['scans']} passes == "
+                  f"{P21_PASSES}; softmax_curvature launches "
+                  f"{r2['launches']['softmax_curvature']} == folded feeds {folded}, all wgmma")
+            count(r2["launches"])
+            scale = float(np.abs(mn_one.coefficients).max())
+            err_w = float(np.abs(mn_two.coefficients - mn_one.coefficients).max()) / scale
+            err_b = float(np.abs(mn_two.intercept - mn_one.intercept).max()) / scale
+            # Tolerance: phase 21's (3e-5 and 1e-3 of max|W|): the same f32
+            # statistics summed in another order through five MM steps.
+            check(err_w <= 3e-5 and err_b <= 1e-3,
+                  f"phase 27 multinomial: two daemons vs one daemon, max err W {err_w:.3e} (tol "
+                  f"3e-5), b {err_b:.3e} (tol 1e-3) of max|W| {scale:.4f}")
+            print(f"phase 27 rows/s: multinomial one daemon {rate(r1):.1f}, two daemons "
+                  f"{rate(r2):.1f}; {beside('phase 21 logreg-multinomial')}", flush=True)
+
+            # -- KMeans: both daemons seeded through resolve_all ------------------
+            pool.prepare("kmeans")
+            km_sample = p21_frame(np, P27_RUNS, "kmeans", 0, 0)[0][:est._kmeans_seed_rows(KM_K)]
+            km_core = (KMeans(device=DEV).setK(KM_K).setMaxIter(KM_MAX_ITER).setTol(KM_TOL)
+                       .setSeed(P27_SEED))
+
+            def drive_km(f, rp):
+                return est._drive_kmeans(f, rp, km_core, km_sample)
+
+            km_one, r1 = fit("kmeans", drive_km, "one daemon")
+            km_two, r2 = fit("kmeans", drive_km, "collective", route=route, addresses=both)
+            check(sum(r2["launches"].values()) == 0
+                  and km_two.summary.numIter == km_one.summary.numIter
+                  and r2["scans"] == km_two.summary.numIter + 1,
+                  f"phase 27 kmeans: {km_two.summary.numIter} Lloyd passes as one daemon's "
+                  f"{km_one.summary.numIter}, and the cost scan; no kernel (the reference's "
+                  f"daemon folds kmeans without one)")
+            err_c = float(np.abs(km_two.centers - km_one.centers).max())
+            cost = abs(km_two.summary.trainingCost - km_one.summary.trainingCost) \
+                / km_one.summary.trainingCost
+            # Tolerance: phase 21's (1e-6 of the centres and the cost): the same
+            # f32 sums of the same rows in another order.
+            check(err_c <= 1e-6 and cost <= 1e-6,
+                  f"phase 27 kmeans: two daemons vs one daemon, centres max err {err_c:.3e}, "
+                  f"cost rel err {cost:.3e} (tol 1e-6 each)")
+            print(f"phase 27 rows/s: kmeans one daemon {rate(r1):.1f}, two daemons "
+                  f"{rate(r2):.1f}; {beside('phase 21 kmeans')}", flush=True)
+
+            # -- the HIGGS-shape forest: both daemons seeded through resolve_all --
+            pool.prepare("higgs")
+            rf_sample = rf_frame(np, P27_RUNS, "higgs", 0, 0)[0]  # the prefix of partition 0
+            rf_core = RandomForestClassifier(device=DEV).setSeed(RF_SEED)
+
+            def drive_rf(f, rp):
+                return est._drive_forest(f, rp, rf_core, rf_sample, 2)
+
+            rf_one, r1 = fit("higgs", drive_rf, "one daemon")
+            rf_two, r2 = fit("higgs", drive_rf, "collective", route=route, addresses=both)
+            check(sum(r2["launches"].values()) == 0 and r1["scans"] == r2["scans"],
+                  f"phase 27 higgs forest: {r2['scans']} passes as one daemon's {r1['scans']}, "
+                  f"no hand-written kernel")
+            check(sorted(rf_two.arrays) == sorted(rf_one.arrays),
+                  "phase 27 higgs forest: the same tables")
+            p27_same(np, [(k, rf_two.arrays[k], rf_one.arrays[k]) for k in sorted(rf_one.arrays)],
+                     "phase 27 higgs forest: two daemons vs one daemon")
+            print(f"phase 27 rows/s: higgs forest one daemon {rate(r1):.1f}, two daemons "
+                  f"{rate(r2):.1f} ({r2['scans']} passes)", flush=True)
+
+            # -- exact and IVF knn: one daemon, two shards ------------------------
+            pool.prepare("knn")
+            n_rows = p27_rows("knn")
+            rows = np.empty((n_rows, KNN_D), np.float32)  # partition-major
+            knn_keys = [(p, f) for p in range(DP_PARTITIONS) for f in range(DP_FEEDS)]
+
+            def fill(i):
+                rows[i * DP_ROWS:(i + 1) * DP_ROWS] = knn_frame(np, *knn_keys[i], DP_ROWS,
+                                                                KNN_D, KNN_CLUSTERS)
+
+            with ThreadPoolExecutor(max_workers=8) as ex:
+                list(ex.map(fill, range(len(knn_keys))))
+            qs = knn_frame(np, DP_PARTITIONS, 0, KNN_QUERIES, KNN_D, KNN_CLUSTERS)
+            x_dev, q_dev = torch.from_numpy(rows).to(DEV), torch.from_numpy(qs).to(DEV)
+            del rows
+
+            def served(model, counted):
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                model.kneighbors(qs)  # the index upload
+                t0 = time.perf_counter()
+                dd, ii = model.kneighbors(qs)
+                s = time.perf_counter() - t0
+                if counted:
+                    count(kernels.LAUNCHES)
+                return dd, ii, KNN_QUERIES / s, dict(kernels.LAUNCHES)
+
+            def build_s(rec):
+                return "phase 22's" if rec is None else \
+                    f"{rec['spans'].get('knn build', (0.0, 0))[0]:.3f} s"
+
+            def drive_knn(core):
+                return lambda f, rp: est._drive_knn(f, rp, core)
+
+            # The one-daemon answers: phase 22's, from the same rows and
+            # queries, when it ran in this call; else a one-daemon fit here.
+            exact = drive_knn(NearestNeighbors(device=DEV).setK(KNN_K))
+            if "exact_answer" in P22_SERVED:
+                d1, i1 = P22_SERVED["exact_answer"]
+                r1, qps1 = None, P22_SERVED["exact"][1]
+            else:
+                nn_one, r1 = fit("knn", exact, "exact one daemon")
+                d1, i1, qps1, _ = served(nn_one, False)
+                nn_one.release()
+            nn_two, r2 = fit("knn", exact, "exact two shards", route=route)
+            want_shards = [("%s:%d" % a.address, n_rows // 2), ("%s:%d" % b.address, n_rows // 2)]
+            check(nn_two.shards == want_shards and nn_two.numRows == n_rows
+                  and sum(r2["launches"].values()) == 0,
+                  f"phase 27 exact knn: shards {nn_two.shards} == {want_shards}, no kernel at "
+                  f"the build")
+            d2, i2, qps2, launches = served(nn_two, True)
+            check(launches["dist_topk"] == 4 and sum(launches.values()) == 4,
+                  f"phase 27 exact knn served: dist_topk launches {launches['dist_topk']} == 2 "
+                  f"calls x 2 shards, no other kernel")
+            # Tolerance: phase 16's, 4e-6 of the largest ‖q‖² + ‖r‖² of the
+            # rounded rows; ids must equal one daemon's wherever the gap to the
+            # next distance exceeds it.
+            cd = config.compute_dtype(DEV)
+            xr, qr = x_dev.to(cd), q_dev.to(cd)
+            tol = 4e-6 * (float(kernels.row_sq_norms(qr).max())
+                          + float(kernels.row_sq_norms(xr).max()))
+            del xr, qr
+            check_selection(torch, f"phase 27 exact knn: two shards vs one daemon (tol "
+                            f"{tol:.2e})", torch.as_tensor(d2, device=DEV) ** 2,
+                            torch.as_tensor(i2, device=DEV), torch.as_tensor(d1, device=DEV) ** 2,
+                            torch.as_tensor(i1, device=DEV), tol)
+            check(nn_two.release() and not a._models and not b._models,
+                  "phase 27 exact knn: every shard released")
+            p22 = P22_SERVED.get("exact")
+            print(f"phase 27 exact knn: build {build_s(r1)} one daemon, {build_s(r2)} two "
+                  f"shards; served q/s one daemon {qps1:.1f}, two shards {qps2:.1f}; phase 22 "
+                  f"{'not run' if p22 is None else f'build {p22[0]:.3f} s, {p22[1]:.1f} q/s'}",
+                  flush=True)
+
+            ivf = drive_knn(ApproximateNearestNeighbors(device=DEV).setK(KNN_K)
+                            .setNlist(KNN_NLIST).setNprobe(KNN_NPROBE))
+            gt_d, gt_i = brute_force64(torch, x_dev, q_dev, KNN_K)
+            del x_dev, q_dev
+            if "ivf_recall" in P22_SERVED:
+                r1, qps1, recall1 = None, P22_SERVED["ivf"][1], P22_SERVED["ivf_recall"]
+            else:
+                ann_one, r1 = fit("knn", ivf, "ivf one daemon")
+                _, ia1, qps1, _ = served(ann_one, False)
+                recall1 = recall_at(ia1, gt_i)
+                ann_one.release()
+            ann_two, r2 = fit("knn", ivf, "ivf two shards", route=route)
+            lb = r2["launches"]
+            check(ann_two.shards == want_shards and lb["lloyd_step"] >= 1
+                  and lb["assign_min_dist"] >= 2 and lb["dist_topk"] >= 1,
+                  f"phase 27 ivf: shards {ann_two.shards}; the build's launches: lloyd_step "
+                  f"{lb['lloyd_step']} (the owner's quantizer), assign_min_dist "
+                  f"{lb['assign_min_dist']} (both shards' assignment), dist_topk "
+                  f"{lb['dist_topk']} (spill candidates)")
+            count(lb)
+            name = ann_two.daemon_model_name
+            cent = [d._lookup_model(name).model.index.centroids for d in (a, b)]
+            check(bool(torch.equal(torch.as_tensor(cent[0]), torch.as_tensor(cent[1]))),
+                  "phase 27 ivf: both shards bucket against one quantizer (centroids bitwise "
+                  "equal)")
+            _, ia2, qps2, launches = served(ann_two, True)
+            check(launches["probe_select"] == 4 and launches["ivf_scan_select"] == 4,
+                  f"phase 27 ivf served: probe_select {launches['probe_select']} and "
+                  f"ivf_scan_select {launches['ivf_scan_select']} == 2 calls x 2 shards")
+            recall2 = recall_at(ia2, gt_i)
+            check(abs(recall2 - recall1) <= 0.02,
+                  f"phase 27 ivf recall@{KNN_K} (nprobe {KNN_NPROBE}) vs float64: two shards "
+                  f"{recall2:.4f}, one daemon {recall1:.4f} (within 0.02)")
+            for d in (a, b):
+                d._lookup_model(name).model._set(nprobe=KNN_NLIST)
+            _, ia_all = ann_two.kneighbors(qs)
+            recall_all = recall_at(ia_all, gt_i)
+            check(recall_all >= 0.98, f"phase 27 ivf two shards, every list probed (nprobe "
+                                      f"{KNN_NLIST}): recall@{KNN_K} {recall_all:.4f} >= 0.98")
+            check(ann_two.release() and not a._models and not b._models,
+                  "phase 27 ivf: every shard released")
+            p22 = P22_SERVED.get("ivf")
+            print(f"phase 27 ivf: build {build_s(r1)} one daemon, {build_s(r2)} two shards (the "
+                  f"cross-daemon sample, the owner's quantizer, then the other shard); served "
+                  f"q/s one daemon {qps1:.1f}, two shards {qps2:.1f}; phase 22 "
+                  f"{'not run' if p22 is None else f'build {p22[0]:.3f} s, {p22[1]:.1f} q/s'}",
+                  flush=True)
+            del gt_d, gt_i
+            torch.cuda.empty_cache()
+            missing = [k for k in P27_KERNELS if out[k] == 0]
+            check(not missing, f"phase 27a: every kernel of the path launched in the two-daemon "
+                               f"fits and served calls: {out}")
+
+            # -- b. two daemon processes on the one card: the hub across processes -
+            ctx = mp.get_context("spawn")  # never fork a process that holds a CUDA context
+            qd, stop = ctx.Queue(), ctx.Event()
+            procs = [ctx.Process(target=_p27_daemon, args=(qd, stop, DEV), daemon=True)
+                     for _ in range(2)]
+            t_spawn = time.perf_counter()
+            for proc in procs:
+                proc.start()
+            try:
+                msgs = [qd.get(timeout=P27_DAEMON_TIMEOUT_S) for _ in procs]
+                bad = [m for m in msgs if m[0] != "ready"]
+                check(not bad, f"phase 27b: both daemon processes up: {msgs}")
+                pa, pb = (("127.0.0.1", m[1]) for m in msgs)
+                print(f"phase 27b: two daemon processes on the card up in "
+                      f"{time.perf_counter() - t_spawn:.1f} s", flush=True)
+                pool.prepare("pca-int")
+                route_b = {p: (pb if p in P27_PEER_PARTS else pa) for p in range(DP_PARTITIONS)}
+                pca_p, r_p = p27_fit(torch, kernels, est, profiling, pool, pa, "pca-int",
+                                     drive_pca, "two processes", route=route_b,
+                                     other_process=True)
+                p27_same(np, p27_attrs(pca_p, pca_one, attrs),
+                         "phase 27b pca-int: two daemon processes vs one daemon")
+                stop.set()
+                msgs = [qd.get(timeout=60) for _ in procs]
+                folded = DP_PARTITIONS * DP_FEEDS + 1
+                per = [m[1].get("gram_colsum", 0) for m in msgs if m[0] == "launches"]
+                check(len(per) == 2 and sum(per) == folded,
+                      f"phase 27b: gram_colsum launches in the daemon processes {per} sum to "
+                      f"the folded feeds {folded}")
+                print("phase 27b pca-int reduce per pass: "
+                      + p27_reduce_cost(r_p, "hub across processes", pca_bytes), flush=True)
+                print(f"phase 27 rows/s, pca-int: two daemon processes {rate(r_p):.1f}, two "
+                      f"daemons in this process {rate(r_coll):.1f}, one daemon {rate(r_one):.1f}; "
+                      f"{beside('phase 20 pca')}", flush=True)
+            finally:
+                stop.set()
+                for proc in procs:
+                    proc.join(timeout=30)
+                    if proc.is_alive():
+                        proc.terminate()
+                        proc.join(timeout=10)
+        finally:
+            pool.close()
+    torch.cuda.empty_cache()
+    print(f"phase 27: {time.perf_counter() - t_phase:.1f} s; multidaemon_launches {out}",
+          flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -5162,6 +5756,14 @@ def main() -> None:
             if any(w in line for w in ("registers", "spill", "Compiling entry", "warning",
                                        "wgmma", "setmaxnreg")):
                 print(f"  ptxas {name}: {line.strip()}")
+
+    if "--multi-daemon" in sys.argv[1:]:
+        # Phase 27 alone.
+        phase_multidaemon(torch, kernels, config)
+        print(card)
+        print(f"phase 27 passed ({time.perf_counter() - t_start:.1f} s); --multi-daemon: "
+              "stopping here", flush=True)
+        return
 
     if "--multi-process" in sys.argv[1:]:
         # Phase 26 alone.
@@ -5602,6 +6204,10 @@ def main() -> None:
     # -- 26. the fits across processes: an NCCL world of one, two gloo ranks --------------
     for name, n in phase_multiprocess(torch, card, stream_rate).items():
         next(row for row in table if row["name"] == name)["multiprocess_launches"] = n
+
+    # -- 27. the fits across daemons: two daemons on the card, then two processes ---------
+    for name, n in phase_multidaemon(torch, kernels, config).items():
+        next(row for row in table if row["name"] == name)["multidaemon_launches"] = n
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "

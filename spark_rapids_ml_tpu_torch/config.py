@@ -3,8 +3,9 @@
 The counterpart of ``spark_rapids_ml_tpu/config.py``, cut to the keys the
 port reads (PCA, KMeans, LinearRegression, LogisticRegression,
 NearestNeighbors and ApproximateNearestNeighbors, the random forests, the
-data-plane daemon's watermarks, the Spark fit policies, the native
-bridge, the default mesh's axes and the metrics switch).
+data-plane daemon's watermarks, the Spark fit policies, the multi-daemon
+reduce path, the native bridge, the default mesh's axes and the metrics
+switch).
 Values are settable programmatically or through environment variables
 prefixed ``SRML_TORCH_`` — a prefix of its own, so the port never inherits
 the JAX package's ``SRML_TPU_*`` settings; the deployment-facing
@@ -79,11 +80,11 @@ _DEFAULTS: Dict[str, Any] = {
     # daemon incarnation change; 0 = off, a restart mid-fit fails loudly.
     "fit_recovery_attempts": int(_env("FIT_RECOVERY_ATTEMPTS", "0")),
     # Peer daemons one fit may declare dead (0 = off). The port's Spark fit
-    # refuses a tolerance above 0: the elastic fit comes with the
-    # multi-daemon plane.
+    # refuses a tolerance above 0: the elastic fit is ROADMAP Queue 1
+    # item 6b.
     "fit_daemon_loss_tolerance": int(_env("FIT_DAEMON_LOSS_TOLERANCE", "0")),
     # Admission of a daemon that appears mid-fit: "off" or "boundary" (which
-    # the port's Spark fit refuses for now). Deployment-facing env name, as
+    # the port's Spark fit refuses until item 6b). Deployment-facing env name, as
     # in the JAX package.
     "fit_daemon_join_policy": os.environ.get("SRML_FIT_DAEMON_JOIN_POLICY", "off"),
     # Histogram tree ensembles (models/random_forest.py); deployment-facing
@@ -99,6 +100,13 @@ _DEFAULTS: Dict[str, Any] = {
     # above 1 (the feature-sharded Gram) is refused until its slice lands.
     "mesh_data_axis": int(_env("MESH_DATA_AXIS", "0")) or None,
     "mesh_model_axis": int(_env("MESH_MODEL_AXIS", "1")),
+    # On-mesh collective reduce of a multi-daemon fit (spark/estimator.py):
+    # when every daemon a pass fed is a member of the primary's process-wide
+    # registry (parallel/membership.py), one ``reduce_mesh`` op folds the
+    # peers' partials on the device instead of the driver's export/merge
+    # hub. False forces the hub everywhere (the path the collective one is
+    # held to bitwise).
+    "mesh_collectives": _env("MESH_COLLECTIVES", "true").lower() not in ("0", "false", "off"),
     # Metrics registry master switch (utils/metrics.py): False turns every
     # counter/gauge/histogram record into an early return.
     "metrics": _env("METRICS", "true").lower() not in ("0", "false", "off"),

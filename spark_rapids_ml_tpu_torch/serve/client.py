@@ -7,7 +7,10 @@ Arrow library), commits, and closes; the Spark driver (or any one caller)
 finalizes, and for an iterative job (kmeans, logreg, rf) runs the passes:
 ``seed_kmeans`` (a forest's creating ``set_iterate``), then per pass the
 scan and ``step``, with
-``get_iterate``/``set_iterate`` for its recovery ledger. A knn job's
+``get_iterate``/``set_iterate`` for its recovery ledger and its peer
+daemons. A fit across daemons folds each peer's partials into the primary
+with ``export_state`` + ``merge_state`` (the hub) or one ``reduce_mesh``
+(peers in the primary's process, after ``mesh_info``). A knn job's
 ``finalize_knn`` builds and registers its index on the daemon, which then
 answers ``kneighbors`` (Arrow, or ``kneighbors_raw`` without an Arrow
 library). Socket work only: no device work happens here.
@@ -18,8 +21,9 @@ failure (``ConnectionError``, ``ProtocolError``, a socket timeout, any
 (utils/retry.py), reconnects and replays the op. Replay is exactly-once:
 ``feed``/``feed_raw`` carry a ``feed_id`` minted once per op that the
 daemon dedupes, ``step`` a ``step_id`` whose replay returns the applied
-step's info, ``commit``, ``seed`` and ``set_iterate`` are idempotent by
-design, and reads are pure. A
+step's info, ``merge_state`` a ``merge_id`` and ``reduce_mesh`` a
+``reduce_id`` that fold once, ``commit``, ``seed`` and ``set_iterate`` are
+idempotent by design, and reads are pure. A
 per-op deadline (``op_deadline_s``) bounds the TOTAL time spent healing
 one op and clamps each attempt's socket timeout. A ``busy`` response is
 honoured by waiting the daemon's ``retry_after_s`` hint (jittered) without
@@ -545,6 +549,49 @@ class DataPlaneClient:
         resp, arrays = self._op({"op": "export_state", "job": job}, want_arrays=True)
         meta = {k: v for k, v in resp.items() if k not in ("ok", "arrays")}
         return arrays, meta
+
+    # -- cross-daemon merges -----------------------------------------------
+
+    def merge_state(self, job: str, arrays: Dict[str, np.ndarray], rows: int,
+                    algo: str = "pca", n_cols: Optional[int] = None,
+                    params: Optional[Dict[str, Any]] = None) -> int:
+        """Fold a peer daemon's exported state (:meth:`export_state`'s
+        arrays) into ``job``, creating it when absent (``algo``, ``n_cols``
+        and ``params`` as a first feed's). ``rows`` is the exporter's
+        committed contribution; returns the job's new total. The request
+        carries a fresh ``merge_id``, so a replay folds once."""
+        resp = self._send_arrays_op(
+            {"op": "merge_state", "job": job, "algo": algo, "n_cols": n_cols,
+             "params": params or {}, "rows": int(rows), "merge_id": self._op_id()},
+            arrays,
+        )
+        return int(resp["rows"])
+
+    def mesh_info(self) -> Dict[str, Any]:
+        """The membership snapshot of the daemon's device plane: ``epoch``
+        (bumped by every join, leave and reboot), ``members`` (``id``,
+        ``boot_id``, ``joined_epoch``), ``n_devices``, and the daemon's own
+        ``id`` and ``boot_id``. A driver reads it each pass to choose the
+        collective reduce or the hub, and stamps ``epoch`` on
+        :meth:`reduce_mesh`."""
+        resp, _ = self._roundtrip({"op": "mesh_info"})
+        return {k: v for k, v in resp.items() if k != "ok"}
+
+    def reduce_mesh(self, job: str, *, epoch: int, peers: Dict[str, Dict[str, Any]],
+                    algo: str = "pca", params: Optional[Dict[str, Any]] = None,
+                    drop_peers: bool = False) -> Dict[str, Any]:
+        """Fold every named co-resident peer's committed pass partials into
+        ``job`` on the daemon's device. ``peers``: {peer id: {"boot_id",
+        "rows", "partitions"}}, the driver's task-ack accounting, which the
+        daemon checks against each peer's live job before anything folds.
+        ``epoch`` must be the one :meth:`mesh_info` reported. The request
+        carries a fresh ``reduce_id``, so a replay folds once."""
+        resp, _ = self._op({
+            "op": "reduce_mesh", "job": job, "epoch": int(epoch), "peers": peers,
+            "algo": algo, "params": params or {}, "drop_peers": bool(drop_peers),
+            "reduce_id": self._op_id(),
+        })
+        return resp
 
     # -- model serving -----------------------------------------------------
 

@@ -71,13 +71,23 @@ reads only the Arrow form. An ivf finalize always runs the host-bucketed
 ``build_ivf_flat`` (``build`` "auto" or "host"); the reference's device
 build (``build="device"``, and "auto" under its HBM cap) is refused.
 
-Left for later slices of the port, each answered "unknown op" with its
-payload drained: ``merge_state``, ``reduce_mesh`` and ``mesh_info`` (the
-multi-daemon plane, ROADMAP Queue 1 items 5–6); durable ``state_dir``
-snapshots (a forest's restore at its boundary too), faults, the
-health/metrics/telemetry ops, the serving scheduler and AOT warmup (item
-7). A feed naming an unknown ``algo``, or an ``ensure_model`` naming an
-unknown model, is refused before a job or model is registered.
+The multi-daemon fit plane: ``merge_state`` folds a peer daemon's
+exported state into a job (the driver's hub), and ``mesh_info`` and
+``reduce_mesh`` serve the collective path. Every daemon registers
+``(instance_id, boot_id)`` in the process-wide membership registry
+(``parallel/membership.py``) at ``start()`` and leaves it at ``stop()``;
+``reduce_mesh`` folds the pass partials of peers in that registry, which
+share this process's device plane, straight from their job states. A
+merge adds tensors elementwise, the job's own state the left operand and
+the peers in sorted-id order, so the two paths agree bitwise. A knn job
+refuses to merge: its state is the dataset.
+
+Left for later slices of the port: the fault sites of the elastic fit
+(ROADMAP Queue 1 item 6b); durable ``state_dir`` snapshots (a forest's
+restore at its boundary too), the health/metrics/telemetry ops (answered
+"unknown op" with their payload drained), the serving scheduler and AOT
+warmup (item 7). A feed naming an unknown ``algo``, or an ``ensure_model``
+naming an unknown model, is refused before a job or model is registered.
 """
 
 from __future__ import annotations
@@ -104,8 +114,10 @@ from spark_rapids_ml_tpu_torch.models.pca import PCAModel, finalize_pca_stats
 from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel
 from spark_rapids_ml_tpu_torch.ops import gram as gram_ops
 from spark_rapids_ml_tpu_torch.ops import histogram as hist_ops
+from spark_rapids_ml_tpu_torch.parallel import membership as membership_mod
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device
 from spark_rapids_ml_tpu_torch.serve import protocol
+from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
@@ -136,6 +148,12 @@ _SHEDDABLE_OPS = ("feed", "feed_raw", "seed", "transform", "kneighbors", "ensure
 
 #: Process-wide device lock (see the module docstring): taken innermost.
 _DEVICE_LOCK = threading.Lock()
+
+_M_MESH_REDUCES = metrics_mod.counter(
+    "srml_daemon_mesh_reduces_total",
+    "On-mesh collective reduces applied (reduce_mesh op: co-resident "
+    "peer partials folded on the device plane, no driver hub), by algo",
+)
 
 #: Cap on a request's declared raw-array frames (_recv_arrays_aligned): a
 #: PCA model registration carries 3 arrays; 16 leaves headroom without
@@ -324,6 +342,9 @@ class _Job:
         self.committed: Dict[int, int] = {}
         self.staged_bytes = 0
         self._seen_feed_ids = _FifoSet()
+        # The merge_state merge_ids and reduce_mesh reduce_ids already
+        # applied: a replay of either folds at most once.
+        self._seen_merge_ids = _FifoSet()
         # Step idempotency: a replayed step carrying the id of the step
         # already applied gets the cached info back.
         self._last_step_id: Optional[str] = None
@@ -677,6 +698,119 @@ class _Job:
             }
             self.touched = self._clock()
             return arrays, meta
+
+    # -- cross-daemon merges -----------------------------------------------
+
+    def _require_mergeable(self) -> None:
+        if self.algo == "knn":
+            raise ValueError(
+                "knn job state is the dataset itself and does not reduce across daemons "
+                "(build per-daemon shards instead; docs/protocol.md)")
+
+    def _check_leaves(self, who: str, incoming) -> None:
+        """The peer's leaves must match the job's state leaf for leaf."""
+        if len(incoming) != len(self.state):
+            raise ValueError(f"{who} has {len(incoming)} leaves; job state has "
+                             f"{len(self.state)} (algo/params mismatch between daemons?)")
+        for i, (leaf, inc) in enumerate(zip(self.state, incoming)):
+            if tuple(inc.shape) != tuple(leaf.shape):
+                raise ValueError(f"{who} array s{i} shape {tuple(inc.shape)} != job state "
+                                 f"shape {tuple(leaf.shape)}")
+
+    def _fold_peers_locked(self, peer_states, rows: int, op_id: Optional[str]) -> int:
+        """Add each peer's leaves to the job's state, in the given order,
+        the job's own state the left operand (call under the job lock).
+        A leaf on another device, or in another dtype, is moved to the
+        job's first. The hub (one ``merge_state`` a peer) and the
+        collective reduce make the same additions in the same order, so
+        they agree bitwise. ``op_id`` is burned only once the fold has
+        applied: a replay of a rejected merge must not become an ack
+        without a fold."""
+        with _DEVICE_LOCK, trace_span("daemon merge"):
+            leaves = list(self.state)
+            for state in peer_states:
+                leaves = [a + torch.as_tensor(b).to(a.device, a.dtype)
+                          for a, b in zip(leaves, state)]
+            self.state = tuple(leaves)
+        self.rows += int(rows)
+        self.pass_rows += int(rows)
+        if op_id is not None:
+            self._seen_merge_ids.add(str(op_id))
+        self.touched = self._clock()  # exit stamp
+        return self.rows
+
+    def merge_remote(self, arrays: Dict[str, np.ndarray], rows: int,
+                     merge_id: Optional[str] = None) -> int:
+        """Fold another daemon's exported state (``s0``, ``s1``, ... as
+        :meth:`export_state` sends them) into this job: the cross-daemon
+        reduce through the driver's hub. ``rows`` is the exporter's
+        committed contribution; it joins the job's total and the current
+        pass. A replayed ``merge_id`` folds once. Returns the job's rows."""
+        with self.lock:
+            if self.dropped:
+                raise KeyError("job was finalized/dropped")
+            self._require_mergeable()
+            self.touched = self._clock()
+            if merge_id is not None and str(merge_id) in self._seen_merge_ids:
+                return self.rows
+            if len(arrays) != len(self.state):
+                raise ValueError(f"merge_state carried {len(arrays)} arrays; job state has "
+                                 f"{len(self.state)} (algo/params mismatch between daemons?)")
+            missing = [f"s{i}" for i in range(len(self.state)) if f"s{i}" not in arrays]
+            if missing:
+                raise ValueError(f"merge_state missing array {missing[0]!r}")
+            incoming = [arrays[f"s{i}"] for i in range(len(self.state))]
+            self._check_leaves("merge_state", incoming)
+            return self._fold_peers_locked([incoming], rows, merge_id)
+
+    def seen_reduce(self, reduce_id: Optional[str]) -> Optional[int]:
+        """The replay probe of ``reduce_mesh``, run before any peer check:
+        an applied ``reduce_id`` returns the job's rows (with
+        ``drop_peers`` the first apply dropped the peers' jobs, so checking
+        a replay against them would fail an op that succeeded). None: not
+        seen."""
+        if reduce_id is None:
+            return None
+        with self.lock:
+            if self.dropped or str(reduce_id) not in self._seen_merge_ids:
+                return None
+            self.touched = self._clock()
+            return self.rows
+
+    def peek_pass_state(self):
+        """The pre-reduce read of a peer's job: (a copy of the state,
+        pass_rows, a copy of the committed partitions, iteration), taken
+        together under the job lock. The state is copied because a commit
+        adds into it in place: a late (fenced zombie or speculative) commit
+        that lands between this read and the fold must not reach the fold
+        past the row and partition checks made on this read."""
+        with self.lock:
+            if self.dropped:
+                raise KeyError("job was finalized/dropped")
+            self._require_mergeable()
+            self.touched = self._clock()
+            with _DEVICE_LOCK:
+                state = tuple(t.clone() for t in self.state)
+            return state, self.pass_rows, dict(self.committed), self.iteration
+
+    def merge_mesh(self, contributions, reduce_id: Optional[str] = None) -> int:
+        """Fold co-resident peers' device states into this job: the
+        on-device twin of :meth:`merge_remote`, with no copy through the
+        host or the wire. ``contributions``: [(peer id, state, rows)] in
+        the driver's sorted-id order, the hub's fold order. A replayed
+        ``reduce_id`` folds once. Returns the job's rows."""
+        with self.lock:
+            if self.dropped:
+                raise KeyError("job was finalized/dropped")
+            self._require_mergeable()
+            self.touched = self._clock()
+            if reduce_id is not None and str(reduce_id) in self._seen_merge_ids:
+                return self.rows
+            for pid, state, _rows in contributions:
+                self._check_leaves(f"peer {pid} state", state)
+            return self._fold_peers_locked([state for _p, state, _r in contributions],
+                                           sum(int(r) for _p, _s, r in contributions),
+                                           reduce_id)
 
     # -- knn jobs ----------------------------------------------------------
 
@@ -1119,6 +1253,21 @@ def _resolve_k(served: _ServedModel, k):
     return int(getk()) if getk is not None else None
 
 
+def _check_mesh_target(name: str, job: _Job, req_algo: str, gathered) -> None:
+    """``reduce_mesh``'s checks of the target job against the request and
+    each gathered peer job (algo, width, pass), before anything folds."""
+    if job.algo != req_algo:
+        raise ValueError(f"job {name!r} is algo {job.algo!r}; reduce_mesh carried {req_algo!r}")
+    for pid, _peer, pjob, _state, _rows, iteration in gathered:
+        if pjob.algo != job.algo or pjob.n_cols != job.n_cols:
+            raise ValueError(f"peer {pid} job is ({pjob.algo}, n_cols={pjob.n_cols}); "
+                             f"target is ({job.algo}, n_cols={job.n_cols})")
+        if iteration != job.iteration:
+            raise RuntimeError(
+                f"peer {pid} is on pass {iteration}, target on {job.iteration}: a daemon "
+                "missed a pass boundary — replay the pass")
+
+
 class DataPlaneDaemon:
     """Arrow/raw-frames-over-TCP accumulation server next to the card.
 
@@ -1201,6 +1350,10 @@ class DataPlaneDaemon:
                 target=self._reap_loop, name="srml-dataplane-reaper", daemon=True
             )
             self._reaper_thread.start()
+        # This daemon is now a member of the process's device plane: the
+        # registration bumps the membership epoch, so a collective reduce
+        # planned before it re-reads mesh_info.
+        membership_mod.registry().register(self.instance_id, self.boot_id, self)
         logger.info("data-plane daemon listening on %s:%d (%s)", self._host,
                     self._port, self._device)
         return self
@@ -1211,6 +1364,11 @@ class DataPlaneDaemon:
 
     def stop(self) -> None:
         self._stop.set()
+        # Leave the mesh first (an epoch bump): a reduce_mesh racing this
+        # stop fails the epoch fence instead of folding a dying daemon.
+        # Scoped to this incarnation, so a superseded object's late stop
+        # never unregisters a successor that holds the same id.
+        membership_mod.registry().unregister(self.instance_id, boot_id=self.boot_id)
         if self._sock is not None:
             # close() alone does not reliably wake a thread parked in
             # accept() on Linux: a self-connect pokes the acceptor, which
@@ -1439,6 +1597,12 @@ class DataPlaneDaemon:
         elif op == "export_state":
             arrays, meta = self._get_job(req).export_state()
             protocol.send_arrays(conn, arrays, {"ok": True, **meta})
+        elif op == "merge_state":
+            self._op_merge_state(conn, req)
+        elif op == "mesh_info":
+            self._op_mesh_info(conn)
+        elif op == "reduce_mesh":
+            self._op_reduce_mesh(conn, req)
         elif op == "sample_rows":
             rows = self._get_job(req).sample_rows(int(_opt(req, "n", 1024)),
                                                   int(_opt(req, "seed", 0)))
@@ -1732,6 +1896,158 @@ class DataPlaneDaemon:
             job = current  # raced a concurrent creation: converge on it
         job.set_iterate(arrays, int(req["iteration"]))
         protocol.send_json(conn, {"ok": True, **self._identity()})
+
+    # -- cross-daemon merges -----------------------------------------------
+
+    def _op_merge_state(self, conn, req: Dict[str, Any]) -> None:
+        """Fold a peer daemon's exported job state into the named job: the
+        driver's hub reduce. The job is created when absent (the request
+        carries ``algo``, ``n_cols`` and ``params`` as a first feed does),
+        so a driver can merge into a primary that was fed no row. ``rows``
+        is the exporter's committed contribution."""
+        arrays = _recv_arrays_aligned(conn, req)
+        name = str(req["job"])
+        req_algo = str(_opt(req, "algo", "pca"))
+        contrib = int(_opt(req, "rows", 0))
+        merge_id = req.get("merge_id")
+        job = self._lookup_job(name)
+        if job is None:
+            n_cols = req.get("n_cols")
+            if n_cols is None:
+                raise ValueError("merge_state into an unknown job needs n_cols")
+            # Merged BEFORE the job is published: a rejected payload (a
+            # count or shape mismatch) leaves no orphan job under the name.
+            job = _Job(req_algo, int(n_cols), self._device, _opt(req, "params", {}),
+                       clock=self._clock)
+            rows = job.merge_remote(arrays, contrib, merge_id=merge_id)
+            with self._jobs_lock:
+                current = self._jobs.get(name)
+                if current is None:
+                    self._jobs[name] = job
+            if current is None:
+                protocol.send_json(conn, {"ok": True, "rows": rows})
+                return
+            job = current  # raced a concurrent creation: fold into the published job
+        if job.algo != req_algo:
+            raise ValueError(f"job {name!r} is algo {job.algo!r}; merge_state carried "
+                             f"{req_algo!r}")
+        rows = job.merge_remote(arrays, contrib, merge_id=merge_id)
+        protocol.send_json(conn, {"ok": True, "rows": rows})
+
+    def _op_mesh_info(self, conn) -> None:
+        """The membership snapshot of this process's device plane: its
+        daemons (id, boot_id, joined_epoch) and the fencing epoch, which
+        the driver reads to choose the collective reduce or the hub and
+        stamps on ``reduce_mesh``. ``n_devices`` is this daemon's: one."""
+        snap = membership_mod.registry().snapshot()
+        protocol.send_json(conn, {
+            "ok": True,
+            "v": protocol.PROTOCOL_VERSION,
+            **self._identity(),
+            "epoch": snap["epoch"],
+            "members": snap["members"],
+            "n_devices": 1,
+        })
+
+    def _op_reduce_mesh(self, conn, req: Dict[str, Any]) -> None:
+        """Fold co-resident peer daemons' committed pass partials into the
+        named job on the device: the driver's hub (export_state, the wire,
+        merge_state) collapsed into one op whose statistics never leave the
+        card. Every check runs before anything folds:
+
+        1. the replay dedupe: an applied ``reduce_id`` gets its ack back
+           (its ``drop_peers`` may have dropped the peers' jobs already);
+        2. the epoch fence: the request's ``epoch`` must be the live
+           membership epoch, so a join, leave or reboot since the driver's
+           ``mesh_info`` refuses the reduce;
+        3. the pre-reduce gather of each peer's (boot, pass rows, committed
+           partitions, iteration) against the driver's task acks.
+
+        Then the fold in sorted-peer order (bitwise the hub's), and with
+        ``drop_peers`` (the single-pass algos) the peers' jobs go."""
+        name = str(req["job"])
+        req_algo = str(_opt(req, "algo", "pca"))
+        peers_spec = req.get("peers") or {}
+        if not isinstance(peers_spec, dict) or not peers_spec:
+            raise ValueError("reduce_mesh needs a non-empty peers map")
+        job = self._lookup_job(name)
+        if job is not None:
+            cached = job.seen_reduce(req.get("reduce_id"))
+            if cached is not None:
+                protocol.send_json(conn, {"ok": True, "rows": cached,
+                                          "reduced": len(peers_spec), **self._identity()})
+                return
+        reg = membership_mod.registry()
+        snap = reg.snapshot()
+        if int(_opt(req, "epoch", -1)) != snap["epoch"]:
+            raise RuntimeError(
+                f"mesh membership changed (epoch {snap['epoch']} != driver's "
+                f"{req.get('epoch')}): a daemon joined, left, or rebooted since mesh_info; "
+                "replay the pass")
+        members = {m["id"]: m["boot_id"] for m in snap["members"]}
+        gathered = []
+        for pid in sorted(peers_spec):
+            spec = peers_spec[pid] or {}
+            boot = str(spec.get("boot_id"))
+            if pid == self.instance_id:
+                raise ValueError("reduce_mesh peers must not include the target daemon")
+            if members.get(pid) != boot:
+                raise RuntimeError(
+                    f"peer daemon {pid} is not a co-resident mesh member at boot {boot} "
+                    f"(epoch {snap['epoch']}): it rebooted or left — rows acked to the old "
+                    "incarnation are gone; replay the pass")
+            peer = reg.get(pid, boot_id=boot)
+            if peer is None:
+                raise RuntimeError(f"peer daemon {pid} left the mesh")
+            pjob = peer._lookup_job(name)
+            if pjob is None:
+                raise KeyError(f"peer daemon {pid} has no job {name!r}")
+            state, pass_rows, committed, iteration = pjob.peek_pass_state()
+            want_rows = int(_opt(spec, "rows", -1))
+            if pass_rows != want_rows:
+                raise RuntimeError(
+                    f"daemon row-count mismatch at mesh reduce: tasks acked {want_rows} rows "
+                    f"on peer {pid} but its job accounts {pass_rows} this pass; falling "
+                    "through would corrupt the model — replay or refit")
+            want_parts = {int(p) for p in (spec.get("partitions") or [])}
+            orphans = sorted(p for p in committed if p not in want_parts)
+            lost = sorted(p for p in want_parts if p not in committed)
+            if orphans or lost:
+                parts = []
+                if orphans:
+                    parts.append(f"partitions {orphans} committed on peer {pid} but acked "
+                                 "elsewhere (cross-daemon retry orphans)")
+                if lost:
+                    parts.append(f"partitions {lost} acked on peer {pid} but not committed")
+                raise RuntimeError("partition accounting mismatch at mesh reduce: "
+                                   + "; ".join(parts))
+            gathered.append((pid, peer, pjob, state, pass_rows, iteration))
+        contributions = [(pid, state, n) for pid, _p, _j, state, n, _i in gathered]
+        job = self._lookup_job(name)
+        fresh = job is None
+        if fresh:
+            # Every row may have been fed to peers: create the target as
+            # merge_state does, shaped from the first peer's job, and fold
+            # BEFORE it is published: a refused reduce leaves no orphan job.
+            job = _Job(req_algo, gathered[0][2].n_cols, self._device,
+                       _opt(req, "params", {}), clock=self._clock)
+        _check_mesh_target(name, job, req_algo, gathered)
+        rows = job.merge_mesh(contributions, reduce_id=req.get("reduce_id"))
+        if fresh:
+            with self._jobs_lock:
+                current = self._jobs.get(name)
+                if current is None:
+                    self._jobs[name] = job
+            if current is not None:
+                job = current  # raced a concurrent creation: fold into the published job
+                _check_mesh_target(name, job, req_algo, gathered)
+                rows = job.merge_mesh(contributions, reduce_id=req.get("reduce_id"))
+        if _opt(req, "drop_peers", False):
+            for _pid, peer, _pjob, _state, _rows, _i in gathered:
+                peer._drop_job(name)
+        _M_MESH_REDUCES.inc(algo=job.algo)
+        protocol.send_json(conn, {"ok": True, "rows": rows, "reduced": len(gathered),
+                                  **self._identity()})
 
     # -- serving -----------------------------------------------------------
 

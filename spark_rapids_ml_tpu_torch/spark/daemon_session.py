@@ -6,9 +6,10 @@ The port of ``spark_rapids_ml_tpu/spark/daemon_session.py``:
   The driver reads the address from ``$SRML_DAEMON_ADDRESS`` or
   ``spark.srml.daemon.address`` and ships it to the tasks; an executor
   whose own env names a daemon feeds that one instead (the executor →
-  local host routing rule, :func:`executor_daemon_address`). The port's
-  fit folds into ONE daemon: acks that name a second one are refused (the
-  cross-daemon merge comes with the multi-daemon plane).
+  local host routing rule, :func:`executor_daemon_address`). Executors on
+  other hosts feed their own daemons; the driver folds those peers into
+  the daemon it resolved, and :func:`resolve_all` names every daemon a fit
+  must seed before its first scan.
 * **Local / tests**: nothing configured — the driver starts one daemon in
   its own process per device (:func:`_local_daemon`; the card unless the
   estimator was built with ``device="cpu"``), shared across fits and
@@ -65,6 +66,21 @@ def resolve(spark=None, device=None) -> Tuple[str, int, Optional[str]]:
     if addr:
         return (*_parse_addr(addr), token)
     return (*_local_daemon(device).address, token)
+
+
+def resolve_all(spark=None) -> list:
+    """[(host, port)] of every configured daemon, for a fit that must know
+    its peers before the first scan (kmeans seeds its centres and a forest
+    installs its iterate on each): ``$SRML_DAEMON_ADDRESSES`` /
+    ``spark.srml.daemon.addresses``, comma-separated ``host:port``. Empty
+    when neither is set: a single-pass fit finds its peers in the tasks'
+    acks instead."""
+    addrs = os.environ.get("SRML_DAEMON_ADDRESSES")
+    if not addrs and spark is not None:
+        addrs = _spark_conf_get(spark, "spark.srml.daemon.addresses")
+    if not addrs:
+        return []
+    return [_parse_addr(a.strip()) for a in addrs.split(",") if a.strip()]
 
 
 def client_kwargs(spark=None) -> dict:
@@ -134,7 +150,7 @@ def daemon_loss_tolerance(spark=None) -> int:
     off. ``$SRML_FIT_DAEMON_LOSS_TOLERANCE`` /
     ``spark.srml.fit.daemon_loss_tolerance`` / config
     ``fit_daemon_loss_tolerance``. The port's Spark fit refuses more than
-    0 until the multi-daemon plane comes."""
+    0 until the elastic fit (ROADMAP Queue 1 item 6b)."""
     return _env_conf_config(
         spark, "SRML_FIT_DAEMON_LOSS_TOLERANCE", "spark.srml.fit.daemon_loss_tolerance",
         "fit_daemon_loss_tolerance", int, floor=0,

@@ -39,12 +39,11 @@ iterate (``get_iterate`` at each pass boundary) and replays the failed
 pass from it, recreating a lost job with ``set_iterate``; a single-pass
 fit replays its scan.
 
-Each driver loop is a function of a ``run_pass(pass_id) -> acks``
-callable (``_drive_pca``, ``_drive_scaler``, ``_drive_linreg``,
-``_drive_kmeans``, ``_drive_logreg``, ``_drive_forest``, ``_drive_knn``):
-the Spark fit passes
-one that runs ``mapInArrow``
-tasks, and a driver without Spark (the card smoke) one of its own.
+Each driver loop (``_drive_pca``, ``_drive_scaler``, ``_drive_linreg``,
+``_drive_kmeans``, ``_drive_logreg``, ``_drive_forest``, ``_drive_knn``)
+is a function of a :class:`_DaemonFit` and a ``run_pass(pass_id) -> acks``
+callable: the Spark fit passes one that runs ``mapInArrow`` tasks, and a
+driver without Spark (the card smoke) one of its own.
 
 **transform** runs ``mapInArrow`` tasks that register the model with the
 daemon once (``ensure_model``) and send each batch's features to its
@@ -53,11 +52,22 @@ executor's CPU. The model's serving params (``_serve_params``: the
 scaler's withMean and withStd) ride the registration and its name, so two
 copies of one fit that differ in them are served apart.
 
-The port folds into ONE daemon. Refused loudly, each until the ROADMAP
-item that brings it: acks that name a second daemon (the cross-daemon
-merge, Queue 1 items 5–6), a daemon loss tolerance above 0 or the
-``boundary`` join policy (items 5–6), and with them the sharded index of
-a knn fit over several daemons.
+**Across daemons.** Executors on several hosts feed their own daemons
+(``SRML_DAEMON_ADDRESS`` in the executor's env). The daemon the driver
+resolved is the primary; every other daemon that holds rows of a scan
+becomes a peer (:class:`_DaemonFit`), and the scan ends with the peers'
+partials folded into the primary: one ``reduce_mesh`` on the device when
+the peers share the primary's process (``mesh_collectives``), else the
+driver's hub (``export_state`` from each peer, ``merge_state`` into the
+primary). Both fold in sorted peer-id order, so they agree bitwise, and
+each peer is held to its tasks' acks, per partition, before anything
+folds. At each pass boundary the primary's stepped iterate goes to every
+peer. KMeans and the forests seed the configured daemons
+(``spark.srml.daemon.addresses``) before the first scan; a peer that was
+not configured fails its tasks loudly. A knn fit across daemons builds
+one shard a daemon (one shared quantizer for IVF) and serves a fan-out.
+Refused loudly until ROADMAP Queue 1 item 6b, the elastic half: a daemon
+loss tolerance above 0 and the ``boundary`` join policy.
 
 pyspark is optional: importing this module never needs it (nor pyarrow,
 which the tasks import at use); ``fit``/``transform`` of a Spark DataFrame
@@ -84,10 +94,17 @@ from spark_rapids_ml_tpu_torch.models.scaler import StandardScaler as _StandardS
 from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel, finalize_moments
 from spark_rapids_ml_tpu_torch.ops.histogram import quantile_bin_edges
 from spark_rapids_ml_tpu_torch.spark import daemon_session
+from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
 logger = get_logger("spark.estimator")
+
+_M_MESH_PATHS = metrics_mod.counter(
+    "srml_fit_mesh_reduce_paths_total",
+    "Multi-daemon pass reductions by path (collective = on-mesh "
+    "reduce_mesh; hub = driver-mediated export/merge fallback)",
+)
 
 #: The schema of a feed task's one ack row.
 _ACK_SCHEMA = "partition int, rows long, daemon string, daemon_id string, boots string"
@@ -356,51 +373,58 @@ def _split_brain(context: str, expected: int, got: int, detail: str) -> RuntimeE
     )
 
 
-def _second_daemon(addr: str, did: str, primary_addr: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"task acks name a second daemon ({addr}, id {did}) beside the primary "
-        f"{primary_addr}: the port's Spark fit folds into one daemon, and the "
-        "cross-daemon merge (merge_state, the mesh ops) comes with the multi-daemon "
-        "plane (ROADMAP Queue 1 items 5-6). Route every executor to one daemon."
-    )
-
-
 def _refuse_multi_daemon_policies(spark) -> None:
-    """The elastic fit and mid-fit joins need the multi-daemon plane:
-    refused before any row is fed."""
+    """The elastic fit and mid-fit joins are the next slice of the
+    multi-daemon plane: refused before any row is fed."""
     if daemon_session.daemon_loss_tolerance(spark) > 0:
         raise NotImplementedError(
             "fit_daemon_loss_tolerance > 0 (the elastic fit) is not in the port yet: it "
-            "comes with the multi-daemon plane (ROADMAP Queue 1 items 5-6)"
+            "comes with the multi-daemon plane's elastic half (ROADMAP Queue 1 item 6b)"
         )
     if daemon_session.daemon_join_policy(spark) == "boundary":
         raise NotImplementedError(
             "fit_daemon_join_policy 'boundary' (mid-fit daemon joins) is not in the port "
-            "yet: it comes with the multi-daemon plane (ROADMAP Queue 1 items 5-6)"
+            "yet: it comes with the multi-daemon plane's elastic half (ROADMAP Queue 1 "
+            "item 6b)"
         )
 
 
-class _SingleDaemonFit:
-    """The driver's side of a single-daemon fit: its client, the row
-    accounting of the acks, the guarded finalize, the recovery ledger and
-    the pass replay.
+class _DaemonFit:
+    """The driver's side of a fit over a primary daemon and its peers: the
+    clients, the row accounting of the acks, the peer reduce at each scan,
+    the iterate push at each pass boundary, the guarded finalize, the
+    recovery ledger and the pass replay.
 
-    The port of ``_fit_distributed_inner``'s single-daemon body, as methods
-    rather than closures, so a driver other than the Spark wrappers' fit
-    (the card smoke, whose tasks send raw frames) runs the same checks.
+    The port of ``_fit_distributed_inner``'s body, as methods rather than
+    closures, so a driver other than the Spark wrappers' fit (the card
+    smoke, whose tasks send raw frames) runs the same checks.
+
+    Executors feed their own host's daemon. A daemon that holds rows of a
+    scan and is not the primary becomes a peer (keyed by its self-reported
+    instance id: address spellings alias), and every scan ends with the
+    peers' partials folded into the primary: one ``reduce_mesh`` when they
+    share the primary's device plane, else the export/merge hub. At each
+    pass boundary the primary's stepped iterate goes to every peer
+    (``set_iterate``) before the ledger advances. ``spark`` names the
+    configured daemons (``daemon_session.resolve_all``) that a seeded fit
+    seeds before its first scan (:meth:`seed_peers`).
+
     ``recovery_attempts`` > 0 arms the ledger: the last good iterate,
     pulled at each pass boundary (:meth:`record`), which :meth:`recover`
-    reinstalls. The driver loop sets ``algo`` and ``params`` (the feeds'),
-    with which a creating ``set_iterate`` rebuilds a job the daemon lost."""
+    reinstalls on every daemon. The driver loop sets ``algo`` and
+    ``params`` (the feeds'), with which a creating ``set_iterate`` rebuilds
+    a job a daemon lost, and ``push_tol`` (logreg: no push once the step
+    converged)."""
 
     def __init__(self, host: str, port: int, job: str, token: Optional[str] = None,
-                 recovery_attempts: int = 0, **client_kw):
+                 recovery_attempts: int = 0, spark=None, **client_kw):
         from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
 
         self._token, self._client_kw = token, client_kw
         self.client = DataPlaneClient(host, port, token=token, **client_kw)
         self.job = job
         self.address = f"{host}:{port}"
+        self.spark = spark
         self.primary_id = self.client.server_id() or self.address
         self.addr_by_id = {self.primary_id: self.address}
         self.total_fed = 0
@@ -408,69 +432,258 @@ class _SingleDaemonFit:
         self.recovery_attempts = int(recovery_attempts)
         self.algo: str = "pca"
         self.params: Dict[str, Any] = {}
+        self.push_tol: Optional[float] = None
+        #: Peer daemons by instance id → (host, port), and their clients
+        #: (one long-lived client each: merges and pushes run every pass).
+        self.peers: Dict[str, Tuple[str, int]] = {}
+        self._peer_clients: Dict[str, Any] = {}
+        #: The collective path's memory: a "no mesh ops here" verdict is
+        #: probed once a fit, not every pass. None: not yet read.
+        self._hub_only: Optional[bool] = None
         #: (iterate arrays, the pass they open), or None: no boundary yet.
         self.ledger: Optional[Tuple[Dict[str, np.ndarray], int]] = None
+        self._pulled: Optional[Tuple[Dict[str, np.ndarray], int]] = None
+        self.last_acks: list = []
+
+    def peer_client(self, did: str):
+        c = self._peer_clients.get(did)
+        if c is None:
+            from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+
+            c = DataPlaneClient(*self.peers[did], token=self._token, **self._client_kw)
+            self._peer_clients[did] = c
+        return c
+
+    def seed_peers(self, seed_fn: Callable[[Any], Any]) -> None:
+        """Register and pre-seed every configured peer daemon
+        (``daemon_session.resolve_all``) before pass 0, with ``seed_fn(client)``
+        (kmeans centres, a forest's iterate). An address that answers with
+        the primary's id, or a peer's already seeded, is an alias and is
+        skipped; a client that never registers is closed here."""
+        from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+
+        for ph, pp in daemon_session.resolve_all(self.spark):
+            pc = DataPlaneClient(ph, pp, token=self._token, **self._client_kw)
+            registered = False
+            try:
+                did = pc.server_id() or f"{ph}:{pp}"
+                if did == self.primary_id or did in self.peers:
+                    continue
+                self.peers[did] = (ph, pp)
+                self.addr_by_id.setdefault(did, f"{ph}:{pp}")
+                self._peer_clients[did] = pc
+                registered = True
+                seed_fn(pc)
+            finally:
+                if not registered:
+                    pc.close()
 
     def account(self, acks) -> int:
-        """Take one feed pass's acks into the row accounting; returns the
-        pass's rows. Raises at a second daemon or a restart under the scan."""
+        """Take one feed pass's acks into the row accounting and register
+        the daemons that hold its rows as peers; returns the pass's rows.
+        Fences a restart under the scan (an incarnation change) and an
+        alias of the primary; a daemon whose partitions were all empty
+        created no job and is no peer."""
         n, per, addr_of, _, boots = _ack_rows(acks)
         for did, cnt in per.items():
             self.fed_by_daemon[did] = self.fed_by_daemon.get(did, 0) + cnt
             self.addr_by_id.setdefault(did, addr_of[did])
-            if cnt == 0 or did == self.primary_id:
-                continue  # an all-empty partition created no job anywhere
+            if cnt == 0 or did == self.primary_id or did in self.peers:
+                continue
             # An unknown id AT the primary's address, or the one the live
-            # primary now answers with, is the primary restarted: fence it.
+            # primary now answers with, is the primary restarted: fence it
+            # (a peer of it would export the primary into itself).
             if addr_of[did] == self.address or did == (
                 self.client.server_id() or self.primary_id
             ):
                 raise _incarnation_change(addr_of[did], {self.primary_id, did})
-            try:
-                from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
-
-                h2, p2 = daemon_session._parse_addr(addr_of[did])
-                with DataPlaneClient(h2, p2, token=self._token, **self._client_kw) as peer:
-                    _drop_quietly(peer, self.job, "second daemon")
-            except (OSError, ValueError) as e:
-                logger.debug("cleanup on second daemon %s failed: %s", addr_of[did], e)
-            raise _second_daemon(addr_of[did], did, self.address)
+            # Instance ids are opaque hex: a ":" is the address fallback of
+            # a daemon that reports no id, which predates the peer ops and
+            # whose aliases cannot be told apart.
+            if ":" in did or ":" in self.primary_id:
+                raise RuntimeError(
+                    f"task acks name a second daemon ({addr_of[did]} vs primary "
+                    f"{self.address}) but at least one daemon does not report an instance "
+                    "id — it predates the multi-host data plane. Upgrade every daemon, or "
+                    "unify the daemon address spelling and use one daemon.")
+            self.peers[did] = daemon_session._parse_addr(addr_of[did])
+        # After the registration (recover() must know every daemon the pass
+        # touched) and before any merge: partials of a daemon that restarted
+        # under the scan are partial in an unknowable way.
         for did, bs in boots.items():
             if len(bs) > 1:
                 raise _incarnation_change(addr_of.get(did, did), bs)
         self.total_fed += n
+        self.last_acks = acks
         return n
+
+    def reduce_peers(self, drop_peer: bool = False) -> None:
+        """Fold the last scan's peer partials into the primary: the
+        collective reduce, else the hub. ``drop_peer`` (the single-pass
+        algos) drops the peers' jobs once folded."""
+        _, per, addr_of, owner, boots = _ack_rows(self.last_acks)
+        with trace_span("merge peers"):
+            if not self._reduce_on_mesh(per, addr_of, owner, boots, drop_peer):
+                self._merge_peer_daemons(per, addr_of, owner, drop_peer)
+
+    def _reduce_on_mesh(self, per, addr_of, owner, boots, drop_peer) -> bool:
+        """The collective-first pass reduce: when the primary and every peer
+        that holds rows of the pass are members of one device plane
+        (daemons in one process, registered in
+        ``parallel/membership.registry()``), ONE ``reduce_mesh`` op folds
+        the peers' partials on the device and the O(d²) statistics never
+        cross the wire. Returns True when the pass is reduced (or there was
+        nothing to reduce), False to hand it to the hub
+        (:meth:`_merge_peer_daemons`): a peer in another process, a daemon
+        without the op, or ``mesh_collectives`` off.
+
+        The split-brain accounting does not weaken on this path: the driver
+        sends its task-ack view (rows and owned partitions of each peer)
+        and the daemon checks it against each peer's live (boot, pass rows)
+        before anything folds, refusing the whole reduce on a mismatch or a
+        membership-epoch change. A co-resident peer that rebooted since the
+        scan acked raises the incarnation fence here."""
+        peer_rows = {d: n for d, n in per.items() if d != self.primary_id and n > 0}
+        if not peer_rows:
+            return True  # a single-daemon pass: nothing to reduce on any path
+        if self._hub_only is None:
+            self._hub_only = not bool(config.get("mesh_collectives"))
+        if self._hub_only:
+            _M_MESH_PATHS.inc(path="hub")
+            return False
+        # Two attempts: the epoch fence is process-wide, so an unrelated
+        # daemon joining or leaving between mesh_info and the reduce refuses
+        # it; one re-read checks every participant against the fresh epoch.
+        # A second refusal (sustained churn) surfaces, and recovery treats
+        # it as any daemon failure.
+        for attempt in range(2):
+            try:
+                info = self.client.mesh_info()
+            except Exception as e:
+                logger.debug("mesh_info unavailable on the primary (%s); this fit uses the "
+                             "driver-hub merge", e)
+                self._hub_only = True
+                _M_MESH_PATHS.inc(path="hub")
+                return False
+            members = {str(m["id"]): str(m["boot_id"]) for m in info.get("members", [])}
+            if self.primary_id not in members:
+                _M_MESH_PATHS.inc(path="hub")
+                return False
+            for did in sorted(peer_rows):
+                if did not in members:
+                    # A daemon of another process: the hub is the right path.
+                    _M_MESH_PATHS.inc(path="hub")
+                    return False
+                ack_boot = next(iter(boots.get(did) or []), None)
+                if ack_boot is not None and members[did] != ack_boot:
+                    raise _incarnation_change(addr_of.get(did, did), {ack_boot, members[did]})
+            peers = {
+                did: {"boot_id": members[did], "rows": int(n),
+                      "partitions": sorted(int(p) for p, d in owner.items() if d == did)}
+                for did, n in peer_rows.items()
+            }
+            try:
+                with trace_span("reduce mesh"):
+                    self.client.reduce_mesh(self.job, epoch=int(info["epoch"]), peers=peers,
+                                            algo=self.algo, params=self.params,
+                                            drop_peers=drop_peer)
+            except RuntimeError as e:
+                if attempt == 0 and "membership changed" in str(e):
+                    continue
+                raise
+            _M_MESH_PATHS.inc(path="collective")
+            return True
+        return False  # not reached: the second attempt returns or raises
+
+    def _merge_peer_daemons(self, per, addr_of, owner, drop_peer) -> None:
+        """The driver's hub: pull every peer daemon's committed partials
+        (``export_state``) and fold them into the primary (``merge_state``),
+        in sorted-id order. Each peer's export is held to what its tasks
+        acked BEFORE it folds, per partition, so a cross-daemon retry orphan
+        or a lost partition is named, and a short or overfull peer fails the
+        fit instead of corrupting it."""
+        for did, fed in sorted(per.items()):
+            if did == self.primary_id or fed == 0:
+                continue
+            addr = addr_of[did]
+            peer = self.peer_client(did)
+            with trace_span("export state"):
+                arrays, meta = peer.export_state(self.job)
+            if drop_peer:
+                peer.drop(self.job)
+            committed = {int(p): int(n) for p, n in (meta.get("committed") or {}).items()}
+            owned = {p for p, d in owner.items() if d == did}
+            orphans = sorted(p for p in committed if p not in owned)
+            lost = sorted(p for p in owned if p not in committed)
+            if int(meta["pass_rows"]) != fed or orphans or lost:
+                parts = []
+                if orphans:
+                    parts.append(f"partitions {orphans} committed here but acked on another "
+                                 "daemon (cross-daemon retry orphans)")
+                if lost:
+                    parts.append(f"partitions {lost} acked here but not committed")
+                raise _split_brain(f"peer daemon {addr} export", fed, int(meta["pass_rows"]),
+                                   "; ".join(parts) or f"{addr}={fed}")
+            with trace_span("merge state"):
+                self.client.merge_state(self.job, arrays, rows=int(meta["pass_rows"]),
+                                        algo=self.algo, n_cols=int(meta["n_cols"]),
+                                        params=self.params)
 
     def _fed_detail(self) -> str:
         return ", ".join(f"{self.addr_by_id.get(d, d)}={c}"
                          for d, c in sorted(self.fed_by_daemon.items())) or "no acks"
 
-    def scan(self, run_pass: Callable[[Optional[int]], Any], pass_id: Optional[int]) -> int:
+    def scan(self, run_pass: Callable[[Optional[int]], Any], pass_id: Optional[int],
+             drop_peer: bool = False, merge: bool = True) -> int:
         """One executor scan (``run_pass(pass_id)`` returns its acks) taken
-        into the accounting; returns its rows. An empty scan is refused."""
+        into the accounting, then the peer reduce (``merge``; a knn scan
+        builds a shard per daemon instead); returns its rows. An empty scan
+        is refused."""
         with trace_span("feed pass"):
             acks = run_pass(pass_id)
         n = self.account(acks)
         if n == 0:
             raise ValueError("cannot fit on an empty DataFrame")
+        if merge:
+            self.reduce_peers(drop_peer)
         return n
 
     def step(self, pass_id: int, n: int, params: Optional[dict] = None) -> Dict[str, Any]:
         """The pass boundary of an iterative fit: ``step`` over the scan of
         ``n`` rows, held to it (a job resurrected mid-pass answers short
-        instead of stepping on partial sums), then the ledger record."""
+        instead of stepping on partial sums), then the stepped iterate
+        pushed to every peer and the ledger record. Inside the recovery
+        unit: a daemon dying here rewinds to the previous boundary."""
         with trace_span("step"):
             info = self.client.step(self.job, params=params)
         if int(info["pass_rows"]) != n:
             raise _split_brain(f"step (pass {pass_id})", n, int(info["pass_rows"]),
                                self._fed_detail())
+        # Converged logreg: nothing reads a peer's iterate again, but the
+        # ledger still records this one (a finalize replay rewinds to it).
+        self.sync_peers(self.push_tol is None or float(info["delta"]) > self.push_tol)
         self.record()
         return info
 
+    def sync_peers(self, push: bool = True) -> None:
+        """Push the primary's iterate to every peer (``set_iterate``, which
+        opens the pass there), from one ``get_iterate`` that :meth:`record`
+        reuses."""
+        self._pulled = None
+        if push and self.peers:
+            with trace_span("sync peers"):
+                arrays, iteration = self._pulled = self.client.get_iterate(self.job)
+                for did in sorted(self.peers):
+                    self.peer_client(did).set_iterate(self.job, arrays, iteration)
+
     def record(self) -> None:
-        """Snapshot the iterate into the ledger (recovery on only)."""
+        """Snapshot the iterate into the ledger (recovery on only). It runs
+        after :meth:`sync_peers`: the ledger advances only once every
+        daemon holds the new boundary, so a half-pushed boundary replays
+        from the old one."""
         if self.recovery_attempts > 0:
-            self.ledger = self.client.get_iterate(self.job)
+            self.ledger = self._pulled or self.client.get_iterate(self.job)
+        self._pulled = None
 
     def finalize_guarded(self, params: dict, pass_rows_expected: Optional[int] = None):
         """Finalize with the split-brain row guard: the daemon's total must
@@ -494,19 +707,20 @@ class _SingleDaemonFit:
         return arrays, fin_rows
 
     def recover(self, err: Exception) -> None:
-        """Rewind to the last pass boundary. With a ledger, reinstall its
-        iterate with a creating ``set_iterate`` (which discards the failed
-        pass's state, or rebuilds a job the daemon lost) and resync the row
-        accounting from the daemon's ``status``; without one (a single-pass
-        fit, or pass 0 of a logreg fit), drop the job and let the replay
-        feed it anew. The restarted primary's new identity becomes the
-        primary's."""
+        """Rewind every daemon to the last pass boundary. With a ledger,
+        reinstall its iterate on the primary and on every peer with a
+        creating ``set_iterate`` (which discards the failed pass's state,
+        or rebuilds a job a daemon lost) and resync the row accounting from
+        the primary's ``status``; without one (a single-pass fit, or pass 0
+        of a logreg fit), drop the job everywhere and let the replay feed
+        it anew. A restarted primary's new identity becomes the primary's."""
         logger.warning("fit recovery (%s): replaying from the last pass boundary after: %s",
                        self.algo, err)
         with trace_span("recovery"):
             new_id = self.client.server_id() or self.primary_id
             if new_id != self.primary_id:
                 self.addr_by_id[new_id] = self.address
+                self.peers.pop(new_id, None)
                 self.primary_id = new_id
             if self.ledger is not None:
                 arrays, iteration = self.ledger
@@ -515,11 +729,13 @@ class _SingleDaemonFit:
                 n_cols = int(arrays["centers"].shape[1] if "centers" in arrays
                              else arrays["bin_edges"].shape[0] if "bin_edges" in arrays
                              else arrays["w"].shape[0])
-                self.client.set_iterate(self.job, arrays, iteration, algo=self.algo,
-                                        n_cols=n_cols, params=self.params)
+                for c in [self.client] + [self.peer_client(d) for d in sorted(self.peers)]:
+                    c.set_iterate(self.job, arrays, iteration, algo=self.algo, n_cols=n_cols,
+                                  params=self.params)
                 self.total_fed = int(self.client.status(self.job)["rows"])
             else:
-                _drop_quietly(self.client, self.job, "recovery")
+                for c in [self.client] + [self.peer_client(d) for d in sorted(self.peers)]:
+                    _drop_quietly(c, self.job, "recovery")
                 self.total_fed = 0
             self.fed_by_daemon.clear()
 
@@ -543,9 +759,18 @@ class _SingleDaemonFit:
                 self.recover(e)
 
     def close(self) -> None:
-        # A no-op when finalize already dropped the job.
+        """Drop the fit's job on the primary and on every peer (a no-op
+        where a finalize or a reduce already dropped it), and close every
+        client."""
         _drop_quietly(self.client, self.job, "primary")
         self.client.close()
+        for did in list(self.peers):
+            try:
+                _drop_quietly(self.peer_client(did), self.job, "peer")
+            except Exception as e:  # peer_client() itself can fail
+                logger.debug("cleanup drop on peer %s failed: %s", did, e)
+        for pc in self._peer_clients.values():
+            pc.close()
 
 
 def _pca_model(arrays: dict, device=None) -> PCAModel:
@@ -559,27 +784,27 @@ def _pca_model(arrays: dict, device=None) -> PCAModel:
 # model with its summary.
 
 
-def _drive_pca(fit: _SingleDaemonFit, run_pass, core) -> PCAModel:
+def _drive_pca(fit: _DaemonFit, run_pass, core) -> PCAModel:
     fit.algo = "pca"
     params = {"k": core.getK(), "mean_center": core.getMeanCentering(),
               "solver": core.getSolver()}
 
     def shot():
-        n = fit.scan(run_pass, None)
+        n = fit.scan(run_pass, None, drop_peer=True)
         return fit.finalize_guarded(params, pass_rows_expected=n)
 
     arrays, _ = fit.with_recovery(shot)
     return _pca_model(arrays, device=core._device)
 
 
-def _drive_scaler(fit: _SingleDaemonFit, run_pass, core) -> StandardScalerModel:
+def _drive_scaler(fit: _DaemonFit, run_pass, core) -> StandardScalerModel:
     """One scan into a pca job, finalized to its raw moments (count, Σx,
     diag XᵀX; no eigensolve), then the host float64 mean and unbiased std,
     as the reference's scaler fit."""
     fit.algo = "pca"
 
     def shot():
-        n = fit.scan(run_pass, None)
+        n = fit.scan(run_pass, None, drop_peer=True)
         return fit.finalize_guarded({"raw_moments": True}, pass_rows_expected=n)
 
     arrays, _ = fit.with_recovery(shot)
@@ -588,14 +813,14 @@ def _drive_scaler(fit: _SingleDaemonFit, run_pass, core) -> StandardScalerModel:
     return StandardScalerModel(mean=mean, std=std, device=core._device)
 
 
-def _drive_linreg(fit: _SingleDaemonFit, run_pass, core) -> "_lr.LinearRegressionModel":
+def _drive_linreg(fit: _DaemonFit, run_pass, core) -> "_lr.LinearRegressionModel":
     fit.algo = "linreg"
     params = {"reg": core.getRegParam(), "elastic_net": core.getElasticNetParam(),
               "fit_intercept": core.getFitIntercept(), "max_iter": core.getMaxIter(),
               "tol": core.getTol()}
 
     def shot():
-        n = fit.scan(run_pass, None)
+        n = fit.scan(run_pass, None, drop_peer=True)
         return fit.finalize_guarded(params, pass_rows_expected=n)
 
     arrays, rows = fit.with_recovery(shot)
@@ -615,17 +840,22 @@ def _kmeans_seed_rows(k: int) -> int:
     return max(k, min(4096, 32 * k))
 
 
-def _drive_kmeans(fit: _SingleDaemonFit, run_pass, core,
+def _drive_kmeans(fit: _DaemonFit, run_pass, core,
                   seed_sample: np.ndarray) -> "_km.KMeansModel":
     """Seed the centres from ``seed_sample`` (an (n, d) array sent as raw
-    frames), then passes of scan + step until moved² <= tol² or maxIter,
-    then one cost-only scan at the final centres and the guarded finalize."""
+    frames) on the primary and on every configured peer (the same rows and
+    generator seed, so every daemon opens pass 0 at the same centres; a
+    peer not configured fails its tasks loudly), then passes of scan +
+    step until moved² <= tol² or maxIter, then one cost-only scan at the
+    final centres and the guarded finalize."""
     k = core.getK()
     fit.algo, fit.params = "kmeans", {"k": k, "seed": core.getSeed(), "init": core.getInitMode()}
     if seed_sample.shape[0] == 0:
         raise ValueError("cannot fit on an empty DataFrame")
     with trace_span("seed"):
         fit.client.seed_kmeans_raw(fit.job, seed_sample, k=k, params=fit.params)
+        fit.seed_peers(lambda pc: pc.seed_kmeans_raw(fit.job, seed_sample, k=k,
+                                                     params=fit.params))
     fit.record()  # pass 0 opens with the seeded centres: a pass-0 replay reinstalls them
     tol2 = core.getTol() ** 2
     info = {"iteration": 0}
@@ -654,11 +884,14 @@ def _drive_kmeans(fit: _SingleDaemonFit, run_pass, core,
     return model
 
 
-def _drive_logreg(fit: _SingleDaemonFit, run_pass, core,
+def _drive_logreg(fit: _DaemonFit, run_pass, core,
                   n_classes: int) -> "_lg.LogisticRegressionModel":
     """Newton (binary) or MM-Newton (``n_classes`` > 2) passes of scan +
-    step until delta <= tol or maxIter, then the guarded finalize."""
+    step until delta <= tol or maxIter, then the guarded finalize. Peers
+    are found in pass 0's acks (every daemon opens at the zero iterate)
+    and get the stepped iterate until the step converges."""
     fit.algo, fit.params = "logreg", {"n_classes": int(n_classes)}
+    fit.push_tol = core.getTol()
     step_params = {"reg": core.getRegParam(), "fit_intercept": core.getFitIntercept()}
     info = {"loss": float("nan"), "iteration": 0}
     rows, history = 0, []
@@ -695,15 +928,17 @@ def _forest_params(core, n_classes: int) -> Dict[str, Any]:
             "bootstrap": core.getBootstrap(), "min_instances": core.getMinInstancesPerNode()}
 
 
-def _drive_forest(fit: _SingleDaemonFit, run_pass, core, sample: np.ndarray,
+def _drive_forest(fit: _DaemonFit, run_pass, core, sample: np.ndarray,
                   n_classes: int) -> "_rf._ForestModelBase":
     """Install the forest's depth-0 iterate (quantile bin edges of the
     driver's prefix ``sample``, every root open) with a creating
-    ``set_iterate``, then one pass of scan + step per depth until no node
-    is open (at most maxDepth + 1), then the guarded finalize. The daemon
-    bins every row against those edges and keys its bags by the row's
-    (partition, offset), so the forest depends neither on the order the
-    tasks' feeds and commits arrive in nor on a task's retries."""
+    ``set_iterate`` on the primary and on every configured peer, then one
+    pass of scan + step per depth until no node is open (at most maxDepth +
+    1), then the guarded finalize. Each daemon bins every row against
+    those edges and keys its bags by the row's (partition, offset), so the
+    forest depends neither on the order the tasks' feeds and commits
+    arrive in, nor on a task's retries, nor on which daemon a partition
+    fed: its histogram sums are the one-daemon fit's."""
     fit.algo, fit.params = "rf", _forest_params(core, n_classes)
     sample = np.asarray(sample)
     if sample.shape[0] == 0:
@@ -713,6 +948,8 @@ def _drive_forest(fit: _SingleDaemonFit, run_pass, core, sample: np.ndarray,
     arrays = _rf.init_forest_arrays(spec, quantile_bin_edges(sample, spec.max_bins))
     with trace_span("seed"):
         fit.client.set_iterate(fit.job, arrays, 0, algo="rf", n_cols=d, params=fit.params)
+        fit.seed_peers(lambda pc: pc.set_iterate(fit.job, arrays, 0, algo="rf", n_cols=d,
+                                                 params=fit.params))
     fit.record()  # pass 0 opens with the empty trees: a pass-0 replay reinstalls them
 
     def forest_pass(pass_id):
@@ -728,42 +965,146 @@ def _drive_forest(fit: _SingleDaemonFit, run_pass, core, sample: np.ndarray,
     return core._model_cls(arrays=arrays, device=core._device)
 
 
-def _drive_knn(fit: _SingleDaemonFit, run_pass, core) -> "_DaemonKNNModel":
-    """One scan into a knn job, then the finalize that builds the index on
+def _drive_knn(fit: _DaemonFit, run_pass, core) -> "_DaemonKNNModel":
+    """One scan into a knn job, then the finalize that BUILDS the index on
     the daemon and registers it as ``knnidx-<job>``: exact for a
     ``NearestNeighbors`` core, IVF (the core's nlist, nprobe, seed) for an
-    ``ApproximateNearestNeighbors``. The index's rows must equal the acked
-    rows. On any failure the job and the index are dropped at once: both
-    are dataset-sized."""
+    ``ApproximateNearestNeighbors``. The dataset never reaches the driver,
+    nor does the index, which is as large.
+
+    A scan whose acks name several daemons builds a SHARDED index: each
+    daemon builds and serves the shard of its own committed partitions,
+    its ids translated to global partition-major positions through the
+    driver's ``row_id_base``, and the handle's ``kneighbors`` fans a query
+    batch out to every shard and merges the top-k
+    (:func:`_fanout_kneighbors`). IVF shards bucket against ONE quantizer:
+    the first daemon's build trains it on a sample drawn from every daemon
+    in proportion to its rows (``sample_rows``, min(rows, max(64·nlist,
+    4096), 65,536) in all) and returns the (nlist, d) centroids, against
+    which the others build, so the union of the shards' probes is the one
+    index's candidate set. Each shard's rows are held to its acks, and on
+    any failure every daemon's job and shard are dropped at once: both are
+    dataset-sized."""
+    import contextlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+
     fit.algo = "knn"
     ivf = core.hasParam("nlist")
     metric = core.getMetric()
     if ivf and metric == "inner_product":
         raise ValueError("metric='inner_product' is supported by the exact NearestNeighbors only")
     name = f"knnidx-{fit.job}"
+    fed: Dict[str, int] = {}
+    addr_of: Dict[str, str] = {}
+
+    @contextlib.contextmanager
+    def client_of(did):
+        # The primary's own client (one thread uses it at a time), else a
+        # client of the peer's own: no socket is shared across threads.
+        if did == fit.primary_id:
+            yield fit.client
+            return
+        with DataPlaneClient(*daemon_session._parse_addr(addr_of[did]), token=fit._token,
+                             **fit._client_kw) as c:
+            yield c
+
+    def cleanup():
+        # Free the dataset-sized state BEFORE failing: a knn job or shard
+        # holds the raw rows, and leaking them until the TTL on every
+        # daemon could exhaust the memory of the corrected refit.
+        for did in fed or {fit.primary_id: 0}:
+            try:
+                with client_of(did) as c:
+                    _drop_quietly(c, fit.job, "knn cleanup")
+                    c.drop_model(name)
+            except Exception as e:
+                logger.debug("knn cleanup on %s failed: %s", addr_of.get(did, did), e)
+
+    shards = []
     try:
-        n = fit.scan(run_pass, None)
+        fit.scan(run_pass, None, merge=False)
+        total = fit.total_fed
+        _, per, addr_of, _, _ = _ack_rows(fit.last_acks)
+        fed = {d: n for d, n in per.items() if n > 0}
+        multi = len(fed) > 1
+        # Global ids are partition-major positions of the fitted DataFrame
+        # (the one-daemon convention); each shard maps its local positions
+        # through this base of every partition.
+        part_rows = {int(r["partition"]): int(r["rows"]) for r in fit.last_acks
+                     if int(r["rows"]) > 0}
+        id_base, cum = {}, 0
+        for pid in sorted(part_rows):
+            id_base[pid] = cum
+            cum += part_rows[pid]
+        # The primary first (the quantizer's owner), then the peers by id.
+        daemon_ids = sorted(fed, key=lambda d: (d != fit.primary_id, d))
+
+        def finalize_shard(did, centroids=None, first=False, train_rows_sample=None):
+            with client_of(did) as c:
+                if ivf:
+                    info = c.finalize_knn(
+                        fit.job, register_as=name, mode="ivf", nlist=core.getNlist(),
+                        nprobe=core.getNprobe(), seed=core.getSeed(), metric=metric,
+                        row_id_base=id_base if multi else None, centroids=centroids,
+                        return_centroids=multi and first, train_rows_sample=train_rows_sample)
+                else:
+                    info = c.finalize_knn(fit.job, register_as=name, mode="exact",
+                                          metric=metric, row_id_base=id_base if multi else None)
+            n_shard = int(info["n_rows"][0])
+            if n_shard != fed[did]:
+                raise _split_brain(f"knn shard build on {addr_of[did]}", fed[did], n_shard,
+                                   ", ".join(f"{addr_of[d]}={n}" for d, n in sorted(fed.items())))
+            return info, (addr_of[did], n_shard)
+
         with trace_span("knn build"):
-            if ivf:
-                info = fit.client.finalize_knn(
-                    fit.job, register_as=name, mode="ivf", nlist=core.getNlist(),
-                    nprobe=core.getNprobe(), seed=core.getSeed(), metric=metric)
+            if ivf and multi:
+                with trace_span("quantizer sample"):
+                    want = min(total, max(64 * core.getNlist(), 4096), 65536)
+
+                    def sample_shard(i, did):
+                        # A ceiling split: the union never rounds below want.
+                        with client_of(did) as c:
+                            return c.sample_rows(fit.job, (want * fed[did] + total - 1) // total,
+                                                 seed=core.getSeed() + i)
+
+                    # Concurrent reads, gathered in daemon order: the union,
+                    # and so the quantizer, is deterministic.
+                    with ThreadPoolExecutor(max_workers=min(len(daemon_ids), 16)) as ex:
+                        futs = [ex.submit(sample_shard, i, did)
+                                for i, did in enumerate(daemon_ids)]
+                        train_sample = np.concatenate([f.result() for f in futs], axis=0)
+                # The owner's build runs first; the others then build
+                # concurrently against its centroids.
+                first_info, first_shard = finalize_shard(daemon_ids[0], first=True,
+                                                         train_rows_sample=train_sample)
+                shards.append(first_shard)
+                rest = daemon_ids[1:]
+                with ThreadPoolExecutor(max_workers=min(len(rest), 16)) as ex:
+                    futs = [ex.submit(finalize_shard, did, first_info["centroids"])
+                            for did in rest]
+                    shards.extend(f.result()[1] for f in futs)
             else:
-                info = fit.client.finalize_knn(fit.job, register_as=name, mode="exact",
-                                               metric=metric)
-        built = int(info["n_rows"][0])
-        if built != fit.total_fed:
-            raise _split_brain("knn index build", fit.total_fed, built, fit._fed_detail())
+                with ThreadPoolExecutor(max_workers=min(len(daemon_ids), 16)) as ex:
+                    futs = [ex.submit(finalize_shard, did) for did in daemon_ids]
+                    shards.extend(f.result()[1] for f in futs)
+        built = sum(n for _, n in shards)
+        if built != total:
+            raise _split_brain("knn index build", total, built,
+                               ", ".join(f"{a}={n}" for a, n in shards))
     except BaseException:
-        _drop_quietly(fit.client, fit.job, "knn cleanup")
-        try:
-            fit.client.drop_model(name)
-        except Exception as e:
-            logger.debug("knn cleanup of model %r failed: %s", name, e)
+        cleanup()
         raise
-    host, port = fit.client._addr
-    return _DaemonKNNModel(core, host, port, fit._token, name, n_rows=n,
-                           input_col=_features_col(core), client_kw=fit._client_kw)
+    if multi:
+        host, port = fit.client._addr
+    else:
+        # One daemon holds the whole index, perhaps not the driver's (every
+        # executor fed another): the handle queries and frees it THERE.
+        host, port = daemon_session._parse_addr(shards[0][0])
+    return _DaemonKNNModel(core, host, port, fit._token, name, n_rows=total,
+                           input_col=_features_col(core), shards=shards if multi else None,
+                           client_kw=fit._client_kw)
 
 
 class _SparkAdapter:
@@ -825,8 +1166,9 @@ class _SparkAdapter:
         multi_pass = algo in ("kmeans", "logreg") or forest
         if multi_pass:
             sel = sel.persist()
-        fit = _SingleDaemonFit(host, port, job, token=token,
-                               recovery_attempts=daemon_session.recovery_attempts(spark), **ckw)
+        fit = _DaemonFit(host, port, job, token=token,
+                         recovery_attempts=daemon_session.recovery_attempts(spark), spark=spark,
+                         **ckw)
         try:
 
             def run_pass(pass_id):
@@ -1077,32 +1419,75 @@ _KNN_OUTPUTS = (
 )
 
 
+def _fanout_kneighbors(ex, shard_clients, name, queries, k, input_col, descending,
+                       raw=False):
+    """Query every shard daemon concurrently and merge the top-k
+    (``models/knn.merge_topk``, exact given exact shard answers): the one
+    implementation of the executor task and the driver's handle. ``ex``: a
+    caller-owned ThreadPoolExecutor; ``shard_clients``: [((addr, shard
+    rows), client)], one client a shard (no socket shared across threads);
+    ``raw`` sends the queries as a raw frame (an ndarray, no Arrow
+    library) rather than Arrow. A batch waits for its slowest shard, not
+    for the sum."""
+
+    def one(entry):
+        (_addr, n_shard), c = entry
+        kk = min(k, n_shard)
+        if raw:
+            return c.kneighbors_raw(name, queries, k=kk)
+        return c.kneighbors(name, queries, k=kk, input_col=input_col)
+
+    results = list(ex.map(one, shard_clients))
+    return _knn.merge_topk([d for d, _ in results], [i for _, i in results], k,
+                           descending=descending)
+
+
 class _DaemonKNNTask:
     """Executor-side query feeder: each batch's query rows go to the
     daemon's ``kneighbors`` op (Arrow) and the neighbour distance and index
-    columns come back. The index stays on the daemon."""
+    columns come back. The index stays on the daemon. A sharded index
+    (``shards``: [(addr, shard rows)]) fans each batch out to every shard
+    daemon and merges the shards' top-k here (:func:`_fanout_kneighbors`):
+    O(q·k·shards) a batch, whatever the database's size."""
 
-    def __init__(self, host, port, token, name, input_col, k):
+    def __init__(self, host, port, token, name, input_col, k, shards=None, descending=False):
         self.host, self.port, self.token = host, port, token
         self._name = name
         self._input_col = input_col
         self._k = k
+        self._shards = shards
+        self._descending = descending
 
     def __call__(self, batches):
+        import contextlib
+        from concurrent.futures import ThreadPoolExecutor
+
         import pyarrow as pa
 
         from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
 
         ds = daemon_session
-        h, p = ds.executor_daemon_address(self.host, self.port)
-        with DataPlaneClient(h, p, token=self.token, **ds.client_kwargs()) as c:
+        with contextlib.ExitStack() as stack:
+            ckw = ds.client_kwargs()
+            if self._shards:
+                clients = [(s, stack.enter_context(DataPlaneClient(
+                    *ds._parse_addr(s[0]), token=self.token, **ckw))) for s in self._shards]
+                ex = stack.enter_context(ThreadPoolExecutor(max_workers=min(len(clients), 16)))
+            else:
+                h, p = ds.executor_daemon_address(self.host, self.port)
+                c = stack.enter_context(DataPlaneClient(h, p, token=self.token, **ckw))
             for batch in batches:
                 table = pa.Table.from_batches([batch])
                 if table.num_rows == 0:
                     yield from _append_outputs(table, {}, _KNN_OUTPUTS).to_batches()
                     continue
-                dists, idx = c.kneighbors(self._name, table.select([self._input_col]),
-                                          k=self._k, input_col=self._input_col)
+                q = table.select([self._input_col])
+                if self._shards:
+                    dists, idx = _fanout_kneighbors(ex, clients, self._name, q, self._k,
+                                                    self._input_col, self._descending)
+                else:
+                    dists, idx = c.kneighbors(self._name, q, k=self._k,
+                                              input_col=self._input_col)
                 out = {"distances": dists, "indices": idx}
                 yield from _append_outputs(table, out, _KNN_OUTPUTS).to_batches()
 
@@ -1114,14 +1499,18 @@ class _DaemonKNNModel:
     10M x 768 f32 is 31 GB), so it is served where it was built and never
     persisted from the driver; use the core estimators for an in-memory,
     persistable index. Indices are global partition-major row positions of
-    the fitted DataFrame."""
+    the fitted DataFrame. An index built across daemons is served in
+    shards, one a daemon (``shards``)."""
 
-    def __init__(self, core, host, port, token, name, n_rows, input_col, client_kw=None):
+    def __init__(self, core, host, port, token, name, n_rows, input_col, shards=None,
+                 client_kw=None):
         self._core = core  # the estimator: the param surface (k, metric, featuresCol)
         self._host, self._port, self._token = host, port, token
         self._name = name
         self._n_rows = n_rows
         self._input_col = input_col
+        # [(addr, shard rows)] when the index spans daemons; None: one daemon.
+        self._shards = shards
         # The fit's resilience tuning: the handle has no Spark session at
         # query time.
         self._client_kw = dict(client_kw or {})
@@ -1139,25 +1528,42 @@ class _DaemonKNNModel:
 
     @property
     def shards(self):
-        """None: one daemon serves the whole index (the sharded index over
-        several daemons comes with the multi-daemon plane)."""
-        return None
+        """[(daemon address, rows served there)] of an index built across
+        daemons; None when one daemon serves the whole index."""
+        return None if self._shards is None else list(self._shards)
 
-    def _client(self):
+    def _descending(self) -> bool:
+        return self._core.hasParam("metric") and self._core.getOrDefault("metric") == \
+            "inner_product"
+
+    def _client(self, host=None, port=None):
         from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
 
-        return DataPlaneClient(self._host, self._port, token=self._token, **self._client_kw)
+        return DataPlaneClient(host or self._host, port or self._port, token=self._token,
+                               **self._client_kw)
 
     def kneighbors(self, queries, k=None):
         """(distances (q, k), indices (q, k)) of an (q, d) ndarray of
         queries, sent as a raw frame (``kneighbors_raw``: the port's daemon
-        reads it without an Arrow library on either side)."""
+        reads it without an Arrow library on either side). A sharded index
+        fans the batch out to every shard daemon and merges the top-k."""
         if _is_spark_df(queries):
             raise TypeError("pass a DataFrame to transform() for distributed queries; "
                             "kneighbors takes an (q, d) ndarray")
         k = self._core.getOrDefault("k") if k is None else k
-        with self._client() as c:
-            return c.kneighbors_raw(self._name, np.asarray(queries), k=k)
+        queries = np.asarray(queries)
+        if self._shards is None:
+            with self._client() as c:
+                return c.kneighbors_raw(self._name, queries, k=k)
+        import contextlib
+        from concurrent.futures import ThreadPoolExecutor
+
+        with contextlib.ExitStack() as stack:
+            clients = [(s, stack.enter_context(self._client(*daemon_session._parse_addr(s[0]))))
+                       for s in self._shards]
+            ex = stack.enter_context(ThreadPoolExecutor(max_workers=min(len(clients), 16)))
+            return _fanout_kneighbors(ex, clients, self._name, queries, k, self._input_col,
+                                      self._descending(), raw=True)
 
     def transform(self, dataset):
         """Distributed query: appends knn_distances (list<double>) and
@@ -1169,18 +1575,24 @@ class _DaemonKNNModel:
             dists, idx = self.kneighbors(as_matrix(dataset, self._input_col))
             return with_column(with_column(dataset, "knn_distances", dists), "knn_indices", idx)
         fn = _DaemonKNNTask(self._host, self._port, self._token, self._name, self._input_col,
-                            self._core.getOrDefault("k"))
+                            self._core.getOrDefault("k"), shards=self._shards,
+                            descending=self._descending())
         return dataset.mapInArrow(fn, _derive_output_schema(dataset, _KNN_OUTPUTS))
 
     def release(self) -> bool:
         """Free the daemon-resident index now (it is dataset-sized, and
-        otherwise held until 8 times the daemon's TTL). The handle is
-        unusable afterwards."""
-        try:
-            with self._client() as c:
-                return c.drop_model(self._name)
-        except OSError:
-            return False  # the daemon is already gone: nothing to free
+        otherwise held until 8 times the daemon's TTL; a sharded index
+        frees every shard). The handle is unusable afterwards."""
+        addrs = ([(self._host, self._port)] if self._shards is None
+                 else [daemon_session._parse_addr(a) for a, _ in self._shards])
+        dropped = False
+        for h, p in addrs:
+            try:
+                with self._client(h, p) as c:
+                    dropped = c.drop_model(self._name) or dropped
+            except OSError:
+                continue  # the daemon is already gone: nothing to free there
+        return dropped
 
     def write(self):
         raise NotImplementedError(

@@ -415,9 +415,12 @@ def _version_mismatch_with_payload(sock):
 
 
 def _unported_op_with_payload(sock):
+    # The name is historical: merge_state answered "unknown op" until the
+    # multi-daemon plane. Its arrays are still read before the rejection of
+    # a merge into an unknown job without n_cols.
     protocol.send_arrays(sock, {"s0": np.ones((4, 3))},
                          {"v": 1, "op": "merge_state", "job": "x", "rows": 4})
-    return "unknown op 'merge_state'"
+    return "merge_state into an unknown job needs n_cols"
 
 
 @pytest.mark.parametrize("bad_request", [

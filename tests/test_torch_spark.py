@@ -25,8 +25,8 @@ materialized no row of the dataset.
   executors with the same output;
 * the cross pairings: the port's ``SparkPCA`` against an in-process JAX
   daemon, and the JAX ``SparkPCA`` against the port's daemon;
-* the refusals (a second daemon in the acks, the elastic and join
-  policies) and the scan replay after a daemon restart;
+* a second daemon in the acks (folded in as a peer), the refusals of the
+  elastic and join policies, and the scan replay after a daemon restart;
 * the task closures pickle without a torch object.
 """
 
@@ -139,14 +139,14 @@ def test_float64_fit_matches_the_in_memory_fit(clean_fit64, pca_data, float64_mo
 def test_exactly_once_under_retries_and_speculation(traffic, clean_fit64, pca_data,
                                                     float64_mode, monkeypatch):
     finals = []
-    real = port_est._SingleDaemonFit.finalize_guarded
+    real = port_est._DaemonFit.finalize_guarded
 
     def spy(self, params, pass_rows_expected=None):
         out = real(self, params, pass_rows_expected)
         finals.append(out[1])
         return out
 
-    monkeypatch.setattr(port_est._SingleDaemonFit, "finalize_guarded", spy)
+    monkeypatch.setattr(port_est._DaemonFit, "finalize_guarded", spy)
     model = _fit(simdf_from_numpy(pca_data, n_partitions=3, **traffic))
     assert finals == [pca_data.shape[0]]  # the daemon counted each row once
     _assert_close(model, clean_fit64, SELF_TOL)
@@ -214,14 +214,17 @@ def test_jax_sparkpca_against_the_ports_daemon(pca_data, jax_ref, mesh8):
     _assert_close(model, jax_ref, JAX_TOL)
 
 
-def test_acks_naming_a_second_daemon_are_refused(pca_data):
+def test_acks_naming_a_second_daemon_are_refused(pca_data, jax_ref):
+    """The name is historical: acks that name a second daemon were refused
+    until the multi-daemon plane. Now that daemon is a peer, its partial is
+    folded into the primary's, and the fit matches the JAX fit of all rows."""
     with DataPlaneDaemon(device="cpu") as a, DataPlaneDaemon(device="cpu") as b:
         session = SimSparkSession({"spark.srml.daemon.address": "%s:%d" % a.address})
         # Partition 2's executor lives on another host with its own daemon.
         df = simdf_from_numpy(pca_data, n_partitions=3, session=session,
                               env_plan={2: {"SRML_DAEMON_ADDRESS": "%s:%d" % b.address}})
-        with pytest.raises(NotImplementedError, match="second daemon.*items 5-6"):
-            SparkPCA(device="cpu").setK(K).fit(df)
+        model = _fit(df)
+        _assert_close(model, jax_ref, JAX_TOL)
         assert a._jobs == {} and b._jobs == {}  # both daemons' jobs were dropped
 
 

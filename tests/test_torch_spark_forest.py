@@ -15,8 +15,9 @@ integer, exact in any order, so the forests compare bitwise.
 * a daemon restarted right after the first pass's step: with
   ``recovery_attempts`` 1 the fit replays from the ledger's iterate and
   its tables equal the undisturbed fit's bitwise; with 0 it fails loudly;
-* an empty DataFrame raises; a partition routed to a second daemon (which
-  never got the iterate) fails the fit and leaves no job on either;
+* an empty DataFrame raises; a partition routed to a second daemon that
+  is not configured (it never gets the iterate) fails the fit and leaves
+  no job on either, and configured it is a peer of the same forest;
 * the served Spark ``transform`` equals the local predict.
 
 Tasks are forkserver processes that import the port (about 2 s a pass of
@@ -151,14 +152,14 @@ def test_jax_wrapper_against_the_ports_daemon(kind, port_fits):
 
 def test_a_dying_attempt_in_every_pass_changes_nothing(port_fits, monkeypatch):
     steps = []
-    real = port_est._SingleDaemonFit.step
+    real = port_est._DaemonFit.step
 
     def spy(self, pass_id, n, params=None):
         info = real(self, pass_id, n, params)
         steps.append((info["depth"], info["pass_rows"]))
         return info
 
-    monkeypatch.setattr(port_est._SingleDaemonFit, "step", spy)
+    monkeypatch.setattr(port_est._DaemonFit, "step", spy)
     model = _fit(_est(port_est, "classifier", device="cpu"),
                  _df("classifier", fail_plan={1: [1]}))
     assert [d for d, _ in steps] == list(range(1, len(steps) + 1))
@@ -205,13 +206,13 @@ def test_forest_fit_recovers_from_a_boundary_restart_bitwise(recovery, port_fits
     the fit (a pass-1 feed into a new job at pass 0), and the fit fails
     loudly."""
     recovered = []
-    real_recover = port_est._SingleDaemonFit.recover
+    real_recover = port_est._DaemonFit.recover
 
     def recover(self, err):
         recovered.append(int(self.ledger[1]))
         real_recover(self, err)
 
-    monkeypatch.setattr(port_est._SingleDaemonFit, "recover", recover)
+    monkeypatch.setattr(port_est._DaemonFit, "recover", recover)
     server = _RestartAfterFirstStep()
     try:
         session = SimSparkSession({"spark.srml.daemon.address": f"127.0.0.1:{server.port}",
@@ -244,16 +245,26 @@ def test_empty_dataframe_raises():
     assert daemon_session._owned["cpu"]._jobs == {}
 
 
-def test_a_second_daemon_fails_the_fit_and_keeps_no_job():
-    """A partition routed to another daemon meets a job without the
-    forest's iterate (the driver installs it on its one daemon): its task
-    fails loudly, never binning differently, and no daemon keeps a job."""
+def test_a_second_daemon_fails_the_fit_and_keeps_no_job(port_fits):
+    """A partition routed to a daemon that is not in
+    ``spark.srml.daemon.addresses`` meets a job without the forest's
+    iterate (the driver installs it on the configured daemons only): its
+    task fails loudly, never binning differently, and no daemon keeps a
+    job. Configured, the same daemon is a peer and the forest is the
+    one-daemon forest, bitwise."""
     with DataPlaneDaemon(device="cpu") as a, DataPlaneDaemon(device="cpu") as b:
         session = SimSparkSession({"spark.srml.daemon.address": "%s:%d" % a.address})
-        df = _df("classifier", session=session, max_attempts=1,
-                 env_plan={2: {"SRML_DAEMON_ADDRESS": "%s:%d" % b.address}})
-        with pytest.raises(Exception, match="iterate is installed|second daemon"):
+        route = {2: {"SRML_DAEMON_ADDRESS": "%s:%d" % b.address}}
+        df = _df("classifier", session=session, max_attempts=1, env_plan=route)
+        with pytest.raises(Exception, match="iterate is installed"):
             _est(port_est, "classifier", device="cpu").fit(df)
+        assert a._jobs == {} and b._jobs == {}
+        configured = SimSparkSession({
+            "spark.srml.daemon.address": "%s:%d" % a.address,
+            "spark.srml.daemon.addresses": "%s:%d,%s:%d" % (*a.address, *b.address)})
+        model = _fit(_est(port_est, "classifier", device="cpu"),
+                     _df("classifier", session=configured, env_plan=route))
+        _assert_same_forest(model, port_fits["classifier"])
         assert a._jobs == {} and b._jobs == {}
 
 

@@ -221,14 +221,14 @@ def test_kmeans_fit_matches_jax_stream(clean_fits, mesh8):
 @pytest.mark.parametrize("kind", ["kmeans", "logreg"])
 def test_exactly_once_across_passes(kind, traffic, clean_fits, monkeypatch):
     steps = []
-    real = port_est._SingleDaemonFit.step
+    real = port_est._DaemonFit.step
 
     def spy(self, pass_id, n, params=None):
         info = real(self, pass_id, n, params)
         steps.append(info["pass_rows"])
         return info
 
-    monkeypatch.setattr(port_est._SingleDaemonFit, "step", spy)
+    monkeypatch.setattr(port_est._DaemonFit, "step", spy)
     est = _kmeans() if kind == "kmeans" else _logreg()
     model = _fit(est, _df(kind, **traffic), SEED_ROWS if kind == "kmeans" else 0)
     assert steps and set(steps) == {N}  # every pass counted each row once
@@ -287,8 +287,8 @@ def test_recovery_ledger_rebuilds_a_lost_logreg_job(clean_fits, monkeypatch):
     """The job vanishes after the last step (a TTL eviction): the finalize
     fails, the ledger's iterate recreates the job at that pass, and the fit
     ends at the clean model."""
-    real_record, real_recover = port_est._SingleDaemonFit.record, \
-        port_est._SingleDaemonFit.recover
+    real_record, real_recover = port_est._DaemonFit.record, \
+        port_est._DaemonFit.recover
     ledgers, recovered = [], []
 
     def record_then_lose(self):
@@ -301,8 +301,8 @@ def test_recovery_ledger_rebuilds_a_lost_logreg_job(clean_fits, monkeypatch):
         recovered.append(self.ledger[1])
         real_recover(self, err)
 
-    monkeypatch.setattr(port_est._SingleDaemonFit, "record", record_then_lose)
-    monkeypatch.setattr(port_est._SingleDaemonFit, "recover", recover)
+    monkeypatch.setattr(port_est._DaemonFit, "record", record_then_lose)
+    monkeypatch.setattr(port_est._DaemonFit, "recover", recover)
     session = SimSparkSession({"spark.srml.fit.recovery_attempts": "1"})
     model = _fit(_logreg(), _df("logreg", session=session, max_attempts=1))
     assert ledgers[:2] == [1, 2] and recovered == [2]  # rebuilt at pass 2's iterate

@@ -18,8 +18,9 @@ port's counterparts of ``tests/test_spark_distributed.py``:277-399:
 
 and beyond them: the port's wrappers against the JAX wrappers on the same
 DataFrame (the JAX wrapper fitting the JAX daemon), ``release``,
-``write``, an empty DataFrame, a second daemon in the acks, the cleanup of
-a failed build, and the task closure pickling without torch.
+``write``, an empty DataFrame, a second daemon in the acks (a two-shard
+index), the cleanup of a failed build, and the task closure pickling
+without torch.
 """
 
 import contextlib
@@ -236,26 +237,36 @@ def test_empty_dataframe_raises():
 
 
 def test_acks_naming_a_second_daemon_are_refused(normal_rows):
+    """The name is historical: acks that name a second daemon were refused
+    until the multi-daemon plane. Now each daemon builds the shard of its
+    partitions and the fan-out answers as one index would."""
+    x, k = normal_rows, 5
     with DataPlaneDaemon(device="cpu") as a, DataPlaneDaemon(device="cpu") as b:
         session = SimSparkSession({"spark.srml.daemon.address": "%s:%d" % a.address})
-        df = simdf_from_numpy(normal_rows, n_partitions=3, session=session,
+        df = simdf_from_numpy(x, n_partitions=3, session=session,
                               env_plan={2: {"SRML_DAEMON_ADDRESS": "%s:%d" % b.address}})
-        with pytest.raises(NotImplementedError, match="second daemon.*items 5-6"):
-            SparkNearestNeighbors(device="cpu").fit(df)
+        model = _fit(SparkNearestNeighbors(device="cpu").setK(k), df)
+        assert [n for _, n in model.shards] == [400, 200]  # the primary's shard first
+        q = x[:32]
+        dists, idx = model.kneighbors(q)
+        d2, want = _brute(x, q, k)
+        np.testing.assert_array_equal(idx, want)
+        _assert_sq_close(dists, np.take_along_axis(d2, idx, axis=1), x, q)
+        assert model.release()
         assert a._jobs == {} and b._jobs == {} and a._models == {} and b._models == {}
 
 
 def test_a_failed_build_check_drops_the_job_and_the_index(normal_rows, monkeypatch):
     """Acks that disagree with the built index fail the fit with the
     split-brain error, and the dataset-sized index goes at once."""
-    real = port_est._SingleDaemonFit.account
+    real = port_est._DaemonFit.account
 
     def inflated(self, acks):
         n = real(self, acks)
         self.total_fed += 1
         return n
 
-    monkeypatch.setattr(port_est._SingleDaemonFit, "account", inflated)
+    monkeypatch.setattr(port_est._DaemonFit, "account", inflated)
     with pytest.raises(RuntimeError, match="row-count mismatch at knn index build"):
         SparkNearestNeighbors(device="cpu").fit(simdf_from_numpy(normal_rows, 2))
     daemon = daemon_session._owned["cpu"]
