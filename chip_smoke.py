@@ -43,7 +43,7 @@ Phases, each of which exits non-zero on a failed check:
    ``--data-plane`` runs phases 19 to 22, phase 23's Spark part and phase
    25 alone after the build; ``--estimators`` runs phases 23 and 24 alone;
    ``--multi-process`` runs phase 26 alone; ``--multi-daemon`` runs
-   phase 27 alone.
+   phase 27 alone; ``--elastic`` runs phase 28 alone.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -365,6 +365,30 @@ Phases, each of which exits non-zero on a failed check:
     processes, bitwise one daemon's. It prints the rows/s of each fit beside phases 20 and 21's,
     the ms and bytes of a pass's reduce on each path, the knn builds'
     seconds and served q/s beside phase 22's, and its launches.
+28. The elastic fits across daemons (``_DaemonFit``'s death and grow
+    policies, the port's ``utils/faults.py``): phase 27's task processes
+    and frames, this process the driver, the death timeout 2 s. a. Three
+    port daemons in this process: PCA d = 2048, k = 32 on phase 27's
+    {-1, 0, 1} rows, partitions 4-5 feeding a doomed peer (their next
+    attempt failing over to the primary), 6-7 a survivor; the doomed peer
+    stops at its first ``daemon.vanish`` (the collective reduce) and the
+    scan replays on the survivors, bitwise phase 27's one-daemon fit (run
+    here when phase 27 did not), one loss counted. d. The same PCA with
+    the doomed peer a daemon process (phase 27b's) killed by SIGKILL after
+    the first scan, through the hub, bitwise. e. The same PCA fed by task
+    processes with ``SRML_TORCH_FAULT_PLAN`` (client op drops 5 %,
+    partial frames 2 %, daemon op latency 2 ms at 25 %, the plan active in
+    this process too), bitwise the fault-free fit, the tasks' reconnects
+    and replays both above 0. b. KMeans d = 256, k = 100 on 524,288
+    integer blob rows (maxIter 3), the peer dying at the pass-1 boundary
+    sync: centres and numIter bitwise a fit on the surviving topology, the
+    cost within 1e-6. c. The same KMeans growing: a third daemon added to
+    the configured addresses at a pass-0 boundary failure, admitted with
+    the ``boundary`` policy, equal to b's oracle, one join, the rebalanced
+    rows those of partitions 4-5. Each part prints its seconds, its
+    oracle's, the seconds from the death to the replay's scan and the
+    elastic counters; every ``gram_colsum`` launch must take the wgmma
+    route.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
@@ -382,7 +406,8 @@ of phase 26's path (``gram``, ``gram_colsum``, ``linreg_stats``,
 ``softmax_curvature``, ``dist_topk``) its launches summed over the two
 ranks under ``multiprocess_launches``, and the eight rows of phase 27's
 path its two-daemon fits' and served calls' launches under
-``multidaemon_launches``) and
+``multidaemon_launches``, the ``gram_colsum`` row phase 28's elastic
+fits' launches in this process under ``elastic_launches``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, the script fails before printing any result.
 """
@@ -435,6 +460,9 @@ INPROC_QPS: dict = {}  # phases 16-17's q/s, printed beside phase 22's served q/
 #: ones: "<phase> <run>" → rows/s, and phase 22's builds and served q/s.
 ONE_DAEMON_RATES: dict = {}
 P22_SERVED: dict = {}
+#: Phase 27's one-daemon PCA of its {-1, 0, 1} rows ("model", "s"): phase
+#: 28's PCA oracle when phase 27 ran in this call.
+P27_ORACLE: dict = {}
 
 DP_ROWS = 65536  # spark/conf.py:22,40: arrow.maxRecordsPerBatch, one feed
 DP_PARTITIONS, DP_FEEDS = 8, 2  # 1,048,576 rows (BASELINE.json #1's 100M cut in depth)
@@ -2919,6 +2947,11 @@ def p21_frame(np, runs, run, p, f):
         return knn_frame(np, p, f, rows, d, k), None
     if run in ("scaler", "pca"):  # phases 23 and 27: phase 20's rows
         return spark_rows(np, p, f, rows, d, k), None
+    if run == "kmeans-int":  # phase 28: integer blobs, every sum an exact f32 sum
+        centres = np.random.default_rng([P28_SEED, d]).integers(-12, 13, (k, d)) * 4
+        g = np.random.default_rng([P28_SEED, d, p, f])
+        x = (centres[g.integers(0, k, rows)] + g.integers(-1, 2, (rows, d))).astype(np.float32)
+        return x, None
     if run.endswith("-int"):  # phase 27: rows in {-1, 0, 1}, every statistic an exact f32 sum
         g = np.random.default_rng([P27_SEED, d, p, f])
         x = g.integers(-1, 2, (rows, d), dtype=np.int8).astype(np.float32)
@@ -2956,7 +2989,10 @@ def _p21_task(address, p, runs, cmd_q, out_q):
     body (``estimator._feed_partition``) with a ``feed_raw`` sender of
     (x, y) frames. With ``dies``, attempt 0 dies after one feed and
     attempt 1 wins; only the winner's ack goes back, as Spark returns only
-    a successful task's rows."""
+    a successful task's rows. ``to``: the partition's daemon (phase 27), or
+    a list of them, one an attempt (phase 28: a task whose daemon refuses
+    or is gone fails, and Spark runs its next attempt on the next host).
+    The ack carries the winning client's healing counters (``stats``)."""
     try:
         import numpy as np
 
@@ -2981,10 +3017,20 @@ def _p21_task(address, p, runs, cmd_q, out_q):
                 out_q.put(("ok", p, rf_bag_sums(np, frames[cmd[1]], p, *cmd[2:])))
                 continue
             run, job, params, pass_id, dies, to = cmd
-            addr = address if to is None else tuple(to)  # phase 27: the partition's daemon
+            if to is None:
+                addrs = [address]
+            elif isinstance(to[0], (list, tuple)):
+                addrs = [tuple(a) for a in to]
+            else:
+                addrs = [tuple(to)]
+            failover = len(addrs) > 1
+            plan = ([(i, None) for i in range(len(addrs))] if failover
+                    else [(0, 1), (1, None)] if dies else [(0, None)])
             algo, d = runs[run][:2]
-            for attempt, dies_after in ([(0, 1), (1, None)] if dies else [(0, None)]):
-                with DataPlaneClient(*addr, timeout=900.0) as c:
+            for i, (attempt, dies_after) in enumerate(plan):
+                addr = addrs[min(i, len(addrs) - 1)]
+                kw = {"max_op_attempts": 2} if failover else {}
+                with DataPlaneClient(*addr, timeout=900.0, **kw) as c:
                     def send(b, c=c, attempt=attempt):
                         c.feed_raw(job, b[0], b[1], algo=algo, n_cols=d, params=params,
                                    partition=p, attempt=attempt, pass_id=pass_id)
@@ -2993,9 +3039,14 @@ def _p21_task(address, p, runs, cmd_q, out_q):
                     it = batches if dies_after is None else _dying(batches, dies_after)
                     try:
                         ack = _feed_partition(c, it, send, job, p, attempt, pass_id, addr)
-                    except RuntimeError as e:
+                    except (RuntimeError, OSError) as e:
+                        if failover and i < len(plan) - 1:
+                            continue  # the next attempt, on the next host
                         if "injected" not in str(e):
                             raise
+                        continue
+                    ack["stats"] = dict(c.stats)
+                    break
             out_q.put(("ok", p, ack))
         except Exception as e:  # noqa: BLE001 - reported to the parent
             out_q.put(("err", p, repr(e)))
@@ -3008,7 +3059,7 @@ class _P21Pool:
     reused by every pass of every run, so their spawn and imports stay out
     of the timed passes."""
 
-    def __init__(self, address, runs=None):
+    def __init__(self, address, runs=None, wait=True):
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")
@@ -3020,6 +3071,11 @@ class _P21Pool:
                                   daemon=True) for p in range(DP_PARTITIONS)]
         for proc in self.procs:
             proc.start()
+        if wait:
+            self.ready()
+
+    def ready(self):
+        """Wait until every task process has imported the port."""
         self._collect("ready", 300)
 
     def _collect(self, want, timeout):
@@ -3043,8 +3099,9 @@ class _P21Pool:
     def scan(self, run, job, params, pass_id, dies, route=None):
         """One pass: every partition task feeds and commits; their acks.
         With ``dies``, partition SPARK_DYING's first attempt dies. ``route``
-        ({partition: address}) sends a partition to another daemon than
-        the pool's (an executor on another host)."""
+        ({partition: address, or a list of addresses, one an attempt})
+        sends a partition to another daemon than the pool's (an executor on
+        another host)."""
         for p, q in enumerate(self.cmds):
             q.put((run, job, params, pass_id, dies and p == SPARK_DYING,
                    (route or {}).get(p)))
@@ -5387,6 +5444,7 @@ def phase_multidaemon(torch, kernels, config):
                 return est._drive_pca(f, rp, pca_core)
 
             pca_one, r_one = fit("pca-int", drive_pca, "one daemon")
+            P27_ORACLE.update(model=pca_one, s=r_one["s"])
             pca_coll, r_coll = fit("pca-int", drive_pca, "collective", route=route)
             pca_hub, r_hub = fit("pca-int", drive_pca, "hub", route=route, hub=True)
             folded = DP_PARTITIONS * DP_FEEDS + 1  # every frame and the dying attempt's one
@@ -5716,6 +5774,343 @@ def phase_multidaemon(torch, kernels, config):
     return out
 
 
+# -- 28. the elastic fits across daemons ---------------------------------------
+
+P28_SEED = 28
+#: Phase 28: run → the P21_RUNS fields. "pca-int" is phase 27's run (its
+#: {-1, 0, 1} rows); "kmeans-int" integer blobs (centres multiples of 4 in
+#: [-48, 48], noise in {-1, 0, 1}), one frame a partition: 524,288 rows.
+P28_RUNS = {
+    "pca-int": P27_RUNS["pca-int"],
+    "kmeans-int": ("kmeans", KM_D, DP_ROWS, 1, KM_K),
+}
+P28_MAX_ITER = 3
+P28_DEATH_S = 2.0  # every phase-28 fit's death timeout
+P28_MOVED = (4, 5)  # the partitions that feed the doomed peer, or the joiner
+P28_SURVIVOR = (6, 7)  # the partitions that feed the surviving peer
+#: Phase 28e's plan, in SRML_TORCH_FAULT_PLAN of its task processes (the
+#: client sites) and active in this process (the daemon's). Every task draws
+#: the same sequence from the seed (a task's ops and frames do not depend on
+#: the widths), and this seed makes each task drop two ops and cut one frame:
+#: the check that the healing ran cannot pass on a plan that never fires.
+P28_CHAOS = ("seed=55;client.op:drop:p=0.05;wire.send_frame:partial:p=0.02;"
+             "daemon.op:latency:p=0.25,delay_s=0.002")
+#: The elastic counters a phase-28 fit reports, by short name.
+P28_COUNTERS = ("losses", "reroutes", "joins", "rebalanced", "recoveries")
+
+
+def p28_fit(torch, kernels, est, profiling, pool, primary, run, drive, tag, route=None,
+            addresses=None, hub=False, plan=None, after_scan=None, **fit_kw):
+    """One phase-28 fit: the estimator's driver function ``drive(fit,
+    run_pass)`` over ``primary``, the pool's partitions in ``route`` fed to
+    their daemons (a list: one an attempt, the next on a failed one),
+    ``addresses`` the configured daemons (``SRML_DAEMON_ADDRESSES``, which
+    the seed and the grow policy read), ``hub`` forcing the driver's hub,
+    ``plan`` the port's FaultPlan active in this process during the fit,
+    ``fit_kw`` the elastic policy and client settings of ``_DaemonFit``,
+    ``after_scan(n)`` run once the n-th scan's acks are in. The counters and
+    spans reset just before the fit and are read just after. Returns
+    (model, a record of the run)."""
+    import contextlib
+
+    from spark_rapids_ml_tpu_torch import config
+    from spark_rapids_ml_tpu_torch.utils import faults
+
+    job = f"phase28-{run}-{tag}"
+    fit = est._DaemonFit(*primary, job, **fit_kw)
+    rec = {"scans": 0, "starts": []}
+
+    def run_pass(pass_id):
+        rec["scans"] += 1
+        rec["starts"].append(time.perf_counter())
+        acks = pool.scan(run, job, fit.params, pass_id, dies=False, route=route)
+        if after_scan is not None:
+            after_scan(rec["scans"])
+        return acks
+
+    counters = {"losses": est._M_DAEMON_LOSSES, "reroutes": est._M_FIT_REROUTES,
+                "joins": est._M_FIT_JOINS, "rebalanced": est._M_FIT_REBALANCED,
+                "recoveries": est._M_FIT_RECOVERIES}
+
+    def totals():
+        return {k: sum(v for _, v in c._samples()) for k, c in counters.items()}
+
+    before = totals()
+    if addresses:
+        os.environ["SRML_DAEMON_ADDRESSES"] = ",".join("%s:%d" % tuple(a) for a in addresses)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        profiling.reset_span_totals()
+        with config.option("mesh_collectives", not hub), \
+                (faults.active(plan) if plan is not None else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            model = drive(fit, run_pass)
+            torch.cuda.synchronize()
+            rec["s"] = time.perf_counter() - t0
+        rec["launches"], rec["routes"] = dict(kernels.LAUNCHES), dict(kernels.ROUTES)
+        rec["spans"] = profiling.span_totals()
+    finally:
+        os.environ.pop("SRML_DAEMON_ADDRESSES", None)
+        fit.close()
+    after = totals()
+    rec["counters"] = {k: int(after[k] - before[k]) for k in P28_COUNTERS}
+    rec["acked"], rec["acks"] = fit.total_fed, fit.last_acks
+    return model, rec
+
+
+def p28_report(rec, tag, oracle_s, death=None) -> None:
+    """A part's seconds, its oracle's, the seconds from the death to the
+    start of the next scan (the replay), and the elastic counters."""
+    replay = "no death"
+    if death is not None:
+        nxt = [t for t in rec["starts"] if t > death]
+        replay = f"{nxt[0] - death:.3f} s" if nxt else "no scan after the death"
+    spans = rec["spans"]
+    el = ", ".join(f"{nm} {spans[nm][0]:.3f} s" for nm in ("elastic degrade", "elastic grow",
+                                                           "recovery") if nm in spans)
+    print(f"phase {tag}: {rec['s']:.3f} s in {rec['scans']} scans (oracle {oracle_s:.3f} s); "
+          f"death to replay {replay}; {el or 'no elastic span'}; counters {rec['counters']}",
+          flush=True)
+
+
+def phase_elastic(torch, kernels, config):
+    """Phase 28: the elastic fits across daemons on the card. Returns the
+    gram_colsum launches of its elastic fits (28a, 28d's in this process,
+    28e)."""
+    import multiprocessing as mp
+
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch import PCA, KMeans
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.spark import estimator as est
+    from spark_rapids_ml_tpu_torch.utils import faults, profiling
+
+    FaultPlan = faults.FaultPlan
+    t_phase = time.perf_counter()
+    n_pca = p27_rows("pca-int")
+    km_rows = DP_PARTITIONS * DP_ROWS
+    print(f"phase 28: the elastic fits across daemons; PCA d = {D}, k = {K} on phase 27's "
+          f"{n_pca} rows in {{-1, 0, 1}}, KMeans d = {KM_D}, k = {KM_K} on {km_rows} integer "
+          f"blob rows; partitions {P28_MOVED} feed the doomed peer (or the joiner), failing "
+          f"over to the primary, {P28_SURVIVOR} the survivor; death timeout {P28_DEATH_S} s",
+          flush=True)
+    elastic = {"loss_tolerance": 1, "death_timeout_s": P28_DEATH_S, "max_op_attempts": 2}
+    launches = 0
+
+    def held(r, tag, folded):
+        """The fit's launches: gram_colsum once a folded frame in this
+        process, all on the wgmma route, no other kernel."""
+        check(r["launches"]["gram_colsum"] == folded
+              and r["routes"]["gram_colsum/wgmma"] == folded
+              and sum(r["launches"].values()) == folded,
+              f"phase {tag}: gram_colsum launches {r['launches']['gram_colsum']} == frames "
+              f"folded in this process {folded}, all wgmma, no other kernel")
+
+    def same_kmeans(m, ref, tag):
+        p27_same(np, [("centers", m.centers, ref.centers)], f"phase {tag}: vs the oracle")
+        cost = abs(m.summary.trainingCost - ref.summary.trainingCost) / ref.summary.trainingCost
+        check(m.summary.numIter == ref.summary.numIter and cost <= 1e-6
+              and m.summary.n_rows == km_rows,
+              f"phase {tag}: numIter {m.summary.numIter} == the oracle's "
+              f"{ref.summary.numIter}, cost rel err {cost:.3e} (tol 1e-6: f32 sums of the "
+              f"same rows in another order), n_rows {m.summary.n_rows} == {km_rows}")
+
+    ctx = mp.get_context("spawn")  # never fork a process that holds a CUDA context
+    qd, stop = ctx.Queue(), ctx.Event()
+    attrs = ("pc", "explainedVariance", "mean")
+    with DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as a, \
+            DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as c:
+        t_spawn = time.perf_counter()
+        # 28d's daemon process and both task pools start together (their
+        # imports overlap); 28e's tasks inherit the fault plan's spec.
+        victim = ctx.Process(target=_p27_daemon, args=(qd, stop, DEV), daemon=True)
+        victim.start()
+        pool = _P21Pool(a.address, P28_RUNS, wait=False)
+        os.environ[faults.ENV_VAR] = P28_CHAOS
+        try:
+            chaos_pool = _P21Pool(a.address, P28_RUNS, wait=False)
+        finally:
+            os.environ.pop(faults.ENV_VAR, None)
+        try:
+            pool.ready()
+            chaos_pool.ready()
+            msg = qd.get(timeout=P27_DAEMON_TIMEOUT_S)
+            check(msg[0] == "ready", f"phase 28d: the daemon process is up: {msg}")
+            v_addr = ("127.0.0.1", msg[1])
+            print(f"phase 28: two task pools and a daemon process ready in "
+                  f"{time.perf_counter() - t_spawn:.1f} s", flush=True)
+
+            def fit(pl, run, drive, tag, **kw):
+                return p28_fit(torch, kernels, est, profiling, pl, a.address, run, drive, tag,
+                               **kw)
+
+            # -- the PCA oracle: phase 27's one-daemon fit, else one here ------
+            pool.prepare("pca-int")
+            chaos_pool.prepare("pca-int")
+            pca_core = PCA(device=DEV).setK(K)
+
+            def drive_pca(f, rp):
+                return est._drive_pca(f, rp, pca_core)
+
+            if P27_ORACLE:
+                pca_oracle, pca_oracle_s = P27_ORACLE["model"], P27_ORACLE["s"]
+                print(f"phase 28 PCA oracle: phase 27's one-daemon fit ({pca_oracle_s:.3f} s)",
+                      flush=True)
+            else:
+                pca_oracle, r = fit(pool, "pca-int", drive_pca, "oracle")
+                pca_oracle_s = r["s"]
+                print(f"phase 28 PCA oracle: one daemon, {pca_oracle_s:.3f} s", flush=True)
+            pca_frames = DP_PARTITIONS * DP_FEEDS
+
+            # -- a. degrade, single pass, the collective path ------------------
+            b = DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV).start()
+            marks = {}
+            plan = FaultPlan(seed=P28_SEED).rule("daemon.vanish", "crash", times=1).on_crash(
+                lambda: (marks.setdefault("a", time.perf_counter()), b.stop()))
+            route = {**{p: [b.address, a.address] for p in P28_MOVED},
+                     **{p: c.address for p in P28_SURVIVOR}}
+            try:
+                m, r = fit(pool, "pca-int", drive_pca, "28a", route=route, plan=plan, **elastic)
+            finally:
+                b.stop()
+            check(plan.fired == {"daemon.vanish": 1} and r["counters"]["losses"] == 1
+                  and r["counters"]["reroutes"] == 1 and r["scans"] == 2
+                  and r["acked"] == n_pca,
+                  f"phase 28a: the peer died at its first daemon.vanish ({plan.fired}), one "
+                  f"loss and one reroute counted ({r['counters']}), the scan replayed "
+                  f"({r['scans']} scans), {r['acked']} rows acked == {n_pca}")
+            held(r, "28a", 2 * pca_frames)
+            launches += r["launches"]["gram_colsum"]
+            p27_same(np, p27_attrs(m, pca_oracle, attrs),
+                     "phase 28a: the elastic PCA (collective) vs phase 27's one-daemon fit")
+            p28_report(r, "28a", pca_oracle_s, marks.get("a"))
+
+            # -- d. degrade across processes: a peer process SIGKILLed, the hub --
+            pool.prepare("pca-int")  # after 28a's scans, before the kmeans frames
+            killed = {}
+
+            def kill(scan):
+                if scan == 1:
+                    victim.kill()  # SIGKILL, after its rows were committed and acked
+                    victim.join(timeout=30)
+                    killed.update(t=time.perf_counter(), code=victim.exitcode)
+
+            route = {**{p: [v_addr, a.address] for p in P28_MOVED},
+                     **{p: c.address for p in P28_SURVIVOR}}
+            m, r = fit(pool, "pca-int", drive_pca, "28d", route=route, hub=True,
+                       after_scan=kill, **elastic)
+            check(killed.get("code") == -9 and r["counters"]["losses"] == 1
+                  and r["scans"] == 2 and r["acked"] == n_pca,
+                  f"phase 28d: the daemon process died by SIGKILL (exit {killed.get('code')}), "
+                  f"one loss counted ({r['counters']}), {r['scans']} scans, {r['acked']} rows "
+                  f"acked == {n_pca}")
+            # The killed process folded its frames of the first scan itself.
+            held(r, "28d", 2 * pca_frames - len(P28_MOVED) * DP_FEEDS)
+            launches += r["launches"]["gram_colsum"]
+            p27_same(np, p27_attrs(m, pca_oracle, attrs),
+                     "phase 28d: the elastic PCA across processes (hub) vs phase 27's fit")
+            p28_report(r, "28d", pca_oracle_s, killed.get("t"))
+
+            # -- e. chaos: phase 20's feed protocol under the fault plan --------
+            m, r = fit(chaos_pool, "pca-int", drive_pca, "28e",
+                       plan=FaultPlan.from_spec(P28_CHAOS))
+            stats = [ack.get("stats", {}) for ack in r["acks"]]
+            rec_n = sum(st.get("reconnects", 0) for st in stats)
+            rep_n = sum(st.get("replays", 0) for st in stats)
+            check(rec_n > 0 and rep_n > 0 and r["acked"] == n_pca and r["scans"] == 1,
+                  f"phase 28e: the tasks healed: {rec_n} reconnects, {rep_n} replays (both > "
+                  f"0); {r['acked']} rows acked == {n_pca} in one scan")
+            held(r, "28e", pca_frames)
+            launches += r["launches"]["gram_colsum"]
+            p27_same(np, p27_attrs(m, pca_oracle, attrs),
+                     "phase 28e: the PCA under chaos vs the fault-free fit")
+            p28_report(r, "28e", pca_oracle_s)
+
+            # -- b. degrade, iterative: KMeans, the peer dies at the pass-1 sync --
+            pool.prepare("kmeans-int")
+            km_sample = p21_frame(np, P28_RUNS, "kmeans-int", 0, 0)[0][
+                :est._kmeans_seed_rows(KM_K)]
+            km_core = (KMeans(device=DEV).setK(KM_K).setMaxIter(P28_MAX_ITER).setTol(KM_TOL)
+                       .setSeed(P28_SEED))
+
+            def drive_km(f, rp):
+                return est._drive_kmeans(f, rp, km_core, km_sample)
+
+            survivor = {p: c.address for p in P28_SURVIVOR}
+            km_oracle, r_o = fit(pool, "kmeans-int", drive_km, "kmeans-oracle", route=survivor,
+                                 addresses=[a.address, c.address])
+            check(sum(r_o["launches"].values()) == 0,
+                  "phase 28 KMeans oracle: no kernel (the daemon's kmeans fold is plain, as "
+                  "the reference's)")
+            print(f"phase 28 KMeans oracle: {km_oracle.summary.numIter} passes, "
+                  f"{r_o['s']:.3f} s", flush=True)
+            b = DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV).start()
+            marks = {}
+            # Hits: pass 0's reduce and two pushes, pass 1's reduce; the fifth
+            # is pass 1's first push.
+            plan = FaultPlan(seed=P28_SEED).rule("daemon.vanish", "crash", after=4,
+                                                 times=1).on_crash(
+                lambda: (marks.setdefault("b", time.perf_counter()), b.stop()))
+            route = {**{p: [b.address, a.address] for p in P28_MOVED}, **survivor}
+            try:
+                m, r = fit(pool, "kmeans-int", drive_km, "28b", route=route,
+                           addresses=[a.address, b.address, c.address], plan=plan, **elastic)
+            finally:
+                b.stop()
+            check(plan.fired == {"daemon.vanish": 1} and r["counters"]["losses"] == 1
+                  and r["counters"]["reroutes"] == 1 and sum(r["launches"].values()) == 0,
+                  f"phase 28b: the peer died at the pass-1 boundary sync ({plan.fired}), one "
+                  f"loss and one reroute ({r['counters']}), no kernel")
+            same_kmeans(m, km_oracle, "28b")
+            p28_report(r, "28b", r_o["s"], marks.get("b"))
+
+            # -- c. grow: a daemon added to the configured set at a boundary ---
+            b = DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV).start()
+            marks = {}
+            grown = ",".join("%s:%d" % d.address for d in (a, b, c))
+
+            def appear():
+                marks.setdefault("c", time.perf_counter())
+                os.environ["SRML_DAEMON_ADDRESSES"] = grown
+
+            # Both client attempts of pass 0's first push fail; the callback
+            # is Spark's dynamic allocation re-pointing the daemon set.
+            plan = FaultPlan(seed=P28_SEED).rule("daemon.vanish", "crash", after=1,
+                                                 times=2).on_crash(appear)
+            route = {**{p: [b.address, a.address] for p in P28_MOVED}, **survivor}
+            try:
+                m, r = fit(pool, "kmeans-int", drive_km, "28c", route=route,
+                           addresses=[a.address, c.address], plan=plan,
+                           join_policy="boundary", max_op_attempts=2)
+                moved = len(P28_MOVED) * DP_ROWS
+                check(plan.fired == {"daemon.vanish": 2} and r["counters"]["joins"] == 1
+                      and r["counters"]["rebalanced"] == moved and not b._jobs,
+                      f"phase 28c: one join ({r['counters']}), rebalanced rows == the "
+                      f"{moved} rows of partitions {P28_MOVED}, the joiner's job dropped")
+            finally:
+                b.stop()
+            same_kmeans(m, km_oracle, "28c")
+            p28_report(r, "28c", r_o["s"], marks.get("c"))
+        finally:
+            pool.close()
+            chaos_pool.close()
+            if victim.is_alive():
+                # Only a live process: setting an Event that a SIGKILLed
+                # process was waiting on blocks for its acknowledgement.
+                stop.set()
+                victim.join(timeout=30)
+            if victim.is_alive():
+                victim.terminate()
+                victim.join(timeout=10)
+        check(not a._jobs and not c._jobs, "phase 28: no job left on the survivors")
+    torch.cuda.empty_cache()
+    print(f"phase 28: {time.perf_counter() - t_phase:.1f} s; elastic_launches "
+          f"{{'gram_colsum': {launches}}}", flush=True)
+    return {"gram_colsum": launches}
+
+
 def main() -> None:
     import torch
 
@@ -5756,6 +6151,14 @@ def main() -> None:
             if any(w in line for w in ("registers", "spill", "Compiling entry", "warning",
                                        "wgmma", "setmaxnreg")):
                 print(f"  ptxas {name}: {line.strip()}")
+
+    if "--elastic" in sys.argv[1:]:
+        # Phase 28 alone.
+        phase_elastic(torch, kernels, config)
+        print(card)
+        print(f"phase 28 passed ({time.perf_counter() - t_start:.1f} s); --elastic: stopping "
+              "here", flush=True)
+        return
 
     if "--multi-daemon" in sys.argv[1:]:
         # Phase 27 alone.
@@ -6208,6 +6611,10 @@ def main() -> None:
     # -- 27. the fits across daemons: two daemons on the card, then two processes ---------
     for name, n in phase_multidaemon(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["multidaemon_launches"] = n
+
+    # -- 28. the elastic fits: a peer lost for good, a daemon joining, chaos ---------------
+    for name, n in phase_elastic(torch, kernels, config).items():
+        next(row for row in table if row["name"] == name)["elastic_launches"] = n
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from spark_rapids_ml_tpu_torch.bridge import native as _native
+from spark_rapids_ml_tpu_torch.utils import faults
 
 
 def _require_pa():
@@ -37,6 +38,7 @@ def _require_pa():
 def list_column_to_matrix(col, n_cols: Optional[int] = None) -> np.ndarray:
     """Convert an Arrow (Chunked)Array of list type to an (n, d) ndarray."""
     pa = _require_pa()
+    faults.checkpoint("bridge.to_matrix")
     if isinstance(col, pa.ChunkedArray):
         if col.num_chunks == 1:
             return _array_to_matrix(col.chunk(0), n_cols)
@@ -95,6 +97,7 @@ def table_column_to_matrix(table, name: str, n_cols: Optional[int] = None) -> np
 def matrix_to_list_column(mat: np.ndarray):
     """Wrap an (n, d) ndarray as an Arrow fixed_size_list array."""
     pa = _require_pa()
+    faults.checkpoint("bridge.to_ipc")
     mat = np.ascontiguousarray(mat)
     return pa.FixedSizeListArray.from_arrays(pa.array(mat.reshape(-1)), mat.shape[1])
 

@@ -79,14 +79,21 @@ _DEFAULTS: Dict[str, Any] = {
     # $SRML_FIT_* env and its spark.srml.fit.* conf). Pass replays after a
     # daemon incarnation change; 0 = off, a restart mid-fit fails loudly.
     "fit_recovery_attempts": int(_env("FIT_RECOVERY_ATTEMPTS", "0")),
-    # Peer daemons one fit may declare dead (0 = off). The port's Spark fit
-    # refuses a tolerance above 0: the elastic fit is ROADMAP Queue 1
-    # item 6b.
+    # Peer daemons one fit may declare permanently dead and quarantine (the
+    # elastic degrade; 0 = off: a lost daemon fails the fit loudly and no
+    # liveness probe runs).
     "fit_daemon_loss_tolerance": int(_env("FIT_DAEMON_LOSS_TOLERANCE", "0")),
-    # Admission of a daemon that appears mid-fit: "off" or "boundary" (which
-    # the port's Spark fit refuses until item 6b). Deployment-facing env name, as
-    # in the JAX package.
+    # The death deadline: a peer implicated in a failed pass is probed with
+    # this as its whole reconnect budget before it is declared dead.
+    "fit_daemon_death_timeout_s": float(_env("FIT_DAEMON_DEATH_TIMEOUT_S", "15.0")),
+    # Admission of a daemon that appears mid-fit: "off" (an unlisted peer
+    # fails its tasks loudly) or "boundary" (admitted at the next pass
+    # boundary, seeded from the recovery ledger). Deployment-facing env
+    # names, as in the JAX package.
     "fit_daemon_join_policy": os.environ.get("SRML_FIT_DAEMON_JOIN_POLICY", "off"),
+    # The join budget: daemons one fit may admit mid-fit; one more fails the
+    # fit loudly.
+    "fit_daemon_join_limit": int(os.environ.get("SRML_FIT_DAEMON_JOIN_LIMIT", "2")),
     # Histogram tree ensembles (models/random_forest.py); deployment-facing
     # env names, as in the JAX package. Row cap of the prefix sample that
     # trains the quantile bin edges.

@@ -31,6 +31,11 @@ using up a reconnect attempt. ``FrameTooLarge`` is deterministic and is
 never replayed. ``finalize`` sends ``drop: false`` and drops with a
 separate op once the arrays are in hand, so a replay after a lost
 response re-reads the same model.
+
+The healing loop counts what it does in the process-wide metrics registry
+(``srml_client_*_total``; per-client deltas in ``stats``), and an injected
+fault (utils/faults.py; the ``client.connect`` and ``client.op`` sites are
+here) that it absorbs counts as a fault trip.
 """
 
 from __future__ import annotations
@@ -44,10 +49,31 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from spark_rapids_ml_tpu_torch.serve import protocol
+from spark_rapids_ml_tpu_torch.utils import faults
+from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
 from spark_rapids_ml_tpu_torch.utils.retry import decorrelated_jitter
 
 logger = get_logger("serve.client")
+
+#: The healing loop's counters (process-wide; per-client deltas live in
+#: ``DataPlaneClient.stats``).
+_M_RECONNECTS = metrics_mod.counter(
+    "srml_client_reconnects_total", "Connection-level failures healed by reconnecting, by op")
+_M_REPLAYS = metrics_mod.counter(
+    "srml_client_replays_total", "Ops replayed after possibly reaching the wire, by op")
+_M_BACKOFF_SECONDS = metrics_mod.counter(
+    "srml_client_backoff_seconds_total", "Seconds slept in reconnect backoff (decorrelated jitter)")
+_M_BUSY_WAITS = metrics_mod.counter(
+    "srml_client_busy_waits_total", "busy sheds honored with a wait, by op")
+_M_BUSY_WAIT_SECONDS = metrics_mod.counter(
+    "srml_client_busy_wait_seconds_total", "Seconds slept honoring busy retry_after_s hints")
+_M_DEADLINE_EXPIRIES = metrics_mod.counter(
+    "srml_client_deadline_expiries_total",
+    "Ops abandoned because the per-op deadline expired, by op")
+_M_FAULT_TRIPS = metrics_mod.counter(
+    "srml_client_fault_trips_total",
+    "Injected faults (utils/faults.py) observed by the healing loop, by op")
 
 #: Ops whose acks vouch for job state: their ``boot_id`` joins
 #: ``seen_boot_ids`` (a ping's does not).
@@ -112,6 +138,7 @@ class DataPlaneClient:
 
     def _conn(self, deadline: Optional[float] = None) -> socket.socket:
         if self._sock is None:
+            faults.checkpoint("client.connect")
             # The connect honours the op deadline too: a blackholed host
             # costs the remaining budget, not a full timeout per attempt.
             timeout = self._timeout
@@ -158,6 +185,7 @@ class DataPlaneClient:
         array frames are read INSIDE the attempt, so a drop mid-response
         replays the whole op. ``sent`` flips once request bytes may have
         reached the wire: the line between a reconnect and a REPLAY."""
+        faults.checkpoint("client.op")
         sock = self._conn(deadline=deadline)
         if deadline is not None:
             # The deadline bounds blocked syscalls too (floor 10 ms, so an
@@ -218,12 +246,15 @@ class DataPlaneClient:
                 self._reset()
                 wait = e.retry_after_s * (0.5 + self._rng.random())
                 if deadline is not None and time.monotonic() + wait > deadline:
+                    _M_DEADLINE_EXPIRIES.inc(op=str(req.get("op")))
                     raise
                 if (deadline is None or self._busy_wait_explicit) and \
                         busy_waited + wait > self._max_busy_wait:
                     raise
                 self.stats["busy_waits"] += 1
                 busy_waited += wait
+                _M_BUSY_WAITS.inc(op=str(req.get("op")))
+                _M_BUSY_WAIT_SECONDS.inc(wait)
                 logger.info("daemon busy (%s); retrying op %r in %.2fs",
                             self._addr, req.get("op"), wait)
                 time.sleep(wait)
@@ -231,16 +262,23 @@ class DataPlaneClient:
                 # Includes ConnectionError and socket timeouts; the socket
                 # may be mid-frame, so it always goes.
                 self._reset()
+                if isinstance(e, (faults.InjectedDrop, faults.InjectedRefusal)):
+                    # The chaos tests' proof that the healing ran.
+                    _M_FAULT_TRIPS.inc(op=str(req.get("op")))
                 attempt += 1
                 if attempt >= self._max_attempts:
                     raise
                 delay = decorrelated_jitter(delay, self._backoff_base, self._backoff_max,
                                             self._rng)
                 if deadline is not None and time.monotonic() + delay > deadline:
+                    _M_DEADLINE_EXPIRIES.inc(op=str(req.get("op")))
                     raise
                 self.stats["reconnects"] += 1
+                _M_RECONNECTS.inc(op=str(req.get("op")))
+                _M_BACKOFF_SECONDS.inc(delay)
                 if sent["flag"]:
                     self.stats["replays"] += 1
+                    _M_REPLAYS.inc(op=str(req.get("op")))
                 logger.warning("connection failure on op %r to %s (attempt %d/%d, "
                                "reconnect in %.2fs): %s", req.get("op"), self._addr,
                                attempt, self._max_attempts, delay, e)

@@ -82,8 +82,17 @@ merge adds tensors elementwise, the job's own state the left operand and
 the peers in sorted-id order, so the two paths agree bitwise. A knn job
 refuses to merge: its state is the dataset.
 
-Left for later slices of the port: the fault sites of the elastic fit
-(ROADMAP Queue 1 item 6b); durable ``state_dir`` snapshots (a forest's
+Fault sites (utils/faults.py), at the JAX daemon's points relative to the
+same work: ``daemon.conn`` per accepted connection, ``daemon.op`` per
+request after the version check and before the watermark shed,
+``daemon.pass_boundary`` between an applied ``step`` and its ack,
+``daemon.vanish`` at the cross-daemon coordination ops (``export_state``,
+``reduce_mesh``, ``set_iterate``: the permanent-loss site of the elastic
+fit) and ``daemon.join`` on the job-creating ``set_iterate`` path (the
+mid-fit admission handshake). An injected drop closes the connection, as
+any transport failure does.
+
+Left for later slices of the port: durable ``state_dir`` snapshots (a forest's
 restore at its boundary too), the health/metrics/telemetry ops (answered
 "unknown op" with their payload drained), the serving scheduler and AOT
 warmup (item 7). A feed naming an unknown ``algo``, or an ``ensure_model``
@@ -117,6 +126,7 @@ from spark_rapids_ml_tpu_torch.ops import histogram as hist_ops
 from spark_rapids_ml_tpu_torch.parallel import membership as membership_mod
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device
 from spark_rapids_ml_tpu_torch.serve import protocol
+from spark_rapids_ml_tpu_torch.utils import faults
 from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
@@ -1496,9 +1506,10 @@ class DataPlaneDaemon:
             self._active_conns += 1
             self._conn_socks.add(conn)
         try:
+            faults.checkpoint("daemon.conn")
             self._serve_conn_inner(conn)
         except OSError:
-            pass  # transport failure: the connection is simply gone
+            pass  # an injected or real transport failure: the connection is gone
         finally:
             try:
                 conn.close()
@@ -1561,6 +1572,7 @@ class DataPlaneDaemon:
                 f"protocol version mismatch: server speaks v{protocol.PROTOCOL_VERSION}, "
                 f"request carried v={req.get('v')!r}; see docs/protocol.md"
             )
+        faults.checkpoint("daemon.op")
         if op in _SHEDDABLE_OPS:
             reason = self._overloaded()
             if reason is not None:
@@ -1586,6 +1598,9 @@ class DataPlaneDaemon:
             self._op_finalize(conn, req)
         elif op == "step":
             info = self._get_job(req).step(_opt(req, "params", {}), step_id=req.get("step_id"))
+            # The step applied and its ack is unsent: a crash here is a
+            # daemon dying exactly at the pass boundary.
+            faults.checkpoint("daemon.pass_boundary")
             protocol.send_json(conn, {"ok": True, **self._identity(), **info})
         elif op == "status":
             job = self._get_job(req)
@@ -1595,6 +1610,10 @@ class DataPlaneDaemon:
         elif op == "drop":
             protocol.send_json(conn, {"ok": True, "dropped": self._drop_job(str(req.get("job")))})
         elif op == "export_state":
+            # The permanent-loss site (with reduce_mesh and set_iterate): a
+            # crash here is a peer dying as the fit coordinates across
+            # daemons, which the driver's death policy must survive.
+            faults.checkpoint("daemon.vanish")
             arrays, meta = self._get_job(req).export_state()
             protocol.send_arrays(conn, arrays, {"ok": True, **meta})
         elif op == "merge_state":
@@ -1874,6 +1893,10 @@ class DataPlaneDaemon:
         ledger re-seeds a daemon that lost the job. Without ``n_cols`` an
         unknown job stays an error."""
         arrays = _recv_arrays_aligned(conn, req)
+        # The permanent-loss site (see export_state): the boundary sync is
+        # where an iterative fit meets a dead peer; the frames are drained,
+        # so the framing stays aligned.
+        faults.checkpoint("daemon.vanish")
         name = str(req["job"])
         job = self._lookup_job(name)
         if job is None:
@@ -1881,6 +1904,10 @@ class DataPlaneDaemon:
             if n_cols is None:
                 raise KeyError(f"no such job {name!r} (a recovery set_iterate that should "
                                "recreate it must carry n_cols/algo/params)")
+            # The admission handshake's daemon end: a joiner that crashes
+            # or stalls here leaves the driver's membership as it was (the
+            # driver registers a peer only once this op acks).
+            faults.checkpoint("daemon.join")
             job = _Job(str(_opt(req, "algo", "pca")), int(n_cols), self._device,
                        _opt(req, "params", {}), clock=self._clock)
             # Installed BEFORE the job is published: a rejected iterate (a
@@ -1970,6 +1997,9 @@ class DataPlaneDaemon:
         peers_spec = req.get("peers") or {}
         if not isinstance(peers_spec, dict) or not peers_spec:
             raise ValueError("reduce_mesh needs a non-empty peers map")
+        # The permanent-loss site (see export_state): a peer stopping here
+        # leaves the mesh mid-reduce, and the epoch fence refuses the replay.
+        faults.checkpoint("daemon.vanish")
         job = self._lookup_job(name)
         if job is not None:
             cached = job.seen_reduce(req.get("reduce_id"))

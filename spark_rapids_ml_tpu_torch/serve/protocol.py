@@ -15,8 +15,11 @@ echoes the server version. ``docs/protocol.md`` is the op-by-op contract
 and ``tests/fixtures/protocol_v1*.bin`` the recorded transcripts both
 packages' daemons replay.
 
-The reference's fault-injection hooks and wire byte counters are not part
-of this copy; neither changes a byte on the wire.
+``send_frame`` is the ``wire.send_frame`` fault site (utils/faults.py): a
+``partial`` rule promises the whole frame, sends a prefix, closes the
+socket and raises ``InjectedDrop``, as a peer dying mid-frame would. An
+unfaulted frame's bytes are unchanged. The reference's wire byte counters
+are not part of this copy.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import struct
 from typing import Any, Dict, Optional
 
 import numpy as np
+
+from spark_rapids_ml_tpu_torch.utils import faults
 
 #: Frozen wire-protocol version: bumped only by a breaking change to an
 #: existing op's frames or semantics; new ops are additive under it.
@@ -56,6 +61,18 @@ def send_frame(sock, payload: bytes) -> None:
             f"frame of {len(payload)} bytes exceeds MAX_FRAME {MAX_FRAME}; "
             "split the batch"
         )
+    faults.checkpoint("wire.send_frame")
+    cut = faults.truncation("wire.send_frame", len(payload))
+    if cut is not None:
+        # Promise the whole frame, deliver a prefix, die: the peer sees what
+        # a process death mid-frame leaves on the wire.
+        sock.sendall(_LEN.pack(len(payload)))
+        sock.sendall(payload[:cut])
+        try:
+            sock.close()
+        except OSError:
+            pass
+        raise faults.InjectedDrop(f"injected fault: frame truncated at {cut}/{len(payload)} bytes")
     if len(payload) <= _SEND_COALESCE_MAX:
         sock.sendall(_LEN.pack(len(payload)) + payload)
     else:

@@ -149,11 +149,22 @@ def daemon_loss_tolerance(spark=None) -> int:
     """How many peer daemons one fit may declare dead; 0 (the default) =
     off. ``$SRML_FIT_DAEMON_LOSS_TOLERANCE`` /
     ``spark.srml.fit.daemon_loss_tolerance`` / config
-    ``fit_daemon_loss_tolerance``. The port's Spark fit refuses more than
-    0 until the elastic fit (ROADMAP Queue 1 item 6b)."""
+    ``fit_daemon_loss_tolerance``."""
     return _env_conf_config(
         spark, "SRML_FIT_DAEMON_LOSS_TOLERANCE", "spark.srml.fit.daemon_loss_tolerance",
         "fit_daemon_loss_tolerance", int, floor=0,
+    )
+
+
+def daemon_death_timeout_s(spark=None) -> float:
+    """The death deadline: the whole reconnect budget of the liveness probe
+    of a peer implicated in a failed pass, before it is declared dead
+    (floor 0.1 s). ``$SRML_FIT_DAEMON_DEATH_TIMEOUT_S`` /
+    ``spark.srml.fit.daemon_death_timeout_s`` / config
+    ``fit_daemon_death_timeout_s``."""
+    return _env_conf_config(
+        spark, "SRML_FIT_DAEMON_DEATH_TIMEOUT_S", "spark.srml.fit.daemon_death_timeout_s",
+        "fit_daemon_death_timeout_s", float, floor=0.1,
     )
 
 
@@ -176,6 +187,17 @@ def daemon_join_policy(spark=None) -> str:
         )
     except (TypeError, ValueError):
         return "off"  # every source invalid: admission stays closed
+
+
+def daemon_join_limit(spark=None) -> int:
+    """How many daemons one fit may admit mid-fit before a further one
+    fails it loudly (floor 0). ``$SRML_FIT_DAEMON_JOIN_LIMIT`` /
+    ``spark.srml.fit.daemon_join_limit`` / config
+    ``fit_daemon_join_limit``."""
+    return _env_conf_config(
+        spark, "SRML_FIT_DAEMON_JOIN_LIMIT", "spark.srml.fit.daemon_join_limit",
+        "fit_daemon_join_limit", int, floor=0,
+    )
 
 
 def _local_daemon(device=None):

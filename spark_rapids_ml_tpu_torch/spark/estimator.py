@@ -66,8 +66,19 @@ peer. KMeans and the forests seed the configured daemons
 (``spark.srml.daemon.addresses``) before the first scan; a peer that was
 not configured fails its tasks loudly. A knn fit across daemons builds
 one shard a daemon (one shared quantizer for IVF) and serves a fan-out.
-Refused loudly until ROADMAP Queue 1 item 6b, the elastic half: a daemon
-loss tolerance above 0 and the ``boundary`` join policy.
+
+**Elastic.** With ``spark.srml.fit.daemon_loss_tolerance`` > 0 a fit
+survives the permanent loss of a PEER daemon: after a failed pass it probes
+every daemon within ``daemon_death_timeout_s`` (mesh membership is a second
+witness), quarantines the dead peers within the loss budget, rewinds the
+survivors to the last pass boundary and replays the pass, the dead
+daemon's partitions rerouted by Spark to the survivors. With
+``spark.srml.fit.daemon_join_policy=boundary`` a daemon that appears in
+``spark.srml.daemon.addresses`` mid-fit is admitted at the next pass
+boundary (seeded with the ledger's iterate, at most
+``daemon_join_limit`` a fit) and the replayed pass rebalances partitions
+onto it. Both models equal the fit on the static topology. The knn fit
+runs neither loop, as in the reference: a daemon lost there fails it.
 
 pyspark is optional: importing this module never needs it (nor pyarrow,
 which the tasks import at use); ``fit``/``transform`` of a Spark DataFrame
@@ -94,16 +105,45 @@ from spark_rapids_ml_tpu_torch.models.scaler import StandardScaler as _StandardS
 from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel, finalize_moments
 from spark_rapids_ml_tpu_torch.ops.histogram import quantile_bin_edges
 from spark_rapids_ml_tpu_torch.spark import daemon_session
+from spark_rapids_ml_tpu_torch.utils import faults
 from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
 logger = get_logger("spark.estimator")
 
+_M_FIT_RECOVERIES = metrics_mod.counter(
+    "srml_fit_recoveries_total",
+    "Fit passes replayed after a daemon incarnation change or poisoned pass, by algo",
+)
+_M_DROP_ERRORS = metrics_mod.counter(
+    "srml_client_drop_errors_total",
+    "Cleanup drop() calls that failed (the daemon job leaks until its TTL), by stage",
+)
 _M_MESH_PATHS = metrics_mod.counter(
     "srml_fit_mesh_reduce_paths_total",
     "Multi-daemon pass reductions by path (collective = on-mesh "
     "reduce_mesh; hub = driver-mediated export/merge fallback)",
+)
+_M_DAEMON_LOSSES = metrics_mod.counter(
+    "srml_fit_daemon_losses_total",
+    "Peer daemons declared permanently dead and quarantined by an elastic fit "
+    "(fit_daemon_loss_tolerance > 0), by algo",
+)
+_M_FIT_REROUTES = metrics_mod.counter(
+    "srml_fit_reroutes_total",
+    "Feed passes rerun on the shrunken topology after a daemon loss (the dead daemon's "
+    "partitions reroute to survivors), by algo",
+)
+_M_FIT_JOINS = metrics_mod.counter(
+    "srml_fit_joins_total",
+    "Daemons admitted into a running fit at a pass boundary "
+    "(fit_daemon_join_policy=boundary), by algo",
+)
+_M_FIT_REBALANCED = metrics_mod.counter(
+    "srml_fit_rebalanced_rows_total",
+    "Rows the task layer rebalanced onto mid-fit joiners on their first acked pass after "
+    "admission, by algo",
 )
 
 #: The schema of a feed task's one ack row.
@@ -112,10 +152,11 @@ _ACK_SCHEMA = "partition int, rows long, daemon string, daemon_id string, boots 
 
 def _drop_quietly(client, job: str, stage: str) -> None:
     """A cleanup drop that cannot mask the fit's outcome; a failure is
-    logged (the daemon holds the job until its TTL)."""
+    counted and logged (the daemon holds the job until its TTL)."""
     try:
         client.drop(job)
     except Exception as e:
+        _M_DROP_ERRORS.inc(stage=stage)
         logger.debug("cleanup drop of job %r failed (%s); the daemon holds it until "
                      "its TTL: %s", job, stage, e)
 
@@ -165,10 +206,22 @@ def _check_not_orphan_spark_df(dataset: Any) -> None:
 _DAEMON_ID_CACHE: Dict[Tuple[str, str, int], str] = {}
 
 
-def _evict_daemon_id_cache(job: str) -> None:
-    """Drop this fit's id-cache entries from this process (at fit exit: a
-    recycled job name must not inherit a stale daemon id)."""
-    for key in [k for k in _DAEMON_ID_CACHE if k[0] == job]:
+def _evict_daemon_id_cache(job: str, addr: Optional[str] = None, prefix: bool = False) -> None:
+    """Drop this fit's id-cache routes from this process's cache: all of
+    them at fit exit (a recycled job name must not inherit a stale daemon
+    id), only ``addr``'s when a daemon is quarantined. ``prefix`` sweeps
+    every job under a uid prefix. Each process owns its copy: on reused
+    executor workers the eviction rides the task (``_FeedTask``'s
+    ``evict_routes``). A malformed ``addr`` is a no-op."""
+    if addr is not None:
+        try:
+            host, port = daemon_session._parse_addr(addr)
+        except ValueError:
+            return
+        _DAEMON_ID_CACHE.pop((job, host, port), None)
+        return
+    for key in [k for k in _DAEMON_ID_CACHE
+                if (str(k[0]).startswith(job) if prefix else k[0] == job)]:
         _DAEMON_ID_CACHE.pop(key, None)
 
 
@@ -252,16 +305,20 @@ class _FeedTask:
     partition on one connection: an Arrow ``feed`` per non-empty batch
     (features, and ``label_col`` for linreg/logreg/rf; ``params`` create the
     job at its first feed), keyed (partition, attempt, pass_id), then
-    ``commit``; it yields one ack row. (The reference's task also stamps
-    the driver's journal ``trace_ctx`` on every op; that waits for
+    ``commit``; it yields one ack row. ``evict_routes``: the quarantined
+    daemons' addresses, dropped from this worker process's id cache before
+    the task resolves its daemon (a reused worker must re-ping whatever
+    now answers at a dead daemon's address). (The reference's task also
+    stamps the driver's journal ``trace_ctx`` on every op; that waits for
     ``utils/journal``, ROADMAP Queue 1 item 7.)"""
 
     def __init__(self, host, port, token, job, algo, input_col, pass_id, label_col=None,
-                 params=None):
+                 params=None, evict_routes=()):
         self.host, self.port, self.token = host, port, token
         self.job, self.algo = job, algo
         self.input_col, self.pass_id = input_col, pass_id
         self.label_col, self.params = label_col, dict(params or {})
+        self.evict_routes = tuple(evict_routes)
 
     def __call__(self, batches):
         import pyarrow as pa
@@ -271,6 +328,8 @@ class _FeedTask:
         ds = daemon_session
         pid, attempt = ds.task_context()
         h, p = ds.executor_daemon_address(self.host, self.port)
+        for bad in self.evict_routes:
+            _evict_daemon_id_cache(self.job, bad)
         # client_kwargs(): the executor env's resilience tuning, so a daemon
         # hiccup is healed by the client before it costs a Spark task retry.
         with DataPlaneClient(h, p, token=self.token, **ds.client_kwargs()) as c:
@@ -373,20 +432,12 @@ def _split_brain(context: str, expected: int, got: int, detail: str) -> RuntimeE
     )
 
 
-def _refuse_multi_daemon_policies(spark) -> None:
-    """The elastic fit and mid-fit joins are the next slice of the
-    multi-daemon plane: refused before any row is fed."""
-    if daemon_session.daemon_loss_tolerance(spark) > 0:
-        raise NotImplementedError(
-            "fit_daemon_loss_tolerance > 0 (the elastic fit) is not in the port yet: it "
-            "comes with the multi-daemon plane's elastic half (ROADMAP Queue 1 item 6b)"
-        )
-    if daemon_session.daemon_join_policy(spark) == "boundary":
-        raise NotImplementedError(
-            "fit_daemon_join_policy 'boundary' (mid-fit daemon joins) is not in the port "
-            "yet: it comes with the multi-daemon plane's elastic half (ROADMAP Queue 1 "
-            "item 6b)"
-        )
+def _iterate_width(arrays: Dict[str, np.ndarray]) -> int:
+    """The feature width an iterate's layout carries: kmeans centres (k,
+    d), a forest's bin edges (d, B − 1), logreg w (d[, C])."""
+    return int(arrays["centers"].shape[1] if "centers" in arrays
+               else arrays["bin_edges"].shape[0] if "bin_edges" in arrays
+               else arrays["w"].shape[0])
 
 
 class _DaemonFit:
@@ -414,10 +465,21 @@ class _DaemonFit:
     reinstalls on every daemon. The driver loop sets ``algo`` and
     ``params`` (the feeds'), with which a creating ``set_iterate`` rebuilds
     a job a daemon lost, and ``push_tol`` (logreg: no push once the step
-    converged)."""
+    converged).
+
+    The elastic fit rides the same replay loop (:meth:`with_recovery`).
+    ``loss_tolerance`` > 0 (the death policy): a failed unit whose peers
+    give no answer within ``death_timeout_s`` quarantines them
+    (:meth:`try_quarantine`) and replays on the survivors.
+    ``join_policy`` "boundary" (the grow policy): a failed unit admits the
+    configured daemons the fit does not know yet, at most ``join_limit``
+    (:meth:`try_admit`), and replays on the grown topology. Either arms
+    the ledger; neither uses up ``recovery_attempts``."""
 
     def __init__(self, host: str, port: int, job: str, token: Optional[str] = None,
-                 recovery_attempts: int = 0, spark=None, **client_kw):
+                 recovery_attempts: int = 0, spark=None, loss_tolerance: int = 0,
+                 death_timeout_s: float = 15.0, join_policy: str = "off", join_limit: int = 2,
+                 **client_kw):
         from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
 
         self._token, self._client_kw = token, client_kw
@@ -430,6 +492,10 @@ class _DaemonFit:
         self.total_fed = 0
         self.fed_by_daemon: Dict[str, int] = {}
         self.recovery_attempts = int(recovery_attempts)
+        self.loss_tolerance = int(loss_tolerance)
+        self.death_timeout_s = float(death_timeout_s)
+        self.grow = join_policy == "boundary"
+        self.join_limit = int(join_limit)
         self.algo: str = "pca"
         self.params: Dict[str, Any] = {}
         self.push_tol: Optional[float] = None
@@ -444,6 +510,24 @@ class _DaemonFit:
         self.ledger: Optional[Tuple[Dict[str, np.ndarray], int]] = None
         self._pulled: Optional[Tuple[Dict[str, np.ndarray], int]] = None
         self.last_acks: list = []
+        #: Quarantined daemons, id → last known address: out of the fit for
+        #: good (never synced or merged again; rows they ack are refused).
+        self.quarantined: Dict[str, Optional[str]] = {}
+        #: Mid-fit joiners, id → address, and those whose first acked pass
+        #: since admission has not come yet (its rows are the rebalance).
+        self.joined: Dict[str, str] = {}
+        self._awaiting_rebalance: set = set()
+
+    @property
+    def ledger_on(self) -> bool:
+        """Recovery, the death policy and the grow policy all replay from
+        the ledger."""
+        return self.recovery_attempts > 0 or self.loss_tolerance > 0 or self.grow
+
+    def evict_routes(self) -> list:
+        """The quarantined daemons' addresses, sorted: the routes a feed
+        task evicts from its worker's id cache."""
+        return sorted(a for a in self.quarantined.values() if a)
 
     def peer_client(self, did: str):
         c = self._peer_clients.get(did)
@@ -483,8 +567,16 @@ class _DaemonFit:
         the daemons that hold its rows as peers; returns the pass's rows.
         Fences a restart under the scan (an incarnation change) and an
         alias of the primary; a daemon whose partitions were all empty
-        created no job and is no peer."""
+        created no job and is no peer. Rows acked by a quarantined daemon
+        are refused: it is alive with state no rewind reached."""
         n, per, addr_of, _, boots = _ack_rows(acks)
+        for did, cnt in per.items():
+            if cnt > 0 and did in self.quarantined:
+                raise RuntimeError(
+                    f"daemon {addr_of[did]} ({did}) was declared dead and quarantined, yet "
+                    f"acked {cnt} rows of the replayed pass: it is alive and holds un-rewound "
+                    "state. Stop routing executors to it (it left this fit for good), or "
+                    "refit.")
         for did, cnt in per.items():
             self.fed_by_daemon[did] = self.fed_by_daemon.get(did, 0) + cnt
             self.addr_by_id.setdefault(did, addr_of[did])
@@ -507,6 +599,12 @@ class _DaemonFit:
                     "id — it predates the multi-host data plane. Upgrade every daemon, or "
                     "unify the daemon address spelling and use one daemon.")
             self.peers[did] = daemon_session._parse_addr(addr_of[did])
+        # A joiner's first acked pass since admission is the rebalance: the
+        # rows the task layer moved onto it.
+        for did in sorted(self._awaiting_rebalance):
+            if per.get(did, 0) > 0:
+                _M_FIT_REBALANCED.inc(per[did], algo=self.algo)
+                self._awaiting_rebalance.discard(did)
         # After the registration (recover() must know every daemon the pass
         # touched) and before any merge: partials of a daemon that restarted
         # under the scan are partial in an unknowable way.
@@ -677,11 +775,11 @@ class _DaemonFit:
                     self.peer_client(did).set_iterate(self.job, arrays, iteration)
 
     def record(self) -> None:
-        """Snapshot the iterate into the ledger (recovery on only). It runs
-        after :meth:`sync_peers`: the ledger advances only once every
+        """Snapshot the iterate into the ledger (:attr:`ledger_on` only). It
+        runs after :meth:`sync_peers`: the ledger advances only once every
         daemon holds the new boundary, so a half-pushed boundary replays
         from the old one."""
-        if self.recovery_attempts > 0:
+        if self.ledger_on:
             self.ledger = self._pulled or self.client.get_iterate(self.job)
         self._pulled = None
 
@@ -714,6 +812,7 @@ class _DaemonFit:
         the primary's ``status``; without one (a single-pass fit, or pass 0
         of a logreg fit), drop the job everywhere and let the replay feed
         it anew. A restarted primary's new identity becomes the primary's."""
+        _M_FIT_RECOVERIES.inc(algo=self.algo)
         logger.warning("fit recovery (%s): replaying from the last pass boundary after: %s",
                        self.algo, err)
         with trace_span("recovery"):
@@ -724,11 +823,7 @@ class _DaemonFit:
                 self.primary_id = new_id
             if self.ledger is not None:
                 arrays, iteration = self.ledger
-                # The iterate's layout carries the width: kmeans centres
-                # (k, d), a forest's bin edges (d, B − 1), logreg w (d[, C]).
-                n_cols = int(arrays["centers"].shape[1] if "centers" in arrays
-                             else arrays["bin_edges"].shape[0] if "bin_edges" in arrays
-                             else arrays["w"].shape[0])
+                n_cols = _iterate_width(arrays)
                 for c in [self.client] + [self.peer_client(d) for d in sorted(self.peers)]:
                     c.set_iterate(self.job, arrays, iteration, algo=self.algo, n_cols=n_cols,
                                   params=self.params)
@@ -739,12 +834,168 @@ class _DaemonFit:
                 self.total_fed = 0
             self.fed_by_daemon.clear()
 
+    def _probe_alive(self, addr: Tuple[str, int]) -> bool:
+        """The death policy's liveness verdict: one ping whose op deadline is
+        the death timeout, with at least 8 attempts, so a slow or busy
+        daemon that answers within the whole budget is never declared
+        dead on a hunch."""
+        from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+
+        kw = dict(self._client_kw)
+        kw["op_deadline_s"] = self.death_timeout_s
+        kw["max_op_attempts"] = max(int(kw.get("max_op_attempts", 5)), 8)
+        try:
+            with DataPlaneClient(*addr, token=self._token, **kw) as pc:
+                pc.ping()
+            return True
+        except Exception:
+            return False
+
+    def try_admit(self, err: Exception) -> bool:
+        """The grow policy's admission step, run only after a unit failed
+        (a joiner's refusal of its unseeded feeds is the signal). Re-reads
+        the configured daemons (``daemon_session.resolve_all``: dynamic
+        allocation re-points ``spark.srml.daemon.addresses``), skips the
+        addresses and ids this fit knows (an alias of a known daemon, a
+        quarantined one), and admits each new daemon at the current pass
+        boundary: a creating ``set_iterate`` of the ledger's iterate, after
+        which, and only after which, it is a peer. A joiner that fails the
+        handshake is never half-joined. True: at least one admitted (the
+        caller rewinds and replays); False: nothing new appeared. Past
+        ``join_limit`` joins it raises."""
+        from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+
+        if not self.grow or self.ledger is None:
+            # No boundary iterate to seed a joiner from: a single-pass fit
+            # registers an unknown daemon from its acks anyway.
+            return False
+        known = {self.address}
+        known.update(f"{h}:{p}" for h, p in self.peers.values())
+        known.update(a for a in self.quarantined.values() if a)
+        known.update(self.joined.values())
+        admitted = 0
+        for ph, pp in daemon_session.resolve_all(self.spark):
+            addr = f"{ph}:{pp}"
+            if addr in known:
+                continue
+            pc = DataPlaneClient(ph, pp, token=self._token, **self._client_kw)
+            registered = False
+            try:
+                try:
+                    did = pc.server_id()
+                except Exception:
+                    continue  # configured but not up yet
+                # An unknown address may still spell a daemon this fit knows.
+                if not did or did == self.primary_id or did in self.peers \
+                        or did in self.quarantined:
+                    continue
+                if len(self.joined) + 1 > self.join_limit:
+                    raise RuntimeError(
+                        f"daemon {addr} ({did}) appeared mid-fit but this fit's join budget "
+                        f"is spent (fit_daemon_join_limit={self.join_limit}, "
+                        f"{len(self.joined)} already admitted). Raise the limit, or stop "
+                        "routing executors to it until the next fit.") from err
+                # The admission handshake: nothing is registered until the
+                # joiner holds the boundary iterate.
+                faults.checkpoint("daemon.join")
+                arrays, iteration = self.ledger
+                pc.set_iterate(self.job, arrays, int(iteration), algo=self.algo,
+                               n_cols=_iterate_width(arrays), params=self.params)
+                self.peers[did] = (ph, pp)
+                self.addr_by_id[did] = addr
+                self._peer_clients[did] = pc
+                registered = True
+                self.joined[did] = addr
+                self._awaiting_rebalance.add(did)
+                admitted += 1
+                _M_FIT_JOINS.inc(algo=self.algo)
+                logger.warning(
+                    "fit elastic grow (%s): daemon %s (%s) admitted at the pass-%d boundary — "
+                    "seeded with the ledger iterate; replaying the failed pass on the "
+                    "%d-daemon topology", self.algo, addr, did, int(iteration),
+                    len(self.peers) + 1)
+            finally:
+                if not registered:
+                    pc.close()
+        return admitted > 0
+
+    def try_quarantine(self, err: Exception) -> bool:
+        """The death policy's classification step, run only after a unit
+        failed: the primary and every peer are probed concurrently within
+        the death deadline, and on the collective path the mesh membership
+        is a second witness (a live member is not dead, whatever its
+        probe). A dead primary raises (it holds the folded state: no
+        amputation survives it); dead peers past the loss budget raise;
+        otherwise each dead peer is quarantined: out of ``peers``, its
+        client closed, its id-cache route evicted, the loss counted. True:
+        at least one quarantined (the caller rewinds and replays)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        if not self.peers:
+            return False
+        live_members = None
+        if not self._hub_only:
+            try:
+                live_members = {str(m["id"]) for m in self.client.mesh_info().get("members", [])}
+            except Exception:
+                live_members = None
+        with ThreadPoolExecutor(max_workers=min(len(self.peers) + 1, 16)) as ex:
+            primary = ex.submit(self._probe_alive, self.client._addr)
+            probes = {did: ex.submit(self._probe_alive, self.peers[did])
+                      for did in sorted(self.peers)}
+            primary_ok = primary.result()
+            alive = {did: f.result() for did, f in probes.items()}
+        if not primary_ok:
+            raise RuntimeError(
+                f"primary daemon {self.address} is unreachable (no answer within the "
+                f"{self.death_timeout_s:.1f}s death deadline): elastic degrade can only "
+                "amputate PEER daemons — the primary holds the folded state. Restart it "
+                "(crash recovery resurrects durable jobs) or refit.") from err
+        dead = []
+        for did in sorted(self.peers):
+            if alive[did]:
+                continue
+            if live_members is not None and did in live_members:
+                logger.warning("peer daemon %s failed its liveness probe but is still a live "
+                               "mesh member — treating the failure as transient, not a death",
+                               self.addr_by_id.get(did, did))
+                continue
+            dead.append(did)
+        if not dead:
+            return False
+        if len(self.quarantined) + len(dead) > self.loss_tolerance:
+            raise RuntimeError(
+                f"daemon(s) {[self.addr_by_id.get(d, d) for d in dead]} gave no answer within "
+                f"the {self.death_timeout_s:.1f}s death deadline, but this fit's loss budget is "
+                f"spent (fit_daemon_loss_tolerance={self.loss_tolerance}, "
+                f"{len(self.quarantined)} already quarantined). Raise the tolerance, or refit "
+                "on the surviving daemons.") from err
+        for did in dead:
+            addr = self.addr_by_id.get(did)
+            self.quarantined[did] = addr
+            self.peers.pop(did, None)
+            pc = self._peer_clients.pop(did, None)
+            if pc is not None:
+                pc.close()
+            if addr is not None:
+                # The replayed tasks must re-ping whatever now answers there.
+                _evict_daemon_id_cache(self.job, addr)
+            _M_DAEMON_LOSSES.inc(algo=self.algo)
+            logger.warning(
+                "fit elastic degrade (%s): peer daemon %s (%s) declared dead — no answer "
+                "within the %.1fs death deadline; quarantining it and replaying from the last "
+                "pass boundary with its partitions rerouted to the %d survivor(s)", self.algo,
+                addr, did, self.death_timeout_s, len(self.peers) + 1)
+        return True
+
     def with_recovery(self, body: Callable[[], Any]):
         """Run ``body`` (one pass-boundary unit: scan + step, or scan +
-        finalize) under the bounded replay loop, ``recovery_attempts``
-        times. Deterministic driver-side errors (validation, config,
-        refusals) are never replayed; daemon and task failures are."""
-        attempts = self.recovery_attempts
+        finalize) under the bounded replay loop. Deterministic driver-side
+        errors (validation, config, refusals) are never replayed. A daemon
+        or task failure is first offered to the grow policy (an unadmitted
+        newcomer), then to the death policy (a dead peer); either heals it
+        with a rewind and a replay bounded by its own budget. Otherwise
+        the transient replay runs, ``recovery_attempts`` times."""
         attempt = 0
         while True:
             try:
@@ -753,7 +1004,16 @@ class _DaemonFit:
                     NotImplementedError):
                 raise
             except Exception as e:
-                if attempt >= attempts:
+                if self.grow and self.try_admit(e):
+                    with trace_span("elastic grow"):
+                        self.recover(e)
+                    continue
+                if self.loss_tolerance > 0 and self.try_quarantine(e):
+                    with trace_span("elastic degrade"):
+                        _M_FIT_REROUTES.inc(algo=self.algo)
+                        self.recover(e)
+                    continue
+                if attempt >= self.recovery_attempts:
                     raise
                 attempt += 1
                 self.recover(e)
@@ -984,7 +1244,11 @@ def _drive_knn(fit: _DaemonFit, run_pass, core) -> "_DaemonKNNModel":
     which the others build, so the union of the shards' probes is the one
     index's candidate set. Each shard's rows are held to its acks, and on
     any failure every daemon's job and shard are dropped at once: both are
-    dataset-sized."""
+    dataset-sized.
+
+    No elastic loop runs here, as in the reference's knn fit: every shard
+    IS its daemon's rows, so a daemon lost during the fit fails it loudly
+    whatever the loss tolerance or join policy."""
     import contextlib
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1154,7 +1418,6 @@ class _SparkAdapter:
         # params' n_classes picks Gini or variance splits).
         wire_algo = "pca" if algo == "scaler" else "rf" if forest else algo
         spark = getattr(df, "sparkSession", None)
-        _refuse_multi_daemon_policies(spark)
         # Without a configured daemon this starts the driver's own on the
         # estimator's device (the card unless device="cpu"; raises without one).
         host, port, token = daemon_session.resolve(spark, device=core._device)
@@ -1166,14 +1429,19 @@ class _SparkAdapter:
         multi_pass = algo in ("kmeans", "logreg") or forest
         if multi_pass:
             sel = sel.persist()
+        ds = daemon_session
         fit = _DaemonFit(host, port, job, token=token,
-                         recovery_attempts=daemon_session.recovery_attempts(spark), spark=spark,
-                         **ckw)
+                         recovery_attempts=ds.recovery_attempts(spark), spark=spark,
+                         loss_tolerance=ds.daemon_loss_tolerance(spark),
+                         death_timeout_s=ds.daemon_death_timeout_s(spark),
+                         join_policy=ds.daemon_join_policy(spark),
+                         join_limit=ds.daemon_join_limit(spark), **ckw)
         try:
 
             def run_pass(pass_id):
                 task = _FeedTask(host, port, token, job, wire_algo, input_col, pass_id,
-                                 label_col=label_col, params=fit.params)
+                                 label_col=label_col, params=fit.params,
+                                 evict_routes=fit.evict_routes())
                 return sel.mapInArrow(task, _ACK_SCHEMA).collect()
 
             if algo == "knn":

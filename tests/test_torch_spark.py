@@ -25,8 +25,9 @@ materialized no row of the dataset.
   executors with the same output;
 * the cross pairings: the port's ``SparkPCA`` against an in-process JAX
   daemon, and the JAX ``SparkPCA`` against the port's daemon;
-* a second daemon in the acks (folded in as a peer), the refusals of the
-  elastic and join policies, and the scan replay after a daemon restart;
+* a second daemon in the acks (folded in as a peer), a healthy fit that
+  the elastic and join policies leave as it is, and the scan replay after a
+  daemon restart;
 * the task closures pickle without a torch object.
 """
 
@@ -228,17 +229,37 @@ def test_acks_naming_a_second_daemon_are_refused(pca_data, jax_ref):
         assert a._jobs == {} and b._jobs == {}  # both daemons' jobs were dropped
 
 
+def _ordered_fit(pca_data, conf):
+    """Two partitions committed in one order (concurrency 1)."""
+    return _fit(simdf_from_numpy(pca_data, n_partitions=2, concurrency=1,
+                                 session=SimSparkSession(conf)))
+
+
+@pytest.fixture(scope="module")
+def policy_off_fit(pca_data):
+    model = _ordered_fit(pca_data, {})
+    daemon_session.shutdown()
+    return model
+
+
 @pytest.mark.parametrize("conf", [
     {"spark.srml.fit.daemon_loss_tolerance": "1"},
     {"spark.srml.fit.daemon_join_policy": "boundary"},
 ])
-def test_elastic_and_join_policies_are_refused_before_any_row(conf, pca_data, monkeypatch):
-    df = simdf_from_numpy(pca_data, n_partitions=2, session=SimSparkSession(conf))
-    monkeypatch.setattr(SimDataFrame, "mapInArrow",
-                        lambda *a: pytest.fail("a task ran under a refused policy"))
-    with pytest.raises(NotImplementedError, match="multi-daemon plane"):
-        SparkPCA(device="cpu").setK(K).fit(df)
-    assert daemon_session._owned == {}
+def test_elastic_and_join_policies_leave_a_healthy_fit_alone(conf, pca_data, policy_off_fit,
+                                                            monkeypatch):
+    """With the death or the grow policy on, a healthy one-daemon fit is
+    the policy-off fit bitwise (commits in one order), probes no daemon and
+    counts no loss or join."""
+    for name in ("_probe_alive", "try_quarantine", "try_admit"):
+        monkeypatch.setattr(port_est._DaemonFit, name,
+                            lambda *a, name=name: pytest.fail(f"{name} ran in a healthy fit"))
+    counters = (port_est._M_DAEMON_LOSSES, port_est._M_FIT_JOINS, port_est._M_FIT_REROUTES)
+    before = [c.value(algo="pca") for c in counters]
+    on = _ordered_fit(pca_data, conf)
+    assert [c.value(algo="pca") for c in counters] == before
+    for attr in ("pc", "explainedVariance", "mean"):
+        np.testing.assert_array_equal(getattr(on, attr), getattr(policy_off_fit, attr))
 
 
 class _RestartAfterFirstCommit:

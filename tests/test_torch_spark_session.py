@@ -58,7 +58,8 @@ SO = os.path.join(REPO, "native", "build", "libsrml_tpu.so")
 
 _FIT_ENV = (
     "SRML_FIT_RECOVERY_ATTEMPTS", "SRML_FIT_DAEMON_LOSS_TOLERANCE",
-    "SRML_FIT_DAEMON_JOIN_POLICY", "SRML_DAEMON_ADDRESS",
+    "SRML_FIT_DAEMON_JOIN_POLICY", "SRML_FIT_DAEMON_DEATH_TIMEOUT_S",
+    "SRML_FIT_DAEMON_JOIN_LIMIT", "SRML_DAEMON_ADDRESS",
     "SRML_DAEMON_TOKEN", "SRML_DAEMON_TIMEOUT_S", "SRML_DAEMON_OP_DEADLINE_S",
     "SRML_DAEMON_OP_ATTEMPTS", "SRML_PARTITION_ID", "SRML_ATTEMPT",
 )
@@ -75,28 +76,40 @@ def _clean_env(monkeypatch):
 # ---------------------------------------------------------------------------
 
 _READERS = ("recovery_attempts", "daemon_loss_tolerance", "daemon_join_policy",
-            "client_kwargs")
+            "daemon_death_timeout_s", "daemon_join_limit", "client_kwargs")
 
 _CASES = {
     "defaults": ({}, {}),
     "env": ({"SRML_FIT_RECOVERY_ATTEMPTS": "3", "SRML_FIT_DAEMON_LOSS_TOLERANCE": "1",
              "SRML_FIT_DAEMON_JOIN_POLICY": "Boundary", "SRML_DAEMON_TIMEOUT_S": "9",
+             "SRML_FIT_DAEMON_DEATH_TIMEOUT_S": "2.5", "SRML_FIT_DAEMON_JOIN_LIMIT": "4",
              "SRML_DAEMON_OP_DEADLINE_S": "30", "SRML_DAEMON_OP_ATTEMPTS": "7"}, {}),
     "conf": ({}, {"spark.srml.fit.recovery_attempts": "2",
                   "spark.srml.fit.daemon_loss_tolerance": "2",
                   "spark.srml.fit.daemon_join_policy": "boundary",
+                  "spark.srml.fit.daemon_death_timeout_s": "7",
+                  "spark.srml.fit.daemon_join_limit": "1",
                   "spark.srml.daemon.timeout_s": "5",
                   "spark.srml.daemon.op_attempts": "2"}),
-    "env_before_conf": ({"SRML_FIT_RECOVERY_ATTEMPTS": "1", "SRML_DAEMON_TIMEOUT_S": "3"},
+    "env_before_conf": ({"SRML_FIT_RECOVERY_ATTEMPTS": "1", "SRML_DAEMON_TIMEOUT_S": "3",
+                         "SRML_FIT_DAEMON_DEATH_TIMEOUT_S": "1", "SRML_FIT_DAEMON_JOIN_LIMIT": "0"},
                         {"spark.srml.fit.recovery_attempts": "5",
+                         "spark.srml.fit.daemon_death_timeout_s": "9",
+                         "spark.srml.fit.daemon_join_limit": "3",
                          "spark.srml.daemon.timeout_s": "8"}),
     "invalid_env_falls_through": ({"SRML_FIT_RECOVERY_ATTEMPTS": "many",
                                    "SRML_FIT_DAEMON_JOIN_POLICY": "sometimes",
-                                   "SRML_FIT_DAEMON_LOSS_TOLERANCE": "one"},
+                                   "SRML_FIT_DAEMON_LOSS_TOLERANCE": "one",
+                                   "SRML_FIT_DAEMON_DEATH_TIMEOUT_S": "soon",
+                                   "SRML_FIT_DAEMON_JOIN_LIMIT": "few"},
                                   {"spark.srml.fit.recovery_attempts": "2",
-                                   "spark.srml.fit.daemon_join_policy": "typo"}),
+                                   "spark.srml.fit.daemon_join_policy": "typo",
+                                   "spark.srml.fit.daemon_death_timeout_s": "3",
+                                   "spark.srml.fit.daemon_join_limit": "x"}),
     "negative_floors": ({"SRML_FIT_RECOVERY_ATTEMPTS": "-2",
-                         "SRML_FIT_DAEMON_LOSS_TOLERANCE": "-1"}, {}),
+                         "SRML_FIT_DAEMON_LOSS_TOLERANCE": "-1",
+                         "SRML_FIT_DAEMON_DEATH_TIMEOUT_S": "0",
+                         "SRML_FIT_DAEMON_JOIN_LIMIT": "-3"}, {}),
 }
 
 
@@ -113,12 +126,15 @@ def test_readers_equal_the_jax_modules(case, monkeypatch):
 
 @pytest.mark.parametrize("key,value", [
     ("fit_recovery_attempts", 2), ("fit_daemon_loss_tolerance", 1),
-    ("fit_daemon_join_policy", "boundary"),
+    ("fit_daemon_join_policy", "boundary"), ("fit_daemon_death_timeout_s", 4.5),
+    ("fit_daemon_join_limit", 5),
 ])
 def test_readers_fall_back_to_the_config(key, value):
     reader = {"fit_recovery_attempts": "recovery_attempts",
               "fit_daemon_loss_tolerance": "daemon_loss_tolerance",
-              "fit_daemon_join_policy": "daemon_join_policy"}[key]
+              "fit_daemon_join_policy": "daemon_join_policy",
+              "fit_daemon_death_timeout_s": "daemon_death_timeout_s",
+              "fit_daemon_join_limit": "daemon_join_limit"}[key]
     assert config.get(key) == jax_config.get(key)  # the same defaults
     with config.option(key, value), jax_config.option(key, value):
         got = getattr(daemon_session, reader)(SimSparkSession({}))
