@@ -43,7 +43,8 @@ Phases, each of which exits non-zero on a failed check:
    ``--data-plane`` runs phases 19 to 22, phase 23's Spark part and phase
    25 alone after the build; ``--estimators`` runs phases 23 and 24 alone;
    ``--multi-process`` runs phase 26 alone; ``--multi-daemon`` runs
-   phase 27 alone; ``--elastic`` runs phase 28 alone.
+   phase 27 alone; ``--elastic`` runs phase 28 alone; ``--serving`` runs
+   phase 29 alone.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -389,6 +390,36 @@ Phases, each of which exits non-zero on a failed check:
     oracle's, the seconds from the death to the replay's scan and the
     elastic counters; every ``gram_colsum`` launch must take the wgmma
     route.
+29. The serving plane (``serve/scheduler.py``; the ``warmup``, ``health``
+    and ``metrics`` ops): two port daemons in this process on the card,
+    one batching on the default ladder (64, 256, 1,024, 4,096) and the
+    reference with batching off. The exact index is phase 22's 1,048,576 x
+    768 float32 rows, fed once by 8 spawned client processes through
+    ``feed_raw`` and ``finalize_knn`` (k = 10) and registered in the second
+    daemon by ``_ServedModel.from_model``; a PCA model (d = 2048, k = 32,
+    fit on 65,536 rows of phase 3's spectrum) and an IVF index (65,536 x
+    768, nlist 64, nprobe 8) are in both. ``warmup`` of each model acks
+    enabled, the ladder, compiled 4 and aot false, and no later traffic
+    raises ``srml_scheduler_compile_misses_total``. Exact kNN over the wire:
+    the 8 client processes send 32 ``kneighbors_raw`` requests each (query
+    counts from {1, 16, 63, 64, 65, 256}, seeded) to the batching daemon,
+    then the same to the other: every answer bitwise equal, fewer batches
+    than requests, and the ``dist_topk`` launches equal to
+    ``srml_scheduler_batches_total{op="kneighbors"}``, all wgmma. The
+    ``health`` scheduler block, the Prometheus lines and the requests
+    counted against the requests sent. IVF requests bypass the scheduler
+    (``srml_scheduler_bypass_total``) with answers bitwise the other
+    daemon's; a daemon with ``serve_queue_depth`` 2 answers ``busy`` and
+    every client heals to the exact answers. 16 threads x 64 PCA
+    transforms of {1, 8, 63, 64, 65, 200, 1,000} rows through
+    ``RequestScheduler.submit``, each bitwise the other daemon's solo
+    transform or within 2·γ₂₀₄₈·Σ|x||pc|, and 9 rows batched with 40 in the
+    64-row bucket bitwise the 9 rows alone. It prints, batching on and
+    off, requests/s, rows/s, p50 and p99 latency per request, the mean rows
+    a batch and the padded share, and the device busy share; then one
+    request of phase 22's 4,096 queries alone, over the wire to each daemon
+    and in process through ``submit`` and ``_ServedModel.kneighbors``: the
+    median of 5 and the daemon's spans a call.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
@@ -407,7 +438,9 @@ of phase 26's path (``gram``, ``gram_colsum``, ``linreg_stats``,
 ranks under ``multiprocess_launches``, and the eight rows of phase 27's
 path its two-daemon fits' and served calls' launches under
 ``multidaemon_launches``, the ``gram_colsum`` row phase 28's elastic
-fits' launches in this process under ``elastic_launches``) and
+fits' launches in this process under ``elastic_launches``, the
+``dist_topk``, ``probe_select`` and ``ivf_scan_select`` rows phase 29's
+batched exact and bypassed IVF traffic's under ``serving_launches``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, the script fails before printing any result.
 """
@@ -6111,6 +6144,481 @@ def phase_elastic(torch, kernels, config):
     return {"gram_colsum": launches}
 
 
+P29_SEED = 29
+P29_PROCS = 8  # the wire clients: spawned processes, so the rates are not the interpreter's
+P29_REQS = 32  # exact kneighbors requests a client process
+P29_Q_SIZES = (1, 16, 63, 64, 65, 256)  # query counts of a request
+P29_IVF_ROWS, P29_IVF_NLIST, P29_IVF_NPROBE = 65536, 64, 8
+P29_IVF_REQS = 4  # IVF requests a client process
+P29_SHED_REQS = 8  # requests a client process sends to the queue-depth-2 daemon
+P29_SHED_DEPTH = 2
+P29_PCA_ROWS = 65536  # the served PCA model's fit rows (phase 3's spectrum)
+P29_PCA_THREADS, P29_PCA_REQS = 16, 64  # in-process submitters x requests each
+P29_PCA_SIZES = (1, 8, 63, 64, 65, 200, 1000)
+P29_PCA_POOL = 8192  # rows the transform requests are sliced from
+P29_TIMEOUT_S = 300  # a client command's time limit
+
+
+def p29_requests(np, p, d, clusters):
+    """Client ``p``'s exact kNN requests: query counts drawn from
+    P29_Q_SIZES by the seed (P29_SEED, p), the queries bench_knn.py's
+    mixture (``knn_frame`` of partition 16 + p, frame 0)."""
+    sizes = np.random.default_rng([P29_SEED, p]).choice(P29_Q_SIZES, P29_REQS)
+    q = knn_frame(np, 16 + p, 0, int(sizes.sum()), d, clusters)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    return [q[offs[i]:offs[i + 1]] for i in range(P29_REQS)]
+
+
+def _p29_client(p, shape, cmd_q, out_q):
+    """Phase 29's wire client ``p``: a spawned process that feeds its
+    partition of the exact index (("feed", address, job)) and runs request
+    lists against a daemon (("run", name, address, model, k, n)): the first
+    n of its requests, one ``kneighbors_raw`` each over one connection,
+    timed on the host clock. It keeps each run's answers, and ("compare",
+    a, b) reports the requests whose answers differ in a bit. ``shape``:
+    (width, rows a frame, frames, mixture components)."""
+    try:
+        import numpy as np
+
+        from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+    except Exception as e:  # noqa: BLE001 - reported to the parent
+        out_q.put(("err", p, repr(e)))
+        return
+    d, rows, feeds, clusters = shape
+    reqs = p29_requests(np, p, d, clusters)
+    out_q.put(("ready", p, None))
+    answers = {}
+    while True:
+        cmd = cmd_q.get()
+        if cmd is None:
+            return
+        try:
+            if cmd[0] == "feed":
+                _, address, job = cmd
+                with DataPlaneClient(*address, timeout=600.0) as c:
+                    for f in range(feeds):
+                        x = knn_frame(np, p, f, rows, d, clusters)
+                        c.feed_raw(job, x, algo="knn", n_cols=d, partition=p)
+                    out_q.put(("ok", p, c.commit(job, partition=p)))
+            elif cmd[0] == "run":
+                _, name, address, model, k, n = cmd
+                lat, got = [], []
+                with DataPlaneClient(*address, timeout=600.0) as c:
+                    t_run = time.perf_counter()
+                    for q in reqs[:n]:
+                        t0 = time.perf_counter()
+                        got.append(c.kneighbors_raw(model, q, k=k))
+                        lat.append(time.perf_counter() - t0)
+                    run_s = time.perf_counter() - t_run
+                    stats = dict(c.stats)
+                answers[name] = got
+                out_q.put(("ok", p, {"lat": lat, "rows": sum(q.shape[0] for q in reqs[:n]),
+                                     "s": run_s, "stats": stats}))
+            elif cmd[0] == "compare":
+                _, a, b = cmd
+                bad = [i for i, ((da, ia), (db, ib)) in enumerate(zip(answers[a], answers[b]))
+                       if not (np.array_equal(da, db) and np.array_equal(ia, ib))]
+                out_q.put(("ok", p, {"bad": bad, "n": min(len(answers[a]), len(answers[b]))}))
+        except Exception as e:  # noqa: BLE001 - reported to the parent
+            out_q.put(("err", p, repr(e)))
+
+
+class _P29Clients:
+    """The P29_PROCS wire clients, spawned once (never fork a process that
+    holds a CUDA context) and driven by commands."""
+
+    def __init__(self):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.out = ctx.Queue()
+        self.cmds = [ctx.Queue() for _ in range(P29_PROCS)]
+        shape = (KNN_D, DP_ROWS, DP_FEEDS, KNN_CLUSTERS)
+        self.procs = [ctx.Process(target=_p29_client, args=(p, shape, self.cmds[p], self.out),
+                                  daemon=True) for p in range(P29_PROCS)]
+        for proc in self.procs:
+            proc.start()
+
+    def collect(self, want="ok"):
+        msgs = [self.out.get(timeout=P29_TIMEOUT_S) for _ in self.procs]
+        bad = [m for m in msgs if m[0] != want]
+        if bad:
+            fail(f"phase 29 client processes failed: {bad}")
+        return [m[2] for m in sorted(msgs, key=lambda m: m[1])]
+
+    def all(self, *cmd):
+        for q in self.cmds:
+            q.put(cmd)
+        return self.collect()
+
+    def close(self):
+        for q in self.cmds:
+            q.put(None)
+        for proc in self.procs:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=10)
+
+
+def p29_share(daemon, name, served):
+    """Register a built model of another daemon in ``daemon`` too (the
+    rows were fed once), as the daemon's knn finalize registers its own."""
+    from spark_rapids_ml_tpu_torch.serve import daemon as daemon_mod
+
+    shared = daemon_mod._ServedModel.from_model(served.algo, served.model, id_map=served.id_map,
+                                                buckets=daemon._buckets)
+    with daemon._models_lock:
+        daemon._models[name] = shared
+    return shared
+
+
+def p29_metric(snap, name, field="value", **labels):
+    """The sum of a metric's samples (a histogram's ``field``: sum or
+    count) whose labels include ``labels``."""
+    return sum(s[field] for s in snap.get(name, {}).get("samples", [])
+               if all(s["labels"].get(k) == v for k, v in labels.items()))
+
+
+def p29_delta(before, after, name, field="value", **labels):
+    """What a metric gained between two snapshots."""
+    return (p29_metric(after, name, field, **labels)
+            - p29_metric(before, name, field, **labels))
+
+
+def p29_traffic(torch, kernels, clients, name, address, model, k, n, tag):
+    """One traffic run of every client against ``address``, launches reset
+    just before and read just after, traced for the device busy share.
+    Returns a record: requests, rows, seconds, latencies, launches, routes,
+    busy ms."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = clients.all("run", name, address, model, k, n)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    rec = {"launches": dict(kernels.LAUNCHES), "routes": dict(kernels.ROUTES), "s": wall}
+    rec["busy_ms"], _, _ = device_time(torch, prof)
+    del prof
+    lat = np.sort(np.concatenate([r["lat"] for r in res])) * 1e3
+    rec.update(requests=len(lat), rows=sum(r["rows"] for r in res),
+               p50=float(np.percentile(lat, 50)), p99=float(np.percentile(lat, 99)),
+               busy_waits=sum(r["stats"]["busy_waits"] for r in res))
+    print(f"phase 29 {tag}: {rec['requests']} requests, {rec['rows']} query rows from "
+          f"{P29_PROCS} processes in {wall:.3f} s = {rec['requests'] / wall:.1f} requests/s, "
+          f"{rec['rows'] / wall:.1f} rows/s; latency p50 {rec['p50']:.3f} ms, p99 "
+          f"{rec['p99']:.3f} ms (host clock in the clients); device busy {rec['busy_ms']:.3f} "
+          f"ms of {wall * 1e3:.3f} ({100 * rec['busy_ms'] / (wall * 1e3):.2f} %, torch.profiler)",
+          flush=True)
+    return rec
+
+
+def phase_serving(torch, kernels, config):
+    """Phase 29: the serving plane on the card (``serve/scheduler.py``, the
+    ``warmup``, ``health`` and ``metrics`` ops). Returns the launches of
+    its batched exact traffic and its IVF traffic ({kernel: launches})."""
+    import threading
+
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch import PCA
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient, DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.serve.scheduler import RequestScheduler, bucket_for
+    from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
+    from spark_rapids_ml_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    n_rows = DP_PARTITIONS * DP_FEEDS * DP_ROWS
+    print(f"phase 29: the serving plane; {P29_PROCS} client processes x {P29_REQS} exact "
+          f"kneighbors_raw requests of {P29_Q_SIZES} queries (k = {KNN_K}) over phase 22's "
+          f"{n_rows} x {KNN_D} rows, batching on against off; IVF ({P29_IVF_ROWS} rows, nlist "
+          f"{P29_IVF_NLIST}, nprobe {P29_IVF_NPROBE}) bypassing; a queue-depth-{P29_SHED_DEPTH} "
+          f"daemon shedding; {P29_PCA_THREADS} threads x {P29_PCA_REQS} PCA transforms "
+          f"(d = {D}, k = {K}) through RequestScheduler.submit", flush=True)
+    clients = _P29Clients()  # their imports overlap the daemons' set-up
+    out = {}
+    with DataPlaneDaemon(device=DEV, serve_batching=True) as on, \
+            DataPlaneDaemon(device=DEV, serve_batching=False) as off:
+        with config.option("serve_queue_depth", P29_SHED_DEPTH):
+            shed = DataPlaneDaemon(device=DEV, serve_batching=True, retry_after_s=0.01).start()
+        try:
+            # -- the served models -------------------------------------------
+            gen = torch.Generator(device=DEV).manual_seed(P29_SEED)
+            j = torch.arange(D, device=DEV, dtype=torch.float32)
+            scales = torch.where(j < K, torch.sqrt(2.0 - j / (K - 1)), 0.1 * 0.999 ** j)
+            mu = 0.05 * torch.randn((D,), generator=gen, device=DEV)
+            pca = PCA(device=DEV).setK(K).fit({"features": make_rows(gen, P29_PCA_ROWS, scales,
+                                                                     mu, torch.float32)})
+            x_pool = make_rows(gen, P29_PCA_POOL, scales, mu, torch.float32).cpu().numpy()
+            for d in (on, off):
+                with DataPlaneClient(*d.address) as c:
+                    c.ensure_model("p29-pca", "pca", pca._model_data())
+            with DataPlaneClient(*on.address) as c:
+                c.feed_raw("p29-ivf", knn_frame(np, 0, 0, P29_IVF_ROWS, KNN_D, KNN_CLUSTERS),
+                           algo="knn", n_cols=KNN_D)
+                c.finalize_knn("p29-ivf", register_as="p29-ivf", mode="ivf",
+                               nlist=P29_IVF_NLIST, nprobe=P29_IVF_NPROBE, seed=P29_SEED)
+            p29_share(off, "p29-ivf", on._lookup_model("p29-ivf"))
+            clients.collect("ready")
+            t0 = time.perf_counter()
+            acks = clients.all("feed", on.address, "p29-exact")
+            feed_s = time.perf_counter() - t0
+            with DataPlaneClient(*on.address) as c:
+                t0 = time.perf_counter()
+                info = c.finalize_knn("p29-exact", register_as="p29-exact", mode="exact")
+                build_s = time.perf_counter() - t0
+            check(int(info["n_rows"][0]) == n_rows == max(acks),
+                  f"phase 29 exact index: {int(info['n_rows'][0])} rows fed by the clients' "
+                  f"feed_raw frames == {n_rows}")
+            print(f"phase 29 exact index fed in {feed_s:.3f} s ({n_rows / feed_s:.1f} rows/s), "
+                  f"built in {build_s:.3f} s", flush=True)
+            exact_on = on._lookup_model("p29-exact")
+            exact_on.model._set(k=KNN_K)  # the served index's fitted k
+            p29_share(off, "p29-exact", exact_on)
+            p29_share(shed, "p29-exact", exact_on)
+            # -- warmup --------------------------------------------------------
+            ladder = list(on._buckets)
+            for d, model, width, kw in ((on, "p29-exact", KNN_D, {"k": KNN_K}),
+                                        (on, "p29-ivf", KNN_D, {"k": KNN_K}),
+                                        (on, "p29-pca", D, {}),
+                                        (shed, "p29-exact", KNN_D, {"k": KNN_K})):
+                with DataPlaneClient(*d.address) as c:
+                    t0 = time.perf_counter()
+                    ack = c.warmup(model, n_cols=width, **kw)
+                    warm_s = time.perf_counter() - t0
+                tag = "the shedding daemon's " if d is shed else ""
+                check(ack == {"enabled": True, "buckets": ladder, "compiled": len(ladder),
+                              "aot": False},
+                      f"phase 29 warmup of {tag}{model}: {ack} ({warm_s:.3f} s, host clock)")
+            # -- exact kNN over the wire: batching on, then off ----------------
+            # The registry is the process's: every count below is a delta
+            # since the warmups.
+            metrics_mod.reset()
+            rec_on = p29_traffic(torch, kernels, clients, "on", on.address, "p29-exact",
+                                 KNN_K, P29_REQS, "exact kNN, batching on")
+            snap = metrics_mod.snapshot()
+            batches = p29_metric(snap, "srml_scheduler_batches_total", op="kneighbors")
+            batched = p29_metric(snap, "srml_scheduler_batched_requests_total", op="kneighbors")
+            b_rows = p29_metric(snap, "srml_scheduler_batch_rows", "sum", op="kneighbors")
+            padded = p29_metric(snap, "srml_scheduler_padded_rows_total", op="kneighbors")
+            n_req = P29_PROCS * P29_REQS
+            lt, rt = rec_on["launches"], rec_on["routes"]
+            check(batched == n_req and b_rows == rec_on["rows"] and 0 < batches < n_req,
+                  f"phase 29 batching on: {int(batched)} requests in {int(batches)} batches "
+                  f"(fewer than the {n_req} requests), {int(b_rows)} rows")
+            check(lt["dist_topk"] == batches and rt["dist_topk/wgmma"] == lt["dist_topk"]
+                  and sum(lt.values()) == lt["dist_topk"],
+                  f"phase 29 batching on: dist_topk launches {lt['dist_topk']} == "
+                  f"srml_scheduler_batches_total{{op=kneighbors}} {int(batches)}, all on the "
+                  f"tensor-core route ({rt['dist_topk/wgmma']}), no other kernel")
+            out["dist_topk"] = lt["dist_topk"]
+            print(f"phase 29 batching on: mean {b_rows / batches:.1f} rows a batch, padded share "
+                  f"{padded / (padded + b_rows):.4f} ({int(padded)} padding rows)", flush=True)
+            rec_off = p29_traffic(torch, kernels, clients, "off", off.address, "p29-exact",
+                                  KNN_K, P29_REQS, "exact kNN, batching off")
+            check(rec_off["launches"]["dist_topk"] == n_req,
+                  f"phase 29 batching off: one dist_topk launch a request "
+                  f"({rec_off['launches']['dist_topk']} == {n_req})")
+            bad = clients.all("compare", "on", "off")
+            n_bad = sum(len(r["bad"]) for r in bad)
+            check(n_bad == 0, f"phase 29 exact kNN: every batched answer bitwise equal to the "
+                              f"batching-off daemon's ({n_bad} of {n_req} differ)")
+            print(f"phase 29 exact kNN batching on / off: {rec_on['requests'] / rec_on['s']:.1f}"
+                  f" / {rec_off['requests'] / rec_off['s']:.1f} requests/s "
+                  f"({rec_off['s'] / rec_on['s']:.2f}x), p50 {rec_on['p50']:.3f}"
+                  f" / {rec_off['p50']:.3f} ms, p99 {rec_on['p99']:.3f} / {rec_off['p99']:.3f} "
+                  f"ms, device busy {100 * rec_on['busy_ms'] / (rec_on['s'] * 1e3):.2f} / "
+                  f"{100 * rec_off['busy_ms'] / (rec_off['s'] * 1e3):.2f} %", flush=True)
+            # -- health and metrics --------------------------------------------
+            with DataPlaneClient(*on.address) as c:
+                deadline = time.monotonic() + 10.0
+                while True:  # a request counts once its answer is on the wire
+                    snap = c.metrics()
+                    counted = p29_metric(snap, "srml_daemon_requests_total", op="kneighbors")
+                    if counted >= 2 * n_req or time.monotonic() > deadline:
+                        break
+                    time.sleep(0.01)
+                text = c.metrics(format="prometheus")
+                health = c.health()
+            check(counted == 2 * n_req and p29_metric(snap, "srml_daemon_requests_total",
+                                                      op="kneighbors", outcome="ok") == 2 * n_req,
+                  f"phase 29 metrics: srml_daemon_requests_total{{op=kneighbors}} {int(counted)}"
+                  f" == the {2 * n_req} requests sent (batching on and off)")
+            sched = health["scheduler"]
+            check(set(sched) == {"enabled", "window_ms", "max_batch_rows", "buckets",
+                                 "queue_depth_cap", "queued", "models", "batches"}
+                  and sched["enabled"] and sched["buckets"] == ladder
+                  and sched["batches"] >= batches and sched["queued"] == 0
+                  and health["durable"] is False,
+                  f"phase 29 health: the scheduler block {sched}")
+            lines = text.splitlines()
+            check(any(ln.startswith('srml_scheduler_batches_total{op="kneighbors"}')
+                      for ln in lines)
+                  and f'srml_daemon_requests_total{{op="kneighbors",outcome="ok"}} {2 * n_req}'
+                  in lines,
+                  "phase 29 metrics (prometheus): the srml_scheduler_batches_total and "
+                  "srml_daemon_requests_total lines")
+            # -- IVF: never coalesced -----------------------------------------
+            before = metrics_mod.snapshot()
+            rec_ivf = p29_traffic(torch, kernels, clients, "ivf-on", on.address, "p29-ivf",
+                                  KNN_K, P29_IVF_REQS, "IVF, batching on (bypassed)")
+            n_ivf = P29_PROCS * P29_IVF_REQS
+            bypass = p29_delta(before, metrics_mod.snapshot(), "srml_scheduler_bypass_total",
+                               op="kneighbors")
+            li, ri = rec_ivf["launches"], rec_ivf["routes"]
+            check(bypass == n_ivf and li["probe_select"] == li["ivf_scan_select"] == n_ivf
+                  and ri["ivf_scan_select/wgmma"] == n_ivf,
+                  f"phase 29 IVF: srml_scheduler_bypass_total{{op=kneighbors}} {int(bypass)} == "
+                  f"{n_ivf} requests; probe_select {li['probe_select']}, ivf_scan_select "
+                  f"{li['ivf_scan_select']} (wgmma {ri['ivf_scan_select/wgmma']}), one each a "
+                  f"request")
+            out["probe_select"], out["ivf_scan_select"] = li["probe_select"], li["ivf_scan_select"]
+            p29_traffic(torch, kernels, clients, "ivf-off", off.address, "p29-ivf", KNN_K,
+                        P29_IVF_REQS, "IVF, batching off")
+            bad = clients.all("compare", "ivf-on", "ivf-off")
+            n_bad = sum(len(r["bad"]) for r in bad)
+            check(n_bad == 0, f"phase 29 IVF: every answer bitwise equal to the batching-off "
+                              f"daemon's ({n_bad} of {n_ivf} differ)")
+            # -- shedding --------------------------------------------------------
+            before = metrics_mod.snapshot()
+            rec_shed = p29_traffic(torch, kernels, clients, "shed", shed.address, "p29-exact",
+                                   KNN_K, P29_SHED_REQS,
+                                   f"exact kNN, queue depth {P29_SHED_DEPTH}")
+            sheds = p29_delta(before, metrics_mod.snapshot(), "srml_daemon_busy_sheds_total",
+                              op="kneighbors")
+            bad = clients.all("compare", "shed", "off")
+            n_bad = sum(len(r["bad"]) for r in bad)
+            check(sheds > 0 and rec_shed["busy_waits"] > 0 and n_bad == 0,
+                  f"phase 29 shedding: {int(sheds)} busy answers "
+                  f"(srml_daemon_busy_sheds_total), {rec_shed['busy_waits']} client busy "
+                  f"waits, every healed answer bitwise the batching-off daemon's ({n_bad} of "
+                  f"{P29_PROCS * P29_SHED_REQS} differ)")
+            # -- the PCA transform through RequestScheduler.submit -------------------
+            pca_on, pca_off = on._lookup_model("p29-pca"), off._lookup_model("p29-pca")
+            cd = config.compute_dtype(DEV)
+            pc_abs = torch.as_tensor(pca.pc, device=DEV).to(cd).double().abs()
+            gamma = 2048 * 2.0 ** -24 / (1 - 2048 * 2.0 ** -24)  # γ₂₀₄₈ of f32 sums
+            gen_rq = np.random.default_rng([P29_SEED, 1])
+            plans = [[(int(n), int(gen_rq.integers(0, P29_PCA_POOL - n + 1)))
+                      for n in gen_rq.choice(P29_PCA_SIZES, P29_PCA_REQS)]
+                     for _ in range(P29_PCA_THREADS)]
+            results = [[None] * P29_PCA_REQS for _ in range(P29_PCA_THREADS)]
+            errors = []
+            barrier = threading.Barrier(P29_PCA_THREADS)
+
+            def submitter(t):
+                try:
+                    barrier.wait()
+                    for i, (n, o) in enumerate(plans[t]):
+                        results[t][i] = on._scheduler.submit("p29-pca", pca_on, "transform",
+                                                            x_pool[o:o + n])["output"]
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errors.append(repr(e))
+
+            before = metrics_mod.snapshot()
+            threads = [threading.Thread(target=submitter, args=(t,))
+                       for t in range(P29_PCA_THREADS)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            pca_s = time.perf_counter() - t0
+            check(not errors, f"phase 29 PCA submitters: {errors[:3]}")
+            snap = metrics_mod.snapshot()
+            p_batches = p29_delta(before, snap, "srml_scheduler_batches_total", op="transform")
+            p_rows = p29_delta(before, snap, "srml_scheduler_batch_rows", "sum", op="transform")
+            n_pca = P29_PCA_THREADS * P29_PCA_REQS
+            same, worst, over = 0, 0.0, []
+            for t in range(P29_PCA_THREADS):
+                for i, (n, o) in enumerate(plans[t]):
+                    x = x_pool[o:o + n]
+                    want = pca_off.transform(x)["output"]
+                    got = results[t][i]
+                    if got.shape == want.shape and np.array_equal(got, want):
+                        same += 1
+                        continue
+                    xa = torch.as_tensor(x, device=DEV).to(cd).double().abs()
+                    bound = (2 * gamma * (xa @ pc_abs)).cpu().numpy()
+                    err = np.abs(got.astype(np.float64) - want.astype(np.float64))
+                    if got.shape != want.shape or not bool((err <= bound).all()):
+                        over.append((t, i, n))
+                    worst = max(worst, float((err / np.maximum(bound, 1e-300)).max()))
+            check(not over, f"phase 29 PCA: every answer bitwise the batching-off daemon's solo "
+                            f"transform or within 2·γ₂₀₄₈·Σ|x||pc| of it (over: {over[:5]})")
+            print(f"phase 29 PCA transform: {n_pca} requests in {int(p_batches)} batches "
+                  f"({p_rows / max(p_batches, 1):.1f} rows a batch) in {pca_s:.3f} s = "
+                  f"{n_pca / pca_s:.1f} requests/s from {P29_PCA_THREADS} threads; {same} of "
+                  f"{n_pca} answers bitwise the solo transform's, the rest within the bound "
+                  f"(largest error {worst:.3f} of it)", flush=True)
+            check(0 < p_batches < n_pca, f"phase 29 PCA: {int(p_batches)} batches for {n_pca} "
+                                         f"requests")
+            # Within one bucket a batched request is the solo request's bits: 9
+            # rows coalesced with 40 (one batch of 49 rows: the 64 bucket) beside
+            # the same 9 rows served alone (padded to 64).
+            probe = RequestScheduler(window_ms=200.0, buckets=on._buckets).start()
+            try:
+                pair = [None, None]
+
+                def sub(i, rows):
+                    pair[i] = probe.submit("p29-pca", pca_on, "transform", rows)["output"]
+
+                ths = [threading.Thread(target=sub, args=(0, x_pool[:9])),
+                       threading.Thread(target=sub, args=(1, x_pool[100:140]))]
+                for th in ths:
+                    th.start()
+                for th in ths:
+                    th.join()
+                probe_batches = probe._batches
+            finally:
+                probe.stop()
+            check(probe_batches == 1 and bucket_for(49, on._buckets) == bucket_for(9, on._buckets)
+                  and np.array_equal(pair[0], pca_off.transform(x_pool[:9])["output"]),
+                  "phase 29 PCA: 9 rows batched with 40 (the 64-row bucket) bitwise the 9 rows "
+                  "served alone")
+            misses = metrics_mod.REGISTRY.counter("srml_scheduler_compile_misses_total")
+            check(sum(misses.value(op=o) for o in ("transform", "kneighbors")) == 0,
+                  "phase 29: no traffic after the warmups met an unseen shape "
+                  "(srml_scheduler_compile_misses_total 0)")
+            # -- one 4,096-query request alone (phase 22's): what the path adds --
+            qs = knn_frame(np, DP_PARTITIONS, 0, KNN_QUERIES, KNN_D, KNN_CLUSTERS)
+            names = ("daemon frame receive", "daemon frame decode", "scheduler kneighbors",
+                     "daemon kneighbors", "knn query")
+            with DataPlaneClient(*on.address) as c_on, DataPlaneClient(*off.address) as c_off:
+                for tag, fn in (
+                        ("over the wire, batching on",
+                         lambda: c_on.kneighbors_raw("p29-exact", qs, k=KNN_K)),
+                        ("over the wire, batching off",
+                         lambda: c_off.kneighbors_raw("p29-exact", qs, k=KNN_K)),
+                        ("in process, RequestScheduler.submit",
+                         lambda: on._scheduler.submit("p29-exact", exact_on, "kneighbors", qs,
+                                                      k=KNN_K)),
+                        ("in process, _ServedModel.kneighbors",
+                         lambda: exact_on.kneighbors(qs, KNN_K))):
+                    fn()  # warm
+                    profiling.reset_span_totals()
+                    times = []
+                    for _ in range(5):
+                        t0 = time.perf_counter()
+                        fn()
+                        times.append(time.perf_counter() - t0)
+                    spans = profiling.span_totals()
+                    print(f"phase 29 one {KNN_QUERIES}-query request, {tag}: median "
+                          f"{sorted(times)[2] * 1e3:.3f} ms of 5 (host clock); spans, ms a "
+                          "call: " + ", ".join(f"{nm} {spans[nm][0] / spans[nm][1] * 1e3:.3f}"
+                                               for nm in names if nm in spans), flush=True)
+        finally:
+            clients.close()
+            shed.stop()
+    torch.cuda.empty_cache()
+    print(f"phase 29: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -6151,6 +6659,14 @@ def main() -> None:
             if any(w in line for w in ("registers", "spill", "Compiling entry", "warning",
                                        "wgmma", "setmaxnreg")):
                 print(f"  ptxas {name}: {line.strip()}")
+
+    if "--serving" in sys.argv[1:]:
+        # Phase 29 alone.
+        phase_serving(torch, kernels, config)
+        print(card)
+        print(f"phase 29 passed ({time.perf_counter() - t_start:.1f} s); --serving: stopping "
+              "here", flush=True)
+        return
 
     if "--elastic" in sys.argv[1:]:
         # Phase 28 alone.
@@ -6615,6 +7131,10 @@ def main() -> None:
     # -- 28. the elastic fits: a peer lost for good, a daemon joining, chaos ---------------
     for name, n in phase_elastic(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["elastic_launches"] = n
+
+    # -- 29. the serving plane: micro-batching, warmup, health and metrics -------------------
+    for name, n in phase_serving(torch, kernels, config).items():
+        next(row for row in table if row["name"] == name)["serving_launches"] = n
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "

@@ -3,9 +3,9 @@
 The counterpart of ``spark_rapids_ml_tpu/config.py``, cut to the keys the
 port reads (PCA, KMeans, LinearRegression, LogisticRegression,
 NearestNeighbors and ApproximateNearestNeighbors, the random forests, the
-data-plane daemon's watermarks, the Spark fit policies, the multi-daemon
-reduce path, the native bridge, the default mesh's axes and the metrics
-switch).
+data-plane daemon's watermarks and serving scheduler, the Spark fit
+policies, the multi-daemon reduce path, the native bridge, the default
+mesh's axes and the metrics switch).
 Values are settable programmatically or through environment variables
 prefixed ``SRML_TORCH_`` — a prefix of its own, so the port never inherits
 the JAX package's ``SRML_TPU_*`` settings; the deployment-facing
@@ -117,6 +117,30 @@ _DEFAULTS: Dict[str, Any] = {
     # Metrics registry master switch (utils/metrics.py): False turns every
     # counter/gauge/histogram record into an early return.
     "metrics": _env("METRICS", "true").lower() not in ("0", "false", "off"),
+    # The serving scheduler (serve/scheduler.py): cross-connection
+    # micro-batching of transform/kneighbors. On by default, as in the JAX
+    # package: a batched answer is the solo answer's bits on the paths it
+    # batches. Env SRML_TORCH_SERVE_*, never the JAX package's SRML_SERVE_*:
+    # a process that imports both must not set both from one variable.
+    "serve_batching": _env("SERVE_BATCHING", "true").lower() not in ("0", "false", "off"),
+    # Max milliseconds a queued request waits for co-batchable traffic
+    # before its micro-batch dispatches anyway.
+    "serve_batch_window_ms": float(_env("SERVE_BATCH_WINDOW_MS", "2.0")),
+    # Row cap per dispatched micro-batch, floored to a bucket of the ladder.
+    "serve_max_batch_rows": int(_env("SERVE_MAX_BATCH_ROWS", "4096")),
+    # The bucket ladder (comma-separated ascending row counts): a batch pads
+    # up to the smallest bucket that holds it, and a solo transform pads the
+    # same way, so one bucket is one product shape. A request larger than
+    # the coalescing cap bypasses the scheduler.
+    "serve_batch_buckets": _env("SERVE_BATCH_BUCKETS", "64,256,1024,4096"),
+    # Run the ladder's trace warmup at registration (ensure_model and a knn
+    # finalize) instead of waiting for a `warmup` op; a failed warmup is
+    # logged and never fails the registration.
+    "serve_warmup_on_register": _env("SERVE_WARMUP_ON_REGISTER", "false").lower()
+    not in ("0", "false", "off"),
+    # Admission bound: queued requests per served model; overflow, and a
+    # request whose deadline the backlog would miss, is shed with `busy`.
+    "serve_queue_depth": int(_env("SERVE_QUEUE_DEPTH", "256")),
 }
 
 _lock = threading.Lock()

@@ -8,11 +8,16 @@ takes Arrow IPC or raw record batches from Spark tasks
 (count, Σx, XᵀX) state through the hand-written ``gram_colsum`` kernel,
 and at ``finalize`` runs the eigensolve: the role the reference's JVM
 ``RDD.reduce`` played (RapidsRowMatrix.scala:139). The wire protocol
-(``protocol``) is the reference's frozen v1. Importing this package loads
+(``protocol``) is the reference's frozen v1. Serving requests from
+concurrent connections coalesce into padded micro-batches in the daemon's
+:class:`RequestScheduler` (``scheduler``), which sheds with
+:class:`SchedulerBusy` (answered ``busy``). Importing this package loads
 neither JAX nor pyarrow: only the Arrow ops import pyarrow, at use.
 """
 
 from spark_rapids_ml_tpu_torch.serve.client import DaemonBusy, DataPlaneClient
 from spark_rapids_ml_tpu_torch.serve.daemon import DataPlaneDaemon
+from spark_rapids_ml_tpu_torch.serve.scheduler import RequestScheduler, SchedulerBusy
 
-__all__ = ["DaemonBusy", "DataPlaneClient", "DataPlaneDaemon"]
+__all__ = ["DaemonBusy", "DataPlaneClient", "DataPlaneDaemon", "RequestScheduler",
+           "SchedulerBusy"]

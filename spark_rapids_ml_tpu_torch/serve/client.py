@@ -314,6 +314,31 @@ class DataPlaneClient:
         resp, _ = self._roundtrip({"op": "ping"})
         return None if resp.get("id") is None else str(resp["id"])
 
+    def server_info(self) -> Dict[str, Any]:
+        """The whole ping identity: ``{"v", "id", "boot_id"}``. ``boot_id``
+        is the incarnation, fresh every start: two boot_ids under one id is
+        a restart."""
+        resp, _ = self._roundtrip({"op": "ping"})
+        return {k: v for k, v in resp.items() if k != "ok"}
+
+    def health(self) -> Dict[str, Any]:
+        """The daemon's health snapshot: ``queue_depth`` (active
+        connections), ``staged_bytes``, ``active_jobs``, ``served_models``,
+        ``uptime_s``, ``busy`` (over a watermark and shedding, with
+        ``retry_after_s``), the ``scheduler`` block and the ``mesh``
+        epoch."""
+        resp, _ = self._roundtrip({"op": "health"})
+        return {k: v for k, v in resp.items() if k != "ok"}
+
+    def metrics(self, format: str = "json"):
+        """The daemon process's metrics registry: ``format="json"`` returns
+        the snapshot dict (histogram buckets cumulative), ``"prometheus"``
+        the text exposition (v0.0.4) string."""
+        resp, _ = self._roundtrip({"op": "metrics", "format": format})
+        if format == "prometheus":
+            return str(resp.get("text", ""))
+        return resp.get("metrics", {})
+
     @staticmethod
     def _to_ipc(data, input_col: str, label_col: str = "label") -> bytes:
         """An (n, d) ndarray, an (x, y) pair of arrays or an Arrow
@@ -649,45 +674,62 @@ class DataPlaneClient:
         return bool(resp["exists"])
 
     def transform(self, name: str, data, input_col: str = "features",
-                  n_cols: Optional[int] = None) -> Dict[str, np.ndarray]:
+                  n_cols: Optional[int] = None,
+                  deadline_s: Optional[float] = None) -> Dict[str, np.ndarray]:
         """Run a registered model over one batch on the daemon's device:
         the role-keyed outputs of the model's ``_serve_outputs`` ({"output"}
         for PCA, {"prediction"} for KMeans and LinearRegression,
         {"rawPrediction", "probability", "prediction"} for
-        LogisticRegression)."""
+        LogisticRegression). ``deadline_s``: the request's latency budget;
+        the serving scheduler sheds it with ``busy`` when its backlog would
+        already miss it."""
         _, arrays = self._op(
-            {"op": "transform", "model": name, "input_col": input_col, "n_cols": n_cols},
+            {"op": "transform", "model": name, "input_col": input_col, "n_cols": n_cols,
+             "deadline_s": deadline_s},
             payload=self._to_ipc(data, input_col),
             want_arrays=True,
         )
         return arrays
+
+    def warmup(self, name: str, n_cols: int, k: Optional[int] = None, dtype: str = "float32",
+               kind: Optional[str] = None) -> Dict[str, Any]:
+        """Warm the serving scheduler's bucket ladder for a registered model:
+        one zero batch at every reachable bucket. ``dtype`` must be the
+        dtype real batches carry; ``kind`` defaults daemon-side to
+        ``kneighbors`` for a knn index and ``transform`` otherwise. On a
+        daemon without batching it is an honest no-op: ``enabled: false``."""
+        resp, _ = self._roundtrip({"op": "warmup", "model": name, "n_cols": int(n_cols),
+                                   "k": k, "dtype": dtype, "kind": kind})
+        return {kk: v for kk, v in resp.items() if kk != "ok"}
 
     def drop_model(self, name: str) -> bool:
         resp, _ = self._roundtrip({"op": "drop_model", "model": name})
         return bool(resp["dropped"])
 
     def kneighbors(self, model: str, queries, k: Optional[int] = None,
-                   input_col: str = "features",
-                   n_cols: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+                   input_col: str = "features", n_cols: Optional[int] = None,
+                   deadline_s: Optional[float] = None) -> Tuple[np.ndarray, np.ndarray]:
         """Query a daemon-built index with one batch (an (q, d) ndarray or an
         Arrow table, sent as Arrow IPC): (distances (q, k) float64, indices
-        (q, k) int64 global row ids). ``k`` None: the index's fitted k."""
+        (q, k) int64 global row ids). ``k`` None: the index's fitted k.
+        ``deadline_s``: the latency budget, as in :meth:`transform`."""
         _, arrays = self._op(
             {"op": "kneighbors", "model": model, "k": k, "input_col": input_col,
-             "n_cols": n_cols},
+             "n_cols": n_cols, "deadline_s": deadline_s},
             payload=self._to_ipc(queries, input_col),
             want_arrays=True,
         )
         return arrays["distances"], arrays["indices"]
 
-    def kneighbors_raw(self, model: str, x: np.ndarray,
-                       k: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+    def kneighbors_raw(self, model: str, x: np.ndarray, k: Optional[int] = None,
+                       deadline_s: Optional[float] = None) -> Tuple[np.ndarray, np.ndarray]:
         """:meth:`kneighbors` with the queries as a raw ``x`` frame, for a
         caller without an Arrow library (the port's daemon reads both
         forms; the JAX daemon reads only Arrow)."""
         x = np.asarray(x)
         _, arrays = self._op(
-            {"op": "kneighbors", "model": model, "k": k, "n_cols": int(x.shape[1])},
+            {"op": "kneighbors", "model": model, "k": k, "n_cols": int(x.shape[1]),
+             "deadline_s": deadline_s},
             arrays={"x": x}, want_arrays=True,
         )
         return arrays["distances"], arrays["indices"]

@@ -92,11 +92,26 @@ fit) and ``daemon.join`` on the job-creating ``set_iterate`` path (the
 mid-fit admission handshake). An injected drop closes the connection, as
 any transport failure does.
 
-Left for later slices of the port: durable ``state_dir`` snapshots (a forest's
-restore at its boundary too), the health/metrics/telemetry ops (answered
-"unknown op" with their payload drained), the serving scheduler and AOT
-warmup (item 7). A feed naming an unknown ``algo``, or an ``ensure_model``
-naming an unknown model, is refused before a job or model is registered.
+Serving (``transform``, ``kneighbors``) goes through the serving scheduler
+(``serve/scheduler.py``, config ``serve_batching``, on by default): requests
+from concurrent connections to one model coalesce into one padded dispatch
+on the bucket ladder, a request larger than the coalescing cap and every
+IVF/ANN ``kneighbors`` run alone, and an admission shed answers ``busy``. A
+solo transform pads to the same ladder, so one bucket is one product shape
+however a request was served. ``warmup`` dispatches a zero batch at every
+reachable bucket (the reference's trace warmup; ``aot`` is always false:
+the port captures no per-bucket program), also at registration with
+``serve_warmup_on_register``. ``health`` (load, the scheduler block, the
+mesh epoch) and ``metrics`` (the registry, as JSON or Prometheus text) are
+never shed; every request is counted by op and outcome, with its latency
+and its payload bytes.
+
+Left for later slices of the port (ROADMAP Queue 1 item 7a): durable
+``state_dir`` snapshots (``health`` reports ``durable: false``), and the
+journal, ``trace_pull`` and ``telemetry_pull`` (answered "unknown op" with
+their payload drained). A feed naming an unknown ``algo``, or an
+``ensure_model`` naming an unknown model, is refused before a job or model
+is registered.
 """
 
 from __future__ import annotations
@@ -126,6 +141,7 @@ from spark_rapids_ml_tpu_torch.ops import histogram as hist_ops
 from spark_rapids_ml_tpu_torch.parallel import membership as membership_mod
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device
 from spark_rapids_ml_tpu_torch.serve import protocol
+from spark_rapids_ml_tpu_torch.serve import scheduler as scheduler_mod
 from spark_rapids_ml_tpu_torch.utils import faults
 from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
@@ -153,12 +169,73 @@ _RAW_OR_ARROW_OPS = ("seed", "kneighbors")
 
 #: Ops shed with `busy` + retry_after_s over a watermark: the ones that
 #: ADD load. Pressure-relieving ops (commit, finalize, drop) and O(1)
-#: control ops always pass.
-_SHEDDABLE_OPS = ("feed", "feed_raw", "seed", "transform", "kneighbors", "ensure_model")
+#: control ops (ping, health, metrics, status) always pass.
+_SHEDDABLE_OPS = ("feed", "feed_raw", "seed", "transform", "kneighbors", "ensure_model",
+                  "warmup")
 
 #: Process-wide device lock (see the module docstring): taken innermost.
 _DEVICE_LOCK = threading.Lock()
 
+#: Every op _dispatch understands: the clamp for metric labels, so a label
+#: from the wire cannot mint unbounded registry series (an unknown op
+#: string counts under op="unknown").
+_KNOWN_OPS = frozenset((
+    "ping", "health", "metrics", "status", "feed", "feed_raw", "seed",
+    "commit", "step", "finalize", "drop", "export_state", "merge_state",
+    "get_iterate", "set_iterate", "ensure_model", "transform",
+    "kneighbors", "model_status", "drop_model", "warmup", "sample_rows",
+    "mesh_info", "reduce_mesh",
+))
+
+
+def _op_label(op) -> str:
+    op = str(op)
+    return op if op in _KNOWN_OPS else "unknown"
+
+
+#: Daemon telemetry: the JAX package's names, labels and help texts. The
+#: ``metrics`` op exposes the whole registry.
+_M_REQUESTS = metrics_mod.counter(
+    "srml_daemon_requests_total",
+    "Requests dispatched, by op and outcome (ok|error|transport)",
+)
+_M_REQ_SECONDS = metrics_mod.histogram(
+    "srml_daemon_request_seconds", "Request handling latency, by op"
+)
+_M_RX_BYTES = metrics_mod.counter(
+    "srml_daemon_rx_bytes_total",
+    "Payload bytes received (Arrow/raw frames, headers excluded), by op",
+)
+_M_TX_BYTES = metrics_mod.counter(
+    "srml_daemon_tx_bytes_total",
+    "Response array bytes sent (headers excluded), by op",
+)
+_M_BUSY_SHEDS = metrics_mod.counter(
+    "srml_daemon_busy_sheds_total",
+    "Ops shed with busy under a backpressure watermark, by op",
+)
+_M_REPLAY_HITS = metrics_mod.counter(
+    "srml_daemon_replay_hits_total",
+    "Deduplicated replays, by kind (feed|merge|step|committed_partition)",
+)
+_M_CONNS = metrics_mod.gauge(
+    "srml_daemon_active_connections",
+    "Concurrently open connections (at scrape)",
+)
+_M_STAGED = metrics_mod.gauge(
+    "srml_daemon_staged_bytes", "Bytes held by uncommitted stages (at scrape)"
+)
+_M_JOBS = metrics_mod.gauge(
+    "srml_daemon_active_jobs", "Registered accumulation jobs (at scrape)"
+)
+_M_MODELS = metrics_mod.gauge(
+    "srml_daemon_served_models", "Registered served models (at scrape)"
+)
+_M_MODEL_EVICTIONS = metrics_mod.counter(
+    "srml_daemon_model_evictions_total",
+    "Served models evicted from the registry, by reason (lru = over the "
+    "daemon_max_models cap; ttl = idle past the reaper's deadline)",
+)
 _M_MESH_REDUCES = metrics_mod.counter(
     "srml_daemon_mesh_reduces_total",
     "On-mesh collective reduces applied (reduce_mesh op: co-resident "
@@ -232,6 +309,8 @@ def _recv_arrays_aligned(conn, req: Dict[str, Any]) -> Dict[str, np.ndarray]:
                     f"array frame {i} carries {got} bytes; its spec declared {want}"
                 )
             frames.append(frame)
+    if sizes:
+        _M_RX_BYTES.inc(sum(sizes), op=_op_label(req.get("op")))
     out: Dict[str, np.ndarray] = {}
     with trace_span("daemon frame decode"):
         for spec, frame in zip(specs, frames):
@@ -249,6 +328,7 @@ def _recv_arrow_matrix(conn, op: str, input_col: str, n_cols, label_col=None):
         payload = protocol.recv_frame(conn)
     if payload is None:
         raise protocol.ProtocolError(f"connection closed before {op} payload")
+    _M_RX_BYTES.inc(len(payload), op=op)
     import pyarrow as pa
 
     from spark_rapids_ml_tpu_torch.bridge.arrow import table_column_to_matrix
@@ -262,6 +342,13 @@ def _recv_arrow_matrix(conn, op: str, input_col: str, n_cols, label_col=None):
         if label_col not in table.column_names:
             raise KeyError(f"label column {label_col!r} not in batch")
         return x, np.asarray(table.column(label_col).to_numpy(zero_copy_only=False))
+
+
+def _send_arrays_counted(conn, op: str, arrays, meta) -> None:
+    """``protocol.send_arrays`` and the per-op TX byte count (array bytes;
+    the JSON headers are noise beside the frames)."""
+    protocol.send_arrays(conn, arrays, meta)
+    _M_TX_BYTES.inc(sum(int(np.asarray(v).nbytes) for v in arrays.values()), op=op)
 
 
 def _opt(req: Dict[str, Any], key: str, default):
@@ -507,7 +594,10 @@ class _Job:
         if feed_id is None:
             return False
         feed_id = str(feed_id)
-        return feed_id in (stage.seen if stage is not None else self._seen_feed_ids)
+        hit = feed_id in (stage.seen if stage is not None else self._seen_feed_ids)
+        if hit:
+            _M_REPLAY_HITS.inc(kind="feed")
+        return hit
 
     def _mark_folded(self, feed_id: Optional[str], stage: Optional[_Stage]) -> None:
         if feed_id is None:
@@ -554,7 +644,9 @@ class _Job:
             self._check_pass(pass_id)
             self.touched = self._clock()
             if partition is not None and partition in self.committed:
-                return  # duplicate of a committed task (retry/speculation)
+                # duplicate of a committed task (retry/speculation)
+                _M_REPLAY_HITS.inc(kind="committed_partition")
+                return
             if self.algo == "kmeans" and self.centers is None:
                 if partition is not None:
                     raise ValueError(
@@ -627,6 +719,7 @@ class _Job:
                 raise KeyError("job was finalized/dropped; rows not accepted")
             self.touched = self._clock()
             if partition is not None and partition in self.committed:
+                _M_REPLAY_HITS.inc(kind="committed_partition")
                 return
             if partition is None:
                 if self._is_replay(feed_id, None):
@@ -656,6 +749,7 @@ class _Job:
             self._check_pass(pass_id)
             self.touched = self._clock()
             if partition in self.committed:
+                _M_REPLAY_HITS.inc(kind="committed_partition")
                 return self.rows
             staged = self._drop_stage((partition, attempt))
             if staged is None:
@@ -762,6 +856,7 @@ class _Job:
             self._require_mergeable()
             self.touched = self._clock()
             if merge_id is not None and str(merge_id) in self._seen_merge_ids:
+                _M_REPLAY_HITS.inc(kind="merge")
                 return self.rows
             if len(arrays) != len(self.state):
                 raise ValueError(f"merge_state carried {len(arrays)} arrays; job state has "
@@ -784,6 +879,7 @@ class _Job:
         with self.lock:
             if self.dropped or str(reduce_id) not in self._seen_merge_ids:
                 return None
+            _M_REPLAY_HITS.inc(kind="merge")
             self.touched = self._clock()
             return self.rows
 
@@ -815,6 +911,7 @@ class _Job:
             self._require_mergeable()
             self.touched = self._clock()
             if reduce_id is not None and str(reduce_id) in self._seen_merge_ids:
+                _M_REPLAY_HITS.inc(kind="merge")
                 return self.rows
             for pid, state, _rows in contributions:
                 self._check_leaves(f"peer {pid} state", state)
@@ -1052,6 +1149,7 @@ class _Job:
                 raise ValueError(f"algo {self.algo!r} is single-pass; step not applicable")
             if (step_id is not None and self._last_step_info is not None
                     and str(step_id) == self._last_step_id):
+                _M_REPLAY_HITS.inc(kind="step")
                 return dict(self._last_step_info)
             if self.algo == "rf" and self.rf_tables is None:
                 raise ValueError("step before the forest iterate is installed")
@@ -1195,10 +1293,17 @@ class _ServedModel:
     connections. ``ttl_scale`` multiplies the reaper's TTL: 1 for an
     ``ensure_model`` registration (its client re-registers on a miss), 8
     for a daemon-built index (:meth:`from_model`), which nothing can
-    re-create."""
+    re-create.
+
+    ``buckets``: the daemon's serving ladder. A transform of n rows, n up to
+    the top bucket, runs padded to the smallest bucket that holds n, as the
+    scheduler pads a coalesced batch, so a request served alone and one
+    served inside a batch of the same bucket run the same product shape
+    (cuBLAS chooses its algorithm, and with it the summation order, by the
+    shape). None: no padding."""
 
     def __init__(self, algo: str, arrays: Dict[str, np.ndarray], params: Dict[str, Any],
-                 device: torch.device, clock=time.monotonic):
+                 device: torch.device, clock=time.monotonic, buckets=None):
         self._clock = clock
         self.algo = algo
         self.model = _model_class(algo)._from_model_data("served", arrays)
@@ -1212,9 +1317,11 @@ class _ServedModel:
         self.touched = clock()
         self.id_map: Optional[np.ndarray] = None
         self.ttl_scale = 1.0
+        self.buckets = buckets
 
     @classmethod
-    def from_model(cls, algo: str, model, clock=time.monotonic, id_map=None) -> "_ServedModel":
+    def from_model(cls, algo: str, model, clock=time.monotonic, id_map=None,
+                   buckets=None) -> "_ServedModel":
         """Wrap a core model the daemon built (a knn index). Its source rows
         were consumed by the build, so the reaper holds it 8× longer than a
         re-creatable registration. ``id_map``: local row position → global
@@ -1228,6 +1335,7 @@ class _ServedModel:
         obj.touched = clock()
         obj.id_map = None if id_map is None else np.asarray(id_map, np.int64)
         obj.ttl_scale = 8.0
+        obj.buckets = buckets
         return obj
 
     def transform(self, x) -> Dict[str, Any]:
@@ -1236,10 +1344,20 @@ class _ServedModel:
             if x.shape[1] != width:
                 raise ValueError(f"transform batch width {x.shape[1]} != the forest's "
                                  f"{width} features")
+        n = int(x.shape[0])
+        rows = n
+        if self.buckets and 0 < n <= self.buckets[-1]:
+            rows = scheduler_mod.bucket_for(n, self.buckets)
+        if rows != n:
+            x = np.concatenate([np.asarray(x), np.zeros((rows - n,) + tuple(x.shape[1:]),
+                                                        dtype=np.asarray(x).dtype)])
         with self.lock:
             self.touched = self._clock()
             with _DEVICE_LOCK:
-                return self.model.transform_matrix(x)
+                outs = self.model.transform_matrix(x)
+        if rows != n:
+            outs = {name: v[:n] for name, v in outs.items()}
+        return outs
 
     def kneighbors(self, queries: np.ndarray, k):
         """(distances, indices) of a served index; ids through ``id_map``,
@@ -1253,6 +1371,35 @@ class _ServedModel:
             if self.id_map is not None:
                 idx = np.where(idx >= 0, self.id_map[np.maximum(idx, 0)], -1)
             return dists, idx
+
+
+def _model_width(algo: str, arrays: Dict[str, np.ndarray]) -> Optional[int]:
+    """The fitted feature width of a registration's arrays: what a
+    warmup-on-register warms without the client naming it. None when the
+    arrays carry no unambiguous width (the eager warmup is then skipped,
+    never failed)."""
+    try:
+        if algo == "pca":
+            return int(np.asarray(arrays["pc"]).shape[0])
+        if algo == "scaler":
+            return int(np.asarray(arrays["mean"]).shape[0])
+        if algo == "linreg":
+            return int(np.asarray(arrays["coefficients"]).reshape(-1).shape[0])
+        if algo == "logreg":
+            c = np.asarray(arrays["coefficients"])
+            return int(c.shape[-1] if c.ndim == 2 else c.shape[0])
+        if algo == "kmeans":
+            # The wire key is the Spark-facing "clusterCenters"; "centers"
+            # for hand-built payloads.
+            c = arrays.get("clusterCenters")
+            if c is None:
+                c = arrays["centers"]
+            return int(np.asarray(c).shape[1])
+        if algo in ("rf_classifier", "rf_regressor"):
+            return int(np.asarray(arrays["bin_edges"]).shape[0])
+    except (KeyError, IndexError):
+        return None
+    return None
 
 
 def _resolve_k(served: _ServedModel, k):
@@ -1284,6 +1431,7 @@ class DataPlaneDaemon:
     ``device``: where jobs fold and models serve; None means the card, and
     ``start()`` raises without one. Binds loopback by default; on a cluster,
     bind the host's NIC and keep the port reachable from executors only.
+    ``serve_batching``: run the serving scheduler (None: the config key).
     """
 
     def __init__(
@@ -1299,6 +1447,7 @@ class DataPlaneDaemon:
         max_staged_bytes: Optional[int] = None,
         retry_after_s: Optional[float] = None,
         max_models: Optional[int] = None,
+        serve_batching: Optional[bool] = None,
     ):
         self._host, self._port = host, port
         self._device_arg = device
@@ -1324,6 +1473,16 @@ class DataPlaneDaemon:
         self._max_models = int(
             config.get("daemon_max_models") if max_models is None else max_models
         ) or None
+        # The serving scheduler (serve/scheduler.py): built at start(), after
+        # the bind, so a failed start leaks no dispatcher thread. The ladder
+        # is the daemon's whether or not it batches: a solo transform pads to
+        # it too (_ServedModel).
+        self._serve_batching = bool(
+            config.get("serve_batching") if serve_batching is None else serve_batching
+        )
+        self._buckets = scheduler_mod.parse_buckets(config.get("serve_batch_buckets"))
+        self._scheduler: Optional[scheduler_mod.RequestScheduler] = None
+        self._started = clock()
         self._active_conns = 0
         self._conn_socks: set = set()
         self._conn_threads: set = set()
@@ -1351,6 +1510,11 @@ class DataPlaneDaemon:
         s.listen(64)
         self._sock = s
         self._port = s.getsockname()[1]
+        if self._serve_batching:
+            self._scheduler = scheduler_mod.RequestScheduler(
+                buckets=self._buckets, retry_after_s=self._retry_after_s
+            ).start()
+        self._started = self._clock()
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="srml-dataplane-accept", daemon=True
         )
@@ -1379,6 +1543,10 @@ class DataPlaneDaemon:
         # Scoped to this incarnation, so a superseded object's late stop
         # never unregisters a successor that holds the same id.
         membership_mod.registry().unregister(self.instance_id, boot_id=self.boot_id)
+        if self._scheduler is not None:
+            # Before the sockets and the models go: queued serving requests
+            # fail out with busy and unblock their connection threads.
+            self._scheduler.stop()
         if self._sock is not None:
             # close() alone does not reliably wake a thread parked in
             # accept() on Linux: a self-connect pokes the acceptor, which
@@ -1476,6 +1644,7 @@ class DataPlaneDaemon:
             for n in stale:
                 del self._models[n]
         for n in stale:
+            _M_MODEL_EVICTIONS.inc(reason="ttl")
             logger.warning("evicted idle served model %r", n)
 
     # -- connections -------------------------------------------------------
@@ -1532,19 +1701,29 @@ class DataPlaneDaemon:
                     return  # transport died mid-read
                 if req is None:
                     return  # client done
+                op = _op_label(req.get("op"))
+                t0 = time.perf_counter()
+                outcome = "ok"
                 try:
                     self._dispatch(conn, req)
                 except (ConnectionError, TimeoutError):
                     # The CONNECTION broke, not the request: close it rather
                     # than answer on a dead or desynced wire. (PermissionError,
                     # the auth rejection, is an OSError answered below.)
+                    outcome = "transport"
                     return
                 except Exception as e:  # answer the caller, keep serving
+                    outcome = "error"
                     logger.exception("request failed: %s", req.get("op"))
                     try:
                         protocol.send_json(conn, {"ok": False, "error": str(e)})
                     except OSError:
                         return
+                finally:
+                    # Per-op accounting (a shed op counts "ok" here;
+                    # srml_daemon_busy_sheds_total carries the shed).
+                    _M_REQ_SECONDS.observe(time.perf_counter() - t0, op=op)
+                    _M_REQUESTS.inc(op=op, outcome=outcome)
 
     def _dispatch(self, conn, req: Dict[str, Any]) -> None:
         op = req.get("op")
@@ -1576,6 +1755,7 @@ class DataPlaneDaemon:
         if op in _SHEDDABLE_OPS:
             reason = self._overloaded()
             if reason is not None:
+                _M_BUSY_SHEDS.inc(op=_op_label(op))
                 _drain_payload()
                 protocol.send_json(conn, {
                     "ok": False, "busy": True,
@@ -1615,7 +1795,7 @@ class DataPlaneDaemon:
             # daemons, which the driver's death policy must survive.
             faults.checkpoint("daemon.vanish")
             arrays, meta = self._get_job(req).export_state()
-            protocol.send_arrays(conn, arrays, {"ok": True, **meta})
+            _send_arrays_counted(conn, "export_state", arrays, {"ok": True, **meta})
         elif op == "merge_state":
             self._op_merge_state(conn, req)
         elif op == "mesh_info":
@@ -1625,10 +1805,10 @@ class DataPlaneDaemon:
         elif op == "sample_rows":
             rows = self._get_job(req).sample_rows(int(_opt(req, "n", 1024)),
                                                   int(_opt(req, "seed", 0)))
-            protocol.send_arrays(conn, {"rows": rows}, {"ok": True})
+            _send_arrays_counted(conn, "sample_rows", {"rows": rows}, {"ok": True})
         elif op == "get_iterate":
             arrays, meta = self._get_job(req).get_iterate()
-            protocol.send_arrays(conn, arrays, {"ok": True, **meta})
+            _send_arrays_counted(conn, "get_iterate", arrays, {"ok": True, **meta})
         elif op == "set_iterate":
             self._op_set_iterate(conn, req)
         elif op == "ensure_model":
@@ -1637,6 +1817,8 @@ class DataPlaneDaemon:
             self._op_transform(conn, req)
         elif op == "kneighbors":
             self._op_kneighbors(conn, req)
+        elif op == "warmup":
+            self._op_warmup(conn, req)
         elif op == "model_status":
             with self._models_lock:
                 m = self._models.get(str(req.get("model")))
@@ -1646,6 +1828,10 @@ class DataPlaneDaemon:
             with self._models_lock:
                 m = self._models.pop(str(req.get("model")), None)
             protocol.send_json(conn, {"ok": True, "dropped": m is not None})
+        elif op == "health":
+            self._op_health(conn)
+        elif op == "metrics":
+            self._op_metrics(conn, req)
         elif op == "ping":
             protocol.send_json(conn, {"ok": True, "v": protocol.PROTOCOL_VERSION,
                                       **self._identity()})
@@ -1659,9 +1845,10 @@ class DataPlaneDaemon:
         with self._jobs_lock:
             return sum(j.staged_bytes for j in self._jobs.values())
 
-    def _overloaded(self) -> Optional[str]:
+    def _overloaded(self, staged: Optional[int] = None) -> Optional[str]:
         """The watermark breach, or None. A load signal, read without job
-        locks."""
+        locks. ``staged``: the staged-bytes total when the caller reports it
+        too (``health``), so the reported value is the one judged."""
         if self._max_connections is not None:
             with self._conns_lock:
                 n = self._active_conns
@@ -1669,11 +1856,88 @@ class DataPlaneDaemon:
                 return (f"{n} concurrent connections exceed the watermark "
                         f"({self._max_connections})")
         if self._max_staged_bytes is not None:
-            staged = self._staged_bytes_total()
+            if staged is None:
+                staged = self._staged_bytes_total()
             if staged > self._max_staged_bytes:
                 return (f"{staged} staged bytes exceed the watermark "
                         f"({self._max_staged_bytes}); commit or drop stages")
         return None
+
+    # -- observability -----------------------------------------------------
+
+    def _op_health(self, conn) -> None:
+        """Load and liveness in O(jobs) time. Never shed: health is how a
+        load balancer decides where to send traffic, and a daemon too busy
+        to say "busy" looks dead. ``durable`` is false: the port's daemon
+        keeps no ``state_dir`` yet (ROADMAP Queue 1 item 7a-ii)."""
+        staged_bytes = self._staged_bytes_total()
+        reason = self._overloaded(staged=staged_bytes)
+        with self._jobs_lock:
+            active_jobs = len(self._jobs)
+        with self._models_lock:
+            served_models = len(self._models)
+        with self._conns_lock:
+            queue_depth = self._active_conns
+        mesh_snap = membership_mod.registry().snapshot()
+        resp = {
+            "ok": True,
+            "v": protocol.PROTOCOL_VERSION,
+            "id": self.instance_id,
+            "boot_id": self.boot_id,
+            "durable": False,
+            "queue_depth": queue_depth,
+            "staged_bytes": staged_bytes,
+            "active_jobs": active_jobs,
+            "served_models": served_models,
+            "uptime_s": float(self._clock() - self._started),
+            "busy": reason is not None,
+            # The serving scheduler's config, per-model queue depths and
+            # dispatched batches.
+            "scheduler": ({"enabled": False} if self._scheduler is None
+                          else self._scheduler.snapshot()),
+            # The membership epoch a driver fences reduce_mesh with, and how
+            # many co-resident daemons share this device plane.
+            "mesh": {"epoch": mesh_snap["epoch"], "members": len(mesh_snap["members"])},
+        }
+        if reason is not None:
+            resp["retry_after_s"] = self._retry_after_s
+            resp["busy_reason"] = reason
+        protocol.send_json(conn, resp)
+
+    def _op_metrics(self, conn, req: Dict[str, Any]) -> None:
+        """The process-wide metrics registry, its level gauges refreshed at
+        scrape. ``format``: "json" (the registry snapshot, histogram buckets
+        cumulative) or "prometheus" (text exposition v0.0.4 in ``text``).
+        Never shed: a scrape is O(registry) host work, and what an operator
+        needs most when the daemon is busy."""
+        self._refresh_level_gauges()
+        fmt = str(_opt(req, "format", "json"))
+        base = {
+            "ok": True,
+            "v": protocol.PROTOCOL_VERSION,
+            "id": self.instance_id,
+            "uptime_s": float(self._clock() - self._started),
+        }
+        if fmt == "prometheus":
+            protocol.send_json(conn, {**base, "text": metrics_mod.render_prometheus()})
+        elif fmt == "json":
+            protocol.send_json(conn, {**base, "metrics": metrics_mod.snapshot()})
+        else:
+            raise ValueError(f"unknown metrics format {fmt!r} (json|prometheus)")
+
+    def _refresh_level_gauges(self) -> None:
+        """The level gauges (staged bytes, jobs, models, connections, the
+        scheduler's queue depths), refreshed at scrape so a snapshot agrees
+        with what ``health`` would report."""
+        _M_STAGED.set(self._staged_bytes_total())
+        with self._jobs_lock:
+            _M_JOBS.set(len(self._jobs))
+        with self._models_lock:
+            _M_MODELS.set(len(self._models))
+        with self._conns_lock:
+            _M_CONNS.set(self._active_conns)
+        if self._scheduler is not None:
+            self._scheduler.snapshot()  # refreshes the queue-depth gauge
 
     # -- jobs --------------------------------------------------------------
 
@@ -1828,8 +2092,9 @@ class DataPlaneDaemon:
             with self._jobs_lock:
                 if self._jobs.get(str(req.get("job"))) is job:
                     del self._jobs[str(req.get("job"))]
-        protocol.send_arrays(conn, arrays, {"ok": True, "rows": job.rows,
-                                            "pass_rows": job.pass_rows, **self._identity()})
+        _send_arrays_counted(conn, "finalize", arrays, {"ok": True, "rows": job.rows,
+                                                        "pass_rows": job.pass_rows,
+                                                        **self._identity()})
 
     def _finalize_knn(self, conn, req: Dict[str, Any], job: _Job, params: Dict[str, Any],
                       extra: Dict[str, np.ndarray]) -> None:
@@ -1844,20 +2109,21 @@ class DataPlaneDaemon:
                 raise ValueError(taken)
         model, info, id_map = job.build_knn_model(params, extra)
         served = _ServedModel.from_model("ann" if params.get("mode") == "ivf" else "knn", model,
-                                         clock=self._clock, id_map=id_map)
+                                         clock=self._clock, id_map=id_map, buckets=self._buckets)
         with self._models_lock:
             if name in self._models:  # a raced registration: the first wins
                 raise ValueError(taken)
             self._models[name] = served
             evicted = self._enforce_model_cap_locked(keep=name)
-        for victim in evicted:
-            logger.warning("evicted served model %r (LRU, registry over the %d-model cap)",
-                           victim, self._max_models)
+        self._log_lru_evictions(evicted)
+        # The eager warmup of ensure_model, for the built index: its
+        # kneighbors ladder is dispatched before the finalize ack.
+        self._warmup_on_register(name, int(np.asarray(info["n_cols"]).reshape(-1)[0]))
         with self._jobs_lock:
             if self._jobs.get(str(req.get("job"))) is job:
                 del self._jobs[str(req.get("job"))]
-        protocol.send_arrays(conn, info, {"ok": True, "rows": job.rows, "model": name,
-                                          **self._identity()})
+        _send_arrays_counted(conn, "finalize", info, {"ok": True, "rows": job.rows,
+                                                      "model": name, **self._identity()})
 
     def _op_seed(self, conn, req: Dict[str, Any]) -> None:
         """Driver-sent deterministic kmeans init: the batch seeds the
@@ -2093,7 +2359,8 @@ class DataPlaneDaemon:
             existing = self._models.get(name)
             if existing is None:
                 self._models[name] = _ServedModel(algo, arrays, _opt(req, "params", {}),
-                                                  self._device, clock=self._clock)
+                                                  self._device, clock=self._clock,
+                                                  buckets=self._buckets)
                 created = True
                 evicted = self._enforce_model_cap_locked(keep=name)
             else:
@@ -2102,10 +2369,100 @@ class DataPlaneDaemon:
                                      f"ensure_model requested {algo!r}")
                 existing.touched = self._clock()
                 created = False
-        for victim in evicted:
-            logger.warning("evicted served model %r (LRU, registry over the %d-model cap)",
-                           victim, self._max_models)
-        protocol.send_json(conn, {"ok": True, "created": created})
+        self._log_lru_evictions(evicted)
+        warmed = self._warmup_on_register(name, _model_width(algo, arrays)) if created else None
+        ack: Dict[str, Any] = {"ok": True, "created": created}
+        if warmed is not None:
+            ack["warmup"] = warmed
+        protocol.send_json(conn, ack)
+
+    def _warmup_on_register(self, name: str, width: Optional[int]) -> Optional[Dict[str, Any]]:
+        """The eager warmup (config ``serve_warmup_on_register``): the
+        ladder's trace warmup at registration, of an ensure_model payload or
+        a daemon-built index, before the registering caller's ack. A failed
+        warmup is logged and never fails the registration. Returns the
+        warmup info, or None when it does not apply (scheduler off, flag
+        off, unknown width)."""
+        if self._scheduler is None or width is None:
+            return None
+        if not bool(config.peek("serve_warmup_on_register")):
+            return None
+        with self._models_lock:
+            served = self._models.get(name)
+        if served is None:
+            return None
+        kind = "kneighbors" if hasattr(served.model, "kneighbors") else "transform"
+        try:
+            return self._warm_model(name, served, int(width), kind=kind,
+                                    k=_resolve_k(served, None) if kind == "kneighbors" else None)
+        except Exception as e:
+            logger.warning("warmup-on-register for %r failed (first requests will meet cold "
+                           "shapes): %s", name, e)
+            return None
+
+    def _warm_model(self, name: str, served, n_cols: int, kind: str, k: Optional[int],
+                    dtype: str = "float32") -> Dict[str, Any]:
+        """One warm pass over the reachable bucket ladder: the reference's
+        trace warmup, a zero batch dispatched at every bucket (its mode when
+        a model publishes no AOT plan). The port captures no per-bucket
+        program, so ``aot`` is always false."""
+        out = self._scheduler.warmup(name, served, int(n_cols), kind=kind, k=k, dtype=dtype)
+        return {**out, "aot": False}
+
+    def _serve_dispatch(self, conn, req: Dict[str, Any], kind: str, name: str, served, x,
+                        k: Optional[int] = None):
+        """Run one serving request through the micro-batching scheduler (when
+        it runs and the request fits the coalescing cap) or solo. Returns
+        the result, or None after answering a scheduler shed with the
+        busy/retry_after_s response (the payload was already read, so the
+        framing stays aligned)."""
+        sched = self._scheduler
+        if sched is not None:
+            # IVF/ANN kneighbors never coalesces: the capacity-bucketed
+            # candidate search shares per-list query slots across the batch,
+            # so a co-batched or padding row can EVICT a real query's
+            # candidates. Exact kNN and every transform are row-wise.
+            ann = kind == "kneighbors" and getattr(served, "algo", "") == "ann"
+            if not ann and sched.eligible(int(x.shape[0])):
+                try:
+                    return sched.submit(name, served, kind, x, k=k,
+                                        deadline_s=req.get("deadline_s"))
+                except scheduler_mod.SchedulerBusy as e:
+                    _M_BUSY_SHEDS.inc(op=_op_label(kind))
+                    protocol.send_json(conn, {"ok": False, "busy": True,
+                                              "retry_after_s": e.retry_after_s,
+                                              "error": f"busy: {e}"})
+                    return None
+            elif x.shape[0]:  # a 0-row request is not "larger than the ladder"
+                sched.note_bypass(kind)
+        if kind == "transform":
+            return served.transform(x)
+        return served.kneighbors(x, k)
+
+    def _op_warmup(self, conn, req: Dict[str, Any]) -> None:
+        """Warm the scheduler's bucket ladder for a served model, so each
+        bucket's first request finds its shape seen. ``n_cols`` names the
+        feature width to warm; ``dtype`` (default float32) must be the dtype
+        real traffic carries (the batch key includes it). With the scheduler
+        off the op is an honest no-op (enabled: false)."""
+        served = self._lookup_model(str(req["model"]))
+        if self._scheduler is None:
+            protocol.send_json(conn, {"ok": True, "enabled": False, "buckets": [],
+                                      "compiled": 0})
+            return
+        n_cols = req.get("n_cols")
+        if n_cols is None:
+            raise ValueError("warmup needs n_cols (the model's feature width)")
+        kind = _opt(req, "kind",
+                    "kneighbors" if hasattr(served.model, "kneighbors") else "transform")
+        if kind not in ("transform", "kneighbors"):
+            raise ValueError(f"unknown warmup kind {kind!r} (transform|kneighbors)")
+        info = self._warm_model(
+            str(req["model"]), served, int(n_cols), kind=str(kind),
+            k=_resolve_k(served, req.get("k")) if kind == "kneighbors" else None,
+            dtype=str(_opt(req, "dtype", "float32")),
+        )
+        protocol.send_json(conn, {"ok": True, "enabled": True, **info})
 
     def _enforce_model_cap_locked(self, keep: str) -> list:
         """LRU eviction past ``max_models`` (under ``_models_lock``, right
@@ -2122,8 +2479,14 @@ class DataPlaneDaemon:
                 break
             victim = candidates[0][2]
             del self._models[victim]
+            _M_MODEL_EVICTIONS.inc(reason="lru")
             evicted.append(victim)
         return evicted
+
+    def _log_lru_evictions(self, evicted: list) -> None:
+        for victim in evicted:
+            logger.warning("evicted served model %r (LRU, registry over the %d-model cap)",
+                           victim, self._max_models)
 
     def _lookup_model(self, name: str, hint: str = "ensure_model first") -> _ServedModel:
         with self._models_lock:
@@ -2137,8 +2500,11 @@ class DataPlaneDaemon:
         output arrays stream back as raw frames."""
         x, _ = _recv_arrow_matrix(conn, "transform", _opt(req, "input_col", "features"),
                                   req.get("n_cols"))
-        outs = self._lookup_model(str(req["model"])).transform(x)
-        protocol.send_arrays(conn, outs, {"ok": True, "rows": int(x.shape[0])})
+        name = str(req["model"])
+        outs = self._serve_dispatch(conn, req, "transform", name, self._lookup_model(name), x)
+        if outs is None:
+            return  # shed with busy; the client retries
+        _send_arrays_counted(conn, "transform", outs, {"ok": True, "rows": int(x.shape[0])})
 
     def _op_kneighbors(self, conn, req: Dict[str, Any]) -> None:
         """Query a daemon-built index: the query batch in (one Arrow payload,
@@ -2154,9 +2520,17 @@ class DataPlaneDaemon:
         else:
             q, _ = _recv_arrow_matrix(conn, "kneighbors", _opt(req, "input_col", "features"),
                                       req.get("n_cols"))
+        name = str(req["model"])
         served = self._lookup_model(
-            str(req["model"]), "a daemon-built index this old was evicted; refit the estimator")
-        dists, idx = served.kneighbors(q, _resolve_k(served, req.get("k")))
-        protocol.send_arrays(conn, {"distances": np.asarray(dists, np.float64),
-                                    "indices": np.asarray(idx, np.int64)},
+            name, "a daemon-built index this old was evicted; refit the estimator")
+        # k resolved first, so a request that omits k batches with one that
+        # names the fitted k.
+        res = self._serve_dispatch(conn, req, "kneighbors", name, served, q,
+                                   k=_resolve_k(served, req.get("k")))
+        if res is None:
+            return  # shed with busy; the client retries
+        dists, idx = res
+        _send_arrays_counted(conn, "kneighbors",
+                             {"distances": np.asarray(dists, np.float64),
+                              "indices": np.asarray(idx, np.int64)},
                              {"ok": True, "rows": int(q.shape[0])})

@@ -25,6 +25,9 @@ never fires):
 ``daemon.conn``           daemon side, once per accepted connection
 ``daemon.op``             daemon side, per dispatched request, after the
                           version check and before the watermark shed
+``daemon.scheduler``      serving-scheduler admission (``submit``), before
+                          the queue lock: an injected fault becomes a
+                          ``busy`` shed the client retries
 ``daemon.pass_boundary``  after an iterative job's ``step`` applied, before
                           its ack: a crash here is a daemon dying exactly
                           between two passes

@@ -118,6 +118,23 @@ def test_the_parallel_layer_and_its_utilities_load_no_jax():
     assert [r for r, _ in _imported_roots(worker) if r in FORBIDDEN] == []
 
 
+def test_the_serving_scheduler_is_scanned_and_loads_neither_jax_nor_pyarrow():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
+    assert "spark_rapids_ml_tpu_torch/serve/scheduler.py" in scanned
+    assert [r for r, _ in _imported_roots(PORT / "serve" / "scheduler.py")
+            if r in FORBIDDEN] == []
+    code = (
+        "import sys, spark_rapids_ml_tpu_torch.serve.scheduler; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'spark_rapids_ml_tpu', 'pyarrow', 'pandas')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -133,8 +150,10 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
         port_pca.fit_pca_stream([x], 2, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PCAModel(pc=np.eye(4)[:, :2]).transform_matrix(x)
+    daemon = DataPlaneDaemon(serve_batching=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        DataPlaneDaemon().start()
+        daemon.start()
+    assert daemon._scheduler is None  # refused before any serving thread starts
     # Asked for explicitly, the CPU works.
     model = PCA(device="cpu").setK(2).fit({"features": x})
     assert model.transform_matrix(x)["output"].shape == (20, 2)

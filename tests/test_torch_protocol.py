@@ -8,7 +8,9 @@
   the reference test's numeric checks (``pc`` against a float64 oracle at
   atol 1e-8, eager against partitioned at 1e-12, the served transform at
   1e-10). The replay stops at the first request outside the port's slice
-  (another algo, or an op the port's daemon does not serve yet).
+  (another algo, or an op the port's daemon does not serve yet). The PCA
+  and serving prefixes replay with the serving scheduler on (the default)
+  and off: the default must not change a byte of the answers' fields.
 """
 
 import json
@@ -206,17 +208,18 @@ def _recorded_requests(path):
     return requests
 
 
-def _replay_prefix(path, expect, n_expected):
+def _replay_prefix(path, expect, n_expected, batching=None):
     """Send the recorded requests up to the first one outside the slice to a
-    port daemon on the CPU (float64) and check the generator's expectations
-    for them; returns the array payloads of the "arrays" responses."""
+    port daemon on the CPU (float64; ``batching``: its serving scheduler,
+    None the config default) and check the generator's expectations for
+    them; returns the array payloads of the "arrays" responses."""
     requests = _recorded_requests(path)
     assert len(requests) == len(expect)
     stop = next(i for i, (req, _) in enumerate(requests)
                 if req["op"] not in _SLICE_OPS or req.get("algo", "pca") != "pca")
     assert stop == n_expected
     with config.option("compute_dtype", "float64"), config.option("accum_dtype", "float64"):
-        with DataPlaneDaemon(device="cpu") as daemon:
+        with DataPlaneDaemon(device="cpu", serve_batching=batching) as daemon:
             sock = socket.create_connection(daemon.address, timeout=60)
             try:
                 sock.sendall(b"".join(raw for _, raw in requests[:stop]))
@@ -240,11 +243,12 @@ def _pc_oracle(k):
     return evecs[:, np.argsort(evals)[::-1][:k]]
 
 
-def test_replay_golden_transcript_pca_prefix():
+@pytest.mark.parametrize("batching", [True, False], ids=["batching_on", "batching_off"])
+def test_replay_golden_transcript_pca_prefix(batching):
     """protocol_v1.bin from ping to the two PCA finalizes (10 responses),
     stopping before the kmeans seed."""
     _, expect = transcript_frames()
-    eager, part = _replay_prefix(FIXTURE, expect, 10)
+    eager, part = _replay_prefix(FIXTURE, expect, 10, batching)
     for arrays in (eager, part):
         assert arrays["pc"].shape == (3, 2)
         np.testing.assert_allclose(np.abs(arrays["pc"]), np.abs(_pc_oracle(2)), atol=1e-8)
@@ -252,11 +256,12 @@ def test_replay_golden_transcript_pca_prefix():
     assert set(eager) == {"pc", "explained_variance", "sigma", "mean"}
 
 
-def test_replay_serving_transcript_pca_prefix():
+@pytest.mark.parametrize("batching", [True, False], ids=["batching_on", "batching_off"])
+def test_replay_serving_transcript_pca_prefix(batching):
     """protocol_v1_serving.bin: both ensure_models, model_status and the
     transform (4 responses), stopping before the knn feed."""
     _, expect = serving_transcript_frames()
-    (out,) = _replay_prefix(FIXTURE_SERVING, expect, 4)
+    (out,) = _replay_prefix(FIXTURE_SERVING, expect, 4, batching)
     np.testing.assert_allclose(out["output"], golden_matrix() @ golden_pc(), atol=1e-10)
 
 
