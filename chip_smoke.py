@@ -44,7 +44,7 @@ Phases, each of which exits non-zero on a failed check:
    25 alone after the build; ``--estimators`` runs phases 23 and 24 alone;
    ``--multi-process`` runs phase 26 alone; ``--multi-daemon`` runs
    phase 27 alone; ``--elastic`` runs phase 28 alone; ``--serving`` runs
-   phase 29 alone.
+   phase 29 alone; ``--telemetry`` runs phase 30 alone.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -420,6 +420,28 @@ Phases, each of which exits non-zero on a failed check:
     request of phase 22's 4,096 queries alone, over the wire to each daemon
     and in process through ``submit`` and ``_ServedModel.kneighbors``: the
     median of 5 and the daemon's spans a call.
+30. The observability plane (``utils/{journal,xprof,slo,flight}.py``, the
+    ``trace_pull`` and ``telemetry_pull`` ops). a. Phase 20's feed protocol
+    (8 spawned tasks x 2 ``feed_raw`` frames of 65,536 x 2048 f32, one
+    attempt dying) inside the driver's ``journal.run``, the tasks' clients
+    stamping its ``trace_ctx``, with ``device_timing`` on: every
+    ``daemon.feed_raw`` span the daemon's ``trace_pull`` returns is in the
+    driver's run under its fit span; the kernel ledger's ``gram_colsum``
+    calls equal the launches (17, all wgmma) at 65,536·2048·2049 +
+    65,536·2048 flops a call; its CUDA-event seconds a call and TFLOP/s.
+    b. 8 of phase 29's client processes x 16 exact ``kneighbors_raw``
+    requests over a 1,048,576 x 768 bf16 index (k = 10) through a batching
+    daemon's scheduler, the ring armed: the ledger's ``dist_topk`` calls
+    equal the launches and the batches, and every kneighbors exemplar of
+    ``srml_daemon_request_seconds`` in ``telemetry_pull`` names a span
+    ``trace_pull`` returns. c. An unreachable p99 objective on kneighbors:
+    ``srml_slo_breach`` reaches 1 within two telemetry ticks and the
+    telemetry thread writes an ``slo_breach`` bundle under the recorder's
+    (temporary) ``state_dir`` that ``load_bundle`` reads back with both
+    kernels' ledger records. d. The same requests with the journal off,
+    the ring armed and a journal file (requests/s each, answers bitwise
+    equal); the ledger's host cost a ``dist_topk`` call and the journal's a
+    span.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
@@ -440,7 +462,9 @@ path its two-daemon fits' and served calls' launches under
 ``multidaemon_launches``, the ``gram_colsum`` row phase 28's elastic
 fits' launches in this process under ``elastic_launches``, the
 ``dist_topk``, ``probe_select`` and ``ivf_scan_select`` rows phase 29's
-batched exact and bypassed IVF traffic's under ``serving_launches``) and
+batched exact and bypassed IVF traffic's under ``serving_launches``, the
+``gram_colsum`` and ``dist_topk`` rows phase 30's under
+``telemetry_launches``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, the script fails before printing any result.
 """
@@ -2700,13 +2724,15 @@ def _dying(batches, after):
     raise RuntimeError("injected executor death mid-partition")
 
 
-def _spark_task(address, p, rows, d, k, feeds, go, out):
+def _spark_task(address, p, rows, d, k, feeds, go, out, trace_ctx=None):
     """Phase 20's partition task, in its own process (spawned): builds its
     rows from its seed, signals ready, waits for the start, then runs the
     Spark feed task's body (``estimator._feed_partition``) with a
     ``feed_raw`` sender. Partition SPARK_DYING's attempt 0 dies after one
     feed and its attempt 1 wins; only the winner's ack goes back, as Spark
-    returns only a successful task's rows."""
+    returns only a successful task's rows. ``trace_ctx``: the driver's
+    journal frame, stamped by the task's client (phase 30), as
+    ``estimator._FeedTask`` carries it."""
     try:
         import numpy as np
 
@@ -2718,7 +2744,7 @@ def _spark_task(address, p, rows, d, k, feeds, go, out):
         go.wait()
         attempts = [(0, 1), (1, None)] if p == SPARK_DYING else [(0, None)]
         for attempt, dies_after in attempts:
-            with DataPlaneClient(*address, timeout=900.0) as c:
+            with DataPlaneClient(*address, timeout=900.0, trace_ctx=trace_ctx) as c:
                 def send(x, c=c, attempt=attempt):
                     c.feed_raw(SPARK_JOB, x, n_cols=d, partition=p, attempt=attempt)
 
@@ -6619,6 +6645,387 @@ def phase_serving(torch, kernels, config):
     return out
 
 
+P30_SEED = 30
+P30_REQS = 16  # phase 29's exact requests a client process, per traffic run
+P30_TICK_S = 0.5  # the daemon's telemetry cadence in phase 30
+P30_SLO = "kneighbors:p99_ms=0.001@0.01"  # 1 µs: every request violates it
+P30_MICRO_CALLS = 500  # dist_topk calls a block of the ledger's cost
+P30_SPANS = 20000  # journal spans a block of the journal's cost
+
+
+def p30_span_ids(events):
+    return {e.get("span_id") for e in events if e.get("event") == "phase"}
+
+
+def p30_traffic(torch, kernels, clients, name, address, tag):
+    """One run of every phase 29 client's first P30_REQS exact requests
+    against ``address`` (no profiler: the rates are what (d) compares).
+    Returns (requests/s, launches, routes)."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = clients.all("run", name, address, "p30-exact", KNN_K, P30_REQS)
+    wall = time.perf_counter() - t0
+    n = P29_PROCS * P30_REQS
+    lat = np.sort(np.concatenate([r["lat"] for r in res])) * 1e3
+    print(f"phase 30 {tag}: {n} requests from {P29_PROCS} processes in {wall:.3f} s = "
+          f"{n / wall:.1f} requests/s; p50 {float(np.percentile(lat, 50)):.3f} ms, p99 "
+          f"{float(np.percentile(lat, 99)):.3f} ms (host clock in the clients)", flush=True)
+    return n / wall, dict(kernels.LAUNCHES), dict(kernels.ROUTES)
+
+
+def phase_telemetry(torch, kernels, config):
+    """Phase 30: the observability plane on the card. Returns the launches
+    of its two paths ({kernel: launches})."""
+    import multiprocessing as mp
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch import NearestNeighbors
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient, DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.serve import daemon as daemon_mod
+    from spark_rapids_ml_tpu_torch.spark import estimator as est
+    from spark_rapids_ml_tpu_torch.utils import flight, journal, xprof
+    from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
+
+    t_phase = time.perf_counter()
+    n_rows = DP_PARTITIONS * DP_FEEDS * DP_ROWS
+    folded = DP_PARTITIONS * DP_FEEDS + 1  # every feed and the dead attempt's one
+    print(f"phase 30: the observability plane; a. phase 20's feed protocol ({DP_PARTITIONS} "
+          f"task processes x {DP_FEEDS} feed_raw frames of {DP_ROWS} x {D} f32) inside the "
+          f"driver's journal run, device_timing on; b. {P29_PROCS} client processes x "
+          f"{P30_REQS} of phase 29's exact requests over a {KNN_ROWS} x {KNN_D} bf16 index "
+          f"(k = {KNN_K}) through the scheduler; c. the SLO {P30_SLO!r} and an incident "
+          f"bundle; d. requests/s with the journal off, the ring armed, a journal file",
+          flush=True)
+    clients = _P29Clients()  # their imports overlap part a
+    tmp = tempfile.TemporaryDirectory(prefix="srml-phase30-")
+    out = {}
+    ring_held = False
+    try:
+        # -- a. the Spark PCA feed protocol inside the driver's run ----------------
+        ctx = mp.get_context("spawn")
+        q, go = ctx.Queue(), ctx.Event()
+        procs = []
+        with config.option("telemetry_eval_interval_s", P30_TICK_S), \
+                DataPlaneDaemon(device=DEV) as daemon:
+            try:
+                with journal.run("fit", estimator="SparkPCA", algo="pca") as run_id:
+                    tc = journal.trace_ctx()
+                    procs = [ctx.Process(target=_spark_task,
+                                         args=(daemon.address, p, DP_ROWS, D, K, DP_FEEDS, go, q,
+                                               tc), daemon=True)
+                             for p in range(DP_PARTITIONS)]
+                    for proc in procs:
+                        proc.start()
+                    for _ in procs:
+                        msg = q.get(timeout=300)
+                        if msg[0] != "ready":
+                            fail(f"phase 30 task {msg[1]} failed before it was ready: {msg[2]}")
+                    fit = est._DaemonFit(*daemon.address, SPARK_JOB)
+                    torch.cuda.synchronize()
+                    kernels.reset_launches()
+                    xprof.reset()
+                    with config.option("device_timing", True):
+                        t0 = time.perf_counter()
+                        go.set()
+                        results = [q.get(timeout=600) for _ in procs]
+                        bad = [r for r in results if r[0] != "ok"]
+                        check(not bad, f"phase 30 tasks all succeeded: {bad}")
+                        acks = [r[2] for r in results]
+                        n = fit.account(acks)
+                        arrays, fin_rows = fit.finalize_guarded({"k": K, "mean_center": True},
+                                                                pass_rows_expected=n)
+                        fit_s = time.perf_counter() - t0
+                        fit.close()
+            finally:
+                for proc in procs:
+                    proc.join(timeout=30 if go.is_set() else 0)
+                    if proc.is_alive():
+                        proc.terminate()
+                        proc.join(timeout=10)
+            launches = kernels.LAUNCHES["gram_colsum"]
+            wgmma = kernels.ROUTES["gram_colsum/wgmma"]
+            with DataPlaneClient(*daemon.address) as c:
+                pulled = c.trace_pull(0)
+        model = est._pca_model(arrays, device=DEV)
+        check(n == fin_rows == n_rows and model.pc.shape == (D, K)
+              and bool(np.isfinite(model.pc).all()),
+              f"phase 30a fit: {n} rows acked, {fin_rows} finalized == {n_rows}; pc finite, "
+              f"shape {model.pc.shape}")
+        feeds = [e for e in pulled["events"]
+                 if e.get("event") == "phase" and e.get("name") == "daemon.feed_raw"]
+        check(len(feeds) == folded and all(e["run_id"] == run_id and e["parent_id"] == tc["span"]
+                                           for e in feeds),
+              f"phase 30a trace_pull: {len(feeds)} daemon.feed_raw spans == {folded} feeds, every "
+              f"one in the driver's run {run_id} under its fit span")
+        led = xprof.snapshot().get("gram_colsum", {})
+        flops = DP_ROWS * D * (D + 1) + DP_ROWS * D
+        sigs = led.get("signatures", [])
+        check(led.get("calls") == launches == folded == wgmma
+              and led.get("routes") == {"wgmma": folded}
+              and all(sg["flops"] == flops for sg in sigs)
+              and led.get("execute_calls") == folded,
+              f"phase 30a kernel ledger: gram_colsum calls {led.get('calls')} == LAUNCHES "
+              f"{launches} == {folded} folded feeds, routes {led.get('routes')}, flops a call "
+              f"{[sg['flops'] for sg in sigs]} == {DP_ROWS}·{D}·{D + 1} + {DP_ROWS}·{D}, "
+              f"{led.get('execute_calls')} timed calls")
+        per_call = led["execute_s"] / led["execute_calls"]
+        print(f"phase 30a: fit {n_rows} rows in {fit_s:.3f} s with device_timing on (a sync a "
+              f"fold); gram_colsum execute_s {per_call * 1e3:.4f} ms a call over "
+              f"{led['execute_calls']} calls (CUDA events), {flops / per_call / 1e12:.1f} "
+              f"TFLOP/s; PERF.md row 1: 0.576 ms at 65,536 rows", flush=True)
+        print("phase 30a kernel ledger:\n" + xprof.format_table(
+            peak_flops_per_s=PEAK_FLOPS["bfloat16"], peak_bytes_per_s=PEAK_BYTES_PER_S),
+            flush=True)
+        # The same launch in this process, back to back and each after an
+        # idle gap as long as a frame's receive: the card's clocks after a
+        # host-bound gap against row 1's warm loop.
+        xb = torch.randn((DP_ROWS, D), generator=torch.Generator(device=DEV).manual_seed(P30_SEED),
+                         device=DEV).to(torch.bfloat16)
+        st = (torch.zeros((D, D), device=DEV), torch.zeros(D, device=DEV),
+              torch.zeros((), device=DEV))
+        # And with 8 threads holding the GIL in turns, as the daemon's 8
+        # receiving connection threads do: between the start event and the
+        # launch the card waits for the host.
+        gap_ms = {}
+        stop = threading.Event()
+
+        def gil_holder():
+            buf = bytearray(16 << 20)
+            while not stop.is_set():
+                bytes(buf)  # a 16 MiB copy under the GIL, as a frame's bytes() is
+
+        with config.option("device_timing", True):
+            kernels.gram_colsum(xb, DP_ROWS, st)
+            for tag, gap, busy in (("back to back", 0.0, 0), ("each after 0.5 s idle", 0.5, 0),
+                                   ("beside 8 threads copying under the GIL", 0.01, 8)):
+                holders = [threading.Thread(target=gil_holder) for _ in range(busy)]
+                for th in holders:
+                    th.start()
+                try:
+                    g0 = xprof.snapshot()["gram_colsum"]
+                    for _ in range(5):
+                        time.sleep(gap)
+                        kernels.gram_colsum(xb, DP_ROWS, st)
+                    g1 = xprof.snapshot()["gram_colsum"]
+                finally:
+                    stop.set()
+                    for th in holders:
+                        th.join()
+                    stop.clear()
+                gap_ms[tag] = ((g1["execute_s"] - g0["execute_s"])
+                               / (g1["execute_calls"] - g0["execute_calls"]) * 1e3)
+        del xb, st
+        print("phase 30a the same gram_colsum launch in this process (CUDA events, device_timing): "
+              + ", ".join(f"{tag} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)"
+                          for tag, ms in gap_ms.items()), flush=True)
+        out["gram_colsum"] = launches
+        del model, arrays
+        torch.cuda.empty_cache()
+
+        # -- b. served exact kNN through the scheduler, the ring armed ------------
+        metrics_mod.reset()  # the SLO history and the exemplars start here
+        with config.option("telemetry_trace_buffer", 0), \
+                config.option("telemetry_eval_interval_s", P30_TICK_S), \
+                config.option("slo_objectives", P30_SLO):
+            served = DataPlaneDaemon(device=DEV).start()
+        try:
+            served._flight.state_dir = tmp.name  # where its incident bundles go
+            gen = torch.Generator(device=DEV).manual_seed(P30_SEED)
+            centers = torch.randn((KNN_CLUSTERS, KNN_D), generator=gen, device=DEV)
+            x = knn_data(torch, gen, KNN_ROWS, centers)
+            nn = NearestNeighbors().setK(KNN_K).fit({"features": x})
+            del x, centers
+            with served._models_lock:
+                served._models["p30-exact"] = daemon_mod._ServedModel.from_model(
+                    "knn", nn, buckets=served._buckets)
+            with DataPlaneClient(*served.address) as c:
+                ack = c.warmup("p30-exact", n_cols=KNN_D, k=KNN_K)
+            check(ack["compiled"] == len(served._buckets),
+                  f"phase 30b warmup: {ack}")
+            clients.collect("ready")
+            journal.ring_arm(int(config.get("telemetry_trace_buffer")))
+            ring_held = True
+            breach0 = p29_metric(metrics_mod.snapshot(), "srml_slo_breach",
+                                 objective="kneighbors:p99_ms")
+            # -- c. the SLO breach: the first kneighbors traffic, unmeasured ----
+            p30_traffic(torch, kernels, clients, "warm", served.address,
+                        "exact kNN, the first traffic (ring armed, rate not compared)")
+            t_end = time.perf_counter()
+            while True:
+                snap = metrics_mod.snapshot()
+                breach = p29_metric(snap, "srml_slo_breach", objective="kneighbors:p99_ms")
+                waited = time.perf_counter() - t_end
+                if breach >= 1.0 or waited > 2 * P30_TICK_S + 0.25:
+                    break
+                time.sleep(0.01)
+            check(breach0 == 0.0 and breach == 1.0,
+                  f"phase 30c srml_slo_breach{{objective=kneighbors:p99_ms}} {breach0} before "
+                  f"any kneighbors request, {breach} == 1 within two ticks of the first "
+                  f"traffic ({waited:.3f} s after it, ticks of {P30_TICK_S} s)")
+            warm_b = p29_metric(snap, "srml_scheduler_batches_total", op="kneighbors")
+            # -- b. the measured traffic -----------------------------------------
+            led0 = xprof.snapshot().get("dist_topk", {}).get("calls", 0)
+            rates = {"ring": [], "off": [], "file": []}
+            r, lt, rt = p30_traffic(torch, kernels, clients, "ring", served.address,
+                                    "exact kNN, ring armed")
+            rates["ring"].append(r)
+            n_req = P29_PROCS * P30_REQS
+            deadline = time.monotonic() + 10.0
+            while True:  # a request counts once its answer is on the wire
+                snap = metrics_mod.snapshot()
+                if (p29_metric(snap, "srml_daemon_requests_total", op="kneighbors") >= 2 * n_req
+                        or time.monotonic() > deadline):
+                    break
+                time.sleep(0.01)
+            batches = p29_metric(snap, "srml_scheduler_batches_total", op="kneighbors") - warm_b
+            led = xprof.snapshot()["dist_topk"]["calls"] - led0
+            check(led == lt["dist_topk"] == batches == rt["dist_topk/wgmma"] and 0 < batches,
+                  f"phase 30b kernel ledger: dist_topk calls {led} == LAUNCHES "
+                  f"{lt['dist_topk']} == srml_scheduler_batches_total{{op=kneighbors}} "
+                  f"{int(batches)}, all wgmma, for {n_req} requests")
+            out["dist_topk"] = lt["dist_topk"]
+            with DataPlaneClient(*served.address) as c:
+                pull = c.telemetry_pull()
+                traced = c.trace_pull(0)
+            lat = pull["metrics"]["srml_daemon_request_seconds"]["samples"]
+            exemplars = [ex for sm in lat if sm["labels"].get("op") == "kneighbors"
+                         for ex in (sm.get("exemplars") or {}).values()]
+            ids = p30_span_ids(traced["events"])
+            check(exemplars and all(ex["span"] in ids for ex in exemplars)
+                  and pull["text"].rstrip().endswith("# EOF")
+                  and pull["fingerprint"] == config.fingerprint()
+                  and pull["xprof"]["dist_topk"]["calls"] >= led,
+                  f"phase 30b telemetry_pull: {len(exemplars)} kneighbors exemplars of "
+                  f"srml_daemon_request_seconds, each naming a span trace_pull returns "
+                  f"({len(traced['events'])} events); OpenMetrics text, fingerprint, kernel "
+                  f"ledger")
+
+            # -- c. the incident bundle the breach wrote -------------------------
+            inc_dir = os.path.join(tmp.name, "incidents")
+            deadline = time.monotonic() + 5.0
+            found = []
+            while not found and time.monotonic() < deadline:
+                if os.path.isdir(inc_dir):
+                    found = sorted(f for f in os.listdir(inc_dir)
+                                   if "slo_breach" in f and f.endswith(".json"))
+                time.sleep(0.02)
+            check(bool(found), f"phase 30c the telemetry thread wrote an slo_breach bundle "
+                               f"under the recorder's state_dir: {found}")
+            bundle = flight.load_bundle(os.path.join(inc_dir, found[0]))
+            bx = bundle["xprof"]
+            check(bundle["reason"] == "slo_breach" and bundle["events"]
+                  and bundle["identity"]["boot_id"] == served.boot_id
+                  and bx.get("gram_colsum", {}).get("calls", 0) >= folded
+                  and bx.get("dist_topk", {}).get("calls", 0) > 0,
+                  f"phase 30c load_bundle: reason {bundle['reason']}, {len(bundle['events'])} "
+                  f"events, the ledger's gram_colsum {bx.get('gram_colsum', {}).get('calls')} "
+                  f"and dist_topk {bx.get('dist_topk', {}).get('calls')} calls")
+
+            # -- d. the journal's cost a served request --------------------------
+            for rnd in range(2):
+                journal.ring_disarm()
+                ring_held = False
+                r, _, _ = p30_traffic(torch, kernels, clients, f"off{rnd}", served.address,
+                                      f"exact kNN, journal off (round {rnd + 1})")
+                rates["off"].append(r)
+                journal.ring_arm(int(config.get("telemetry_trace_buffer")))
+                ring_held = True
+                r, _, _ = p30_traffic(torch, kernels, clients, f"ring{rnd + 1}", served.address,
+                                      f"exact kNN, ring armed (round {rnd + 1})")
+                rates["ring"].append(r)
+                with config.option("run_journal", os.path.join(tmp.name, "journal.jsonl")):
+                    r, _, _ = p30_traffic(torch, kernels, clients, f"file{rnd}",
+                                          served.address,
+                                          f"exact kNN, ring armed and a journal file (round "
+                                          f"{rnd + 1})")
+                rates["file"].append(r)
+                journal.close()
+            lines = len(journal.read(os.path.join(tmp.name, "journal.jsonl")))
+            for a, b in (("warm", "off0"), ("ring", "off0"), ("ring1", "off0"),
+                         ("file0", "off0"), ("ring2", "off1"), ("file1", "off1")):
+                bad = clients.all("compare", a, b)
+                n_bad = sum(len(x["bad"]) for x in bad)
+                check(n_bad == 0, f"phase 30d answers of run {a} bitwise those of {b} "
+                                  f"({n_bad} of {n_req} differ)")
+            print("phase 30d requests/s: " + "; ".join(
+                f"{k} {', '.join(f'{v:.1f}' for v in vs)}" for k, vs in rates.items())
+                + f" ({lines} journal lines written)", flush=True)
+
+            # -- the ledger's cost a launch, the journal's a span ------------------
+            qs1 = torch.randn((1, KNN_D), generator=gen, device=DEV).to(torch.bfloat16)
+            rows = torch.randn((65536, KNN_D), generator=gen, device=DEV).to(torch.bfloat16)
+            ids_r = torch.arange(65536, dtype=torch.int32, device=DEV)
+            ones = torch.ones(65536, device=DEV)
+
+            q_sig = (qs1, rows, KNN_K)
+            work = (2 * 65536 * KNN_D, (1 + 65536) * KNN_D * 2 + 8 * 65536 + 8 * KNN_K)
+
+            def records(n):
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    with kernels._ledger("phase30.ledger_probe", "wgmma", qs1.device, *work,
+                                         *q_sig):
+                        pass
+                return (time.perf_counter() - t0) / n * 1e6
+
+            rec_us = records(P30_SPANS)
+            with config.option("metrics", False):
+                pass_us = records(P30_SPANS)
+            print(f"phase 30 the kernel ledger's record alone: {rec_us:.2f} µs a call "
+                  f"(dist_topk's arguments, timing off), {pass_us:.2f} µs with metrics off "
+                  f"(the passthrough); host clock, {P30_SPANS} records", flush=True)
+
+            def block(on):
+                with config.option("metrics", on):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(P30_MICRO_CALLS):
+                        kernels.dist_topk(qs1, rows, ids_r, ones, KNN_K)
+                    torch.cuda.synchronize()
+                    return (time.perf_counter() - t0) / P30_MICRO_CALLS * 1e6
+
+            block(True)
+            us = {False: [], True: []}
+            for on in (False, True, True, False):
+                us[on].append(block(on))
+            print(f"phase 30 the kernel ledger's cost: dist_topk (1 x 65,536 x {KNN_D} bf16, "
+                  f"k = {KNN_K}) {', '.join(f'{v:.2f}' for v in us[True])} µs a call ledger "
+                  f"on, {', '.join(f'{v:.2f}' for v in us[False])} off (host clock over "
+                  f"{P30_MICRO_CALLS} calls, synced; timing off)", flush=True)
+
+            def spans(n):
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    with journal.span("phase30"):
+                        pass
+                return (time.perf_counter() - t0) / n * 1e6
+
+            armed_us = spans(P30_SPANS)
+            journal.ring_disarm()
+            ring_held = False
+            off_us = spans(P30_SPANS)
+            print(f"phase 30 the journal's cost: {armed_us:.2f} µs a span with the ring armed, "
+                  f"{off_us:.2f} µs off (host clock, {P30_SPANS} spans)", flush=True)
+        finally:
+            served.stop()
+    finally:
+        if ring_held:
+            journal.ring_disarm()
+        journal.close()
+        clients.close()
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+    print(f"phase 30: {time.perf_counter() - t_phase:.1f} s; telemetry_launches {out}",
+          flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -6659,6 +7066,14 @@ def main() -> None:
             if any(w in line for w in ("registers", "spill", "Compiling entry", "warning",
                                        "wgmma", "setmaxnreg")):
                 print(f"  ptxas {name}: {line.strip()}")
+
+    if "--telemetry" in sys.argv[1:]:
+        # Phase 30 alone.
+        phase_telemetry(torch, kernels, config)
+        print(card)
+        print(f"phase 30 passed ({time.perf_counter() - t_start:.1f} s); --telemetry: stopping "
+              "here", flush=True)
+        return
 
     if "--serving" in sys.argv[1:]:
         # Phase 29 alone.
@@ -7135,6 +7550,10 @@ def main() -> None:
     # -- 29. the serving plane: micro-batching, warmup, health and metrics -------------------
     for name, n in phase_serving(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["serving_launches"] = n
+
+    # -- 30. the observability plane: the journal across processes, the kernel ledger -------
+    for name, n in phase_telemetry(torch, kernels, config).items():
+        next(row for row in table if row["name"] == name)["telemetry_launches"] = n
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "

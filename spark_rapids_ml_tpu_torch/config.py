@@ -5,7 +5,8 @@ port reads (PCA, KMeans, LinearRegression, LogisticRegression,
 NearestNeighbors and ApproximateNearestNeighbors, the random forests, the
 data-plane daemon's watermarks and serving scheduler, the Spark fit
 policies, the multi-daemon reduce path, the native bridge, the default
-mesh's axes and the metrics switch).
+mesh's axes, the metrics switch and the observability plane's journal,
+kernel ledger, SLO and flight-recorder keys).
 Values are settable programmatically or through environment variables
 prefixed ``SRML_TORCH_`` — a prefix of its own, so the port never inherits
 the JAX package's ``SRML_TPU_*`` settings; the deployment-facing
@@ -141,6 +142,48 @@ _DEFAULTS: Dict[str, Any] = {
     # Admission bound: queued requests per served model; overflow, and a
     # request whose deadline the backlog would miss, is shed with `busy`.
     "serve_queue_depth": int(_env("SERVE_QUEUE_DEPTH", "256")),
+    # --- The observability plane (utils/{journal,xprof,slo,flight}.py).
+    # The JAX package's defaults; env SRML_TORCH_*, never the JAX package's
+    # SRML_RUN_JOURNAL / SRML_SLO_* / …: a process that imports both must
+    # not arm both journals from one variable. ---
+    # Run-journal path: JSON lines of run/phase/mark events. None = off
+    # (no event dicts, no I/O).
+    "run_journal": _env("RUN_JOURNAL", "") or None,
+    # Rotate the journal file (path -> path.1 -> ...) before a line would
+    # cross this many bytes, keeping run_journal_keep segments. 0 =
+    # unbounded append, required when several processes share one path.
+    "run_journal_max_bytes": int(_env("RUN_JOURNAL_MAX_BYTES", "0")),
+    "run_journal_keep": int(_env("RUN_JOURNAL_KEEP", "4")),
+    # Kernel-ledger timing mode (utils/xprof.py): every kernel call is
+    # bracketed by CUDA events and synchronised, so the ledger holds device
+    # seconds per call. A measurement mode: it serialises the host and the
+    # card. Off by default.
+    "device_timing": _env("DEVICE_TIMING", "false").lower() not in ("0", "false", "off"),
+    # Journal events the daemon's in-memory ring holds (trace_pull and the
+    # flight recorder read it); 0 = no ring.
+    "telemetry_trace_buffer": int(_env("TELEMETRY_TRACE_BUFFER", "4096")),
+    # Histogram exemplar freshness window (utils/metrics.py).
+    "telemetry_exemplar_window_s": float(_env("TELEMETRY_EXEMPLAR_WINDOW_S", "60.0")),
+    # The daemon's telemetry thread cadence (SLO burn rates, incident
+    # triggers); 0 = no thread (the pull ops still answer).
+    "telemetry_eval_interval_s": float(_env("TELEMETRY_EVAL_INTERVAL_S", "1.0")),
+    # Declared per-op objectives, "<op>:<kind>[=<target>][@<budget>]" with
+    # kind p99_ms|error|shed, semicolon-separated (utils/slo.py).
+    "slo_objectives": _env("SLO_OBJECTIVES", ""),
+    # The burn-rate windows (a breach needs both over the threshold).
+    "slo_fast_window_s": float(_env("SLO_FAST_WINDOW_S", "60.0")),
+    "slo_slow_window_s": float(_env("SLO_SLOW_WINDOW_S", "300.0")),
+    "slo_burn_threshold": float(_env("SLO_BURN_THRESHOLD", "14.4")),
+    # The flight recorder (utils/flight.py): bundles kept under
+    # state_dir/incidents (0 = none written), the per-reason debounce, the
+    # automatic trigger rates per second (0 = off), and a bundle at SIGTERM
+    # or exit.
+    "incident_max_bundles": int(_env("INCIDENT_MAX_BUNDLES", "16")),
+    "incident_min_interval_s": float(_env("INCIDENT_MIN_INTERVAL_S", "30.0")),
+    "incident_shed_rate": float(_env("INCIDENT_SHED_RATE", "0.0")),
+    "incident_deadline_rate": float(_env("INCIDENT_DEADLINE_RATE", "0.0")),
+    "incident_on_fatal": _env("INCIDENT_ON_FATAL", "false").lower()
+    not in ("0", "false", "off"),
 }
 
 _lock = threading.Lock()

@@ -7,6 +7,10 @@ of the source, the shared headers (``csrc/*.cuh``) and the flags, and
 loaded with ``ctypes``. A second process,
 or a later run, finds the library already built. Nothing here runs on
 import: the CPU-only machines that run the tests have no ``nvcc``.
+
+The kernel ledger (``utils/xprof.py``) books a build's seconds to the
+kernel whose call built the library (a compile), and counts a library
+found already built (a persistent-cache hit).
 """
 
 from __future__ import annotations
@@ -19,8 +23,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List
+
+from spark_rapids_ml_tpu_torch.utils import xprof
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = [
@@ -67,6 +74,7 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
     out = library_path(name)
     if out.exists():
+        xprof.note_cache_hit()
         return out
     compiler = nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -74,6 +82,7 @@ def build(name: str) -> Path:
     os.close(fd)
     cmd: List[str] = [compiler, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     try:
+        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -81,6 +90,7 @@ def build(name: str) -> Path:
             )
         BUILD_LOGS[name] = proc.stderr
         os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+        xprof.note_compile(time.perf_counter() - t0)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

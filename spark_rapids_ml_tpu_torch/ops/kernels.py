@@ -55,7 +55,10 @@ wrapper takes its plain PyTorch
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises — there is no fallback. Each launch adds one to
 :data:`LAUNCHES` (and, for the eight routed kernels, to :data:`ROUTES`),
-so a run can show that it went through the kernels. The
+so a run can show that it went through the kernels, and records
+the call in the kernel ledger (``utils/xprof.py``) under its kernel's name
+and route, with the call's bound operation and byte counts; a CPU call of
+the plain version records under route ``plain`` (and counts no launch). The
 plain versions repeat the kernels' arithmetic (f32 products of the input
 values, f32 sums; TF32 is off for the whole package, see ``__init__``;
 ties of the nearest centre to the lowest index; the selections of
@@ -73,6 +76,7 @@ import torch
 from spark_rapids_ml_tpu_torch.ops import _build
 from spark_rapids_ml_tpu_torch.ops import selection as sel
 from spark_rapids_ml_tpu_torch.ops.distances import DIST_TOPK_MAX_K, first_argmin
+from spark_rapids_ml_tpu_torch.utils import xprof
 
 #: Kernel launches by wrapper name (the plain versions do not count).
 LAUNCHES = {"gram": 0, "gram_colsum": 0, "linreg_stats": 0, "lloyd_step": 0,
@@ -129,6 +133,12 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, ROUTES):
         for name in counts:
             counts[name] = 0
+
+
+def _ledger(name: str, route: str, device: torch.device, flops: float, nbytes: float,
+            *sig_args):
+    """The kernel ledger's record of one call (``utils/xprof.kernel``)."""
+    return xprof.kernel(name, route, sig_args, flops, nbytes, device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -395,19 +405,24 @@ def gram(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     n, d = x.shape
     if mask is not None:
         _check_f32(mask, (n,), x.device, "mask")
+    # Bound counts: x (and the mask) read, G written; nd(d+1) for the
+    # symmetric G.
+    work = (n * d * (d + 1), n * d * x.element_size() + (0 if mask is None else 4 * n) + 4 * d * d,
+            x, mask)
     if x.device.type == "cpu":
-        return gram_plain(x, mask)
+        with _ledger("gram", "plain", x.device, *work):
+            return gram_plain(x, mask)
     xp, is_bf16 = _launch_args(x)
     out = torch.zeros((d, d), dtype=torch.float32, device=x.device)
     route = gram_route(x, out, masked=mask is not None)
-    with torch.cuda.device(x.device):
+    with _ledger("gram", route, x.device, *work), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":
             rc = _lib().srml_gram_tc(xp, n, d, *_tc_plan_args(x, n), out.data_ptr(), stream)
         else:
             rc = _lib().srml_gram(xp, is_bf16, None if mask is None else mask.data_ptr(), n, d,
                                   *_ffma_plan_args(x, n), out.data_ptr(), stream)
-    _raise_on(rc, "gram")
+        _raise_on(rc, "gram")
     LAUNCHES["gram"] += 1
     ROUTES[f"gram/{route}"] += 1
     return out
@@ -456,26 +471,32 @@ def gram_colsum(
     if state is not None:
         for t, shape, name in zip(state, ((d, d), (d,), ()), ("gram", "colsum", "count")):
             _check_f32(t, shape, x.device, name)
+    # Bound counts over the rows folded: x read, the state read and written
+    # (written only, when fresh); nd(d+1) for the symmetric G, nd for Σx.
+    r = min(n, max(int(n_valid), 0))
+    work = (r * d * (d + 1) + r * d,
+            r * d * x.element_size() + (1 if state is None else 2) * 4 * (d * d + d + 1),
+            x, r, state is not None)
     if x.device.type == "cpu":
-        return gram_colsum_plain(x, n_valid, state)
+        with _ledger("gram_colsum", "plain", x.device, *work):
+            return gram_colsum_plain(x, n_valid, state)
     xp, is_bf16 = _launch_args(x)
     g, cs, c = _zero_state(d, x.device) if state is None else state
     route = gram_route(x, g)
-    with torch.cuda.device(x.device):
+    with _ledger("gram_colsum", route, x.device, *work), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":
-            rows = min(n, max(int(n_valid), 0))
             rc = _lib().srml_gram_colsum_tc(
-                xp, n, d, int(n_valid), *_tc_plan_args(x, rows), g.data_ptr(), cs.data_ptr(),
+                xp, n, d, int(n_valid), *_tc_plan_args(x, r), g.data_ptr(), cs.data_ptr(),
                 c.data_ptr(), stream,
             )
         else:
             rc = _lib().srml_gram_colsum(
                 xp, is_bf16, n, d, int(n_valid),
-                *_ffma_plan_args(x, min(n, max(int(n_valid), 0))), g.data_ptr(), cs.data_ptr(),
+                *_ffma_plan_args(x, r), g.data_ptr(), cs.data_ptr(),
                 c.data_ptr(), stream,
             )
-    _raise_on(rc, "gram_colsum")
+        _raise_on(rc, "gram_colsum")
     LAUNCHES["gram_colsum"] += 1
     ROUTES[f"gram_colsum/{route}"] += 1
     return g, cs, c
@@ -536,15 +557,23 @@ def linreg_stats(
         shapes = ((d, d), (d,), (d,), (), (), ())
         for t, shape, name in zip(state, shapes, ("xtx", "xty", "sx", "sy", "syy", "n")):
             _check_f32(t, shape, x.device, name)
+    # Bound counts: x, y (and the mask) read, the state read and written
+    # (written only, when fresh); nd(d+1) for the symmetric XᵀX, 3nd for
+    # Xᵀy and Σx.
+    work = (n * d * (d + 1) + 3 * n * d,
+            n * d * x.element_size() + 4 * n + (0 if mask is None else 4 * n)
+            + (1 if state is None else 2) * (4 * (d * d + 2 * d) + 12),
+            x, mask, state is not None)
     if x.device.type == "cpu":
-        return linreg_stats_plain(x, y, mask, state)
+        with _ledger("linreg_stats", "plain", x.device, *work):
+            return linreg_stats_plain(x, y, mask, state)
     xp, is_bf16 = _launch_args(x)
     out = _zero_linreg_state(d, x.device) if state is None else state
     xtx, xty, sx, sy, syy, cnt = out
     rows = torch.zeros((), dtype=torch.int64, device=x.device)
     route = gram_route(x, xtx)
     mp = None if mask is None else mask.data_ptr()
-    with torch.cuda.device(x.device):
+    with _ledger("linreg_stats", route, x.device, *work), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":
             rc = _lib().srml_linreg_stats_tc(
@@ -558,7 +587,7 @@ def linreg_stats(
                 xty.data_ptr(), sx.data_ptr(), sy.data_ptr(), syy.data_ptr(), rows.data_ptr(),
                 stream,
             )
-    _raise_on(rc, "linreg_stats")
+        _raise_on(rc, "linreg_stats")
     LAUNCHES["linreg_stats"] += 1
     ROUTES[f"linreg_stats/{route}"] += 1
     cnt.add_(rows)  # one rounding of the exact integer count into the f32 state
@@ -768,18 +797,24 @@ def lloyd_step(x: torch.Tensor, centers: torch.Tensor, n_valid: int):
     artefacts the port does not carry over."""
     _check_x(x)
     _check_centers(x, centers)
-    if x.device.type == "cpu":
-        return lloyd_step_plain(x, centers, n_valid)
     n, d = x.shape
     k = centers.shape[0]
     rows = min(n, max(int(n_valid), 0))
+    # Bound counts over the rows assigned: x and the centres read, sums and
+    # counts written; 2nkd for the distances, nd adds for the sums.
+    work = (2 * rows * k * d + rows * d,
+            rows * d * x.element_size() + k * d * centers.element_size() + 4 * k * d + 8 * k,
+            x, centers, rows)
+    if x.device.type == "cpu":
+        with _ledger("lloyd_step", "plain", x.device, *work):
+            return lloyd_step_plain(x, centers, n_valid)
     xp, is_bf16 = _launch_args(x)
     sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
     counts = torch.zeros((k,), dtype=torch.int64, device=x.device)
     route = kmeans_route(x, centers, sums)
     plan = kmeans_plan(k, d, route, rows, _sm_count(x.device))
-    lib = _kmeans_lib()
-    with torch.cuda.device(x.device):
+    with _ledger("lloyd_step", route, x.device, *work), torch.cuda.device(x.device):
+        lib = _kmeans_lib()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if plan.fused:
             c2h = center_norms(centers, half=True)
@@ -803,7 +838,7 @@ def lloyd_step(x: torch.Tensor, centers: torch.Tensor, n_valid: int):
                     xp, is_bf16, idx.data_ptr(), rows, d, k, plan.slab, plan.kchunk, plan.splits,
                     sums.data_ptr(), counts.data_ptr(), stream,
                 )
-    _raise_on(rc, "lloyd_step")
+        _raise_on(rc, "lloyd_step")
     LAUNCHES["lloyd_step"] += 1
     ROUTES[f"lloyd_step/{route}"] += 1
     return sums, counts.float()
@@ -847,19 +882,23 @@ def assign_min_dist(x: torch.Tensor, centers: torch.Tensor):
     (:func:`kmeans_route`) picks the body."""
     _check_x(x)
     _check_centers(x, centers)
-    if x.device.type == "cpu":
-        return assign_min_dist_plain(x, centers)
     m, d = x.shape
     k = centers.shape[0]
+    # Bound counts: x and the centres read, two (m,) outputs written; 2mkd.
+    work = (2 * m * k * d, m * d * x.element_size() + k * d * centers.element_size() + 8 * m,
+            x, centers)
+    if x.device.type == "cpu":
+        with _ledger("assign_min_dist", "plain", x.device, *work):
+            return assign_min_dist_plain(x, centers)
     _launch_args(x)
     idx = torch.empty((m,), dtype=torch.int32, device=x.device)
     dist = torch.empty((m,), dtype=torch.float32, device=x.device)
     route = kmeans_route(x, centers, idx, dist)
     plan = kmeans_plan(k, d, route, m, _sm_count(x.device), lloyd=False)
-    with torch.cuda.device(x.device):
+    with _ledger("assign_min_dist", route, x.device, *work), torch.cuda.device(x.device):
         rc = _assign_launch(_kmeans_lib(), route, plan, x, centers, m, idx, dist,
                             torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(rc, "assign_min_dist")
+        _raise_on(rc, "assign_min_dist")
     LAUNCHES["assign_min_dist"] += 1
     ROUTES[f"assign_min_dist/{route}"] += 1
     return idx, dist
@@ -917,8 +956,19 @@ def newton_stats(
     _check_f32(w, (d,), x.device, "w")
     _check_f32(b, (), x.device, "b")
     if x.device.type == "cpu":
-        return newton_stats_plain(x, y, mask, w, b)
+        with _ledger("newton_stats", "plain", x.device, *_newton_work(x, mask)):
+            return newton_stats_plain(x, y, mask, w, b)
     return newton_stats_launch(x, y, mask, w, b)[:5]
+
+
+def _newton_work(x, mask):
+    """Bound counts of a Newton pass: x, y, w, b (and the mask) read, the
+    five sums written; nd(d+1) for the symmetric Hessian, 6nd for x·w, Xᵀr
+    and Xᵀwgt."""
+    n, d = x.shape
+    return (n * d * (d + 1) + 6 * n * d,
+            n * d * x.element_size() + 4 * n + (0 if mask is None else 4 * n) + 4 * d + 4
+            + 4 * (d * d + 2 * d + 2), x, mask)
 
 
 def newton_stats_launch(x, y, mask, w, b):
@@ -935,7 +985,8 @@ def newton_stats_launch(x, y, mask, w, b):
     mp = None if mask is None else mask.data_ptr()
     outs = (resid.data_ptr(), wgt.data_ptr(), gw.data_ptr(), gb.data_ptr(), hww.data_ptr(),
             hwb.data_ptr(), hbb.data_ptr())
-    with torch.cuda.device(x.device):
+    with _ledger("newton_stats", route, x.device, *_newton_work(x, mask)), \
+            torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":
             rc = _lib().srml_newton_stats_tc(
@@ -947,7 +998,7 @@ def newton_stats_launch(x, y, mask, w, b):
                 xp, is_bf16, y.data_ptr(), mp, w.data_ptr(), b.data_ptr(), n, d,
                 *_ffma_plan_args(x, n), *outs, stream,
             )
-    _raise_on(rc, "newton_stats")
+        _raise_on(rc, "newton_stats")
     LAUNCHES["newton_stats"] += 1
     ROUTES[f"newton_stats/{route}"] += 1
     return gw, gb, hww, hwb, hbb, resid, wgt
@@ -977,14 +1028,19 @@ def softmax_curvature(x: torch.Tensor, p: torch.Tensor):
     if p.dim() != 2 or p.shape[0] != n or not 1 <= p.shape[1] <= 65535:
         raise ValueError(f"p must be an ({n}, C) matrix with 1 <= C <= 65535, got {tuple(p.shape)}")
     _check_f32(p, tuple(p.shape), x.device, "p")
-    if x.device.type == "cpu":
-        return softmax_curvature_plain(x, p)
     n_classes = p.shape[1]
+    # Bound counts: x and p read, the (C, d, d) and (C, d) sums written;
+    # C·nd(d+1) for the symmetric blocks, 2Cnd for Xᵀp_c.
+    work = (n_classes * n * d * (d + 1) + 2 * n_classes * n * d,
+            n * d * x.element_size() + 4 * n * n_classes + 4 * n_classes * (d * d + d), x, p)
+    if x.device.type == "cpu":
+        with _ledger("softmax_curvature", "plain", x.device, *work):
+            return softmax_curvature_plain(x, p)
     xp, is_bf16 = _launch_args(x)
     hw = torch.zeros((n_classes, d, d), dtype=torch.float32, device=x.device)
     hwb = torch.zeros((n_classes, d), dtype=torch.float32, device=x.device)
     route = gram_route(x, hw)
-    with torch.cuda.device(x.device):
+    with _ledger("softmax_curvature", route, x.device, *work), torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":
             pt = p.T.contiguous()  # (C, n): a stage's weights of one class are contiguous
@@ -997,7 +1053,7 @@ def softmax_curvature(x: torch.Tensor, p: torch.Tensor):
                 xp, is_bf16, p.data_ptr(), n, d, n_classes, *_ffma_plan_args(x, n, n_classes),
                 hw.data_ptr(), hwb.data_ptr(), stream,
             )
-    _raise_on(rc, "softmax_curvature")
+        _raise_on(rc, "softmax_curvature")
     LAUNCHES["softmax_curvature"] += 1
     ROUTES[f"softmax_curvature/{route}"] += 1
     return hw, hwb
@@ -1148,9 +1204,13 @@ def dist_topk(queries: torch.Tensor, db: torch.Tensor, row_ids: torch.Tensor,
     _check_f32(mask, (m,), db.device, "mask")
     if r2 is not None:
         _check_f32(r2, (m,), db.device, "r2")
-    if db.device.type == "cpu":
-        return dist_topk_plain(queries, db, row_ids, mask, k, r2)
     nq = queries.shape[0]
+    # Bound counts: the queries, the rows, their ids and mask read, the
+    # (q, k) distances and ids written; 2qmd.
+    work = (2 * nq * m * d, (nq + m) * d * db.element_size() + 8 * m + 8 * nq * k, queries, db, k)
+    if db.device.type == "cpu":
+        with _ledger("dist_topk", "plain", db.device, *work):
+            return dist_topk_plain(queries, db, row_ids, mask, k, r2)
     q2 = row_sq_norms(queries)
     r2 = dist_topk_norms(db, mask) if r2 is None else r2
     sms = _sm_count(db.device)
@@ -1160,7 +1220,7 @@ def dist_topk(queries: torch.Tensor, db: torch.Tensor, row_ids: torch.Tensor,
     ids = row_ids.contiguous()
     route = topk_route(qc, db, k)
     out = torch.empty((nq, k, 2), dtype=torch.float32, device=db.device)
-    with torch.cuda.device(db.device):
+    with _ledger("dist_topk", route, db.device, *work), torch.cuda.device(db.device):
         stream = torch.cuda.current_stream(db.device).cuda_stream
         if route == "wgmma":
             splits = topk_splits(nq, m, sms)
@@ -1178,7 +1238,7 @@ def dist_topk(queries: torch.Tensor, db: torch.Tensor, row_ids: torch.Tensor,
                 qp, dbp, is_bf16, q2.data_ptr(), r2.data_ptr(), ids.data_ptr(), nq, m, d, k,
                 splits, None if part is None else part.data_ptr(), out.data_ptr(), stream,
             )
-    _raise_on(rc, "dist_topk")
+        _raise_on(rc, "dist_topk")
     LAUNCHES["dist_topk"] += 1
     ROUTES[f"dist_topk/{route}"] += 1
     return out[..., 0].contiguous(), out[..., 1].view(torch.int32).contiguous()
@@ -1255,16 +1315,23 @@ def probe_select(centroids: torch.Tensor, queries: torch.Tensor, nprobe: int):
     ascending, floored values (q, nprobe) f32). nlist ≤ 65,536. The route:
     :func:`probe_route`."""
     _check_probe(centroids, queries, nprobe)
-    if queries.device.type == "cpu":
-        return probe_select_plain(centroids, queries, nprobe)
     nlist, d = centroids.shape
     nq = queries.shape[0]
+    # Bound counts: the centroids and queries read, the (q, nprobe) ids and
+    # values written; 2·q·nlist·d.
+    work = (2 * nq * nlist * d,
+            (nlist * centroids.element_size() + nq * queries.element_size()) * d
+            + 8 * nq * nprobe,
+            centroids, queries, nprobe)
+    if queries.device.type == "cpu":
+        with _ledger("probe_select", "plain", queries.device, *work):
+            return probe_select_plain(centroids, queries, nprobe)
     pos_bits = sel.pos_bits_for(nlist)
     cent, qs = centroids.contiguous(), queries.contiguous()
     route = probe_route(nlist, nprobe)
     out_p = torch.empty((nq, nprobe), dtype=torch.int32, device=qs.device)
     out_d = torch.empty((nq, nprobe), dtype=torch.float32, device=qs.device)
-    with torch.cuda.device(qs.device):
+    with _ledger("probe_select", route, qs.device, *work), torch.cuda.device(qs.device):
         stream = torch.cuda.current_stream(qs.device).cuda_stream
         if route == "fused":
             q_tiles = -(-nq // PROBE_TILE)
@@ -1283,7 +1350,7 @@ def probe_select(centroids: torch.Tensor, queries: torch.Tensor, nprobe: int):
                 cent.data_ptr(), c2.data_ptr(), qs.data_ptr(), q2.data_ptr(), nq, nlist, d,
                 nprobe, pos_bits, p, keys.data_ptr(), out_p.data_ptr(), out_d.data_ptr(), stream,
             )
-    _raise_on(rc, "probe_select")
+        _raise_on(rc, "probe_select")
     LAUNCHES["probe_select"] += 1
     ROUTES[f"probe_select/{route}"] += 1
     return out_p, out_d
@@ -1386,21 +1453,29 @@ def ivf_scan_select(qv: torch.Tensor, rows: torch.Tensor, r2: torch.Tensor, blk_
     the tensor-core scoring body with a packed-key top-k epilogue, else
     the FFMA tiles; both give the same bits (the keys are unique)."""
     _check_scan(qv, rows, r2, blk_k)
-    if qv.device.type == "cpu":
-        return ivf_scan_select_plain(qv, rows, r2, blk_k)
     nlist, n_slots, d = qv.shape
     maxlen = rows.shape[1]
-    pos_bits = sel.pos_bits_for(maxlen)
     bk_pad = sel.ceil_to(blk_k, 8)
+    # Bound counts: the query residuals, the list rows and their norms read,
+    # the (nlist, bk_pad, C) values and positions written;
+    # 2·nlist·C·maxlen·d.
+    work = (2 * nlist * n_slots * maxlen * d,
+            (qv.numel() + rows.numel()) * qv.element_size() + 4 * r2.numel()
+            + 8 * nlist * bk_pad * n_slots,
+            qv, rows, blk_k)
+    if qv.device.type == "cpu":
+        with _ledger("ivf_scan_select", "plain", qv.device, *work):
+            return ivf_scan_select_plain(qv, rows, r2, blk_k)
+    pos_bits = sel.pos_bits_for(maxlen)
     qvc = qv.contiguous()  # held until the launch is queued
     qvp, is_bf16 = _launch_args(qvc)
     rp, _ = _launch_args(rows)
     r2c = r2.contiguous()
-    lib = _knn_lib()
     route = scan_route(qvc, rows, blk_k)
     out_d = torch.empty((nlist, bk_pad, n_slots), dtype=torch.float32, device=qv.device)
     out_p = torch.empty((nlist, bk_pad, n_slots), dtype=torch.int32, device=qv.device)
-    with torch.cuda.device(qv.device):
+    with _ledger("ivf_scan_select", route, qv.device, *work), torch.cuda.device(qv.device):
+        lib = _knn_lib()
         stream = torch.cuda.current_stream(qv.device).cuda_stream
         if route == "wgmma":
             rc = lib.srml_ivf_scan_select_tc(
@@ -1415,7 +1490,7 @@ def ivf_scan_select(qv: torch.Tensor, rows: torch.Tensor, r2: torch.Tensor, blk_
                 pos_bits, None if scratch is None else scratch.data_ptr(), out_d.data_ptr(),
                 out_p.data_ptr(), stream,
             )
-    _raise_on(rc, "ivf_scan_select")
+        _raise_on(rc, "ivf_scan_select")
     LAUNCHES["ivf_scan_select"] += 1
     ROUTES[f"ivf_scan_select/{route}"] += 1
     return out_d, out_p

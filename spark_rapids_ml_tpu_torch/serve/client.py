@@ -36,6 +36,13 @@ The healing loop counts what it does in the process-wide metrics registry
 (``srml_client_*_total``; per-client deltas in ``stats``), and an injected
 fault (utils/faults.py; the ``client.connect`` and ``client.op`` sites are
 here) that it absorbs counts as a fault trip.
+
+Distributed tracing: every op carries the additive ``trace_ctx`` field,
+the constructor's fixed context or else the calling thread's innermost
+journal frame (``utils/journal.py``), so the daemon's spans parent into
+the caller's run; outside any run, with no fixed context, nothing is
+stamped and the wire bytes are the untraced ones. ``trace_pull`` and
+``telemetry_pull`` read the daemon's journal ring and its telemetry.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import numpy as np
 
 from spark_rapids_ml_tpu_torch.serve import protocol
 from spark_rapids_ml_tpu_torch.utils import faults
+from spark_rapids_ml_tpu_torch.utils import journal
 from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
 from spark_rapids_ml_tpu_torch.utils.retry import decorrelated_jitter
@@ -103,13 +111,18 @@ class DataPlaneClient:
         backoff_base_s: float = 0.05,
         backoff_max_s: float = 2.0,
         max_busy_wait_s: Optional[float] = None,
+        trace_ctx: Optional[Dict[str, str]] = None,
     ):
         """``timeout`` bounds one socket syscall; ``op_deadline_s`` bounds
         one whole op including every reconnect, replay and busy wait (None:
         the attempts alone bound it); ``max_op_attempts`` counts connection
         failures per op; ``max_busy_wait_s`` caps the busy waiting of one
         op: by default 60 s when no deadline is set and the deadline alone
-        otherwise, and an explicit value always applies."""
+        otherwise, and an explicit value always applies. ``trace_ctx``: a
+        fixed ``{"run", "span"}`` context stamped on every op (how a Spark
+        task, whose process never opened the driver's run, parents the
+        daemon's spans into it); None stamps the calling thread's journal
+        frame, if any."""
         self._addr = (host, int(port))
         self._timeout = timeout
         self._token = token
@@ -120,6 +133,7 @@ class DataPlaneClient:
         self._backoff_max = backoff_max_s
         self._busy_wait_explicit = max_busy_wait_s is not None
         self._max_busy_wait = 60.0 if max_busy_wait_s is None else float(max_busy_wait_s)
+        self._trace_ctx = trace_ctx
         self._rng = random.Random()
         # Feed idempotency nonce: a replayed op carries the same id.
         self._nonce = uuid.uuid4().hex[:12]
@@ -225,6 +239,11 @@ class DataPlaneClient:
         want_arrays: bool = False,
     ):
         """Run one op through the self-healing loop (module docstring)."""
+        # Stamped once, outside the retry loop: a replay carries the first
+        # attempt's context.
+        tc = self._trace_ctx or journal.trace_ctx()
+        if tc:
+            req = {**req, "trace_ctx": tc}
         start = time.monotonic()
         deadline = None if self._op_deadline is None else start + self._op_deadline
         attempt = 0
@@ -338,6 +357,22 @@ class DataPlaneClient:
         if format == "prometheus":
             return str(resp.get("text", ""))
         return resp.get("metrics", {})
+
+    def telemetry_pull(self) -> Dict[str, Any]:
+        """The daemon's telemetry in one cursor-free answer: ``text``
+        (OpenMetrics with per-bucket exemplars), ``metrics`` (the JSON
+        snapshot), ``xprof`` (the kernel ledger), ``fingerprint`` (the
+        config fingerprint), with its identity and ``uptime_s``."""
+        resp, _ = self._roundtrip({"op": "telemetry_pull"})
+        return {k: v for k, v in resp.items() if k != "ok"}
+
+    def trace_pull(self, cursor: int = 0) -> Dict[str, Any]:
+        """Journal events of the daemon's ring with ``seq`` above
+        ``cursor``: ``{"events": [...], "seq": N, "id", "boot_id"}``. Pass the
+        returned ``seq`` as the next cursor to stream without duplicates;
+        start again from 0 when ``boot_id`` changes."""
+        resp, _ = self._roundtrip({"op": "trace_pull", "cursor": int(cursor)})
+        return {k: v for k, v in resp.items() if k != "ok"}
 
     @staticmethod
     def _to_ipc(data, input_col: str, label_col: str = "label") -> bytes:

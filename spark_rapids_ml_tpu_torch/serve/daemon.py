@@ -106,16 +106,32 @@ mesh epoch) and ``metrics`` (the registry, as JSON or Prometheus text) are
 never shed; every request is counted by op and outcome, with its latency
 and its payload bytes.
 
-Left for later slices of the port (ROADMAP Queue 1 item 7a): durable
-``state_dir`` snapshots (``health`` reports ``durable: false``), and the
-journal, ``trace_pull`` and ``telemetry_pull`` (answered "unknown op" with
-their payload drained). A feed naming an unknown ``algo``, or an
-``ensure_model`` naming an unknown model, is refused before a job or model
-is registered.
+The telemetry plane, as in the reference: each dispatched op adopts the
+request's ``trace_ctx`` (a ``{"run", "span"}`` frame the client stamps) and
+runs inside a ``daemon.<op>`` journal span (``utils/journal.py``; the
+liveness and scrape ops of ``_UNJOURNALED_OPS`` excepted), so one fit's
+driver, tasks and daemons journal one tree; the span's identity is the
+exemplar of the request's latency sample. ``start()`` arms the journal's
+in-memory ring (``telemetry_trace_buffer`` events), installs a flight
+recorder (``utils/flight.py``) as the process default, subscribed to fired
+fault sites, and runs a telemetry thread every ``telemetry_eval_interval_s``
+(SLO burn rates, ``utils/slo.py``; the ``slo_breach``, ``shed_storm`` and
+``deadline_breach`` triggers). ``trace_pull`` streams the ring from a
+cursor; ``telemetry_pull`` answers the registry as OpenMetrics text with
+exemplars and as JSON, the kernel ledger (``utils/xprof.py``) and the
+config fingerprint. Neither is shed or journaled.
+
+Left for a later slice of the port (ROADMAP Queue 1 item 7a-ii): durable
+``state_dir`` snapshots (``health`` reports ``durable: false``); until
+then the flight recorder has no ``state_dir`` and writes no bundle, as a
+reference daemon started without one. A feed naming an unknown ``algo``, or
+an ``ensure_model`` naming an unknown model, is refused before a job or
+model is registered.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hmac
 import math
 import socket
@@ -143,7 +159,11 @@ from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_devic
 from spark_rapids_ml_tpu_torch.serve import protocol
 from spark_rapids_ml_tpu_torch.serve import scheduler as scheduler_mod
 from spark_rapids_ml_tpu_torch.utils import faults
+from spark_rapids_ml_tpu_torch.utils import flight as flight_mod
+from spark_rapids_ml_tpu_torch.utils import journal
 from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
+from spark_rapids_ml_tpu_torch.utils import slo as slo_mod
+from spark_rapids_ml_tpu_torch.utils import xprof as xprof_mod
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
@@ -184,13 +204,40 @@ _KNOWN_OPS = frozenset((
     "commit", "step", "finalize", "drop", "export_state", "merge_state",
     "get_iterate", "set_iterate", "ensure_model", "transform",
     "kneighbors", "model_status", "drop_model", "warmup", "sample_rows",
-    "mesh_info", "reduce_mesh",
+    "mesh_info", "reduce_mesh", "telemetry_pull", "trace_pull",
 ))
 
 
 def _op_label(op) -> str:
     op = str(op)
     return op if op in _KNOWN_OPS else "unknown"
+
+
+#: Ops that never open a journal span, even with the journal on: O(1)
+#: liveness probes and scrapes, which would bury a fit's tree under
+#: polling noise.
+_UNJOURNALED_OPS = frozenset((
+    "ping", "health", "metrics", "model_status", "telemetry_pull", "trace_pull",
+))
+
+
+@contextlib.contextmanager
+def _op_trace(op: str, req: Dict[str, Any]):
+    """Adopt the request's ``trace_ctx`` around one dispatched op, so the op
+    span opened here, and every ``trace_span`` the op runs, parent into the
+    caller's run; without a context the span roots itself, and with the
+    journal and the ring off this is an early return. Yields the op span's
+    ``{"run", "span"}`` identity (None when unjournaled): the latency
+    histogram keeps it as the sample's exemplar."""
+    tc = req.get("trace_ctx")
+    tc = tc if isinstance(tc, dict) else {}
+    with journal.adopt(tc.get("run"), tc.get("span")):
+        if op not in _UNJOURNALED_OPS and journal.active():
+            fields = {k: req[k] for k in ("job", "model") if req.get(k) is not None}
+            with journal.span(f"daemon.{op}", **fields):
+                yield journal.trace_ctx()
+        else:
+            yield None
 
 
 #: Daemon telemetry: the JAX package's names, labels and help texts. The
@@ -1498,6 +1545,17 @@ class DataPlaneDaemon:
         self._sock: Optional[socket.socket] = None
         self._accept_thread: Optional[threading.Thread] = None
         self._reaper_thread: Optional[threading.Thread] = None
+        # The telemetry plane: the journal ring's size, the evaluation
+        # thread's cadence (0: no thread; the pull ops still answer), the
+        # flight recorder and the SLO evaluator (built at start()).
+        self._trace_buffer = int(config.get("telemetry_trace_buffer") or 0)
+        self._telemetry_eval_s = float(config.get("telemetry_eval_interval_s") or 0.0)
+        self._telemetry_thread: Optional[threading.Thread] = None
+        self._flight: Optional[flight_mod.FlightRecorder] = None
+        self._slo: Optional[slo_mod.SloEvaluator] = None
+        self._last_telemetry_ts: Optional[float] = None
+        self._prev_deadline_sheds = 0.0
+        self._ring_armed = False
         self._stop = threading.Event()
 
     # -- lifecycle ---------------------------------------------------------
@@ -1528,6 +1586,31 @@ class DataPlaneDaemon:
         # registration bumps the membership epoch, so a collective reduce
         # planned before it re-reads mesh_info.
         membership_mod.registry().register(self.instance_id, self.boot_id, self)
+        # The telemetry plane: the journal ring (trace_pull's and the
+        # recorder's events, with or without a journal file), the flight
+        # recorder as the process default, subscribed to fired fault sites,
+        # and the evaluation thread. No state_dir until ROADMAP 7a-ii: the
+        # recorder then writes no bundle, as a reference daemon without one.
+        if self._trace_buffer > 0:
+            journal.ring_arm(self._trace_buffer)
+            self._ring_armed = True
+        adv_host = "127.0.0.1" if self._host in ("0.0.0.0", "::", "") else self._host
+        self._flight = flight_mod.FlightRecorder(
+            state_dir=None,
+            providers={
+                "identity": lambda: {**self._identity(), "addr": f"{adv_host}:{self._port}"},
+                "gossip": lambda: None,
+            },
+        )
+        flight_mod.set_default(self._flight)
+        faults.subscribe(self._flight.on_fault)
+        self._flight.arm_fatal()
+        self._slo = slo_mod.SloEvaluator()
+        if self._telemetry_eval_s > 0:
+            self._telemetry_thread = threading.Thread(
+                target=self._telemetry_loop, name="srml-dataplane-telemetry", daemon=True
+            )
+            self._telemetry_thread.start()
         logger.info("data-plane daemon listening on %s:%d (%s)", self._host,
                     self._port, self._device)
         return self
@@ -1593,6 +1676,65 @@ class DataPlaneDaemon:
             self._accept_thread.join(timeout=5)
         if self._reaper_thread is not None:
             self._reaper_thread.join(timeout=5)
+        # After the connection threads: their trailing journal lines (the op
+        # span is written after the ack) land in the ring before it goes.
+        if self._telemetry_thread is not None:
+            self._telemetry_thread.join(timeout=5)
+        if self._flight is not None:
+            faults.unsubscribe(self._flight.on_fault)
+            flight_mod.set_default(None)
+        if self._ring_armed:
+            journal.ring_disarm()
+            self._ring_armed = False
+
+    # -- telemetry evaluation ----------------------------------------------
+
+    def _telemetry_loop(self) -> None:
+        """Each tick: the registry snapshot, the SLO burn rates (the
+        ``srml_slo_*`` gauges), the flight recorder's rolling delta and its
+        automatic triggers. Host arithmetic only: it takes neither
+        ``_DEVICE_LOCK`` nor a job lock, so it cannot stall traffic."""
+        while not self._stop.wait(self._telemetry_eval_s):
+            try:
+                self._telemetry_tick()
+            except Exception:
+                logger.exception("telemetry tick failed")
+
+    def _telemetry_tick(self) -> None:
+        now = time.time()
+        elapsed = (now - self._last_telemetry_ts if self._last_telemetry_ts is not None
+                   else self._telemetry_eval_s)
+        # Single writer: only the telemetry thread ticks.
+        self._last_telemetry_ts = now
+        elapsed = max(elapsed, 1e-6)
+        snap = metrics_mod.snapshot()
+        deltas = self._flight.observe(snap, now) if self._flight else {}
+        # SLO burn rates: a breach is itself a flight-recorder trigger.
+        if self._slo is not None and self._slo.objectives:
+            evals = self._slo.tick(snap, now)
+            breaches = [e["objective"] for e in evals if e["breach"]]
+            if breaches and self._flight is not None:
+                self._flight.trigger("slo_breach", {"objectives": breaches})
+        if self._flight is None:
+            return
+        # Shed storm: sheds a second over the tick, across ops.
+        shed_cap = float(config.get("incident_shed_rate") or 0.0)
+        if shed_cap > 0:
+            sheds = sum(d["shed"] for d in deltas.values())
+            if sheds / elapsed >= shed_cap:
+                self._flight.trigger("shed_storm", {"sheds": sheds, "window_s": elapsed})
+        # Deadline breaches: scheduler sheds with reason="deadline" (requests
+        # whose deadline the backlog would miss), a second over the tick.
+        dl_cap = float(config.get("incident_deadline_rate") or 0.0)
+        if dl_cap > 0:
+            dl_now = sum(float(s["value"])
+                         for s in snap.get("srml_scheduler_sheds_total", {}).get("samples", [])
+                         if s["labels"].get("reason") == "deadline")
+            dl_delta = max(0.0, dl_now - self._prev_deadline_sheds)
+            self._prev_deadline_sheds = dl_now
+            if dl_delta / elapsed >= dl_cap:
+                self._flight.trigger("deadline_breach",
+                                     {"breaches": dl_delta, "window_s": elapsed})
 
     def __enter__(self):
         return self.start()
@@ -1704,8 +1846,10 @@ class DataPlaneDaemon:
                 op = _op_label(req.get("op"))
                 t0 = time.perf_counter()
                 outcome = "ok"
+                exemplar = None
                 try:
-                    self._dispatch(conn, req)
+                    with _op_trace(op, req) as exemplar:
+                        self._dispatch(conn, req)
                 except (ConnectionError, TimeoutError):
                     # The CONNECTION broke, not the request: close it rather
                     # than answer on a dead or desynced wire. (PermissionError,
@@ -1721,8 +1865,9 @@ class DataPlaneDaemon:
                         return
                 finally:
                     # Per-op accounting (a shed op counts "ok" here;
-                    # srml_daemon_busy_sheds_total carries the shed).
-                    _M_REQ_SECONDS.observe(time.perf_counter() - t0, op=op)
+                    # srml_daemon_busy_sheds_total carries the shed). The op
+                    # span's identity is the sample's exemplar.
+                    _M_REQ_SECONDS.observe(time.perf_counter() - t0, exemplar=exemplar, op=op)
                     _M_REQUESTS.inc(op=op, outcome=outcome)
 
     def _dispatch(self, conn, req: Dict[str, Any]) -> None:
@@ -1832,6 +1977,10 @@ class DataPlaneDaemon:
             self._op_health(conn)
         elif op == "metrics":
             self._op_metrics(conn, req)
+        elif op == "telemetry_pull":
+            self._op_telemetry_pull(conn)
+        elif op == "trace_pull":
+            self._op_trace_pull(conn, req)
         elif op == "ping":
             protocol.send_json(conn, {"ok": True, "v": protocol.PROTOCOL_VERSION,
                                       **self._identity()})
@@ -1924,6 +2073,38 @@ class DataPlaneDaemon:
             protocol.send_json(conn, {**base, "metrics": metrics_mod.snapshot()})
         else:
             raise ValueError(f"unknown metrics format {fmt!r} (json|prometheus)")
+
+    def _op_telemetry_pull(self, conn) -> None:
+        """Everything a scrape needs in one cursor-free answer: the registry
+        as OpenMetrics text with per-bucket exemplars (``text``) and as the
+        JSON snapshot (``metrics``), the kernel ledger (``xprof``) and the
+        config fingerprint. Never shed, never journaled."""
+        self._refresh_level_gauges()
+        protocol.send_json(conn, {
+            "ok": True,
+            "v": protocol.PROTOCOL_VERSION,
+            **self._identity(),
+            "uptime_s": float(self._clock() - self._started),
+            "text": metrics_mod.render_openmetrics(),
+            "metrics": metrics_mod.snapshot(),
+            "xprof": xprof_mod.snapshot(),
+            "fingerprint": config.fingerprint(),
+        })
+
+    def _op_trace_pull(self, conn, req: Dict[str, Any]) -> None:
+        """The ring's journal events with ``seq`` above the request's
+        ``cursor`` (0: all it holds), and the current ``seq``, the caller's
+        next cursor: repeated pulls stream without duplication. The cursor
+        is per daemon process and per boot (restart from 0 when ``boot_id``
+        changes); events that aged out of the bounded ring are gone."""
+        events, seq = journal.tail(int(_opt(req, "cursor", 0) or 0))
+        protocol.send_json(conn, {
+            "ok": True,
+            "v": protocol.PROTOCOL_VERSION,
+            **self._identity(),
+            "events": events,
+            "seq": seq,
+        })
 
     def _refresh_level_gauges(self) -> None:
         """The level gauges (staged bytes, jobs, models, connections, the

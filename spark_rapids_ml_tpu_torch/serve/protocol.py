@@ -13,7 +13,9 @@ Every request carries ``"v"``; the daemon rejects a mismatch with a
 message naming the version it speaks. ``ping`` is version-exempt and
 echoes the server version. ``docs/protocol.md`` is the op-by-op contract
 and ``tests/fixtures/protocol_v1*.bin`` the recorded transcripts both
-packages' daemons replay.
+packages' daemons replay. The telemetry ops ``trace_pull`` and
+``telemetry_pull``, and a request's ``trace_ctx`` field, are additive under
+v1: a client that sends neither writes the untraced bytes.
 
 ``send_frame`` is the ``wire.send_frame`` fault site (utils/faults.py): a
 ``partial`` rule promises the whole frame, sends a prefix, closes the

@@ -106,6 +106,7 @@ from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel, finaliz
 from spark_rapids_ml_tpu_torch.ops.histogram import quantile_bin_edges
 from spark_rapids_ml_tpu_torch.spark import daemon_session
 from spark_rapids_ml_tpu_torch.utils import faults
+from spark_rapids_ml_tpu_torch.utils import journal
 from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
@@ -308,9 +309,10 @@ class _FeedTask:
     ``commit``; it yields one ack row. ``evict_routes``: the quarantined
     daemons' addresses, dropped from this worker process's id cache before
     the task resolves its daemon (a reused worker must re-ping whatever
-    now answers at a dead daemon's address). (The reference's task also
-    stamps the driver's journal ``trace_ctx`` on every op; that waits for
-    ``utils/journal``, ROADMAP Queue 1 item 7.)"""
+    now answers at a dead daemon's address). ``trace_ctx``: the driver's
+    journal frame when the task was built, stamped by the task's client on
+    every op, so the daemon's spans parent into the driver's fit run
+    although the executor process never opened it."""
 
     def __init__(self, host, port, token, job, algo, input_col, pass_id, label_col=None,
                  params=None, evict_routes=()):
@@ -319,6 +321,7 @@ class _FeedTask:
         self.input_col, self.pass_id = input_col, pass_id
         self.label_col, self.params = label_col, dict(params or {})
         self.evict_routes = tuple(evict_routes)
+        self.trace_ctx = journal.trace_ctx()
 
     def __call__(self, batches):
         import pyarrow as pa
@@ -332,7 +335,8 @@ class _FeedTask:
             _evict_daemon_id_cache(self.job, bad)
         # client_kwargs(): the executor env's resilience tuning, so a daemon
         # hiccup is healed by the client before it costs a Spark task retry.
-        with DataPlaneClient(h, p, token=self.token, **ds.client_kwargs()) as c:
+        with DataPlaneClient(h, p, token=self.token, trace_ctx=self.trace_ctx,
+                             **ds.client_kwargs()) as c:
 
             def send(batch):
                 c.feed(self.job, batch, algo=self.algo, input_col=self.input_col,
@@ -815,6 +819,7 @@ class _DaemonFit:
         _M_FIT_RECOVERIES.inc(algo=self.algo)
         logger.warning("fit recovery (%s): replaying from the last pass boundary after: %s",
                        self.algo, err)
+        journal.mark("fit recovery", algo=self.algo, job=self.job, error=str(err)[:300])
         with trace_span("recovery"):
             new_id = self.client.server_id() or self.primary_id
             if new_id != self.primary_id:
@@ -909,6 +914,8 @@ class _DaemonFit:
                 self._awaiting_rebalance.add(did)
                 admitted += 1
                 _M_FIT_JOINS.inc(algo=self.algo)
+                journal.mark("fit daemon join", algo=self.algo, job=self.job, daemon=did,
+                             addr=addr, iteration=int(iteration))
                 logger.warning(
                     "fit elastic grow (%s): daemon %s (%s) admitted at the pass-%d boundary — "
                     "seeded with the ledger iterate; replaying the failed pass on the "
@@ -981,6 +988,7 @@ class _DaemonFit:
                 # The replayed tasks must re-ping whatever now answers there.
                 _evict_daemon_id_cache(self.job, addr)
             _M_DAEMON_LOSSES.inc(algo=self.algo)
+            journal.mark("fit daemon loss", algo=self.algo, job=self.job, daemon=did, addr=addr)
             logger.warning(
                 "fit elastic degrade (%s): peer daemon %s (%s) declared dead — no answer "
                 "within the %.1fs death deadline; quarantining it and replaying from the last "
@@ -1006,11 +1014,15 @@ class _DaemonFit:
             except Exception as e:
                 if self.grow and self.try_admit(e):
                     with trace_span("elastic grow"):
+                        journal.mark("fit elastic-grow", algo=self.algo, job=self.job,
+                                     error=str(e)[:300])
                         self.recover(e)
                     continue
                 if self.loss_tolerance > 0 and self.try_quarantine(e):
                     with trace_span("elastic degrade"):
                         _M_FIT_REROUTES.inc(algo=self.algo)
+                        journal.mark("fit elastic-degrade", algo=self.algo, job=self.job,
+                                     error=str(e)[:300])
                         self.recover(e)
                     continue
                 if attempt >= self.recovery_attempts:
@@ -1262,16 +1274,22 @@ def _drive_knn(fit: _DaemonFit, run_pass, core) -> "_DaemonKNNModel":
     name = f"knnidx-{fit.job}"
     fed: Dict[str, int] = {}
     addr_of: Dict[str, str] = {}
+    # The shard builds and samples run on pool threads, whose journal stack
+    # is empty: they carry the driver's fit frame, or the daemons' heaviest
+    # spans (index builds, sampling) fall out of the fit's tree.
+    fit_ctx = journal.trace_ctx() or {}
 
     @contextlib.contextmanager
     def client_of(did):
-        # The primary's own client (one thread uses it at a time), else a
-        # client of the peer's own: no socket is shared across threads.
+        # The primary's own client (one thread uses it at a time) under the
+        # fit's frame, else a client of the peer's own stamping it: no
+        # socket is shared across threads.
         if did == fit.primary_id:
-            yield fit.client
+            with journal.adopt(fit_ctx.get("run"), fit_ctx.get("span")):
+                yield fit.client
             return
         with DataPlaneClient(*daemon_session._parse_addr(addr_of[did]), token=fit._token,
-                             **fit._client_kw) as c:
+                             trace_ctx=fit_ctx or None, **fit._client_kw) as c:
             yield c
 
     def cleanup():
@@ -1404,6 +1422,14 @@ class _SparkAdapter:
         return _SparkModelAdapter(core_model)
 
     def _fit_distributed(self, df):
+        """The run journal's shell: one ``fit`` run a fit, every feed pass,
+        step, merge and finalize span (the driver's, the tasks' daemons')
+        under it; :meth:`_fit_distributed_inner` runs the protocol."""
+        with journal.run("fit", estimator=type(self).__name__, algo=self._daemon_algo,
+                         uid=self._core.uid):
+            return self._fit_distributed_inner(df)
+
+    def _fit_distributed_inner(self, df):
         """Executor-fed fit: partition batches flow task → daemon, and the
         driver sees only the finalize's arrays (and, for KMeans, a prefix
         sample of at most max(k, 4,096) rows to seed the centres; for the
@@ -1606,10 +1632,12 @@ class _DaemonTransformTask:
     registered once (``ensure_model``, with the serving params) and
     resident on the card across batches. Only the features column crosses
     the wire. The closure carries the model's ``_model_data()`` arrays,
-    never the model."""
+    never the model, and the driver's journal frame (``trace_ctx``), which
+    its client stamps."""
 
     def __init__(self, core_model, host, port, token, input_col, algo, outputs):
         self.host, self.port, self.token = host, port, token
+        self.trace_ctx = journal.trace_ctx()
         self._arrays = core_model._model_data()
         self._params = _scalar_params(core_model)
         self._input_col = input_col
@@ -1624,7 +1652,8 @@ class _DaemonTransformTask:
 
         ds = daemon_session
         h, p = ds.executor_daemon_address(self.host, self.port)
-        with DataPlaneClient(h, p, token=self.token, **ds.client_kwargs()) as c:
+        with DataPlaneClient(h, p, token=self.token, trace_ctx=self.trace_ctx,
+                             **ds.client_kwargs()) as c:
             registered = c.model_exists(self._name)
             for batch in batches:
                 table = pa.Table.from_batches([batch])
@@ -1716,10 +1745,12 @@ class _DaemonKNNTask:
     columns come back. The index stays on the daemon. A sharded index
     (``shards``: [(addr, shard rows)]) fans each batch out to every shard
     daemon and merges the shards' top-k here (:func:`_fanout_kneighbors`):
-    O(q·k·shards) a batch, whatever the database's size."""
+    O(q·k·shards) a batch, whatever the database's size. Its clients stamp
+    the driver's journal frame (``trace_ctx``)."""
 
     def __init__(self, host, port, token, name, input_col, k, shards=None, descending=False):
         self.host, self.port, self.token = host, port, token
+        self.trace_ctx = journal.trace_ctx()
         self._name = name
         self._input_col = input_col
         self._k = k
@@ -1736,7 +1767,7 @@ class _DaemonKNNTask:
 
         ds = daemon_session
         with contextlib.ExitStack() as stack:
-            ckw = ds.client_kwargs()
+            ckw = dict(ds.client_kwargs(), trace_ctx=self.trace_ctx)
             if self._shards:
                 clients = [(s, stack.enter_context(DataPlaneClient(
                     *ds._parse_addr(s[0]), token=self.token, **ckw))) for s in self._shards]
@@ -1807,8 +1838,10 @@ class _DaemonKNNModel:
     def _client(self, host=None, port=None):
         from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
 
+        # The caller's journal frame, fixed: the fan-out's pool threads stamp
+        # it too.
         return DataPlaneClient(host or self._host, port or self._port, token=self._token,
-                               **self._client_kw)
+                               trace_ctx=journal.trace_ctx(), **self._client_kw)
 
     def kneighbors(self, queries, k=None):
         """(distances (q, k), indices (q, k)) of an (q, d) ndarray of

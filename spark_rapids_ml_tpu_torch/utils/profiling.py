@@ -14,6 +14,12 @@ started it, and the data-plane daemon runs its ops on one thread per
 connection. So every span also adds its host-clock seconds to a
 process-wide total per name (:func:`span_totals`, two clock reads and a
 lock per span), which sums the spans of every thread.
+
+As in the JAX package, a span also feeds the two observability sinks: the
+``srml_phase_duration_seconds{phase}`` histogram of the metrics registry
+(an early return with ``metrics`` off) and the run journal
+(``utils/journal.py``: one ``phase`` line with run, span and parent ids;
+an early return when neither a journal file nor the ring is on).
 """
 
 from __future__ import annotations
@@ -24,6 +30,15 @@ import time
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
+
+from spark_rapids_ml_tpu_torch.utils import journal
+from spark_rapids_ml_tpu_torch.utils import metrics
+
+#: Every trace_span records here: the per-phase latency breakdown.
+PHASE_SECONDS = metrics.histogram(
+    "srml_phase_duration_seconds",
+    "Wall-clock duration of trace_span phases, by phase name",
+)
 
 _totals: Dict[str, list] = {}  # name -> [seconds, count]
 _totals_lock = threading.Lock()
@@ -47,7 +62,7 @@ def trace_span(name: str) -> Iterator[None]:
     """``with trace_span("compute cov"): ...`` — a named phase."""
     t0 = time.perf_counter()
     try:
-        with torch.profiler.record_function(name):
+        with torch.profiler.record_function(name), journal.span(name):
             if torch.cuda.is_available():
                 with torch.cuda.nvtx.range(name):
                     yield
@@ -59,6 +74,7 @@ def trace_span(name: str) -> Iterator[None]:
             acc = _totals.setdefault(name, [0.0, 0])
             acc[0] += dt
             acc[1] += 1
+        PHASE_SECONDS.observe(dt, phase=name)
 
 
 def span_totals() -> Dict[str, Tuple[float, int]]:

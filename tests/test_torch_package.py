@@ -135,6 +135,29 @@ def test_the_serving_scheduler_is_scanned_and_loads_neither_jax_nor_pyarrow():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_the_observability_plane_is_scanned_and_loads_no_jax():
+    """The journal, the kernel ledger, the SLO evaluator and the flight
+    recorder are the port's own copies: scanned, importing neither JAX nor
+    the JAX package, and the ``utils`` re-exports name ``journal``."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
+    mods = ("journal", "xprof", "slo", "flight")
+    for mod in mods:
+        path = PORT / "utils" / f"{mod}.py"
+        assert path.relative_to(ROOT).as_posix() in scanned
+        assert [r for r, _ in _imported_roots(path) if r in FORBIDDEN] == []
+    code = (
+        "import sys, spark_rapids_ml_tpu_torch.utils as u; "
+        + "".join(f"import spark_rapids_ml_tpu_torch.utils.{m}; " for m in mods)
+        + "assert 'journal' in u.__all__ and u.journal.__name__.endswith('utils.journal'); "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'spark_rapids_ml_tpu')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

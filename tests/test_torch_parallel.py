@@ -437,7 +437,7 @@ def test_parallel_all_equals_jax():
     ("core", set()),
     ("bridge", set()),
     ("ops", {"sharded_stats_2d"}),
-    ("utils", {"journal"}),
+    ("utils", set()),
 ])
 def test_subpackage_exports_equal_jax_less_what_waits(sub, missing):
     import importlib
