@@ -44,7 +44,8 @@ Phases, each of which exits non-zero on a failed check:
    25 alone after the build; ``--estimators`` runs phases 23 and 24 alone;
    ``--multi-process`` runs phase 26 alone; ``--multi-daemon`` runs
    phase 27 alone; ``--elastic`` runs phase 28 alone; ``--serving`` runs
-   phase 29 alone; ``--telemetry`` runs phase 30 alone.
+   phase 29 alone; ``--telemetry`` runs phase 30 alone; ``--fleet`` runs
+   phase 31 alone.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -442,6 +443,42 @@ Phases, each of which exits non-zero on a failed check:
     the ring armed and a journal file (requests/s each, answers bitwise
     equal); the ledger's host cost a ``dist_topk`` call and the journal's a
     span.
+31. Durable daemons and the routed fleet (``serve/{daemon,gossip,router}.py``),
+    every daemon a spawned process on the card. a. Phase 21's KMeans feed
+    protocol (d = 256, k = 100, 8 task processes x 1 frame of 65,536 rows:
+    524,288, a depth cut; phase 28's integer blobs, so every sum is exact)
+    against a daemon with a ``state_dir``: a clean fit, then one under
+    ``SRML_TORCH_FAULT_PLAN`` whose daemon SIGKILLs itself at
+    ``daemon.pass_boundary`` when the step closing pass 1 has applied (its
+    snapshot written, its ack unsent); restarted on the same port and
+    ``state_dir``, the daemon keeps its instance id under a new boot id,
+    restores the job (``srml_daemon_job_restores_total`` 1) and the
+    driver's recovery finishes the fit, its centres bitwise the clean
+    fit's; the snapshot's bytes and ms at each boundary, the seconds from
+    the death to the replay's scan. b. Phase 22's knn job cut to one
+    32,768-row frame a partition (262,144 x 768 rows from the 8 task
+    processes; IVF nlist 1,024, nprobe 20, then exact) built by a durable
+    daemon process: the snapshots' seconds and
+    bytes at finalize; 4,096 queries (k = 10) before a SIGKILL and after
+    the restart, whose first ``kneighbors`` of each index restores it
+    lazily: answers bitwise equal; the restore seconds and the launches of
+    ``lloyd_step``, ``assign_min_dist``, ``dist_topk``, ``probe_select``
+    and ``ivf_scan_select`` in each incarnation. c. Three daemon processes
+    (``gossip_interval_s`` 0.2, batching off, so every request is one solo
+    dispatch) each holding PCA v1 and v2 (d = 2048, k = 32) and an exact
+    index of 524,288 x 768 float32 rows (one 1.5 GiB ``ensure_model``
+    frame, under ``MAX_FRAME``) registered by hand as a fleet control
+    plane does; a ``RoutingTable`` through ``install``/``activate``, the
+    ``FleetView`` pushed to one daemon, a ``FleetClient`` bootstrapped
+    from one seed; a version the replica does not hold is refused, the
+    held one echoed; 8 threads x 64 requests (64-row PCA transforms and
+    16-query exact ``kneighbors``, k = 10; sticky and free route keys;
+    four threads on the hand-built table, four bootstrapped) with one
+    replica SIGKILLed mid-traffic, then 8 x 8 more once it is back:
+    every request answered bitwise as one daemon answers it, the
+    restarted replica repaired in band, the views of all three daemons
+    converged; requests/s, p50 and p99, the failovers, the convergence
+    seconds.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
@@ -464,7 +501,11 @@ fits' launches in this process under ``elastic_launches``, the
 ``dist_topk``, ``probe_select`` and ``ivf_scan_select`` rows phase 29's
 batched exact and bypassed IVF traffic's under ``serving_launches``, the
 ``gram_colsum`` and ``dist_topk`` rows phase 30's under
-``telemetry_launches``) and
+``telemetry_launches``, the ``lloyd_step``, ``assign_min_dist``,
+``dist_topk``, ``probe_select`` and ``ivf_scan_select`` rows phase 31b's
+(both incarnations of its daemon process) under ``durable_launches`` and
+the ``dist_topk`` row phase 31c's (summed over its replica processes)
+under ``fleet_launches``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, the script fails before printing any result.
 """
@@ -7026,6 +7067,625 @@ def phase_telemetry(torch, kernels, config):
     return out
 
 
+P31_SEED = 31
+#: Phase 31a's frames (run → the P21_RUNS fields): phase 21's KMeans width,
+#: cut to one 65,536-row frame a partition (524,288 rows) for the smoke's
+#: time, phase 28's integer blobs (every sum exact, so a restarted fit is
+#: bitwise the clean one).
+P31_RUNS = {"kmeans-int": ("kmeans", KM_D, DP_ROWS, 1, KM_K)}
+#: Phase 31b's knn frames: phase 22's rows cut to one half-size frame a
+#: partition (262,144 x 768), so the snapshots and restores fit the
+#: smoke's time.
+P31_KNN_RUNS = {"knn": ("knn", KNN_D, DP_ROWS // 2, 1, KNN_CLUSTERS)}
+P31_MAX_ITER = 3
+#: The daemon of 31a's faulted fit crashes at the second step's boundary
+#: (the step that closes pass 1), after its snapshot, before its ack.
+P31_CRASH = f"seed={P31_SEED};daemon.pass_boundary:crash:after=1,times=1"
+P31_FLEET_ROWS = 1 << 19  # 524,288 x 768 f32: one 1.5 GiB ensure_model frame
+P31_THREADS, P31_REQS, P31_AFTER_REQS = 8, 64, 8
+P31_TRANSFORM_ROWS, P31_QUERIES = 64, 16
+P31_INPUTS = 32  # distinct transform inputs and query sets the requests cycle through
+P31_GOSSIP_S = 0.2
+P31_DAEMON_TIMEOUT_S = 300  # a daemon process's time to come up
+P31_VICTIM = 1  # 31c's replica SIGKILLed mid-traffic (the seed is replica 0)
+
+
+def _p31_daemon(cmd_q, out_q, device, kw, plan):
+    """Phase 31's daemon process: one port daemon on ``device`` with the
+    keyword arguments ``kw`` (port, state_dir, gossip, batching). ``plan``
+    arms ``SRML_TORCH_FAULT_PLAN`` before the port is imported, its crash
+    rule SIGKILLing this process. Answers "launches" with its counters and
+    "stop" by stopping."""
+    import signal
+
+    try:
+        if plan:
+            os.environ["SRML_TORCH_FAULT_PLAN"] = plan
+        from spark_rapids_ml_tpu_torch.ops import kernels
+        from spark_rapids_ml_tpu_torch.serve import DataPlaneDaemon
+        from spark_rapids_ml_tpu_torch.utils import faults
+
+        if plan:
+            faults.active_plan().on_crash(lambda: os.kill(os.getpid(), signal.SIGKILL))
+        daemon = DataPlaneDaemon(host="127.0.0.1", device=device, **kw).start()
+    except Exception as e:  # noqa: BLE001 - reported to the parent
+        out_q.put(("err", repr(e)))
+        return
+    out_q.put(("ready", daemon.address[1], daemon.instance_id, daemon.boot_id))
+    while True:
+        cmd = cmd_q.get()
+        if cmd == "launches":
+            out_q.put(("launches", dict(kernels.LAUNCHES), dict(kernels.ROUTES)))
+        elif cmd == "stop":
+            daemon.stop()
+            out_q.put(("stopped",))
+            return
+
+
+class _P31Daemon:
+    """One phase-31 daemon process: spawned (never forked: the parent holds a
+    CUDA context), restartable on its port and ``state_dir`` after a death.
+    Each incarnation gets queues of its own: a SIGKILLed process may die
+    holding a queue's lock."""
+
+    def __init__(self, ctx, device, plan=None, **kw):
+        self.ctx, self.device, self.kw = ctx, device, dict(kw)
+        self.spawn(plan)
+
+    def spawn(self, plan=None):
+        self.cmd, self.out = self.ctx.Queue(), self.ctx.Queue()
+        self.proc = self.ctx.Process(target=_p31_daemon, daemon=True,
+                                     args=(self.cmd, self.out, self.device, self.kw, plan))
+        self.proc.start()
+
+    def ready(self):
+        msg = self.out.get(timeout=P31_DAEMON_TIMEOUT_S)
+        if msg[0] != "ready":
+            fail(f"phase 31: a daemon process failed to start: {msg}")
+        _, port, self.instance_id, self.boot_id = msg
+        self.kw["port"] = port  # a restart binds the same port
+        return self
+
+    @property
+    def address(self):
+        return ("127.0.0.1", self.kw["port"])
+
+    def launches(self):
+        self.cmd.put("launches")
+        _, launches, routes = self.out.get(timeout=120)
+        return launches, routes
+
+    def kill(self):
+        """SIGKILL; the exit code (-9)."""
+        self.proc.kill()
+        self.proc.join(timeout=60)
+        return self.proc.exitcode
+
+    def stop(self):
+        if self.proc.is_alive():
+            self.cmd.put("stop")
+            try:
+                self.out.get(timeout=120)
+            except Exception:  # noqa: BLE001 - terminated below
+                pass
+            self.proc.join(timeout=30)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=10)
+
+
+def p31_metrics(address):
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient
+
+    with DataPlaneClient(*address) as c:
+        return c.metrics()
+
+
+def p31_snapshot_ms(snap):
+    """(seconds, count) of a daemon's "daemon snapshot write" spans."""
+    labels = {"phase": "daemon snapshot write"}
+    return (p29_metric(snap, "srml_phase_duration_seconds", "sum", **labels),
+            p29_metric(snap, "srml_phase_duration_seconds", "count", **labels))
+
+
+def p31_kmeans(est, pool, daemon, tag, watch=None):
+    """One 31a fit: ``_drive_kmeans`` over ``daemon`` with every partition
+    routed to it, the recovery ledger armed and a client that waits out a
+    restart. ``watch(pass_id)`` runs before each scan. Returns (model, a
+    record: scan starts, seconds)."""
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch import KMeans
+
+    job = f"phase31-kmeans-{tag}"
+    fit = est._DaemonFit(*daemon.address, job, recovery_attempts=2, timeout=900.0,
+                         op_deadline_s=240.0, max_op_attempts=100_000)
+    rec = {"starts": []}
+    route = {p: daemon.address for p in range(DP_PARTITIONS)}
+
+    def run_pass(pass_id):
+        rec["starts"].append((pass_id, time.perf_counter()))
+        if watch is not None:
+            watch(pass_id)
+        return pool.scan("kmeans-int", job, fit.params, pass_id, dies=False, route=route)
+
+    sample = p21_frame(np, P31_RUNS, "kmeans-int", 0, 0)[0][:est._kmeans_seed_rows(KM_K)]
+    core = KMeans(device=DEV).setK(KM_K).setMaxIter(P31_MAX_ITER).setTol(0.0).setSeed(P31_SEED)
+    t0 = time.perf_counter()
+    try:
+        model = est._drive_kmeans(fit, run_pass, core, sample)
+    finally:
+        fit.close()
+    rec["s"] = time.perf_counter() - t0
+    rec["acked"] = fit.total_fed
+    return model, rec
+
+
+def p31_durable_fit(np, est, pool, clean, doomed):
+    """31a: the clean fit, then the faulted fit with its daemon's death and
+    restart; their checks and numbers."""
+    import threading
+
+    n = DP_PARTITIONS * P31_RUNS["kmeans-int"][3] * DP_ROWS
+    clean.ready()
+    doomed.ready()
+    pool.prepare("kmeans-int")
+    boundaries = []
+    last = [p31_snapshot_ms(p31_metrics(clean.address))]
+    job_file = []
+
+    def watch(pass_id):
+        # Each scan starts after a boundary (the seed, then each step): its
+        # snapshot's seconds from the daemon's spans, its bytes on disk.
+        cur = p31_snapshot_ms(p31_metrics(clean.address))
+        files = [f for f in os.listdir(clean.kw["state_dir"]) if f.startswith("job-")]
+        size = os.path.getsize(os.path.join(clean.kw["state_dir"], files[0])) if files else 0
+        job_file[:] = files
+        boundaries.append((pass_id, (cur[0] - last[0][0]) * 1e3, cur[1] - last[0][1], size))
+        last[0] = cur
+
+    ref, rc = p31_kmeans(est, pool, clean, "clean", watch)
+    check(len(job_file) == 1 and not any(f.startswith("job-")
+                                         for f in os.listdir(clean.kw["state_dir"])),
+          "phase 31a clean fit: one job snapshot during the fit, deleted by its finalize")
+    clean.stop()
+    for pass_id, ms, count, size in boundaries:
+        print(f"phase 31a snapshot at the boundary opening scan {pass_id}: {size} bytes, "
+              f"{ms:.3f} ms ({count:.0f} write)", flush=True)
+    check(all(c == 1 for _, _, c, _ in boundaries) and all(s > 0 for *_, s in boundaries),
+          f"phase 31a: one snapshot write at each of the {len(boundaries)} boundaries")
+
+    # The faulted fit: its daemon dies at the boundary closing pass 1; a
+    # monitor restarts it on the same port and state_dir.
+    marks = {}
+
+    def monitor():
+        while doomed.proc.exitcode is None:
+            time.sleep(0.005)
+        marks["death"] = time.perf_counter()
+        marks["code"] = doomed.proc.exitcode
+        doomed.spawn()
+        doomed.ready()
+        marks["up"] = time.perf_counter()
+
+    old_id, old_boot = doomed.instance_id, doomed.boot_id
+    mon = threading.Thread(target=monitor, daemon=True)
+    mon.start()
+    got, rf = p31_kmeans(est, pool, doomed, "fault")
+    mon.join(timeout=60)
+    snap = p31_metrics(doomed.address)
+    restores = p29_metric(snap, "srml_daemon_job_restores_total", algo="kmeans")
+    replay = [t for pid, t in rf["starts"] if pid == 1 and t > marks.get("death", 1e30)]
+    check(marks.get("code") == -9 and doomed.instance_id == old_id
+          and doomed.boot_id != old_boot and restores == 1,
+          f"phase 31a: the daemon died by SIGKILL at the pass boundary (exit "
+          f"{marks.get('code')}), restarted with its instance id {doomed.instance_id} "
+          f"(was {old_id}) and a new boot id ({old_boot} -> {doomed.boot_id}); "
+          f"srml_daemon_job_restores_total {restores:.0f} == 1")
+    # The dead incarnation's pass-1 rows were folded into the snapshot's row
+    # count, and the replay folds them again: one scan more than the clean fit.
+    check(bool(replay) and len(rf["starts"]) == len(rc["starts"]) + 1
+          and rf["acked"] == rc["acked"] + n and got.summary.numIter == ref.summary.numIter >= 2,
+          f"phase 31a: pass 1 replayed after the death ({len(rf['starts'])} scans of {n} rows "
+          f"against the clean fit's {len(rc['starts'])}); {rf['acked']} rows acked == "
+          f"{rc['acked']} + {n}; numIter {got.summary.numIter} == {ref.summary.numIter}")
+    cost = abs(got.summary.trainingCost - ref.summary.trainingCost) / ref.summary.trainingCost
+    # Integer rows: every centre sum is exact, so the centres are bitwise;
+    # the cost sums ‖x‖² + ‖c‖² − 2x·c at non-integer centres in f32, in
+    # the commit order (phase 28's 1e-6).
+    check(np.array_equal(np.asarray(got.centers), np.asarray(ref.centers)) and cost <= 1e-6,
+          f"phase 31a: the restarted fit's centres bitwise the clean fit's; cost rel err "
+          f"{cost:.3e} (tol 1e-6)")
+    print(f"phase 31a: clean fit {rc['s']:.3f} s, faulted fit {rf['s']:.3f} s; death to the "
+          f"restarted daemon's ready {marks['up'] - marks['death']:.3f} s, death to the "
+          f"replay's scan {replay[0] - marks['death']:.3f} s", flush=True)
+    doomed.stop()
+
+
+def p31_knn_fit(est, pool, daemon, core, tag):
+    """One 31b knn fit into ``daemon``: (the _DaemonKNNModel, finalize seconds)."""
+    job = f"phase31-{tag}"
+    fit = est._DaemonFit(*daemon.address, job, timeout=900.0)
+    route = {p: daemon.address for p in range(DP_PARTITIONS)}
+    rec = {}
+    finalize_knn = fit.client.finalize_knn
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = finalize_knn(*a, **kw)
+        rec["s"] = time.perf_counter() - t0
+        return out
+
+    fit.client.finalize_knn = timed
+    try:
+        model = est._drive_knn(fit, lambda pid: pool.scan("knn", job, {}, pid, dies=False,
+                                                           route=route), core)
+    finally:
+        fit.close()
+    return model, rec["s"]
+
+
+def p31_durable_index(np, est, pool, daemon):
+    """31b: the IVF and exact indexes built, killed, restored; their launches
+    over both incarnations ({kernel: n})."""
+    from spark_rapids_ml_tpu_torch import ApproximateNearestNeighbors, NearestNeighbors
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient
+
+    sdir = daemon.kw["state_dir"]
+    daemon.ready()
+    qs = knn_frame(np, DP_PARTITIONS, 0, KNN_QUERIES, KNN_D, KNN_CLUSTERS)
+    pool.prepare("knn")
+    snap0 = p31_snapshot_ms(p31_metrics(daemon.address))
+    core = (ApproximateNearestNeighbors(device=DEV).setK(KNN_K).setNlist(KNN_NLIST)
+            .setNprobe(KNN_NPROBE))
+    amodel, a_s = p31_knn_fit(est, pool, daemon, core, "ivf")
+    snap1 = p31_snapshot_ms(p31_metrics(daemon.address))
+    emodel, e_s = p31_knn_fit(est, pool, daemon, NearestNeighbors(device=DEV).setK(KNN_K),
+                              "exact")
+    snap2 = p31_snapshot_ms(p31_metrics(daemon.address))
+    sizes = {name: os.path.getsize(os.path.join(sdir, name))
+             for name in os.listdir(sdir) if name.startswith("model-")}
+    print(f"phase 31b finalize (build + snapshot + ack): ivf {a_s:.3f} s, exact {e_s:.3f} s; "
+          f"snapshot writes ivf {snap1[0] - snap0[0]:.3f} s, exact {snap2[0] - snap1[0]:.3f} s; "
+          f"bytes {sorted(sizes.values())} (total {sum(sizes.values()) / 2**30:.2f} GiB)",
+          flush=True)
+    check(len(sizes) == 2 and snap2[1] - snap0[1] == 2,
+          f"phase 31b: two index snapshots written at the finalizes ({sorted(sizes)})")
+    before = {}
+    for tag, m in (("ivf", amodel), ("exact", emodel)):
+        t0 = time.perf_counter()
+        before[tag] = m.kneighbors(qs)
+        print(f"phase 31b {tag} kneighbors before the kill: {time.perf_counter() - t0:.3f} s "
+              f"for {KNN_QUERIES} queries (the first call: the index upload)", flush=True)
+    pre, pre_r = daemon.launches()
+    code = daemon.kill()
+    t_kill = time.perf_counter()
+    daemon.spawn()
+    daemon.ready()
+    print(f"phase 31b: SIGKILLed (exit {code}); the restarted process ready in "
+          f"{time.perf_counter() - t_kill:.3f} s", flush=True)
+    with DataPlaneClient(*daemon.address) as c:
+        lazy = c.health()["served_models"]
+    for tag, m in (("ivf", amodel), ("exact", emodel)):
+        t0 = time.perf_counter()
+        d, i = m.kneighbors(qs)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m.kneighbors(qs)
+        warm = time.perf_counter() - t0
+        check(np.array_equal(d, before[tag][0]) and np.array_equal(i, before[tag][1]),
+              f"phase 31b {tag}: the answers after the restart bitwise equal to the answers "
+              f"before the kill ({KNN_QUERIES} queries, k = {KNN_K})")
+        print(f"phase 31b {tag}: first kneighbors after the restart (the lazy restore, the "
+              f"upload, the query) {first:.3f} s; warm {warm:.3f} s = "
+              f"{KNN_QUERIES / warm:.1f} q/s", flush=True)
+    post, post_r = daemon.launches()
+    restore_s = p29_metric(p31_metrics(daemon.address), "srml_phase_duration_seconds", "sum",
+                           phase="daemon restore")
+    print(f"phase 31b: restore spans {restore_s:.3f} s in all; launches before the kill "
+          f"{pre} (routes {pre_r}); after the restart {post} (routes {post_r})", flush=True)
+    check(code == -9 and lazy == 0,
+          f"phase 31b: the daemon died by SIGKILL (exit {code}) and its successor held no "
+          f"model until one was named ({lazy} served)")
+    check(pre["lloyd_step"] == pre_r["lloyd_step/wgmma"] == 10
+          and pre["assign_min_dist"] >= 2 and pre_r["assign_min_dist/wgmma"] == 1
+          and pre_r["dist_topk/wgmma"] == 1
+          and pre["probe_select"] == pre_r["probe_select/fused"] == 1
+          and pre["ivf_scan_select"] == pre_r["ivf_scan_select/wgmma"] == 1,
+          f"phase 31b, the first incarnation: the IVF build's lloyd_step (10, wgmma), "
+          f"assign_min_dist (1 wgmma + the f32 chunks) and {pre_r['dist_topk/ffma']} f32 "
+          f"dist_topk spill-candidate launches (ffma, where a list outgrew its cap); one "
+          f"fused probe_select, one wgmma ivf_scan_select and one wgmma dist_topk for the two "
+          f"calls")
+    check(post["probe_select"] == post_r["probe_select/fused"] == 2
+          and post["ivf_scan_select"] == post_r["ivf_scan_select/wgmma"] == 2
+          and post["dist_topk"] == post_r["dist_topk/wgmma"] == 2
+          and post["lloyd_step"] == post["assign_min_dist"] == 0,
+          "phase 31b, the restarted incarnation: the restored indexes answer through "
+          "probe_select (fused), ivf_scan_select and dist_topk (wgmma), one launch a call, "
+          "and rebuild nothing")
+    daemon.stop()
+    names = ("lloyd_step", "assign_min_dist", "dist_topk", "probe_select", "ivf_scan_select")
+    return {k: pre.get(k, 0) + post.get(k, 0) for k in names}
+
+
+def p31_views(addrs):
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient
+
+    out = []
+    for a in addrs:
+        with DataPlaneClient(*a, timeout=5.0, max_op_attempts=1) as c:
+            out.append(c.gossip_pull())
+    return out
+
+
+def p31_converged(addrs, want_replicas, timeout_s=30.0):
+    """Seconds until every daemon's view holds the same replicas and models,
+    ``want_replicas`` of them live; None past the timeout."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        try:
+            views = p31_views(addrs)
+        except Exception:  # noqa: BLE001 - a daemon still starting
+            views = None
+        if views and all(v.get("replicas") == views[0].get("replicas")
+                         and v.get("models") == views[0].get("models") for v in views) \
+                and sum(r["liveness"] == "up"
+                        for r in views[0]["replicas"].values()) == want_replicas:
+            return time.perf_counter() - t0
+        time.sleep(0.02)
+    return None
+
+
+def p31_fleet(torch, np, reps):
+    """31c: the routed fleet over the replica processes ``reps``; its
+    dist_topk launches over them."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_rapids_ml_tpu_torch import PCA
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient, FleetClient, FleetView
+    from spark_rapids_ml_tpu_torch.serve import RoutingTable
+    from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
+
+    # The models while the replicas come up: PCA v1 and v2 at phase 3's
+    # width, the index rows the first half of phase 22's.
+    gen = torch.Generator(device=DEV).manual_seed(P31_SEED)
+    pcas = []
+    for v in (1, 2):
+        x = torch.randn((1 << 16, D), generator=gen, device=DEV) * (1.0 + v)
+        m = PCA(device=DEV).setK(K).fit({"features": x})
+        pcas.append({k: np.asarray(torch.as_tensor(a).cpu()) for k, a in m._model_data().items()})
+    keys = [(p, f) for p in range(DP_PARTITIONS // 2) for f in range(DP_FEEDS)]
+    rows = np.empty((P31_FLEET_ROWS, KNN_D), np.float32)
+
+    def fill(i):
+        rows[i * DP_ROWS:(i + 1) * DP_ROWS] = knn_frame(np, *keys[i], DP_ROWS, KNN_D,
+                                                        KNN_CLUSTERS)
+
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        list(ex.map(fill, range(len(keys))))
+    rng = np.random.default_rng(P31_SEED)
+    xs = [rng.standard_normal((P31_TRANSFORM_ROWS, D), dtype=np.float32)
+          for _ in range(P31_INPUTS)]
+    qs = [knn_frame(np, DP_PARTITIONS, 1 + i, P31_QUERIES, KNN_D, KNN_CLUSTERS)
+          for i in range(P31_INPUTS)]
+    for r in reps:
+        r.ready()
+    addrs = [r.address for r in reps]
+    keyed = ["%s:%d" % a for a in addrs]
+    t0 = time.perf_counter()
+    knn_arrays, knn_params = {"database": rows}, {"k": KNN_K}
+
+    def register(a):
+        with DataPlaneClient(*a, timeout=600.0) as c:
+            c.ensure_model("pca@v1", "pca", pcas[0], version=1)
+            c.ensure_model("pca@v2", "pca", pcas[1], version=2)
+            c.ensure_model("knn@v1", "knn", knn_arrays, params=knn_params, version=1)
+
+    with ThreadPoolExecutor(max_workers=len(addrs)) as ex:
+        list(ex.map(register, addrs))
+    print(f"phase 31c: PCA v1, v2 and the {P31_FLEET_ROWS} x {KNN_D} exact index registered "
+          f"on 3 replicas in {time.perf_counter() - t0:.3f} s", flush=True)
+    table = RoutingTable(keyed)
+    table.install("pca", 1, "pca", pcas[0])
+    table.activate("pca", 1)
+    table.install("pca", 2, "pca", pcas[1])
+    epoch = table.activate("pca", 2)
+    table.install("knn", 1, "knn", knn_arrays, knn_params)
+    table.activate("knn", 1)
+    view = FleetView()
+    for v in p31_views(addrs):
+        view.merge(v)
+    view.set_model("pca", 2, epoch, boot_id="phase31", tombstone_versions=())
+    view.set_model("knn", 1, 1, boot_id="phase31")
+    with DataPlaneClient(*addrs[0]) as c:
+        c.gossip_push(view.to_wire())  # one daemon; the rest by gossip
+    conv0 = p31_converged(addrs, 3)
+    check(conv0 is not None, f"phase 31c: the pushed view converged on all three daemons "
+                             f"({conv0})")
+    # The single daemon's answers, and the fence.
+    with DataPlaneClient(*addrs[0]) as c:
+        want_t = [c.transform_raw("pca@v2", x)["output"] for x in xs]
+        want_k = [c.kneighbors_raw("knn@v1", q, k=KNN_K) for q in qs]
+        _, meta = c.transform_raw("pca@v2", xs[0], version=2, fleet_epoch=epoch, with_meta=True)
+        try:
+            c.transform_raw("pca@v2", xs[0], version=1, fleet_epoch=epoch)
+            refused = ""
+        except RuntimeError as e:
+            refused = str(e)
+    check(meta.get("version") == 2 and meta.get("fleet_epoch") == epoch
+          and "version mismatch" in refused,
+          f"phase 31c: the held version echoed ({meta}); version 1 of pca@v2 refused: "
+          f"{refused[:120]}")
+    seed = keyed[0]
+
+    def counters():
+        snap = metrics_mod.snapshot()
+        return {"failovers": {r: p29_metric(snap, "srml_router_failovers_total", reason=r)
+                              for r in ("busy", "dead", "error")},
+                "repairs": p29_metric(snap, "srml_router_repairs_total"),
+                "resyncs": p29_metric(snap, "srml_fleet_bootstraps_total", outcome="resync")}
+
+    kw = {"client_kwargs": {"timeout": 120.0, "op_deadline_s": 240.0}}
+    clients = [FleetClient(table, **kw) if t < P31_THREADS // 2
+               else FleetClient.from_seeds(seed, **kw) for t in range(P31_THREADS)]
+    victim = reps[P31_VICTIM]
+    victim_key = next(f"v{i}" for i in range(10000)
+                      if table.ring.primary(f"v{i}") == keyed[P31_VICTIM])
+    lat, bad, done = [], [], [0]
+    lock = threading.Lock()
+
+    def worker(t, n, sticky):
+        fc = clients[t]
+        for i in range(n):
+            j = (t * 7 + i) % P31_INPUTS
+            key = sticky if i % 2 == 0 else None
+            t0 = time.perf_counter()
+            try:
+                if (t + i) % 2 == 0:
+                    out = fc.transform("pca", xs[j], route_key=key)["output"]
+                    ok = np.array_equal(out, want_t[j])
+                else:
+                    d, ix = fc.kneighbors("knn", qs[j], k=KNN_K, route_key=key)
+                    ok = np.array_equal(d, want_k[j][0]) and np.array_equal(ix, want_k[j][1])
+            except Exception as e:  # noqa: BLE001 - counted, the check fails
+                ok = f"{type(e).__name__}: {e}"
+            with lock:
+                lat.append(time.perf_counter() - t0)
+                done[0] += 1
+                if ok is not True:
+                    bad.append((t, i, ok))
+
+    def traffic(n, sticky_of, kill_at=None):
+        marks = {}
+
+        def killer():
+            while done[0] < kill_at:
+                time.sleep(0.001)
+            marks["launches"] = victim.launches()
+            marks["code"] = victim.kill()
+            marks["kill"] = time.perf_counter()
+
+        threads = [threading.Thread(target=worker, args=(t, n, sticky_of(t)))
+                   for t in range(P31_THREADS)]
+        k = threading.Thread(target=killer) if kill_at is not None else None
+        t0 = time.perf_counter()
+        for th in threads + ([k] if k else []):
+            th.start()
+        for th in threads + ([k] if k else []):
+            th.join()
+        return time.perf_counter() - t0, marks
+
+    base = counters()
+    n1 = P31_THREADS * P31_REQS
+    wall, marks = traffic(P31_REQS, lambda t: f"user-{t % 4}", kill_at=n1 // 4)
+    lat1 = sorted(lat)
+    mid = counters()
+    victim.spawn()
+    victim.ready()
+    up = time.perf_counter()
+    conv1 = p31_converged(addrs, 3)
+    del lat[:]
+    # Two hand-built-table clients keyed to the restarted replica (a
+    # transform and a kneighbors thread), the rest free keys.
+    wall2, _ = traffic(P31_AFTER_REQS, lambda t: victim_key if t < 2 else None)
+    end = counters()
+    n2 = P31_THREADS * P31_AFTER_REQS
+    with DataPlaneClient(*victim.address) as c:
+        repaired = [c.model_exists(name) for name in ("pca@v2", "knn@v1")]
+    p50, p99 = lat1[len(lat1) // 2], lat1[min(len(lat1) - 1, int(0.99 * len(lat1)))]
+    print(f"phase 31c: {n1} routed requests in {wall:.3f} s = {n1 / wall:.1f} requests/s, "
+          f"p50 {p50 * 1e3:.3f} ms, p99 {p99 * 1e3:.3f} ms (host clock per request); replica "
+          f"{keyed[P31_VICTIM]} SIGKILLed (exit {marks.get('code')}) after {n1 // 4} answers; "
+          f"failovers {({r: mid['failovers'][r] - base['failovers'][r] for r in mid['failovers']})}"
+          f", resyncs {mid['resyncs'] - base['resyncs']:.0f}", flush=True)
+    print(f"phase 31c: the replica back in {up - marks['kill']:.3f} s after its kill; views "
+          f"converged {conv0:.3f} s after the first push and "
+          f"{'never' if conv1 is None else f'{conv1:.3f} s'} after the restart; {n2} more "
+          f"requests in {wall2:.3f} s, repairs {end['repairs'] - mid['repairs']:.0f}, "
+          f"resyncs {end['resyncs'] - mid['resyncs']:.0f}, failovers "
+          f"{({r: end['failovers'][r] - mid['failovers'][r] for r in end['failovers']})}",
+          flush=True)
+    check(not bad, f"phase 31c: every one of {n1 + n2} routed requests answered bitwise as "
+                   f"one daemon answers it ({len(bad)} not: {bad[:3]})")
+    check(marks.get("code") == -9 and all(repaired) and end["repairs"] > mid["repairs"]
+          and conv1 is not None,
+          f"phase 31c: the killed replica (exit {marks.get('code')}), restarted, was "
+          f"repaired in band ({repaired}) and the three views converged again")
+    for fc in clients:
+        fc.close()
+    launches = marks["launches"][0].get("dist_topk", 0)
+    for r in reps:
+        launches += r.launches()[0].get("dist_topk", 0)
+        r.stop()
+    print(f"phase 31c: dist_topk launches over the replicas {launches}", flush=True)
+    check(launches >= 1, f"phase 31c: the exact index answered through dist_topk "
+                         f"({launches} launches)")
+    return {"dist_topk": launches}
+
+
+def phase_fleet(torch, kernels, config):
+    """Phase 31: durable daemons (a, b) and the routed fleet (c), every
+    daemon a spawned process. Returns {(part, kernel): launches}."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch.spark import estimator as est
+
+    print("phase 31 prediction (NVIDIA H100, written before the first timed run): a. a "
+          "snapshot 0.1 MB and 1-5 ms a boundary; death to the replay's scan 9-15 s (a "
+          "process start and the card's context dominate); b. snapshots ivf about 6.4 GB in "
+          "3-8 s, exact 3.2 GB in 1.5-4 s; the first kneighbors after the restart 3-7 s (ivf) "
+          "and 1.5-3 s (exact); c. 150-400 requests/s, p50 3-10 ms, p99 50-500 ms, 5-40 dead "
+          "failovers, the views converged in 0.2-1.0 s; phase 31 110-160 s", flush=True)
+    t_phase = time.perf_counter()
+    sd = tempfile.mkdtemp(prefix="srml-phase31-")
+    print(f"phase 31: state directories under {sd}; disk: "
+          f"{shutil.disk_usage(sd).free / 2**30:.1f} GiB free", flush=True)
+    ctx = mp.get_context("spawn")
+    out = {}
+    # The daemons of a and b and the task pool start together (their imports
+    # and CUDA contexts overlap); c's replicas start as b begins, so they
+    # come up behind b's work.
+    state = {name: os.path.join(sd, name) for name in ("a-clean", "a-fault", "b", "c0", "c1", "c2")}
+    clean = _P31Daemon(ctx, DEV, state_dir=state["a-clean"], port=0)
+    doomed = _P31Daemon(ctx, DEV, plan=P31_CRASH, state_dir=state["a-fault"], port=0)
+    index = _P31Daemon(ctx, DEV, state_dir=state["b"], port=0)
+    reps = []
+    pool = _P21Pool(("127.0.0.1", 1), {**P31_RUNS, **P31_KNN_RUNS}, wait=False)
+    try:
+        pool.ready()
+        t0 = time.perf_counter()
+        p31_durable_fit(np, est, pool, clean, doomed)
+        print(f"phase 31a passed ({time.perf_counter() - t0:.1f} s)", flush=True)
+        reps += [_P31Daemon(ctx, DEV, state_dir=state[f"c{r}"], port=0,
+                            gossip_interval_s=P31_GOSSIP_S, serve_batching=False)
+                 for r in range(3)]
+        t0 = time.perf_counter()
+        for k, v in p31_durable_index(np, est, pool, index).items():
+            out[("durable", k)] = v
+        print(f"phase 31b passed ({time.perf_counter() - t0:.1f} s)", flush=True)
+    finally:
+        pool.close()
+        for d in (clean, doomed, index):
+            d.stop()
+    t0 = time.perf_counter()
+    try:
+        for k, v in p31_fleet(torch, np, reps).items():
+            out[("fleet", k)] = v
+    finally:
+        for r in reps:
+            r.stop()
+    print(f"phase 31c passed ({time.perf_counter() - t0:.1f} s)", flush=True)
+    shutil.rmtree(sd, ignore_errors=True)
+    print(f"phase 31: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -7066,6 +7726,14 @@ def main() -> None:
             if any(w in line for w in ("registers", "spill", "Compiling entry", "warning",
                                        "wgmma", "setmaxnreg")):
                 print(f"  ptxas {name}: {line.strip()}")
+
+    if "--fleet" in sys.argv[1:]:
+        # Phase 31 alone.
+        phase_fleet(torch, kernels, config)
+        print(card)
+        print(f"phase 31 passed ({time.perf_counter() - t_start:.1f} s); --fleet: stopping here",
+              flush=True)
+        return
 
     if "--telemetry" in sys.argv[1:]:
         # Phase 30 alone.
@@ -7554,6 +8222,11 @@ def main() -> None:
     # -- 30. the observability plane: the journal across processes, the kernel ledger -------
     for name, n in phase_telemetry(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["telemetry_launches"] = n
+
+    # -- 31. durable daemons and the routed fleet ---------------------------------------------
+    torch.cuda.empty_cache()
+    for (part, name), n in phase_fleet(torch, kernels, config).items():
+        next(row for row in table if row["name"] == name)[f"{part}_launches"] = n
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "

@@ -5,8 +5,9 @@ port reads (PCA, KMeans, LinearRegression, LogisticRegression,
 NearestNeighbors and ApproximateNearestNeighbors, the random forests, the
 data-plane daemon's watermarks and serving scheduler, the Spark fit
 policies, the multi-daemon reduce path, the native bridge, the default
-mesh's axes, the metrics switch and the observability plane's journal,
-kernel ledger, SLO and flight-recorder keys).
+mesh's axes, the metrics switch, the observability plane's journal,
+kernel ledger, SLO and flight-recorder keys, the daemon's state directory
+and the fleet's version fence, router and gossip keys).
 Values are settable programmatically or through environment variables
 prefixed ``SRML_TORCH_`` — a prefix of its own, so the port never inherits
 the JAX package's ``SRML_TPU_*`` settings; the deployment-facing
@@ -184,6 +185,35 @@ _DEFAULTS: Dict[str, Any] = {
     "incident_deadline_rate": float(_env("INCIDENT_DEADLINE_RATE", "0.0")),
     "incident_on_fatal": _env("INCIDENT_ON_FATAL", "false").lower()
     not in ("0", "false", "off"),
+    # --- Durable daemons and the routed fleet (serve/{daemon,gossip,router}.py).
+    # The JAX package's defaults; env SRML_TORCH_*, never the JAX package's
+    # SRML_DAEMON_STATE_DIR / SRML_GOSSIP_* / SRML_FLEET_*. ---
+    # The daemon's state directory: its persisted instance identity, the
+    # iterative jobs' pass-boundary snapshots, the daemon-built indexes'
+    # snapshots and the flight recorder's bundles. None = no durability.
+    "daemon_state_dir": _env("DAEMON_STATE_DIR", "") or None,
+    # A serving request whose `version` disagrees with the registration's is
+    # refused (True) or answered with a warning (False, debugging only).
+    "serve_version_strict": _env("SERVE_VERSION_STRICT", "true").lower()
+    not in ("0", "false", "off"),
+    # How stale the router's polled `health` of a replica may be (also the
+    # re-probe interval of a dead replica).
+    "fleet_health_poll_s": float(_env("FLEET_HEALTH_POLL_S", "1.0")),
+    # Replicas one routed request may try; 0 = one attempt per member.
+    "fleet_failover_attempts": int(_env("FLEET_FAILOVER_ATTEMPTS", "0")),
+    # Virtual nodes a replica on the consistent-hash ring.
+    "fleet_vnodes": int(_env("FLEET_VNODES", "64")),
+    # Seconds between a daemon's gossip ticks; 0 = no gossip thread (the
+    # view still answers gossip_pull and merges gossip_push).
+    "gossip_interval_s": float(_env("GOSSIP_INTERVAL_S", "0.0")),
+    # Peers contacted a tick.
+    "gossip_fanout": int(_env("GOSSIP_FANOUT", "2")),
+    # How long retired-replica and retired-version tombstones gossip before
+    # they are pruned; 0 = kept for ever.
+    "gossip_tombstone_ttl_s": float(_env("GOSSIP_TOMBSTONE_TTL_S", "600.0")),
+    # Comma-separated "host:port" seeds a FleetClient bootstraps from when
+    # none are passed.
+    "fleet_seed_addresses": _env("FLEET_SEED_ADDRESSES", "") or None,
 }
 
 _lock = threading.Lock()

@@ -11,13 +11,29 @@ and at ``finalize`` runs the eigensolve: the role the reference's JVM
 (``protocol``) is the reference's frozen v1. Serving requests from
 concurrent connections coalesce into padded micro-batches in the daemon's
 :class:`RequestScheduler` (``scheduler``), which sheds with
-:class:`SchedulerBusy` (answered ``busy``). Importing this package loads
-neither JAX nor pyarrow: only the Arrow ops import pyarrow, at use.
+:class:`SchedulerBusy` (answered ``busy``). Replicas of a served model form
+a fleet: each daemon gossips a :class:`FleetView` (``gossip``), and a
+:class:`FleetClient` (``router``) routes requests over a
+:class:`ConsistentHashRing` of them, failing over past dead and busy
+replicas, its :class:`RoutingTable` bootstrapped from one seed daemon
+(:func:`bootstrap_table`). Importing this package loads neither JAX nor
+pyarrow: only the Arrow ops import pyarrow, at use.
 """
 
 from spark_rapids_ml_tpu_torch.serve.client import DaemonBusy, DataPlaneClient
 from spark_rapids_ml_tpu_torch.serve.daemon import DataPlaneDaemon
+from spark_rapids_ml_tpu_torch.serve.gossip import FleetView
+from spark_rapids_ml_tpu_torch.serve.router import (
+    ConsistentHashRing,
+    FleetClient,
+    FleetUnavailable,
+    RoutingTable,
+    bootstrap_table,
+)
 from spark_rapids_ml_tpu_torch.serve.scheduler import RequestScheduler, SchedulerBusy
 
-__all__ = ["DaemonBusy", "DataPlaneClient", "DataPlaneDaemon", "RequestScheduler",
-           "SchedulerBusy"]
+__all__ = [
+    "ConsistentHashRing", "DaemonBusy", "DataPlaneClient", "DataPlaneDaemon",
+    "FleetClient", "FleetUnavailable", "FleetView", "RequestScheduler", "RoutingTable",
+    "SchedulerBusy", "bootstrap_table",
+]

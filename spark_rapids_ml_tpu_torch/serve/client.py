@@ -97,6 +97,13 @@ class DaemonBusy(RuntimeError):
         self.retry_after_s = float(retry_after_s)
 
 
+def _with_meta(arrays, resp: Dict[str, Any], with_meta: bool):
+    """``arrays``, or ``(arrays, the ack's fields)`` with ``with_meta``."""
+    if not with_meta:
+        return arrays
+    return arrays, {k: v for k, v in resp.items() if k not in ("ok", "arrays")}
+
+
 class DataPlaneClient:
     """One connection to a daemon; one client per thread."""
 
@@ -348,6 +355,20 @@ class DataPlaneClient:
         epoch."""
         resp, _ = self._roundtrip({"op": "health"})
         return {k: v for k, v in resp.items() if k != "ok"}
+
+    def gossip_push(self, view: Dict[str, Any]) -> Dict[str, Any]:
+        """Push a FleetView wire dict (``serve/gossip.FleetView.to_wire``);
+        the ack carries the daemon's own ``view`` back (push-pull in one
+        round trip), ``merged`` (the records it adopted) and its identity."""
+        resp, _ = self._roundtrip({"op": "gossip_push", "view": view})
+        return {k: v for k, v in resp.items() if k != "ok"}
+
+    def gossip_pull(self) -> Dict[str, Any]:
+        """The daemon's gossiped FleetView wire dict: what a client builds
+        its routing table from, given one seed address."""
+        resp, _ = self._roundtrip({"op": "gossip_pull"})
+        view = resp.get("view")
+        return view if isinstance(view, dict) else {}
 
     def metrics(self, format: str = "json"):
         """The daemon process's metrics registry: ``format="json"`` returns
@@ -694,12 +715,17 @@ class DataPlaneClient:
     # -- model serving -----------------------------------------------------
 
     def ensure_model(self, name: str, algo: str, arrays: Dict[str, np.ndarray],
-                     params: Optional[Dict[str, Any]] = None) -> bool:
+                     params: Optional[Dict[str, Any]] = None,
+                     version: Optional[int] = None) -> bool:
         """Register a fitted model for serving (idempotent; the first caller
         wins). ``arrays`` is the model's ``_model_data()``; raw frames
-        follow the JSON header. True when this call created it."""
+        follow the JSON header. ``version`` pins the registration to a
+        fleet model version, immutable under the name: a serving request
+        carrying another ``version`` is refused. True when this call
+        created it."""
         resp = self._send_arrays_op(
-            {"op": "ensure_model", "model": name, "algo": algo, "params": params or {}},
+            {"op": "ensure_model", "model": name, "algo": algo, "params": params or {},
+             "version": version},
             arrays,
         )
         return bool(resp["created"])
@@ -710,21 +736,39 @@ class DataPlaneClient:
 
     def transform(self, name: str, data, input_col: str = "features",
                   n_cols: Optional[int] = None,
-                  deadline_s: Optional[float] = None) -> Dict[str, np.ndarray]:
+                  deadline_s: Optional[float] = None, version: Optional[int] = None,
+                  fleet_epoch: Optional[int] = None, with_meta: bool = False):
         """Run a registered model over one batch on the daemon's device:
         the role-keyed outputs of the model's ``_serve_outputs`` ({"output"}
         for PCA, {"prediction"} for KMeans and LinearRegression,
         {"rawPrediction", "probability", "prediction"} for
         LogisticRegression). ``deadline_s``: the request's latency budget;
         the serving scheduler sheds it with ``busy`` when its backlog would
-        already miss it."""
-        _, arrays = self._op(
+        already miss it. ``version``/``fleet_epoch``: the fleet's routing
+        pin; a versioned registration refuses another ``version`` and the
+        ack echoes both. ``with_meta``: return ``(arrays, meta)``, ``meta``
+        the ack's fields (``rows``, ``version``, ``fleet_epoch``)."""
+        resp, arrays = self._op(
             {"op": "transform", "model": name, "input_col": input_col, "n_cols": n_cols,
-             "deadline_s": deadline_s},
+             "deadline_s": deadline_s, "version": version, "fleet_epoch": fleet_epoch},
             payload=self._to_ipc(data, input_col),
             want_arrays=True,
         )
-        return arrays
+        return _with_meta(arrays, resp, with_meta)
+
+    def transform_raw(self, name: str, x: np.ndarray, deadline_s: Optional[float] = None,
+                      version: Optional[int] = None, fleet_epoch: Optional[int] = None,
+                      with_meta: bool = False):
+        """:meth:`transform` with the rows as a raw ``x`` frame, for a caller
+        without an Arrow library (the port's daemon reads both forms; the
+        JAX daemon reads only Arrow)."""
+        x = np.asarray(x)
+        resp, arrays = self._op(
+            {"op": "transform", "model": name, "n_cols": int(x.shape[1]),
+             "deadline_s": deadline_s, "version": version, "fleet_epoch": fleet_epoch},
+            arrays={"x": x}, want_arrays=True,
+        )
+        return _with_meta(arrays, resp, with_meta)
 
     def warmup(self, name: str, n_cols: int, k: Optional[int] = None, dtype: str = "float32",
                kind: Optional[str] = None) -> Dict[str, Any]:
@@ -743,28 +787,32 @@ class DataPlaneClient:
 
     def kneighbors(self, model: str, queries, k: Optional[int] = None,
                    input_col: str = "features", n_cols: Optional[int] = None,
-                   deadline_s: Optional[float] = None) -> Tuple[np.ndarray, np.ndarray]:
+                   deadline_s: Optional[float] = None, version: Optional[int] = None,
+                   fleet_epoch: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
         """Query a daemon-built index with one batch (an (q, d) ndarray or an
         Arrow table, sent as Arrow IPC): (distances (q, k) float64, indices
         (q, k) int64 global row ids). ``k`` None: the index's fitted k.
-        ``deadline_s``: the latency budget, as in :meth:`transform`."""
+        ``deadline_s`` and ``version``/``fleet_epoch``: as in
+        :meth:`transform`."""
         _, arrays = self._op(
             {"op": "kneighbors", "model": model, "k": k, "input_col": input_col,
-             "n_cols": n_cols, "deadline_s": deadline_s},
+             "n_cols": n_cols, "deadline_s": deadline_s, "version": version,
+             "fleet_epoch": fleet_epoch},
             payload=self._to_ipc(queries, input_col),
             want_arrays=True,
         )
         return arrays["distances"], arrays["indices"]
 
     def kneighbors_raw(self, model: str, x: np.ndarray, k: Optional[int] = None,
-                       deadline_s: Optional[float] = None) -> Tuple[np.ndarray, np.ndarray]:
+                       deadline_s: Optional[float] = None, version: Optional[int] = None,
+                       fleet_epoch: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
         """:meth:`kneighbors` with the queries as a raw ``x`` frame, for a
         caller without an Arrow library (the port's daemon reads both
         forms; the JAX daemon reads only Arrow)."""
         x = np.asarray(x)
         _, arrays = self._op(
             {"op": "kneighbors", "model": model, "k": k, "n_cols": int(x.shape[1]),
-             "deadline_s": deadline_s},
+             "deadline_s": deadline_s, "version": version, "fleet_epoch": fleet_epoch},
             arrays={"x": x}, want_arrays=True,
         )
         return arrays["distances"], arrays["indices"]

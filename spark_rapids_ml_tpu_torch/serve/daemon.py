@@ -64,12 +64,14 @@ cap; an optional shared ``token`` is checked in constant time on every
 op; past a connection or staged-bytes watermark, ops that add load are
 shed with ``busy`` and a ``retry_after_s`` hint.
 
-Beyond the reference, ``seed`` and ``kneighbors`` also take their rows as
-raw ``arrays`` frames (the ``feed_raw`` framing, array ``x``) in place of
-the Arrow payload, for a caller without an Arrow library; the JAX daemon
-reads only the Arrow form. An ivf finalize always runs the host-bucketed
-``build_ivf_flat`` (``build`` "auto" or "host"); the reference's device
-build (``build="device"``, and "auto" under its HBM cap) is refused.
+Beyond the reference, ``seed``, ``transform`` and ``kneighbors`` also
+take their rows as raw ``arrays`` frames (the ``feed_raw`` framing, array
+``x``) in place of the Arrow payload, for a caller without an Arrow
+library; the JAX daemon reads only the Arrow form. ``ensure_model`` also
+registers an exact index (algo "knn", arrays ``{"database"}``). An ivf
+finalize always runs the host-bucketed ``build_ivf_flat`` (``build``
+"auto" or "host"); the reference's device build (``build="device"``, and
+"auto" under its HBM cap) is refused.
 
 The multi-daemon fit plane: ``merge_state`` folds a peer daemon's
 exported state into a job (the driver's hub), and ``mesh_info`` and
@@ -121,19 +123,47 @@ cursor; ``telemetry_pull`` answers the registry as OpenMetrics text with
 exemplars and as JSON, the kernel ledger (``utils/xprof.py``) and the
 config fingerprint. Neither is shed or journaled.
 
-Left for a later slice of the port (ROADMAP Queue 1 item 7a-ii): durable
-``state_dir`` snapshots (``health`` reports ``durable: false``); until
-then the flight recorder has no ``state_dir`` and writes no bundle, as a
-reference daemon started without one. A feed naming an unknown ``algo``, or
-an ``ensure_model`` naming an unknown model, is refused before a job or
-model is registered.
+Crash recovery (docs/protocol.md "Crash recovery"), as in the reference:
+with a ``state_dir`` (config ``daemon_state_dir``) the daemon persists its
+instance identity there, so a restarted daemon keeps its ``instance_id``
+(``boot_id`` is fresh every start), and write-ahead-snapshots the kmeans,
+logreg and rf jobs at every pass boundary (``seed``, ``step``,
+``set_iterate``: the iterate, the pass counter and the creation params,
+atomic tmp+rename through ``core/checkpoint.py``) before the boundary's
+ack; a restarted daemon restores a job lazily at its first mention.
+Pass-local state (stages, the pass's statistics, dedupe memories) dies
+with the incarnation: the recovery unit is the pass, which the driver
+replays. pca, linreg and knn jobs are single-pass, so their recovery unit
+is the driver's scan. A knn finalize snapshots the built index before its
+ack, and the index too is restored at its first mention (``transform``,
+``kneighbors``, ``warmup``, ``model_status``); ``ensure_model``
+registrations stay volatile (their clients hold the arrays). The reaper
+keeps a live index's snapshot fresh, holds an evicted one on disk 8× the
+TTL, and sweeps orphan job snapshots and crashed writes' temp files. The
+flight recorder's bundles land under ``state_dir/incidents/``.
+
+The fleet, as in the reference: ``ensure_model`` takes an immutable
+``version``, and ``transform``/``kneighbors`` carrying another ``version``
+are refused under ``serve_version_strict``; every serving ack echoes the
+registration's ``version`` and the request's ``fleet_epoch``. Each daemon
+holds a gossiped ``FleetView`` (``serve/gossip.py``) with its own replica
+record, answers ``gossip_pull``, merges ``gossip_push`` (answering with
+its view), and with ``gossip_interval_s`` > 0 runs a thread that exchanges
+the view with ``gossip_fanout`` peers a tick (fault site ``gossip.push``).
+
+A feed naming an unknown ``algo``, or an ``ensure_model`` naming an
+unknown model, is refused before a job or model is registered.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import hmac
+import json
 import math
+import os
+import random
 import socket
 import threading
 import time
@@ -145,6 +175,7 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch import config
+from spark_rapids_ml_tpu_torch.core import checkpoint as checkpoint_mod
 from spark_rapids_ml_tpu_torch.models import kmeans as km_mod
 from spark_rapids_ml_tpu_torch.models import knn as knn_mod
 from spark_rapids_ml_tpu_torch.models import linear_regression as lr_mod
@@ -156,6 +187,7 @@ from spark_rapids_ml_tpu_torch.ops import gram as gram_ops
 from spark_rapids_ml_tpu_torch.ops import histogram as hist_ops
 from spark_rapids_ml_tpu_torch.parallel import membership as membership_mod
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device
+from spark_rapids_ml_tpu_torch.serve import gossip as gossip_mod
 from spark_rapids_ml_tpu_torch.serve import protocol
 from spark_rapids_ml_tpu_torch.serve import scheduler as scheduler_mod
 from spark_rapids_ml_tpu_torch.utils import faults
@@ -182,10 +214,10 @@ _PAYLOAD_OPS = ("feed", "seed", "transform", "kneighbors")
 
 #: Ops whose raw array frames follow the request per its ``arrays`` spec.
 _ARRAY_OPS = ("ensure_model", "merge_state", "set_iterate", "feed_raw", "finalize", "seed",
-              "kneighbors")
+              "kneighbors", "transform")
 
 #: Payload ops that take raw ``arrays`` frames in place of the Arrow frame.
-_RAW_OR_ARROW_OPS = ("seed", "kneighbors")
+_RAW_OR_ARROW_OPS = ("seed", "kneighbors", "transform")
 
 #: Ops shed with `busy` + retry_after_s over a watermark: the ones that
 #: ADD load. Pressure-relieving ops (commit, finalize, drop) and O(1)
@@ -204,7 +236,8 @@ _KNOWN_OPS = frozenset((
     "commit", "step", "finalize", "drop", "export_state", "merge_state",
     "get_iterate", "set_iterate", "ensure_model", "transform",
     "kneighbors", "model_status", "drop_model", "warmup", "sample_rows",
-    "mesh_info", "reduce_mesh", "telemetry_pull", "trace_pull",
+    "mesh_info", "reduce_mesh", "gossip_push", "gossip_pull",
+    "telemetry_pull", "trace_pull",
 ))
 
 
@@ -217,7 +250,8 @@ def _op_label(op) -> str:
 #: liveness probes and scrapes, which would bury a fit's tree under
 #: polling noise.
 _UNJOURNALED_OPS = frozenset((
-    "ping", "health", "metrics", "model_status", "telemetry_pull", "trace_pull",
+    "ping", "health", "metrics", "model_status", "gossip_push",
+    "gossip_pull", "telemetry_pull", "trace_pull",
 ))
 
 
@@ -278,6 +312,11 @@ _M_JOBS = metrics_mod.gauge(
 _M_MODELS = metrics_mod.gauge(
     "srml_daemon_served_models", "Registered served models (at scrape)"
 )
+_M_JOB_RESTORES = metrics_mod.counter(
+    "srml_daemon_job_restores_total",
+    "Jobs resurrected from durable pass-boundary state after a restart, "
+    "by algo",
+)
 _M_MODEL_EVICTIONS = metrics_mod.counter(
     "srml_daemon_model_evictions_total",
     "Served models evicted from the registry, by reason (lru = over the "
@@ -287,6 +326,11 @@ _M_MESH_REDUCES = metrics_mod.counter(
     "srml_daemon_mesh_reduces_total",
     "On-mesh collective reduces applied (reduce_mesh op: co-resident "
     "peer partials folded on the device plane, no driver hub), by algo",
+)
+_M_GOSSIP_TICKS = metrics_mod.counter(
+    "srml_gossip_ticks_total",
+    "Gossip-thread ticks run, by outcome (ok = every contacted peer "
+    "exchanged; partial = some peer push dropped this tick)",
 )
 
 #: Cap on a request's declared raw-array frames (_recv_arrays_aligned): a
@@ -391,6 +435,18 @@ def _recv_arrow_matrix(conn, op: str, input_col: str, n_cols, label_col=None):
         return x, np.asarray(table.column(label_col).to_numpy(zero_copy_only=False))
 
 
+def _recv_raw_matrix(conn, req: Dict[str, Any], op: str) -> np.ndarray:
+    """The 2-D ``x`` of a request's raw ``arrays`` frames, held to its
+    declared ``n_cols``."""
+    x = _recv_arrays_aligned(conn, req).get("x")
+    if x is None or x.ndim != 2:
+        raise ValueError(f"a raw {op} needs a 2-D 'x' array in the request spec")
+    n_cols = req.get("n_cols")
+    if n_cols is not None and int(n_cols) != x.shape[1]:
+        raise ValueError(f"{op} 'x' width {x.shape[1]} != declared n_cols {n_cols}")
+    return x
+
+
 def _send_arrays_counted(conn, op: str, arrays, meta) -> None:
     """``protocol.send_arrays`` and the per-op TX byte count (array bytes;
     the JSON headers are noise beside the frames)."""
@@ -475,7 +531,13 @@ class _Job:
         self.algo = algo
         self.n_cols = n_cols
         self.device = device
+        # Creation params, kept verbatim (JSON-able): a durable snapshot
+        # stores them, so a restore can re-run this constructor.
         self.params = dict(params)
+        # Durability hook (None = off): called under the job lock at every
+        # pass boundary (seed, step, set_iterate) BEFORE the op acks, so an
+        # acked boundary is a recoverable one.
+        self.snapshot_cb = None
         self.lock = threading.Lock()
         self.rows = 0
         self.pass_rows = 0
@@ -633,6 +695,9 @@ class _Job:
                 raise KeyError("job was finalized/dropped")
             if self.centers is None:  # a retried seed keeps the first init
                 self._seed_locked(x)
+                # The seeded centres are the pass-0 boundary: a restarted
+                # daemon reopens pass 0 at the same centres.
+                self._maybe_snapshot()
             self.touched = self._clock()
 
     def _is_replay(self, feed_id: Optional[str], stage: Optional[_Stage]) -> bool:
@@ -1155,6 +1220,28 @@ class _Job:
         else:
             raise ValueError(f"algo {self.algo!r} is single-pass; set_iterate not applicable")
 
+    def durable_arrays(self) -> Dict[str, np.ndarray]:
+        """The iterate a pass-boundary snapshot stores (under the job lock):
+        the extraction ``get_iterate`` answers, so the two cannot drift.
+        The pass's accumulators are left out: at a boundary they are zero,
+        so a snapshot is O(iterate)."""
+        if self.algo not in ("kmeans", "logreg", "rf"):
+            return {}
+        if self.algo == "kmeans" and self.centers is None:
+            return {}
+        if self.algo == "rf" and self.rf_tables is None:
+            return {}
+        return self._iterate_arrays()
+
+    def _maybe_snapshot(self) -> None:
+        """Write the pass-boundary snapshot when durability is armed (under
+        the job lock, before the boundary's ack). A failed write fails the
+        op: losing durability silently would turn the next crash into the
+        loss the snapshot exists to prevent."""
+        cb = self.snapshot_cb
+        if cb is not None:
+            cb(self)
+
     def get_iterate(self):
         """(iterate arrays, {"iteration"}) of an iterative job."""
         with self.lock:
@@ -1179,6 +1266,7 @@ class _Job:
                 self.state = self._zero_state()
             self._clear_pass()
             self.iteration = int(iteration)
+            self._maybe_snapshot()  # a pushed iterate is a pass boundary too
             self.touched = self._clock()
 
     def step(self, params: Dict[str, Any], step_id: Optional[str] = None) -> Dict[str, Any]:
@@ -1230,6 +1318,10 @@ class _Job:
                 self.state = self._zero_state()
             self.iteration += 1
             info["pass_rows"] = pass_rows
+            # The per-pass durability point: the snapshot lands before the
+            # step's ack, so a daemon dying after here reopens at this
+            # boundary.
+            self._maybe_snapshot()
             self._last_step_id = None if step_id is None else str(step_id)
             self._last_step_info = dict(info)
             self.touched = self._clock()  # exit stamp
@@ -1315,7 +1407,9 @@ class _Job:
 
 
 #: Wire algo → the model class a served registration rebuilds from its
-#: ``_model_data()`` arrays (the reference's ``_model_class``).
+#: ``_model_data()`` arrays (the reference's ``_model_class``). Beyond the
+#: reference, "knn" registers an exact index (``{"database"}``), so a fleet
+#: can serve one from every replica.
 _MODEL_CLASSES = {
     "pca": PCAModel,
     "kmeans": km_mod.KMeansModel,
@@ -1324,6 +1418,7 @@ _MODEL_CLASSES = {
     "scaler": StandardScalerModel,
     "rf_classifier": rf_mod.RandomForestClassificationModel,
     "rf_regressor": rf_mod.RandomForestRegressionModel,
+    "knn": knn_mod.NearestNeighborsModel,
 }
 
 
@@ -1340,7 +1435,7 @@ class _ServedModel:
     connections. ``ttl_scale`` multiplies the reaper's TTL: 1 for an
     ``ensure_model`` registration (its client re-registers on a miss), 8
     for a daemon-built index (:meth:`from_model`), which nothing can
-    re-create.
+    re-create, and 1 again once a durable daemon has snapshotted it.
 
     ``buckets``: the daemon's serving ladder. A transform of n rows, n up to
     the top bucket, runs padded to the smallest bucket that holds n, as the
@@ -1365,6 +1460,8 @@ class _ServedModel:
         self.id_map: Optional[np.ndarray] = None
         self.ttl_scale = 1.0
         self.buckets = buckets
+        # The fleet's immutable version pin (ensure_model's ``version``).
+        self.version: Optional[int] = None
 
     @classmethod
     def from_model(cls, algo: str, model, clock=time.monotonic, id_map=None,
@@ -1383,6 +1480,7 @@ class _ServedModel:
         obj.id_map = None if id_map is None else np.asarray(id_map, np.int64)
         obj.ttl_scale = 8.0
         obj.buckets = buckets
+        obj.version = None
         return obj
 
     def transform(self, x) -> Dict[str, Any]:
@@ -1444,6 +1542,8 @@ def _model_width(algo: str, arrays: Dict[str, np.ndarray]) -> Optional[int]:
             return int(np.asarray(c).shape[1])
         if algo in ("rf_classifier", "rf_regressor"):
             return int(np.asarray(arrays["bin_edges"]).shape[0])
+        if algo == "knn":
+            return int(np.asarray(arrays["database"]).shape[1])
     except (KeyError, IndexError):
         return None
     return None
@@ -1479,6 +1579,10 @@ class DataPlaneDaemon:
     ``start()`` raises without one. Binds loopback by default; on a cluster,
     bind the host's NIC and keep the port reachable from executors only.
     ``serve_batching``: run the serving scheduler (None: the config key).
+    ``state_dir``: the durable state's directory (None: the config key
+    ``daemon_state_dir``; unset, nothing is persisted).
+    ``gossip_interval_s``, ``gossip_fanout``: the gossip thread's cadence
+    (0: no thread) and peers a tick (None: the config keys).
     """
 
     def __init__(
@@ -1495,6 +1599,9 @@ class DataPlaneDaemon:
         retry_after_s: Optional[float] = None,
         max_models: Optional[int] = None,
         serve_batching: Optional[bool] = None,
+        state_dir: Optional[str] = None,
+        gossip_interval_s: Optional[float] = None,
+        gossip_fanout: Optional[int] = None,
     ):
         self._host, self._port = host, port
         self._device_arg = device
@@ -1535,16 +1642,39 @@ class DataPlaneDaemon:
         self._conn_threads: set = set()
         self._conns_lock = threading.Lock()
         # Self-reported identity (address spellings alias) and the per-boot
-        # incarnation id stamped on every state ack.
+        # incarnation id stamped on every state ack. With a state_dir the
+        # identity is persisted there: a restarted daemon is the same
+        # logical daemon (it restores its jobs), not a new peer mid-fit.
         self.instance_id = uuid.uuid4().hex[:12]
         self.boot_id = uuid.uuid4().hex[:12]
+        sd = config.get("daemon_state_dir") if state_dir is None else state_dir
+        self._state_dir = str(sd) if sd else None
+        if self._state_dir is not None:
+            os.makedirs(self._state_dir, exist_ok=True)
+            self.instance_id = self._durable_identity()
         self._jobs: Dict[str, _Job] = {}
         self._jobs_lock = threading.Lock()
+        # Single-files durable restores (after a restart only): the first
+        # scan's N feed tasks would otherwise all miss the registry and run
+        # N restores of one job.
+        self._restore_lock = threading.Lock()
         self._models: Dict[str, _ServedModel] = {}
         self._models_lock = threading.Lock()
         self._sock: Optional[socket.socket] = None
         self._accept_thread: Optional[threading.Thread] = None
         self._reaper_thread: Optional[threading.Thread] = None
+        # The gossip plane (serve/gossip.py): this daemon's FleetView and the
+        # anti-entropy thread's cadence (0: no thread; the view still answers
+        # gossip_pull and merges gossip_push).
+        self._gossip_interval_s = float(
+            config.get("gossip_interval_s") if gossip_interval_s is None else gossip_interval_s)
+        self._gossip_fanout = max(int(
+            config.get("gossip_fanout") if gossip_fanout is None else gossip_fanout), 1)
+        self.fleet_view = gossip_mod.FleetView()
+        # Peer choice seeded from the boot id: two daemons of one process
+        # never walk the same peer sequence.
+        self._gossip_rng = random.Random(self.boot_id)
+        self._gossip_thread: Optional[threading.Thread] = None
         # The telemetry plane: the journal ring's size, the evaluation
         # thread's cadence (0: no thread; the pull ops still answer), the
         # flight recorder and the SLO evaluator (built at start()).
@@ -1573,6 +1703,17 @@ class DataPlaneDaemon:
                 buckets=self._buckets, retry_after_s=self._retry_after_s
             ).start()
         self._started = self._clock()
+        # This daemon is now a member of the process's device plane: the
+        # registration (a durable identity's re-registration after a restart
+        # too) bumps the membership epoch, so a collective reduce planned
+        # before it re-reads mesh_info.
+        membership_mod.registry().register(self.instance_id, self.boot_id, self)
+        # Its own replica record enters its view now that the port is bound,
+        # at an epoch of the plane the registration just bumped: a rebooted
+        # daemon's record dominates every view that holds its old boot.
+        adv_host = "127.0.0.1" if self._host in ("0.0.0.0", "::", "") else self._host
+        self.fleet_view.observe_replica(self.instance_id, f"{adv_host}:{self._port}",
+                                        self.boot_id, liveness="up")
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="srml-dataplane-accept", daemon=True
         )
@@ -1582,24 +1723,24 @@ class DataPlaneDaemon:
                 target=self._reap_loop, name="srml-dataplane-reaper", daemon=True
             )
             self._reaper_thread.start()
-        # This daemon is now a member of the process's device plane: the
-        # registration bumps the membership epoch, so a collective reduce
-        # planned before it re-reads mesh_info.
-        membership_mod.registry().register(self.instance_id, self.boot_id, self)
+        if self._gossip_interval_s > 0:
+            self._gossip_thread = threading.Thread(
+                target=self._gossip_loop, name="srml-dataplane-gossip", daemon=True
+            )
+            self._gossip_thread.start()
         # The telemetry plane: the journal ring (trace_pull's and the
         # recorder's events, with or without a journal file), the flight
-        # recorder as the process default, subscribed to fired fault sites,
-        # and the evaluation thread. No state_dir until ROADMAP 7a-ii: the
-        # recorder then writes no bundle, as a reference daemon without one.
+        # recorder as the process default (its bundles under
+        # state_dir/incidents/; none without a state_dir), subscribed to
+        # fired fault sites, and the evaluation thread.
         if self._trace_buffer > 0:
             journal.ring_arm(self._trace_buffer)
             self._ring_armed = True
-        adv_host = "127.0.0.1" if self._host in ("0.0.0.0", "::", "") else self._host
         self._flight = flight_mod.FlightRecorder(
-            state_dir=None,
+            state_dir=self._state_dir,
             providers={
                 "identity": lambda: {**self._identity(), "addr": f"{adv_host}:{self._port}"},
-                "gossip": lambda: None,
+                "gossip": self.fleet_view.to_wire,
             },
         )
         flight_mod.set_default(self._flight)
@@ -1676,6 +1817,8 @@ class DataPlaneDaemon:
             self._accept_thread.join(timeout=5)
         if self._reaper_thread is not None:
             self._reaper_thread.join(timeout=5)
+        if self._gossip_thread is not None:
+            self._gossip_thread.join(timeout=5)
         # After the connection threads: their trailing journal lines (the op
         # span is written after the ack) land in the ring before it goes.
         if self._telemetry_thread is not None:
@@ -1746,6 +1889,154 @@ class DataPlaneDaemon:
         """The ack stamp: instance id and per-boot incarnation id."""
         return {"id": self.instance_id, "boot_id": self.boot_id}
 
+    # -- durable state (crash recovery; docs/protocol.md) --------------------
+
+    def _durable_identity(self) -> str:
+        """Load, or first write, the persisted instance id (tmp+rename)."""
+        path = os.path.join(self._state_dir, "identity.json")
+        try:
+            with open(path, encoding="utf-8") as f:
+                ident = str(json.load(f)["instance_id"])
+            if ident:
+                return ident
+        except (OSError, ValueError, KeyError, TypeError):
+            pass
+        tmp = f"{path}.{uuid.uuid4().hex[:8]}.tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"instance_id": self.instance_id}, f)
+        os.replace(tmp, path)
+        return self.instance_id
+
+    def _state_path(self, kind: str, name: str) -> str:
+        """The snapshot file of a job or a model: a readable sanitized prefix
+        of the caller-chosen name and a digest, so two names that sanitize
+        alike never share a file."""
+        safe = "".join(c if c.isalnum() or c in "._-" else "_" for c in name)[:64]
+        digest = hashlib.sha1(name.encode()).hexdigest()[:10]
+        return os.path.join(self._state_dir, f"{kind}-{safe}-{digest}.npz")
+
+    def _job_state_path(self, name: str) -> str:
+        return self._state_path("job", name)
+
+    def _model_state_path(self, name: str) -> str:
+        return self._state_path("model", name)
+
+    def _save_job_state(self, name: str, job: _Job) -> None:
+        """The snapshot_cb target (under the job lock at a pass boundary,
+        before its ack): the iterate and what a restore needs to re-run the
+        job's constructor."""
+        with trace_span("daemon snapshot write"):
+            checkpoint_mod.save_state(self._job_state_path(name), job.durable_arrays(), {
+                "name": name, "algo": job.algo, "n_cols": job.n_cols, "params": job.params,
+                "iteration": job.iteration, "rows": job.rows, "boot_id": self.boot_id,
+            })
+
+    def _discard_job_state(self, name: str) -> None:
+        """A finalized, dropped or evicted job must not resurrect."""
+        if self._state_dir is not None:
+            checkpoint_mod.discard_state(self._job_state_path(name))
+
+    def _attach_durability(self, name: str, job: _Job) -> None:
+        """Arm the pass-boundary snapshots of an iterative job. pca, linreg
+        and knn jobs have no boundary before finalize: their recovery unit
+        is the driver's scan."""
+        if self._state_dir is None or job.algo not in ("kmeans", "logreg", "rf"):
+            return
+        job.snapshot_cb = lambda j, _n=name: self._save_job_state(_n, j)
+
+    def _restore_job(self, name: str) -> Optional[_Job]:
+        """A job from its pass-boundary snapshot: the constructor re-run from
+        the persisted params, the iterate and the pass counter installed.
+        Pass-local state died with the old incarnation: the job reopens at
+        the boundary the snapshot recorded. A snapshot that does not load
+        or install raises: nothing is served from an empty job."""
+        with trace_span("daemon restore"):
+            data = checkpoint_mod.load_state(self._job_state_path(name))
+            if data is None:
+                return None
+            arrays, meta = data
+            job = _Job(str(meta["algo"]), int(meta["n_cols"]), self._device,
+                       meta.get("params") or {}, clock=self._clock)
+            with job.lock:
+                if arrays:
+                    # The wire set_iterate's validation and install.
+                    job._install_iterate(arrays)
+                    if job.algo == "rf":
+                        # The forest reopens with a zero histogram of the
+                        # installed depth's frontier (the wire path gets it
+                        # from set_iterate's tail, which a restore skips).
+                        with _DEVICE_LOCK:
+                            job.state = job._zero_state()
+                job.iteration = int(meta["iteration"])
+                job.rows = int(meta["rows"])
+                job.touched = self._clock()
+        self._attach_durability(name, job)
+        _M_JOB_RESTORES.inc(algo=str(job.algo))  # the constructor admits only known algos
+        logger.warning("restored job %r from durable state at pass %d (%d rows committed; "
+                       "snapshot by boot %s, this boot %s)", name, job.iteration, job.rows,
+                       meta.get("boot_id"), self.boot_id)
+        return job
+
+    def _save_model_state(self, name: str, served: _ServedModel) -> bool:
+        """Snapshot a daemon-built index before the finalize's ack (an acked
+        build is a restorable one); ``ensure_model`` registrations stay
+        volatile. The port's index arrays are host numpy, so no device
+        lock is taken. True when a snapshot was written."""
+        if self._state_dir is None:
+            return False
+        model = served.model
+        arrays = {k: np.asarray(v) for k, v in model._model_data().items() if v is not None}
+        if served.id_map is not None:
+            arrays["id_map"] = np.asarray(served.id_map, np.int64)
+        params = {p: model.getOrDefault(p) for p in ("metric", "nprobe") if model.hasParam(p)}
+        with trace_span("daemon snapshot write"):
+            checkpoint_mod.save_state(self._model_state_path(name), arrays, {
+                "name": name, "algo": served.algo, "params": params,
+                "sharded": False,  # the port shards no index in one daemon
+                "boot_id": self.boot_id,
+            })
+        return True
+
+    def _discard_model_state(self, name: str) -> None:
+        if self._state_dir is not None:
+            checkpoint_mod.discard_state(self._model_state_path(name))
+
+    def _touch_model_state(self, name: str) -> None:
+        """Restart an evicted index's disk-retention clock."""
+        if self._state_dir is None:
+            return
+        try:
+            os.utime(self._model_state_path(name), None)
+        except OSError:
+            pass
+
+    def _restore_model(self, name: str) -> Optional[_ServedModel]:
+        """A daemon-built index from its snapshot: the core model rebuilt
+        from the persisted arrays, its serving params re-pinned. It reaps at
+        the plain TTL: the snapshot can re-create it."""
+        with trace_span("daemon restore"):
+            data = checkpoint_mod.load_state(self._model_state_path(name))
+            if data is None:
+                return None
+            arrays, meta = data
+            arrays = dict(arrays)
+            id_map = arrays.pop("id_map", None)
+            algo = str(meta["algo"])
+            cls = (knn_mod.ApproximateNearestNeighborsModel if algo == "ann"
+                   else knn_mod.NearestNeighborsModel)
+            model = cls._from_model_data("served", arrays)
+            model._device = self._device
+            known = {k: v for k, v in (meta.get("params") or {}).items() if model.hasParam(k)}
+            if known:
+                model._set(**known)
+        served = _ServedModel.from_model(algo, model, clock=self._clock, id_map=id_map,
+                                         buckets=self._buckets)
+        served.ttl_scale = 1.0
+        logger.warning("restored served model %r from its durable snapshot (%s index; "
+                       "snapshot by boot %s, this boot %s)", name, algo, meta.get("boot_id"),
+                       self.boot_id)
+        return served
+
     def _reap_loop(self) -> None:
         interval = (
             self._reap_interval if self._reap_interval is not None
@@ -1757,7 +2048,8 @@ class DataPlaneDaemon:
     def _reap_once(self) -> None:
         """Evict jobs and models idle longer than ``ttl`` (one reaper tick):
         a Spark driver that crashed between feed and finalize must not leak d × d
-        device buffers forever."""
+        device buffers forever. With a state_dir, also keep the live indexes'
+        snapshots fresh and sweep orphan snapshots."""
         now = self._clock()
         evicted = []
         # Check-and-remove under BOTH locks (registry, then job); a job
@@ -1770,6 +2062,9 @@ class DataPlaneDaemon:
                     continue
                 try:
                     if now - job.touched > self._ttl:
+                        # The snapshot first (see _drop_job): an evicted
+                        # job must not be resurrectable.
+                        self._discard_job_state(name)
                         job.dropped = True
                         del self._jobs[name]
                         evicted.append((name, job))
@@ -1787,7 +2082,120 @@ class DataPlaneDaemon:
                 del self._models[n]
         for n in stale:
             _M_MODEL_EVICTIONS.inc(reason="ttl")
+            # An evicted durable index is disk-only from now: its snapshot's
+            # retention clock restarts, so the sweep grants the full 8× TTL
+            # from this moment.
+            self._touch_model_state(n)
             logger.warning("evicted idle served model %r", n)
+        if self._state_dir is not None:
+            # A live index's snapshot stays fresh: an index live past 8× the
+            # TTL would otherwise carry its build's mtime, and after a crash
+            # the next boot's sweep could reclaim it before its first mention
+            # restores it. The retention clock counts from eviction or death.
+            with self._models_lock:
+                live_now = list(self._models)
+            for n in live_now:
+                self._touch_model_state(n)
+        self._sweep_orphan_snapshots()
+
+    def _sweep_orphan_snapshots(self) -> None:
+        """The on-disk twin of the reaper: a crashed fit whose driver died
+        too leaves a job snapshot nothing mentions again. Sweep job
+        snapshots with no live job idle past the TTL (boundary writes
+        refresh the mtime, so an in-flight fit's is never swept), evicted
+        index snapshots past 8× the TTL (a live index's never), and temp
+        files of writes that died before their rename, past the TTL."""
+        if self._state_dir is None:
+            return
+        with self._jobs_lock:
+            live = {self._job_state_path(n) for n in self._jobs}
+        with self._models_lock:
+            live_models = {self._model_state_path(n) for n in self._models}
+        try:
+            names = os.listdir(self._state_dir)
+        except OSError:
+            return
+        now_wall = time.time()  # file mtimes are wall-clock
+        for fname in names:
+            path = os.path.join(self._state_dir, fname)
+            if fname.startswith("model-") and fname.endswith(".npz"):
+                if path in live_models:
+                    continue
+                limit, what = self._ttl * 8.0, "served-model snapshot (evicted > 8x ttl)"
+            elif fname.endswith(".tmp"):
+                limit, what = self._ttl, "temp file (a write that crashed)"
+            elif fname.startswith("job-") and fname.endswith(".npz"):
+                if path in live:
+                    continue
+                limit, what = self._ttl, "orphan job snapshot (no live job, idle > ttl)"
+            else:
+                continue
+            try:
+                if now_wall - os.path.getmtime(path) > limit:
+                    os.unlink(path)
+                    logger.warning("swept %s %s", what, fname)
+            except OSError:
+                pass  # raced a restore or a drop, or already gone
+
+    # -- the fleet's gossip plane (serve/gossip.py) -----------------------
+
+    def _gossip_peers(self) -> list:
+        """Up to ``gossip_fanout`` peer addresses from this daemon's view:
+        live replica records other than its own. No lock is held across the
+        exchanges."""
+        peers = [r["addr"] for r in self.fleet_view.replicas(liveness="up")
+                 if r["server_id"] != self.instance_id and r["addr"]]
+        if len(peers) <= self._gossip_fanout:
+            return peers
+        return self._gossip_rng.sample(peers, self._gossip_fanout)
+
+    def _gossip_tick(self) -> Dict[str, int]:
+        """One anti-entropy round: push this view to each chosen peer and
+        merge the peer's view from the ack. A failed peer (dead, busy, or
+        the ``gossip.push`` fault site) drops that exchange for this tick:
+        the view merges only complete acks."""
+        from spark_rapids_ml_tpu_torch.serve.client import DataPlaneClient
+
+        pushed = dropped = 0
+        for addr in self._gossip_peers():
+            host, _, port = addr.rpartition(":")
+            try:
+                faults.checkpoint("gossip.push")
+                with DataPlaneClient(host or "127.0.0.1", int(port), token=self._token,
+                                     timeout=5.0, op_deadline_s=5.0, max_op_attempts=1) as c:
+                    ack = c.gossip_push(self.fleet_view.to_wire())
+                remote = ack.get("view")
+                if isinstance(remote, dict):
+                    self.fleet_view.merge(remote)
+                pushed += 1
+            except Exception as e:
+                dropped += 1
+                logger.debug("gossip push to %s dropped: %s", addr, e)
+        _M_GOSSIP_TICKS.inc(outcome="partial" if dropped else "ok")
+        return {"pushed": pushed, "dropped": dropped}
+
+    def _gossip_loop(self) -> None:
+        """One tick every ``gossip_interval_s`` until stop. Socket work only:
+        it takes no daemon lock and never touches the device."""
+        while not self._stop.wait(self._gossip_interval_s):
+            try:
+                self._gossip_tick()
+            except Exception:
+                logger.exception("gossip tick failed")
+
+    def _op_gossip_push(self, conn, req: Dict[str, Any]) -> None:
+        """Merge the sender's view and answer with this one (the pull half
+        of push-pull). Never shed, never journaled."""
+        remote = req.get("view")
+        merged = self.fleet_view.merge(remote) if isinstance(remote, dict) else 0
+        protocol.send_json(conn, {"ok": True, "merged": merged,
+                                  "view": self.fleet_view.to_wire(), **self._identity()})
+
+    def _op_gossip_pull(self, conn) -> None:
+        """This daemon's FleetView, read-only: what a stateless client builds
+        its routing table from."""
+        protocol.send_json(conn, {"ok": True, "view": self.fleet_view.to_wire(),
+                                  **self._identity()})
 
     # -- connections -------------------------------------------------------
 
@@ -1965,14 +2373,21 @@ class DataPlaneDaemon:
         elif op == "warmup":
             self._op_warmup(conn, req)
         elif op == "model_status":
-            with self._models_lock:
-                m = self._models.get(str(req.get("model")))
+            m = self._lookup_model(str(req.get("model")))
             protocol.send_json(conn, {"ok": True, "exists": m is not None,
                                       "algo": None if m is None else m.algo})
         elif op == "drop_model":
+            # The snapshot first, whether or not the model is live: an
+            # orphan snapshot would resurrect the released index.
+            model_name = str(req.get("model"))
+            self._discard_model_state(model_name)
             with self._models_lock:
-                m = self._models.pop(str(req.get("model")), None)
+                m = self._models.pop(model_name, None)
             protocol.send_json(conn, {"ok": True, "dropped": m is not None})
+        elif op == "gossip_push":
+            self._op_gossip_push(conn, req)
+        elif op == "gossip_pull":
+            self._op_gossip_pull(conn)
         elif op == "health":
             self._op_health(conn)
         elif op == "metrics":
@@ -2017,8 +2432,7 @@ class DataPlaneDaemon:
     def _op_health(self, conn) -> None:
         """Load and liveness in O(jobs) time. Never shed: health is how a
         load balancer decides where to send traffic, and a daemon too busy
-        to say "busy" looks dead. ``durable`` is false: the port's daemon
-        keeps no ``state_dir`` yet (ROADMAP Queue 1 item 7a-ii)."""
+        to say "busy" looks dead. ``durable``: a ``state_dir`` is set."""
         staged_bytes = self._staged_bytes_total()
         reason = self._overloaded(staged=staged_bytes)
         with self._jobs_lock:
@@ -2033,7 +2447,7 @@ class DataPlaneDaemon:
             "v": protocol.PROTOCOL_VERSION,
             "id": self.instance_id,
             "boot_id": self.boot_id,
-            "durable": False,
+            "durable": self._state_dir is not None,
             "queue_depth": queue_depth,
             "staged_bytes": staged_bytes,
             "active_jobs": active_jobs,
@@ -2124,13 +2538,18 @@ class DataPlaneDaemon:
 
     def _get_job(self, req) -> _Job:
         name = str(req.get("job"))
-        with self._jobs_lock:
-            job = self._jobs.get(name)
+        job = self._lookup_job(name)  # the registry, then a durable restore
         if job is None:
             raise KeyError(f"no such job {name!r}")
         return job
 
     def _drop_job(self, name: str) -> bool:
+        """The ``drop`` op's body (also run on peers by a single-pass
+        ``reduce_mesh``). The snapshot goes first, whether or not the job is
+        live (an orphan snapshot would resurrect the aborted job), and
+        before the registry entry, so a racing restore finds either the
+        entry or no file."""
+        self._discard_job_state(name)
         with self._jobs_lock:
             job = self._jobs.pop(name, None)
         if job is not None:
@@ -2139,8 +2558,36 @@ class DataPlaneDaemon:
         return job is not None
 
     def _lookup_job(self, name: str) -> Optional[_Job]:
+        """The registry, then a lazy durable restore, single-filed on the
+        restore lock with a re-check, so concurrent first mentions after a
+        restart restore once."""
         with self._jobs_lock:
-            return self._jobs.get(name)
+            job = self._jobs.get(name)
+        if job is not None or self._state_dir is None:
+            return job
+        with self._restore_lock:
+            with self._jobs_lock:
+                job = self._jobs.get(name)
+            if job is not None:
+                return job
+            restored = self._restore_job(name)
+        if restored is None:
+            return None
+        with self._jobs_lock:
+            current = self._jobs.get(name)
+            if current is None:
+                self._jobs[name] = restored
+                current = restored
+        if current is restored and not os.path.exists(self._job_state_path(name)):
+            # A drop or finalize raced the restore and discarded the
+            # snapshot (before unregistering): honour the abort.
+            with self._jobs_lock:
+                if self._jobs.get(name) is restored:
+                    del self._jobs[name]
+            with restored.lock:
+                restored.dropped = True
+            return None
+        return current
 
     def _op_feed(self, conn, req: Dict[str, Any]) -> None:
         labelled = str(_opt(req, "algo", "pca")) in _LABELLED
@@ -2206,6 +2653,7 @@ class DataPlaneDaemon:
                     created = job is None
                     if created:
                         job = _Job(algo, x.shape[1], self._device, params, clock=self._clock)
+                        self._attach_durability(name, job)
                         self._jobs[name] = job
             if job.algo != algo:
                 raise ValueError(f"job {name!r} is algo {job.algo!r}; feed requested {algo!r}")
@@ -2268,8 +2716,10 @@ class DataPlaneDaemon:
         drop = bool(_opt(req, "drop", True))
         arrays = job.finalize(params, drop=drop)
         # Unregister BEFORE sending: a client that disconnects mid-response
-        # must not leave the name poisoned (dropped) in the registry.
+        # must not leave the name poisoned (dropped) in the registry. The
+        # snapshot goes before the entry (see _drop_job).
         if drop:
+            self._discard_job_state(str(req.get("job")))
             with self._jobs_lock:
                 if self._jobs.get(str(req.get("job"))) is job:
                     del self._jobs[str(req.get("job"))]
@@ -2297,9 +2747,15 @@ class DataPlaneDaemon:
             self._models[name] = served
             evicted = self._enforce_model_cap_locked(keep=name)
         self._log_lru_evictions(evicted)
+        # A durable daemon snapshots the built index BEFORE the ack: an
+        # acked build survives a SIGKILL, and the registration reaps at the
+        # plain TTL (the snapshot re-creates it).
+        if self._save_model_state(name, served):
+            served.ttl_scale = 1.0
         # The eager warmup of ensure_model, for the built index: its
         # kneighbors ladder is dispatched before the finalize ack.
         self._warmup_on_register(name, int(np.asarray(info["n_cols"]).reshape(-1)[0]))
+        self._discard_job_state(str(req.get("job")))  # before the entry (see _drop_job)
         with self._jobs_lock:
             if self._jobs.get(str(req.get("job"))) is job:
                 del self._jobs[str(req.get("job"))]
@@ -2312,9 +2768,7 @@ class DataPlaneDaemon:
         The rows come as one Arrow payload, or as raw ``arrays`` frames
         (``x``) from a driver without an Arrow library."""
         if req.get("arrays"):
-            x = _recv_arrays_aligned(conn, req).get("x")
-            if x is None or x.ndim != 2:
-                raise ValueError("a raw seed needs a 2-D 'x' array in the request spec")
+            x = _recv_raw_matrix(conn, req, "seed")
         else:
             x, _ = _recv_arrow_matrix(conn, "seed", _opt(req, "input_col", "features"),
                                       req.get("n_cols"))
@@ -2329,6 +2783,7 @@ class DataPlaneDaemon:
                 job = self._jobs.get(name)
                 if job is None:
                     job = _Job("kmeans", x.shape[1], self._device, params, clock=self._clock)
+                    self._attach_durability(name, job)
                     self._jobs[name] = job
         job.seed_centers(x)
         protocol.send_json(conn, {"ok": True, "rows": job.rows, **self._identity()})
@@ -2357,6 +2812,7 @@ class DataPlaneDaemon:
             faults.checkpoint("daemon.join")
             job = _Job(str(_opt(req, "algo", "pca")), int(n_cols), self._device,
                        _opt(req, "params", {}), clock=self._clock)
+            self._attach_durability(name, job)
             # Installed BEFORE the job is published: a rejected iterate (a
             # bad shape) leaves no orphan job under the name.
             job.set_iterate(arrays, int(req["iteration"]))
@@ -2393,6 +2849,7 @@ class DataPlaneDaemon:
             # count or shape mismatch) leaves no orphan job under the name.
             job = _Job(req_algo, int(n_cols), self._device, _opt(req, "params", {}),
                        clock=self._clock)
+            self._attach_durability(name, job)
             rows = job.merge_remote(arrays, contrib, merge_id=merge_id)
             with self._jobs_lock:
                 current = self._jobs.get(name)
@@ -2508,6 +2965,7 @@ class DataPlaneDaemon:
             # BEFORE it is published: a refused reduce leaves no orphan job.
             job = _Job(req_algo, gathered[0][2].n_cols, self._device,
                        _opt(req, "params", {}), clock=self._clock)
+            self._attach_durability(name, job)
         _check_mesh_target(name, job, req_algo, gathered)
         rows = job.merge_mesh(contributions, reduce_id=req.get("reduce_id"))
         if fresh:
@@ -2530,24 +2988,40 @@ class DataPlaneDaemon:
 
     def _op_ensure_model(self, conn, req: Dict[str, Any]) -> None:
         """Register a fitted model for serving (idempotent; the first caller
-        wins). Raw array frames follow the JSON per its ``arrays`` spec."""
+        wins). Raw array frames follow the JSON per its ``arrays`` spec.
+        ``version`` pins the registration to a fleet model version: it is
+        immutable under the name (another version is refused), and a
+        registration made without one adopts a later pin."""
         arrays = _recv_arrays_aligned(conn, req)
         name = str(req["model"])
         algo = str(req["algo"])
+        version = req.get("version")
+        version = None if version is None else int(version)
         _model_class(algo)  # an unknown algo is refused before the registry is touched
         evicted = []
         with self._models_lock:
             existing = self._models.get(name)
             if existing is None:
-                self._models[name] = _ServedModel(algo, arrays, _opt(req, "params", {}),
-                                                  self._device, clock=self._clock,
-                                                  buckets=self._buckets)
+                served = _ServedModel(algo, arrays, _opt(req, "params", {}), self._device,
+                                      clock=self._clock, buckets=self._buckets)
+                served.version = version
+                self._models[name] = served
                 created = True
                 evicted = self._enforce_model_cap_locked(keep=name)
             else:
                 if existing.algo != algo:
                     raise ValueError(f"model {name!r} is algo {existing.algo!r}; "
                                      f"ensure_model requested {algo!r}")
+                if (version is not None and existing.version is not None
+                        and existing.version != version):
+                    # Two fleets' flips must never race into serving mixed
+                    # versions under one key.
+                    raise ValueError(
+                        f"model {name!r} is registered at version {existing.version}; "
+                        f"ensure_model carried version {version} — versions are immutable, "
+                        "register the new version under its own name")
+                if existing.version is None and version is not None:
+                    existing.version = version  # adopt the late pin
                 existing.touched = self._clock()
                 created = False
         self._log_lru_evictions(evicted)
@@ -2626,7 +3100,7 @@ class DataPlaneDaemon:
         feature width to warm; ``dtype`` (default float32) must be the dtype
         real traffic carries (the batch key includes it). With the scheduler
         off the op is an honest no-op (enabled: false)."""
-        served = self._lookup_model(str(req["model"]))
+        served = self._require_model(str(req["model"]))
         if self._scheduler is None:
             protocol.send_json(conn, {"ok": True, "enabled": False, "buckets": [],
                                       "compiled": 0})
@@ -2669,41 +3143,100 @@ class DataPlaneDaemon:
             logger.warning("evicted served model %r (LRU, registry over the %d-model cap)",
                            victim, self._max_models)
 
-    def _lookup_model(self, name: str, hint: str = "ensure_model first") -> _ServedModel:
+    def _lookup_model(self, name: str) -> Optional[_ServedModel]:
+        """The registry, then a lazy durable restore of a daemon-built
+        index: the served-model twin of :meth:`_lookup_job` (one restore
+        at a time, race-safe publication, a raced drop honoured)."""
         with self._models_lock:
             served = self._models.get(name)
+        if served is not None or self._state_dir is None:
+            return served
+        with self._restore_lock:
+            with self._models_lock:
+                served = self._models.get(name)
+            if served is not None:
+                return served
+            restored = self._restore_model(name)
+        if restored is None:
+            return None
+        evicted: list = []
+        with self._models_lock:
+            current = self._models.get(name)
+            if current is None:
+                self._models[name] = restored
+                current = restored
+                evicted = self._enforce_model_cap_locked(keep=name)
+        self._log_lru_evictions(evicted)
+        if current is restored and not os.path.exists(self._model_state_path(name)):
+            # A drop_model raced the restore and discarded the snapshot.
+            with self._models_lock:
+                if self._models.get(name) is restored:
+                    del self._models[name]
+            return None
+        return current
+
+    def _require_model(self, name: str, hint: str = "ensure_model first") -> _ServedModel:
+        served = self._lookup_model(name)
         if served is None:
             raise KeyError(f"no such model {name!r}; {hint}")
         return served
 
+    @staticmethod
+    def _version_fence(req: Dict[str, Any], name: str, served) -> Dict[str, Any]:
+        """The fleet's version pin (docs/protocol.md "Fleet & versioned
+        serving"): a request carrying ``version`` against a versioned
+        registration of another version is refused under
+        ``serve_version_strict`` (the replica missed a rollout, or the
+        router's table is stale), else answered with a warning. Returns the
+        ack's echo: the registration's ``version`` and the request's
+        ``fleet_epoch``."""
+        want = req.get("version")
+        if want is not None and served.version is not None and int(want) != served.version:
+            msg = (f"version mismatch on model {name!r}: request expects v{int(want)}, this "
+                   f"replica serves v{served.version} — a missed rollout or a stale routing "
+                   "table")
+            if bool(config.peek("serve_version_strict")):
+                raise ValueError(msg)
+            logger.warning("%s (serve_version_strict off: answering)", msg)
+        echo: Dict[str, Any] = {}
+        if served.version is not None:
+            echo["version"] = served.version
+        if req.get("fleet_epoch") is not None:
+            echo["fleet_epoch"] = int(req["fleet_epoch"])
+        return echo
+
     def _op_transform(self, conn, req: Dict[str, Any]) -> None:
-        """Run a registered model over one Arrow batch; the role-keyed
-        output arrays stream back as raw frames."""
-        x, _ = _recv_arrow_matrix(conn, "transform", _opt(req, "input_col", "features"),
-                                  req.get("n_cols"))
+        """Run a registered model over one batch (one Arrow payload, or raw
+        ``arrays`` frames with ``x``); the role-keyed output arrays stream
+        back as raw frames, the ack echoing the version pin."""
+        if req.get("arrays"):
+            x = _recv_raw_matrix(conn, req, "transform")
+        else:
+            x, _ = _recv_arrow_matrix(conn, "transform", _opt(req, "input_col", "features"),
+                                      req.get("n_cols"))
         name = str(req["model"])
-        outs = self._serve_dispatch(conn, req, "transform", name, self._lookup_model(name), x)
+        served = self._require_model(name)
+        echo = self._version_fence(req, name, served)
+        outs = self._serve_dispatch(conn, req, "transform", name, served, x)
         if outs is None:
             return  # shed with busy; the client retries
-        _send_arrays_counted(conn, "transform", outs, {"ok": True, "rows": int(x.shape[0])})
+        _send_arrays_counted(conn, "transform", outs,
+                             {"ok": True, "rows": int(x.shape[0]), **echo})
 
     def _op_kneighbors(self, conn, req: Dict[str, Any]) -> None:
         """Query a daemon-built index: the query batch in (one Arrow payload,
         or raw ``arrays`` frames with ``x``), the (q, k) float64 distances
         and int64 global row ids back."""
         if req.get("arrays"):
-            q = _recv_arrays_aligned(conn, req).get("x")
-            if q is None or q.ndim != 2:
-                raise ValueError("a raw kneighbors needs a 2-D 'x' array in the request spec")
-            n_cols = req.get("n_cols")
-            if n_cols is not None and int(n_cols) != q.shape[1]:
-                raise ValueError(f"kneighbors 'x' width {q.shape[1]} != declared n_cols {n_cols}")
+            q = _recv_raw_matrix(conn, req, "kneighbors")
         else:
             q, _ = _recv_arrow_matrix(conn, "kneighbors", _opt(req, "input_col", "features"),
                                       req.get("n_cols"))
         name = str(req["model"])
-        served = self._lookup_model(
-            name, "a daemon-built index this old was evicted; refit the estimator")
+        served = self._require_model(
+            name, "a daemon-built index this old was evicted; refit the estimator (a durable "
+                  "daemon's snapshot of it outlives the eviction by 8x the TTL)")
+        echo = self._version_fence(req, name, served)
         # k resolved first, so a request that omits k batches with one that
         # names the fitted k.
         res = self._serve_dispatch(conn, req, "kneighbors", name, served, q,
@@ -2714,4 +3247,4 @@ class DataPlaneDaemon:
         _send_arrays_counted(conn, "kneighbors",
                              {"distances": np.asarray(dists, np.float64),
                               "indices": np.asarray(idx, np.int64)},
-                             {"ok": True, "rows": int(q.shape[0])})
+                             {"ok": True, "rows": int(q.shape[0]), **echo})

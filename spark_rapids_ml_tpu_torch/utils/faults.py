@@ -40,6 +40,10 @@ never fires):
                           driver before the joiner's seeding
                           ``set_iterate``, the daemon on the job-creating
                           ``set_iterate`` path
+``gossip.push``           the daemon's gossip thread, before each peer
+                          exchange: a fault drops that exchange for the tick
+``fleet.bootstrap``       the router's ``bootstrap_table``, before each seed
+                          attempt
 ``wire.send_frame``       every outbound frame, both directions
 ``bridge.to_matrix``      Arrow list column → matrix conversion
 ``bridge.to_ipc``         matrix → Arrow list column (the feed path)

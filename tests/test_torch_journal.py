@@ -236,12 +236,23 @@ def test_the_port_reads_its_own_env_names():
 
     code = ("from spark_rapids_ml_tpu_torch import config; "
             "print(repr([config.get(k) for k in ('run_journal', 'slo_objectives', "
-            "'device_timing', 'telemetry_eval_interval_s', 'incident_on_fatal')]))")
+            "'device_timing', 'telemetry_eval_interval_s', 'incident_on_fatal', "
+            "'daemon_state_dir', 'gossip_interval_s', 'serve_version_strict', "
+            "'fleet_seed_addresses', 'gossip_fanout', 'fleet_vnodes')]))")
+    # The durable daemon's and the fleet's keys too: the JAX package's
+    # SRML_DAEMON_STATE_DIR, SRML_GOSSIP_*, SRML_SERVE_* and SRML_FLEET_* are
+    # ignored, SRML_TORCH_GOSSIP_FANOUT and SRML_TORCH_FLEET_VNODES read.
     env = dict(os.environ, SRML_RUN_JOURNAL="/nonexistent/jax.jsonl",
                SRML_SLO_OBJECTIVES="transform:error", SRML_DEVICE_TIMING="1",
-               SRML_TORCH_TELEMETRY_EVAL_INTERVAL_S="0.25", SRML_TORCH_INCIDENT_ON_FATAL="on")
-    for k in ("SRML_TORCH_RUN_JOURNAL", "SRML_TORCH_SLO_OBJECTIVES", "SRML_TORCH_DEVICE_TIMING"):
+               SRML_TORCH_TELEMETRY_EVAL_INTERVAL_S="0.25", SRML_TORCH_INCIDENT_ON_FATAL="on",
+               SRML_DAEMON_STATE_DIR="/nonexistent/jax-state", SRML_GOSSIP_INTERVAL_S="0.5",
+               SRML_SERVE_VERSION_STRICT="0", SRML_FLEET_SEED_ADDRESSES="127.0.0.1:1",
+               SRML_TORCH_GOSSIP_FANOUT="3", SRML_TORCH_FLEET_VNODES="16")
+    for k in ("SRML_TORCH_RUN_JOURNAL", "SRML_TORCH_SLO_OBJECTIVES", "SRML_TORCH_DEVICE_TIMING",
+              "SRML_TORCH_DAEMON_STATE_DIR", "SRML_TORCH_GOSSIP_INTERVAL_S",
+              "SRML_TORCH_SERVE_VERSION_STRICT", "SRML_TORCH_FLEET_SEED_ADDRESSES"):
         env.pop(k, None)
     out = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
                          env=env, capture_output=True, text=True, timeout=120)
-    assert out.stdout.strip() == "[None, '', False, 0.25, True]", out.stderr
+    assert out.stdout.strip() == "[None, '', False, 0.25, True, None, 0.0, True, None, 3, 16]", \
+        out.stderr

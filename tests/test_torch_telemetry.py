@@ -280,7 +280,9 @@ def test_a_deadline_breach_storm_makes_the_telemetry_thread_write_a_bundle(tmp_p
     assert bundle is not None, "the storm wrote no bundle"
     assert bundle["reason"] == "deadline_breach" and bundle["detail"]["breaches"] >= 200.0
     assert bundle["fingerprint"] == fp and bundle["identity"]["boot_id"] == d.boot_id
-    assert bundle["gossip"] is None and isinstance(bundle["xprof"], dict)
+    # The gossip provider is the daemon's FleetView (its own replica record).
+    assert bundle["gossip"]["replicas"][d.instance_id]["boot_id"] == d.boot_id
+    assert isinstance(bundle["xprof"], dict)
     feed = next(s for s in bundle["metrics"]["srml_daemon_request_seconds"]["samples"]
                 if s["labels"].get("op") == "feed_raw")
     ex = next(iter(feed["exemplars"].values()))
