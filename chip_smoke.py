@@ -45,7 +45,7 @@ Phases, each of which exits non-zero on a failed check:
    ``--multi-process`` runs phase 26 alone; ``--multi-daemon`` runs
    phase 27 alone; ``--elastic`` runs phase 28 alone; ``--serving`` runs
    phase 29 alone; ``--telemetry`` runs phase 30 alone; ``--fleet`` runs
-   phase 31 alone.
+   phases 31 and 32 alone.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -149,7 +149,7 @@ Phases, each of which exits non-zero on a failed check:
     time from a torch.profiler trace, the fold kernel alone at the feed's
     shape (CUDA events), and the registry transform's p50.
 20. The Spark PCA fit's feed protocol from separate processes: the port's
-    daemon in this process on the card and 8 spawned task processes, each
+    daemon in this process on the card and 8 forked task processes, each
     building its own bf16-exact numpy rows from its seed (phase 19's
     shape: 2 feeds of 65,536 x 2048 float32) and, once all are ready and
     the clock runs, the Spark feed task's body
@@ -167,7 +167,7 @@ Phases, each of which exits non-zero on a failed check:
     ``mapInArrow`` need pyarrow, which this machine lacks; they run in the
     CPU tests.)
 21. The iterative daemon jobs through the Spark feed protocol: the port's
-    daemon in this process on the card, 8 task processes spawned once and
+    daemon in this process on the card, 8 task processes forked once and
     reused by every pass, each building its bf16-exact (x, y) float32
     frames from its seed and running ``_feed_partition`` with a
     ``feed_raw`` sender; partition 3's attempt 0 dies after one feed in
@@ -190,7 +190,7 @@ Phases, each of which exits non-zero on a failed check:
     equal to ``transform_matrix``. It prints rows/s and ms per pass of each
     fit, the daemon's span split and the device busy share.
 22. The knn job through the Spark feed protocol: the port's daemon in this
-    process on the card, 8 task processes spawned once and reused by both
+    process on the card, 8 task processes forked once and reused by both
     fits, each building its float32 frames of bench_knn.py's mixture from
     its seed (2 ``feed_raw`` frames of 65,536 x 768: 1,048,576 rows at
     config #5's width) and running ``_feed_partition``; partition 3's
@@ -236,7 +236,7 @@ Phases, each of which exits non-zero on a failed check:
     areaUnderROC)`` on 524,288 x 1024 bf16 rows: the ``newton_stats``
     launches (all tensor-core) and each AUC equal to a float64 numpy AUC
     of the same scores (1e-12). Then SparkStandardScaler's feed protocol:
-    phase 20's 8 spawned tasks and frames (one attempt dying after a feed)
+    phase 20's 8 forked tasks and frames (one attempt dying after a feed)
     with ``spark/estimator._drive_scaler`` as the driver; acked, ``status``
     and finalize rows 1,048,576; ``gram_colsum`` once per folded feed (17),
     all tensor-core; mean and variance against float64 of the same rows
@@ -258,7 +258,7 @@ Phases, each of which exits non-zero on a failed check:
     float64 sums of the host bootstrap weights; ``transform_matrix`` of
     65,536 held-out rows against a numpy descent of the fitted tables (the
     predicted class equal off 1e-6 near-ties, regression means within
-    1e-6); and at a 262,144-row prefix the card's fits against the card
+    1e-6); and at a 131,072-row prefix the card's fits against the card
     machine's CPU (both float32, the CPU fits in a thread beside the card's
     work): the classifier's tables bitwise, the regressor's features and
     thresholds equal and values within 1e-5 relative, except under a node
@@ -271,7 +271,7 @@ Phases, each of which exits non-zero on a failed check:
 25. The forests through the data plane: SparkRandomForestClassifier on
     HIGGS's shape and SparkRandomForestRegressor on YearPredictionMSD's
     (phase 24's sizes and Spark's defaults), the port's daemon in this
-    process on the card, 8 task processes spawned once and reused by every
+    process on the card, 8 task processes forked once and reused by every
     pass, each rebuilding its float32 frames (float64 labels) of phase
     24's model in numpy from the seed (RF_SEED, kind, partition, frame) and
     running ``_feed_partition`` with a ``feed_raw`` sender: 65,536-row
@@ -285,7 +285,7 @@ Phases, each of which exits non-zero on a failed check:
     launched; every tree's root statistics equal the task processes'
     float64 sums of their rows' bag weights at ``row_identity_keys
     (partition, offset)`` (the port's ``bootstrap_weights`` on the CPU);
-    at a 262,144-row prefix (32,768 rows a partition) the card's daemon
+    at a 131,072-row prefix (16,384 rows a partition) the card's daemon
     fit against a ``DataPlaneDaemon(device="cpu")`` fit in a thread beside
     it (float32 both: the classifier's tables bitwise, the regressor's
     under phase 24's near-tie rule); 1,048,576 HIGGS-shape rows fed as
@@ -337,7 +337,7 @@ Phases, each of which exits non-zero on a failed check:
     kernel's ms a batch, the d = 2048 reduce's ms and bytes a batch, the
     'collective reduce' and 'lockstep gather' spans of the stream, the
     two-rank stream's rows/s beside phase 3's, and the phase's seconds.
-27. The fits across daemons: phases 20-22's 8 spawned task processes and
+27. The fits across daemons: phases 20-22's 8 forked task processes and
     65,536-row ``feed_raw`` frames, partitions 4-7 routed to a second
     daemon (an executor on another host feeds its own), this process the
     driver with the estimators' own functions over ``spark/estimator.
@@ -445,8 +445,8 @@ Phases, each of which exits non-zero on a failed check:
     span.
 31. Durable daemons and the routed fleet (``serve/{daemon,gossip,router}.py``),
     every daemon a spawned process on the card. a. Phase 21's KMeans feed
-    protocol (d = 256, k = 100, 8 task processes x 1 frame of 65,536 rows:
-    524,288, a depth cut; phase 28's integer blobs, so every sum is exact)
+    protocol (d = 256, k = 100, 8 task processes x 1 frame of 32,768 rows:
+    262,144, a depth cut; phase 28's integer blobs, so every sum is exact)
     against a daemon with a ``state_dir``: a clean fit, then one under
     ``SRML_TORCH_FAULT_PLAN`` whose daemon SIGKILLs itself at
     ``daemon.pass_boundary`` when the step closing pass 1 has applied (its
@@ -466,7 +466,7 @@ Phases, each of which exits non-zero on a failed check:
     and ``ivf_scan_select`` in each incarnation. c. Three daemon processes
     (``gossip_interval_s`` 0.2, batching off, so every request is one solo
     dispatch) each holding PCA v1 and v2 (d = 2048, k = 32) and an exact
-    index of 524,288 x 768 float32 rows (one 1.5 GiB ``ensure_model``
+    index of 262,144 x 768 float32 rows (one 0.75 GiB ``ensure_model``
     frame, under ``MAX_FRAME``) registered by hand as a fleet control
     plane does; a ``RoutingTable`` through ``install``/``activate``, the
     ``FleetView`` pushed to one daemon, a ``FleetClient`` bootstrapped
@@ -478,7 +478,34 @@ Phases, each of which exits non-zero on a failed check:
     every request answered bitwise as one daemon answers it, the
     restarted replica repaired in band, the views of all three daemons
     converged; requests/s, p50 and p99, the failovers, the convergence
-    seconds.
+    seconds. The replicas stay up for phase 32.
+32. The fleet control plane (``serve/{fleet,autoscaler}.py``, ``tools/
+    {top,trace}.py``) over phase 31c's three replica processes and a spare
+    one started while 31c runs. a. ``ModelFleet.from_seeds`` on one
+    replica rolls PCA v2 -> v3 (d = 2048, k = 32) and the exact index v1 ->
+    v2 (262,144 x 768 float32 rows plus a seeded perturbation, so the
+    versions answer differently) through register, warm, flip and drain
+    while 8 routing threads send phase 31c's transforms and exact queries:
+    the seconds of each rollout phase, requests/s and p99 during the
+    rollouts, the old versions gone from every replica (``model_status``).
+    c. An ``AutoScaler`` (min 3, max 4 replicas, watermarks 1.0 / 0.3
+    routed requests in flight a replica, cooldown 1 s, tick 0.2 s) on that
+    fleet, its ``spawn`` hook the spare: 16 routing threads lift the load
+    over the high watermark (one ``scale_up``; the newcomer's ``warmup``
+    count moved and its routed count did not before its admission), then
+    one thread stays (one ``scale_down``; the ``drain`` hook stops the
+    victim only after the drain barrier held), inside ``journal.run`` with
+    a file from which ``tools.trace`` reads both action spans;
+    ``tools.top --once --fleet`` shows the three replicas up and the
+    active versions. b. Two controller processes under
+    ``SRML_TORCH_FAULT_PLAN``, each bootstrapped from one seed: the first
+    dies (exit 17) at ``fleet.rollout`` in the ``flipped`` phase of PCA v4
+    -> v5 and a successor's ``resume_rollout`` completes it; the second
+    dies at ``registering`` (v5 -> v6) and its successor aborts it, v5
+    serving on; the seconds from each death to the finished resume. Over
+    a, b and c, every routed answer equals, bitwise, a version's solo
+    answer, no thread goes back a version and none fails; the
+    ``dist_topk`` launches of the phase over every replica process.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
@@ -505,7 +532,7 @@ batched exact and bypassed IVF traffic's under ``serving_launches``, the
 ``dist_topk``, ``probe_select`` and ``ivf_scan_select`` rows phase 31b's
 (both incarnations of its daemon process) under ``durable_launches`` and
 the ``dist_topk`` row phase 31c's (summed over its replica processes)
-under ``fleet_launches``) and
+under ``fleet_launches`` and phase 32's under ``control_launches``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, the script fails before printing any result.
 """
@@ -580,7 +607,7 @@ P23_RUNS = {"scaler": ("pca", D, DP_ROWS, DP_FEEDS, K)}
 RF_SEED = 24
 HIGGS_ROWS, HIGGS_D = 11_000_000, 28  # UCI HIGGS: 11M rows x 28 features, 2 classes
 MSD_ROWS, MSD_D = 515_345, 90  # UCI YearPredictionMSD: 515,345 rows x 90, years 1922-2011
-RF_PREFIX = 1 << 18  # the card-against-CPU checks
+RF_PREFIX = 1 << 17  # the card-against-CPU checks (cut from 262,144 for the smoke's time)
 RF_HELDOUT = 65536
 RF_TIE = 1e-5  # a regressor node within this of its best candidate may split otherwise
 
@@ -2765,8 +2792,43 @@ def _dying(batches, after):
     raise RuntimeError("injected executor death mid-partition")
 
 
+#: What the Spark tasks' fork server imports once (see :func:`task_context`).
+_TASK_PRELOAD = ("numpy", "spark_rapids_ml_tpu_torch.serve.client",
+                 "spark_rapids_ml_tpu_torch.spark.estimator")
+_TASK_SERVER: list = []  # the configured fork-server context, once
+
+
+def task_context():
+    """The multiprocessing context of the Spark task processes: a fork server,
+    a fresh interpreter that imports ``_TASK_PRELOAD`` once and never touches
+    the card, forks each task, so a pool of 8 starts without 8 interpreters
+    each importing torch. A task forked there inherits the server's
+    environment, not this process's: a pool whose tasks must read an
+    environment variable set later (a fault plan) is spawned instead."""
+    import atexit
+    import multiprocessing as mp
+    import multiprocessing.forkserver as forkserver
+
+    ctx = mp.get_context("forkserver")
+    if not _TASK_SERVER:
+        ctx.set_forkserver_preload(list(_TASK_PRELOAD))
+
+        def stop():
+            # The server exits once this process and every task it forked
+            # have let go of it: end the tasks a failed phase left waiting,
+            # then wait for the server.
+            for child in mp.active_children():
+                child.kill()
+                child.join(timeout=10)
+            forkserver._forkserver._stop()
+
+        atexit.register(stop)
+        _TASK_SERVER.append(ctx)
+    return ctx
+
+
 def _spark_task(address, p, rows, d, k, feeds, go, out, trace_ctx=None):
-    """Phase 20's partition task, in its own process (spawned): builds its
+    """Phase 20's partition task, in its own process (forked): builds its
     rows from its seed, signals ready, waits for the start, then runs the
     Spark feed task's body (``estimator._feed_partition``) with a
     ``feed_raw`` sender. Partition SPARK_DYING's attempt 0 dies after one
@@ -2803,7 +2865,7 @@ def _spark_task(address, p, rows, d, k, feeds, go, out, trace_ctx=None):
 
 def phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate):
     """Phase 20: the Spark PCA fit's feed protocol from separate processes.
-    The port's daemon runs in this process on the card; 8 spawned task
+    The port's daemon runs in this process on the card; 8 forked task
     processes run the feed task's body; this process plays the driver with
     the estimator's own functions. Returns (the gram_colsum launches, the
     fit's rows/s)."""
@@ -2817,10 +2879,10 @@ def phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate):
     from spark_rapids_ml_tpu_torch.utils import profiling
 
     n_rows = DP_PARTITIONS * DP_FEEDS * DP_ROWS
-    print(f"spark feed protocol: {DP_PARTITIONS} task processes (spawn) x {DP_FEEDS} feed_raw "
+    print(f"spark feed protocol: {DP_PARTITIONS} task processes (forked) x {DP_FEEDS} feed_raw "
           f"batches of {DP_ROWS} x {D} float32 (bf16-exact numpy rows from each task's seed): "
           f"{n_rows} rows; partition {SPARK_DYING}'s attempt 0 dies after one feed", flush=True)
-    ctx = mp.get_context("spawn")  # never fork a process that holds a CUDA context
+    ctx = task_context()  # never fork a process that holds a CUDA context
     out, go = ctx.Queue(), ctx.Event()
     procs = []
     with DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as daemon:
@@ -2836,7 +2898,7 @@ def phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate):
                 msg = out.get(timeout=300)
                 if msg[0] != "ready":
                     fail(f"spark task {msg[1]} failed before it was ready: {msg[2]}")
-            print(f"spark tasks ready (spawned, imported the port, built their rows) in "
+            print(f"spark tasks ready (forked, imported the port, built their rows) in "
                   f"{time.perf_counter() - t_spawn:.1f} s", flush=True)
             host, port = daemon.address
             fit = est._DaemonFit(host, port, SPARK_JOB)
@@ -3082,7 +3144,7 @@ def p21_frame(np, runs, run, p, f):
 
 
 def _p21_task(address, p, runs, cmd_q, out_q):
-    """Phase 21's partition task ``p``: one spawned process serving every
+    """Phase 21's partition task ``p``: one forked process serving every
     pass of every run. ("prepare", run) builds the partition's frames from
     its seed; ("bags", run, trees, seed, classes) answers ``rf_bag_sums``
     of them; (run, job, params, pass_id, dies) runs the Spark feed task's
@@ -3154,15 +3216,13 @@ def _p21_task(address, p, runs, cmd_q, out_q):
 
 class _P21Pool:
     """The 8 task processes of phase 21 (or 22, 23 and 25, with their
-    ``runs``),
-    spawned once (never fork a process that holds a CUDA context) and
-    reused by every pass of every run, so their spawn and imports stay out
-    of the timed passes."""
+    ``runs``), started once from ``ctx`` (default :func:`task_context`;
+    never fork a process that holds a CUDA context) and reused by every
+    pass of every run, so their start and imports stay out of the timed
+    passes."""
 
-    def __init__(self, address, runs=None, wait=True):
-        import multiprocessing as mp
-
-        ctx = mp.get_context("spawn")
+    def __init__(self, address, runs=None, wait=True, ctx=None):
+        ctx = ctx or task_context()
         self.out = ctx.Queue()
         self.cmds = [ctx.Queue() for _ in range(DP_PARTITIONS)]
         self.procs = [ctx.Process(target=_p21_task,
@@ -3334,7 +3394,7 @@ def phase_iterative_jobs(torch, kernels, config):
     from spark_rapids_ml_tpu_torch.spark import estimator as est
     from spark_rapids_ml_tpu_torch.utils import profiling
 
-    print(f"phase 21: the iterative daemon jobs, {DP_PARTITIONS} task processes (spawn, reused "
+    print(f"phase 21: the iterative daemon jobs, {DP_PARTITIONS} task processes (forked, reused "
           f"across passes) x feed_raw frames of (x, y) float32 (bf16-exact rows from each "
           f"task's seed); partition {SPARK_DYING}'s attempt 0 dies after one feed in each "
           f"fit's first scan", flush=True)
@@ -3342,7 +3402,7 @@ def phase_iterative_jobs(torch, kernels, config):
     with DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as daemon:
         t_spawn = time.perf_counter()
         pool = _P21Pool(daemon.address)
-        print(f"phase 21 tasks ready (spawned, imported the port) in "
+        print(f"phase 21 tasks ready (forked, imported the port) in "
               f"{time.perf_counter() - t_spawn:.1f} s", flush=True)
         try:
             # -- LinearRegression: one scan, linreg_stats per folded feed -----
@@ -3627,7 +3687,7 @@ def phase_knn_daemon(torch, kernels, config):
     from spark_rapids_ml_tpu_torch.utils import profiling
 
     n_rows = DP_PARTITIONS * DP_FEEDS * DP_ROWS
-    print(f"phase 22: the knn job, {DP_PARTITIONS} task processes (spawn, reused by both fits) "
+    print(f"phase 22: the knn job, {DP_PARTITIONS} task processes (forked, reused by both fits) "
           f"x {DP_FEEDS} feed_raw frames of {DP_ROWS} x {KNN_D} float32 rows of bench_knn.py's "
           f"{KNN_CLUSTERS}-component mixture from each task's seed: {n_rows} rows; partition "
           f"{SPARK_DYING}'s attempt 0 dies after one feed in each fit", flush=True)
@@ -3649,7 +3709,7 @@ def phase_knn_daemon(torch, kernels, config):
         pool = _P21Pool(daemon.address, P22_RUNS)
         try:
             pool.prepare("knn")
-            print(f"phase 22 tasks ready (spawned, imported the port, built their frames) in "
+            print(f"phase 22 tasks ready (forked, imported the port, built their frames) in "
                   f"{time.perf_counter() - t_spawn:.1f} s", flush=True)
 
             # -- exact: the build stores the rows; dist_topk per served call ------
@@ -4037,7 +4097,7 @@ def phase_estimators(torch, kernels, config):
 def phase_spark_scaler(torch, kernels, config, spark_rate):
     """Phase 23, the Spark part: SparkStandardScaler's feed protocol through
     the port's daemon on the card, with ``_drive_scaler`` as the driver and
-    phase 20's 8 spawned tasks and frames. Returns the gram_colsum
+    phase 20's 8 forked tasks and frames. Returns the gram_colsum
     launches."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4048,7 +4108,7 @@ def phase_spark_scaler(torch, kernels, config, spark_rate):
     from spark_rapids_ml_tpu_torch.spark import estimator as est
     from spark_rapids_ml_tpu_torch.utils import profiling
 
-    print(f"phase 23 SparkStandardScaler: {DP_PARTITIONS} task processes (spawn) x {DP_FEEDS} "
+    print(f"phase 23 SparkStandardScaler: {DP_PARTITIONS} task processes (forked) x {DP_FEEDS} "
           f"feed_raw frames of {DP_ROWS} x {D} float32 (phase 20's bf16-exact rows); partition "
           f"{SPARK_DYING}'s attempt 0 dies after one feed", flush=True)
     core = StandardScaler()
@@ -4317,7 +4377,7 @@ def rf_fit_timed(torch, kernels, profiling, fit, tag, n):
 def phase_forests(torch, kernels, config):
     """Phase 24: RandomForestClassifier on HIGGS's shape and
     RandomForestRegressor on YearPredictionMSD's, Spark's defaults, on the
-    card; the checks at a 262,144-row prefix against the card machine's CPU
+    card; the checks at a 131,072-row prefix against the card machine's CPU
     and at full size against numpy."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4582,7 +4642,7 @@ def phase_forest_daemon(torch, kernels, config, sp_rate):
     """Phase 25: SparkRandomForestClassifier on HIGGS's shape and
     SparkRandomForestRegressor on YearPredictionMSD's through the port's
     daemon on the card, Spark's defaults: the estimators' driver function
-    over 8 spawned task processes, then the card against a CPU daemon on a
+    over 8 forked task processes, then the card against a CPU daemon on a
     prefix, a direct-feed daemon fit against the in-process fit, and the
     served forests."""
     from concurrent.futures import ThreadPoolExecutor
@@ -5505,7 +5565,7 @@ def phase_multidaemon(torch, kernels, config):
     from spark_rapids_ml_tpu_torch.utils import profiling
 
     t_phase = time.perf_counter()
-    print(f"phase 27: the fits across daemons, {DP_PARTITIONS} task processes (spawn, reused) x "
+    print(f"phase 27: the fits across daemons, {DP_PARTITIONS} task processes (forked, reused) x "
           f"feed_raw frames of {DP_ROWS} rows; partitions {P27_PEER_PARTS[0]}-"
           f"{P27_PEER_PARTS[-1]} feed the second daemon, partition {SPARK_DYING}'s attempt 0 "
           f"dies after one feed in each fit's first scan", flush=True)
@@ -5527,7 +5587,7 @@ def phase_multidaemon(torch, kernels, config):
             DataPlaneDaemon(host="127.0.0.1", port=0, device=DEV) as b:
         t_spawn = time.perf_counter()
         pool = _P21Pool(a.address, P27_RUNS)
-        print(f"phase 27 tasks ready (spawned, imported the port) in "
+        print(f"phase 27 tasks ready (forked, imported the port) in "
               f"{time.perf_counter() - t_spawn:.1f} s", flush=True)
         route = {p: b.address for p in P27_PEER_PARTS}
         both = [a.address, b.address]
@@ -6030,7 +6090,8 @@ def phase_elastic(torch, kernels, config):
         pool = _P21Pool(a.address, P28_RUNS, wait=False)
         os.environ[faults.ENV_VAR] = P28_CHAOS
         try:
-            chaos_pool = _P21Pool(a.address, P28_RUNS, wait=False)
+            # Spawned: a task forked by the fork server would not see the plan.
+            chaos_pool = _P21Pool(a.address, P28_RUNS, wait=False, ctx=ctx)
         finally:
             os.environ.pop(faults.ENV_VAR, None)
         try:
@@ -7069,10 +7130,10 @@ def phase_telemetry(torch, kernels, config):
 
 P31_SEED = 31
 #: Phase 31a's frames (run → the P21_RUNS fields): phase 21's KMeans width,
-#: cut to one 65,536-row frame a partition (524,288 rows) for the smoke's
+#: cut to one 32,768-row frame a partition (262,144 rows) for the smoke's
 #: time, phase 28's integer blobs (every sum exact, so a restarted fit is
 #: bitwise the clean one).
-P31_RUNS = {"kmeans-int": ("kmeans", KM_D, DP_ROWS, 1, KM_K)}
+P31_RUNS = {"kmeans-int": ("kmeans", KM_D, DP_ROWS // 2, 1, KM_K)}
 #: Phase 31b's knn frames: phase 22's rows cut to one half-size frame a
 #: partition (262,144 x 768), so the snapshots and restores fit the
 #: smoke's time.
@@ -7081,7 +7142,7 @@ P31_MAX_ITER = 3
 #: The daemon of 31a's faulted fit crashes at the second step's boundary
 #: (the step that closes pass 1), after its snapshot, before its ack.
 P31_CRASH = f"seed={P31_SEED};daemon.pass_boundary:crash:after=1,times=1"
-P31_FLEET_ROWS = 1 << 19  # 524,288 x 768 f32: one 1.5 GiB ensure_model frame
+P31_FLEET_ROWS = 1 << 18  # 262,144 x 768 f32: one 0.75 GiB ensure_model frame
 P31_THREADS, P31_REQS, P31_AFTER_REQS = 8, 64, 8
 P31_TRANSFORM_ROWS, P31_QUERIES = 64, 16
 P31_INPUTS = 32  # distinct transform inputs and query sets the requests cycle through
@@ -7116,6 +7177,9 @@ def _p31_daemon(cmd_q, out_q, device, kw, plan):
         cmd = cmd_q.get()
         if cmd == "launches":
             out_q.put(("launches", dict(kernels.LAUNCHES), dict(kernels.ROUTES)))
+        elif cmd == "reset":
+            kernels.reset_launches()
+            out_q.put(("reset",))
         elif cmd == "stop":
             daemon.stop()
             out_q.put(("stopped",))
@@ -7154,6 +7218,11 @@ class _P31Daemon:
         self.cmd.put("launches")
         _, launches, routes = self.out.get(timeout=120)
         return launches, routes
+
+    def reset(self):
+        """Zero the process's launch and route counters."""
+        self.cmd.put("reset")
+        self.out.get(timeout=120)
 
     def kill(self):
         """SIGKILL; the exit code (-9)."""
@@ -7226,7 +7295,7 @@ def p31_durable_fit(np, est, pool, clean, doomed):
     restart; their checks and numbers."""
     import threading
 
-    n = DP_PARTITIONS * P31_RUNS["kmeans-int"][3] * DP_ROWS
+    n = DP_PARTITIONS * P31_RUNS["kmeans-int"][3] * P31_RUNS["kmeans-int"][2]
     clean.ready()
     doomed.ready()
     pool.prepare("kmeans-int")
@@ -7449,14 +7518,16 @@ def p31_fleet(torch, np, reps):
     from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
 
     # The models while the replicas come up: PCA v1 and v2 at phase 3's
-    # width, the index rows the first half of phase 22's.
+    # width (and phase 32's third set of components), the index rows the
+    # first quarter of phase 22's.
     gen = torch.Generator(device=DEV).manual_seed(P31_SEED)
     pcas = []
-    for v in (1, 2):
+    for v in (1, 2, 3):
         x = torch.randn((1 << 16, D), generator=gen, device=DEV) * (1.0 + v)
         m = PCA(device=DEV).setK(K).fit({"features": x})
         pcas.append({k: np.asarray(torch.as_tensor(a).cpu()) for k, a in m._model_data().items()})
-    keys = [(p, f) for p in range(DP_PARTITIONS // 2) for f in range(DP_FEEDS)]
+    keys = [(p, f) for p in range(DP_PARTITIONS) for f in range(DP_FEEDS)]
+    keys = keys[:P31_FLEET_ROWS // DP_ROWS]
     rows = np.empty((P31_FLEET_ROWS, KNN_D), np.float32)
 
     def fill(i):
@@ -7618,10 +7689,397 @@ def p31_fleet(torch, np, reps):
     launches = marks["launches"][0].get("dist_topk", 0)
     for r in reps:
         launches += r.launches()[0].get("dist_topk", 0)
-        r.stop()
     print(f"phase 31c: dist_topk launches over the replicas {launches}", flush=True)
     check(launches >= 1, f"phase 31c: the exact index answered through dist_topk "
                          f"({launches} launches)")
+    # The replicas stay up for phase 32, with what it needs of this part.
+    served = {"pcas": pcas, "rows": rows, "knn_params": knn_params, "xs": xs, "qs": qs,
+              "want_t": want_t, "want_k": want_k}
+    return {"dist_topk": launches}, served
+
+
+P32_SEED = 32
+P32_THREADS = 8  # routing threads through a rollout and through the controller deaths
+P32_SPIKE = 16  # (c)'s load spike: routing threads sending at once
+#: (c)'s watermarks in queued requests per live replica (the routed requests
+#: in flight: batching is off, so no scheduler queue), its cooldown and tick.
+P32_HIGH, P32_LOW = 1.0, 0.3
+P32_COOLDOWN_S, P32_TICK_S = 1.0, 0.2
+P32_PERTURB = 0.05  # the index v2: v1's rows + P32_PERTURB · N(0, 1), seeded
+P32_WAIT_S = 60.0  # the longest (c) waits for a scale action
+P32_CLIENT = {"timeout": 120.0, "op_deadline_s": 240.0}
+
+
+def _p32_controller(cmd_q, out_q, plan):
+    """Phase 32b's controller process: imports only the port under
+    ``SRML_TORCH_FAULT_PLAN`` ``plan`` (a crash rule at ``fleet.rollout``
+    exits 17), waits for ("go", seed, arrays, version), then rolls PCA to
+    ``arrays`` from a fleet bootstrapped from the one seed."""
+    try:
+        os.environ["SRML_TORCH_FAULT_PLAN"] = plan
+        from spark_rapids_ml_tpu_torch.serve import ModelFleet
+    except Exception as e:  # noqa: BLE001 - reported to the parent
+        out_q.put(("err", repr(e)))
+        return
+    out_q.put(("ready",))
+    _, seed, arrays, version = cmd_q.get()
+    with ModelFleet.from_seeds([seed], client_kwargs=P32_CLIENT) as fleet:
+        res = fleet.rollout("pca", "pca", arrays, version=version)
+    out_q.put(("done", res))
+
+
+class _P32Traffic:
+    """Routing threads, each with its own client ``make_client()``, sending
+    64-row PCA transforms and 16-query exact ``kneighbors`` by turns until
+    stopped; only threads below ``level`` send. Every answer (or error) is
+    kept with its host-clock start and end."""
+
+    def __init__(self, np, make_client, xs, qs, n):
+        import threading
+
+        self.np, self.make_client, self.xs, self.qs = np, make_client, xs, qs
+        self.level = n
+        self.records = [[] for _ in range(n)]
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(t,)) for t in range(n)]
+
+    def _run(self, t):
+        fc = self.make_client()
+        try:
+            i = 0
+            while not self._stop.is_set():
+                if t >= self.level:
+                    time.sleep(0.005)
+                    continue
+                j, kind = (t * 7 + i) % P31_INPUTS, "t" if (t + i) % 2 == 0 else "k"
+                t0 = time.perf_counter()
+                try:
+                    if kind == "t":
+                        res = fc.transform("pca", self.xs[j])["output"]
+                    else:
+                        res = fc.kneighbors("knn", self.qs[j], k=KNN_K)
+                except Exception as e:  # noqa: BLE001 - counted, the check fails
+                    res = f"{type(e).__name__}: {e}"
+                self.records[t].append((kind, j, t0, time.perf_counter(), res))
+                i += 1
+        finally:
+            fc.close()
+
+    def start(self):
+        for th in self._threads:
+            th.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        for th in self._threads:
+            th.join()
+
+    def window(self, t0, t1):
+        """(requests started in [t0, t1), their latencies sorted)."""
+        lat = sorted(r[3] - r[2] for rs in self.records for r in rs if t0 <= r[2] < t1)
+        return len(lat), lat
+
+
+def p32_check_answers(np, traffics, gens_t, gens_k):
+    """Every answer's version: the one of ``gens_t`` (transforms) or
+    ``gens_k`` (kneighbors), solo answers per input, it equals bitwise. A
+    thread never goes back a version. Returns the faults (errors, answers
+    equal to no version's, steps back) and the answers checked."""
+    bad, n = [], 0
+    for tag, traffic in traffics:
+        for t, recs in enumerate(traffic.records):
+            last = {"t": 0, "k": 0}
+            for kind, j, _, _, res in recs:
+                n += 1
+                if isinstance(res, str):
+                    bad.append((tag, t, kind, res[:200]))
+                    continue
+                if kind == "t":
+                    hit = [g for g, w in enumerate(gens_t) if np.array_equal(res, w[j])]
+                else:
+                    hit = [g for g, w in enumerate(gens_k)
+                           if np.array_equal(res[0], w[j][0]) and np.array_equal(res[1], w[j][1])]
+                if not hit or hit[0] < last[kind]:
+                    bad.append((tag, t, kind, "no version's answer" if not hit
+                                else f"back from {last[kind]} to {hit[0]}"))
+                    continue
+                last[kind] = hit[0]
+    return bad, n
+
+
+def p32_solo(addr, model, xs=None, qs=None):
+    """A replica's own answers of ``model`` to every input."""
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient
+
+    with DataPlaneClient(*addr, **P32_CLIENT) as c:
+        if xs is not None:
+            return [c.transform_raw(model, x)["output"] for x in xs]
+        return [c.kneighbors_raw(model, q, k=KNN_K) for q in qs]
+
+
+def p32_exists(addr, names):
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient
+
+    with DataPlaneClient(*addr, **P32_CLIENT) as c:
+        return {n: c.model_exists(n) for n in names}
+
+
+def phase_control(torch, np, reps, spare, served):
+    """Phase 32, the fleet control plane over phase 31c's replica processes
+    ``reps`` and the spare ``spare``: (a) a zero-downtime rollout of PCA and
+    of the exact index under routed traffic, (c) the autoscaler scaling out
+    onto the spare and back in, (b) a controller process dying mid-rollout,
+    twice, and its successor. Returns {"dist_topk": launches}."""
+    import contextlib
+    import io
+    import multiprocessing as mp
+    import tempfile
+
+    from spark_rapids_ml_tpu_torch import config
+    from spark_rapids_ml_tpu_torch.serve import FleetClient, ModelFleet
+    from spark_rapids_ml_tpu_torch.serve.autoscaler import AutoScaler
+    from spark_rapids_ml_tpu_torch.tools import top as top_tool
+    from spark_rapids_ml_tpu_torch.tools import trace as trace_tool
+    from spark_rapids_ml_tpu_torch.utils import journal
+    from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
+
+    print("phase 32 prediction (NVIDIA H100 80GB HBM3, 700 W, written before the first timed "
+          "run): a. the PCA rollout 0.05-0.3 s (registering 0.02-0.1 s, the drain under 0.05 "
+          "s), the index rollout 2-6 s (registering 3 x 0.75 GiB), 150-400 requests/s, p99 "
+          "30-300 ms during the rollouts; b. a controller's death to its successor's completed "
+          "resume 0.1-1 s, to the abort 0.05-0.5 s; c. the scale-up 1-3 s (the index sent to "
+          "the newcomer), the scale-down 3-8 s (both models rolled forward on three replicas); "
+          "phase 32 40-90 s", flush=True)
+    t_phase = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    xs, qs, pcas = served["xs"], served["qs"], served["pcas"]
+    # 32b's controllers import the port while a and c run.
+    controllers = []
+    for plan in ("fleet.rollout:crash:after=2,times=1", "fleet.rollout:crash:times=1"):
+        cq, oq = ctx.Queue(), ctx.Queue()
+        proc = ctx.Process(target=_p32_controller, args=(cq, oq, plan), daemon=True)
+        proc.start()
+        controllers.append((proc, cq, oq))
+    spare.ready()
+    procs = {"%s:%d" % r.address: r for r in reps + [spare]}
+    for r in procs.values():
+        r.reset()
+    seed = "%s:%d" % reps[0].address
+    # The index v2: v1's rows plus a seeded perturbation, so its answers differ.
+    gen = torch.Generator(device=DEV).manual_seed(P32_SEED)
+    noise = torch.randn(served["rows"].shape, generator=gen, device=DEV) * P32_PERTURB
+    rows2 = served["rows"] + noise.cpu().numpy()
+    del noise
+
+    # -- a. zero-downtime rollouts under routed traffic -----------------------------------
+    fleet = ModelFleet.from_seeds([seed], client_kwargs=P32_CLIENT)
+    marks = []
+    set_intent = fleet._set_intent
+
+    def timed_intent(model, from_v, to_v, phase):
+        marks.append((model, phase, time.perf_counter()))
+        set_intent(model, from_v, to_v, phase)
+
+    fleet._set_intent = timed_intent
+    traffic_a = _P32Traffic(np, lambda: fleet.client(client_kwargs=P32_CLIENT), xs, qs,
+                            P32_THREADS).start()
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    res_pca = fleet.rollout("pca", "pca", pcas[2])
+    marks.append(("pca", "end", time.perf_counter()))
+    res_knn = fleet.rollout("knn", "knn", {"database": rows2}, params=served["knn_params"])
+    marks.append(("knn", "end", time.perf_counter()))
+    t1 = time.perf_counter()
+    time.sleep(0.5)
+    traffic_a.stop()
+    n_a, lat_a = traffic_a.window(t0, t1)
+    for model in ("pca", "knn"):
+        steps = [(ph, t) for m, ph, t in marks if m == model]
+        print(f"phase 32a: {model} rollout "
+              + ", ".join(f"{a} {t2 - t1_:.3f} s" for (a, t1_), (_, t2) in zip(steps, steps[1:]))
+              + f"; {(res_pca if model == 'pca' else res_knn)}", flush=True)
+    print(f"phase 32a: {n_a} routed requests during the rollouts ({t1 - t0:.3f} s) = "
+          f"{n_a / (t1 - t0):.1f} requests/s, p50 {lat_a[len(lat_a) // 2] * 1e3:.3f} ms, p99 "
+          f"{lat_a[min(len(lat_a) - 1, int(0.99 * len(lat_a)))] * 1e3:.3f} ms (host clock)",
+          flush=True)
+    check(res_pca["drained"] and res_knn["drained"] and not res_pca["failed"]
+          and not res_knn["failed"] and (res_pca["version"], res_knn["version"]) == (3, 2),
+          "phase 32a: PCA v2 -> v3 and the index v1 -> v2 rolled out on every replica, drained")
+    gens_t = [served["want_t"], p32_solo(reps[1].address, "pca@v3", xs=xs)]
+    gens_k = [served["want_k"], p32_solo(reps[2].address, "knn@v2", qs=qs)]
+    check(not any(np.array_equal(a[0], b[0]) for a, b in zip(gens_k[0], gens_k[1])),
+          "phase 32a: the index versions answer differently")
+    held = {k: p32_exists(r.address, ("pca@v2", "knn@v1", "pca@v3", "knn@v2"))
+            for k, r in procs.items() if r is not spare}
+    check(all(h == {"pca@v2": False, "knn@v1": False, "pca@v3": True, "knn@v2": True}
+              for h in held.values()),
+          f"phase 32a: after the drain every replica holds only the new versions ({held})")
+
+    # -- c. the autoscaler: a load spike scales out onto the spare, then back in ----------
+    admitted, drained, victim_counts = {}, [], {}
+    add_replica = fleet.table.add_replica
+
+    def admit(endpoint):
+        key = "%s:%d" % tuple(endpoint)
+        snap = p31_metrics(procs[key].address)
+        admitted.update(key=key, warmups=p29_metric(snap, "srml_daemon_requests_total",
+                                                    op="warmup"),
+                        routed=sum(p29_metric(snap, "srml_daemon_requests_total", op=op)
+                                   for op in ("transform", "kneighbors")),
+                        at=time.perf_counter())
+        return add_replica(endpoint)
+
+    fleet.table.add_replica = admit
+
+    def spawn():
+        admitted["asked"] = time.perf_counter()
+        return spare.address
+
+    def drain(key):
+        victim = procs.pop(key)
+        victim_counts[key] = (victim.launches()[0].get("dist_topk", 0),
+                              p29_metric(p31_metrics(victim.address),
+                                         "srml_daemon_requests_total", op="transform"))
+        victim.stop()
+        drained.append((key, time.perf_counter()))
+
+    # The controller starts from an empty registry, as in a process of its
+    # own: the autoscaler reads every objective breaching in its process, and
+    # phase 30's unreachable p99 objective left srml_slo_breach at 1 here.
+    metrics_mod.reset()
+    before = metrics_mod.snapshot()
+    jdir = tempfile.mkdtemp(prefix="srml-phase32-")
+    jpath = os.path.join(jdir, "journal.jsonl")
+    scaler = AutoScaler(fleet, spawn, drain, high_watermark=P32_HIGH, low_watermark=P32_LOW,
+                        cooldown_s=P32_COOLDOWN_S, tick_s=P32_TICK_S, min_replicas=3,
+                        max_replicas=4)
+
+    def live():
+        return len([r for r in fleet.table.replicas() if r.alive])
+
+    def wait_for(what, cond):
+        t_end = time.perf_counter() + P32_WAIT_S
+        while not cond():
+            if time.perf_counter() > t_end:
+                fail(f"phase 32c: no {what} within {P32_WAIT_S} s: {scaler.status()}")
+            time.sleep(0.02)
+
+    with config.option("run_journal", jpath), journal.run("phase32c"):
+        traffic_c = _P32Traffic(np, lambda: fleet.client(client_kwargs=P32_CLIENT), xs, qs,
+                                P32_SPIKE)
+        t_spike = time.perf_counter()
+        try:
+            scaler.start()
+            traffic_c.start()
+            wait_for("scale_up", lambda: live() == 4 and scaler.status()["last_action"]
+                     .get("action") == "scale_up")
+            t_up = time.perf_counter()
+            time.sleep(1.0)  # the spike on four replicas
+            traffic_c.level = 1  # the spike passes; one thread keeps requests in flight
+            t_calm = time.perf_counter()
+            wait_for("scale_down", lambda: bool(drained))
+            t_down = time.perf_counter()
+            time.sleep(0.5)
+        finally:
+            traffic_c.stop()
+            scaler.stop()
+    journal.close()
+    after = metrics_mod.snapshot()
+    acts = {a: p29_delta(before, after, "srml_autoscale_actions_total", action=a, outcome="ok")
+            for a in ("scale_up", "scale_down")}
+    status = scaler.status()
+    print(f"phase 32c: load spike of {P32_SPIKE} threads to the scale-up's admission "
+          f"{admitted.get('at', t_up) - t_spike:.3f} s (spawn to admission "
+          f"{admitted.get('at', t_up) - admitted.get('asked', t_up):.3f} s); calm to the "
+          f"drained victim {t_down - t_calm:.3f} s; actions {acts}; last decision "
+          f"{status['last_decision']}", flush=True)
+    check(acts == {"scale_up": 1.0, "scale_down": 1.0},
+          f"phase 32c: one scale_up and one scale_down ({acts})")
+    check(admitted.get("key") == "%s:%d" % spare.address and admitted["warmups"] == 2
+          and admitted["routed"] == 0,
+          f"phase 32c: the newcomer warmed both models before its admission, with no routed "
+          f"request ({admitted})")
+    victim = drained[0][0]
+    newcomer_routed = (victim_counts[victim][1] if victim == admitted["key"] else
+                       p29_metric(p31_metrics(spare.address), "srml_daemon_requests_total",
+                                  op="transform"))
+    check(newcomer_routed > 0, f"phase 32c: the newcomer served routed requests after its "
+                               f"admission ({newcomer_routed})")
+    events = trace_tool.load([jpath])
+    spans = {e["name"]: e["duration_s"] for e in events
+             if e.get("event") == "phase" and str(e.get("name")).startswith("autoscale.")}
+    print(f"phase 32c: the journal's action spans {spans}; victim {victim}", flush=True)
+    check(set(spans) == {"autoscale.scale_up", "autoscale.scale_down"},
+          f"phase 32c: tools.trace read both action spans back from the journal ({spans})")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        top_tool.main([seed if seed in procs else next(iter(procs)), "--once", "--fleet"])
+    panel = buf.getvalue()
+    print(panel, flush=True)
+    rows_ = [ln.split() for ln in panel.splitlines()]
+    up_rows = [r for r in rows_ if len(r) == 6 and r[1] in procs and r[3] == "up" and r[5] == "ok"]
+    models = {r[0]: r[1] for r in rows_ if r[:1] in (["pca"], ["knn"])}
+    check(len(up_rows) == len(procs) == 3 and models == {"pca": "v4", "knn": "v3"},
+          f"phase 32c: tools.top --once --fleet shows the three replicas up and pca v4, knn "
+          f"v3 active ({len(up_rows)} up rows, {models})")
+
+    # -- b. a controller process dying mid-rollout, twice ------------------------------------
+    seeds = sorted(procs)
+    traffic_b = _P32Traffic(np, lambda: FleetClient.from_seeds(seeds[0], client_kwargs=P32_CLIENT),
+                            xs, qs, P32_THREADS).start()
+    deaths = []
+    try:
+        for (proc, cq, oq), (arrays, version, phase, action) in zip(
+                controllers, ((pcas[0], 5, "flipped", "completed"),
+                              (pcas[1], 6, "registering", "aborted"))):
+            msg = oq.get(timeout=P31_DAEMON_TIMEOUT_S)
+            if msg[0] != "ready":
+                fail(f"phase 32b: a controller process failed to start: {msg}")
+            cq.put(("go", seeds[version % 3], arrays, version))
+            proc.join(timeout=120)
+            t_dead = time.perf_counter()
+            with ModelFleet.from_seeds([seeds[(version + 1) % 3]],
+                                       client_kwargs=P32_CLIENT) as successor:
+                intent = successor.table.intent("pca") or {}
+                res = successor.resume_rollout("pca")
+            t_done = time.perf_counter()
+            deaths.append((version, proc.exitcode, intent.get("phase"), res, t_done - t_dead))
+            print(f"phase 32b: the controller rolling PCA to v{version} died (exit "
+                  f"{proc.exitcode}) in phase {intent.get('phase')}; its successor "
+                  f"{res['action']} the rollout {t_done - t_dead:.3f} s after the death",
+                  flush=True)
+            check(proc.exitcode == 17 and intent.get("phase") == phase
+                  and intent.get("to_version") == version and res["action"] == action,
+                  f"phase 32b: the death at {phase} left its intent on the fleet and the "
+                  f"successor {action} the rollout ({res})")
+            if version == 5:
+                gens_t.append(p32_solo(procs[seeds[0]].address, "pca@v5", xs=xs))
+        time.sleep(0.5)
+    finally:
+        traffic_b.stop()
+        for proc, _, _ in controllers:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.terminate()
+    held = {k: p32_exists(r.address, ("pca@v4", "pca@v5", "pca@v6", "knn@v3"))
+            for k, r in procs.items()}
+    check(all(h == {"pca@v4": False, "pca@v5": True, "pca@v6": False, "knn@v3": True}
+              for h in held.values()),
+          f"phase 32b: PCA v5 completed and v6 aborted on every replica ({held})")
+
+    # -- every answer of the phase, and the launches ------------------------------------------
+    bad, n = p32_check_answers(np, (("a", traffic_a), ("c", traffic_c), ("b", traffic_b)),
+                               gens_t, gens_k)
+    check(not bad and n > 0, f"phase 32: every one of {n} routed requests answered, bitwise the "
+                             f"solo answer of a version, no thread going back a version "
+                             f"({len(bad)} not: {bad[:3]})")
+    fleet.close()
+    launches = sum(c for c, _ in victim_counts.values())
+    launches += sum(r.launches()[0].get("dist_topk", 0) for r in procs.values())
+    print(f"phase 32: dist_topk launches over the replicas {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(launches >= 1, f"phase 32: the routed exact requests ran dist_topk ({launches})")
     return {"dist_topk": launches}
 
 
@@ -7651,7 +8109,8 @@ def phase_fleet(torch, kernels, config):
     # The daemons of a and b and the task pool start together (their imports
     # and CUDA contexts overlap); c's replicas start as b begins, so they
     # come up behind b's work.
-    state = {name: os.path.join(sd, name) for name in ("a-clean", "a-fault", "b", "c0", "c1", "c2")}
+    state = {name: os.path.join(sd, name)
+             for name in ("a-clean", "a-fault", "b", "c0", "c1", "c2", "c3")}
     clean = _P31Daemon(ctx, DEV, state_dir=state["a-clean"], port=0)
     doomed = _P31Daemon(ctx, DEV, plan=P31_CRASH, state_dir=state["a-fault"], port=0)
     index = _P31Daemon(ctx, DEV, state_dir=state["b"], port=0)
@@ -7674,15 +8133,23 @@ def phase_fleet(torch, kernels, config):
         for d in (clean, doomed, index):
             d.stop()
     t0 = time.perf_counter()
+    # Phase 32's spare replica, the autoscaler's new host, comes up while 31c runs.
+    spare = _P31Daemon(ctx, DEV, state_dir=state["c3"], port=0,
+                       gossip_interval_s=P31_GOSSIP_S, serve_batching=False)
     try:
-        for k, v in p31_fleet(torch, np, reps).items():
+        launches, served = p31_fleet(torch, np, reps)
+        for k, v in launches.items():
             out[("fleet", k)] = v
+        print(f"phase 31c passed ({time.perf_counter() - t0:.1f} s)", flush=True)
+        print(f"phase 31: {time.perf_counter() - t_phase:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        for k, v in phase_control(torch, np, reps, spare, served).items():
+            out[("control", k)] = v
+        print(f"phase 32 passed ({time.perf_counter() - t0:.1f} s)", flush=True)
     finally:
-        for r in reps:
+        for r in reps + [spare]:
             r.stop()
-    print(f"phase 31c passed ({time.perf_counter() - t0:.1f} s)", flush=True)
     shutil.rmtree(sd, ignore_errors=True)
-    print(f"phase 31: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
 
@@ -7721,6 +8188,11 @@ def main() -> None:
     kernels._knn_lib()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s -> "
           + ", ".join(p.name for p in built))
+    # The Spark tasks' fork server imports the port while the card works.
+    import multiprocessing.forkserver
+
+    task_context()
+    multiprocessing.forkserver.ensure_running()
     for name, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "warning",
@@ -7728,11 +8200,11 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}")
 
     if "--fleet" in sys.argv[1:]:
-        # Phase 31 alone.
+        # Phases 31 and 32 alone.
         phase_fleet(torch, kernels, config)
         print(card)
-        print(f"phase 31 passed ({time.perf_counter() - t_start:.1f} s); --fleet: stopping here",
-              flush=True)
+        print(f"phases 31-32 passed ({time.perf_counter() - t_start:.1f} s); --fleet: stopping "
+              "here", flush=True)
         return
 
     if "--telemetry" in sys.argv[1:]:
@@ -8223,7 +8695,7 @@ def main() -> None:
     for name, n in phase_telemetry(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["telemetry_launches"] = n
 
-    # -- 31. durable daemons and the routed fleet ---------------------------------------------
+    # -- 31-32. durable daemons, the routed fleet and its control plane -----------------------
     torch.cuda.empty_cache()
     for (part, name), n in phase_fleet(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)[f"{part}_launches"] = n

@@ -6,8 +6,9 @@ NearestNeighbors and ApproximateNearestNeighbors, the random forests, the
 data-plane daemon's watermarks and serving scheduler, the Spark fit
 policies, the multi-daemon reduce path, the native bridge, the default
 mesh's axes, the metrics switch, the observability plane's journal,
-kernel ledger, SLO and flight-recorder keys, the daemon's state directory
-and the fleet's version fence, router and gossip keys).
+kernel ledger, SLO and flight-recorder keys, the daemon's state directory,
+the fleet's version fence, router and gossip keys, the rollout's drain
+timeout and the serve autoscaler's keys).
 Values are settable programmatically or through environment variables
 prefixed ``SRML_TORCH_`` — a prefix of its own, so the port never inherits
 the JAX package's ``SRML_TPU_*`` settings; the deployment-facing
@@ -214,6 +215,25 @@ _DEFAULTS: Dict[str, Any] = {
     # Comma-separated "host:port" seeds a FleetClient bootstraps from when
     # none are passed.
     "fleet_seed_addresses": _env("FLEET_SEED_ADDRESSES", "") or None,
+    # --- The fleet control plane (serve/{fleet,autoscaler}.py). The JAX
+    # package's defaults; env SRML_TORCH_FLEET_DRAIN_TIMEOUT_S and
+    # SRML_TORCH_AUTOSCALE_*, never SRML_FLEET_* / SRML_AUTOSCALE_*. ---
+    # How long a rollout waits for the retired version's in-flight requests
+    # before dropping its registrations; a timeout leaves them registered.
+    "fleet_drain_timeout_s": float(_env("FLEET_DRAIN_TIMEOUT_S", "30.0")),
+    # Scale up when queued requests per live replica reach this.
+    "autoscale_high_watermark": float(_env("AUTOSCALE_HIGH_WATERMARK", "8.0")),
+    # Scale down at or below this; the band between is the hysteresis.
+    "autoscale_low_watermark": float(_env("AUTOSCALE_LOW_WATERMARK", "1.0")),
+    # At most one action a cooldown window.
+    "autoscale_cooldown_s": float(_env("AUTOSCALE_COOLDOWN_S", "30.0")),
+    # The control loop's poll interval.
+    "autoscale_tick_s": float(_env("AUTOSCALE_TICK_S", "2.0")),
+    # The replica count's floor and ceiling.
+    "autoscale_min_replicas": int(_env("AUTOSCALE_MIN_REPLICAS", "1")),
+    "autoscale_max_replicas": int(_env("AUTOSCALE_MAX_REPLICAS", "8")),
+    # Routed p99 over this forces a scale-up verdict; 0 = off.
+    "autoscale_p99_deadline_s": float(_env("AUTOSCALE_P99_DEADLINE_S", "0.0")),
 }
 
 _lock = threading.Lock()

@@ -16,12 +16,17 @@ a fleet: each daemon gossips a :class:`FleetView` (``gossip``), and a
 :class:`FleetClient` (``router``) routes requests over a
 :class:`ConsistentHashRing` of them, failing over past dead and busy
 replicas, its :class:`RoutingTable` bootstrapped from one seed daemon
-(:func:`bootstrap_table`). Importing this package loads neither JAX nor
-pyarrow: only the Arrow ops import pyarrow, at use.
+(:func:`bootstrap_table`). A :class:`ModelFleet` (``fleet``) registers
+versioned models on the replicas, rolls them forward without downtime
+(raising :class:`FleetRolloutError` when no replica takes a version) and
+scales the replica set, by hand or under ``autoscaler.AutoScaler``.
+Importing this package loads neither JAX nor pyarrow: only the Arrow ops
+import pyarrow, at use.
 """
 
 from spark_rapids_ml_tpu_torch.serve.client import DaemonBusy, DataPlaneClient
 from spark_rapids_ml_tpu_torch.serve.daemon import DataPlaneDaemon
+from spark_rapids_ml_tpu_torch.serve.fleet import FleetRolloutError, ModelFleet
 from spark_rapids_ml_tpu_torch.serve.gossip import FleetView
 from spark_rapids_ml_tpu_torch.serve.router import (
     ConsistentHashRing,
@@ -34,6 +39,7 @@ from spark_rapids_ml_tpu_torch.serve.scheduler import RequestScheduler, Schedule
 
 __all__ = [
     "ConsistentHashRing", "DaemonBusy", "DataPlaneClient", "DataPlaneDaemon",
-    "FleetClient", "FleetUnavailable", "FleetView", "RequestScheduler", "RoutingTable",
-    "SchedulerBusy", "bootstrap_table",
+    "FleetClient", "FleetRolloutError", "FleetUnavailable", "FleetView",
+    "ModelFleet", "RequestScheduler", "RoutingTable", "SchedulerBusy",
+    "bootstrap_table",
 ]

@@ -83,6 +83,22 @@ def resolve_all(spark=None) -> list:
     return [_parse_addr(a.strip()) for a in addrs.split(",") if a.strip()]
 
 
+def fleet_seeds(spark=None) -> list:
+    """Seed addresses of the gossiped fleet's bootstrap
+    (``router.bootstrap_table``: one reachable seed is enough, its view
+    names the rest): ``$SRML_TORCH_FLEET_SEED_ADDRESSES``, then
+    ``spark.srml.fleet.seed_addresses``, then the ``fleet_seed_addresses``
+    config key, comma-separated ``host:port``. Empty when none is set."""
+    addrs = os.environ.get("SRML_TORCH_FLEET_SEED_ADDRESSES")
+    if not addrs and spark is not None:
+        addrs = _spark_conf_get(spark, "spark.srml.fleet.seed_addresses")
+    if not addrs:
+        addrs = config.get("fleet_seed_addresses")
+    if not addrs:
+        return []
+    return [a.strip() for a in str(addrs).split(",") if a.strip()]
+
+
 def client_kwargs(spark=None) -> dict:
     """Resilience tuning of every client a Spark fit or transform opens,
     env first, then Spark conf: ``$SRML_DAEMON_TIMEOUT_S`` /

@@ -44,6 +44,14 @@ never fires):
                           exchange: a fault drops that exchange for the tick
 ``fleet.bootstrap``       the router's ``bootstrap_table``, before each seed
                           attempt
+``fleet.rollout``         ``serve/fleet.py``, after each rollout phase's
+                          intent is gossiped and before the phase runs: a
+                          crash here is the controller dying mid-rollout
+                          with its intent already on the wire, which a
+                          successor completes or aborts
+``autoscale.action``      ``serve/autoscaler.py``, between a scale decision
+                          and its action: the loop counts the failure and
+                          retries on a later tick, never half-scaling
 ``wire.send_frame``       every outbound frame, both directions
 ``bridge.to_matrix``      Arrow list column → matrix conversion
 ``bridge.to_ipc``         matrix → Arrow list column (the feed path)

@@ -238,21 +238,31 @@ def test_the_port_reads_its_own_env_names():
             "print(repr([config.get(k) for k in ('run_journal', 'slo_objectives', "
             "'device_timing', 'telemetry_eval_interval_s', 'incident_on_fatal', "
             "'daemon_state_dir', 'gossip_interval_s', 'serve_version_strict', "
-            "'fleet_seed_addresses', 'gossip_fanout', 'fleet_vnodes')]))")
+            "'fleet_seed_addresses', 'gossip_fanout', 'fleet_vnodes', 'fleet_drain_timeout_s', "
+            "'autoscale_high_watermark', 'autoscale_max_replicas')]"
+            " + [__import__('spark_rapids_ml_tpu_torch.spark.daemon_session', fromlist=['x'])"
+            ".fleet_seeds()]))")
     # The durable daemon's and the fleet's keys too: the JAX package's
     # SRML_DAEMON_STATE_DIR, SRML_GOSSIP_*, SRML_SERVE_* and SRML_FLEET_* are
-    # ignored, SRML_TORCH_GOSSIP_FANOUT and SRML_TORCH_FLEET_VNODES read.
+    # ignored, SRML_TORCH_GOSSIP_FANOUT and SRML_TORCH_FLEET_VNODES read. The
+    # control plane's: SRML_FLEET_DRAIN_TIMEOUT_S and SRML_AUTOSCALE_* ignored,
+    # SRML_TORCH_AUTOSCALE_MAX_REPLICAS read, and fleet_seeds() empty under
+    # the JAX package's SRML_FLEET_SEED_ADDRESSES.
     env = dict(os.environ, SRML_RUN_JOURNAL="/nonexistent/jax.jsonl",
                SRML_SLO_OBJECTIVES="transform:error", SRML_DEVICE_TIMING="1",
                SRML_TORCH_TELEMETRY_EVAL_INTERVAL_S="0.25", SRML_TORCH_INCIDENT_ON_FATAL="on",
                SRML_DAEMON_STATE_DIR="/nonexistent/jax-state", SRML_GOSSIP_INTERVAL_S="0.5",
                SRML_SERVE_VERSION_STRICT="0", SRML_FLEET_SEED_ADDRESSES="127.0.0.1:1",
-               SRML_TORCH_GOSSIP_FANOUT="3", SRML_TORCH_FLEET_VNODES="16")
+               SRML_TORCH_GOSSIP_FANOUT="3", SRML_TORCH_FLEET_VNODES="16",
+               SRML_FLEET_DRAIN_TIMEOUT_S="5", SRML_AUTOSCALE_HIGH_WATERMARK="2",
+               SRML_AUTOSCALE_MAX_REPLICAS="2", SRML_TORCH_AUTOSCALE_MAX_REPLICAS="5")
     for k in ("SRML_TORCH_RUN_JOURNAL", "SRML_TORCH_SLO_OBJECTIVES", "SRML_TORCH_DEVICE_TIMING",
               "SRML_TORCH_DAEMON_STATE_DIR", "SRML_TORCH_GOSSIP_INTERVAL_S",
-              "SRML_TORCH_SERVE_VERSION_STRICT", "SRML_TORCH_FLEET_SEED_ADDRESSES"):
+              "SRML_TORCH_SERVE_VERSION_STRICT", "SRML_TORCH_FLEET_SEED_ADDRESSES",
+              "SRML_TORCH_FLEET_DRAIN_TIMEOUT_S", "SRML_TORCH_AUTOSCALE_HIGH_WATERMARK"):
         env.pop(k, None)
     out = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
                          env=env, capture_output=True, text=True, timeout=120)
-    assert out.stdout.strip() == "[None, '', False, 0.25, True, None, 0.0, True, None, 3, 16]", \
+    assert out.stdout.strip() == ("[None, '', False, 0.25, True, None, 0.0, True, None, 3, 16, "
+                                  "30.0, 8.0, 5, []]"), \
         out.stderr

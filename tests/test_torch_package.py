@@ -156,6 +156,35 @@ def test_the_fleet_modules_are_scanned_and_load_neither_jax_nor_pyarrow():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_the_fleet_control_plane_and_tools_are_scanned_and_load_no_jax():
+    """``serve/fleet.py``, ``serve/autoscaler.py`` and ``tools/*.py`` are in
+    the scan above, import nothing of JAX, and load neither JAX nor pyarrow;
+    ``serve.__all__`` names what the JAX package's names."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
+    paths = [PORT / "serve" / "fleet.py", PORT / "serve" / "autoscaler.py"] + [
+        PORT / "tools" / f"{m}.py" for m in ("__init__", "top", "trace")]
+    for path in paths:
+        assert path.relative_to(ROOT).as_posix() in scanned
+        assert [r for r, _ in _imported_roots(path) if r in FORBIDDEN] == []
+    code = (
+        "import sys, spark_rapids_ml_tpu_torch.serve as s, "
+        "spark_rapids_ml_tpu_torch.serve.fleet, spark_rapids_ml_tpu_torch.serve.autoscaler, "
+        "spark_rapids_ml_tpu_torch.tools.top, spark_rapids_ml_tpu_torch.tools.trace; "
+        "assert 'ModelFleet' in s.__all__ and 'FleetRolloutError' in s.__all__; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'spark_rapids_ml_tpu', 'pyarrow', 'pandas')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    from spark_rapids_ml_tpu import serve as jax_serve
+    from spark_rapids_ml_tpu_torch import serve as port_serve
+
+    assert port_serve.__all__ == jax_serve.__all__
+
+
 def test_the_observability_plane_is_scanned_and_loads_no_jax():
     """The journal, the kernel ledger, the SLO evaluator and the flight
     recorder are the port's own copies: scanned, importing neither JAX nor
