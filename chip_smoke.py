@@ -45,7 +45,7 @@ Phases, each of which exits non-zero on a failed check:
    ``--multi-process`` runs phase 26 alone; ``--multi-daemon`` runs
    phase 27 alone; ``--elastic`` runs phase 28 alone; ``--serving`` runs
    phase 29 alone; ``--telemetry`` runs phase 30 alone; ``--fleet`` runs
-   phases 31 and 32 alone.
+   phases 31 and 32 alone; ``--model-axis`` runs phase 33 alone.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -346,7 +346,8 @@ Phases, each of which exits non-zero on a failed check:
     pass partials folded into the primary by ``reduce_mesh`` or by the
     hub's ``export_state`` + ``merge_state``, the primary's iterate pushed
     to it at each boundary). a. Two port daemons in this process on the
-    card: PCA d = 2048, k = 32 on rows from {-1, 0, 1} (every statistic an
+    card: PCA d = 2048, k = 32 (its frames cut to 32,768 rows, 524,288 a
+    fit, here and in phase 28) on rows from {-1, 0, 1} (every statistic an
     exact float32 sum) through one daemon, the collective path and the hub
     (``mesh_collectives`` off), all three bitwise equal, then on phase
     20's gaussian rows against float64 (phase 20's tolerances);
@@ -506,6 +507,32 @@ Phases, each of which exits non-zero on a failed check:
     a, b and c, every routed answer equals, bitwise, a version's solo
     answer, no thread goes back a version and none fails; the
     ``dist_topk`` launches of the phase over every replica process.
+33. The model axis (``parallel/mesh.py``'s (data, model) mesh of ranks,
+    ``ops/gram.sharded_stats_ring``,
+    ``ops/eigh.pca_from_gram_model_sharded``, ``fit_pca``'s 2-D route,
+    ``shard_index``) in four spawned gloo ranks sharing the card. a. A
+    world-of-one ``fit_pca`` at d = 10,240 (a 400 MiB f32 Gram, over the
+    256 MiB budget) raises ``GramCapacityError`` naming
+    ``mesh_model_axis``; on a 2 x 2 mesh, 131,072 bf16 rows a data row
+    made on the card from the row's seed: on {-1, 0, 1} rows the ring's
+    slabs are bitwise equal to those of a plain all-gather of the full
+    width (the JAX package's other form, which the port does not have) and
+    to the rows of the one-process ``gram`` kernel of all 262,144 rows, and
+    the ring's peak memory (``torch.cuda.max_memory_allocated``) is below
+    the all-gather's; on phase 3's spectrum at that width ``fit_pca``'s
+    randomized model-sharded fit (k = 32, the ring) against a float64 eigh
+    of the same bf16 rows on the card (phase 3's tolerance); the seconds
+    of the stats, the eigensolve and each collective. The exact solver's
+    must-shard finalize (a float64 d x d assembled on the host) is not
+    driven here. b. Phase 17's index (written to disk by phase 17 in the
+    whole run, built here with ``--model-axis``), each rank of a 4 x 1 mesh
+    memory-mapping it and keeping its 256 lists (``shard_index``); its
+    4,096 queries: one
+    ``probe_select`` (fused) and one ``ivf_scan_select`` (tensor cores)
+    launch a rank, the answer the same on every rank and, after sorting
+    each row, the unsharded query's ids with distances within rtol 1e-5
+    (where rows differ the sharded recall@10 against float64 ground truth
+    must not be the lower); q/s of both.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
@@ -532,7 +559,9 @@ batched exact and bypassed IVF traffic's under ``serving_launches``, the
 ``dist_topk``, ``probe_select`` and ``ivf_scan_select`` rows phase 31b's
 (both incarnations of its daemon process) under ``durable_launches`` and
 the ``dist_topk`` row phase 31c's (summed over its replica processes)
-under ``fleet_launches`` and phase 32's under ``control_launches``) and
+under ``fleet_launches`` and phase 32's under ``control_launches``, and
+the ``probe_select`` and ``ivf_scan_select`` rows phase 33b's summed over
+its four ranks under ``model_axis_launches``) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this file, the script fails before printing any result.
 """
@@ -588,6 +617,9 @@ P22_SERVED: dict = {}
 #: Phase 27's one-daemon PCA of its {-1, 0, 1} rows ("model", "s"): phase
 #: 28's PCA oracle when phase 27 ran in this call.
 P27_ORACLE: dict = {}
+#: Phase 17's IVF index written to disk, with its queries, float64 ground
+#: truth and answer (``p17_save``): phase 33b's when phase 17 ran in this call.
+P17_INDEX: dict = {}
 
 DP_ROWS = 65536  # spark/conf.py:22,40: arrow.maxRecordsPerBatch, one feed
 DP_PARTITIONS, DP_FEEDS = 8, 2  # 1,048,576 rows (BASELINE.json #1's 100M cut in depth)
@@ -2192,6 +2224,29 @@ def recall_at(ids, gt) -> float:
     return float(np.mean([len(set(a) & set(b)) / gt.shape[1] for a, b in zip(ids, gt)]))
 
 
+def p17_save(torch, ann, qs, gt_i, d_u, i_u, query_s, build_s) -> dict:
+    """Phase 17's index written to a temporary directory (removed at exit)
+    for phase 33b's ranks to memory-map, with its queries, its float64
+    ground truth and its unsharded answer."""
+    import atexit
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    tmpdir = tempfile.mkdtemp(prefix="srml_p17_")
+    atexit.register(shutil.rmtree, tmpdir, True)
+    t0 = time.perf_counter()
+    for name, arr in ann.index._asdict().items():
+        np.save(os.path.join(tmpdir, f"{name}.npy"), np.asarray(arr))
+    np.save(os.path.join(tmpdir, "queries.npy"), torch.as_tensor(qs).cpu().numpy())
+    save_s = time.perf_counter() - t0
+    gb = sum(np.asarray(a).nbytes for a in ann.index) / 1e9
+    print(f"ivf index written to disk for phase 33b: {gb:.2f} GB in {save_s:.3f} s", flush=True)
+    return {"dir": tmpdir, "gt_i": gt_i.cpu(), "d": np.asarray(d_u), "i": np.asarray(i_u),
+            "s": query_s, "build_s": build_s}
+
+
 def check_selection(torch, tag, kd, ki, pd, pi, tol) -> int:
     """Kernel (kd, ki) against plain (pd, pi) selections, ascending per row:
     values within ``tol`` (a tensor broadcastable to them); where ids
@@ -2355,7 +2410,7 @@ def phase_knn(torch, kernels, config):
         return orig_scan(*a)
 
     ann.kneighbors(qs)  # warm-up: the index upload and its residual copy
-    results = {}
+    results, answers = {}, {}
     for rerank in (True, False):
         with config.option("ann_rerank", rerank):
             kernels.probe_select, kernels.ivf_scan_select = rec_probe, rec_scan
@@ -2375,6 +2430,7 @@ def phase_knn(torch, kernels, config):
                   f"the tensor-core route ({scan_tc})")
             rec = recall_at(i_a, gt_i)
             results[rerank] = (launches, captured.copy(), q_s, rec)
+            answers[rerank] = (d_a, i_a)
             check(d_a.shape == (KNN_QUERIES, KNN_K) and bool(torch.isfinite(torch.as_tensor(d_a)).all()),
                   f"ivf rerank={rerank}: distances finite, shape {d_a.shape}")
             print(f"ivf kneighbors nprobe {KNN_NPROBE} rerank={rerank}: {KNN_QUERIES / q_s:.1f} q/s "
@@ -2393,6 +2449,9 @@ def phase_knn(torch, kernels, config):
           f"ivf every list probed (nprobe {KNN_NLIST}): recall@{KNN_K} {rec_all:.4f} >= 0.98 "
           f"({all_s:.3f} s), its probe on the sort route "
           f"({kernels.ROUTES['probe_select/sort']})")
+    # Phase 33b shards this index: written to disk once, with its answer.
+    P17_INDEX.update(p17_save(torch, ann, qs, gt_i, *answers[True], results[True][2],
+                              build_s))
     del gt_d, gt_i, i_all
 
     # -- 15. kernels against their plain versions at the path's shapes -------------------
@@ -5393,12 +5452,16 @@ def phase_multiprocess(torch, card, stream_rate) -> dict:
 # -- 27. the fits across daemons ------------------------------------------------
 
 P27_SEED = 27
+#: Phase 27's (and phase 28's) PCA frames: 32,768 rows, 524,288 a fit (cut
+#: from 65,536 and 1,048,576 for the smoke's time; the frame and feed
+#: counts, and with them every launch and fault count, are unchanged).
+P27_PCA_ROWS = DP_ROWS // 2
 #: Phase 27: run → the P21_RUNS fields (a forest run adds its dataset's
 #: rows: phase 25's HIGGS cut from 11,000,000 to 1,048,576). The "-int" runs
 #: draw their rows from {-1, 0, 1}. The task processes get it as an argument.
 P27_RUNS = {
-    "pca-int": ("pca", D, DP_ROWS, DP_FEEDS, K),
-    "pca": ("pca", D, DP_ROWS, DP_FEEDS, K),
+    "pca-int": ("pca", D, P27_PCA_ROWS, DP_FEEDS, K),
+    "pca": ("pca", D, P27_PCA_ROWS, DP_FEEDS, K),
     "linreg-int": ("linreg", LR_D, DP_ROWS, 2, 0),
     "logreg-multinomial": ("logreg", LG_D, 16384, 1, MN_CLASSES),
     "kmeans": ("kmeans", KM_D, DP_ROWS, 2, KM_K),
@@ -5566,7 +5629,8 @@ def phase_multidaemon(torch, kernels, config):
 
     t_phase = time.perf_counter()
     print(f"phase 27: the fits across daemons, {DP_PARTITIONS} task processes (forked, reused) x "
-          f"feed_raw frames of {DP_ROWS} rows; partitions {P27_PEER_PARTS[0]}-"
+          f"feed_raw frames of {DP_ROWS} rows (PCA's {P27_PCA_ROWS}); partitions "
+          f"{P27_PEER_PARTS[0]}-"
           f"{P27_PEER_PARTS[-1]} feed the second daemon, partition {SPARK_DYING}'s attempt 0 "
           f"dies after one feed in each fit's first scan", flush=True)
     out = {k: 0 for k in P27_KERNELS}
@@ -5639,7 +5703,8 @@ def phase_multidaemon(torch, kernels, config):
             gram = torch.zeros((D, D), dtype=torch.float64, device=DEV)
             keys = [(p, f) for p in range(DP_PARTITIONS) for f in range(DP_FEEDS)]
             with ThreadPoolExecutor(max_workers=8) as ex:
-                for x in ex.map(lambda pf: spark_rows(np, pf[0], pf[1], DP_ROWS, D, K), keys):
+                for x in ex.map(lambda pf: spark_rows(np, pf[0], pf[1], P27_PCA_ROWS, D, K),
+                                keys):
                     xd = torch.from_numpy(x).to(DEV).double()
                     gram.addmm_(xd.T, xd)
                     colsum.add_(xd.sum(0))
@@ -8153,6 +8218,339 @@ def phase_fleet(torch, kernels, config):
     return out
 
 
+# -- 33. the model axis: a (data, model) mesh of ranks on the card ----------------
+
+P33_SEED = 33
+P33_D = 10240  # a width whose f32 (d, d) Gram (400 MiB) is over the 256 MiB budget
+P33_ROWS = 1 << 17  # a data row's rows: 262,144 over the 2 x 2 mesh's two data rows
+P33_CHUNK = 1 << 14  # rows generated a call (the generator's draws, chunked alike everywhere)
+P33_RANKS = 4
+P33_RANK_TIMEOUT_S = 420
+#: The kernels of the phase's path (33b), as the kernels JSON names them.
+P33_KERNELS = ("probe_select", "ivf_scan_select")
+P33_SPANS = ("compute cov", "eig finalize", "collective gather", "collective reduce",
+             "collective shift")
+
+
+def p33_rows(torch, data_index, kind):
+    """One data row's (P33_ROWS, P33_D) bf16 rows on the card, made in
+    P33_CHUNK-row draws from the row's seed: {-1, 0, 1} integers ("int":
+    every Gram entry of all 262,144 rows is an integer below 2^24, exact in
+    f32 in any order) or phase 3's spectrum at width P33_D ("gauss")."""
+    g = torch.Generator(device=DEV).manual_seed(P33_SEED * 100 + 10 * (kind == "gauss")
+                                                + data_index)
+    out = torch.empty((P33_ROWS, P33_D), dtype=torch.bfloat16, device=DEV)
+    if kind == "gauss":
+        j = torch.arange(P33_D, device=DEV, dtype=torch.float32)
+        scales = torch.where(j < K, torch.sqrt(2.0 - j / (K - 1)), 0.1 * 0.999 ** j)
+        mu = 0.05 * torch.randn((P33_D,), generator=g, device=DEV)
+    for r0 in range(0, P33_ROWS, P33_CHUNK):
+        if kind == "int":
+            out[r0:r0 + P33_CHUNK] = torch.randint(-1, 2, (P33_CHUNK, P33_D), generator=g,
+                                                   device=DEV, dtype=torch.int8)
+        else:
+            z = torch.randn((P33_CHUNK, P33_D), generator=g, device=DEV)
+            out[r0:r0 + P33_CHUNK] = z * scales + mu
+    return out
+
+
+def p33_all_gather_stats(mesh):
+    """fn(block, mask) → (count, colsum, slab): the 2-D stats by an
+    all-gather of the full width onto every rank (the JAX package's
+    ``sharded_stats_2d``, which the port does not have), the plain version
+    phase 33a holds the ring against, bitwise and in peak memory."""
+    import torch
+
+    from spark_rapids_ml_tpu_torch.ops import gram as gram_ops
+    from spark_rapids_ml_tpu_torch.parallel import mapreduce as mr
+
+    def fn(block, mask):
+        xm = block * mask.to(block.dtype)[:, None]
+        x_full = mr.all_concat(xm, "model", axis=1, mesh=mesh)
+        count = mr.reduce_sum(mask.to(torch.int64).sum().to(torch.float32), "data", mesh=mesh)
+        colsum = mr.reduce_sum(x_full.sum(dim=0, dtype=torch.float32), "data", mesh=mesh)
+        slab = gram_ops._mm_accum(xm.T, x_full, torch.float32)
+        del x_full
+        return count, colsum, mr.reduce_sum(slab, "data", mesh=mesh)
+
+    return fn
+
+
+def _p33_rank(rank, port, tmpdir, q) -> None:
+    """Phase 33's rank, in a spawned process: reports its numbers to the
+    parent over ``q`` and exits non-zero on a failed check."""
+    try:
+        q.put(("ok", rank, _p33_body(rank, port, tmpdir)))
+    except BaseException as e:  # noqa: BLE001 - a failed check exits; reported to the parent
+        q.put(("err", rank, repr(e)))
+        raise
+
+
+def _p33_body(rank, port, tmpdir) -> dict:
+    import numpy as np
+    import torch
+
+    from spark_rapids_ml_tpu_torch.models import knn
+    from spark_rapids_ml_tpu_torch.models.pca import fit_pca
+    from spark_rapids_ml_tpu_torch.ops import gram as gram_ops
+    from spark_rapids_ml_tpu_torch.ops import kernels
+    from spark_rapids_ml_tpu_torch.parallel import distributed
+    from spark_rapids_ml_tpu_torch.parallel import mapreduce as mr
+    from spark_rapids_ml_tpu_torch.parallel.sharding import shard_rows_2d
+    from spark_rapids_ml_tpu_torch.utils import profiling
+
+    torch.set_num_threads(2)
+    distributed.initialize_cluster(f"127.0.0.1:{port}", P33_RANKS, rank, backend="gloo")
+    # Every rank builds the 2 x 2 mesh's groups, then takes the 4 x 1 mesh.
+    m22 = distributed.global_mesh(model=2)
+    m41 = distributed.global_mesh()
+    check(m22.device.type == torch.device(DEV).type, f"33 rank {rank}: on {m22.device}")
+    tag = f"33a rank {rank} {m22.coords}:"
+    out = {"coords": m22.coords}
+
+    def barrier():
+        mr.reduce_sum(torch.zeros(1, device=DEV), "data", mesh=m41)
+        torch.cuda.synchronize()
+
+    def spans():
+        tot = profiling.span_totals()
+        return {name: tot.get(name, (0.0, 0)) for name in P33_SPANS}
+
+    # -- 33a: the ring's feature-sharded Gram of small-integer rows, and a plain
+    # all-gather of the same blocks --
+    kernels.reset_launches()
+    x = p33_rows(torch, m22.coords[0], "int")
+    block, mask, n_true = shard_rows_2d(x, m22)
+    del x
+    torch.cuda.empty_cache()
+    digests = {}
+    for algo, fn in (("2d", p33_all_gather_stats), ("ring", gram_ops.sharded_stats_ring)):
+        barrier()
+        torch.cuda.reset_peak_memory_stats()
+        profiling.reset_span_totals()
+        staged = dict(mr.STAGED)
+        t0 = time.perf_counter()
+        count, colsum, slab = fn(m22)(block, mask)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        out[algo] = {"s": s, "peak": torch.cuda.max_memory_allocated(), "spans": spans(),
+                     "staged": {k_: mr.STAGED[k_] - staged[k_] for k_ in staged}}
+        digests[algo] = _digest(slab.cpu().numpy())
+        out[algo]["count"], out[algo]["colsum"] = float(count), _digest(colsum.cpu().numpy())
+        del count, colsum, slab
+        torch.cuda.empty_cache()
+    check(digests["2d"] == digests["ring"]
+          and out["2d"]["colsum"] == out["ring"]["colsum"]
+          and out["2d"]["count"] == out["ring"]["count"] == n_true == 2 * P33_ROWS,
+          f"{tag} the ring's and a plain all-gather's slabs ({P33_D // 2} x {P33_D} f32) "
+          "bitwise equal "
+          f"({digests['2d']}), count {n_true}")
+    out["slab"] = digests["2d"]
+    del block, mask
+    torch.cuda.empty_cache()
+
+    # -- 33a: PCA at a width one device refuses: the randomized fit, model-sharded --
+    x = p33_rows(torch, m22.coords[0], "gauss")
+    barrier()
+    torch.cuda.reset_peak_memory_stats()
+    profiling.reset_span_totals()
+    t0 = time.perf_counter()
+    sol = fit_pca(x, k=K, solver="randomized", mesh=m22)
+    out["fit"] = {"s": time.perf_counter() - t0, "spans": spans(),
+                  "peak": torch.cuda.max_memory_allocated(), "pc": sol.pc,
+                  "n_rows": sol.n_rows}
+    check(sol.pc.shape == (P33_D, K) and bool(np.isfinite(sol.pc).all())
+          and sol.n_rows == 2 * P33_ROWS,
+          f"{tag} randomized fit_pca at d={P33_D}: pc {sol.pc.shape} finite, n_rows {sol.n_rows}")
+    out["a_launches"] = sum(kernels.LAUNCHES.values())  # the 2-D route's products are cuBLAS
+    del x, sol
+    torch.cuda.empty_cache()
+
+    # -- 33b: the sharded IVF index, 4 x 1 ----------------------------------------
+    tag = f"33b rank {rank}:"
+    arrays = {name: np.load(os.path.join(tmpdir, f"{name}.npy"), mmap_mode="r")
+              for name in ("centroids", "lists", "list_ids", "list_mask")}
+    qs = np.load(os.path.join(tmpdir, "queries.npy"))
+    model = knn.ApproximateNearestNeighborsModel(index=knn.IVFFlatIndex(**arrays))
+    model._set(k=KNN_K, nprobe=KNN_NPROBE)
+    barrier()
+    t0 = time.perf_counter()
+    model.shard_index(m41)
+    shard_s = time.perf_counter() - t0
+    model.kneighbors(qs)  # warm-up: the residual copy of this rank's lists
+    barrier()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    d_s, i_s = model.kneighbors(qs)
+    query_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    routes = {k_: v for k_, v in kernels.ROUTES.items() if k_.split("/")[0] in P33_KERNELS and v}
+    check({name: n for name, n in launches.items() if n} == {"probe_select": 1,
+                                                                "ivf_scan_select": 1}
+          and routes == {"probe_select/fused": 1, "ivf_scan_select/wgmma": 1},
+          f"{tag} kneighbors: one probe_select launch on the fused route and one "
+          f"ivf_scan_select on the tensor-core route ({routes}); "
+          f"{model._shard[1][2].shape[0]} lists here")
+    out["ivf"] = {"d": d_s, "i": i_s, "s": query_s, "shard_s": shard_s, "launches": launches,
+                  "lists": int(model._shard[1][2].shape[0]), "staged": dict(mr.STAGED)}
+    barrier()
+    distributed.shutdown_cluster()
+    return out
+
+
+def p33_build_index(torch) -> dict:
+    """Phase 17's index, queries, ground truth and unsharded answer, built
+    here when phase 17 did not run in this call (``--model-axis``)."""
+    from spark_rapids_ml_tpu_torch import ApproximateNearestNeighbors
+
+    gen = torch.Generator(device=DEV).manual_seed(9)  # phase 17's data
+    centers = torch.randn((KNN_CLUSTERS, KNN_D), generator=gen, device=DEV)
+    x = knn_data(torch, gen, KNN_ROWS, centers)
+    qs = knn_data(torch, gen, KNN_QUERIES, centers)
+    del centers
+    t0 = time.perf_counter()
+    ann = (ApproximateNearestNeighbors().setK(KNN_K).setNlist(KNN_NLIST)
+           .setNprobe(KNN_NPROBE).fit({"features": x}))
+    build_s = time.perf_counter() - t0
+    _, gt_i = brute_force64(torch, x, qs, KNN_K)
+    del x
+    ann.kneighbors(qs)  # warm-up: the upload and the residual copy
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d_u, i_u = ann.kneighbors(qs)
+    query_s = time.perf_counter() - t0
+    out = p17_save(torch, ann, qs, gt_i, d_u, i_u, query_s, build_s)
+    del ann, qs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_model_axis(torch, kernels, config) -> dict:
+    """Phase 33: the model axis on the card. Returns the path kernels'
+    launches summed over 33b's four ranks."""
+    import multiprocessing as mp
+    import shutil
+
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch.models.pca import fit_pca
+    from spark_rapids_ml_tpu_torch.ops.gram import GramCapacityError
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # -- 33b's index and its unsharded answer: phase 17's, else built here -------
+    ivf = P17_INDEX if P17_INDEX else p33_build_index(torch)
+    tmpdir, gt_i, d_u, i_u, plain_s = (ivf[k_] for k_ in ("dir", "gt_i", "d", "i", "s"))
+    print(f"33b: phase 17's index ({'from phase 17' if ivf is P17_INDEX else 'built here'}, "
+          f"built in {ivf['build_s']:.3f} s) on disk at {tmpdir}", flush=True)
+    try:
+        # -- 33a: one device refuses the width -------------------------------------
+        try:
+            fit_pca(torch.zeros((16, P33_D), device=DEV), k=K, solver="randomized")
+            refusal = None
+        except GramCapacityError as e:
+            refusal = str(e)
+        check(refusal is not None and "mesh_model_axis >= 2" in refusal,
+              f"33a: a world-of-one fit_pca at d={P33_D} raises GramCapacityError naming "
+              f"mesh_model_axis: {refusal}")
+
+        ctx = mp.get_context("spawn")  # never fork a process that holds a CUDA context
+        q = ctx.Queue()
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_p33_rank, args=(r, port, tmpdir, q))
+                 for r in range(P33_RANKS)]
+        for p in procs:
+            p.start()
+        res = _await(procs, q, P33_RANKS, P33_RANK_TIMEOUT_S, "33")
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+        P17_INDEX.clear()
+
+    # -- 33a against one process: the gram kernel of all the rows, float64 eigh --
+    x = torch.cat([p33_rows(torch, d, "int") for d in range(2)])
+    g = kernels.gram(x)  # a comparison launch, not the path's
+    del x
+    half = P33_D // 2
+    blocks = [_digest(g[m * half:(m + 1) * half].cpu().numpy()) for m in range(2)]
+    del g
+    torch.cuda.empty_cache()
+    for r in range(P33_RANKS):
+        m = res[r]["coords"][1]
+        check(res[r]["slab"] == blocks[m],
+              f"33a rank {r}: its slab bitwise equal to rows {m * half}..{(m + 1) * half} of "
+              f"the one-process gram kernel of all {2 * P33_ROWS} rows ({blocks[m]})")
+    count = torch.zeros((), dtype=torch.float64, device=DEV)
+    colsum = torch.zeros(P33_D, dtype=torch.float64, device=DEV)
+    gram = torch.zeros((P33_D, P33_D), dtype=torch.float64, device=DEV)
+    for d in range(2):
+        xb = p33_rows(torch, d, "gauss")
+        for r0 in range(0, P33_ROWS, P33_CHUNK):
+            xd = xb[r0:r0 + P33_CHUNK].double()
+            gram.addmm_(xd.T, xd)
+            colsum += xd.sum(0)
+            count += xd.shape[0]
+        del xb, xd
+    t0 = time.perf_counter()
+    pc_ref, _, gap = reference_pca(count, colsum, gram, K)
+    eigh_s = time.perf_counter() - t0
+    del gram
+    for r in range(P33_RANKS):
+        err = sign_aligned_err(res[r]["fit"]["pc"], pc_ref)
+        # Tolerance: phase 3's; the reference eigh reads the same bf16 rows.
+        check(err <= 1e-3, f"33a rank {r}: randomized model-sharded pc (k={K}) vs float64 eigh "
+                           f"of the same bf16 rows on the card: max sign-aligned err {err:.3e} "
+                           f"(tol 1e-3; smallest top-{K} eigengap {gap:.3e}; reference eigh "
+                           f"{eigh_s:.2f} s)")
+        for algo, label in (("2d", "plain all-gather"), ("ring", "ring")):
+            a = res[r][algo]
+            print(f"33a rank {r} {label}: sharded stats of {P33_ROWS} x {P33_D} bf16 rows a data "
+                  f"row {a['s']:.3f} s, peak {a['peak'] / 2**30:.3f} GiB "
+                  f"(torch.cuda.max_memory_allocated), collectives "
+                  + ", ".join(f"{n} {v[0]:.3f} s/{v[1]}" for n, v in a["spans"].items()
+                              if n.startswith("collective") and v[1])
+                  + f", staged {a['staged']}", flush=True)
+        check(res[r]["ring"]["peak"] < res[r]["2d"]["peak"],
+              f"33a rank {r}: the ring's peak {res[r]['ring']['peak'] / 2**30:.3f} GiB below the "
+              f"all-gather's {res[r]['2d']['peak'] / 2**30:.3f} GiB")
+        f = res[r]["fit"]
+        print(f"33a rank {r}: fit_pca(solver='randomized', d={P33_D}, k={K}; the ring) "
+              f"{f['s']:.3f} s, "
+              f"peak {f['peak'] / 2**30:.3f} GiB; stats ('compute cov') "
+              f"{f['spans']['compute cov'][0]:.3f} s, eigensolve ('eig finalize') "
+              f"{f['spans']['eig finalize'][0]:.3f} s; collectives "
+              + ", ".join(f"{n} {v[0]:.3f} s/{v[1]}" for n, v in f["spans"].items()
+                          if n.startswith("collective") and v[1]), flush=True)
+
+    # -- 33b against the unsharded query --------------------------------------------
+    d_s, i_s = res[0]["ivf"]["d"], res[0]["ivf"]["i"]
+    for r in range(1, P33_RANKS):
+        check(_digest(res[r]["ivf"]["d"], res[r]["ivf"]["i"]) == _digest(d_s, i_s),
+              f"33b rank {r}: the same answer as rank 0")
+    same = (np.sort(i_s, 1) == np.sort(i_u, 1)).all(1)
+    rows_ok = np.allclose(np.sort(d_s[same], 1), np.sort(d_u[same], 1), rtol=1e-5, atol=0)
+    rec_s, rec_u = recall_at(i_s, gt_i), recall_at(i_u, gt_i)
+    check(rows_ok and (same.all() or rec_s >= rec_u),
+          f"33b: the sharded answer (4 x 1, {res[0]['ivf']['lists']} lists a rank) vs the "
+          f"unsharded query: {int(same.sum())} of {same.size} rows with equal ids (sorted), their "
+          f"distances within rtol 1e-5; {int((~same).sum())} rows differ; recall@{KNN_K} sharded "
+          f"{rec_s:.5f}, unsharded {rec_u:.5f} (float64 ground truth)")
+    launches = {name: sum(res[r]["ivf"]["launches"][name] for r in range(P33_RANKS))
+                for name in res[0]["ivf"]["launches"]}
+    q_s = max(res[r]["ivf"]["s"] for r in range(P33_RANKS))
+    print(f"33b: IVF kneighbors of {KNN_QUERIES} queries (nlist {KNN_NLIST}, nprobe {KNN_NPROBE}, "
+          f"k={KNN_K}): unsharded {KNN_QUERIES / plain_s:.1f} q/s ({plain_s:.3f} s); sharded over "
+          f"4 gloo ranks on one card {KNN_QUERIES / q_s:.1f} q/s ({q_s:.3f} s, the slowest "
+          f"rank); shard_index {max(res[r]['ivf']['shard_s'] for r in range(P33_RANKS)):.3f} s; "
+          f"staged {res[0]['ivf']['staged']}", flush=True)
+    print(f"33: phase seconds {time.perf_counter() - t_phase:.1f} (ranks {ranks_s:.1f}); "
+          f"kernel launches summed over the ranks: 33a "
+          f"{sum(res[r]['a_launches'] for r in range(P33_RANKS))} (its products are cuBLAS), "
+          f"33b {launches}", flush=True)
+    return {name: launches[name] for name in P33_KERNELS}
+
+
 def main() -> None:
     import torch
 
@@ -8174,7 +8572,13 @@ def main() -> None:
     from spark_rapids_ml_tpu_torch.ops import _build, kernels
 
     t_start = time.perf_counter()
+
+    def stamp(label: str) -> None:
+        """The seconds since the start, where each phase of the whole run begins."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {label}", flush=True)
+
     # -- 1. card, toolchain, build ---------------------------------------
+    stamp("phase 1")
     card = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     card = card.splitlines()[0]
     print(card, flush=True)
@@ -8198,6 +8602,14 @@ def main() -> None:
             if any(w in line for w in ("registers", "spill", "Compiling entry", "warning",
                                        "wgmma", "setmaxnreg")):
                 print(f"  ptxas {name}: {line.strip()}")
+
+    if "--model-axis" in sys.argv[1:]:
+        # Phase 33 alone.
+        phase_model_axis(torch, kernels, config)
+        print(card)
+        print(f"phase 33 passed ({time.perf_counter() - t_start:.1f} s); --model-axis: stopping "
+              "here", flush=True)
+        return
 
     if "--fleet" in sys.argv[1:]:
         # Phases 31 and 32 alone.
@@ -8281,6 +8693,7 @@ def main() -> None:
         return
 
     # -- 2. kernels against their plain versions -----------------------------
+    stamp("phase 2")
     phase_topk_tc(torch, kernels)
     phase_probe(torch, kernels)
     phase_scan_tc(torch, kernels)
@@ -8297,6 +8710,7 @@ def main() -> None:
         return
 
     # -- 3. streaming fit at full width ---------------------------------------
+    stamp("phase 3")
     gen = torch.Generator(device=DEV).manual_seed(0)
     j = torch.arange(D, device=DEV, dtype=torch.float32)
     # Column variances 2 − j/31 for the top 32 (eigengaps 1.6 % of the
@@ -8347,13 +8761,18 @@ def main() -> None:
     del gram, colsum
 
     # -- 4. in-memory PCA().fit: the default dtype, then float32 ---------------
+    stamp("phase 4")
     x32 = make_rows(gen, IN_MEMORY_ROWS, scales, mu, torch.float32)
     # The default compute dtype on the card is bf16: the fit casts the rows
     # and its one gram launch takes the tensor-core SYRK.
     kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model_bf = PCA().setK(K).fit({"features": x32})
     mem_bf_s = time.perf_counter() - t0
+    extra_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     launches_g = kernels.LAUNCHES["gram"]
     check(launches_g == 1 and kernels.ROUTES["gram/wgmma"] == 1,
           f"default-dtype in-memory fit: gram launches {launches_g} == 1, on the tensor-core "
@@ -8367,7 +8786,9 @@ def main() -> None:
     del xd
     err = sign_aligned_err(model_bf.pc, pc_ref)
     print(f"in-memory fit: {IN_MEMORY_ROWS} x {D} at the default dtype (bf16) in "
-          f"{mem_bf_s:.3f} s (wall, host clock, first call of the route)")
+          f"{mem_bf_s:.3f} s (wall, host clock, first call of the route); peak memory "
+          f"{extra_gib:.3f} GiB above the f32 rows (torch.cuda.max_memory_allocated; the "
+          f"rows' one bf16 copy is {IN_MEMORY_ROWS * D * 2 / 2 ** 30:.3f} GiB)")
     check(err <= 1e-3, f"default-dtype in-memory pc vs float64 Gram of the bf16-rounded rows: "
                        f"max sign-aligned err {err:.3e} (tol 1e-3; eigengap {gap:.3e})")
     del model_bf
@@ -8392,6 +8813,7 @@ def main() -> None:
     check(err <= 1e-3, f"in-memory pc vs float64 Gram: max sign-aligned err {err:.3e} (tol 1e-3)")
 
     # -- 5. transform ----------------------------------------------------------
+    stamp("phase 5")
     # The streaming fit's model; transform computes in bf16 (auto on CUDA).
     model = PCAModel(pc=sol.pc, explained_variance=sol.explained_variance, mean=sol.mean)
     xq = batches[0][:TRANSFORM_ROWS]
@@ -8416,6 +8838,7 @@ def main() -> None:
           f"(device-resident input, host clock, synced)")
 
     # -- 6. kernels at the main path's shape ------------------------------------
+    stamp("phase 6")
     table = []
     xb = batches[0]
     del batches
@@ -8512,12 +8935,15 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 7.-8. KMeans at full width, and its stream ---------------------------
+    stamp("phases 7-8")
     xk, ck, km_launches = phase_kmeans(torch, kernels, km, config)
 
     # -- 9. LinearRegression at width 1024 ------------------------------------
+    stamp("phase 9")
     xb, yb, x32, y32, lr_launches = phase_linreg(torch, kernels, lr, LinearRegression, config)
 
     # -- 10. the KMeans and LinearRegression kernels at their paths' shapes ----
+    stamp("phase 10")
     n, d = xk.shape
     k = ck.shape[0]
     ms = time_ms(lambda: kernels.lloyd_step(xk, ck, n), 3)
@@ -8619,11 +9045,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 11.-12. LogisticRegression at full width --------------------------------
+    stamp("phases 11-12")
     xl, yl, model_b, lg_launches = phase_logreg_binary(torch, kernels, lg, LogisticRegression)
     xm, xmh, ym, model_m, pm, mn_launches = phase_logreg_multinomial(
         torch, kernels, lg, LogisticRegression, config)
 
     # -- 13. transform -------------------------------------------------------------
+    stamp("phase 13")
     cd = config.compute_dtype(DEV)
     p50_b = check_transform(torch, model_b, xl[:LG_TRANSFORM_ROWS], cd, "logreg binary")
     p50_m = check_transform(torch, model_m, xm[:LG_TRANSFORM_ROWS], cd,
@@ -8632,79 +9060,99 @@ def main() -> None:
           f"synced): p50 binary {p50_b:.3f} ms, multinomial {p50_m:.3f} ms", flush=True)
 
     # -- 14. the LogisticRegression kernels at their paths' shapes ----------------
+    stamp("phase 14")
     table += phase_logreg_timings(torch, kernels, solve_newton_system, xl, yl, model_b,
                                   lg_launches, xmh, pm, mn_launches)
     del xl, yl, xm, xmh, ym, pm, model_b, model_m
     torch.cuda.empty_cache()
 
     # -- 15.-18. nearest neighbours ------------------------------------------------
+    stamp("phases 15-18")
     table += phase_knn(torch, kernels, config)
     torch.cuda.empty_cache()
 
     # -- 19. the PCA data plane ------------------------------------------------------
+    stamp("phase 19")
     dp_launches, dp_rate = phase_data_plane(torch, kernels, config, scales, mu, fit_pca_stream,
                                             PCAModel)
     torch.cuda.empty_cache()
 
     # -- 20. the Spark feed protocol from separate processes ----------------------------
+    stamp("phase 20")
     sp_launches, sp_rate = phase_spark_feed(torch, kernels, fit_pca_stream, dp_rate)
     torch.cuda.empty_cache()
     row_gc = next(row for row in table if row["name"] == "gram_colsum")
     row_gc["daemon_launches"], row_gc["spark_launches"] = dp_launches, sp_launches
 
     # -- 21. the iterative daemon jobs through the Spark feed protocol -------------------
+    stamp("phase 21")
     for name, n in phase_iterative_jobs(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["daemon_launches"] = n
 
     # -- 22. the knn job: the index built and served by the daemon ------------------------
+    stamp("phase 22")
     for name, n in phase_knn_daemon(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["daemon_launches"] = n
     torch.cuda.empty_cache()
 
     # -- 23. scaler, pipeline, tuning, evaluation; SparkStandardScaler -------------------
+    stamp("phase 23")
     for name, n in phase_estimators(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["estimator_launches"] = n
     row_gc["spark_scaler_launches"] = phase_spark_scaler(torch, kernels, config, sp_rate)
     torch.cuda.empty_cache()
 
     # -- 24. the histogram RandomForest at the sizes users run ----------------------------
+    stamp("phase 24")
     phase_forests(torch, kernels, config)
     torch.cuda.empty_cache()
 
     # -- 25. the forests through the daemon: SparkRandomForest{Classifier,Regressor} --------
+    stamp("phase 25")
     phase_forest_daemon(torch, kernels, config, sp_rate)
     torch.cuda.empty_cache()
 
     # -- 26. the fits across processes: an NCCL world of one, two gloo ranks --------------
+    stamp("phase 26")
     for name, n in phase_multiprocess(torch, card, stream_rate).items():
         next(row for row in table if row["name"] == name)["multiprocess_launches"] = n
 
     # -- 27. the fits across daemons: two daemons on the card, then two processes ---------
+    stamp("phase 27")
     for name, n in phase_multidaemon(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["multidaemon_launches"] = n
 
     # -- 28. the elastic fits: a peer lost for good, a daemon joining, chaos ---------------
+    stamp("phase 28")
     for name, n in phase_elastic(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["elastic_launches"] = n
 
     # -- 29. the serving plane: micro-batching, warmup, health and metrics -------------------
+    stamp("phase 29")
     for name, n in phase_serving(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["serving_launches"] = n
 
     # -- 30. the observability plane: the journal across processes, the kernel ledger -------
+    stamp("phase 30")
     for name, n in phase_telemetry(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["telemetry_launches"] = n
 
     # -- 31-32. durable daemons, the routed fleet and its control plane -----------------------
+    stamp("phases 31-32")
     torch.cuda.empty_cache()
     for (part, name), n in phase_fleet(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)[f"{part}_launches"] = n
+
+    # -- 33. the model axis: the feature-sharded Gram and the sharded IVF index -------------
+    stamp("phase 33")
+    for name, n in phase_model_axis(torch, kernels, config).items():
+        next(row for row in table if row["name"] == name)["model_axis_launches"] = n
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "
               f"library {row['library_ms']:.3f}, bound {row['bound_ms']:.3f} by "
               f"{row['bound_by']}), {row['launches']} launches on the main path")
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    stamp("total")
     print(card)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -105,9 +105,8 @@ _DEFAULTS: Dict[str, Any] = {
     # histogram: over it, the fit refuses at the pass that would allocate
     # it (ForestCapacityError), never a mid-pass out-of-memory. 0 = none.
     "forest_hist_budget_mb": int(os.environ.get("SRML_FOREST_HIST_BUDGET_MB", "256")),
-    # Default mesh axis sizes (parallel/mesh.py). The data axis is the
-    # world of torch.distributed ranks: None = every rank; a model axis
-    # above 1 (the feature-sharded Gram) is refused until its slice lands.
+    # Default mesh axis sizes (parallel/mesh.py) over the world of
+    # torch.distributed ranks: data None = every rank over the model axis.
     "mesh_data_axis": int(_env("MESH_DATA_AXIS", "0")) or None,
     "mesh_model_axis": int(_env("MESH_MODEL_AXIS", "1")),
     # On-mesh collective reduce of a multi-daemon fit (spark/estimator.py):

@@ -61,7 +61,11 @@ from spark_rapids_ml_tpu_torch.core.persistence import MLReadable, MLWritable
 from spark_rapids_ml_tpu_torch.ops import kernels
 from spark_rapids_ml_tpu_torch.ops.distances import first_argmin, sq_euclidean
 from spark_rapids_ml_tpu_torch.ops.gram import reduce_stats
-from spark_rapids_ml_tpu_torch.parallel.distributed import process_allgather, row_counts
+from spark_rapids_ml_tpu_torch.parallel.distributed import (
+    per_data_index,
+    process_allgather,
+    row_counts,
+)
 from spark_rapids_ml_tpu_torch.parallel.mesh import default_mesh
 from spark_rapids_ml_tpu_torch.parallel.sharding import (
     as_tensor,
@@ -258,14 +262,15 @@ def _stream_update(state: tuple, centers: torch.Tensor, xc: torch.Tensor, cd, ad
     cost.add_(torch.sum(min_d2))
 
 
-def _gather_sample(local: torch.Tensor, per: int, n_cols: int) -> torch.Tensor:
-    """Every rank's init-sample rows (at most ``per``), concatenated in rank
-    order over the control plane: the row counts, then each rank's rows
-    padded to ``per``. A host float32 tensor."""
-    counts = row_counts(local.shape[0])
+def _gather_sample(local: torch.Tensor, per: int, n_cols: int, mesh) -> torch.Tensor:
+    """Every data index's init-sample rows (at most ``per``), concatenated
+    in data-index order over the control plane: the row counts, then each
+    rank's rows padded to ``per`` (the ranks of one data index hold the
+    same rows: one copy each). A host float32 tensor."""
+    counts = row_counts(local.shape[0], mesh)
     buf = np.zeros((per, n_cols), np.float32)
     buf[: local.shape[0]] = local.cpu().numpy()
-    gathered = process_allgather(buf)
+    gathered = per_data_index(process_allgather(buf), mesh, "init samples")
     return torch.from_numpy(np.concatenate([gathered[p, :c] for p, c in enumerate(counts)]))
 
 
@@ -340,7 +345,7 @@ def fit_kmeans_stream(
                   else torch.zeros((0, n_cols), dtype=torch.float32, device=dev))
         del head
         if mesh.collective:
-            sample = _gather_sample(sample, per, n_cols).to(dev)
+            sample = _gather_sample(sample, per, n_cols, mesh).to(dev)
         if sample.shape[0] == 0:
             raise ValueError("batch_source yielded no batches")
         if k > sample.shape[0]:
@@ -366,7 +371,7 @@ def fit_kmeans_stream(
             if xb.shape[0]:
                 _stream_update(state, centers_dev, xb.to(cd), cd, ad)
         if mesh.collective:
-            return reduce_stats(state, mesh), int(row_counts(n_rows).sum())
+            return reduce_stats(state, mesh), int(row_counts(n_rows, mesh).sum())
         return state, n_rows
 
     n_true = 0

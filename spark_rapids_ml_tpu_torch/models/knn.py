@@ -29,15 +29,21 @@ Output convention follows spark-rapids-ml's NearestNeighbors:
 ``kneighbors(queries) -> (distances, indices)`` as numpy arrays.
 
 Exact kneighbors runs across ranks (``mesh=``, a started
-``torch.distributed`` world): each rank indexes its own rows, whose global
-ids start after the lower ranks' rows; every rank passes the same queries,
-runs its ``dist_topk`` and the pools meet in
+``torch.distributed`` world): each data index indexes its own rows, whose
+global ids start after the lower data indices' rows; every rank passes the
+same queries, runs its ``dist_topk`` and the pools meet in
 ``parallel/mapreduce.reduce_topk``.
 
+The IVF index shards its inverted lists over the data axis
+(``ApproximateNearestNeighborsModel.shard_index``, the capacity path of
+config #5): each rank keeps a contiguous range of lists, probes the
+replicated centroids with ``probe_select``, scans its own lists with
+``ivf_scan_select``, and the per-rank top-k meet in ``reduce_topk``
+(:func:`ivf_query_sharded`).
+
 Entry points run on the card unless the caller passes ``device="cpu"``;
-without a CUDA device they raise rather than run on the CPU. Not in this
-slice: the sharded IVF index and query (``shard_index``), the device-side
-index build and the serving plans (ROADMAP.md).
+without a CUDA device they raise rather than run on the CPU. Not in the
+port: the device-side index build and the serving plans (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -283,9 +289,9 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
         rows, their counts gathered once. Only the cosine metric changes
         the indexed data (the normalized, augmented copy), so the other
         three share one copy; the cache is keyed by that representation,
-        the device, the dtype and the world."""
+        the device, the dtype, the world and the mesh's shape."""
         rep = "cosine" if self.getMetric() == "cosine" else "raw"
-        world = None if mesh is None else mesh.world
+        world = None if mesh is None else (mesh.world, tuple(mesh.shape.values()))
         key = (rep, str(dev), cd, world)
         if key not in self._index_cache:
             self._index_cache.clear()  # one resident copy at a time
@@ -295,8 +301,8 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
             n = db.shape[0]
             lo, n_global = 0, n
             if mesh is not None and mesh.collective:
-                counts = row_counts(n)
-                lo, n_global = int(counts[: mesh.world.rank].sum()), int(counts.sum())
+                counts = row_counts(n, mesh)
+                lo, n_global = int(counts[: mesh.coords[0]].sum()), int(counts.sum())
             rows = to_device(db, dev, cd).contiguous()
             mask = torch.ones((n,), dtype=torch.float32, device=dev)
             ids = torch.arange(lo, lo + n, dtype=torch.int32, device=dev)
@@ -781,6 +787,44 @@ def ivf_query(index_dev, queries: torch.Tensor, k: int, nprobe: int, cd, ad, *,
     )
 
 
+def ivf_query_sharded(shard_dev, queries: torch.Tensor, k: int, nprobe: int, cd, ad, mesh, *,
+                      n_valid: Optional[int] = None, slack: float = 1.5,
+                      shortlist_mult: int = 2, rerank: bool = True, rerank_width: int = 0,
+                      extract="auto", resid=None):
+    """The sharded IVF query (the JAX ``_ivf_query_fn_sharded``): (d2 (q, k)
+    ascending in ``ad``, ids (q, k)), the same on every rank of the data
+    axis. ``shard_dev``: (centroids (nlist, d) unpadded and replicated,
+    this rank's (nlist_local, d) centroids, lists, list_ids, list_mask),
+    the rank's lists being the contiguous range at its data index of the
+    padded global lists; ``resid``: the local lists' (resid_norms,
+    lists_lo), built here when absent.
+
+    Every rank probes the same replicated centroids (``probe_select``: the
+    same global probe set everywhere), localizes the probe ids to its
+    range (pairs it does not own become −1 and are answered by their
+    owner), runs the capacity-bucketed scorer (``ivf_scan_select``) over
+    its lists with the capacity of the padded global nlist, and the
+    per-rank (q, k) candidates merge in one ``reduce_topk`` over the data
+    axis: O(q·k·ranks), independent of the index size. Always the bucketed
+    executor; list ids stay global."""
+    cent, cent_local, lists, list_ids, list_mask = shard_dev
+    q = queries.shape[0]
+    n_valid = q if n_valid is None else n_valid
+    nl_local = lists.shape[0]
+    resid_norms, lists_lo = residual_index_data(lists, cent_local, cd) if resid is None else resid
+    probe, probe_d2 = _probe(cent, queries, nprobe, ad)
+    lo = mesh.axis_index(DATA_AXIS) * nl_local
+    owned = (probe >= lo) & (probe < lo + nl_local)
+    probe_local = torch.where(owned, probe - lo, -1)
+    C = _bucketed_capacity(q, nprobe, nl_local * mesh.shape[DATA_AXIS], slack)
+    d2, ids = bucketed_core(
+        queries, probe_local, probe_d2, lists, list_ids, list_mask, resid_norms, lists_lo,
+        cent_local, n_valid, k, C, cd, ad, shortlist_mult=shortlist_mult, rerank=rerank,
+        rerank_width=rerank_width, extract=extract,
+    )
+    return mr.reduce_topk(d2, ids, k, DATA_AXIS, mesh=mesh)
+
+
 # ---------------------------------------------------------------------------
 # IVF-Flat: estimator and model
 # ---------------------------------------------------------------------------
@@ -872,7 +916,7 @@ class ApproximateNearestNeighborsModel(Model, _ANNParams, MLWritable, MLReadable
 
     _uid_prefix = "ApproximateNearestNeighborsModel"
     _persist_class = "spark_rapids_ml_tpu.models.knn.ApproximateNearestNeighborsModel"
-    _transient_attrs = ("_mesh", "_dev_index", "_resid_data")
+    _transient_attrs = ("_mesh", "_dev_index", "_resid_data", "_shard_mesh", "_shard")
 
     def __init__(self, index: Optional[IVFFlatIndex] = None, uid=None, device=None):
         super().__init__(uid=uid)
@@ -880,6 +924,8 @@ class ApproximateNearestNeighborsModel(Model, _ANNParams, MLWritable, MLReadable
         self._device = device
         self._dev_index = None  # (device, (centroids, lists, list_ids, list_mask))
         self._resid_data = None  # (device, compute dtype, resid_norms, lists_lo)
+        self._shard_mesh = None  # set by shard_index()
+        self._shard = None  # (device, ivf_query_sharded's shard_dev)
 
     def _model_data(self):
         data = {
@@ -913,6 +959,49 @@ class ApproximateNearestNeighborsModel(Model, _ANNParams, MLWritable, MLReadable
         self._dev_index = None
         self._resid_data = None
         self._index_metric = getattr(source, "_index_metric", None)
+        # Re-run the sharded placement (it pads nlist to a multiple of the
+        # data axis: an invariant a lazy upload would not restore).
+        src_mesh = getattr(source, "_shard_mesh", None)
+        self._shard_mesh = self._shard = None
+        if src_mesh is not None and self.index is not None:
+            self.shard_index(src_mesh)
+
+    def shard_index(self, mesh=None) -> "ApproximateNearestNeighborsModel":
+        """Shard the inverted lists over the mesh's ``data`` axis — the
+        capacity path for an index larger than one card (BASELINE.json
+        config #5, 10M × 768). nlist pads to a multiple of the data axis
+        with never-probed pad lists (no rows; the probed centroid set stays
+        unpadded), and this rank uploads only its contiguous range of the
+        padded lists, read from the host index (of a memory-mapped one it
+        reads just that range of the lists, and the centroids, which every
+        rank probes, whole). Every rank of the data axis must call it; later
+        queries run :func:`ivf_query_sharded` and must be made on every
+        rank with the same queries. Returns self."""
+        mesh = mesh or default_mesh()
+        idx = self.index
+        nlist = np.asarray(idx.centroids).shape[0]
+        nl_local = -(-nlist // mesh.shape[DATA_AXIS])
+        lo = min(mesh.axis_index(DATA_AXIS) * nl_local, nlist)
+        hi = min(lo + nl_local, nlist)
+        dev = resolve_device(self._device, mesh)
+
+        def local(a, fill, dtype=None):
+            part = np.array(a[lo:hi], dtype=dtype)  # slice first: a memmap reads the range
+            pad = nl_local - part.shape[0]
+            if pad:
+                part = np.concatenate([part, np.full((pad,) + part.shape[1:], fill, part.dtype)])
+            return torch.from_numpy(part).to(dev)
+
+        self._shard = (str(dev), (
+            torch.as_tensor(np.array(idx.centroids)).to(dev),
+            local(idx.centroids, 0),
+            local(idx.lists, 0),
+            local(idx.list_ids, -1, np.int64),
+            local(idx.list_mask, 0),
+        ))
+        self._dev_index = self._resid_data = None
+        self._shard_mesh = mesh
+        return self
 
     def _ensure_dev_index(self, dev):
         """The index on ``dev``, uploaded once and reused by every query."""
@@ -930,7 +1019,10 @@ class ApproximateNearestNeighborsModel(Model, _ANNParams, MLWritable, MLReadable
         keyed by the compute dtype: a config change between queries
         rebuilds it rather than scanning at the stale precision."""
         if self._resid_data is None or self._resid_data[:2] != (str(dev), cd):
-            cent, lists = self._ensure_dev_index(dev)[:2]
+            if self._shard is not None:
+                _, cent, lists = self._shard[1][:3]  # this rank's lists
+            else:
+                cent, lists = self._ensure_dev_index(dev)[:2]
             self._resid_data = (str(dev), cd, *residual_index_data(lists, cent, cd))
         return self._resid_data[2:]
 
@@ -966,7 +1058,8 @@ class ApproximateNearestNeighborsModel(Model, _ANNParams, MLWritable, MLReadable
                 f"normalization is baked into the stored lists, so refit "
                 f"to query with metric={metric!r}"
             )
-        dev = resolve_device(self._device)
+        mesh = self._shard_mesh
+        dev = resolve_device(self._device, mesh)
         if metric == "cosine":
             queries = _normalized_rows(queries, zero_slot=1)
         qt = to_device(queries, dev)
@@ -974,17 +1067,21 @@ class ApproximateNearestNeighborsModel(Model, _ANNParams, MLWritable, MLReadable
             qt = qt.float()
         q = qt.shape[0]
         cd, ad = config.compute_dtype(dev), config.accum_dtype()
-        index_dev = self._ensure_dev_index(dev)
-        dense = nprobe * 4 >= nlist and cd == torch.float32
-        resid = None if dense else self._ensure_resid_data(dev, cd)
+        opts = dict(shortlist_mult=int(config.get("ann_shortlist_mult")),
+                    rerank=bool(config.get("ann_rerank")),
+                    rerank_width=int(config.get("ann_rerank_width")),
+                    extract=str(config.get("ann_extract")))
         with trace_span("ivf query"):
-            d2, ids = ivf_query(
-                index_dev, _pad_queries(qt), k, nprobe, cd, ad, n_valid=q,
-                shortlist_mult=int(config.get("ann_shortlist_mult")),
-                rerank=bool(config.get("ann_rerank")),
-                rerank_width=int(config.get("ann_rerank_width")),
-                extract=str(config.get("ann_extract")), resid=resid,
-            )
+            if mesh is not None:
+                d2, ids = ivf_query_sharded(self._shard[1], _pad_queries(qt), k, nprobe, cd, ad,
+                                            mesh, n_valid=q,
+                                            resid=self._ensure_resid_data(dev, cd), **opts)
+            else:
+                index_dev = self._ensure_dev_index(dev)
+                dense = nprobe * 4 >= nlist and cd == torch.float32
+                resid = None if dense else self._ensure_resid_data(dev, cd)
+                d2, ids = ivf_query(index_dev, _pad_queries(qt), k, nprobe, cd, ad, n_valid=q,
+                                    resid=resid, **opts)
             d2, ids = d2[:q].cpu().numpy(), ids[:q].cpu().numpy().astype(np.int64)
         return _finish(metric, d2, ids)
 

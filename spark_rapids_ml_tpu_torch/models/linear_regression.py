@@ -236,7 +236,7 @@ def fit_linear_regression(
         if mesh.collective:
             stats = init_normal_eq_stats(xs.shape[1], device=dev)
             streaming_normal_eq_update(stats, xs, as_tensor(y).reshape(-1), mesh=mesh)
-            n_rows = int(row_counts(xs.shape[0]).sum())
+            n_rows = int(row_counts(xs.shape[0], mesh).sum())
         else:
             stats = normal_eq_stats(xs, as_tensor(y).reshape(-1))
             n_rows = int(x.shape[0])

@@ -462,7 +462,7 @@ def _run_stream(batch_source, n_cols: int, dev, zero_state, fold, check, step, w
         state = zero_state()
         n = _scan(batch_source, n_cols, dev, lambda xt, yt: fold(state, w, b, xt, yt), check)
         if mesh.collective:
-            return reduce_stats(state, mesh), int(row_counts(n).sum())
+            return reduce_stats(state, mesh), int(row_counts(n, mesh).sum())
         return state, n
 
     n_rows, n_iter, loss, history = 0, start_iter, float("nan"), []

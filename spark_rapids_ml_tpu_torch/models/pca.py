@@ -21,6 +21,17 @@ rank's statistics come from the same kernel and meet in an ``all_reduce``
 (``parallel/sharding.lockstep_batches``), every rank finalizes the same
 replicated state, and rank 0 alone writes the checkpoints.
 
+On a mesh with a model axis above 1 that divides d, :func:`fit_pca` takes
+the 2-D route: the ranks of one data index pass the same rows at full
+width, each keeps its column block, and the Gram is computed and kept
+model-sharded (``ops/gram.sharded_stats_ring``). A width whose (d, d)
+accumulator is over the per-device budget
+(``ops/gram.require_gram_capacity``) fits only there:
+the randomized solver stays model-sharded on the device
+(``ops/eigh.pca_from_gram_model_sharded``), the exact one assembles the
+slabs on the host in float64. The stream keeps its replicated
+accumulator, so it refuses such widths.
+
 Transform matches ``RapidsPCAModel.transform`` (RapidsPCA.scala:122-166):
 y = x @ pc with NO re-centring; the principal components stay resident on
 the device across batches.
@@ -54,14 +65,17 @@ from spark_rapids_ml_tpu_torch.ops import gram as gram_ops
 from spark_rapids_ml_tpu_torch.ops.eigh import (
     pca_from_gram,
     pca_from_gram_host,
+    pca_from_gram_model_sharded,
     pca_from_gram_randomized,
 )
+from spark_rapids_ml_tpu_torch.parallel import mapreduce as mr
 from spark_rapids_ml_tpu_torch.parallel.distributed import row_counts
-from spark_rapids_ml_tpu_torch.parallel.mesh import default_mesh
+from spark_rapids_ml_tpu_torch.parallel.mesh import MODEL_AXIS, default_mesh
 from spark_rapids_ml_tpu_torch.parallel.sharding import (
     as_tensor,
     lockstep_batches,
     resolve_device,
+    shard_rows_2d,
     to_device,
 )
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
@@ -128,6 +142,29 @@ def _finalize(count, colsum, gram, mean_center: bool, k: int, solver: str):
     return tuple(t.cpu().numpy() for t in (pc, ev, s, mean))
 
 
+def _finalize_2d(count, colsum, slab, mean_center: bool, k: int, solver: str, mesh,
+                 must_shard: bool):
+    """The 2-D route's finalize from a model-sharded (d/n_model, d) slab.
+
+    Randomized: model-sharded on the device in float64 (the centring
+    applied to this rank's rows of the Gram). Exact: the slabs gathered
+    into the full (d, d) — on the host in float64 when the Gram is over
+    the per-device budget, else on the device — then the 1-D finalize."""
+    if solver == "randomized":
+        count, colsum, slab = (as_tensor(t).to(torch.float64) for t in (count, colsum, slab))
+        mean = colsum / torch.clamp(count, min=1)
+        if mean_center:
+            r0 = mesh.axis_index(MODEL_AXIS) * slab.shape[0]
+            slab = slab - torch.outer(mean[r0:r0 + slab.shape[0]], colsum)
+        pc, ev, s = pca_from_gram_model_sharded(slab, k, mesh)
+        return tuple(t.cpu().numpy() for t in (pc, ev, s, mean))
+    if must_shard:
+        g = mr.host_concat(slab.to(torch.float64), MODEL_AXIS, mesh=mesh).numpy()
+        return _finalize_on_host(count.cpu().numpy(), colsum.cpu().numpy(), g, mean_center, k)
+    g = mr.all_concat(slab, MODEL_AXIS, axis=0, mesh=mesh)
+    return _finalize(count, colsum, g, mean_center, k, solver)
+
+
 def _solution(out, n_rows: int) -> PCASolution:
     pc, ev, s, mean = (np.asarray(a, dtype=np.float64) for a in out)
     return PCASolution(pc=pc, explained_variance=ev, sigma=s, mean=mean, n_rows=n_rows)
@@ -149,23 +186,46 @@ def fit_pca(
     ``device``: None → the mesh's rank device, else the card. ``mesh``:
     None → ``default_mesh()``; across ranks ``x`` is THIS rank's rows
     (``parallel.distributed.process_local_rows``), the statistics are
-    summed over the ranks and ``n_rows`` is the global count."""
+    summed over the data axis and ``n_rows`` is the global count. On a
+    mesh whose model axis (above 1) divides d, every rank of one data
+    index passes the same rows at full width and the Gram stays
+    model-sharded (the module's 2-D route); a d whose (d, d) accumulator
+    is over the per-device budget fits only there, and otherwise raises
+    :class:`~spark_rapids_ml_tpu_torch.ops.gram.GramCapacityError`."""
     mesh = mesh or default_mesh()
     dev = resolve_device(device, mesh)
     solver = _resolve_solver(solver)
     d = x.shape[1]
     _check_k(k, d)
-    gram_ops.require_gram_capacity(d)
+    n_model = mesh.shape[MODEL_AXIS]
+    two_d = n_model > 1 and d % n_model == 0
+    # Capacity gate: a (d, d) accumulator over the per-device budget must
+    # stay model-sharded end to end; without a model axis dividing d this
+    # raises here instead of running out of memory mid-fit.
+    must_shard = gram_ops.require_gram_capacity(d, mesh)
+    if must_shard and not two_d:
+        raise gram_ops.GramCapacityError(
+            f"d={d} needs the model-sharded Gram but is not divisible by "
+            f"the model axis ({n_model}); pick a divisor "
+            "mesh_model_axis (docs/mesh.md 'Model-parallel Gram/eigh')"
+        )
     with trace_span("compute cov"):  # phase names kept from the reference
-        xs = to_device(x, dev)
-        if mesh.collective:
-            count, colsum, g = gram_ops.sharded_stats(mesh)(xs)
-            n_rows = int(row_counts(xs.shape[0]).sum())
+        if two_d:
+            xs, mask, n_rows = shard_rows_2d(x, mesh, device=dev)
+            count, colsum, g = gram_ops.sharded_stats_ring(mesh)(xs, mask)
         else:
-            count, colsum, g = gram_ops.local_stats(xs)
-            n_rows = int(xs.shape[0])
+            xs = to_device(x, dev)
+            if mesh.collective:
+                count, colsum, g = gram_ops.sharded_stats(mesh)(xs)
+                n_rows = int(row_counts(xs.shape[0], mesh).sum())
+            else:
+                count, colsum, g = gram_ops.local_stats(xs)
+                n_rows = int(xs.shape[0])
     with trace_span("eig finalize"):
-        out = _finalize(count, colsum, g, mean_center, k, solver)
+        if two_d:
+            out = _finalize_2d(count, colsum, g, mean_center, k, solver, mesh, must_shard)
+        else:
+            out = _finalize(count, colsum, g, mean_center, k, solver)
     return _solution(out, n_rows)
 
 
@@ -205,7 +265,16 @@ def fit_pca_stream(
     solver = _resolve_solver(solver)  # fail fast, before consuming batches
     mesh = mesh or default_mesh()
     dev = resolve_device(device, mesh)
-    gram_ops.require_gram_capacity(n_cols)
+    if gram_ops.require_gram_capacity(n_cols, mesh):
+        # The streaming accumulator is REPLICATED on every rank, so a model
+        # axis does not shelter it; the model-sharded accumulate is the
+        # in-memory fit's 2-D route.
+        raise gram_ops.GramCapacityError(
+            f"the ({n_cols}, {n_cols}) streaming accumulator is over the "
+            "per-device budget and the streaming path keeps it replicated; "
+            "use fit_pca with mesh_model_axis > 1 (docs/mesh.md) or raise "
+            "SRML_TORCH_GRAM_DEVICE_BUDGET_MB"
+        )
     cd = config.compute_dtype(dev)
     state = gram_ops.init_stats(n_cols, device=dev)
     n_prev = 0  # rows of the restored checkpoint (global)
@@ -230,7 +299,7 @@ def fit_pca_stream(
 
     def rows_so_far() -> int:
         if mesh.collective:
-            return n_prev + int(row_counts(n_local).sum())
+            return n_prev + int(row_counts(n_local, mesh).sum())
         return n_prev + n_local
 
     def check(x) -> Optional[str]:

@@ -1,8 +1,8 @@
 """Math of the port: the fused Gram statistics (``gram.py``, through the
 hand-written kernels of ``kernels.py``), the eigensolve (``eigh.py``),
 distances and SPD solves. The JAX package's re-exports, less
-``sharded_stats_2d``: the feature-sharded Gram waits for the model axis
-(ROADMAP.md)."""
+``sharded_stats_2d``: the all-gather form of the feature-sharded Gram,
+which the port replaces by the ring (``gram.sharded_stats_ring``)."""
 
 from spark_rapids_ml_tpu_torch.ops.gram import (
     local_stats,

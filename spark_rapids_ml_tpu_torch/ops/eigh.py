@@ -4,16 +4,21 @@ The port of ``spark_rapids_ml_tpu/ops/eigh.py``. The reference's native
 ``calSVD`` (rapidsml_jni.cu:215-269) runs cuSOLVER ``eigDC`` on the n×n
 Gram → column reversal to descending order → ``seqRoot`` (σ = √λ) →
 ``signFlip``. Here that is ``torch.linalg.eigh`` (cuSOLVER on the card,
-LAPACK on the CPU) plus the reorder, square root and sign flip. The
-model-sharded eigensolve waits for the model axis (ROADMAP.md Queue 1 item 5).
+LAPACK on the CPU) plus the reorder, square root and sign flip. For a Gram
+over the per-device budget, :func:`pca_from_gram_model_sharded` runs the
+randomized solver on a model-sharded Gram: each rank holds a (d/n_model,
+d) row slab and only (d, k+p) panels are ever replicated.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
+
+from spark_rapids_ml_tpu_torch.parallel import mapreduce as mr
+from spark_rapids_ml_tpu_torch.parallel.mesh import MODEL_AXIS
 
 Eig = Tuple[torch.Tensor, torch.Tensor]
 
@@ -70,6 +75,22 @@ def pca_from_gram(gram: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     return v[:, :k], ev[:k], s
 
 
+def _subspace(matvec: Callable, d: int, like: torch.Tensor, k: int, oversample: int,
+              iters: int, seed: int) -> Eig:
+    """Blocked subspace iteration with ``matvec(v) = G @ v`` for a PSD G of
+    width d (``like`` gives the device and dtype)."""
+    m = min(k + oversample, d)
+    generator = torch.Generator(device=like.device).manual_seed(seed)
+    v0 = torch.randn((d, m), generator=generator, device=like.device, dtype=like.dtype)
+    v = torch.linalg.qr(v0).Q
+    for _ in range(iters):
+        v = torch.linalg.qr(matvec(v)).Q
+    b = v.T @ matvec(v)
+    b = 0.5 * (b + b.T)
+    wb, qb = eigh_descending(b)  # m×m — tiny
+    return wb, v @ qb
+
+
 def topk_eig_subspace(
     gram: torch.Tensor,
     k: int,
@@ -85,17 +106,22 @@ def topk_eig_subspace(
     random bits, only its algorithm.
     Returns ``(ritz_vals (m,) descending, vectors (d, m))`` with
     m = k+oversample clamped to d."""
-    d = gram.shape[0]
-    m = min(k + oversample, d)
-    generator = torch.Generator(device=gram.device).manual_seed(seed)
-    v0 = torch.randn((d, m), generator=generator, device=gram.device, dtype=gram.dtype)
-    v = torch.linalg.qr(v0).Q
-    for _ in range(iters):
-        v = torch.linalg.qr(gram @ v).Q
-    b = v.T @ (gram @ v)
-    b = 0.5 * (b + b.T)
-    wb, qb = eigh_descending(b)  # m×m — tiny
-    return wb, v @ qb
+    return _subspace(lambda v: gram @ v, gram.shape[0], gram, k, oversample, iters, seed)
+
+
+def _randomized_contract(wb: torch.Tensor, u: torch.Tensor, trace: torch.Tensor, k: int):
+    """Ritz pairs and the trace → the :func:`pca_from_gram` contract."""
+    d, m = u.shape[0], wb.shape[0]
+    u = sign_flip(u)
+    w_top = torch.clamp(wb, min=0.0)
+    s_top = torch.sqrt(w_top)
+    resid = torch.clamp(trace - torch.sum(w_top), min=0.0)
+    n_tail = max(d - m, 0)
+    tail_each = torch.sqrt(resid / max(n_tail, 1)) if n_tail else torch.zeros_like(resid)
+    sigma_sum = torch.sum(s_top) + n_tail * tail_each
+    ev = s_top / torch.clamp(sigma_sum, min=torch.finfo(wb.dtype).tiny)
+    s_full = torch.cat([s_top, tail_each.expand(n_tail)])
+    return u[:, :k], ev[:k], s_full
 
 
 def pca_from_gram_randomized(
@@ -111,19 +137,35 @@ def pca_from_gram_randomized(
     needs the unseen tail of the spectrum; it is estimated from the trace —
     the residual Σλ spread uniformly over the d−m tail (the JAX package's
     estimate). Returned σ is (d,) with the tail filled by that estimate."""
-    d = gram.shape[0]
     wb, u = topk_eig_subspace(gram, k, oversample, iters, seed)
-    m = wb.shape[0]
-    u = sign_flip(u)
-    w_top = torch.clamp(wb, min=0.0)
-    s_top = torch.sqrt(w_top)
-    resid = torch.clamp(torch.trace(gram) - torch.sum(w_top), min=0.0)
-    n_tail = max(d - m, 0)
-    tail_each = torch.sqrt(resid / max(n_tail, 1)) if n_tail else torch.zeros_like(resid)
-    sigma_sum = torch.sum(s_top) + n_tail * tail_each
-    ev = s_top / torch.clamp(sigma_sum, min=torch.finfo(gram.dtype).tiny)
-    s_full = torch.cat([s_top, tail_each.expand(n_tail)])
-    return u[:, :k], ev[:k], s_full
+    return _randomized_contract(wb, u, torch.trace(gram), k)
+
+
+def pca_from_gram_model_sharded(
+    slab: torch.Tensor,
+    k: int,
+    mesh,
+    oversample: int = 32,
+    iters: int = 12,
+    seed: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Model-parallel finalize: the (d, d) Gram stays sharded over the
+    mesh's ``model`` axis through the whole eigensolve. This rank holds
+    the (d/n_model, d) row slab at its model index (what
+    ``ops/gram.sharded_stats_ring`` produces); ``G @ V`` runs as
+    ``all_concat(slab @ V)`` over ``model``, whose (d, k+p) result is the
+    only full-width panel ever replicated, and the Rayleigh–Ritz system
+    is m×m. The trace for the σ tail is the sum of each slab's diagonal
+    block. The start block comes from the same seeded generator on every
+    rank, so the replicated panels agree bit for bit. Same seed, same
+    contract as :func:`pca_from_gram_randomized` of the gathered Gram."""
+    d_local, d = slab.shape
+    r0 = mesh.axis_index(MODEL_AXIS) * d_local
+    trace = mr.reduce_sum(slab[:, r0:r0 + d_local].diagonal().sum().reshape(1), MODEL_AXIS,
+                          mesh=mesh)[0]
+    wb, u = _subspace(lambda v: mr.all_concat(slab @ v, MODEL_AXIS, axis=0, mesh=mesh), d, slab,
+                      k, oversample, iters, seed)
+    return _randomized_contract(wb, u, trace, k)
 
 
 def pca_from_gram_host(gram, k: int):

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch.parallel import mesh as mesh_mod
-from spark_rapids_ml_tpu_torch.parallel.mesh import make_mesh
+from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
 from spark_rapids_ml_tpu_torch.utils.logging import get_logger
 
 _logger = get_logger(__name__)
@@ -132,7 +132,9 @@ def shutdown_cluster() -> None:
 
 
 def global_mesh(model: int = 1):
-    """(data, model) mesh over every rank of the world."""
+    """(data, model) mesh over every rank of the world (rank r at
+    (r // model, r % model)); with ``model`` above 1 every rank makes this
+    call at the same point (``parallel/mesh.make_mesh``)."""
     return make_mesh(model=model)
 
 
@@ -161,6 +163,29 @@ def process_allgather(x) -> np.ndarray:
     return torch.stack(outs).numpy()
 
 
-def row_counts(n_local: int) -> np.ndarray:
-    """Every rank's local row count, in rank order (int64)."""
-    return process_allgather(np.asarray([int(n_local)], dtype=np.int64)).reshape(-1)
+def per_data_index(values: np.ndarray, mesh, what: str) -> np.ndarray:
+    """Per-rank values gathered over the world (rank order, first dim) →
+    one per data index of a (data, model) mesh. The ranks of one data row
+    hold the same rows, so they must agree; where they do not, every rank
+    raises the same ValueError (each sees the whole gather), never a
+    hang in a later collective. A (data, 1) mesh: the values as given."""
+    model = mesh.shape[MODEL_AXIS]
+    if model == 1 or values.shape[0] == 1:
+        return values
+    grid = values.reshape((mesh.shape[DATA_AXIS], model) + values.shape[1:])
+    for i, row in enumerate(grid):
+        if not (row == row[:1]).all():
+            raise ValueError(
+                f"the ranks of data index {i} passed different {what} "
+                f"({row.tolist()}): every rank of one data index passes the same rows "
+                "at full width"
+            )
+    return grid[:, 0]
+
+
+def row_counts(n_local: int, mesh=None) -> np.ndarray:
+    """Every rank's local row count, in rank order (int64). Given a mesh
+    with a model axis above 1: one count per data index (its ranks hold
+    the same rows, counted once; :func:`per_data_index`)."""
+    counts = process_allgather(np.asarray([int(n_local)], dtype=np.int64)).reshape(-1)
+    return counts if mesh is None else per_data_index(counts, mesh, "row counts")

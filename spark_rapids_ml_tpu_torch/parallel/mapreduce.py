@@ -6,11 +6,16 @@ per-shard compute composes with named-axis reductions lowered to
 ``psum``/``all_gather``/``ppermute`` inside one SPMD program. Here one rank
 is one process with one device (``parallel/mesh.py``), a rank's tensors
 are its shard, and the reductions are ``torch.distributed`` collectives
-over the mesh's group: :func:`reduce_sum` is ``all_reduce(SUM)``,
-:func:`all_concat` ``all_gather`` and :func:`ring_shift`
-``batch_isend_irecv``. Without a process group (the world of one) each is
-the identity. Every device-plane collective of the port goes through
-these wrappers.
+over the group of a mesh axis (``parallel/mesh.py``: the data group, the
+ranks of one model column; the model group, the ranks of one data row):
+:func:`reduce_sum` is ``all_reduce(SUM)``, :func:`all_concat`
+``all_gather`` (blocks in axis-position order) and :func:`ring_shift`
+``batch_isend_irecv`` (its permutation in axis positions, as
+``lax.ppermute``'s, sent to the global ranks at those positions). Over an
+axis one rank wide, and without a process group (the world of one), each
+is the identity. Every device-plane collective of the port goes through
+these wrappers; :func:`host_concat` assembles host blocks over the axis's
+gloo group.
 
 A backend takes the tensors of some devices only. NCCL takes CUDA
 tensors. Gloo takes CPU tensors, and CUDA tensors for the collectives in
@@ -24,7 +29,9 @@ package's name and labels (``kind`` psum | all_gather | ppermute,
 ``axis``). Eager PyTorch has no trace: it counts calls. Every sum that
 crosses a process group runs inside a ``trace_span("collective reduce")``
 (its host seconds per call in ``utils/profiling.span_totals``; blocking
-for gloo, whose collectives return when done).
+for gloo, whose collectives return when done), every gather inside a
+``trace_span("collective gather")`` and every ring step inside a
+``trace_span("collective shift")``.
 
 Not here: the control plane's host gathers of scalars
 (``parallel/distributed.process_allgather`` over the gloo group).
@@ -48,6 +55,7 @@ __all__ = [
     "all_concat",
     "ring_shift",
     "reduce_topk",
+    "host_concat",
 ]
 
 _M_COLLECTIVE_TRACES = metrics_mod.counter(
@@ -75,10 +83,16 @@ def _check_axis(axis_name: str) -> None:
 
 
 def _spans(mesh: Mesh, axis_name: str) -> bool:
-    """Whether a collective over ``axis_name`` crosses a process group
-    (the model axis is one rank wide: ``parallel/mesh.make_mesh``)."""
+    """Whether a collective over ``axis_name`` crosses a process group: a
+    started world and an axis wider than one rank — or the data axis of a
+    (data, 1) mesh, the world's group, of one rank too (an NCCL world of
+    one runs its collectives)."""
     _check_axis(axis_name)
-    return axis_name == DATA_AXIS and mesh.collective
+    if not mesh.collective:
+        return False
+    if axis_name == DATA_AXIS and mesh.shape[MODEL_AXIS] == 1:
+        return True
+    return mesh.axis_group(axis_name) is not None
 
 
 def _home(mesh: Mesh, t: torch.Tensor, kind: str) -> Optional[torch.device]:
@@ -124,23 +138,25 @@ def reduce_sum(x: torch.Tensor, axis_name: str = DATA_AXIS, *,
     if not _spans(mesh, axis_name):
         return x
     home = _home(mesh, x, "all_reduce")
+    group = mesh.axis_group(axis_name)
     with trace_span("collective reduce"):
         if home is None:
-            dist.all_reduce(x, group=mesh.group)
+            dist.all_reduce(x, group=group)
             return x
         staged = x.to(home)
-        dist.all_reduce(staged, group=mesh.group)
+        dist.all_reduce(staged, group=group)
         STAGED["all_reduce"] += 1
         return x.copy_(staged)
 
 
-def _all_gather(x: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
+def _all_gather(x: torch.Tensor, axis_name: str, mesh: Mesh) -> List[torch.Tensor]:
     import torch.distributed as dist
 
     home = _home(mesh, x, "all_gather")
     xs = x.contiguous() if home is None else x.to(home).contiguous()
-    outs = [torch.empty_like(xs) for _ in range(mesh.world.size)]
-    dist.all_gather(outs, xs, group=mesh.group)
+    outs = [torch.empty_like(xs) for _ in mesh.axis_ranks(axis_name)]
+    with trace_span("collective gather"):
+        dist.all_gather(outs, xs, group=mesh.axis_group(axis_name))
     if home is None:
         return outs
     STAGED["all_gather"] += 1
@@ -149,45 +165,51 @@ def _all_gather(x: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
 
 def all_concat(x: torch.Tensor, axis_name: str = DATA_AXIS, *, axis: int = 0,
                tiled: bool = True, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Every rank's block (one shape on all ranks) concatenated along
-    tensor dim ``axis`` in rank order (``tiled``), or stacked on a new dim
-    ``axis`` (not tiled) — ``all_gather``."""
+    """The blocks (one shape on all ranks) of the ranks along the mesh axis
+    concatenated along tensor dim ``axis`` in axis-position order
+    (``tiled``), or stacked on a new dim ``axis`` (not tiled) —
+    ``all_gather``."""
     _book("all_gather", axis_name)
     mesh = mesh or default_mesh()
-    parts = _all_gather(x, mesh) if _spans(mesh, axis_name) else [x]
+    parts = _all_gather(x, axis_name, mesh) if _spans(mesh, axis_name) else [x]
     return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, dim=axis)
 
 
 def ring_shift(x: torch.Tensor, axis_name: str, perm: Sequence[Tuple[int, int]], *,
                mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Send ``x`` along the (source, destination) rank pairs of ``perm``
-    (``ppermute``): a rank gets the block of the rank that names it as
-    destination, or zeros when none does. One block in flight per step:
-    the pipelined alternative to :func:`all_concat`."""
+    """Send ``x`` along the (source, destination) pairs of ``perm``, in axis
+    positions as ``lax.ppermute``'s: a rank gets the block of the position
+    that names it as destination, or zeros when none does. Peers are the
+    global ranks at those positions (``Mesh.axis_ranks``), as ``P2POp``
+    takes them. One block in flight per step: the pipelined alternative
+    to :func:`all_concat`."""
     import torch.distributed as dist
 
     _book("ppermute", axis_name)
     mesh = mesh or default_mesh()
-    rank = mesh.world.rank
     if not _spans(mesh, axis_name):
         return x.clone() if (0, 0) in perm else torch.zeros_like(x)
-    dst = [d for s, d in perm if s == rank]
-    src = [s for s, d in perm if d == rank]
+    pos = mesh.axis_index(axis_name)
+    ranks = mesh.axis_ranks(axis_name)
+    dst = [d for s, d in perm if s == pos]
+    src = [s for s, d in perm if d == pos]
     if len(dst) > 1 or len(src) > 1:
-        raise ValueError(f"perm {list(perm)} is not a permutation: rank {rank} appears twice")
+        raise ValueError(f"perm {list(perm)} is not a permutation: position {pos} appears twice")
     home = _home(mesh, x, "send_recv")
     xs = x.contiguous() if home is None else x.to(home).contiguous()
     out = torch.zeros_like(xs)
+    group = mesh.axis_group(axis_name)
     ops = []
-    if dst and dst[0] != rank:
-        ops.append(dist.P2POp(dist.isend, xs, dst[0], group=mesh.group))
-    if src and src[0] != rank:
-        ops.append(dist.P2POp(dist.irecv, out, src[0], group=mesh.group))
+    if dst and dst[0] != pos:
+        ops.append(dist.P2POp(dist.isend, xs, ranks[dst[0]], group=group))
+    if src and src[0] != pos:
+        ops.append(dist.P2POp(dist.irecv, out, ranks[src[0]], group=group))
     elif src:
         out.copy_(xs)
     if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        with trace_span("collective shift"):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
     if home is None:
         return out
     STAGED["send_recv"] += 1
@@ -211,3 +233,20 @@ def reduce_topk(dists: torch.Tensor, ids: torch.Tensor, k: int,
     cand_d = all_concat(dists, axis_name, axis=1, mesh=mesh)
     cand_i = all_concat(ids, axis_name, axis=1, mesh=mesh)
     return sel.lex_topk(cand_d, cand_i, k)
+
+
+def host_concat(x: torch.Tensor, axis_name: str, *, mesh: Mesh) -> torch.Tensor:
+    """The host blocks of the ranks along the mesh axis, concatenated on
+    dim 0 in axis-position order over the axis's gloo group: the host-side
+    assembly of a model-sharded matrix, whose whole never reaches a
+    device. ``x`` is copied to the host first."""
+    import torch.distributed as dist
+
+    _book("all_gather", axis_name)
+    xs = x.detach().cpu().contiguous()
+    if not _spans(mesh, axis_name):
+        return xs
+    outs = [torch.empty_like(xs) for _ in mesh.axis_ranks(axis_name)]
+    with trace_span("collective gather"):
+        dist.all_gather(outs, xs, group=mesh.axis_cpu_group(axis_name))
+    return torch.cat(outs, dim=0)

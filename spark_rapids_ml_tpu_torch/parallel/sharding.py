@@ -7,6 +7,9 @@ shard: placement is a copy to the rank's device (:func:`to_device`), and
 agrees on, as the JAX package pads each process's slice. The fits need no
 padding (each rank's statistics cover its own rows); they take the global
 row count from :func:`~spark_rapids_ml_tpu_torch.parallel.distributed.row_counts`.
+On a mesh with a model axis above 1 the ranks of one data index hold the
+same rows: :func:`shard_rows_2d` keeps this rank's column block, and the
+row counts count each data index once.
 
 Streams run in LOCKSTEP across ranks (:func:`lockstep_batches`): every
 rank makes the same sequence of collectives, a rank whose stream ended
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from spark_rapids_ml_tpu_torch.parallel import mesh as mesh_mod
-from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
 
@@ -123,6 +126,16 @@ def _cast_host(x: np.ndarray, dtype) -> np.ndarray:
     return x.astype(dtype)
 
 
+def _rows_tensor(x, dtype) -> torch.Tensor:
+    """A tensor as it is, or a host array as a CPU tensor; cast to the
+    numpy ``dtype`` when given (float64 → float32 by the native bridge's
+    threaded cast)."""
+    if isinstance(x, torch.Tensor):
+        return x if dtype is None else x.to(getattr(torch, np.dtype(dtype).name))
+    a = np.asarray(x)
+    return as_tensor(a if dtype is None or a.dtype == np.dtype(dtype) else _cast_host(a, dtype))
+
+
 def shard_rows(x, mesh: Mesh, dtype: Optional[Any] = None, with_mask: bool = True,
                device=None):
     """Place this rank's rows on its device: (x, mask, n_true rows).
@@ -136,18 +149,14 @@ def shard_rows(x, mesh: Mesh, dtype: Optional[Any] = None, with_mask: bool = Tru
     row count. ``mask`` is the (rows,) float32 {0, 1} row mask, or None
     without ``with_mask``."""
     dev = resolve_device(device, mesh)
-    if isinstance(x, torch.Tensor):
-        t = x if dtype is None else x.to(getattr(torch, np.dtype(dtype).name))
-    else:
-        a = np.asarray(x)
-        t = as_tensor(a if dtype is None or a.dtype == np.dtype(dtype) else _cast_host(a, dtype))
+    t = _rows_tensor(x, dtype)
     n_local = t.shape[0]
     if mesh_mod.process_count() == 1:
         n_true, rows = n_local, n_local
     else:
         from spark_rapids_ml_tpu_torch.parallel.distributed import row_counts
 
-        counts = row_counts(n_local)
+        counts = row_counts(n_local, mesh)
         n_true, rows = int(counts.sum()), max(1, int(counts.max()))
     t = t.to(dev)
     if rows > n_local:
@@ -157,6 +166,48 @@ def shard_rows(x, mesh: Mesh, dtype: Optional[Any] = None, with_mask: bool = Tru
         mask = torch.zeros((rows,), dtype=torch.float32, device=dev)
         mask[:n_local] = 1.0
     return t, mask, n_true
+
+
+def shard_rows_2d(x, mesh: Mesh, dtype: Optional[Any] = None, device=None):
+    """Place this rank's block of a (data, model) mesh: (block, mask,
+    n_true rows) — the JAX package's ``pad_rows`` + ``P(DATA, MODEL)``.
+
+    Every rank of one data index passes the same rows at full width
+    (a host array, cast to ``dtype`` when given, or a tensor); the rank
+    keeps its ``(rows, d / model)`` column block at its model index. The
+    rows pad at the tail to the largest data index's count, the (rows,)
+    float32 mask marking the real ones, and ``n_true`` counts each data
+    index once. Ranks of one data index that disagree on the row count or
+    the width, and a width the model axis does not divide, raise the same
+    ValueError on every rank."""
+    dev = resolve_device(device, mesh)
+    model = mesh.shape[MODEL_AXIS]
+    t = _rows_tensor(x, dtype)
+    n_local, d = t.shape
+    if mesh_mod.process_count() == 1:
+        shapes = np.asarray([[n_local, d]], np.int64)
+    else:
+        from spark_rapids_ml_tpu_torch.parallel.distributed import (
+            per_data_index,
+            process_allgather,
+        )
+
+        shapes = per_data_index(process_allgather(np.asarray([n_local, d], np.int64)), mesh,
+                                "(rows, width)")
+    if (shapes[:, 1] != d).any():
+        raise ValueError(f"the data indices passed widths {shapes[:, 1].tolist()}: every rank "
+                         "passes the same width")
+    if d % model:
+        raise ValueError(f"width {d} is not divisible by the model axis ({model})")
+    d_local = d // model
+    m = mesh.axis_index(MODEL_AXIS)
+    rows = max(1, int(shapes[:, 0].max()))
+    block = t[:, m * d_local:(m + 1) * d_local].to(dev).contiguous()
+    if rows > n_local:
+        block = torch.cat([block, block.new_zeros((rows - n_local, d_local))])
+    mask = torch.zeros((rows,), dtype=torch.float32, device=dev)
+    mask[:n_local] = 1.0
+    return block, mask, int(shapes[:, 0].sum())
 
 
 def replicated_array(x, mesh: Mesh, device=None) -> torch.Tensor:

@@ -525,6 +525,9 @@ class _Job:
         params = params or {}
         # Capacity gate at creation: a (d, d) accumulator over the device
         # budget is a clean first-feed error, never a device OOM mid-pass.
+        # The daemon has one device (a model axis of 1), so the gate's own
+        # error is the refusal; a width whose slab fits only sharded belongs
+        # on the in-memory model-sharded fit.
         if algo in ("pca", "linreg", "logreg"):
             gram_ops.require_gram_capacity(n_cols)
         self._clock = clock

@@ -318,7 +318,14 @@ def test_make_mesh_errors_as_jax(devices):
         with pytest.raises(ValueError) as perr:
             port_mesh.make_mesh(devices=eight, **kw)
         assert str(perr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="feature-sharded Gram"):
+    # A model axis of 2: in the world of one the JAX message of one device;
+    # over eight devices a 4 x 2 mesh the world of one rank cannot cover.
+    with pytest.raises(ValueError) as jerr:
+        jax_make_mesh(model=2, devices=devices[:1])
+    with pytest.raises(ValueError) as perr:
+        port_mesh.make_mesh(model=2)
+    assert str(perr.value) == str(jerr.value) == "1 devices not divisible by model=2"
+    with pytest.raises(ValueError, match="mesh 4x2 covers 8 of the world's 1 ranks"):
         port_mesh.make_mesh(model=2, devices=eight)
     with pytest.raises(ValueError, match="spans the whole world"):
         port_mesh.make_mesh(data=4, devices=eight)  # 4 of the world's 1 rank
