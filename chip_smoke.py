@@ -45,7 +45,8 @@ Phases, each of which exits non-zero on a failed check:
    ``--multi-process`` runs phase 26 alone; ``--multi-daemon`` runs
    phase 27 alone; ``--elastic`` runs phase 28 alone; ``--serving`` runs
    phase 29 alone; ``--telemetry`` runs phase 30 alone; ``--fleet`` runs
-   phases 31 and 32 alone; ``--model-axis`` runs phase 33 alone.
+   phases 31 and 32 alone; ``--model-axis`` runs phase 33 alone;
+   ``--analyze`` runs phase 34 alone.
 3. The PCA streaming fit at full width (d=2048, k=32, bf16 batches of
    262,144 rows) through ``fit_pca_stream``; the ``gram_colsum`` launches
    must equal the batch count, all on the tensor-core route; components
@@ -533,6 +534,20 @@ Phases, each of which exits non-zero on a failed check:
     each row, the unsharded query's ids with distances within rtol 1e-5
     (where rows differ the sharded recall@10 against float64 ground truth
     must not be the lower); q/s of both.
+34. The port's srml-check and the daemon's start-up load
+    (``tools/analyze.py``, ``serve/daemon.py``; ``--analyze`` runs it alone
+    after the build, about 15 s). a. ``python -m
+    spark_rapids_ml_tpu_torch.tools.analyze --json`` on this host's Python:
+    zero unsuppressed findings; its seconds. b. A port daemon on the card
+    started after the three kernel library loaders' caches (and
+    ``_build.load``'s) were cleared: when ``start()`` returns, before any
+    client has connected, all three are filled, every ``_build.load`` and
+    ``_build.build`` call of the start ran outside ``_DEVICE_LOCK``; the
+    seconds of its ``daemon kernel load`` span (a warm load: phase 1
+    built the libraries). c. One ``gram_colsum`` fold of 4,096 x 2048
+    small-integer rows through a client's ``feed_raw`` (one launch) and the
+    finalize's mean equal to the rows' float64 mean within 1e-6: no
+    ``_build.build`` or ``_build.load`` call while ``_DEVICE_LOCK`` is held.
 
 The last lines are the card line, the ``{"kernels": [...]}`` table (each
 row with its ``design``, from DESIGNS; the ``gram`` row times the bf16 main
@@ -8551,6 +8566,93 @@ def phase_model_axis(torch, kernels, config) -> dict:
     return {name: launches[name] for name in P33_KERNELS}
 
 
+P34_ROWS = 4096  # one small fold: the phase checks where the libraries load
+
+
+def phase_analyze(torch, kernels, config) -> None:
+    """Phase 34 (see the module docstring): the analyzer on this host, the
+    daemon's start-up load and a fold that builds nothing under the lock."""
+    import numpy as np
+
+    from spark_rapids_ml_tpu_torch.ops import _build
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient, DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.serve import daemon as daemon_mod
+    from spark_rapids_ml_tpu_torch.utils.profiling import reset_span_totals, span_totals
+
+    t_phase = time.perf_counter()
+    # a. srml-check on the tree, with this host's Python.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "spark_rapids_ml_tpu_torch.tools.analyze", "--json"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=120)
+    analyze_s = time.perf_counter() - t0
+    try:
+        payload = json.loads(proc.stdout)
+    except ValueError:
+        fail(f"phase 34a: srml-check printed no JSON (exit {proc.returncode}): "
+             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    for f in payload["findings"]:
+        print(f"  {f['file']}:{f['line']}: [{f['rule']}] {f['message']}")
+    check(proc.returncode == 0 and payload["ok"] and payload["findings"] == [],
+          f"phase 34a: srml-check on Python {sys.version.split()[0]}: "
+          f"{len(payload['rules'])} rules, {len(payload['findings'])} unsuppressed findings, "
+          f"exit {proc.returncode}, {analyze_s:.2f} s")
+
+    # b. The start-up load, counted by whether _DEVICE_LOCK was held.
+    loaders = (kernels._lib, kernels._kmeans_lib, kernels._knn_lib)
+    calls = {"build": [0, 0], "load": [0, 0]}  # [outside, under] _DEVICE_LOCK
+    orig = {"build": _build.build, "load": _build.load}
+
+    def counted(name):
+        def wrapper(*args, **kwargs):
+            calls[name][int(daemon_mod._DEVICE_LOCK.locked())] += 1
+            return orig[name](*args, **kwargs)
+        return wrapper
+
+    for loader in loaders:
+        loader.cache_clear()
+    _build.load.cache_clear()
+    check(all(f.cache_info().currsize == 0 for f in loaders),
+          "phase 34b: the three loaders' caches are empty before the daemon starts")
+    _build.build, _build.load = counted("build"), counted("load")
+    d = None
+    try:
+        reset_span_totals()
+        d = DataPlaneDaemon()
+        t0 = time.perf_counter()
+        d.start()
+        start_s = time.perf_counter() - t0
+        load_s = span_totals().get("daemon kernel load", (float("nan"), 0))[0]
+        filled = [f.cache_info().currsize for f in loaders]
+        check(filled == [1, 1, 1] and calls["load"] == [3, 0] and calls["build"][1] == 0,
+              f"phase 34b: start() filled the loaders {filled} before the first connection: "
+              f"_build.load {calls['load'][0]} calls outside _DEVICE_LOCK, "
+              f"{calls['load'][1]} under it; the kernel load {load_s:.3f} s of a "
+              f"{start_s:.3f} s start (warm: phase 1 built the libraries)")
+        # c. One fold through a client: nothing builds under the lock.
+        rng = np.random.default_rng(34)
+        x = rng.integers(-3, 4, size=(P34_ROWS, D)).astype(np.float32)
+        before = kernels.LAUNCHES["gram_colsum"]
+        with DataPlaneClient(*d.address) as c:
+            rows = c.feed_raw("phase34", x, n_cols=D)
+            out = c.finalize_pca("phase34", K)
+        launches = kernels.LAUNCHES["gram_colsum"] - before
+        err = float(np.abs(out["mean"].astype(np.float64) - x.astype(np.float64).mean(0)).max())
+        check(rows == P34_ROWS and launches == 1 and err <= 1e-6
+              and out["pc"].shape == (D, K) and bool(np.isfinite(out["pc"]).all()),
+              f"phase 34c: one feed_raw of {P34_ROWS} x {D} small-integer rows: {launches} "
+              f"gram_colsum launch, mean max err {err:.2e} (tol 1e-6), pc {out['pc'].shape}")
+        check(calls["build"][1] == 0 and calls["load"][1] == 0,
+              f"phase 34c: _build.build {calls['build'][1]} and _build.load "
+              f"{calls['load'][1]} calls while _DEVICE_LOCK was held (want 0 and 0)")
+    finally:
+        _build.build, _build.load = orig["build"], orig["load"]
+        if d is not None:
+            d.stop()
+    print(f"phase 34: {time.perf_counter() - t_phase:.1f} s (budget 30 s)", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -8602,6 +8704,14 @@ def main() -> None:
             if any(w in line for w in ("registers", "spill", "Compiling entry", "warning",
                                        "wgmma", "setmaxnreg")):
                 print(f"  ptxas {name}: {line.strip()}")
+
+    if "--analyze" in sys.argv[1:]:
+        # Phase 34 alone.
+        phase_analyze(torch, kernels, config)
+        print(card)
+        print(f"phase 34 passed ({time.perf_counter() - t_start:.1f} s); --analyze: stopping "
+              "here", flush=True)
+        return
 
     if "--model-axis" in sys.argv[1:]:
         # Phase 33 alone.
@@ -9147,6 +9257,10 @@ def main() -> None:
     stamp("phase 33")
     for name, n in phase_model_axis(torch, kernels, config).items():
         next(row for row in table if row["name"] == name)["model_axis_launches"] = n
+
+    # -- 34. srml-check on this host; the daemon loads its kernels before it listens ----------
+    stamp("phase 34")
+    phase_analyze(torch, kernels, config)
     for row in table:
         row["design"] = DESIGNS.get(row["name"], "wgmma+tma syrk")
         print(f"{row['name']} [{row['design']}]: {row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, "

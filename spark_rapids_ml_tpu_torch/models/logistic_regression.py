@@ -441,9 +441,11 @@ def _restore(checkpoint_path, expect: dict):
     if restored is None:
         return None
     arrays, meta = restored
-    if any(meta.get(k) != v for k, v in expect.items()):
+    # A metadata check and its message: the order reaches no fold.
+    if any(meta.get(k) != v for k, v in expect.items()):  # srml: disable=unsorted-iter
         have = ", ".join(f"{k}={meta.get(k)}" for k in expect)
-        want = ", ".join(str(v) for v in expect.values())
+        # The message lists the values in the order of ``have``.
+        want = ", ".join(str(v) for v in expect.values())  # srml: disable=unsorted-iter
         raise ValueError(f"checkpoint at {checkpoint_path} is for {have}, not ({want})")
     return arrays, int(meta["it"])
 

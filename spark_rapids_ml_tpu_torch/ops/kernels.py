@@ -229,6 +229,15 @@ def _knn_lib() -> ctypes.CDLL:
     return lib
 
 
+def load_libraries() -> None:
+    """Build (when needed) and load the three kernel libraries, so every
+    later launch finds its library cached. A daemon calls this before it
+    listens, with no lock held: an ``nvcc`` build takes seconds."""
+    _lib()
+    _kmeans_lib()
+    _knn_lib()
+
+
 def _check_x(x: torch.Tensor) -> None:
     if x.dim() != 2 or x.shape[1] == 0:
         raise ValueError(f"x must be an (n, d) matrix with d >= 1, got {tuple(x.shape)}")

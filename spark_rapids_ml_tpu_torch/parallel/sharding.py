@@ -219,7 +219,8 @@ def replicated_array(x, mesh: Mesh, device=None) -> torch.Tensor:
 #: The lockstep's dtype codes: the JAX package's three, and bfloat16 (a
 #: tensor stream on the card).
 _CODES = {"float32": 0, "float64": 1, "float16": 2, "bfloat16": 3}
-_CODE_NAMES = {v: k for k, v in _CODES.items()}
+# An inverse table read by key: its order reaches no fold.
+_CODE_NAMES = {v: k for k, v in _CODES.items()}  # srml: disable=unsorted-iter
 
 
 def _dtype_name(x) -> str:

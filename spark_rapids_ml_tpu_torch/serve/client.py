@@ -167,7 +167,10 @@ class DataPlaneClient:
                 timeout = min(timeout, max(deadline - time.monotonic(), 0.01))
             s = socket.create_connection(self._addr, timeout=timeout)
             s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            self._sock = s
+            # One client per thread by contract (class docstring); the
+            # gossip thread builds a FRESH client per exchange, so this
+            # state is thread-local by construction.
+            self._sock = s  # srml: disable=thread-shared-state
         return self._sock
 
     def _reset(self) -> None:
@@ -178,7 +181,9 @@ class DataPlaneClient:
                 self._sock.close()
             except OSError:
                 pass
-            self._sock = None
+            # Thread-local by the one-client-per-thread contract (see
+            # _conn).
+            self._sock = None  # srml: disable=thread-shared-state
 
     def close(self) -> None:
         self._reset()
@@ -234,7 +239,9 @@ class DataPlaneClient:
         if boot is not None and req.get("op") in _STATE_ACK_OPS:
             self.seen_boot_ids.add(str(boot))
         if resp.get("id") is not None:
-            self.last_server_id = str(resp["id"])
+            # Thread-local by the one-client-per-thread contract (see
+            # _conn).
+            self.last_server_id = str(resp["id"])  # srml: disable=thread-shared-state
         outs = protocol.recv_arrays(sock, resp) if want_arrays else None
         return resp, outs
 

@@ -46,7 +46,10 @@ the fold is an associative add, so arrival order does not matter. Every
 device section (fold, stage creation, commit add, finalize, index build,
 transform, kneighbors) also takes the process-wide ``_DEVICE_LOCK``,
 always innermost — after any job or model lock, never before one — so the
-lock order stays acyclic.
+lock order stays acyclic. Nothing builds under it: on a card, ``start()``
+builds (when needed) and loads the three kernel libraries before it
+listens, with no lock held, so a launch under ``_DEVICE_LOCK`` never waits
+on ``nvcc``.
 
 Exactly-once under Spark task retry: a feed may carry ``partition`` and
 ``attempt``. Partitioned feeds fold into a stage of their own per
@@ -185,6 +188,7 @@ from spark_rapids_ml_tpu_torch.models.pca import PCAModel, finalize_pca_stats
 from spark_rapids_ml_tpu_torch.models.scaler import StandardScalerModel
 from spark_rapids_ml_tpu_torch.ops import gram as gram_ops
 from spark_rapids_ml_tpu_torch.ops import histogram as hist_ops
+from spark_rapids_ml_tpu_torch.ops import kernels
 from spark_rapids_ml_tpu_torch.parallel import membership as membership_mod
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device
 from spark_rapids_ml_tpu_torch.serve import gossip as gossip_mod
@@ -1695,6 +1699,12 @@ class DataPlaneDaemon:
 
     def start(self) -> "DataPlaneDaemon":
         self._device = resolve_device(self._device_arg)  # raises without a card
+        if self._device.type == "cuda":
+            # Build (when needed) and load the kernel libraries before the
+            # first connection, with no lock held: a first launch under
+            # _DEVICE_LOCK would run nvcc there and stall every dispatch.
+            with trace_span("daemon kernel load"):
+                kernels.load_libraries()
         s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         s.bind((self._host, self._port))
@@ -1850,8 +1860,10 @@ class DataPlaneDaemon:
         now = time.time()
         elapsed = (now - self._last_telemetry_ts if self._last_telemetry_ts is not None
                    else self._telemetry_eval_s)
-        # Single writer: only the telemetry thread ticks.
-        self._last_telemetry_ts = now
+        # Tick bookkeeping is single-writer: only the telemetry thread
+        # reaches this method (start() runs one), so the unlocked writes
+        # here cannot race anything.
+        self._last_telemetry_ts = now  # srml: disable=thread-shared-state
         elapsed = max(elapsed, 1e-6)
         snap = metrics_mod.snapshot()
         deltas = self._flight.observe(snap, now) if self._flight else {}
@@ -1877,7 +1889,8 @@ class DataPlaneDaemon:
                          for s in snap.get("srml_scheduler_sheds_total", {}).get("samples", [])
                          if s["labels"].get("reason") == "deadline")
             dl_delta = max(0.0, dl_now - self._prev_deadline_sheds)
-            self._prev_deadline_sheds = dl_now
+            # Same single-writer bookkeeping as _last_telemetry_ts.
+            self._prev_deadline_sheds = dl_now  # srml: disable=thread-shared-state
             if dl_delta / elapsed >= dl_cap:
                 self._flight.trigger("deadline_breach",
                                      {"breaches": dl_delta, "window_s": elapsed})
@@ -1988,7 +2001,9 @@ class DataPlaneDaemon:
         if self._state_dir is None:
             return False
         model = served.model
-        arrays = {k: np.asarray(v) for k, v in model._model_data().items() if v is not None}
+        # Host numpy index arrays: _host_rows copies nothing to the device.
+        data = model._model_data()  # srml: disable=device-lock
+        arrays = {k: np.asarray(v) for k, v in data.items() if v is not None}
         if served.id_map is not None:
             arrays["id_map"] = np.asarray(served.id_map, np.int64)
         params = {p: model.getOrDefault(p) for p in ("metric", "nprobe") if model.hasParam(p)}
@@ -2333,7 +2348,8 @@ class DataPlaneDaemon:
         elif op == "finalize":
             self._op_finalize(conn, req)
         elif op == "step":
-            info = self._get_job(req).step(_opt(req, "params", {}), step_id=req.get("step_id"))
+            job = self._get_job(req)
+            info = job.step(_opt(req, "params", {}), step_id=req.get("step_id"))
             # The step applied and its ack is unsent: a crash here is a
             # daemon dying exactly at the pass boundary.
             faults.checkpoint("daemon.pass_boundary")

@@ -185,6 +185,29 @@ def test_the_fleet_control_plane_and_tools_are_scanned_and_load_no_jax():
     assert port_serve.__all__ == jax_serve.__all__
 
 
+def test_the_analyzer_and_perfcheck_are_scanned_and_load_only_the_stdlib():
+    """``tools/analyze.py`` and ``tools/perfcheck.py`` are in the scan above
+    and import neither JAX, the JAX package, torch nor pyarrow; importing
+    both loads none of them either."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
+    for mod in ("analyze", "perfcheck"):
+        path = PORT / "tools" / f"{mod}.py"
+        assert path.relative_to(ROOT).as_posix() in scanned
+        roots = [r for r, _ in _imported_roots(path)]
+        assert [r for r in roots if r in FORBIDDEN + ("torch", "pyarrow")] == []
+    code = (
+        "import sys, spark_rapids_ml_tpu_torch.tools.analyze, "
+        "spark_rapids_ml_tpu_torch.tools.perfcheck; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'spark_rapids_ml_tpu', 'pyarrow')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_the_observability_plane_is_scanned_and_loads_no_jax():
     """The journal, the kernel ledger, the SLO evaluator and the flight
     recorder are the port's own copies: scanned, importing neither JAX nor
