@@ -41,7 +41,8 @@ Phases, each of which exits non-zero on a failed check:
    for the rest). d = 300 and 13, and float32, must take the FFMA route.
    ``python3 chip_smoke.py --phase2`` stops after this phase;
    ``--data-plane`` runs phases 19 to 22, phase 23's Spark part and phase
-   25 alone after the build; ``--estimators`` runs phases 23 and 24 alone;
+   25 alone after the build; ``--knn-daemon`` runs phase 22 alone;
+   ``--estimators`` runs phases 23 and 24 alone;
    ``--multi-process`` runs phase 26 alone; ``--multi-daemon`` runs
    phase 27 alone; ``--elastic`` runs phase 28 alone; ``--serving`` runs
    phase 29 alone; ``--telemetry`` runs phase 30 alone; ``--fleet`` runs
@@ -204,10 +205,16 @@ Phases, each of which exits non-zero on a failed check:
     (raw frames), one ``dist_topk`` launch a call on the tensor-core route;
     the ids equal the in-process ``NearestNeighborsModel``'s over the same
     rows in partition-major order, the distances within 1e-6 relative, and
-    both are held to float64 brute force as in phase 16. IVF: the build's
-    launches as the in-process build's (10 ``lloyd_step`` on the
-    tensor-core route, ``assign_min_dist``'s f32 chunks on FFMA, the f32
-    ``dist_topk`` spill candidates on FFMA); one fused ``probe_select`` and
+    both are held to float64 brute force as in phase 16. IVF: the
+    finalize at ``build="auto"`` (3 GiB of rows, under the daemon's 4 GiB
+    device-build cap) takes the device route, ``build_ivf_flat_device``,
+    every index field on the card; its launches as the in-process host
+    build's (10 ``lloyd_step`` on the tensor-core route,
+    ``assign_min_dist``'s f32 chunks on FFMA, the f32 ``dist_topk`` spill
+    candidates on FFMA); ``build_ivf_flat_device`` of the same rows at the
+    in-process build's centroids equals that build in every field (the
+    centroids by value); the build seconds of the three and the device
+    builds' peak memory are printed; one fused ``probe_select`` and
     one tensor-core ``ivf_scan_select`` a served call; recall@10 within
     0.005 of an in-process build of the same rows, seed and nlist;
     every returned id's distance against float64 of ‖q − rows[id]‖²; every
@@ -555,7 +562,9 @@ path and carries the float32 route's numbers under ``f32_*``, the
 ``gram_colsum`` row phase 19's launches under ``daemon_launches``, the
 ``linreg_stats`` and ``softmax_curvature`` rows phase 21's there, the
 ``lloyd_step``, ``assign_min_dist``, ``dist_topk``, ``probe_select`` and
-``ivf_scan_select`` rows phase 22's (summed over its parts), the ``gram``,
+``ivf_scan_select`` rows phase 22's (summed over its parts) and the
+``lloyd_step``, ``assign_min_dist`` and ``dist_topk`` rows its daemon's
+device-route IVF build's under ``device_build_launches``, the ``gram``,
 ``linreg_stats`` and ``newton_stats`` rows phase 23's under
 ``estimator_launches`` and the ``gram_colsum`` row phase 23's Spark
 scaler's under ``spark_scaler_launches``, the
@@ -3756,7 +3765,9 @@ def phase_knn_daemon(torch, kernels, config):
         NearestNeighbors,
         NearestNeighborsModel,
     )
+    from spark_rapids_ml_tpu_torch.models.knn import build_ivf_flat_device
     from spark_rapids_ml_tpu_torch.serve import DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.serve import daemon as daemon_mod
     from spark_rapids_ml_tpu_torch.spark import estimator as est
     from spark_rapids_ml_tpu_torch.utils import profiling
 
@@ -3837,8 +3848,12 @@ def phase_knn_daemon(torch, kernels, config):
             # -- IVF: the build at finalize, probe + scan per served call ---------
             core = (ApproximateNearestNeighbors(device=DEV).setK(KNN_K).setNlist(KNN_NLIST)
                     .setNprobe(KNN_NPROBE))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             amodel, rec = p22_fit(torch, kernels, est, profiling, pool, daemon.address, core,
                                   "ivf")
+            daemon_peak = torch.cuda.max_memory_allocated() - base
             b, r = rec["launches"], rec["routes"]
             kernels.reset_launches()
             t0 = time.perf_counter()
@@ -3866,11 +3881,51 @@ def phase_knn_daemon(torch, kernels, config):
             for name in ("lloyd_step", "assign_min_dist"):
                 out[name] = b[name]
             out["dist_topk"] += b["dist_topk"]
+            out.update({("device_build", name): b[name]
+                        for name in ("lloyd_step", "assign_min_dist", "dist_topk")})
             served = daemon._lookup_model(amodel.daemon_model_name).model
-            same_lists = np.array_equal(served.index.list_ids, ann.index.list_ids)
+            check(all(t.is_cuda for t in served.index),
+                  f"phase 22 ivf: the daemon's auto build of {rows.nbytes} bytes (cap "
+                  f"{daemon_mod._IVF_DEVICE_BUILD_MAX_BYTES}) took the device route: every index "
+                  f"field on the card")
+            same_lists = np.array_equal(served.index.list_ids.cpu().numpy(), ann.index.list_ids)
             print(f"phase 22 ivf: the daemon's list_ids equal the in-process build's: "
                   f"{same_lists} (information: the Lloyd sums' order may differ); maxlen "
                   f"{int(rec['info']['maxlen'][0])} vs {ann.index.lists.shape[1]}", flush=True)
+            # The contract of the two builds: under one frozen quantizer, every
+            # field bitwise (the same kernels on the same chunks, the same
+            # balancer and permutation). Its launches are information: the
+            # path's are the daemon's above.
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            frozen = build_ivf_flat_device(rows, KNN_NLIST, seed=ann.getSeed(),
+                                           centroids=ann.index.centroids, device=DEV)
+            torch.cuda.synchronize()
+            frozen_s = time.perf_counter() - t0
+            frozen_peak = torch.cuda.max_memory_allocated() - base
+            fl = dict(kernels.LAUNCHES)
+            # The centroids by value: the frozen quantizer is float32, the
+            # trained one float64 of float32 values.
+            same = {f: bool(torch.equal(getattr(frozen, f).cpu(),
+                                        torch.as_tensor(getattr(ann.index, f))))
+                    for f in frozen._fields}
+            check(all(same.values()),
+                  f"phase 22 ivf: build_ivf_flat_device of the same rows at the in-process "
+                  f"build's centroids equals that build in every field: {same}")
+            del frozen
+            print(f"phase 22 ivf build seconds (host clock): the daemon's device route "
+                  f"{rec['build_s']:.3f} (finalize call), the in-process host build "
+                  f"{ref_build_s:.3f}, the frozen build_ivf_flat_device {frozen_s:.3f} (launches "
+                  f"assign_min_dist {fl['assign_min_dist']}, dist_topk {fl['dist_topk']}); "
+                  f"peak device memory above the allocations before it (max_memory_allocated): "
+                  f"the daemon's fit {daemon_peak / 2 ** 30:.3f} GiB, the frozen build "
+                  f"{frozen_peak / 2 ** 30:.3f} GiB (rows {rows.nbytes / 2 ** 30:.3f} GiB)",
+                  flush=True)
+            P22_SERVED["ivf_build"] = (rec["build_s"], ref_build_s, frozen_s, daemon_peak,
+                                       frozen_peak)
             d_a, i_a, ivf_s, launches, routes = p22_served(torch, kernels, amodel, qs, "ivf")
             P22_SERVED["ivf"] = (rec["build_s"], KNN_QUERIES / ivf_s)
             check(launches["probe_select"] == 2 and routes["probe_select/fused"] == 2
@@ -8769,6 +8824,14 @@ def main() -> None:
               "stopping here", flush=True)
         return
 
+    if "--knn-daemon" in sys.argv[1:]:
+        # Phase 22 alone.
+        phase_knn_daemon(torch, kernels, config)
+        print(card)
+        print(f"phase 22 passed ({time.perf_counter() - t_start:.1f} s); --knn-daemon: stopping "
+              "here", flush=True)
+        return
+
     if "--data-plane" in sys.argv[1:]:
         # Phases 19 to 22, phase 23's Spark part and phase 25 alone, on phase
         # 3's spectrum.
@@ -9202,7 +9265,8 @@ def main() -> None:
     # -- 22. the knn job: the index built and served by the daemon ------------------------
     stamp("phase 22")
     for name, n in phase_knn_daemon(torch, kernels, config).items():
-        next(row for row in table if row["name"] == name)["daemon_launches"] = n
+        key, name = name if isinstance(name, tuple) else ("daemon", name)
+        next(row for row in table if row["name"] == name)[f"{key}_launches"] = n
     torch.cuda.empty_cache()
 
     # -- 23. scaler, pipeline, tuning, evaluation; SparkStandardScaler -------------------

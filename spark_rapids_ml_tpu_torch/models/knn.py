@@ -14,7 +14,9 @@ The port of ``spark_rapids_ml_tpu/models/knn.py`` (BASELINE.json config #5,
   trains the coarse quantizer with the port's ``fit_kmeans`` (random init,
   10 iterations), assigns every row with ``assign_min_dist``, bounds the
   list sizes with the capacity balancer fed by ``dist_topk`` candidates,
-  and buckets the rows into padded host lists. A query probes with
+  and buckets the rows into padded host lists; :func:`build_ivf_flat_device`
+  does the same with the rows and the index resident on the device (the
+  daemon's build under its device cap). A query probes with
   ``probe_select`` and scans with ``ivf_scan_select`` — the JAX package's
   fused flow — then gathers each query's candidates back, selects exactly
   and reranks from the stored f32 rows. With float64 accumulators the JAX
@@ -43,7 +45,7 @@ replicated centroids with ``probe_select``, scans its own lists with
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a CUDA device they raise rather than run on the CPU. Not in the
-port: the device-side index build and the serving plans (ROADMAP.md).
+port: the serving plans (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -359,10 +361,19 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
 
 
 class IVFFlatIndex(NamedTuple):
+    """The fields are host numpy (:func:`build_ivf_flat`, a loaded model)
+    or tensors on one device (:func:`build_ivf_flat_device`); every reader
+    takes both."""
+
     centroids: np.ndarray  # (nlist, d)
     lists: np.ndarray  # (nlist, maxlen, d) padded points
     list_ids: np.ndarray  # (nlist, maxlen) original row ids, -1 = pad
     list_mask: np.ndarray  # (nlist, maxlen) 1.0 valid
+
+
+def _host_array(a) -> np.ndarray:
+    """An index field as a host array (a tensor on any device copied)."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 # Padded-list capacity bound, as a multiple of the mean list size n/nlist:
@@ -420,6 +431,108 @@ def _balanced_refine(get_cand, recenter, nlist: int, cap: int, rounds: int = 3):
     return _balance_assignments(np.asarray(get_cand()), nlist, cap)
 
 
+def _ivf_quantizer(x, nlist: int, seed: int, train_rows: int, centroids, train_data,
+                   dev) -> Tuple[np.ndarray, bool]:
+    """(centroids (nlist, d), frozen) of an IVF build: ``centroids`` as a
+    frozen float32 quantizer when given, else the port's ``fit_kmeans``
+    (random init, 10 iterations, float64 centres) on at most ``train_rows``
+    rows of ``train_data`` or of x, drawn with ``default_rng(seed)`` and
+    gathered where the pool lives (a tensor on its device)."""
+    d = x.shape[1]
+    if centroids is not None:
+        centroids = _host_array(centroids).astype(np.float32)
+        if centroids.shape != (nlist, d):
+            raise ValueError(f"pretrained centroids shape {centroids.shape} != ({nlist}, {d})")
+        return centroids, True
+    if train_rows < nlist:
+        raise ValueError(
+            f"train_rows = {train_rows} must be >= nlist = {nlist} "
+            f"(the quantizer needs at least one training row per list)"
+        )
+    pool = x if train_data is None else np.asarray(train_data)
+    if train_data is not None:
+        if pool.ndim != 2 or pool.shape[1] != d:
+            raise ValueError(
+                f"train_data shape {pool.shape} does not match the database width {d}"
+            )
+        if pool.shape[0] < nlist:
+            raise ValueError(
+                f"train_data has {pool.shape[0]} rows < nlist = {nlist} "
+                "(one training row per list minimum)"
+            )
+    if pool.shape[0] > train_rows:
+        pick = np.random.default_rng(seed).choice(
+            pool.shape[0], train_rows, replace=False, shuffle=False
+        )
+        sample = pool[pick] if not isinstance(pool, torch.Tensor) else \
+            pool[torch.as_tensor(pick, device=pool.device)]
+    else:
+        sample = pool
+    sol = fit_kmeans(sample, k=nlist, max_iter=10, seed=seed, init="random", device=dev)
+    return sol.centers, False
+
+
+def _ivf_assign(chunks, n: int, nlist: int, cdev: torch.Tensor, frozen: bool):
+    """The build's list of every row against the f32 centres ``cdev``:
+    (assign (n,) int64, counts (nlist,) int64, cdev), tensors on cdev's
+    device. ``chunks()`` yields (start, f32 rows) in ``IVF_BUILD_STEP``
+    slices, once a pass: one ``assign_min_dist`` launch per chunk, and,
+    when a list outgrows its cap, ``dist_topk`` launches for the (n, T)
+    spill candidates, which go to the host balancer (frozen: capacity
+    spill only; trained: ``_balanced_refine``, whose recenter returns the
+    moved centres)."""
+    dev = cdev.device
+    T = min(_IVF_SPILL_CANDIDATES, nlist)
+    all_lists = torch.arange(nlist, dtype=torch.int32, device=dev)
+    all_valid = torch.ones((nlist,), dtype=torch.float32, device=dev)
+
+    def candidates() -> np.ndarray:
+        out = np.empty((n, T), dtype=np.int32)
+        for i, c in chunks():
+            _, ids = kernels.dist_topk(c, cdev, all_lists, all_valid, T)
+            out[i:i + c.shape[0]] = ids.cpu().numpy()
+        return out
+
+    def recenter(assign_np: np.ndarray) -> None:
+        # Sums of the bf16-rounded rows in f32, as the JAX package's one-hot
+        # bf16 product accumulates them.
+        nonlocal cdev
+        sums = torch.zeros((nlist, cdev.shape[1]), dtype=torch.float32, device=dev)
+        cnt = torch.zeros((nlist,), dtype=torch.float32, device=dev)
+        for i, c in chunks():
+            a = torch.as_tensor(assign_np[i:i + c.shape[0]], device=dev)
+            sums.index_add_(0, a, c.to(torch.bfloat16).float())
+            cnt += torch.bincount(a, minlength=nlist).float()
+        cdev = torch.where((cnt > 0)[:, None], sums / torch.clamp(cnt, min=1.0)[:, None], cdev)
+
+    assign = torch.cat([kernels.assign_min_dist(c, cdev)[0] for _, c in chunks()]).long()
+    counts = torch.bincount(assign, minlength=nlist)
+    cap = _ivf_cap(n, nlist)
+    if int(counts.max()) > cap:
+        if frozen:  # shared quantizer: capacity-spill only, no recenter
+            balanced = _balance_assignments(candidates(), nlist, cap)
+        else:
+            balanced = _balanced_refine(candidates, recenter, nlist, cap)
+        assign = torch.as_tensor(balanced, device=dev)
+        counts = torch.bincount(assign, minlength=nlist)
+    return assign, counts, cdev
+
+
+def _bucket_order(assign: torch.Tensor, counts: torch.Tensor, seed: int):
+    """(order, list, slot) of the rows sorted by list, tensors on assign's
+    device: a stable sort by list of the seeded shuffle
+    ``default_rng(seed ^ 0x5EED).permutation(n)`` (uploaded), so each
+    list's internal order is the draw's; a row's slot is its rank minus its
+    list's start."""
+    n = assign.shape[0]
+    shuffle = torch.as_tensor(np.random.default_rng(seed ^ 0x5EED).permutation(n),
+                              device=assign.device)
+    order = shuffle[torch.argsort(assign[shuffle], stable=True)]
+    sorted_assign = assign[order]
+    starts = torch.cumsum(counts, 0) - counts
+    return order, sorted_assign, torch.arange(n, device=assign.device) - starts[sorted_assign]
+
+
 def build_ivf_flat(
     x,
     nlist: int,
@@ -437,103 +550,91 @@ def build_ivf_flat(
     quantizer, which stays FROZEN (capacity balancing may spill rows but
     never recenters). ``train_data`` replaces the local sample as the
     training set. The assignment runs on ``device`` (None → the card) in
-    f32 chunks of 262,144 rows: one ``assign_min_dist`` launch per chunk,
-    and, when a list outgrows its cap, ``dist_topk`` launches for the
-    spill candidates. The bucketing into lists is host numpy, with the JAX
-    package's seeded shuffle of each list's order."""
+    f32 chunks of 262,144 rows, each uploaded again on every pass: one
+    ``assign_min_dist`` launch per chunk, and, when a list outgrows its
+    cap, ``dist_topk`` launches for the spill candidates. The rows'
+    order by list (the JAX package's seeded shuffle, sorted stably) comes
+    from the device, and the rows are scattered into host numpy lists; the
+    index's fields are host numpy (:func:`build_ivf_flat_device` keeps the
+    rows and the index on the device)."""
     dev = resolve_device(device)
     n, d = x.shape
-    frozen = centroids is not None
-    if frozen:
-        centroids = np.asarray(centroids, np.float32)
-        if centroids.shape != (nlist, d):
-            raise ValueError(f"pretrained centroids shape {centroids.shape} != ({nlist}, {d})")
-    else:
-        if train_rows < nlist:
-            raise ValueError(
-                f"train_rows = {train_rows} must be >= nlist = {nlist} "
-                f"(the quantizer needs at least one training row per list)"
-            )
-        pool = x if train_data is None else np.asarray(train_data)
-        if train_data is not None:
-            if pool.ndim != 2 or pool.shape[1] != d:
-                raise ValueError(
-                    f"train_data shape {pool.shape} does not match the database width {d}"
-                )
-            if pool.shape[0] < nlist:
-                raise ValueError(
-                    f"train_data has {pool.shape[0]} rows < nlist = {nlist} "
-                    "(one training row per list minimum)"
-                )
-        if pool.shape[0] > train_rows:
-            pick = np.random.default_rng(seed).choice(
-                pool.shape[0], train_rows, replace=False, shuffle=False
-            )
-            sample = pool[pick] if not isinstance(pool, torch.Tensor) else \
-                pool[torch.as_tensor(pick, device=pool.device)]
-        else:
-            sample = pool
-        sol = fit_kmeans(sample, k=nlist, max_iter=10, seed=seed, init="random", device=dev)
-        centroids = sol.centers
-    T = min(_IVF_SPILL_CANDIDATES, nlist)
-    cdev = torch.as_tensor(np.asarray(centroids), device=dev).float().contiguous()
-    all_lists = torch.arange(nlist, dtype=torch.int32, device=dev)
-    all_valid = torch.ones((nlist,), dtype=torch.float32, device=dev)
+    centroids, frozen = _ivf_quantizer(x, nlist, seed, train_rows, centroids, train_data, dev)
+    cdev = torch.as_tensor(centroids, device=dev).float().contiguous()
 
     def chunks():
         for i in range(0, n, IVF_BUILD_STEP):
             yield i, to_device(x[i:i + IVF_BUILD_STEP], dev, torch.float32).contiguous()
 
-    def argmin_all() -> np.ndarray:
-        out = np.empty((n,), dtype=np.int64)
-        for i, c in chunks():
-            out[i:i + c.shape[0]] = kernels.assign_min_dist(c, cdev)[0].cpu().numpy()
-        return out
-
-    def candidates() -> np.ndarray:
-        out = np.empty((n, T), dtype=np.int32)
-        for i, c in chunks():
-            _, ids = kernels.dist_topk(c, cdev, all_lists, all_valid, T)
-            out[i:i + c.shape[0]] = ids.cpu().numpy()
-        return out
-
-    def recenter(assign_np: np.ndarray) -> None:
-        # Sums of the bf16-rounded rows in f32, as the JAX package's one-hot
-        # bf16 product accumulates them.
-        nonlocal cdev
-        sums = torch.zeros((nlist, d), dtype=torch.float32, device=dev)
-        cnt = torch.zeros((nlist,), dtype=torch.float32, device=dev)
-        for i, c in chunks():
-            a = torch.as_tensor(assign_np[i:i + c.shape[0]], device=dev)
-            sums.index_add_(0, a, c.to(torch.bfloat16).float())
-            cnt += torch.bincount(a, minlength=nlist).float()
-        cdev = torch.where((cnt > 0)[:, None], sums / torch.clamp(cnt, min=1.0)[:, None], cdev)
-
-    assign = argmin_all()
-    counts = np.bincount(assign, minlength=nlist)
-    cap = _ivf_cap(n, nlist)
-    if int(counts.max()) > cap:
-        if frozen:  # shared quantizer: capacity-spill only, no recenter
-            assign = _balance_assignments(candidates(), nlist, cap)
-        else:
-            assign = _balanced_refine(candidates, recenter, nlist, cap)
-            centroids = cdev.cpu().numpy().astype(np.asarray(centroids).dtype)
-        counts = np.bincount(assign, minlength=nlist)
+    assign, counts, cdev_out = _ivf_assign(chunks, n, nlist, cdev, frozen)
+    if cdev_out is not cdev:  # recentred by the balanced refine
+        centroids = cdev_out.cpu().numpy().astype(centroids.dtype)
     maxlen = max(int(counts.max()), 1)
     xh = _host_rows(x)
     lists = np.zeros((nlist, maxlen, d), dtype=xh.dtype)
     list_ids = np.full((nlist, maxlen), -1, dtype=np.int64)
-    # Sort rows by list; a row's slot is its rank minus its list's start.
-    # The seeded shuffle spreads each list's internal order.
-    shuffle = np.random.default_rng(seed ^ 0x5EED).permutation(n)
-    order = shuffle[np.argsort(assign[shuffle], kind="stable")]
-    sorted_assign = assign[order]
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    slots = np.arange(n) - starts[sorted_assign]
+    order, sorted_assign, slots = (t.cpu().numpy() for t in _bucket_order(assign, counts, seed))
     lists[sorted_assign, slots] = xh[order]
     list_ids[sorted_assign, slots] = order
     list_mask = (list_ids >= 0).astype(np.float32)
     return IVFFlatIndex(np.asarray(centroids), lists, list_ids, list_mask)
+
+
+def build_ivf_flat_device(
+    x,
+    nlist: int,
+    seed: int = 0,
+    train_rows: int = 2_000_000,
+    centroids=None,
+    train_data: Optional[np.ndarray] = None,
+    device=None,
+) -> IVFFlatIndex:
+    """:func:`build_ivf_flat` with the rows and the index resident on
+    ``device`` (None → the card): the JAX package's
+    ``build_ivf_flat_device``.
+
+    x: an (n, d) tensor, used where it lies when that is ``device``, or
+    host rows, uploaded once in their dtype (the daemon's are float32).
+    The quantizer trains on a sample gathered on the device (the same
+    ``default_rng(seed)`` pick and ``fit_kmeans`` as the host build: 10
+    ``lloyd_step`` launches and an ``assign_min_dist`` cost pass); the
+    assignment, the spill candidates and the balanced refine's recentres
+    run over f32 chunks sliced from the resident rows, with no upload a
+    pass; only the (n, T) candidates go to the host balancer and its
+    assignment comes back. The bucketing is the host build's seeded
+    shuffle and stable sort on the device, one scatter into the lists;
+    ``counts.max()`` is the one value read back, to fix ``maxlen``.
+
+    The fields are tensors on the device, in the host build's dtypes (lists
+    in the rows' dtype, bfloat16/float16 widened to float32; int64 ids, −1
+    for pads; float32 mask; float32 frozen or float64 trained centroids).
+    Under one quantizer (``centroids``) the two builds are bitwise equal in
+    every field: the same kernels on the same chunks, the same balancer and
+    the same permutation."""
+    dev = resolve_device(device)
+    n, d = x.shape
+    xd = to_device(x, dev)
+    centroids, frozen = _ivf_quantizer(xd, nlist, seed, train_rows, centroids, train_data, dev)
+    cdev = torch.as_tensor(centroids, device=dev).float().contiguous()
+
+    def chunks():
+        for i in range(0, n, IVF_BUILD_STEP):
+            yield i, xd[i:i + IVF_BUILD_STEP].to(torch.float32).contiguous()
+
+    assign, counts, cdev_out = _ivf_assign(chunks, n, nlist, cdev, frozen)
+    # A refine's moved centres come back float64, as the host build's.
+    cent_t = torch.as_tensor(centroids, device=dev) if cdev_out is cdev else cdev_out.double()
+    maxlen = max(int(counts.max()), 1)
+    wide = xd.dtype in (torch.bfloat16, torch.float16)
+    lists = torch.zeros((nlist, maxlen, d), dtype=torch.float32 if wide else xd.dtype, device=dev)
+    list_ids = torch.full((nlist, maxlen), -1, dtype=torch.int64, device=dev)
+    order, sorted_assign, slots = _bucket_order(assign, counts, seed)
+    for i in range(0, n, IVF_BUILD_STEP):  # the row gather a chunk at a time
+        at = (sorted_assign[i:i + IVF_BUILD_STEP], slots[i:i + IVF_BUILD_STEP])
+        lists[at] = xd[order[i:i + IVF_BUILD_STEP]].to(lists.dtype)
+        list_ids[at] = order[i:i + IVF_BUILD_STEP]
+    list_mask = (list_ids >= 0).float()
+    return IVFFlatIndex(cent_t, lists, list_ids, list_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -908,7 +1009,8 @@ class ApproximateNearestNeighbors(Estimator, _ANNParams, MLWritable, MLReadable)
 
 
 class ApproximateNearestNeighborsModel(Model, _ANNParams, MLWritable, MLReadable):
-    """The IVF-Flat index (host numpy) and its device copies.
+    """The IVF-Flat index (host numpy, or tensors on the device of a
+    device build) and its device copies.
 
     ``_index_metric`` travels with the index (pickle and save/load): the
     metric's normalization is baked into the stored lists, so a query under
@@ -928,11 +1030,12 @@ class ApproximateNearestNeighborsModel(Model, _ANNParams, MLWritable, MLReadable
         self._shard = None  # (device, ivf_query_sharded's shard_dev)
 
     def _model_data(self):
+        idx = self.index
         data = {
-            "centroids": self.index.centroids,
-            "lists": self.index.lists,
-            "list_ids": self.index.list_ids.astype(np.float64),
-            "list_mask": self.index.list_mask,
+            "centroids": _host_array(idx.centroids),
+            "lists": _host_array(idx.lists),
+            "list_ids": _host_array(idx.list_ids).astype(np.float64),
+            "list_mask": _host_array(idx.list_mask),
         }
         fit_metric = getattr(self, "_index_metric", None)
         if fit_metric is not None:
@@ -979,21 +1082,23 @@ class ApproximateNearestNeighborsModel(Model, _ANNParams, MLWritable, MLReadable
         rank with the same queries. Returns self."""
         mesh = mesh or default_mesh()
         idx = self.index
-        nlist = np.asarray(idx.centroids).shape[0]
+        nlist = idx.centroids.shape[0]
         nl_local = -(-nlist // mesh.shape[DATA_AXIS])
         lo = min(mesh.axis_index(DATA_AXIS) * nl_local, nlist)
         hi = min(lo + nl_local, nlist)
         dev = resolve_device(self._device, mesh)
 
         def local(a, fill, dtype=None):
-            part = np.array(a[lo:hi], dtype=dtype)  # slice first: a memmap reads the range
+            # Slice first: a memmap reads the range, a device index copies it.
+            part = _host_array(a[lo:hi])
+            part = np.array(part, dtype=dtype or part.dtype)
             pad = nl_local - part.shape[0]
             if pad:
                 part = np.concatenate([part, np.full((pad,) + part.shape[1:], fill, part.dtype)])
             return torch.from_numpy(part).to(dev)
 
         self._shard = (str(dev), (
-            torch.as_tensor(np.array(idx.centroids)).to(dev),
+            torch.as_tensor(np.array(_host_array(idx.centroids))).to(dev),
             local(idx.centroids, 0),
             local(idx.lists, 0),
             local(idx.list_ids, -1, np.int64),
@@ -1004,11 +1109,12 @@ class ApproximateNearestNeighborsModel(Model, _ANNParams, MLWritable, MLReadable
         return self
 
     def _ensure_dev_index(self, dev):
-        """The index on ``dev``, uploaded once and reused by every query."""
+        """The index on ``dev``, uploaded once and reused by every query; a
+        device-built index already on ``dev`` is used without a copy."""
         if self._dev_index is None or self._dev_index[0] != str(dev):
             idx = self.index
             self._dev_index = (str(dev), tuple(
-                torch.as_tensor(np.asarray(a)).to(dev)
+                (a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))).to(dev)
                 for a in (idx.centroids, idx.lists, idx.list_ids, idx.list_mask)
             ))
             self._resid_data = None
@@ -1035,10 +1141,10 @@ class ApproximateNearestNeighborsModel(Model, _ANNParams, MLWritable, MLReadable
         if self.index is None:
             raise RuntimeError("model has no index (unfitted?)")
         k = self.getK() if k is None else k
-        n_db = int(np.asarray(self.index.list_mask).sum())
+        n_db = int(self.index.list_mask.sum())
         if not 0 < k <= n_db:
             raise ValueError(f"k = {k} out of range (0, numRows = {n_db}]")
-        nlist, maxlen = np.asarray(self.index.list_ids).shape
+        nlist, maxlen = self.index.list_ids.shape
         nprobe = min(self.getNprobe(), nlist)
         if nprobe * maxlen < k:
             raise ValueError(

@@ -36,7 +36,8 @@ A knn job's state is the dataset: its feeds stage host float32 row blocks
 (no device work) and ``commit`` files them under their partition, so the
 rows concatenate partition-major however the commits interleaved.
 ``finalize`` BUILDS the index from them (exact: the rows themselves;
-ivf: ``models/knn.build_ivf_flat``) and registers it for ``kneighbors``
+ivf: ``models/knn.build_ivf_flat_device`` or ``build_ivf_flat``, below)
+and registers it for ``kneighbors``
 serving under ``register_as``: the dataset-sized index never crosses the
 wire. ``sample_rows`` reads a seeded sample of the committed rows.
 
@@ -72,9 +73,11 @@ take their rows as raw ``arrays`` frames (the ``feed_raw`` framing, array
 ``x``) in place of the Arrow payload, for a caller without an Arrow
 library; the JAX daemon reads only the Arrow form. ``ensure_model`` also
 registers an exact index (algo "knn", arrays ``{"database"}``). An ivf
-finalize always runs the host-bucketed ``build_ivf_flat`` (``build``
-"auto" or "host"); the reference's device build (``build="device"``, and
-"auto" under its HBM cap) is refused.
+finalize routes as the reference's: ``build="device"``, or "auto" while
+the rows' bytes stay within ``SRML_TORCH_IVF_DEVICE_BUILD_MAX`` (4 GiB by
+default), builds with ``build_ivf_flat_device`` and serves the index from
+the device; "host", or "auto" past the cap, with the host-bucketed
+``build_ivf_flat``.
 
 The multi-daemon fit plane: ``merge_state`` folds a peer daemon's
 exported state into a job (the driver's hub), and ``mesh_info`` and
@@ -231,6 +234,12 @@ _SHEDDABLE_OPS = ("feed", "feed_raw", "seed", "transform", "kneighbors", "ensure
 
 #: Process-wide device lock (see the module docstring): taken innermost.
 _DEVICE_LOCK = threading.Lock()
+
+#: The ivf finalize's device-build cap, in bytes of the committed rows
+#: (the reference's default): within it ``build="auto"`` builds and keeps
+#: the index on the device; past it, or at ``build="host"``, the rows are
+#: bucketed in host memory (docs/ann-capacity.md "Build policy").
+_IVF_DEVICE_BUILD_MAX_BYTES = int(os.environ.get("SRML_TORCH_IVF_DEVICE_BUILD_MAX", 4 << 30))
 
 #: Every op _dispatch understands: the clamp for metric labels, so a label
 #: from the wire cannot mint unbounded registry series (an unknown op
@@ -1103,8 +1112,10 @@ class _Job:
         back to the caller.
 
         ``params``: ``mode`` (exact|ivf), ``metric``, and for ivf ``nlist``,
-        ``seed``, ``nprobe`` and ``build`` (auto|host; "device" is refused:
-        the port has one IVF build, host-bucketed); ``row_id_base`` maps
+        ``seed``, ``nprobe`` and ``build``: "device", or "auto" while the
+        rows' bytes stay within ``_IVF_DEVICE_BUILD_MAX_BYTES``, runs
+        ``build_ivf_flat_device`` (the index resident on the device);
+        "host", or "auto" past the cap, ``build_ivf_flat``; ``row_id_base`` maps
         each partition to its global row base (the served ids become those
         global partition-major positions); ``return_centroids`` ships the
         quantizer back. ``extra_arrays``: ``centroids``, a pretrained
@@ -1129,12 +1140,7 @@ class _Job:
                 if metric == "inner_product":
                     raise ValueError("metric='inner_product' needs mode='exact' (IVF partitions "
                                      "by L2 proximity)")
-                if build == "device":
-                    raise ValueError(
-                        "build='device' is not in the port: its IVF index is built by "
-                        "models/knn.build_ivf_flat (assignment on the card, host bucketing); "
-                        "use build='auto' or 'host' (ROADMAP Queue 3)")
-                if build not in ("auto", "host"):
+                if build not in ("auto", "device", "host"):
                     raise ValueError(f"unknown build {build!r} (auto|device|host)")
             with trace_span("daemon knn build"):
                 rows = np.concatenate(blocks)
@@ -1157,10 +1163,16 @@ class _Job:
                         train_in = np.asarray(train_in)
                         if metric == "cosine":
                             train_in = knn_mod._normalized_rows(train_in, zero_slot=0)
+                    on_device = build == "device" or (
+                        build == "auto" and rows.nbytes <= _IVF_DEVICE_BUILD_MAX_BYTES)
+                    build_fn = knn_mod.build_ivf_flat_device if on_device else knn_mod.build_ivf_flat
                     with _DEVICE_LOCK:
-                        index = knn_mod.build_ivf_flat(
+                        index = build_fn(
                             rows, nlist=nlist, seed=int(params.get("seed") or 0),
                             centroids=cent_in, train_data=train_in, device=self.device)
+                        if params.get("return_centroids"):
+                            info["centroids"] = knn_mod._host_array(
+                                index.centroids).astype(np.float32)
                     model = knn_mod.ApproximateNearestNeighborsModel(index=index,
                                                                      device=self.device)
                     model._set(metric=metric)
@@ -1170,8 +1182,6 @@ class _Job:
                     info["nlist"] = np.asarray([nlist], np.int64)
                     info["maxlen"] = np.asarray([index.lists.shape[1]], np.int64)
                     info["sharded"] = np.asarray([0], np.int64)
-                    if params.get("return_centroids"):
-                        info["centroids"] = np.asarray(index.centroids, np.float32)
             # The rows are consumed by the built index.
             self.dropped = True
             self.state, self.part_rows = [], {}
@@ -1996,13 +2006,14 @@ class DataPlaneDaemon:
     def _save_model_state(self, name: str, served: _ServedModel) -> bool:
         """Snapshot a daemon-built index before the finalize's ack (an acked
         build is a restorable one); ``ensure_model`` registrations stay
-        volatile. The port's index arrays are host numpy, so no device
-        lock is taken. True when a snapshot was written."""
+        volatile. A device-built index is copied to the host under the
+        device lock; the file is written outside it. True when a snapshot
+        was written."""
         if self._state_dir is None:
             return False
         model = served.model
-        # Host numpy index arrays: _host_rows copies nothing to the device.
-        data = model._model_data()  # srml: disable=device-lock
+        with _DEVICE_LOCK:
+            data = model._model_data()
         arrays = {k: np.asarray(v) for k, v in data.items() if v is not None}
         if served.id_map is not None:
             arrays["id_map"] = np.asarray(served.id_map, np.int64)

@@ -1172,7 +1172,7 @@ def test_every_pragma_in_the_port_carries_its_reason():
             after = line.split("# srml: disable=", 1)[1].split(" ", 1)
             assert before.startswith("#") or (len(after) > 1 and after[1].strip()), (
                 f"{path.relative_to(REPO)}:{i + 1} has a pragma without a reason")
-    assert pragmas == 9
+    assert pragmas == 8
 
 
 def test_the_port_registry_has_the_ten_kernels_and_primes_every_loader(port_project):

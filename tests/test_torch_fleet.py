@@ -25,6 +25,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -134,6 +135,7 @@ def _sequence(fleet_cls, daemons, arrays):
         views(fleet)
         out.append(fleet.scale_in(daemon_addr(daemons[0])))
         views(fleet)
+        _settle(daemons)
         status = fleet.status("m")
         for entry in status["replicas"].values():
             entry["health"] = {k: entry["health"][k] for k in ("queue_depth", "busy")}
@@ -146,6 +148,16 @@ def _sequence(fleet_cls, daemons, arrays):
 def _pull(daemon):
     with DataPlaneClient(*daemon.address) as c:
         return c.gossip_pull()
+
+
+def _settle(daemons, timeout_s=10.0):
+    """Wait until no daemon holds a connection. A closed client's
+    connection counts in the daemon's ``queue_depth`` until its thread
+    ends, which on a loaded host can outlast the next op: the status's
+    health would then read 2 on one replica in one of the two runs."""
+    deadline = time.monotonic() + timeout_s
+    while any(d._active_conns for d in daemons) and time.monotonic() < deadline:
+        time.sleep(0.005)
 
 
 def test_the_gossiped_state_follows_the_reference(versions):

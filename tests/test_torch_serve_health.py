@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from spark_rapids_ml_tpu import config as jax_config
+from spark_rapids_ml_tpu.models import knn as jax_knn
 from spark_rapids_ml_tpu.serve import DataPlaneClient as JaxClient
 from spark_rapids_ml_tpu.serve import DataPlaneDaemon as JaxDaemon
 from spark_rapids_ml_tpu.serve import scheduler as jax_scheduler
@@ -91,6 +92,12 @@ def pca_arrays(data):
 
 @contextlib.contextmanager
 def _both(mesh1):
+    # The JAX exact-kNN program is cached a (mesh, k, dtypes) key for the
+    # process: a JAX ``serve_aot`` warmup earlier in the process (its own
+    # serving tests) leaves AOT executables on it, and a wrapper holding
+    # any asks ``jax.core.trace_state_clean`` even with the ledger off.
+    # A fresh program holds none.
+    jax_knn._exact_knn_fn.cache_clear()
     with DataPlaneDaemon(device="cpu") as port, JaxDaemon(mesh=mesh1) as ref:
         yield port, ref
 

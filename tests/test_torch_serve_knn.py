@@ -10,9 +10,10 @@ case says float64:
   in both cross pairings (the JAX client with the port's daemon, the
   port's client with the JAX daemon): indices equal, distances within
   1e-5 (inner_product descending);
-* IVF at the host build (the JAX daemon's device build is switched off
-  by patching its ``_IVF_DEVICE_BUILD_MAX_BYTES`` in this process, as
-  ``tests/test_serve.py`` does), every list probed: ``list_ids`` and the
+* IVF against the JAX host build (the JAX daemon's device build is
+  switched off by patching its ``_IVF_DEVICE_BUILD_MAX_BYTES`` in this
+  process, as ``tests/test_serve.py`` does; the port's "auto" build runs
+  its device build, bitwise its host build), every list probed: ``list_ids`` and the
   served ids equal in float64 (the same trained quantizer, as
   ``tests/test_torch_knn.py::test_build_trains_the_same_quantizer``) and
   in float32 with frozen ``centroids``; ``row_id_base``,
@@ -59,8 +60,8 @@ def _dtypes(name):
 
 @pytest.fixture(autouse=True)
 def _f32_host_build_ledger_off(monkeypatch):
-    # The JAX daemon's ivf "auto" build runs its host build here, the
-    # build the port's daemon always runs.
+    # The JAX daemon's ivf "auto" build runs its host build here, whose
+    # seeded shuffle the port's builds share.
     monkeypatch.setattr(jax_daemon_mod, "_IVF_DEVICE_BUILD_MAX_BYTES", 0)
     with jax_ledger_off(), _dtypes("float32"):
         yield
@@ -426,13 +427,21 @@ def test_refusals_match_the_reference(case, jax_daemon, daemon):
 
 
 def test_device_build_is_refused(daemon):
+    """Only an unknown build is refused (the reference's message), before
+    the build, with the rows intact and no model registered; ``"device"``
+    registers a device-resident index that answers."""
     with DataPlaneClient(*daemon.address) as c:
         _feed_partitions(c, "dv")
-        with pytest.raises(RuntimeError, match="build='device' is not in the port.*ROADMAP"):
-            c.finalize("dv", {"mode": "ivf", "nlist": 4, "build": "device",
+        with pytest.raises(RuntimeError, match=r"unknown build 'tpu' \(auto\|device\|host\)"):
+            c.finalize("dv", {"mode": "ivf", "nlist": 4, "build": "tpu",
                               "register_as": "dv-idx"})
         assert c.status("dv")["rows"] == X.shape[0]  # refused before the build
         assert not c.model_exists("dv-idx")
+        c.finalize("dv", {"mode": "ivf", "nlist": 4, "nprobe": 4, "build": "device",
+                          "register_as": "dv-idx"})
+        assert isinstance(daemon._lookup_model("dv-idx").model.index.lists, torch.Tensor)
+        d, i = c.kneighbors("dv-idx", Q, k=3)
+    assert i.shape == (len(Q), 3) and (i >= 0).all() and np.isfinite(d).all()
 
 
 def test_kneighbors_rejections_keep_the_framing(daemon):
