@@ -408,14 +408,28 @@ Phases, each of which exits non-zero on a failed check:
     ``feed_raw`` and ``finalize_knn`` (k = 10) and registered in the second
     daemon by ``_ServedModel.from_model``; a PCA model (d = 2048, k = 32,
     fit on 65,536 rows of phase 3's spectrum) and an IVF index (65,536 x
-    768, nlist 64, nprobe 8) are in both. ``warmup`` of each model acks
-    enabled, the ladder, compiled 4 and aot false, and no later traffic
-    raises ``srml_scheduler_compile_misses_total``. Exact kNN over the wire:
-    the 8 client processes send 32 ``kneighbors_raw`` requests each (query
-    counts from {1, 16, 63, 64, 65, 256}, seeded) to the batching daemon,
-    then the same to the other: every answer bitwise equal, fewer batches
-    than requests, and the ``dist_topk`` launches equal to
-    ``srml_scheduler_batches_total{op="kneighbors"}``, all wgmma. The
+    768, nlist 64, nprobe 8) are in both. ``warmup`` is AOT at
+    registration (``serve/aot.py``): the exact index and PCA, on the
+    batching daemon and the shedding one, ack aot true with compiled 4 (one
+    CUDA graph a padded shape), each graph captured replaying ``dist_topk``
+    for the index; the IVF index acks aot false with compiled 4 (the trace
+    warmup); each bucket's capture seconds and the graphs' device memory
+    are printed, and no later traffic raises
+    ``srml_scheduler_compile_misses_total``. Exact kNN over the wire: the 8
+    client processes send 32 ``kneighbors_raw`` requests each (query
+    counts from {1, 16, 63, 64, 65, 256}, seeded) to the batching daemon
+    (graph replays), then the same to the other (eager, batching off), to
+    the batching daemon with its programs set aside (eager, batching on)
+    and to it again: every answer bitwise equal, fewer batches than
+    requests; each exact graph holds one ``dist_topk_tc_kernel`` node and
+    no FFMA one (the driver's graph, cudaGraphDebugDotPrint), and its
+    replays equal ``srml_scheduler_batches_total{op="kneighbors"}`` and the
+    launches the wrappers' counts credit a replay; the run's torch.profiler
+    trace saw at most that many (it drops a few device events late in a
+    long process);
+    ``model_status``'s ``aot`` 0 misses and a hit a batch, the
+    ``aot/graph`` runs equal to the batches. A PCA transform of
+    each bucket through its graph is bitwise the eager projector's. The
     ``health`` scheduler block, the Prometheus lines and the requests
     counted against the requests sent. IVF requests bypass the scheduler
     (``srml_scheduler_bypass_total``) with answers bitwise the other
@@ -441,16 +455,19 @@ Phases, each of which exits non-zero on a failed check:
     65,536·2048 flops a call; its CUDA-event seconds a call and TFLOP/s.
     b. 8 of phase 29's client processes x 16 exact ``kneighbors_raw``
     requests over a 1,048,576 x 768 bf16 index (k = 10) through a batching
-    daemon's scheduler, the ring armed: the ledger's ``dist_topk`` calls
-    equal the launches and the batches, and every kneighbors exemplar of
+    daemon's scheduler (its exact programs CUDA graphs), the ring armed,
+    traced: the ledger's ``dist_topk`` calls equal the credited launches,
+    the batches and the replays of graphs of one ``dist_topk_tc_kernel``
+    node each (the device trace at most that many), and every kneighbors
+    exemplar of
     ``srml_daemon_request_seconds`` in ``telemetry_pull`` names a span
     ``trace_pull`` returns. c. An unreachable p99 objective on kneighbors:
     ``srml_slo_breach`` reaches 1 within two telemetry ticks and the
     telemetry thread writes an ``slo_breach`` bundle under the recorder's
     (temporary) ``state_dir`` that ``load_bundle`` reads back with both
     kernels' ledger records. d. The same requests with the journal off,
-    the ring armed and a journal file (requests/s each, answers bitwise
-    equal); the ledger's host cost a ``dist_topk`` call and the journal's a
+    the ring armed and a journal file (requests/s each, untraced, answers
+    bitwise equal); the ledger's host cost a ``dist_topk`` call and the journal's a
     span.
 31. Durable daemons and the routed fleet (``serve/{daemon,gossip,router}.py``),
     every daemon a spawned process on the card. a. Phase 21's KMeans feed
@@ -592,6 +609,7 @@ package beside this file, the script fails before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -6549,24 +6567,88 @@ def p29_delta(before, after, name, field="value", **labels):
             - p29_metric(before, name, field, **labels))
 
 
+#: The trace names of dist_topk's two routes' main kernels (one launch a call).
+TOPK_TRACE = {"wgmma": "dist_topk_tc_kernel", "ffma": "dist_topk_kernel"}
+#: Seconds a traced traffic run's trace window opens before its first
+#: request and stays open after its last answer: the profiler keeps a
+#: device event only inside its window.
+TRACE_MARGIN_S = 0.25
+
+
+@contextlib.contextmanager
+def dumpable_graphs(torch):
+    """CUDA graphs captured inside the block keep the graph the driver built
+    (``keep_graph``), for :func:`graph_kernels`. Late in the whole smoke
+    the profiler's trace drops a few device events of a run (251 of 256
+    eager launches, 59 of 64 replayed ones), so a replay's launches are
+    read from its graph."""
+    base = torch.cuda.CUDAGraph
+
+    def dumpable():
+        return base(keep_graph=True)
+
+    torch.cuda.CUDAGraph = dumpable
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = base
+
+
+def graph_kernels(program):
+    """{route: nodes} of ``dist_topk``'s two kernels (TOPK_TRACE) in a held
+    program's CUDA graph, as the CUDA driver prints it
+    (cudaGraphDebugDotPrint through ``debug_dump``): what each replay
+    launches. Needs a graph captured in :func:`dumpable_graphs`, which this
+    instantiates (a kept graph is instantiated at its first replay
+    otherwise)."""
+    import tempfile
+
+    program.graph.instantiate()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        program.graph.debug_dump(path)
+        with open(path) as fh:
+            nodes = [line for line in fh if "->" not in line]
+    return {route: sum(kernel in line for line in nodes) for route, kernel in TOPK_TRACE.items()}
+
+
+def traced_launches(by_name, kernel):
+    """The launches of ``kernel`` (a name in the trace) that a torch.profiler
+    trace saw on the device: what ran, graph replays included."""
+    return sum(n for name, (_, n) in by_name.items() if kernel in name)
+
+
 def p29_traffic(torch, kernels, clients, name, address, model, k, n, tag):
     """One traffic run of every client against ``address``, launches reset
-    just before and read just after, traced for the device busy share.
+    just before and read just after, traced for the device busy share and
+    for the ``dist_topk`` launches the device ran (``traced``, by route).
     Returns a record: requests, rows, seconds, latencies, launches, routes,
-    busy ms."""
+    traced launches, busy ms."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    from spark_rapids_ml_tpu_torch.serve import aot
+
     torch.cuda.synchronize()
     kernels.reset_launches()
+    aot.reset_routes()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_MARGIN_S)
         t0 = time.perf_counter()
         res = clients.all("run", name, address, model, k, n)
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
-    rec = {"launches": dict(kernels.LAUNCHES), "routes": dict(kernels.ROUTES), "s": wall}
-    rec["busy_ms"], _, _ = device_time(torch, prof)
-    del prof
+        time.sleep(TRACE_MARGIN_S)
+    rec = {"launches": dict(kernels.LAUNCHES), "routes": dict(kernels.ROUTES), "s": wall,
+           "aot": dict(aot.ROUTES)}
+    rec["busy_ms"], by_name, ev = device_time(torch, prof)
+    rec["traced"] = {route: traced_launches(by_name, kernel)
+                     for route, kernel in TOPK_TRACE.items()}
+    tk = [e for e in ev if TOPK_TRACE["wgmma"] in e.name]
+    # Where the kernels sit in the trace (ms from its start), beside the margin.
+    rec["traced_ms"] = ((tk[0].time_range.start / 1e3, tk[-1].time_range.end / 1e3) if tk
+                        else None)
+    del prof, ev, tk
     lat = np.sort(np.concatenate([r["lat"] for r in res])) * 1e3
     rec.update(requests=len(lat), rows=sum(r["rows"] for r in res),
                p50=float(np.percentile(lat, 50)), p99=float(np.percentile(lat, 99)),
@@ -6580,6 +6662,14 @@ def p29_traffic(torch, kernels, clients, name, address, model, k, n, tag):
     return rec
 
 
+def p29_aot(address, model):
+    """A served model's ``aot`` compile ledger, through ``model_status``."""
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient
+
+    with DataPlaneClient(*address) as c:
+        return c._roundtrip({"op": "model_status", "model": model})[0]["aot"]
+
+
 def phase_serving(torch, kernels, config):
     """Phase 29: the serving plane on the card (``serve/scheduler.py``, the
     ``warmup``, ``health`` and ``metrics`` ops). Returns the launches of
@@ -6589,10 +6679,12 @@ def phase_serving(torch, kernels, config):
     import numpy as np
 
     from spark_rapids_ml_tpu_torch import PCA
-    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient, DataPlaneDaemon
+    from spark_rapids_ml_tpu_torch.parallel.sharding import bucket_rows
+    from spark_rapids_ml_tpu_torch.serve import DataPlaneClient, DataPlaneDaemon, aot
+    from spark_rapids_ml_tpu_torch.serve import daemon as daemon_mod
     from spark_rapids_ml_tpu_torch.serve.scheduler import RequestScheduler, bucket_for
     from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
-    from spark_rapids_ml_tpu_torch.utils import profiling
+    from spark_rapids_ml_tpu_torch.utils import profiling, xprof
 
     t_phase = time.perf_counter()
     n_rows = DP_PARTITIONS * DP_FEEDS * DP_ROWS
@@ -6617,7 +6709,7 @@ def phase_serving(torch, kernels, config):
             pca = PCA(device=DEV).setK(K).fit({"features": make_rows(gen, P29_PCA_ROWS, scales,
                                                                      mu, torch.float32)})
             x_pool = make_rows(gen, P29_PCA_POOL, scales, mu, torch.float32).cpu().numpy()
-            for d in (on, off):
+            for d in (on, off, shed):
                 with DataPlaneClient(*d.address) as c:
                     c.ensure_model("p29-pca", "pca", pca._model_data())
             with DataPlaneClient(*on.address) as c:
@@ -6643,20 +6735,44 @@ def phase_serving(torch, kernels, config):
             exact_on.model._set(k=KNN_K)  # the served index's fitted k
             p29_share(off, "p29-exact", exact_on)
             p29_share(shed, "p29-exact", exact_on)
-            # -- warmup --------------------------------------------------------
+            # -- warmup: AOT at registration, the IVF index trace-warmed ---------
             ladder = list(on._buckets)
-            for d, model, width, kw in ((on, "p29-exact", KNN_D, {"k": KNN_K}),
-                                        (on, "p29-ivf", KNN_D, {"k": KNN_K}),
-                                        (on, "p29-pca", D, {}),
-                                        (shed, "p29-exact", KNN_D, {"k": KNN_K})):
-                with DataPlaneClient(*d.address) as c:
+            # The distinct shapes the port dispatches: the exact index's padded
+            # query counts, a transform's buckets.
+            shapes = {"p29-exact": len({bucket_rows(b, 64) for b in ladder}),
+                      "p29-pca": len(ladder), "p29-ivf": len(ladder)}
+            exact_on.model._query_setup(KNN_K)  # resident first: the memory below is the graphs'
+            nodes = {}
+            for d, model, width, kw, held in ((on, "p29-exact", KNN_D, {"k": KNN_K}, True),
+                                              (on, "p29-ivf", KNN_D, {"k": KNN_K}, False),
+                                              (on, "p29-pca", D, {}, True),
+                                              (shed, "p29-exact", KNN_D, {"k": KNN_K}, True),
+                                              (shed, "p29-pca", D, {}, True)):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()  # as a capture does first: the reserved delta is the pool's
+                mem0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+                with DataPlaneClient(*d.address) as c, dumpable_graphs(torch):
                     t0 = time.perf_counter()
                     ack = c.warmup(model, n_cols=width, **kw)
                     warm_s = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                mem1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
                 tag = "the shedding daemon's " if d is shed else ""
-                check(ack == {"enabled": True, "buckets": ladder, "compiled": len(ladder),
-                              "aot": False},
+                check(ack == {"enabled": True, "buckets": ladder, "compiled": shapes[model],
+                              "aot": held},
                       f"phase 29 warmup of {tag}{model}: {ack} ({warm_s:.3f} s, host clock)")
+                if held:
+                    progs = sorted(d._lookup_model(model).aot.programs.values(),
+                                   key=lambda p: p.static_in.shape[0])
+                    check(len(progs) == shapes[model] and all(p.graph is not None for p in progs),
+                          f"phase 29 AOT of {tag}{model}: {len(progs)} programs, each a CUDA graph")
+                    nodes[tag + model] = [graph_kernels(p) for p in progs]
+                    print(f"phase 29 AOT of {tag}{model}: capture (eager run + capture, host "
+                          "clock) " + ", ".join(f"{p.static_in.shape[0]} rows {p.capture_s:.3f} s"
+                                                for p in progs)
+                          + f"; the graphs' memory {(mem1[0] - mem0[0]) / 2**20:.1f} MiB "
+                          f"allocated, {(mem1[1] - mem0[1]) / 2**20:.1f} MiB reserved "
+                          "(torch.cuda.memory_allocated/reserved)", flush=True)
             # -- exact kNN over the wire: batching on, then off ----------------
             # The registry is the process's: every count below is a delta
             # since the warmups.
@@ -6669,27 +6785,49 @@ def phase_serving(torch, kernels, config):
             b_rows = p29_metric(snap, "srml_scheduler_batch_rows", "sum", op="kneighbors")
             padded = p29_metric(snap, "srml_scheduler_padded_rows_total", op="kneighbors")
             n_req = P29_PROCS * P29_REQS
-            lt, rt = rec_on["launches"], rec_on["routes"]
+            lt, rt, tr = rec_on["launches"], rec_on["routes"], rec_on["traced"]
             check(batched == n_req and b_rows == rec_on["rows"] and 0 < batches < n_req,
                   f"phase 29 batching on: {int(batched)} requests in {int(batches)} batches "
                   f"(fewer than the {n_req} requests), {int(b_rows)} rows")
-            check(lt["dist_topk"] == batches and rt["dist_topk/wgmma"] == lt["dist_topk"]
-                  and sum(lt.values()) == lt["dist_topk"],
-                  f"phase 29 batching on: dist_topk launches {lt['dist_topk']} == "
-                  f"srml_scheduler_batches_total{{op=kneighbors}} {int(batches)}, all on the "
-                  f"tensor-core route ({rt['dist_topk/wgmma']}), no other kernel")
-            out["dist_topk"] = lt["dist_topk"]
+            # A replay's launches are credited on the host from its capture;
+            # what ran is the graphs' kernel nodes (the driver's graph) a
+            # replay, and the device trace shows them (a lower bound: it
+            # drops a few device events late in a long process).
+            one = {"wgmma": 1, "ffma": 0}
+            launched = rec_on["aot"]["aot/graph"] * one["wgmma"]
+            check(all(n == one for n in nodes["p29-exact"]) and launched == batches
+                  and lt["dist_topk"] == batches and rt["dist_topk/wgmma"] == lt["dist_topk"]
+                  and sum(lt.values()) == lt["dist_topk"]
+                  and 0 < tr["wgmma"] <= batches and tr["ffma"] == 0,
+                  f"phase 29 batching on: each exact graph's {TOPK_TRACE['wgmma']} / FFMA nodes "
+                  f"{[(n['wgmma'], n['ffma']) for n in nodes['p29-exact']]} (cudaGraphDebugDotPrint)"
+                  f", {rec_on['aot']['aot/graph']} replays: {launched} launches == "
+                  f"srml_scheduler_batches_total{{op=kneighbors}} {int(batches)} == the credited "
+                  f"dist_topk launches {lt['dist_topk']} (wgmma {rt['dist_topk/wgmma']}), no other "
+                  f"kernel; the device trace saw {tr['wgmma']} of them (FFMA {tr['ffma']}; the "
+                  f"first starting, the last ending at {rec_on['traced_ms']} ms of the trace, the "
+                  f"traffic {TRACE_MARGIN_S * 1e3:.0f} to "
+                  f"{(TRACE_MARGIN_S + rec_on['s']) * 1e3:.0f})")
+            out["dist_topk"] = launched
+            held = p29_aot(on.address, "p29-exact")
+            check(held["misses"] == 0 and held["hits"] == batches
+                  and rec_on["aot"] == {"aot/graph": batches, "aot/eager": 0},
+                  f"phase 29 AOT: model_status aot {held}: no miss, a hit a batch; held-program "
+                  f"runs {rec_on['aot']} == {int(batches)} graph replays")
             print(f"phase 29 batching on: mean {b_rows / batches:.1f} rows a batch, padded share "
                   f"{padded / (padded + b_rows):.4f} ({int(padded)} padding rows)", flush=True)
             rec_off = p29_traffic(torch, kernels, clients, "off", off.address, "p29-exact",
                                   KNN_K, P29_REQS, "exact kNN, batching off")
-            check(rec_off["launches"]["dist_topk"] == n_req,
-                  f"phase 29 batching off: one dist_topk launch a request "
-                  f"({rec_off['launches']['dist_topk']} == {n_req})")
+            check(rec_off["launches"]["dist_topk"] == n_req
+                  and 0 < rec_off["traced"]["wgmma"] <= n_req,
+                  f"phase 29 batching off (eager): one dist_topk launch a request "
+                  f"({rec_off['launches']['dist_topk']} == {n_req}; the device trace saw "
+                  f"{rec_off['traced']['wgmma']} of them)")
             bad = clients.all("compare", "on", "off")
             n_bad = sum(len(r["bad"]) for r in bad)
-            check(n_bad == 0, f"phase 29 exact kNN: every batched answer bitwise equal to the "
-                              f"batching-off daemon's ({n_bad} of {n_req} differ)")
+            check(n_bad == 0, f"phase 29 exact kNN: every batched answer (graph replays) bitwise "
+                              f"equal to the batching-off daemon's (eager) ({n_bad} of {n_req} "
+                              "differ)")
             print(f"phase 29 exact kNN batching on / off: {rec_on['requests'] / rec_on['s']:.1f}"
                   f" / {rec_off['requests'] / rec_off['s']:.1f} requests/s "
                   f"({rec_off['s'] / rec_on['s']:.2f}x), p50 {rec_on['p50']:.3f}"
@@ -6725,6 +6863,30 @@ def phase_serving(torch, kernels, config):
                   in lines,
                   "phase 29 metrics (prometheus): the srml_scheduler_batches_total and "
                   "srml_daemon_requests_total lines")
+            # The same daemon with its programs set aside (the eager path of
+            # batching on), then held again: graph against eager in one run.
+            programs, exact_on.aot = exact_on.aot, None
+            rec_eager = p29_traffic(torch, kernels, clients, "eager", on.address, "p29-exact",
+                                    KNN_K, P29_REQS, "exact kNN, batching on, eager")
+            exact_on.aot = programs
+            rec_on2 = p29_traffic(torch, kernels, clients, "on2", on.address, "p29-exact", KNN_K,
+                                  P29_REQS, "exact kNN, batching on, graphs again")
+            n_bad = sum(len(r["bad"]) for run in ("eager", "on2")
+                        for r in clients.all("compare", run, "off"))
+            check(n_bad == 0 and rec_eager["aot"]["aot/graph"] == 0
+                  and rec_on2["aot"]["aot/graph"] == rec_on2["launches"]["dist_topk"]
+                  >= rec_on2["traced"]["wgmma"] > 0 and rec_on2["traced"]["ffma"] == 0,
+                  f"phase 29 exact kNN, batching on with and without its graphs: every answer "
+                  f"bitwise the eager batching-off daemon's ({n_bad} of {2 * n_req} differ)")
+            print("phase 29 exact kNN, batching on, graph / eager / graph: "
+                  + " / ".join(f"{r['requests'] / r['s']:.1f}" for r in (rec_on, rec_eager, rec_on2))
+                  + " requests/s, p50 " + " / ".join(f"{r['p50']:.3f}" for r in
+                                                    (rec_on, rec_eager, rec_on2))
+                  + " ms, p99 " + " / ".join(f"{r['p99']:.3f}" for r in
+                                             (rec_on, rec_eager, rec_on2))
+                  + " ms, device busy " + " / ".join(
+                      f"{100 * r['busy_ms'] / (r['s'] * 1e3):.2f}" for r in
+                      (rec_on, rec_eager, rec_on2)) + " %", flush=True)
             # -- IVF: never coalesced -----------------------------------------
             before = metrics_mod.snapshot()
             rec_ivf = p29_traffic(torch, kernels, clients, "ivf-on", on.address, "p29-ivf",
@@ -6820,6 +6982,32 @@ def phase_serving(torch, kernels, config):
                   f"(largest error {worst:.3f} of it)", flush=True)
             check(0 < p_batches < n_pca, f"phase 29 PCA: {int(p_batches)} batches for {n_pca} "
                                          f"requests")
+            # Each bucket through its graph, bitwise the eager projector at the
+            # same rows.
+            # device_timing on: each replay's CUDA-event seconds go to the
+            # graph's own ledger record (aot.REPLAY), none to a kernel.
+            g0, differ = aot.ROUTES["aot/graph"], []
+            r0 = xprof.snapshot().get(aot.REPLAY, {}).get("execute_calls", 0)
+            with config.option("device_timing", True):
+                for b in ladder:
+                    got = pca_on.transform(x_pool[:b])["output"]
+                    with daemon_mod._DEVICE_LOCK:
+                        want = pca_on.model.transform_matrix(x_pool[:b])["output"]
+                    if not np.array_equal(got, want):
+                        differ.append(b)
+            replays = xprof.snapshot().get(aot.REPLAY, {"execute_calls": 0, "signatures": []})
+            held = p29_aot(on.address, "p29-pca")
+            check(not differ and aot.ROUTES["aot/graph"] - g0 == len(ladder)
+                  and held["misses"] == 0 and held["hits"] >= p_batches + len(ladder)
+                  and replays["execute_calls"] - r0 == len(ladder),
+                  f"phase 29 PCA: a transform of each bucket {ladder} through its graph bitwise "
+                  f"the eager projector's (differ: {differ}); model_status aot {held}; "
+                  f"{replays['execute_calls'] - r0} timed replays in the ledger's "
+                  f"{aot.REPLAY!r}")
+            print("phase 29 PCA graph replays (CUDA events, device_timing): "
+                  + ", ".join(f"{r['sig']} {r['execute_s'] / r['execute_calls'] * 1e3:.4f} ms"
+                              for r in replays["signatures"] if r["execute_calls"]),
+                  flush=True)
             # Within one bucket a batched request is the solo request's bits: 9
             # rows coalesced with 40 (one batch of 49 rows: the 64 bucket) beside
             # the same 9 rows served alone (padded to 64).
@@ -6850,25 +7038,36 @@ def phase_serving(torch, kernels, config):
             # -- one 4,096-query request alone (phase 22's): what the path adds --
             qs = knn_frame(np, DP_PARTITIONS, 0, KNN_QUERIES, KNN_D, KNN_CLUSTERS)
             names = ("daemon frame receive", "daemon frame decode", "scheduler kneighbors",
-                     "daemon kneighbors", "knn query")
+                     "daemon kneighbors", "aot replay", "knn query")
+            # The batching daemon's graph and its eager path (programs set
+            # aside) in one call, in the order graph, eager, eager, graph.
             with DataPlaneClient(*on.address) as c_on, DataPlaneClient(*off.address) as c_off:
-                for tag, fn in (
-                        ("over the wire, batching on",
-                         lambda: c_on.kneighbors_raw("p29-exact", qs, k=KNN_K)),
+                wire_on = lambda: c_on.kneighbors_raw("p29-exact", qs, k=KNN_K)  # noqa: E731
+                served = lambda: exact_on.kneighbors(qs, KNN_K)  # noqa: E731
+                for tag, fn, eager in (
+                        ("over the wire, batching on (graph)", wire_on, False),
+                        ("over the wire, batching on, eager (programs set aside)", wire_on, True),
                         ("over the wire, batching off",
-                         lambda: c_off.kneighbors_raw("p29-exact", qs, k=KNN_K)),
+                         lambda: c_off.kneighbors_raw("p29-exact", qs, k=KNN_K), False),
                         ("in process, RequestScheduler.submit",
                          lambda: on._scheduler.submit("p29-exact", exact_on, "kneighbors", qs,
-                                                      k=KNN_K)),
-                        ("in process, _ServedModel.kneighbors",
-                         lambda: exact_on.kneighbors(qs, KNN_K))):
-                    fn()  # warm
-                    profiling.reset_span_totals()
-                    times = []
-                    for _ in range(5):
-                        t0 = time.perf_counter()
-                        fn()
-                        times.append(time.perf_counter() - t0)
+                                                      k=KNN_K), False),
+                        ("in process, _ServedModel.kneighbors, eager (programs set aside)",
+                         served, True),
+                        ("in process, _ServedModel.kneighbors (graph)", served, False)):
+                    programs = exact_on.aot
+                    if eager:
+                        exact_on.aot = None
+                    try:
+                        fn()  # warm
+                        profiling.reset_span_totals()
+                        times = []
+                        for _ in range(5):
+                            t0 = time.perf_counter()
+                            fn()
+                            times.append(time.perf_counter() - t0)
+                    finally:
+                        exact_on.aot = programs
                     spans = profiling.span_totals()
                     print(f"phase 29 one {KNN_QUERIES}-query request, {tag}: median "
                           f"{sorted(times)[2] * 1e3:.3f} ms of 5 (host clock); spans, ms a "
@@ -6894,22 +7093,40 @@ def p30_span_ids(events):
     return {e.get("span_id") for e in events if e.get("event") == "phase"}
 
 
-def p30_traffic(torch, kernels, clients, name, address, tag):
+def p30_traffic(torch, kernels, clients, name, address, tag, traced=False):
     """One run of every phase 29 client's first P30_REQS exact requests
-    against ``address`` (no profiler: the rates are what (d) compares).
-    Returns (requests/s, launches, routes)."""
+    against ``address``, without a profiler (the rates are what (d)
+    compares) unless ``traced``. Returns (requests/s, launches, routes),
+    and with ``traced`` the ``dist_topk`` launches the device trace saw, by
+    route, and the held programs' runs (``aot.ROUTES``)."""
     import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_rapids_ml_tpu_torch.serve import aot
 
     torch.cuda.synchronize()
     kernels.reset_launches()
-    t0 = time.perf_counter()
-    res = clients.all("run", name, address, "p30-exact", KNN_K, P30_REQS)
-    wall = time.perf_counter() - t0
+    aot.reset_routes()
+    with (profile(activities=[ProfilerActivity.CUDA]) if traced
+          else contextlib.nullcontext()) as prof:
+        if traced:
+            time.sleep(TRACE_MARGIN_S)
+        t0 = time.perf_counter()
+        res = clients.all("run", name, address, "p30-exact", KNN_K, P30_REQS)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if traced:
+            time.sleep(TRACE_MARGIN_S)
     n = P29_PROCS * P30_REQS
     lat = np.sort(np.concatenate([r["lat"] for r in res])) * 1e3
     print(f"phase 30 {tag}: {n} requests from {P29_PROCS} processes in {wall:.3f} s = "
           f"{n / wall:.1f} requests/s; p50 {float(np.percentile(lat, 50)):.3f} ms, p99 "
           f"{float(np.percentile(lat, 99)):.3f} ms (host clock in the clients)", flush=True)
+    if traced:
+        _, by_name, _ = device_time(torch, prof)
+        return (n / wall, dict(kernels.LAUNCHES), dict(kernels.ROUTES),
+                {route: traced_launches(by_name, kernel) for route, kernel in TOPK_TRACE.items()},
+                dict(aot.ROUTES))
     return n / wall, dict(kernels.LAUNCHES), dict(kernels.ROUTES)
 
 
@@ -7081,10 +7298,12 @@ def phase_telemetry(torch, kernels, config):
             with served._models_lock:
                 served._models["p30-exact"] = daemon_mod._ServedModel.from_model(
                     "knn", nn, buckets=served._buckets)
-            with DataPlaneClient(*served.address) as c:
+            with DataPlaneClient(*served.address) as c, dumpable_graphs(torch):
                 ack = c.warmup("p30-exact", n_cols=KNN_D, k=KNN_K)
-            check(ack["compiled"] == len(served._buckets),
+            check(ack["compiled"] == len(served._buckets) and ack["aot"] is True,
                   f"phase 30b warmup: {ack}")
+            nodes = [graph_kernels(p)
+                     for p in served._lookup_model("p30-exact").aot.programs.values()]
             clients.collect("ready")
             journal.ring_arm(int(config.get("telemetry_trace_buffer")))
             ring_held = True
@@ -7109,9 +7328,11 @@ def phase_telemetry(torch, kernels, config):
             # -- b. the measured traffic -----------------------------------------
             led0 = xprof.snapshot().get("dist_topk", {}).get("calls", 0)
             rates = {"ring": [], "off": [], "file": []}
-            r, lt, rt = p30_traffic(torch, kernels, clients, "ring", served.address,
-                                    "exact kNN, ring armed")
-            rates["ring"].append(r)
+            # Traced, for the launches the device ran (a replay's are credited
+            # on the host): its rate is not one (d) compares.
+            _, lt, rt, tr, held = p30_traffic(torch, kernels, clients, "ring", served.address,
+                                              "exact kNN, ring armed (traced, rate not compared)",
+                                              traced=True)
             n_req = P29_PROCS * P30_REQS
             deadline = time.monotonic() + 10.0
             while True:  # a request counts once its answer is on the wire
@@ -7122,11 +7343,20 @@ def phase_telemetry(torch, kernels, config):
                 time.sleep(0.01)
             batches = p29_metric(snap, "srml_scheduler_batches_total", op="kneighbors") - warm_b
             led = xprof.snapshot()["dist_topk"]["calls"] - led0
-            check(led == lt["dist_topk"] == batches == rt["dist_topk/wgmma"] and 0 < batches,
+            # What ran: each graph's kernel nodes a replay (the device trace
+            # a lower bound of it).
+            launched = held["aot/graph"]
+            check(all(n == {"wgmma": 1, "ffma": 0} for n in nodes)
+                  and led == lt["dist_topk"] == batches == rt["dist_topk/wgmma"] == launched
+                  and 0 < tr["wgmma"] <= launched and tr["ffma"] == 0 and 0 < batches,
                   f"phase 30b kernel ledger: dist_topk calls {led} == LAUNCHES "
                   f"{lt['dist_topk']} == srml_scheduler_batches_total{{op=kneighbors}} "
-                  f"{int(batches)}, all wgmma, for {n_req} requests")
-            out["dist_topk"] = lt["dist_topk"]
+                  f"{int(batches)} == {launched} replays of graphs of one "
+                  f"{TOPK_TRACE['wgmma']} node and no FFMA one each "
+                  f"{[(n['wgmma'], n['ffma']) for n in nodes]} (cudaGraphDebugDotPrint), for "
+                  f"{n_req} requests; the device trace saw {tr['wgmma']} of them (FFMA "
+                  f"{tr['ffma']})")
+            out["dist_topk"] = launched
             with DataPlaneClient(*served.address) as c:
                 pull = c.telemetry_pull()
                 traced = c.trace_pull(0)

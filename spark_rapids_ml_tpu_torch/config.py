@@ -3,7 +3,7 @@
 The counterpart of ``spark_rapids_ml_tpu/config.py``, cut to the keys the
 port reads (PCA, KMeans, LinearRegression, LogisticRegression,
 NearestNeighbors and ApproximateNearestNeighbors, the random forests, the
-data-plane daemon's watermarks and serving scheduler, the Spark fit
+data-plane daemon's watermarks, serving scheduler and AOT warmup, the Spark fit
 policies, the multi-daemon reduce path, the native bridge, the default
 mesh's axes, the metrics switch, the observability plane's journal,
 kernel ledger, SLO and flight-recorder keys, the daemon's state directory,
@@ -140,6 +140,11 @@ _DEFAULTS: Dict[str, Any] = {
     # logged and never fails the registration.
     "serve_warmup_on_register": _env("SERVE_WARMUP_ON_REGISTER", "false").lower()
     not in ("0", "false", "off"),
+    # AOT at registration (serve/aot.py): a warmup holds every reachable
+    # bucket's serving program on the served instance (a CUDA graph on the
+    # card, an eager program on the CPU); models without a plan, a failed
+    # capture, or this key off fall back to the trace warmup.
+    "serve_aot": _env("SERVE_AOT", "true").lower() not in ("0", "false", "off"),
     # Admission bound: queued requests per served model; overflow, and a
     # request whose deadline the backlog would miss, is shed with `busy`.
     "serve_queue_depth": int(_env("SERVE_QUEUE_DEPTH", "256")),

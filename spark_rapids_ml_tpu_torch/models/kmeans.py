@@ -70,6 +70,7 @@ from spark_rapids_ml_tpu_torch.parallel.mesh import default_mesh
 from spark_rapids_ml_tpu_torch.parallel.sharding import (
     as_tensor,
     lockstep_batches,
+    predictor_key,
     require_single_process,
     resolve_device,
     to_device,
@@ -536,10 +537,9 @@ class KMeansModel(Model, _KMeansParams, MLWritable, MLReadable):
         """Nearest centre per row (int32): ``sq_euclidean`` in the compute
         and accumulator dtypes with the centres resident on the device, and
         a first-index argmin. Cached by device and dtypes."""
-        dev = resolve_device(self._device)
-        cd, ad = config.compute_dtype(dev), config.accum_dtype()
-        key = (str(dev), cd, ad)
+        key = predictor_key(self._device)
         if key not in self._predict_cache:
+            dev, cd, ad = resolve_device(self._device), key[1], key[2]
             centers_dev = as_tensor(self.centers).to(dev).to(cd)
 
             def predict(x: torch.Tensor) -> torch.Tensor:
@@ -548,6 +548,17 @@ class KMeansModel(Model, _KMeansParams, MLWritable, MLReadable):
 
             self._predict_cache[key] = predict
         return self._predict_cache[key]
+
+    def _serve_aot_plan(self, n_rows, n_cols, dtype="float32", k=None):
+        """AOT-at-registration plan (``serve/aot.py``): the nearest-centre
+        predictor over one served bucket of ``n_rows`` wire-dtype rows. A
+        wrong width raises."""
+        if self.centers is None:
+            return None
+        from spark_rapids_ml_tpu_torch.serve import aot
+
+        return aot.transform_plan(self, n_rows, n_cols, dtype, np.asarray(self.centers).shape[1],
+                                  self._predictor(), lambda outs, n: {"prediction": outs[0]})
 
     def predict(self, x):
         """Nearest centre per row: numpy int32 for a host array, a tensor

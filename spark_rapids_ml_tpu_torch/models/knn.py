@@ -267,6 +267,10 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
         self._device = device
         self._mesh = mesh
         self._index_cache: dict = {}
+        # Bumped whenever the resident index is dropped or replaced: a held
+        # serving program (serve/aot.py) captured over an older index is
+        # stale and is never run again.
+        self._index_epoch = 0
         self._n_global: Optional[int] = None
 
     def _model_data(self):
@@ -281,6 +285,7 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
         self._device = getattr(source, "_device", None)
         self._mesh = getattr(source, "_mesh", None)
         self._index_cache = {}
+        self._index_epoch = 0
 
     def _ensure_index(self, dev, cd, mesh=None):
         """(db, row ids, mask, r2) on ``dev``, the db in the compute dtype
@@ -292,13 +297,12 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
         the indexed data (the normalized, augmented copy), so the other
         three share one copy; the cache is keyed by that representation,
         the device, the dtype, the world and the mesh's shape."""
-        rep = "cosine" if self.getMetric() == "cosine" else "raw"
-        world = None if mesh is None else (mesh.world, tuple(mesh.shape.values()))
-        key = (rep, str(dev), cd, world)
+        key = self._index_key(dev, cd, mesh)
         if key not in self._index_cache:
             self._index_cache.clear()  # one resident copy at a time
+            self._index_epoch += 1
             db = self.database
-            if rep == "cosine":
+            if key[0] == "cosine":
                 db = _normalized_rows(db, zero_slot=0)
             n = db.shape[0]
             lo, n_global = 0, n
@@ -312,6 +316,86 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
             self._n_global = n_global
         return self._index_cache[key]
 
+    def _index_key(self, dev, cd, mesh=None):
+        """The resident index's cache key: its representation, device,
+        dtype, world and mesh shape."""
+        rep = "cosine" if self.getMetric() == "cosine" else "raw"
+        world = None if mesh is None else (mesh.world, tuple(mesh.shape.values()))
+        return rep, str(dev), cd, world
+
+    def _query_setup(self, k: Optional[int]):
+        """(k, mesh, device, metric, compute dtype, accumulator dtype, index
+        entry) of a query, the index made resident; raises on a k out of
+        range."""
+        if self.database is None:
+            raise RuntimeError("model has no database (unfitted?)")
+        k = self.getK() if k is None else int(k)
+        mesh = self._mesh or default_mesh()
+        dev = resolve_device(self._device, mesh)
+        cd, ad = config.compute_dtype(dev), config.accum_dtype()
+        entry = self._ensure_index(dev, cd, mesh)
+        n = self._n_global
+        if not 0 < k <= n:
+            raise ValueError(f"k = {k} out of range (0, numRows = {n}]")
+        return k, mesh, dev, self.getMetric(), cd, ad, entry
+
+    @staticmethod
+    def _query_body(entry, qp: torch.Tensor, k: int, metric: str, ad):
+        """The device body of a query: (d2, ids) of the padded queries ``qp``
+        (compute dtype, on the index's device) against this rank's rows, an
+        empty pool for a rank without rows."""
+        db, row_ids, mask, r2 = entry
+        if db.shape[0]:
+            return exact_knn(db, row_ids, mask, qp, k,
+                             "ip" if metric == "inner_product" else "l2", ad, r2)
+        return (torch.empty((qp.shape[0], 0), dtype=ad, device=db.device),
+                torch.empty((qp.shape[0], 0), dtype=torch.int32, device=db.device))
+
+    @staticmethod
+    def _serve_dispatch_rows(n: int) -> int:
+        """The query rows a kneighbors of ``n`` rows dispatches
+        (``_pad_queries``)."""
+        return bucket_rows(n, 64)
+
+    def _serve_aot_plan(self, n_rows, n_cols, dtype="float32", k=None):
+        """AOT-at-registration plan (``serve/aot.py``): the exact query of one
+        served bucket over the resident index, ``dist_topk`` on the card.
+        The program's rows are what kneighbors pads the bucket to
+        (:meth:`_serve_dispatch_rows`, the JAX plan's ``bucket_rows(n, 64)``),
+        not the raw bucket; ``k`` defaults to the fitted k. Making the index
+        resident here front-loads its upload into the registration, as the
+        JAX plan does. The program holds no reference to the index it was
+        captured over: a dropped or replaced index (another representation,
+        dtype or device) bumps ``_index_epoch``, which makes it stale. A
+        query across ranks merges over a collective, which a graph cannot
+        hold: no plan then. A wrong width raises."""
+        if self.database is None:
+            return None
+        from spark_rapids_ml_tpu_torch.serve import aot
+
+        aot.check_width(n_cols, self.database.shape[1])
+        k, mesh, dev, metric, cd, ad, _ = self._query_setup(k)
+        if mesh.collective:
+            return None
+        key, epoch = self._index_key(dev, cd, mesh), self._index_epoch
+
+        def valid() -> bool:
+            d = resolve_device(self._device, mesh)
+            now = config.compute_dtype(d)
+            return (self._index_epoch == epoch and config.accum_dtype() == ad
+                    and self._index_key(d, now, mesh) == key and key in self._index_cache)
+
+        def body(x: torch.Tensor):
+            return self._query_body(self._index_cache[key], _pad_queries(x.to(cd)).contiguous(),
+                                    k, metric, ad)
+
+        def finish(outs, q: int):
+            return _finish(metric, outs[0][:q], outs[1][:q].astype(np.int64))
+
+        prep = (lambda x: _normalized_rows(x, zero_slot=1)) if metric == "cosine" else None
+        return [aot.Plan(self._serve_dispatch_rows(int(n_rows)), int(n_cols), np.dtype(dtype),
+                         dev, body=body, finish=finish, valid=valid, prep=prep)]
+
     def kneighbors(self, queries, k: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
         """(distances (q, k), indices (q, k) int64) under ``metric``:
         euclidean (default) / sqeuclidean / cosine ascending, or
@@ -320,29 +404,13 @@ class NearestNeighborsModel(Model, _NNParams, MLWritable, MLReadable):
         Across ranks every rank passes the SAME queries and gets the same
         answer; the indices are global row positions (the ranks' rows in
         rank order), and k may reach the global row count."""
-        if self.database is None:
-            raise RuntimeError("model has no database (unfitted?)")
-        k = self.getK() if k is None else k
-        mesh = self._mesh or default_mesh()
-        dev = resolve_device(self._device, mesh)
-        metric = self.getMetric()
-        cd, ad = config.compute_dtype(dev), config.accum_dtype()
-        db, row_ids, mask, r2 = self._ensure_index(dev, cd, mesh)
-        n = self._n_global
-        if not 0 < k <= n:
-            raise ValueError(f"k = {k} out of range (0, numRows = {n}]")
+        k, mesh, dev, metric, cd, ad, entry = self._query_setup(k)
         if metric == "cosine":
             queries = _normalized_rows(queries, zero_slot=1)
         qt = to_device(queries, dev, cd)
         q = qt.shape[0]
         with trace_span("knn query"):
-            qp = _pad_queries(qt).contiguous()
-            if db.shape[0]:
-                d2, idx = exact_knn(db, row_ids, mask, qp, k,
-                                    "ip" if metric == "inner_product" else "l2", ad, r2)
-            else:  # a rank without rows brings an empty pool
-                d2 = torch.empty((qp.shape[0], 0), dtype=ad, device=dev)
-                idx = torch.empty((qp.shape[0], 0), dtype=torch.int32, device=dev)
+            d2, idx = self._query_body(entry, _pad_queries(qt).contiguous(), k, metric, ad)
             if mesh.collective:
                 d2, idx = mr.reduce_topk(d2, idx, k, DATA_AXIS, mesh=mesh)
             d2, idx = d2[:q].cpu().numpy(), idx[:q].cpu().numpy().astype(np.int64)

@@ -56,7 +56,12 @@ from spark_rapids_ml_tpu_torch.ops.linalg import solve_spd
 from spark_rapids_ml_tpu_torch.ops.gram import reduce_stats
 from spark_rapids_ml_tpu_torch.parallel.distributed import row_counts
 from spark_rapids_ml_tpu_torch.parallel.mesh import default_mesh
-from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device, to_device
+from spark_rapids_ml_tpu_torch.parallel.sharding import (
+    as_tensor,
+    predictor_key,
+    resolve_device,
+    to_device,
+)
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
 
 #: (XᵀX, Xᵀy, Σx, Σy, Σy², n) in the accumulator dtype.
@@ -409,10 +414,9 @@ class LinearRegressionModel(Model, _LinearRegressionParams, MLWritable, MLReadab
         operands rounded to the compute dtype and multiplied in the
         accumulator dtype (the JAX predictor's ``preferred_element_type``).
         Cached by device and dtypes."""
-        dev = resolve_device(self._device)
-        cd, ad = config.compute_dtype(dev), config.accum_dtype()
-        key = (str(dev), cd, ad)
+        key = predictor_key(self._device)
         if key not in self._predict_cache:
+            dev, cd, ad = resolve_device(self._device), key[1], key[2]
             w_dev = as_tensor(self.coefficients).to(dev).to(cd).to(ad)
             b = float(self.intercept)
 
@@ -421,6 +425,19 @@ class LinearRegressionModel(Model, _LinearRegressionParams, MLWritable, MLReadab
 
             self._predict_cache[key] = predict
         return self._predict_cache[key]
+
+    def _serve_aot_plan(self, n_rows, n_cols, dtype="float32", k=None):
+        """AOT-at-registration plan (``serve/aot.py``): the predictor over
+        one served bucket of ``n_rows`` wire-dtype rows, float64 out as
+        :meth:`transform_matrix` answers. A wrong width raises."""
+        if self.coefficients is None:
+            return None
+        from spark_rapids_ml_tpu_torch.serve import aot
+
+        return aot.transform_plan(self, n_rows, n_cols, dtype,
+                                  np.asarray(self.coefficients).reshape(-1).shape[0],
+                                  self._predictor(),
+                                  lambda outs, n: {"prediction": outs[0].astype(np.float64)})
 
     def transform_matrix(self, x) -> dict:
         """Role-keyed device transform. A tensor in gives a tensor on the

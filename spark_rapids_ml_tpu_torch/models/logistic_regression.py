@@ -50,6 +50,7 @@ without a CUDA device they raise rather than run on the CPU.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -80,6 +81,7 @@ from spark_rapids_ml_tpu_torch.parallel.mesh import default_mesh
 from spark_rapids_ml_tpu_torch.parallel.sharding import (
     as_tensor,
     lockstep_labeled_batches,
+    predictor_key,
     require_single_process,
     resolve_device,
     to_device,
@@ -678,6 +680,10 @@ class LogisticRegression(Estimator, _LogisticRegressionParams, MLWritable, MLRea
         return model
 
 
+#: The served output roles, in the order of ``LogisticRegressionModel._scores``.
+_SCORE_ROLES = ("rawPrediction", "probability", "prediction")
+
+
 def _proba(raw: torch.Tensor, binary: bool) -> torch.Tensor:
     """Spark's raw2probability: binary → sigmoid of the margin raw[:, 1]
     (raw = [−z, z], so a softmax would give sigmoid(2z)), overflow-safe;
@@ -774,10 +780,9 @@ class LogisticRegressionModel(Model, _LogisticRegressionParams, MLWritable, MLRe
         rounded to the compute dtype, multiplied in the accumulator dtype
         (the JAX scorer's ``preferred_element_type``), plus b. Binary:
         ``[-z, z]``. Cached by device and dtypes."""
-        dev = resolve_device(self._device)
-        cd, ad = config.compute_dtype(dev), config.accum_dtype()
-        key = (str(dev), cd, ad)
+        key = predictor_key(self._device)
         if key not in self._raw_cache:
+            dev, cd, ad = resolve_device(self._device), key[1], key[2]
             w_dev = as_tensor(np.atleast_2d(self.coefficients)).to(dev).to(cd).to(ad)  # (C|1, d)
             b_dev = as_tensor(np.atleast_1d(self.intercept)).to(dev, ad)
             binary = self._binary()
@@ -789,6 +794,27 @@ class LogisticRegressionModel(Model, _LogisticRegressionParams, MLWritable, MLRe
             self._raw_cache[key] = raw
         return self._raw_cache[key]
 
+    def _scores(self, raw_scorer, x: torch.Tensor):
+        """(rawPrediction, probability, prediction) of rows x on the device:
+        margins, then probability and prediction in float64."""
+        raw = raw_scorer(x).double()
+        proba = _proba(raw, self._binary())
+        return raw, proba, torch.argmax(proba, dim=1).double()
+
+    def _serve_aot_plan(self, n_rows, n_cols, dtype="float32", k=None):
+        """AOT-at-registration plan (``serve/aot.py``): the scorer behind
+        :meth:`transform_matrix` over one served bucket of ``n_rows``
+        wire-dtype rows, its three output roles the program's static
+        outputs. A wrong width raises."""
+        if self.coefficients is None:
+            return None
+        from spark_rapids_ml_tpu_torch.serve import aot
+
+        return aot.transform_plan(self, n_rows, n_cols, dtype,
+                                  np.atleast_2d(self.coefficients).shape[1],
+                                  functools.partial(self._scores, self._raw_scorer()),
+                                  lambda outs, n: dict(zip(_SCORE_ROLES, outs)))
+
     def transform_matrix(self, x) -> dict:
         """Role-keyed transform of a bare matrix: margins on the device,
         then probability and prediction in float64. A tensor in gives
@@ -797,13 +823,7 @@ class LogisticRegressionModel(Model, _LogisticRegressionParams, MLWritable, MLRe
         if self.coefficients is None:
             raise RuntimeError("model has no coefficients (unfitted?)")
         with trace_span("logreg transform"):
-            raw = self._raw_scorer()(as_tensor(x)).double()
-            proba = _proba(raw, self._binary())
-            out = {
-                "rawPrediction": raw,
-                "probability": proba,
-                "prediction": torch.argmax(proba, dim=1).double(),
-            }
+            out = dict(zip(_SCORE_ROLES, self._scores(self._raw_scorer(), as_tensor(x))))
             if isinstance(x, torch.Tensor):
                 return out
             return {k: v.cpu().numpy() for k, v in out.items()}

@@ -74,6 +74,7 @@ from spark_rapids_ml_tpu_torch.parallel.mesh import MODEL_AXIS, default_mesh
 from spark_rapids_ml_tpu_torch.parallel.sharding import (
     as_tensor,
     lockstep_batches,
+    predictor_key,
     resolve_device,
     shard_rows_2d,
     to_device,
@@ -513,10 +514,9 @@ class PCAModel(Model, _PCAParams, MLWritable, MLReadable):
         the JAX package's ``preferred_element_type=accum``. (A bf16 × bf16
         ``torch.matmul`` would round its OUTPUT to bf16.) Cached by device
         and dtypes, so a config change rebuilds it."""
-        dev = resolve_device(self._device)
-        cd, ad = config.compute_dtype(dev), config.accum_dtype()
-        key = (str(dev), cd, ad)
+        key = predictor_key(self._device)
         if key not in self._project_cache:
+            dev, cd, ad = resolve_device(self._device), key[1], key[2]
             pc_dev = as_tensor(self.pc).to(dev).to(cd).to(ad)
 
             def project(x: torch.Tensor) -> torch.Tensor:
@@ -524,6 +524,20 @@ class PCAModel(Model, _PCAParams, MLWritable, MLReadable):
 
             self._project_cache[key] = project
         return self._project_cache[key]
+
+    def _serve_aot_plan(self, n_rows, n_cols, dtype="float32", k=None):
+        """AOT-at-registration plan (``serve/aot.py``): the projection of one
+        served bucket, ``n_rows`` rows of the wire dtype. The served
+        transform pads a request to its ladder bucket and the port's
+        projector adds no floor, so each bucket is one program (the JAX
+        plan's 256-row floor folds buckets 64 and 256 into one). A wrong
+        width raises, as in the JAX plan."""
+        if self.pc is None:
+            return None
+        from spark_rapids_ml_tpu_torch.serve import aot
+
+        return aot.transform_plan(self, n_rows, n_cols, dtype, self.pc.shape[0],
+                                  self._projector(), lambda outs, n: {"output": outs[0]})
 
     def transform_matrix(self, x) -> dict:
         """Role-keyed transform of a bare (n, d) matrix — the serving

@@ -50,6 +50,7 @@ from spark_rapids_ml_tpu_torch.ops import histogram as hist_ops
 from spark_rapids_ml_tpu_torch.ops.histogram import LEAF, OPEN
 from spark_rapids_ml_tpu_torch.parallel.sharding import (
     as_tensor,
+    predictor_key,
     require_single_process,
     resolve_device,
     to_device,
@@ -512,11 +513,27 @@ class _ForestModelBase(Model, MLWritable, MLReadable):
     def _predictor(self):
         if self.arrays is None:
             raise RuntimeError("forest model has no trees (unfitted?)")
-        dev = resolve_device(self._device)
-        key = (str(dev), config.accum_dtype())
+        key = predictor_key(self._device)
         if key not in self._predict_cache:
-            self._predict_cache[key] = _forest_predictor(self.arrays, self.numClasses, dev)
+            self._predict_cache[key] = _forest_predictor(self.arrays, self.numClasses,
+                                                         resolve_device(self._device))
         return self._predict_cache[key]
+
+    def _serve_aot_plan(self, n_rows, n_cols, dtype="float32", k=None):
+        """AOT-at-registration plan (``serve/aot.py``): the binning and the
+        descent of every tree over one served bucket of ``n_rows``
+        wire-dtype rows, float64 predictions out as :meth:`transform_matrix`
+        answers; the node tables stay resident on the device for the
+        program's life (the predictor holds them). A wrong width raises."""
+        if self.arrays is None:
+            return None
+        from spark_rapids_ml_tpu_torch.serve import aot
+
+        predict = self._predictor()
+        return aot.transform_plan(self, n_rows, n_cols, dtype,
+                                  np.asarray(self.arrays["bin_edges"]).shape[0],
+                                  lambda x: predict(x)[0],
+                                  lambda outs, n: {"prediction": np.asarray(outs[0], np.float64)})
 
     def _run(self, x, which: int):
         """Output ``which`` of the predictor: a tensor in gives a tensor on

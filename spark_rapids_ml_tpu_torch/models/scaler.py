@@ -145,6 +145,17 @@ class StandardScalerModel(Model, _ScalerParams, MLWritable, MLReadable):
         self.std = source.std
         self._device = getattr(source, "_device", None)
 
+    def _serve_aot_plan(self, n_rows, n_cols, dtype="float32", k=None):
+        """AOT-at-registration plan (``serve/aot.py``), the JAX plan's: the
+        transform is host elementwise, so nothing is built and the plan is
+        complete as an empty list (AOT succeeds with no program rather than
+        falling back to the trace warmup). A wrong width still raises."""
+        if self.mean is not None:
+            from spark_rapids_ml_tpu_torch.serve import aot
+
+            aot.check_width(n_cols, np.asarray(self.mean).shape[0])
+        return []
+
     def transform_matrix(self, x) -> dict:
         """Role-keyed transform of a bare matrix, host float64 elementwise
         (bandwidth-trivial beside any model's product), float32 out. A

@@ -58,7 +58,9 @@ kernel or raises — there is no fallback. Each launch adds one to
 so a run can show that it went through the kernels, and records
 the call in the kernel ledger (``utils/xprof.py``) under its kernel's name
 and route, with the call's bound operation and byte counts; a CPU call of
-the plain version records under route ``plain`` (and counts no launch). The
+the plain version records under route ``plain`` (and counts no launch). A
+launch inside a CUDA-graph capture (``serve/aot.py``) counts once for every
+replay of the graph instead (:func:`credit_launches`). The
 plain versions repeat the kernels' arithmetic (f32 products of the input
 values, f32 sums; TF32 is off for the whole package, see ``__init__``;
 ties of the nearest centre to the lowest index; the selections of
@@ -133,6 +135,20 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, ROUTES):
         for name in counts:
             counts[name] = 0
+
+
+def credit_launches(calls, times: int = 1) -> None:
+    """Add ``times`` to the counts of each kernel launch among ``calls`` (the
+    calls a CUDA-graph capture kept, ``utils/xprof.recording``): 1 for every
+    replay of the graph, −1 once to take back the counts the wrappers added
+    while the capture ran, which launched nothing. Plain calls count no
+    launch."""
+    for name, route, *_ in calls:
+        if route == "plain":
+            continue
+        LAUNCHES[name] += times
+        if f"{name}/{route}" in ROUTES:
+            ROUTES[f"{name}/{route}"] += times
 
 
 def _ledger(name: str, route: str, device: torch.device, flops: float, nbytes: float,

@@ -25,6 +25,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from spark_rapids_ml_tpu_torch import config
 from spark_rapids_ml_tpu_torch.parallel import mesh as mesh_mod
 from spark_rapids_ml_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from spark_rapids_ml_tpu_torch.utils.profiling import trace_span
@@ -44,6 +45,15 @@ def resolve_device(device=None, mesh: Optional[Mesh] = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def predictor_key(device=None) -> Tuple[str, torch.dtype, torch.dtype]:
+    """The key a model caches its device function under: the resolved
+    device and the compute and accumulator dtypes, so a config change
+    builds a new one (and makes a held serving program built over the old
+    one stale, ``serve/aot.py``)."""
+    dev = resolve_device(device)
+    return str(dev), config.compute_dtype(dev), config.accum_dtype()
 
 
 def pad_rows(x: np.ndarray, multiple: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -106,9 +106,17 @@ from concurrent connections to one model coalesce into one padded dispatch
 on the bucket ladder, a request larger than the coalescing cap and every
 IVF/ANN ``kneighbors`` run alone, and an admission shed answers ``busy``. A
 solo transform pads to the same ladder, so one bucket is one product shape
-however a request was served. ``warmup`` dispatches a zero batch at every
-reachable bucket (the reference's trace warmup; ``aot`` is always false:
-the port captures no per-bucket program), also at registration with
+however a request was served. ``warmup`` is AOT-first, as in the
+reference (``docs/protocol.md`` "AOT at registration"): with ``serve_aot``
+on and a model that publishes ``_serve_aot_plan``, every reachable bucket's
+serving program is built once and held on the served instance
+(``serve/aot.py``: a CUDA graph on the card, replaying the exact index's
+``dist_topk`` kernel; an eager program on the CPU), the scheduler's shape
+ledger is pre-marked, and a request at a primed shape runs the held
+program; ``model_status`` reports its ``aot`` ledger. A model without a
+plan (the IVF index), a failed capture or ``serve_aot`` off falls back to
+the trace warmup, a zero batch dispatched at every reachable bucket, and
+acks ``aot`` false. Both run at registration too with
 ``serve_warmup_on_register``. ``health`` (load, the scheduler block, the
 mesh epoch) and ``metrics`` (the registry, as JSON or Prometheus text) are
 never shed; every request is counted by op and outcome, with its latency
@@ -194,6 +202,7 @@ from spark_rapids_ml_tpu_torch.ops import histogram as hist_ops
 from spark_rapids_ml_tpu_torch.ops import kernels
 from spark_rapids_ml_tpu_torch.parallel import membership as membership_mod
 from spark_rapids_ml_tpu_torch.parallel.sharding import as_tensor, resolve_device
+from spark_rapids_ml_tpu_torch.serve import aot as aot_mod
 from spark_rapids_ml_tpu_torch.serve import gossip as gossip_mod
 from spark_rapids_ml_tpu_torch.serve import protocol
 from spark_rapids_ml_tpu_torch.serve import scheduler as scheduler_mod
@@ -1479,6 +1488,10 @@ class _ServedModel:
         self.buckets = buckets
         # The fleet's immutable version pin (ensure_model's ``version``).
         self.version: Optional[int] = None
+        # The held programs of the last AOT warm (serve/aot.py), and the
+        # graph pool its buckets share; None until one ran.
+        self.aot: Optional[aot_mod.ProgramSet] = None
+        self._aot_pool: Optional[aot_mod.CapturePool] = None
 
     @classmethod
     def from_model(cls, algo: str, model, clock=time.monotonic, id_map=None,
@@ -1498,7 +1511,74 @@ class _ServedModel:
         obj.ttl_scale = 8.0
         obj.buckets = buckets
         obj.version = None
+        obj.aot = None
+        obj._aot_pool = None
         return obj
+
+    def aot_warm(self, n_cols: int, buckets, k, dtype: str = "float32"
+                 ) -> Optional[Dict[str, Any]]:
+        """AOT of the serve bucket ladder (the reference's ``aot_warm``):
+        every reachable bucket's serving program, from the model's
+        ``_serve_aot_plan``, built and held on this instance
+        (``serve/aot.py``). Buckets whose padded shapes coincide share one
+        program; programs of an earlier warm that are still valid are kept.
+        On the card each program is a CUDA graph, captured under
+        ``_DEVICE_LOCK``: a capture must see no other thread's launch. The
+        kernel libraries are loaded at ``start()``, so no build runs under
+        the lock. Returns the ack's ``{"buckets", "compiled"}`` (compiled =
+        the programs THIS call built), or None when the model publishes no
+        plan (the caller then runs the trace warmup). Published under the
+        model lock; :meth:`aot_status` reads without it."""
+        plan_fn = getattr(self.model, "_serve_aot_plan", None)
+        if plan_fn is None:
+            return None
+        buckets = [int(b) for b in buckets]
+        with self.lock:
+            programs = {} if self.aot is None else dict(self.aot.programs)
+            compiled = 0
+            for bucket in buckets:
+                with _DEVICE_LOCK:
+                    plans = plan_fn(bucket, int(n_cols), dtype=dtype, k=k)
+                    if plans is None:
+                        return None
+                    for plan in plans:
+                        key = aot_mod.ProgramSet.key(plan.rows, plan.width, plan.dtype, k)
+                        held = programs.get(key)
+                        if held is not None and held.usable():
+                            continue
+                        if held is not None:
+                            held.release()
+                        if plan.device.type == "cuda" and self._aot_pool is None:
+                            self._aot_pool = aot_mod.CapturePool(plan.device)
+                        programs[key] = aot_mod.BucketProgram(plan, self._aot_pool)
+                        compiled += 1
+            self.aot = aot_mod.ProgramSet(
+                buckets, compiled, programs,
+                getattr(self.model, "_serve_dispatch_rows", int))
+        return {"buckets": buckets, "compiled": compiled}
+
+    def aot_status(self) -> Optional[Dict[str, Any]]:
+        """The compile ledger: primed buckets, programs built, and the
+        serve-time hits and misses since this registration's warm (a miss:
+        a dispatch at a shape nothing primed, or at a program gone stale).
+        None when AOT never ran. One read of the published reference, with
+        no lock: a scrape must not wait behind an in-flight dispatch."""
+        held = self.aot
+        return None if held is None else held.status()
+
+    def release_aot(self) -> None:
+        """Free the held programs (the model was dropped)."""
+        with self.lock:
+            held, self.aot = self.aot, None
+            if held is not None:
+                for prog in held.programs.values():
+                    prog.release()
+
+    def _held(self, x, k=None):
+        """The held program's answer for ``x``, or None: no AOT warm ran, or
+        a miss (the caller runs the eager path). Under ``self.lock``."""
+        held = self.aot
+        return None if held is None else held.run(np.asarray(x), k)
 
     def transform(self, x) -> Dict[str, Any]:
         if self.algo in ("rf_classifier", "rf_regressor"):
@@ -1516,7 +1596,9 @@ class _ServedModel:
         with self.lock:
             self.touched = self._clock()
             with _DEVICE_LOCK:
-                outs = self.model.transform_matrix(x)
+                outs = self._held(x)
+                if outs is None:
+                    outs = self.model.transform_matrix(x)
         if rows != n:
             outs = {name: v[:n] for name, v in outs.items()}
         return outs
@@ -1529,7 +1611,8 @@ class _ServedModel:
             if not hasattr(self.model, "kneighbors"):
                 raise ValueError(f"model algo {self.algo!r} does not serve kneighbors")
             with _DEVICE_LOCK, trace_span("daemon kneighbors"):
-                dists, idx = self.model.kneighbors(queries, k)
+                res = self._held(queries, _resolve_k(self, k))
+                dists, idx = res if res is not None else self.model.kneighbors(queries, k)
             if self.id_map is not None:
                 idx = np.where(idx >= 0, self.id_map[np.maximum(idx, 0)], -1)
             return dists, idx
@@ -2404,8 +2487,11 @@ class DataPlaneDaemon:
             self._op_warmup(conn, req)
         elif op == "model_status":
             m = self._lookup_model(str(req.get("model")))
+            # ``aot``: the registration's compile ledger, null when AOT never
+            # ran for it.
             protocol.send_json(conn, {"ok": True, "exists": m is not None,
-                                      "algo": None if m is None else m.algo})
+                                      "algo": None if m is None else m.algo,
+                                      "aot": None if m is None else m.aot_status()})
         elif op == "drop_model":
             # The snapshot first, whether or not the model is live: an
             # orphan snapshot would resurrect the released index.
@@ -2413,6 +2499,8 @@ class DataPlaneDaemon:
             self._discard_model_state(model_name)
             with self._models_lock:
                 m = self._models.pop(model_name, None)
+            if m is not None:
+                m.release_aot()
             protocol.send_json(conn, {"ok": True, "dropped": m is not None})
         elif op == "gossip_push":
             self._op_gossip_push(conn, req)
@@ -3087,10 +3175,26 @@ class DataPlaneDaemon:
 
     def _warm_model(self, name: str, served, n_cols: int, kind: str, k: Optional[int],
                     dtype: str = "float32") -> Dict[str, Any]:
-        """One warm pass over the reachable bucket ladder: the reference's
-        trace warmup, a zero batch dispatched at every bucket (its mode when
-        a model publishes no AOT plan). The port captures no per-bucket
-        program, so ``aot`` is always false."""
+        """One warm pass over the reachable bucket ladder, AOT-first, as the
+        reference's: with ``serve_aot`` on and a model that publishes a
+        plan, every bucket's serving program is built and held
+        (:meth:`_ServedModel.aot_warm`) and the scheduler's shape ledger
+        pre-marked, so the first batch at a warmed bucket reads as a hit. A
+        model without a plan, a failed capture (logged) or ``serve_aot`` off
+        runs the trace warmup, a zero batch dispatched at every bucket. The
+        ack's ``aot`` says which ran."""
+        buckets = self._scheduler.reachable_buckets()
+        if bool(config.peek("serve_aot")):
+            try:
+                info = served.aot_warm(n_cols, buckets, k, dtype)
+            except Exception as e:
+                logger.warning("AOT warmup for %r failed (falling back to the trace warmup): "
+                               "%s", name, e)
+                info = None
+            if info is not None:
+                self._scheduler.premark_shapes(
+                    served, [(kind, k, dtype, int(n_cols), int(b)) for b in info["buckets"]])
+                return {**info, "aot": True}
         out = self._scheduler.warmup(name, served, int(n_cols), kind=kind, k=k, dtype=dtype)
         return {**out, "aot": False}
 

@@ -30,6 +30,12 @@ packages' snapshots. What the fields count in the port:
   and no sync.
 * **peak / argument / output bytes** stay None: the port has no
   ahead-of-time memory analysis.
+* **CUDA graphs** (``serve/aot.py``): a call made while a graph captures
+  is kept (:func:`recording`), not recorded, and :func:`credit` records it
+  once for every replay of the graph; with ``device_timing`` a replay is
+  timed as a whole and booked under the graph's own name
+  (``serve/aot.REPLAY``), never to a kernel: its seconds include the
+  graph's casts and padding.
 
 Recording follows the ``metrics`` switch, as in the JAX package: with
 ``metrics`` off a ledgered call is a passthrough (one config read). The
@@ -48,7 +54,8 @@ import torch
 
 from spark_rapids_ml_tpu_torch.utils import metrics as metrics_mod
 
-__all__ = ["kernel", "annotate", "signature", "snapshot", "reset", "format_table", "LEDGER"]
+__all__ = ["kernel", "annotate", "recording", "credit", "signature", "snapshot", "reset",
+           "format_table", "LEDGER"]
 
 _M_CALLS = metrics_mod.counter(
     "srml_xla_calls_total",
@@ -88,7 +95,9 @@ _M_PCACHE_HITS = metrics_mod.counter(
     "Kernel libraries found already built on disk instead of compiled",
 )
 
-_tls = threading.local()  # .current: (entry, sig) of the innermost call
+# .current: (entry, sig) of the innermost call; .capture: the calls kept by
+# the capture in progress on this thread (:func:`recording`).
+_tls = threading.local()
 
 
 def _enabled() -> bool:
@@ -248,6 +257,15 @@ def kernel(name: str, route: str, sig_args: Tuple[Any, ...], flops: float, nbyte
     (``note_compile``), and with ``device_timing`` the seconds between CUDA
     events on ``device`` (a ``torch.device``), the second synchronised; host
     seconds for a CPU call. A passthrough with ``metrics`` off."""
+    captured = getattr(_tls, "capture", None)
+    if captured is not None:
+        # Inside a CUDA-graph capture nothing runs: the call is kept for
+        # :func:`credit` on every replay, with no event and no sync (both
+        # are illegal while a stream captures).
+        captured.append((name, route, (route, signature(*sig_args)), float(flops),
+                         float(nbytes)))
+        yield
+        return
     if not _enabled():
         yield
         return
@@ -294,6 +312,50 @@ def kernel(name: str, route: str, sig_args: Tuple[Any, ...], flops: float, nbyte
         _M_EXEC_SECONDS.observe(dt_exec, fn=name)
     _M_FLOPS.inc(float(flops), fn=name)
     _M_BYTES.inc(float(nbytes), fn=name)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[list]:
+    """Keep, instead of recording, the kernel calls this thread makes inside
+    the block: a CUDA-graph capture (``serve/aot.py``), whose launches run
+    only when the graph replays. Yields the list of kept calls, ``(name,
+    route, signature, flops, bytes)`` each, for :func:`credit`."""
+    calls: list = []
+    prev = getattr(_tls, "capture", None)
+    _tls.capture = calls
+    try:
+        yield calls
+    finally:
+        _tls.capture = prev
+
+
+def credit(calls, seconds: Optional[float] = None) -> None:
+    """Record the kept ``calls`` of one replay as :func:`kernel` records a
+    call: one call each, its bound counts, a new signature a cache miss.
+    ``seconds``: device seconds (``device_timing``) booked to each call;
+    ``serve/aot`` passes them only for the graph's own record, since a
+    graph's time cannot be split between its kernels. A no-op with
+    ``metrics`` off."""
+    if not _enabled():
+        return
+    for name, route, sig, flops, nbytes in calls:
+        entry = LEDGER.entry(name)
+        rec, new = entry.record(sig, route)
+        if new:
+            _M_CACHE_MISSES.inc(fn=name)
+        timed = seconds is not None
+        with entry.lock:
+            if new:
+                rec["flops"], rec["bytes_accessed"] = flops, nbytes
+            rec["calls"] += 1
+            if timed:
+                rec["execute_calls"] += 1
+                rec["execute_s"] += float(seconds)
+        _M_CALLS.inc(fn=name)
+        if timed:
+            _M_EXEC_SECONDS.observe(float(seconds), fn=name)
+        _M_FLOPS.inc(flops, fn=name)
+        _M_BYTES.inc(nbytes, fn=name)
 
 
 def note_compile(seconds: float) -> None:

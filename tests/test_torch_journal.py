@@ -239,7 +239,7 @@ def test_the_port_reads_its_own_env_names():
             "'device_timing', 'telemetry_eval_interval_s', 'incident_on_fatal', "
             "'daemon_state_dir', 'gossip_interval_s', 'serve_version_strict', "
             "'fleet_seed_addresses', 'gossip_fanout', 'fleet_vnodes', 'fleet_drain_timeout_s', "
-            "'autoscale_high_watermark', 'autoscale_max_replicas')]"
+            "'autoscale_high_watermark', 'autoscale_max_replicas', 'serve_aot')]"
             " + [__import__('spark_rapids_ml_tpu_torch.spark.daemon_session', fromlist=['x'])"
             ".fleet_seeds()]))")
     # The durable daemon's and the fleet's keys too: the JAX package's
@@ -255,14 +255,16 @@ def test_the_port_reads_its_own_env_names():
                SRML_SERVE_VERSION_STRICT="0", SRML_FLEET_SEED_ADDRESSES="127.0.0.1:1",
                SRML_TORCH_GOSSIP_FANOUT="3", SRML_TORCH_FLEET_VNODES="16",
                SRML_FLEET_DRAIN_TIMEOUT_S="5", SRML_AUTOSCALE_HIGH_WATERMARK="2",
-               SRML_AUTOSCALE_MAX_REPLICAS="2", SRML_TORCH_AUTOSCALE_MAX_REPLICAS="5")
+               SRML_AUTOSCALE_MAX_REPLICAS="2", SRML_TORCH_AUTOSCALE_MAX_REPLICAS="5",
+               SRML_SERVE_AOT="0")
     for k in ("SRML_TORCH_RUN_JOURNAL", "SRML_TORCH_SLO_OBJECTIVES", "SRML_TORCH_DEVICE_TIMING",
               "SRML_TORCH_DAEMON_STATE_DIR", "SRML_TORCH_GOSSIP_INTERVAL_S",
               "SRML_TORCH_SERVE_VERSION_STRICT", "SRML_TORCH_FLEET_SEED_ADDRESSES",
-              "SRML_TORCH_FLEET_DRAIN_TIMEOUT_S", "SRML_TORCH_AUTOSCALE_HIGH_WATERMARK"):
+              "SRML_TORCH_FLEET_DRAIN_TIMEOUT_S", "SRML_TORCH_AUTOSCALE_HIGH_WATERMARK",
+              "SRML_TORCH_SERVE_AOT"):
         env.pop(k, None)
     out = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.stdout.strip() == ("[None, '', False, 0.25, True, None, 0.0, True, None, 3, 16, "
-                                  "30.0, 8.0, 5, []]"), \
+                                  "30.0, 8.0, 5, True, []]"), \
         out.stderr

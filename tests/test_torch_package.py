@@ -135,6 +135,24 @@ def test_the_serving_scheduler_is_scanned_and_loads_neither_jax_nor_pyarrow():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_the_aot_module_is_scanned_and_loads_neither_jax_nor_pyarrow():
+    """``serve/aot.py`` (the held per-bucket programs) is in the scan above,
+    imports nothing of JAX, and loads neither JAX nor pyarrow."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")}
+    assert "spark_rapids_ml_tpu_torch/serve/aot.py" in scanned
+    assert [r for r, _ in _imported_roots(PORT / "serve" / "aot.py") if r in FORBIDDEN] == []
+    code = (
+        "import sys, spark_rapids_ml_tpu_torch.serve.aot; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'spark_rapids_ml_tpu', 'pyarrow', 'pandas')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_the_fleet_modules_are_scanned_and_load_neither_jax_nor_pyarrow():
     """``serve/router.py`` and ``serve/gossip.py`` are in the scan above,
     import nothing of JAX, and load neither JAX nor pyarrow."""

@@ -4,8 +4,9 @@
 On the CPU, float64 compute and accumulation in both packages, the JAX
 daemon in process with its jit ledger off (``jax_ledger_off``, which also
 turns its metrics off: the reference's counts are its own tests'), both
-daemons batching on the ladder "8,32,128" with the JAX ``serve_aot`` off
-(its trace warmup, the only mode the port has):
+daemons batching on the ladder "8,32,128" with both packages' ``serve_aot``
+off (the trace warmup; AOT at registration is
+``tests/test_torch_serve_aot.py``'s):
 
 * ``parse_buckets`` and ``reachable_buckets`` equal for the same specs;
 * the warmup ack equal to the JAX daemon's;
@@ -74,6 +75,7 @@ def _serving_config():
             stack.enter_context(cfg.option("serve_batch_buckets", BUCKETS))
             stack.enter_context(cfg.option("serve_batch_window_ms", 20.0))
         stack.enter_context(jax_config.option("serve_aot", False))
+        stack.enter_context(config.option("serve_aot", False))
         yield
 
 

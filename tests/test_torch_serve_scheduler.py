@@ -19,8 +19,10 @@ the JAX ladder of "8,32,128" and a 30 ms window so concurrent clients meet:
   scheduler fails its queued requests with busy, and the busy and
   request counters of the daemon.
 
-Left out: the tools panel (the port has no ``tools.top`` yet) and the AOT
-warmup (the port captures no per-bucket program: ``aot`` is false).
+The port's ``serve_aot`` is off here: these cases hold the trace warmup
+(``aot`` false), the fallback of AOT at registration, which
+``tests/test_torch_serve_aot.py`` holds. Left out: the tools panel (the
+port has no ``tools.top`` yet).
 """
 
 import gc
@@ -55,7 +57,8 @@ D = 24
 
 @pytest.fixture(autouse=True)
 def _f64():
-    with config.option("compute_dtype", "float64"), config.option("accum_dtype", "float64"):
+    with config.option("compute_dtype", "float64"), config.option("accum_dtype", "float64"), \
+            config.option("serve_aot", False):
         yield
 
 
